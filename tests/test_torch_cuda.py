@@ -1,0 +1,118 @@
+"""Card-only tests of tpullm_torch: each CUDA kernel against its plain
+version on the card, and a short Engine run of the tiny model. They skip
+without an NVIDIA GPU; on a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpullm_torch.gguf.constants import GGMLType
+from tpullm_torch.ops import qmatmul
+from tpullm_torch.ops.kernels import flash, qmm
+
+pytestmark = pytest.mark.cuda
+
+# NMSE bounds of the JAX package's on-chip conformance sweep
+QMM_NMSE_BOUND = 5e-4
+FLASH_NMSE_BOUND = 2e-3
+FLASH_Q8_NMSE_BOUND = 5e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _nmse(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float(((got - ref) ** 2).mean() / (ref * ref).mean().clamp_min(1e-300))
+
+
+def _planes(name, n_out, n_in, dev, seed):
+    from tpullm_torch.models.synth import random_packed
+
+    raw = random_packed(np.random.default_rng(seed), GGMLType[name], n_out * n_in)
+    return qmatmul.repack(np.frombuffer(raw, np.uint8), GGMLType[name], n_out, n_in, dev)
+
+
+@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (5, 1024, 256), (37, 512, 1028),
+                                   (300, 768, 512)])
+def test_qmm_kernel_matches_plain(dev, name, M, K, N):
+    planes = _planes(name, N, K, dev, seed=M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    before = qmm.LAUNCHES[name]
+    got = qmm.qmm(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("T,S,D,softcap,window,sinks,alibi", [
+    (1, 100, 128, 0.0, 0, False, False),
+    (40, 300, 64, 0.0, 0, False, False),
+    (40, 300, 128, 30.0, 0, False, False),
+    (17, 256, 64, 0.0, 48, False, False),
+    (1, 256, 128, 0.0, 0, True, False),
+    (33, 200, 64, 0.0, 0, False, True),
+    (20, 160, 128, 25.0, 32, True, True),
+])
+def test_flash_kernel_matches_plain(dev, q8, T, S, D, softcap, window, sinks, alibi):
+    B, H, Hkv = 2, 8, 2
+    g = torch.Generator(dev).manual_seed(T + S)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    off = torch.tensor([0, S - T - 3], dtype=torch.int32, device=dev)
+    sk = torch.randn(H, generator=g, device=dev) if sinks else None
+    sl = torch.linspace(0.5, 0.01, H, device=dev) if alibi else None
+    scale = D ** -0.5
+    if q8:
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        k_q, k_s = QuantKVCache._quantize(k)
+        v_q, v_s = QuantKVCache._quantize(v)
+        got = flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, scale, softcap, window, sk, sl)
+        ref = flash.flash_reference(q, k_q, v_q, off, scale, softcap, window, sk, sl,
+                                    k_scale=k_s, v_scale=v_s)
+        bound = FLASH_Q8_NMSE_BOUND
+    else:
+        got = flash.flash_attention(q, k, v, off, scale, softcap, window, sk, sl)
+        ref = flash.flash_reference(q, k, v, off, scale, softcap, window, sk, sl)
+        bound = FLASH_NMSE_BOUND
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= bound
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+def test_engine_on_the_card_matches_the_cpu(dev, tmp_path, kv):
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny.gguf", shape="tiny", seed=0)
+    kv_dtype = torch.bfloat16 if kv == "bf16" else "q8_0"
+    gpu = Engine(path, max_seq=256, kv_dtype=kv_dtype)
+    cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv_dtype)
+    assert gpu.device.type == "cuda"
+    ids = gpu.tokenizer.tokenize("the quick brown fox", add_special=True)
+    before = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES["q8" if kv == "q8_0" else "bf16"]
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    after = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES["q8" if kv == "q8_0" else "bf16"]
+    assert after[0] > before[0] and after[1] == before[1] + 4 * gpu.hp.n_layer
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)

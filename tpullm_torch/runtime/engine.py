@@ -1,0 +1,174 @@
+"""Single-context inference engine: model load, bucketed prefill, decode loop
+with sampling on the device.
+
+The JAX package jits a prefill per bucket and a `lax.scan` decode chunk; here
+PyTorch runs eagerly, so a Python loop of decode steps stands in for the
+scan. The sampled token stays a device tensor and feeds the next step, so
+the host reads token ids back once per chunk and never reads logits on the
+generation path.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import tokenizer as tokenizer_mod
+from ..device import resolve_device
+from ..gguf.reader import GGUFReader
+from ..models.registry import get_arch, load_hparams
+from ..models.weights import fuse_llama_params
+from ..ops.sampling_ops import SamplingParams, sample_token
+from .kvcache import make_cache
+
+PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+PREFILL_CHUNK = 4096  # longer prompts prefill in chunks of this many tokens
+
+
+@dataclass
+class PerfCounters:
+    t_load_s: float = 0.0
+    t_prefill_s: float = 0.0
+    n_prefill: int = 0
+    t_decode_s: float = 0.0
+    n_decode: int = 0
+
+
+class Engine:
+    def __init__(self, model_path, *, device=None, max_seq: int = 2048,
+                 kv_dtype=torch.bfloat16):
+        """`device=None` means CUDA (raises when there is none); the tests
+        pass device="cpu". `kv_dtype` is a torch dtype or "q8_0"."""
+        self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        self.reader = GGUFReader(model_path)
+        self.hp = load_hparams(self.reader)
+        self.arch = get_arch(self.hp.arch)
+        self.tokenizer = tokenizer_mod.from_gguf(self.reader)
+        with torch.inference_mode():
+            params = self.arch.build_params(self.reader, self.hp, self.device)
+            self.params = fuse_llama_params(params)
+        self.max_seq = max_seq
+        self.batch = 1
+        self.prefill_cap = min(max_seq, PREFILL_CHUNK)
+        self.cache = make_cache(self.hp, self.batch, max_seq, kv_dtype, self.device)
+        self.n_past = 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # load time includes the repack
+        self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
+
+    def reset(self):
+        self.n_past = 0
+
+    def _bucket(self, n: int) -> int:
+        for b in PREFILL_BUCKETS:
+            if n <= b:
+                return min(b, self.max_seq)
+        raise ValueError(f"prompt of {n} tokens exceeds max bucket")
+
+    def _positions(self, start: int, count: int) -> torch.Tensor:
+        pos = torch.arange(start, start + count, dtype=torch.int32, device=self.device)
+        return pos[None].expand(self.batch, count)
+
+    @torch.inference_mode()
+    def _prefill_logits(self, tokens: list[int]) -> torch.Tensor:
+        """Run the prompt through the cache; logits of its last token [V]
+        (f32, on the device)."""
+        n = len(tokens)
+        if self.n_past + n > self.max_seq:
+            raise ValueError(f"context overflow: {self.n_past}+{n} > {self.max_seq}")
+        while n > self.prefill_cap:  # long prompts prefill in chunks
+            self._prefill_logits(tokens[: self.prefill_cap])
+            tokens = tokens[self.prefill_cap:]
+            n = len(tokens)
+        bucket = self._bucket(n)
+        toks = np.zeros((self.batch, bucket), dtype=np.int64)
+        toks[0, :n] = tokens
+        logits, self.cache = self.arch.forward(
+            self.hp, self.params, torch.from_numpy(toks).to(self.device),
+            self._positions(self.n_past, bucket), self.cache, self.n_past,
+            last_index=n - 1)
+        self.n_past += n
+        return logits[0, 0]
+
+    @torch.inference_mode()
+    def _decode_logits(self, token: torch.Tensor) -> torch.Tensor:
+        """One decode step on a device token tensor; next-token logits [V]."""
+        if self.n_past >= self.max_seq:
+            raise ValueError(f"context overflow: decode at n_past={self.n_past} >= "
+                             f"max_seq={self.max_seq}")
+        logits, self.cache = self.arch.forward(
+            self.hp, self.params, token.reshape(1, 1).expand(self.batch, 1),
+            self._positions(self.n_past, 1), self.cache, self.n_past)
+        self.n_past += 1
+        return logits[0, 0]
+
+    def prefill(self, tokens: list[int]) -> np.ndarray:
+        """Feed prompt tokens; returns logits of the last token [n_vocab]."""
+        t0 = time.perf_counter()
+        out = self._prefill_logits(list(tokens)).cpu().numpy()
+        self.perf.t_prefill_s += time.perf_counter() - t0
+        self.perf.n_prefill += len(tokens)
+        return out
+
+    def decode_step(self, token: int) -> np.ndarray:
+        """Feed one token; returns next-token logits [n_vocab]."""
+        t0 = time.perf_counter()
+        tok = torch.full((1,), int(token), dtype=torch.int64, device=self.device)
+        out = self._decode_logits(tok).cpu().numpy()
+        self.perf.t_decode_s += time.perf_counter() - t0
+        self.perf.n_decode += 1
+        return out
+
+    def generate_tokens_device(self, prompt_tokens: list[int], max_new_tokens: int = 128,
+                               temp: float = 0.0, top_k: int = 40, top_p: float = 0.95,
+                               min_p: float = 0.05, seed: int = 0,
+                               stop_on_eog: bool = True, chunk: int = 32) -> list[int]:
+        """Generation with sampling on the device: each sampled id stays on
+        the device and feeds the next step; ids are read back once per
+        chunk of `chunk` steps."""
+        sp = SamplingParams(temp, top_k, top_p, min_p)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        vocab = self.tokenizer.vocab
+        prompt_tokens = list(prompt_tokens)
+
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tok = sample_token(self._prefill_logits(prompt_tokens), gen, sp)
+            first = int(tok)  # sync point: the prefill has actually run
+        self.perf.t_prefill_s += time.perf_counter() - t0
+        self.perf.n_prefill += len(prompt_tokens)
+        out: list[int] = []
+        if stop_on_eog and vocab.is_eog(first):
+            return out
+        out.append(first)
+
+        t0 = time.perf_counter()
+        while len(out) < max_new_tokens and self.n_past + chunk < self.max_seq:
+            with torch.inference_mode():
+                steps = []
+                for _ in range(chunk):
+                    tok = sample_token(self._decode_logits(tok), gen, sp)
+                    steps.append(tok)
+                ids = torch.stack(steps).tolist()
+            self.perf.n_decode += chunk
+            done = False
+            for t in ids:
+                if (stop_on_eog and vocab.is_eog(t)) or len(out) >= max_new_tokens:
+                    done = True
+                    break
+                out.append(t)
+            if done or len(out) >= max_new_tokens:
+                break
+        self.perf.t_decode_s += time.perf_counter() - t0
+        return out
+
+    def generate(self, prompt: str, max_new_tokens: int = 128) -> str:
+        """Greedy generation through the device sampler."""
+        ids = self.tokenizer.tokenize(prompt, add_special=True, parse_special=True)
+        return self.tokenizer.detokenize(
+            self.generate_tokens_device(ids, max_new_tokens, temp=0.0))
