@@ -8,17 +8,25 @@ Phases, in order; any failure raises and exits nonzero:
  2. build: compiles every kernel from tpullm_torch/csrc with nvcc, one
     process per source, and prints the `-Xptxas -v` report;
  3. kernels vs plain: each kernel against its plain PyTorch version on the
-    card at the Llama-3-8B shapes of the main path (qmm: Q4_K and Q6_K,
-    M in {1, 512}; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA
-    32/8) plus small softcap / window / sink / ALiBi cases, held to the NMSE
-    bounds of the JAX package's conformance sweep; each timed with CUDA
-    events beside its bound and a PyTorch library call;
- 4. slice: the tiny model served on the card against the CPU, then a
-    Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by Engine with a
-    bf16 and with a q8 KV cache: three prompts (one of 512 tokens), 64
-    generated tokens each, one prompt twice for determinism; load time,
-    TTFT, pp512 and decode tok/s, peak memory, and each kernel's launches;
- 5. the card line, the `kernels` JSON line, and the result line.
+    card at the shapes of the main paths (qmm: Q4_K and Q6_K at the
+    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, M in
+    {1, 512}; qmm_stack and qmm_gather: Q4_K and Q6_K expert stacks at
+    Mixtral's 4096→14336 and 14336→4096, stack M = 512 with a shared and a
+    per-expert x, gather T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512},
+    S = 4096, GQA 32/8, plus small softcap / window / sink / ALiBi cases),
+    held to the NMSE bounds of the JAX package's conformance sweep; each
+    timed with CUDA events beside its bound and a PyTorch library call;
+ 4. tiny: the tiny dense and the tiny MoE model served on the card against
+    the CPU;
+ 5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
+    Engine with a bf16 and with a q8 KV cache: three prompts (one of 512
+    tokens), 64 generated tokens each, one prompt twice for determinism;
+    load time, TTFT, pp512 and decode tok/s, peak memory, each kernel's
+    launches against the count expected per forward;
+ 6. mixtral: the 8B file deleted, a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the
+    8-expert recipe) synthesized from a seed and served the same way with a
+    bf16 KV cache, the expert kernels' launches checked per regime;
+ 7. the card line, the `kernels` JSON line, and the result line.
 
 Imports nothing of JAX or of the tpullm package. Exits nonzero without CUDA
 or without the repository beside it.
@@ -27,6 +35,7 @@ or without the repository beside it.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -49,16 +58,32 @@ PEAK_BF16 = 989e12
 # the 8B linears, (name, K = n_in, N = n_out)
 QMM_SHAPES = (("qkv", 4096, 6144), ("wo", 4096, 4096), ("gate_up", 4096, 28672),
               ("down", 14336, 4096), ("head", 4096, 128256))
+# Mixtral's Q5_K attn_output and Q8_0 attn_k/attn_v
+MIXTRAL_ATTN_SHAPES = (("wo", 4096, 4096), ("wkv", 4096, 1024))
+# Mixtral's expert stacks: 8 experts, gate and up 4096→14336, down 14336→4096
+N_EXPERT = 8
+EXPERT_SHAPES = (("gate", 4096, 14336), ("down", 14336, 4096))
+KERNELS = ("qmm_q4k", "qmm_q6k", "qmm_q5k", "qmm_q8_0", "qmm_stack", "qmm_gather",
+           "flash_bf16", "flash_q8")
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
+                  "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
+                  "qmm_stack": "Q4_K gate M=512 shared", "qmm_gather": "Q4_K gate T=2",
                   "flash_bf16": "bf16 T=1 S=4096", "flash_q8": "q8 T=1 S=4096"}
 REPLACES = {
     "qmm_q4k": "tpullm/ops/pallas/qmm.py:121",
     "qmm_q6k": "tpullm/ops/pallas/qmm.py:121",
+    "qmm_q5k": "tpullm/ops/pallas/qmm.py:121",
+    "qmm_q8_0": "tpullm/ops/pallas/qmm.py:121",
+    "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
+    "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
     "flash_bf16": "tpullm/ops/pallas/flash.py:69",
     "flash_q8": "tpullm/ops/pallas/flash.py:69",
 }
 SOURCES = {"qmm_q4k": "tpullm_torch/csrc/qmm.cu", "qmm_q6k": "tpullm_torch/csrc/qmm.cu",
+           "qmm_q5k": "tpullm_torch/csrc/qmm.cu", "qmm_q8_0": "tpullm_torch/csrc/qmm.cu",
+           "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
+           "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
            "flash_bf16": "tpullm_torch/csrc/flash.cu", "flash_q8": "tpullm_torch/csrc/flash.cu"}
 
 
@@ -132,7 +157,8 @@ def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
     makes them on the host), repacked to device planes."""
     import torch
 
-    from tpullm_torch.gguf.constants import TYPE_TRAITS, GGMLType
+    from tpullm_torch.gguf.constants import TYPE_TRAITS
+    from tpullm_torch.models.synth import SCALE_FIELDS
     from tpullm_torch.ops import qmatmul
 
     tt = TYPE_TRAITS[gtype]
@@ -141,7 +167,7 @@ def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
                         dtype=torch.uint8)
     d = ((torch.rand(nb, generator=gen, device=dev) + 0.5) * 0.02).to(torch.float16)
     db = d.view(torch.uint8).reshape(nb, 2)
-    for off in ((0, 2) if gtype == GGMLType.Q4_K else (208,)):
+    for off in SCALE_FIELDS[gtype]:
         raw[:, off:off + 2] = db
     return qmatmul.repack(raw.reshape(-1), gtype, n_out, n_in, dev)
 
@@ -154,8 +180,11 @@ def phase_qmm(dev, results: dict):
     from tpullm_torch.ops.kernels import qmm
 
     gen = torch.Generator(dev).manual_seed(0)
-    for gtype, key in ((GGMLType.Q4_K, "qmm_q4k"), (GGMLType.Q6_K, "qmm_q6k")):
-        for name, K, N in QMM_SHAPES:
+    for gtype, key, shapes in ((GGMLType.Q4_K, "qmm_q4k", QMM_SHAPES),
+                               (GGMLType.Q6_K, "qmm_q6k", QMM_SHAPES),
+                               (GGMLType.Q5_K, "qmm_q5k", MIXTRAL_ATTN_SHAPES),
+                               (GGMLType.Q8_0, "qmm_q8_0", MIXTRAL_ATTN_SHAPES)):
+        for name, K, N in shapes:
             planes = _random_planes(gtype, N, K, gen, dev)
             plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
             w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
@@ -182,6 +211,84 @@ def phase_qmm(dev, results: dict):
                     f"cublas-on-dequantized {lib:.4f} ms")
             del w_lib, planes
     torch.cuda.empty_cache()
+
+
+def _random_stack(gtype, n_out: int, n_in: int, gen, dev) -> dict:
+    """N_EXPERT experts' random planes, stacked [E, rows, N]."""
+    import torch
+
+    per = [_random_planes(gtype, n_out, n_in, gen, dev) for _ in range(N_EXPERT)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def phase_moe_kernels(dev, results: dict):
+    """qmm_stack and qmm_gather against their plain versions at Mixtral's
+    expert shapes; library call: torch.matmul on experts already dequantized
+    to bf16 (for the gather, the ids gather of those experts inside the
+    timed call)."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import qmm
+
+    gen = torch.Generator(dev).manual_seed(2)
+    M = 512
+    for gtype in (GGMLType.Q4_K, GGMLType.Q6_K):
+        for name, K, N in EXPERT_SHAPES:
+            planes = _random_stack(gtype, N, K, gen, dev)
+            expert_bytes = sum(t.numel() * t.element_size() for t in planes.values()) / N_EXPERT
+            w_lib = torch.stack([qmatmul.dequant_planes({k: v[e] for k, v in planes.items()},
+                                                        gtype, N, K, dtype=torch.bfloat16)
+                                 for e in range(N_EXPERT)])  # [E, K, N]
+            cases = []
+            for batched in (False, True):
+                shape = (N_EXPERT, M, K) if batched else (M, K)
+                x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+                cases.append(("qmm_stack", f"{gtype.name} {name} M={M} "
+                              f"{'batched' if batched else 'shared'}",
+                              lambda x=x: qmm.qmm_stack(x, planes, gtype, N, K),
+                              lambda x=x: qmm.qmm_stack_reference(x, planes, gtype, N, K),
+                              lambda x=x: torch.matmul(x, w_lib),
+                              x.numel() * 2 + N_EXPERT * expert_bytes + N_EXPERT * M * N * 2,
+                              2.0 * N_EXPERT * M * K * N, 3))
+            for T in (2, 32):
+                x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+                if T == 2:  # one decode token: its top-2, two distinct experts
+                    ids = torch.randperm(N_EXPERT, generator=gen, device=dev)[:2].int()
+                else:  # the 16-token bucket's slots, with a repeated expert
+                    ids = torch.randint(0, N_EXPERT, (T,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+                    ids[-1] = ids[0]
+                n_unique = int(torch.unique(ids).numel())  # the experts this run reads
+                cases.append(("qmm_gather", f"{gtype.name} {name} T={T}",
+                              lambda x=x, ids=ids: qmm.qmm_gather(x, ids, planes, gtype, N, K),
+                              lambda x=x, ids=ids: qmm.qmm_gather_reference(x, ids, planes,
+                                                                            gtype, N, K),
+                              lambda x=x, ids=ids: torch.bmm(x[:, None, :],
+                                                             w_lib[ids.long()])[:, 0],
+                              x.numel() * 2 + T * 4 + n_unique * expert_bytes + T * N * 2,
+                              2.0 * T * K * N, 20 if T == 2 else 5))
+            for key, label, kernel, plain, library, n_bytes, flops, iters in cases:
+                got, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                err = nmse(got.float(), ref.float())
+                mae = float((got.float() - ref.float()).abs().max())
+                expect(bool(torch.isfinite(got.float()).all()), f"{key} {label} finite")
+                expect(err <= QMM_NMSE_BOUND, f"{key} {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+                bms, by = bound_ms(n_bytes, flops)
+                row = dict(case=label, nmse=err, max_abs_err=mae, ms=time_ms(kernel, iters),
+                           plain_ms=time_ms(plain, 1, 1), bound_ms=bms, bound_by=by,
+                           library_ms=time_ms(library, iters))
+                row["gbps"] = n_bytes / row["ms"] / 1e6
+                row["tflops"] = flops / row["ms"] / 1e9
+                results.setdefault(key, []).append(row)
+                log(f"[moe] {key} {label}: nmse {err:.2e} max|d| {mae:.3g} kernel "
+                    f"{row['ms']:.4f} ms ({row['gbps']:.0f} GB/s, {row['tflops']:.1f} TFLOP/s) "
+                    f"bound {bms:.4f} ms ({by}) plain {row['plain_ms']:.3f} ms "
+                    f"matmul-on-dequantized {row['library_ms']:.4f} ms")
+            del planes, w_lib, cases
+            torch.cuda.empty_cache()
 
 
 def _flash_case(dev, gen, *, q8, B, T, H, Hkv, D, S, offsets, softcap=0.0, window=0,
@@ -285,7 +392,7 @@ def phase_flash(dev, results: dict):
 def reset_launches():
     from tpullm_torch.ops.kernels import flash, qmm
 
-    for d in (qmm.LAUNCHES, flash.LAUNCHES):
+    for d in (qmm.LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES, flash.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -294,34 +401,75 @@ def read_launches() -> dict:
     from tpullm_torch.ops.kernels import flash, qmm
 
     return {"qmm_q4k": qmm.LAUNCHES["Q4_K"], "qmm_q6k": qmm.LAUNCHES["Q6_K"],
+            "qmm_q5k": qmm.LAUNCHES["Q5_K"], "qmm_q8_0": qmm.LAUNCHES["Q8_0"],
+            "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
+            "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
             "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"]}
 
 
-def expected_launches(params, n_forwards: int) -> tuple[int, int]:
-    """(qmm launches, flash launches) for n_forwards forward passes."""
-    from tpullm_torch.models.weights import FusedLinear
+def per_forward_launches(params) -> dict:
+    """Kernel launches one forward makes: 2-D qmm (each quantized linear,
+    fused or not, and the head), expert kernels (each expert stack: in the
+    gather regime qmm_gather, else qmm_stack) and flash (one per layer)."""
+    from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
 
-    per = 1 if params["output"] is not None else 0
+    def is_quant(m):
+        return isinstance(m.base if isinstance(m, FusedLinear) else m, QuantLinear)
+
+    qmm_n = int(is_quant(params["output"])) if params["output"] is not None else 0
+    experts = 0
     for layer in params["layers"]:
-        per += 1 + 1 + 1  # attention out, ffn down, and gate+up fused or not
-        per += 1 if isinstance(layer.get("wqkv"), FusedLinear) else 3
-        if layer.get("wgu") is None:
-            per += 1
-    return per * n_forwards, len(params["layers"]) * n_forwards
+        qmm_n += sum(is_quant(m) for m in layer.values()
+                     if isinstance(m, (QuantLinear, FusedLinear)))
+        experts += sum(isinstance(m, QuantExpertStack) for m in layer.values())
+    return {"qmm": qmm_n, "experts": experts, "flash": len(params["layers"])}
+
+
+def regime(n_tokens: int) -> str:
+    """The MoE regime of a forward over n_tokens (batch 1): its prefill
+    bucket, or 1 at decode, against the gather threshold."""
+    from tpullm_torch.ops import moe
+    from tpullm_torch.runtime.engine import PREFILL_BUCKETS
+
+    bucket = next(b for b in PREFILL_BUCKETS if n_tokens <= b)
+    return "gather" if bucket <= moe._GATHER_MAX_TOKENS else "stack"
+
+
+def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
+    """Launch counts of a run against per-forward counts times the forwards
+    of each regime ({"gather": n, "stack": n})."""
+    n = sum(forwards.values())
+    qmm_got = sum(got[k] for k in ("qmm_q4k", "qmm_q6k", "qmm_q5k", "qmm_q8_0"))
+    fkey = "flash_bf16" if kv == "bf16" else "flash_q8"
+    log(f"[{label}] launches {got} over {forwards} forwards; per forward {per}")
+    expect(qmm_got == per["qmm"] * n, f"{label}: qmm launches {qmm_got} = {per['qmm']} × {n}")
+    expect(got[fkey] == per["flash"] * n, f"{label}: {fkey} launches = {per['flash']} × {n}")
+    expect(got["qmm_gather"] == per["experts"] * forwards["gather"],
+           f"{label}: qmm_gather launches {got['qmm_gather']} = {per['experts']} × "
+           f"{forwards['gather']} gather-regime forwards")
+    expect(got["qmm_stack"] == per["experts"] * forwards["stack"],
+           f"{label}: qmm_stack launches {got['qmm_stack']} = {per['experts']} × "
+           f"{forwards['stack']} stack-regime forwards")
 
 
 def phase_tiny(dev, tmp: Path):
-    """The tiny model on the card against the same model on the CPU."""
+    """The tiny dense and MoE models on the card against the same models on
+    the CPU: logits NMSE ≤ 1e-3, greedy ids equal."""
     import torch
 
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
     from tpullm_torch.runtime.engine import Engine
 
-    path = make_synthetic_llama_gguf(tmp / "tiny.gguf", shape="tiny", seed=0)
-    for kv in (torch.bfloat16, "q8_0"):
+    runs = [("tiny", torch.bfloat16, "the quick brown fox jumps over the lazy dog"),
+            ("tiny", "q8_0", "the quick brown fox jumps over the lazy dog"),
+            # 52 tokens: the all-experts regime at prefill, the gather regime at decode
+            ("tiny-moe", torch.bfloat16, "the lazy dog jumps over the quick brown fox hello world"),
+            ("tiny-moe", torch.bfloat16, "hello world")]  # a gather-regime prefill
+    for shape, kv, prompt in runs:
+        path = make_synthetic_llama_gguf(tmp / f"{shape}.gguf", shape=shape, seed=0)
         gpu = Engine(path, max_seq=256, kv_dtype=kv)
         cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv)
-        ids = gpu.tokenizer.tokenize("the quick brown fox jumps over the lazy dog")
+        ids = gpu.tokenizer.tokenize(prompt)
         errs = [nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
         for tok in (300, 17, 42, 260, 5):
             errs.append(nmse(torch.from_numpy(gpu.decode_step(tok)),
@@ -330,10 +478,11 @@ def phase_tiny(dev, tmp: Path):
         cpu.reset()
         a = gpu.generate_tokens_device(ids, 16)
         b = cpu.generate_tokens_device(ids, 16)
-        log(f"[tiny] kv={'bf16' if kv is torch.bfloat16 else kv}: logits NMSE card vs cpu max {max(errs):.2e}; greedy "
-            f"{'equal' if a == b else 'DIFFERENT'}")
-        expect(max(errs) <= 1e-3, f"tiny kv={kv} logits NMSE {max(errs):.3e} <= 1e-3")
-        expect(a == b, f"tiny kv={kv} greedy ids card {a} vs cpu {b}")
+        kv_name = "bf16" if kv is torch.bfloat16 else kv
+        log(f"[tiny] {shape} kv={kv_name} {len(ids)}-token prompt: logits NMSE card vs cpu "
+            f"max {max(errs):.2e}; greedy {'equal' if a == b else 'DIFFERENT'}")
+        expect(max(errs) <= 1e-3, f"{shape} kv={kv_name} logits NMSE {max(errs):.3e} <= 1e-3")
+        expect(a == b, f"{shape} kv={kv_name} greedy ids card {a} vs cpu {b}")
 
 
 def profile_decode(eng, ids, steps: int = 16) -> dict:
@@ -348,13 +497,14 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
         for _ in range(steps):
             tok = int(np.argmax(eng.decode_step(tok)))
         torch.cuda.synchronize()
-    fam = {"qmm": 0.0, "flash": 0.0, "other": 0.0}
+    fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0:
             continue
-        kind = "qmm" if "qmm" in e.key else "flash" if "flash_kernel" in e.key else "other"
+        kind = next((k for k in ("qmm_stack", "qmm_gather", "qmm") if k in e.key),
+                    "flash" if "flash_kernel" in e.key else "other")
         fam[kind] += us
         top.append((us, e.key, e.count))
     top.sort(reverse=True)
@@ -363,88 +513,165 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
             "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
 
 
-def phase_slice(dev, tmp: Path, launches: dict) -> list[dict]:
+def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
+    """(bytes of every plane resident on the card, plane bytes one decode
+    token streams: every 2-D linear and the head, and n_expert_used
+    experts of each stack)."""
+    import torch
+
+    from tpullm_torch.models.weights import QuantExpertStack
+
+    def nbytes(m):
+        return sum(b.numel() * b.element_size() for b in m.buffers())
+
+    resident = per_token = 0.0
+    for m in [params["output"], *[v for layer in params["layers"] for v in layer.values()]]:
+        if not isinstance(m, torch.nn.Module):
+            continue
+        resident += nbytes(m)
+        per_token += (nbytes(m) / m.n_expert * n_expert_used
+                      if isinstance(m, QuantExpertStack) else nbytes(m))
+    return resident, per_token
+
+
+def serve(label: str, path, kv, launches: dict, lens: tuple | None = None) -> dict:
+    """Serves the GGUF at `path` through Engine: one warm-up generation,
+    then three prompts and the second again, 64 greedy tokens each; a
+    profiled decode window; launch counts against the expected count per
+    forward of each MoE regime. The prompts are "hello world", its words
+    six times and 512 word tokens (10, 307 and 512 tokens), or, with
+    `lens`, BOS and word tokens to those lengths."""
+    import torch
+
+    from tpullm_torch.runtime.engine import Engine
+
+    n_gen = 64
+    kv_name = "bf16" if kv is torch.bfloat16 else "q8_0"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # just before the main path
+    eng = Engine(path, max_seq=4096, kv_dtype=kv)
+    resident, per_token = plane_bytes(eng.params, max(eng.hp.n_expert_used, 1))
+    log(f"[{label}] kv={kv_name}: loaded in {eng.perf.t_load_s:.1f}s; planes resident "
+        f"{resident / 2**30:.2f} GiB; one decode token streams {per_token / 1e9:.3f} GB of "
+        f"planes, a bound of {per_token / PEAK_BYTES * 1e3:.3f} ms per token")
+    tok = eng.tokenizer
+    words = "the quick brown fox jumps over the lazy dog hello world".split()
+
+    def word_ids(n: int) -> list[int]:
+        return [1] + [tok.vocab.token_to_id["▁" + words[i % len(words)]] for i in range(n - 1)]
+
+    if lens is None:
+        prompts = [tok.tokenize("hello world"), tok.tokenize(" ".join(words * 6)), word_ids(512)]
+    else:
+        prompts = [word_ids(n) for n in lens]
+    expect(len(prompts[2]) == 512, "the long prompt has 512 tokens")
+    forwards = {"gather": 0, "stack": 0}
+
+    def count(n_prompt: int, n_decode: int):
+        forwards[regime(n_prompt)] += 1
+        forwards["gather"] += n_decode  # a decode step is one token
+
+    # one short generation first: lazy set-up (allocator, first launches)
+    # is paid once per process, not per request
+    eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False)
+    count(len(prompts[0]), eng.perf.n_decode)
+    per_prompt = []
+    for i, ids in enumerate(prompts + [prompts[1]]):
+        eng.reset()
+        p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
+        out = eng.generate_tokens_device(ids, n_gen, temp=0.0, stop_on_eog=False)
+        ttft = eng.perf.t_prefill_s - p0[0]
+        dec_s, dec_n = eng.perf.t_decode_s - p0[1], eng.perf.n_decode - p0[2]
+        count(len(ids), dec_n)
+        expect(len(out) == n_gen, f"prompt {i}: {len(out)} tokens generated")
+        expect(all(0 <= t < eng.hp.n_vocab for t in out), "token ids in range")
+        per_prompt.append(dict(n_prompt=len(ids), ttft_s=ttft, decode_tok_s=dec_n / dec_s,
+                               out=out))
+        log(f"[{label}] kv={kv_name} prompt {i} ({len(ids)} tok, {regime(len(ids))} regime): "
+            f"TTFT {ttft * 1e3:.1f} ms ({len(ids) / ttft:.1f} tok/s prefill), decode "
+            f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}")
+    expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
+    prof = profile_decode(eng, prompts[0])
+    count(len(prompts[0]), prof["steps"])
+    busy = sum(prof["device_ms_per_token"].values())
+    wall = 1e3 / float(np.median([p["decode_tok_s"] for p in per_prompt]))
+    log(f"[{label}] kv={kv_name} profile: device ms per decode token "
+        f"{ {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } = "
+        f"{busy:.3f} ms busy of {wall:.3f} ms per token unprofiled (median rate) "
+        f"(idle share {1 - busy / wall:.3f}); top {prof['top']}"
+        if busy > 0 else f"[{label}] kv={kv_name} profile: no device time recorded "
+        "(device busy share not measured)")
+    eng.reset()
+    logits = eng.prefill(prompts[0])
+    count(len(prompts[0]), 0)
+    expect(logits.shape == (eng.hp.n_vocab,) and bool(np.isfinite(logits).all()),
+           "final logits finite, [n_vocab]")
+    torch.cuda.synchronize()
+    got = read_launches()  # just after the main path
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{label}] kv={kv_name}: load {eng.perf.t_load_s:.1f}s, peak memory {peak:.2f} GiB")
+    check_launches(f"{label} kv={kv_name}", got, per_forward_launches(eng.params), forwards,
+                   kv_name)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    run = dict(model=label, kv=kv_name, load_s=eng.perf.t_load_s, peak_gib=peak,
+               resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
+               decode_bound_ms=per_token / PEAK_BYTES * 1e3,
+               ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
+               n_prompt=[p["n_prompt"] for p in per_prompt],
+               pp512_tok_s=512 / per_prompt[2]["ttft_s"],
+               decode_tok_s=[p["decode_tok_s"] for p in per_prompt],
+               launches=got, forwards=forwards,
+               device_ms_per_token=prof["device_ms_per_token"],
+               idle_share=(1 - busy / wall) if busy > 0 else None)
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_slice(tmp: Path, launches: dict) -> list[dict]:
+    """Llama-3-8B Q4_K_M with a bf16 and a q8 KV cache; the file is
+    deleted after, to leave the disk to Mixtral."""
     import torch
 
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
-    from tpullm_torch.runtime.engine import Engine
 
     t0 = time.perf_counter()
-    path = make_synthetic_llama_gguf(tmp / "llama-3-8b-q4_k_m.gguf", shape="llama-3-8b", seed=0)
-    log(f"[slice] synthesized {Path(path).stat().st_size / 2**30:.2f} GiB Llama-3-8B Q4_K_M "
+    path = Path(make_synthetic_llama_gguf(tmp / "llama-3-8b-q4_k_m.gguf",
+                                          shape="llama-3-8b", seed=0))
+    log(f"[slice] synthesized {path.stat().st_size / 2**30:.2f} GiB Llama-3-8B Q4_K_M "
         f"GGUF in {time.perf_counter() - t0:.1f}s")
-    n_gen = 64
-    runs = []
-    for kv in (torch.bfloat16, "q8_0"):
-        kv_name = "bf16" if kv is torch.bfloat16 else "q8_0"
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()  # just before the main path
-        eng = Engine(path, max_seq=4096, kv_dtype=kv)
-        tok = eng.tokenizer
-        words = "the quick brown fox jumps over the lazy dog hello world".split()
-        long_ids = [1] + [tok.vocab.token_to_id["▁" + words[i % len(words)]]
-                          for i in range(511)]
-        prompts = [tok.tokenize("hello world"),
-                   tok.tokenize(" ".join(words * 6)),
-                   long_ids]
-        expect(len(long_ids) == 512, "the long prompt has 512 tokens")
-        # one short generation first: lazy set-up (allocator, first launches)
-        # is paid once per process, not per request
-        eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False)
-        forwards = 1 + eng.perf.n_decode
-        per_prompt = []
-        for i, ids in enumerate(prompts + [prompts[1]]):
-            eng.reset()
-            p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
-            out = eng.generate_tokens_device(ids, n_gen, temp=0.0, stop_on_eog=False)
-            ttft = eng.perf.t_prefill_s - p0[0]
-            dec_s, dec_n = eng.perf.t_decode_s - p0[1], eng.perf.n_decode - p0[2]
-            forwards += 1 + dec_n
-            expect(len(out) == n_gen, f"prompt {i}: {len(out)} tokens generated")
-            expect(all(0 <= t < eng.hp.n_vocab for t in out), "token ids in range")
-            per_prompt.append(dict(n_prompt=len(ids), ttft_s=ttft, decode_tok_s=dec_n / dec_s,
-                                   out=out))
-            log(f"[slice] kv={kv_name} prompt {i} ({len(ids)} tok): TTFT {ttft * 1e3:.1f} ms "
-                f"({len(ids) / ttft:.1f} tok/s prefill), decode {dec_n / dec_s:.2f} tok/s "
-                f"over {dec_n} steps, first ids {out[:6]}")
-        expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
-        prof = profile_decode(eng, prompts[0])
-        forwards += 1 + prof["steps"]
-        busy = sum(prof["device_ms_per_token"].values())
-        wall = 1e3 / float(np.median([p["decode_tok_s"] for p in per_prompt]))
-        log(f"[slice] kv={kv_name} profile: device ms per decode token "
-            f"{ {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } = "
-            f"{busy:.3f} ms busy of {wall:.3f} ms per token unprofiled (median rate) "
-            f"(idle share {1 - busy / wall:.3f}); top {prof['top']}"
-            if busy > 0 else f"[slice] kv={kv_name} profile: no device time recorded "
-            "(device busy share not measured)")
-        eng.reset()
-        logits = eng.prefill(prompts[0])
-        forwards += 1
-        expect(logits.shape == (eng.hp.n_vocab,) and bool(np.isfinite(logits).all()),
-               "final logits finite, [n_vocab]")
-        torch.cuda.synchronize()
-        got = read_launches()  # just after the main path
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        want_qmm, want_flash = expected_launches(eng.params, forwards)
-        fkey = "flash_bf16" if kv_name == "bf16" else "flash_q8"
-        log(f"[slice] kv={kv_name}: load {eng.perf.t_load_s:.1f}s, peak memory {peak:.2f} GiB, "
-            f"launches {got} over {forwards} forwards (qmm expected {want_qmm}, flash "
-            f"expected {want_flash})")
-        expect(got["qmm_q4k"] > 0 and got["qmm_q6k"] > 0, "both qmm formats launched")
-        expect(got["qmm_q4k"] + got["qmm_q6k"] == want_qmm, "qmm launches = forwards × linears")
-        expect(got[fkey] == want_flash, "flash launches = forwards × n_layer")
-        for k, v in got.items():
-            launches[k] = launches.get(k, 0) + v
-        runs.append(dict(kv=kv_name, load_s=eng.perf.t_load_s, peak_gib=peak,
-                         ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
-                         pp512_tok_s=512 / per_prompt[2]["ttft_s"],
-                         decode_tok_s=[p["decode_tok_s"] for p in per_prompt],
-                         launches=got, forwards=forwards,
-                         device_ms_per_token=prof["device_ms_per_token"]))
-        del eng
+    runs = [serve("slice", path, kv, launches) for kv in (torch.bfloat16, "q8_0")]
+    path.unlink()
     return runs
+
+
+def phase_mixtral(tmp: Path, launches: dict) -> dict:
+    """Mixtral-8x7B Q4_K_M (the 8-expert recipe) at full width and depth,
+    with a bf16 KV cache."""
+    import torch
+
+    from tpullm_torch.models.synth import synthetic_writer
+
+    path = tmp / "mixtral-8x7b-q4_k_m.gguf"
+    writer = synthetic_writer(path, shape="mixtral-8x7b", seed=0)
+    need = writer.payload_bytes()
+    disk = shutil.disk_usage(tmp)
+    log(f"[mixtral] {tmp}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB; "
+        f"the file needs {need / 1e9:.1f} GB")
+    expect(disk.free > need + 2e9, f"{disk.free / 1e9:.1f} GB free in {tmp} holds the "
+           f"{need / 1e9:.1f} GB Mixtral GGUF with 2 GB to spare")
+    t0 = time.perf_counter()
+    writer.write()
+    log(f"[mixtral] synthesized {path.stat().st_size / 2**30:.2f} GiB Mixtral-8x7B Q4_K_M "
+        f"GGUF in {time.perf_counter() - t0:.1f}s")
+    run = serve("mixtral", path, torch.bfloat16, launches, lens=(3, 60, 512))
+    expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0
+           and run["launches"]["qmm_q5k"] > 0 and run["launches"]["qmm_q8_0"] > 0,
+           "mixtral ran the stack, gather, Q5_K and Q8_0 kernels")
+    path.unlink()
+    return run
 
 
 def main() -> int:
@@ -467,19 +694,27 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    smi = phase_card()
-    phase_build()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f}s")
+        return out
+
+    smi = timed("card", phase_card)
+    timed("build", phase_build)
     results: dict = {}
-    phase_qmm(dev, results)
-    phase_flash(dev, results)
+    timed("qmm", phase_qmm, dev, results)
+    timed("moe kernels", phase_moe_kernels, dev, results)
+    timed("flash", phase_flash, dev, results)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
-        phase_tiny(dev, Path(tmp))
-        runs = phase_slice(dev, Path(tmp), launches)
-    log("[slice] summary " + json.dumps({"slice": runs}))
+        timed("tiny", phase_tiny, dev, Path(tmp))
+        runs = timed("slice", phase_slice, Path(tmp), launches)
+        runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
+    log("[runs] summary " + json.dumps({"runs": runs}))
 
     kernels = []
-    for key in ("qmm_q4k", "qmm_q6k", "flash_bf16", "flash_q8"):
+    for key in KERNELS:
         rows = results[key]
         rep = next(r for r in rows if r["case"] == REPRESENTATIVE[key])
         kernels.append(dict(

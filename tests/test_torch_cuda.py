@@ -40,7 +40,7 @@ def _planes(name, n_out, n_in, dev, seed):
     return qmatmul.repack(np.frombuffer(raw, np.uint8), GGMLType[name], n_out, n_in, dev)
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("name", ["Q4_K", "Q6_K", "Q5_K", "Q8_0"])
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (5, 1024, 256), (37, 512, 1028),
                                    (300, 768, 512)])
 def test_qmm_kernel_matches_plain(dev, name, M, K, N):
@@ -54,6 +54,62 @@ def test_qmm_kernel_matches_plain(dev, name, M, K, N):
     ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
     assert got.shape == (M, N) and torch.isfinite(got.float()).all()
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+def _stack(name, E, n_out, n_in, dev, seed):
+    from tpullm_torch.gguf.reader import GGUFTensorInfo
+    from tpullm_torch.models.synth import random_packed
+    from tpullm_torch.models.weights import load_expert_stack
+
+    raw = random_packed(np.random.default_rng(seed), GGMLType[name], E * n_out * n_in)
+    info = GGUFTensorInfo("blk.0.ffn_up_exps.weight", GGMLType[name], (n_in, n_out, E), 0, raw)
+    return load_expert_stack(info, dev)
+
+
+@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
+@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (24, 768, 512), (40, 512, 1028)])
+def test_qmm_stack_kernel_matches_plain(dev, name, batched, M, K, N):
+    E = 4
+    stack = _stack(name, E, N, K, dev, seed=M)
+    g = torch.Generator(dev).manual_seed(M)
+    x = torch.randn(*((E, M, K) if batched else (M, K)), generator=g, device=dev)
+    x = x.to(torch.bfloat16)
+    before = qmm.STACK_LAUNCHES[name]
+    got = qmm.qmm_stack(x, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    assert qmm.STACK_LAUNCHES[name] == before + 1
+    ref = qmm.qmm_stack_reference(x, stack.planes, stack.gtype, N, K)
+    assert got.shape == (E, M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("T,K,N", [(2, 512, 768), (2, 1536, 256), (9, 512, 1028),
+                                   (32, 768, 512)])
+def test_qmm_gather_kernel_matches_plain(dev, name, T, K, N):
+    E = 8
+    stack = _stack(name, E, N, K, dev, seed=T)
+    g = torch.Generator(dev).manual_seed(T)
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+    ids[-1] = ids[0]  # a repeated expert
+    before = qmm.GATHER_LAUNCHES[name]
+    got = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    assert qmm.GATHER_LAUNCHES[name] == before + 1
+    ref = qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, N, K)
+    assert got.shape == (T, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+def test_qmm_gather_kernel_gives_nan_rows_for_ids_outside_the_stack(dev):
+    stack = _stack("Q4_K", 4, 512, 512, dev, seed=1)
+    x = torch.randn(3, 512, device=dev).to(torch.bfloat16)
+    ids = torch.tensor([0, 7, 2], dtype=torch.int32, device=dev)
+    got = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, 512, 512)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1].float()).all() and torch.isfinite(got[[0, 2]].float()).all()
 
 
 @pytest.mark.parametrize("q8", [False, True])
@@ -116,3 +172,25 @@ def test_engine_on_the_card_matches_the_cpu(dev, tmp_path, kv):
     gpu.reset()
     cpu.reset()
     assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)
+
+
+def test_moe_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """tiny-moe: the stack kernel at prefill (52 tokens, bucket 64), the
+    gather kernel at decode, the logits of the CPU's plain versions."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny-moe.gguf", shape="tiny-moe", seed=0)
+    gpu = Engine(path, max_seq=256)
+    cpu = Engine(path, device="cpu", max_seq=256)
+    ids = gpu.tokenizer.tokenize("the lazy dog jumps over the quick brown fox hello world",
+                                 add_special=True)
+    before = sum(qmm.STACK_LAUNCHES.values()), sum(qmm.GATHER_LAUNCHES.values())
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    after = sum(qmm.STACK_LAUNCHES.values()), sum(qmm.GATHER_LAUNCHES.values())
+    n = gpu.hp.n_layer
+    assert after == (before[0] + 3 * n, before[1] + 3 * 3 * n)

@@ -42,6 +42,7 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "sys.modules['tpullm'] = None\n"
         "import tpullm_torch.runtime.engine, tpullm_torch.convert, tpullm_torch.models.synth\n"
         "import tpullm_torch.ops.kernels.qmm, tpullm_torch.ops.kernels.flash\n"
+        "import tpullm_torch.ops.moe, tpullm_torch.models.llama, tpullm_torch.models.weights\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpullm.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )

@@ -19,7 +19,7 @@ from tpullm_torch.models.weights import QuantLinear
 from tpullm_torch.ops import qmatmul
 from tpullm_torch.ops.kernels import qmm
 
-TYPES = ("Q4_K", "Q6_K")
+TYPES = ("Q4_K", "Q6_K", "Q5_K", "Q8_0")
 
 
 def _nmse(got, ref) -> float:

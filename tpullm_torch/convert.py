@@ -4,10 +4,12 @@
 its arrays converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray,
 params)`), into the port's modules. The JAX containers are read by their
 attributes, so this module imports nothing of the JAX package:
-QuantLinear-like objects (`gtype`, `n_out`, `n_in`, `planes`) become
-`QuantLinear`, DenseLinear-like (`w`) `DenseLinear`, and FusedLinear-like
-(`base`, `splits`) `FusedLinear`; both the fused (`wqkv`/`wgu`) and the
-unfused layout carry over.
+QuantExpertStack-like objects (`n_expert` beside `planes`) become
+`QuantExpertStack`, QuantLinear-like (`gtype`, `n_out`, `n_in`, `planes`)
+`QuantLinear`, DenseLinear-like (`w`, the MoE router among them)
+`DenseLinear`, and FusedLinear-like (`base`, `splits`) `FusedLinear`; both
+the fused (`wqkv`/`wgu`) and the unfused layout carry over, and dense
+expert stacks stay tensors.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from .gguf.constants import GGMLType
-from .models.weights import DenseLinear, FusedLinear, QuantLinear
+from .models.weights import DenseLinear, FusedLinear, QuantExpertStack, QuantLinear
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -31,13 +33,16 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def module_from_jax(obj, device):
-    """One JAX linear container (or None) → the port's module."""
+    """One JAX weight container (or None) → the port's module."""
     if obj is None:
         return None
     if hasattr(obj, "splits"):
         return FusedLinear(module_from_jax(obj.base, device), tuple(obj.splits))
     if hasattr(obj, "planes"):
         planes = {k: tensor_from_numpy(v, device) for k, v in obj.planes.items()}
+        if hasattr(obj, "n_expert"):  # 3-D planes [E, rows, N]
+            return QuantExpertStack(GGMLType(int(obj.gtype)), obj.n_expert, obj.n_out,
+                                    obj.n_in, planes)
         return QuantLinear(GGMLType(int(obj.gtype)), obj.n_out, obj.n_in, planes)
     if hasattr(obj, "w"):
         return DenseLinear(tensor_from_numpy(obj.w, device))

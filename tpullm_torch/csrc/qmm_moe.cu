@@ -1,0 +1,164 @@
+// Fused dequantize×matmul over packed MoE expert stacks (planes [E, rows, N]),
+// for Hopper (sm_90a). Two kernels, both on the device body of qmm_body.cuh
+// (the rounding points of tpullm/ops/pallas/qmm.py::_acc_tile), for the
+// expert formats Q4_K and Q6_K (wide qw):
+//
+// qmm_stack_kernel replaces tpullm/ops/pallas/qmm.py::_kernel_stack (launched
+//   by _qmm_stack): out[e] = x(e) · dequant(W[e]) for every expert, x shared
+//   [M, K] (expert stride 0) or per expert [E, M, K]; out [E, M, N]. One
+//   expert per slice of blockIdx.y. Bound on the card: at the MoE prefill
+//   (M ≥ 32 tokens, all 8 experts) the FMAs, 2·E·M·K·N, on CUDA cores.
+//
+// qmm_gather_kernel replaces tpullm/ops/pallas/qmm.py::_kernel_gather
+//   (launched by _qmm_gather): out[t] = x[t] · dequant(W[ids[t]]), one block
+//   row per token slot. Where the TPU prefetched ids as scalars to pick the
+//   plane blocks, each block here loads its own ids[t] from device memory,
+//   so the host never reads the routing. Bound on the card: the routed
+//   experts' plane bytes (decode: 2 slots per token) against 3.35 TB/s; K is
+//   split over blockIdx.z, as in qmm.cu, so the few column blocks of a
+//   2-slot gather still fill the card.
+
+#include "qmm_body.cuh"
+
+namespace {
+
+using namespace tpullm;
+
+template <int TM, int F>
+__global__ void __launch_bounds__(kQmmThreads)
+qmm_stack_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                 const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
+                 const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ partial, int M, int K, int N, int E, int m_tiles,
+                 long long x_stride, int chunks_per_split) {
+  using P = QmmPlanes<F>;
+  const int e = blockIdx.y / m_tiles;
+  const int m0 = (blockIdx.y % m_tiles) * TM;
+  qmm_body<TM, F>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
+                  P::has_qh ? qh + e * P::qh_elems(K, N) : nullptr,
+                  scale + e * P::scale_elems(K, N),
+                  P::has_minus ? minus + e * P::scale_elems(K, N) : nullptr, out, partial,
+                  M, K, N, E * M, e * M, m0, chunks_per_split);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kQmmThreads)
+qmm_gather_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ids,
+                  const uint8_t* __restrict__ codes, const uint8_t* __restrict__ qh,
+                  const __nv_bfloat16* __restrict__ scale,
+                  const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ partial, int T, int K, int N, int E,
+                  int chunks_per_split) {
+  using P = QmmPlanes<F>;
+  const int t = blockIdx.y;
+  const int e = ids[t];  // the block loads its own expert id
+  if (e < 0 || e >= E) {
+    // an id outside the stack gives a NaN row, never another expert's product
+    const int n0 = (blockIdx.x * kQmmThreads + threadIdx.x) * kQmmCols;
+    float nan_row[1][kQmmCols];
+    for (int j = 0; j < kQmmCols; ++j) nan_row[0][j] = __int_as_float(0x7fc00000);
+    if (n0 < N) qmm_store<1>(nan_row, out, partial, 1, N, T, t, 0, n0);
+    return;
+  }
+  qmm_body<1, F>(x + (size_t)t * K, codes + e * P::code_elems(K, N),
+                 P::has_qh ? qh + e * P::qh_elems(K, N) : nullptr,
+                 scale + e * P::scale_elems(K, N),
+                 P::has_minus ? minus + e * P::scale_elems(K, N) : nullptr, out, partial,
+                 1, K, N, T, t, 0, chunks_per_split);
+}
+
+__global__ void qmm_stack_reduce_kernel(const float* __restrict__ partial,
+                                        __nv_bfloat16* __restrict__ out, long long mn,
+                                        int split) {
+  qmm_reduce_body(partial, out, mn, split);
+}
+
+__global__ void qmm_gather_reduce_kernel(const float* __restrict__ partial,
+                                         __nv_bfloat16* __restrict__ out, long long mn,
+                                         int split) {
+  qmm_reduce_body(partial, out, mn, split);
+}
+
+template <int TM, int F>
+void run_stack(dim3 grid, cudaStream_t s, const void* x, const void* codes, const void* qh,
+               const void* scale, const void* minus, void* out, void* partial, int M, int K,
+               int N, int E, int m_tiles, long long x_stride, int per) {
+  qmm_stack_kernel<TM, F><<<grid, kQmmThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), M, K, N, E, m_tiles, x_stride, per);
+}
+
+template <int F>
+int launch_stack(const void* x, const void* codes, const void* qh, const void* scale,
+                 const void* minus, void* out, void* partial, int M, int K, int N, int E,
+                 long long x_stride, int tm, int split, int per, cudaStream_t s) {
+  const int m_tiles = (M + tm - 1) / tm;
+  if ((long long)E * m_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid = qmm_grid(N, E * m_tiles, split);
+  switch (tm) {
+    case 1: run_stack<1, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
+    case 2: run_stack<2, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
+    case 4: run_stack<4, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
+    case 8: run_stack<8, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
+    case 16: run_stack<16, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long mn = (long long)E * M * N;
+  qmm_stack_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), mn, split);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_gather(const void* x, const void* ids, const void* codes, const void* qh,
+                  const void* scale, const void* minus, void* out, void* partial, int T,
+                  int K, int N, int E, int split, int per, cudaStream_t s) {
+  if (T > 65535) return (int)cudaErrorInvalidValue;
+  qmm_gather_kernel<F><<<qmm_grid(N, T, split), kQmmThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(ids),
+      static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(qh),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(minus),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(partial), T, K, N, E, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long mn = (long long)T * N;
+  qmm_gather_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<__nv_bfloat16*>(out), mn, split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// fmt: 0 Q4_K, 1 Q6_K (qw) (tpullm::QmmFmt); planes [E, rows, N]; x [M, K]
+// with x_stride 0 (shared) or [E, M, K] with x_stride M·K; out [E, M, N].
+extern "C" int tpullm_qmm_stack(int fmt, const void* x, const void* codes, const void* qh,
+                                const void* scale, const void* minus, void* out,
+                                void* partial, int M, int K, int N, int E,
+                                long long x_stride, int tm, int split, int per,
+                                void* stream_ptr) {
+  if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (fmt) {
+    case tpullm::kQ4K: return launch_stack<tpullm::kQ4K>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
+    case tpullm::kQ6K: return launch_stack<tpullm::kQ6K>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x [T, K], ids [T] int32 on the card, planes [E, rows, N] → out [T, N].
+extern "C" int tpullm_qmm_gather(int fmt, const void* x, const void* ids, const void* codes,
+                                 const void* qh, const void* scale, const void* minus,
+                                 void* out, void* partial, int T, int K, int N, int E,
+                                 int split, int per, void* stream_ptr) {
+  if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (fmt) {
+    case tpullm::kQ4K: return launch_gather<tpullm::kQ4K>(x, ids, codes, qh, scale, minus, out, partial, T, K, N, E, split, per, s);
+    case tpullm::kQ6K: return launch_gather<tpullm::kQ6K>(x, ids, codes, qh, scale, minus, out, partial, T, K, N, E, split, per, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

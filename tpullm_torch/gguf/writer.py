@@ -1,12 +1,14 @@
 """GGUF v3 writer: KV metadata, F32/F16 tensors and pre-packed quantized
-payloads (what the model synthesis needs)."""
+payloads (what the model synthesis needs). A payload may be a callable that
+produces the bytes when the file is written, so a writer of a large model
+never holds all of its payloads in host memory at once."""
 
 from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence, Union
 
 import numpy as np
 
@@ -50,12 +52,17 @@ def _infer_scalar_type(v: Any) -> GGUFValueType:
     raise TypeError(f"cannot infer GGUF type for {type(v)}")
 
 
+# bytes, or any object with the buffer protocol (a uint8 numpy array)
+Payload = Union[bytes, bytearray, memoryview, np.ndarray]
+
+
 @dataclass
 class _TensorRecord:
     name: str
     shape: tuple[int, ...]  # ne order (fastest-varying first)
     ggml_type: GGMLType
-    payload: bytes
+    payload: Payload | Callable[[], Payload]
+    n_bytes: int
 
 
 class GGUFWriter:
@@ -87,18 +94,31 @@ class GGUFWriter:
         self.add_packed_tensor(name, tuple(reversed(array.shape)), ggml_type, payload)
 
     def add_packed_tensor(self, name: str, ne_shape: Sequence[int],
-                          ggml_type: GGMLType, payload: bytes):
+                          ggml_type: GGMLType, payload: Payload | Callable[[], Payload]):
+        """`payload` is the packed bytes, or a callable that returns them
+        when the file is written (called once, in the order of the adds)."""
         n_elements = int(np.prod(ne_shape)) if len(ne_shape) else 1
         tt = TYPE_TRAITS[ggml_type]
         expect = n_elements // tt.block_size * tt.type_size
-        if len(payload) != expect:
-            raise ValueError(
-                f"tensor {name}: payload {len(payload)}B != expected {expect}B "
-                f"for {ggml_type.name} {tuple(ne_shape)}"
-            )
+        if not callable(payload):
+            self._check_size(name, payload, expect, ggml_type, ne_shape)
         if ne_shape and ne_shape[0] % tt.block_size != 0:
             row_size(ggml_type, ne_shape[0])  # raises with a good message
-        self._tensors.append(_TensorRecord(name, tuple(ne_shape), ggml_type, payload))
+        self._tensors.append(_TensorRecord(name, tuple(ne_shape), ggml_type, payload,
+                                           expect))
+
+    @staticmethod
+    def _check_size(name, payload: Payload, expect: int, ggml_type, ne_shape):
+        got = memoryview(payload).nbytes
+        if got != expect:
+            raise ValueError(
+                f"tensor {name}: payload {got}B != expected {expect}B "
+                f"for {ggml_type.name} {tuple(ne_shape)}"
+            )
+
+    def payload_bytes(self) -> int:
+        """Bytes of all tensor payloads, alignment padding excluded."""
+        return sum(t.n_bytes for t in self._tensors)
 
     def _write_str(self, out, s: str):
         raw = s.encode("utf-8")
@@ -146,7 +166,7 @@ class GGUFWriter:
             offsets = []
             for t in self._tensors:
                 offsets.append(offset)
-                offset += len(t.payload)
+                offset += t.n_bytes
                 if offset % align:
                     offset += align - offset % align
             for t, off in zip(self._tensors, offsets):
@@ -161,7 +181,9 @@ class GGUFWriter:
             if pos % align:
                 out.write(b"\x00" * (align - pos % align))
             for t in self._tensors:
-                out.write(t.payload)
+                payload = t.payload() if callable(t.payload) else t.payload
+                self._check_size(t.name, payload, t.n_bytes, t.ggml_type, t.shape)
+                out.write(payload)
                 end = out.tell()
                 if end % align:
                     out.write(b"\x00" * (align - end % align))

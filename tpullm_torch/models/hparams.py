@@ -48,6 +48,9 @@ class HParams:
     logit_scale: float = 1.0
     # NoPE interleave: every Nth layer skips rope; 0 = never
     no_rope_step: int = 0
+    # MoE (mixtral rides arch llama): experts per layer, experts per token
+    n_expert: int = 0
+    n_expert_used: int = 0
 
 
 def hparams_from_gguf(r: GGUFReader) -> HParams:
@@ -104,4 +107,6 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         residual_scale=float(k("{arch}.residual_scale", 1.0)),
         logit_scale=float(k("{arch}.logit_scale", 1.0)),
         no_rope_step=int(k("{arch}.attention.no_rope_layer_step", 0)),
+        n_expert=int(k(Keys.LLM.EXPERT_COUNT, 0)),
+        n_expert_used=int(k(Keys.LLM.EXPERT_USED_COUNT, 0)),
     )

@@ -1,9 +1,10 @@
 """LLaMA-family decoder: RMSNorm → GQA attention with RoPE and KV-cache
 append → SwiGLU FFN, residual chain, final norm and output head.
 
-The graph of the JAX package's models/llama.py (dense branch; the MoE branch
-is not ported), run eagerly: `forward` takes the cache offset as a host int
-and updates the cache in place.
+The graph of the JAX package's models/llama.py, dense FFN and MoE FFN
+(mixtral: a router, softmax top-k with renormalised weights, stacked
+experts), run eagerly: `forward` takes the cache offset as a host int and
+updates the cache in place.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import torch.nn.functional as F
 
 from ..gguf.reader import GGUFReader
 from ..ops.attention import alibi_slopes, attention_cached
+from ..ops.moe import moe_ffn, route
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_angles, rope_angles
 from .hparams import HParams
-from .weights import load_embedding, load_linear, load_vector
+from .weights import load_embedding, load_expert_stack, load_linear, load_vector
 
 Params = dict[str, Any]
 
@@ -38,9 +40,7 @@ def build_params(r: GGUFReader, hp: HParams, device,
     layers = []
     for i in range(hp.n_layer):
         p = f"blk.{i}."
-        if p + "ffn_gate_inp.weight" in t:
-            raise NotImplementedError("the MoE branch of the llama graph is not ported")
-        layers.append({
+        layer = {
             "attn_norm": vector(p + "attn_norm.weight"),
             "wq": linear(p + "attn_q.weight"),
             "wk": linear(p + "attn_k.weight"),
@@ -57,7 +57,13 @@ def build_params(r: GGUFReader, hp: HParams, device,
             "bo": vector(p + "attn_output.bias"),
             "q_norm": vector(p + "attn_q_norm.weight"),
             "k_norm": vector(p + "attn_k_norm.weight"),
-        })
+        }
+        if p + "ffn_gate_inp.weight" in t:  # mixtral: a router and stacked experts
+            layer["router"] = linear(p + "ffn_gate_inp.weight")
+            for key, name in (("w_gate_exps", "ffn_gate_exps"), ("w_up_exps", "ffn_up_exps"),
+                              ("w_down_exps", "ffn_down_exps")):
+                layer[key] = load_expert_stack(t[p + name + ".weight"], device, dtype)
+        layers.append(layer)
     return {
         "tok_embd": load_embedding(t["token_embd.weight"], device, dtype),
         "layers": layers,
@@ -108,6 +114,15 @@ def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: in
     return x + attn, cache
 
 
+def router_logits(router, hs: torch.Tensor) -> torch.Tensor:
+    """[N, n_expert] f32 router logits from bf16 hs and the bf16 router
+    weight, summed and kept in f32. The JAX graph writes a bf16 dot read as
+    f32, but XLA drops that bf16 round trip (its default excess-precision
+    rule), so the JAX package routes on f32 sums; rounding them to bf16
+    here would flip top-2 decisions whose margin is under one bf16 ulp."""
+    return hs.float() @ router.w.float()
+
+
 def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["output_norm"], hp.rms_eps)
     if params["output"] is not None:
@@ -138,12 +153,19 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
         x, cache = attn_block(hp, layer, x, rope_cs, cache, li, cache_offset,
                               offsets, slopes)
         h = rms_norm(x, layer["ffn_norm"], hp.rms_eps)
-        if layer.get("wgu") is not None:  # one plane stream for gate|up
-            gate, up = layer["wgu"](h)
+        if layer.get("router") is not None:  # the MoE branch
+            hs = h.reshape(B * T, -1)
+            weights, idx = route(router_logits(layer["router"], hs), hp.n_expert_used,
+                                 gating="softmax", norm_weights=True)
+            ffn = moe_ffn(hs, weights, idx, layer["w_gate_exps"], layer["w_up_exps"],
+                          layer["w_down_exps"]).reshape(B, T, -1)
         else:
-            gate, up = layer["w_gate"](h), layer["w_up"](h)
-        act = F.silu(gate.float()).to(up.dtype) * up
-        ffn = layer["w_down"](act)
+            if layer.get("wgu") is not None:  # one plane stream for gate|up
+                gate, up = layer["wgu"](h)
+            else:
+                gate, up = layer["w_gate"](h), layer["w_up"](h)
+            act = F.silu(gate.float()).to(up.dtype) * up
+            ffn = layer["w_down"](act)
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn

@@ -3,8 +3,10 @@
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
 so the load, repack, kernel and engine paths run at true shapes without a
-download. The type recipe is Q4_K_M's: Q4_K everywhere, Q6_K for attn_v and
-ffn_down on the `use_more_bits` layers, a Q6_K output head.
+download. The types follow llama.cpp's Q4_K_M recipe (`q4_k_m_type`),
+including its branch for 8-expert models. Payloads are drawn while the file
+is written, one tensor at a time, so a 28 GB model never sits in host
+memory.
 """
 
 from __future__ import annotations
@@ -14,19 +16,40 @@ import numpy as np
 from ..gguf.constants import GGMLType, TokenType, TYPE_TRAITS
 from ..gguf.writer import GGUFWriter
 
+# `legacy` shapes keep their first bytes: uint8 draws and block scales d of
+# 0.02·U(0.5, 1.5), which give weights of RMS 1.5 to 28 and attention that is
+# all but one-hot. The other shapes draw uint32 words and set d so that
+# every weight matrix has an RMS of n_in^-1/2, as a trained model's has.
 SHAPES = {
     "llama-3-8b": dict(n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
-                       n_ff=14336, n_vocab=128256, rope_base=500000.0),
+                       n_ff=14336, n_vocab=128256, rope_base=500000.0, legacy=True),
     # the test model: every width a multiple of 128, and of 256 on K
     "tiny": dict(n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
-                 n_ff=512, n_vocab=384, rope_base=10000.0),
+                 n_ff=512, n_vocab=384, rope_base=10000.0, legacy=True),
+    # mistralai/Mixtral-8x7B-v0.1 config.json (n_ff = intermediate_size, the
+    # width of one expert)
+    "mixtral-8x7b": dict(n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
+                         n_ff=14336, n_vocab=32000, rope_base=1000000.0,
+                         n_expert=8, n_expert_used=2),
+    # the MoE test model: 8 experts, so the recipe takes its 8-expert branch,
+    # and layer 1 is a use_more_bits layer (Q6_K ffn_down_exps)
+    "tiny-moe": dict(n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
+                     n_ff=512, n_vocab=384, rope_base=10000.0,
+                     n_expert=8, n_expert_used=2),
 }
 
 # byte offsets of the f16 scale fields per block that must be finite/small
-_SCALE_FIELDS = {
+SCALE_FIELDS = {
+    GGMLType.Q8_0: (0,),
     GGMLType.Q4_K: (0, 2),
+    GGMLType.Q5_K: (0, 2),
     GGMLType.Q6_K: (208,),
 }
+
+# RMS of a decoded weight per unit block scale d, over random_packed's draws
+# (the sub-scales and codes are random bytes)
+_RMS_PER_D = {GGMLType.Q8_0: 77.2, GGMLType.Q4_K: 311.0, GGMLType.Q5_K: 677.9,
+              GGMLType.Q6_K: 1410.7}
 
 DEFAULT_WORDS = [
     "▁the", "▁quick", "▁brown", "▁fox", "▁jumps", "▁over", "▁lazy", "▁dog",
@@ -58,28 +81,64 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
             or (i_layer - n_layer // 8) % 3 == 2)
 
 
+def q4_k_m_type(kind: str, i_layer: int, n_layer: int, n_expert: int = 0) -> GGMLType:
+    """The type llama.cpp's Q4_K_M recipe gives a llama tensor
+    (llama_tensor_get_type in src/llama-quant.cpp). `kind` is the tensor
+    name without `blk.N.` and `.weight`. Q4_K by default; Q6_K for the head
+    and for attn_v and ffn_down(_exps) on the use_more_bits layers; with
+    exactly 8 experts attn_k and attn_v are Q8_0 and attn_output Q5_K; the
+    router (ffn_gate_inp) is never quantized."""
+    if kind == "output":
+        return GGMLType.Q6_K
+    if kind == "ffn_gate_inp":
+        return GGMLType.F32
+    if n_expert == 8 and kind in ("attn_k", "attn_v"):
+        return GGMLType.Q8_0
+    if n_expert == 8 and kind == "attn_output":
+        return GGMLType.Q5_K
+    if kind in ("attn_v", "ffn_down", "ffn_down_exps") and use_more_bits(i_layer, n_layer):
+        return GGMLType.Q6_K
+    return GGMLType.Q4_K
+
+
 def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
-                  scale: float = 0.02) -> bytes:
+                  scale: float = 0.02, words: bool = False) -> np.ndarray:
+    """Random blocks of `gtype` with finite scales, as flat uint8. With
+    `words` the bytes come from uint32 draws (about twice the byte rate of
+    uint8 draws, other bytes from the same seed)."""
     tt = TYPE_TRAITS[gtype]
     nb = n_elements // tt.block_size
-    raw = rng.integers(0, 256, size=(nb, tt.type_size), dtype=np.uint8)
+    n = nb * tt.type_size
+    if words:
+        raw = rng.integers(0, 2**32, size=-(-n // 4), dtype=np.uint32).view(np.uint8)
+        raw = raw[:n].reshape(nb, tt.type_size)
+    else:
+        raw = rng.integers(0, 256, size=(nb, tt.type_size), dtype=np.uint8)
     d = (rng.uniform(0.5, 1.5, size=nb) * scale).astype(np.float16)
     db = d.view(np.uint8).reshape(nb, 2)
-    for off in _SCALE_FIELDS[gtype]:
+    for off in SCALE_FIELDS[gtype]:
         raw[:, off: off + 2] = db
-    return raw.reshape(-1).tobytes()
+    return raw.reshape(-1)
 
 
-def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b",
-                              weight_type: GGMLType = GGMLType.Q4_K,
-                              head_type: GGMLType = GGMLType.Q6_K,
-                              seed: int = 0) -> str:
+def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0) -> str:
+    """Writes the synthetic Q4_K_M model `shape` (a key of SHAPES) to
+    `path`; the same seed gives the same bytes."""
+    synthetic_writer(path, shape, seed).write()
+    return str(path)
+
+
+def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0) -> GGUFWriter:
+    """The writer of make_synthetic_llama_gguf, its payloads not drawn yet
+    (`payload_bytes()` sizes the file before it is written)."""
     cfg = SHAPES[shape]
     rng = np.random.default_rng(seed)
     n_layer, n_embd = cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = cfg["n_vocab"]
+    n_expert = cfg.get("n_expert", 0)
     head_dim = n_embd // n_head
+    legacy = cfg.get("legacy", False)
 
     tokens, scores, types = _byte_vocab(DEFAULT_WORDS)
     while len(tokens) < n_vocab:  # pad the vocab with filler tokens
@@ -99,6 +158,9 @@ def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b",
     w.add_kv("llama.rope.freq_base", cfg["rope_base"])
     w.add_kv("llama.rope.dimension_count", head_dim)
     w.add_kv("llama.vocab_size", n_vocab)
+    if n_expert:
+        w.add_kv("llama.expert_count", n_expert)
+        w.add_kv("llama.expert_used_count", cfg["n_expert_used"])
     w.add_kv("tokenizer.ggml.model", "llama")
     w.add_kv("tokenizer.ggml.tokens", tokens[:n_vocab])
     w.add_kv("tokenizer.ggml.scores", np.asarray(scores[:n_vocab], dtype=np.float32))
@@ -107,31 +169,40 @@ def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b",
     w.add_kv("tokenizer.ggml.eos_token_id", 2)
     w.add_kv("tokenizer.ggml.add_bos_token", True)
 
-    def packed(name, n_out, n_in, gtype):
-        w.add_packed_tensor(name, (n_in, n_out), gtype,
-                            random_packed(rng, gtype, n_out * n_in))
+    def packed(name, n_out, n_in, i=0, n_stack=1):
+        """A quantized weight (n_stack > 1: a stack of experts), its bytes
+        drawn when the file is written."""
+        kind = name.split(".")[-2]
+        gtype = q4_k_m_type(kind, i, n_layer, n_expert)
+        shape = (n_in, n_out) if n_stack == 1 else (n_in, n_out, n_stack)
+        scale = 0.02 if legacy else n_in ** -0.5 / _RMS_PER_D[gtype]
+        w.add_packed_tensor(name, shape, gtype, lambda: random_packed(
+            rng, gtype, n_stack * n_out * n_in, scale=scale, words=not legacy))
 
     def norm(name, n):
         w.add_tensor(name, np.ones(n, dtype=np.float32))
 
-    def bump(i):
-        if head_type != weight_type and use_more_bits(i, n_layer):
-            return GGMLType.Q6_K
-        return weight_type
-
-    packed("token_embd.weight", n_vocab, n_embd, weight_type)
+    packed("token_embd.weight", n_vocab, n_embd)
     for i in range(n_layer):
         p = f"blk.{i}."
         norm(p + "attn_norm.weight", n_embd)
-        packed(p + "attn_q.weight", n_head * head_dim, n_embd, weight_type)
-        packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, weight_type)
-        packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, bump(i))
-        packed(p + "attn_output.weight", n_embd, n_head * head_dim, weight_type)
+        packed(p + "attn_q.weight", n_head * head_dim, n_embd, i)
+        packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, i)
+        packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, i)
+        packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
         norm(p + "ffn_norm.weight", n_embd)
-        packed(p + "ffn_gate.weight", n_ff, n_embd, weight_type)
-        packed(p + "ffn_up.weight", n_ff, n_embd, weight_type)
-        packed(p + "ffn_down.weight", n_embd, n_ff, bump(i))
+        if n_expert:
+            # the router: f32 normal / sqrt(n_embd), so its logits have unit scale
+            w.add_packed_tensor(p + "ffn_gate_inp.weight", (n_embd, n_expert), GGMLType.F32,
+                                lambda: (rng.standard_normal((n_expert, n_embd))
+                                         * n_embd ** -0.5).astype("<f4").reshape(-1).view(np.uint8))
+            packed(p + "ffn_gate_exps.weight", n_ff, n_embd, i, n_expert)
+            packed(p + "ffn_up_exps.weight", n_ff, n_embd, i, n_expert)
+            packed(p + "ffn_down_exps.weight", n_embd, n_ff, i, n_expert)
+        else:
+            packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+            packed(p + "ffn_up.weight", n_ff, n_embd, i)
+            packed(p + "ffn_down.weight", n_embd, n_ff, i)
     norm("output_norm.weight", n_embd)
-    packed("output.weight", n_vocab, n_embd, head_type)
-    w.write()
-    return str(path)
+    packed("output.weight", n_vocab, n_embd)
+    return w

@@ -5,6 +5,8 @@ their loading from GGUF tensors.
 through the fused dequant matmul (ops.qmatmul.matmul: the qmm kernel on the
 card). `DenseLinear` is the F32/F16/BF16 path. `FusedLinear` concatenates
 same-input linears along N so QKV and gate+up stream one plane set.
+`QuantExpertStack` holds a MoE layer's stacked experts as planes with a
+leading expert axis; ops/moe.py computes through it.
 """
 
 from __future__ import annotations
@@ -57,6 +59,35 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return qmatmul.matmul(x, self)
+
+
+class QuantExpertStack(nn.Module):
+    """Packed-quantized stacked MoE experts, logical (E, n_out, n_in): each
+    expert's weight repacked to the plane schema of ops.qmatmul and stacked
+    on a leading expert axis ([E, rows, N] per plane), so the experts stay
+    at their packed size on the device. ops/moe.py computes through
+    ops.qmatmul.gather_matmul (decode: only the routed experts' planes are
+    read) and stack_matmul (prefill: every expert on every token)."""
+
+    def __init__(self, gtype: GGMLType, n_expert: int, n_out: int, n_in: int,
+                 planes: dict[str, torch.Tensor]):
+        super().__init__()
+        self.gtype = GGMLType(gtype)
+        self.n_expert = int(n_expert)
+        self.n_out = int(n_out)
+        self.n_in = int(n_in)
+        self._names = tuple(planes)
+        for name, t in planes.items():
+            self.register_buffer(name, t)
+
+    @property
+    def planes(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._names}
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        # the layout of the widened stack, [E, n_in, n_out]
+        return (self.n_expert, self.n_in, self.n_out)
 
 
 class FusedLinear(nn.Module):
@@ -138,6 +169,30 @@ def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.
         w = qmatmul.dequant_planes(planes, info.ggml_type, n_out, n_in, dtype=dtype)
         return w.T.contiguous()  # [n_in, n_out] → [n_vocab, n_embd]
     return torch.from_numpy(_dense_array(info)).to(device=device, dtype=dtype)
+
+
+def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16):
+    """A stacked expert tensor (ggml ne (n_in, n_out, E)) → QuantExpertStack
+    for the ported quant types, else a dense [E, n_in, n_out] tensor. The
+    packed bytes go up and are repacked one expert at a time into planes
+    allocated once for the whole stack, so the transient memory is one
+    expert's repack, not the stack's."""
+    n_in, n_out, E = info.shape
+    if not TYPE_TRAITS[info.ggml_type].is_quantized:
+        w = _dense_array(info).transpose(0, 2, 1)  # (E, n_out, n_in) → (E, n_in, n_out)
+        return torch.from_numpy(np.ascontiguousarray(w)).to(device=device, dtype=dtype)
+    if not qmatmul.supports(info.ggml_type):
+        raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
+    data = info.data.reshape(E, -1)
+    planes: dict[str, torch.Tensor] = {}
+    for e in range(E):
+        one = qmatmul.repack(data[e], info.ggml_type, n_out, n_in, device)
+        if not planes:
+            planes = {k: torch.empty((E, *v.shape), dtype=v.dtype, device=v.device)
+                      for k, v in one.items()}
+        for k, v in one.items():
+            planes[k][e].copy_(v)
+    return QuantExpertStack(info.ggml_type, E, n_out, n_in, planes)
 
 
 def load_vector(info: GGUFTensorInfo, device, dtype=torch.float32) -> torch.Tensor:

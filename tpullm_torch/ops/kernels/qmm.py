@@ -1,17 +1,27 @@
-"""The qmm kernel (fused dequantize×matmul over packed planes) and its plain
-version.
+"""The qmm kernels (fused dequantize×matmul over packed planes) and their
+plain versions.
 
-Replaces tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile (the pallas_call
-in _qmm_2d, entry qmatmul), for Q4_K (`qs` + `scale` + `minus`, G = 32,
-half-split U = 256) and Q6_K (wide `qw` + `scale`, G = 16). Source:
-tpullm_torch/csrc/qmm.cu. What bounds it on the card: the plane bytes at
-decode (M = 1) against 3.35 TB/s, the multiply-adds at prefill; the source
-note says what its design does about each.
+- `qmm` replaces tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile (the
+  pallas_call in _qmm_2d, entry qmatmul), for Q4_K (`qs` + `scale` +
+  `minus`, G = 32, half-split U = 256), Q5_K (Q4_K's planes plus the `qh`
+  bit plane), Q6_K (wide `qw` + `scale`, G = 16) and Q8_0 (int8 `qs` +
+  `scale`, G = 32). Source: tpullm_torch/csrc/qmm.cu.
+- `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
+  qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
+  or per-expert x [E, M, K] → [E, M, N].
+- `qmm_gather` replaces _kernel_gather (the pallas_call in _qmm_gather,
+  entry qmatmul_gather): row t of x [T, K] through expert ids[t] → [T, N];
+  each block reads its own id on the card.
+Both expert kernels take Q4_K and Q6_K stacks; their source is
+tpullm_torch/csrc/qmm_moe.cu, on the device body of csrc/qmm_body.cuh that
+`qmm` uses too. What bounds each on the card, and what its design does
+about it, is in the source notes.
 
-`qmm_reference` computes the same function with the same rounding points as
-`_acc_tile`: x rounded to bf16, the weight rounded to bf16 after the f32
+The plain versions compute the same functions with the same rounding points
+as `_acc_tile`: x rounded to bf16, the weight rounded to bf16 after the f32
 scale multiply, f32 sums, the min term through group sums of x, output in
-x's dtype.
+x's dtype. `qmm_stack_reference` and `qmm_gather_reference` are built on
+`qmm_reference`, expert by expert.
 """
 
 from __future__ import annotations
@@ -24,16 +34,35 @@ from ...gguf.constants import GGMLType
 from ..qmatmul import _SCHEMA, plane_values
 from . import _build
 
-# launches of the kernel, by plane format; a plain count a run can read
-LAUNCHES = {"Q4_K": 0, "Q6_K": 0}
+# launches of each kernel, by plane format; plain counts a run can read
+LAUNCHES = {"Q4_K": 0, "Q6_K": 0, "Q5_K": 0, "Q8_0": 0}
+STACK_LAUNCHES = {"Q4_K": 0, "Q6_K": 0}
+GATHER_LAUNCHES = {"Q4_K": 0, "Q6_K": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = {
-    GGMLType.Q4_K: ("tpullm_qmm_q4k", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    GGMLType.Q6_K: ("tpullm_qmm_q6k", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-}
-_CHUNK = 256  # K rows per chunk, csrc/qmm.cu kChunk
-_BLOCK_N = 512  # output columns per block, csrc/qmm.cu kBlockN
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FMT = {GGMLType.Q4_K: 0, GGMLType.Q6_K: 1, GGMLType.Q5_K: 2, GGMLType.Q8_0: 3}  # QmmFmt
+_EXPERT_TYPES = (GGMLType.Q4_K, GGMLType.Q6_K)
+_QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P)
+_GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
+_BLOCK_N = 512  # output columns per block, csrc/qmm_body.cuh kQmmBlockN
+
+
+def _code_plane(gtype: GGMLType) -> str:
+    return "qw" if gtype == GGMLType.Q6_K else "qs"
+
+
+def _plane_rows(gtype: GGMLType, K: int) -> dict[str, int]:
+    """Rows of each plane of one [K, N] weight of `gtype`."""
+    G = _SCHEMA[gtype]["G"]
+    wide = gtype in (GGMLType.Q6_K, GGMLType.Q8_0)
+    rows = {_code_plane(gtype): K if wide else K // 2, "scale": K // G}
+    if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
+        rows["minus"] = K // G
+    if gtype == GGMLType.Q5_K:
+        rows["qh"] = K // 8
+    return rows
 
 
 def qmm_reference(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
@@ -52,50 +81,145 @@ def qmm_reference(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLT
     return acc.to(x.dtype)
 
 
-def plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
-    """(rows per block, K splits, chunks per split) for an [M, K] × [K, N]
-    product: enough blocks to cover the card about four times over."""
+def _expert(planes: dict[str, torch.Tensor], e: int) -> dict[str, torch.Tensor]:
+    return {k: v[e] for k, v in planes.items()}
+
+
+def qmm_stack_reference(x: torch.Tensor, planes: dict[str, torch.Tensor],
+                        gtype: GGMLType, n_out: int, n_in: int) -> torch.Tensor:
+    """x [M, K] or [E, M, K] → [E, M, N], the plain version of qmm_stack."""
+    E = planes["scale"].shape[0]
+    return torch.stack([qmm_reference(x[e] if x.dim() == 3 else x, _expert(planes, e),
+                                      gtype, n_out, n_in) for e in range(E)])
+
+
+def qmm_gather_reference(x: torch.Tensor, ids: torch.Tensor,
+                         planes: dict[str, torch.Tensor], gtype: GGMLType, n_out: int,
+                         n_in: int) -> torch.Tensor:
+    """x [T, K], ids [T] → [T, N], the plain version of qmm_gather: the rows
+    routed to each expert go through that expert's weight together."""
+    out = torch.empty((x.shape[0], n_out), dtype=x.dtype, device=x.device)
+    ids = ids.long()
+    for e in torch.unique(ids).tolist():
+        rows = (ids == e).nonzero()[:, 0]
+        out[rows] = qmm_reference(x[rows], _expert(planes, e), gtype, n_out, n_in)
+    return out
+
+
+def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1) -> tuple[int, int, int]:
+    """(rows per block, K splits, chunks per split) for `batches` [M, K] ×
+    [K, N] products: enough blocks to cover the card about four times over."""
     tm = next(t for t in (1, 2, 4, 8, 16) if t >= min(M, 16))
-    blocks = -(-N // _BLOCK_N) * -(-M // tm)
+    blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
     n_chunks = K // _CHUNK
     split = max(1, min(n_chunks, -(-4 * n_sm // blocks)))
     per = -(-n_chunks // split)
     return tm, -(-n_chunks // per), per
 
 
+def _check(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType, K: int,
+           N: int, lead: tuple[int, ...], what: str) -> list[torch.Tensor]:
+    """Validates x and the planes of `gtype` (shapes lead + [rows, N]) for a
+    kernel call; returns [codes, qh, scale, minus] (None where absent)."""
+    rows = _plane_rows(gtype, K)
+    if sorted(planes) != sorted(rows):
+        raise ValueError(f"{what}: planes {sorted(planes)} are not those of {gtype.name}")
+    for t in [x, *planes.values()]:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{what}: every operand must be on the same CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be contiguous and 16-byte aligned")
+    if x.shape[-1] != K or K % _CHUNK or N % 4:
+        raise ValueError(f"{what}: needs K % {_CHUNK} == 0 and N % 4 == 0, got "
+                         f"K={x.shape[-1]} (weight {K}), N={N}")
+    if x.dtype != torch.bfloat16 or any(planes[k].dtype != torch.bfloat16
+                                        for k in ("scale", "minus") if k in planes):
+        raise ValueError(f"{what}: x and scale/minus must be bf16, code planes uint8")
+    for name, r in rows.items():
+        if tuple(planes[name].shape) != (*lead, r, N):
+            raise ValueError(f"{what}: plane {name} is {tuple(planes[name].shape)}, "
+                             f"not {(*lead, r, N)}")
+        if name not in ("scale", "minus") and planes[name].dtype != torch.uint8:
+            raise ValueError(f"{what}: code planes must be uint8")
+    return [planes[_code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
         n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel."""
-    if gtype not in _ARGS:
+    if gtype not in _FMT:
         raise NotImplementedError(f"qmm kernel for {gtype.name} is not ported")
-    codes = planes["qw" if gtype == GGMLType.Q6_K else "qs"]
-    tensors = [x, codes, planes["scale"]] + ([planes["minus"]] if "minus" in planes else [])
-    for t in tensors:
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError("qmm: every operand must be on the same CUDA device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("qmm: operands must be contiguous and 16-byte aligned")
-    M, K = x.shape
-    N = n_out
-    if K != n_in or K % _CHUNK or N % 4:
-        raise ValueError(f"qmm: needs K % {_CHUNK} == 0 and N % 4 == 0, got K={K}, N={N}")
-    if x.dtype != torch.bfloat16 or codes.dtype != torch.uint8 or \
-            planes["scale"].dtype != torch.bfloat16:
-        raise ValueError("qmm: x and scale/minus must be bf16, code planes uint8")
-    G = _SCHEMA[gtype]["G"]
-    rows = K // 2 if gtype == GGMLType.Q4_K else K
-    if tuple(codes.shape) != (rows, N) or tuple(planes["scale"].shape) != (K // G, N):
-        raise ValueError("qmm: plane shapes do not match the weight")
-
+    ops = _check(x, planes, gtype, n_in, n_out, (), "qmm")
+    if x.dim() != 2:
+        raise ValueError("qmm: x must be [M, K]")
+    M, K, N = x.shape[0], n_in, n_out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     tm, split, per = plan(M, K, N, n_sm)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
                           device=x.device)
-    symbol, argtypes = _ARGS[gtype]
-    fn = _build.bind("qmm", symbol, argtypes)
+    fn = _build.bind("qmm", "tpullm_qmm", _QMM_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr(), partial.data_ptr()]
-    _build.check(fn(*ptrs, M, K, N, tm, split, per, stream), f"qmm {gtype.name}")
+    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
+                    partial.data_ptr(), M, K, N, tm, split, per, stream), f"qmm {gtype.name}")
     LAUNCHES[gtype.name] += 1
+    return out
+
+
+def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
+              n_out: int, n_in: int) -> torch.Tensor:
+    """x [M, K] (shared) or [E, M, K] bf16 on the card, planes [E, rows, N]
+    → [E, M, N] bf16 through the qmm_stack kernel."""
+    if gtype not in _EXPERT_TYPES:
+        raise NotImplementedError(f"qmm_stack kernel for {gtype.name} is not ported")
+    E = planes["scale"].shape[0]
+    ops = _check(x, planes, gtype, n_in, n_out, (E,), "qmm_stack")
+    if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != E):
+        raise ValueError(f"qmm_stack: x must be [M, K] or [{E}, M, K], got {tuple(x.shape)}")
+    M, K, N = x.shape[-2], n_in, n_out
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tm, split, per = plan(M, K, N, n_sm, batches=E)
+    out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split if split > 1 else 0, E * M, N), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.bind("qmm_moe", "tpullm_qmm_stack", _STACK_ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    x_stride = M * K if x.dim() == 3 else 0
+    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
+                    partial.data_ptr(), M, K, N, E, x_stride, tm, split, per, stream),
+                 f"qmm_stack {gtype.name}")
+    STACK_LAUNCHES[gtype.name] += 1
+    return out
+
+
+def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tensor],
+               gtype: GGMLType, n_out: int, n_in: int) -> torch.Tensor:
+    """x [T, K] bf16 and ids [T] int32 on the card, planes [E, rows, N] →
+    [T, N] bf16 through the qmm_gather kernel. The ids are never read on the
+    host: an id outside 0..E-1 gives a NaN row."""
+    if gtype not in _EXPERT_TYPES:
+        raise NotImplementedError(f"qmm_gather kernel for {gtype.name} is not ported")
+    E = planes["scale"].shape[0]
+    ops = _check(x, planes, gtype, n_in, n_out, (E,), "qmm_gather")
+    T = x.shape[0]
+    if x.dim() != 2 or tuple(ids.shape) != (T,) or ids.dtype != torch.int32 \
+            or ids.device != x.device or not ids.is_contiguous():
+        raise ValueError("qmm_gather: x must be [T, K] and ids a contiguous int32 [T] "
+                         "on the same device")
+    K, N = n_in, n_out
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, split, per = plan(1, K, N, n_sm, batches=T)
+    out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split if split > 1 else 0, T, N), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.bind("qmm_moe", "tpullm_qmm_gather", _GATHER_ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(fn(_FMT[gtype], x.data_ptr(), ids.data_ptr(), *map(_ptr, ops),
+                    out.data_ptr(), partial.data_ptr(), T, K, N, E, split, per, stream),
+                 f"qmm_gather {gtype.name}")
+    GATHER_LAUNCHES[gtype.name] += 1
     return out

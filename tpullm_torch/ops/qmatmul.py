@@ -11,13 +11,23 @@ At load time ggml blocks are repacked into column-major planes
 - Q4_K: `qs` [K/2, N] uint8, 4-bit codes in half-split packing
   (byte[r] = q[r] | q[r + U/2] << 4 within each U = 256-row unit), `scale`
   and `minus` [K/32, N]: the premultiplied d·sc and dmin·m.
+- Q5_K: Q4_K's `qs`/`scale`/`minus` plus `qh` [K/8, N], the fifth bit in
+  bit-plane packing (field j of packed row r of a U-row unit holds the bit
+  of row j·U/8 + r).
 - Q6_K: widened to one signed byte per weight, `qw` [K, N] int8 stored as
   uint8 with the bias 32 folded in, `scale` [K/16, N] = d·sc.
+- Q8_0: `qs` [K, N], the int8 codes stored as uint8 (sign-extended on
+  read), `scale` [K/32, N] = d.
 
 `scale`/`minus` live on the device as bf16 (as the JAX package's
 `upload_planes` stores them). The repack runs on the device with torch bit
 ops: the packed blocks are the smallest bytes that exist, so they are what
-crosses the host link. Only the Q4_K and Q6_K rows of the schema are ported.
+crosses the host link. Only the Q4_K, Q5_K, Q6_K and Q8_0 rows of the
+schema are ported.
+
+Expert stacks (`models.weights.QuantExpertStack`) hold the same planes with
+a leading expert axis, [E, rows, N]; `stack_matmul` and `gather_matmul`
+dispatch them as `matmul` dispatches a 2-D weight.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from ..gguf.constants import GGMLType, TYPE_TRAITS
 
 # metadata: code bits, scale-group size G, split unit U (= SB), symmetric bias
 _SCHEMA = {
+    GGMLType.Q8_0: dict(bits=8, G=32, signed=True),  # bias folded by sign-extension
     GGMLType.Q4_K: dict(bits=4, G=32, SB=256),
+    GGMLType.Q5_K: dict(bits=5, G=32, SB=256),
     GGMLType.Q6_K: dict(bits=6, G=16, SB=256, bias=32),
 }
 
@@ -80,6 +92,19 @@ def _half_split_pack4(codes: torch.Tensor, unit: int) -> torch.Tensor:
     return (c[:, : unit // 2] | (c[:, unit // 2:] << 4)).reshape(K // 2, N)
 
 
+def _bitplane_pack(bits: torch.Tensor, width: int, unit: int) -> torch.Tensor:
+    """bits (K, N) uint8 < 2**width → (K·width/8, N): field j of packed row
+    r of chunk c holds bits[c·U + j·U·width/8 + r]."""
+    K, N = bits.shape
+    fields = 8 // width
+    rows = unit * width // 8  # packed rows per chunk
+    c = bits.reshape(K // unit, fields, rows, N)
+    out = torch.zeros((K // unit, rows, N), dtype=torch.uint8, device=bits.device)
+    for j in range(fields):
+        out |= c[:, j] << (j * width)
+    return out.reshape(K * width // 8, N)
+
+
 def _scale_min_k4(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Q4_K 12-byte packed 6-bit scales/mins → (sc, m) each (..., 8) int32."""
     q = q.to(torch.int32)
@@ -96,14 +121,22 @@ def _decode_blocks(b: torch.Tensor, gtype: GGMLType, n_out: int):
     scale (K/G, N) f32, minus (K/G, N) f32 | None). Every factored scale
     is resolved here, in f32."""
     nb = b.shape[1]
-    if gtype == GGMLType.Q4_K:
+    if gtype == GGMLType.Q8_0:
+        codes = b[..., 2:34]  # int8 bits stored as u8
+        return _col(codes, n_out), _col(_f16(b[..., 0:2]), n_out), None
+    if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
         d = _f16(b[..., 0:2])
         dmin = _f16(b[..., 2:4])
         sc, mi = _scale_min_k4(b[..., 4:16])
         scale = d[..., None] * sc.float()  # exact ggml d1 = d·sc
         minus = dmin[..., None] * mi.float()
-        qs = b[..., 16:144].reshape(n_out, nb, 4, 32)
+        off = 16 if gtype == GGMLType.Q4_K else 48
+        qs = b[..., off:off + 128].reshape(n_out, nb, 4, 32)
         codes = torch.cat([qs & 0x0F, qs >> 4], dim=3).reshape(n_out, nb, 256)
+        if gtype == GGMLType.Q5_K:
+            qh = b[..., 16:48]
+            hb = torch.stack([(qh >> j) & 1 for j in range(8)], dim=2)  # (n_out, nb, 8, 32)
+            codes = codes | (hb.reshape(n_out, nb, 256) << 4)
         return _col(codes, n_out), _col(scale, n_out), _col(minus, n_out)
     if gtype == GGMLType.Q6_K:
         ql = b[..., 0:128].reshape(n_out, nb, 2, 64)
@@ -127,12 +160,18 @@ def repack_planes(blocks: torch.Tensor, gtype: GGMLType, n_out: int,
     b = blocks.reshape(n_out, n_in // tt.block_size, tt.type_size)
     codes, scale, minus = _decode_blocks(b, gtype, n_out)
     meta = _SCHEMA[gtype]
+    U = split_unit(gtype)
     planes: dict[str, torch.Tensor] = {}
     if gtype in WIDE_TYPES:
         qw = (codes.to(torch.int16) - meta["bias"]).to(torch.int8)
         planes["qw"] = qw.view(torch.uint8)
+    elif meta["bits"] == 8:
+        planes["qs"] = codes
+    elif meta["bits"] == 5:
+        planes["qs"] = _half_split_pack4(codes & 0x0F, U)
+        planes["qh"] = _bitplane_pack(codes >> 4, 1, U)
     else:
-        planes["qs"] = _half_split_pack4(codes, split_unit(gtype))
+        planes["qs"] = _half_split_pack4(codes, U)
     planes["scale"] = scale
     if minus is not None:
         planes["minus"] = minus
@@ -161,13 +200,30 @@ def _half_split_unpack4(qs: torch.Tensor, unit: int) -> torch.Tensor:
     return torch.cat([c & 0x0F, c >> 4], dim=1).reshape(rows * 2, N)
 
 
+def _bitplane_unpack(q: torch.Tensor, width: int, unit: int) -> torch.Tensor:
+    rows, N = q.shape
+    fields = 8 // width
+    mask = (1 << width) - 1
+    chunk_rows = unit * width // 8
+    c = q.reshape(rows // chunk_rows, chunk_rows, N)
+    return torch.cat([(c >> (j * width)) & mask for j in range(fields)],
+                     dim=1).reshape(rows * fields, N)
+
+
 def plane_values(planes: dict[str, torch.Tensor], gtype: GGMLType) -> torch.Tensor:
-    """(K, N) f32 unscaled values: wide int8 `qw` planes (bias pre-folded)
-    or half-split 4-bit codes."""
+    """(K, N) f32 unscaled values: wide int8 `qw` planes (bias pre-folded),
+    sign-extended int8 `qs` (Q8_0), or half-split 4-bit codes with the
+    fifth bit from the `qh` bit plane (Q5_K)."""
     if "qw" in planes:
         return planes["qw"].view(torch.int8).float()
-    if _SCHEMA[gtype]["bits"] == 4:
-        return _half_split_unpack4(planes["qs"], split_unit(gtype)).float()
+    bits, U = _SCHEMA[gtype]["bits"], split_unit(gtype)
+    if bits == 8:
+        return planes["qs"].view(torch.int8).float()
+    if bits == 4:
+        return _half_split_unpack4(planes["qs"], U).float()
+    if bits == 5:
+        return (_half_split_unpack4(planes["qs"], U)
+                | (_bitplane_unpack(planes["qh"], 1, U) << 4)).float()
     raise NotImplementedError(f"planes of {gtype.name} are not ported")
 
 
@@ -197,3 +253,29 @@ def matmul(x: torch.Tensor, ql) -> torch.Tensor:
     else:
         out = qmm.qmm_reference(x2, ql.planes, ql.gtype, ql.n_out, ql.n_in)
     return out.reshape(*lead, ql.n_out)
+
+
+def stack_matmul(x: torch.Tensor, stack) -> torch.Tensor:
+    """All-experts packed matmul (MoE prefill): x [M, K] (shared) or
+    [E, M, K] (per expert) through a QuantExpertStack → [E, M, n_out]. A
+    CUDA tensor goes to the qmm_stack kernel, a CPU tensor to its plain
+    version."""
+    from .kernels import qmm
+
+    if x.is_cuda:
+        return qmm.qmm_stack(x.contiguous(), stack.planes, stack.gtype, stack.n_out,
+                             stack.n_in)
+    return qmm.qmm_stack_reference(x, stack.planes, stack.gtype, stack.n_out, stack.n_in)
+
+
+def gather_matmul(x: torch.Tensor, ids: torch.Tensor, stack) -> torch.Tensor:
+    """Expert-indexed packed matmul (MoE decode): row t of x [T, K] through
+    expert ids[t] → [T, n_out], reading only the routed experts' planes. A
+    CUDA tensor goes to the qmm_gather kernel (which reads `ids` on the
+    card), a CPU tensor to its plain version."""
+    from .kernels import qmm
+
+    if x.is_cuda:
+        return qmm.qmm_gather(x.contiguous(), ids.to(torch.int32).contiguous(), stack.planes,
+                              stack.gtype, stack.n_out, stack.n_in)
+    return qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, stack.n_out, stack.n_in)
