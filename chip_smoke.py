@@ -5,28 +5,36 @@
 
 Phases, in order; any failure raises and exits nonzero:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
- 2. build: compiles every kernel from tpullm_torch/csrc with nvcc, one
-    process per source, and prints the `-Xptxas -v` report;
+ 2. build: compiles every kernel library from tpullm_torch/csrc with nvcc,
+    one process per library (the qmm sources once per layout family), and
+    prints each library's compile seconds and the `-Xptxas -v` report;
  3. kernels vs plain: each kernel against its plain PyTorch version on the
     card at the shapes of the main paths (qmm: Q4_K and Q6_K at the
-    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, M in
-    {1, 512}; qmm_stack and qmm_gather: Q4_K and Q6_K expert stacks at
-    Mixtral's 4096→14336 and 14336→4096, stack M = 512 with a shared and a
-    per-expert x, gather T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512},
-    S = 4096, GQA 32/8, plus small softcap / window / sink / ALiBi cases),
-    held to the NMSE bounds of the JAX package's conformance sweep; each
-    timed with CUDA events beside its bound and a PyTorch library call;
- 4. tiny: the tiny dense and the tiny MoE model served on the card against
-    the CPU;
+    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, the nine
+    formats of the later presets at the 8B gate_up and down, M in {1, 512};
+    qmm_stack and qmm_gather: all 13 formats as expert stacks at Mixtral's
+    4096→14336 and 14336→4096, stack M = 512 with a shared x (and, for Q4_K
+    and Q6_K, a per-expert x), gather T in {2, 32}; flash: bf16 and q8 KV, T
+    in {1, 512}, S = 4096, GQA 32/8, plus small softcap / window / sink /
+    ALiBi cases), held to the NMSE bounds of the JAX package's conformance
+    sweep; each timed with CUDA events beside its bound and a PyTorch
+    library call;
+ 4. tiny: the tiny dense model at every dense preset and the tiny MoE at
+    Q4_K_M and MXFP4_MOE, served on the card against the CPU;
  5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
     Engine with a bf16 and with a q8 KV cache: three prompts (one of 512
     tokens), 64 generated tokens each, one prompt twice for determinism;
     load time, TTFT, pp512 and decode tok/s, peak memory, each kernel's
     launches against the count expected per forward;
- 6. mixtral: the 8B file deleted, a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the
-    8-expert recipe) synthesized from a seed and served the same way with a
-    bf16 KV cache, the expert kernels' launches checked per regime;
- 7. the card line, the `kernels` JSON line, and the result line.
+ 6. presets: Llama-3-8B served the same way at Q2_K (bf16 and q8 KV), IQ4_XS
+    and Q4_0 at full depth; then at Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M
+    with 4 layers, one prompt and 16 decode steps each; then Mixtral-8x7B at
+    MXFP4_MOE with 4 layers (a 64-token prompt through qmm_stack, decode
+    through qmm_gather);
+ 7. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
+    synthesized from a seed and served the same way with a bf16 KV cache,
+    the expert kernels' launches checked per regime;
+ 8. the card line, the `kernels` JSON line, and the result line.
 
 Imports nothing of JAX or of the tpullm package. Exits nonzero without CUDA
 or without the repository beside it.
@@ -58,30 +66,33 @@ PEAK_BF16 = 989e12
 # the 8B linears, (name, K = n_in, N = n_out)
 QMM_SHAPES = (("qkv", 4096, 6144), ("wo", 4096, 4096), ("gate_up", 4096, 28672),
               ("down", 14336, 4096), ("head", 4096, 128256))
+# the 8B FFN linears, for the formats of the later presets
+PRESET_QMM_SHAPES = (("gate_up", 4096, 28672), ("down", 14336, 4096))
 # Mixtral's Q5_K attn_output and Q8_0 attn_k/attn_v
 MIXTRAL_ATTN_SHAPES = (("wo", 4096, 4096), ("wkv", 4096, 1024))
 # Mixtral's expert stacks: 8 experts, gate and up 4096→14336, down 14336→4096
 N_EXPERT = 8
 EXPERT_SHAPES = (("gate", 4096, 14336), ("down", 14336, 4096))
-KERNELS = ("qmm_q4k", "qmm_q6k", "qmm_q5k", "qmm_q8_0", "qmm_stack", "qmm_gather",
-           "flash_bf16", "flash_q8")
+# the qmm kernel's entry per plane format, and the shapes that hold it
+QMM_KEYS = {"Q4_K": "qmm_q4k", "Q6_K": "qmm_q6k", "Q5_K": "qmm_q5k", "Q8_0": "qmm_q8_0",
+            "Q4_0": "qmm_q4_0", "Q4_1": "qmm_q4_1", "Q5_0": "qmm_q5_0", "Q5_1": "qmm_q5_1",
+            "MXFP4": "qmm_mxfp4", "IQ4_NL": "qmm_iq4_nl", "Q2_K": "qmm_q2k",
+            "Q3_K": "qmm_q3k", "IQ4_XS": "qmm_iq4_xs"}
+QMM_CASES = {"Q4_K": QMM_SHAPES, "Q6_K": QMM_SHAPES, "Q5_K": MIXTRAL_ATTN_SHAPES,
+             "Q8_0": MIXTRAL_ATTN_SHAPES}
+KERNELS = (*QMM_KEYS.values(), "qmm_stack", "qmm_gather", "flash_bf16", "flash_q8")
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
+                  **{QMM_KEYS[f]: f"{f} gate_up M=1" for f in QMM_KEYS if f not in QMM_CASES},
                   "qmm_stack": "Q4_K gate M=512 shared", "qmm_gather": "Q4_K gate T=2",
                   "flash_bf16": "bf16 T=1 S=4096", "flash_q8": "q8 T=1 S=4096"}
-REPLACES = {
-    "qmm_q4k": "tpullm/ops/pallas/qmm.py:121",
-    "qmm_q6k": "tpullm/ops/pallas/qmm.py:121",
-    "qmm_q5k": "tpullm/ops/pallas/qmm.py:121",
-    "qmm_q8_0": "tpullm/ops/pallas/qmm.py:121",
-    "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
-    "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
-    "flash_bf16": "tpullm/ops/pallas/flash.py:69",
-    "flash_q8": "tpullm/ops/pallas/flash.py:69",
-}
-SOURCES = {"qmm_q4k": "tpullm_torch/csrc/qmm.cu", "qmm_q6k": "tpullm_torch/csrc/qmm.cu",
-           "qmm_q5k": "tpullm_torch/csrc/qmm.cu", "qmm_q8_0": "tpullm_torch/csrc/qmm.cu",
+REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
+            "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
+            "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
+            "flash_bf16": "tpullm/ops/pallas/flash.py:69",
+            "flash_q8": "tpullm/ops/pallas/flash.py:69"}
+SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
            "flash_bf16": "tpullm_torch/csrc/flash.cu", "flash_q8": "tpullm_torch/csrc/flash.cu"}
@@ -144,9 +155,10 @@ def phase_build():
 
     t0 = time.perf_counter()
     reports = _build.build()
-    log(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f}s "
-        f"into {_build.BUILD_DIR}")
-    for name, rep in reports.items():
+    log(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f}s "
+        f"into {_build.BUILD_DIR}; nvcc seconds per library "
+        f"{ {name: round(sec, 1) for name, (_, sec) in reports.items()} }")
+    for name, (rep, _) in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -158,17 +170,14 @@ def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
     import torch
 
     from tpullm_torch.gguf.constants import TYPE_TRAITS
-    from tpullm_torch.models.synth import SCALE_FIELDS
+    from tpullm_torch.models.synth import write_scales
     from tpullm_torch.ops import qmatmul
 
     tt = TYPE_TRAITS[gtype]
     nb = n_out * n_in // tt.block_size
     raw = torch.randint(0, 256, (nb, tt.type_size), generator=gen, device=dev,
                         dtype=torch.uint8)
-    d = ((torch.rand(nb, generator=gen, device=dev) + 0.5) * 0.02).to(torch.float16)
-    db = d.view(torch.uint8).reshape(nb, 2)
-    for off in SCALE_FIELDS[gtype]:
-        raw[:, off:off + 2] = db
+    write_scales(raw, gtype, (torch.rand(nb, generator=gen, device=dev) + 0.5) * 0.02)
     return qmatmul.repack(raw.reshape(-1), gtype, n_out, n_in, dev)
 
 
@@ -180,11 +189,9 @@ def phase_qmm(dev, results: dict):
     from tpullm_torch.ops.kernels import qmm
 
     gen = torch.Generator(dev).manual_seed(0)
-    for gtype, key, shapes in ((GGMLType.Q4_K, "qmm_q4k", QMM_SHAPES),
-                               (GGMLType.Q6_K, "qmm_q6k", QMM_SHAPES),
-                               (GGMLType.Q5_K, "qmm_q5k", MIXTRAL_ATTN_SHAPES),
-                               (GGMLType.Q8_0, "qmm_q8_0", MIXTRAL_ATTN_SHAPES)):
-        for name, K, N in shapes:
+    for fmt, key in QMM_KEYS.items():
+        gtype = GGMLType[fmt]
+        for name, K, N in QMM_CASES.get(fmt, PRESET_QMM_SHAPES):
             planes = _random_planes(gtype, N, K, gen, dev)
             plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
             w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
@@ -234,7 +241,8 @@ def phase_moe_kernels(dev, results: dict):
 
     gen = torch.Generator(dev).manual_seed(2)
     M = 512
-    for gtype in (GGMLType.Q4_K, GGMLType.Q6_K):
+    for fmt in QMM_KEYS:
+        gtype = GGMLType[fmt]
         for name, K, N in EXPERT_SHAPES:
             planes = _random_stack(gtype, N, K, gen, dev)
             expert_bytes = sum(t.numel() * t.element_size() for t in planes.values()) / N_EXPERT
@@ -242,7 +250,9 @@ def phase_moe_kernels(dev, results: dict):
                                                         gtype, N, K, dtype=torch.bfloat16)
                                  for e in range(N_EXPERT)])  # [E, K, N]
             cases = []
-            for batched in (False, True):
+            # a per-expert x moves one stride, the same for every format: Q4_K
+            # and Q6_K hold it
+            for batched in (False, True) if fmt in ("Q4_K", "Q6_K") else (False,):
                 shape = (N_EXPERT, M, K) if batched else (M, K)
                 x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
                 cases.append(("qmm_stack", f"{gtype.name} {name} M={M} "
@@ -398,13 +408,17 @@ def reset_launches():
 
 
 def read_launches() -> dict:
+    """Launches per kernel entry of KERNELS, and the expert kernels' by
+    format ("qmm_stack.MXFP4", ...)."""
     from tpullm_torch.ops.kernels import flash, qmm
 
-    return {"qmm_q4k": qmm.LAUNCHES["Q4_K"], "qmm_q6k": qmm.LAUNCHES["Q6_K"],
-            "qmm_q5k": qmm.LAUNCHES["Q5_K"], "qmm_q8_0": qmm.LAUNCHES["Q8_0"],
-            "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
-            "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
-            "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"]}
+    got = {key: qmm.LAUNCHES[fmt] for fmt, key in QMM_KEYS.items()}
+    got.update({"qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
+                "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
+                "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"]})
+    for kind, counts in (("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
+        got.update({f"{kind}.{fmt}": n for fmt, n in counts.items() if n})
+    return got
 
 
 def per_forward_launches(params) -> dict:
@@ -439,7 +453,7 @@ def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
     """Launch counts of a run against per-forward counts times the forwards
     of each regime ({"gather": n, "stack": n})."""
     n = sum(forwards.values())
-    qmm_got = sum(got[k] for k in ("qmm_q4k", "qmm_q6k", "qmm_q5k", "qmm_q8_0"))
+    qmm_got = sum(got[k] for k in QMM_KEYS.values())  # the 2-D launches, every format
     fkey = "flash_bf16" if kv == "bf16" else "flash_q8"
     log(f"[{label}] launches {got} over {forwards} forwards; per forward {per}")
     expect(qmm_got == per["qmm"] * n, f"{label}: qmm launches {qmm_got} = {per['qmm']} × {n}")
@@ -453,20 +467,26 @@ def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
 
 
 def phase_tiny(dev, tmp: Path):
-    """The tiny dense and MoE models on the card against the same models on
-    the CPU: logits NMSE ≤ 1e-3, greedy ids equal."""
+    """The tiny dense model at every dense preset and the tiny MoE at Q4_K_M
+    and MXFP4_MOE on the card against the same models on the CPU: logits
+    NMSE ≤ 1e-3, greedy ids equal."""
     import torch
 
-    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.models.synth import PRESETS, make_synthetic_llama_gguf
     from tpullm_torch.runtime.engine import Engine
 
-    runs = [("tiny", torch.bfloat16, "the quick brown fox jumps over the lazy dog"),
-            ("tiny", "q8_0", "the quick brown fox jumps over the lazy dog"),
-            # 52 tokens: the all-experts regime at prefill, the gather regime at decode
-            ("tiny-moe", torch.bfloat16, "the lazy dog jumps over the quick brown fox hello world"),
-            ("tiny-moe", torch.bfloat16, "hello world")]  # a gather-regime prefill
-    for shape, kv, prompt in runs:
-        path = make_synthetic_llama_gguf(tmp / f"{shape}.gguf", shape=shape, seed=0)
+    fox = "the quick brown fox jumps over the lazy dog"
+    # 52 tokens: the all-experts regime at prefill, the gather regime at decode
+    dog = "the lazy dog jumps over the quick brown fox hello world"
+    runs = [("tiny", "Q4_K_M", torch.bfloat16, fox), ("tiny", "Q4_K_M", "q8_0", fox),
+            ("tiny-moe", "Q4_K_M", torch.bfloat16, dog),
+            ("tiny-moe", "Q4_K_M", torch.bfloat16, "hello world"),  # a gather-regime prefill
+            *[("tiny", ftype, torch.bfloat16, fox) for ftype in PRESETS
+              if ftype not in ("Q4_K_M", "MXFP4_MOE")],
+            ("tiny", "Q2_K", "q8_0", fox), ("tiny-moe", "MXFP4_MOE", torch.bfloat16, dog)]
+    for shape, ftype, kv, prompt in runs:
+        path = make_synthetic_llama_gguf(tmp / f"{shape}-{ftype}.gguf", shape=shape, seed=0,
+                                         ftype=ftype)
         gpu = Engine(path, max_seq=256, kv_dtype=kv)
         cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv)
         ids = gpu.tokenizer.tokenize(prompt)
@@ -479,10 +499,11 @@ def phase_tiny(dev, tmp: Path):
         a = gpu.generate_tokens_device(ids, 16)
         b = cpu.generate_tokens_device(ids, 16)
         kv_name = "bf16" if kv is torch.bfloat16 else kv
-        log(f"[tiny] {shape} kv={kv_name} {len(ids)}-token prompt: logits NMSE card vs cpu "
+        what = f"{shape} {ftype} kv={kv_name}"
+        log(f"[tiny] {what} {len(ids)}-token prompt: logits NMSE card vs cpu "
             f"max {max(errs):.2e}; greedy {'equal' if a == b else 'DIFFERENT'}")
-        expect(max(errs) <= 1e-3, f"{shape} kv={kv_name} logits NMSE {max(errs):.3e} <= 1e-3")
-        expect(a == b, f"{shape} kv={kv_name} greedy ids card {a} vs cpu {b}")
+        expect(max(errs) <= 1e-3, f"{what} logits NMSE {max(errs):.3e} <= 1e-3")
+        expect(a == b, f"{what} greedy ids card {a} vs cpu {b}")
 
 
 def profile_decode(eng, ids, steps: int = 16) -> dict:
@@ -534,38 +555,45 @@ def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
     return resident, per_token
 
 
-def serve(label: str, path, kv, launches: dict, lens: tuple | None = None) -> dict:
+def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
+          short: int | None = None, n_gen: int = 64) -> dict:
     """Serves the GGUF at `path` through Engine: one warm-up generation,
-    then three prompts and the second again, 64 greedy tokens each; a
+    then three prompts and the second again, `n_gen` greedy tokens each; a
     profiled decode window; launch counts against the expected count per
     forward of each MoE regime. The prompts are "hello world", its words
     six times and 512 word tokens (10, 307 and 512 tokens), or, with
-    `lens`, BOS and word tokens to those lengths."""
+    `lens`, BOS and word tokens to those lengths. With `short`, one prompt
+    of that many word tokens and 16 greedy tokens (16 decode steps) instead
+    (a model cut to a few layers: its TTFT says little)."""
     import torch
 
     from tpullm_torch.runtime.engine import Engine
 
-    n_gen = 64
+    n_gen = 16 if short else n_gen
+    chunk = 16 if short else 32
     kv_name = "bf16" if kv is torch.bfloat16 else "q8_0"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # just before the main path
     eng = Engine(path, max_seq=4096, kv_dtype=kv)
     resident, per_token = plane_bytes(eng.params, max(eng.hp.n_expert_used, 1))
-    log(f"[{label}] kv={kv_name}: loaded in {eng.perf.t_load_s:.1f}s; planes resident "
-        f"{resident / 2**30:.2f} GiB; one decode token streams {per_token / 1e9:.3f} GB of "
-        f"planes, a bound of {per_token / PEAK_BYTES * 1e3:.3f} ms per token")
+    log(f"[{label}] kv={kv_name}: {eng.hp.n_layer} layers loaded in {eng.perf.t_load_s:.1f}s; "
+        f"planes resident {resident / 2**30:.2f} GiB; one decode token streams "
+        f"{per_token / 1e9:.3f} GB of planes, a bound of "
+        f"{per_token / PEAK_BYTES * 1e3:.3f} ms per token")
     tok = eng.tokenizer
     words = "the quick brown fox jumps over the lazy dog hello world".split()
 
     def word_ids(n: int) -> list[int]:
         return [1] + [tok.vocab.token_to_id["▁" + words[i % len(words)]] for i in range(n - 1)]
 
-    if lens is None:
+    if short:
+        prompts = [word_ids(short)]
+    elif lens is None:
         prompts = [tok.tokenize("hello world"), tok.tokenize(" ".join(words * 6)), word_ids(512)]
     else:
         prompts = [word_ids(n) for n in lens]
-    expect(len(prompts[2]) == 512, "the long prompt has 512 tokens")
+    expect(short or len(prompts[2]) == 512, "the long prompt has 512 tokens")
     forwards = {"gather": 0, "stack": 0}
 
     def count(n_prompt: int, n_decode: int):
@@ -577,10 +605,10 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None) -> di
     eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False)
     count(len(prompts[0]), eng.perf.n_decode)
     per_prompt = []
-    for i, ids in enumerate(prompts + [prompts[1]]):
+    for i, ids in enumerate(prompts if short else prompts + [prompts[1]]):
         eng.reset()
         p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
-        out = eng.generate_tokens_device(ids, n_gen, temp=0.0, stop_on_eog=False)
+        out = eng.generate_tokens_device(ids, n_gen, temp=0.0, stop_on_eog=False, chunk=chunk)
         ttft = eng.perf.t_prefill_s - p0[0]
         dec_s, dec_n = eng.perf.t_decode_s - p0[1], eng.perf.n_decode - p0[2]
         count(len(ids), dec_n)
@@ -591,7 +619,8 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None) -> di
         log(f"[{label}] kv={kv_name} prompt {i} ({len(ids)} tok, {regime(len(ids))} regime): "
             f"TTFT {ttft * 1e3:.1f} ms ({len(ids) / ttft:.1f} tok/s prefill), decode "
             f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}")
-    expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
+    if not short:
+        expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
     prof = profile_decode(eng, prompts[0])
     count(len(prompts[0]), prof["steps"])
     busy = sum(prof["device_ms_per_token"].values())
@@ -615,34 +644,74 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None) -> di
                    kv_name)
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
-    run = dict(model=label, kv=kv_name, load_s=eng.perf.t_load_s, peak_gib=peak,
-               resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
+    run = dict(model=label, kv=kv_name, n_layer=eng.hp.n_layer, load_s=eng.perf.t_load_s,
+               peak_gib=peak, resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
                decode_bound_ms=per_token / PEAK_BYTES * 1e3,
                ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
                n_prompt=[p["n_prompt"] for p in per_prompt],
-               pp512_tok_s=512 / per_prompt[2]["ttft_s"],
                decode_tok_s=[p["decode_tok_s"] for p in per_prompt],
                launches=got, forwards=forwards,
                device_ms_per_token=prof["device_ms_per_token"],
                idle_share=(1 - busy / wall) if busy > 0 else None)
+    if not short:
+        run["pp512_tok_s"] = 512 / per_prompt[2]["ttft_s"]
     del eng
     torch.cuda.empty_cache()
     return run
 
 
+def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None) -> Path:
+    """A synthetic GGUF of `shape` at preset `ftype` in `tmp`, after a check
+    that the disk holds it with 2 GB to spare."""
+    from tpullm_torch.models.synth import synthetic_writer
+
+    path = tmp / f"{shape}-{ftype.lower()}{f'-{n_layer}l' if n_layer else ''}.gguf"
+    writer = synthetic_writer(path, shape=shape, seed=0, ftype=ftype, n_layer=n_layer)
+    need, free = writer.payload_bytes(), shutil.disk_usage(tmp).free
+    expect(free > need + 2e9, f"{free / 1e9:.1f} GB free in {tmp} holds the "
+           f"{need / 1e9:.1f} GB {shape} {ftype} GGUF with 2 GB to spare")
+    t0 = time.perf_counter()
+    writer.write()
+    log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype}"
+        f"{f' ({n_layer} layers)' if n_layer else ''} GGUF in {time.perf_counter() - t0:.1f}s")
+    return path
+
+
 def phase_slice(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B Q4_K_M with a bf16 and a q8 KV cache; the file is
-    deleted after, to leave the disk to Mixtral."""
+    deleted after, to leave the disk to the next model."""
     import torch
 
-    from tpullm_torch.models.synth import make_synthetic_llama_gguf
-
-    t0 = time.perf_counter()
-    path = Path(make_synthetic_llama_gguf(tmp / "llama-3-8b-q4_k_m.gguf",
-                                          shape="llama-3-8b", seed=0))
-    log(f"[slice] synthesized {path.stat().st_size / 2**30:.2f} GiB Llama-3-8B Q4_K_M "
-        f"GGUF in {time.perf_counter() - t0:.1f}s")
+    path = synthesize(tmp, "slice", "llama-3-8b", "Q4_K_M")
     runs = [serve("slice", path, kv, launches) for kv in (torch.bfloat16, "q8_0")]
+    path.unlink()
+    return runs
+
+
+def phase_presets(tmp: Path, launches: dict) -> list[dict]:
+    """Llama-3-8B at Q2_K (a bf16 and a q8 KV cache), IQ4_XS and Q4_0 at
+    full depth, 32 tokens a prompt; at Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M
+    with 4 layers (one prompt, 16 decode steps); Mixtral-8x7B at MXFP4_MOE
+    with 4 layers, a 64-token prompt (the all-experts regime) and its decode
+    (gather)."""
+    import torch
+
+    runs = []
+    for ftype, kvs in (("Q2_K", (torch.bfloat16, "q8_0")), ("IQ4_XS", (torch.bfloat16,)),
+                       ("Q4_0", (torch.bfloat16,))):
+        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype)
+        runs += [serve(f"8b-{ftype}", path, kv, launches, n_gen=32) for kv in kvs]
+        path.unlink()
+    for ftype in ("Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
+        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
+        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
+        path.unlink()
+    path = synthesize(tmp, "mixtral-MXFP4_MOE", "mixtral-8x7b", "MXFP4_MOE", n_layer=4)
+    run = serve("mixtral-MXFP4_MOE", path, torch.bfloat16, launches, short=64)
+    expect(run["launches"].get("qmm_stack.MXFP4", 0) > 0
+           and run["launches"].get("qmm_gather.MXFP4", 0) > 0 and run["launches"]["qmm_q8_0"] > 0,
+           "mixtral MXFP4_MOE ran MXFP4 through qmm_stack and qmm_gather, Q8_0 through qmm")
+    runs.append(run)
     path.unlink()
     return runs
 
@@ -652,20 +721,7 @@ def phase_mixtral(tmp: Path, launches: dict) -> dict:
     with a bf16 KV cache."""
     import torch
 
-    from tpullm_torch.models.synth import synthetic_writer
-
-    path = tmp / "mixtral-8x7b-q4_k_m.gguf"
-    writer = synthetic_writer(path, shape="mixtral-8x7b", seed=0)
-    need = writer.payload_bytes()
-    disk = shutil.disk_usage(tmp)
-    log(f"[mixtral] {tmp}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB; "
-        f"the file needs {need / 1e9:.1f} GB")
-    expect(disk.free > need + 2e9, f"{disk.free / 1e9:.1f} GB free in {tmp} holds the "
-           f"{need / 1e9:.1f} GB Mixtral GGUF with 2 GB to spare")
-    t0 = time.perf_counter()
-    writer.write()
-    log(f"[mixtral] synthesized {path.stat().st_size / 2**30:.2f} GiB Mixtral-8x7B Q4_K_M "
-        f"GGUF in {time.perf_counter() - t0:.1f}s")
+    path = synthesize(tmp, "mixtral", "mixtral-8x7b", "Q4_K_M")
     run = serve("mixtral", path, torch.bfloat16, launches, lens=(3, 60, 512))
     expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0
            and run["launches"]["qmm_q5k"] > 0 and run["launches"]["qmm_q8_0"] > 0,
@@ -710,6 +766,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs = timed("slice", phase_slice, Path(tmp), launches)
+        runs += timed("presets", phase_presets, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
     log("[runs] summary " + json.dumps({"runs": runs}))
 
@@ -717,12 +774,25 @@ def main() -> int:
     for key in KERNELS:
         rows = results[key]
         rep = next(r for r in rows if r["case"] == REPRESENTATIVE[key])
-        kernels.append(dict(
+        entry = dict(
             name=key, route="cuda", source=SOURCES[key], replaces=REPLACES[key],
             launches=launches[key], max_abs_err=max(r["max_abs_err"] for r in rows),
             max_nmse=max(r["nmse"] for r in rows), case=rep["case"], ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-            library_ms=rep["library_ms"]))
+            library_ms=rep["library_ms"])
+        if key in ("qmm_stack", "qmm_gather"):
+            entry["formats_held"] = sorted({r["case"].split()[0] for r in rows})
+            entry["launches_by_format"] = {k.split(".")[1]: v for k, v in launches.items()
+                                           if k.startswith(key + ".")}
+        if key == "qmm_mxfp4":
+            # MXFP4 is an expert format only: its main-path launches go through
+            # the stack and gather entries of the same device body
+            entry["launches_2d"] = launches[key]
+            entry["launched_through"] = ["qmm_stack", "qmm_gather"]
+            entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
+                                 + launches.get("qmm_gather.MXFP4", 0))
+        expect(entry["launches"] > 0, f"{key} launched on the main path")
+        kernels.append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

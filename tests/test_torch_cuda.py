@@ -10,10 +10,15 @@ import pytest
 import torch
 
 from tpullm_torch.gguf.constants import GGMLType
+from tpullm_torch.models.synth import PRESETS
 from tpullm_torch.ops import qmatmul
 from tpullm_torch.ops.kernels import flash, qmm
 
 pytestmark = pytest.mark.cuda
+
+# every plane format of the qmm kernels
+FORMATS = ["Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4", "IQ4_NL",
+           "Q2_K", "Q3_K", "IQ4_XS"]
 
 # NMSE bounds of the JAX package's on-chip conformance sweep
 QMM_NMSE_BOUND = 5e-4
@@ -40,7 +45,7 @@ def _planes(name, n_out, n_in, dev, seed):
     return qmatmul.repack(np.frombuffer(raw, np.uint8), GGMLType[name], n_out, n_in, dev)
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K", "Q5_K", "Q8_0"])
+@pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (5, 1024, 256), (37, 512, 1028),
                                    (300, 768, 512)])
 def test_qmm_kernel_matches_plain(dev, name, M, K, N):
@@ -66,7 +71,7 @@ def _stack(name, E, n_out, n_in, dev, seed):
     return load_expert_stack(info, dev)
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (24, 768, 512), (40, 512, 1028)])
 def test_qmm_stack_kernel_matches_plain(dev, name, batched, M, K, N):
@@ -84,7 +89,7 @@ def test_qmm_stack_kernel_matches_plain(dev, name, batched, M, K, N):
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("T,K,N", [(2, 512, 768), (2, 1536, 256), (9, 512, 1028),
                                    (32, 768, 512)])
 def test_qmm_gather_kernel_matches_plain(dev, name, T, K, N):
@@ -194,3 +199,33 @@ def test_moe_engine_on_the_card_matches_the_cpu(dev, tmp_path):
     after = sum(qmm.STACK_LAUNCHES.values()), sum(qmm.GATHER_LAUNCHES.values())
     n = gpu.hp.n_layer
     assert after == (before[0] + 3 * n, before[1] + 3 * 3 * n)
+
+
+@pytest.mark.parametrize("ftype", [p for p in PRESETS if p != "Q4_K_M"])
+def test_preset_engine_on_the_card_matches_the_cpu(dev, tmp_path, ftype):
+    """Each tiny preset (tiny-moe for MXFP4_MOE) on the card against the
+    CPU: logits NMSE ≤ 1e-3 and the same greedy ids, every format of the
+    preset launched."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    shape = "tiny-moe" if ftype == "MXFP4_MOE" else "tiny"
+    path = make_synthetic_llama_gguf(tmp_path / "m.gguf", shape=shape, seed=0, ftype=ftype)
+    gpu = Engine(path, max_seq=256)
+    cpu = Engine(path, device="cpu", max_seq=256)
+    ids = gpu.tokenizer.tokenize("the lazy dog jumps over the quick brown fox hello world",
+                                 add_special=True)
+    before = dict(qmm.LAUNCHES), dict(qmm.STACK_LAUNCHES), dict(qmm.GATHER_LAUNCHES)
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    if ftype == "MXFP4_MOE":
+        assert qmm.STACK_LAUNCHES["MXFP4"] > before[1]["MXFP4"]
+        assert qmm.GATHER_LAUNCHES["MXFP4"] > before[2]["MXFP4"]
+    else:
+        assert qmm.LAUNCHES[ftype.removesuffix("_M")] > before[0][ftype.removesuffix("_M")]
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)

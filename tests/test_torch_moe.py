@@ -23,6 +23,9 @@ from tpullm_torch.ops import moe, qmatmul
 from tpullm_torch.ops.kernels import qmm
 
 E, N_EMBD, N_FF = 4, 256, 512
+# every plane format of the expert kernels
+FORMATS = ["Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4", "IQ4_NL",
+           "Q2_K", "Q3_K", "IQ4_XS"]
 
 
 def _nmse(got, ref) -> float:
@@ -92,7 +95,7 @@ def test_route_matches_jax_with_ties(gating, norm, bias):
 # expert stacks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K", "Q5_K", "Q8_0"])
+@pytest.mark.parametrize("name", FORMATS)
 def test_load_expert_stack_planes_bit_equal_to_jax(name):
     got, ref = _stacks(name, N_FF, N_EMBD, seed=1)
     assert isinstance(got, QuantExpertStack)
@@ -115,7 +118,7 @@ def test_load_expert_stack_keeps_float_stacks_dense():
     np.testing.assert_array_equal(got.numpy(), w.transpose(0, 2, 1))
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
 def test_stack_reference_matches_pallas_stack(name, batched):
     """The plain qmm_stack against _kernel_stack in interpret mode: the same
@@ -130,7 +133,7 @@ def test_stack_reference_matches_pallas_stack(name, batched):
     assert _nmse(_np(got), np.asarray(ref, np.float32)) <= 1e-5
 
 
-@pytest.mark.parametrize("name", ["Q4_K", "Q6_K"])
+@pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("T", [2, 9])
 def test_gather_reference_matches_pallas_gather(name, T):
     """The plain qmm_gather against _kernel_gather in interpret mode, with
@@ -178,9 +181,11 @@ def test_expert_kernel_wrappers_refuse_cpu_tensors_and_unported_formats():
         qmm.qmm_stack(x, stack.planes, stack.gtype, N_FF, N_EMBD)
     with pytest.raises(ValueError):
         qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N_FF, N_EMBD)
-    q8, _ = _stacks("Q8_0", N_FF, N_EMBD, seed=9)
-    with pytest.raises(NotImplementedError):
-        qmm.qmm_gather(x, ids, q8.planes, q8.gtype, N_FF, N_EMBD)
+    # every format the port repacks is ported; a codebook type is not
+    for fn in (lambda g: qmm.qmm_stack(x, stack.planes, g, N_FF, N_EMBD),
+               lambda g: qmm.qmm_gather(x, ids, stack.planes, g, N_FF, N_EMBD)):
+        with pytest.raises(NotImplementedError):
+            fn(GGMLType.IQ2_XXS)
 
 
 @pytest.mark.parametrize("T,K,N,expect_split", [(2, 4096, 14336, 8), (2, 14336, 4096, 28),

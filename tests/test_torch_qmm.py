@@ -2,24 +2,33 @@
 (tpullm_torch) against the JAX package's repack_np/upload_planes and its
 Pallas qmm kernel (interpret mode on the CPU)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from tpullm.gguf import constants as jconstants
 from tpullm.gguf.constants import GGMLType as JGGMLType
 from tpullm.models.weights import QuantLinear as JQuantLinear
+from tpullm.ops import device_repack as jdevice_repack
 from tpullm.ops import qmatmul as jqm
 from tpullm.ops.pallas import qmm as jqmm
+from tpullm.quant import codecs as jcodecs
 
+from tpullm_torch.gguf import constants
 from tpullm_torch.gguf.constants import GGMLType
 from tpullm_torch.models.synth import random_packed
 from tpullm_torch.models.weights import QuantLinear
 from tpullm_torch.ops import qmatmul
 from tpullm_torch.ops.kernels import qmm
 
-TYPES = ("Q4_K", "Q6_K", "Q5_K", "Q8_0")
+# the 13 formats the JAX package repacks on its device
+TYPES = ("Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4", "IQ4_NL",
+         "Q2_K", "Q3_K", "IQ4_XS")
 
 
 def _nmse(got, ref) -> float:
@@ -124,3 +133,101 @@ def test_qmm_kernel_wrapper_refuses_cpu_tensors():
     planes = qmatmul.repack(_blocks("Q4_K", 128, 256), GGMLType.Q4_K, 128, 256, "cpu")
     with pytest.raises(ValueError):
         qmm.qmm(torch.zeros(1, 256, dtype=torch.bfloat16), planes, GGMLType.Q4_K, 128, 256)
+
+
+def test_the_formats_are_those_the_jax_package_repacks_on_its_device():
+    assert {GGMLType[n] for n in TYPES} == set(qmm._FMT) == set(qmatmul._SCHEMA)
+    assert {int(t) for t in jdevice_repack.DEVICE_TYPES} == {int(GGMLType[n]) for n in TYPES}
+    for n in TYPES:
+        assert qmatmul._SCHEMA[GGMLType[n]] == jqm._SCHEMA[JGGMLType[n]], n
+
+
+def test_code_tables_are_copies_of_the_jax_package_constants():
+    assert constants.IQ4_NL_VALUES == jconstants.IQ4_NL_VALUES
+    assert constants.MXFP4_VALUES == jconstants.MXFP4_VALUES
+
+
+def test_q3_k_scales_match_the_codec():
+    raw = np.random.default_rng(3).integers(0, 256, size=(64, 12), dtype=np.uint8)
+    got = qmatmul._q3k_scales(torch.from_numpy(raw))
+    np.testing.assert_array_equal(got.numpy(), jcodecs._q3_k_scales(raw).astype(np.int64))
+
+
+def test_mxfp4_scale_is_exactly_two_to_the_e_minus_128():
+    """Every exponent byte, e = 0 and e = 1 (the f32 subnormals 2^-128 and
+    2^-127) and e = 255 (2^127) included."""
+    e = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    got = qmatmul._e8m0_half(e).numpy()
+    exact = np.array([2.0 ** (v - 128) for v in range(256)], dtype=np.float32)
+    np.testing.assert_array_equal(got, exact)
+    assert got[0] == np.float32(2.0 ** -128) != 0.0
+
+
+def _mxfp4_edge_blocks() -> np.ndarray:
+    """MXFP4 blocks of a [256, 32·256] weight: row r's blocks hold exponent
+    bytes 0..255, every code 1 (value 1 of the table: weight = 2^(e-128))."""
+    b = np.full((256, 256, 17), 0x11, dtype=np.uint8)
+    b[:, :, 0] = np.arange(256, dtype=np.uint8)[None, :]
+    return b.reshape(-1)
+
+
+def test_mxfp4_edge_exponents_match_the_host_repack_in_bf16():
+    """The JAX package's host repack (np.exp2 in f32) is one ulp low at
+    e = 255, which its bf16 upload rounds away: the bf16 planes agree at
+    every exponent."""
+    data = _mxfp4_edge_blocks()
+    ref = jqm.upload_planes(jqm.repack_np(data, JGGMLType.MXFP4, 256, 32 * 256))
+    got = qmatmul.repack(data, GGMLType.MXFP4, 256, 32 * 256, "cpu")
+    np.testing.assert_array_equal(_as_np(got["scale"]), np.asarray(ref["scale"], np.float32))
+
+
+def test_jax_device_repack_flushes_the_mxfp4_exponent_1():
+    """A fault of the JAX package's device repack (device_repack.py
+    _decode_blocks_jnp, MXFP4): e = 1 builds the bits (e-1) << 23 = 0, so a
+    block whose scale is 2^-127 (an f32 subnormal) decodes to zeros; its
+    host repack and the port give 2^-127. Every other exponent agrees."""
+    data = _mxfp4_edge_blocks()
+    jdev = jdevice_repack.repack_device(data, JGGMLType.MXFP4, 256, 32 * 256)
+    got = _as_np(qmatmul.repack(data, GGMLType.MXFP4, 256, 32 * 256, "cpu")["scale"])
+    ref = np.asarray(jdev["scale"], np.float32)
+    differ = sorted(set(np.nonzero(got != ref)[0] % 256))  # scale rows: block index e
+    assert differ == [1]
+    assert ref[1, 0] == 0.0 and got[1, 0] == np.float32(2.0 ** -127)
+
+
+@pytest.mark.parametrize("name", TYPES)
+def test_plane_rows_match_the_pallas_tiles(name):
+    rows = qmm._plane_rows(GGMLType[name], 2048)
+    planes = jqm.repack_np(_blocks(name, 128, 2048), JGGMLType[name], 128, 2048)
+    assert sorted(rows) == sorted(planes)
+    for k, r in rows.items():
+        assert r == jqmm._plane_rows(JGGMLType[name], k, 2048) == planes[k].shape[0], k
+
+
+def test_kernel_source_formats_and_families_match_the_wrappers():
+    """csrc/qmm_body.cuh's QmmFmt ids and TPULLM_QMM_FORMATS families are the
+    ones the wrappers pass and bind, and every format's layout traits agree
+    with its schema row."""
+    src = (Path(qmm.__file__).resolve().parents[2] / "csrc" / "qmm_body.cuh").read_text()
+    enum = dict(re.findall(r"\bk(\w+) = (\d+)", src[src.index("enum QmmFmt"):]))
+    names = {"Q4K": "Q4_K", "Q6K": "Q6_K", "Q5K": "Q5_K", "Q8_0": "Q8_0", "Q4_0": "Q4_0",
+             "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "MXFP4": "MXFP4",
+             "IQ4NL": "IQ4_NL", "Q2K": "Q2_K", "Q3K": "Q3_K", "IQ4XS": "IQ4_XS"}
+    assert {names[k]: int(v) for k, v in enum.items()} == {t.name: v for t, v in qmm._FMT.items()}
+    families = re.findall(r"TPULLM_QMM_FAMILY == (\d)\n#define TPULLM_QMM_FORMATS\(X\) (.*)", src)
+    got = {names[f]: int(fam) for fam, xs in families for f in re.findall(r"X\(k(\w+)\)", xs)}
+    assert got == {t.name: f for t, f in qmm._FAMILY.items()}
+    assert sorted(set(got.values())) == list(range(qmm._build.QMM_FAMILIES))
+    traits = dict(re.findall(r"QmmFormat<k(\w+)> : QmmTraits<(.*)> \{\}", src))
+    for k, args in traits.items():
+        layout, U, G, mapping, bias, minus = (a.strip() for a in args.split(","))
+        t = GGMLType[names[k]]
+        meta = qmatmul._SCHEMA[t]
+        assert int(U) == qmatmul.split_unit(t) and int(G) == meta["G"], k
+        assert (minus == "true") == qmatmul.has_minus(t), k
+        assert int(bias) == (meta.get("bias", 0) if t not in qmatmul.WIDE_TYPES else 0), k
+        want = {2: "kCrumb", 3: "kCrumbQh", 4: "kHalf", 5: "kHalfQh", 6: "kWide", 8: "kWide"}
+        assert layout == want[meta["bits"]], k
+        assert mapping == {None: "kBias" if meta.get("bias") and t not in qmatmul.WIDE_TYPES
+                           else "kIdentity", constants.MXFP4_VALUES: "kTableMxfp4",
+                           constants.IQ4_NL_VALUES: "kTableIq4nl"}[meta.get("lut")], k

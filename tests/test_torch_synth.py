@@ -1,5 +1,6 @@
-"""The synthetic models: the Q4_K_M type recipe (dense, and its branch for
-8-expert models) and seeded bytes."""
+"""The synthetic models: the type recipes of the presets (Q4_K_M dense and
+with 8 experts, Q2_K, Q3_K_M, the legacy and IQ4 presets, MXFP4_MOE), the
+block scale fields, and seeded bytes."""
 
 import hashlib
 
@@ -11,7 +12,30 @@ from tpullm.tools.quantize import tensor_type_policy
 
 from tpullm_torch.gguf.constants import GGMLType
 from tpullm_torch.gguf.reader import GGUFReader
-from tpullm_torch.models.synth import SHAPES, make_synthetic_llama_gguf, q4_k_m_type
+from tpullm_torch.models.synth import (PRESETS, SCALE_FIELDS, SHAPES, make_synthetic_llama_gguf,
+                                       preset_type, random_packed, use_more_bits)
+
+# the Q4_K_M tiny files as the seed gave them before the other presets came
+Q4_K_M_SHA256 = {"tiny": "41448b233eb76b2a74c584a4c6eedf4a5ff4c02bfe325e282913296833889172",
+                 "tiny-moe": "9462e9b4c5762ab9bfac0c47edeaa1892c9649883c2cb98043c8d5b47b48c003"}
+KINDS = ("token_embd", "attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+         "ffn_down", "ffn_gate_inp", "ffn_gate_exps", "ffn_up_exps", "ffn_down_exps", "output")
+
+
+def q4_k_m_type(kind: str, i_layer: int, n_layer: int, n_expert: int = 0) -> GGMLType:
+    """The Q4_K_M recipe as the synth wrote it before preset_type took its
+    place (kept here to hold preset_type's "Q4_K_M" branch to it)."""
+    if kind == "output":
+        return GGMLType.Q6_K
+    if kind == "ffn_gate_inp":
+        return GGMLType.F32
+    if n_expert == 8 and kind in ("attn_k", "attn_v"):
+        return GGMLType.Q8_0
+    if n_expert == 8 and kind == "attn_output":
+        return GGMLType.Q5_K
+    if kind in ("attn_v", "ffn_down", "ffn_down_exps") and use_more_bits(i_layer, n_layer):
+        return GGMLType.Q6_K
+    return GGMLType.Q4_K
 
 
 def _sha(path) -> str:
@@ -66,17 +90,17 @@ def test_dense_recipe_matches_the_jax_quantize_policy(n_layer):
                      "ffn_down"):
             want = tensor_type_policy(f"blk.{i}.{kind}.weight", JGGMLType.Q4_K, "Q4_K_M",
                                       n_layer)
-            assert int(q4_k_m_type(kind, i, n_layer)) == int(want), (i, kind)
+            assert int(preset_type("Q4_K_M", kind, i, n_layer)) == int(want), (i, kind)
     for kind in ("token_embd", "output"):
         want = tensor_type_policy(f"{kind}.weight", JGGMLType.Q4_K, "Q4_K_M", n_layer)
-        assert int(q4_k_m_type(kind, 0, n_layer)) == int(want), kind
+        assert int(preset_type("Q4_K_M", kind, 0, n_layer)) == int(want), kind
 
 
 def test_mixtral_recipe_upgrades_ffn_down_exps_on_use_more_bits_layers():
-    types = [q4_k_m_type("ffn_down_exps", i, 32, 8) for i in range(32)]
+    types = [preset_type("Q4_K_M", "ffn_down_exps", i, 32, 8) for i in range(32)]
     assert types.count(GGMLType.Q6_K) == 16 and types[0] == types[31] == GGMLType.Q6_K
-    assert {q4_k_m_type(k, 5, 32, 8) for k in ("ffn_gate_exps", "ffn_up_exps", "attn_q")} \
-        == {GGMLType.Q4_K}
+    assert {preset_type("Q4_K_M", k, 5, 32, 8) for k in ("ffn_gate_exps", "ffn_up_exps",
+                                                         "attn_q")} == {GGMLType.Q4_K}
 
 
 @pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
@@ -102,3 +126,120 @@ def test_moe_weights_have_unit_scale_activations(tiny_moe):
         assert 0.8 < rms * n_in ** 0.5 < 1.25, (name, rms)
     router = r.tensors["blk.0.ffn_gate_inp.weight"].to_numpy()
     assert 0.9 < float(np.sqrt((router ** 2).mean())) * router.shape[1] ** 0.5 < 1.1
+
+
+@pytest.mark.parametrize("shape", ["llama-3-8b", "mixtral-8x7b"])
+def test_preset_type_q4_k_m_is_the_old_recipe(shape):
+    n_layer, n_expert = SHAPES[shape]["n_layer"], SHAPES[shape].get("n_expert", 0)
+    for kind in KINDS:
+        for i in range(n_layer):
+            assert preset_type("Q4_K_M", kind, i, n_layer, n_expert) \
+                == q4_k_m_type(kind, i, n_layer, n_expert), (kind, i)
+
+
+@pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
+def test_q4_k_m_bytes_are_unchanged(tmp_path, shape):
+    assert _sha(make_synthetic_llama_gguf(tmp_path / "m.gguf", shape=shape, seed=0)) \
+        == Q4_K_M_SHA256[shape]
+
+
+def _table(ftype: str, kind: str, i: int, n: int) -> GGMLType:
+    """The preset table of llama_tensor_get_type for a dense llama with
+    n_gqa = 4 (n layers), written out row by row."""
+    T = GGMLType
+    if kind == "output":
+        return T.Q6_K
+    rows = {
+        "Q2_K": dict(default=T.Q2_K, attn_v=T.Q4_K, attn_output=T.Q3_K, ffn_down=T.Q3_K),
+        "Q3_K_M": dict(default=T.Q3_K, attn_v=T.Q5_K if i < 2 else T.Q4_K,
+                       attn_output=T.Q4_K, ffn_down=T.Q5_K if i < n // 16 else T.Q4_K),
+        "IQ4_NL": dict(default=T.IQ4_NL, attn_v=T.Q5_K,
+                       ffn_down=T.Q5_K if i < n // 8 else T.IQ4_NL),
+        "IQ4_XS": dict(default=T.IQ4_XS, attn_v=T.Q5_K,
+                       ffn_down=T.Q5_K if i < n // 8 else T.IQ4_XS),
+    }
+    row = rows[ftype] if ftype in rows else dict(default=T[ftype])
+    return row.get(kind, row["default"])
+
+
+@pytest.mark.parametrize("ftype", ["Q2_K", "Q3_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL",
+                                   "IQ4_XS"])
+def test_dense_preset_types_follow_the_table(tmp_path, ftype):
+    for n in (32, 2):
+        for i in range(n):
+            for kind in ("token_embd", "attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate",
+                         "ffn_up", "ffn_down", "output"):
+                assert preset_type(ftype, kind, i, n) == _table(ftype, kind, i, n), (n, i, kind)
+    r = GGUFReader(make_synthetic_llama_gguf(tmp_path / "m.gguf", shape="tiny", ftype=ftype))
+    for name, info in r.tensors.items():
+        if name.endswith("norm.weight"):
+            continue
+        kind = name.split(".")[-2]
+        i = int(name.split(".")[1]) if name.startswith("blk.") else 0
+        assert info.ggml_type == _table(ftype, kind, i, 2), name
+
+
+def test_legacy_presets_match_the_jax_quantize_policy():
+    """For Q4_0, Q4_1, Q5_0 and Q5_1 the JAX package's policy is llama.cpp's
+    (the type everywhere, Q6_K for the head)."""
+    for ftype in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
+        for name, kind, i in (("token_embd.weight", "token_embd", 0),
+                              ("blk.3.attn_v.weight", "attn_v", 3),
+                              ("blk.0.ffn_down.weight", "ffn_down", 0),
+                              ("output.weight", "output", 0)):
+            want = tensor_type_policy(name, JGGMLType[ftype], ftype, 32)
+            assert int(preset_type(ftype, kind, i, 32)) == int(want), (ftype, name)
+
+
+def test_mxfp4_moe_types(tmp_path):
+    """Every expert stack MXFP4, every other quantized tensor Q8_0, the
+    router F32, on tiny-moe."""
+    r = GGUFReader(make_synthetic_llama_gguf(tmp_path / "m.gguf", shape="tiny-moe",
+                                             ftype="MXFP4_MOE"))
+    for name, info in r.tensors.items():
+        want = (GGMLType.F32 if name.endswith(("norm.weight", "ffn_gate_inp.weight"))
+                else GGMLType.MXFP4 if "_exps" in name else GGMLType.Q8_0)
+        assert info.ggml_type == want, name
+
+
+def test_unknown_preset_raises():
+    with pytest.raises(ValueError):
+        preset_type("Q4_K_S", "attn_q", 0, 32)
+    assert "MXFP4_MOE" in PRESETS and len(PRESETS) == 10
+
+
+@pytest.mark.parametrize("name", ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q2_K", "Q3_K",
+                                  "IQ4_XS", "MXFP4"])
+def test_scale_fields_of_new_types_are_finite(name):
+    """Every f16 scale field of every block is finite and d of
+    scale·U(0.5, 1.5); MXFP4's exponent byte is the nearest 128 + log2(d)."""
+    from tpullm_torch.gguf.constants import TYPE_TRAITS
+
+    gtype = GGMLType[name]
+    tt = TYPE_TRAITS[gtype]
+    raw = random_packed(np.random.default_rng(4), gtype, 64 * tt.block_size, scale=0.02,
+                        words=True).reshape(64, tt.type_size)
+    if gtype == GGMLType.MXFP4:
+        d = np.exp2(raw[:, 0].astype(np.float64) - 128)
+        assert (raw[:, 0] >= 1).all() and (raw[:, 0] <= 254).all()
+        assert (d > 0.01 / 2 ** 0.5).all() and (d < 0.03 * 2 ** 0.5).all()
+        return
+    for off in SCALE_FIELDS[gtype]:
+        d = raw[:, off:off + 2].copy().view("<f2")[:, 0].astype(np.float64)
+        assert np.isfinite(d).all() and (d >= 0.0099).all() and (d <= 0.0301).all(), off
+
+
+def test_mxfp4_moe_weights_have_unit_scale_activations(tmp_path):
+    """The MXFP4 expert stacks of tiny-moe at MXFP4_MOE have an RMS near
+    n_in^-1/2: d rounds to a power of two, within a factor √2."""
+    from tpullm_torch.models.weights import load_expert_stack
+    from tpullm_torch.ops import qmatmul
+
+    r = GGUFReader(make_synthetic_llama_gguf(tmp_path / "m.gguf", shape="tiny-moe",
+                                             ftype="MXFP4_MOE"))
+    for name in ("blk.0.ffn_gate_exps.weight", "blk.1.ffn_down_exps.weight"):
+        st = load_expert_stack(r.tensors[name], "cpu")
+        w = qmatmul.dequant_planes({k: v[0] for k, v in st.planes.items()}, st.gtype,
+                                   st.n_out, st.n_in)
+        rms = float(w.pow(2).mean().sqrt())
+        assert 0.7 < rms * st.n_in ** 0.5 < 1.4, (name, rms)

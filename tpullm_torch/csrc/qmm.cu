@@ -1,15 +1,16 @@
 // Fused dequantize×matmul over the v2 plane schema, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel tpullm/ops/pallas/qmm.py::_kernel_mat (+ _acc_tile),
-// launched by _qmm_2d: y [M, N] = x [M, K] · dequant(planes), for the plane
-// formats Q4_K, Q5_K, Q6_K (wide qw) and Q8_0. The arithmetic and its
-// rounding points are in qmm_body.cuh.
+// launched by _qmm_2d: y [M, N] = x [M, K] · dequant(planes), for the 13
+// plane formats of qmm_body.cuh (this library: the formats of family
+// TPULLM_QMM_FAMILY). The arithmetic and its rounding points are in
+// qmm_body.cuh.
 //
-// What bounds it on the card: at decode (M = 1) the plane bytes (≈4.5 bits a
-// weight for Q4_K, 5.5 for Q5_K, 8.5 for Q6_K's qw and Q8_0) against
-// 3.35 TB/s; at prefill the CUDA-core FMAs (no tensor cores yet). Few output
-// columns at decode leave the card idle, so K is split over blockIdx.z into
-// f32 partials summed by a second pass in a fixed order.
+// What bounds it on the card: at decode (M = 1) the plane bytes (4 to 6 bits
+// a weight for the packed formats with their bf16 scales, 8.5 for Q6_K's qw
+// and Q8_0) against 3.35 TB/s; at prefill the CUDA-core FMAs (no tensor
+// cores yet). Few output columns at decode leave the card idle, so K is split
+// over blockIdx.z into f32 partials summed by a second pass in a fixed order.
 
 #include "qmm_body.cuh"
 
@@ -61,8 +62,9 @@ int launch(const void* x, const void* codes, const void* qh, const void* scale,
 
 }  // namespace
 
-// fmt: 0 Q4_K, 1 Q6_K (qw), 2 Q5_K, 3 Q8_0 (tpullm::QmmFmt). qh is read for
-// Q5_K only, minus for Q4_K and Q5_K only; the others may be null.
+// fmt: a tpullm::QmmFmt of this library's family (else cudaErrorInvalidValue).
+// qh is read only by the formats with a qh plane, minus only by those with a
+// minus plane; the others may be null.
 extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void* qh,
                           const void* scale, const void* minus, void* out, void* partial,
                           int M, int K, int N, int tm, int split, int chunks_per_split,
@@ -70,10 +72,10 @@ extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void*
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
-    case tpullm::kQ4K: return launch<tpullm::kQ4K>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
-    case tpullm::kQ6K: return launch<tpullm::kQ6K>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
-    case tpullm::kQ5K: return launch<tpullm::kQ5K>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
-    case tpullm::kQ8_0: return launch<tpullm::kQ8_0>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

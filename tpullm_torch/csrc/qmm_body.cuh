@@ -4,25 +4,33 @@
 // It is the arithmetic of tpullm/ops/pallas/qmm.py::_acc_tile. For rows
 // m0 .. m0+TM-1 of x [M, K] and 512 output columns it computes
 //
-//   y[m, n] = Σ_k bf16(x[m,k]) · bf16(f32(value[k,n]) · f32(scale[k/G, n]))
+//   y[m, n] = Σ_k bf16(x[m,k]) · bf16(f32(map(code[k,n])) · f32(scale[k/G, n]))
 //             − Σ_g (Σ_{k∈g} bf16(x[m,k])) · minus[g, n]
 //
 // in f32: the weight is rounded to bf16 after the f32 scale multiply and the
-// min term is applied through group sums of x. Plane formats (the v2 schema
-// of ops/qmatmul.py), by template parameter F:
-//   kQ4K  qs [K/2, N] half-split nibbles, scale + minus [K/32, N]
-//   kQ5K  as kQ4K plus qh [K/8, N]: packed row r of a 256-row chunk holds,
-//         in bit j, the fifth bit of row j·32 + r
-//   kQ6K  qw [K, N] signed bytes (bias folded), scale [K/16, N]
-//   kQ8_0 qs [K, N] signed bytes, scale [K/32, N]
+// min term is applied through group sums of x. The plane formats are the v2
+// schema of ops/qmatmul.py; each is a QmmFormat<F> below: its code layout,
+// split unit U, scale group G, map (the identity, a bias subtracted from the
+// code, or a 16-entry table) and whether it has a minus plane. Layouts, for
+// one U-row unit (U = 32 or 256) of a [K, N] weight:
+//   kHalf    qs [K/2, N]: packed row r holds row r (low nibble) and row
+//            r + U/2 (high nibble)                         Q4_0 Q4_1 MXFP4
+//                                                IQ4_NL (U=32) Q4_K IQ4_XS
+//   kHalfQh  kHalf plus qh [K/8, N]: packed row r holds, in bit j, the fifth
+//            bit of row j·U/8 + r               Q5_0 Q5_1 (U=32) Q5_K (U=256)
+//   kCrumb   qs [K/4, N]: packed row r holds, in bits 2j..2j+1, row
+//            j·U/4 + r                                                  Q2_K
+//   kCrumbQh kCrumb plus qh as kHalfQh's, the code lo | hi << 2         Q3_K
+//   kWide    one signed byte per weight, [K, N]          Q6_K (qw), Q8_0 (qs)
 //
 // Layout of the work: each thread owns 4 neighbouring output columns, so a
 // warp reads 128 contiguous plane bytes per row; a block stages a 256-row
-// chunk of x (one K-quant superblock) in shared memory as f32 and keeps TM
-// rows of partial sums in registers. A block covers chunks
-// [blockIdx.z · per, (blockIdx.z + 1) · per); with more than one split it
-// writes f32 partials that qmm_reduce sums in split order (deterministic,
-// no atomics).
+// chunk of x (one K-quant superblock, eight 32-row units) in shared memory
+// as f32 and keeps TM rows of partial sums in registers. The 16 values of a
+// code table sit in shared memory, one per bank, so a warp's lookups never
+// conflict. A block covers chunks [blockIdx.z · per, (blockIdx.z + 1) · per);
+// with more than one split it writes f32 partials that qmm_reduce sums in
+// split order (deterministic, no atomics).
 #pragma once
 
 #include "common.cuh"
@@ -32,23 +40,87 @@ namespace tpullm {
 constexpr int kQmmThreads = 128;                 // threads per block
 constexpr int kQmmCols = 4;                      // output columns per thread
 constexpr int kQmmBlockN = kQmmThreads * kQmmCols;  // 512 columns per block
-constexpr int kQmmChunk = 256;                   // K rows per chunk (the split unit U)
+constexpr int kQmmChunk = 256;                   // K rows per chunk
 
-enum QmmFmt : int { kQ4K = 0, kQ6K = 1, kQ5K = 2, kQ8_0 = 3 };
+// the format ids the wrappers pass (ops/kernels/qmm.py _FMT)
+enum QmmFmt : int {
+  kQ4K = 0, kQ6K = 1, kQ5K = 2, kQ8_0 = 3, kQ4_0 = 4, kQ4_1 = 5, kQ5_0 = 6,
+  kQ5_1 = 7, kMXFP4 = 8, kIQ4NL = 9, kQ2K = 10, kQ3K = 11, kIQ4XS = 12
+};
 
-template <int F>
-struct QmmPlanes {
-  static constexpr bool wide = F == kQ6K || F == kQ8_0;  // one signed byte per weight
-  static constexpr int G = F == kQ6K ? 16 : 32;           // rows per scale group
-  static constexpr bool has_minus = F == kQ4K || F == kQ5K;
-  static constexpr bool has_qh = F == kQ5K;
+enum QmmLayout : int { kHalf, kHalfQh, kCrumb, kCrumbQh, kWide };
+enum QmmMap : int { kIdentity, kBias, kTableMxfp4, kTableIq4nl };
+
+template <int Layout, int U_, int G_, int Map, int Bias, bool Minus>
+struct QmmTraits {
+  static constexpr int layout = Layout;
+  static constexpr int U = U_;      // rows of a split unit
+  static constexpr int G = G_;      // rows per scale group
+  static constexpr int map = Map;
+  static constexpr int bias = Bias;  // subtracted from the code (kBias)
+  static constexpr bool has_minus = Minus;
+  static constexpr bool has_qh = Layout == kHalfQh || Layout == kCrumbQh;
+  static constexpr bool table = Map == kTableMxfp4 || Map == kTableIq4nl;
+  // rows of the code plane per weight row: 1, 1/2 or 1/4
+  static constexpr int code_div = Layout == kWide ? 1 : (Layout == kHalf || Layout == kHalfQh) ? 2 : 4;
   // elements of each plane for one [K, N] weight (an expert's stride)
-  static __host__ __device__ size_t code_elems(int K, int N) {
-    return (size_t)(wide ? K : K / 2) * N;
-  }
+  static __host__ __device__ size_t code_elems(int K, int N) { return (size_t)(K / code_div) * N; }
   static __host__ __device__ size_t qh_elems(int K, int N) { return (size_t)(K / 8) * N; }
   static __host__ __device__ size_t scale_elems(int K, int N) { return (size_t)(K / G) * N; }
 };
+
+template <int F> struct QmmFormat;
+template <> struct QmmFormat<kQ4K> : QmmTraits<kHalf, 256, 32, kIdentity, 0, true> {};
+template <> struct QmmFormat<kQ5K> : QmmTraits<kHalfQh, 256, 32, kIdentity, 0, true> {};
+template <> struct QmmFormat<kIQ4XS> : QmmTraits<kHalf, 256, 32, kTableIq4nl, 0, false> {};
+template <> struct QmmFormat<kQ6K> : QmmTraits<kWide, 256, 16, kIdentity, 0, false> {};  // bias folded
+template <> struct QmmFormat<kQ8_0> : QmmTraits<kWide, 32, 32, kIdentity, 0, false> {};
+template <> struct QmmFormat<kQ4_0> : QmmTraits<kHalf, 32, 32, kBias, 8, false> {};
+template <> struct QmmFormat<kQ4_1> : QmmTraits<kHalf, 32, 32, kIdentity, 0, true> {};
+template <> struct QmmFormat<kMXFP4> : QmmTraits<kHalf, 32, 32, kTableMxfp4, 0, false> {};
+template <> struct QmmFormat<kIQ4NL> : QmmTraits<kHalf, 32, 32, kTableIq4nl, 0, false> {};
+template <> struct QmmFormat<kQ5_0> : QmmTraits<kHalfQh, 32, 32, kBias, 16, false> {};
+template <> struct QmmFormat<kQ5_1> : QmmTraits<kHalfQh, 32, 32, kIdentity, 0, true> {};
+template <> struct QmmFormat<kQ2K> : QmmTraits<kCrumb, 256, 16, kIdentity, 0, true> {};
+template <> struct QmmFormat<kQ3K> : QmmTraits<kCrumbQh, 256, 16, kBias, 4, false> {};
+
+// The formats one library holds, by layout family (TPULLM_QMM_FAMILY, set by
+// ops/kernels/_build.py: one nvcc per family keeps the parallel build short).
+// X(format) for each.
+#ifndef TPULLM_QMM_FAMILY
+#error "TPULLM_QMM_FAMILY must be defined (0..4)"
+#elif TPULLM_QMM_FAMILY == 0
+#define TPULLM_QMM_FORMATS(X) X(kQ4K) X(kQ5K) X(kIQ4XS)
+#elif TPULLM_QMM_FAMILY == 1
+#define TPULLM_QMM_FORMATS(X) X(kQ6K) X(kQ8_0)
+#elif TPULLM_QMM_FAMILY == 2
+#define TPULLM_QMM_FORMATS(X) X(kQ4_0) X(kQ4_1) X(kMXFP4) X(kIQ4NL)
+#elif TPULLM_QMM_FAMILY == 3
+#define TPULLM_QMM_FORMATS(X) X(kQ5_0) X(kQ5_1)
+#elif TPULLM_QMM_FAMILY == 4
+#define TPULLM_QMM_FORMATS(X) X(kQ2K) X(kQ3K)
+#else
+#error "TPULLM_QMM_FAMILY must be 0..4"
+#endif
+
+// Threads 0..15 write the format's code table (ops/qmatmul.py _SCHEMA lut:
+// MXFP4_VALUES, IQ4_NL_VALUES) into lut; read after a __syncthreads.
+template <class P>
+__device__ __forceinline__ void qmm_fill_table(float* lut) {
+  constexpr signed char kMxfp4[16] = {0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12};
+  constexpr signed char kIq4nl[16] = {-127, -104, -83, -65, -49, -35, -22, -10,
+                                      1, 13, 25, 38, 53, 69, 89, 113};
+  const int i = threadIdx.x;
+  if (i < 16) lut[i] = (float)(P::map == kTableMxfp4 ? kMxfp4[i] : kIq4nl[i]);
+}
+
+// map(code) in f32: the code, the code less the bias, or its table value
+template <class P>
+__device__ __forceinline__ float qmm_value(uint32_t code, const float* lut) {
+  if constexpr (P::table) return lut[code];
+  else if constexpr (P::map == kBias) return (float)((int)code - P::bias);
+  else return (float)code;
+}
 
 // Stores one block's TM rows × 4 columns: to out [R, N] as bf16 when the K
 // range is not split, else to partial [split, R, N] as f32. Row m of the
@@ -74,6 +146,18 @@ __device__ __forceinline__ void qmm_store(const float (&acc)[TM][kQmmCols],
   }
 }
 
+// acc[m][j] += x[m] · w[j] for the TM staged rows of x at chunk row kk
+template <int TM>
+__device__ __forceinline__ void qmm_fma(float (&acc)[TM][kQmmCols], const float (*xs)[kQmmChunk],
+                                        int kk, const float (&w)[kQmmCols]) {
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const float xv = xs[m][kk];
+#pragma unroll
+    for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+  }
+}
+
 // x, codes, qh, scale and minus point at this block's weight and input rows;
 // the block computes rows m0 .. m0+TM-1 of x [M, K] into output rows
 // row0 + m0 .. of R, for the 512 columns of blockIdx.x.
@@ -86,11 +170,13 @@ __device__ __forceinline__ void qmm_body(const __nv_bfloat16* __restrict__ x,
                                          __nv_bfloat16* __restrict__ out,
                                          float* __restrict__ partial, int M, int K, int N,
                                          int R, int row0, int m0, int chunks_per_split) {
-  using P = QmmPlanes<F>;
+  using P = QmmFormat<F>;
   constexpr int G = P::G;
   constexpr int NG = kQmmChunk / G;  // scale groups per chunk
   __shared__ float xs[TM][kQmmChunk];
   __shared__ float gsum[TM][P::has_minus ? NG : 1];
+  __shared__ float lut[P::table ? 16 : 1];
+  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first chunk's barrier
 
   const int n0 = (blockIdx.x * kQmmThreads + threadIdx.x) * kQmmCols;
   const int c_begin = blockIdx.z * chunks_per_split;
@@ -122,7 +208,7 @@ __device__ __forceinline__ void qmm_body(const __nv_bfloat16* __restrict__ x,
     }
     if (!active) continue;
 
-    if constexpr (P::wide) {
+    if constexpr (P::layout == kWide) {
       // one signed byte per weight (Q6_K: bias folded at repack)
       for (int g = 0; g < NG; ++g) {
         float sc[kQmmCols];
@@ -135,49 +221,84 @@ __device__ __forceinline__ void qmm_body(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
           for (int j = 0; j < kQmmCols; ++j)
             w[j] = bf16_round((float)(int8_t)((q >> (8 * j)) & 0xffu) * sc[j]);
-#pragma unroll
-          for (int m = 0; m < TM; ++m) {
-            const float xv = xs[m][kk];
-#pragma unroll
-            for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-          }
+          qmm_fma<TM>(acc, xs, kk, w);
         }
       }
-    } else {
-      // half-split unit 256: packed row rr (0..127) of the chunk holds code
-      // k0 + rr in its low nibble and code k0 + 128 + rr in its high nibble;
-      // Q5_K's fifth bits of both sit in qh row rr % 32, bits rr/32 and rr/32 + 4
-      for (int g = 0; g < 4; ++g) {
+    } else if constexpr (P::layout == kHalf || P::layout == kHalfQh) {
+      // 128 packed rows per chunk. Packed row p of the chunk holds, in its low
+      // nibble, chunk row lo = (p / (U/2))·U + p % (U/2) and, in its high
+      // nibble, row lo + U/2. A run of B packed rows shares one scale group
+      // for its low rows and one for its high rows (the same group at U = 32).
+      // The fifth bits (kHalfQh) of lo and lo + U/2 sit in one qh byte, row
+      // (lo / U)·U/8 + lo % (U/8), bits (lo % U)/(U/8) and that plus 4.
+      constexpr int HALF = P::U / 2;
+      constexpr int B = G < HALF ? G : HALF;
+      constexpr int QH = P::U / 8;
+      for (int b = 0; b < kQmmChunk / 2 / B; ++b) {
+        const int p0 = b * B;
+        const int lo0 = (p0 / HALF) * P::U + p0 % HALF;
         float s_lo[kQmmCols], s_hi[kQmmCols];
-        load_bf16x4(scale + (size_t)(k0 / G + g) * N + n0, s_lo);
-        load_bf16x4(scale + (size_t)(k0 / G + 4 + g) * N + n0, s_hi);
+        load_bf16x4(scale + (size_t)(k0 / G + lo0 / G) * N + n0, s_lo);
+        if constexpr (HALF < G) {
 #pragma unroll
-        for (int r = 0; r < G; ++r) {
-          const int rr = g * G + r;
-          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 2 + rr) * N + n0);
+          for (int j = 0; j < kQmmCols; ++j) s_hi[j] = s_lo[j];
+        } else {
+          load_bf16x4(scale + (size_t)(k0 / G + (lo0 + HALF) / G) * N + n0, s_hi);
+        }
+#pragma unroll
+        for (int r = 0; r < B; ++r) {
+          const int lo = lo0 + r;
+          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 2 + p0 + r) * N + n0);
           uint32_t h = 0;
-          if constexpr (P::has_qh) h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + r) * N + n0);
+          int hbit = 0;
+          if constexpr (P::has_qh) {
+            const int ru = lo % P::U;
+            h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + (lo / P::U) * QH + ru % QH) * N + n0);
+            hbit = ru / QH;
+          }
           float w_lo[kQmmCols], w_hi[kQmmCols];
 #pragma unroll
           for (int j = 0; j < kQmmCols; ++j) {
             const uint32_t byte = (q >> (8 * j)) & 0xffu;
-            uint32_t lo = byte & 0xfu, hi = byte >> 4;
+            uint32_t c_lo = byte & 0xfu, c_hi = byte >> 4;
             if constexpr (P::has_qh) {
               const uint32_t hb = (h >> (8 * j)) & 0xffu;
-              lo |= ((hb >> g) & 1u) << 4;
-              hi |= ((hb >> (g + 4)) & 1u) << 4;
+              c_lo |= ((hb >> hbit) & 1u) << 4;
+              c_hi |= ((hb >> (hbit + 4)) & 1u) << 4;
             }
-            w_lo[j] = bf16_round((float)lo * s_lo[j]);
-            w_hi[j] = bf16_round((float)hi * s_hi[j]);
+            w_lo[j] = bf16_round(qmm_value<P>(c_lo, lut) * s_lo[j]);
+            w_hi[j] = bf16_round(qmm_value<P>(c_hi, lut) * s_hi[j]);
           }
+          qmm_fma<TM>(acc, xs, lo, w_lo);
+          qmm_fma<TM>(acc, xs, lo + HALF, w_hi);
+        }
+      }
+    } else {
+      // kCrumb / kCrumbQh, U = 256, G = 16: packed row p (0..63) holds chunk
+      // rows j·64 + p in bits 2j..2j+1, rows in groups 4j + p/16; the third
+      // bit (kCrumbQh) of row j·64 + p is bit 2j + p/32 of qh row p % 32
+      static_assert(P::U == kQmmChunk && G == 16, "the 2-bit layout is U = 256, G = 16");
+      for (int b = 0; b < 4; ++b) {
+        float s[4][kQmmCols];
 #pragma unroll
-          for (int m = 0; m < TM; ++m) {
-            const float x_lo = xs[m][rr], x_hi = xs[m][rr + kQmmChunk / 2];
+        for (int f = 0; f < 4; ++f) load_bf16x4(scale + (size_t)(k0 / G + 4 * f + b) * N + n0, s[f]);
+#pragma unroll 4  // a full unroll spills at TM = 16
+        for (int r = 0; r < 16; ++r) {
+          const int p = b * 16 + r;
+          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 4 + p) * N + n0);
+          uint32_t h = 0;
+          if constexpr (P::has_qh)
+            h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + p % 32) * N + n0);
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            float w[kQmmCols];
 #pragma unroll
             for (int j = 0; j < kQmmCols; ++j) {
-              acc[m][j] = fmaf(x_lo, w_lo[j], acc[m][j]);
-              acc[m][j] = fmaf(x_hi, w_hi[j], acc[m][j]);
+              uint32_t code = (q >> (8 * j + 2 * f)) & 3u;
+              if constexpr (P::has_qh) code |= ((h >> (8 * j + 2 * f + p / 32)) & 1u) << 2;
+              w[j] = bf16_round(qmm_value<P>(code, lut) * s[f][j]);
             }
+            qmm_fma<TM>(acc, xs, f * 64 + p, w);
           }
         }
       }

@@ -1,7 +1,7 @@
 // Fused dequantize×matmul over packed MoE expert stacks (planes [E, rows, N]),
 // for Hopper (sm_90a). Two kernels, both on the device body of qmm_body.cuh
-// (the rounding points of tpullm/ops/pallas/qmm.py::_acc_tile), for the
-// expert formats Q4_K and Q6_K (wide qw):
+// (the rounding points of tpullm/ops/pallas/qmm.py::_acc_tile), for the 13
+// plane formats of qmm_body.cuh (this library: family TPULLM_QMM_FAMILY):
 //
 // qmm_stack_kernel replaces tpullm/ops/pallas/qmm.py::_kernel_stack (launched
 //   by _qmm_stack): out[e] = x(e) · dequant(W[e]) for every expert, x shared
@@ -31,7 +31,7 @@ qmm_stack_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
                  const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ partial, int M, int K, int N, int E, int m_tiles,
                  long long x_stride, int chunks_per_split) {
-  using P = QmmPlanes<F>;
+  using P = QmmFormat<F>;
   const int e = blockIdx.y / m_tiles;
   const int m0 = (blockIdx.y % m_tiles) * TM;
   qmm_body<TM, F>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
@@ -49,7 +49,7 @@ qmm_gather_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ i
                   const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
                   float* __restrict__ partial, int T, int K, int N, int E,
                   int chunks_per_split) {
-  using P = QmmPlanes<F>;
+  using P = QmmFormat<F>;
   const int t = blockIdx.y;
   const int e = ids[t];  // the block loads its own expert id
   if (e < 0 || e >= E) {
@@ -133,8 +133,9 @@ int launch_gather(const void* x, const void* ids, const void* codes, const void*
 
 }  // namespace
 
-// fmt: 0 Q4_K, 1 Q6_K (qw) (tpullm::QmmFmt); planes [E, rows, N]; x [M, K]
-// with x_stride 0 (shared) or [E, M, K] with x_stride M·K; out [E, M, N].
+// fmt: a tpullm::QmmFmt of this library's family; planes [E, rows, N]; x
+// [M, K] with x_stride 0 (shared) or [E, M, K] with x_stride M·K; out
+// [E, M, N].
 extern "C" int tpullm_qmm_stack(int fmt, const void* x, const void* codes, const void* qh,
                                 const void* scale, const void* minus, void* out,
                                 void* partial, int M, int K, int N, int E,
@@ -143,8 +144,10 @@ extern "C" int tpullm_qmm_stack(int fmt, const void* x, const void* codes, const
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
-    case tpullm::kQ4K: return launch_stack<tpullm::kQ4K>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
-    case tpullm::kQ6K: return launch_stack<tpullm::kQ6K>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch_stack<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -157,8 +160,10 @@ extern "C" int tpullm_qmm_gather(int fmt, const void* x, const void* ids, const 
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
-    case tpullm::kQ4K: return launch_gather<tpullm::kQ4K>(x, ids, codes, qh, scale, minus, out, partial, T, K, N, E, split, per, s);
-    case tpullm::kQ6K: return launch_gather<tpullm::kQ6K>(x, ids, codes, qh, scale, minus, out, partial, T, K, N, E, split, per, s);
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch_gather<tpullm::F>(x, ids, codes, qh, scale, minus, out, partial, T, K, N, E, split, per, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }

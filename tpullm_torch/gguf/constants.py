@@ -118,6 +118,15 @@ TYPE_TRAITS: dict[GGMLType, TypeTraits] = {
 }
 
 
+# Nonlinear codebook of IQ4_NL and IQ4_XS (ggml-common.h kvalues_iq4nl).
+IQ4_NL_VALUES = (-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113)
+
+# FP4 (E2M1) codebook of MXFP4, doubled: a block's values are these times
+# 2^(e-128) for its exponent byte e (ggml-quants.c GGML_E8M0_TO_FP32_HALF),
+# i.e. {0, ±.5, ±1, ±1.5, ±2, ±3, ±4, ±6} × 2^(e-127).
+MXFP4_VALUES = (0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12)
+
+
 def row_size(ggml_type: GGMLType, n_elements: int) -> int:
     """Bytes needed to store one row of `n_elements` (must divide block size)."""
     tt = TYPE_TRAITS[ggml_type]

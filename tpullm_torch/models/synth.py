@@ -3,23 +3,26 @@
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
 so the load, repack, kernel and engine paths run at true shapes without a
-download. The types follow llama.cpp's Q4_K_M recipe (`q4_k_m_type`),
-including its branch for 8-expert models. Payloads are drawn while the file
-is written, one tensor at a time, so a 28 GB model never sits in host
-memory.
+download. The types follow llama.cpp's recipe of a preset (`preset_type`:
+Q4_K_M with its branch for 8-expert models, Q2_K, Q3_K_M, the legacy and
+IQ4 presets, MXFP4_MOE). Payloads are drawn while the file is written, one
+tensor at a time, so a 28 GB model never sits in host memory.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-from ..gguf.constants import GGMLType, TokenType, TYPE_TRAITS
+from ..gguf.constants import GGMLType, MXFP4_VALUES, TokenType, TYPE_TRAITS
 from ..gguf.writer import GGUFWriter
 
-# `legacy` shapes keep their first bytes: uint8 draws and block scales d of
-# 0.02·U(0.5, 1.5), which give weights of RMS 1.5 to 28 and attention that is
-# all but one-hot. The other shapes draw uint32 words and set d so that
-# every weight matrix has an RMS of n_in^-1/2, as a trained model's has.
+# `legacy` shapes keep their first bytes: block scales d of 0.02·U(0.5, 1.5),
+# which give weights of RMS 1.5 to 28 and attention that is all but one-hot,
+# and at Q4_K_M uint8 draws. The other shapes draw uint32 words, as every
+# other preset does, and set d so that every weight matrix has an RMS of
+# n_in^-1/2, as a trained model's has.
 SHAPES = {
     "llama-3-8b": dict(n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
                        n_ff=14336, n_vocab=128256, rope_base=500000.0, legacy=True),
@@ -38,18 +41,26 @@ SHAPES = {
                      n_expert=8, n_expert_used=2),
 }
 
-# byte offsets of the f16 scale fields per block that must be finite/small
+# byte offsets of the f16 scale fields per block that random_packed sets to
+# d (every other byte stays random); MXFP4 holds an e8m0 exponent byte at 0
 SCALE_FIELDS = {
+    GGMLType.Q4_0: (0,), GGMLType.Q5_0: (0,), GGMLType.IQ4_NL: (0,), GGMLType.IQ4_XS: (0,),
     GGMLType.Q8_0: (0,),
-    GGMLType.Q4_K: (0, 2),
-    GGMLType.Q5_K: (0, 2),
+    GGMLType.Q4_1: (0, 2), GGMLType.Q5_1: (0, 2),  # d and m
+    GGMLType.Q4_K: (0, 2), GGMLType.Q5_K: (0, 2),  # d and dmin
+    GGMLType.Q2_K: (80, 82),  # d and dmin
+    GGMLType.Q3_K: (108,),
     GGMLType.Q6_K: (208,),
 }
 
 # RMS of a decoded weight per unit block scale d, over random_packed's draws
-# (the sub-scales and codes are random bytes)
+# (the sub-scales and codes are random bytes); MXFP4's is its table's RMS
 _RMS_PER_D = {GGMLType.Q8_0: 77.2, GGMLType.Q4_K: 311.0, GGMLType.Q5_K: 677.9,
-              GGMLType.Q6_K: 1410.7}
+              GGMLType.Q6_K: 1410.7,
+              GGMLType.MXFP4: math.sqrt(sum(v * v for v in MXFP4_VALUES) / 16)}
+
+PRESETS = ("Q4_K_M", "Q2_K", "Q3_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS",
+           "MXFP4_MOE")
 
 DEFAULT_WORDS = [
     "▁the", "▁quick", "▁brown", "▁fox", "▁jumps", "▁over", "▁lazy", "▁dog",
@@ -81,31 +92,88 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
             or (i_layer - n_layer // 8) % 3 == 2)
 
 
-def q4_k_m_type(kind: str, i_layer: int, n_layer: int, n_expert: int = 0) -> GGMLType:
-    """The type llama.cpp's Q4_K_M recipe gives a llama tensor
-    (llama_tensor_get_type in src/llama-quant.cpp). `kind` is the tensor
-    name without `blk.N.` and `.weight`. Q4_K by default; Q6_K for the head
-    and for attn_v and ffn_down(_exps) on the use_more_bits layers; with
-    exactly 8 experts attn_k and attn_v are Q8_0 and attn_output Q5_K; the
-    router (ffn_gate_inp) is never quantized."""
-    if kind == "output":
-        return GGMLType.Q6_K
+def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
+                n_expert: int = 0) -> GGMLType:
+    """The type llama.cpp's recipe `ftype` (a name of PRESETS) gives a llama
+    tensor (llama_tensor_get_type in src/llama-quant.cpp, for a llama with
+    n_gqa = 4 and no imatrix). `kind` is the tensor name without `blk.N.`
+    and `.weight`; an expert stack (`*_exps`) takes its FFN kind's type.
+    The router (ffn_gate_inp) is never quantized.
+
+    | ftype | default | attn_v | attn_output | ffn_down | output | token_embd |
+    | Q4_K_M | Q4_K | Q6_K on use_more_bits layers | Q4_K | Q6_K on use_more_bits layers | Q6_K | Q4_K |
+    | Q2_K | Q2_K | Q4_K | Q3_K | Q3_K | Q6_K | Q2_K |
+    | Q3_K_M | Q3_K | Q5_K for layers 0-1, else Q4_K | Q4_K | Q5_K for i < n/16, else Q4_K | Q6_K | Q3_K |
+    | Q4_0, Q4_1, Q5_0, Q5_1 | that type | default | default | default | Q6_K | default |
+    | IQ4_NL, IQ4_XS | that type | Q5_K | default | Q5_K for i < n/8, else default | Q6_K | default |
+    | MXFP4_MOE | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 |
+
+    MXFP4_MOE makes every expert stack MXFP4. Q4_K_M with exactly 8
+    experts makes attn_k and attn_v Q8_0 and attn_output Q5_K."""
     if kind == "ffn_gate_inp":
         return GGMLType.F32
-    if n_expert == 8 and kind in ("attn_k", "attn_v"):
-        return GGMLType.Q8_0
-    if n_expert == 8 and kind == "attn_output":
-        return GGMLType.Q5_K
-    if kind in ("attn_v", "ffn_down", "ffn_down_exps") and use_more_bits(i_layer, n_layer):
+    if ftype == "MXFP4_MOE":
+        return GGMLType.MXFP4 if kind.endswith("_exps") else GGMLType.Q8_0
+    kind = kind.removesuffix("_exps")
+    if ftype == "Q4_K_M":
+        if kind == "output":
+            return GGMLType.Q6_K
+        if n_expert == 8 and kind in ("attn_k", "attn_v"):
+            return GGMLType.Q8_0
+        if n_expert == 8 and kind == "attn_output":
+            return GGMLType.Q5_K
+        if kind in ("attn_v", "ffn_down") and use_more_bits(i_layer, n_layer):
+            return GGMLType.Q6_K
+        return GGMLType.Q4_K
+    if kind == "output":
         return GGMLType.Q6_K
-    return GGMLType.Q4_K
+    if ftype == "Q2_K":
+        return {"attn_v": GGMLType.Q4_K, "attn_output": GGMLType.Q3_K,
+                "ffn_down": GGMLType.Q3_K}.get(kind, GGMLType.Q2_K)
+    if ftype == "Q3_K_M":
+        if kind == "attn_v":
+            return GGMLType.Q5_K if i_layer < 2 else GGMLType.Q4_K
+        if kind == "ffn_down":
+            return GGMLType.Q5_K if i_layer < n_layer // 16 else GGMLType.Q4_K
+        return GGMLType.Q4_K if kind == "attn_output" else GGMLType.Q3_K
+    if ftype in ("IQ4_NL", "IQ4_XS"):
+        if kind == "attn_v" or (kind == "ffn_down" and i_layer < n_layer // 8):
+            return GGMLType.Q5_K
+        return GGMLType[ftype]
+    if ftype in ("Q4_0", "Q4_1", "Q5_0", "Q5_1"):
+        return GGMLType[ftype]
+    raise ValueError(f"unknown preset {ftype!r}; presets: {PRESETS}")
+
+
+def write_scales(raw, gtype: GGMLType, d) -> None:
+    """Sets the scale fields of blocks `raw` (nb, type_size) uint8 to d (nb
+    positive values): an f16 d at each offset of SCALE_FIELDS, or for MXFP4
+    the e8m0 exponent byte nearest 128 + log2(d), kept in 1..254. Works on
+    numpy arrays and on torch tensors alike, on any device."""
+    if gtype == GGMLType.MXFP4:
+        if isinstance(raw, np.ndarray):
+            raw[:, 0] = np.clip(np.rint(128 + np.log2(d)), 1, 254).astype(np.uint8)
+        else:
+            import torch
+
+            raw[:, 0] = torch.clamp(torch.round(128 + torch.log2(d)), 1, 254).to(torch.uint8)
+        return
+    if isinstance(raw, np.ndarray):
+        db = d.astype(np.float16).view(np.uint8).reshape(-1, 2)
+    else:
+        import torch
+
+        db = d.to(torch.float16).view(torch.uint8).reshape(-1, 2)
+    for off in SCALE_FIELDS[gtype]:
+        raw[:, off: off + 2] = db
 
 
 def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
                   scale: float = 0.02, words: bool = False) -> np.ndarray:
-    """Random blocks of `gtype` with finite scales, as flat uint8. With
-    `words` the bytes come from uint32 draws (about twice the byte rate of
-    uint8 draws, other bytes from the same seed)."""
+    """Random blocks of `gtype` with finite block scales d of
+    scale·U(0.5, 1.5), as flat uint8. With `words` the bytes come from
+    uint32 draws (about twice the byte rate of uint8 draws, other bytes from
+    the same seed)."""
     tt = TYPE_TRAITS[gtype]
     nb = n_elements // tt.block_size
     n = nb * tt.type_size
@@ -114,31 +182,34 @@ def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
         raw = raw[:n].reshape(nb, tt.type_size)
     else:
         raw = rng.integers(0, 256, size=(nb, tt.type_size), dtype=np.uint8)
-    d = (rng.uniform(0.5, 1.5, size=nb) * scale).astype(np.float16)
-    db = d.view(np.uint8).reshape(nb, 2)
-    for off in SCALE_FIELDS[gtype]:
-        raw[:, off: off + 2] = db
+    write_scales(raw, gtype, rng.uniform(0.5, 1.5, size=nb) * scale)
     return raw.reshape(-1)
 
 
-def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0) -> str:
-    """Writes the synthetic Q4_K_M model `shape` (a key of SHAPES) to
-    `path`; the same seed gives the same bytes."""
-    synthetic_writer(path, shape, seed).write()
+def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
+                              ftype: str = "Q4_K_M", n_layer: int | None = None) -> str:
+    """Writes the synthetic model `shape` (a key of SHAPES) at preset
+    `ftype` (a name of PRESETS) to `path`, with `n_layer` layers in place of
+    the shape's own if given; the same arguments give the same bytes."""
+    synthetic_writer(path, shape, seed, ftype, n_layer).write()
     return str(path)
 
 
-def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0) -> GGUFWriter:
+def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str = "Q4_K_M",
+                     n_layer: int | None = None) -> GGUFWriter:
     """The writer of make_synthetic_llama_gguf, its payloads not drawn yet
     (`payload_bytes()` sizes the file before it is written)."""
+    if ftype not in PRESETS:
+        raise ValueError(f"unknown preset {ftype!r}; presets: {PRESETS}")
     cfg = SHAPES[shape]
     rng = np.random.default_rng(seed)
-    n_layer, n_embd = cfg["n_layer"], cfg["n_embd"]
+    n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = cfg["n_vocab"]
     n_expert = cfg.get("n_expert", 0)
     head_dim = n_embd // n_head
     legacy = cfg.get("legacy", False)
+    words = not legacy or ftype != "Q4_K_M"
 
     tokens, scores, types = _byte_vocab(DEFAULT_WORDS)
     while len(tokens) < n_vocab:  # pad the vocab with filler tokens
@@ -147,7 +218,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0) -> GGUFWrit
         types.append(TokenType.USER_DEFINED)
 
     w = GGUFWriter(path, architecture="llama")
-    w.add_kv("general.name", f"tpullm-synth-{shape}")
+    w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}"))
     w.add_kv("llama.block_count", n_layer)
     w.add_kv("llama.context_length", 8192)
     w.add_kv("llama.embedding_length", n_embd)
@@ -173,11 +244,11 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0) -> GGUFWrit
         """A quantized weight (n_stack > 1: a stack of experts), its bytes
         drawn when the file is written."""
         kind = name.split(".")[-2]
-        gtype = q4_k_m_type(kind, i, n_layer, n_expert)
+        gtype = preset_type(ftype, kind, i, n_layer, n_expert)
         shape = (n_in, n_out) if n_stack == 1 else (n_in, n_out, n_stack)
         scale = 0.02 if legacy else n_in ** -0.5 / _RMS_PER_D[gtype]
         w.add_packed_tensor(name, shape, gtype, lambda: random_packed(
-            rng, gtype, n_stack * n_out * n_in, scale=scale, words=not legacy))
+            rng, gtype, n_stack * n_out * n_in, scale=scale, words=words))
 
     def norm(name, n):
         w.add_tensor(name, np.ones(n, dtype=np.float32))

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` compiles with nvcc into a shared library with a plain C
-interface, `build/tpullm_torch/lib<name>-<digest>.so` under the repository
-root, bound with ctypes. The digest covers the sources and flags, so an edited
-kernel rebuilds and a stale library is never loaded. The build runs at first
-use; `build()` starts one nvcc per source, all at once.
+Each library compiles one `csrc/<source>.cu` with nvcc into a shared library
+with a plain C interface, `build/tpullm_torch/lib<name>-<digest>.so` under
+the repository root, bound with ctypes. The qmm sources build once per plane
+layout family (`-DTPULLM_QMM_FAMILY=f`, the formats of csrc/qmm_body.cuh's
+TPULLM_QMM_FORMATS), so their many instantiations compile in parallel. The
+digest covers the sources and flags, so an edited kernel rebuilds and a stale
+library is never loaded. The build runs at first use; `build()` starts one
+nvcc per library, all at once.
 """
 
 from __future__ import annotations
@@ -16,13 +19,21 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpullm_torch"
-KERNELS = ("qmm", "qmm_moe", "flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+QMM_FAMILIES = 5  # layout families of csrc/qmm_body.cuh
+
+# library name → (source in csrc/, its own nvcc flags)
+LIBRARIES = {f"{src}{f}": (f"{src}.cu", (f"-DTPULLM_QMM_FAMILY={f}",))
+             for src in ("qmm", "qmm_moe") for f in range(QMM_FAMILIES)}
+LIBRARIES["flash"] = ("flash.cu", ())
+KERNELS = tuple(LIBRARIES)
 
 
 def nvcc() -> str:
@@ -34,8 +45,9 @@ def nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    source, flags = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
+    for src in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -45,34 +57,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
-def build(names=KERNELS) -> dict[str, str]:
-    """Compile every named kernel that is not built yet, one nvcc process
-    per source, all started together. Returns nvcc's `-Xptxas -v` report
-    (registers, shared memory, spills) per kernel; "" for one already built.
-    Raises if any compile fails."""
+def _compile(name: str) -> tuple[str, float, str | None]:
+    """One nvcc into a temporary file, moved into place on success (atomic:
+    concurrent builders never see a torn library). Returns (report, seconds,
+    failure or None)."""
+    source, flags = LIBRARIES[name]
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", tmp, str(CSRC / source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode == 0:
+        os.replace(tmp, library_path(name))
+        return proc.stdout, seconds, None
+    os.unlink(tmp)
+    return proc.stdout, seconds, f"{name} ({source}, nvcc exit {proc.returncode}):\n{proc.stdout}"
+
+
+def build(names=KERNELS) -> dict[str, tuple[str, float]]:
+    """Compile every named library that is not built yet, one nvcc process
+    per library, all started together. Returns, per library, nvcc's
+    `-Xptxas -v` report (registers, shared memory, spills) and its compile
+    seconds; ("", 0.0) for one already built. Raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, lib)
-    reports = {name: "" for name in names}
+    todo = [name for name in names if not library_path(name).exists()]
+    out = {name: ("", 0.0) for name in names}
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
-        reports[name] = proc.communicate()[0]
-        if proc.returncode == 0:
-            os.replace(tmp, lib)  # atomic: concurrent builders never see a torn file
-        else:
-            os.unlink(tmp)
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{reports[name]}")
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            for name, (report, seconds, fail) in zip(todo, pool.map(_compile, todo)):
+                out[name] = (report, seconds)
+                if fail:
+                    failed.append(fail)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return reports
+    return out
 
 
 @functools.cache

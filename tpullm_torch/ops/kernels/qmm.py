@@ -2,20 +2,21 @@
 plain versions.
 
 - `qmm` replaces tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile (the
-  pallas_call in _qmm_2d, entry qmatmul), for Q4_K (`qs` + `scale` +
-  `minus`, G = 32, half-split U = 256), Q5_K (Q4_K's planes plus the `qh`
-  bit plane), Q6_K (wide `qw` + `scale`, G = 16) and Q8_0 (int8 `qs` +
-  `scale`, G = 32). Source: tpullm_torch/csrc/qmm.cu.
+  pallas_call in _qmm_2d, entry qmatmul), for the 13 plane formats the JAX
+  package repacks on its device: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, MXFP4,
+  IQ4_NL, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K (wide `qw`) and IQ4_XS (the layouts
+  of ops/qmatmul.py). Source: tpullm_torch/csrc/qmm.cu.
 - `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
   qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
   or per-expert x [E, M, K] → [E, M, N].
 - `qmm_gather` replaces _kernel_gather (the pallas_call in _qmm_gather,
   entry qmatmul_gather): row t of x [T, K] through expert ids[t] → [T, N];
   each block reads its own id on the card.
-Both expert kernels take Q4_K and Q6_K stacks; their source is
+The expert kernels take the same 13 formats; their source is
 tpullm_torch/csrc/qmm_moe.cu, on the device body of csrc/qmm_body.cuh that
-`qmm` uses too. What bounds each on the card, and what its design does
-about it, is in the source notes.
+`qmm` uses too. Each source builds once per layout family (`_FAMILY`). What
+bounds each on the card, and what its design does about it, is in the
+source notes.
 
 The plain versions compute the same functions with the same rounding points
 as `_acc_tile`: x rounded to bf16, the weight rounded to bf16 after the f32
@@ -31,17 +32,26 @@ import ctypes
 import torch
 
 from ...gguf.constants import GGMLType
-from ..qmatmul import _SCHEMA, plane_values
+from ..qmatmul import _SCHEMA, WIDE_TYPES, has_minus, plane_values
 from . import _build
 
+# csrc/qmm_body.cuh QmmFmt ids, and the layout family (library) of each
+_FMT = {GGMLType.Q4_K: 0, GGMLType.Q6_K: 1, GGMLType.Q5_K: 2, GGMLType.Q8_0: 3,
+        GGMLType.Q4_0: 4, GGMLType.Q4_1: 5, GGMLType.Q5_0: 6, GGMLType.Q5_1: 7,
+        GGMLType.MXFP4: 8, GGMLType.IQ4_NL: 9, GGMLType.Q2_K: 10, GGMLType.Q3_K: 11,
+        GGMLType.IQ4_XS: 12}
+_FAMILY = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 0, GGMLType.IQ4_XS: 0,
+           GGMLType.Q6_K: 1, GGMLType.Q8_0: 1,
+           GGMLType.Q4_0: 2, GGMLType.Q4_1: 2, GGMLType.MXFP4: 2, GGMLType.IQ4_NL: 2,
+           GGMLType.Q5_0: 3, GGMLType.Q5_1: 3,
+           GGMLType.Q2_K: 4, GGMLType.Q3_K: 4}
+
 # launches of each kernel, by plane format; plain counts a run can read
-LAUNCHES = {"Q4_K": 0, "Q6_K": 0, "Q5_K": 0, "Q8_0": 0}
-STACK_LAUNCHES = {"Q4_K": 0, "Q6_K": 0}
-GATHER_LAUNCHES = {"Q4_K": 0, "Q6_K": 0}
+LAUNCHES = {t.name: 0 for t in _FMT}
+STACK_LAUNCHES = {t.name: 0 for t in _FMT}
+GATHER_LAUNCHES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FMT = {GGMLType.Q4_K: 0, GGMLType.Q6_K: 1, GGMLType.Q5_K: 2, GGMLType.Q8_0: 3}  # QmmFmt
-_EXPERT_TYPES = (GGMLType.Q4_K, GGMLType.Q6_K)
 _QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P)
 _GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
@@ -50,18 +60,22 @@ _BLOCK_N = 512  # output columns per block, csrc/qmm_body.cuh kQmmBlockN
 
 
 def _code_plane(gtype: GGMLType) -> str:
-    return "qw" if gtype == GGMLType.Q6_K else "qs"
+    return "qw" if gtype in WIDE_TYPES else "qs"
 
 
 def _plane_rows(gtype: GGMLType, K: int) -> dict[str, int]:
-    """Rows of each plane of one [K, N] weight of `gtype`."""
-    G = _SCHEMA[gtype]["G"]
-    wide = gtype in (GGMLType.Q6_K, GGMLType.Q8_0)
-    rows = {_code_plane(gtype): K if wide else K // 2, "scale": K // G}
-    if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
-        rows["minus"] = K // G
-    if gtype == GGMLType.Q5_K:
-        rows["qh"] = K // 8
+    """Rows of each plane of one [K, N] weight of `gtype` (as the JAX
+    package's pallas/qmm.py::_plane_rows sizes its tiles)."""
+    meta = _SCHEMA[gtype]
+    if gtype in WIDE_TYPES:
+        rows = {"qw": K}
+    else:
+        rows = {"qs": {2: K // 4, 3: K // 4, 4: K // 2, 5: K // 2, 8: K}[meta["bits"]]}
+        if meta["bits"] in (3, 5):
+            rows["qh"] = K // 8
+    rows["scale"] = K // meta["G"]
+    if has_minus(gtype):
+        rows["minus"] = K // meta["G"]
     return rows
 
 
@@ -144,6 +158,11 @@ def _check(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType, K:
     return [planes[_code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
 
 
+def _ported(gtype: GGMLType, what: str) -> None:
+    if gtype not in _FMT:
+        raise NotImplementedError(f"{what} kernel for {gtype.name} is not ported")
+
+
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -151,8 +170,7 @@ def _ptr(t) -> int | None:
 def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
         n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel."""
-    if gtype not in _FMT:
-        raise NotImplementedError(f"qmm kernel for {gtype.name} is not ported")
+    _ported(gtype, "qmm")
     ops = _check(x, planes, gtype, n_in, n_out, (), "qmm")
     if x.dim() != 2:
         raise ValueError("qmm: x must be [M, K]")
@@ -162,7 +180,7 @@ def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
                           device=x.device)
-    fn = _build.bind("qmm", "tpullm_qmm", _QMM_ARGS)
+    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm", _QMM_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
                     partial.data_ptr(), M, K, N, tm, split, per, stream), f"qmm {gtype.name}")
@@ -174,8 +192,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
               n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] (shared) or [E, M, K] bf16 on the card, planes [E, rows, N]
     → [E, M, N] bf16 through the qmm_stack kernel."""
-    if gtype not in _EXPERT_TYPES:
-        raise NotImplementedError(f"qmm_stack kernel for {gtype.name} is not ported")
+    _ported(gtype, "qmm_stack")
     E = planes["scale"].shape[0]
     ops = _check(x, planes, gtype, n_in, n_out, (E,), "qmm_stack")
     if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != E):
@@ -186,7 +203,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, E * M, N), dtype=torch.float32,
                           device=x.device)
-    fn = _build.bind("qmm_moe", "tpullm_qmm_stack", _STACK_ARGS)
+    fn = _build.bind(f"qmm_moe{_FAMILY[gtype]}", "tpullm_qmm_stack", _STACK_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     x_stride = M * K if x.dim() == 3 else 0
     _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
@@ -201,8 +218,7 @@ def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tenso
     """x [T, K] bf16 and ids [T] int32 on the card, planes [E, rows, N] →
     [T, N] bf16 through the qmm_gather kernel. The ids are never read on the
     host: an id outside 0..E-1 gives a NaN row."""
-    if gtype not in _EXPERT_TYPES:
-        raise NotImplementedError(f"qmm_gather kernel for {gtype.name} is not ported")
+    _ported(gtype, "qmm_gather")
     E = planes["scale"].shape[0]
     ops = _check(x, planes, gtype, n_in, n_out, (E,), "qmm_gather")
     T = x.shape[0]
@@ -216,7 +232,7 @@ def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tenso
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, T, N), dtype=torch.float32,
                           device=x.device)
-    fn = _build.bind("qmm_moe", "tpullm_qmm_gather", _GATHER_ARGS)
+    fn = _build.bind(f"qmm_moe{_FAMILY[gtype]}", "tpullm_qmm_gather", _GATHER_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(_FMT[gtype], x.data_ptr(), ids.data_ptr(), *map(_ptr, ops),
                     out.data_ptr(), partial.data_ptr(), T, K, N, E, split, per, stream),

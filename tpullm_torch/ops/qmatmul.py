@@ -8,22 +8,30 @@ At load time ggml blocks are repacked into column-major planes
 
     w[k, n] = scale[k//G, n] · map(code[k, n]) − minus[k//G, n]
 
-- Q4_K: `qs` [K/2, N] uint8, 4-bit codes in half-split packing
-  (byte[r] = q[r] | q[r + U/2] << 4 within each U = 256-row unit), `scale`
-  and `minus` [K/32, N]: the premultiplied d·sc and dmin·m.
-- Q5_K: Q4_K's `qs`/`scale`/`minus` plus `qh` [K/8, N], the fifth bit in
-  bit-plane packing (field j of packed row r of a U-row unit holds the bit
-  of row j·U/8 + r).
-- Q6_K: widened to one signed byte per weight, `qw` [K, N] int8 stored as
-  uint8 with the bias 32 folded in, `scale` [K/16, N] = d·sc.
-- Q8_0: `qs` [K, N], the int8 codes stored as uint8 (sign-extended on
-  read), `scale` [K/32, N] = d.
+Five code layouts, each split within a U-row unit (U = 256 for the
+K-quants and IQ4_XS, 32 for the 32-weight block types):
+- 4-bit half-split, `qs` [K/2, N]: byte[r] = q[r] | q[r + U/2] << 4 within
+  each unit (Q4_0, Q4_1, MXFP4, IQ4_NL at U = 32; Q4_K, IQ4_XS at U = 256);
+- the same plus a 1-bit plane `qh` [K/8, N], the fifth bit (field j of
+  packed row r of a unit holds the bit of row j·U/8 + r): Q5_0, Q5_1 at
+  U = 32, Q5_K at U = 256;
+- a 2-bit plane `qs` [K/4, N] (field j of packed row r holds row
+  j·U/4 + r): Q2_K;
+- the 2-bit plane plus a 1-bit `qh`, the code lo | hi << 2: Q3_K;
+- one byte per weight: Q8_0's int8 `qs` [K, N] (sign-extended on read) and
+  Q6_K widened to `qw` [K, N] int8 with the bias 32 folded in.
+
+`scale` [K/G, N] is the premultiplied group scale (d·sc, d, or MXFP4's
+2^(e-128)); `minus` [K/G, N] the min term (dmin·m for Q4_K/Q5_K/Q2_K, −m for
+Q4_1/Q5_1). `map` is the identity, a bias subtracted from the code (Q4_0 8,
+Q5_0 16, Q3_K 4) or a 16-entry table (MXFP4, IQ4_NL, IQ4_XS).
 
 `scale`/`minus` live on the device as bf16 (as the JAX package's
 `upload_planes` stores them). The repack runs on the device with torch bit
 ops: the packed blocks are the smallest bytes that exist, so they are what
-crosses the host link. Only the Q4_K, Q5_K, Q6_K and Q8_0 rows of the
-schema are ported.
+crosses the host link. The 13 rows of the schema that the JAX package can
+repack on its device are ported; the codebook types (IQ1/IQ2/IQ3, TQ) are
+not.
 
 Expert stacks (`models.weights.QuantExpertStack`) hold the same planes with
 a leading expert axis, [E, rows, N]; `stack_matmul` and `gather_matmul`
@@ -37,14 +45,24 @@ import warnings
 import numpy as np
 import torch
 
-from ..gguf.constants import GGMLType, TYPE_TRAITS
+from ..gguf.constants import GGMLType, IQ4_NL_VALUES, MXFP4_VALUES, TYPE_TRAITS
 
-# metadata: code bits, scale-group size G, split unit U (= SB), symmetric bias
+# metadata: code bits, scale-group size G, split unit U (= SB, else G),
+# symmetric bias or code table
 _SCHEMA = {
+    GGMLType.Q4_0: dict(bits=4, G=32, bias=8),
+    GGMLType.Q4_1: dict(bits=4, G=32),
+    GGMLType.Q5_0: dict(bits=5, G=32, bias=16),
+    GGMLType.Q5_1: dict(bits=5, G=32),
     GGMLType.Q8_0: dict(bits=8, G=32, signed=True),  # bias folded by sign-extension
+    GGMLType.MXFP4: dict(bits=4, G=32, lut=MXFP4_VALUES),
+    GGMLType.IQ4_NL: dict(bits=4, G=32, lut=IQ4_NL_VALUES),
     GGMLType.Q4_K: dict(bits=4, G=32, SB=256),
     GGMLType.Q5_K: dict(bits=5, G=32, SB=256),
     GGMLType.Q6_K: dict(bits=6, G=16, SB=256, bias=32),
+    GGMLType.Q2_K: dict(bits=2, G=16, SB=256),
+    GGMLType.Q3_K: dict(bits=3, G=16, SB=256, bias=4),
+    GGMLType.IQ4_XS: dict(bits=4, G=32, SB=256, lut=IQ4_NL_VALUES),
 }
 
 # Types repacked to wide int8 "qw" planes (bias folded) instead of packed
@@ -59,6 +77,14 @@ def supports(gtype: GGMLType) -> bool:
 def split_unit(gtype: GGMLType) -> int:
     """Row chunk within which code planes are split."""
     return _SCHEMA[gtype].get("SB", _SCHEMA[gtype]["G"])
+
+
+def has_minus(gtype: GGMLType) -> bool:
+    """Whether the planes of `gtype` hold a `minus` plane: the affine types
+    with no symmetric bias, sign or code table (Q4_1, Q5_1, Q2_K, Q4_K,
+    Q5_K)."""
+    meta = _SCHEMA[gtype]
+    return not (meta.get("bias") or meta.get("signed") or "lut" in meta)
 
 
 def upload_blocks(data: np.ndarray, device) -> torch.Tensor:
@@ -116,14 +142,74 @@ def _scale_min_k4(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(sc, dim=-1), torch.stack(m, dim=-1)
 
 
+def _u32le(b: torch.Tensor) -> torch.Tensor:
+    """Little-endian u32 from a trailing axis of 4 uint8, as int64."""
+    x = b.to(torch.int64)
+    return x[..., 0] | (x[..., 1] << 8) | (x[..., 2] << 16) | (x[..., 3] << 24)
+
+
+def _nibbles(qs: torch.Tensor) -> torch.Tensor:
+    """(..., n) packed bytes → (..., 2n): the low nibbles, then the high."""
+    return torch.cat([qs & 0x0F, qs >> 4], dim=-1)
+
+
+def _crumbs(qs: torch.Tensor, n_out: int, nb: int) -> torch.Tensor:
+    """K-quant 2-bit fields: (n_out, nb, 64) bytes → (n_out, nb, 256), each
+    32-byte half giving its fields at shifts 0, 2, 4, 6 in turn."""
+    qs = qs.reshape(n_out, nb, 2, 32)
+    return torch.stack([(qs >> s) & 3 for s in (0, 2, 4, 6)], dim=3).reshape(n_out, nb, 256)
+
+
+def _bit_rows(h: torch.Tensor, n_out: int, nb: int) -> torch.Tensor:
+    """K-quant high-bit masks: (n_out, nb, 32) bytes → (n_out, nb, 256), bit
+    j of byte r giving row 32·j + r."""
+    return torch.stack([(h >> j) & 1 for j in range(8)], dim=2).reshape(n_out, nb, 256)
+
+
+def _q3k_scales(q: torch.Tensor) -> torch.Tensor:
+    """Q3_K 12-byte packed 6-bit scales → (..., 16) int64, minus 32
+    (ggml-quants.c dequantize_row_q3_K's kmask1/kmask2 unpack)."""
+    a = [_u32le(q[..., 4 * i:4 * i + 4]) for i in range(3)]
+    k1, k2, t = 0x03030303, 0x0F0F0F0F, a[2]
+    aux = [(a[0] & k2) | (((t >> 0) & k1) << 4), (a[1] & k2) | (((t >> 2) & k1) << 4),
+           ((a[0] >> 4) & k2) | (((t >> 4) & k1) << 4),
+           ((a[1] >> 4) & k2) | (((t >> 6) & k1) << 4)]
+    return torch.stack([(w >> (8 * j)) & 0xFF for w in aux for j in range(4)], dim=-1) - 32
+
+
+def _e8m0_half(e: torch.Tensor) -> torch.Tensor:
+    """MXFP4 exponent bytes → exactly 2^(e-128) in f32, built from its bits:
+    the normal exponent field e - 1 for e ≥ 2, the subnormals 2^-127 and
+    2^-128 (mantissa bit 22 or 21) for e = 1 and 0, which exp2 may flush."""
+    e = e.to(torch.int32)
+    bits = torch.where(e >= 2, (e - 1) << 23, 1 << (21 + e.clamp(max=1)))
+    return bits.view(torch.float32)
+
+
 def _decode_blocks(b: torch.Tensor, gtype: GGMLType, n_out: int):
     """Packed blocks (n_out, nb, type_size) uint8 → (codes (K, N) uint8,
     scale (K/G, N) f32, minus (K/G, N) f32 | None). Every factored scale
     is resolved here, in f32."""
     nb = b.shape[1]
+    if gtype in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        off = {GGMLType.Q4_0: 2, GGMLType.Q4_1: 4, GGMLType.Q5_0: 6, GGMLType.Q5_1: 8}[gtype]
+        codes = _nibbles(b[..., off:off + 16])
+        if gtype in (GGMLType.Q5_0, GGMLType.Q5_1):
+            qh = _u32le(b[..., off - 4:off])
+            hbits = (qh[..., None] >> torch.arange(32, device=b.device)) & 1
+            codes = codes | (hbits.to(torch.uint8) << 4)
+        d = _f16(b[..., 0:2])
+        if gtype in (GGMLType.Q4_0, GGMLType.Q5_0):
+            return _col(codes, n_out), _col(d, n_out), None  # bias in the map
+        return _col(codes, n_out), _col(d, n_out), _col(-_f16(b[..., 2:4]), n_out)
     if gtype == GGMLType.Q8_0:
         codes = b[..., 2:34]  # int8 bits stored as u8
         return _col(codes, n_out), _col(_f16(b[..., 0:2]), n_out), None
+    if gtype == GGMLType.MXFP4:
+        return (_col(_nibbles(b[..., 1:17]), n_out), _col(_e8m0_half(b[..., 0]), n_out),
+                None)
+    if gtype == GGMLType.IQ4_NL:
+        return _col(_nibbles(b[..., 2:18]), n_out), _col(_f16(b[..., 0:2]), n_out), None
     if gtype in (GGMLType.Q4_K, GGMLType.Q5_K):
         d = _f16(b[..., 0:2])
         dmin = _f16(b[..., 2:4])
@@ -131,24 +217,40 @@ def _decode_blocks(b: torch.Tensor, gtype: GGMLType, n_out: int):
         scale = d[..., None] * sc.float()  # exact ggml d1 = d·sc
         minus = dmin[..., None] * mi.float()
         off = 16 if gtype == GGMLType.Q4_K else 48
-        qs = b[..., off:off + 128].reshape(n_out, nb, 4, 32)
-        codes = torch.cat([qs & 0x0F, qs >> 4], dim=3).reshape(n_out, nb, 256)
+        codes = _nibbles(b[..., off:off + 128].reshape(n_out, nb, 4, 32)).reshape(n_out, nb, 256)
         if gtype == GGMLType.Q5_K:
-            qh = b[..., 16:48]
-            hb = torch.stack([(qh >> j) & 1 for j in range(8)], dim=2)  # (n_out, nb, 8, 32)
-            codes = codes | (hb.reshape(n_out, nb, 256) << 4)
+            codes = codes | (_bit_rows(b[..., 16:48], n_out, nb) << 4)
         return _col(codes, n_out), _col(scale, n_out), _col(minus, n_out)
     if gtype == GGMLType.Q6_K:
         ql = b[..., 0:128].reshape(n_out, nb, 2, 64)
         qh = b[..., 128:192].reshape(n_out, nb, 2, 32)
         sc = b[..., 192:208].view(torch.int8).float()  # (n_out, nb, 16)
         d = _f16(b[..., 208:210])
-        lo = torch.cat([ql & 0x0F, ql >> 4], dim=3)
+        lo = _nibbles(ql)
         hi = torch.stack([(qh >> (2 * j)) & 3 for j in range(4)], dim=3).reshape(
             n_out, nb, 2, 128)
         codes = (lo | (hi << 4)).reshape(n_out, nb, 256)
         scale = d[..., None] * sc
         return _col(codes, n_out), _col(scale, n_out), None  # bias 32 in qw
+    if gtype == GGMLType.Q2_K:
+        sc = b[..., 0:16]
+        codes = _crumbs(b[..., 16:80], n_out, nb)
+        scale = _f16(b[..., 80:82])[..., None] * (sc & 0x0F).float()
+        minus = _f16(b[..., 82:84])[..., None] * (sc >> 4).float()
+        return _col(codes, n_out), _col(scale, n_out), _col(minus, n_out)
+    if gtype == GGMLType.Q3_K:
+        codes = _crumbs(b[..., 32:96], n_out, nb) | (_bit_rows(b[..., 0:32], n_out, nb) << 2)
+        scale = _f16(b[..., 108:110])[..., None] * _q3k_scales(b[..., 96:108]).float()
+        return _col(codes, n_out), _col(scale, n_out), None  # bias 4 in the map
+    if gtype == GGMLType.IQ4_XS:
+        d = _f16(b[..., 0:2])
+        scales_h = b[..., 2].to(torch.int32) | (b[..., 3].to(torch.int32) << 8)
+        scales_l = b[..., 4:8].to(torch.int32)
+        codes = _nibbles(b[..., 8:136].reshape(n_out, nb, 8, 16)).reshape(n_out, nb, 256)
+        ls = torch.stack([(((scales_l[..., ib // 2] >> (4 * (ib & 1))) & 0x0F)
+                           | (((scales_h >> (2 * ib)) & 3) << 4)) - 32 for ib in range(8)],
+                         dim=-1)
+        return _col(codes, n_out), _col(d[..., None] * ls.float(), n_out), None
     raise NotImplementedError(f"repack of {gtype.name} is not ported")
 
 
@@ -170,6 +272,11 @@ def repack_planes(blocks: torch.Tensor, gtype: GGMLType, n_out: int,
     elif meta["bits"] == 5:
         planes["qs"] = _half_split_pack4(codes & 0x0F, U)
         planes["qh"] = _bitplane_pack(codes >> 4, 1, U)
+    elif meta["bits"] == 3:
+        planes["qs"] = _bitplane_pack(codes & 0x03, 2, U)
+        planes["qh"] = _bitplane_pack(codes >> 2, 1, U)
+    elif meta["bits"] == 2:
+        planes["qs"] = _bitplane_pack(codes, 2, U)
     else:
         planes["qs"] = _half_split_pack4(codes, U)
     planes["scale"] = scale
@@ -210,21 +317,36 @@ def _bitplane_unpack(q: torch.Tensor, width: int, unit: int) -> torch.Tensor:
                      dim=1).reshape(rows * fields, N)
 
 
-def plane_values(planes: dict[str, torch.Tensor], gtype: GGMLType) -> torch.Tensor:
-    """(K, N) f32 unscaled values: wide int8 `qw` planes (bias pre-folded),
-    sign-extended int8 `qs` (Q8_0), or half-split 4-bit codes with the
-    fifth bit from the `qh` bit plane (Q5_K)."""
-    if "qw" in planes:
-        return planes["qw"].view(torch.int8).float()
+def _expand_codes(planes: dict[str, torch.Tensor], gtype: GGMLType) -> torch.Tensor:
+    """(K, N) codes from the packed code planes: uint8, int8 for Q8_0."""
     bits, U = _SCHEMA[gtype]["bits"], split_unit(gtype)
     if bits == 8:
-        return planes["qs"].view(torch.int8).float()
+        return planes["qs"].view(torch.int8)
     if bits == 4:
-        return _half_split_unpack4(planes["qs"], U).float()
+        return _half_split_unpack4(planes["qs"], U)
     if bits == 5:
-        return (_half_split_unpack4(planes["qs"], U)
-                | (_bitplane_unpack(planes["qh"], 1, U) << 4)).float()
+        return _half_split_unpack4(planes["qs"], U) | (_bitplane_unpack(planes["qh"], 1, U) << 4)
+    if bits == 3:
+        return _bitplane_unpack(planes["qs"], 2, U) | (_bitplane_unpack(planes["qh"], 1, U) << 2)
+    if bits == 2:
+        return _bitplane_unpack(planes["qs"], 2, U)
     raise NotImplementedError(f"planes of {gtype.name} are not ported")
+
+
+def plane_values(planes: dict[str, torch.Tensor], gtype: GGMLType) -> torch.Tensor:
+    """(K, N) f32 unscaled values: wide int8 `qw` planes (bias pre-folded),
+    or the packed codes through the type's map (the identity, the bias
+    subtracted, or the code table), as the JAX package's _plane_values."""
+    if "qw" in planes:
+        return planes["qw"].view(torch.int8).float()
+    codes = _expand_codes(planes, gtype)
+    meta = _SCHEMA[gtype]
+    if meta.get("bias"):
+        return (codes.to(torch.int32) - meta["bias"]).float()
+    if "lut" in meta:
+        lut = torch.tensor(meta["lut"], dtype=torch.float32, device=codes.device)
+        return lut[codes.to(torch.int32)]
+    return codes.float()
 
 
 def dequant_planes(planes: dict[str, torch.Tensor], gtype: GGMLType, n_out: int,
