@@ -10,31 +10,37 @@ Phases, in order; any failure raises and exits nonzero:
     prints each library's compile seconds and the `-Xptxas -v` report;
  3. kernels vs plain: each kernel against its plain PyTorch version on the
     card at the shapes of the main paths (qmm: Q4_K and Q6_K at the
-    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, the nine
-    formats of the later presets at the 8B gate_up and down, M in {1, 512};
-    qmm_stack and qmm_gather: all 13 formats as expert stacks at Mixtral's
-    4096→14336 and 14336→4096, stack M = 512 with a shared x (and, for Q4_K
-    and Q6_K, a per-expert x), gather T in {2, 32}; flash: bf16 and q8 KV, T
-    in {1, 512}, S = 4096, GQA 32/8, plus small softcap / window / sink /
-    ALiBi cases), held to the NMSE bounds of the JAX package's conformance
-    sweep; each timed with CUDA events beside its bound and a PyTorch
-    library call;
+    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, the 18
+    formats of the later presets, codebook types included, at the 8B gate_up
+    and down, M in {1, 512}; qmm_grouped, the group-factored kernel: all 22
+    formats at the 8B gate_up, M in {1, 512}, timed beside qmm on the same
+    planes; qmm_stack and qmm_gather: all 22 formats as expert stacks at
+    Mixtral's 4096→14336 and 14336→4096, stack M = 512 with a shared x (and,
+    for Q4_K and Q6_K, a per-expert x), gather T in {2, 32}; flash: bf16 and
+    q8 KV, T in {1, 512}, S = 4096, GQA 32/8, plus small softcap / window /
+    sink / ALiBi cases), held to the NMSE bounds of the JAX package's
+    conformance sweep; each timed with CUDA events beside its bound and a
+    PyTorch library call;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
-    Q4_K_M and MXFP4_MOE, served on the card against the CPU;
+    Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU;
  5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
     Engine with a bf16 and with a q8 KV cache: three prompts (one of 512
     tokens), 64 generated tokens each, one prompt twice for determinism;
-    load time, TTFT, pp512 and decode tok/s, peak memory, each kernel's
-    launches against the count expected per forward;
- 6. presets: Llama-3-8B served the same way at Q2_K (bf16 and q8 KV), IQ4_XS
-    and Q4_0 at full depth; then at Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M
-    with 4 layers, one prompt and 16 decode steps each; then Mixtral-8x7B at
+    load time and its peak memory, TTFT, pp512 and decode tok/s, peak
+    memory, each kernel's launches against the count expected per forward;
+ 6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
+    16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
+    Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
     MXFP4_MOE with 4 layers (a 64-token prompt through qmm_stack, decode
     through qmm_gather);
- 7. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
+ 7. i-quants: Llama-3-8B at IQ1_S and IQ3_XXS at full depth; at IQ2_XXS,
+    IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 with 4 layers; Mixtral-8x7B
+    at IQ2_XXS with 4 layers; the 8B at Q4_K_M with 4 layers and Q4_K and
+    Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped;
+ 8. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
     synthesized from a seed and served the same way with a bf16 KV cache,
     the expert kernels' launches checked per regime;
- 8. the card line, the `kernels` JSON line, and the result line.
+ 9. the card line, the `kernels` JSON line, and the result line.
 
 Imports nothing of JAX or of the tpullm package. Exits nonzero without CUDA
 or without the repository beside it.
@@ -77,22 +83,31 @@ EXPERT_SHAPES = (("gate", 4096, 14336), ("down", 14336, 4096))
 QMM_KEYS = {"Q4_K": "qmm_q4k", "Q6_K": "qmm_q6k", "Q5_K": "qmm_q5k", "Q8_0": "qmm_q8_0",
             "Q4_0": "qmm_q4_0", "Q4_1": "qmm_q4_1", "Q5_0": "qmm_q5_0", "Q5_1": "qmm_q5_1",
             "MXFP4": "qmm_mxfp4", "IQ4_NL": "qmm_iq4_nl", "Q2_K": "qmm_q2k",
-            "Q3_K": "qmm_q3k", "IQ4_XS": "qmm_iq4_xs"}
+            "Q3_K": "qmm_q3k", "IQ4_XS": "qmm_iq4_xs", "IQ2_XXS": "qmm_iq2_xxs",
+            "IQ2_XS": "qmm_iq2_xs", "IQ2_S": "qmm_iq2_s", "IQ3_XXS": "qmm_iq3_xxs",
+            "IQ3_S": "qmm_iq3_s", "IQ1_S": "qmm_iq1_s", "IQ1_M": "qmm_iq1_m",
+            "TQ1_0": "qmm_tq1_0", "TQ2_0": "qmm_tq2_0"}
 QMM_CASES = {"Q4_K": QMM_SHAPES, "Q6_K": QMM_SHAPES, "Q5_K": MIXTRAL_ATTN_SHAPES,
              "Q8_0": MIXTRAL_ATTN_SHAPES}
-KERNELS = (*QMM_KEYS.values(), "qmm_stack", "qmm_gather", "flash_bf16", "flash_q8")
+# the group-factored kernel's shape: the 8B gate_up
+GROUPED_SHAPE = ("gate_up", 4096, 28672)
+KERNELS = (*QMM_KEYS.values(), "qmm_grouped", "qmm_stack", "qmm_gather", "flash_bf16",
+           "flash_q8")
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
                   **{QMM_KEYS[f]: f"{f} gate_up M=1" for f in QMM_KEYS if f not in QMM_CASES},
-                  "qmm_stack": "Q4_K gate M=512 shared", "qmm_gather": "Q4_K gate T=2",
+                  "qmm_grouped": "Q4_K gate_up M=1", "qmm_stack": "Q4_K gate M=512 shared",
+                  "qmm_gather": "Q4_K gate T=2",
                   "flash_bf16": "bf16 T=1 S=4096", "flash_q8": "q8 T=1 S=4096"}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
+            "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
             "flash_bf16": "tpullm/ops/pallas/flash.py:69",
             "flash_q8": "tpullm/ops/pallas/flash.py:69"}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
+           "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
            "flash_bf16": "tpullm_torch/csrc/flash.cu", "flash_q8": "tpullm_torch/csrc/flash.cu"}
@@ -217,6 +232,49 @@ def phase_qmm(dev, results: dict):
                     f"({row['gbps']:.0f} GB/s) bound {bms:.4f} ms ({by}) plain {plain:.3f} ms "
                     f"cublas-on-dequantized {lib:.4f} ms")
             del w_lib, planes
+    torch.cuda.empty_cache()
+
+
+def phase_grouped(dev, results: dict):
+    """qmm_grouped, the group-factored kernel, for every format at the 8B
+    gate_up, against its plain version (qmm_grouped_reference), timed beside
+    qmm (the materializing kernel) on the same planes."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import qmm
+
+    gen = torch.Generator(dev).manual_seed(3)
+    name, K, N = GROUPED_SHAPE
+    for fmt in QMM_KEYS:
+        gtype = GGMLType[fmt]
+        planes = _random_planes(gtype, N, K, gen, dev)
+        plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
+        w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
+        for M in (1, 512):
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            got = qmm.qmm_grouped(x, planes, gtype, N, K)
+            ref = qmm.qmm_grouped_reference(x, planes, gtype, N, K)
+            torch.cuda.synchronize()
+            err = nmse(got.float(), ref.float())
+            mae = float((got.float() - ref.float()).abs().max())
+            label = f"{gtype.name} {name} M={M}"
+            expect(bool(torch.isfinite(got.float()).all()), f"grouped {label} finite")
+            expect(err <= QMM_NMSE_BOUND, f"grouped {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+            iters = 20 if M == 1 else 5
+            ms = time_ms(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), iters)
+            mat = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
+            plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2, 1)
+            lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
+            bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
+            results.setdefault("qmm_grouped", []).append(dict(
+                case=label, nmse=err, max_abs_err=mae, ms=ms, qmm_ms=mat, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib))
+            log(f"[grouped] {label}: nmse {err:.2e} max|d| {mae:.3g} grouped {ms:.4f} ms, "
+                f"qmm on the same planes {mat:.4f} ms, bound {bms:.4f} ms ({by}) plain "
+                f"{plain:.3f} ms cublas-on-dequantized {lib:.4f} ms")
+        del w_lib, planes
     torch.cuda.empty_cache()
 
 
@@ -402,21 +460,24 @@ def phase_flash(dev, results: dict):
 def reset_launches():
     from tpullm_torch.ops.kernels import flash, qmm
 
-    for d in (qmm.LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES, flash.LAUNCHES):
+    for d in (qmm.LAUNCHES, qmm.GROUPED_LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES,
+              flash.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def read_launches() -> dict:
-    """Launches per kernel entry of KERNELS, and the expert kernels' by
-    format ("qmm_stack.MXFP4", ...)."""
+    """Launches per kernel entry of KERNELS, and the grouped and expert
+    kernels' by format ("qmm_stack.MXFP4", ...)."""
     from tpullm_torch.ops.kernels import flash, qmm
 
     got = {key: qmm.LAUNCHES[fmt] for fmt, key in QMM_KEYS.items()}
-    got.update({"qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
+    got.update({"qmm_grouped": sum(qmm.GROUPED_LAUNCHES.values()),
+                "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
                 "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
                 "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"]})
-    for kind, counts in (("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
+    for kind, counts in (("qmm_grouped", qmm.GROUPED_LAUNCHES),
+                         ("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
         got.update({f"{kind}.{fmt}": n for fmt, n in counts.items() if n})
     return got
 
@@ -453,7 +514,8 @@ def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
     """Launch counts of a run against per-forward counts times the forwards
     of each regime ({"gather": n, "stack": n})."""
     n = sum(forwards.values())
-    qmm_got = sum(got[k] for k in QMM_KEYS.values())  # the 2-D launches, every format
+    # the 2-D launches, every format, through either 2-D kernel
+    qmm_got = sum(got[k] for k in QMM_KEYS.values()) + got["qmm_grouped"]
     fkey = "flash_bf16" if kv == "bf16" else "flash_q8"
     log(f"[{label}] launches {got} over {forwards} forwards; per forward {per}")
     expect(qmm_got == per["qmm"] * n, f"{label}: qmm launches {qmm_got} = {per['qmm']} × {n}")
@@ -467,9 +529,9 @@ def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
 
 
 def phase_tiny(dev, tmp: Path):
-    """The tiny dense model at every dense preset and the tiny MoE at Q4_K_M
-    and MXFP4_MOE on the card against the same models on the CPU: logits
-    NMSE ≤ 1e-3, greedy ids equal."""
+    """The tiny dense model at every dense preset and the tiny MoE at
+    Q4_K_M, MXFP4_MOE and IQ2_XXS on the card against the same models on the
+    CPU: logits NMSE ≤ 1e-3, greedy ids equal."""
     import torch
 
     from tpullm_torch.models.synth import PRESETS, make_synthetic_llama_gguf
@@ -483,7 +545,8 @@ def phase_tiny(dev, tmp: Path):
             ("tiny-moe", "Q4_K_M", torch.bfloat16, "hello world"),  # a gather-regime prefill
             *[("tiny", ftype, torch.bfloat16, fox) for ftype in PRESETS
               if ftype not in ("Q4_K_M", "MXFP4_MOE")],
-            ("tiny", "Q2_K", "q8_0", fox), ("tiny-moe", "MXFP4_MOE", torch.bfloat16, dog)]
+            ("tiny", "Q2_K", "q8_0", fox), ("tiny-moe", "MXFP4_MOE", torch.bfloat16, dog),
+            ("tiny-moe", "IQ2_XXS", torch.bfloat16, dog)]
     for shape, ftype, kv, prompt in runs:
         path = make_synthetic_llama_gguf(tmp / f"{shape}-{ftype}.gguf", shape=shape, seed=0,
                                          ftype=ftype)
@@ -576,8 +639,10 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # just before the main path
     eng = Engine(path, max_seq=4096, kv_dtype=kv)
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
     resident, per_token = plane_bytes(eng.params, max(eng.hp.n_expert_used, 1))
-    log(f"[{label}] kv={kv_name}: {eng.hp.n_layer} layers loaded in {eng.perf.t_load_s:.1f}s; "
+    log(f"[{label}] kv={kv_name}: {eng.hp.n_layer} layers loaded in {eng.perf.t_load_s:.1f}s "
+        f"(peak memory {load_peak:.2f} GiB); "
         f"planes resident {resident / 2**30:.2f} GiB; one decode token streams "
         f"{per_token / 1e9:.3f} GB of planes, a bound of "
         f"{per_token / PEAK_BYTES * 1e3:.3f} ms per token")
@@ -645,7 +710,8 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     run = dict(model=label, kv=kv_name, n_layer=eng.hp.n_layer, load_s=eng.perf.t_load_s,
-               peak_gib=peak, resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
+               load_peak_gib=load_peak, peak_gib=peak, resident_gib=resident / 2**30,
+               decode_plane_gb=per_token / 1e9,
                decode_bound_ms=per_token / PEAK_BYTES * 1e3,
                ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
                n_prompt=[p["n_prompt"] for p in per_prompt],
@@ -689,20 +755,17 @@ def phase_slice(tmp: Path, launches: dict) -> list[dict]:
 
 
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
-    """Llama-3-8B at Q2_K (a bf16 and a q8 KV cache), IQ4_XS and Q4_0 at
-    full depth, 32 tokens a prompt; at Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M
-    with 4 layers (one prompt, 16 decode steps); Mixtral-8x7B at MXFP4_MOE
-    with 4 layers, a 64-token prompt (the all-experts regime) and its decode
-    (gather)."""
+    """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
+    bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
+    Q3_K_M; Mixtral-8x7B at MXFP4_MOE with 4 layers, a 64-token prompt (the
+    all-experts regime) and its decode (gather)."""
     import torch
 
     runs = []
-    for ftype, kvs in (("Q2_K", (torch.bfloat16, "q8_0")), ("IQ4_XS", (torch.bfloat16,)),
-                       ("Q4_0", (torch.bfloat16,))):
-        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype)
-        runs += [serve(f"8b-{ftype}", path, kv, launches, n_gen=32) for kv in kvs]
-        path.unlink()
-    for ftype in ("Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
+    path = synthesize(tmp, "8b-Q2_K", "llama-3-8b", "Q2_K", n_layer=4)
+    runs += [serve("8b-Q2_K", path, kv, launches, short=64) for kv in (torch.bfloat16, "q8_0")]
+    path.unlink()
+    for ftype in ("IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
         path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
         runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
         path.unlink()
@@ -711,6 +774,51 @@ def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     expect(run["launches"].get("qmm_stack.MXFP4", 0) > 0
            and run["launches"].get("qmm_gather.MXFP4", 0) > 0 and run["launches"]["qmm_q8_0"] > 0,
            "mixtral MXFP4_MOE ran MXFP4 through qmm_stack and qmm_gather, Q8_0 through qmm")
+    runs.append(run)
+    path.unlink()
+    return runs
+
+
+def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
+    """Llama-3-8B at IQ1_S and IQ3_XXS at full depth (32 tokens a prompt;
+    between them IQ1_S, IQ2_XXS, IQ2_S, IQ3_XXS and an IQ3_S embedding); at
+    IQ2_XXS, IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 with 4 layers (one
+    prompt, 16 decode steps); Mixtral-8x7B at IQ2_XXS with 4 layers (a
+    64-token prompt through qmm_stack, decode through qmm_gather); the 8B at
+    Q4_K_M with 4 layers and qmm.GROUPED_TYPES = {Q4_K, Q6_K}: every 2-D
+    launch goes through qmm_grouped."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops.kernels import qmm
+
+    runs = []
+    for ftype in ("IQ1_S", "IQ3_XXS"):
+        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype)
+        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, n_gen=32))
+        path.unlink()
+    for ftype in ("IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M", "TQ1_0", "TQ2_0"):
+        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
+        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
+        path.unlink()
+    path = synthesize(tmp, "mixtral-IQ2_XXS", "mixtral-8x7b", "IQ2_XXS", n_layer=4)
+    run = serve("mixtral-IQ2_XXS", path, torch.bfloat16, launches, short=64)
+    expect(run["launches"].get("qmm_stack.IQ2_XXS", 0) > 0
+           and run["launches"].get("qmm_gather.IQ2_XXS", 0) > 0
+           and run["launches"]["qmm_iq2_xxs"] > 0,
+           "mixtral IQ2_XXS ran IQ2_XXS through qmm_stack, qmm_gather and qmm")
+    runs.append(run)
+    path.unlink()
+    path = synthesize(tmp, "8b-grouped", "llama-3-8b", "Q4_K_M", n_layer=4)
+    expect(not qmm.GROUPED_TYPES, "qmm.GROUPED_TYPES is empty (TPULLM_QMM_GROUPED unset)")
+    qmm.GROUPED_TYPES.update({GGMLType.Q4_K, GGMLType.Q6_K})
+    try:
+        run = serve("8b-Q4_K_M-grouped", path, torch.bfloat16, launches, short=64)
+    finally:
+        qmm.GROUPED_TYPES.clear()
+    expect(run["launches"]["qmm_grouped"] > 0
+           and sum(run["launches"][k] for k in QMM_KEYS.values()) == 0,
+           "the grouped run's 2-D launches all went through qmm_grouped")
     runs.append(run)
     path.unlink()
     return runs
@@ -760,6 +868,7 @@ def main() -> int:
     timed("build", phase_build)
     results: dict = {}
     timed("qmm", phase_qmm, dev, results)
+    timed("grouped", phase_grouped, dev, results)
     timed("moe kernels", phase_moe_kernels, dev, results)
     timed("flash", phase_flash, dev, results)
     launches: dict = {}
@@ -767,6 +876,7 @@ def main() -> int:
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs = timed("slice", phase_slice, Path(tmp), launches)
         runs += timed("presets", phase_presets, Path(tmp), launches)
+        runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
     log("[runs] summary " + json.dumps({"runs": runs}))
 
@@ -780,6 +890,10 @@ def main() -> int:
             max_nmse=max(r["nmse"] for r in rows), case=rep["case"], ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"])
+        if key == "qmm_grouped":
+            entry["qmm_ms_same_planes"] = rep["qmm_ms"]
+            entry["launches_by_format"] = {k.split(".")[1]: v for k, v in launches.items()
+                                           if k.startswith(key + ".")}
         if key in ("qmm_stack", "qmm_gather"):
             entry["formats_held"] = sorted({r["case"].split()[0] for r in rows})
             entry["launches_by_format"] = {k.split(".")[1]: v for k, v in launches.items()

@@ -18,7 +18,8 @@ pytestmark = pytest.mark.cuda
 
 # every plane format of the qmm kernels
 FORMATS = ["Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4", "IQ4_NL",
-           "Q2_K", "Q3_K", "IQ4_XS"]
+           "Q2_K", "Q3_K", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S",
+           "IQ1_M", "TQ1_0", "TQ2_0"]
 
 # NMSE bounds of the JAX package's on-chip conformance sweep
 QMM_NMSE_BOUND = 5e-4
@@ -59,6 +60,34 @@ def test_qmm_kernel_matches_plain(dev, name, M, K, N):
     ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
     assert got.shape == (M, N) and torch.isfinite(got.float()).all()
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (5, 1024, 256), (37, 512, 1028),
+                                   (300, 768, 512)])
+def test_qmm_grouped_kernel_matches_plain(dev, name, M, K, N):
+    planes = _planes(name, N, K, dev, seed=M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    before = qmm.GROUPED_LAUNCHES[name], qmm.LAUNCHES[name]
+    got = qmm.qmm_grouped(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert (qmm.GROUPED_LAUNCHES[name], qmm.LAUNCHES[name]) == (before[0] + 1, before[1])
+    ref = qmm.qmm_grouped_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+def test_grouped_types_route_matmul_to_the_grouped_kernel(dev, monkeypatch):
+    from tpullm_torch.models.weights import QuantLinear
+
+    lin = QuantLinear(GGMLType.Q4_K, 768, 512, _planes("Q4_K", 768, 512, dev, seed=3))
+    x = torch.randn(2, 512, device=dev).to(torch.bfloat16)
+    monkeypatch.setattr(qmm, "GROUPED_TYPES", {GGMLType.Q4_K})
+    before = qmm.GROUPED_LAUNCHES["Q4_K"], qmm.LAUNCHES["Q4_K"]
+    lin(x)
+    torch.cuda.synchronize()
+    assert (qmm.GROUPED_LAUNCHES["Q4_K"], qmm.LAUNCHES["Q4_K"]) == (before[0] + 1, before[1])
 
 
 def _stack(name, E, n_out, n_in, dev, seed):
@@ -201,15 +230,17 @@ def test_moe_engine_on_the_card_matches_the_cpu(dev, tmp_path):
     assert after == (before[0] + 3 * n, before[1] + 3 * 3 * n)
 
 
-@pytest.mark.parametrize("ftype", [p for p in PRESETS if p != "Q4_K_M"])
+@pytest.mark.parametrize("ftype", [p for p in PRESETS if p != "Q4_K_M"] + ["IQ2_XXS-moe"])
 def test_preset_engine_on_the_card_matches_the_cpu(dev, tmp_path, ftype):
-    """Each tiny preset (tiny-moe for MXFP4_MOE) on the card against the
-    CPU: logits NMSE ≤ 1e-3 and the same greedy ids, every format of the
-    preset launched."""
-    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    """Each tiny preset (tiny-moe for MXFP4_MOE and for IQ2_XXS-moe) on the
+    card against the CPU: logits NMSE ≤ 1e-3 and the same greedy ids, the
+    preset's base type launched (the expert kernels' for tiny-moe)."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf, preset_type
     from tpullm_torch.runtime.engine import Engine
 
-    shape = "tiny-moe" if ftype == "MXFP4_MOE" else "tiny"
+    moe = ftype == "MXFP4_MOE" or ftype.endswith("-moe")
+    ftype = ftype.removesuffix("-moe")
+    shape = "tiny-moe" if moe else "tiny"
     path = make_synthetic_llama_gguf(tmp_path / "m.gguf", shape=shape, seed=0, ftype=ftype)
     gpu = Engine(path, max_seq=256)
     cpu = Engine(path, device="cpu", max_seq=256)
@@ -221,11 +252,13 @@ def test_preset_engine_on_the_card_matches_the_cpu(dev, tmp_path, ftype):
     for tok in (300, 17, 42):
         a, b = gpu.decode_step(tok), cpu.decode_step(tok)
         assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
-    if ftype == "MXFP4_MOE":
-        assert qmm.STACK_LAUNCHES["MXFP4"] > before[1]["MXFP4"]
-        assert qmm.GATHER_LAUNCHES["MXFP4"] > before[2]["MXFP4"]
+    if moe:
+        base = preset_type(ftype, "ffn_up_exps", 0, 2, 8).name
+        assert qmm.STACK_LAUNCHES[base] > before[1][base]
+        assert qmm.GATHER_LAUNCHES[base] > before[2][base]
     else:
-        assert qmm.LAUNCHES[ftype.removesuffix("_M")] > before[0][ftype.removesuffix("_M")]
+        base = preset_type(ftype, "ffn_up", 0, 2).name
+        assert qmm.LAUNCHES[base] > before[0][base]
     gpu.reset()
     cpu.reset()
     assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)

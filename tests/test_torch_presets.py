@@ -46,6 +46,21 @@ MOE_PROMPT = "a lazy dog and a quick brown fox jumped over the world"
 LEGACY = ["Q4_0", "Q4_1", "Q5_0", "Q5_1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU Engine on one intra-op thread for the module (the
+    count restored after). The tier-1 run holds several such files at once
+    on its workers, and with a thread per core each their busy-waiting
+    thread pools slowed them about tenfold (this file, test_torch_slice.py
+    and test_torch_iq_presets.py on three workers of an 8-core host: 838 s,
+    against 84 s on one thread each). One thread also keeps the order of the
+    f32 sums the same on every host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nmse(got, ref) -> float:
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)

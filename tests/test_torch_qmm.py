@@ -136,10 +136,15 @@ def test_qmm_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_the_formats_are_those_the_jax_package_repacks_on_its_device():
-    assert {GGMLType[n] for n in TYPES} == set(qmm._FMT) == set(qmatmul._SCHEMA)
+    """TYPES are the formats the JAX package repacks on its device; with the
+    nine codebook types (tests/test_torch_iq.py), which it repacks on the
+    host, they are every row of its schema, and every one has a kernel id."""
     assert {int(t) for t in jdevice_repack.DEVICE_TYPES} == {int(GGMLType[n]) for n in TYPES}
-    for n in TYPES:
-        assert qmatmul._SCHEMA[GGMLType[n]] == jqm._SCHEMA[JGGMLType[n]], n
+    every = {GGMLType[n] for n in TYPES} | qmatmul.CODEBOOK_TYPES
+    assert every == set(qmm._FMT) == set(qmatmul._SCHEMA)
+    assert {t.name for t in every} == {t.name for t in jqm._SCHEMA}
+    for t in every:
+        assert qmatmul._SCHEMA[t] == jqm._SCHEMA[JGGMLType[t.name]], t.name
 
 
 def test_code_tables_are_copies_of_the_jax_package_constants():
@@ -212,13 +217,20 @@ def test_kernel_source_formats_and_families_match_the_wrappers():
     enum = dict(re.findall(r"\bk(\w+) = (\d+)", src[src.index("enum QmmFmt"):]))
     names = {"Q4K": "Q4_K", "Q6K": "Q6_K", "Q5K": "Q5_K", "Q8_0": "Q8_0", "Q4_0": "Q4_0",
              "Q4_1": "Q4_1", "Q5_0": "Q5_0", "Q5_1": "Q5_1", "MXFP4": "MXFP4",
-             "IQ4NL": "IQ4_NL", "Q2K": "Q2_K", "Q3K": "Q3_K", "IQ4XS": "IQ4_XS"}
+             "IQ4NL": "IQ4_NL", "Q2K": "Q2_K", "Q3K": "Q3_K", "IQ4XS": "IQ4_XS",
+             "IQ2XXS": "IQ2_XXS", "IQ2XS": "IQ2_XS", "IQ2S": "IQ2_S", "IQ3XXS": "IQ3_XXS",
+             "IQ3S": "IQ3_S", "IQ1S": "IQ1_S", "IQ1M": "IQ1_M", "TQ1_0": "TQ1_0",
+             "TQ2_0": "TQ2_0"}
     assert {names[k]: int(v) for k, v in enum.items()} == {t.name: v for t, v in qmm._FMT.items()}
-    families = re.findall(r"TPULLM_QMM_FAMILY == (\d)\n#define TPULLM_QMM_FORMATS\(X\) (.*)", src)
+    families = re.findall(r"TPULLM_QMM_FAMILY == (\d+)\n#define TPULLM_QMM_FORMATS\(X\) (.*)", src)
     got = {names[f]: int(fam) for fam, xs in families for f in re.findall(r"X\(k(\w+)\)", xs)}
     assert got == {t.name: f for t, f in qmm._FAMILY.items()}
     assert sorted(set(got.values())) == list(range(qmm._build.QMM_FAMILIES))
     traits = dict(re.findall(r"QmmFormat<k(\w+)> : QmmTraits<(.*)> \{\}", src))
+    assert sorted(traits) == sorted(names) and len(names) == len(qmatmul._SCHEMA) == 22
+    tables = {constants.MXFP4_VALUES: "kTableMxfp4", constants.IQ4_NL_VALUES: "kTableIq4nl",
+              qmatmul.IQ2_VALUES: "kTableIq2", qmatmul.IQ3XXS_VALUES: "kTableIq3xxs",
+              qmatmul.IQ3S_VALUES: "kTableIq3s", qmatmul.IQ1_VALUES: "kTableIq1"}
     for k, args in traits.items():
         layout, U, G, mapping, bias, minus = (a.strip() for a in args.split(","))
         t = GGMLType[names[k]]
@@ -229,5 +241,4 @@ def test_kernel_source_formats_and_families_match_the_wrappers():
         want = {2: "kCrumb", 3: "kCrumbQh", 4: "kHalf", 5: "kHalfQh", 6: "kWide", 8: "kWide"}
         assert layout == want[meta["bits"]], k
         assert mapping == {None: "kBias" if meta.get("bias") and t not in qmatmul.WIDE_TYPES
-                           else "kIdentity", constants.MXFP4_VALUES: "kTableMxfp4",
-                           constants.IQ4_NL_VALUES: "kTableIq4nl"}[meta.get("lut")], k
+                           else "kIdentity", **tables}[meta.get("lut")], k

@@ -11,6 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.runtime.engine import Engine as JEngine
 
 from tpullm_torch.convert import params_from_jax

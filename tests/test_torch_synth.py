@@ -162,6 +162,63 @@ def _table(ftype: str, kind: str, i: int, n: int) -> GGMLType:
     return row.get(kind, row["default"])
 
 
+def _iq_table(ftype: str, kind: str, i: int, n: int, n_expert: int = 0) -> GGMLType:
+    """The i-quant and ternary rows of llama_tensor_get_type (n_gqa = 4, no
+    imatrix, n layers), written out row by row; with 8 experts the IQ1 and
+    IQ2 presets make attn_k and attn_v Q4_K and attn_output Q5_K, and the
+    expert stacks take their FFN kind's type."""
+    T = GGMLType
+    kind = kind.removesuffix("_exps")
+    first = i < n // 8
+    rows = {
+        "IQ2_XXS": dict(default=T.IQ2_XXS, attn_v=T.Q4_K, ffn_down=T.Q2_K if first else T.IQ2_XXS,
+                        output=T.Q5_K, token_embd=T.Q2_K),
+        "IQ2_XS": dict(default=T.IQ2_XS, attn_v=T.Q4_K, ffn_down=T.Q2_K if first else T.IQ2_XS,
+                       output=T.Q5_K, token_embd=T.Q2_K),
+        "IQ2_M": dict(default=T.IQ2_S, attn_v=T.Q4_K, attn_output=T.IQ3_S,
+                      ffn_down=T.IQ3_S if first else T.IQ2_S, output=T.Q5_K, token_embd=T.IQ3_S),
+        "IQ1_S": dict(default=T.IQ1_S, attn_v=T.Q4_K, attn_output=T.IQ2_XXS,
+                      ffn_down=T.Q2_K if first else T.IQ1_S, output=T.Q5_K, token_embd=T.Q2_K),
+        "IQ1_M": dict(default=T.IQ1_M, attn_v=T.Q4_K, attn_output=T.IQ2_XXS,
+                      ffn_down=T.Q2_K if first else T.IQ1_M, output=T.Q5_K, token_embd=T.Q2_K),
+        "IQ3_XXS": dict(default=T.IQ3_XXS, attn_q=T.IQ2_S, attn_k=T.IQ2_S, attn_v=T.Q4_K,
+                        ffn_down=T.Q4_K if first else T.Q3_K, output=T.Q5_K, token_embd=T.IQ3_S),
+        "IQ3_M": dict(default=T.IQ3_S, attn_v=T.Q4_K, attn_output=T.Q4_K,
+                      ffn_down=T.Q4_K if first else T.IQ3_S, output=T.Q6_K, token_embd=T.IQ3_S),
+        "TQ1_0": dict(default=T.TQ1_0, output=T.Q6_K, token_embd=T.Q4_K),
+        "TQ2_0": dict(default=T.TQ2_0, output=T.Q6_K, token_embd=T.Q4_K),
+    }
+    row = dict(rows[ftype])
+    if n_expert == 8 and ftype in ("IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_S", "IQ1_M"):
+        row.update(attn_k=T.Q4_K, attn_v=T.Q4_K, attn_output=T.Q5_K)
+    return row.get(kind, row["default"])
+
+
+IQ_PRESETS = ["IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ3_XXS", "IQ3_M", "TQ1_0",
+              "TQ2_0"]
+
+
+@pytest.mark.parametrize("ftype", IQ_PRESETS)
+def test_iq_preset_types_follow_the_table(tmp_path, ftype):
+    """The recipe at 32 layers (ffn_down of layers 0..3 takes the i < n/8
+    type), at 2, and with 8 experts; the tiny file's tensors follow it."""
+    for n, n_expert in ((32, 0), (2, 0), (32, 8)):
+        kinds = KINDS if n_expert else [k for k in KINDS if "_exps" not in k]
+        for i in range(n):
+            for kind in kinds:
+                if kind == "ffn_gate_inp":
+                    continue
+                assert preset_type(ftype, kind, i, n, n_expert) \
+                    == _iq_table(ftype, kind, i, n, n_expert), (n, n_expert, i, kind)
+    r = GGUFReader(make_synthetic_llama_gguf(tmp_path / "m.gguf", shape="tiny", ftype=ftype))
+    for name, info in r.tensors.items():
+        if name.endswith("norm.weight"):
+            continue
+        kind = name.split(".")[-2]
+        i = int(name.split(".")[1]) if name.startswith("blk.") else 0
+        assert info.ggml_type == _iq_table(ftype, kind, i, 2), name
+
+
 @pytest.mark.parametrize("ftype", ["Q2_K", "Q3_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL",
                                    "IQ4_XS"])
 def test_dense_preset_types_follow_the_table(tmp_path, ftype):
@@ -205,11 +262,13 @@ def test_mxfp4_moe_types(tmp_path):
 def test_unknown_preset_raises():
     with pytest.raises(ValueError):
         preset_type("Q4_K_S", "attn_q", 0, 32)
-    assert "MXFP4_MOE" in PRESETS and len(PRESETS) == 10
+    assert "MXFP4_MOE" in PRESETS and len(PRESETS) == 19
+    assert set(IQ_PRESETS) < set(PRESETS)
 
 
 @pytest.mark.parametrize("name", ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q2_K", "Q3_K",
-                                  "IQ4_XS", "MXFP4"])
+                                  "IQ4_XS", "MXFP4", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS",
+                                  "IQ3_S", "IQ1_S", "TQ1_0", "TQ2_0"])
 def test_scale_fields_of_new_types_are_finite(name):
     """Every f16 scale field of every block is finite and d of
     scale·U(0.5, 1.5); MXFP4's exponent byte is the nearest 128 + log2(d)."""
@@ -243,3 +302,42 @@ def test_mxfp4_moe_weights_have_unit_scale_activations(tmp_path):
                                    st.n_out, st.n_in)
         rms = float(w.pow(2).mean().sqrt())
         assert 0.7 < rms * st.n_in ** 0.5 < 1.4, (name, rms)
+
+
+def test_iq1_m_d_sits_in_the_top_nibbles_of_its_scale_words():
+    """IQ1_M's f16 d, nibble k in the top nibble of scale word k (bytes
+    48..55), as the JAX package's codec reads it; the other 12 bits of each
+    word stay as drawn."""
+    from tpullm.quant import iq_codecs as jiq
+
+    from tpullm_torch.gguf.constants import TYPE_TRAITS
+
+    tt = TYPE_TRAITS[GGMLType.IQ1_M]
+    plain = np.random.default_rng(4).integers(0, 256, size=(64, tt.type_size), dtype=np.uint8)
+    raw = random_packed(np.random.default_rng(4), GGMLType.IQ1_M, 64 * 256,
+                        scale=0.02).reshape(64, tt.type_size)
+    words = raw[:, 48:56].copy().view("<u2")
+    d = ((words[:, 0] >> 12) | ((words[:, 1] >> 8) & 0xF0) | ((words[:, 2] >> 4) & 0xF00)
+         | (words[:, 3] & 0xF000)).astype("<u2").view("<f2").astype(np.float64)
+    assert (d >= 0.0099).all() and (d <= 0.0301).all()
+    np.testing.assert_array_equal(words & 0x0FFF, plain[:, 48:56].copy().view("<u2") & 0x0FFF)
+    np.testing.assert_array_equal(raw[:, :48], plain[:, :48])
+    v = jiq.dequant_iq1_m(raw)
+    assert np.isfinite(v).all() and 0 < np.abs(v).max() <= 0.0301 * 15 * 1.125
+
+
+def test_tq2_0_fields_are_ternary():
+    """TQ2_0's 2-bit fields are 0..2 (a 3, which decodes to +2, is never
+    drawn), so every weight is -d, 0 or d."""
+    from tpullm.quant import iq_codecs as jiq
+
+    from tpullm_torch.gguf.constants import TYPE_TRAITS
+
+    tt = TYPE_TRAITS[GGMLType.TQ2_0]
+    raw = random_packed(np.random.default_rng(5), GGMLType.TQ2_0, 256 * 256,
+                        words=True).reshape(256, tt.type_size)
+    fields = (raw[:, :64, None] >> np.array([0, 2, 4, 6], dtype=np.uint8)) & 3
+    assert fields.max() == 2 and (np.bincount(fields.reshape(-1), minlength=4)[:3] > 0).all()
+    d = raw[:, 64:66].copy().view("<f2").astype(np.float32)
+    v = jiq.dequant_tq2_0(raw)
+    assert set(np.unique(np.round(v / d, 6))) == {-1.0, 0.0, 1.0}

@@ -1,14 +1,28 @@
 // Fused dequantize×matmul over the v2 plane schema, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel tpullm/ops/pallas/qmm.py::_kernel_mat (+ _acc_tile),
-// launched by _qmm_2d: y [M, N] = x [M, K] · dequant(planes), for the 13
-// plane formats of qmm_body.cuh (this library: the formats of family
-// TPULLM_QMM_FAMILY). The arithmetic and its rounding points are in
-// qmm_body.cuh.
+// Two kernels of y [M, N] = x [M, K] · dequant(planes), for the 22 plane
+// formats of qmm_body.cuh (this library: the formats of family
+// TPULLM_QMM_FAMILY), both launched where tpullm/ops/pallas/qmm.py::_qmm_2d
+// launches its pallas_call:
 //
-// What bounds it on the card: at decode (M = 1) the plane bytes (4 to 6 bits
-// a weight for the packed formats with their bf16 scales, 8.5 for Q6_K's qw
-// and Q8_0) against 3.35 TB/s; at prefill the CUDA-core FMAs (no tensor
+// qmm_kernel replaces the materializing body _kernel_mat (+ _acc_tile). The
+//   arithmetic and its rounding points are in qmm_body.cuh.
+//
+// qmm_grouped_kernel replaces the group-factored body _kernel, which _qmm_2d
+//   takes for the types of GROUPED_TYPES (TPULLM_QMM_GROUPED):
+//     y[m, n] = Σ_g scale[g, n] · (Σ_{k∈g} bf16(x[m, k]) · value(k, n))
+//               − Σ_g minus_eff[g, n] · (Σ_{k∈g} bf16(x[m, k]))
+//   in f32, value the raw code of the identity and bias maps, the table
+//   value, or the signed byte (each exact in bf16, so _kernel's bf16 cast
+//   of it is the identity here), minus_eff the minus plane or scale·bias.
+//   The element loop is one FMA a weight and row of x: no per-weight scale
+//   multiply and rounding. It walks each group's rows in order, decoding
+//   every row from its packed row (a half-split or 2-bit packed row is read
+//   once per field; the repeats hit L1).
+//
+// What bounds them on the card: at decode (M = 1) the plane bytes (2 to 6
+// bits a weight for the packed formats with their bf16 scales, 8.5 for Q6_K's
+// qw and Q8_0) against 3.35 TB/s; at prefill the CUDA-core FMAs (no tensor
 // cores yet). Few output columns at decode leave the card idle, so K is split
 // over blockIdx.z into f32 partials summed by a second pass in a fixed order.
 
@@ -28,9 +42,152 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ code
                   blockIdx.y * TM, chunks_per_split);
 }
 
+// The unscaled values of chunk row kk for the thread's 4 columns (see
+// qmm_grouped_kernel), from the packed planes of chunk k0.
+template <class P>
+__device__ __forceinline__ void qmm_row_values(const uint8_t* __restrict__ codes,
+                                               const uint8_t* __restrict__ qh, int k0, int kk,
+                                               int N, int n0, const float* lut,
+                                               float (&v)[kQmmCols]) {
+  constexpr int U = P::U;
+  const int unit = kk / U, ru = kk % U;
+  if constexpr (P::layout == kWide) {
+    const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 + kk) * N + n0);
+#pragma unroll
+    for (int j = 0; j < kQmmCols; ++j) v[j] = (float)(int8_t)((q >> (8 * j)) & 0xffu);
+  } else {
+    uint32_t c[kQmmCols];
+    if constexpr (P::layout == kHalf || P::layout == kHalfQh) {
+      // row ru of a unit: packed row ru % (U/2), the high nibble for ru ≥
+      // U/2; its fifth bit: qh row ru % (U/8), bit ru / (U/8)
+      const int p = unit * (U / 2) + ru % (U / 2);
+      const int sh = ru >= U / 2 ? 4 : 0;
+      const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 2 + p) * N + n0);
+#pragma unroll
+      for (int j = 0; j < kQmmCols; ++j) c[j] = (q >> (8 * j + sh)) & 0xfu;
+      if constexpr (P::has_qh) {
+        const uint32_t h = *reinterpret_cast<const uint32_t*>(
+            qh + (size_t)(k0 / 8 + unit * (U / 8) + ru % (U / 8)) * N + n0);
+#pragma unroll
+        for (int j = 0; j < kQmmCols; ++j) c[j] |= ((h >> (8 * j + ru / (U / 8))) & 1u) << 4;
+      }
+    } else {
+      // U = 256: row kk is field kk/64 of packed row kk % 64; its third bit
+      // is bit kk/32 of qh row kk % 32
+      const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 4 + kk % 64) * N + n0);
+#pragma unroll
+      for (int j = 0; j < kQmmCols; ++j) c[j] = (q >> (8 * j + 2 * (kk / 64))) & 3u;
+      if constexpr (P::has_qh) {
+        const uint32_t h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + kk % 32) * N + n0);
+#pragma unroll
+        for (int j = 0; j < kQmmCols; ++j) c[j] |= ((h >> (8 * j + kk / 32)) & 1u) << 2;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kQmmCols; ++j) {
+      if constexpr (P::table) v[j] = lut[c[j]];
+      else v[j] = (float)c[j];
+    }
+  }
+}
+
+template <int TM, int F>
+__global__ void __launch_bounds__(kQmmThreads)
+qmm_grouped_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                   const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
+                   const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
+  using P = QmmFormat<F>;
+  constexpr int G = P::G;
+  constexpr int NG = kQmmChunk / G;  // scale groups per chunk
+  constexpr bool kMinusEff = P::has_minus || P::map == kBias;
+  __shared__ float xs[TM][kQmmChunk];
+  __shared__ float gsum[TM][kMinusEff ? NG : 1];
+  __shared__ float lut[P::table ? 16 : 1];
+  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first chunk's barrier
+
+  const int m0 = blockIdx.y * TM;
+  const int n0 = (blockIdx.x * kQmmThreads + threadIdx.x) * kQmmCols;
+  const int c_begin = blockIdx.z * chunks_per_split;
+  const int c_end = min(K / kQmmChunk, c_begin + chunks_per_split);
+  const bool active = n0 < N;
+
+  float acc[TM][kQmmCols];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < kQmmCols; ++j) acc[m][j] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int k0 = c * kQmmChunk;
+    __syncthreads();  // the previous chunk's readers are done with xs
+    for (int i = threadIdx.x; i < TM * kQmmChunk; i += kQmmThreads) {
+      const int m = i / kQmmChunk, kk = i % kQmmChunk;
+      xs[m][kk] = (m0 + m < M) ? __bfloat162float(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
+    }
+    __syncthreads();
+    if constexpr (kMinusEff) {
+      for (int i = threadIdx.x; i < TM * NG; i += kQmmThreads) {
+        const int m = i / NG, g = i % NG;
+        float s = 0.f;
+        for (int j = 0; j < G; ++j) s += xs[m][g * G + j];
+        gsum[m][g] = s;
+      }
+      __syncthreads();
+    }
+    if (!active) continue;
+
+    for (int g = 0; g < NG; ++g) {
+      float part[TM][kQmmCols];
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int j = 0; j < kQmmCols; ++j) part[m][j] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < G; ++r) {
+        const int kk = g * G + r;
+        float v[kQmmCols];
+        qmm_row_values<P>(codes, qh, k0, kk, N, n0, lut, v);
+        qmm_fma<TM>(part, xs, kk, v);
+      }
+      float sc[kQmmCols];
+      load_bf16x4(scale + (size_t)(k0 / G + g) * N + n0, sc);
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(part[m][j], sc[j], acc[m][j]);
+      if constexpr (kMinusEff) {
+        float me[kQmmCols];
+        if constexpr (P::has_minus) {
+          load_bf16x4(minus + (size_t)(k0 / G + g) * N + n0, me);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kQmmCols; ++j) me[j] = sc[j] * (float)P::bias;
+        }
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+          for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(-gsum[m][g], me[j], acc[m][j]);
+      }
+    }
+  }
+
+  if (!active) return;
+  qmm_store<TM>(acc, out, partial, M, N, M, 0, m0, n0);
+}
+
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
                                   __nv_bfloat16* __restrict__ out, long long mn, int split) {
   qmm_reduce_body(partial, out, mn, split);
+}
+
+// After a launch: the error, else the split reduction when K was split.
+int finish(float* partial, __nv_bfloat16* out, int M, int N, int split, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const long long mn = (long long)M * N;
+  qmm_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(partial, out, mn, split);
+  return (int)cudaGetLastError();
 }
 
 template <int F>
@@ -53,11 +210,28 @@ int launch(const void* x, const void* codes, const void* qh, const void* scale,
     case 16: qmm_kernel<16, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const long long mn = (long long)M * N;
-  qmm_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(pb, ob, mn, split);
-  return (int)cudaGetLastError();
+  return finish(pb, ob, M, N, split, stream);
+}
+
+// the tm values match ops/kernels/qmm.py _GROUPED_TMS
+template <int F>
+int launch_grouped(const void* x, const void* codes, const void* qh, const void* scale,
+                   const void* minus, void* out, void* partial, int M, int K, int N, int tm,
+                   int split, int chunks_per_split, cudaStream_t stream) {
+  const dim3 grid = qmm_grid(N, (M + tm - 1) / tm, split);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* cb = static_cast<const uint8_t*>(codes);
+  const auto* hb = static_cast<const uint8_t*>(qh);
+  const auto* sb = static_cast<const __nv_bfloat16*>(scale);
+  const auto* mb = static_cast<const __nv_bfloat16*>(minus);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* pb = static_cast<float*>(partial);
+  switch (tm) {
+    case 1: qmm_grouped_kernel<1, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
+    case 16: qmm_grouped_kernel<16, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return finish(pb, ob, M, N, split, stream);
 }
 
 }  // namespace
@@ -74,6 +248,22 @@ extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void*
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
     case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The group-factored kernel: the arguments of tpullm_qmm, tm in {1, 16}.
+extern "C" int tpullm_qmm_grouped(int fmt, const void* x, const void* codes, const void* qh,
+                                  const void* scale, const void* minus, void* out,
+                                  void* partial, int M, int K, int N, int tm, int split,
+                                  int chunks_per_split, void* stream_ptr) {
+  if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (fmt) {
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch_grouped<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -5,7 +5,8 @@ scales: numerically meaningless, but byte-layout-identical to real models,
 so the load, repack, kernel and engine paths run at true shapes without a
 download. The types follow llama.cpp's recipe of a preset (`preset_type`:
 Q4_K_M with its branch for 8-expert models, Q2_K, Q3_K_M, the legacy and
-IQ4 presets, MXFP4_MOE). Payloads are drawn while the file is written, one
+IQ4 presets, MXFP4_MOE, the i-quant presets IQ1_S .. IQ3_M and the ternary
+TQ1_0 and TQ2_0). Payloads are drawn while the file is written, one
 tensor at a time, so a 28 GB model never sits in host memory.
 """
 
@@ -42,7 +43,8 @@ SHAPES = {
 }
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
-# d (every other byte stays random); MXFP4 holds an e8m0 exponent byte at 0
+# d (every other byte stays random); MXFP4 holds an e8m0 exponent byte at 0,
+# IQ1_M its f16 d in the top nibbles of the four scale words at bytes 48-55
 SCALE_FIELDS = {
     GGMLType.Q4_0: (0,), GGMLType.Q5_0: (0,), GGMLType.IQ4_NL: (0,), GGMLType.IQ4_XS: (0,),
     GGMLType.Q8_0: (0,),
@@ -51,16 +53,27 @@ SCALE_FIELDS = {
     GGMLType.Q2_K: (80, 82),  # d and dmin
     GGMLType.Q3_K: (108,),
     GGMLType.Q6_K: (208,),
+    GGMLType.IQ2_XXS: (0,), GGMLType.IQ2_XS: (0,), GGMLType.IQ2_S: (0,),
+    GGMLType.IQ3_XXS: (0,), GGMLType.IQ3_S: (0,), GGMLType.IQ1_S: (0,),
+    GGMLType.TQ1_0: (52,), GGMLType.TQ2_0: (64,),
 }
 
 # RMS of a decoded weight per unit block scale d, over random_packed's draws
 # (the sub-scales and codes are random bytes); MXFP4's is its table's RMS
 _RMS_PER_D = {GGMLType.Q8_0: 77.2, GGMLType.Q4_K: 311.0, GGMLType.Q5_K: 677.9,
               GGMLType.Q6_K: 1410.7,
-              GGMLType.MXFP4: math.sqrt(sum(v * v for v in MXFP4_VALUES) / 16)}
+              GGMLType.MXFP4: math.sqrt(sum(v * v for v in MXFP4_VALUES) / 16),
+              # over a [1024, 4096] draw of each (uint32 words, seed 0)
+              GGMLType.Q2_K: 13.94, GGMLType.Q3_K: 45.3, GGMLType.IQ2_XXS: 55.4,
+              GGMLType.IQ2_XS: 58.0, GGMLType.IQ2_S: 58.8, GGMLType.IQ3_XXS: 148.2,
+              GGMLType.IQ3_S: 146.7, GGMLType.IQ1_S: 7.48, GGMLType.IQ1_M: 7.50,
+              GGMLType.TQ1_0: 0.852, GGMLType.TQ2_0: 0.736}
 
 PRESETS = ("Q4_K_M", "Q2_K", "Q3_K_M", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS",
-           "MXFP4_MOE")
+           "MXFP4_MOE", "IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ3_XXS", "IQ3_M",
+           "TQ1_0", "TQ2_0")
+# the i-quant presets of 1 and 2 bits, which llama.cpp treats alike
+_LOW_BIT = ("IQ1_S", "IQ1_M", "IQ2_XXS", "IQ2_XS", "IQ2_M")
 
 DEFAULT_WORDS = [
     "▁the", "▁quick", "▁brown", "▁fox", "▁jumps", "▁over", "▁lazy", "▁dog",
@@ -107,9 +120,17 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     | Q4_0, Q4_1, Q5_0, Q5_1 | that type | default | default | default | Q6_K | default |
     | IQ4_NL, IQ4_XS | that type | Q5_K | default | Q5_K for i < n/8, else default | Q6_K | default |
     | MXFP4_MOE | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 |
+    | IQ2_XXS, IQ2_XS | that type | Q4_K | default | Q2_K for i < n/8 | Q5_K | Q2_K |
+    | IQ2_M | IQ2_S | Q4_K | IQ3_S | IQ3_S for i < n/8 | Q5_K | IQ3_S |
+    | IQ1_S, IQ1_M | that type | Q4_K | IQ2_XXS | Q2_K for i < n/8 | Q5_K | Q2_K |
+    | IQ3_XXS | IQ3_XXS (attn_q, attn_k IQ2_S) | Q4_K | default | Q4_K for i < n/8, else Q3_K | Q5_K | IQ3_S |
+    | IQ3_M | IQ3_S | Q4_K | Q4_K | Q4_K for i < n/8 | Q6_K | IQ3_S |
+    | TQ1_0, TQ2_0 | that type | default | default | default | Q6_K | Q4_K |
 
     MXFP4_MOE makes every expert stack MXFP4. Q4_K_M with exactly 8
-    experts makes attn_k and attn_v Q8_0 and attn_output Q5_K."""
+    experts makes attn_k and attn_v Q8_0 and attn_output Q5_K; the IQ1 and
+    IQ2 presets with exactly 8 experts make attn_k and attn_v Q4_K and
+    attn_output Q5_K."""
     if kind == "ffn_gate_inp":
         return GGMLType.F32
     if ftype == "MXFP4_MOE":
@@ -125,6 +146,14 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
         if kind in ("attn_v", "ffn_down") and use_more_bits(i_layer, n_layer):
             return GGMLType.Q6_K
         return GGMLType.Q4_K
+    if ftype in _LOW_BIT or ftype == "IQ3_XXS":
+        return _iq_type(ftype, kind, i_layer, n_layer, n_expert)
+    if ftype == "IQ3_M":
+        if kind in ("attn_v", "attn_output") or (kind == "ffn_down" and i_layer < n_layer // 8):
+            return GGMLType.Q4_K
+        return {"output": GGMLType.Q6_K, "token_embd": GGMLType.IQ3_S}.get(kind, GGMLType.IQ3_S)
+    if ftype in ("TQ1_0", "TQ2_0"):
+        return {"output": GGMLType.Q6_K, "token_embd": GGMLType.Q4_K}.get(kind, GGMLType[ftype])
     if kind == "output":
         return GGMLType.Q6_K
     if ftype == "Q2_K":
@@ -145,11 +174,42 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     raise ValueError(f"unknown preset {ftype!r}; presets: {PRESETS}")
 
 
+def _iq_type(ftype: str, kind: str, i_layer: int, n_layer: int, n_expert: int) -> GGMLType:
+    """preset_type of the IQ1, IQ2 and IQ3_XXS presets."""
+    if kind == "output":
+        return GGMLType.Q5_K
+    if n_expert == 8 and ftype in _LOW_BIT:
+        if kind in ("attn_k", "attn_v"):
+            return GGMLType.Q4_K
+        if kind == "attn_output":
+            return GGMLType.Q5_K
+    if kind == "attn_v":
+        return GGMLType.Q4_K
+    first = i_layer < n_layer // 8
+    if ftype == "IQ3_XXS":
+        if kind == "ffn_down":
+            return GGMLType.Q4_K if first else GGMLType.Q3_K
+        return {"attn_q": GGMLType.IQ2_S, "attn_k": GGMLType.IQ2_S,
+                "token_embd": GGMLType.IQ3_S}.get(kind, GGMLType.IQ3_XXS)
+    if ftype == "IQ2_M":
+        if kind in ("attn_output", "token_embd") or (kind == "ffn_down" and first):
+            return GGMLType.IQ3_S
+        return GGMLType.IQ2_S
+    if kind == "token_embd" or (kind == "ffn_down" and first):
+        return GGMLType.Q2_K
+    if kind == "attn_output" and ftype in ("IQ1_S", "IQ1_M"):
+        return GGMLType.IQ2_XXS
+    return GGMLType[ftype]
+
+
 def write_scales(raw, gtype: GGMLType, d) -> None:
     """Sets the scale fields of blocks `raw` (nb, type_size) uint8 to d (nb
-    positive values): an f16 d at each offset of SCALE_FIELDS, or for MXFP4
-    the e8m0 exponent byte nearest 128 + log2(d), kept in 1..254. Works on
-    numpy arrays and on torch tensors alike, on any device."""
+    positive values): an f16 d at each offset of SCALE_FIELDS, for MXFP4
+    the e8m0 exponent byte nearest 128 + log2(d), kept in 1..254, for IQ1_M
+    nibble k of the f16 d in the top nibble of scale word k. TQ2_0's 2-bit
+    fields of 3, which decode to +2 and which no ternary file holds, become
+    1 (the weight 0). Works on numpy arrays and on torch tensors alike, on
+    any device."""
     if gtype == GGMLType.MXFP4:
         if isinstance(raw, np.ndarray):
             raw[:, 0] = np.clip(np.rint(128 + np.log2(d)), 1, 254).astype(np.uint8)
@@ -164,6 +224,15 @@ def write_scales(raw, gtype: GGMLType, d) -> None:
         import torch
 
         db = d.to(torch.float16).view(torch.uint8).reshape(-1, 2)
+    if gtype == GGMLType.IQ1_M:
+        # the high byte of word k (byte 49 + 2k) takes nibble k of d in its top nibble
+        for k in range(4):
+            nib = (db[:, k // 2] >> (4 * (k % 2))) & 0x0F
+            raw[:, 49 + 2 * k] = (raw[:, 49 + 2 * k] & 0x0F) | (nib << 4)
+        return
+    if gtype == GGMLType.TQ2_0:
+        q = raw[:, 0:64]
+        raw[:, 0:64] = q & ~((q & (q >> 1) & 0x55) << 1)
     for off in SCALE_FIELDS[gtype]:
         raw[:, off: off + 2] = db
 

@@ -162,10 +162,19 @@ def load_linear(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> nn.Module
 
 def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.Tensor:
     """Embedding table as [n_vocab, n_embd]: a quantized table uploads
-    packed and dequantizes on the device through dequant_planes."""
+    packed and dequantizes on the device through dequant_planes. A
+    codebook type dequantizes from its f32-scale planes, scale·value in f32
+    rounded once to `dtype`: the JAX package's dequant of such a table (a
+    type its device repack does not take) is its f32 codec, whose values
+    those planes hold bit for bit; the other types from the bf16-scale
+    planes of `repack`, as the JAX package's device load does."""
     if TYPE_TRAITS[info.ggml_type].is_quantized:
         n_out, n_in = info.shape[1], info.shape[0]
-        planes = qmatmul.repack(info.data, info.ggml_type, n_out, n_in, device)
+        if info.ggml_type in qmatmul.CODEBOOK_TYPES:
+            blocks = qmatmul.upload_blocks(info.data, device)
+            planes = qmatmul.repack_planes(blocks, info.ggml_type, n_out, n_in)
+        else:
+            planes = qmatmul.repack(info.data, info.ggml_type, n_out, n_in, device)
         w = qmatmul.dequant_planes(planes, info.ggml_type, n_out, n_in, dtype=dtype)
         return w.T.contiguous()  # [n_in, n_out] → [n_vocab, n_embd]
     return torch.from_numpy(_dense_array(info)).to(device=device, dtype=dtype)

@@ -3,7 +3,7 @@
 Each library compiles one `csrc/<source>.cu` with nvcc into a shared library
 with a plain C interface, `build/tpullm_torch/lib<name>-<digest>.so` under
 the repository root, bound with ctypes. The qmm sources build once per plane
-layout family (`-DTPULLM_QMM_FAMILY=f`, the formats of csrc/qmm_body.cuh's
+format family (`-DTPULLM_QMM_FAMILY=f`, the formats of csrc/qmm_body.cuh's
 TPULLM_QMM_FORMATS), so their many instantiations compile in parallel. The
 digest covers the sources and flags, so an edited kernel rebuilds and a stale
 library is never loaded. The build runs at first use; `build()` starts one
@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpullm_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-QMM_FAMILIES = 5  # layout families of csrc/qmm_body.cuh
+QMM_FAMILIES = 13  # format families of csrc/qmm_body.cuh
 
 # library name → (source in csrc/, its own nvcc flags)
 LIBRARIES = {f"{src}{f}": (f"{src}.cu", (f"-DTPULLM_QMM_FAMILY={f}",))

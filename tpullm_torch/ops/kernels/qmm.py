@@ -2,19 +2,26 @@
 plain versions.
 
 - `qmm` replaces tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile (the
-  pallas_call in _qmm_2d, entry qmatmul), for the 13 plane formats the JAX
-  package repacks on its device: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, MXFP4,
-  IQ4_NL, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K (wide `qw`) and IQ4_XS (the layouts
-  of ops/qmatmul.py). Source: tpullm_torch/csrc/qmm.cu.
+  pallas_call in _qmm_2d, entry qmatmul), for all 22 plane formats of
+  ops/qmatmul.py: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, MXFP4, IQ4_NL, Q2_K, Q3_K,
+  Q4_K, Q5_K, Q6_K (wide `qw`), IQ4_XS and the codebook types IQ2_XXS,
+  IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, TQ1_0, TQ2_0. Source:
+  tpullm_torch/csrc/qmm.cu.
+- `qmm_grouped` replaces the group-factored body _kernel of the same
+  pallas_call, which _qmm_2d picks for the types of its GROUPED_TYPES: the
+  scale is applied once per group to Σ x·value instead of to every weight.
+  As in the JAX package, GROUPED_TYPES is read once from
+  TPULLM_QMM_GROUPED (comma-separated type names) and is empty by default;
+  `ops.qmatmul.matmul` sends a listed type to it. Same source.
 - `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
   qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
   or per-expert x [E, M, K] → [E, M, N].
 - `qmm_gather` replaces _kernel_gather (the pallas_call in _qmm_gather,
   entry qmatmul_gather): row t of x [T, K] through expert ids[t] → [T, N];
   each block reads its own id on the card.
-The expert kernels take the same 13 formats; their source is
+The expert kernels take the same 22 formats; their source is
 tpullm_torch/csrc/qmm_moe.cu, on the device body of csrc/qmm_body.cuh that
-`qmm` uses too. Each source builds once per layout family (`_FAMILY`). What
+`qmm` uses too. Each source builds once per format family (`_FAMILY`). What
 bounds each on the card, and what its design does about it, is in the
 source notes.
 
@@ -22,39 +29,54 @@ The plain versions compute the same functions with the same rounding points
 as `_acc_tile`: x rounded to bf16, the weight rounded to bf16 after the f32
 scale multiply, f32 sums, the min term through group sums of x, output in
 x's dtype. `qmm_stack_reference` and `qmm_gather_reference` are built on
-`qmm_reference`, expert by expert.
+`qmm_reference`, expert by expert. `qmm_grouped_reference` has _kernel's:
+x rounded to bf16, the unscaled value (the raw code of the identity and
+bias maps, the table value, or the signed byte) rounded to bf16, f32 group
+sums scaled once, the bias types' bias through scale·bias times the group
+sums of x.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from ...gguf.constants import GGMLType
-from ..qmatmul import _SCHEMA, WIDE_TYPES, has_minus, plane_values
+from ..qmatmul import _SCHEMA, WIDE_TYPES, _expand_codes, _padded_lut, has_minus, plane_values
 from . import _build
 
-# csrc/qmm_body.cuh QmmFmt ids, and the layout family (library) of each
+# csrc/qmm_body.cuh QmmFmt ids, and the format family (library) of each
 _FMT = {GGMLType.Q4_K: 0, GGMLType.Q6_K: 1, GGMLType.Q5_K: 2, GGMLType.Q8_0: 3,
         GGMLType.Q4_0: 4, GGMLType.Q4_1: 5, GGMLType.Q5_0: 6, GGMLType.Q5_1: 7,
         GGMLType.MXFP4: 8, GGMLType.IQ4_NL: 9, GGMLType.Q2_K: 10, GGMLType.Q3_K: 11,
-        GGMLType.IQ4_XS: 12}
-_FAMILY = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 0, GGMLType.IQ4_XS: 0,
-           GGMLType.Q6_K: 1, GGMLType.Q8_0: 1,
-           GGMLType.Q4_0: 2, GGMLType.Q4_1: 2, GGMLType.MXFP4: 2, GGMLType.IQ4_NL: 2,
-           GGMLType.Q5_0: 3, GGMLType.Q5_1: 3,
-           GGMLType.Q2_K: 4, GGMLType.Q3_K: 4}
+        GGMLType.IQ4_XS: 12, GGMLType.IQ2_XXS: 13, GGMLType.IQ2_XS: 14,
+        GGMLType.IQ2_S: 15, GGMLType.IQ3_XXS: 16, GGMLType.IQ3_S: 17, GGMLType.IQ1_S: 18,
+        GGMLType.IQ1_M: 19, GGMLType.TQ1_0: 20, GGMLType.TQ2_0: 21}
+_FAMILY = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 1, GGMLType.IQ4_XS: 2, GGMLType.IQ3_XXS: 3,
+           GGMLType.IQ3_S: 4, GGMLType.Q6_K: 5, GGMLType.Q8_0: 5,
+           GGMLType.Q4_0: 6, GGMLType.Q4_1: 6, GGMLType.MXFP4: 7, GGMLType.IQ4_NL: 7,
+           GGMLType.Q5_0: 8, GGMLType.Q5_1: 8, GGMLType.Q2_K: 9, GGMLType.Q3_K: 9,
+           GGMLType.IQ2_XXS: 10, GGMLType.IQ2_XS: 10, GGMLType.IQ2_S: 10,
+           GGMLType.IQ1_S: 11, GGMLType.IQ1_M: 11, GGMLType.TQ1_0: 12, GGMLType.TQ2_0: 12}
+
+# the types ops.qmatmul.matmul sends to qmm_grouped (tpullm/ops/pallas/qmm.py
+# GROUPED_TYPES); a run may change the set in place
+GROUPED_TYPES: set = {GGMLType[t.strip()] for t in
+                      os.environ.get("TPULLM_QMM_GROUPED", "").split(",") if t.strip()}
 
 # launches of each kernel, by plane format; plain counts a run can read
 LAUNCHES = {t.name: 0 for t in _FMT}
 STACK_LAUNCHES = {t.name: 0 for t in _FMT}
 GATHER_LAUNCHES = {t.name: 0 for t in _FMT}
+GROUPED_LAUNCHES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P)
 _GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_GROUPED_TMS = (1, 16)  # the row counts csrc/qmm.cu instantiates qmm_grouped at
 _CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
 _BLOCK_N = 512  # output columns per block, csrc/qmm_body.cuh kQmmBlockN
 
@@ -95,6 +117,38 @@ def qmm_reference(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLT
     return acc.to(x.dtype)
 
 
+def qmm_grouped_reference(x: torch.Tensor, planes: dict[str, torch.Tensor],
+                          gtype: GGMLType, n_out: int, n_in: int) -> torch.Tensor:
+    """x [M, K] → [M, N], the plain version of qmm_grouped (_kernel's
+    rounding points; groups taken a few at a time to bound the [groups, M,
+    N] temporary)."""
+    meta = _SCHEMA[gtype]
+    G = meta["G"]
+    ng = n_in // G
+    M = x.shape[0]
+    xb = x.to(torch.bfloat16).float()
+    bias = None
+    if "qw" in planes:  # bias folded at repack
+        vals = planes["qw"].view(torch.int8).float()
+    else:
+        codes = _expand_codes(planes, gtype)
+        vals = (_padded_lut(gtype, codes.device)[codes.to(torch.int32)] if "lut" in meta
+                else codes.float())
+        bias = meta.get("bias")
+    w = vals.to(torch.bfloat16).float().reshape(ng, G, n_out)
+    xg = xb.reshape(M, ng, G).transpose(0, 1)  # (ng, M, G)
+    scale = planes["scale"].float()  # (ng, N)
+    acc = torch.zeros((M, n_out), dtype=torch.float32, device=x.device)
+    step = max(1, (1 << 26) // max(1, M * n_out))
+    for g in range(0, ng, step):
+        dot = torch.bmm(xg[g:g + step], w[g:g + step])  # (groups, M, N)
+        acc += (dot * scale[g:g + step, None, :]).sum(0)
+    minus = planes["minus"].float() if "minus" in planes else scale * float(bias) if bias else None
+    if minus is not None:
+        acc = acc - xg.sum(-1).transpose(0, 1) @ minus  # group sums of bf16 x, in f32
+    return acc.to(x.dtype)
+
+
 def _expert(planes: dict[str, torch.Tensor], e: int) -> dict[str, torch.Tensor]:
     return {k: v[e] for k, v in planes.items()}
 
@@ -120,10 +174,13 @@ def qmm_gather_reference(x: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1) -> tuple[int, int, int]:
+def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
+         tms: tuple[int, ...] = (1, 2, 4, 8, 16)) -> tuple[int, int, int]:
     """(rows per block, K splits, chunks per split) for `batches` [M, K] ×
-    [K, N] products: enough blocks to cover the card about four times over."""
-    tm = next(t for t in (1, 2, 4, 8, 16) if t >= min(M, 16))
+    [K, N] products: the least of the kernel's row counts `tms` that covers
+    M (else the largest), and enough blocks to cover the card about four
+    times over."""
+    tm = next((t for t in tms if t >= M), tms[-1])
     blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
     n_chunks = K // _CHUNK
     split = max(1, min(n_chunks, -(-4 * n_sm // blocks)))
@@ -185,6 +242,29 @@ def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
                     partial.data_ptr(), M, K, N, tm, split, per, stream), f"qmm {gtype.name}")
     LAUNCHES[gtype.name] += 1
+    return out
+
+
+def qmm_grouped(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
+                n_out: int, n_in: int) -> torch.Tensor:
+    """x [M, K] bf16 on the card → [M, N] bf16 through the group-factored
+    CUDA kernel."""
+    _ported(gtype, "qmm_grouped")
+    ops = _check(x, planes, gtype, n_in, n_out, (), "qmm_grouped")
+    if x.dim() != 2:
+        raise ValueError("qmm_grouped: x must be [M, K]")
+    M, K, N = x.shape[0], n_in, n_out
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tm, split, per = plan(M, K, N, n_sm, tms=_GROUPED_TMS)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _QMM_ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
+                    partial.data_ptr(), M, K, N, tm, split, per, stream),
+                 f"qmm_grouped {gtype.name}")
+    GROUPED_LAUNCHES[gtype.name] += 1
     return out
 
 

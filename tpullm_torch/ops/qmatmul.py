@@ -9,29 +9,36 @@ At load time ggml blocks are repacked into column-major planes
     w[k, n] = scale[k//G, n] · map(code[k, n]) − minus[k//G, n]
 
 Five code layouts, each split within a U-row unit (U = 256 for the
-K-quants and IQ4_XS, 32 for the 32-weight block types):
+K-quants and the 256-weight i-quants, 32 for the 32-weight block types):
 - 4-bit half-split, `qs` [K/2, N]: byte[r] = q[r] | q[r + U/2] << 4 within
-  each unit (Q4_0, Q4_1, MXFP4, IQ4_NL at U = 32; Q4_K, IQ4_XS at U = 256);
+  each unit (Q4_0, Q4_1, MXFP4, IQ4_NL at U = 32; Q4_K, IQ4_XS, IQ3_XXS,
+  IQ3_S at U = 256);
 - the same plus a 1-bit plane `qh` [K/8, N], the fifth bit (field j of
   packed row r of a unit holds the bit of row j·U/8 + r): Q5_0, Q5_1 at
   U = 32, Q5_K at U = 256;
 - a 2-bit plane `qs` [K/4, N] (field j of packed row r holds row
-  j·U/4 + r): Q2_K;
-- the 2-bit plane plus a 1-bit `qh`, the code lo | hi << 2: Q3_K;
+  j·U/4 + r): Q2_K, TQ1_0, TQ2_0;
+- the 2-bit plane plus a 1-bit `qh`, the code lo | hi << 2: Q3_K and the
+  3-bit codebook codes of IQ2_XXS, IQ2_XS, IQ2_S, IQ1_S, IQ1_M;
 - one byte per weight: Q8_0's int8 `qs` [K, N] (sign-extended on read) and
   Q6_K widened to `qw` [K, N] int8 with the bias 32 folded in.
 
 `scale` [K/G, N] is the premultiplied group scale (d·sc, d, or MXFP4's
 2^(e-128)); `minus` [K/G, N] the min term (dmin·m for Q4_K/Q5_K/Q2_K, −m for
 Q4_1/Q5_1). `map` is the identity, a bias subtracted from the code (Q4_0 8,
-Q5_0 16, Q3_K 4) or a 16-entry table (MXFP4, IQ4_NL, IQ4_XS).
+Q5_0 16, Q3_K 4, TQ 1) or a code table of 6 or 16 entries (MXFP4, IQ4_NL,
+IQ4_XS and the IQ1/IQ2/IQ3 codebook types).
+
+The codebook types (CODEBOOK_TYPES: IQ1/IQ2/IQ3, TQ) collapse to this form
+because every decoded value is a group scale times a value of a small set:
+their repack decodes the blocks (quant/iq_codecs.py) and matches each
+value/scale ratio to the nearest table entry, as the JAX package's
+`repack_np` does.
 
 `scale`/`minus` live on the device as bf16 (as the JAX package's
-`upload_planes` stores them). The repack runs on the device with torch bit
-ops: the packed blocks are the smallest bytes that exist, so they are what
-crosses the host link. The 13 rows of the schema that the JAX package can
-repack on its device are ported; the codebook types (IQ1/IQ2/IQ3, TQ) are
-not.
+`upload_planes` stores them). The repack runs on the device with torch ops:
+the packed blocks are the smallest bytes that exist, so they are what
+crosses the host link. All 22 rows of the JAX package's schema are ported.
 
 Expert stacks (`models.weights.QuantExpertStack`) hold the same planes with
 a leading expert axis, [E, rows, N]; `stack_matmul` and `gather_matmul`
@@ -45,7 +52,16 @@ import warnings
 import numpy as np
 import torch
 
-from ..gguf.constants import GGMLType, IQ4_NL_VALUES, MXFP4_VALUES, TYPE_TRAITS
+from ..gguf.constants import GGMLType, IQ4_NL_VALUES, MXFP4_VALUES, QK_K, TYPE_TRAITS
+
+# the codebook types' value tables (tpullm/ops/qmatmul.py): the IQ2 grids
+# hold {8, 25, 43}, IQ3_XXS's {4 .. 62}, IQ3_S's the odd 1 .. 15, each with
+# its sign; IQ1's grid value g in {-1, 0, 1} and its group's ±0.125 delta
+# fold into one 6-entry map, code = (g + 1) + 3·[delta < 0]
+IQ2_VALUES = (8.0, 25.0, 43.0, -8.0, -25.0, -43.0)
+IQ3XXS_VALUES = tuple(float(s * m) for s in (1, -1) for m in (4, 12, 20, 28, 36, 44, 52, 62))
+IQ3S_VALUES = tuple(float(s * m) for s in (1, -1) for m in (1, 3, 5, 7, 9, 11, 13, 15))
+IQ1_VALUES = (-0.875, 0.125, 1.125, -1.125, -0.125, 0.875)
 
 # metadata: code bits, scale-group size G, split unit U (= SB, else G),
 # symmetric bias or code table
@@ -63,7 +79,24 @@ _SCHEMA = {
     GGMLType.Q2_K: dict(bits=2, G=16, SB=256),
     GGMLType.Q3_K: dict(bits=3, G=16, SB=256, bias=4),
     GGMLType.IQ4_XS: dict(bits=4, G=32, SB=256, lut=IQ4_NL_VALUES),
+    GGMLType.IQ2_XXS: dict(bits=3, G=32, SB=256, lut=IQ2_VALUES),
+    GGMLType.IQ2_XS: dict(bits=3, G=16, SB=256, lut=IQ2_VALUES),
+    GGMLType.IQ2_S: dict(bits=3, G=16, SB=256, lut=IQ2_VALUES),
+    GGMLType.IQ3_XXS: dict(bits=4, G=32, SB=256, lut=IQ3XXS_VALUES),
+    GGMLType.IQ3_S: dict(bits=4, G=32, SB=256, lut=IQ3S_VALUES),
+    GGMLType.IQ1_S: dict(bits=3, G=32, SB=256, lut=IQ1_VALUES),
+    GGMLType.IQ1_M: dict(bits=3, G=16, SB=256, lut=IQ1_VALUES),
+    GGMLType.TQ1_0: dict(bits=2, G=256, SB=256, bias=1),
+    GGMLType.TQ2_0: dict(bits=2, G=256, SB=256, bias=1),
 }
+
+# The types repacked through their decoded values (nearest-table match)
+CODEBOOK_TYPES = frozenset({
+    GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S,
+    GGMLType.IQ1_S, GGMLType.IQ1_M, GGMLType.TQ1_0, GGMLType.TQ2_0})
+# blocks decoded and matched at once: bounds the [blocks, 256, entries]
+# temporary of the match to 1 GiB
+_MATCH_BLOCKS = 1 << 16
 
 # Types repacked to wide int8 "qw" planes (bias folded) instead of packed
 # sub-byte codes: one byte load and one sign extension per weight.
@@ -251,7 +284,32 @@ def _decode_blocks(b: torch.Tensor, gtype: GGMLType, n_out: int):
                            | (((scales_h >> (2 * ib)) & 3) << 4)) - 32 for ib in range(8)],
                          dim=-1)
         return _col(codes, n_out), _col(d[..., None] * ls.float(), n_out), None
+    if gtype in CODEBOOK_TYPES:
+        return _match_codebook(b, gtype, n_out)
     raise NotImplementedError(f"repack of {gtype.name} is not ported")
+
+
+def _match_codebook(b: torch.Tensor, gtype: GGMLType, n_out: int):
+    """A codebook type's blocks → (codes, scale, None): the blocks decoded
+    in f32 (quant/iq_codecs.py), each value divided by its group scale (0/0
+    taken as 0) and matched to the nearest entry of the type's table, ties
+    to the lower index (the TQ types: the bias form -1, 0, 1). Runs over
+    _MATCH_BLOCKS blocks at a time, on the blocks' device."""
+    from ..quant.iq_codecs import IQ_DEQUANT, iq_group_scales
+
+    meta = _SCHEMA[gtype]
+    G = meta["G"]
+    lut = torch.tensor(meta.get("lut", [i - meta.get("bias", 0) for i in range(3)]),
+                       dtype=torch.float32, device=b.device)
+    blocks = b.reshape(-1, b.shape[-1])
+    scale = iq_group_scales(blocks, gtype)  # (blocks, 256/G)
+    codes = torch.empty((blocks.shape[0], QK_K), dtype=torch.uint8, device=b.device)
+    for i in range(0, blocks.shape[0], _MATCH_BLOCKS):
+        v = IQ_DEQUANT[gtype](blocks[i:i + _MATCH_BLOCKS])
+        s = scale[i:i + _MATCH_BLOCKS]
+        ratio = torch.nan_to_num(v.reshape(s.shape[0], -1, G) / s[..., None])
+        codes[i:i + _MATCH_BLOCKS] = (ratio[..., None] - lut).abs().argmin(-1).reshape(-1, QK_K)
+    return _col(codes.reshape(n_out, -1), n_out), _col(scale.reshape(n_out, -1), n_out), None
 
 
 def repack_planes(blocks: torch.Tensor, gtype: GGMLType, n_out: int,
@@ -344,9 +402,18 @@ def plane_values(planes: dict[str, torch.Tensor], gtype: GGMLType) -> torch.Tens
     if meta.get("bias"):
         return (codes.to(torch.int32) - meta["bias"]).float()
     if "lut" in meta:
-        lut = torch.tensor(meta["lut"], dtype=torch.float32, device=codes.device)
-        return lut[codes.to(torch.int32)]
+        return _padded_lut(gtype, codes.device)[codes.to(torch.int32)]
     return codes.float()
+
+
+def _padded_lut(gtype: GGMLType, device) -> torch.Tensor:
+    """The type's code table padded to 2^bits entries with entry 0: a code
+    past a 6-entry table maps to entry 0, as the JAX package's where-chain
+    maps it."""
+    meta = _SCHEMA[gtype]
+    lut = list(meta["lut"])
+    lut += [lut[0]] * ((1 << meta["bits"]) - len(lut))
+    return torch.tensor(lut, dtype=torch.float32, device=device)
 
 
 def dequant_planes(planes: dict[str, torch.Tensor], gtype: GGMLType, n_out: int,
@@ -365,15 +432,20 @@ def matmul(x: torch.Tensor, ql) -> torch.Tensor:
     """Fused dequant matmul: x [..., n_in] → [..., n_out].
 
     A CUDA tensor goes to the hand-written qmm kernel (which raises on what
-    it does not take); a CPU tensor to the kernel's plain version."""
+    it does not take), or to the group-factored qmm_grouped kernel for the
+    types of `qmm.GROUPED_TYPES`; a CPU tensor to that kernel's plain
+    version."""
     from .kernels import qmm
 
     lead = x.shape[:-1]
     x2 = x.reshape(-1, ql.n_in)
+    grouped = ql.gtype in qmm.GROUPED_TYPES
     if x2.is_cuda:
-        out = qmm.qmm(x2.contiguous(), ql.planes, ql.gtype, ql.n_out, ql.n_in)
+        fn = qmm.qmm_grouped if grouped else qmm.qmm
+        out = fn(x2.contiguous(), ql.planes, ql.gtype, ql.n_out, ql.n_in)
     else:
-        out = qmm.qmm_reference(x2, ql.planes, ql.gtype, ql.n_out, ql.n_in)
+        fn = qmm.qmm_grouped_reference if grouped else qmm.qmm_reference
+        out = fn(x2, ql.planes, ql.gtype, ql.n_out, ql.n_in)
     return out.reshape(*lead, ql.n_out)
 
 
