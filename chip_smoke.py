@@ -7,27 +7,31 @@ Phases, in order; any failure raises and exits nonzero:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
  2. build: compiles every kernel library from tpullm_torch/csrc with nvcc,
     one process per library (the qmm sources once per layout family), and
-    prints each library's compile seconds and the `-Xptxas -v` report;
+    prints each library's compile seconds, the `-Xptxas -v` report, and
+    each tensor-core kernel's registers and spill bytes;
  3. kernels vs plain: each kernel against its plain PyTorch version on the
-    card at the shapes of the main paths (qmm: Q4_K and Q6_K at the
-    Llama-3-8B shapes, Q5_K and Q8_0 at Mixtral's attention shapes, the 18
-    formats of the later presets, codebook types included, at the 8B gate_up
-    and down, M in {1, 512}; qmm_grouped, the group-factored kernel: all 22
-    formats at the 8B gate_up, M in {1, 512}, timed beside qmm on the same
-    planes; qmm_stack and qmm_gather: all 22 formats as expert stacks at
-    Mixtral's 4096→14336 and 14336→4096, stack M = 512 with a shared x (and,
-    for Q4_K and Q6_K, a per-expert x), gather T in {2, 32}; flash: bf16 and
-    q8 KV, T in {1, 512}, S = 4096, GQA 32/8, plus small softcap / window /
-    sink / ALiBi cases), held to the NMSE bounds of the JAX package's
-    conformance sweep; each timed with CUDA events beside its bound and a
-    PyTorch library call;
+    card at the shapes of the main paths (qmm: all 22 formats at the 8B
+    gate_up and down, M in {1, 16, 512}: M = 1 on CUDA cores, 16 and 512 on
+    the tensor cores, and at M = 512 the CUDA-core kernel timed on the same
+    planes; Q4_K and Q6_K also at the other Llama-3-8B shapes and Q5_K and
+    Q8_0 at Mixtral's attention shapes, M = 1; qmm_grouped, the
+    group-factored kernel: all 22 formats at the 8B gate_up, M in {1, 512},
+    timed beside qmm on the same planes; qmm_stack and qmm_gather: all 22
+    formats as expert stacks at Mixtral's 4096→14336 and 14336→4096, stack
+    M = 512 with a shared x (and, for Q4_K and Q6_K, a per-expert x), gather
+    T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8,
+    plus small softcap / window / sink / ALiBi cases), held to the NMSE
+    bounds of the JAX package's conformance sweep; each timed with CUDA
+    events beside its bound and a PyTorch library call;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU;
  5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
     Engine with a bf16 and with a q8 KV cache: three prompts (one of 512
     tokens), 64 generated tokens each, one prompt twice for determinism;
     load time and its peak memory, TTFT, pp512 and decode tok/s, peak
-    memory, each kernel's launches against the count expected per forward;
+    memory, device time by kernel family of 16 profiled decode steps and of
+    one profiled 512-token prefill, each kernel's launches against the
+    count expected per forward;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
     16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
@@ -38,9 +42,17 @@ Phases, in order; any failure raises and exits nonzero:
     at IQ2_XXS with 4 layers; the 8B at Q4_K_M with 4 layers and Q4_K and
     Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped;
  8. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
-    synthesized from a seed and served the same way with a bf16 KV cache,
-    the expert kernels' launches checked per regime;
- 9. the card line, the `kernels` JSON line, and the result line.
+    synthesized from a seed and served the same way with a bf16 KV cache;
+ 9. routes: the tiny model with a 250-token head on the card against the
+    CPU, its head through the counted dequantize-then-matmul route, and one
+    attention call at head dim 96 through the counted dense path;
+10. the card line, the `kernels` JSON line, and the result line.
+
+Every serving run checks its launches per regime: each forward's 2-D qmm
+on the tensor cores from 16 rows (the prefill buckets of 16 and up, the
+head aside: it runs on the last row only) and on CUDA cores below, the
+expert stacks through qmm_stack above 16 rows and qmm_gather at or below;
+and no call of a full-width model through either counted route.
 
 Imports nothing of JAX or of the tpullm package. Exits nonzero without CUDA
 or without the repository beside it.
@@ -72,8 +84,9 @@ PEAK_BF16 = 989e12
 # the 8B linears, (name, K = n_in, N = n_out)
 QMM_SHAPES = (("qkv", 4096, 6144), ("wo", 4096, 4096), ("gate_up", 4096, 28672),
               ("down", 14336, 4096), ("head", 4096, 128256))
-# the 8B FFN linears, for the formats of the later presets
+# the 8B FFN linears, held for every format at M in QMM_ROWS
 PRESET_QMM_SHAPES = (("gate_up", 4096, 28672), ("down", 14336, 4096))
+QMM_ROWS = (1, 16, 512)
 # Mixtral's Q5_K attn_output and Q8_0 attn_k/attn_v
 MIXTRAL_ATTN_SHAPES = (("wo", 4096, 4096), ("wkv", 4096, 1024))
 # Mixtral's expert stacks: 8 experts, gate and up 4096→14336, down 14336→4096
@@ -87,26 +100,30 @@ QMM_KEYS = {"Q4_K": "qmm_q4k", "Q6_K": "qmm_q6k", "Q5_K": "qmm_q5k", "Q8_0": "qm
             "IQ2_XS": "qmm_iq2_xs", "IQ2_S": "qmm_iq2_s", "IQ3_XXS": "qmm_iq3_xxs",
             "IQ3_S": "qmm_iq3_s", "IQ1_S": "qmm_iq1_s", "IQ1_M": "qmm_iq1_m",
             "TQ1_0": "qmm_tq1_0", "TQ2_0": "qmm_tq2_0"}
-QMM_CASES = {"Q4_K": QMM_SHAPES, "Q6_K": QMM_SHAPES, "Q5_K": MIXTRAL_ATTN_SHAPES,
-             "Q8_0": MIXTRAL_ATTN_SHAPES}
+# the shapes beyond PRESET_QMM_SHAPES that formats hold at M = 1
+QMM_EXTRA = {"Q4_K": QMM_SHAPES[:2] + QMM_SHAPES[4:], "Q6_K": QMM_SHAPES[:2] + QMM_SHAPES[4:],
+             "Q5_K": MIXTRAL_ATTN_SHAPES, "Q8_0": MIXTRAL_ATTN_SHAPES}
 # the group-factored kernel's shape: the 8B gate_up
 GROUPED_SHAPE = ("gate_up", 4096, 28672)
-KERNELS = (*QMM_KEYS.values(), "qmm_grouped", "qmm_stack", "qmm_gather", "flash_bf16",
-           "flash_q8")
+KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather",
+           "flash_bf16", "flash_q8")
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
-                  **{QMM_KEYS[f]: f"{f} gate_up M=1" for f in QMM_KEYS if f not in QMM_CASES},
+                  **{QMM_KEYS[f]: f"{f} gate_up M=1" for f in QMM_KEYS if f not in QMM_EXTRA},
+                  "qmm_tc": "Q4_K gate_up M=512",
                   "qmm_grouped": "Q4_K gate_up M=1", "qmm_stack": "Q4_K gate M=512 shared",
                   "qmm_gather": "Q4_K gate T=2",
                   "flash_bf16": "bf16 T=1 S=4096", "flash_q8": "q8 T=1 S=4096"}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
+            "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
             "flash_bf16": "tpullm/ops/pallas/flash.py:69",
             "flash_q8": "tpullm/ops/pallas/flash.py:69"}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
+           "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
@@ -165,6 +182,35 @@ def phase_card() -> str:
     return smi
 
 
+def ptxas_entries(report: str) -> list[tuple[str, int, int, int]]:
+    """(kernel<template ints>, registers, spill store bytes, spill load
+    bytes) of each entry function in an `-Xptxas -v` report."""
+    import re
+
+    out, cur, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:  # the mangled name's identifier (length-prefixed) that ends in _kernel
+            mangled, cur = m.group(1), m.group(1)[:48]
+            for i in range(len(mangled)):
+                d = re.match(r"\d+", mangled[i:])
+                ident = mangled[i + d.end():i + d.end() + int(d.group())] if d else ""
+                if ident.endswith("_kernel") and ident.isidentifier():
+                    targs = re.match(r"I((?:Li\d+E)+)E", mangled[i + d.end() + len(ident):])
+                    args = re.findall(r"Li(\d+)E", targs.group(1)) if targs else []
+                    cur = f"{ident}<{','.join(args)}>"
+                    break
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append((cur, int(m.group(1)), *spill))
+            cur, spill = None, (0, 0)
+    return out
+
+
 def phase_build():
     from tpullm_torch.ops.kernels import _build
 
@@ -173,10 +219,17 @@ def phase_build():
     log(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f}s "
         f"into {_build.BUILD_DIR}; nvcc seconds per library "
         f"{ {name: round(sec, 1) for name, (_, sec) in reports.items()} }")
+    tc = []
     for name, (rep, _) in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[build] {name}: {line.strip()}")
+        entries = ptxas_entries(rep)
+        log(f"[build] {name}: " + "; ".join(f"{k} {r} regs, spill {st}/{ld} B"
+                                           for k, r, st, ld in entries))
+        tc += [(k, r, st, ld) for k, r, st, ld in entries
+               if k.startswith(("qmm_tc_kernel", "qmm_stack_kernel"))]
+    if tc:
+        log(f"[build] tensor-core kernels: {len(tc)}, registers {min(e[1] for e in tc)}–"
+            f"{max(e[1] for e in tc)}, spill stores {max(e[2] for e in tc)} B at most, "
+            f"spilling: {[e[0] for e in tc if e[2] or e[3]]}")
 
 
 def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
@@ -196,7 +249,34 @@ def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
     return qmatmul.repack(raw.reshape(-1), gtype, n_out, n_in, dev)
 
 
+def _cuda_core_qmm(x, planes, gtype, N: int, K: int):
+    """The CUDA-core qmm kernel (TM = 8 rows a block) at an M of the
+    tensor-core regime, uncounted: the kernel the tensor-core one replaced
+    there, timed on the same planes."""
+    import torch
+
+    from tpullm_torch.ops.kernels import _build, qmm
+
+    M = x.shape[0]
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tm, split, per = qmm.plan(M, K, N, n_sm, tms=(8,))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.bind(f"qmm{qmm._FAMILY[gtype]}", "tpullm_qmm", qmm._QMM_ARGS)
+    ops = [planes[qmm._code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
+    _build.check(fn(qmm._FMT[gtype], x.data_ptr(), *[None if t is None else t.data_ptr()
+                                                     for t in ops],
+                    out.data_ptr(), partial.data_ptr(), M, K, N, tm, split, per,
+                    torch.cuda.current_stream(x.device).cuda_stream), "cuda-core qmm")
+    return out
+
+
 def phase_qmm(dev, results: dict):
+    """qmm for every format at the 8B gate_up and down, M in QMM_ROWS (the
+    CUDA-core kernel at M = 1, the tensor-core kernel at 16 and 512, and at
+    512 the CUDA-core kernel on the same planes), and at the formats' other
+    main-path shapes at M = 1."""
     import torch
 
     from tpullm_torch.gguf.constants import GGMLType
@@ -206,11 +286,13 @@ def phase_qmm(dev, results: dict):
     gen = torch.Generator(dev).manual_seed(0)
     for fmt, key in QMM_KEYS.items():
         gtype = GGMLType[fmt]
-        for name, K, N in QMM_CASES.get(fmt, PRESET_QMM_SHAPES):
+        cases = [(shape, QMM_ROWS) for shape in PRESET_QMM_SHAPES]
+        cases += [(shape, (1,)) for shape in QMM_EXTRA.get(fmt, ())]
+        for (name, K, N), rows in cases:
             planes = _random_planes(gtype, N, K, gen, dev)
             plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
             w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
-            for M in (1, 512):
+            for M in rows:
                 x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
                 got = qmm.qmm(x, planes, gtype, N, K)
                 ref = qmm.qmm_reference(x, planes, gtype, N, K)
@@ -220,17 +302,28 @@ def phase_qmm(dev, results: dict):
                 label = f"{gtype.name} {name} M={M}"
                 expect(bool(torch.isfinite(got.float()).all()), f"{label} finite")
                 expect(err <= QMM_NMSE_BOUND, f"{label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
-                ms = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), 20 if M == 1 else 5)
+                iters = 20 if M == 1 else 5
+                ms = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
                 plain = time_ms(lambda: qmm.qmm_reference(x, planes, gtype, N, K), 2, 1)
-                lib = time_ms(lambda: torch.matmul(x, w_lib), 20 if M == 1 else 5)
+                lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
                 bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
                 row = dict(case=label, nmse=err, max_abs_err=mae, ms=ms, plain_ms=plain,
                            bound_ms=bms, bound_by=by, library_ms=lib,
-                           gbps=(plane_bytes + M * K * 2 + M * N * 2) / ms / 1e6)
-                results.setdefault(key, []).append(row)
+                           gbps=(plane_bytes + M * K * 2 + M * N * 2) / ms / 1e6,
+                           tflops=2.0 * M * K * N / ms / 1e9)
+                extra = ""
+                if M == max(QMM_ROWS):
+                    cc = _cuda_core_qmm(x, planes, gtype, N, K)
+                    torch.cuda.synchronize()
+                    expect(nmse(cc.float(), ref.float()) <= QMM_NMSE_BOUND,
+                           f"{label} CUDA-core kernel NMSE")
+                    row["cuda_core_ms"] = time_ms(lambda: _cuda_core_qmm(x, planes, gtype, N, K),
+                                                  3, 1)
+                    extra = f" cuda-core kernel {row['cuda_core_ms']:.4f} ms"
+                results.setdefault(key if M < qmm.TC_MIN_M else "qmm_tc", []).append(row)
                 log(f"[qmm] {label}: nmse {err:.2e} max|d| {mae:.3g} kernel {ms:.4f} ms "
-                    f"({row['gbps']:.0f} GB/s) bound {bms:.4f} ms ({by}) plain {plain:.3f} ms "
-                    f"cublas-on-dequantized {lib:.4f} ms")
+                    f"({row['gbps']:.0f} GB/s, {row['tflops']:.1f} TFLOP/s) bound {bms:.4f} ms "
+                    f"({by}) plain {plain:.3f} ms cublas-on-dequantized {lib:.4f} ms{extra}")
             del w_lib, planes
     torch.cuda.empty_cache()
 
@@ -460,72 +553,98 @@ def phase_flash(dev, results: dict):
 def reset_launches():
     from tpullm_torch.ops.kernels import flash, qmm
 
-    for d in (qmm.LAUNCHES, qmm.GROUPED_LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES,
-              flash.LAUNCHES):
+    for d in (qmm.LAUNCHES, qmm.TC_LAUNCHES, qmm.GROUPED_LAUNCHES, qmm.STACK_LAUNCHES,
+              qmm.GATHER_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.ATTN_DENSE_ROUTES):
         for k in d:
             d[k] = 0
 
 
 def read_launches() -> dict:
-    """Launches per kernel entry of KERNELS, and the grouped and expert
-    kernels' by format ("qmm_stack.MXFP4", ...)."""
+    """Launches per kernel entry of KERNELS (qmm_<format>: the CUDA-core
+    regime; qmm_tc: the tensor-core regime, every format), the grouped,
+    tensor-core and expert kernels' by format ("qmm_stack.MXFP4", ...), and
+    the calls of the two counted routes."""
     from tpullm_torch.ops.kernels import flash, qmm
 
     got = {key: qmm.LAUNCHES[fmt] for fmt, key in QMM_KEYS.items()}
-    got.update({"qmm_grouped": sum(qmm.GROUPED_LAUNCHES.values()),
+    got.update({"qmm_tc": sum(qmm.TC_LAUNCHES.values()),
+                "qmm_grouped": sum(qmm.GROUPED_LAUNCHES.values()),
                 "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
                 "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
-                "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"]})
-    for kind, counts in (("qmm_grouped", qmm.GROUPED_LAUNCHES),
+                "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"],
+                "dequant_routes": sum(qmm.DEQUANT_ROUTES.values()),
+                "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values())})
+    for kind, counts in (("qmm_tc", qmm.TC_LAUNCHES), ("qmm_grouped", qmm.GROUPED_LAUNCHES),
                          ("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
         got.update({f"{kind}.{fmt}": n for fmt, n in counts.items() if n})
     return got
 
 
 def per_forward_launches(params) -> dict:
-    """Kernel launches one forward makes: 2-D qmm (each quantized linear,
-    fused or not, and the head), expert kernels (each expert stack: in the
-    gather regime qmm_gather, else qmm_stack) and flash (one per layer)."""
+    """Kernel launches one forward makes: 2-D qmm in the layers (each
+    quantized linear, fused or not) and for the head (on the last row only),
+    expert kernels (each expert stack: in the gather regime qmm_gather, else
+    qmm_stack) and flash (one per layer)."""
     from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
 
     def is_quant(m):
         return isinstance(m.base if isinstance(m, FusedLinear) else m, QuantLinear)
 
-    qmm_n = int(is_quant(params["output"])) if params["output"] is not None else 0
-    experts = 0
+    head = int(is_quant(params["output"])) if params["output"] is not None else 0
+    layers = experts = 0
     for layer in params["layers"]:
-        qmm_n += sum(is_quant(m) for m in layer.values()
-                     if isinstance(m, (QuantLinear, FusedLinear)))
+        layers += sum(is_quant(m) for m in layer.values()
+                      if isinstance(m, (QuantLinear, FusedLinear)))
         experts += sum(isinstance(m, QuantExpertStack) for m in layer.values())
-    return {"qmm": qmm_n, "experts": experts, "flash": len(params["layers"])}
+    return {"qmm": layers + head, "qmm_layers": layers, "head": head, "experts": experts,
+            "flash": len(params["layers"])}
 
 
-def regime(n_tokens: int) -> str:
-    """The MoE regime of a forward over n_tokens (batch 1): its prefill
-    bucket, or 1 at decode, against the gather threshold."""
-    from tpullm_torch.ops import moe
+def bucket_rows(n_tokens: int) -> int:
+    """The rows a forward over n_tokens runs (batch 1): its prefill bucket,
+    1 at decode."""
     from tpullm_torch.runtime.engine import PREFILL_BUCKETS
 
-    bucket = next(b for b in PREFILL_BUCKETS if n_tokens <= b)
-    return "gather" if bucket <= moe._GATHER_MAX_TOKENS else "stack"
+    return next(b for b in PREFILL_BUCKETS if n_tokens <= b)
 
 
-def check_launches(label: str, got: dict, per: dict, forwards: dict, kv: str):
-    """Launch counts of a run against per-forward counts times the forwards
-    of each regime ({"gather": n, "stack": n})."""
-    n = sum(forwards.values())
-    # the 2-D launches, every format, through either 2-D kernel
-    qmm_got = sum(got[k] for k in QMM_KEYS.values()) + got["qmm_grouped"]
+def check_launches(label: str, got: dict, per: dict, rows: list[int], kv: str):
+    """Launch counts of a run against per-forward counts and the rows of
+    each forward (its bucket; 1 at decode): the 2-D qmm of the layers on
+    the tensor cores from TC_MIN_M rows and on CUDA cores below, the head on
+    CUDA cores (one row), unless the run sent them to qmm_grouped; the
+    expert stacks through qmm_stack above the gather threshold and
+    qmm_gather at or below it; no call through either counted route."""
+    from tpullm_torch.ops import moe
+    from tpullm_torch.ops.kernels import qmm
+
+    n = len(rows)
+    tc_fw = sum(r >= qmm.TC_MIN_M for r in rows)
+    stack_fw = sum(r > moe._GATHER_MAX_TOKENS for r in rows)
+    cc_got = sum(got[k] for k in QMM_KEYS.values())
     fkey = "flash_bf16" if kv == "bf16" else "flash_q8"
-    log(f"[{label}] launches {got} over {forwards} forwards; per forward {per}")
-    expect(qmm_got == per["qmm"] * n, f"{label}: qmm launches {qmm_got} = {per['qmm']} × {n}")
+    log(f"[{label}] launches {got} over {n} forwards ({tc_fw} of ≥ {qmm.TC_MIN_M} rows, "
+        f"{stack_fw} of > {moe._GATHER_MAX_TOKENS}); per forward {per}")
+    expect(cc_got + got["qmm_tc"] + got["qmm_grouped"] == per["qmm"] * n,
+           f"{label}: qmm launches {cc_got} + {got['qmm_tc']} + {got['qmm_grouped']} = "
+           f"{per['qmm']} × {n}")
+    if got["qmm_grouped"] == 0:
+        expect(got["qmm_tc"] == per["qmm_layers"] * tc_fw,
+               f"{label}: tensor-core qmm launches {got['qmm_tc']} = {per['qmm_layers']} × "
+               f"{tc_fw} forwards of ≥ {qmm.TC_MIN_M} rows")
+        expect(cc_got == per["qmm_layers"] * (n - tc_fw) + per["head"] * n,
+               f"{label}: CUDA-core qmm launches {cc_got} = {per['qmm_layers']} × "
+               f"{n - tc_fw} forwards of < {qmm.TC_MIN_M} rows + {per['head']} heads × {n} "
+               "(none at ≥ 16 rows)")
     expect(got[fkey] == per["flash"] * n, f"{label}: {fkey} launches = {per['flash']} × {n}")
-    expect(got["qmm_gather"] == per["experts"] * forwards["gather"],
+    expect(got["qmm_gather"] == per["experts"] * (n - stack_fw),
            f"{label}: qmm_gather launches {got['qmm_gather']} = {per['experts']} × "
-           f"{forwards['gather']} gather-regime forwards")
-    expect(got["qmm_stack"] == per["experts"] * forwards["stack"],
+           f"{n - stack_fw} gather-regime forwards")
+    expect(got["qmm_stack"] == per["experts"] * stack_fw,
            f"{label}: qmm_stack launches {got['qmm_stack']} = {per['experts']} × "
-           f"{forwards['stack']} stack-regime forwards")
+           f"{stack_fw} stack-regime forwards")
+    expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0,
+           f"{label}: no call through the dequantize or dense-attention routes")
 
 
 def phase_tiny(dev, tmp: Path):
@@ -597,6 +716,28 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
             "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
 
 
+def profile_prefill(eng, ids) -> dict:
+    """Device time of one prefill of `ids` by kernel family, from
+    torch.profiler, beside its wall time (prompt in, logits on the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.prefill(ids)
+        wall = time.perf_counter() - t0
+    fam = {"qmm_tc": 0.0, "qmm_stack": 0.0, "qmm": 0.0, "flash": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if us > 0.0:
+            kind = next((k for k in ("qmm_tc", "qmm_stack", "qmm") if k in e.key),
+                        "flash" if "flash_kernel" in e.key else "other")
+            fam[kind] += us
+    return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3}
+
+
 def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
     """(bytes of every plane resident on the card, plane bytes one decode
     token streams: every 2-D linear and the head, and n_expert_used
@@ -659,11 +800,11 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     else:
         prompts = [word_ids(n) for n in lens]
     expect(short or len(prompts[2]) == 512, "the long prompt has 512 tokens")
-    forwards = {"gather": 0, "stack": 0}
+    rows: list[int] = []  # the rows of each forward: its prefill bucket, 1 at decode
 
     def count(n_prompt: int, n_decode: int):
-        forwards[regime(n_prompt)] += 1
-        forwards["gather"] += n_decode  # a decode step is one token
+        rows.append(bucket_rows(n_prompt))
+        rows.extend([1] * n_decode)
 
     # one short generation first: lazy set-up (allocator, first launches)
     # is paid once per process, not per request
@@ -681,7 +822,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         expect(all(0 <= t < eng.hp.n_vocab for t in out), "token ids in range")
         per_prompt.append(dict(n_prompt=len(ids), ttft_s=ttft, decode_tok_s=dec_n / dec_s,
                                out=out))
-        log(f"[{label}] kv={kv_name} prompt {i} ({len(ids)} tok, {regime(len(ids))} regime): "
+        log(f"[{label}] kv={kv_name} prompt {i} ({len(ids)} tok, bucket {bucket_rows(len(ids))}): "
             f"TTFT {ttft * 1e3:.1f} ms ({len(ids) / ttft:.1f} tok/s prefill), decode "
             f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}")
     if not short:
@@ -696,6 +837,15 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         f"(idle share {1 - busy / wall:.3f}); top {prof['top']}"
         if busy > 0 else f"[{label}] kv={kv_name} profile: no device time recorded "
         "(device busy share not measured)")
+    prefill_prof = None
+    if not short:
+        prefill_prof = profile_prefill(eng, prompts[2])
+        count(len(prompts[2]), 0)
+        busy_p = sum(prefill_prof["device_ms"].values())
+        log(f"[{label}] kv={kv_name} profile: one {len(prompts[2])}-token prefill, device ms "
+            f"{ {k: round(v, 3) for k, v in prefill_prof['device_ms'].items()} } = "
+            f"{busy_p:.3f} ms busy of {prefill_prof['wall_ms']:.3f} ms wall (profiled) "
+            f"(idle share {1 - busy_p / prefill_prof['wall_ms']:.3f})")
     eng.reset()
     logits = eng.prefill(prompts[0])
     count(len(prompts[0]), 0)
@@ -705,7 +855,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     got = read_launches()  # just after the main path
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{label}] kv={kv_name}: load {eng.perf.t_load_s:.1f}s, peak memory {peak:.2f} GiB")
-    check_launches(f"{label} kv={kv_name}", got, per_forward_launches(eng.params), forwards,
+    check_launches(f"{label} kv={kv_name}", got, per_forward_launches(eng.params), rows,
                    kv_name)
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
@@ -716,9 +866,10 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
                ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
                n_prompt=[p["n_prompt"] for p in per_prompt],
                decode_tok_s=[p["decode_tok_s"] for p in per_prompt],
-               launches=got, forwards=forwards,
+               launches=got, forwards=len(rows),
+               prefill_forwards={r: rows.count(r) for r in sorted(set(rows)) if r > 1},
                device_ms_per_token=prof["device_ms_per_token"],
-               idle_share=(1 - busy / wall) if busy > 0 else None)
+               idle_share=(1 - busy / wall) if busy > 0 else None, prefill_profile=prefill_prof)
     if not short:
         run["pp512_tok_s"] = 512 / per_prompt[2]["ttft_s"]
     del eng
@@ -816,7 +967,7 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
         run = serve("8b-Q4_K_M-grouped", path, torch.bfloat16, launches, short=64)
     finally:
         qmm.GROUPED_TYPES.clear()
-    expect(run["launches"]["qmm_grouped"] > 0
+    expect(run["launches"]["qmm_grouped"] > 0 and run["launches"]["qmm_tc"] == 0
            and sum(run["launches"][k] for k in QMM_KEYS.values()) == 0,
            "the grouped run's 2-D launches all went through qmm_grouped")
     runs.append(run)
@@ -830,12 +981,73 @@ def phase_mixtral(tmp: Path, launches: dict) -> dict:
     import torch
 
     path = synthesize(tmp, "mixtral", "mixtral-8x7b", "Q4_K_M")
-    run = serve("mixtral", path, torch.bfloat16, launches, lens=(3, 60, 512))
+    run = serve("mixtral", path, torch.bfloat16, launches)
     expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0
            and run["launches"]["qmm_q5k"] > 0 and run["launches"]["qmm_q8_0"] > 0,
            "mixtral ran the stack, gather, Q5_K and Q8_0 kernels")
     path.unlink()
     return run
+
+
+def phase_routes(dev, tmp: Path):
+    """The shapes the kernels do not take, on the card: the tiny model with
+    a 250-token Q6_K head (N % 4 != 0) against the same model on the CPU,
+    every head call through the dequantize-then-matmul route; one
+    attention_cached call at head dim 96 through the dense path, against
+    attention_reference."""
+    import torch
+
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops import attention
+    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import KVCache
+
+    path = make_synthetic_llama_gguf(tmp / "tiny-v250.gguf", shape="tiny", seed=0, n_vocab=250)
+    gpu = Engine(path, max_seq=256)
+    cpu = Engine(path, device="cpu", max_seq=256)
+    ids = gpu.tokenizer.tokenize("hello world the quick brown fox")
+    reset_launches()
+    errs = [nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+    for tok in (100, 17, 42, 249, 5):
+        errs.append(nmse(torch.from_numpy(gpu.decode_step(tok)),
+                         torch.from_numpy(cpu.decode_step(tok))))
+    gpu.reset()
+    cpu.reset()
+    a = gpu.generate_tokens_device(ids, 16, chunk=8)
+    b = cpu.generate_tokens_device(ids, 16, chunk=8)
+    torch.cuda.synchronize()
+    forwards = 2 + gpu.perf.n_decode  # two prefills; the decode steps and generated ids
+    got = read_launches()
+    log(f"[routes] tiny, 250-token head: logits NMSE card vs cpu max {max(errs):.2e}; greedy "
+        f"{'equal' if a == b else 'DIFFERENT'}; {forwards} forwards, dequantize route "
+        f"{dict((k, v) for k, v in qmm.DEQUANT_ROUTES.items() if v)}, launches {got}")
+    expect(max(errs) <= 1e-3, f"250-token head: logits NMSE {max(errs):.3e} <= 1e-3")
+    expect(a == b, f"250-token head: greedy ids card {a} vs cpu {b}")
+    expect(qmm.DEQUANT_ROUTES["Q6_K"] == got["dequant_routes"] == forwards,
+           f"250-token head: {got['dequant_routes']} dequantize-route calls = {forwards} heads")
+    expect(got["attn_dense_routes"] == 0, "250-token head: attention on the kernel")
+
+    reset_launches()
+    g = torch.Generator(dev).manual_seed(5)
+    B, T, H, Hkv, S, D = 1, 24, 8, 2, 96, 96
+    cache = KVCache(torch.randn(1, B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16),
+                    torch.randn(1, B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16))
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    off = torch.tensor([40], dtype=torch.int32, device=dev)
+    out = attention.attention_cached(q, cache, 0, D ** -0.5, off)
+    pos = 40 + torch.arange(T, device=dev)[None]
+    ref = attention.attention_reference(q, cache.k[0], cache.v[0],
+                                        attention.causal_mask(pos, S, 40 + T), D ** -0.5)
+    err = nmse(out.float(), flash.flash_reference(q, cache.k[0], cache.v[0], off,
+                                                  D ** -0.5).float())
+    log(f"[routes] attention at head dim 96: dense route calls {dict(flash.ATTN_DENSE_ROUTES)}, "
+        f"flash launches {dict(flash.LAUNCHES)}; NMSE against the flash plain version {err:.2e}")
+    expect(nmse(out.float(), ref.float()) <= 1e-10,
+           "head dim 96: the dense path is attention_reference")
+    expect(flash.ATTN_DENSE_ROUTES["bf16"] == 1 and sum(flash.LAUNCHES.values()) == 0,
+           "head dim 96: one counted dense-route call, no flash launch")
+    expect(err <= FLASH_NMSE_BOUND, f"head dim 96: NMSE {err:.3e} <= {FLASH_NMSE_BOUND}")
 
 
 def main() -> int:
@@ -878,6 +1090,7 @@ def main() -> int:
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
+        timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs}))
 
     kernels = []
@@ -892,6 +1105,10 @@ def main() -> int:
             library_ms=rep["library_ms"])
         if key == "qmm_grouped":
             entry["qmm_ms_same_planes"] = rep["qmm_ms"]
+        if key == "qmm_tc":
+            entry["cuda_core_ms_same_planes"] = rep["cuda_core_ms"]
+            entry["formats_held"] = sorted({r["case"].split()[0] for r in rows})
+        if key in ("qmm_tc", "qmm_grouped"):
             entry["launches_by_format"] = {k.split(".")[1]: v for k, v in launches.items()
                                            if k.startswith(key + ".")}
         if key in ("qmm_stack", "qmm_gather"):

@@ -50,13 +50,38 @@ def _planes(name, n_out, n_in, dev, seed):
 @pytest.mark.parametrize("M,K,N", [(1, 512, 768), (5, 1024, 256), (37, 512, 1028),
                                    (300, 768, 512)])
 def test_qmm_kernel_matches_plain(dev, name, M, K, N):
+    """Both regimes: M < 16 on CUDA cores (LAUNCHES), M ≥ 16 on the tensor
+    cores (TC_LAUNCHES)."""
     planes = _planes(name, N, K, dev, seed=M)
     x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
     x = x.to(torch.bfloat16)
-    before = qmm.LAUNCHES[name]
+    counts = qmm.TC_LAUNCHES if M >= qmm.TC_MIN_M else qmm.LAUNCHES
+    before = qmm.LAUNCHES[name] + qmm.TC_LAUNCHES[name], counts[name]
     got = qmm.qmm(x, planes, GGMLType[name], N, K)
     torch.cuda.synchronize()
-    assert qmm.LAUNCHES[name] == before + 1
+    assert (qmm.LAUNCHES[name] + qmm.TC_LAUNCHES[name], counts[name]) == (before[0] + 1,
+                                                                           before[1] + 1)
+    ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("M,K,N", [(16, 4096, 4096), (48, 1024, 1412), (512, 2048, 1024)])
+def test_qmm_tensor_core_kernel_matches_plain(dev, name, M, K, N):
+    """The tensor-core regime at the prefill row counts: one M tile (16, 48)
+    and four (512); N = 1412 ends in a partial column tile; at these few
+    output tiles the plan splits K."""
+    planes = _planes(name, N, K, dev, seed=M + 7)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tm, split, _ = qmm.plan(M, K, N, n_sm)
+    assert tm == qmm.TC_TILE and split > 1
+    before = qmm.TC_LAUNCHES[name], qmm.LAUNCHES[name]
+    got = qmm.qmm(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert (qmm.TC_LAUNCHES[name], qmm.LAUNCHES[name]) == (before[0] + 1, before[1])
     ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
     assert got.shape == (M, N) and torch.isfinite(got.float()).all()
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
@@ -102,7 +127,8 @@ def _stack(name, E, n_out, n_in, dev, seed):
 
 @pytest.mark.parametrize("name", FORMATS)
 @pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
-@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (24, 768, 512), (40, 512, 1028)])
+@pytest.mark.parametrize("M,K,N", [(1, 512, 768), (24, 768, 512), (40, 512, 1028),
+                                   (32, 1024, 640), (512, 512, 768)])
 def test_qmm_stack_kernel_matches_plain(dev, name, batched, M, K, N):
     E = 4
     stack = _stack(name, E, N, K, dev, seed=M)
@@ -262,3 +288,52 @@ def test_preset_engine_on_the_card_matches_the_cpu(dev, tmp_path, ftype):
     gpu.reset()
     cpu.reset()
     assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)
+
+
+def test_routes_on_the_card(dev, tmp_path):
+    """The shapes no kernel takes, on the card: the tiny model with a
+    250-token head serves against the CPU with every head call through the
+    counted dequantize-then-matmul route; a stack and a gather at N = 250
+    take its stack and gather forms; a head dim of 96 takes the counted
+    dense attention path."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops import attention
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import KVCache
+
+    path = make_synthetic_llama_gguf(tmp_path / "v250.gguf", shape="tiny", seed=0, n_vocab=250)
+    gpu = Engine(path, max_seq=128)
+    cpu = Engine(path, device="cpu", max_seq=128)
+    ids = gpu.tokenizer.tokenize("hello world the quick brown fox", add_special=True)
+    before = qmm.DEQUANT_ROUTES["Q6_K"]
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert a.shape == (250,) and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (100, 17, 249):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    assert qmm.DEQUANT_ROUTES["Q6_K"] == before + 4
+
+    stack = _stack("Q4_K", 4, 250, 256, dev, seed=9)
+    x = torch.randn(6, 256, generator=torch.Generator(dev).manual_seed(9), device=dev)
+    x = x.to(torch.bfloat16)
+    before = qmm.DEQUANT_ROUTES["Q4_K"], qmm.STACK_LAUNCHES["Q4_K"], qmm.GATHER_LAUNCHES["Q4_K"]
+    got = qmatmul.stack_matmul(x, stack)
+    ref = qmm.qmm_stack_reference(x, stack.planes, stack.gtype, 250, 256)
+    assert got.shape == (4, 6, 250) and _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+    ids = torch.tensor([1, 3, 0, 1, 2, 2], dtype=torch.int32, device=dev)
+    got = qmatmul.gather_matmul(x, ids, stack)
+    ref = qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, 250, 256)
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+    assert (qmm.DEQUANT_ROUTES["Q4_K"], qmm.STACK_LAUNCHES["Q4_K"],
+            qmm.GATHER_LAUNCHES["Q4_K"]) == (before[0] + 2, before[1], before[2])
+
+    g = torch.Generator(dev).manual_seed(4)
+    cache = KVCache(torch.randn(1, 1, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16),
+                    torch.randn(1, 1, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16))
+    q = torch.randn(1, 9, 8, 96, generator=g, device=dev).to(torch.bfloat16)
+    off = torch.tensor([20], dtype=torch.int32, device=dev)
+    before = flash.ATTN_DENSE_ROUTES["bf16"], dict(flash.LAUNCHES)
+    got = attention.attention_cached(q, cache, 0, 96 ** -0.5, off)
+    ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 96 ** -0.5)
+    assert (flash.ATTN_DENSE_ROUTES["bf16"], flash.LAUNCHES) == (before[0] + 1, before[1])
+    assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND

@@ -8,6 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.models.hparams import RopeParams as JRopeParams
 from tpullm.ops import attention as jattn
 from tpullm.ops import norms as jnorms

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.gguf.reader import GGUFReader as JReader
 from tpullm.models.hparams import hparams_from_gguf as jhparams
 from tpullm import tokenizer as jtok

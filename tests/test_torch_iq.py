@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.gguf.constants import GGMLType as JGGMLType
 from tpullm.models.weights import QuantLinear as JQuantLinear
 from tpullm.ops import qmatmul as jqm

@@ -8,6 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.runtime import kvcache as jkv
 
 from tpullm_torch.runtime import kvcache

@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.gguf.constants import GGMLType as JGGMLType
 from tpullm.gguf.reader import GGUFTensorInfo as JInfo
 from tpullm.models.weights import load_expert_stack as jload_expert_stack

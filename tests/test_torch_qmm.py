@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.gguf import constants as jconstants
 from tpullm.gguf.constants import GGMLType as JGGMLType
 from tpullm.models.weights import QuantLinear as JQuantLinear
@@ -120,7 +121,7 @@ def test_quant_linear_cpu_dispatch_is_the_plain_version():
 
 @pytest.mark.parametrize("M,K,N,expect_tm", [
     (1, 4096, 6144, 1), (1, 14336, 4096, 1), (7, 4096, 4096, 8),
-    (512, 4096, 28672, 16), (512, 4096, 128256, 16)])
+    (512, 4096, 28672, qmm.TC_TILE), (512, 4096, 128256, qmm.TC_TILE)])
 def test_qmm_plan_covers_k_exactly(M, K, N, expect_tm):
     tm, split, per = qmm.plan(M, K, N, n_sm=132)
     assert tm == expect_tm

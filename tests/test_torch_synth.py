@@ -7,6 +7,7 @@ import hashlib
 import numpy as np
 import pytest
 
+from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
 from tpullm.gguf.constants import GGMLType as JGGMLType
 from tpullm.tools.quantize import tensor_type_policy
 

@@ -1,12 +1,26 @@
 // Fused dequantize×matmul over the v2 plane schema, for Hopper (sm_90a).
 //
-// Two kernels of y [M, N] = x [M, K] · dequant(planes), for the 22 plane
+// Three kernels of y [M, N] = x [M, K] · dequant(planes), for the 22 plane
 // formats of qmm_body.cuh (this library: the formats of family
-// TPULLM_QMM_FAMILY), both launched where tpullm/ops/pallas/qmm.py::_qmm_2d
+// TPULLM_QMM_FAMILY), all launched where tpullm/ops/pallas/qmm.py::_qmm_2d
 // launches its pallas_call:
 //
-// qmm_kernel replaces the materializing body _kernel_mat (+ _acc_tile). The
-//   arithmetic and its rounding points are in qmm_body.cuh.
+// qmm_kernel and qmm_tc_kernel replace the materializing body _kernel_mat
+//   (+ _acc_tile), in two regimes of M that compute the same function with
+//   the same rounding points:
+//   - M < 16 (decode, the prefill bucket of 8): qmm_kernel, on CUDA cores
+//     (qmm_body.cuh), TM in {1, 2, 4, 8} rows of x a block. Bound on the
+//     card: the plane bytes (2 to 6 bits a weight for the packed formats
+//     with their bf16 scales, 8.5 for Q6_K's qw and Q8_0) against 3.35 TB/s.
+//     Few output columns at decode leave the card idle, so K is split over
+//     blockIdx.z into f32 partials summed by a second pass in a fixed order.
+//   - M ≥ 16 (prefill): qmm_tc_kernel, on the tensor cores (qmm_tc.cuh).
+//     Bound on the card at M = 512: the tensor-core product, 2·M·K·N against
+//     989 TFLOP/s. The design (mma.sync tiles of 128 × 128, two blocks an
+//     SM, each weight decoded once per 128 rows of x into shared memory, the
+//     minus term as one more tensor-core product on an exact three-way bf16
+//     split of the f32 group sums) is in qmm_tc.cuh; K is split as above
+//     when the output tiles are too few to fill the card.
 //
 // qmm_grouped_kernel replaces the group-factored body _kernel, which _qmm_2d
 //   takes for the types of GROUPED_TYPES (TPULLM_QMM_GROUPED):
@@ -18,15 +32,9 @@
 //   The element loop is one FMA a weight and row of x: no per-weight scale
 //   multiply and rounding. It walks each group's rows in order, decoding
 //   every row from its packed row (a half-split or 2-bit packed row is read
-//   once per field; the repeats hit L1).
-//
-// What bounds them on the card: at decode (M = 1) the plane bytes (2 to 6
-// bits a weight for the packed formats with their bf16 scales, 8.5 for Q6_K's
-// qw and Q8_0) against 3.35 TB/s; at prefill the CUDA-core FMAs (no tensor
-// cores yet). Few output columns at decode leave the card idle, so K is split
-// over blockIdx.z into f32 partials summed by a second pass in a fixed order.
+//   once per field; the repeats hit L1). CUDA cores, TM in {1, 16}.
 
-#include "qmm_body.cuh"
+#include "qmm_tc.cuh"
 
 namespace {
 
@@ -40,6 +48,17 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ code
            float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
   qmm_body<TM, F>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0,
                   blockIdx.y * TM, chunks_per_split);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+qmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+              const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
+              const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
+  extern __shared__ __align__(16) char smem[];
+  qmm_tc_body<F>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0, blockIdx.x * kTcBM,
+                 blockIdx.y * kTcBN, chunks_per_split, smem);
 }
 
 // The unscaled values of chunk row kk for the thread's 4 columns (see
@@ -207,10 +226,30 @@ int launch(const void* x, const void* codes, const void* qh, const void* scale,
     case 2: qmm_kernel<2, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
     case 4: qmm_kernel<4, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
     case 8: qmm_kernel<8, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    case 16: qmm_kernel<16, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return finish(pb, ob, M, N, split, stream);
+}
+
+// grid (M tiles, N tiles, split): the blocks of one weight stripe run
+// together, so its planes are read from device memory about once
+template <int F>
+int launch_tc(const void* x, const void* codes, const void* qh, const void* scale,
+              const void* minus, void* out, void* partial, int M, int K, int N, int split,
+              int chunks_per_split, cudaStream_t stream) {
+  constexpr int smem = qmm_tc_smem_bytes<F>();
+  const int n_tiles = (N + kTcBN - 1) / kTcBN;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = qmm_tc_attributes(qmm_tc_kernel<F>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + kTcBM - 1) / kTcBM, n_tiles, split);
+  qmm_tc_kernel<F><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), M, K, N, chunks_per_split);
+  return finish(static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out), M, N, split,
+                stream);
 }
 
 // the tm values match ops/kernels/qmm.py _GROUPED_TMS
@@ -236,6 +275,7 @@ int launch_grouped(const void* x, const void* codes, const void* qh, const void*
 
 }  // namespace
 
+// The CUDA-core kernel (M < 16), tm in {1, 2, 4, 8}.
 // fmt: a tpullm::QmmFmt of this library's family (else cudaErrorInvalidValue).
 // qh is read only by the formats with a qh plane, minus only by those with a
 // minus plane; the others may be null.
@@ -248,6 +288,22 @@ extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void*
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
     case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core kernel (M ≥ 16): the arguments of tpullm_qmm less tm.
+extern "C" int tpullm_qmm_tc(int fmt, const void* x, const void* codes, const void* qh,
+                             const void* scale, const void* minus, void* out, void* partial,
+                             int M, int K, int N, int split, int chunks_per_split,
+                             void* stream_ptr) {
+  if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (fmt) {
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch_tc<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -1,5 +1,7 @@
-// The dequantize×matmul device body shared by the qmm kernels (qmm.cu: one
-// weight; qmm_moe.cu: expert stacks and expert gathers).
+// The dequantize×matmul device body on CUDA cores, shared by the qmm kernels
+// below 16 rows of x (qmm.cu: one weight; qmm_moe.cu: expert gathers), and
+// the plane formats' traits that the tensor-core body (qmm_tc.cuh) decodes
+// through too.
 //
 // It is the arithmetic of tpullm/ops/pallas/qmm.py::_acc_tile. For rows
 // m0 .. m0+TM-1 of x [M, K] and 512 output columns it computes

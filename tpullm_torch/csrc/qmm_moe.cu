@@ -1,13 +1,18 @@
 // Fused dequantize×matmul over packed MoE expert stacks (planes [E, rows, N]),
-// for Hopper (sm_90a). Two kernels, both on the device body of qmm_body.cuh
-// (the rounding points of tpullm/ops/pallas/qmm.py::_acc_tile), for the 13
-// plane formats of qmm_body.cuh (this library: family TPULLM_QMM_FAMILY):
+// for Hopper (sm_90a). Two kernels with the rounding points of
+// tpullm/ops/pallas/qmm.py::_acc_tile, for the 22 plane formats of
+// qmm_body.cuh (this library: family TPULLM_QMM_FAMILY):
 //
 // qmm_stack_kernel replaces tpullm/ops/pallas/qmm.py::_kernel_stack (launched
 //   by _qmm_stack): out[e] = x(e) · dequant(W[e]) for every expert, x shared
-//   [M, K] (expert stride 0) or per expert [E, M, K]; out [E, M, N]. One
-//   expert per slice of blockIdx.y. Bound on the card: at the MoE prefill
-//   (M ≥ 32 tokens, all 8 experts) the FMAs, 2·E·M·K·N, on CUDA cores.
+//   [M, K] (expert stride 0) or per expert [E, M, K]; out [E, M, N]. It runs
+//   on the tensor-core body of qmm_tc.cuh, the one qmm's M ≥ 16 regime uses:
+//   blockIdx.y walks (expert, column tile), an expert's planes offset by the
+//   QmmTraits *_elems helpers. Bound on the card: at the MoE prefill (M ≥ 32
+//   tokens, all 8 experts) the tensor-core product, 2·E·M·K·N against 989
+//   TFLOP/s. The main path calls it only there (the gather takes every
+//   forward of B·T ≤ 16 rows), so it has no CUDA-core regime: a smaller M
+//   runs on the same tiles, its rows past M read as 0.
 //
 // qmm_gather_kernel replaces tpullm/ops/pallas/qmm.py::_kernel_gather
 //   (launched by _qmm_gather): out[t] = x[t] · dequant(W[ids[t]]), one block
@@ -18,27 +23,28 @@
 //   split over blockIdx.z, as in qmm.cu, so the few column blocks of a
 //   2-slot gather still fill the card.
 
-#include "qmm_body.cuh"
+#include "qmm_tc.cuh"
 
 namespace {
 
 using namespace tpullm;
 
-template <int TM, int F>
-__global__ void __launch_bounds__(kQmmThreads)
+template <int F>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
 qmm_stack_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
                  const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
                  const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ partial, int M, int K, int N, int E, int m_tiles,
+                 float* __restrict__ partial, int M, int K, int N, int E, int n_tiles,
                  long long x_stride, int chunks_per_split) {
   using P = QmmFormat<F>;
-  const int e = blockIdx.y / m_tiles;
-  const int m0 = (blockIdx.y % m_tiles) * TM;
-  qmm_body<TM, F>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
-                  P::has_qh ? qh + e * P::qh_elems(K, N) : nullptr,
-                  scale + e * P::scale_elems(K, N),
-                  P::has_minus ? minus + e * P::scale_elems(K, N) : nullptr, out, partial,
-                  M, K, N, E * M, e * M, m0, chunks_per_split);
+  extern __shared__ __align__(16) char smem[];
+  const int e = blockIdx.y / n_tiles;
+  qmm_tc_body<F>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
+                 P::has_qh ? qh + e * P::qh_elems(K, N) : nullptr,
+                 scale + e * P::scale_elems(K, N),
+                 P::has_minus ? minus + e * P::scale_elems(K, N) : nullptr, out, partial,
+                 M, K, N, E * M, e * M, blockIdx.x * kTcBM, (blockIdx.y % n_tiles) * kTcBN,
+                 chunks_per_split, smem);
 }
 
 template <int F>
@@ -79,33 +85,23 @@ __global__ void qmm_gather_reduce_kernel(const float* __restrict__ partial,
   qmm_reduce_body(partial, out, mn, split);
 }
 
-template <int TM, int F>
-void run_stack(dim3 grid, cudaStream_t s, const void* x, const void* codes, const void* qh,
-               const void* scale, const void* minus, void* out, void* partial, int M, int K,
-               int N, int E, int m_tiles, long long x_stride, int per) {
-  qmm_stack_kernel<TM, F><<<grid, kQmmThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(partial), M, K, N, E, m_tiles, x_stride, per);
-}
-
+// grid (M tiles, E × N tiles, split)
 template <int F>
 int launch_stack(const void* x, const void* codes, const void* qh, const void* scale,
                  const void* minus, void* out, void* partial, int M, int K, int N, int E,
-                 long long x_stride, int tm, int split, int per, cudaStream_t s) {
-  const int m_tiles = (M + tm - 1) / tm;
-  if ((long long)E * m_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid = qmm_grid(N, E * m_tiles, split);
-  switch (tm) {
-    case 1: run_stack<1, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
-    case 2: run_stack<2, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
-    case 4: run_stack<4, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
-    case 8: run_stack<8, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
-    case 16: run_stack<16, F>(grid, s, x, codes, qh, scale, minus, out, partial, M, K, N, E, m_tiles, x_stride, per); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
+                 long long x_stride, int split, int per, cudaStream_t s) {
+  constexpr int smem = qmm_tc_smem_bytes<F>();
+  const int n_tiles = (N + kTcBN - 1) / kTcBN;
+  if ((long long)E * n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = qmm_tc_attributes(qmm_stack_kernel<F>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + kTcBM - 1) / kTcBM, E * n_tiles, split);
+  qmm_stack_kernel<F><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), M, K, N, E, n_tiles, x_stride, per);
+  err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
   const long long mn = (long long)E * M * N;
   qmm_stack_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(
@@ -139,13 +135,13 @@ int launch_gather(const void* x, const void* ids, const void* codes, const void*
 extern "C" int tpullm_qmm_stack(int fmt, const void* x, const void* codes, const void* qh,
                                 const void* scale, const void* minus, void* out,
                                 void* partial, int M, int K, int N, int E,
-                                long long x_stride, int tm, int split, int per,
+                                long long x_stride, int split, int per,
                                 void* stream_ptr) {
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch_stack<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, tm, split, per, s);
+    case tpullm::F: return launch_stack<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, E, x_stride, split, per, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

@@ -256,16 +256,19 @@ def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
 
 
 def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
-                              ftype: str = "Q4_K_M", n_layer: int | None = None) -> str:
+                              ftype: str = "Q4_K_M", n_layer: int | None = None,
+                              n_vocab: int | None = None) -> str:
     """Writes the synthetic model `shape` (a key of SHAPES) at preset
-    `ftype` (a name of PRESETS) to `path`, with `n_layer` layers in place of
-    the shape's own if given; the same arguments give the same bytes."""
-    synthetic_writer(path, shape, seed, ftype, n_layer).write()
+    `ftype` (a name of PRESETS) to `path`, with `n_layer` layers and
+    `n_vocab` tokens in place of the shape's own if given (a vocab below
+    the shape's keeps its first n_vocab tokens); the same arguments give the
+    same bytes."""
+    synthetic_writer(path, shape, seed, ftype, n_layer, n_vocab).write()
     return str(path)
 
 
 def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str = "Q4_K_M",
-                     n_layer: int | None = None) -> GGUFWriter:
+                     n_layer: int | None = None, n_vocab: int | None = None) -> GGUFWriter:
     """The writer of make_synthetic_llama_gguf, its payloads not drawn yet
     (`payload_bytes()` sizes the file before it is written)."""
     if ftype not in PRESETS:
@@ -274,7 +277,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     rng = np.random.default_rng(seed)
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
-    n_vocab = cfg["n_vocab"]
+    n_vocab = n_vocab or cfg["n_vocab"]
     n_expert = cfg.get("n_expert", 0)
     head_dim = n_embd // n_head
     legacy = cfg.get("legacy", False)
@@ -287,7 +290,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         types.append(TokenType.USER_DEFINED)
 
     w = GGUFWriter(path, architecture="llama")
-    w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}"))
+    w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}")
+             + ("" if n_vocab == cfg["n_vocab"] else f"-v{n_vocab}"))
     w.add_kv("llama.block_count", n_layer)
     w.add_kv("llama.context_length", 8192)
     w.add_kv("llama.embedding_length", n_embd)

@@ -2,10 +2,13 @@
 and the cached-attention dispatch.
 
 `attention_cached` sends every call to the flash kernel for the cache's
-format: a CUDA tensor always goes to the kernel, at every T and every S, and
-a CPU tensor to the kernel's plain version. (The JAX package sends bf16
-decode at S < 4096 to its dense path; on the card the plain version never
-runs on the main path.)
+format: a CUDA tensor goes to the kernel, at every T and every S, and a CPU
+tensor to the kernel's plain version. (The JAX package sends bf16 decode at
+S < 4096 to its dense path; on the card the plain version never runs on the
+main path.) The one exception is a shape the kernel does not take (a head
+dim outside flash._HEAD_DIMS, or Dk ≠ Dv): on the card it goes to the dense
+path, as the JAX package sends the shapes its flash kernel refuses there
+(tpullm/ops/attention.py `attention`), counted in flash.ATTN_DENSE_ROUTES.
 """
 
 from __future__ import annotations
@@ -60,13 +63,40 @@ def attention_reference(q, k, v, mask, scale: float, softcap: float = 0.0) -> to
     return out.reshape(B, T, H, v.shape[-1]).to(q.dtype)
 
 
+def _attention_dense(q, k, v, offsets, scale: float, softcap: float, sliding_window: int,
+                     sinks, alibi_slopes) -> torch.Tensor:
+    """The dense path for the shapes the flash kernel does not take: query
+    row t of batch b at position offsets[b] + t, keys up to it in the
+    window. With sinks or ALiBi the kernel's plain version, which computes
+    them densely; otherwise attention_reference with the causal mask."""
+    if sinks is not None or alibi_slopes is not None:
+        return flash.flash_reference(q, k, v, offsets, scale, softcap, sliding_window,
+                                     sinks, alibi_slopes)
+    T = q.shape[1]
+    off = offsets.to(torch.int64)
+    positions = off[:, None] + torch.arange(T, device=q.device)[None]
+    mask = causal_mask(positions, k.shape[2], off + T, sliding_window)
+    return attention_reference(q, k, v, mask, scale, softcap)
+
+
 def attention_cached(q, cache, li: int, scale: float, offsets: torch.Tensor,
                      softcap: float = 0.0, sliding_window: int = 0,
                      sinks=None, alibi_slopes=None) -> torch.Tensor:
     """Attention of q [B,T,H,D] against cache layer `li` through the flash
     kernel of the cache's format (int8 + scales stream straight in for a
-    QuantKVCache; the cache never widens in device memory)."""
-    if hasattr(cache, "kv_packed"):
+    QuantKVCache; the cache never widens in device memory), or on the card,
+    for a head dim the kernel does not take, through the dense path."""
+    quant = hasattr(cache, "kv_packed")
+    if q.is_cuda and not flash.takes(q.shape[-1], (cache.v_q if quant else cache.v).shape[-1]):
+        flash.ATTN_DENSE_ROUTES["q8" if quant else "bf16"] += 1
+        if quant:
+            k_q, k_s, v_q, v_s = cache.kv_packed(li)
+            k, v = k_q.float() * k_s[..., None], v_q.float() * v_s[..., None]
+        else:
+            k, v = cache.kv(li)
+        return _attention_dense(q, k, v, offsets, scale, softcap, sliding_window, sinks,
+                                alibi_slopes)
+    if quant:
         k_q, k_s, v_q, v_s = cache.kv_packed(li)
         return flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale, softcap,
                                         sliding_window, sinks, alibi_slopes)

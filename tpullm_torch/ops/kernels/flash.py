@@ -24,6 +24,10 @@ from . import _build
 
 # launches of the kernel, by KV format; a plain count a run can read
 LAUNCHES = {"bf16": 0, "q8": 0}
+# calls ops.attention sent to its dense path on the card because the kernel
+# does not take their head dims (`takes`), by KV format; 0 on a model whose
+# heads the kernel takes
+ATTN_DENSE_ROUTES = {"bf16": 0, "q8": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _BF16_ARGS = (_P,) * 7 + (_I,) * 6 + (_F, _F, _I, _P)
@@ -68,10 +72,15 @@ def flash_reference(q, k, v, offsets, scale: float, softcap: float = 0.0,
     return out.reshape(B, T, H, v.shape[-1]).to(q.dtype)
 
 
+def takes(d: int, dv: int) -> bool:
+    """Whether the kernel takes query/key head dim d and value head dim dv."""
+    return d in _HEAD_DIMS and dv == d
+
+
 def _check(q, kv, offsets, sinks, slopes):
     B, T, H, D = q.shape
     k, v = kv[0], kv[-1]
-    if D not in _HEAD_DIMS or v.shape[-1] != D or k.shape[0] != B or H % k.shape[1]:
+    if not takes(D, v.shape[-1]) or k.shape[0] != B or H % k.shape[1]:
         raise ValueError(f"flash: needs head_dim in {_HEAD_DIMS} (K and V alike), "
                          f"H % Hkv == 0; got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if q.dtype != torch.bfloat16:

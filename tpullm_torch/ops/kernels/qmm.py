@@ -6,7 +6,10 @@ plain versions.
   ops/qmatmul.py: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, MXFP4, IQ4_NL, Q2_K, Q3_K,
   Q4_K, Q5_K, Q6_K (wide `qw`), IQ4_XS and the codebook types IQ2_XXS,
   IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, TQ1_0, TQ2_0. Source:
-  tpullm_torch/csrc/qmm.cu.
+  tpullm_torch/csrc/qmm.cu, in two regimes of M (`plan`): below TC_MIN_M
+  rows (decode, the prefill bucket of 8) the CUDA-core kernel, counted in
+  LAUNCHES; from TC_MIN_M rows (prefill) the tensor-core kernel
+  (csrc/qmm_tc.cuh), counted in TC_LAUNCHES.
 - `qmm_grouped` replaces the group-factored body _kernel of the same
   pallas_call, which _qmm_2d picks for the types of its GROUPED_TYPES: the
   scale is applied once per group to Σ x·value instead of to every weight.
@@ -15,15 +18,20 @@ plain versions.
   `ops.qmatmul.matmul` sends a listed type to it. Same source.
 - `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
   qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
-  or per-expert x [E, M, K] → [E, M, N].
+  or per-expert x [E, M, K] → [E, M, N], on the tensor-core body at every
+  M (the main path calls it from 32 rows up).
 - `qmm_gather` replaces _kernel_gather (the pallas_call in _qmm_gather,
   entry qmatmul_gather): row t of x [T, K] through expert ids[t] → [T, N];
   each block reads its own id on the card.
 The expert kernels take the same 22 formats; their source is
-tpullm_torch/csrc/qmm_moe.cu, on the device body of csrc/qmm_body.cuh that
-`qmm` uses too. Each source builds once per format family (`_FAMILY`). What
-bounds each on the card, and what its design does about it, is in the
-source notes.
+tpullm_torch/csrc/qmm_moe.cu, on the device bodies that `qmm` uses too
+(csrc/qmm_tc.cuh for the stack, csrc/qmm_body.cuh for the gather). Each
+source builds once per format family (`_FAMILY`). What bounds each on the
+card, and what its design does about it, is in the source notes. Every
+kernel takes K % 256 == 0 and N % 4 == 0 (`takes`); ops.qmatmul sends
+other shapes on the card to its counted dequantize-then-matmul route
+(DEQUANT_ROUTES), as the JAX package sends the shapes its kernel refuses
+to matmul_reference.
 
 The plain versions compute the same functions with the same rounding points
 as `_acc_tile`: x rounded to bf16, the weight rounded to bf16 after the f32
@@ -66,19 +74,40 @@ _FAMILY = {GGMLType.Q4_K: 0, GGMLType.Q5_K: 1, GGMLType.IQ4_XS: 2, GGMLType.IQ3_
 GROUPED_TYPES: set = {GGMLType[t.strip()] for t in
                       os.environ.get("TPULLM_QMM_GROUPED", "").split(",") if t.strip()}
 
-# launches of each kernel, by plane format; plain counts a run can read
+# launches of each kernel, by plane format; plain counts a run can read.
+# LAUNCHES: qmm on CUDA cores (M < TC_MIN_M); TC_LAUNCHES: qmm on the tensor
+# cores (M >= TC_MIN_M); STACK_LAUNCHES: qmm_stack (tensor cores).
 LAUNCHES = {t.name: 0 for t in _FMT}
+TC_LAUNCHES = {t.name: 0 for t in _FMT}
 STACK_LAUNCHES = {t.name: 0 for t in _FMT}
 GATHER_LAUNCHES = {t.name: 0 for t in _FMT}
 GROUPED_LAUNCHES = {t.name: 0 for t in _FMT}
+# calls ops.qmatmul sent to its dequantize-then-matmul route on the card
+# because no kernel takes their shape (`takes`), by plane format; 0 on a
+# model whose every linear the kernels take
+DEQUANT_ROUTES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _P)
+_TC_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
 _GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_GROUPED_TMS = (1, 16)  # the row counts csrc/qmm.cu instantiates qmm_grouped at
 _CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
-_BLOCK_N = 512  # output columns per block, csrc/qmm_body.cuh kQmmBlockN
+_BLOCK_N = 512  # output columns per CUDA-core block, csrc/qmm_body.cuh kQmmBlockN
+TC_MIN_M = 16  # rows of x from which qmm runs on the tensor cores
+TC_TILE = 128  # rows and columns of a tensor-core block (csrc/qmm_tc.cuh kTcBM, kTcBN)
+TC_BLOCKS = 2  # tensor-core blocks an SM holds (csrc/qmm_tc.cuh kTcBlocksPerSm)
+# the rows per block of qmm: CUDA-core TM values (csrc/qmm.cu qmm_kernel) and
+# the tensor-core tile; of qmm_grouped (CUDA cores only); of qmm_stack
+_TMS = (1, 2, 4, 8, TC_TILE)
+_GROUPED_TMS = (1, 16)
+_STACK_TMS = (TC_TILE,)
+
+
+def takes(K: int, N: int) -> bool:
+    """Whether the qmm kernels take a [K, N] weight: whole 256-row chunks
+    and whole groups of 4 output columns (csrc/qmm_body.cuh qmm_shape_ok)."""
+    return K % _CHUNK == 0 and N % 4 == 0
 
 
 def _code_plane(gtype: GGMLType) -> str:
@@ -175,14 +204,25 @@ def qmm_gather_reference(x: torch.Tensor, ids: torch.Tensor,
 
 
 def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
-         tms: tuple[int, ...] = (1, 2, 4, 8, 16)) -> tuple[int, int, int]:
+         tms: tuple[int, ...] = _TMS) -> tuple[int, int, int]:
     """(rows per block, K splits, chunks per split) for `batches` [M, K] ×
-    [K, N] products: the least of the kernel's row counts `tms` that covers
-    M (else the largest), and enough blocks to cover the card about four
-    times over."""
-    tm = next((t for t in tms if t >= M), tms[-1])
-    blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
+    [K, N] products, by the kernel's row counts `tms`.
+
+    The tensor-core regime (rows per block TC_TILE) when `tms` holds
+    TC_TILE and M >= TC_MIN_M, or holds nothing else: TC_TILE × TC_TILE
+    output tiles, TC_BLOCKS blocks an SM; K is split only when the tiles
+    are fewer than the blocks one wave holds, into as many splits as it
+    holds. Otherwise the CUDA-core regime: the least of the other row
+    counts that covers M (else the largest), 512 columns a block, and
+    enough blocks to cover the card about four times over."""
     n_chunks = K // _CHUNK
+    cc = [t for t in tms if t != TC_TILE]
+    if TC_TILE in tms and (M >= TC_MIN_M or not cc):
+        tiles = -(-M // TC_TILE) * -(-N // TC_TILE) * batches
+        per = -(-n_chunks // max(1, min(n_chunks, n_sm * TC_BLOCKS // tiles)))
+        return TC_TILE, -(-n_chunks // per), per
+    tm = next((t for t in cc if t >= M), cc[-1])
+    blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
     split = max(1, min(n_chunks, -(-4 * n_sm // blocks)))
     per = -(-n_chunks // split)
     return tm, -(-n_chunks // per), per
@@ -200,7 +240,7 @@ def _check(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType, K:
             raise ValueError(f"{what}: every operand must be on the same CUDA device")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: operands must be contiguous and 16-byte aligned")
-    if x.shape[-1] != K or K % _CHUNK or N % 4:
+    if x.shape[-1] != K or not takes(K, N):
         raise ValueError(f"{what}: needs K % {_CHUNK} == 0 and N % 4 == 0, got "
                          f"K={x.shape[-1]} (weight {K}), N={N}")
     if x.dtype != torch.bfloat16 or any(planes[k].dtype != torch.bfloat16
@@ -226,7 +266,9 @@ def _ptr(t) -> int | None:
 
 def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
         n_out: int, n_in: int) -> torch.Tensor:
-    """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel."""
+    """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel of
+    M's regime (`plan`): the tensor-core kernel from TC_MIN_M rows, else
+    the CUDA-core one."""
     _ported(gtype, "qmm")
     ops = _check(x, planes, gtype, n_in, n_out, (), "qmm")
     if x.dim() != 2:
@@ -237,11 +279,17 @@ def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
                           device=x.device)
-    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm", _QMM_ARGS)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
-                    partial.data_ptr(), M, K, N, tm, split, per, stream), f"qmm {gtype.name}")
-    LAUNCHES[gtype.name] += 1
+    lib, stream = f"qmm{_FAMILY[gtype]}", torch.cuda.current_stream(x.device).cuda_stream
+    args = (_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), partial.data_ptr(),
+            M, K, N)
+    if tm == TC_TILE:
+        fn = _build.bind(lib, "tpullm_qmm_tc", _TC_ARGS)
+        _build.check(fn(*args, split, per, stream), f"qmm tensor-core {gtype.name}")
+        TC_LAUNCHES[gtype.name] += 1
+    else:
+        fn = _build.bind(lib, "tpullm_qmm", _QMM_ARGS)
+        _build.check(fn(*args, tm, split, per, stream), f"qmm {gtype.name}")
+        LAUNCHES[gtype.name] += 1
     return out
 
 
@@ -271,7 +319,7 @@ def qmm_grouped(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLTyp
 def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
               n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] (shared) or [E, M, K] bf16 on the card, planes [E, rows, N]
-    → [E, M, N] bf16 through the qmm_stack kernel."""
+    → [E, M, N] bf16 through the qmm_stack kernel (tensor cores)."""
     _ported(gtype, "qmm_stack")
     E = planes["scale"].shape[0]
     ops = _check(x, planes, gtype, n_in, n_out, (E,), "qmm_stack")
@@ -279,7 +327,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
         raise ValueError(f"qmm_stack: x must be [M, K] or [{E}, M, K], got {tuple(x.shape)}")
     M, K, N = x.shape[-2], n_in, n_out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tm, split, per = plan(M, K, N, n_sm, batches=E)
+    _, split, per = plan(M, K, N, n_sm, batches=E, tms=_STACK_TMS)
     out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, E * M, N), dtype=torch.float32,
                           device=x.device)
@@ -287,7 +335,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     x_stride = M * K if x.dim() == 3 else 0
     _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
-                    partial.data_ptr(), M, K, N, E, x_stride, tm, split, per, stream),
+                    partial.data_ptr(), M, K, N, E, x_stride, split, per, stream),
                  f"qmm_stack {gtype.name}")
     STACK_LAUNCHES[gtype.name] += 1
     return out
@@ -308,7 +356,7 @@ def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tenso
                          "on the same device")
     K, N = n_in, n_out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    _, split, per = plan(1, K, N, n_sm, batches=T)
+    _, split, per = plan(1, K, N, n_sm, batches=T, tms=(1,))
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, T, N), dtype=torch.float32,
                           device=x.device)

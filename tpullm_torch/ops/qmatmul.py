@@ -428,19 +428,64 @@ def dequant_planes(planes: dict[str, torch.Tensor], gtype: GGMLType, n_out: int,
     return vals.reshape(n_in, n_out).to(dtype)
 
 
+def matmul_dequant(x: torch.Tensor, ql) -> torch.Tensor:
+    """Dequantize, then one product: x [M, n_in] → [M, n_out] with the
+    rounding points of the JAX package's matmul_reference
+    (tpullm/ops/qmatmul.py), its route for the shapes its kernel refuses:
+    the planes dequantized in f32 (values·scale − minus), rounded once to
+    x's dtype, then one product with its output in x's dtype."""
+    w = dequant_planes(ql.planes, ql.gtype, ql.n_out, ql.n_in).to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def _dequant_stack(stack, dtype) -> torch.Tensor:
+    """Every expert dequantized in f32 and rounded once: [E, n_in, n_out]."""
+    return torch.stack([
+        dequant_planes({k: v[e] for k, v in stack.planes.items()}, stack.gtype, stack.n_out,
+                       stack.n_in).to(dtype) for e in range(stack.planes["scale"].shape[0])])
+
+
+def stack_matmul_dequant(x: torch.Tensor, stack) -> torch.Tensor:
+    """x [M, K] or [E, M, K] → [E, M, n_out] as the JAX package's
+    stack_matmul_reference computes it (matmul_dequant for every expert)."""
+    return torch.matmul(x, _dequant_stack(stack, x.dtype))
+
+
+def gather_matmul_dequant(x: torch.Tensor, ids: torch.Tensor, stack) -> torch.Tensor:
+    """x [T, K], ids [T] → [T, n_out] as the JAX package's
+    gather_matmul_reference computes it (row t through expert ids[t]'s
+    dequantized weight)."""
+    w = _dequant_stack(stack, x.dtype)[ids.long()]  # [T, K, N]
+    return torch.bmm(x[:, None, :], w)[:, 0]
+
+
+def _dequant_route(gtype: GGMLType, x: torch.Tensor, n_in: int, n_out: int) -> bool:
+    """Whether a call takes the dequantize-then-matmul route: on the card,
+    for a shape no qmm kernel takes (counted in qmm.DEQUANT_ROUTES). The
+    shape decides, before any launch; a kernel failure never leads here."""
+    from .kernels import qmm
+
+    if not x.is_cuda or qmm.takes(n_in, n_out):
+        return False
+    qmm.DEQUANT_ROUTES[gtype.name] += 1
+    return True
+
+
 def matmul(x: torch.Tensor, ql) -> torch.Tensor:
     """Fused dequant matmul: x [..., n_in] → [..., n_out].
 
     A CUDA tensor goes to the hand-written qmm kernel (which raises on what
     it does not take), or to the group-factored qmm_grouped kernel for the
-    types of `qmm.GROUPED_TYPES`; a CPU tensor to that kernel's plain
-    version."""
+    types of `qmm.GROUPED_TYPES`, or, for a shape no kernel takes, to
+    matmul_dequant; a CPU tensor to the kernel's plain version."""
     from .kernels import qmm
 
     lead = x.shape[:-1]
     x2 = x.reshape(-1, ql.n_in)
     grouped = ql.gtype in qmm.GROUPED_TYPES
-    if x2.is_cuda:
+    if _dequant_route(ql.gtype, x2, ql.n_in, ql.n_out):
+        out = matmul_dequant(x2, ql)
+    elif x2.is_cuda:
         fn = qmm.qmm_grouped if grouped else qmm.qmm
         out = fn(x2.contiguous(), ql.planes, ql.gtype, ql.n_out, ql.n_in)
     else:
@@ -452,10 +497,12 @@ def matmul(x: torch.Tensor, ql) -> torch.Tensor:
 def stack_matmul(x: torch.Tensor, stack) -> torch.Tensor:
     """All-experts packed matmul (MoE prefill): x [M, K] (shared) or
     [E, M, K] (per expert) through a QuantExpertStack → [E, M, n_out]. A
-    CUDA tensor goes to the qmm_stack kernel, a CPU tensor to its plain
-    version."""
+    CUDA tensor goes to the qmm_stack kernel (stack_matmul_dequant for a
+    shape it does not take), a CPU tensor to its plain version."""
     from .kernels import qmm
 
+    if _dequant_route(stack.gtype, x, stack.n_in, stack.n_out):
+        return stack_matmul_dequant(x, stack)
     if x.is_cuda:
         return qmm.qmm_stack(x.contiguous(), stack.planes, stack.gtype, stack.n_out,
                              stack.n_in)
@@ -466,9 +513,12 @@ def gather_matmul(x: torch.Tensor, ids: torch.Tensor, stack) -> torch.Tensor:
     """Expert-indexed packed matmul (MoE decode): row t of x [T, K] through
     expert ids[t] → [T, n_out], reading only the routed experts' planes. A
     CUDA tensor goes to the qmm_gather kernel (which reads `ids` on the
-    card), a CPU tensor to its plain version."""
+    card; gather_matmul_dequant for a shape it does not take), a CPU tensor
+    to its plain version."""
     from .kernels import qmm
 
+    if _dequant_route(stack.gtype, x, stack.n_in, stack.n_out):
+        return gather_matmul_dequant(x, ids, stack)
     if x.is_cuda:
         return qmm.qmm_gather(x.contiguous(), ids.to(torch.int32).contiguous(), stack.planes,
                               stack.gtype, stack.n_out, stack.n_in)

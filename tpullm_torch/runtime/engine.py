@@ -126,10 +126,14 @@ class Engine:
     def generate_tokens_device(self, prompt_tokens: list[int], max_new_tokens: int = 128,
                                temp: float = 0.0, top_k: int = 40, top_p: float = 0.95,
                                min_p: float = 0.05, seed: int = 0,
-                               stop_on_eog: bool = True, chunk: int = 32) -> list[int]:
+                               stop_on_eog: bool = True, chunk: int = 32,
+                               to_end: bool = False) -> list[int]:
         """Generation with sampling on the device: each sampled id stays on
         the device and feeds the next step; ids are read back once per
-        chunk of `chunk` steps."""
+        chunk of `chunk` steps. Chunks run while a whole one fits below
+        max_seq (the JAX package's rule); with `to_end` the steps after the
+        last chunk run one at a time, each id read back, up to the step at
+        n_past == max_seq, as the JAX package's generate_tokens does."""
         sp = SamplingParams(temp, top_k, top_p, min_p)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -164,11 +168,21 @@ class Engine:
                 out.append(t)
             if done or len(out) >= max_new_tokens:
                 break
+        else:
+            while to_end and len(out) < max_new_tokens and self.n_past < self.max_seq:
+                with torch.inference_mode():
+                    tok = sample_token(self._decode_logits(tok), gen, sp)
+                    t = int(tok)
+                self.perf.n_decode += 1
+                if stop_on_eog and vocab.is_eog(t):
+                    break
+                out.append(t)
         self.perf.t_decode_s += time.perf_counter() - t0
         return out
 
     def generate(self, prompt: str, max_new_tokens: int = 128) -> str:
-        """Greedy generation through the device sampler."""
+        """Greedy generation through the device sampler, up to the context
+        end as the JAX package's generate runs."""
         ids = self.tokenizer.tokenize(prompt, add_special=True, parse_special=True)
         return self.tokenizer.detokenize(
-            self.generate_tokens_device(ids, max_new_tokens, temp=0.0))
+            self.generate_tokens_device(ids, max_new_tokens, temp=0.0, to_end=True))
