@@ -11,18 +11,24 @@ Phases, in order; any failure raises and exits nonzero:
     each tensor-core kernel's registers and spill bytes;
  3. kernels vs plain: each kernel against its plain PyTorch version on the
     card at the shapes of the main paths (qmm: all 22 formats at the 8B
-    gate_up and down, M in {1, 16, 512}: M = 1 on CUDA cores, 16 and 512 on
-    the tensor cores, and at M = 512 the CUDA-core kernel timed on the same
-    planes; Q4_K and Q6_K also at the other Llama-3-8B shapes and Q5_K and
-    Q8_0 at Mixtral's attention shapes, M = 1; qmm_grouped, the
+    gate_up and down, M in {1, 8, 16, 512}: M = 1 and 8 on CUDA cores, 16
+    and 512 on the tensor cores, M = 1 also timed cold, rotating among
+    copies of the planes that together exceed the 50 MB L2, and at M = 512
+    the CUDA-core kernel timed on the same planes; Q4_K and Q6_K also at
+    the other Llama-3-8B shapes and Q5_K and Q8_0 at Mixtral's attention
+    shapes, M = 1; qmm_grouped, the
     group-factored kernel: all 22 formats at the 8B gate_up, M in {1, 512},
     timed beside qmm on the same planes; qmm_stack and qmm_gather: all 22
     formats as expert stacks at Mixtral's 4096→14336 and 14336→4096, stack
     M = 512 with a shared x (and, for Q4_K and Q6_K, a per-expert x), gather
-    T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8,
-    plus small softcap / window / sink / ALiBi cases), held to the NMSE
+    T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8
+    (T = 1 the split-KV decode regime, T = 512 the tensor-core prefill
+    regime, each also against the plain version of its own order, and the
+    prefill's p rounding, one bf16 term and two, measured on its plain
+    version), plus small softcap / window / sink / ALiBi cases), held to the NMSE
     bounds of the JAX package's conformance sweep; each timed with CUDA
-    events beside its bound and a PyTorch library call;
+    events over a CUDA graph of back-to-back calls (device time, not the
+    Python wrapper's dispatch) beside its bound and a PyTorch library call;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU;
  5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
@@ -86,7 +92,8 @@ QMM_SHAPES = (("qkv", 4096, 6144), ("wo", 4096, 4096), ("gate_up", 4096, 28672),
               ("down", 14336, 4096), ("head", 4096, 128256))
 # the 8B FFN linears, held for every format at M in QMM_ROWS
 PRESET_QMM_SHAPES = (("gate_up", 4096, 28672), ("down", 14336, 4096))
-QMM_ROWS = (1, 16, 512)
+QMM_ROWS = (1, 8, 16, 512)
+COLD_BYTES = 100e6  # plane copies a cold M = 1 timing rotates among, together
 # Mixtral's Q5_K attn_output and Q8_0 attn_k/attn_v
 MIXTRAL_ATTN_SHAPES = (("wo", 4096, 4096), ("wkv", 4096, 1024))
 # Mixtral's expert stacks: 8 experts, gate and up 4096→14336, down 14336→4096
@@ -144,14 +151,42 @@ def nmse(got, ref) -> float:
     return float(((got - ref) ** 2).mean() / (ref * ref).mean().clamp_min(1e-300))
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+_CAPTURE_STREAM = []  # the one side stream every graph is captured on
+
+
+def time_ms(fn, iters: int, warmup: int = 2, graph: bool = True) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA
+    events). With `graph` the calls are captured once in a CUDA graph and
+    the replay is timed, so the time is the device's, not the Python
+    wrapper's dispatch (a short kernel launched eagerly back to back is
+    timed at the host's pace); without, the calls run eagerly (for plain
+    versions that read values back to the host). The warm-up calls run on
+    the capture stream (a kernel's counter buffer is made per stream, outside
+    the capture)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    if graph and not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0] if graph else torch.cuda.current_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del g
+        return start.elapsed_time(end) / iters
     start.record()
     for _ in range(iters):
         fn()
@@ -259,17 +294,28 @@ def _cuda_core_qmm(x, planes, gtype, N: int, K: int):
 
     M = x.shape[0]
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tm, split, per = qmm.plan(M, K, N, n_sm, tms=(8,))
+    tm, split, per = qmm.gemv_plan(M, K, N, n_sm)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
                           device=x.device)
+    tiles = -(-N // qmm.GEMV_BLOCK_N) * -(-M // tm)
     fn = _build.bind(f"qmm{qmm._FAMILY[gtype]}", "tpullm_qmm", qmm._QMM_ARGS)
     ops = [planes[qmm._code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
     _build.check(fn(qmm._FMT[gtype], x.data_ptr(), *[None if t is None else t.data_ptr()
                                                      for t in ops],
-                    out.data_ptr(), partial.data_ptr(), M, K, N, tm, split, per,
+                    out.data_ptr(), partial.data_ptr(),
+                    _build.counters(x.device, torch.cuda.current_stream(x.device).cuda_stream,
+                                    tiles).data_ptr(), M, K, N, tm, split, per,
                     torch.cuda.current_stream(x.device).cuda_stream), "cuda-core qmm")
     return out
+
+
+def cold_ms(fn, copies: list, iters: int) -> float:
+    """Mean device time of fn(copy) over `iters` calls rotating among
+    `copies` (each a set of planes), so that no call finds its planes left
+    in the L2 by the one before."""
+    i = iter(range(1 << 30))
+    return time_ms(lambda: fn(copies[next(i) % len(copies)]), iters)
 
 
 def phase_qmm(dev, results: dict):
@@ -302,9 +348,10 @@ def phase_qmm(dev, results: dict):
                 label = f"{gtype.name} {name} M={M}"
                 expect(bool(torch.isfinite(got.float()).all()), f"{label} finite")
                 expect(err <= QMM_NMSE_BOUND, f"{label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
-                iters = 20 if M == 1 else 5
+                iters = 20 if M < qmm.TC_MIN_M else 5
                 ms = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
-                plain = time_ms(lambda: qmm.qmm_reference(x, planes, gtype, N, K), 2, 1)
+                plain = time_ms(lambda: qmm.qmm_reference(x, planes, gtype, N, K), 2, 1,
+                                graph=False)
                 lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
                 bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
                 row = dict(case=label, nmse=err, max_abs_err=mae, ms=ms, plain_ms=plain,
@@ -312,6 +359,17 @@ def phase_qmm(dev, results: dict):
                            gbps=(plane_bytes + M * K * 2 + M * N * 2) / ms / 1e6,
                            tflops=2.0 * M * K * N / ms / 1e9)
                 extra = ""
+                if M == 1:
+                    row["eager_ms"] = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters,
+                                              graph=False)
+                    n_copy = max(2, -(-int(COLD_BYTES) // plane_bytes))
+                    copies = [planes] + [{k: t.clone() for k, t in planes.items()}
+                                         for _ in range(n_copy - 1)]
+                    row["cold_ms"] = cold_ms(lambda p: qmm.qmm(x, p, gtype, N, K), copies, 20)
+                    row["cold_gbps"] = (plane_bytes + M * K * 2 + M * N * 2) / row["cold_ms"] / 1e6
+                    extra = (f" cold {row['cold_ms']:.4f} ms ({row['cold_gbps']:.0f} GB/s); eager "
+                             f"back to back {row['eager_ms']:.4f} ms")
+                    del copies
                 if M == max(QMM_ROWS):
                     cc = _cuda_core_qmm(x, planes, gtype, N, K)
                     torch.cuda.synchronize()
@@ -358,7 +416,8 @@ def phase_grouped(dev, results: dict):
             iters = 20 if M == 1 else 5
             ms = time_ms(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), iters)
             mat = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
-            plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2, 1)
+            plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2, 1,
+                            graph=False)
             lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
             bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
             results.setdefault("qmm_grouped", []).append(dict(
@@ -439,7 +498,7 @@ def phase_moe_kernels(dev, results: dict):
                 expect(err <= QMM_NMSE_BOUND, f"{key} {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
                 bms, by = bound_ms(n_bytes, flops)
                 row = dict(case=label, nmse=err, max_abs_err=mae, ms=time_ms(kernel, iters),
-                           plain_ms=time_ms(plain, 1, 1), bound_ms=bms, bound_by=by,
+                           plain_ms=time_ms(plain, 1, 1, graph=False), bound_ms=bms, bound_by=by,
                            library_ms=time_ms(library, iters))
                 row["gbps"] = n_bytes / row["ms"] / 1e6
                 row["tflops"] = flops / row["ms"] / 1e9
@@ -470,30 +529,47 @@ def _flash_case(dev, gen, *, q8, B, T, H, Hkv, D, S, offsets, softcap=0.0, windo
     if q8:
         k_q, k_s = QuantKVCache._quantize(k)
         v_q, v_s = QuantKVCache._quantize(v)
+        kv = (k_q, v_q)
+        kw = dict(k_scale=k_s, v_scale=v_s)
 
         def kernel():
             return flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, scale, softcap,
                                             window, sk, sl)
-
-        def plain():
-            return flash.flash_reference(q, k_q, v_q, off, scale, softcap, window, sk, sl,
-                                         k_scale=k_s, v_scale=v_s)
         k_lib = (k_q.float() * k_s[..., None]).to(torch.bfloat16)
         v_lib = (v_q.float() * v_s[..., None]).to(torch.bfloat16)
     else:
+        kv, kw = (k, v), {}
+
         def kernel():
             return flash.flash_attention(q, k, v, off, scale, softcap, window, sk, sl)
-
-        def plain():
-            return flash.flash_reference(q, k, v, off, scale, softcap, window, sk, sl)
         k_lib, v_lib = k, v
+
+    def plain():
+        return flash.flash_reference(q, *kv, off, scale, softcap, window, sk, sl, **kw)
+    decode = flash.regime(T, H, Hkv) == "decode"
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
-    row = dict(nmse=nmse(got.float(), ref.float()),
+    row = dict(regime="decode" if decode else "prefill", nmse=nmse(got.float(), ref.float()),
                max_abs_err=float((got.float() - ref.float()).abs().max()),
                finite=bool(torch.isfinite(got.float()).all()))
     if not timed:
         return row
+    # the plain version of the kernel's own order: its split plan, or its
+    # tiles with p rounded as it rounds it (and, beside it, one bf16 term)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    if decode:
+        own = flash.flash_split_reference(q, *kv, off, scale, softcap, window, sk, sl,
+                                          n_sm=n_sm, **kw)
+    else:
+        own = flash.flash_prefill_reference(q, *kv, off, scale, softcap, window, sk, sl, **kw)
+        q32 = q.float()
+        exact = flash.flash_reference(q32, *kv, off, scale, softcap, window, sk, sl, **kw)
+        for terms in (1, 2):
+            rounded = flash.flash_prefill_reference(q32, *kv, off, scale, softcap, window, sk,
+                                                    sl, p_terms=terms, **kw)
+            row[f"p_terms{terms}_nmse"] = nmse(rounded, exact)
+        del exact, rounded
+    row["nmse_own_order"] = nmse(got.float(), own.float())
     # work this run's data needs: keys up to each row's position, per head
     q_pos = np.asarray(offsets)[:, None] + np.arange(T)[None]
     visible = float(np.minimum(q_pos + 1, S).sum())
@@ -510,8 +586,9 @@ def _flash_case(dev, gen, *, q8, B, T, H, Hkv, D, S, offsets, softcap=0.0, windo
 
     def library():
         return F.scaled_dot_product_attention(qt, k_lib, v_lib, attn_mask=mask, scale=scale)
-    row.update(ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 2, 1), bound_ms=bms,
-               bound_by=by, library_ms=time_ms(library, 10))
+    row.update(ms=time_ms(kernel, 20), eager_ms=time_ms(kernel, 20, graph=False),
+               plain_ms=time_ms(plain, 2, 1, graph=False), bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, 20), visible_pairs_per_head=visible / B)
     return row
 
 
@@ -522,8 +599,13 @@ def phase_flash(dev, results: dict):
     main = dict(B=2, H=32, Hkv=8, D=128, S=4096)
     for q8, key in ((False, "flash_bf16"), (True, "flash_q8")):
         bound = FLASH_Q8_NMSE_BOUND if q8 else FLASH_NMSE_BOUND
-        cases = [(f"{'q8' if q8 else 'bf16'} T=1 S=4096", dict(T=1, offsets=(37, 3000), **main)),
-                 (f"{'q8' if q8 else 'bf16'} T=512 S=4096", dict(T=512, offsets=(0, 2500), **main))]
+        fmt = "q8" if q8 else "bf16"
+        one = dict(main, B=1)
+        cases = [(f"{fmt} T=1 S=4096", dict(T=1, offsets=(37, 3000), **main)),
+                 (f"{fmt} T=512 S=4096", dict(T=512, offsets=(0, 2500), **main)),
+                 # the 8B's decode at a short context (the serving profile's)
+                 (f"{fmt} T=1 B=1 kv=20 S=4096", dict(T=1, offsets=(19,), **one)),
+                 (f"{fmt} T=1 B=1 kv=100 S=4096", dict(T=1, offsets=(99,), **one))]
         small = dict(B=2, H=8, Hkv=2, S=300)
         cases += [
             ("softcap", dict(T=40, offsets=(0, 250), D=128, softcap=30.0, **small)),
@@ -532,6 +614,8 @@ def phase_flash(dev, results: dict):
             ("alibi", dict(T=33, offsets=(10, 240), D=64, alibi=True, **small)),
             ("all", dict(T=20, offsets=(3, 270), D=128, softcap=25.0, window=32, sinks=True,
                          alibi=True, **small)),
+            ("all decode", dict(T=4, offsets=(3, 270), D=64, softcap=25.0, window=32, sinks=True,
+                                alibi=True, **small)),
         ]
         for label, kw in cases:
             timed = "S=4096" in label
@@ -542,10 +626,18 @@ def phase_flash(dev, results: dict):
             results.setdefault(key, []).append(row)
             extra = ""
             if timed:
-                extra = (f" kernel {row['ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+                expect(row["nmse_own_order"] <= bound, f"flash {row['case']} against the plain "
+                       f"version of its own order: NMSE {row['nmse_own_order']:.3e}")
+                extra = (f" (against its own order's plain version {row['nmse_own_order']:.2e})"
+                         f" kernel {row['ms']:.4f} ms (eager back to back {row['eager_ms']:.4f})"
+                         f" bound {row['bound_ms']:.4f} ms "
                          f"({row['bound_by']}) plain {row['plain_ms']:.3f} ms "
                          f"sdpa {row['library_ms']:.4f} ms")
-            log(f"[flash] {row['case']}: nmse {row['nmse']:.2e} max|d| "
+                if "p_terms1_nmse" in row:
+                    extra += (f"; p for the PV product as one bf16 term: NMSE "
+                              f"{row['p_terms1_nmse']:.2e}, as two: {row['p_terms2_nmse']:.2e} "
+                              "(plain versions, f32 output, against f32 p)")
+            log(f"[flash] {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
                 f"{row['max_abs_err']:.3g}{extra}")
     torch.cuda.empty_cache()
 
@@ -554,7 +646,8 @@ def reset_launches():
     from tpullm_torch.ops.kernels import flash, qmm
 
     for d in (qmm.LAUNCHES, qmm.TC_LAUNCHES, qmm.GROUPED_LAUNCHES, qmm.STACK_LAUNCHES,
-              qmm.GATHER_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.ATTN_DENSE_ROUTES):
+              qmm.GATHER_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.DECODE_LAUNCHES,
+              flash.ATTN_DENSE_ROUTES):
         for k in d:
             d[k] = 0
 
@@ -562,8 +655,9 @@ def reset_launches():
 def read_launches() -> dict:
     """Launches per kernel entry of KERNELS (qmm_<format>: the CUDA-core
     regime; qmm_tc: the tensor-core regime, every format), the grouped,
-    tensor-core and expert kernels' by format ("qmm_stack.MXFP4", ...), and
-    the calls of the two counted routes."""
+    tensor-core and expert kernels' by format ("qmm_stack.MXFP4", ...), the
+    flash launches of the decode regime ("flash_bf16.decode"), and the calls
+    of the two counted routes."""
     from tpullm_torch.ops.kernels import flash, qmm
 
     got = {key: qmm.LAUNCHES[fmt] for fmt, key in QMM_KEYS.items()}
@@ -572,6 +666,8 @@ def read_launches() -> dict:
                 "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
                 "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
                 "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"],
+                "flash_bf16.decode": flash.DECODE_LAUNCHES["bf16"],
+                "flash_q8.decode": flash.DECODE_LAUNCHES["q8"],
                 "dequant_routes": sum(qmm.DEQUANT_ROUTES.values()),
                 "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values())})
     for kind, counts in (("qmm_tc", qmm.TC_LAUNCHES), ("qmm_grouped", qmm.GROUPED_LAUNCHES),
@@ -600,6 +696,13 @@ def per_forward_launches(params) -> dict:
             "flash": len(params["layers"])}
 
 
+def flash_decode_forwards(hp, rows: list[int]) -> int:
+    """The forwards among `rows` whose attention takes flash's decode regime."""
+    from tpullm_torch.ops.kernels import flash
+
+    return sum(flash.regime(r, hp.n_head, hp.n_head_kv) == "decode" for r in rows)
+
+
 def bucket_rows(n_tokens: int) -> int:
     """The rows a forward over n_tokens runs (batch 1): its prefill bucket,
     1 at decode."""
@@ -608,7 +711,8 @@ def bucket_rows(n_tokens: int) -> int:
     return next(b for b in PREFILL_BUCKETS if n_tokens <= b)
 
 
-def check_launches(label: str, got: dict, per: dict, rows: list[int], kv: str):
+def check_launches(label: str, got: dict, per: dict, rows: list[int], kv: str,
+                   decode_fw: int):
     """Launch counts of a run against per-forward counts and the rows of
     each forward (its bucket; 1 at decode): the 2-D qmm of the layers on
     the tensor cores from TC_MIN_M rows and on CUDA cores below, the head on
@@ -637,6 +741,9 @@ def check_launches(label: str, got: dict, per: dict, rows: list[int], kv: str):
                f"{n - tc_fw} forwards of < {qmm.TC_MIN_M} rows + {per['head']} heads × {n} "
                "(none at ≥ 16 rows)")
     expect(got[fkey] == per["flash"] * n, f"{label}: {fkey} launches = {per['flash']} × {n}")
+    expect(got[fkey + ".decode"] == per["flash"] * decode_fw,
+           f"{label}: {fkey} decode-regime launches {got[fkey + '.decode']} = {per['flash']} × "
+           f"{decode_fw} forwards (the rest prefill-regime)")
     expect(got["qmm_gather"] == per["experts"] * (n - stack_fw),
            f"{label}: qmm_gather launches {got['qmm_gather']} = {per['experts']} × "
            f"{n - stack_fw} gather-regime forwards")
@@ -690,7 +797,9 @@ def phase_tiny(dev, tmp: Path):
 
 def profile_decode(eng, ids, steps: int = 16) -> dict:
     """Device time of `steps` decode steps by kernel family, from
-    torch.profiler (the steps read their logits back, as decode_step does)."""
+    torch.profiler (the steps read their logits back, as decode_step does),
+    and the launches of the 2-D qmm's reduction kernel among them (0: qmm
+    below 16 rows sums its K split in its own launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -701,17 +810,19 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
             tok = int(np.argmax(eng.decode_step(tok)))
         torch.cuda.synchronize()
     fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
-    top = []
+    top, reduce_launches = [], 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0:
             continue
         kind = next((k for k in ("qmm_stack", "qmm_gather", "qmm") if k in e.key),
-                    "flash" if "flash_kernel" in e.key else "other")
+                    "flash" if "flash_" in e.key else "other")
         fam[kind] += us
         top.append((us, e.key, e.count))
+        if "qmm_reduce_kernel" in e.key:
+            reduce_launches += e.count
     top.sort(reverse=True)
-    return {"steps": steps,
+    return {"steps": steps, "qmm_reduce_launches": reduce_launches,
             "device_ms_per_token": {k: v / 1e3 / steps for k, v in fam.items()},
             "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
 
@@ -733,7 +844,7 @@ def profile_prefill(eng, ids) -> dict:
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us > 0.0:
             kind = next((k for k in ("qmm_tc", "qmm_stack", "qmm") if k in e.key),
-                        "flash" if "flash_kernel" in e.key else "other")
+                        "flash" if "flash_" in e.key else "other")
             fam[kind] += us
     return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3}
 
@@ -829,6 +940,13 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
     prof = profile_decode(eng, prompts[0])
     count(len(prompts[0]), prof["steps"])
+    from tpullm_torch.ops.kernels import qmm
+
+    # qmm_grouped (a run that lists types in GROUPED_TYPES) keeps its own
+    # reduction pass; qmm below 16 rows has none
+    expect(prof["qmm_reduce_launches"] == 0 or qmm.GROUPED_TYPES,
+           f"{label}: no qmm reduction kernel in the decode profile "
+           f"({prof['qmm_reduce_launches']} launched)")
     busy = sum(prof["device_ms_per_token"].values())
     wall = 1e3 / float(np.median([p["decode_tok_s"] for p in per_prompt]))
     log(f"[{label}] kv={kv_name} profile: device ms per decode token "
@@ -856,7 +974,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{label}] kv={kv_name}: load {eng.perf.t_load_s:.1f}s, peak memory {peak:.2f} GiB")
     check_launches(f"{label} kv={kv_name}", got, per_forward_launches(eng.params), rows,
-                   kv_name)
+                   kv_name, flash_decode_forwards(eng.hp, rows))
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     run = dict(model=label, kv=kv_name, n_layer=eng.hp.n_layer, load_s=eng.perf.t_load_s,
@@ -1115,6 +1233,26 @@ def main() -> int:
             entry["formats_held"] = sorted({r["case"].split()[0] for r in rows})
             entry["launches_by_format"] = {k.split(".")[1]: v for k, v in launches.items()
                                            if k.startswith(key + ".")}
+        if "cold_ms" in rep:
+            entry["cold_ms"] = rep["cold_ms"]
+        if key.startswith("flash"):
+            # the representative is the decode regime (T = 1); the decode
+            # regime at short contexts and the prefill regime beside it
+            for r in rows:
+                if " B=1 kv=" in r["case"]:
+                    kv = r["case"].split("kv=")[1].split()[0]
+                    entry.update({f"kv{kv}_ms": r["ms"], f"kv{kv}_bound_ms": r["bound_ms"],
+                                  f"kv{kv}_library_ms": r["library_ms"]})
+            pre = next(r for r in rows if r["case"].endswith("T=512 S=4096"))
+            entry.update(prefill_case=pre["case"], prefill_ms=pre["ms"],
+                         prefill_plain_ms=pre["plain_ms"], prefill_bound_ms=pre["bound_ms"],
+                         prefill_bound_by=pre["bound_by"], prefill_library_ms=pre["library_ms"],
+                         prefill_p_terms1_nmse=pre["p_terms1_nmse"],
+                         prefill_p_terms2_nmse=pre["p_terms2_nmse"],
+                         launches_decode=launches[key + ".decode"],
+                         launches_prefill=launches[key] - launches[key + ".decode"])
+            expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
+                   f"{key} launched in both regimes on the main path")
         if key == "qmm_mxfp4":
             # MXFP4 is an expert format only: its main-path launches go through
             # the stack and gather entries of the same device body

@@ -172,6 +172,157 @@ def test_qmm_gather_kernel_gives_nan_rows_for_ids_outside_the_stack(dev):
     assert torch.isnan(got[1].float()).all() and torch.isfinite(got[[0, 2]].float()).all()
 
 
+def _gemv(x, planes, name, N, K, tm, split):
+    """qmm's CUDA-core kernel at a chosen split (chunks spread evenly)."""
+    from tpullm_torch.ops.kernels import _build
+
+    gtype = GGMLType[name]
+    M, n_chunks = x.shape[0], K // 256
+    per = -(-n_chunks // split)
+    split = -(-n_chunks // per)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split, M, N), dtype=torch.float32, device=x.device)
+    tiles = -(-N // qmm.GEMV_BLOCK_N) * -(-M // tm)
+    ops = [planes[qmm._code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
+    fn = _build.bind(f"qmm{qmm._FAMILY[gtype]}", "tpullm_qmm", qmm._QMM_ARGS)
+    _build.check(fn(qmm._FMT[gtype], x.data_ptr(), *[None if t is None else t.data_ptr()
+                                                     for t in ops],
+                    out.data_ptr(), partial.data_ptr(),
+                    _build.counters(x.device, torch.cuda.current_stream(x.device).cuda_stream,
+                                    tiles).data_ptr(), M, K, N, tm, split, per,
+                    torch.cuda.current_stream(x.device).cuda_stream), "qmm")
+    return out
+
+
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+def test_qmm_gemv_at_every_split(dev, name, M):
+    """The CUDA-core kernel at TM = M for every split count 1 .. 4 of K =
+    1024 (the last block of each column tile sums the splits), N = 1028
+    (a partial column tile, 4-byte copies) and N = 512 (16-byte copies);
+    each split count against the plain version, and a launch repeated back
+    to back on one stream bit-identical to the first."""
+    for K, N in ((1024, 1028), (1024, 512)):
+        planes = _planes(name, N, K, dev, seed=M + N)
+        x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+        x = x.to(torch.bfloat16)
+        ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+        for split in range(1, K // 256 + 1):
+            a = _gemv(x, planes, name, N, K, M, split)
+            b = _gemv(x, planes, name, N, K, M, split)
+            torch.cuda.synchronize()
+            assert torch.isfinite(a.float()).all()
+            assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND, (K, N, split)
+            assert torch.equal(a, b), (K, N, split)
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_qmm_below_16_rows_is_one_launch(dev, M):
+    """A qmm call below 16 rows whose plan splits K launches one kernel (no
+    reduction kernel), and two calls back to back on one stream agree bit
+    for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K, N = 14336, 4096  # the 8B down: split many ways
+    planes = _planes("Q4_K", N, K, dev, seed=5)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(5), device=dev)
+    x = x.to(torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert qmm.gemv_plan(M, K, N, n_sm)[1] > 1
+    a = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if "qmm" in e.key and getattr(e, "self_device_time_total", 0) > 0]
+    assert len(kernels) == 1 and "qmm_kernel" in kernels[0], kernels
+    assert torch.equal(a, b)
+    ref = qmm.qmm_reference(x, planes, GGMLType.Q4_K, N, K)
+    assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+def test_split_outputs_on_two_streams_at_once(dev):
+    """qmm's K split and flash's key splits find their last block through a
+    counter buffer of the launch's stream: calls on two streams at once
+    each get their own buffer and give the one-stream results bit for bit."""
+    from tpullm_torch.ops.kernels import _build
+
+    K, N = 14336, 4096
+    planes = _planes("Q4_K", N, K, dev, seed=6)
+    x = torch.randn(1, K, generator=torch.Generator(dev).manual_seed(6), device=dev)
+    x = x.to(torch.bfloat16)
+    attend, _, _ = _flash_inputs(dev, False, 2, 1, 32, 8, 4096, 128, (37, 3000), 6, False)
+    want_q = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
+    want_f = attend()
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    got = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append((qmm.qmm(x, planes, GGMLType.Q4_K, N, K), attend()))
+    torch.cuda.synchronize()
+    bufs = {_build.counters(dev, s.cuda_stream, 1).data_ptr() for s in streams}
+    assert len(bufs) == 2
+    assert all(torch.equal(a, want_q) and torch.equal(b, want_f) for a, b in got)
+
+
+def _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets, seed, extras):
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    kw = dict(softcap=0.0, sliding_window=0, sinks=None, alibi_slopes=None)
+    if extras:
+        kw = dict(softcap=30.0, sliding_window=100,
+                  sinks=torch.randn(H, generator=g, device=dev),
+                  alibi_slopes=torch.linspace(0.5, 0.01, H, device=dev))
+    if not q8:
+        return (lambda: flash.flash_attention(q, k, v, off, D ** -0.5, **kw),
+                lambda: flash.flash_reference(q, k, v, off, D ** -0.5, **kw), FLASH_NMSE_BOUND)
+    from tpullm_torch.runtime.kvcache import QuantKVCache
+
+    k_q, k_s = QuantKVCache._quantize(k)
+    v_q, v_s = QuantKVCache._quantize(v)
+    return (lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5, **kw),
+            lambda: flash.flash_reference(q, k_q, v_q, off, D ** -0.5, k_scale=k_s,
+                                          v_scale=v_s, **kw), FLASH_Q8_NMSE_BOUND)
+
+
+@pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
+def test_flash_regimes_match_plain(dev, T, D, q8, extras):
+    """Both regimes (GQA 8/2: T ≤ 4 is the split-KV decode, T ≥ 8 the
+    tensor-core prefill) at kv_len 1, 31, 32, 33, 4095 and 4096 of S = 4096
+    (the second batch at another kv_len), each call one launch, counted in
+    its regime, and bit-identical when repeated back to back."""
+    B, H, Hkv, S = 2, 8, 2, 4096
+    decode = flash.regime(T, H, Hkv) == "decode"
+    for kv_len in (1, 31, 32, 33, 4095, 4096):
+        if kv_len < T:
+            continue
+        offsets = (kv_len - T, (7 * kv_len + 1000) % (S - T + 1))
+        kernel, plain, bound = _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets,
+                                             seed=T + kv_len + D, extras=extras)
+        fmt = "q8" if q8 else "bf16"
+        before = flash.LAUNCHES[fmt], flash.DECODE_LAUNCHES[fmt]
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        assert (flash.LAUNCHES[fmt], flash.DECODE_LAUNCHES[fmt]) == \
+            (before[0] + 2, before[1] + 2 * decode)
+        ref = plain()
+        assert got.shape == (B, T, H, D) and torch.isfinite(got.float()).all()
+        assert _nmse(got.float(), ref.float()) <= bound, kv_len
+        assert torch.equal(got, again), kv_len
+
+
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("T,S,D,softcap,window,sinks,alibi", [
     (1, 100, 128, 0.0, 0, False, False),

@@ -194,7 +194,7 @@ def test_expert_kernel_wrappers_refuse_cpu_tensors_and_unported_formats():
 def test_gather_plan_splits_k_for_few_slots(T, K, N, expect_split):
     """At decode (2 slots) the gather splits K to fill 132 SMs; every chunk
     is covered once."""
-    _, split, per = qmm.plan(1, K, N, n_sm=132, batches=T)
+    _, split, per = qmm.plan(1, K, N, n_sm=132, batches=T, tms=qmm._GATHER_TMS)
     assert split == expect_split
     n_chunks = K // 256
     assert split * per >= n_chunks > (split - 1) * per

@@ -123,11 +123,58 @@ def test_quant_linear_cpu_dispatch_is_the_plain_version():
     (1, 4096, 6144, 1), (1, 14336, 4096, 1), (7, 4096, 4096, 8),
     (512, 4096, 28672, qmm.TC_TILE), (512, 4096, 128256, qmm.TC_TILE)])
 def test_qmm_plan_covers_k_exactly(M, K, N, expect_tm):
-    tm, split, per = qmm.plan(M, K, N, n_sm=132)
+    plan = qmm.plan if M >= qmm.TC_MIN_M else qmm.gemv_plan  # as qmm.qmm picks
+    tm, split, per = plan(M, K, N, 132)
     assert tm == expect_tm
     n_chunks = K // 256
     assert 1 <= split <= n_chunks
     assert split * per >= n_chunks > (split - 1) * per  # every chunk, none twice
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 15])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                                 (4096, 128256), (256, 4), (1024, 1028), (32768, 512)])
+def test_qmm_plan_below_16_rows_fits_one_launch(M, K, N):
+    """Below TC_MIN_M rows (the gemv body): every chunk in exactly one split,
+    the block's x within GEMV_X_BYTES, and a split output's tiles within the
+    counter buffer by which each tile's last block finds itself; with at
+    most half a wave of tiles, a split K keeps every block in one wave of
+    GEMV_WAVE_BLOCKS blocks an SM unless x's limit asks for more splits, and
+    K is split whenever the tiles leave half that wave empty; from a wave of
+    tiles on, no split but x's."""
+    n_sm = 132
+    tm, split, per = qmm.gemv_plan(M, K, N, n_sm)
+    assert tm in qmm.GEMV_TMS and tm >= min(M, qmm.GEMV_TMS[-1])
+    n_chunks = K // 256
+    assert 1 <= split <= n_chunks
+    assert split * per >= n_chunks > (split - 1) * per  # every chunk, none twice
+    assert tm * per * 256 * 2 <= qmm.GEMV_X_BYTES
+    tiles = -(-N // qmm.GEMV_BLOCK_N) * -(-M // tm)
+    assert split == 1 or tiles <= qmm._build.COUNTERS
+    wave = qmm.GEMV_WAVE_BLOCKS * n_sm
+    x_limited = per == qmm.GEMV_X_BYTES // (tm * 512)
+    if 2 * tiles <= wave:
+        assert split == 1 or tiles * split <= wave or x_limited
+        assert split > 1 or n_chunks == 1
+    if tiles >= wave:
+        assert split == 1 or x_limited
+
+
+def test_gemv_source_constants_match_the_wrapper():
+    csrc = Path(qmm.__file__).resolve().parents[2] / "csrc"
+    src = (csrc / "qmm_gemv.cuh").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kGemvBN"]) == qmm.GEMV_BLOCK_N
+    assert int(const["kGemvXBytes"]) == qmm.GEMV_X_BYTES
+    cases = re.findall(r"TPULLM_GEMV_CASE\((\d+)\)", (csrc / "qmm.cu").read_text())
+    assert tuple(int(c) for c in cases) == qmm.GEMV_TMS
+
+
+def test_counter_buffer_refuses_a_launch_it_cannot_hold():
+    """One check of the counter limit, in `_build.counters`: a launch whose
+    split groups exceed the buffer is refused before any buffer is made."""
+    with pytest.raises(ValueError):
+        qmm._build.counters(torch.device("cpu"), 0, qmm._build.COUNTERS + 1)
 
 
 def test_qmm_kernel_wrapper_refuses_cpu_tensors():

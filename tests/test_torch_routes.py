@@ -124,7 +124,7 @@ def test_cpu_tensors_never_take_the_dequant_route():
 def _route(M: int, K: int, N: int) -> str:
     if not qmm.takes(K, N):
         return "dequant"
-    return "tensor_core" if qmm.plan(M, K, N, N_SM)[0] == qmm.TC_TILE else "cuda_core"
+    return "tensor_core" if M >= qmm.TC_MIN_M else "cuda_core"  # as qmm.qmm picks
 
 
 @pytest.mark.parametrize("M,K,N,want", [
@@ -148,10 +148,13 @@ def test_qmm_regime_by_shape(M, K, N, want):
     (512, 4096, 14336, 8, qmm._STACK_TMS, (qmm.TC_TILE, 1, 16)),
     (1, 512, 768, 4, qmm._STACK_TMS, (qmm.TC_TILE, 2, 1)),  # the stack has no CUDA-core regime
     (512, 4096, 28672, 1, qmm._GROUPED_TMS, (16, 1, 16)),   # qmm_grouped stays on CUDA cores
-    (9, 4096, 4096, 1, qmm._TMS, (8, 16, 1)),   # two row tiles of 8
+    (9, 4096, 4096, 1, qmm.GEMV_TMS, (8, 4, 4)),  # two row tiles of 8: 64 tiles split 4 ways
 ])
 def test_qmm_plan_tiles(M, K, N, batches, tms, want):
-    tm, split, per = qmm.plan(M, K, N, N_SM, batches=batches, tms=tms)
+    if tms == qmm.GEMV_TMS:  # qmm below TC_MIN_M rows
+        tm, split, per = qmm.gemv_plan(M, K, N, N_SM)
+    else:
+        tm, split, per = qmm.plan(M, K, N, N_SM, batches=batches, tms=tms)
     assert (tm, split, per) == want
     n_chunks = K // 256
     assert split * per >= n_chunks > (split - 1) * per  # every chunk once

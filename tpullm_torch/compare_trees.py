@@ -1,0 +1,258 @@
+"""Times two checkouts of the port on one card, in turn, with one yardstick.
+
+    python3 tpullm_torch/compare_trees.py --parent DIR [--rounds N] [--out FILE] [--no-decode]
+
+DIR is another checkout of the repository (for example the parent commit,
+unpacked with `git archive` into a directory that .gitignore lists). The
+script runs the parent, this checkout, this checkout again and the parent
+again (N rounds of parent and this checkout, alternating which goes first;
+default 2), each in a process of its own that imports `tpullm_torch` from its
+checkout and builds that checkout's kernels, and measures in each, with the
+timing code of this file:
+- flash at T = 1 (H = 32, Hkv = 8, D = 128, S = 4096: the 8B's decode) in
+  both cache formats, at kv_len 38 and 3001 in one call (B = 2) and at
+  B = 1 with kv_len 20, 100 and 512; qmm at M = 1 on the 8B's gate_up,
+  down and wo for a few formats. Each as the device time of a CUDA-graph
+  replay of back-to-back calls, as the time of the same calls launched
+  eagerly back to back, and as the host's time to issue one call (the
+  calls issued without waiting, over their count: the wrapper's dispatch);
+  flash at B = 1 also cold (each call after 64 MB of writes, which evict
+  the L2; the writes' own time subtracted);
+- unless --no-decode: the decode rate of a Llama-3-8B Q4_K_M (random
+  weights from seed 0, synthesized once by this checkout) with a bf16
+  cache: 3 × 64 greedy tokens after "hello world", and the launches of the
+  flash and qmm wrappers a decode token.
+It prints the card's name and power limit, each run's numbers and a table
+of the parent's and this checkout's means, and writes every number as JSON
+to FILE (default chiprun_out/compare_trees.json). Needs one CUDA card and
+nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH_CASES = (("B=2 kv 38/3001", (37, 3000)), ("B=1 kv 20", (19,)), ("B=1 kv 100", (99,)),
+               ("B=1 kv 512", (511,)))
+QMM_CASES = (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "gate_up", 4096, 28672),
+             ("Q8_0", "gate_up", 4096, 28672), ("Q4_0", "gate_up", 4096, 28672),
+             ("Q4_K", "down", 14336, 4096), ("Q4_K", "wo", 4096, 4096))
+ITERS = 50
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def _timers(torch):
+    stream = torch.cuda.Stream()
+
+    def events(run) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    def graph_ms(fn) -> float:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # warm up on the capture stream
+            for _ in range(2):
+                fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            for _ in range(ITERS):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        ms = events(g.replay) / ITERS
+        del g
+        return ms
+
+    def eager_ms(fn) -> float:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        return events(lambda: [fn() for _ in range(ITERS)]) / ITERS
+
+    def host_us(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / ITERS * 1e6
+
+    return graph_ms, eager_ms, host_us
+
+
+def _record(out: dict, key: str, timer, fn, less: float = 0.0) -> None:
+    try:
+        out[key] = timer(fn) - less
+    except Exception as e:  # a tree whose wrapper cannot be captured: recorded, not fatal
+        out[key] = f"failed: {type(e).__name__}: {e}"[:200]
+
+
+def _measure(fn, timers, out: dict, key: str) -> None:
+    for name, timer in zip(("graph_ms", "eager_ms", "host_us"), timers):
+        _record(out, f"{key} {name}", timer, fn)
+
+
+def worker(tree: Path, gguf: str | None) -> dict:
+    sys.path[0] = str(tree)  # this checkout's tpullm_torch, not the script's
+    import numpy as np
+    import torch
+
+    from tpullm_torch.gguf.constants import TYPE_TRAITS, GGMLType
+    from tpullm_torch.models.synth import write_scales
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import _build, flash, qmm
+    from tpullm_torch.runtime.kvcache import QuantKVCache
+
+    assert Path(flash.__file__).resolve().is_relative_to(tree.resolve()), flash.__file__
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build()
+    res: dict = {"tree": str(tree), "build_s": time.perf_counter() - t0}
+    timers = _timers(torch)
+    gen = torch.Generator(dev).manual_seed(0)
+    H, Hkv, D, S = 32, 8, 128, 4096
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
+    flush_ms = timers[0](flush.zero_)
+    for label, offsets in FLASH_CASES:
+        B = len(offsets)
+        q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        k_q, k_s = QuantKVCache._quantize(k)
+        v_q, v_s = QuantKVCache._quantize(v)
+        fns = {"bf16": lambda: flash.flash_attention(q, k, v, off, D ** -0.5),
+               "q8": lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5)}
+        for fmt, fn in fns.items():
+            ref = flash.flash_reference(q, *((k, v) if fmt == "bf16" else (k_q, v_q)), off,
+                                        D ** -0.5, **({} if fmt == "bf16" else
+                                                      dict(k_scale=k_s, v_scale=v_s)))
+            err = float((fn().float() - ref.float()).abs().max())
+            assert err < 0.05, f"flash {fmt} {label}: max |d| {err}"
+            _measure(fn, timers, res, f"flash {fmt} {label}")
+            if B == 1:
+                _record(res, f"flash {fmt} {label} cold_ms", timers[0],
+                        lambda: (flush.zero_(), fn()), flush_ms)
+        del q, k, v, k_q, v_q
+    for fmt, name, K, N in QMM_CASES:
+        gtype = GGMLType[fmt]
+        tt = TYPE_TRAITS[gtype]
+        nb = N * K // tt.block_size
+        raw = torch.randint(0, 256, (nb, tt.type_size), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        write_scales(raw, gtype, (torch.rand(nb, generator=gen, device=dev) + 0.5) * 0.02)
+        planes = qmatmul.repack(raw.reshape(-1), gtype, N, K, dev)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        got = qmm.qmm(x, planes, gtype, N, K).float()
+        ref = qmm.qmm_reference(x, planes, gtype, N, K).float()
+        nmse = float(((got - ref) ** 2).mean() / (ref ** 2).mean())
+        assert nmse < 5e-4, f"qmm {fmt} {name}: NMSE {nmse}"
+        _measure(lambda: qmm.qmm(x, planes, gtype, N, K), timers, res, f"qmm {fmt} {name} M=1")
+        del raw, planes
+    torch.cuda.empty_cache()
+    if gguf:
+        from tpullm_torch.runtime.engine import Engine
+
+        eng = Engine(gguf, max_seq=4096, kv_dtype=torch.bfloat16)
+        ids = eng.tokenizer.tokenize("hello world")
+        eng.generate_tokens_device(ids, 8, temp=0.0, stop_on_eog=False)
+        rates, outs = [], []
+        for _ in range(3):
+            eng.reset()
+            f0, q0 = sum(flash.LAUNCHES.values()), sum(qmm.LAUNCHES.values())
+            p0 = (eng.perf.t_decode_s, eng.perf.n_decode)
+            outs.append(eng.generate_tokens_device(ids, 64, temp=0.0, stop_on_eog=False,
+                                                   chunk=32))
+            n = eng.perf.n_decode - p0[1]
+            rates.append(n / (eng.perf.t_decode_s - p0[0]))
+        res["decode tok/s"] = rates
+        res["decode ms a token (median)"] = 1e3 / float(np.median(rates))
+        res["flash launches a generation"] = sum(flash.LAUNCHES.values()) - f0
+        res["qmm launches a generation"] = sum(qmm.LAUNCHES.values()) - q0
+        res["decode steps a generation"] = n
+        res["greedy ids"] = outs[0][:16]
+        del eng
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="the other checkout")
+    ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "compare_trees.json")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--no-decode", action="store_true")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--gguf", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.worker, args.gguf)))
+        return 0
+    if args.parent is None or not (args.parent / "tpullm_torch").is_dir():
+        ap.error("--parent must be a checkout holding tpullm_torch/")
+    sys.path[0] = str(ROOT)  # the repository, not this file's directory
+    import torch
+
+    if not torch.cuda.is_available():
+        log("no CUDA card")
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        gguf = None
+        if not args.no_decode:
+            from tpullm_torch.models.synth import synthetic_writer
+
+            gguf = Path(tmp) / "llama-3-8b-q4_k_m.gguf"
+            t0 = time.perf_counter()
+            synthetic_writer(gguf, shape="llama-3-8b", seed=0, ftype="Q4_K_M").write()
+            print(f"synthesized the 8B Q4_K_M in {time.perf_counter() - t0:.1f}s", flush=True)
+        runs = []
+        pair = (("parent", args.parent), ("change", ROOT))
+        for name, tree in [run for i in range(args.rounds) for run in pair[::1 - 2 * (i % 2)]]:
+            cmd = [sys.executable, __file__, "--worker", str(tree.resolve())]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + (["--gguf", str(gguf)] if gguf else []), cwd=tree,
+                                  stdout=subprocess.PIPE, text=True, env=dict(os.environ))
+            if proc.returncode != 0:
+                print(f"{name} run failed (exit {proc.returncode})", flush=True)
+                return 1
+            runs.append((name, json.loads(proc.stdout.strip().splitlines()[-1])))
+            print(f"{name} run {len(runs)}: {time.perf_counter() - t0:.1f}s", flush=True)
+    keys = [k for k in runs[1][1] if k not in ("tree",)]
+    table = {}
+    for key in keys:
+        vals = {n: [r.get(key) for m, r in runs if m == n] for n in ("parent", "change")}
+        table[key] = vals
+        nums = {n: [v for v in vs if isinstance(v, (int, float))] for n, vs in vals.items()}
+        mean = {n: (sum(v) / len(v) if v and len(v) == len(vals[n]) else None)
+                for n, v in nums.items()}
+        print(f"{key}: parent {vals['parent']} change {vals['change']}"
+              + (f" -> means {mean['parent']:.5g} / {mean['change']:.5g}"
+                 if None not in mean.values() else ""), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"card": smi, "order": [n for n, _ in runs],
+                                    "runs": [r for _, r in runs], "table": table}, indent=1))
+    print(f"wrote {args.out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

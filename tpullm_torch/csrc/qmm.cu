@@ -9,11 +9,13 @@
 //   (+ _acc_tile), in two regimes of M that compute the same function with
 //   the same rounding points:
 //   - M < 16 (decode, the prefill bucket of 8): qmm_kernel, on CUDA cores
-//     (qmm_body.cuh), TM in {1, 2, 4, 8} rows of x a block. Bound on the
+//     (qmm_gemv.cuh), TM in {1, 2, 4, 8} rows of x a block. Bound on the
 //     card: the plane bytes (2 to 6 bits a weight for the packed formats
 //     with their bf16 scales, 8.5 for Q6_K's qw and Q8_0) against 3.35 TB/s.
-//     Few output columns at decode leave the card idle, so K is split over
-//     blockIdx.z into f32 partials summed by a second pass in a fixed order.
+//     A deep weight stream (a cp.async ring of whole chunks in shared
+//     memory); few output columns at decode leave the card idle, so K is
+//     split over blockIdx.z into f32 partials that the last block of each
+//     column tile sums in split order, in the same launch.
 //   - M ≥ 16 (prefill): qmm_tc_kernel, on the tensor cores (qmm_tc.cuh).
 //     Bound on the card at M = 512: the tensor-core product, 2·M·K·N against
 //     989 TFLOP/s. The design (mma.sync tiles of 128 × 128, two blocks an
@@ -34,20 +36,22 @@
 //   every row from its packed row (a half-split or 2-bit packed row is read
 //   once per field; the repeats hit L1). CUDA cores, TM in {1, 16}.
 
-#include "qmm_tc.cuh"
+#include "qmm_gemv.cuh"
 
 namespace {
 
 using namespace tpullm;
 
 template <int TM, int F>
-__global__ void __launch_bounds__(kQmmThreads)
+__global__ void __launch_bounds__(kGemvThreads)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
            const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
            const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
-           float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
-  qmm_body<TM, F>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0,
-                  blockIdx.y * TM, chunks_per_split);
+           float* __restrict__ partial, int* __restrict__ counters, int M, int K, int N,
+           int chunks_per_split) {
+  extern __shared__ __align__(16) char smem[];
+  qmm_gemv_body<TM, F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N,
+                       chunks_per_split, smem);
 }
 
 template <int F>
@@ -209,26 +213,47 @@ int finish(float* partial, __nv_bfloat16* out, int M, int N, int split, cudaStre
   return (int)cudaGetLastError();
 }
 
+// The launch attributes of a qmm_kernel instantiation, set once: dynamic
+// shared memory up to its largest x, the whole SM's shared memory preferred
+// over L1.
+template <int TM, int F>
+cudaError_t gemv_attributes() {
+  static const cudaError_t err =
+      qmm_tc_attributes(qmm_kernel<TM, F>, gemv_smem_bytes<F>(kGemvXBytes));
+  return err;
+}
+
+template <int TM, int F>
+int launch_gemv(const void* x, const void* codes, const void* qh, const void* scale,
+                const void* minus, void* out, void* partial, void* counters, int M, int K,
+                int N, int split, int chunks_per_split, cudaStream_t stream) {
+  const int x_bytes = TM * chunks_per_split * kQmmChunk * 2;
+  if (x_bytes > kGemvXBytes || (M + TM - 1) / TM > 65535 || split > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = gemv_attributes<TM, F>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + kGemvBN - 1) / kGemvBN, (M + TM - 1) / TM, split);
+  qmm_kernel<TM, F><<<grid, kGemvThreads, gemv_smem_bytes<F>(x_bytes), stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), static_cast<int*>(counters), M, K, N, chunks_per_split);
+  return (int)cudaGetLastError();
+}
+
+// the tm values match ops/kernels/qmm.py GEMV_TMS
 template <int F>
 int launch(const void* x, const void* codes, const void* qh, const void* scale,
-           const void* minus, void* out, void* partial, int M, int K, int N, int tm,
-           int split, int chunks_per_split, cudaStream_t stream) {
-  const dim3 grid = qmm_grid(N, (M + tm - 1) / tm, split);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* cb = static_cast<const uint8_t*>(codes);
-  const auto* hb = static_cast<const uint8_t*>(qh);
-  const auto* sb = static_cast<const __nv_bfloat16*>(scale);
-  const auto* mb = static_cast<const __nv_bfloat16*>(minus);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  auto* pb = static_cast<float*>(partial);
+           const void* minus, void* out, void* partial, void* counters, int M, int K, int N,
+           int tm, int split, int chunks_per_split, cudaStream_t stream) {
   switch (tm) {
-    case 1: qmm_kernel<1, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    case 2: qmm_kernel<2, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    case 4: qmm_kernel<4, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    case 8: qmm_kernel<8, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
+#define TPULLM_GEMV_CASE(TM)                                                                \
+    case TM: return launch_gemv<TM, F>(x, codes, qh, scale, minus, out, partial, counters, \
+                                       M, K, N, split, chunks_per_split, stream);
+    TPULLM_GEMV_CASE(1) TPULLM_GEMV_CASE(2) TPULLM_GEMV_CASE(4) TPULLM_GEMV_CASE(8)
+#undef TPULLM_GEMV_CASE
     default: return (int)cudaErrorInvalidValue;
   }
-  return finish(pb, ob, M, N, split, stream);
 }
 
 // grid (M tiles, N tiles, split): the blocks of one weight stripe run
@@ -275,19 +300,21 @@ int launch_grouped(const void* x, const void* codes, const void* qh, const void*
 
 }  // namespace
 
-// The CUDA-core kernel (M < 16), tm in {1, 2, 4, 8}.
+// The CUDA-core kernel (M < 16), tm in {1, 2, 4, 8}; one launch a call.
 // fmt: a tpullm::QmmFmt of this library's family (else cudaErrorInvalidValue).
 // qh is read only by the formats with a qh plane, minus only by those with a
-// minus plane; the others may be null.
+// minus plane; the others may be null. With split > 1: partial f32
+// [split, M, N] and counters int32 [⌈M/tm⌉ · ⌈N/128⌉], zero before the
+// launch and left zero after it (calls on one stream).
 extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void* qh,
                           const void* scale, const void* minus, void* out, void* partial,
-                          int M, int K, int N, int tm, int split, int chunks_per_split,
-                          void* stream_ptr) {
+                          void* counters, int M, int K, int N, int tm, int split,
+                          int chunks_per_split, void* stream_ptr) {
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+    case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

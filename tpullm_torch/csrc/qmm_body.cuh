@@ -1,7 +1,7 @@
-// The dequantize×matmul device body on CUDA cores, shared by the qmm kernels
-// below 16 rows of x (qmm.cu: one weight; qmm_moe.cu: expert gathers), and
-// the plane formats' traits that the tensor-core body (qmm_tc.cuh) decodes
-// through too.
+// The dequantize×matmul device body on CUDA cores of the expert gather
+// (qmm_moe.cu qmm_gather_kernel), and the plane formats' traits that the
+// gemv body of the 2-D qmm below 16 rows (qmm_gemv.cuh) and the tensor-core
+// body (qmm_tc.cuh) decode through too.
 //
 // It is the arithmetic of tpullm/ops/pallas/qmm.py::_acc_tile. For rows
 // m0 .. m0+TM-1 of x [M, K] and 512 output columns it computes

@@ -8,6 +8,14 @@ TPULLM_QMM_FORMATS), so their many instantiations compile in parallel. The
 digest covers the sources and flags, so an edited kernel rebuilds and a stale
 library is never loaded. The build runs at first use; `build()` starts one
 nvcc per library, all at once.
+
+`counters` is the int32 buffer, one per stream, by which the last block of
+a group of blocks that split one output (qmm's K split at M < 16, flash's
+key splits at decode) finds itself; each such block resets its counter, so
+the buffer is all zero between launches on its stream. Launches on two
+streams at once each get their own buffer. A kernel that faults part way
+leaves counts behind, but a fault on the card is sticky: the CUDA context
+refuses every later launch, so no call reads a stale count.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpullm_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 QMM_FAMILIES = 13  # format families of csrc/qmm_body.cuh
+COUNTERS = 1 << 16  # int32 entries of a stream's counter buffer
 
 # library name → (source in csrc/, its own nvcc flags)
 LIBRARIES = {f"{src}{f}": (f"{src}.cu", (f"-DTPULLM_QMM_FAMILY={f}",))
@@ -110,6 +119,36 @@ def bind(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+_COUNTER_BUFFERS: dict = {}  # (device, stream handle) → int32 [COUNTERS]
+
+
+@functools.cache
+def n_sm(device) -> int:
+    """The streaming multiprocessors of CUDA `device`."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def counters(device, stream: int, n: int):
+    """The zeroed int32 counter buffer of CUDA stream `stream` (its handle)
+    on `device`, made at the stream's first launch, which holds the n
+    counters of one launch. A CUDA graph captures the buffer of its capture
+    stream: launch on that stream once before capturing."""
+    if n > COUNTERS:
+        raise ValueError(f"a launch needs {n} counters, the buffer holds {COUNTERS}")
+    buf = _COUNTER_BUFFERS.get((device, stream))
+    if buf is None:
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the counter buffer of a stream is made outside graph "
+                               "capture: launch on the capture stream once before capturing")
+        buf = _COUNTER_BUFFERS[(device, stream)] = torch.zeros(COUNTERS, dtype=torch.int32,
+                                                               device=device)
+    return buf
 
 
 def check(rc: int, what: str) -> None:

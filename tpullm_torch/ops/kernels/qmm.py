@@ -6,10 +6,12 @@ plain versions.
   ops/qmatmul.py: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, MXFP4, IQ4_NL, Q2_K, Q3_K,
   Q4_K, Q5_K, Q6_K (wide `qw`), IQ4_XS and the codebook types IQ2_XXS,
   IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, TQ1_0, TQ2_0. Source:
-  tpullm_torch/csrc/qmm.cu, in two regimes of M (`plan`): below TC_MIN_M
-  rows (decode, the prefill bucket of 8) the CUDA-core kernel, counted in
-  LAUNCHES; from TC_MIN_M rows (prefill) the tensor-core kernel
-  (csrc/qmm_tc.cuh), counted in TC_LAUNCHES.
+  tpullm_torch/csrc/qmm.cu, in two regimes of M: below TC_MIN_M
+  rows (decode, the prefill bucket of 8) the CUDA-core kernel
+  (csrc/qmm_gemv.cuh, `gemv_plan`), one launch a call, its K split summed by the last
+  block of each column tile, counted in LAUNCHES; from TC_MIN_M rows
+  (prefill) the tensor-core kernel (csrc/qmm_tc.cuh, `plan`), counted in
+  TC_LAUNCHES.
 - `qmm_grouped` replaces the group-factored body _kernel of the same
   pallas_call, which _qmm_2d picks for the types of its GROUPED_TYPES: the
   scale is applied once per group to Σ x·value instead of to every weight.
@@ -88,19 +90,26 @@ GROUPED_LAUNCHES = {t.name: 0 for t in _FMT}
 DEQUANT_ROUTES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_GROUPED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _TC_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
 _GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
-_BLOCK_N = 512  # output columns per CUDA-core block, csrc/qmm_body.cuh kQmmBlockN
+_BLOCK_N = 512  # output columns per block of qmm_grouped and qmm_gather, kQmmBlockN
+GEMV_BLOCK_N = 128  # output columns per block of qmm below TC_MIN_M, csrc/qmm_gemv.cuh kGemvBN
+GEMV_X_BYTES = 32768  # x of a block's K range in shared memory at most (kGemvXBytes)
+GEMV_TMS = (1, 2, 4, 8)  # rows of x a block of qmm below TC_MIN_M (csrc/qmm.cu launch)
+GEMV_WAVE_BLOCKS = 2  # blocks an SM that every format's gemv block fits at any TM
 TC_MIN_M = 16  # rows of x from which qmm runs on the tensor cores
 TC_TILE = 128  # rows and columns of a tensor-core block (csrc/qmm_tc.cuh kTcBM, kTcBN)
 TC_BLOCKS = 2  # tensor-core blocks an SM holds (csrc/qmm_tc.cuh kTcBlocksPerSm)
-# the rows per block of qmm: CUDA-core TM values (csrc/qmm.cu qmm_kernel) and
-# the tensor-core tile; of qmm_grouped (CUDA cores only); of qmm_stack
-_TMS = (1, 2, 4, 8, TC_TILE)
+# the rows per block that `plan` chooses from: qmm from TC_MIN_M rows (the
+# tensor-core tile; below it `gemv_plan`), qmm_grouped and qmm_gather (CUDA
+# cores), qmm_stack (the tensor-core tile)
+_TMS = (TC_TILE,)
 _GROUPED_TMS = (1, 16)
+_GATHER_TMS = (1,)
 _STACK_TMS = (TC_TILE,)
 
 
@@ -203,25 +212,55 @@ def qmm_gather_reference(x: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def gemv_plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, chunks per split) of qmm below TC_MIN_M
+    rows: the least of GEMV_TMS that covers M (else the largest), 128
+    columns a block. The output tiles set the split, against the wave of
+    GEMV_WAVE_BLOCKS blocks an SM that every format's block fits:
+    - at most half a wave: K is split into as many splits as keep every
+      block in that one wave (a wave and a few blocks more left most SMs
+      idle for a whole block's time on the card);
+    - between half a wave and a wave: one wave would leave some SMs with one
+      block and others with two, so K is split into short blocks of about
+      an eighth of an SM's share, which the card spreads evenly over
+      several waves;
+    - a wave or more: no split.
+    Each split's x stays within GEMV_X_BYTES. The splits of a column tile
+    are summed by its last block through one entry a tile of the counter
+    buffer (`_build.counters`, which checks that the tiles fit)."""
+    n_chunks = K // _CHUNK
+    tm = next((t for t in GEMV_TMS if t >= M), GEMV_TMS[-1])
+    tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
+    wave = GEMV_WAVE_BLOCKS * n_sm
+    if 2 * tiles <= wave:
+        per = -(-n_chunks // max(1, min(n_chunks, wave // tiles)))
+    elif tiles < wave:
+        per = max(1, round(tiles * n_chunks / n_sm / 8))
+    else:
+        per = n_chunks
+    per = min(per, GEMV_X_BYTES // (tm * _CHUNK * 2))
+    return tm, -(-n_chunks // per), per
+
+
 def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
          tms: tuple[int, ...] = _TMS) -> tuple[int, int, int]:
     """(rows per block, K splits, chunks per split) for `batches` [M, K] ×
     [K, N] products, by the kernel's row counts `tms`.
 
-    The tensor-core regime (rows per block TC_TILE) when `tms` holds
-    TC_TILE and M >= TC_MIN_M, or holds nothing else: TC_TILE × TC_TILE
-    output tiles, TC_BLOCKS blocks an SM; K is split only when the tiles
-    are fewer than the blocks one wave holds, into as many splits as it
-    holds. Otherwise the CUDA-core regime: the least of the other row
-    counts that covers M (else the largest), 512 columns a block, and
-    enough blocks to cover the card about four times over."""
+    The tensor-core regime (qmm from TC_MIN_M rows, qmm_stack: `tms` is
+    (TC_TILE,)): TC_TILE × TC_TILE output tiles, TC_BLOCKS blocks an SM; K
+    is split only when the tiles are fewer than the blocks one wave holds,
+    into as many splits as it holds. Otherwise (qmm_grouped, qmm_gather)
+    the CUDA-core regime of qmm_body.cuh: the least of the row counts that
+    covers M (else the largest), 512 columns a block, and enough blocks to
+    cover the card about four times over. qmm below TC_MIN_M rows plans
+    with `gemv_plan`."""
     n_chunks = K // _CHUNK
-    cc = [t for t in tms if t != TC_TILE]
-    if TC_TILE in tms and (M >= TC_MIN_M or not cc):
+    if TC_TILE in tms:
         tiles = -(-M // TC_TILE) * -(-N // TC_TILE) * batches
         per = -(-n_chunks // max(1, min(n_chunks, n_sm * TC_BLOCKS // tiles)))
         return TC_TILE, -(-n_chunks // per), per
-    tm = next((t for t in cc if t >= M), cc[-1])
+    tm = next((t for t in tms if t >= M), tms[-1])
     blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
     split = max(1, min(n_chunks, -(-4 * n_sm // blocks)))
     per = -(-n_chunks // split)
@@ -267,28 +306,30 @@ def _ptr(t) -> int | None:
 def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
         n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel of
-    M's regime (`plan`): the tensor-core kernel from TC_MIN_M rows, else
-    the CUDA-core one."""
+    M's regime: the tensor-core kernel (`plan`) from TC_MIN_M rows, else
+    the CUDA-core one (`gemv_plan`)."""
     _ported(gtype, "qmm")
     ops = _check(x, planes, gtype, n_in, n_out, (), "qmm")
     if x.dim() != 2:
         raise ValueError("qmm: x must be [M, K]")
     M, K, N = x.shape[0], n_in, n_out
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tm, split, per = plan(M, K, N, n_sm)
+    n_sm = _build.n_sm(x.device)
+    tm, split, per = plan(M, K, N, n_sm) if M >= TC_MIN_M else gemv_plan(M, K, N, n_sm)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((split, M, N), dtype=torch.float32,
+                          device=x.device) if split > 1 else None
     lib, stream = f"qmm{_FAMILY[gtype]}", torch.cuda.current_stream(x.device).cuda_stream
-    args = (_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), partial.data_ptr(),
-            M, K, N)
-    if tm == TC_TILE:
+    args = (_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), _ptr(partial))
+    if M >= TC_MIN_M:
         fn = _build.bind(lib, "tpullm_qmm_tc", _TC_ARGS)
-        _build.check(fn(*args, split, per, stream), f"qmm tensor-core {gtype.name}")
+        _build.check(fn(*args, M, K, N, split, per, stream), f"qmm tensor-core {gtype.name}")
         TC_LAUNCHES[gtype.name] += 1
     else:
+        tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
+        counters = _build.counters(x.device, stream, tiles) if split > 1 else None
         fn = _build.bind(lib, "tpullm_qmm", _QMM_ARGS)
-        _build.check(fn(*args, tm, split, per, stream), f"qmm {gtype.name}")
+        _build.check(fn(*args, _ptr(counters), M, K, N, tm, split, per, stream),
+                     f"qmm {gtype.name}")
         LAUNCHES[gtype.name] += 1
     return out
 
@@ -302,12 +343,11 @@ def qmm_grouped(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLTyp
     if x.dim() != 2:
         raise ValueError("qmm_grouped: x must be [M, K]")
     M, K, N = x.shape[0], n_in, n_out
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tm, split, per = plan(M, K, N, n_sm, tms=_GROUPED_TMS)
+    tm, split, per = plan(M, K, N, _build.n_sm(x.device), tms=_GROUPED_TMS)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
                           device=x.device)
-    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _QMM_ARGS)
+    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _GROUPED_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
                     partial.data_ptr(), M, K, N, tm, split, per, stream),
@@ -326,8 +366,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != E):
         raise ValueError(f"qmm_stack: x must be [M, K] or [{E}, M, K], got {tuple(x.shape)}")
     M, K, N = x.shape[-2], n_in, n_out
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    _, split, per = plan(M, K, N, n_sm, batches=E, tms=_STACK_TMS)
+    _, split, per = plan(M, K, N, _build.n_sm(x.device), batches=E, tms=_STACK_TMS)
     out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, E * M, N), dtype=torch.float32,
                           device=x.device)
@@ -355,8 +394,7 @@ def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tenso
         raise ValueError("qmm_gather: x must be [T, K] and ids a contiguous int32 [T] "
                          "on the same device")
     K, N = n_in, n_out
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    _, split, per = plan(1, K, N, n_sm, batches=T, tms=(1,))
+    _, split, per = plan(1, K, N, _build.n_sm(x.device), batches=T, tms=_GATHER_TMS)
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, T, N), dtype=torch.float32,
                           device=x.device)
