@@ -17,11 +17,13 @@ Phases, in order; any failure raises and exits nonzero:
     the CUDA-core kernel timed on the same planes; Q4_K and Q6_K also at
     the other Llama-3-8B shapes and Q5_K and Q8_0 at Mixtral's attention
     shapes, M = 1; qmm_grouped, the
-    group-factored kernel: all 22 formats at the 8B gate_up, M in {1, 512},
+    group-factored kernel: all 22 formats at the 8B gate_up, M in {1, 8,
+    512} (below 16 rows on the gemv body, from 16 on the 16-row kernel),
     timed beside qmm on the same planes; qmm_stack and qmm_gather: all 22
     formats as expert stacks at Mixtral's 4096→14336 and 14336→4096, stack
     M = 512 with a shared x (and, for Q4_K and Q6_K, a per-expert x), gather
-    T in {2, 32}; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8
+    T in {2, 32} and T = 32 with every slot on one expert, and ids outside
+    the stack giving NaN rows; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8
     (T = 1 the split-KV decode regime, T = 512 the tensor-core prefill
     regime, each also against the plain version of its own order, and the
     prefill's p rounding, one bf16 term and two, measured on its plain
@@ -77,6 +79,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+
+# the port's kernels that sum a split K in a second launch; a decode runs
+# none of them (qmm and qmm_grouped below 16 rows and qmm_gather sum theirs
+# in the same launch)
+REDUCTION_KERNELS = ("qmm_reduce_kernel", "qmm_stack_reduce_kernel", "qmm_gather_reduce_kernel")
 
 # NMSE bounds of the JAX package's on-chip conformance sweep
 QMM_NMSE_BOUND = 5e-4
@@ -388,8 +395,9 @@ def phase_qmm(dev, results: dict):
 
 def phase_grouped(dev, results: dict):
     """qmm_grouped, the group-factored kernel, for every format at the 8B
-    gate_up, against its plain version (qmm_grouped_reference), timed beside
-    qmm (the materializing kernel) on the same planes."""
+    gate_up, M in {1, 8} (the gemv body) and 512 (the 16-row kernel),
+    against its plain version (qmm_grouped_reference), timed beside qmm
+    (the materializing kernel) on the same planes."""
     import torch
 
     from tpullm_torch.gguf.constants import GGMLType
@@ -403,7 +411,7 @@ def phase_grouped(dev, results: dict):
         planes = _random_planes(gtype, N, K, gen, dev)
         plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
         w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
-        for M in (1, 512):
+        for M in (1, 8, 512):
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
             got = qmm.qmm_grouped(x, planes, gtype, N, K)
             ref = qmm.qmm_grouped_reference(x, planes, gtype, N, K)
@@ -413,7 +421,7 @@ def phase_grouped(dev, results: dict):
             label = f"{gtype.name} {name} M={M}"
             expect(bool(torch.isfinite(got.float()).all()), f"grouped {label} finite")
             expect(err <= QMM_NMSE_BOUND, f"grouped {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
-            iters = 20 if M == 1 else 5
+            iters = 20 if M < qmm.TC_MIN_M else 5
             ms = time_ms(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), iters)
             mat = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
             plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2, 1,
@@ -472,16 +480,19 @@ def phase_moe_kernels(dev, results: dict):
                               lambda x=x: torch.matmul(x, w_lib),
                               x.numel() * 2 + N_EXPERT * expert_bytes + N_EXPERT * M * N * 2,
                               2.0 * N_EXPERT * M * K * N, 3))
-            for T in (2, 32):
+            for T, one in ((2, False), (32, False), (32, True)):
                 x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
                 if T == 2:  # one decode token: its top-2, two distinct experts
                     ids = torch.randperm(N_EXPERT, generator=gen, device=dev)[:2].int()
+                elif one:  # every slot on one expert: row tiles of 8 of one expert
+                    ids = torch.full((T,), 5, device=dev, dtype=torch.int32)
                 else:  # the 16-token bucket's slots, with a repeated expert
                     ids = torch.randint(0, N_EXPERT, (T,), generator=gen, device=dev,
                                         dtype=torch.int32)
                     ids[-1] = ids[0]
                 n_unique = int(torch.unique(ids).numel())  # the experts this run reads
-                cases.append(("qmm_gather", f"{gtype.name} {name} T={T}",
+                cases.append(("qmm_gather", f"{gtype.name} {name} T={T}"
+                              f"{' one expert' if one else ''}",
                               lambda x=x, ids=ids: qmm.qmm_gather(x, ids, planes, gtype, N, K),
                               lambda x=x, ids=ids: qmm.qmm_gather_reference(x, ids, planes,
                                                                             gtype, N, K),
@@ -489,6 +500,19 @@ def phase_moe_kernels(dev, results: dict):
                                                              w_lib[ids.long()])[:, 0],
                               x.numel() * 2 + T * 4 + n_unique * expert_bytes + T * N * 2,
                               2.0 * T * K * N, 20 if T == 2 else 5))
+            # ids outside 0..E-1 give NaN rows, the others their expert's product
+            x = torch.randn(4, K, generator=gen, device=dev).to(torch.bfloat16)
+            ids = torch.tensor([3, N_EXPERT, -1, 3], device=dev, dtype=torch.int32)
+            got = qmm.qmm_gather(x, ids, planes, gtype, N, K)
+            ref = qmm.qmm_gather_reference(x[[0, 3]], ids[[0, 3]], planes, gtype, N, K)
+            torch.cuda.synchronize()
+            err = nmse(got[[0, 3]].float(), ref.float())
+            expect(bool(torch.isnan(got[[1, 2]].float()).all()),
+                   f"qmm_gather {gtype.name} {name}: NaN rows for ids outside the stack")
+            expect(err <= QMM_NMSE_BOUND, f"qmm_gather {gtype.name} {name} beside invalid ids: "
+                   f"NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+            log(f"[moe] qmm_gather {gtype.name} {name} ids {ids.tolist()}: NaN rows 1, 2; "
+                f"rows 0, 3 nmse {err:.2e}")
             for key, label, kernel, plain, library, n_bytes, flops, iters in cases:
                 got, ref = kernel(), plain()
                 torch.cuda.synchronize()
@@ -798,8 +822,9 @@ def phase_tiny(dev, tmp: Path):
 def profile_decode(eng, ids, steps: int = 16) -> dict:
     """Device time of `steps` decode steps by kernel family, from
     torch.profiler (the steps read their logits back, as decode_step does),
-    and the launches of the 2-D qmm's reduction kernel among them (0: qmm
-    below 16 rows sums its K split in its own launch)."""
+    and the launches of each of the port's reduction kernels
+    (REDUCTION_KERNELS) among them: 0, as every kernel a decode runs sums
+    its K split in its own launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -810,7 +835,7 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
             tok = int(np.argmax(eng.decode_step(tok)))
         torch.cuda.synchronize()
     fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
-    top, reduce_launches = [], 0
+    top, reduce_launches = [], dict.fromkeys(REDUCTION_KERNELS, 0)
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us <= 0.0:
@@ -819,10 +844,11 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
                     "flash" if "flash_" in e.key else "other")
         fam[kind] += us
         top.append((us, e.key, e.count))
-        if "qmm_reduce_kernel" in e.key:
-            reduce_launches += e.count
+        for name in REDUCTION_KERNELS:  # no name is part of another
+            if name in e.key:
+                reduce_launches[name] += e.count
     top.sort(reverse=True)
-    return {"steps": steps, "qmm_reduce_launches": reduce_launches,
+    return {"steps": steps, "reduce_launches": reduce_launches,
             "device_ms_per_token": {k: v / 1e3 / steps for k, v in fam.items()},
             "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
 
@@ -940,19 +966,15 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
     prof = profile_decode(eng, prompts[0])
     count(len(prompts[0]), prof["steps"])
-    from tpullm_torch.ops.kernels import qmm
-
-    # qmm_grouped (a run that lists types in GROUPED_TYPES) keeps its own
-    # reduction pass; qmm below 16 rows has none
-    expect(prof["qmm_reduce_launches"] == 0 or qmm.GROUPED_TYPES,
-           f"{label}: no qmm reduction kernel in the decode profile "
-           f"({prof['qmm_reduce_launches']} launched)")
+    expect(sum(prof["reduce_launches"].values()) == 0,
+           f"{label}: no reduction kernel in the decode profile ({prof['reduce_launches']})")
     busy = sum(prof["device_ms_per_token"].values())
     wall = 1e3 / float(np.median([p["decode_tok_s"] for p in per_prompt]))
     log(f"[{label}] kv={kv_name} profile: device ms per decode token "
         f"{ {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } = "
         f"{busy:.3f} ms busy of {wall:.3f} ms per token unprofiled (median rate) "
-        f"(idle share {1 - busy / wall:.3f}); top {prof['top']}"
+        f"(idle share {1 - busy / wall:.3f}); reduction launches {prof['reduce_launches']}; "
+        f"top {prof['top']}"
         if busy > 0 else f"[{label}] kv={kv_name} profile: no device time recorded "
         "(device busy share not measured)")
     prefill_prof = None
@@ -987,6 +1009,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
                launches=got, forwards=len(rows),
                prefill_forwards={r: rows.count(r) for r in sorted(set(rows)) if r > 1},
                device_ms_per_token=prof["device_ms_per_token"],
+               decode_reduce_launches=prof["reduce_launches"],
                idle_share=(1 - busy / wall) if busy > 0 else None, prefill_profile=prefill_prof)
     if not short:
         run["pp512_tok_s"] = 512 / per_prompt[2]["ttft_s"]
@@ -1223,6 +1246,18 @@ def main() -> int:
             library_ms=rep["library_ms"])
         if key == "qmm_grouped":
             entry["qmm_ms_same_planes"] = rep["qmm_ms"]
+            for r in rows:  # the gemv body at M = 8, the 16-row kernel at 512
+                if r["case"].startswith("Q4_K") and r["case"] != rep["case"]:
+                    m = r["case"].split("M=")[1]
+                    entry.update({f"m{m}_ms": r["ms"], f"m{m}_qmm_ms": r["qmm_ms"],
+                                  f"m{m}_bound_ms": r["bound_ms"],
+                                  f"m{m}_library_ms": r["library_ms"]})
+        if key == "qmm_gather":
+            for r in rows:
+                if r["case"].startswith("Q4_K gate T=32"):
+                    tag = "t32_one_expert" if "one expert" in r["case"] else "t32"
+                    entry.update({f"{tag}_ms": r["ms"], f"{tag}_bound_ms": r["bound_ms"],
+                                  f"{tag}_library_ms": r["library_ms"]})
         if key == "qmm_tc":
             entry["cuda_core_ms_same_planes"] = rep["cuda_core_ms"]
             entry["formats_held"] = sorted({r["case"].split()[0] for r in rows})

@@ -145,8 +145,8 @@ def test_qmm_stack_kernel_matches_plain(dev, name, batched, M, K, N):
 
 
 @pytest.mark.parametrize("name", FORMATS)
-@pytest.mark.parametrize("T,K,N", [(2, 512, 768), (2, 1536, 256), (9, 512, 1028),
-                                   (32, 768, 512)])
+@pytest.mark.parametrize("T,K,N", [(1, 512, 768), (2, 512, 768), (2, 1536, 256), (9, 512, 1028),
+                                   (16, 1024, 1024), (32, 768, 512)])
 def test_qmm_gather_kernel_matches_plain(dev, name, T, K, N):
     E = 8
     stack = _stack(name, E, N, K, dev, seed=T)
@@ -163,6 +163,28 @@ def test_qmm_gather_kernel_matches_plain(dev, name, T, K, N):
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
 
 
+@pytest.mark.parametrize("name", ["Q4_K", "Q6_K", "IQ2_XXS", "MXFP4"])
+@pytest.mark.parametrize("T,E", [(40, 8), (3, 40), (150, 4)])
+def test_qmm_gather_beyond_32_slots_or_experts(dev, name, T, E):
+    """More than 32 slots or experts: the blocks find their expert through
+    the bit set in shared memory (not by warp votes), and past 128 slots
+    collect them in rounds; ids outside the stack give NaN rows. K = 1024
+    in 1 and 4 splits."""
+    K, N = 1024, 260
+    stack = _stack(name, E, N, K, dev, seed=T + E)
+    g = torch.Generator(dev).manual_seed(T + E)
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+    ids[1], ids[-1] = E + 2, -3
+    valid = (ids >= 0) & (ids < E)
+    ref = qmm.qmm_gather_reference(x[valid], ids[valid], stack.planes, stack.gtype, N, K)
+    for split in (1, 4):
+        got = _gather(x, ids, stack, N, K, split)
+        torch.cuda.synchronize()
+        assert torch.isnan(got[~valid].float()).all(), split
+        assert _nmse(got[valid].float(), ref.float()) <= QMM_NMSE_BOUND, split
+
+
 def test_qmm_gather_kernel_gives_nan_rows_for_ids_outside_the_stack(dev):
     stack = _stack("Q4_K", 4, 512, 512, dev, seed=1)
     x = torch.randn(3, 512, device=dev).to(torch.bfloat16)
@@ -172,8 +194,64 @@ def test_qmm_gather_kernel_gives_nan_rows_for_ids_outside_the_stack(dev):
     assert torch.isnan(got[1].float()).all() and torch.isfinite(got[[0, 2]].float()).all()
 
 
-def _gemv(x, planes, name, N, K, tm, split):
-    """qmm's CUDA-core kernel at a chosen split (chunks spread evenly)."""
+def _gather(x, ids, stack, N, K, split):
+    """qmm_gather's kernel at a chosen split (chunks spread evenly), the x
+    rows of its plan."""
+    from tpullm_torch.ops.kernels import _build
+
+    gtype, planes = stack.gtype, stack.planes
+    (T, _), E, n_chunks = x.shape, planes["scale"].shape[0], K // 256
+    tm = qmm.gather_plan(T, E, K, N, 132)[0]
+    per = -(-n_chunks // split)
+    split = -(-n_chunks // per)
+    out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((split, T, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = _build.counters(x.device, stream, -(-N // qmm.GEMV_BLOCK_N) * min(T, E))
+    ops = [planes[qmm._code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
+    fn = _build.bind(f"qmm_moe{qmm._FAMILY[gtype]}", "tpullm_qmm_gather", qmm._GATHER_ARGS)
+    _build.check(fn(qmm._FMT[gtype], x.data_ptr(), ids.data_ptr(),
+                    *[None if t is None else t.data_ptr() for t in ops], out.data_ptr(),
+                    partial.data_ptr(), counters.data_ptr(), T, K, N, E, tm, split, per, stream),
+                 "qmm_gather")
+    return out
+
+
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("T", [1, 2, 16, 32])
+def test_qmm_gather_at_every_split(dev, name, T):
+    """The gather kernel at T slots over 8 experts of K = 1024 (4 chunks),
+    N = 1028 (a partial column tile, 4-byte copies), for each split count
+    1 .. 4 (the last block of each expert's column tile sums them): ids
+    with a repeated expert, every slot on one expert (rows tiles of up to 8
+    of one expert), and ids outside the stack (NaN rows); each against the
+    plain version, and a launch repeated back to back bit-identical."""
+    E, K, N = 8, 1024, 1028
+    stack = _stack(name, E, N, K, dev, seed=T)
+    g = torch.Generator(dev).manual_seed(T)
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    mixed = torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+    mixed[-1] = mixed[0]
+    invalid = mixed.clone()
+    invalid[0], invalid[T // 2] = E, -1
+    for label, ids in (("mixed", mixed), ("one expert", torch.full_like(mixed, 5)),
+                       ("invalid", invalid)):
+        valid = (ids >= 0) & (ids < E)  # T = 1 with invalid ids: none
+        ref = qmm.qmm_gather_reference(x[valid], ids[valid], stack.planes, stack.gtype, N, K)
+        for split in range(1, K // 256 + 1):
+            a = _gather(x, ids, stack, N, K, split)
+            b = _gather(x, ids, stack, N, K, split)
+            torch.cuda.synchronize()
+            assert torch.isnan(a[~valid].float()).all(), (label, split)
+            assert torch.isfinite(a[valid].float()).all(), (label, split)
+            if valid.any():
+                assert _nmse(a[valid].float(), ref.float()) <= QMM_NMSE_BOUND, (label, split)
+            assert torch.equal(a[valid], b[valid]), (label, split)
+
+
+def _gemv(x, planes, name, N, K, tm, split, grouped=False):
+    """qmm's CUDA-core kernel (or the group-factored one below 16 rows) at
+    a chosen split (chunks spread evenly)."""
     from tpullm_torch.ops.kernels import _build
 
     gtype = GGMLType[name]
@@ -184,7 +262,8 @@ def _gemv(x, planes, name, N, K, tm, split):
     partial = torch.empty((split, M, N), dtype=torch.float32, device=x.device)
     tiles = -(-N // qmm.GEMV_BLOCK_N) * -(-M // tm)
     ops = [planes[qmm._code_plane(gtype)], planes.get("qh"), planes["scale"], planes.get("minus")]
-    fn = _build.bind(f"qmm{qmm._FAMILY[gtype]}", "tpullm_qmm", qmm._QMM_ARGS)
+    fn = _build.bind(f"qmm{qmm._FAMILY[gtype]}", "tpullm_qmm_grouped" if grouped else
+                     "tpullm_qmm", qmm._QMM_ARGS)
     _build.check(fn(qmm._FMT[gtype], x.data_ptr(), *[None if t is None else t.data_ptr()
                                                      for t in ops],
                     out.data_ptr(), partial.data_ptr(),
@@ -216,13 +295,96 @@ def test_qmm_gemv_at_every_split(dev, name, M):
             assert torch.equal(a, b), (K, N, split)
 
 
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 15])
+def test_qmm_grouped_below_16_rows_at_every_split(dev, name, M):
+    """The group-factored kernel below 16 rows (the gemv body, TM of
+    gemv_plan: M = 15 is two row tiles of 8) for every split count 1 .. 4
+    of K = 1024, N = 1028 and N = 512, against qmm_grouped_reference; a
+    launch repeated back to back bit-identical."""
+    for K, N in ((1024, 1028), (1024, 512)):
+        planes = _planes(name, N, K, dev, seed=M + N + 1)
+        x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+        x = x.to(torch.bfloat16)
+        ref = qmm.qmm_grouped_reference(x, planes, GGMLType[name], N, K)
+        tm = qmm.gemv_plan(M, K, N, 132)[0]
+        for split in range(1, K // 256 + 1):
+            a = _gemv(x, planes, name, N, K, tm, split, grouped=True)
+            b = _gemv(x, planes, name, N, K, tm, split, grouped=True)
+            torch.cuda.synchronize()
+            assert torch.isfinite(a.float()).all()
+            assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND, (K, N, split)
+            assert torch.equal(a, b), (K, N, split)
+
+
+def _kernel_names(fn, calls: int = 3) -> list[str]:
+    """The qmm kernels that `calls` calls of fn launch, by the profiler's
+    names, each with its launch count. The calls are profiled in the active
+    step of a schedule after a warm-up step of the same calls (a profile
+    that starts with them can miss their first kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names: list[str] = []
+
+    def ready(prof):
+        names.extend(f"{e.key} ×{e.count}" for e in prof.key_averages()
+                     if "qmm" in e.key and getattr(e, "self_device_time_total", 0) > 0)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return names
+
+
+@pytest.mark.parametrize("T", [2, 32])
+def test_qmm_gather_is_one_launch(dev, T):
+    """A gather whose plan splits K (Mixtral's down, 14336 → 4096) launches
+    one kernel, qmm_gather_kernel (no reduction kernel)."""
+    K, N, E = 14336, 4096, 8
+    stack = _stack("Q4_K", E, N, K, dev, seed=T)
+    g = torch.Generator(dev).manual_seed(T)
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert qmm.gather_plan(T, E, K, N, n_sm)[1] > 1
+    a = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    kernels = _kernel_names(lambda: qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K))
+    assert len(kernels) == 1 and "qmm_gather_kernel" in kernels[0], kernels
+    assert kernels[0].endswith(" ×3"), kernels
+    ref = qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, N, K)
+    assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_qmm_grouped_below_16_rows_is_one_launch(dev, M):
+    """A group-factored call below 16 rows whose plan splits K launches one
+    kernel, qmm_grouped_gemv_kernel (no reduction kernel)."""
+    K, N = 14336, 4096
+    planes = _planes("Q6_K", N, K, dev, seed=M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert qmm.gemv_plan(M, K, N, n_sm)[1] > 1
+    a = qmm.qmm_grouped(x, planes, GGMLType.Q6_K, N, K)
+    torch.cuda.synchronize()
+    kernels = _kernel_names(lambda: qmm.qmm_grouped(x, planes, GGMLType.Q6_K, N, K))
+    assert len(kernels) == 1 and "qmm_grouped_gemv_kernel" in kernels[0], kernels
+    assert kernels[0].endswith(" ×3"), kernels
+    ref = qmm.qmm_grouped_reference(x, planes, GGMLType.Q6_K, N, K)
+    assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
 @pytest.mark.parametrize("M", [1, 8])
 def test_qmm_below_16_rows_is_one_launch(dev, M):
     """A qmm call below 16 rows whose plan splits K launches one kernel (no
     reduction kernel), and two calls back to back on one stream agree bit
     for bit."""
-    from torch.profiler import ProfilerActivity, profile
-
     K, N = 14336, 4096  # the 8B down: split many ways
     planes = _planes("Q4_K", N, K, dev, seed=5)
     x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(5), device=dev)
@@ -231,30 +393,34 @@ def test_qmm_below_16_rows_is_one_launch(dev, M):
     assert qmm.gemv_plan(M, K, N, n_sm)[1] > 1
     a = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        b = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
-        torch.cuda.synchronize()
-    kernels = [e.key for e in prof.key_averages()
-               if "qmm" in e.key and getattr(e, "self_device_time_total", 0) > 0]
+    kernels = _kernel_names(lambda: qmm.qmm(x, planes, GGMLType.Q4_K, N, K))
     assert len(kernels) == 1 and "qmm_kernel" in kernels[0], kernels
+    assert kernels[0].endswith(" ×3"), kernels
+    b = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
+    torch.cuda.synchronize()
     assert torch.equal(a, b)
     ref = qmm.qmm_reference(x, planes, GGMLType.Q4_K, N, K)
     assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
 
 
 def test_split_outputs_on_two_streams_at_once(dev):
-    """qmm's K split and flash's key splits find their last block through a
-    counter buffer of the launch's stream: calls on two streams at once
-    each get their own buffer and give the one-stream results bit for bit."""
+    """The K splits of qmm, qmm_grouped (below 16 rows) and qmm_gather and
+    flash's key splits find their last block through a counter buffer of
+    the launch's stream: calls on two streams at once each get their own
+    buffer and give the one-stream results bit for bit."""
     from tpullm_torch.ops.kernels import _build
 
     K, N = 14336, 4096
     planes = _planes("Q4_K", N, K, dev, seed=6)
-    x = torch.randn(1, K, generator=torch.Generator(dev).manual_seed(6), device=dev)
+    stack = _stack("Q4_K", 8, N, K, dev, seed=6)
+    x = torch.randn(2, K, generator=torch.Generator(dev).manual_seed(6), device=dev)
     x = x.to(torch.bfloat16)
+    ids = torch.tensor([5, 2], dtype=torch.int32, device=dev)
     attend, _, _ = _flash_inputs(dev, False, 2, 1, 32, 8, 4096, 128, (37, 3000), 6, False)
-    want_q = qmm.qmm(x, planes, GGMLType.Q4_K, N, K)
-    want_f = attend()
+    calls = (lambda: qmm.qmm(x[:1], planes, GGMLType.Q4_K, N, K),
+             lambda: qmm.qmm_grouped(x[:1], planes, GGMLType.Q4_K, N, K),
+             lambda: qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K), attend)
+    want = [f() for f in calls]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(dev) for _ in range(2)]
     got = []
@@ -263,11 +429,11 @@ def test_split_outputs_on_two_streams_at_once(dev):
     for _ in range(4):
         for s in streams:
             with torch.cuda.stream(s):
-                got.append((qmm.qmm(x, planes, GGMLType.Q4_K, N, K), attend()))
+                got.append([f() for f in calls])
     torch.cuda.synchronize()
     bufs = {_build.counters(dev, s.cuda_stream, 1).data_ptr() for s in streams}
     assert len(bufs) == 2
-    assert all(torch.equal(a, want_q) and torch.equal(b, want_f) for a, b in got)
+    assert all(torch.equal(a, b) for outs in got for a, b in zip(outs, want))
 
 
 def _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets, seed, extras):

@@ -198,6 +198,79 @@ def test_qmm_grouped_reference_matches_pallas_grouped_kernel(name, monkeypatch):
         assert not torch.equal(got, qmm.qmm_reference(xt, planes, GGMLType[name], n_out, n_in))
 
 
+ALL_TYPES = tuple(t.name for t in qmatmul._SCHEMA)
+
+
+def _grouped_segments(gtype: GGMLType, j: int) -> list[tuple[list[int], int]]:
+    """The segments of step j of a 256-row chunk in csrc/qmm_gemv.cuh's
+    gemv_grouped_step, in the order it adds them: (chunk rows, chunk scale
+    row) of each run of the step's 64 slots that shares one scale row."""
+    meta = qmatmul._SCHEMA[gtype]
+    G, bits = meta["G"], meta["bits"]
+    if bits in (6, 8):  # wide: rows 64j.., groups of min(G, 64)
+        gw = min(G, 64)
+        return [(list(range(64 * j + g0, 64 * j + g0 + gw)), (64 * j + g0) // G)
+                for g0 in range(0, 64, gw)]
+    if bits in (2, 3):  # 2-bit: field f of packed rows 16j.. is rows 64f + 16j..
+        fields = [list(range(64 * f + 16 * j, 64 * f + 16 * j + 16)) for f in range(4)]
+        return [(sum(fields, []), 0)] if G == 256 else [(r, r[0] // G) for r in fields]
+    if qmatmul.split_unit(gtype) == 256:  # the two nibbles of packed rows 32j..
+        return [(list(range(32 * j, 32 * j + 32)), j),
+                (list(range(128 + 32 * j, 160 + 32 * j)), 4 + j)]
+    return [(list(range(32 * u, 32 * u + 32)), u) for u in (2 * j, 2 * j + 1)]
+
+
+def _grouped_kernel_order(x, planes, gtype, n_out, n_in, split):
+    """The group-factored function in the order of qmm_grouped below 16
+    rows (the gemv body), in f32: per chunk, warp j's step j adds each
+    segment's Σ bf16(x) · value times its scale row once, then each
+    segment's (Σ bf16(x)) · minus_eff; the 4 warps' sums are added in warp
+    order, the K splits (of whole chunks) in split order."""
+    G = qmatmul._SCHEMA[gtype]["G"]
+    xb = x.to(torch.bfloat16).float()
+    vals, minus = qmm.grouped_values(planes, gtype)
+    scale = planes["scale"].float()
+    n_chunks = n_in // 256
+    per = -(-n_chunks // split)
+    total = torch.zeros((x.shape[0], n_out))
+    for z in range(-(-n_chunks // per)):
+        warps = [torch.zeros_like(total) for _ in range(4)]
+        for c in range(z * per, min(n_chunks, (z + 1) * per)):
+            for j in range(4):
+                segs = [(torch.tensor(rows) + 256 * c, 256 * c // G + g)
+                        for rows, g in _grouped_segments(gtype, j)]
+                for rows, g in segs:
+                    warps[j] = warps[j] + (xb[:, rows] @ vals[rows]) * scale[g]
+                for rows, g in segs if minus is not None else ():
+                    warps[j] = warps[j] - xb[:, rows].sum(1, keepdim=True) * minus[g]
+        total = total + (((warps[0] + warps[1]) + warps[2]) + warps[3])
+    return total
+
+
+@pytest.mark.parametrize("name", ALL_TYPES)
+def test_grouped_kernel_order_matches_the_plain_version(name):
+    """The plain version of qmm_grouped's order below 16 rows (segments of
+    each 64-slot step and their scale rows, warps in warp order, splits in
+    split order) against qmm_grouped_reference, every format, M = 3, K =
+    1024 in 1 and 3 splits: NMSE ≤ 1e-10 in f32 (the same products and
+    rounding points; the f32 sums in another order). Each step's segments
+    cover its 64 slots once, and the chunk's 256 rows are covered once."""
+    gtype = GGMLType[name]
+    for j in range(4):
+        rows = [r for seg, _ in _grouped_segments(gtype, j) for r in seg]
+        assert len(rows) == len(set(rows)) == 64
+    assert sorted(r for j in range(4) for seg, _ in _grouped_segments(gtype, j)
+                  for r in seg) == list(range(256))
+    n_out, n_in = 256, 1024
+    planes = qmatmul.repack(_plain_blocks(name, n_out, n_in, seed=8), gtype, n_out, n_in, "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((3, n_in))
+                         .astype(np.float32)).to(torch.bfloat16).float()
+    ref = qmm.qmm_grouped_reference(x, planes, gtype, n_out, n_in)
+    for split in (1, 3):
+        got = _grouped_kernel_order(x, planes, gtype, n_out, n_in, split)
+        assert _nmse(got.numpy(), ref.numpy()) <= 1e-10, split
+
+
 def test_grouped_types_route_matmul_to_the_grouped_plain_version(monkeypatch):
     from tpullm_torch.models.weights import QuantLinear
 

@@ -189,15 +189,125 @@ def test_expert_kernel_wrappers_refuse_cpu_tensors_and_unported_formats():
             fn(GGMLType.Q8_1)
 
 
-@pytest.mark.parametrize("T,K,N,expect_split", [(2, 4096, 14336, 8), (2, 14336, 4096, 28),
-                                                (32, 4096, 14336, 1)])
-def test_gather_plan_splits_k_for_few_slots(T, K, N, expect_split):
-    """At decode (2 slots) the gather splits K to fill 132 SMs; every chunk
-    is covered once."""
-    _, split, per = qmm.plan(1, K, N, n_sm=132, batches=T, tms=qmm._GATHER_TMS)
-    assert split == expect_split
+@pytest.mark.parametrize("T,K,N,expect", [(2, 4096, 14336, (2, 6, 3)), (2, 14336, 4096, (2, 4, 14)),
+                                           (32, 4096, 14336, (8, 2, 8)),
+                                           (32, 14336, 4096, (8, 7, 8))])
+def test_gather_plan_splits_k_for_few_slots(T, K, N, expect):
+    """Mixtral's gate and down on 132 SMs: at decode (2 slots, two experts'
+    column tiles) the gather splits K as qmm M = 1 does over as many tiles
+    (the gate's 224 tiles as the 8B gate_up's); at the 16-token bucket (32
+    slots over 8 experts) x's 8 rows cap the chunks a split. Every chunk is
+    covered once."""
+    tm, split, per = qmm.gather_plan(T, 8, K, N, n_sm=132)
+    assert (tm, split, per) == expect
     n_chunks = K // 256
     assert split * per >= n_chunks > (split - 1) * per
+    if T == 2:  # the same split as the 2-D kernel over the same tiles
+        assert (split, per) == qmm.gemv_plan(1, K, 2 * N, n_sm=132)[1:]
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 16, 32, 100, 300])
+@pytest.mark.parametrize("E", [4, 8, 128])
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096), (256, 4), (1024, 1028),
+                                 (2048, 768)])
+def test_gather_plan_covers_k_and_keeps_the_wave(T, E, K, N):
+    """gather_plan: every chunk in exactly one split; x's rows cover the
+    largest row tile (min(T, 8)) within GEMV_X_BYTES; the counters of a
+    split output fit the buffer; with at most half a wave of the min(T, E)
+    routed experts' column tiles, a split keeps their blocks in one wave
+    of GEMV_WAVE_BLOCKS blocks an SM (unless x's limit asks for more
+    splits), and K is split whenever those tiles leave half the wave
+    empty; from a wave of tiles on, no split but x's."""
+    n_sm = 132
+    tm, split, per = qmm.gather_plan(T, E, K, N, n_sm)
+    assert tm in qmm.GEMV_TMS and tm >= min(T, qmm.GEMV_TMS[-1])
+    assert tm == 1 or tm // 2 < min(T, qmm.GEMV_TMS[-1])  # the least that covers
+    n_chunks = K // 256
+    assert 1 <= split <= n_chunks
+    assert split * per >= n_chunks > (split - 1) * per
+    assert tm * per * 256 * 2 <= qmm.GEMV_X_BYTES
+    tiles = -(-N // qmm.GEMV_BLOCK_N) * min(T, E)
+    assert split == 1 or tiles <= qmm._build.COUNTERS
+    wave = qmm.GEMV_WAVE_BLOCKS * n_sm
+    x_limited = per == qmm.GEMV_X_BYTES // (tm * 512)
+    if 2 * tiles <= wave:
+        assert split == 1 or tiles * split <= wave or x_limited
+        assert split > 1 or n_chunks == 1
+    if tiles >= wave:
+        assert split == 1 or x_limited
+
+
+def _gather_blocks(ids: list[int], E: int) -> tuple[list[tuple[int, list[list[int]]]], list[int]]:
+    """The slot grouping of csrc/qmm_moe.cu's qmm_gather_kernel, in plain
+    Python: grid row y (of min(T, E)) takes the y-th smallest expert that
+    ids routes to (none past the distinct experts); its slots, in slot
+    order 128 ids a round, run in row tiles of up to 8, each on the least
+    of GEMV_TMS that covers it. Returns [(expert, [tile slots, ...]), ...]
+    by row, and the slots whose id lies outside 0..E-1 (NaN rows)."""
+    T = len(ids)
+    routed = sorted({e for e in ids if 0 <= e < E})
+    blocks = []
+    for y in range(min(T, E)):
+        if y >= len(routed):
+            continue  # the block exits before its first copy
+        e, tiles = routed[y], []
+        for p in range(0, T, 128):
+            slots = [t for t in range(p, min(T, p + 128)) if ids[t] == e]
+            tiles += [slots[r:r + 8] for r in range(0, len(slots), 8)]
+        blocks.append((e, tiles))
+    return blocks, [t for t in range(T) if not 0 <= ids[t] < E]
+
+
+def _ids_case(T: int, case: str, rng) -> np.ndarray:
+    ids = rng.integers(0, E, size=T).astype(np.int32)
+    if case == "repeated":
+        ids[-1] = ids[0]
+    elif case == "one expert":
+        ids[:] = 2
+    elif case == "invalid":
+        ids[0], ids[T // 2] = E, -1
+    return ids
+
+
+@pytest.mark.parametrize("T", [1, 2, 16, 32])
+@pytest.mark.parametrize("case", ["repeated", "one expert", "invalid"])
+def test_gather_slot_grouping_matches_the_plain_version_and_jax(T, case):
+    """The kernel's slot grouping (by expert, row tiles of up to 8, invalid
+    ids to NaN rows), each tile through qmm_reference on its expert's
+    planes, gives qmm_gather_reference's rows bit for bit and NaN rows for
+    the invalid ids; the valid rows agree with the JAX qmatmul_gather in
+    interpret mode within NMSE 1e-5 (the f32 sums in another order). Every
+    slot is in exactly one tile or NaN; a tile's rows never exceed 8 and
+    its TM is the least of GEMV_TMS that covers it; no expert is streamed
+    more than ⌈its slots / 8⌉ times."""
+    got_stack, ref_stack = _stacks("Q4_K", N_EMBD, N_FF, seed=30)
+    rng = np.random.default_rng(31 + T)
+    x = _bf16(rng.standard_normal((T, N_FF)).astype(np.float32))
+    ids = _ids_case(T, case, rng)
+    blocks, nan_slots = _gather_blocks(ids.tolist(), E)
+    seen = [t for _, tiles in blocks for tile in tiles for t in tile] + nan_slots
+    assert sorted(seen) == list(range(T))
+    for e, tiles in blocks:
+        assert len(tiles) == -(-int((ids == e).sum()) // 8)
+        for tile in tiles:
+            tm = next(t for t in qmm.GEMV_TMS if t >= len(tile))
+            assert 1 <= len(tile) <= tm <= qmm.gather_plan(T, E, N_FF, N_EMBD, 132)[0]
+    out = torch.full((T, N_EMBD), float("nan"), dtype=torch.bfloat16)
+    for e, tiles in blocks:
+        planes = {k: v[e] for k, v in got_stack.planes.items()}
+        for tile in tiles:
+            out[tile] = qmm.qmm_reference(x[tile], planes, got_stack.gtype, N_EMBD, N_FF)
+    valid = torch.from_numpy((ids >= 0) & (ids < E))
+    assert torch.isnan(out[~valid].float()).all() and torch.isfinite(out[valid].float()).all()
+    if not valid.any():
+        return
+    vids = torch.from_numpy(ids)[valid]
+    ref = qmm.qmm_gather_reference(x[valid], vids, got_stack.planes, got_stack.gtype, N_EMBD,
+                                   N_FF)
+    assert torch.equal(out[valid], ref)
+    jref = jqmm.qmatmul_gather(jnp.asarray(x[valid].float().numpy(), jnp.bfloat16),
+                               jnp.asarray(vids.numpy()), ref_stack)
+    assert _nmse(_np(out[valid]), np.asarray(jref, np.float32)) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

@@ -170,6 +170,20 @@ def test_gemv_source_constants_match_the_wrapper():
     assert tuple(int(c) for c in cases) == qmm.GEMV_TMS
 
 
+def test_gather_source_constants_match_the_wrapper():
+    """csrc/qmm_moe.cu's gather: its expert limit is the wrapper's, the row
+    tiles (TMX) its launch takes are GEMV_TMS, a tile holds at most TMX
+    slots and runs at TM = 1 or TMX."""
+    src = (Path(qmm.__file__).resolve().parents[2] / "csrc" / "qmm_moe.cu").read_text()
+    assert int(re.search(r"constexpr int kGatherMaxExperts = (\d+);", src).group(1)) == \
+        qmm.GATHER_MAX_EXPERTS
+    cases = re.findall(r"TPULLM_GATHER_CASE\((\d+)\)", src)
+    assert tuple(int(c) for c in cases) == qmm.GEMV_TMS
+    assert "min(TMX, count - r0)" in src and "r0 += TMX" in src
+    assert sorted(set(re.findall(r"qmm_gemv_body<(\w+), F, false, false, TMX>", src))) == \
+        ["1", "TMX"]
+
+
 def test_counter_buffer_refuses_a_launch_it_cannot_hold():
     """One check of the counter limit, in `_build.counters`: a launch whose
     split groups exceed the buffer is refused before any buffer is made."""

@@ -12,7 +12,11 @@ timing code of this file:
 - flash at T = 1 (H = 32, Hkv = 8, D = 128, S = 4096: the 8B's decode) in
   both cache formats, at kv_len 38 and 3001 in one call (B = 2) and at
   B = 1 with kv_len 20, 100 and 512; qmm at M = 1 on the 8B's gate_up,
-  down and wo for a few formats. Each as the device time of a CUDA-graph
+  down and wo for a few formats; qmm_grouped (the group-factored kernel)
+  at M = 1 on the 8B's gate_up for the same formats; qmm_gather on
+  Mixtral's expert stacks (8 experts, gate 4096→14336 and down
+  14336→4096) at Q4_K and Q6_K, T = 2 (a decode token's two experts) and
+  T = 32 (the 16-token bucket, a repeated expert). Each as the device time of a CUDA-graph
   replay of back-to-back calls, as the time of the same calls launched
   eagerly back to back, and as the host's time to issue one call (the
   calls issued without waiting, over their count: the wrapper's dispatch);
@@ -45,6 +49,9 @@ FLASH_CASES = (("B=2 kv 38/3001", (37, 3000)), ("B=1 kv 20", (19,)), ("B=1 kv 10
 QMM_CASES = (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "gate_up", 4096, 28672),
              ("Q8_0", "gate_up", 4096, 28672), ("Q4_0", "gate_up", 4096, 28672),
              ("Q4_K", "down", 14336, 4096), ("Q4_K", "wo", 4096, 4096))
+GATHER_CASES = (("Q4_K", "gate", 4096, 14336), ("Q4_K", "down", 14336, 4096),
+                ("Q6_K", "gate", 4096, 14336), ("Q6_K", "down", 14336, 4096))
+N_EXPERT = 8
 ITERS = 50
 
 
@@ -151,21 +158,50 @@ def worker(tree: Path, gguf: str | None) -> dict:
                 _record(res, f"flash {fmt} {label} cold_ms", timers[0],
                         lambda: (flush.zero_(), fn()), flush_ms)
         del q, k, v, k_q, v_q
-    for fmt, name, K, N in QMM_CASES:
-        gtype = GGMLType[fmt]
+    def random_planes(gtype, N, K):
         tt = TYPE_TRAITS[gtype]
         nb = N * K // tt.block_size
         raw = torch.randint(0, 256, (nb, tt.type_size), generator=gen, device=dev,
                             dtype=torch.uint8)
         write_scales(raw, gtype, (torch.rand(nb, generator=gen, device=dev) + 0.5) * 0.02)
-        planes = qmatmul.repack(raw.reshape(-1), gtype, N, K, dev)
-        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
-        got = qmm.qmm(x, planes, gtype, N, K).float()
-        ref = qmm.qmm_reference(x, planes, gtype, N, K).float()
+        return qmatmul.repack(raw.reshape(-1), gtype, N, K, dev)
+
+    def check(got, ref, what):
+        got, ref = got.float(), ref.float()
         nmse = float(((got - ref) ** 2).mean() / (ref ** 2).mean())
-        assert nmse < 5e-4, f"qmm {fmt} {name}: NMSE {nmse}"
+        assert nmse < 5e-4, f"{what}: NMSE {nmse}"
+
+    for fmt, name, K, N in QMM_CASES:
+        gtype = GGMLType[fmt]
+        planes = random_planes(gtype, N, K)
+        x = torch.randn(1, K, generator=gen, device=dev).to(torch.bfloat16)
+        check(qmm.qmm(x, planes, gtype, N, K), qmm.qmm_reference(x, planes, gtype, N, K),
+              f"qmm {fmt} {name}")
         _measure(lambda: qmm.qmm(x, planes, gtype, N, K), timers, res, f"qmm {fmt} {name} M=1")
-        del raw, planes
+        if name == "gate_up":
+            check(qmm.qmm_grouped(x, planes, gtype, N, K),
+                  qmm.qmm_grouped_reference(x, planes, gtype, N, K), f"qmm_grouped {fmt}")
+            _measure(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), timers, res,
+                     f"qmm_grouped {fmt} {name} M=1")
+        del planes
+    for fmt, name, K, N in GATHER_CASES:
+        gtype = GGMLType[fmt]
+        per = [random_planes(gtype, N, K) for _ in range(N_EXPERT)]
+        stack = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        del per
+        for T in (2, 32):
+            x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+            if T == 2:
+                ids = torch.randperm(N_EXPERT, generator=gen, device=dev)[:2].int()
+            else:
+                ids = torch.randint(0, N_EXPERT, (T,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                ids[-1] = ids[0]
+            check(qmm.qmm_gather(x, ids, stack, gtype, N, K),
+                  qmm.qmm_gather_reference(x, ids, stack, gtype, N, K), f"qmm_gather {fmt} {name}")
+            _measure(lambda: qmm.qmm_gather(x, ids, stack, gtype, N, K), timers, res,
+                     f"qmm_gather {fmt} {name} T={T}")
+        del stack
     torch.cuda.empty_cache()
     if gguf:
         from tpullm_torch.runtime.engine import Engine

@@ -7,12 +7,6 @@
 
 namespace tpullm {
 
-// Round an f32 to bf16 (nearest-even) and back: the rounding point where the
-// JAX kernels cast a dequantized weight tile to bf16 before the MXU dot.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Four consecutive bf16 values (8 bytes, 8-byte aligned) → f32.
 __device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float out[4]) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);

@@ -1,6 +1,6 @@
 // Fused dequantize×matmul over the v2 plane schema, for Hopper (sm_90a).
 //
-// Three kernels of y [M, N] = x [M, K] · dequant(planes), for the 22 plane
+// Four kernels of y [M, N] = x [M, K] · dequant(planes), for the 22 plane
 // formats of qmm_body.cuh (this library: the formats of family
 // TPULLM_QMM_FAMILY), all launched where tpullm/ops/pallas/qmm.py::_qmm_2d
 // launches its pallas_call:
@@ -24,23 +24,51 @@
 //     split of the f32 group sums) is in qmm_tc.cuh; K is split as above
 //     when the output tiles are too few to fill the card.
 //
-// qmm_grouped_kernel replaces the group-factored body _kernel, which _qmm_2d
-//   takes for the types of GROUPED_TYPES (TPULLM_QMM_GROUPED):
+// qmm_grouped_gemv_kernel and qmm_grouped_kernel replace the group-factored
+//   body _kernel, which _qmm_2d takes for the types of GROUPED_TYPES
+//   (TPULLM_QMM_GROUPED):
 //     y[m, n] = Σ_g scale[g, n] · (Σ_{k∈g} bf16(x[m, k]) · value(k, n))
 //               − Σ_g minus_eff[g, n] · (Σ_{k∈g} bf16(x[m, k]))
 //   in f32, value the raw code of the identity and bias maps, the table
 //   value, or the signed byte (each exact in bf16, so _kernel's bf16 cast
 //   of it is the identity here), minus_eff the minus plane or scale·bias.
 //   The element loop is one FMA a weight and row of x: no per-weight scale
-//   multiply and rounding. It walks each group's rows in order, decoding
-//   every row from its packed row (a half-split or 2-bit packed row is read
-//   once per field; the repeats hit L1). CUDA cores, TM in {1, 16}.
+//   multiply and rounding. Two regimes of M:
+//   - M < 16: qmm_grouped_gemv_kernel, the weight stream of qmm_kernel
+//     (qmm_gemv.cuh, gemv_grouped_step: each packed row decoded once from
+//     the ring, the scale applied once per segment of a group in a 64-slot
+//     step), one launch a call.
+//   - M ≥ 16: qmm_grouped_kernel, TM = 16 on CUDA cores, reading the planes
+//     straight from device memory and decoding every row from its packed
+//     row (a half-split or 2-bit packed row is read once per field; the
+//     repeats hit L1); a split K is summed by a second launch,
+//     qmm_reduce_kernel. Not redesigned for the tensor cores (ROADMAP 2b).
 
 #include "qmm_gemv.cuh"
 
 namespace {
 
 using namespace tpullm;
+
+// The 2-D product below 16 rows: rows m0 .. m0+TM-1 of x [M, K] into out
+// [M, N], columns blockIdx.x · 128 .., chunks [blockIdx.z · per, +per).
+// With gridDim.z > 1 the blocks of a column tile write partial [split, M, N]
+// and the last of them sums it; counters[blockIdx.y · gridDim.x +
+// blockIdx.x] is 0 before and after.
+template <int TM, int F, bool Grouped>
+__device__ __forceinline__ void qmm_gemv_2d(const __nv_bfloat16* __restrict__ x,
+                                            const uint8_t* __restrict__ codes,
+                                            const uint8_t* __restrict__ qh,
+                                            const __nv_bfloat16* __restrict__ scale,
+                                            const __nv_bfloat16* __restrict__ minus,
+                                            __nv_bfloat16* __restrict__ out,
+                                            float* __restrict__ partial,
+                                            int* __restrict__ counters, int M, int K, int N,
+                                            int chunks_per_split, char* smem) {
+  qmm_gemv_body<TM, F, Grouped, true, TM>(x, codes, qh, scale, minus, out, partial, counters,
+                                          ContiguousRows{(int)blockIdx.y * TM, M}, M, K, N,
+                                          chunks_per_split, smem);
+}
 
 template <int TM, int F>
 __global__ void __launch_bounds__(kGemvThreads)
@@ -50,8 +78,20 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ code
            float* __restrict__ partial, int* __restrict__ counters, int M, int K, int N,
            int chunks_per_split) {
   extern __shared__ __align__(16) char smem[];
-  qmm_gemv_body<TM, F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N,
-                       chunks_per_split, smem);
+  qmm_gemv_2d<TM, F, false>(x, codes, qh, scale, minus, out, partial, counters, M, K, N,
+                            chunks_per_split, smem);
+}
+
+template <int TM, int F>
+__global__ void __launch_bounds__(kGemvThreads)
+qmm_grouped_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                        const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
+                        const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ partial, int* __restrict__ counters, int M, int K,
+                        int N, int chunks_per_split) {
+  extern __shared__ __align__(16) char smem[];
+  qmm_gemv_2d<TM, F, true>(x, codes, qh, scale, minus, out, partial, counters, M, K, N,
+                           chunks_per_split, smem);
 }
 
 template <int F>
@@ -213,27 +253,34 @@ int finish(float* partial, __nv_bfloat16* out, int M, int N, int split, cudaStre
   return (int)cudaGetLastError();
 }
 
-// The launch attributes of a qmm_kernel instantiation, set once: dynamic
-// shared memory up to its largest x, the whole SM's shared memory preferred
-// over L1.
-template <int TM, int F>
+template <int TM, int F, bool Grouped>
+inline auto gemv_kernel() {
+  if constexpr (Grouped) return qmm_grouped_gemv_kernel<TM, F>;
+  else return qmm_kernel<TM, F>;
+}
+
+// The launch attributes of a CUDA-core kernel instantiation, set once:
+// dynamic shared memory up to its largest x, the whole SM's shared memory
+// preferred over L1.
+template <int TM, int F, bool Grouped>
 cudaError_t gemv_attributes() {
   static const cudaError_t err =
-      qmm_tc_attributes(qmm_kernel<TM, F>, gemv_smem_bytes<F>(kGemvXBytes));
+      qmm_tc_attributes(gemv_kernel<TM, F, Grouped>(), gemv_smem_bytes<F>(kGemvXBytes));
   return err;
 }
 
-template <int TM, int F>
+template <int TM, int F, bool Grouped>
 int launch_gemv(const void* x, const void* codes, const void* qh, const void* scale,
                 const void* minus, void* out, void* partial, void* counters, int M, int K,
                 int N, int split, int chunks_per_split, cudaStream_t stream) {
   const int x_bytes = TM * chunks_per_split * kQmmChunk * 2;
   if (x_bytes > kGemvXBytes || (M + TM - 1) / TM > 65535 || split > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = gemv_attributes<TM, F>();
+  cudaError_t err = gemv_attributes<TM, F, Grouped>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kGemvBN - 1) / kGemvBN, (M + TM - 1) / TM, split);
-  qmm_kernel<TM, F><<<grid, kGemvThreads, gemv_smem_bytes<F>(x_bytes), stream>>>(
+  auto* kernel = gemv_kernel<TM, F, Grouped>();
+  kernel<<<grid, kGemvThreads, gemv_smem_bytes<F>(x_bytes), stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
       static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
@@ -242,14 +289,15 @@ int launch_gemv(const void* x, const void* codes, const void* qh, const void* sc
 }
 
 // the tm values match ops/kernels/qmm.py GEMV_TMS
-template <int F>
+template <int F, bool Grouped>
 int launch(const void* x, const void* codes, const void* qh, const void* scale,
            const void* minus, void* out, void* partial, void* counters, int M, int K, int N,
            int tm, int split, int chunks_per_split, cudaStream_t stream) {
   switch (tm) {
-#define TPULLM_GEMV_CASE(TM)                                                                \
-    case TM: return launch_gemv<TM, F>(x, codes, qh, scale, minus, out, partial, counters, \
-                                       M, K, N, split, chunks_per_split, stream);
+#define TPULLM_GEMV_CASE(TM)                                                          \
+    case TM: return launch_gemv<TM, F, Grouped>(x, codes, qh, scale, minus, out, partial, \
+                                                counters, M, K, N, split,               \
+                                                chunks_per_split, stream);
     TPULLM_GEMV_CASE(1) TPULLM_GEMV_CASE(2) TPULLM_GEMV_CASE(4) TPULLM_GEMV_CASE(8)
 #undef TPULLM_GEMV_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -277,24 +325,22 @@ int launch_tc(const void* x, const void* codes, const void* qh, const void* scal
                 stream);
 }
 
-// the tm values match ops/kernels/qmm.py _GROUPED_TMS
+// The group-factored function: below 16 rows (tm in GEMV_TMS) on the gemv
+// body, one launch; at tm = 16 (ops/kernels/qmm.py _GROUPED_TMS) the
+// CUDA-core qmm_grouped_kernel, its K split summed by qmm_reduce_kernel.
 template <int F>
 int launch_grouped(const void* x, const void* codes, const void* qh, const void* scale,
-                   const void* minus, void* out, void* partial, int M, int K, int N, int tm,
-                   int split, int chunks_per_split, cudaStream_t stream) {
-  const dim3 grid = qmm_grid(N, (M + tm - 1) / tm, split);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* cb = static_cast<const uint8_t*>(codes);
-  const auto* hb = static_cast<const uint8_t*>(qh);
-  const auto* sb = static_cast<const __nv_bfloat16*>(scale);
-  const auto* mb = static_cast<const __nv_bfloat16*>(minus);
+                   const void* minus, void* out, void* partial, void* counters, int M, int K,
+                   int N, int tm, int split, int chunks_per_split, cudaStream_t stream) {
+  if (tm != 16)
+    return launch<F, true>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm,
+                           split, chunks_per_split, stream);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   auto* pb = static_cast<float*>(partial);
-  switch (tm) {
-    case 1: qmm_grouped_kernel<1, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    case 16: qmm_grouped_kernel<16, F><<<grid, kQmmThreads, 0, stream>>>(xb, cb, hb, sb, mb, ob, pb, M, K, N, chunks_per_split); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  qmm_grouped_kernel<16, F><<<qmm_grid(N, (M + 15) / 16, split), kQmmThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
+      static_cast<const __nv_bfloat16*>(minus), ob, pb, M, K, N, chunks_per_split);
   return finish(pb, ob, M, N, split, stream);
 }
 
@@ -314,7 +360,7 @@ extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch<tpullm::F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
+    case tpullm::F: return launch<tpullm::F, false>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;
@@ -337,16 +383,18 @@ extern "C" int tpullm_qmm_tc(int fmt, const void* x, const void* codes, const vo
   }
 }
 
-// The group-factored kernel: the arguments of tpullm_qmm, tm in {1, 16}.
+// The group-factored function: the arguments of tpullm_qmm, tm in {1, 2, 4,
+// 8} (one launch, counters as tpullm_qmm's) or 16 (counters unused; with
+// split > 1 a second launch sums partial).
 extern "C" int tpullm_qmm_grouped(int fmt, const void* x, const void* codes, const void* qh,
                                   const void* scale, const void* minus, void* out,
-                                  void* partial, int M, int K, int N, int tm, int split,
-                                  int chunks_per_split, void* stream_ptr) {
+                                  void* partial, void* counters, int M, int K, int N, int tm,
+                                  int split, int chunks_per_split, void* stream_ptr) {
   if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch_grouped<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, tm, split, chunks_per_split, s);
+    case tpullm::F: return launch_grouped<tpullm::F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

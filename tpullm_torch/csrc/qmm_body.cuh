@@ -1,10 +1,10 @@
-// The dequantize×matmul device body on CUDA cores of the expert gather
-// (qmm_moe.cu qmm_gather_kernel), and the plane formats' traits that the
-// gemv body of the 2-D qmm below 16 rows (qmm_gemv.cuh) and the tensor-core
-// body (qmm_tc.cuh) decode through too.
+// The plane formats' traits that the device bodies of the qmm kernels
+// decode through (the gemv body below 16 rows, qmm_gemv.cuh; the
+// tensor-core body, qmm_tc.cuh), and the helpers of the CUDA-core kernel
+// that reads the planes straight from device memory (qmm.cu
+// qmm_grouped_kernel at 16 rows a block).
 //
-// It is the arithmetic of tpullm/ops/pallas/qmm.py::_acc_tile. For rows
-// m0 .. m0+TM-1 of x [M, K] and 512 output columns it computes
+// The function is that of tpullm/ops/pallas/qmm.py::_acc_tile:
 //
 //   y[m, n] = Σ_k bf16(x[m,k]) · bf16(f32(map(code[k,n])) · f32(scale[k/G, n]))
 //             − Σ_g (Σ_{k∈g} bf16(x[m,k])) · minus[g, n]
@@ -27,14 +27,12 @@
 //            the 3-bit codebook codes      IQ2_XXS IQ2_XS IQ2_S IQ1_S IQ1_M
 //   kWide    one signed byte per weight, [K, N]          Q6_K (qw), Q8_0 (qs)
 //
-// Layout of the work: each thread owns 4 neighbouring output columns, so a
-// warp reads 128 contiguous plane bytes per row; a block stages a 256-row
-// chunk of x (one K-quant superblock, eight 32-row units) in shared memory
-// as f32 and keeps TM rows of partial sums in registers. A code table sits
-// in shared memory as 16 f32 values, one per bank, so a warp's lookups never
-// conflict. A block covers chunks [blockIdx.z · per, (blockIdx.z + 1) · per);
-// with more than one split it writes f32 partials that qmm_reduce sums in
-// split order (deterministic, no atomics).
+// A code table sits in shared memory as 16 f32 values, one per bank, so a
+// warp's lookups never conflict. The helpers below (qmm_store, qmm_fma,
+// qmm_reduce_body, qmm_grid) serve the kernels whose thread owns 4
+// neighbouring output columns of a 512-column block and keeps TM rows of
+// sums in registers; with more than one K split they write f32 partials that
+// qmm_reduce sums in split order (deterministic, no atomics).
 #pragma once
 
 #include "common.cuh"
@@ -218,172 +216,6 @@ __device__ __forceinline__ void qmm_fma(float (&acc)[TM][kQmmCols], const float 
   }
 }
 
-// x, codes, qh, scale and minus point at this block's weight and input rows;
-// the block computes rows m0 .. m0+TM-1 of x [M, K] into output rows
-// row0 + m0 .. of R, for the 512 columns of blockIdx.x.
-template <int TM, int F>
-__device__ __forceinline__ void qmm_body(const __nv_bfloat16* __restrict__ x,
-                                         const uint8_t* __restrict__ codes,
-                                         const uint8_t* __restrict__ qh,
-                                         const __nv_bfloat16* __restrict__ scale,
-                                         const __nv_bfloat16* __restrict__ minus,
-                                         __nv_bfloat16* __restrict__ out,
-                                         float* __restrict__ partial, int M, int K, int N,
-                                         int R, int row0, int m0, int chunks_per_split) {
-  using P = QmmFormat<F>;
-  constexpr int G = P::G;
-  constexpr int NG = kQmmChunk / G;  // scale groups per chunk
-  __shared__ float xs[TM][kQmmChunk];
-  __shared__ float gsum[TM][P::has_minus ? NG : 1];
-  __shared__ float lut[P::table ? 16 : 1];
-  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first chunk's barrier
-
-  const int n0 = (blockIdx.x * kQmmThreads + threadIdx.x) * kQmmCols;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(K / kQmmChunk, c_begin + chunks_per_split);
-  const bool active = n0 < N;  // N % 4 == 0: a thread's 4 columns are all in range
-
-  float acc[TM][kQmmCols];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int j = 0; j < kQmmCols; ++j) acc[m][j] = 0.f;
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k0 = c * kQmmChunk;
-    __syncthreads();  // the previous chunk's readers are done with xs
-    for (int i = threadIdx.x; i < TM * kQmmChunk; i += kQmmThreads) {
-      const int m = i / kQmmChunk, kk = i % kQmmChunk;
-      xs[m][kk] = (m0 + m < M) ? __bfloat162float(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
-    }
-    __syncthreads();
-    if constexpr (P::has_minus) {
-      for (int i = threadIdx.x; i < TM * NG; i += kQmmThreads) {
-        const int m = i / NG, g = i % NG;
-        float s = 0.f;
-        for (int j = 0; j < G; ++j) s += xs[m][g * G + j];
-        gsum[m][g] = s;
-      }
-      __syncthreads();
-    }
-    if (!active) continue;
-
-    if constexpr (P::layout == kWide) {
-      // one signed byte per weight (Q6_K: bias folded at repack)
-      for (int g = 0; g < NG; ++g) {
-        float sc[kQmmCols];
-        load_bf16x4(scale + (size_t)(k0 / G + g) * N + n0, sc);
-#pragma unroll
-        for (int r = 0; r < G; ++r) {
-          const int kk = g * G + r;
-          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 + kk) * N + n0);
-          float w[kQmmCols];
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j)
-            w[j] = bf16_round((float)(int8_t)((q >> (8 * j)) & 0xffu) * sc[j]);
-          qmm_fma<TM>(acc, xs, kk, w);
-        }
-      }
-    } else if constexpr (P::layout == kHalf || P::layout == kHalfQh) {
-      // 128 packed rows per chunk. Packed row p of the chunk holds, in its low
-      // nibble, chunk row lo = (p / (U/2))·U + p % (U/2) and, in its high
-      // nibble, row lo + U/2. A run of B packed rows shares one scale group
-      // for its low rows and one for its high rows (the same group at U = 32).
-      // The fifth bits (kHalfQh) of lo and lo + U/2 sit in one qh byte, row
-      // (lo / U)·U/8 + lo % (U/8), bits (lo % U)/(U/8) and that plus 4.
-      constexpr int HALF = P::U / 2;
-      constexpr int B = G < HALF ? G : HALF;
-      constexpr int QH = P::U / 8;
-      for (int b = 0; b < kQmmChunk / 2 / B; ++b) {
-        const int p0 = b * B;
-        const int lo0 = (p0 / HALF) * P::U + p0 % HALF;
-        float s_lo[kQmmCols], s_hi[kQmmCols];
-        load_bf16x4(scale + (size_t)(k0 / G + lo0 / G) * N + n0, s_lo);
-        if constexpr (HALF < G) {
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j) s_hi[j] = s_lo[j];
-        } else {
-          load_bf16x4(scale + (size_t)(k0 / G + (lo0 + HALF) / G) * N + n0, s_hi);
-        }
-#pragma unroll
-        for (int r = 0; r < B; ++r) {
-          const int lo = lo0 + r;
-          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 2 + p0 + r) * N + n0);
-          uint32_t h = 0;
-          int hbit = 0;
-          if constexpr (P::has_qh) {
-            const int ru = lo % P::U;
-            h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + (lo / P::U) * QH + ru % QH) * N + n0);
-            hbit = ru / QH;
-          }
-          float w_lo[kQmmCols], w_hi[kQmmCols];
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j) {
-            const uint32_t byte = (q >> (8 * j)) & 0xffu;
-            uint32_t c_lo = byte & 0xfu, c_hi = byte >> 4;
-            if constexpr (P::has_qh) {
-              const uint32_t hb = (h >> (8 * j)) & 0xffu;
-              c_lo |= ((hb >> hbit) & 1u) << 4;
-              c_hi |= ((hb >> (hbit + 4)) & 1u) << 4;
-            }
-            w_lo[j] = bf16_round(qmm_value<P>(c_lo, lut) * s_lo[j]);
-            w_hi[j] = bf16_round(qmm_value<P>(c_hi, lut) * s_hi[j]);
-          }
-          qmm_fma<TM>(acc, xs, lo, w_lo);
-          qmm_fma<TM>(acc, xs, lo + HALF, w_hi);
-        }
-      }
-    } else {
-      // kCrumb / kCrumbQh, U = 256: packed row p (0..63) holds chunk rows
-      // f·64 + p in bits 2f..2f+1, row f·64 + p in group (f·64 + p)/G, so a
-      // run of B = min(G, 64) packed rows keeps one group per field f (at
-      // G = 256 all four fields share the chunk's one group); the third bit
-      // (kCrumbQh) of row f·64 + p is bit 2f + p/32 of qh row p % 32
-      static_assert(P::U == kQmmChunk, "the 2-bit layouts are U = 256");
-      constexpr int B = G < 64 ? G : 64;
-      for (int b = 0; b < 64 / B; ++b) {
-        float s[4][kQmmCols];
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-          load_bf16x4(scale + (size_t)(k0 / G + (f * 64 + b * B) / G) * N + n0, s[f]);
-#pragma unroll 4  // a full unroll spills at TM = 16
-        for (int r = 0; r < B; ++r) {
-          const int p = b * B + r;
-          const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 4 + p) * N + n0);
-          uint32_t h = 0;
-          if constexpr (P::has_qh)
-            h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + p % 32) * N + n0);
-#pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            float w[kQmmCols];
-#pragma unroll
-            for (int j = 0; j < kQmmCols; ++j) {
-              uint32_t code = (q >> (8 * j + 2 * f)) & 3u;
-              if constexpr (P::has_qh) code |= ((h >> (8 * j + 2 * f + p / 32)) & 1u) << 2;
-              w[j] = bf16_round(qmm_value<P>(code, lut) * s[f][j]);
-            }
-            qmm_fma<TM>(acc, xs, f * 64 + p, w);
-          }
-        }
-      }
-    }
-    if constexpr (P::has_minus) {
-      // the min term through group sums of x
-      for (int g = 0; g < NG; ++g) {
-        float mn[kQmmCols];
-        load_bf16x4(minus + (size_t)(k0 / G + g) * N + n0, mn);
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(-gsum[m][g], mn[j], acc[m][j]);
-      }
-    }
-  }
-
-  if (!active) return;
-  qmm_store<TM>(acc, out, partial, M, N, R, row0, m0, n0);
-}
-
 // Sums the K-split partials [split, mn] in split order and rounds to bf16.
 __device__ __forceinline__ void qmm_reduce_body(const float* __restrict__ partial,
                                                 __nv_bfloat16* __restrict__ out,
@@ -395,7 +227,7 @@ __device__ __forceinline__ void qmm_reduce_body(const float* __restrict__ partia
   out[i] = __float2bfloat16_rn(s);
 }
 
-// The launch shape shared by the three entries: grid (N/512, rows, split).
+// The launch shape of the 512-column kernels: grid (N/512, rows, split).
 inline dim3 qmm_grid(int N, int y_blocks, int split) {
   return dim3((N + kQmmBlockN - 1) / kQmmBlockN, y_blocks, split);
 }

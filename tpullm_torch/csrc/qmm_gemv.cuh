@@ -1,11 +1,19 @@
 // The dequantize×matmul device body below 16 rows of x (decode, the prefill
-// bucket of 8), on CUDA cores: qmm_kernel of qmm.cu.
+// bucket of 8, the expert gather), on CUDA cores, shared by three kernels:
+// qmm_kernel and qmm_grouped_gemv_kernel of qmm.cu and qmm_gather_kernel
+// of qmm_moe.cu. One body, qmm_gemv_body: a row map (the block's rows of x
+// and of the output, contiguous or a slot list) and the planes' base (an
+// expert's, for the gather) are its arguments.
 //
 // It replaces, at M < 16, tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile
 // (the pallas_call in _qmm_2d) and keeps _acc_tile's rounding points, those
 // of ops/kernels/qmm.py::qmm_reference: each weight rounded to bf16 after
 // its f32 scale multiply, the min term through f32 group sums of bf16 x,
-// f32 sums, the output rounded to bf16 once.
+// f32 sums, the output rounded to bf16 once. With Grouped it computes the
+// group-factored function of _kernel (qmm_grouped_reference's rounding):
+// per scale segment, f32 sums of bf16 x times the unscaled value, scaled
+// once (gemv_grouped_step). The gather (_kernel_gather) is _acc_tile's
+// function, row by row, through the expert of each row.
 //
 // What bounds it on the card: the plane bytes (8B Q4_K gate_up: 73 MB,
 // 0.022 ms at 3.35 TB/s) and, close behind, the instructions that decode
@@ -31,17 +39,18 @@
 //   two columns at a time as bf16 pairs (codes_times_scales: one bf16
 //   multiply rounds the exact product, as the f32 path does); the code
 //   tables and the signed bytes multiply in f32 and round once.
-// - x for the block's K range is copied once into shared memory as bf16
-//   (at most kGemvXBytes; ops/kernels/qmm.py plan() splits K further
+// - x for the block's K range is copied once into shared memory as bf16,
+//   row by row through the row map (at most kGemvXBytes;
+//   ops/kernels/qmm.py gemv_plan and gather_plan split K further
 //   rather than exceed it). The minus group sums are computed once per
 //   block, each by the warp that owns its group, 32 lanes and a shuffle
 //   tree, with no barrier.
 // - The 4 warps' sums meet in shared memory, added in warp order. When K
 //   is split (the output tiles alone too few to fill the card), each block
-//   writes f32 partials; the last block of a column tile to finish, found
-//   through a counter of the launch's stream that it resets, adds them in
-//   split order and rounds once: deterministic, no atomics on the sums, and
-//   one launch a call (the old body needed a second, reduction launch).
+//   writes f32 partials; the last block of a column tile (of the gather: of
+//   an expert's column tile) to finish, found through a counter of the
+//   launch's stream that it resets, adds them in split order and rounds
+//   once: deterministic, no atomics on the sums, and one launch a call.
 #pragma once
 
 #include "qmm_tc.cuh"
@@ -70,11 +79,17 @@ struct GemvStage {
 };
 
 // Dynamic shared memory of a block: the ring, x (x_bytes), the code table
-// and the last-block flag.
+// and the last-block flag (gemv_lut, gemv_flag; 16 bytes).
 template <int F>
 constexpr int gemv_smem_bytes(int x_bytes) {
   return GemvStage<QmmFormat<F>>::ring + x_bytes + 16 * 4 + 16;
 }
+
+template <class P>
+__device__ __forceinline__ float* gemv_lut(char* smem, int x_bytes) {
+  return reinterpret_cast<float*>(smem + GemvStage<P>::ring + x_bytes);
+}
+__device__ __forceinline__ int* gemv_flag(float* lut) { return reinterpret_cast<int*>(lut + 16); }
 
 // `rows` plane rows of `row_bytes` from src (rows src_pitch bytes apart; the
 // first `valid` bytes of each in range, the rest zero-filled) into dst
@@ -282,12 +297,317 @@ __device__ __forceinline__ void gemv_step(float (&acc)[TM][4], const char* st,
   }
 }
 
-// Rows m0 .. m0+TM-1 of x [M, K] times the [K, N] weight into out [M, N],
-// columns blockIdx.x · 128 .., chunks [blockIdx.z · per, +per). smem:
-// gemv_smem_bytes<F>(TM · per · 512). With gridDim.z > 1 the blocks of a
-// column tile write partial [split, M, N] and the last of them sums it;
-// counters[blockIdx.y · gridDim.x + blockIdx.x] is 0 before and after.
-template <int TM, int F>
+// The 4 unscaled values of one packed word's columns (code bits at `sh`,
+// BITS wide; the qh bit at `hbit` of h), as the group-factored function
+// takes them: the raw code of the identity and bias maps (the bias goes
+// through the minus_eff term), exact as a bf16 pair, or the table value.
+template <class P, int BITS>
+__device__ __forceinline__ void gemv_v4(uint32_t q, int sh, uint32_t h, int hbit, const float* lut,
+                                        float (&v)[4]) {
+  constexpr uint32_t mask = ((1u << BITS) - 1u) * 0x00010001u;
+  constexpr uint32_t kMagic = 0x43004300u;  // bf16 128.0 in each half
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t sel = k ? 0x4342u : 0x4140u;  // bytes 2k, 2k+1 into the halves
+    uint32_t pair = (__byte_perm(q, 0, sel) >> sh) & mask;
+    if constexpr (P::has_qh) pair |= ((__byte_perm(h, 0, sel) >> hbit) & 0x00010001u) << BITS;
+    if constexpr (P::table) {
+      v[2 * k] = lut[pair & 0xffffu];
+      v[2 * k + 1] = lut[pair >> 16];
+    } else {  // 128 + code less 128, exact in bf16 (code < 128)
+      unpack2(as_u32(__hsub2(as_bf162(pair | kMagic), as_bf162(kMagic))), v[2 * k], v[2 * k + 1]);
+    }
+  }
+}
+
+// the 4 signed bytes of a wide word as f32
+__device__ __forceinline__ void gemv_v4_wide(uint32_t q, float (&v)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = (float)(int8_t)((q >> (8 * c)) & 0xffu);
+}
+
+// acc += part · scale (the segment's scale row, 4 bf16), once; part := 0
+template <int TM>
+__device__ __forceinline__ void gemv_scale_add(float (&acc)[TM][4], float (&part)[TM][4], uint2 s) {
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[m][c] = fmaf(part[m][c], bf16x4_at(s, c), acc[m][c]);
+      part[m][c] = 0.f;
+    }
+}
+
+// gs[m] += Σ of bf16 x over chunk rows row0 .. row0+n-1 (n ≤ 32), to every lane
+template <int TM>
+__device__ __forceinline__ void gemv_xsum(float (&gs)[TM], const __nv_bfloat16* xc, int xk,
+                                          int row0, int n, int lane) {
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+    gs[m] += warp_sum(lane < n ? __bfloat162float(xc[m * xk + row0 + lane]) : 0.f);
+}
+
+// Step j of one chunk of the group-factored function for this lane's 4
+// columns (arguments as gemv_step's): per segment (the step's slots that
+// share one scale row), part = Σ bf16(x) · value in f32, then acc += part ·
+// scale once; then, per segment, acc −= (Σ bf16(x)) · minus_eff, minus_eff
+// the minus row or scale · bias. The segments of step j, in order:
+//   wide     rows 64j + g0 .. + min(G, 64), g0 = 0, min(G, 64), ...
+//   crumb    G ≤ 32: field f's rows 64f + 16j .. + 16, f = 0..3; G = 256:
+//            all 64 slots (the chunk's one scale row)
+//   half256  rows 32j .. 32j+31 (group j), 128 + 32j .. (group 4 + j)
+//   half32   units 2j and 2j + 1, rows 32u .. 32u+31 (group u)
+// A 2-bit step at TM ≤ 2 holds its four fields' parts at once (each packed
+// row read once from the ring); from TM = 4 it reads its packed rows once
+// per field (the four parts would hold 12·TM more registers a lane).
+template <int TM, class P>
+__device__ __forceinline__ void gemv_grouped_step(float (&acc)[TM][4], const char* st,
+                                                  const __nv_bfloat16* xc, int xk, int j,
+                                                  int lane, const float* lut) {
+  using S = GemvStage<P>;
+  using O = TcOrder<P>;
+  constexpr int G = P::G;
+  constexpr bool kMinusEff = P::has_minus || P::map == kBias;
+  const uint8_t* cs = reinterpret_cast<const uint8_t*>(st) + 4 * lane;
+  const uint8_t* hs = reinterpret_cast<const uint8_t*>(st + S::qh_off) + 4 * lane;
+  const __nv_bfloat16* ss = reinterpret_cast<const __nv_bfloat16*>(st + S::scale_off) + 4 * lane;
+  const __nv_bfloat16* ms = reinterpret_cast<const __nv_bfloat16*>(st + S::minus_off) + 4 * lane;
+  auto word = [](const uint8_t* base, int row) {
+    return *reinterpret_cast<const uint32_t*>(base + row * kGemvBN);
+  };
+  auto scales = [](const __nv_bfloat16* base, int g) {
+    return *reinterpret_cast<const uint2*>(base + g * kGemvBN);
+  };
+  // acc −= gs · minus_eff of chunk group g
+  auto minus_eff = [&](const float (&gs)[TM], int g) {
+    const uint2 w = scales(P::has_minus ? ms : ss, g);
+    float me[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) me[c] = P::has_minus ? bf16x4_at(w, c) : bf16x4_at(w, c) * (float)P::bias;
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(-gs[m], me[c], acc[m][c]);
+  };
+  float part[TM][4];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[m][c] = 0.f;
+
+  if constexpr (P::layout == kWide) {
+    constexpr int GW = G < 64 ? G : 64;
+    auto two_rows = [&](int row) {
+      float v0[4], v1[4];
+      gemv_v4_wide(word(cs, row), v0);
+      gemv_v4_wide(word(cs, row + 1), v1);
+      gemv_fma2<TM>(part, xc + row, xk, v0, v1);
+    };
+#pragma unroll 1
+    for (int g0 = 0; g0 < 64; g0 += GW) {
+      if constexpr (TM >= 4) {  // as gemv_step: unrolled 4, TM 4 and 8 spill
+#pragma unroll 2
+        for (int r = 0; r < GW; r += 2) two_rows(64 * j + g0 + r);
+      } else {
+#pragma unroll 4
+        for (int r = 0; r < GW; r += 2) two_rows(64 * j + g0 + r);
+      }
+      gemv_scale_add<TM>(acc, part, scales(ss, (64 * j + g0) / G));
+    }
+  } else if constexpr (O::crumb) {
+    // field f of packed rows 16j + r is chunk row 64f + 16j + r; its third
+    // bit is bit 2f + j/2 of qh row (16j + r) % 32
+    auto field = [&](int f) {
+#pragma unroll 2
+      for (int r = 0; r < 16; r += 2) {
+        uint32_t h0 = 0u, h1 = 0u;
+        if constexpr (P::has_qh) {
+          h0 = word(hs, (16 * j + r) % 32);
+          h1 = word(hs, (16 * j + r + 1) % 32);
+        }
+        float v0[4], v1[4];
+        gemv_v4<P, 2>(word(cs, 16 * j + r), 2 * f, h0, 2 * f + (j >> 1), lut, v0);
+        gemv_v4<P, 2>(word(cs, 16 * j + r + 1), 2 * f, h1, 2 * f + (j >> 1), lut, v1);
+        gemv_fma2<TM>(part, xc + 64 * f + 16 * j + r, xk, v0, v1);
+      }
+    };
+    if constexpr (G == kQmmChunk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) field(f);
+      gemv_scale_add<TM>(acc, part, scales(ss, 0));
+      if constexpr (kMinusEff) {
+        float gs[TM] = {};
+#pragma unroll
+        for (int f = 0; f < 4; ++f) gemv_xsum<TM>(gs, xc, xk, 64 * f + 16 * j, 16, lane);
+        minus_eff(gs, 0);
+      }
+    } else {
+      if constexpr (TM <= 2) {
+        float parts[4][TM][4] = {};
+#pragma unroll 2
+        for (int r = 0; r < 16; r += 2) {
+          const uint32_t q0 = word(cs, 16 * j + r), q1 = word(cs, 16 * j + r + 1);
+          uint32_t h0 = 0u, h1 = 0u;
+          if constexpr (P::has_qh) {
+            h0 = word(hs, (16 * j + r) % 32);
+            h1 = word(hs, (16 * j + r + 1) % 32);
+          }
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            float v0[4], v1[4];
+            gemv_v4<P, 2>(q0, 2 * f, h0, 2 * f + (j >> 1), lut, v0);
+            gemv_v4<P, 2>(q1, 2 * f, h1, 2 * f + (j >> 1), lut, v1);
+            gemv_fma2<TM>(parts[f], xc + 64 * f + 16 * j + r, xk, v0, v1);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          gemv_scale_add<TM>(acc, parts[f], scales(ss, (64 * f + 16 * j) / G));
+      } else {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          field(f);
+          gemv_scale_add<TM>(acc, part, scales(ss, (64 * f + 16 * j) / G));
+        }
+      }
+      if constexpr (kMinusEff) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          float gs[TM] = {};
+          gemv_xsum<TM>(gs, xc, xk, 64 * f + 16 * j, 16, lane);
+          minus_eff(gs, (64 * f + 16 * j) / G);
+        }
+      }
+    }
+  } else if constexpr (O::half256) {
+    // packed rows 32j + r: chunk rows 32j + r (low nibble, group j) and
+    // 128 + 32j + r (high nibble, group 4 + j); fifth bits j and 4 + j of
+    // qh row r
+    float hi[TM][4];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) hi[m][c] = 0.f;
+#pragma unroll 2
+    for (int r = 0; r < 32; r += 2) {
+      const uint32_t q0 = word(cs, 32 * j + r), q1 = word(cs, 32 * j + r + 1);
+      uint32_t h0 = 0u, h1 = 0u;
+      if constexpr (P::has_qh) {
+        h0 = word(hs, r);
+        h1 = word(hs, r + 1);
+      }
+      float lo0[4], lo1[4], hi0[4], hi1[4];
+      gemv_v4<P, 4>(q0, 0, h0, j, lut, lo0);
+      gemv_v4<P, 4>(q1, 0, h1, j, lut, lo1);
+      gemv_v4<P, 4>(q0, 4, h0, j + 4, lut, hi0);
+      gemv_v4<P, 4>(q1, 4, h1, j + 4, lut, hi1);
+      gemv_fma2<TM>(part, xc + 32 * j + r, xk, lo0, lo1);
+      gemv_fma2<TM>(hi, xc + 128 + 32 * j + r, xk, hi0, hi1);
+    }
+    gemv_scale_add<TM>(acc, part, scales(ss, j));
+    gemv_scale_add<TM>(acc, hi, scales(ss, 4 + j));
+    if constexpr (kMinusEff) {
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        float gs[TM] = {};
+        gemv_xsum<TM>(gs, xc, xk, 128 * g + 32 * j, 32, lane);
+        minus_eff(gs, 4 * g + j);
+      }
+    }
+  } else {
+    // U = 32: units u = 2j, 2j + 1, packed rows 16u + r: chunk rows 32u + r
+    // (low nibble) and 32u + 16 + r (high), both group u; fifth bits: bits
+    // r/4 and 4 + r/4 of qh row 4u + r % 4
+#pragma unroll 1
+    for (int uu = 0; uu < 2; ++uu) {
+      const int u = 2 * j + uu;
+#pragma unroll 2
+      for (int r = 0; r < 16; r += 2) {
+        const uint32_t q0 = word(cs, 16 * u + r), q1 = word(cs, 16 * u + r + 1);
+        uint32_t h0 = 0u, h1 = 0u;
+        if constexpr (P::has_qh) {
+          h0 = word(hs, 4 * u + r % 4);
+          h1 = word(hs, 4 * u + (r + 1) % 4);
+        }
+        float lo0[4], lo1[4], hi0[4], hi1[4];
+        gemv_v4<P, 4>(q0, 0, h0, r / 4, lut, lo0);
+        gemv_v4<P, 4>(q1, 0, h1, (r + 1) / 4, lut, lo1);
+        gemv_v4<P, 4>(q0, 4, h0, 4 + r / 4, lut, hi0);
+        gemv_v4<P, 4>(q1, 4, h1, 4 + (r + 1) / 4, lut, hi1);
+        gemv_fma2<TM>(part, xc + 32 * u + r, xk, lo0, lo1);
+        gemv_fma2<TM>(part, xc + 32 * u + 16 + r, xk, hi0, hi1);
+      }
+      gemv_scale_add<TM>(acc, part, scales(ss, u));
+    }
+    if constexpr (kMinusEff) {
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu) {
+        float gs[TM] = {};
+        gemv_xsum<TM>(gs, xc, xk, 32 * (2 * j + uu), 32, lane);
+        minus_eff(gs, 2 * j + uu);
+      }
+    }
+  }
+}
+
+// After a block of a split output has written its partials: whether it is
+// the last of the gridDim.z blocks that `counter` counts (block-uniform);
+// that block sees every split's partials. The caller resets the counter.
+__device__ __forceinline__ bool gemv_last_block(int* counter, int* flag) {
+  __threadfence();  // this block's partials are visible before its count
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();  // the last block: every split's partials are visible
+  return true;
+}
+
+// out[row, n] = the partials [split, R, N] of (row, n) summed in split
+// order, rounded once to bf16
+__device__ __forceinline__ void gemv_sum_splits(const float* __restrict__ partial,
+                                                __nv_bfloat16* __restrict__ out, size_t row,
+                                                int R, int N, int n) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int z = 0; z < (int)gridDim.z; ++z) s += __ldcg(partial + ((size_t)z * R + row) * N + n);
+  out[row * N + n] = __float2bfloat16_rn(s);
+}
+
+// The rows of x [R, K] (and of the output [R, N]) that a block's TM rows
+// take, row m where has(m); the others read zeros and are not written.
+// The 2-D product's are m0 + m below M, the gather's a slot list in shared
+// memory.
+struct ContiguousRows {
+  int m0, M;
+  __device__ __forceinline__ bool has(int m) const { return m0 + m < M; }
+  __device__ __forceinline__ int operator[](int m) const { return m0 + m; }
+};
+struct SlotRows {
+  const int* list;
+  int count;
+  __device__ __forceinline__ bool has(int m) const { return m < count; }
+  __device__ __forceinline__ int operator[](int m) const { return list[m]; }
+};
+
+// One row tile of the block: the rows `rows` of x [R, K] times the [K, N]
+// weight whose planes start at codes, qh, scale and minus (an expert's
+// planes: the stack's base offset by the expert), for columns blockIdx.x ·
+// 128 .. and chunks [blockIdx.z · per, +per); materialized weights (qmm) or
+// the group-factored function (Grouped). Unsplit (gridDim.z == 1) it writes
+// out [R, N] in bf16, else partial [split, R, N] in f32; then, with
+// Finish, the last block of the tile's group of split blocks (counters[
+// blockIdx.y · gridDim.x + blockIdx.x], 0 before and after) sums the tile's
+// rows; without, the caller sums them later (gemv_last_block,
+// gemv_sum_splits). The 2-D kernel ran slower at one row on the card with
+// its finish after the body, or with the flag's address taken at the
+// finish rather than here: the compiler then derived the shared window's
+// base anew at every copy loop of the kernel. smem:
+// gemv_smem_bytes<F>(XR · per · 512), x of XR ≥ TM rows at the ring's end,
+// then the code table (gemv_lut), which the tile fills. A second tile of the
+// same block starts after a __syncthreads (this one reads its sums from the
+// ring at the end).
+template <int TM, int F, bool Grouped, bool Finish, int XR, class Rows>
 __device__ __forceinline__ void qmm_gemv_body(const __nv_bfloat16* __restrict__ x,
                                               const uint8_t* __restrict__ codes,
                                               const uint8_t* __restrict__ qh,
@@ -295,29 +615,29 @@ __device__ __forceinline__ void qmm_gemv_body(const __nv_bfloat16* __restrict__ 
                                               const __nv_bfloat16* __restrict__ minus,
                                               __nv_bfloat16* __restrict__ out,
                                               float* __restrict__ partial,
-                                              int* __restrict__ counters, int M, int K, int N,
-                                              int chunks_per_split, char* smem) {
+                                              int* __restrict__ counters, Rows rows, int R,
+                                              int K, int N, int chunks_per_split, char* smem) {
+  static_assert(TM <= XR, "x holds the tile's rows");
   using P = QmmFormat<F>;
   using S = GemvStage<P>;
   const int xk = chunks_per_split * kQmmChunk;  // bf16 an x row in shared memory
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + S::ring);
-  float* lut = reinterpret_cast<float*>(smem + S::ring + TM * xk * 2);
-  int* flag = reinterpret_cast<int*>(lut + 16);
-
+  float* lut = gemv_lut<P>(smem, XR * xk * 2);
+  [[maybe_unused]] int* flag = gemv_flag(lut);  // here, not at the finish: see above
+  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first barrier
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * kGemvBN, m0 = blockIdx.y * TM;
+  const int n0 = blockIdx.x * kGemvBN;
   const int c_begin = blockIdx.z * chunks_per_split;
   const int nch = min(K / kQmmChunk, c_begin + chunks_per_split) - c_begin;
   const bool vec16 = N % 16 == 0;
   const int cols = min(kGemvBN, N - n0);  // columns in range (a multiple of 4)
-  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first barrier
 
-  // x rows m0.. of the block's K range; rows past M zero
+  // the rows' x over the block's K range; rows past the map's zero
   for (int i = tid; i < TM * (xk / 8); i += kGemvThreads) {
     const int m = i / (xk / 8), o = (i % (xk / 8)) * 8;
-    const bool ok = m0 + m < M && o < nch * kQmmChunk;
-    cp_async16(xs + m * xk + o, ok ? x + (size_t)(m0 + m) * K + (size_t)c_begin * kQmmChunk + o : x,
-               ok ? 16 : 0);
+    const bool ok = rows.has(m) && o < nch * kQmmChunk;
+    cp_async16(xs + m * xk + o,
+               ok ? x + (size_t)rows[m] * K + (size_t)c_begin * kQmmChunk + o : x, ok ? 16 : 0);
   }
   auto load_stage = [&](int i) {
     char* st = smem + (i % S::stages) * S::bytes;
@@ -350,8 +670,11 @@ __device__ __forceinline__ void qmm_gemv_body(const __nv_bfloat16* __restrict__ 
     __syncthreads();  // everyone's landed; chunk i-1's readers are done with its stage
     if (i + S::stages - 1 < nch) load_stage(i + S::stages - 1);
     cp_async_commit();
-    gemv_step<TM, P>(acc, smem + (i % S::stages) * S::bytes, xs + i * kQmmChunk, xk, warp, lane,
-                     lut);
+    const char* st = smem + (i % S::stages) * S::bytes;
+    if constexpr (Grouped)
+      gemv_grouped_step<TM, P>(acc, st, xs + i * kQmmChunk, xk, warp, lane, lut);
+    else
+      gemv_step<TM, P>(acc, st, xs + i * kQmmChunk, xk, warp, lane, lut);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the warps' sums meet there
@@ -368,40 +691,42 @@ __device__ __forceinline__ void qmm_gemv_body(const __nv_bfloat16* __restrict__ 
   for (int m = 0; m < TM; ++m) {
     v[m] = red[m * kGemvBN + tid];
 #pragma unroll
-    for (int w = 1; w < 4; ++w) v[m] += red[(w * TM + m) * kGemvBN + tid];
+    for (int w = 1; w < 4; ++w) v[m] += red[(w * TM + m) * kGemvBN + tid];  // in warp order
   }
   if (gridDim.z == 1) {
     if (n < N) {
 #pragma unroll
       for (int m = 0; m < TM; ++m)
-        if (m0 + m < M) out[(size_t)(m0 + m) * N + n] = __float2bfloat16_rn(v[m]);
+        if (rows.has(m)) out[(size_t)rows[m] * N + n] = __float2bfloat16_rn(v[m]);
     }
     return;
   }
   if (n < N) {
 #pragma unroll
     for (int m = 0; m < TM; ++m)
-      if (m0 + m < M) partial[((size_t)blockIdx.z * M + m0 + m) * N + n] = v[m];
+      if (rows.has(m)) partial[((size_t)blockIdx.z * R + rows[m]) * N + n] = v[m];
   }
-  __threadfence();  // this block's partials are visible before its count
-  __syncthreads();
-  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) *flag = atomicAdd(counter, 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!*flag) return;
-  __threadfence();  // the last block: every split's partials are visible
-  if (n < N) {
+  if constexpr (Finish) {
+    __threadfence();  // this block's partials are visible before its count
+    __syncthreads();
+    int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
+    if (tid == 0) *flag = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+    __syncthreads();
+    if (!*flag) return;
+    __threadfence();  // the last block: every split's partials are visible
+    if (n < N) {
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      if (m0 + m >= M) break;
-      float s = 0.f;
+      for (int m = 0; m < TM; ++m) {
+        if (!rows.has(m)) break;
+        float sum = 0.f;
 #pragma unroll 8
-      for (int z = 0; z < (int)gridDim.z; ++z)  // in split order
-        s += __ldcg(partial + ((size_t)z * M + m0 + m) * N + n);
-      out[(size_t)(m0 + m) * N + n] = __float2bfloat16_rn(s);
+        for (int z = 0; z < (int)gridDim.z; ++z)  // in split order
+          sum += __ldcg(partial + ((size_t)z * R + rows[m]) * N + n);
+        out[(size_t)rows[m] * N + n] = __float2bfloat16_rn(sum);
+      }
     }
+    if (tid == 0) *counter = 0;  // ready for the next launch
   }
-  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
 }  // namespace tpullm

@@ -1,9 +1,9 @@
 // The dequantize×matmul device body on the tensor cores, shared by qmm.cu
 // (one weight, M ≥ 16) and qmm_moe.cu (expert stacks).
 //
-// It replaces, at prefill, the same TPU bodies as qmm_body.cuh:
-// tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile (the 2-D pallas_call in
-// _qmm_2d) and _kernel_stack (_qmm_stack), and computes _acc_tile's function
+// It replaces, at prefill, tpullm/ops/pallas/qmm.py::_kernel_mat + _acc_tile
+// (the 2-D pallas_call in _qmm_2d; below 16 rows qmm_gemv.cuh does) and
+// _kernel_stack (_qmm_stack), and computes _acc_tile's function
 // with its rounding points, that of ops/kernels/qmm.py::qmm_reference:
 //
 //   y[m, n] = Σ_k bf16(x[m,k]) · bf16(f32(map(code[k,n])) · f32(scale[k/G, n]))

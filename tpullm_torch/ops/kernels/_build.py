@@ -10,8 +10,9 @@ library is never loaded. The build runs at first use; `build()` starts one
 nvcc per library, all at once.
 
 `counters` is the int32 buffer, one per stream, by which the last block of
-a group of blocks that split one output (qmm's K split at M < 16, flash's
-key splits at decode) finds itself; each such block resets its counter, so
+a group of blocks that split one output (the K split of the gemv body:
+qmm and qmm_grouped at M < 16, qmm_gather; flash's key splits at decode)
+finds itself; each such block resets its counter, so
 the buffer is all zero between launches on its stream. Launches on two
 streams at once each get their own buffer. A kernel that faults part way
 leaves counts behind, but a fault on the card is sticky: the CUDA context

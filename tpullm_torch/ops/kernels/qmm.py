@@ -17,17 +17,21 @@ plain versions.
   scale is applied once per group to Σ x·value instead of to every weight.
   As in the JAX package, GROUPED_TYPES is read once from
   TPULLM_QMM_GROUPED (comma-separated type names) and is empty by default;
-  `ops.qmatmul.matmul` sends a listed type to it. Same source.
+  `ops.qmatmul.matmul` sends a listed type to it. Same source: below
+  TC_MIN_M rows on the body of qmm's CUDA-core regime (`gemv_plan`, one
+  launch a call), from TC_MIN_M rows a CUDA-core kernel of 16 rows a block
+  (`plan`), counted in GROUPED_LAUNCHES.
 - `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
   qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
   or per-expert x [E, M, K] → [E, M, N], on the tensor-core body at every
   M (the main path calls it from 32 rows up).
 - `qmm_gather` replaces _kernel_gather (the pallas_call in _qmm_gather,
   entry qmatmul_gather): row t of x [T, K] through expert ids[t] → [T, N];
-  each block reads its own id on the card.
+  the blocks read ids on the card, each streams one routed expert for up to
+  8 of its slots at once (`gather_plan`), one launch a call.
 The expert kernels take the same 22 formats; their source is
 tpullm_torch/csrc/qmm_moe.cu, on the device bodies that `qmm` uses too
-(csrc/qmm_tc.cuh for the stack, csrc/qmm_body.cuh for the gather). Each
+(csrc/qmm_tc.cuh for the stack, csrc/qmm_gemv.cuh for the gather). Each
 source builds once per format family (`_FAMILY`). What bounds each on the
 card, and what its design does about it, is in the source notes. Every
 kernel takes K % 256 == 0 and N % 4 == 0 (`takes`); ops.qmatmul sends
@@ -90,26 +94,27 @@ GROUPED_LAUNCHES = {t.name: 0 for t in _FMT}
 DEQUANT_ROUTES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_GROUPED_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)  # and grouped
 _TC_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
-_GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 _CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
-_BLOCK_N = 512  # output columns per block of qmm_grouped and qmm_gather, kQmmBlockN
-GEMV_BLOCK_N = 128  # output columns per block of qmm below TC_MIN_M, csrc/qmm_gemv.cuh kGemvBN
+_BLOCK_N = 512  # output columns per block of qmm_grouped from TC_MIN_M rows, kQmmBlockN
+GEMV_BLOCK_N = 128  # output columns per block below TC_MIN_M and of the gather, kGemvBN
 GEMV_X_BYTES = 32768  # x of a block's K range in shared memory at most (kGemvXBytes)
-GEMV_TMS = (1, 2, 4, 8)  # rows of x a block of qmm below TC_MIN_M (csrc/qmm.cu launch)
+# rows of x a block of the gemv body (qmm and qmm_grouped below TC_MIN_M:
+# csrc/qmm.cu launch; the gather's row tiles: csrc/qmm_moe.cu)
+GEMV_TMS = (1, 2, 4, 8)
 GEMV_WAVE_BLOCKS = 2  # blocks an SM that every format's gemv block fits at any TM
+GATHER_MAX_EXPERTS = 65535  # experts of a stack the gather takes (kGatherMaxExperts)
 TC_MIN_M = 16  # rows of x from which qmm runs on the tensor cores
 TC_TILE = 128  # rows and columns of a tensor-core block (csrc/qmm_tc.cuh kTcBM, kTcBN)
 TC_BLOCKS = 2  # tensor-core blocks an SM holds (csrc/qmm_tc.cuh kTcBlocksPerSm)
 # the rows per block that `plan` chooses from: qmm from TC_MIN_M rows (the
-# tensor-core tile; below it `gemv_plan`), qmm_grouped and qmm_gather (CUDA
-# cores), qmm_stack (the tensor-core tile)
+# tensor-core tile; below it `gemv_plan`), qmm_grouped from TC_MIN_M rows
+# (CUDA cores), qmm_stack (the tensor-core tile)
 _TMS = (TC_TILE,)
-_GROUPED_TMS = (1, 16)
-_GATHER_TMS = (1,)
+_GROUPED_TMS = (16,)
 _STACK_TMS = (TC_TILE,)
 
 
@@ -160,19 +165,11 @@ def qmm_grouped_reference(x: torch.Tensor, planes: dict[str, torch.Tensor],
     """x [M, K] → [M, N], the plain version of qmm_grouped (_kernel's
     rounding points; groups taken a few at a time to bound the [groups, M,
     N] temporary)."""
-    meta = _SCHEMA[gtype]
-    G = meta["G"]
+    G = _SCHEMA[gtype]["G"]
     ng = n_in // G
     M = x.shape[0]
     xb = x.to(torch.bfloat16).float()
-    bias = None
-    if "qw" in planes:  # bias folded at repack
-        vals = planes["qw"].view(torch.int8).float()
-    else:
-        codes = _expand_codes(planes, gtype)
-        vals = (_padded_lut(gtype, codes.device)[codes.to(torch.int32)] if "lut" in meta
-                else codes.float())
-        bias = meta.get("bias")
+    vals, minus = grouped_values(planes, gtype)
     w = vals.to(torch.bfloat16).float().reshape(ng, G, n_out)
     xg = xb.reshape(M, ng, G).transpose(0, 1)  # (ng, M, G)
     scale = planes["scale"].float()  # (ng, N)
@@ -181,10 +178,29 @@ def qmm_grouped_reference(x: torch.Tensor, planes: dict[str, torch.Tensor],
     for g in range(0, ng, step):
         dot = torch.bmm(xg[g:g + step], w[g:g + step])  # (groups, M, N)
         acc += (dot * scale[g:g + step, None, :]).sum(0)
-    minus = planes["minus"].float() if "minus" in planes else scale * float(bias) if bias else None
     if minus is not None:
         acc = acc - xg.sum(-1).transpose(0, 1) @ minus  # group sums of bf16 x, in f32
     return acc.to(x.dtype)
+
+
+def grouped_values(planes: dict[str, torch.Tensor],
+                   gtype: GGMLType) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The group-factored function's unscaled values [K, N] in f32 (the raw
+    code of the identity and bias maps, the table value, or the signed
+    byte) and its minus_eff [K/G, N] (the minus plane, or scale · bias of a
+    bias map; None for neither)."""
+    meta = _SCHEMA[gtype]
+    bias = None
+    if "qw" in planes:  # bias folded at repack
+        vals = planes["qw"].view(torch.int8).float()
+    else:
+        codes = _expand_codes(planes, gtype)
+        vals = (_padded_lut(gtype, codes.device)[codes.to(torch.int32)] if "lut" in meta
+                else codes.float())
+        bias = meta.get("bias")
+    minus = (planes["minus"].float() if "minus" in planes
+             else planes["scale"].float() * float(bias) if bias else None)
+    return vals, minus
 
 
 def _expert(planes: dict[str, torch.Tensor], e: int) -> dict[str, torch.Tensor]:
@@ -212,11 +228,10 @@ def qmm_gather_reference(x: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def gemv_plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
-    """(rows per block, K splits, chunks per split) of qmm below TC_MIN_M
-    rows: the least of GEMV_TMS that covers M (else the largest), 128
-    columns a block. The output tiles set the split, against the wave of
-    GEMV_WAVE_BLOCKS blocks an SM that every format's block fits:
+def _gemv_split(tiles: int, n_chunks: int, n_sm: int, tm: int) -> tuple[int, int]:
+    """(K splits, chunks per split) of the gemv body for `tiles` output
+    tiles (blocks before the split) of tm rows: against the wave of
+    GEMV_WAVE_BLOCKS blocks an SM that every format's block fits,
     - at most half a wave: K is split into as many splits as keep every
       block in that one wave (a wave and a few blocks more left most SMs
       idle for a whole block's time on the card);
@@ -225,12 +240,7 @@ def gemv_plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
       an eighth of an SM's share, which the card spreads evenly over
       several waves;
     - a wave or more: no split.
-    Each split's x stays within GEMV_X_BYTES. The splits of a column tile
-    are summed by its last block through one entry a tile of the counter
-    buffer (`_build.counters`, which checks that the tiles fit)."""
-    n_chunks = K // _CHUNK
-    tm = next((t for t in GEMV_TMS if t >= M), GEMV_TMS[-1])
-    tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
+    Each split's x (tm rows) stays within GEMV_X_BYTES."""
     wave = GEMV_WAVE_BLOCKS * n_sm
     if 2 * tiles <= wave:
         per = -(-n_chunks // max(1, min(n_chunks, wave // tiles)))
@@ -239,7 +249,31 @@ def gemv_plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
     else:
         per = n_chunks
     per = min(per, GEMV_X_BYTES // (tm * _CHUNK * 2))
-    return tm, -(-n_chunks // per), per
+    return -(-n_chunks // per), per
+
+
+def gemv_plan(M: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
+    """(rows per block, K splits, chunks per split) of qmm and qmm_grouped
+    below TC_MIN_M rows: the least of GEMV_TMS that covers M (else the
+    largest), 128 columns a block, K split by `_gemv_split` over the
+    output tiles. The splits of a column tile are summed by its last block
+    through one entry a tile of the counter buffer (`_build.counters`,
+    which checks that the tiles fit)."""
+    tm = next((t for t in GEMV_TMS if t >= M), GEMV_TMS[-1])
+    return (tm, *_gemv_split(-(-N // GEMV_BLOCK_N) * -(-M // tm), K // _CHUNK, n_sm, tm))
+
+
+def gather_plan(T: int, E: int, K: int, N: int, n_sm: int) -> tuple[int, int, int]:
+    """(x rows a block holds, K splits, chunks per split) of qmm_gather over
+    T slots and an E-expert stack. The host never reads the ids, so it
+    plans for min(T, E) routed experts (the grid's expert ranks), each one
+    row tile: the x rows are the least of GEMV_TMS that covers min(T, 8)
+    (the largest row tile a block runs), and K is split by `_gemv_split`
+    over the ranks' 128-column tiles. The splits of a (rank, column tile)
+    are summed by its last block through one counter each."""
+    tm = next(t for t in GEMV_TMS if t >= min(T, GEMV_TMS[-1]))
+    ranks = min(T, E)
+    return (tm, *_gemv_split(-(-N // GEMV_BLOCK_N) * ranks, K // _CHUNK, n_sm, tm))
 
 
 def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
@@ -250,11 +284,10 @@ def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
     The tensor-core regime (qmm from TC_MIN_M rows, qmm_stack: `tms` is
     (TC_TILE,)): TC_TILE × TC_TILE output tiles, TC_BLOCKS blocks an SM; K
     is split only when the tiles are fewer than the blocks one wave holds,
-    into as many splits as it holds. Otherwise (qmm_grouped, qmm_gather)
-    the CUDA-core regime of qmm_body.cuh: the least of the row counts that
-    covers M (else the largest), 512 columns a block, and enough blocks to
-    cover the card about four times over. qmm below TC_MIN_M rows plans
-    with `gemv_plan`."""
+    into as many splits as it holds. Otherwise (qmm_grouped from TC_MIN_M
+    rows, `tms` _GROUPED_TMS) the CUDA-core kernel of 16 rows a block, 512
+    columns a block, and enough blocks to cover the card about four times
+    over. Below TC_MIN_M rows qmm and qmm_grouped plan with `gemv_plan`."""
     n_chunks = K // _CHUNK
     if TC_TILE in tms:
         tiles = -(-M // TC_TILE) * -(-N // TC_TILE) * batches
@@ -337,20 +370,25 @@ def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
 def qmm_grouped(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
                 n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] bf16 on the card → [M, N] bf16 through the group-factored
-    CUDA kernel."""
+    CUDA kernel of M's regime: the gemv body (`gemv_plan`) below TC_MIN_M
+    rows, the 16-row CUDA-core kernel (`plan`) from there."""
     _ported(gtype, "qmm_grouped")
     ops = _check(x, planes, gtype, n_in, n_out, (), "qmm_grouped")
     if x.dim() != 2:
         raise ValueError("qmm_grouped: x must be [M, K]")
     M, K, N = x.shape[0], n_in, n_out
-    tm, split, per = plan(M, K, N, _build.n_sm(x.device), tms=_GROUPED_TMS)
+    n_sm = _build.n_sm(x.device)
+    gemv = M < TC_MIN_M
+    tm, split, per = gemv_plan(M, K, N, n_sm) if gemv else plan(M, K, N, n_sm, tms=_GROUPED_TMS)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((split if split > 1 else 0, M, N), dtype=torch.float32,
-                          device=x.device)
-    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _GROUPED_ARGS)
+    partial = torch.empty((split, M, N), dtype=torch.float32,
+                          device=x.device) if split > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(),
-                    partial.data_ptr(), M, K, N, tm, split, per, stream),
+    tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
+    counters = _build.counters(x.device, stream, tiles) if gemv and split > 1 else None
+    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _QMM_ARGS)
+    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), _ptr(partial),
+                    _ptr(counters), M, K, N, tm, split, per, stream),
                  f"qmm_grouped {gtype.name}")
     GROUPED_LAUNCHES[gtype.name] += 1
     return out
@@ -393,15 +431,21 @@ def qmm_gather(x: torch.Tensor, ids: torch.Tensor, planes: dict[str, torch.Tenso
             or ids.device != x.device or not ids.is_contiguous():
         raise ValueError("qmm_gather: x must be [T, K] and ids a contiguous int32 [T] "
                          "on the same device")
+    if T < 1 or E > GATHER_MAX_EXPERTS:
+        raise ValueError(f"qmm_gather: needs T ≥ 1 slots and E ≤ {GATHER_MAX_EXPERTS} experts, "
+                         f"got T={T}, E={E}")
     K, N = n_in, n_out
-    _, split, per = plan(1, K, N, _build.n_sm(x.device), batches=T, tms=_GATHER_TMS)
+    tm, split, per = gather_plan(T, E, K, N, _build.n_sm(x.device))
     out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((split if split > 1 else 0, T, N), dtype=torch.float32,
-                          device=x.device)
-    fn = _build.bind(f"qmm_moe{_FAMILY[gtype]}", "tpullm_qmm_gather", _GATHER_ARGS)
+    partial = torch.empty((split, T, N), dtype=torch.float32,
+                          device=x.device) if split > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    tiles = -(-N // GEMV_BLOCK_N) * min(T, E)
+    counters = _build.counters(x.device, stream, tiles) if split > 1 else None
+    fn = _build.bind(f"qmm_moe{_FAMILY[gtype]}", "tpullm_qmm_gather", _GATHER_ARGS)
     _build.check(fn(_FMT[gtype], x.data_ptr(), ids.data_ptr(), *map(_ptr, ops),
-                    out.data_ptr(), partial.data_ptr(), T, K, N, E, split, per, stream),
+                    out.data_ptr(), _ptr(partial), _ptr(counters), T, K, N, E, tm, split, per,
+                    stream),
                  f"qmm_gather {gtype.name}")
     GATHER_LAUNCHES[gtype.name] += 1
     return out
