@@ -17,9 +17,10 @@ Phases, in order; any failure raises and exits nonzero:
     the CUDA-core kernel timed on the same planes; Q4_K and Q6_K also at
     the other Llama-3-8B shapes and Q5_K and Q8_0 at Mixtral's attention
     shapes, M = 1; qmm_grouped, the
-    group-factored kernel: all 22 formats at the 8B gate_up, M in {1, 8,
-    512} (below 16 rows on the gemv body, from 16 on the 16-row kernel),
-    timed beside qmm on the same planes; qmm_stack and qmm_gather: all 22
+    group-factored kernel: all 22 formats at the 8B gate_up and down, M
+    in {1, 8, 16, 128, 512} (below 16 rows on the gemv body, from 16 on
+    the grouped form of the tensor-core body, K split at down), timed
+    beside qmm (qmm_tc from 16 rows) on the same planes; qmm_stack and qmm_gather: all 22
     formats as expert stacks at Mixtral's 4096→14336 and 14336→4096, stack
     M = 512 with a shared x (and, for Q4_K and Q6_K, a per-expert x), gather
     T in {2, 32} and T = 32 with every slot on one expert, and ids outside
@@ -48,7 +49,9 @@ Phases, in order; any failure raises and exits nonzero:
  7. i-quants: Llama-3-8B at IQ1_S and IQ3_XXS at full depth; at IQ2_XXS,
     IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 with 4 layers; Mixtral-8x7B
     at IQ2_XXS with 4 layers; the 8B at Q4_K_M with 4 layers and Q4_K and
-    Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped;
+    Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped, and a
+    profiled 512-token prefill whose every 2-D launch of the layers ran
+    qmm_grouped_tc_kernel;
  8. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
     synthesized from a seed and served the same way with a bf16 KV cache;
  9. routes: the tiny model with a 250-token head on the card against the
@@ -117,8 +120,6 @@ QMM_KEYS = {"Q4_K": "qmm_q4k", "Q6_K": "qmm_q6k", "Q5_K": "qmm_q5k", "Q8_0": "qm
 # the shapes beyond PRESET_QMM_SHAPES that formats hold at M = 1
 QMM_EXTRA = {"Q4_K": QMM_SHAPES[:2] + QMM_SHAPES[4:], "Q6_K": QMM_SHAPES[:2] + QMM_SHAPES[4:],
              "Q5_K": MIXTRAL_ATTN_SHAPES, "Q8_0": MIXTRAL_ATTN_SHAPES}
-# the group-factored kernel's shape: the 8B gate_up
-GROUPED_SHAPE = ("gate_up", 4096, 28672)
 KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather",
            "flash_bf16", "flash_q8")
 # the main path's representative shape per kernel, for the kernels line
@@ -267,11 +268,13 @@ def phase_build():
         log(f"[build] {name}: " + "; ".join(f"{k} {r} regs, spill {st}/{ld} B"
                                            for k, r, st, ld in entries))
         tc += [(k, r, st, ld) for k, r, st, ld in entries
-               if k.startswith(("qmm_tc_kernel", "qmm_stack_kernel"))]
-    if tc:
-        log(f"[build] tensor-core kernels: {len(tc)}, registers {min(e[1] for e in tc)}–"
-            f"{max(e[1] for e in tc)}, spill stores {max(e[2] for e in tc)} B at most, "
-            f"spilling: {[e[0] for e in tc if e[2] or e[3]]}")
+               if k.startswith(("qmm_tc_kernel", "qmm_stack_kernel", "qmm_grouped_tc_kernel"))]
+    for kind in ("qmm_tc_kernel", "qmm_stack_kernel", "qmm_grouped_tc_kernel"):
+        ks = [e for e in tc if e[0].startswith(kind)]
+        if ks:
+            log(f"[build] {kind}: {len(ks)} instantiations, registers {min(e[1] for e in ks)}–"
+                f"{max(e[1] for e in ks)}, spill stores {max(e[2] for e in ks)} B at most, "
+                f"spilling: {[e[0] for e in ks if e[2] or e[3]]}")
 
 
 def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
@@ -393,11 +396,16 @@ def phase_qmm(dev, results: dict):
     torch.cuda.empty_cache()
 
 
+GROUPED_ROWS = (1, 8, 16, 128, 512)
+
+
 def phase_grouped(dev, results: dict):
     """qmm_grouped, the group-factored kernel, for every format at the 8B
-    gate_up, M in {1, 8} (the gemv body) and 512 (the 16-row kernel),
-    against its plain version (qmm_grouped_reference), timed beside qmm
-    (the materializing kernel) on the same planes."""
+    gate_up and down, M in GROUPED_ROWS (below 16 rows the gemv body, from
+    16 the grouped form of the tensor-core body, whose K is split at down
+    and summed by qmm_reduce_kernel), against its plain version
+    (qmm_grouped_reference), timed beside qmm (the materializing kernel of
+    the same regime) on the same planes and cuBLAS on dequantized weights."""
     import torch
 
     from tpullm_torch.gguf.constants import GGMLType
@@ -405,36 +413,41 @@ def phase_grouped(dev, results: dict):
     from tpullm_torch.ops.kernels import qmm
 
     gen = torch.Generator(dev).manual_seed(3)
-    name, K, N = GROUPED_SHAPE
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for fmt in QMM_KEYS:
         gtype = GGMLType[fmt]
-        planes = _random_planes(gtype, N, K, gen, dev)
-        plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
-        w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
-        for M in (1, 8, 512):
-            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            got = qmm.qmm_grouped(x, planes, gtype, N, K)
-            ref = qmm.qmm_grouped_reference(x, planes, gtype, N, K)
-            torch.cuda.synchronize()
-            err = nmse(got.float(), ref.float())
-            mae = float((got.float() - ref.float()).abs().max())
-            label = f"{gtype.name} {name} M={M}"
-            expect(bool(torch.isfinite(got.float()).all()), f"grouped {label} finite")
-            expect(err <= QMM_NMSE_BOUND, f"grouped {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
-            iters = 20 if M < qmm.TC_MIN_M else 5
-            ms = time_ms(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), iters)
-            mat = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
-            plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2, 1,
-                            graph=False)
-            lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
-            bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
-            results.setdefault("qmm_grouped", []).append(dict(
-                case=label, nmse=err, max_abs_err=mae, ms=ms, qmm_ms=mat, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib))
-            log(f"[grouped] {label}: nmse {err:.2e} max|d| {mae:.3g} grouped {ms:.4f} ms, "
-                f"qmm on the same planes {mat:.4f} ms, bound {bms:.4f} ms ({by}) plain "
-                f"{plain:.3f} ms cublas-on-dequantized {lib:.4f} ms")
-        del w_lib, planes
+        for name, K, N in PRESET_QMM_SHAPES:
+            planes = _random_planes(gtype, N, K, gen, dev)
+            plane_bytes = sum(t.numel() * t.element_size() for t in planes.values())
+            w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
+            for M in GROUPED_ROWS:
+                x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                got = qmm.qmm_grouped(x, planes, gtype, N, K)
+                ref = qmm.qmm_grouped_reference(x, planes, gtype, N, K)
+                torch.cuda.synchronize()
+                err = nmse(got.float(), ref.float())
+                mae = float((got.float() - ref.float()).abs().max())
+                label = f"{gtype.name} {name} M={M}"
+                expect(bool(torch.isfinite(got.float()).all()), f"grouped {label} finite")
+                expect(err <= QMM_NMSE_BOUND,
+                       f"grouped {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+                tc = M >= qmm.TC_MIN_M
+                split = (qmm.plan if tc else qmm.gemv_plan)(M, K, N, n_sm)[1]
+                iters = 5 if tc else 20
+                ms = time_ms(lambda: qmm.qmm_grouped(x, planes, gtype, N, K), iters)
+                mat = time_ms(lambda: qmm.qmm(x, planes, gtype, N, K), iters)
+                plain = time_ms(lambda: qmm.qmm_grouped_reference(x, planes, gtype, N, K), 2,
+                                1, graph=False)
+                lib = time_ms(lambda: torch.matmul(x, w_lib), iters)
+                bms, by = bound_ms(M * K * 2 + plane_bytes + M * N * 2, 2.0 * M * K * N)
+                results.setdefault("qmm_grouped", []).append(dict(
+                    case=label, nmse=err, max_abs_err=mae, ms=ms, qmm_ms=mat, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=lib, split=split))
+                log(f"[grouped] {label} (split {split}): nmse {err:.2e} max|d| {mae:.3g} "
+                    f"grouped {ms:.4f} ms, {'qmm_tc' if tc else 'qmm'} on the same planes "
+                    f"{mat:.4f} ms ({ms / mat:.3f}×), bound {bms:.4f} ms ({by}) plain "
+                    f"{plain:.3f} ms cublas-on-dequantized {lib:.4f} ms")
+            del w_lib, planes
     torch.cuda.empty_cache()
 
 
@@ -855,7 +868,10 @@ def profile_decode(eng, ids, steps: int = 16) -> dict:
 
 def profile_prefill(eng, ids) -> dict:
     """Device time of one prefill of `ids` by kernel family, from
-    torch.profiler, beside its wall time (prompt in, logits on the host)."""
+    torch.profiler, beside its wall time (prompt in, logits on the host),
+    and the launches of each of the port's kernels by name."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -865,14 +881,20 @@ def profile_prefill(eng, ids) -> dict:
         t0 = time.perf_counter()
         eng.prefill(ids)
         wall = time.perf_counter() - t0
-    fam = {"qmm_tc": 0.0, "qmm_stack": 0.0, "qmm": 0.0, "flash": 0.0, "other": 0.0}
+    fam = {"qmm_tc": 0.0, "qmm_grouped": 0.0, "qmm_stack": 0.0, "qmm": 0.0, "flash": 0.0,
+           "other": 0.0}
+    launches: dict = {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
         if us > 0.0:
-            kind = next((k for k in ("qmm_tc", "qmm_stack", "qmm") if k in e.key),
+            kind = next((k for k in ("qmm_tc", "qmm_grouped", "qmm_stack", "qmm") if k in e.key),
                         "flash" if "flash_" in e.key else "other")
             fam[kind] += us
-    return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3}
+            m = re.search(r"\b((?:qmm|flash)_\w*kernel)\b", e.key)
+            if m:
+                launches[m.group(1)] = launches.get(m.group(1), 0) + e.count
+    return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3,
+            "launches": launches}
 
 
 def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
@@ -897,7 +919,7 @@ def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
 
 
 def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
-          short: int | None = None, n_gen: int = 64) -> dict:
+          short: int | None = None, n_gen: int = 64, prefill_len: int | None = None) -> dict:
     """Serves the GGUF at `path` through Engine: one warm-up generation,
     then three prompts and the second again, `n_gen` greedy tokens each; a
     profiled decode window; launch counts against the expected count per
@@ -905,7 +927,8 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     six times and 512 word tokens (10, 307 and 512 tokens), or, with
     `lens`, BOS and word tokens to those lengths. With `short`, one prompt
     of that many word tokens and 16 greedy tokens (16 decode steps) instead
-    (a model cut to a few layers: its TTFT says little)."""
+    (a model cut to a few layers: its TTFT says little); with `prefill_len`
+    as well, a profiled prefill of that many word tokens."""
     import torch
 
     from tpullm_torch.runtime.engine import Engine
@@ -978,14 +1001,16 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         if busy > 0 else f"[{label}] kv={kv_name} profile: no device time recorded "
         "(device busy share not measured)")
     prefill_prof = None
-    if not short:
-        prefill_prof = profile_prefill(eng, prompts[2])
-        count(len(prompts[2]), 0)
+    if not short or prefill_len:
+        long_ids = word_ids(prefill_len) if short else prompts[2]
+        prefill_prof = profile_prefill(eng, long_ids)
+        count(len(long_ids), 0)
         busy_p = sum(prefill_prof["device_ms"].values())
-        log(f"[{label}] kv={kv_name} profile: one {len(prompts[2])}-token prefill, device ms "
+        log(f"[{label}] kv={kv_name} profile: one {len(long_ids)}-token prefill, device ms "
             f"{ {k: round(v, 3) for k, v in prefill_prof['device_ms'].items()} } = "
             f"{busy_p:.3f} ms busy of {prefill_prof['wall_ms']:.3f} ms wall (profiled) "
-            f"(idle share {1 - busy_p / prefill_prof['wall_ms']:.3f})")
+            f"(idle share {1 - busy_p / prefill_prof['wall_ms']:.3f}); launches "
+            f"{prefill_prof['launches']}")
     eng.reset()
     logits = eng.prefill(prompts[0])
     count(len(prompts[0]), 0)
@@ -995,8 +1020,9 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     got = read_launches()  # just after the main path
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{label}] kv={kv_name}: load {eng.perf.t_load_s:.1f}s, peak memory {peak:.2f} GiB")
-    check_launches(f"{label} kv={kv_name}", got, per_forward_launches(eng.params), rows,
-                   kv_name, flash_decode_forwards(eng.hp, rows))
+    per = per_forward_launches(eng.params)
+    check_launches(f"{label} kv={kv_name}", got, per, rows, kv_name,
+                   flash_decode_forwards(eng.hp, rows))
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     run = dict(model=label, kv=kv_name, n_layer=eng.hp.n_layer, load_s=eng.perf.t_load_s,
@@ -1006,7 +1032,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
                ttft_ms=[p["ttft_s"] * 1e3 for p in per_prompt],
                n_prompt=[p["n_prompt"] for p in per_prompt],
                decode_tok_s=[p["decode_tok_s"] for p in per_prompt],
-               launches=got, forwards=len(rows),
+               launches=got, per_forward=per, forwards=len(rows),
                prefill_forwards={r: rows.count(r) for r in sorted(set(rows)) if r > 1},
                device_ms_per_token=prof["device_ms_per_token"],
                decode_reduce_launches=prof["reduce_launches"],
@@ -1105,12 +1131,22 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
     expect(not qmm.GROUPED_TYPES, "qmm.GROUPED_TYPES is empty (TPULLM_QMM_GROUPED unset)")
     qmm.GROUPED_TYPES.update({GGMLType.Q4_K, GGMLType.Q6_K})
     try:
-        run = serve("8b-Q4_K_M-grouped", path, torch.bfloat16, launches, short=64)
+        run = serve("8b-Q4_K_M-grouped", path, torch.bfloat16, launches, short=64,
+                    prefill_len=512)
     finally:
         qmm.GROUPED_TYPES.clear()
     expect(run["launches"]["qmm_grouped"] > 0 and run["launches"]["qmm_tc"] == 0
            and sum(run["launches"][k] for k in QMM_KEYS.values()) == 0,
            "the grouped run's 2-D launches all went through qmm_grouped")
+    # the 512-token prefill's 2-D qmm kernels by name: each layer's linears
+    # on the grouped tensor-core kernel, the head (its last row only) on the
+    # gemv body, and no other
+    per = run["per_forward"]
+    two_d = {k: n for k, n in run["prefill_profile"]["launches"].items()
+             if k not in REDUCTION_KERNELS and not k.startswith(("qmm_stack", "qmm_gather", "flash"))}
+    want = {"qmm_grouped_tc_kernel": per["qmm_layers"], "qmm_grouped_gemv_kernel": per["head"]}
+    expect(two_d == want, f"the grouped run's 512-token prefill ran the 2-D kernels {two_d}, "
+           f"not {want}")
     runs.append(run)
     path.unlink()
     return runs
@@ -1233,6 +1269,8 @@ def main() -> int:
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs}))
+    grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
+                                    if r["model"] == "8b-Q4_K_M-grouped")
 
     kernels = []
     for key in KERNELS:
@@ -1245,13 +1283,18 @@ def main() -> int:
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"])
         if key == "qmm_grouped":
+            entry["bodies"] = {"M < 16": "qmm_grouped_gemv_kernel (csrc/qmm_gemv.cuh)",
+                               "M >= 16": "qmm_grouped_tc_kernel (csrc/qmm_tc.cuh)"}
             entry["qmm_ms_same_planes"] = rep["qmm_ms"]
-            for r in rows:  # the gemv body at M = 8, the 16-row kernel at 512
+            entry["grouped_run_prefill_launches"] = grouped_prefill_launches
+            for r in rows:  # the gemv body at M = 8, the tensor-core body from 16
                 if r["case"].startswith("Q4_K") and r["case"] != rep["case"]:
                     m = r["case"].split("M=")[1]
-                    entry.update({f"m{m}_ms": r["ms"], f"m{m}_qmm_ms": r["qmm_ms"],
-                                  f"m{m}_bound_ms": r["bound_ms"],
-                                  f"m{m}_library_ms": r["library_ms"]})
+                    tag = f"m{m}" if " gate_up " in r["case"] else f"down_m{m}"
+                    entry.update({f"{tag}_ms": r["ms"], f"{tag}_qmm_ms": r["qmm_ms"],
+                                  f"{tag}_bound_ms": r["bound_ms"],
+                                  f"{tag}_library_ms": r["library_ms"],
+                                  f"{tag}_split": r["split"]})
         if key == "qmm_gather":
             for r in rows:
                 if r["case"].startswith("Q4_K gate T=32"):

@@ -103,6 +103,32 @@ def test_qmm_grouped_kernel_matches_plain(dev, name, M, K, N):
     assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
 
 
+@pytest.mark.parametrize("name", FORMATS)
+@pytest.mark.parametrize("M,K,N", [(16, 4096, 512), (37, 1024, 1028), (128, 2048, 1412),
+                                   (300, 768, 512), (512, 2048, 1024)])
+def test_qmm_grouped_tensor_core_kernel_matches_plain(dev, name, M, K, N):
+    """qmm_grouped from 16 rows, the grouped form of the tensor-core body:
+    one M tile (16, 37, 128) and several (300, 512); N = 1028 and 1412 end
+    in a partial column tile; (16, 4096, 512) splits K 16 ways (four output
+    tiles). Counted in GROUPED_LAUNCHES only; a call repeated back to back
+    gives the same bits."""
+    planes = _planes(name, N, K, dev, seed=M + 11)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    if (M, N) == (16, 512):  # the split case
+        assert qmm.plan(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)[1] > 1
+    before = qmm.GROUPED_LAUNCHES[name], qmm.TC_LAUNCHES[name], qmm.LAUNCHES[name]
+    got = qmm.qmm_grouped(x, planes, GGMLType[name], N, K)
+    again = qmm.qmm_grouped(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert (qmm.GROUPED_LAUNCHES[name], qmm.TC_LAUNCHES[name], qmm.LAUNCHES[name]) == \
+        (before[0] + 2, before[1], before[2])
+    ref = qmm.qmm_grouped_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+    assert torch.equal(got, again)
+
+
 def test_grouped_types_route_matmul_to_the_grouped_kernel(dev, monkeypatch):
     from tpullm_torch.models.weights import QuantLinear
 
@@ -377,6 +403,29 @@ def test_qmm_grouped_below_16_rows_is_one_launch(dev, M):
     assert len(kernels) == 1 and "qmm_grouped_gemv_kernel" in kernels[0], kernels
     assert kernels[0].endswith(" ×3"), kernels
     ref = qmm.qmm_grouped_reference(x, planes, GGMLType.Q6_K, N, K)
+    assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 4096, 512), (512, 4096, 28672)])
+def test_qmm_grouped_from_16_rows_runs_the_tensor_core_kernel(dev, M, K, N):
+    """A group-factored call from 16 rows launches qmm_grouped_tc_kernel,
+    and qmm_reduce_kernel only when its plan splits K (16 ways at 16 × 512;
+    none at the 8B gate_up's 512 rows); no kernel of the 16-row CUDA-core
+    design (qmm_grouped_kernel) runs."""
+    planes = _planes("Q4_K", N, K, dev, seed=M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = qmm.plan(M, K, N, n_sm)[1]
+    assert (split > 1) == (M == 16)
+    a = qmm.qmm_grouped(x, planes, GGMLType.Q4_K, N, K)
+    torch.cuda.synchronize()
+    kernels = _kernel_names(lambda: qmm.qmm_grouped(x, planes, GGMLType.Q4_K, N, K))
+    assert len(kernels) == 1 + (split > 1), kernels
+    assert any("qmm_grouped_tc_kernel" in k and k.endswith(" ×3") for k in kernels), kernels
+    assert any("qmm_reduce_kernel" in k and k.endswith(" ×3") for k in kernels) == (split > 1)
+    assert not any("qmm_grouped_kernel" in k for k in kernels), kernels
+    ref = qmm.qmm_grouped_reference(x, planes, GGMLType.Q4_K, N, K)
     assert _nmse(a.float(), ref.float()) <= QMM_NMSE_BOUND
 
 

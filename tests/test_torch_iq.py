@@ -271,6 +271,95 @@ def test_grouped_kernel_order_matches_the_plain_version(name):
         assert _nmse(got.numpy(), ref.numpy()) <= 1e-10, split
 
 
+def _tc_order(gtype: GGMLType) -> tuple[int, int, int, int]:
+    """csrc/qmm_tc.cuh TcOrder for `gtype`: (RUN, STRIDE, SEG, GSEG). Slot s
+    of step j of a 256-row chunk is chunk row (s // RUN) · STRIDE + RUN · j +
+    s % RUN; a minus segment is SEG slots, a scale segment of the grouped
+    form GSEG."""
+    meta = qmatmul._SCHEMA[gtype]
+    G, bits = meta["G"], meta["bits"]
+    crumb = bits in (2, 3)
+    half256 = bits in (4, 5) and qmatmul.split_unit(gtype) == 256
+    run = 16 if crumb else 32 if half256 else 64
+    stride = 128 if half256 else 64
+    seg = min(G, run)
+    return run, stride, seg, 32 if G >= 64 else seg
+
+
+def _tc_step_rows(gtype: GGMLType, j: int) -> list[int]:
+    run, stride, _, _ = _tc_order(gtype)
+    return [(s // run) * stride + run * j + s % run for s in range(64)]
+
+
+def _grouped_tc_order(x, planes, gtype, n_out, n_in, split):
+    """The group-factored function in the order of qmm_grouped from 16 rows
+    (the grouped form of the tensor-core body), in f32: per chunk, each
+    64-slot step of TcOrder; per scale segment of the step (GSEG slots) the
+    products Σ bf16(x) · value into a fresh sum, added times the segment's
+    scale row once; per minus segment (SEG slots) the f32 sum of bf16 x split
+    exactly into three bf16 terms, each times −minus_eff (bf16), added; the
+    K splits (of whole chunks) summed in split order."""
+    G = qmatmul._SCHEMA[gtype]["G"]
+    _, _, seg, gseg = _tc_order(gtype)
+    xb = x.to(torch.bfloat16).float()
+    vals, minus = qmm.grouped_values(planes, gtype)
+    vals = vals.to(torch.bfloat16).float()
+    scale = planes["scale"].float()
+    neg = None if minus is None else (-minus).to(torch.bfloat16).float()
+    n_chunks = n_in // 256
+    per = -(-n_chunks // split)
+    total = torch.zeros((x.shape[0], n_out))
+    for z in range(-(-n_chunks // per)):
+        acc = torch.zeros_like(total)
+        for c in range(z * per, min(n_chunks, (z + 1) * per)):
+            for j in range(4):
+                rows = torch.tensor(_tc_step_rows(gtype, j)) + 256 * c
+                for g in range(0, 64, gseg):
+                    r = rows[g:g + gseg]
+                    acc = acc + (xb[:, r] @ vals[r]) * scale[int(r[0]) // G]
+                for g in range(0, 64, seg) if neg is not None else ():
+                    r = rows[g:g + seg]
+                    gsum = xb[:, r].sum(1, keepdim=True)
+                    hi = gsum.to(torch.bfloat16).float()
+                    lo = (gsum - hi).to(torch.bfloat16).float()
+                    lo2 = (gsum - hi - lo).to(torch.bfloat16).float()
+                    assert torch.equal(hi + lo + lo2, gsum)  # the split is exact
+                    acc = acc + (hi * neg[int(r[0]) // G] + lo * neg[int(r[0]) // G]
+                                 + lo2 * neg[int(r[0]) // G])
+        total = total + acc
+    return total
+
+
+@pytest.mark.parametrize("name", ALL_TYPES)
+@pytest.mark.parametrize("M", [16, 37])
+def test_grouped_tensor_core_order_matches_the_plain_version(name, M):
+    """The plain version of qmm_grouped's order from 16 rows (TcOrder's
+    64-slot steps, each scale segment's products scaled once, the split-gsum
+    minus_eff term, splits in split order) against qmm_grouped_reference,
+    every format, K = 1024 in 1 and 3 splits: NMSE ≤ 1e-10 in f32 (the same
+    products and rounding points; the f32 sums in another order). Each
+    step covers 64 distinct rows, the chunk's 256 rows once, and every scale
+    and minus segment lies in one scale group."""
+    gtype = GGMLType[name]
+    G = qmatmul._SCHEMA[gtype]["G"]
+    _, _, seg, gseg = _tc_order(gtype)
+    assert gseg in (16, 32) and 64 % seg == 0  # one or two k16 slices a scale segment
+    steps = [_tc_step_rows(gtype, j) for j in range(4)]
+    assert sorted(r for rows in steps for r in rows) == list(range(256))
+    for rows in steps:
+        for width in (seg, gseg):
+            for g in range(0, 64, width):
+                assert len({r // G for r in rows[g:g + width]}) == 1, (width, rows[g:g + width])
+    n_out, n_in = 256, 1024
+    planes = qmatmul.repack(_plain_blocks(name, n_out, n_in, seed=9), gtype, n_out, n_in, "cpu")
+    x = torch.from_numpy(np.random.default_rng(M).standard_normal((M, n_in))
+                         .astype(np.float32)).to(torch.bfloat16).float()
+    ref = qmm.qmm_grouped_reference(x, planes, gtype, n_out, n_in)
+    for split in (1, 3):
+        got = _grouped_tc_order(x, planes, gtype, n_out, n_in, split)
+        assert _nmse(got.numpy(), ref.numpy()) <= 1e-10, split
+
+
 def test_grouped_types_route_matmul_to_the_grouped_plain_version(monkeypatch):
     from tpullm_torch.models.weights import QuantLinear
 

@@ -141,26 +141,81 @@ def test_qmm_regime_by_shape(M, K, N, want):
     assert _route(M, K, N) == want
 
 
-@pytest.mark.parametrize("M,K,N,batches,tms,want", [
-    (16, 14336, 4096, 1, qmm._TMS, (qmm.TC_TILE, 8, 7)),    # 32 tiles: K split 8 ways
-    (512, 14336, 4096, 1, qmm._TMS, (qmm.TC_TILE, 2, 28)),  # 128 tiles: split 2 ways
-    (512, 4096, 28672, 1, qmm._TMS, (qmm.TC_TILE, 1, 16)),
-    (512, 4096, 14336, 8, qmm._STACK_TMS, (qmm.TC_TILE, 1, 16)),
-    (1, 512, 768, 4, qmm._STACK_TMS, (qmm.TC_TILE, 2, 1)),  # the stack has no CUDA-core regime
-    (512, 4096, 28672, 1, qmm._GROUPED_TMS, (16, 1, 16)),   # qmm_grouped stays on CUDA cores
-    (9, 4096, 4096, 1, qmm.GEMV_TMS, (8, 4, 4)),  # two row tiles of 8: 64 tiles split 4 ways
+@pytest.mark.parametrize("M,K,N,batches,gemv,want", [
+    (16, 14336, 4096, 1, False, (qmm.TC_TILE, 8, 7)),    # 32 tiles: K split 8 ways
+    (512, 14336, 4096, 1, False, (qmm.TC_TILE, 2, 28)),  # 128 tiles: split 2 ways
+    (512, 4096, 28672, 1, False, (qmm.TC_TILE, 1, 16)),
+    (512, 4096, 14336, 8, False, (qmm.TC_TILE, 1, 16)),
+    (1, 512, 768, 4, False, (qmm.TC_TILE, 2, 1)),  # the stack has no CUDA-core regime
+    (9, 4096, 4096, 1, True, (8, 4, 4)),  # two row tiles of 8: 64 tiles split 4 ways
+    (16, 4096, 28672, 1, False, (qmm.TC_TILE, 1, 16)),  # the bucket of 16, 8B gate_up: 224 tiles
+    (16, 4096, 6144, 1, False, (qmm.TC_TILE, 4, 4)),    # 48 tiles: 4 splits of 4 chunks
 ])
-def test_qmm_plan_tiles(M, K, N, batches, tms, want):
-    if tms == qmm.GEMV_TMS:  # qmm below TC_MIN_M rows
+def test_qmm_plan_tiles(M, K, N, batches, gemv, want):
+    """`plan` (the tensor-core body: qmm and qmm_grouped from TC_MIN_M rows,
+    qmm_stack) or, with `gemv`, `gemv_plan` (qmm below TC_MIN_M rows); that
+    qmm_grouped launches by the same plans as qmm is
+    test_qmm_and_qmm_grouped_launch_by_one_plan."""
+    if gemv:
         tm, split, per = qmm.gemv_plan(M, K, N, N_SM)
     else:
-        tm, split, per = qmm.plan(M, K, N, N_SM, batches=batches, tms=tms)
+        tm, split, per = qmm.plan(M, K, N, N_SM, batches=batches)
     assert (tm, split, per) == want
     n_chunks = K // 256
     assert split * per >= n_chunks > (split - 1) * per  # every chunk once
-    if tm == qmm.TC_TILE and split > 1:  # a split keeps the blocks within one wave
+    if not gemv and split > 1:  # a split keeps the blocks within one wave
         tiles = -(-M // qmm.TC_TILE) * -(-N // qmm.TC_TILE) * batches
         assert tiles * split <= N_SM * qmm.TC_BLOCKS
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["qmm", "grouped"])
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 28672), (8, 14336, 4096), (15, 4096, 4096),
+                                   (16, 4096, 28672), (16, 14336, 4096), (37, 4096, 6144),
+                                   (512, 4096, 28672), (512, 14336, 4096)])
+def test_qmm_and_qmm_grouped_launch_by_one_plan(M, K, N, grouped, monkeypatch):
+    """The wrapper's path to the card, on the CPU with the library calls
+    recorded instead of made: qmm and qmm_grouped plan alike, from TC_MIN_M
+    rows the tensor-core entry of the format's library with `plan`'s split
+    (qmm_grouped: tpullm_qmm_grouped_tc, not a kernel of its own tiles),
+    below it the gemv entry with `gemv_plan`'s; each call counted once, in
+    TC_LAUNCHES, LAUNCHES or GROUPED_LAUNCHES."""
+    calls = []
+
+    def bind(lib, entry, argtypes):
+        def fn(*args):
+            calls.append((lib, entry, len(argtypes), args))
+            return 0
+        return fn
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(qmm, "_check", lambda *a: [torch.zeros(1)] * 4)
+    monkeypatch.setattr(qmm._build, "bind", bind)
+    monkeypatch.setattr(qmm._build, "n_sm", lambda dev: N_SM)
+    monkeypatch.setattr(qmm._build, "counters", lambda dev, stream, n: torch.zeros(n))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
+    counts = {name: dict(getattr(qmm, name)) for name in
+              ("LAUNCHES", "TC_LAUNCHES", "GROUPED_LAUNCHES")}
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    out = (qmm.qmm_grouped if grouped else qmm.qmm)(x, {}, GGMLType.Q4_K, N, K)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    (lib, entry, n_args, args), = calls
+    assert lib == f"qmm{qmm._FAMILY[GGMLType.Q4_K]}" and n_args == len(args)
+    base = "tpullm_qmm_grouped" if grouped else "tpullm_qmm"
+    if M >= qmm.TC_MIN_M:
+        tm, split, per = qmm.plan(M, K, N, N_SM)
+        assert tm == qmm.TC_TILE
+        assert (entry, args[-6:-1]) == (base + "_tc", (M, K, N, split, per))
+        counted = "GROUPED_LAUNCHES" if grouped else "TC_LAUNCHES"
+    else:
+        tm, split, per = qmm.gemv_plan(M, K, N, N_SM)
+        assert (entry, args[-7:-1]) == (base, (M, K, N, tm, split, per))
+        counted = "GROUPED_LAUNCHES" if grouped else "LAUNCHES"
+    assert (args[7] is None) == (split == 1)  # the partials only for a split K
+    for name, before in counts.items():
+        want = before["Q4_K"] + (name == counted)
+        assert getattr(qmm, name)["Q4_K"] == want, name
 
 
 @pytest.mark.parametrize("d,dv,want", [(64, 64, True), (128, 128, True), (80, 80, False),

@@ -22,6 +22,16 @@ timing code of this file:
   calls issued without waiting, over their count: the wrapper's dispatch);
   flash at B = 1 also cold (each call after 64 MB of writes, which evict
   the L2; the writes' own time subtracted);
+- the prefill kernels as graph-replay device time only: qmm (the
+  tensor-core regime) and qmm_grouped at M = 16 and 512 on the 8B's
+  gate_up for all 22 formats, qmm_stack at M = 512 on Mixtral's gate (8
+  experts, shared x) at Q4_K and Q6_K, flash at T = 512 (S = 4096, both
+  cache formats); and each tensor-core kernel's registers and spill bytes
+  from the tree's build report;
+- one profiled 512-token prefill of a Llama-3-8B Q4_K_M with 4 layers
+  (synthesized once by this checkout) with Q4_K and Q6_K in
+  qmm.GROUPED_TYPES, device ms by kernel family and launches by kernel
+  name;
 - unless --no-decode: the decode rate of a Llama-3-8B Q4_K_M (random
   weights from seed 0, synthesized once by this checkout) with a bf16
   cache: 3 × 64 greedy tokens after "hello world", and the launches of the
@@ -51,6 +61,11 @@ QMM_CASES = (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "gate_up", 4096, 28672),
              ("Q4_K", "down", 14336, 4096), ("Q4_K", "wo", 4096, 4096))
 GATHER_CASES = (("Q4_K", "gate", 4096, 14336), ("Q4_K", "down", 14336, 4096),
                 ("Q6_K", "gate", 4096, 14336), ("Q6_K", "down", 14336, 4096))
+PREFILL_FORMATS = ("Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4",
+                   "IQ4_NL", "Q2_K", "Q3_K", "IQ4_XS", "IQ2_XXS", "IQ2_XS", "IQ2_S", "IQ3_XXS",
+                   "IQ3_S", "IQ1_S", "IQ1_M", "TQ1_0", "TQ2_0")
+PREFILL_ROWS = (16, 512)
+TC_KERNELS = ("qmm_tc_kernel", "qmm_stack_kernel", "qmm_grouped_tc_kernel")
 N_EXPERT = 8
 ITERS = 50
 
@@ -116,7 +131,51 @@ def _measure(fn, timers, out: dict, key: str) -> None:
         _record(out, f"{key} {name}", timer, fn)
 
 
-def worker(tree: Path, gguf: str | None) -> dict:
+def _smoke():
+    """This checkout's chip_smoke.py as a module (its parsers and profilers
+    serve both trees)."""
+    import importlib.util
+
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+        sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules["chip_smoke"])
+    return sys.modules["chip_smoke"]
+
+
+def _registers(reports: dict) -> dict:
+    """{kernel<F>: [registers, spill store bytes, spill load bytes]} of the
+    tensor-core kernels in a build's `-Xptxas -v` reports (parsed by
+    chip_smoke.ptxas_entries)."""
+    return {k: [r, st, ld] for rep, _ in reports.values()
+            for k, r, st, ld in _smoke().ptxas_entries(rep) if k.startswith(TC_KERNELS)}
+
+
+def _grouped_prefill(gguf: str) -> dict:
+    """One profiled 512-token prefill with Q4_K and Q6_K in GROUPED_TYPES
+    (after a warm-up prefill), by chip_smoke.profile_prefill: device ms by
+    kernel family, launches by kernel name."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops.kernels import qmm
+    from tpullm_torch.runtime.engine import Engine
+
+    qmm.GROUPED_TYPES.update({GGMLType.Q4_K, GGMLType.Q6_K})
+    try:
+        eng = Engine(gguf, max_seq=4096, kv_dtype=torch.bfloat16)
+        words = "the quick brown fox jumps over the lazy dog hello world".split()
+        ids = [1] + [eng.tokenizer.vocab.token_to_id["▁" + words[i % len(words)]]
+                     for i in range(511)]
+        eng.prefill(ids)
+        prof = _smoke().profile_prefill(eng, ids)
+    finally:
+        qmm.GROUPED_TYPES.clear()
+    del eng
+    return {**prof, "busy_ms": sum(prof["device_ms"].values())}
+
+
+def worker(tree: Path, gguf: str | None, grouped_gguf: str) -> dict:
     sys.path[0] = str(tree)  # this checkout's tpullm_torch, not the script's
     import numpy as np
     import torch
@@ -130,8 +189,9 @@ def worker(tree: Path, gguf: str | None) -> dict:
     assert Path(flash.__file__).resolve().is_relative_to(tree.resolve()), flash.__file__
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    _build.build()
-    res: dict = {"tree": str(tree), "build_s": time.perf_counter() - t0}
+    reports = _build.build()
+    res: dict = {"tree": str(tree), "build_s": time.perf_counter() - t0,
+                 "registers": _registers(reports)}
     timers = _timers(torch)
     gen = torch.Generator(dev).manual_seed(0)
     H, Hkv, D, S = 32, 8, 128, 4096
@@ -202,6 +262,42 @@ def worker(tree: Path, gguf: str | None) -> dict:
             _measure(lambda: qmm.qmm_gather(x, ids, stack, gtype, N, K), timers, res,
                      f"qmm_gather {fmt} {name} T={T}")
         del stack
+    for fmt in PREFILL_FORMATS:
+        gtype, (name, K, N) = GGMLType[fmt], ("gate_up", 4096, 28672)
+        planes = random_planes(gtype, N, K)
+        for M in PREFILL_ROWS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            check(qmm.qmm_grouped(x, planes, gtype, N, K),
+                  qmm.qmm_grouped_reference(x, planes, gtype, N, K), f"qmm_grouped {fmt} M={M}")
+            for kind, fn in (("qmm", qmm.qmm), ("qmm_grouped", qmm.qmm_grouped)):
+                _record(res, f"{kind} {fmt} {name} M={M} graph_ms", timers[0],
+                        lambda: fn(x, planes, gtype, N, K))
+        del planes
+    for fmt in ("Q4_K", "Q6_K"):
+        gtype, K, N = GGMLType[fmt], 4096, 14336
+        per = [random_planes(gtype, N, K) for _ in range(N_EXPERT)]
+        stack = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        del per
+        x = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
+        _record(res, f"qmm_stack {fmt} gate M=512 graph_ms", timers[0],
+                lambda: qmm.qmm_stack(x, stack, gtype, N, K))
+        del stack
+    T = 512
+    q = torch.randn(1, T, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    off = torch.tensor([2500], dtype=torch.int32, device=dev)
+    k_q, k_s = QuantKVCache._quantize(k)
+    v_q, v_s = QuantKVCache._quantize(v)
+    _record(res, "flash bf16 T=512 graph_ms", timers[0],
+            lambda: flash.flash_attention(q, k, v, off, D ** -0.5))
+    _record(res, "flash q8 T=512 graph_ms", timers[0],
+            lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5))
+    del q, k, v, k_q, v_q
+    torch.cuda.empty_cache()
+    gp = res["grouped prefill 512"] = _grouped_prefill(grouped_gguf)
+    res["grouped prefill 512 busy_ms"] = gp["busy_ms"]
+    res["grouped prefill 512 qmm_grouped_ms"] = gp["device_ms"]["qmm_grouped"]
     torch.cuda.empty_cache()
     if gguf:
         from tpullm_torch.runtime.engine import Engine
@@ -236,9 +332,10 @@ def main() -> int:
     ap.add_argument("--no-decode", action="store_true")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--gguf", help=argparse.SUPPRESS)
+    ap.add_argument("--grouped-gguf", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.gguf)))
+        print(json.dumps(worker(args.worker, args.gguf, args.grouped_gguf)))
         return 0
     if args.parent is None or not (args.parent / "tpullm_torch").is_dir():
         ap.error("--parent must be a checkout holding tpullm_torch/")
@@ -252,20 +349,24 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
+        from tpullm_torch.models.synth import synthetic_writer
+
         gguf = None
         if not args.no_decode:
-            from tpullm_torch.models.synth import synthetic_writer
-
             gguf = Path(tmp) / "llama-3-8b-q4_k_m.gguf"
             t0 = time.perf_counter()
             synthetic_writer(gguf, shape="llama-3-8b", seed=0, ftype="Q4_K_M").write()
             print(f"synthesized the 8B Q4_K_M in {time.perf_counter() - t0:.1f}s", flush=True)
+        grouped_gguf = Path(tmp) / "llama-3-8b-q4_k_m-4l.gguf"
+        synthetic_writer(grouped_gguf, shape="llama-3-8b", seed=0, ftype="Q4_K_M",
+                         n_layer=4).write()
         runs = []
         pair = (("parent", args.parent), ("change", ROOT))
         for name, tree in [run for i in range(args.rounds) for run in pair[::1 - 2 * (i % 2)]]:
             cmd = [sys.executable, __file__, "--worker", str(tree.resolve())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd + (["--gguf", str(gguf)] if gguf else []), cwd=tree,
+            cmd += ["--grouped-gguf", str(grouped_gguf)] + (["--gguf", str(gguf)] if gguf else [])
+            proc = subprocess.run(cmd, cwd=tree,
                                   stdout=subprocess.PIPE, text=True, env=dict(os.environ))
             if proc.returncode != 0:
                 print(f"{name} run failed (exit {proc.returncode})", flush=True)
@@ -277,6 +378,8 @@ def main() -> int:
     for key in keys:
         vals = {n: [r.get(key) for m, r in runs if m == n] for n in ("parent", "change")}
         table[key] = vals
+        if any(isinstance(v, dict) for vs in vals.values() for v in vs):
+            continue  # registers, profiles: in the JSON only
         nums = {n: [v for v in vs if isinstance(v, (int, float))] for n, vs in vals.items()}
         mean = {n: (sum(v) / len(v) if v and len(v) == len(vals[n]) else None)
                 for n, v in nums.items()}

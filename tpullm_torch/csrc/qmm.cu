@@ -24,25 +24,26 @@
 //     split of the f32 group sums) is in qmm_tc.cuh; K is split as above
 //     when the output tiles are too few to fill the card.
 //
-// qmm_grouped_gemv_kernel and qmm_grouped_kernel replace the group-factored
-//   body _kernel, which _qmm_2d takes for the types of GROUPED_TYPES
-//   (TPULLM_QMM_GROUPED):
+// qmm_grouped_gemv_kernel and qmm_grouped_tc_kernel replace the
+//   group-factored body _kernel, which _qmm_2d takes for the types of
+//   GROUPED_TYPES (TPULLM_QMM_GROUPED):
 //     y[m, n] = Σ_g scale[g, n] · (Σ_{k∈g} bf16(x[m, k]) · value(k, n))
 //               − Σ_g minus_eff[g, n] · (Σ_{k∈g} bf16(x[m, k]))
 //   in f32, value the raw code of the identity and bias maps, the table
 //   value, or the signed byte (each exact in bf16, so _kernel's bf16 cast
 //   of it is the identity here), minus_eff the minus plane or scale·bias.
-//   The element loop is one FMA a weight and row of x: no per-weight scale
-//   multiply and rounding. Two regimes of M:
+//   No per-weight scale multiply and rounding: the scale goes on f32 sums
+//   once per segment of a group. The same two regimes of M and plans as
+//   qmm's, on the same bodies:
 //   - M < 16: qmm_grouped_gemv_kernel, the weight stream of qmm_kernel
 //     (qmm_gemv.cuh, gemv_grouped_step: each packed row decoded once from
 //     the ring, the scale applied once per segment of a group in a 64-slot
 //     step), one launch a call.
-//   - M ≥ 16: qmm_grouped_kernel, TM = 16 on CUDA cores, reading the planes
-//     straight from device memory and decoding every row from its packed
-//     row (a half-split or 2-bit packed row is read once per field; the
-//     repeats hit L1); a split K is summed by a second launch,
-//     qmm_reduce_kernel. Not redesigned for the tensor cores (ROADMAP 2b).
+//   - M ≥ 16: qmm_grouped_tc_kernel, the grouped form of the tensor-core
+//     body (qmm_tc.cuh: the unscaled values in the weight tile, each scale
+//     segment's products into a fresh fragment scaled once, minus_eff
+//     through the split-gsum product); a split K is summed by
+//     qmm_reduce_kernel, as qmm_tc_kernel's.
 
 #include "qmm_gemv.cuh"
 
@@ -101,142 +102,19 @@ qmm_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ c
               const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
               float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
   extern __shared__ __align__(16) char smem[];
-  qmm_tc_body<F>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0, blockIdx.x * kTcBM,
-                 blockIdx.y * kTcBN, chunks_per_split, smem);
+  qmm_tc_body<F, false>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0,
+                        blockIdx.x * kTcBM, blockIdx.y * kTcBN, chunks_per_split, smem);
 }
 
-// The unscaled values of chunk row kk for the thread's 4 columns (see
-// qmm_grouped_kernel), from the packed planes of chunk k0.
-template <class P>
-__device__ __forceinline__ void qmm_row_values(const uint8_t* __restrict__ codes,
-                                               const uint8_t* __restrict__ qh, int k0, int kk,
-                                               int N, int n0, const float* lut,
-                                               float (&v)[kQmmCols]) {
-  constexpr int U = P::U;
-  const int unit = kk / U, ru = kk % U;
-  if constexpr (P::layout == kWide) {
-    const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 + kk) * N + n0);
-#pragma unroll
-    for (int j = 0; j < kQmmCols; ++j) v[j] = (float)(int8_t)((q >> (8 * j)) & 0xffu);
-  } else {
-    uint32_t c[kQmmCols];
-    if constexpr (P::layout == kHalf || P::layout == kHalfQh) {
-      // row ru of a unit: packed row ru % (U/2), the high nibble for ru ≥
-      // U/2; its fifth bit: qh row ru % (U/8), bit ru / (U/8)
-      const int p = unit * (U / 2) + ru % (U / 2);
-      const int sh = ru >= U / 2 ? 4 : 0;
-      const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 2 + p) * N + n0);
-#pragma unroll
-      for (int j = 0; j < kQmmCols; ++j) c[j] = (q >> (8 * j + sh)) & 0xfu;
-      if constexpr (P::has_qh) {
-        const uint32_t h = *reinterpret_cast<const uint32_t*>(
-            qh + (size_t)(k0 / 8 + unit * (U / 8) + ru % (U / 8)) * N + n0);
-#pragma unroll
-        for (int j = 0; j < kQmmCols; ++j) c[j] |= ((h >> (8 * j + ru / (U / 8))) & 1u) << 4;
-      }
-    } else {
-      // U = 256: row kk is field kk/64 of packed row kk % 64; its third bit
-      // is bit kk/32 of qh row kk % 32
-      const uint32_t q = *reinterpret_cast<const uint32_t*>(codes + (size_t)(k0 / 4 + kk % 64) * N + n0);
-#pragma unroll
-      for (int j = 0; j < kQmmCols; ++j) c[j] = (q >> (8 * j + 2 * (kk / 64))) & 3u;
-      if constexpr (P::has_qh) {
-        const uint32_t h = *reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + kk % 32) * N + n0);
-#pragma unroll
-        for (int j = 0; j < kQmmCols; ++j) c[j] |= ((h >> (8 * j + kk / 32)) & 1u) << 2;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kQmmCols; ++j) {
-      if constexpr (P::table) v[j] = lut[c[j]];
-      else v[j] = (float)c[j];
-    }
-  }
-}
-
-template <int TM, int F>
-__global__ void __launch_bounds__(kQmmThreads)
-qmm_grouped_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-                   const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
-                   const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
-  using P = QmmFormat<F>;
-  constexpr int G = P::G;
-  constexpr int NG = kQmmChunk / G;  // scale groups per chunk
-  constexpr bool kMinusEff = P::has_minus || P::map == kBias;
-  __shared__ float xs[TM][kQmmChunk];
-  __shared__ float gsum[TM][kMinusEff ? NG : 1];
-  __shared__ float lut[P::table ? 16 : 1];
-  if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the first chunk's barrier
-
-  const int m0 = blockIdx.y * TM;
-  const int n0 = (blockIdx.x * kQmmThreads + threadIdx.x) * kQmmCols;
-  const int c_begin = blockIdx.z * chunks_per_split;
-  const int c_end = min(K / kQmmChunk, c_begin + chunks_per_split);
-  const bool active = n0 < N;
-
-  float acc[TM][kQmmCols];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int j = 0; j < kQmmCols; ++j) acc[m][j] = 0.f;
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int k0 = c * kQmmChunk;
-    __syncthreads();  // the previous chunk's readers are done with xs
-    for (int i = threadIdx.x; i < TM * kQmmChunk; i += kQmmThreads) {
-      const int m = i / kQmmChunk, kk = i % kQmmChunk;
-      xs[m][kk] = (m0 + m < M) ? __bfloat162float(x[(size_t)(m0 + m) * K + k0 + kk]) : 0.f;
-    }
-    __syncthreads();
-    if constexpr (kMinusEff) {
-      for (int i = threadIdx.x; i < TM * NG; i += kQmmThreads) {
-        const int m = i / NG, g = i % NG;
-        float s = 0.f;
-        for (int j = 0; j < G; ++j) s += xs[m][g * G + j];
-        gsum[m][g] = s;
-      }
-      __syncthreads();
-    }
-    if (!active) continue;
-
-    for (int g = 0; g < NG; ++g) {
-      float part[TM][kQmmCols];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int j = 0; j < kQmmCols; ++j) part[m][j] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < G; ++r) {
-        const int kk = g * G + r;
-        float v[kQmmCols];
-        qmm_row_values<P>(codes, qh, k0, kk, N, n0, lut, v);
-        qmm_fma<TM>(part, xs, kk, v);
-      }
-      float sc[kQmmCols];
-      load_bf16x4(scale + (size_t)(k0 / G + g) * N + n0, sc);
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(part[m][j], sc[j], acc[m][j]);
-      if constexpr (kMinusEff) {
-        float me[kQmmCols];
-        if constexpr (P::has_minus) {
-          load_bf16x4(minus + (size_t)(k0 / G + g) * N + n0, me);
-        } else {
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j) me[j] = sc[j] * (float)P::bias;
-        }
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(-gsum[m][g], me[j], acc[m][j]);
-      }
-    }
-  }
-
-  if (!active) return;
-  qmm_store<TM>(acc, out, partial, M, N, M, 0, m0, n0);
+template <int F>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+qmm_grouped_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
+                      const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
+                      const __nv_bfloat16* __restrict__ minus, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ partial, int M, int K, int N, int chunks_per_split) {
+  extern __shared__ __align__(16) char smem[];
+  qmm_tc_body<F, true>(x, codes, qh, scale, minus, out, partial, M, K, N, M, 0,
+                       blockIdx.x * kTcBM, blockIdx.y * kTcBN, chunks_per_split, smem);
 }
 
 __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
@@ -306,42 +184,24 @@ int launch(const void* x, const void* codes, const void* qh, const void* scale,
 
 // grid (M tiles, N tiles, split): the blocks of one weight stripe run
 // together, so its planes are read from device memory about once
-template <int F>
+template <int F, bool Grouped>
 int launch_tc(const void* x, const void* codes, const void* qh, const void* scale,
               const void* minus, void* out, void* partial, int M, int K, int N, int split,
               int chunks_per_split, cudaStream_t stream) {
-  constexpr int smem = qmm_tc_smem_bytes<F>();
+  constexpr int smem = qmm_tc_smem_bytes<F, Grouped>();
+  auto* kernel = Grouped ? qmm_grouped_tc_kernel<F> : qmm_tc_kernel<F>;
   const int n_tiles = (N + kTcBN - 1) / kTcBN;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = qmm_tc_attributes(qmm_tc_kernel<F>, smem);
+  cudaError_t err = qmm_tc_attributes(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + kTcBM - 1) / kTcBM, n_tiles, split);
-  qmm_tc_kernel<F><<<grid, kTcThreads, smem, stream>>>(
+  kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
       static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
       static_cast<const __nv_bfloat16*>(minus), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(partial), M, K, N, chunks_per_split);
   return finish(static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out), M, N, split,
                 stream);
-}
-
-// The group-factored function: below 16 rows (tm in GEMV_TMS) on the gemv
-// body, one launch; at tm = 16 (ops/kernels/qmm.py _GROUPED_TMS) the
-// CUDA-core qmm_grouped_kernel, its K split summed by qmm_reduce_kernel.
-template <int F>
-int launch_grouped(const void* x, const void* codes, const void* qh, const void* scale,
-                   const void* minus, void* out, void* partial, void* counters, int M, int K,
-                   int N, int tm, int split, int chunks_per_split, cudaStream_t stream) {
-  if (tm != 16)
-    return launch<F, true>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm,
-                           split, chunks_per_split, stream);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  auto* pb = static_cast<float*>(partial);
-  qmm_grouped_kernel<16, F><<<qmm_grid(N, (M + 15) / 16, split), kQmmThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(minus), ob, pb, M, K, N, chunks_per_split);
-  return finish(pb, ob, M, N, split, stream);
 }
 
 }  // namespace
@@ -367,7 +227,8 @@ extern "C" int tpullm_qmm(int fmt, const void* x, const void* codes, const void*
   }
 }
 
-// The tensor-core kernel (M ≥ 16): the arguments of tpullm_qmm less tm.
+// The tensor-core kernel (M ≥ 16): the arguments of tpullm_qmm less tm;
+// with split > 1 a second launch sums partial [split, M, N].
 extern "C" int tpullm_qmm_tc(int fmt, const void* x, const void* codes, const void* qh,
                              const void* scale, const void* minus, void* out, void* partial,
                              int M, int K, int N, int split, int chunks_per_split,
@@ -376,16 +237,14 @@ extern "C" int tpullm_qmm_tc(int fmt, const void* x, const void* codes, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch_tc<tpullm::F>(x, codes, qh, scale, minus, out, partial, M, K, N, split, chunks_per_split, s);
+    case tpullm::F: return launch_tc<tpullm::F, false>(x, codes, qh, scale, minus, out, partial, M, K, N, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The group-factored function: the arguments of tpullm_qmm, tm in {1, 2, 4,
-// 8} (one launch, counters as tpullm_qmm's) or 16 (counters unused; with
-// split > 1 a second launch sums partial).
+// The group-factored function below 16 rows: the arguments of tpullm_qmm.
 extern "C" int tpullm_qmm_grouped(int fmt, const void* x, const void* codes, const void* qh,
                                   const void* scale, const void* minus, void* out,
                                   void* partial, void* counters, int M, int K, int N, int tm,
@@ -394,7 +253,24 @@ extern "C" int tpullm_qmm_grouped(int fmt, const void* x, const void* codes, con
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (fmt) {
 #define TPULLM_QMM_CASE(F) \
-    case tpullm::F: return launch_grouped<tpullm::F>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
+    case tpullm::F: return launch<tpullm::F, true>(x, codes, qh, scale, minus, out, partial, counters, M, K, N, tm, split, chunks_per_split, s);
+    TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
+#undef TPULLM_QMM_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The group-factored function from 16 rows (tensor cores): the arguments
+// of tpullm_qmm_tc.
+extern "C" int tpullm_qmm_grouped_tc(int fmt, const void* x, const void* codes, const void* qh,
+                                     const void* scale, const void* minus, void* out,
+                                     void* partial, int M, int K, int N, int split,
+                                     int chunks_per_split, void* stream_ptr) {
+  if (!tpullm::qmm_shape_ok(K, N)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (fmt) {
+#define TPULLM_QMM_CASE(F) \
+    case tpullm::F: return launch_tc<tpullm::F, true>(x, codes, qh, scale, minus, out, partial, M, K, N, split, chunks_per_split, s);
     TPULLM_QMM_FORMATS(TPULLM_QMM_CASE)
 #undef TPULLM_QMM_CASE
     default: return (int)cudaErrorInvalidValue;

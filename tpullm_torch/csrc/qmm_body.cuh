@@ -1,8 +1,7 @@
 // The plane formats' traits that the device bodies of the qmm kernels
 // decode through (the gemv body below 16 rows, qmm_gemv.cuh; the
-// tensor-core body, qmm_tc.cuh), and the helpers of the CUDA-core kernel
-// that reads the planes straight from device memory (qmm.cu
-// qmm_grouped_kernel at 16 rows a block).
+// tensor-core body, qmm_tc.cuh), and the split reduction of the
+// tensor-core kernels.
 //
 // The function is that of tpullm/ops/pallas/qmm.py::_acc_tile:
 //
@@ -28,21 +27,17 @@
 //   kWide    one signed byte per weight, [K, N]          Q6_K (qw), Q8_0 (qs)
 //
 // A code table sits in shared memory as 16 f32 values, one per bank, so a
-// warp's lookups never conflict. The helpers below (qmm_store, qmm_fma,
-// qmm_reduce_body, qmm_grid) serve the kernels whose thread owns 4
-// neighbouring output columns of a 512-column block and keeps TM rows of
-// sums in registers; with more than one K split they write f32 partials that
-// qmm_reduce sums in split order (deterministic, no atomics).
+// warp's lookups never conflict. A tensor-core kernel whose K is split
+// writes f32 partials that qmm_reduce_body sums in split order
+// (deterministic, no atomics).
 #pragma once
 
 #include "common.cuh"
 
 namespace tpullm {
 
-constexpr int kQmmThreads = 128;                 // threads per block
-constexpr int kQmmCols = 4;                      // output columns per thread
-constexpr int kQmmBlockN = kQmmThreads * kQmmCols;  // 512 columns per block
-constexpr int kQmmChunk = 256;                   // K rows per chunk
+constexpr int kQmmCols = 4;     // output columns a lane decodes; N is a multiple of it
+constexpr int kQmmChunk = 256;  // K rows per chunk
 
 // the format ids the wrappers pass (ops/kernels/qmm.py _FMT)
 enum QmmFmt : int {
@@ -180,42 +175,6 @@ __device__ __forceinline__ float qmm_value(uint32_t code, const float* lut) {
   else return (float)code;
 }
 
-// Stores one block's TM rows × 4 columns: to out [R, N] as bf16 when the K
-// range is not split, else to partial [split, R, N] as f32. Row m of the
-// block is row row0 + m0 + m of the R output rows.
-template <int TM>
-__device__ __forceinline__ void qmm_store(const float (&acc)[TM][kQmmCols],
-                                          __nv_bfloat16* __restrict__ out,
-                                          float* __restrict__ partial, int M, int N,
-                                          int R, int row0, int m0, int n0) {
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    if (m0 + m >= M) break;
-    const size_t row = (size_t)row0 + m0 + m;
-    if (gridDim.z == 1) {
-      __nv_bfloat16* o = out + row * N + n0;
-#pragma unroll
-      for (int j = 0; j < kQmmCols; ++j) o[j] = __float2bfloat16_rn(acc[m][j]);
-    } else {
-      float* o = partial + ((size_t)blockIdx.z * R + row) * N + n0;
-#pragma unroll
-      for (int j = 0; j < kQmmCols; ++j) o[j] = acc[m][j];
-    }
-  }
-}
-
-// acc[m][j] += x[m] · w[j] for the TM staged rows of x at chunk row kk
-template <int TM>
-__device__ __forceinline__ void qmm_fma(float (&acc)[TM][kQmmCols], const float (*xs)[kQmmChunk],
-                                        int kk, const float (&w)[kQmmCols]) {
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const float xv = xs[m][kk];
-#pragma unroll
-    for (int j = 0; j < kQmmCols; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-  }
-}
-
 // Sums the K-split partials [split, mn] in split order and rounds to bf16.
 __device__ __forceinline__ void qmm_reduce_body(const float* __restrict__ partial,
                                                 __nv_bfloat16* __restrict__ out,
@@ -225,11 +184,6 @@ __device__ __forceinline__ void qmm_reduce_body(const float* __restrict__ partia
   float s = 0.f;
   for (int z = 0; z < split; ++z) s += partial[(size_t)z * mn + i];
   out[i] = __float2bfloat16_rn(s);
-}
-
-// The launch shape of the 512-column kernels: grid (N/512, rows, split).
-inline dim3 qmm_grid(int N, int y_blocks, int split) {
-  return dim3((N + kQmmBlockN - 1) / kQmmBlockN, y_blocks, split);
 }
 
 inline bool qmm_shape_ok(int K, int N) { return K % kQmmChunk == 0 && N % kQmmCols == 0; }

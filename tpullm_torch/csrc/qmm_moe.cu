@@ -62,7 +62,7 @@ qmm_stack_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
   using P = QmmFormat<F>;
   extern __shared__ __align__(16) char smem[];
   const int e = blockIdx.y / n_tiles;
-  qmm_tc_body<F>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
+  qmm_tc_body<F, false>(x + (size_t)e * x_stride, codes + e * P::code_elems(K, N),
                  P::has_qh ? qh + e * P::qh_elems(K, N) : nullptr,
                  scale + e * P::scale_elems(K, N),
                  P::has_minus ? minus + e * P::scale_elems(K, N) : nullptr, out, partial,
@@ -228,7 +228,7 @@ template <int F>
 int launch_stack(const void* x, const void* codes, const void* qh, const void* scale,
                  const void* minus, void* out, void* partial, int M, int K, int N, int E,
                  long long x_stride, int split, int per, cudaStream_t s) {
-  constexpr int smem = qmm_tc_smem_bytes<F>();
+  constexpr int smem = qmm_tc_smem_bytes<F, false>();
   const int n_tiles = (N + kTcBN - 1) / kTcBN;
   if ((long long)E * n_tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = qmm_tc_attributes(qmm_stack_kernel<F>, smem);

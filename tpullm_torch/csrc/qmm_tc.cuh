@@ -26,7 +26,7 @@
 //   rows, multiples of every G in {16, 32} and whole inside a G = 256 group,
 //   so scale groups and split units stay whole.
 // - Two blocks an SM (launch bounds: at most 128 registers a thread, no
-//   spills; shared memory 88–109 KB a block, the whole SM's preferred over
+//   spills; shared memory 88–113 KB a block, the whole SM's preferred over
 //   L1): one block's decode and barriers overlap the other's products. In
 //   a comparison on the card two blocks beat one block an SM (a 4-stage
 //   ring, up to 223 registers) on every shape and format compared.
@@ -62,6 +62,37 @@
 //   too few to fill the card (ops/kernels/qmm.py plan()).
 // Not done here: wgmma with a TMA producer warp, the design that reaches the
 // card's full tensor rate (ROADMAP 2b).
+//
+// The grouped form (Grouped = true: qmm.cu qmm_grouped_tc_kernel) computes,
+// on the same tiles, ring and decode, the group-factored function of
+// tpullm/ops/pallas/qmm.py::_kernel, that of ops/kernels/qmm.py::
+// qmm_grouped_reference:
+//
+//   y[m, n] = Σ_g scale[g, n] · (Σ_{k∈g} bf16(x[m,k]) · value(k, n))
+//             − Σ_g minus_eff[g, n] · (Σ_{k∈g} bf16(x[m,k]))     (f32 sums, bf16 out)
+//
+// value the raw code of the identity and bias maps, the table value or the
+// signed byte (each exact in bf16), minus_eff the minus plane or scale·bias.
+// What changes:
+// - The weight tile holds the unscaled value: no scale multiply a weight.
+// - Each step's scale rows go to shared memory as f32 [NGSEG, 128] beside
+//   the weight tile, loaded one step ahead with the plane words. A scale
+//   segment is GSEG ≤ 32 slots that share one scale row (TcOrder): for
+//   each, a fresh f32 fragment takes the segment's one or two k16 products
+//   and acc += fragment · scale, one FMA an element. The loop holds one
+//   (m-tile, n-tile) fragment at a time, the segment's B fragments and one
+//   m-tile's A: about 100 registers under the launch bound of 128 (at 64
+//   slots a segment it would be about 124, so G = 256's one scale row a
+//   step is taken in two pieces of 32), and takes the step's segments one
+//   at a time (unrolled, the compiler interleaved them and spilled, and
+//   ran slower on the card). The M·N·K/GSEG FMAs run on the CUDA cores
+//   beside the tensor-core products. One block an SM with up to 255
+//   registers, and a fragment for the whole 64 × 32 slab, were both slower
+//   on the card.
+// - The minus term is the split-gsum product above with minus_eff: the
+//   minus plane, or scale·bias for the bias maps (Q4_0, Q5_0, Q3_K, TQ1_0,
+//   TQ2_0: bias a power of two, so exact in bf16), whose bias the
+//   materializing form folds into the weight.
 #pragma once
 
 #include "qmm_body.cuh"
@@ -83,7 +114,9 @@ constexpr int kTcSteps = kQmmChunk / kTcBK;
 // s % RUN: the half-split U = 256 layouts two runs of 32 (the low and the high
 // nibbles of packed rows 32j..32j+31), the 2-bit layouts four runs of 16 (the
 // four fields of packed rows 16j..16j+15), every other layout one run of 64.
-// A minus segment is SEG slots that share one minus row.
+// A minus segment is SEG slots that share one minus row; a scale segment of
+// the grouped form GSEG slots that share one scale row (SEG, or 32 where the
+// whole step shares one: G = 256).
 template <class P>
 struct TcOrder {
   static constexpr bool crumb = P::layout == kCrumb || P::layout == kCrumbQh;
@@ -92,16 +125,29 @@ struct TcOrder {
   static constexpr int STRIDE = crumb ? 64 : half256 ? 128 : 64;
   static constexpr int SEG = P::G < RUN ? P::G : RUN;
   static constexpr int NSEG = kTcBK / SEG;
+  static constexpr int GSEG = P::G >= kTcBK ? 32 : SEG;
+  static constexpr int NGSEG = kTcBK / GSEG;
   static_assert(!half256 || P::G == 32, "the U = 256 half-split formats have G = 32");
+  static_assert(GSEG == 16 || GSEG == 32, "a scale segment is one or two k16 slices");
   __device__ static int row(int j, int s) { return (s / RUN) * STRIDE + RUN * j + s % RUN; }
 };
 
+// Whether the body applies a minus term: the minus formats, and in the
+// grouped form the bias maps too (minus_eff = scale · bias).
+template <class P, bool Grouped>
+__host__ __device__ constexpr bool tc_minus() {
+  return P::has_minus || (Grouped && P::map == kBias);
+}
+
 // Shared memory of one block: the x ring, two weight tiles, two split-gsum
-// [128, 16] and two minus [16, 128] tiles (minus formats), the code table.
-template <int F>
+// [128, 16] and two minus [16, 128] tiles (tc_minus), two f32 scale tiles
+// [NGSEG, 128] (grouped), the code table.
+template <int F, bool Grouped>
 constexpr int qmm_tc_smem_bytes() {
+  using P = QmmFormat<F>;
   return kTcStages * kTcBM * kTcXPitch * 2 + 2 * kTcBK * kTcWPitch * 2 +
-         (QmmFormat<F>::has_minus ? 2 * (kTcBM * kTcMPitch + 16 * kTcWPitch) * 2 : 0) + 16 * 4;
+         (tc_minus<P, Grouped>() ? 2 * (kTcBM * kTcMPitch + 16 * kTcWPitch) * 2 : 0) +
+         (Grouped ? 2 * TcOrder<P>::NGSEG * kTcBN * 4 : 0) + 16 * 4;
 }
 
 // the f32 of column c (0..3) of four bf16 held as a uint2
@@ -141,9 +187,19 @@ __device__ __forceinline__ uint32_t codes_times_scales(uint32_t pair, uint32_t s
   return as_u32(__hmul2(v, as_bf162(scales)));
 }
 
+// The tile's two bf16 of a code pair: times their scales (codes_times_scales)
+// or, in the grouped form, the raw codes (exact: 128 + code − 128)
+template <class P, bool Grouped>
+__device__ __forceinline__ uint32_t tc_pair(uint32_t pair, uint32_t scales) {
+  constexpr uint32_t kMagic = 0x43004300u;
+  if constexpr (Grouped) return as_u32(__hsub2(as_bf162(pair | kMagic), as_bf162(kMagic)));
+  else return codes_times_scales<P>(pair, scales);
+}
+
 // One thread's share of a step's weight tile: 8 slots × its 4 columns (the
 // warp's 32 lanes cover the tile's 128 columns). Plane words are loaded by
-// load() and decoded into the tile by store(), with other work between.
+// load() and decoded into the tile by store(), with other work between. The
+// grouped form loads no scales and stores the unscaled values.
 //   wide    8 code rows, slots 8w .. 8w+7, one scale group
 //   half32  4 packed rows 4w .. 4w+3 of the step's 32 (unit w/4), slots
 //           32u + r and 32u + 16 + r, one scale group (G = U = 32)
@@ -151,7 +207,7 @@ __device__ __forceinline__ uint32_t codes_times_scales(uint32_t pair, uint32_t s
 //           scale groups j and 4 + j
 //   crumb   2 packed rows 2w, 2w+1 of 16j .. 16j+15, slots 16f + r for the
 //           four fields f, one scale group per field (one for G = 256)
-template <class P>
+template <class P, bool Grouped>
 struct TcDecode {
   using O = TcOrder<P>;
   static constexpr bool wide = P::layout == kWide;
@@ -160,6 +216,12 @@ struct TcDecode {
   uint32_t q[NQ];
   uint32_t h[P::has_qh ? NQ : 1];
   uint2 sc[NS];
+
+  // a decoded value in f32 times its column's scale (the grouped form: as is)
+  static __device__ __forceinline__ float scaled(float v, uint2 s, int c) {
+    if constexpr (Grouped) return v;
+    else return v * bf16x4_at(s, c);
+  }
 
   __device__ __forceinline__ void load(const uint8_t* __restrict__ codes,
                                        const uint8_t* __restrict__ qh,
@@ -170,7 +232,8 @@ struct TcDecode {
       const uint8_t* c = codes + (size_t)(k0 + 64 * j + 8 * w) * N + n;
 #pragma unroll
       for (int i = 0; i < 8; ++i) q[i] = __ldg(reinterpret_cast<const uint32_t*>(c + (size_t)i * N));
-      sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)((k0 + 64 * j + 8 * w) / G) * N + n));
+      if constexpr (!Grouped)
+        sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)((k0 + 64 * j + 8 * w) / G) * N + n));
     } else if constexpr (O::crumb) {
       const int p = 16 * j + 2 * w;  // chunk-local packed row
 #pragma unroll
@@ -180,7 +243,7 @@ struct TcDecode {
           h[i] = __ldg(reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + (p + i) % 32) * N + n));
       }
 #pragma unroll
-      for (int f = 0; f < NS; ++f)
+      for (int f = 0; f < (Grouped ? 0 : NS); ++f)
         sc[f] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)((k0 + 64 * f + p) / G) * N + n));
     } else if constexpr (O::half256) {
       const int p = 32 * j + 4 * w;
@@ -190,8 +253,10 @@ struct TcDecode {
         if constexpr (P::has_qh)  // qh row of chunk row 32j + r (and 128 + 32j + r): r
           h[i] = __ldg(reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + 4 * w + i) * N + n));
       }
-      sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)(k0 / G + j) * N + n));
-      sc[1] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)(k0 / G + 4 + j) * N + n));
+      if constexpr (!Grouped) {
+        sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)(k0 / G + j) * N + n));
+        sc[1] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)(k0 / G + 4 + j) * N + n));
+      }
     } else {  // half-split U = 32: step j holds units 2j, 2j + 1
       const int u = w / 4;
 #pragma unroll
@@ -200,7 +265,8 @@ struct TcDecode {
         if constexpr (P::has_qh)  // qh rows 4 per unit; row r % 4 = i
           h[i] = __ldg(reinterpret_cast<const uint32_t*>(qh + (size_t)(k0 / 8 + 8 * j + 4 * u + i) * N + n));
       }
-      sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)((k0 + 64 * j + 32 * u) / G) * N + n));
+      if constexpr (!Grouped)
+        sc[0] = __ldg(reinterpret_cast<const uint2*>(scale + (size_t)((k0 + 64 * j + 32 * u) / G) * N + n));
     }
   }
 
@@ -222,7 +288,7 @@ struct TcDecode {
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          v[c] = (float)(int8_t)((q[i] >> (8 * c)) & 0xffu) * bf16x4_at(sc[0], c);
+          v[c] = scaled((float)(int8_t)((q[i] >> (8 * c)) & 0xffu), sc[0], c);
         st_bf16x4(col + (size_t)(8 * w + i) * kTcWPitch, v);
       }
     } else if constexpr (O::crumb) {
@@ -240,7 +306,7 @@ struct TcDecode {
               uint32_t pair = (__byte_perm(q[i], 0, sel) >> (2 * f)) & 0x00030003u;
               if constexpr (P::has_qh)
                 pair |= ((__byte_perm(h[i], 0, sel) >> (2 * f + (j >> 1))) & 0x00010001u) << 2;
-              (k ? out.y : out.x) = codes_times_scales<P>(pair, k ? s.y : s.x);
+              (k ? out.y : out.x) = tc_pair<P, Grouped>(pair, k ? s.y : s.x);
             }
             *reinterpret_cast<uint2*>(dst) = out;
           } else {
@@ -248,7 +314,7 @@ struct TcDecode {
             for (int c = 0; c < 4; ++c) {
               uint32_t code = (q[i] >> (8 * c + 2 * f)) & 3u;
               if constexpr (P::has_qh) code |= ((h[i] >> (8 * c + 2 * f + (j >> 1))) & 1u) << 2;
-              v[c] = qmm_value<P>(code, lut) * bf16x4_at(s, c);
+              v[c] = scaled(qmm_value<P>(code, lut), s, c);
             }
             st_bf16x4(dst, v);
           }
@@ -276,8 +342,8 @@ struct TcDecode {
               c_lo |= ((hb >> hbit) & 0x00010001u) << 4;
               c_up |= ((hb >> (hbit + 4)) & 0x00010001u) << 4;
             }
-            (k ? lo.y : lo.x) = codes_times_scales<P>(c_lo, k ? s_lo.y : s_lo.x);
-            (k ? up.y : up.x) = codes_times_scales<P>(c_up, k ? s_hi.y : s_hi.x);
+            (k ? lo.y : lo.x) = tc_pair<P, Grouped>(c_lo, k ? s_lo.y : s_lo.x);
+            (k ? up.y : up.x) = tc_pair<P, Grouped>(c_up, k ? s_hi.y : s_hi.x);
           }
           *reinterpret_cast<uint2*>(col + (size_t)slot_lo * kTcWPitch) = lo;
           *reinterpret_cast<uint2*>(col + (size_t)slot_hi * kTcWPitch) = up;
@@ -292,8 +358,8 @@ struct TcDecode {
               lo |= ((hb >> hbit) & 1u) << 4;
               up |= ((hb >> (hbit + 4)) & 1u) << 4;
             }
-            v[c] = qmm_value<P>(lo, lut) * bf16x4_at(s_lo, c);
-            hi[c] = qmm_value<P>(up, lut) * bf16x4_at(s_hi, c);
+            v[c] = scaled(qmm_value<P>(lo, lut), s_lo, c);
+            hi[c] = scaled(qmm_value<P>(up, lut), s_hi, c);
           }
           st_bf16x4(col + (size_t)slot_lo * kTcWPitch, v);
           st_bf16x4(col + (size_t)slot_hi * kTcWPitch, hi);
@@ -346,11 +412,70 @@ __device__ __forceinline__ void mma_k16(float (&acc)[4][4][4], const __nv_bfloat
   }
 }
 
+// d = a · b, one m16n8k16 tile, bf16 inputs, f32 sums, from zero
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
+// acc[4][4] += (a · b) ⊙ scale over KS k16 slices of one scale segment: for
+// each (m-tile, n-tile) the slices' products into a fresh f32 fragment,
+// then one FMA an element by its column's f32 scale (scale: the segment's
+// 128 columns). Live at once: the segment's B fragments, one m-tile's A,
+// one fragment and the warp's 8 column scales.
+template <int KS>
+__device__ __forceinline__ void mma_k16_scaled(float (&acc)[4][4][4], const __nv_bfloat16* a_tile,
+                                               int a_pitch, const __nv_bfloat16* b_tile,
+                                               const float* scale, int lane, int wm, int wn) {
+  uint32_t b[KS][4][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, b_tile + (size_t)(ks * 16 + (lane & 15)) * kTcWPitch + wn * 32 + np * 16 +
+                               (lane >> 4) * 8);
+      b[ks][2 * np][0] = r[0];
+      b[ks][2 * np][1] = r[1];
+      b[ks][2 * np + 1][0] = r[2];
+      b[ks][2 * np + 1][1] = r[3];
+    }
+  float2 sc[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    sc[nt] = *reinterpret_cast<const float2*>(scale + wn * 32 + nt * 8 + 2 * (lane & 3));
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    uint32_t a[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ldmatrix_x4(a[ks], a_tile + (size_t)(wm * 64 + mt * 16 + (lane & 15)) * a_pitch + ks * 16 +
+                             (lane >> 4) * 8);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float t[4];
+      mma_bf16_zero(t, a[0], b[0][nt][0], b[0][nt][1]);
+#pragma unroll
+      for (int ks = 1; ks < KS; ++ks) mma_bf16(t, a[ks], b[ks][nt][0], b[ks][nt][1]);
+      acc[mt][nt][0] = fmaf(t[0], sc[nt].x, acc[mt][nt][0]);  // row lane/4, columns 2·(lane%4) + 0, 1
+      acc[mt][nt][1] = fmaf(t[1], sc[nt].y, acc[mt][nt][1]);
+      acc[mt][nt][2] = fmaf(t[2], sc[nt].x, acc[mt][nt][2]);  // row lane/4 + 8
+      acc[mt][nt][3] = fmaf(t[3], sc[nt].y, acc[mt][nt][3]);
+    }
+  }
+}
+
 // x, codes, qh, scale and minus point at this block's weight and input rows;
 // the block computes rows m0 .. m0+127 of x [M, K] (rows past M read as 0)
 // into output rows row0 + m0 .. of R, columns n0 .. n0+127 (past N
-// skipped), over the chunks of blockIdx.z. smem: qmm_tc_smem_bytes<F>().
-template <int F>
+// skipped), over the chunks of blockIdx.z. smem: qmm_tc_smem_bytes<F,
+// Grouped>(). Grouped: the group-factored function (see the notes above).
+template <int F, bool Grouped>
 __device__ __forceinline__ void qmm_tc_body(const __nv_bfloat16* __restrict__ x,
                                             const uint8_t* __restrict__ codes,
                                             const uint8_t* __restrict__ qh,
@@ -363,23 +488,27 @@ __device__ __forceinline__ void qmm_tc_body(const __nv_bfloat16* __restrict__ x,
   using P = QmmFormat<F>;
   using O = TcOrder<P>;
   constexpr int G = P::G;
-  constexpr int NSEG = O::NSEG;
-  static_assert(!P::has_minus || 3 * NSEG <= 16, "the split gsum fits one k16 step");
+  constexpr int NSEG = O::NSEG, NGSEG = O::NGSEG;
+  constexpr bool kMinus = tc_minus<P, Grouped>();
+  static_assert(!kMinus || 3 * NSEG <= 16, "the split gsum fits one k16 step");
   auto xs = reinterpret_cast<__nv_bfloat16(*)[kTcBM][kTcXPitch]>(smem);
   auto ws = reinterpret_cast<__nv_bfloat16(*)[kTcBK][kTcWPitch]>(smem + kTcStages * kTcBM * kTcXPitch * 2);
   char* tail = smem + kTcStages * kTcBM * kTcXPitch * 2 + 2 * kTcBK * kTcWPitch * 2;
-  // minus formats: gsum split in three bf16 terms, column 3·seg + part, and
-  // −minus in rows 3·seg + part; the other columns and rows stay 0
+  // kMinus: gsum split in three bf16 terms, column 3·seg + part, and
+  // −minus_eff in rows 3·seg + part; the other columns and rows stay 0
   auto am = reinterpret_cast<__nv_bfloat16(*)[kTcBM][kTcMPitch]>(tail);
   auto bm = reinterpret_cast<__nv_bfloat16(*)[16][kTcWPitch]>(tail + 2 * kTcBM * kTcMPitch * 2);
-  float* lut = reinterpret_cast<float*>(tail + (P::has_minus ? 2 * (kTcBM * kTcMPitch + 16 * kTcWPitch) * 2 : 0));
+  tail += kMinus ? 2 * (kTcBM * kTcMPitch + 16 * kTcWPitch) * 2 : 0;
+  // grouped: the f32 scale rows of each scale segment of a step, two buffers
+  auto gs = reinterpret_cast<float(*)[NGSEG][kTcBN]>(tail);
+  float* lut = reinterpret_cast<float*>(tail + (Grouped ? 2 * NGSEG * kTcBN * 4 : 0));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;  // the warp's 64 × 32 slab of the tile
   const int n_dec = n0 + 4 * lane;          // the columns this thread decodes
   const bool on = n_dec < N;                // N % 4 == 0: all 4 in range, or none
   if constexpr (P::table) qmm_fill_table<P>(lut);  // visible after the prologue's barrier
-  if constexpr (P::has_minus) {  // zero both split tiles once
+  if constexpr (kMinus) {  // zero both split tiles once
     const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
     for (int i = tid; i < 2 * kTcBM * kTcMPitch; i += kTcThreads) (&am[0][0][0])[i] = z;
     for (int i = tid; i < 2 * 16 * kTcWPitch; i += kTcThreads) (&bm[0][0][0])[i] = z;
@@ -401,29 +530,51 @@ __device__ __forceinline__ void qmm_tc_body(const __nv_bfloat16* __restrict__ x,
       cp_async16(&xs[buf][r][slot], src, m < M ? 16 : 0);
     }
   };
-  // per step: the minus rows of its segments (2 values a thread at most)
-  __nv_bfloat16 mn_raw[2];
+  // per step: the minus rows of its segments (2 values a thread at most;
+  // a bias map's scale rows, minus_eff = scale · bias), and in the grouped
+  // form the scale rows of its scale segments (as many)
+  __nv_bfloat16 mn_raw[2], sc_raw[2];
   auto load_minus = [&](int s) {
-    if constexpr (P::has_minus) {
-      const int k0 = k0_of(s), j = s % kTcSteps;
+    const int k0 = k0_of(s), j = s % kTcSteps;
+    if constexpr (kMinus) {
+      const __nv_bfloat16* plane = P::has_minus ? minus : scale;
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int i = tid + t * kTcThreads;
         const int seg = i / kTcBN, c = i % kTcBN;
         mn_raw[t] = (seg < NSEG && n0 + c < N)
-            ? minus[(size_t)((k0 + O::row(j, seg * O::SEG)) / G) * N + n0 + c]
+            ? plane[(size_t)((k0 + O::row(j, seg * O::SEG)) / G) * N + n0 + c]
             : __float2bfloat16_rn(0.f);
       }
     }
+    if constexpr (Grouped) {
+#pragma unroll
+      for (int t = 0; t < NGSEG * kTcBN / kTcThreads; ++t) {
+        const int i = tid + t * kTcThreads;
+        const int seg = i / kTcBN, c = i % kTcBN;
+        sc_raw[t] = n0 + c < N ? scale[(size_t)((k0 + O::row(j, seg * O::GSEG)) / G) * N + n0 + c]
+                               : __float2bfloat16_rn(0.f);
+      }
+    }
   };
-  // the step's split group sums of x and its negated minus rows into buffer b
+  // the step's split group sums of x and its negated minus rows into buffer
+  // b (and the grouped form's scale rows)
   auto prep_minus = [&](int buf, int b) {
-    if constexpr (P::has_minus) {
+    if constexpr (Grouped) {
+#pragma unroll
+      for (int t = 0; t < NGSEG * kTcBN / kTcThreads; ++t) {
+        const int i = tid + t * kTcThreads;
+        gs[b][i / kTcBN][i % kTcBN] = __bfloat162float(sc_raw[t]);
+      }
+    }
+    if constexpr (kMinus) {
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int i = tid + t * kTcThreads;
         if (i < NSEG * kTcBN) {
-          const __nv_bfloat16 neg = __hneg(mn_raw[t]);
+          const __nv_bfloat16 neg = P::has_minus
+              ? __hneg(mn_raw[t])
+              : __float2bfloat16_rn(-__bfloat162float(mn_raw[t]) * (float)P::bias);  // exact
 #pragma unroll
           for (int part = 0; part < 3; ++part) bm[b][3 * (i / kTcBN) + part][i % kTcBN] = neg;
         }
@@ -461,7 +612,7 @@ __device__ __forceinline__ void qmm_tc_body(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
 
-  TcDecode<P> dec;
+  TcDecode<P, Grouped> dec;
   // prologue: x stages 0 .. kTcStages-2 in flight, step 0's weights decoded
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
@@ -494,10 +645,17 @@ __device__ __forceinline__ void qmm_tc_body(const __nv_bfloat16* __restrict__ x,
     }
 
     const int buf = s % kTcStages, wb = s & 1;
+    if constexpr (Grouped) {  // one segment at a time: unrolled, they spill at 128 registers
+#pragma unroll 1
+      for (int g = 0; g < NGSEG; ++g)
+        mma_k16_scaled<O::GSEG / 16>(acc, &xs[buf][0][g * O::GSEG], kTcXPitch,
+                                     &ws[wb][g * O::GSEG][0], gs[wb][g], lane, wm, wn);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk)
-      mma_k16(acc, &xs[buf][0][kk * 16], kTcXPitch, &ws[wb][kk * 16][0], lane, wm, wn);
-    if constexpr (P::has_minus)  // acc += split gsum · (−minus)
+      for (int kk = 0; kk < kTcBK / 16; ++kk)
+        mma_k16(acc, &xs[buf][0][kk * 16], kTcXPitch, &ws[wb][kk * 16][0], lane, wm, wn);
+    }
+    if constexpr (kMinus)  // acc += split gsum · (−minus_eff)
       mma_k16(acc, &am[wb][0][0], kTcMPitch, &bm[wb][0][0], lane, wm, wn);
     if (next) {
       dec.store(&ws[wb ^ 1][0][0], lut, (s + 1) % kTcSteps, lane, warp, on);

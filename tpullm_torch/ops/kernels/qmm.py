@@ -17,10 +17,11 @@ plain versions.
   scale is applied once per group to Σ x·value instead of to every weight.
   As in the JAX package, GROUPED_TYPES is read once from
   TPULLM_QMM_GROUPED (comma-separated type names) and is empty by default;
-  `ops.qmatmul.matmul` sends a listed type to it. Same source: below
-  TC_MIN_M rows on the body of qmm's CUDA-core regime (`gemv_plan`, one
-  launch a call), from TC_MIN_M rows a CUDA-core kernel of 16 rows a block
-  (`plan`), counted in GROUPED_LAUNCHES.
+  `ops.qmatmul.matmul` sends a listed type to it. Same source, regimes
+  and plans as `qmm`, on the same device bodies: below TC_MIN_M rows the
+  gemv body (`gemv_plan`, one launch a call), from TC_MIN_M rows the
+  grouped form of the tensor-core body (`plan`), both counted in
+  GROUPED_LAUNCHES.
 - `qmm_stack` replaces _kernel_stack (the pallas_call in _qmm_stack, entry
   qmatmul_stack): every expert of a stack [E, rows, N] on a shared x [M, K]
   or per-expert x [E, M, K] → [E, M, N], on the tensor-core body at every
@@ -95,11 +96,10 @@ DEQUANT_ROUTES = {t.name: 0 for t in _FMT}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _QMM_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)  # and grouped
-_TC_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_TC_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)  # and grouped_tc
 _STACK_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P)
 _GATHER_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
 _CHUNK = 256  # K rows per chunk, csrc/qmm_body.cuh kQmmChunk
-_BLOCK_N = 512  # output columns per block of qmm_grouped from TC_MIN_M rows, kQmmBlockN
 GEMV_BLOCK_N = 128  # output columns per block below TC_MIN_M and of the gather, kGemvBN
 GEMV_X_BYTES = 32768  # x of a block's K range in shared memory at most (kGemvXBytes)
 # rows of x a block of the gemv body (qmm and qmm_grouped below TC_MIN_M:
@@ -107,15 +107,9 @@ GEMV_X_BYTES = 32768  # x of a block's K range in shared memory at most (kGemvXB
 GEMV_TMS = (1, 2, 4, 8)
 GEMV_WAVE_BLOCKS = 2  # blocks an SM that every format's gemv block fits at any TM
 GATHER_MAX_EXPERTS = 65535  # experts of a stack the gather takes (kGatherMaxExperts)
-TC_MIN_M = 16  # rows of x from which qmm runs on the tensor cores
+TC_MIN_M = 16  # rows of x from which qmm and qmm_grouped run on the tensor cores
 TC_TILE = 128  # rows and columns of a tensor-core block (csrc/qmm_tc.cuh kTcBM, kTcBN)
 TC_BLOCKS = 2  # tensor-core blocks an SM holds (csrc/qmm_tc.cuh kTcBlocksPerSm)
-# the rows per block that `plan` chooses from: qmm from TC_MIN_M rows (the
-# tensor-core tile; below it `gemv_plan`), qmm_grouped from TC_MIN_M rows
-# (CUDA cores), qmm_stack (the tensor-core tile)
-_TMS = (TC_TILE,)
-_GROUPED_TMS = (16,)
-_STACK_TMS = (TC_TILE,)
 
 
 def takes(K: int, N: int) -> bool:
@@ -276,28 +270,17 @@ def gather_plan(T: int, E: int, K: int, N: int, n_sm: int) -> tuple[int, int, in
     return (tm, *_gemv_split(-(-N // GEMV_BLOCK_N) * ranks, K // _CHUNK, n_sm, tm))
 
 
-def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1,
-         tms: tuple[int, ...] = _TMS) -> tuple[int, int, int]:
-    """(rows per block, K splits, chunks per split) for `batches` [M, K] ×
-    [K, N] products, by the kernel's row counts `tms`.
-
-    The tensor-core regime (qmm from TC_MIN_M rows, qmm_stack: `tms` is
-    (TC_TILE,)): TC_TILE × TC_TILE output tiles, TC_BLOCKS blocks an SM; K
-    is split only when the tiles are fewer than the blocks one wave holds,
-    into as many splits as it holds. Otherwise (qmm_grouped from TC_MIN_M
-    rows, `tms` _GROUPED_TMS) the CUDA-core kernel of 16 rows a block, 512
-    columns a block, and enough blocks to cover the card about four times
-    over. Below TC_MIN_M rows qmm and qmm_grouped plan with `gemv_plan`."""
+def plan(M: int, K: int, N: int, n_sm: int, batches: int = 1) -> tuple[int, int, int]:
+    """(rows per block, K splits, chunks per split) of the tensor-core body
+    for `batches` [M, K] × [K, N] products (qmm and qmm_grouped from
+    TC_MIN_M rows, qmm_stack): TC_TILE × TC_TILE output tiles, TC_BLOCKS
+    blocks an SM; K is split only when the tiles are fewer than the blocks
+    one wave holds, into as many splits as it holds. Below TC_MIN_M rows qmm
+    and qmm_grouped plan with `gemv_plan`."""
     n_chunks = K // _CHUNK
-    if TC_TILE in tms:
-        tiles = -(-M // TC_TILE) * -(-N // TC_TILE) * batches
-        per = -(-n_chunks // max(1, min(n_chunks, n_sm * TC_BLOCKS // tiles)))
-        return TC_TILE, -(-n_chunks // per), per
-    tm = next((t for t in tms if t >= M), tms[-1])
-    blocks = -(-N // _BLOCK_N) * -(-M // tm) * batches
-    split = max(1, min(n_chunks, -(-4 * n_sm // blocks)))
-    per = -(-n_chunks // split)
-    return tm, -(-n_chunks // per), per
+    tiles = -(-M // TC_TILE) * -(-N // TC_TILE) * batches
+    per = -(-n_chunks // max(1, min(n_chunks, n_sm * TC_BLOCKS // tiles)))
+    return TC_TILE, -(-n_chunks // per), per
 
 
 def _check(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType, K: int,
@@ -336,62 +319,54 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
-        n_out: int, n_in: int) -> torch.Tensor:
-    """x [M, K] bf16 on the card → [M, N] bf16 through the CUDA kernel of
-    M's regime: the tensor-core kernel (`plan`) from TC_MIN_M rows, else
-    the CUDA-core one (`gemv_plan`)."""
-    _ported(gtype, "qmm")
-    ops = _check(x, planes, gtype, n_in, n_out, (), "qmm")
+def _qmm_2d(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
+            n_out: int, n_in: int, grouped: bool) -> torch.Tensor:
+    """x [M, K] bf16 on the card → [M, N] bf16 through the kernel of M's
+    regime, materializing (`qmm`) or group-factored (`qmm_grouped`): the
+    tensor-core kernel (`plan`) from TC_MIN_M rows, else the CUDA-core one
+    (`gemv_plan`)."""
+    what = "qmm_grouped" if grouped else "qmm"
+    _ported(gtype, what)
+    ops = _check(x, planes, gtype, n_in, n_out, (), what)
     if x.dim() != 2:
-        raise ValueError("qmm: x must be [M, K]")
+        raise ValueError(f"{what}: x must be [M, K]")
     M, K, N = x.shape[0], n_in, n_out
     n_sm = _build.n_sm(x.device)
-    tm, split, per = plan(M, K, N, n_sm) if M >= TC_MIN_M else gemv_plan(M, K, N, n_sm)
+    tc = M >= TC_MIN_M
+    tm, split, per = plan(M, K, N, n_sm) if tc else gemv_plan(M, K, N, n_sm)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split, M, N), dtype=torch.float32,
                           device=x.device) if split > 1 else None
     lib, stream = f"qmm{_FAMILY[gtype]}", torch.cuda.current_stream(x.device).cuda_stream
+    entry = "tpullm_qmm_grouped" if grouped else "tpullm_qmm"
     args = (_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), _ptr(partial))
-    if M >= TC_MIN_M:
-        fn = _build.bind(lib, "tpullm_qmm_tc", _TC_ARGS)
-        _build.check(fn(*args, M, K, N, split, per, stream), f"qmm tensor-core {gtype.name}")
-        TC_LAUNCHES[gtype.name] += 1
+    if tc:
+        fn = _build.bind(lib, entry + "_tc", _TC_ARGS)
+        _build.check(fn(*args, M, K, N, split, per, stream), f"{what} tensor-core {gtype.name}")
     else:
         tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
         counters = _build.counters(x.device, stream, tiles) if split > 1 else None
-        fn = _build.bind(lib, "tpullm_qmm", _QMM_ARGS)
+        fn = _build.bind(lib, entry, _QMM_ARGS)
         _build.check(fn(*args, _ptr(counters), M, K, N, tm, split, per, stream),
-                     f"qmm {gtype.name}")
-        LAUNCHES[gtype.name] += 1
+                     f"{what} {gtype.name}")
+    (GROUPED_LAUNCHES if grouped else TC_LAUNCHES if tc else LAUNCHES)[gtype.name] += 1
     return out
+
+
+def qmm(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
+        n_out: int, n_in: int) -> torch.Tensor:
+    """x [M, K] bf16 on the card → [M, N] bf16 through the materializing
+    kernel of M's regime (`_qmm_2d`); counted in TC_LAUNCHES from TC_MIN_M
+    rows, else in LAUNCHES."""
+    return _qmm_2d(x, planes, gtype, n_out, n_in, grouped=False)
 
 
 def qmm_grouped(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
                 n_out: int, n_in: int) -> torch.Tensor:
     """x [M, K] bf16 on the card → [M, N] bf16 through the group-factored
-    CUDA kernel of M's regime: the gemv body (`gemv_plan`) below TC_MIN_M
-    rows, the 16-row CUDA-core kernel (`plan`) from there."""
-    _ported(gtype, "qmm_grouped")
-    ops = _check(x, planes, gtype, n_in, n_out, (), "qmm_grouped")
-    if x.dim() != 2:
-        raise ValueError("qmm_grouped: x must be [M, K]")
-    M, K, N = x.shape[0], n_in, n_out
-    n_sm = _build.n_sm(x.device)
-    gemv = M < TC_MIN_M
-    tm, split, per = gemv_plan(M, K, N, n_sm) if gemv else plan(M, K, N, n_sm, tms=_GROUPED_TMS)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((split, M, N), dtype=torch.float32,
-                          device=x.device) if split > 1 else None
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    tiles = -(-N // GEMV_BLOCK_N) * -(-M // tm)
-    counters = _build.counters(x.device, stream, tiles) if gemv and split > 1 else None
-    fn = _build.bind(f"qmm{_FAMILY[gtype]}", "tpullm_qmm_grouped", _QMM_ARGS)
-    _build.check(fn(_FMT[gtype], x.data_ptr(), *map(_ptr, ops), out.data_ptr(), _ptr(partial),
-                    _ptr(counters), M, K, N, tm, split, per, stream),
-                 f"qmm_grouped {gtype.name}")
-    GROUPED_LAUNCHES[gtype.name] += 1
-    return out
+    kernel of M's regime (`_qmm_2d`: the regimes and plans of `qmm`);
+    counted in GROUPED_LAUNCHES."""
+    return _qmm_2d(x, planes, gtype, n_out, n_in, grouped=True)
 
 
 def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
@@ -404,7 +379,7 @@ def qmm_stack(x: torch.Tensor, planes: dict[str, torch.Tensor], gtype: GGMLType,
     if x.dim() not in (2, 3) or (x.dim() == 3 and x.shape[0] != E):
         raise ValueError(f"qmm_stack: x must be [M, K] or [{E}, M, K], got {tuple(x.shape)}")
     M, K, N = x.shape[-2], n_in, n_out
-    _, split, per = plan(M, K, N, _build.n_sm(x.device), batches=E, tms=_STACK_TMS)
+    _, split, per = plan(M, K, N, _build.n_sm(x.device), batches=E)
     out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((split if split > 1 else 0, E * M, N), dtype=torch.float32,
                           device=x.device)
