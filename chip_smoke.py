@@ -5,6 +5,8 @@
 
 Phases, in order; any failure raises and exits nonzero:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
+    whether the `regex` module imports there (for information: the port
+    does not use it);
  2. build: compiles every kernel library from tpullm_torch/csrc with nvcc,
     one process per library (the qmm sources once per layout family), and
     prints each library's compile seconds, the `-Xptxas -v` report, and
@@ -33,14 +35,24 @@ Phases, in order; any failure raises and exits nonzero:
     events over a CUDA graph of back-to-back calls (device time, not the
     Python wrapper's dispatch) beside its bound and a PyTorch library call;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
-    Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU;
- 5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed, served by
-    Engine with a bf16 and with a q8 KV cache: three prompts (one of 512
-    tokens), 64 generated tokens each, one prompt twice for determinism;
-    load time and its peak memory, TTFT, pp512 and decode tok/s, peak
-    memory, device time by kernel family of 16 profiled decode steps and of
-    one profiled 512-token prefill, each kernel's launches against the
-    count expected per forward;
+    Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
+    generate_tokens through a GBNF grammar and a penalised host Sampler on
+    the card against the CPU;
+ 5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed with Llama-3's
+    byte-level BPE vocab (tokenizer.ggml.model "gpt2", pre "llama-bpe"),
+    a fixed mixed-script sentence through its tokenizer and back, then the
+    model served by Engine with a bf16 and with a q8 KV cache: three
+    prompts (one of 512 tokens), 64 generated tokens each (the decode
+    chunk as CUDA-graph replays), one prompt twice for determinism; load
+    time and its peak memory, TTFT, pp512 and decode tok/s, peak memory,
+    device time by kernel family of one profiled chunk of decode steps (the
+    graph's replays) and of one profiled 512-token prefill, each kernel's
+    launches against the count expected per forward; and the graph phase
+    (`graph_decode`):
+    greedy ids of the graph against a decode_step loop over two chunks and
+    a tail, launches per replay, capture seconds and pool bytes, decode
+    wall, busy and idle a token with the graph beside eager steps, and two
+    sampled runs from one seed;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
     16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
@@ -53,7 +65,8 @@ Phases, in order; any failure raises and exits nonzero:
     profiled 512-token prefill whose every 2-D launch of the layers ran
     qmm_grouped_tc_kernel;
  8. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
-    synthesized from a seed and served the same way with a bf16 KV cache;
+    synthesized from a seed and served the same way with a bf16 KV cache,
+    with the graph phase;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dim 96 through the counted dense path;
@@ -222,6 +235,13 @@ def phase_card() -> str:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    try:
+        import regex
+        found = f"imports (regex {regex.__version__})"
+    except ImportError as e:
+        found = f"does not import ({e})"
+    log(f"[env] the regex module {found}; tpullm_torch does not use it "
+        "(its BPE patterns run on the standard library's re)")
     return smi
 
 
@@ -680,11 +700,9 @@ def phase_flash(dev, results: dict):
 
 
 def reset_launches():
-    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.graph import launch_counts
 
-    for d in (qmm.LAUNCHES, qmm.TC_LAUNCHES, qmm.GROUPED_LAUNCHES, qmm.STACK_LAUNCHES,
-              qmm.GATHER_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.DECODE_LAUNCHES,
-              flash.ATTN_DENSE_ROUTES):
+    for d in launch_counts():
         for k in d:
             d[k] = 0
 
@@ -830,69 +848,168 @@ def phase_tiny(dev, tmp: Path):
             f"max {max(errs):.2e}; greedy {'equal' if a == b else 'DIFFERENT'}")
         expect(max(errs) <= 1e-3, f"{what} logits NMSE {max(errs):.3e} <= 1e-3")
         expect(a == b, f"{what} greedy ids card {a} vs cpu {b}")
+        if (shape, ftype, kv) == ("tiny", "Q4_K_M", torch.bfloat16):
+            grammar_run(gpu, cpu)
 
 
-def profile_decode(eng, ids, steps: int = 16) -> dict:
-    """Device time of `steps` decode steps by kernel family, from
-    torch.profiler (the steps read their logits back, as decode_step does),
-    and the launches of each of the port's reduction kernels
-    (REDUCTION_KERNELS) among them: 0, as every kernel a decode runs sums
-    its K split in its own launch."""
+# words of lower-case letters, each after a space
+GRAMMAR_WORDS = r'root ::= (" " [a-z]+)+'
+
+
+def grammar_run(gpu, cpu):
+    """generate_tokens through a GBNF grammar (GRAMMAR_WORDS) and a greedy
+    Sampler with repetition penalties, on the card and on the CPU: the same
+    ids, every one allowed by the grammar."""
+    from tpullm_torch.grammar import GrammarConstraint
+    from tpullm_torch.runtime.sampling import Sampler, SamplerParams
+
+    def sampler(eng):
+        c = GrammarConstraint.from_tokenizer(GRAMMAR_WORDS, eng.tokenizer)
+        return Sampler(SamplerParams(temp=0.0, penalty_repeat=1.5, penalty_last_n=-1,
+                                     penalty_freq=0.2, seed=42),
+                       constraint_fn=c, constraint_accept=c.accept)
+
+    ids = gpu.tokenizer.tokenize("hello world")
+    outs = []
+    for eng in (gpu, cpu):
+        eng.reset()
+        outs.append(list(eng.generate_tokens(ids, 24, sampler(eng))))
+    text = gpu.tokenizer.detokenize(outs[0])
+    log(f"[tiny] generate_tokens with the grammar {GRAMMAR_WORDS!r} and a penalised sampler: "
+        f"card {outs[0]} {'equal to' if outs[0] == outs[1] else 'NOT'} the CPU's; text {text!r}")
+    expect(outs[0] == outs[1], f"grammar run: card ids {outs[0]} vs cpu {outs[1]}")
+    expect(len(outs[0]) > 0 and all(w.isalpha() and w.islower() for w in text.split()),
+           f"grammar run: {text!r} is lower-case words")
+
+
+PROFILE_MARGIN_S = 0.005  # host time between the recorded window's edges and fn's launches
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CPU and CUDA activity) after one warm-up
+    step of the profiler, in which it traces one small launch, with
+    PROFILE_MARGIN_S of host time before fn's first launch and after its
+    last kernel ends: kernels near the start of a trace went missing (the
+    first qmm launches of a 512-token prefill were absent from it). Returns
+    (fn's result, the profile of fn alone; `device_events` reads it)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    eng.reset()
-    tok = int(np.argmax(eng.prefill(ids)))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            tok = int(np.argmax(eng.decode_step(tok)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
-    top, reduce_launches = [], dict.fromkeys(REDUCTION_KERNELS, 0)
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+    return out, prof
+
+
+def device_events(prof):
+    """(key, device µs, count) of each event with device time in a
+    profile, without the profiler's own step ranges (which the profiler
+    credits with the device time of the kernels launched under them that no
+    other operator claims: the graph replays and the port's kernels)."""
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if us <= 0.0:
-            continue
-        kind = next((k for k in ("qmm_stack", "qmm_gather", "qmm") if k in e.key),
-                    "flash" if "flash_" in e.key else "other")
-        fam[kind] += us
-        top.append((us, e.key, e.count))
+        if us > 0.0 and not e.key.startswith("ProfilerStep"):
+            yield e.key, us, e.count
+
+
+def _family(key: str) -> str:
+    return next((k for k in ("qmm_stack", "qmm_gather", "qmm") if k in key),
+                "flash" if "flash_" in key else "other")
+
+
+def run_steps(runner, n: int, eager: bool = False) -> list[int]:
+    """`n` decode steps of `runner` from its buffers' state, ids read back
+    once: runner.run (graph replays on the card), or with `eager` the
+    runner's step called n times on the current stream, no graph (the
+    eager yardstick the graph is timed against)."""
+    if not eager:
+        return runner.run(n)
+    runner.step_index.zero_()
+    for _ in range(n):
+        runner.step()
+    return runner.ids[:n].tolist()
+
+
+def _start(eng, runner, prompt) -> None:
+    """A fresh prefill of `prompt`; its greedy id loaded into `runner`."""
+    import torch
+
+    eng.reset()
+    with torch.inference_mode():
+        runner.start(torch.tensor(int(np.argmax(eng.prefill(prompt))), device=eng.device),
+                     eng.n_past)
+    torch.cuda.synchronize()
+
+
+def profile_decode(eng, runner, ids, steps: int, eager: bool = False) -> dict:
+    """Device time a decode step by kernel family over `steps` decode steps
+    of `runner` (one run) after a prefill of `ids`: replays of its CUDA
+    graph, the main path, or with `eager` the same steps without a graph;
+    from torch.profiler (`profiled`). Beside it the launches of each of the
+    port's reduction kernels (REDUCTION_KERNELS) among them: 0, as every
+    kernel a decode runs sums its K split in its own launch; and the
+    CUDA-event span of the steps on the card."""
+    import torch
+
+    _start(eng, runner, ids)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def steps_run():
+        start.record()
+        with torch.inference_mode():
+            run_steps(runner, steps, eager)
+        end.record()
+
+    _, prof = profiled(steps_run)
+    fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
+    top, reduce_launches = [], dict.fromkeys(REDUCTION_KERNELS, 0)
+    for key, us, n in device_events(prof):
+        fam[_family(key)] += us
+        top.append((us, key, n))
         for name in REDUCTION_KERNELS:  # no name is part of another
-            if name in e.key:
-                reduce_launches[name] += e.count
+            if name in key:
+                reduce_launches[name] += n
     top.sort(reverse=True)
-    return {"steps": steps, "reduce_launches": reduce_launches,
+    return {"steps": steps, "graph": not eager, "reduce_launches": reduce_launches,
             "device_ms_per_token": {k: v / 1e3 / steps for k, v in fam.items()},
+            "event_span_ms_per_token": start.elapsed_time(end) / steps,
             "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
 
 
 def profile_prefill(eng, ids) -> dict:
     """Device time of one prefill of `ids` by kernel family, from
-    torch.profiler, beside its wall time (prompt in, logits on the host),
-    and the launches of each of the port's kernels by name."""
+    torch.profiler (`profiled`), beside its wall time (prompt in, logits on
+    the host), and the launches of each of the port's kernels by name."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     eng.reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def prefill():
         t0 = time.perf_counter()
         eng.prefill(ids)
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    wall, prof = profiled(prefill)
     fam = {"qmm_tc": 0.0, "qmm_grouped": 0.0, "qmm_stack": 0.0, "qmm": 0.0, "flash": 0.0,
            "other": 0.0}
     launches: dict = {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if us > 0.0:
-            kind = next((k for k in ("qmm_tc", "qmm_grouped", "qmm_stack", "qmm") if k in e.key),
-                        "flash" if "flash_" in e.key else "other")
-            fam[kind] += us
-            m = re.search(r"\b((?:qmm|flash)_\w*kernel)\b", e.key)
-            if m:
-                launches[m.group(1)] = launches.get(m.group(1), 0) + e.count
+    for key, us, n in device_events(prof):
+        kind = next((k for k in ("qmm_tc", "qmm_grouped", "qmm_stack", "qmm") if k in key),
+                    "flash" if "flash_" in key else "other")
+        fam[kind] += us
+        m = re.search(r"\b((?:qmm|flash)_\w*kernel)\b", key)
+        if m:
+            launches[m.group(1)] = launches.get(m.group(1), 0) + n
     return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3,
             "launches": launches}
 
@@ -919,18 +1036,22 @@ def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
 
 
 def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
-          short: int | None = None, n_gen: int = 64, prefill_len: int | None = None) -> dict:
+          short: int | None = None, n_gen: int = 64, prefill_len: int | None = None,
+          graph: bool = False) -> dict:
     """Serves the GGUF at `path` through Engine: one warm-up generation,
-    then three prompts and the second again, `n_gen` greedy tokens each; a
-    profiled decode window; launch counts against the expected count per
+    then three prompts and the second again, `n_gen` greedy tokens each
+    (the decode chunk as CUDA-graph replays); a profiled chunk of replays;
+    launch counts against the expected count per
     forward of each MoE regime. The prompts are "hello world", its words
     six times and 512 word tokens (10, 307 and 512 tokens), or, with
     `lens`, BOS and word tokens to those lengths. With `short`, one prompt
     of that many word tokens and 16 greedy tokens (16 decode steps) instead
     (a model cut to a few layers: its TTFT says little); with `prefill_len`
-    as well, a profiled prefill of that many word tokens."""
+    as well, a profiled prefill of that many word tokens. With `graph`,
+    the graph phase (`graph_decode`) on the same engine."""
     import torch
 
+    from tpullm_torch.ops.sampling_ops import SamplingParams
     from tpullm_torch.runtime.engine import Engine
 
     n_gen = 16 if short else n_gen
@@ -949,9 +1070,11 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         f"{per_token / PEAK_BYTES * 1e3:.3f} ms per token")
     tok = eng.tokenizer
     words = "the quick brown fox jumps over the lazy dog hello world".split()
+    space = "Ġ" if tok.vocab.model == "gpt2" else "▁"  # a word's leading space in the vocab
 
     def word_ids(n: int) -> list[int]:
-        return [1] + [tok.vocab.token_to_id["▁" + words[i % len(words)]] for i in range(n - 1)]
+        return [tok.vocab.special.bos] + [tok.vocab.token_to_id[space + words[i % len(words)]]
+                                          for i in range(n - 1)]
 
     if short:
         prompts = [word_ids(short)]
@@ -966,9 +1089,10 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
         rows.append(bucket_rows(n_prompt))
         rows.extend([1] * n_decode)
 
-    # one short generation first: lazy set-up (allocator, first launches)
-    # is paid once per process, not per request
-    eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False)
+    # one short generation first, at the prompts' chunk: lazy set-up
+    # (allocator, first launches, the decode graph's capture) is paid once
+    # per process, not per request
+    eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False, chunk=chunk)
     count(len(prompts[0]), eng.perf.n_decode)
     per_prompt = []
     for i, ids in enumerate(prompts if short else prompts + [prompts[1]]):
@@ -984,22 +1108,25 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
                                out=out))
         log(f"[{label}] kv={kv_name} prompt {i} ({len(ids)} tok, bucket {bucket_rows(len(ids))}): "
             f"TTFT {ttft * 1e3:.1f} ms ({len(ids) / ttft:.1f} tok/s prefill), decode "
-            f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}")
+            f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}, text "
+            f"{tok.detokenize(out[:12])!r}")
     if not short:
         expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
-    prof = profile_decode(eng, prompts[0])
+    prof = profile_decode(eng, eng.decode_runner(SamplingParams(), chunk), prompts[0], chunk)
     count(len(prompts[0]), prof["steps"])
     expect(sum(prof["reduce_launches"].values()) == 0,
            f"{label}: no reduction kernel in the decode profile ({prof['reduce_launches']})")
     busy = sum(prof["device_ms_per_token"].values())
     wall = 1e3 / float(np.median([p["decode_tok_s"] for p in per_prompt]))
-    log(f"[{label}] kv={kv_name} profile: device ms per decode token "
+    log(f"[{label}] kv={kv_name} profile of {chunk} decode steps as graph replays: device ms "
+        "per decode token "
         f"{ {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } = "
         f"{busy:.3f} ms busy of {wall:.3f} ms per token unprofiled (median rate) "
         f"(idle share {1 - busy / wall:.3f}); reduction launches {prof['reduce_launches']}; "
         f"top {prof['top']}"
         if busy > 0 else f"[{label}] kv={kv_name} profile: no device time recorded "
         "(device busy share not measured)")
+    graph_run = graph_decode(label, kv_name, eng, word_ids, count, prof) if graph else None
     prefill_prof = None
     if not short or prefill_len:
         long_ids = word_ids(prefill_len) if short else prompts[2]
@@ -1036,7 +1163,8 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
                prefill_forwards={r: rows.count(r) for r in sorted(set(rows)) if r > 1},
                device_ms_per_token=prof["device_ms_per_token"],
                decode_reduce_launches=prof["reduce_launches"],
-               idle_share=(1 - busy / wall) if busy > 0 else None, prefill_profile=prefill_prof)
+               idle_share=(1 - busy / wall) if busy > 0 else None, prefill_profile=prefill_prof,
+               graph=graph_run)
     if not short:
         run["pp512_tok_s"] = 512 / per_prompt[2]["ttft_s"]
     del eng
@@ -1044,30 +1172,176 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     return run
 
 
-def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None) -> Path:
+GRAPH_CHUNK = 32  # decode steps a chunk (the Engine's default)
+GRAPH_TAIL = 6  # steps after the second chunk in the ids check
+EAGER_PROFILE_STEPS = 8  # eager steps profiled as the yardstick's busy time
+
+
+def time_runs(eng, runner, prompt, runs: int, eager: bool = False) -> float:
+    """Wall ms a decode step over `runs` chunks of `run_steps` after a
+    prefill of `prompt` (ids read back once a chunk, as generate does)."""
+    import torch
+
+    _start(eng, runner, prompt)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(runs):
+            run_steps(runner, runner.chunk, eager)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (runs * runner.chunk)
+
+
+def _decode_summary(prof: dict, wall_ms: float) -> dict:
+    """Busy and idle a token of a decode profile against a wall time; where
+    the profiler listed no kernel, the CUDA-event span stands for busy."""
+    busy = sum(prof["device_ms_per_token"].values())
+    listed = busy > 0
+    busy = busy if listed else prof["event_span_ms_per_token"]
+    return dict(wall_ms=wall_ms, tok_s=1e3 / wall_ms, busy_ms=busy,
+                busy_from="profiler" if listed else "CUDA-event span (profiler listed no kernel)",
+                idle_share=1 - busy / wall_ms, device_ms_per_token=prof["device_ms_per_token"],
+                event_span_ms_per_token=prof["event_span_ms_per_token"])
+
+
+def graph_decode(label: str, kv_name: str, eng, word_ids, count, graph_prof: dict) -> dict:
+    """The decode chunk as CUDA-graph replays, on a served engine:
+    1. greedy ids: a prompt of max_seq − 2·GRAPH_CHUNK − GRAPH_TAIL word
+       tokens, generate_tokens_device to the context end (two chunks of
+       replays and a tail of one-step replays) against a decode_step +
+       argmax loop on the same engine;
+    2. the launches one replay adds against per_forward_launches;
+    3. the graph's capture seconds and pool bytes;
+    4. decode wall ms a token, in turns (eager, graph, graph, eager) after
+       a 10-token prompt: the runner's steps without a graph (the eager
+       yardstick, one chunk a turn) and its replays (two chunks a turn);
+    5. busy and idle a token: the replays' from `graph_prof` (serve's
+       profile of one chunk of replays), the eager steps' from a profile of
+       EAGER_PROFILE_STEPS of them;
+    6. temp 0.8: two runs from one seed give the same ids.
+    `count(n_prompt, n_decode)` books every forward for check_launches."""
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+
+    tag = f"[{label}] kv={kv_name} graph:"
+    chunk, sp = GRAPH_CHUNK, SamplingParams()
+    ids = word_ids(eng.max_seq - 2 * chunk - GRAPH_TAIL)
+    eng.reset()
+    ref = [int(np.argmax(eng.prefill(ids)))]
+    while eng.n_past < eng.max_seq:
+        ref.append(int(np.argmax(eng.decode_step(ref[-1]))))
+    count(len(ids), len(ref) - 1)
+    eng.reset()
+    got = eng.generate_tokens_device(ids, 10 ** 6, stop_on_eog=False, chunk=chunk, to_end=True)
+    count(len(ids), len(got) - 1)
+    runner = eng.decode_runner(sp, chunk)
+    log(f"{tag} {len(got) - 1} decode steps from a {len(ids)}-token prompt to n_past = "
+        f"{eng.n_past} ({runner.replays} replays so far): ids "
+        f"{'equal to' if got == ref else 'DIFFERENT from'} the decode_step loop's")
+    expect(len(got) - 1 == 2 * chunk + GRAPH_TAIL and eng.n_past == eng.max_seq,
+           f"{label}: two chunks and a tail of {GRAPH_TAIL}")
+    expect(got == ref, f"{label}: graph ids equal the decode_step loop's (first difference "
+           f"at {next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)})")
+
+    per = per_forward_launches(eng.params)
+    one = runner.launches_per_replay()
+    want = {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
+            "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
+            "flash_decode": per["flash"], "attn_dense_routes": 0}
+    log(f"{tag} launches per replay (one token) {one}; capture {runner.capture_s:.3f} s, "
+        f"graph pool {runner.pool_bytes / 2**20:.1f} MiB")
+    expect(one == want, f"{label}: launches per replay {one} = per forward {want}")
+
+    prompt = word_ids(10)
+    walls = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        runs = 1 if mode == "eager" else 2
+        walls[mode].append(time_runs(eng, runner, prompt, runs, eager=mode == "eager"))
+        count(len(prompt), runs * chunk)
+    e_prof = profile_decode(eng, runner, prompt, EAGER_PROFILE_STEPS, eager=True)
+    count(len(prompt), EAGER_PROFILE_STEPS)
+    out = dict(ids_equal=got == ref, decode_steps=len(got) - 1, launches_per_replay=one,
+               capture_s=runner.capture_s, pool_bytes=runner.pool_bytes,
+               eager_wall_ms=walls["eager"], graph_wall_ms=walls["graph"],
+               graph=_decode_summary(graph_prof, float(np.mean(walls["graph"]))),
+               eager=_decode_summary(e_prof, float(np.mean(walls["eager"]))))
+    for mode in ("eager", "graph"):
+        r = out[mode]
+        log(f"{tag} {mode}: wall {r['wall_ms']:.3f} ms a token ({r['tok_s']:.2f} tok/s; turns "
+            f"{', '.join(f'{w:.3f}' for w in walls[mode])}), busy {r['busy_ms']:.3f} ms "
+            f"({r['busy_from']}; event span {r['event_span_ms_per_token']:.3f}), idle "
+            f"{r['idle_share']:.3f}; by family "
+            f"{ {k: round(v, 4) for k, v in r['device_ms_per_token'].items()} }")
+
+    sampled = []
+    for _ in range(2):
+        eng.reset()
+        n0 = eng.perf.n_decode
+        sampled.append(eng.generate_tokens_device(prompt, 48, temp=0.8, seed=11,
+                                                  stop_on_eog=False, chunk=chunk))
+        count(len(prompt), eng.perf.n_decode - n0)
+    log(f"{tag} temp 0.8, seed 11, two runs: {sampled[0][:12]}… "
+        f"{'the same' if sampled[0] == sampled[1] else 'DIFFERENT'}")
+    expect(sampled[0] == sampled[1] and len(sampled[0]) == 48,
+           f"{label}: sampled graph runs from one seed agree")
+    out["sampled_equal"] = True
+    return out
+
+
+def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None,
+               vocab: str = "spm") -> Path:
     """A synthetic GGUF of `shape` at preset `ftype` in `tmp`, after a check
     that the disk holds it with 2 GB to spare."""
     from tpullm_torch.models.synth import synthetic_writer
 
-    path = tmp / f"{shape}-{ftype.lower()}{f'-{n_layer}l' if n_layer else ''}.gguf"
-    writer = synthetic_writer(path, shape=shape, seed=0, ftype=ftype, n_layer=n_layer)
+    path = tmp / f"{shape}-{ftype.lower()}{f'-{n_layer}l' if n_layer else ''}-{vocab}.gguf"
+    writer = synthetic_writer(path, shape=shape, seed=0, ftype=ftype, n_layer=n_layer,
+                              vocab=vocab)
     need, free = writer.payload_bytes(), shutil.disk_usage(tmp).free
     expect(free > need + 2e9, f"{free / 1e9:.1f} GB free in {tmp} holds the "
            f"{need / 1e9:.1f} GB {shape} {ftype} GGUF with 2 GB to spare")
     t0 = time.perf_counter()
     writer.write()
     log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype}"
-        f"{f' ({n_layer} layers)' if n_layer else ''} GGUF in {time.perf_counter() - t0:.1f}s")
+        f"{f' ({n_layer} layers)' if n_layer else ''} GGUF ({vocab} vocab) in "
+        f"{time.perf_counter() - t0:.1f}s")
     return path
 
 
+# mixed scripts, digits, contractions and a special token, for the BPE vocab
+MIXED_SENTENCE = ("Hello, wörld! It's 12345 naïve 漢字とカタカナ, русский текст, ١٢٣ "
+                  "— done.<|eot_id|>\n")
+
+
+def bpe_round_trip(path):
+    """The 8B's byte-level BPE vocab as a Llama-3 GGUF carries it, and
+    MIXED_SENTENCE through the port's tokenizer and back."""
+    from tpullm_torch.gguf.reader import GGUFReader
+    from tpullm_torch.tokenizer import BPETokenizer, from_gguf
+
+    t0 = time.perf_counter()
+    tok = from_gguf(GGUFReader(path))
+    v = tok.vocab
+    ids = tok.tokenize(MIXED_SENTENCE, add_special=True, parse_special=True)
+    back = tok.detokenize(ids, remove_special=True, unparse_special=True)
+    log(f"[slice] vocab: model {v.model!r}, pre {v.pre!r}, {v.n_tokens} tokens, "
+        f"{len(v.merges)} merges, bos {v.special.bos}, eot {v.special.eot}; "
+        f"{MIXED_SENTENCE!r} → {len(ids)} ids {ids} → {back!r} "
+        f"({'round trip exact' if back == MIXED_SENTENCE else 'ROUND TRIP DIFFERS'}; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    expect(isinstance(tok, BPETokenizer) and (v.model, v.pre) == ("gpt2", "llama-bpe")
+           and v.n_tokens == 128256, "the 8B carries a gpt2 / llama-bpe vocab of 128256")
+    expect(ids[0] == v.special.bos and ids[-2] == v.special.eot, "bos first, <|eot_id|> parsed")
+    expect(back == MIXED_SENTENCE, "the mixed-script sentence round-trips")
+
+
 def phase_slice(tmp: Path, launches: dict) -> list[dict]:
-    """Llama-3-8B Q4_K_M with a bf16 and a q8 KV cache; the file is
-    deleted after, to leave the disk to the next model."""
+    """Llama-3-8B Q4_K_M on Llama-3's byte-level BPE vocab, with a bf16 and
+    a q8 KV cache, each with the graph phase; the file is deleted after, to
+    leave the disk to the next model."""
     import torch
 
-    path = synthesize(tmp, "slice", "llama-3-8b", "Q4_K_M")
-    runs = [serve("slice", path, kv, launches) for kv in (torch.bfloat16, "q8_0")]
+    path = synthesize(tmp, "slice", "llama-3-8b", "Q4_K_M", vocab="bpe")
+    bpe_round_trip(path)
+    runs = [serve("slice", path, kv, launches, graph=True) for kv in (torch.bfloat16, "q8_0")]
     path.unlink()
     return runs
 
@@ -1158,7 +1432,7 @@ def phase_mixtral(tmp: Path, launches: dict) -> dict:
     import torch
 
     path = synthesize(tmp, "mixtral", "mixtral-8x7b", "Q4_K_M")
-    run = serve("mixtral", path, torch.bfloat16, launches)
+    run = serve("mixtral", path, torch.bfloat16, launches, graph=True)
     expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0
            and run["launches"]["qmm_q5k"] > 0 and run["launches"]["qmm_q8_0"] > 0,
            "mixtral ran the stack, gather, Q5_K and Q8_0 kernels")

@@ -703,3 +703,74 @@ def test_routes_on_the_card(dev, tmp_path):
     ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 96 ** -0.5)
     assert (flash.ATTN_DENSE_ROUTES["bf16"], flash.LAUNCHES) == (before[0] + 1, before[1])
     assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND
+
+
+def _forward_launches(params) -> dict:
+    """Launches one forward makes: 2-D qmm (each quantized linear, fused or
+    not, and the head), expert kernels (each expert stack), flash (one per
+    layer)."""
+    from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
+
+    mods = [params["output"], *[m for layer in params["layers"] for m in layer.values()]]
+    return {"qmm": sum(isinstance(m, (QuantLinear, FusedLinear)) for m in mods),
+            "experts": sum(isinstance(m, QuantExpertStack) for m in mods),
+            "flash": len(params["layers"])}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+@pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
+def test_decode_graph_matches_decode_step(dev, tmp_path, shape, kv):
+    """generate_tokens_device on the card replays a CUDA graph of one step:
+    over four chunks of 8 and a tail of 5 steps up to max_seq, the greedy
+    ids of a decode_step + argmax loop on the same engine; each replay adds
+    one forward's launches (2-D qmm on CUDA cores, flash in its decode
+    regime, the gather for each expert stack), and the whole run's counts
+    are those of its forwards."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    eng = Engine(path, max_seq=40, kv_dtype=torch.bfloat16 if kv == "bf16" else "q8_0")
+    ids = [1, 300, 301]  # a prefill in the bucket of 8: the regimes of a decode step
+    ref = [int(np.argmax(eng.prefill(ids)))]
+    while eng.n_past < eng.max_seq:
+        ref.append(int(np.argmax(eng.decode_step(ref[-1]))))
+    eng.reset()
+    fmt = "bf16" if kv == "bf16" else "q8"
+    before = (sum(qmm.LAUNCHES.values()), flash.DECODE_LAUNCHES[fmt],
+              sum(qmm.GATHER_LAUNCHES.values()))
+    got = eng.generate_tokens_device(ids, 200, chunk=8, to_end=True)
+    torch.cuda.synchronize()
+    assert got == ref and eng.n_past == 40
+    runner = eng.decode_runner(SamplingParams(), 8)
+    per = _forward_launches(eng.params)
+    assert runner.launches_per_replay() == {
+        "qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
+        "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
+        "flash_decode": per["flash"], "attn_dense_routes": 0}
+    assert runner.replays == 40 - len(ids) - 1  # the first step ran eagerly, before the capture
+    forwards = 1 + (40 - len(ids))  # the prefill (bucket 8: the same regimes) and the steps
+    after = (sum(qmm.LAUNCHES.values()), flash.DECODE_LAUNCHES[fmt],
+             sum(qmm.GATHER_LAUNCHES.values()))
+    assert after == (before[0] + per["qmm"] * forwards, before[1] + per["flash"] * forwards,
+                     before[2] + per["experts"] * forwards)
+
+
+def test_sampled_decode_graph_is_deterministic(dev, tmp_path):
+    """temp 0.8: the generator registered with the graph gives the same ids
+    from the same seed, call after call, and others from another seed
+    (tiny-moe: the tiny dense model's all but one-hot attention samples one
+    token at any seed)."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny-moe.gguf", shape="tiny-moe", seed=0)
+    eng = Engine(path, max_seq=128)
+    ids = eng.tokenizer.tokenize("hello world", add_special=True)
+    runs = []
+    for seed in (5, 5, 6):
+        eng.reset()
+        runs.append(eng.generate_tokens_device(ids, 48, temp=0.8, seed=seed, chunk=16,
+                                               stop_on_eog=False))
+    assert runs[0] == runs[1] and runs[0] != runs[2] and len(runs[0]) == 48

@@ -178,17 +178,28 @@ class Keys:
 
     class Tokenizer:
         MODEL = "tokenizer.ggml.model"
+        PRE = "tokenizer.ggml.pre"
         LIST = "tokenizer.ggml.tokens"
         TOKEN_TYPE = "tokenizer.ggml.token_type"
         SCORES = "tokenizer.ggml.scores"
+        MERGES = "tokenizer.ggml.merges"
         BOS_ID = "tokenizer.ggml.bos_token_id"
         EOS_ID = "tokenizer.ggml.eos_token_id"
         EOT_ID = "tokenizer.ggml.eot_token_id"
         EOM_ID = "tokenizer.ggml.eom_token_id"
         UNK_ID = "tokenizer.ggml.unknown_token_id"
+        SEP_ID = "tokenizer.ggml.seperator_token_id"
+        CLS_ID = "tokenizer.ggml.cls_token_id"
+        PAD_ID = "tokenizer.ggml.padding_token_id"
+        MASK_ID = "tokenizer.ggml.mask_token_id"
         ADD_BOS = "tokenizer.ggml.add_bos_token"
         ADD_EOS = "tokenizer.ggml.add_eos_token"
         ADD_PREFIX = "tokenizer.ggml.add_space_prefix"
+        REMOVE_EXTRA_WS = "tokenizer.ggml.remove_extra_whitespaces"
+        CHAT_TEMPLATE = "tokenizer.chat_template"
+        FIM_PRE_ID = "tokenizer.ggml.fim_pre_token_id"
+        FIM_SUF_ID = "tokenizer.ggml.fim_suf_token_id"
+        FIM_MID_ID = "tokenizer.ggml.fim_mid_token_id"
 
 
 class TokenType(enum.IntEnum):

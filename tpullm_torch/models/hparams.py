@@ -51,6 +51,7 @@ class HParams:
     # MoE (mixtral rides arch llama): experts per layer, experts per token
     n_expert: int = 0
     n_expert_used: int = 0
+    pooling: str = "none"  # embeddings' default pooling (llama_pooling_type)
 
 
 def hparams_from_gguf(r: GGUFReader) -> HParams:
@@ -109,4 +110,6 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         no_rope_step=int(k("{arch}.attention.no_rope_layer_step", 0)),
         n_expert=int(k(Keys.LLM.EXPERT_COUNT, 0)),
         n_expert_used=int(k(Keys.LLM.EXPERT_USED_COUNT, 0)),
+        pooling={0: "none", 1: "mean", 2: "cls", 3: "last", 4: "rank"}.get(
+            int(k("{arch}.pooling_type", 0)), "none"),
     )

@@ -3,8 +3,10 @@ append → SwiGLU FFN, residual chain, final norm and output head.
 
 The graph of the JAX package's models/llama.py, dense FFN and MoE FFN
 (mixtral: a router, softmax top-k with renormalised weights, stacked
-experts), run eagerly: `forward` takes the cache offset as a host int and
-updates the cache in place.
+experts), run eagerly: `forward` updates the cache in place. The cache
+offset is a host int, or, for one decode row, a device int32 tensor (the
+captured decode step: nothing in the forward then reads a value back to the
+host).
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ def build_params(r: GGUFReader, hp: HParams, device,
 
 
 def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: int,
-               cache_offset: int, offsets: torch.Tensor, slopes=None):
+               cache_offset, offsets: torch.Tensor, slopes=None):
     """One pre-norm GQA attention block with residual."""
     B, T = x.shape[:2]
     scale = hp.attn_scale if hp.attn_scale is not None else hp.head_dim ** -0.5
@@ -136,16 +138,25 @@ def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,
-            positions: torch.Tensor, cache, cache_offset: int,
-            last_index: int | None = None):
+            positions: torch.Tensor, cache, cache_offset,
+            last_index: int | None = None, return_hidden: bool = False):
     """tokens/positions [B, T] → (logits [B, T, n_vocab] f32, cache). With
     last_index=i the head runs on row i only and logits are [B, 1, n_vocab]
-    (the prefill path: the head of an 8B model is ~6% of its FLOPs)."""
+    (the prefill path: the head of an 8B model is ~6% of its FLOPs). With
+    return_hidden, (the final-norm hidden states [B, T, n_embd] f32, cache)
+    instead (the embeddings path).
+
+    `cache_offset` is the cache slot of row 0: a host int, or at T = 1 a
+    device int32 tensor of one element, which the flash kernel then reads as
+    its offsets and the cache write as its index."""
     B, T = tokens.shape
     x = params["tok_embd"][tokens]
     if hp.embd_scale != 1.0:
         x = x * hp.embd_scale
-    offsets = torch.full((B,), int(cache_offset), dtype=torch.int32, device=x.device)
+    if isinstance(cache_offset, torch.Tensor):
+        offsets = cache_offset.reshape(1).to(torch.int32).expand(B).contiguous()
+    else:
+        offsets = torch.full((B,), int(cache_offset), dtype=torch.int32, device=x.device)
     rope_cs = rope_angles(hp.rope, positions)
     slopes = (alibi_slopes(hp.n_head, hp.max_alibi_bias, x.device)
               if hp.max_alibi_bias > 0.0 else None)
@@ -169,6 +180,8 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn
+    if return_hidden:
+        return rms_norm(x, params["output_norm"], hp.rms_eps).float(), cache
     if last_index is not None:
         x = x[:, last_index:last_index + 1]
     return output_head(hp, params, x), cache

@@ -98,6 +98,62 @@ def _byte_vocab(extra_words: list[str]) -> tuple[list[str], list[float], list[in
     return tokens, scores, types
 
 
+# Llama-3's special tokens, in its order from id n_vocab - 256; the rest of
+# its 256 are <|reserved_special_token_3|> .. <|reserved_special_token_247|>
+LLAMA3_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+                   "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+                   "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+                   "<|eom_id|>", "<|eot_id|>", "<|python_tag|>")
+BPE_MAX_TOKEN_CHARS = 16  # merged tokens of the synthetic BPE vocab are at most this long
+
+
+def _bpe_vocab(n_vocab: int, seed: int) -> tuple[list[str], list[int], list[str], dict]:
+    """A functional byte-level BPE vocab as llama.cpp writes Llama-3's
+    (tokens, types, merges and the special ids): the 256 GPT-2 byte tokens,
+    then merged tokens, then Llama-3's special tokens (256 of them, or 16
+    below a 4096-token vocab). The first merges spell the words of
+    DEFAULT_WORDS, with and without a leading space ("Ġ"), left to right;
+    the rest join two tokens drawn from `seed` (earlier tokens more often),
+    up to BPE_MAX_TOKEN_CHARS characters, until the vocab is full."""
+    from ..tokenizer.bpe import byte_to_unicode
+
+    b2u = byte_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    merges: list[str] = []
+    n_special = 256 if n_vocab >= 4096 else 16
+    n_merged = n_vocab - 256 - n_special
+    if n_merged < 0:
+        raise ValueError(f"a BPE vocab needs at least {256 + n_special} tokens")
+    have = set(tokens)
+
+    def merge(a: str, b: str) -> bool:
+        if len(merges) >= n_merged or a + b in have:
+            return False
+        merges.append(f"{a} {b}")
+        tokens.append(a + b)
+        have.add(a + b)
+        return True
+
+    for word in DEFAULT_WORDS:
+        for spelled in ("".join(b2u[b] for b in word.replace("▁", " ").encode()),
+                        "".join(b2u[b] for b in word.replace("▁", "").encode())):
+            for i in range(2, len(spelled) + 1):
+                merge(spelled[:i - 1], spelled[i - 1])
+    rng = np.random.default_rng([seed, 0xB9E])
+    while len(merges) < n_merged:
+        a = tokens[int(len(tokens) * rng.random() ** 2)]
+        b = tokens[int(len(tokens) * rng.random() ** 2)]
+        if len(a) + len(b) <= BPE_MAX_TOKEN_CHARS:
+            merge(a, b)
+    types = [TokenType.NORMAL] * len(tokens)
+    first = len(tokens)
+    tokens += list(LLAMA3_SPECIALS) + [f"<|reserved_special_token_{i}|>"
+                                       for i in range(3, 3 + n_special - len(LLAMA3_SPECIALS))]
+    types += [TokenType.CONTROL] * n_special
+    special = dict(bos=first, eos=first + 1, eot=first + 9, eom=first + 8)
+    return tokens, types, merges, special
+
+
 def use_more_bits(i_layer: int, n_layer: int) -> bool:
     """The Q4_K_M layer pattern that upgrades attn_v and ffn_down
     (llama.cpp llama-quant.cpp)."""
@@ -257,22 +313,28 @@ def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
 
 def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
                               ftype: str = "Q4_K_M", n_layer: int | None = None,
-                              n_vocab: int | None = None) -> str:
+                              n_vocab: int | None = None, vocab: str = "spm") -> str:
     """Writes the synthetic model `shape` (a key of SHAPES) at preset
     `ftype` (a name of PRESETS) to `path`, with `n_layer` layers and
-    `n_vocab` tokens in place of the shape's own if given (a vocab below
-    the shape's keeps its first n_vocab tokens); the same arguments give the
-    same bytes."""
-    synthetic_writer(path, shape, seed, ftype, n_layer, n_vocab).write()
+    `n_vocab` tokens in place of the shape's own if given (an SPM vocab
+    below the shape's keeps its first n_vocab tokens); the same arguments
+    give the same bytes. `vocab` "spm" writes an SPM vocab
+    (tokenizer.ggml.model "llama"), "bpe" a byte-level BPE vocab with
+    merges as a Llama-3 GGUF carries it (model "gpt2", pre "llama-bpe":
+    `_bpe_vocab`); the weights are the same either way."""
+    synthetic_writer(path, shape, seed, ftype, n_layer, n_vocab, vocab).write()
     return str(path)
 
 
 def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str = "Q4_K_M",
-                     n_layer: int | None = None, n_vocab: int | None = None) -> GGUFWriter:
+                     n_layer: int | None = None, n_vocab: int | None = None,
+                     vocab: str = "spm") -> GGUFWriter:
     """The writer of make_synthetic_llama_gguf, its payloads not drawn yet
     (`payload_bytes()` sizes the file before it is written)."""
     if ftype not in PRESETS:
         raise ValueError(f"unknown preset {ftype!r}; presets: {PRESETS}")
+    if vocab not in ("spm", "bpe"):
+        raise ValueError(f"unknown vocab {vocab!r}: 'spm' or 'bpe'")
     cfg = SHAPES[shape]
     rng = np.random.default_rng(seed)
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
@@ -283,15 +345,19 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     legacy = cfg.get("legacy", False)
     words = not legacy or ftype != "Q4_K_M"
 
-    tokens, scores, types = _byte_vocab(DEFAULT_WORDS)
-    while len(tokens) < n_vocab:  # pad the vocab with filler tokens
-        tokens.append(f"<extra_{len(tokens)}>")
-        scores.append(-1e6)
-        types.append(TokenType.USER_DEFINED)
+    if vocab == "spm":
+        tokens, scores, types = _byte_vocab(DEFAULT_WORDS)
+        while len(tokens) < n_vocab:  # pad the vocab with filler tokens
+            tokens.append(f"<extra_{len(tokens)}>")
+            scores.append(-1e6)
+            types.append(TokenType.USER_DEFINED)
+    else:
+        tokens, types, merges, special = _bpe_vocab(n_vocab, seed)
 
     w = GGUFWriter(path, architecture="llama")
     w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}")
-             + ("" if n_vocab == cfg["n_vocab"] else f"-v{n_vocab}"))
+             + ("" if n_vocab == cfg["n_vocab"] else f"-v{n_vocab}")
+             + ("" if vocab == "spm" else "-bpe"))
     w.add_kv("llama.block_count", n_layer)
     w.add_kv("llama.context_length", 8192)
     w.add_kv("llama.embedding_length", n_embd)
@@ -305,12 +371,23 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     if n_expert:
         w.add_kv("llama.expert_count", n_expert)
         w.add_kv("llama.expert_used_count", cfg["n_expert_used"])
-    w.add_kv("tokenizer.ggml.model", "llama")
-    w.add_kv("tokenizer.ggml.tokens", tokens[:n_vocab])
-    w.add_kv("tokenizer.ggml.scores", np.asarray(scores[:n_vocab], dtype=np.float32))
-    w.add_kv("tokenizer.ggml.token_type", np.asarray(types[:n_vocab], dtype=np.int32))
-    w.add_kv("tokenizer.ggml.bos_token_id", 1)
-    w.add_kv("tokenizer.ggml.eos_token_id", 2)
+    if vocab == "spm":
+        w.add_kv("tokenizer.ggml.model", "llama")
+        w.add_kv("tokenizer.ggml.tokens", tokens[:n_vocab])
+        w.add_kv("tokenizer.ggml.scores", np.asarray(scores[:n_vocab], dtype=np.float32))
+        w.add_kv("tokenizer.ggml.token_type", np.asarray(types[:n_vocab], dtype=np.int32))
+        w.add_kv("tokenizer.ggml.bos_token_id", 1)
+        w.add_kv("tokenizer.ggml.eos_token_id", 2)
+    else:
+        w.add_kv("tokenizer.ggml.model", "gpt2")
+        w.add_kv("tokenizer.ggml.pre", "llama-bpe")
+        w.add_kv("tokenizer.ggml.tokens", tokens)
+        w.add_kv("tokenizer.ggml.token_type", np.asarray(types, dtype=np.int32))
+        w.add_kv("tokenizer.ggml.merges", merges)
+        w.add_kv("tokenizer.ggml.bos_token_id", special["bos"])
+        w.add_kv("tokenizer.ggml.eos_token_id", special["eos"])
+        w.add_kv("tokenizer.ggml.eot_token_id", special["eot"])
+        w.add_kv("tokenizer.ggml.eom_token_id", special["eom"])
     w.add_kv("tokenizer.ggml.add_bos_token", True)
 
     def packed(name, n_out, n_in, i=0, n_stack=1):

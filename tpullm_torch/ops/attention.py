@@ -13,6 +13,7 @@ path, as the JAX package sends the shapes its flash kernel refuses there
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,8 +21,10 @@ import torch
 from .kernels import flash
 
 
+@functools.lru_cache(maxsize=None)
 def alibi_slopes(n_head: int, max_bias: float, device=None) -> torch.Tensor:
-    """Per-head ALiBi slopes, matching ggml's soft_max_ext formula."""
+    """Per-head ALiBi slopes, matching ggml's soft_max_ext formula; made
+    once per device (a captured decode step copies nothing from the host)."""
     n_log2 = 1 << int(math.floor(math.log2(n_head)))
     m0 = 2.0 ** (-max_bias / n_log2)
     m1 = 2.0 ** (-max_bias / 2.0 / n_log2)

@@ -8,6 +8,7 @@ Angles are computed in f32. M-RoPE is not ported.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,15 +20,20 @@ def _yarn_corr_dim(n_dims: int, n_ctx_orig: int, n_rot: float, base: float) -> f
     return n_dims * math.log(n_ctx_orig / (n_rot * 2 * math.pi)) / (2 * math.log(base))
 
 
+@functools.lru_cache(maxsize=None)
+def inv_freq(dims: int, freq_base: float, device: torch.device) -> torch.Tensor:
+    """base^(-2i/dims) for i < dims/2, f32, made once per device (a captured
+    decode step copies nothing from the host)."""
+    expo = -torch.arange(0, dims // 2, dtype=torch.float32, device=device) * 2.0 / dims
+    return torch.pow(torch.tensor(freq_base, dtype=torch.float32, device=device), expo)
+
+
 def rope_angles(rp: RopeParams, positions: torch.Tensor,
                 mscale_on: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables: positions [...] → ([..., dims/2], [..., dims/2]) f32."""
-    half = rp.dims // 2
     dev = positions.device
     freq_scale = 1.0 / rp.scale_factor if rp.scaling_type in ("linear", "yarn") else 1.0
-    expo = -torch.arange(0, half, dtype=torch.float32, device=dev) * 2.0 / rp.dims
-    inv_freq = torch.pow(torch.tensor(rp.freq_base, dtype=torch.float32, device=dev), expo)
-    theta_extrap = positions[..., None].float() * inv_freq
+    theta_extrap = positions[..., None].float() * inv_freq(rp.dims, rp.freq_base, dev)
     theta = theta_extrap * freq_scale
     mscale = rp.attn_factor if mscale_on else 1.0
 

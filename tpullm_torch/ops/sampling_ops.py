@@ -5,7 +5,9 @@ back to the host.
 The order is the JAX package's: top-k mask within the window, temperature
 softmax, min-p, then top-p over the sorted window. The random stream is
 torch's, not jax.random's, so sampled ids agree in distribution only;
-greedy is bit-for-bit argmax, first index on ties.
+greedy is bit-for-bit argmax, first index on ties. Nothing reads a value
+back to the host, so a CUDA graph can capture the draw (its generator
+registered with the graph).
 """
 
 from __future__ import annotations
@@ -40,5 +42,9 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
     norm = probs / probs.sum()
     keep = (torch.cumsum(norm, dim=-1) - norm) < p.top_p  # include the crossing element
     probs = torch.where(keep, probs, torch.zeros_like(probs))
-    choice = torch.multinomial(probs, 1, generator=generator)
-    return idx[choice[0]]
+    # torch.multinomial's one-sample draw (argmax of p / Exp(1) noise, the
+    # same numbers from the same generator state) without its host-side
+    # check of the distribution, which would read values back
+    noise = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    # gather, not idx[t]: indexing by a 0-d tensor reads it back to the host
+    return idx.gather(0, torch.argmax(probs / noise).reshape(1)).reshape(())

@@ -16,10 +16,16 @@ import torch
 from ..models.hparams import HParams
 
 
-def _seq_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, off: int,
+def _seq_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, off,
                seq_axis: int, layer: int | None = None) -> None:
     """Write `new_arr` (T wide on seq_axis) at sequence position `off` of
     `cache_arr` (S wide), in place; off < 0 skips the write.
+
+    `off` is a host int, or for T = 1 a device int tensor of one element
+    (the captured decode step, whose offset lives on the device): then the
+    row goes in with index_copy_ and nothing is read back to the host (the
+    JAX package's dynamic_update_slice at a traced offset); the caller
+    keeps 0 <= off < S.
 
     With `layer` given, `cache_arr` is the full [L, ...] cache, `new_arr`
     has the per-layer shape and `seq_axis` is relative to it.
@@ -33,6 +39,11 @@ def _seq_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, off: int,
     dst = cache_arr if layer is None else cache_arr[layer]
     S = dst.shape[seq_axis]
     T = new_arr.shape[seq_axis]
+    if isinstance(off, torch.Tensor):
+        if T != 1 or off.numel() != 1:
+            raise ValueError(f"a write at a device offset takes one row, got T={T}")
+        dst.index_copy_(seq_axis, off.reshape(1).long(), new_arr)
+        return
     if off < 0:
         return
     start = min(off, max(S - T, 0))
@@ -60,8 +71,9 @@ class KVCache:
         return self.k[layer], self.v[layer]
 
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
-               offset: int) -> "KVCache":
-        """Write k/v [B, Hkv, T, D] at sequence position `offset` of `layer`."""
+               offset) -> "KVCache":
+        """Write k/v [B, Hkv, T, D] at sequence position `offset` of `layer`
+        (a host int, or a device tensor at T = 1: `_seq_write`)."""
         _seq_write(self.k, k_new, offset, seq_axis=2, layer=layer)
         _seq_write(self.v, v_new, offset, seq_axis=2, layer=layer)
         return self
@@ -104,7 +116,7 @@ class QuantKVCache:
         return self.k_q[layer], self.k_s[layer], self.v_q[layer], self.v_s[layer]
 
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
-               offset: int) -> "QuantKVCache":
+               offset) -> "QuantKVCache":
         k_q, k_s = self._quantize(k_new)  # [B, Hkv, T, D], [B, Hkv, T]
         v_q, v_s = self._quantize(v_new)
         _seq_write(self.k_q, k_q, offset, seq_axis=2, layer=layer)

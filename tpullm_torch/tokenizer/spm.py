@@ -15,6 +15,18 @@ class SPMTokenizer:
     def __init__(self, vocab: Vocab):
         self.vocab = vocab
 
+    def piece_bytes(self, tid: int) -> bytes:
+        """Raw bytes this token contributes to output text (grammar matching;
+        llama_token_to_piece with special=false)."""
+        vocab = self.vocab
+        ttype = vocab.token_type(tid)
+        text = vocab.tokens[tid]
+        if ttype == TokenType.BYTE:
+            return bytes([int(text[3:5], 16)])
+        if ttype in (TokenType.CONTROL, TokenType.UNKNOWN):
+            return b""
+        return text.replace(SPM_SPACE, " ").encode("utf-8")
+
     def tokenize_fragment(self, text: str) -> list[int]:
         """Tokenize one raw-text fragment (no specials, no bos/eos)."""
         vocab = self.vocab
@@ -104,15 +116,25 @@ class SPMTokenizer:
             out.append(vocab.special.eos)
         return out
 
-    def detokenize(self, ids: list[int]) -> str:
+    def detokenize(self, ids: list[int], remove_special: bool = False,
+                   unparse_special: bool = False) -> str:
         vocab = self.vocab
         pieces: list[bytes] = []
+        ids = list(ids)
+        if remove_special:
+            if vocab.add_bos and ids and ids[0] == vocab.special.bos:
+                ids = ids[1:]
+            if vocab.add_eos and ids and ids[-1] == vocab.special.eos:
+                ids = ids[:-1]
         for tid in ids:
             ttype = vocab.token_type(tid)
             text = vocab.tokens[tid]
             if ttype == TokenType.BYTE:
                 pieces.append(bytes([int(text[3:5], 16)]))
-            elif ttype not in (TokenType.CONTROL, TokenType.UNKNOWN):
+            elif ttype in (TokenType.CONTROL, TokenType.UNKNOWN):
+                if unparse_special:
+                    pieces.append(text.encode("utf-8"))
+            else:
                 pieces.append(text.replace(SPM_SPACE, " ").encode("utf-8"))
         s = b"".join(pieces).decode("utf-8", errors="replace")
         # the leading space injected by add_space_prefix comes off again

@@ -1,6 +1,7 @@
 """Vocabulary loaded from GGUF metadata: token table with scores/types,
-special-token ids and flags, and the special-token partitioner that splits
-raw text around control/user-defined tokens before the sub-tokenizer runs."""
+merges and the pretokenizer id of a BPE vocab, special-token ids and flags,
+and the special-token partitioner that splits raw text around
+control/user-defined tokens before the sub-tokenizer runs."""
 
 from __future__ import annotations
 
@@ -20,18 +21,28 @@ class SpecialIds:
     eot: int = -1
     eom: int = -1
     unk: int = -1
+    sep: int = -1
+    pad: int = -1
+    mask: int = -1
+    fim_pre: int = -1
+    fim_suf: int = -1
+    fim_mid: int = -1
 
 
 @dataclass
 class Vocab:
-    model: str  # "llama" (SPM); other tokenizer families are not ported
+    model: str  # "llama" (SPM) | "gpt2" (byte-level BPE); other families are not ported
+    pre: str  # pretokenizer id of a BPE vocab ("default", "llama-bpe", ...)
     tokens: list[str]
     scores: np.ndarray | None
     token_types: np.ndarray | None
+    merges: list[str] = field(default_factory=list)
     special: SpecialIds = field(default_factory=SpecialIds)
     add_bos: bool = False
     add_eos: bool = False
     add_space_prefix: bool = True
+    remove_extra_whitespaces: bool = False
+    chat_template: str | None = None
 
     token_to_id: dict[str, int] = field(default_factory=dict, repr=False)
     _special_tokens: list[tuple[str, int]] = field(default_factory=list, repr=False)
@@ -52,6 +63,10 @@ class Vocab:
             # longest-match-first, like the reference's special-token cache
             specials.sort(key=lambda p: -len(p[0]))
             self._special_tokens = specials
+
+    @property
+    def n_tokens(self) -> int:
+        return len(self.tokens)
 
     def is_eog(self, token_id: int) -> bool:
         """End-of-generation check (eos/eot/eom)."""
@@ -106,20 +121,32 @@ class Vocab:
         if token_types is not None:
             token_types = np.asarray(token_types, dtype=np.int32)
         sp = SpecialIds(
-            bos=int(md.get(K.BOS_ID, -1)),
+            # BERT-family files carry [CLS] under cls_token_id; it plays bos
+            bos=int(md.get(K.BOS_ID, md.get(K.CLS_ID, -1))),
             eos=int(md.get(K.EOS_ID, -1)),
             eot=int(md.get(K.EOT_ID, -1)),
             eom=int(md.get(K.EOM_ID, -1)),
             unk=int(md.get(K.UNK_ID, -1)),
+            sep=int(md.get(K.SEP_ID, -1)),
+            pad=int(md.get(K.PAD_ID, -1)),
+            mask=int(md.get(K.MASK_ID, -1)),
+            fim_pre=int(md.get(K.FIM_PRE_ID, -1)),
+            fim_suf=int(md.get(K.FIM_SUF_ID, -1)),
+            fim_mid=int(md.get(K.FIM_MID_ID, -1)),
         )
         model = md.get(K.MODEL, "llama")
+        # the reference's defaults: SPM adds bos and a space prefix, BPE neither
         return cls(
             model=model,
+            pre=md.get(K.PRE, "default"),
             tokens=list(md.get(K.LIST, [])),
             scores=scores,
             token_types=token_types,
+            merges=list(md.get(K.MERGES, [])),
             special=sp,
             add_bos=bool(md.get(K.ADD_BOS, model == "llama")),
             add_eos=bool(md.get(K.ADD_EOS, False)),
             add_space_prefix=bool(md.get(K.ADD_PREFIX, model == "llama")),
+            remove_extra_whitespaces=bool(md.get(K.REMOVE_EXTRA_WS, False)),
+            chat_template=md.get(K.CHAT_TEMPLATE),
         )
