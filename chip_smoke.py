@@ -26,7 +26,8 @@ Phases, in order; any failure raises and exits nonzero:
     formats as expert stacks at Mixtral's 4096→14336 and 14336→4096, stack
     M = 512 with a shared x (and, for Q4_K and Q6_K, a per-expert x), gather
     T in {2, 32} and T = 32 with every slot on one expert, and ids outside
-    the stack giving NaN rows; flash: bf16 and q8 KV, T in {1, 512}, S = 4096, GQA 32/8
+    the stack giving NaN rows; flash: bf16, f16, f32 and q8 KV, T in {1, 512}, S = 4096,
+    GQA 32/8
     (T = 1 the split-KV decode regime, T = 512 the tensor-core prefill
     regime, each also against the plain version of its own order, and the
     prefill's p rounding, one bf16 term and two, measured on its plain
@@ -53,13 +54,25 @@ Phases, in order; any failure raises and exits nonzero:
     a tail, launches per replay, capture seconds and pool bytes, decode
     wall, busy and idle a token with the graph beside eager steps, and two
     sampled runs from one seed;
+ 5b. tools: on the same 8B GGUF, the tools' main()s as a user runs them:
+    the cli's completion (64 tokens through the host Sampler chain of
+    --temp 0.8 --seed 1 --repeat-penalty 1.1, -v), taken apart on an
+    Engine of its own (decode_step, the logits graph's replay, against the
+    eager step with the same read-back, their logits compared; the host
+    Sampler's ms a token; the idle share of a profiled chunk), the prompt
+    cache run twice (reused, the same stdout at temp 0), a two-turn chat
+    through stdin, tokenize against the engine's tokenizer, perplexity
+    over SURVEY.md (4 windows of 512; the launches and time of each
+    window) with the kernels and with dense bf16 weights, the KLD of the
+    kernels against a base the dense run records, and the bench sweep
+    -p 512 -n 128 -d 0,4096 -ctk bf16,f16,f32,q8_0 -r 3;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
     16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
     MXFP4_MOE with 4 layers (a 64-token prompt through qmm_stack, decode
     through qmm_gather);
- 7. i-quants: Llama-3-8B at IQ1_S and IQ3_XXS at full depth; at IQ2_XXS,
-    IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 with 4 layers; Mixtral-8x7B
+ 7. i-quants: Llama-3-8B with 4 layers at IQ1_S, IQ3_XXS, IQ2_XXS,
+    IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0; Mixtral-8x7B
     at IQ2_XXS with 4 layers; the 8B at Q4_K_M with 4 layers and Q4_K and
     Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped, and a
     profiled 512-token prefill whose every 2-D launch of the layers ran
@@ -133,8 +146,10 @@ QMM_KEYS = {"Q4_K": "qmm_q4k", "Q6_K": "qmm_q6k", "Q5_K": "qmm_q5k", "Q8_0": "qm
 # the shapes beyond PRESET_QMM_SHAPES that formats hold at M = 1
 QMM_EXTRA = {"Q4_K": QMM_SHAPES[:2] + QMM_SHAPES[4:], "Q6_K": QMM_SHAPES[:2] + QMM_SHAPES[4:],
              "Q5_K": MIXTRAL_ATTN_SHAPES, "Q8_0": MIXTRAL_ATTN_SHAPES}
-KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather",
-           "flash_bf16", "flash_q8")
+# the flash kernels by KV cache format (ops/kernels/flash.py FORMATS)
+FLASH_FORMATS = ("bf16", "f16", "f32", "q8")
+FLASH_KEYS = tuple(f"flash_{fmt}" for fmt in FLASH_FORMATS)
+KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS)
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
@@ -142,20 +157,19 @@ REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_tc": "Q4_K gate_up M=512",
                   "qmm_grouped": "Q4_K gate_up M=1", "qmm_stack": "Q4_K gate M=512 shared",
                   "qmm_gather": "Q4_K gate T=2",
-                  "flash_bf16": "bf16 T=1 S=4096", "flash_q8": "q8 T=1 S=4096"}
+                  **{f"flash_{fmt}": f"{fmt} T=1 S=4096" for fmt in FLASH_FORMATS}}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
-            "flash_bf16": "tpullm/ops/pallas/flash.py:69",
-            "flash_q8": "tpullm/ops/pallas/flash.py:69"}
+            **{key: "tpullm/ops/pallas/flash.py:69" for key in FLASH_KEYS}}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
-           "flash_bf16": "tpullm_torch/csrc/flash.cu", "flash_q8": "tpullm_torch/csrc/flash.cu"}
+           **{key: "tpullm_torch/csrc/flash.cu" for key in FLASH_KEYS}}
 
 
 def log(*a):
@@ -568,17 +582,23 @@ def phase_moe_kernels(dev, results: dict):
             torch.cuda.empty_cache()
 
 
-def _flash_case(dev, gen, *, q8, B, T, H, Hkv, D, S, offsets, softcap=0.0, window=0,
+def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, window=0,
                 sinks=False, alibi=False, timed=False):
+    """One flash call on random inputs against its plain version; `fmt`
+    the KV cache format (FLASH_FORMATS): q is bf16, K/V drawn in f32 and
+    stored in the cache's dtype (q8: quantized as the cache quantizes)."""
     import torch
     import torch.nn.functional as F
 
     from tpullm_torch.ops.kernels import flash
     from tpullm_torch.runtime.kvcache import QuantKVCache
 
+    q8 = fmt == "q8"
+    kv_dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32,
+                "q8": torch.bfloat16}[fmt]
     q = torch.randn(B, T, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(kv_dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     sk = torch.randn(H, generator=gen, device=dev) if sinks else None
     sl = torch.linspace(0.5, 0.01, H, device=dev) if alibi else None
@@ -631,13 +651,13 @@ def _flash_case(dev, gen, *, q8, B, T, H, Hkv, D, S, offsets, softcap=0.0, windo
     q_pos = np.asarray(offsets)[:, None] + np.arange(T)[None]
     visible = float(np.minimum(q_pos + 1, S).sum())
     kv_len = np.minimum(np.asarray(offsets) + T, S)
-    per_pos = D * (1 if q8 else 2) + (4 if q8 else 0)  # bytes of one K (or V) row
+    per_pos = D * k.element_size() if not q8 else D + 4  # bytes of one K (or V) row
     n_bytes = 2 * q.numel() * 2 + 2 * float(kv_len.sum()) * Hkv * per_pos
     bms, by = bound_ms(n_bytes, 4.0 * D * H * visible)
     pos = torch.arange(S, device=dev)
     mask = (pos[None, None, :] <= (off[:, None] + torch.arange(T, device=dev))[..., None])
     mask = mask[:, None]  # [B, 1, T, S]
-    qt = q.transpose(1, 2)
+    qt = q.transpose(1, 2).to(k_lib.dtype)  # SDPA on the cache's dtype
     k_lib = k_lib.repeat_interleave(H // Hkv, dim=1)  # GQA heads expanded outside the timing
     v_lib = v_lib.repeat_interleave(H // Hkv, dim=1)
 
@@ -654,9 +674,8 @@ def phase_flash(dev, results: dict):
 
     gen = torch.Generator(dev).manual_seed(1)
     main = dict(B=2, H=32, Hkv=8, D=128, S=4096)
-    for q8, key in ((False, "flash_bf16"), (True, "flash_q8")):
-        bound = FLASH_Q8_NMSE_BOUND if q8 else FLASH_NMSE_BOUND
-        fmt = "q8" if q8 else "bf16"
+    for fmt, key in zip(FLASH_FORMATS, FLASH_KEYS):
+        bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
         one = dict(main, B=1)
         cases = [(f"{fmt} T=1 S=4096", dict(T=1, offsets=(37, 3000), **main)),
                  (f"{fmt} T=512 S=4096", dict(T=512, offsets=(0, 2500), **main)),
@@ -676,8 +695,8 @@ def phase_flash(dev, results: dict):
         ]
         for label, kw in cases:
             timed = "S=4096" in label
-            row = _flash_case(dev, gen, q8=q8, timed=timed, **kw)
-            row["case"] = label if timed else f"{'q8' if q8 else 'bf16'} {label}"
+            row = _flash_case(dev, gen, fmt=fmt, timed=timed, **kw)
+            row["case"] = label if timed else f"{fmt} {label}"
             expect(row["finite"], f"flash {row['case']} finite")
             expect(row["nmse"] <= bound, f"flash {row['case']} NMSE {row['nmse']:.3e} <= {bound}")
             results.setdefault(key, []).append(row)
@@ -720,9 +739,8 @@ def read_launches() -> dict:
                 "qmm_grouped": sum(qmm.GROUPED_LAUNCHES.values()),
                 "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
                 "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
-                "flash_bf16": flash.LAUNCHES["bf16"], "flash_q8": flash.LAUNCHES["q8"],
-                "flash_bf16.decode": flash.DECODE_LAUNCHES["bf16"],
-                "flash_q8.decode": flash.DECODE_LAUNCHES["q8"],
+                **{f"flash_{fmt}": flash.LAUNCHES[fmt] for fmt in FLASH_FORMATS},
+                **{f"flash_{fmt}.decode": flash.DECODE_LAUNCHES[fmt] for fmt in FLASH_FORMATS},
                 "dequant_routes": sum(qmm.DEQUANT_ROUTES.values()),
                 "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values())})
     for kind, counts in (("qmm_tc", qmm.TC_LAUNCHES), ("qmm_grouped", qmm.GROUPED_LAUNCHES),
@@ -986,13 +1004,16 @@ def profile_decode(eng, runner, ids, steps: int, eager: bool = False) -> dict:
 def profile_prefill(eng, ids) -> dict:
     """Device time of one prefill of `ids` by kernel family, from
     torch.profiler (`profiled`), beside its wall time (prompt in, logits on
-    the host), and the launches of each of the port's kernels by name."""
+    the host), the launches of each of the port's kernels by name in the
+    trace, and the launches the wrappers counted (`read_launches`' keys
+    that moved)."""
     import re
 
     import torch
 
     eng.reset()
     torch.cuda.synchronize()
+    before = read_launches()
 
     def prefill():
         t0 = time.perf_counter()
@@ -1000,6 +1021,8 @@ def profile_prefill(eng, ids) -> dict:
         return time.perf_counter() - t0
 
     wall, prof = profiled(prefill)
+    counted = {k: v - before.get(k, 0) for k, v in read_launches().items()
+               if v != before.get(k, 0)}
     fam = {"qmm_tc": 0.0, "qmm_grouped": 0.0, "qmm_stack": 0.0, "qmm": 0.0, "flash": 0.0,
            "other": 0.0}
     launches: dict = {}
@@ -1011,7 +1034,7 @@ def profile_prefill(eng, ids) -> dict:
         if m:
             launches[m.group(1)] = launches.get(m.group(1), 0) + n
     return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3,
-            "launches": launches}
+            "launches": launches, "counted": counted}
 
 
 def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
@@ -1333,17 +1356,321 @@ def bpe_round_trip(path):
     expect(back == MIXED_SENTENCE, "the mixed-script sentence round-trips")
 
 
-def phase_slice(tmp: Path, launches: dict) -> list[dict]:
+def phase_slice(tmp: Path, launches: dict) -> tuple[list[dict], Path]:
     """Llama-3-8B Q4_K_M on Llama-3's byte-level BPE vocab, with a bf16 and
-    a q8 KV cache, each with the graph phase; the file is deleted after, to
-    leave the disk to the next model."""
+    a q8 KV cache, each with the graph phase; the file is kept for the
+    tools phase."""
     import torch
 
     path = synthesize(tmp, "slice", "llama-3-8b", "Q4_K_M", vocab="bpe")
     bpe_round_trip(path)
     runs = [serve("slice", path, kv, launches, graph=True) for kv in (torch.bfloat16, "q8_0")]
-    path.unlink()
-    return runs
+    return runs, path
+
+
+TOOLS_CTX = 2048  # the cli's context
+TOOLS_PROMPT = "The history of the quick brown fox, told in twelve short chapters:"
+# the cli completion's Sampler chain, as its flags build it
+TOOLS_SAMPLING = ["--temp", "0.8", "--seed", "1", "--repeat-penalty", "1.1"]
+TOOLS_TOKENS = 64  # tokens of the completion, and of the decode_step timings
+PPL_WINDOWS = 4
+BENCH_ARGS = ["-p", "512", "-n", "128", "-d", "0,4096", "-ctk", "bf16,f16,f32,q8_0", "-r", "3",
+              "-o", "jsonl", "-c", "4864"]
+
+
+def run_tool(main, argv: list[str], stdin: str | None = None) -> tuple[int, str, str, float]:
+    """A tool's main(argv) in this process, as a user's command line runs
+    it: its stdout and stderr captured, stdin read from `stdin`; then its
+    engine's garbage (an engine and its graphs form a cycle) collected and
+    the allocator's cache emptied. Returns (exit code, stdout, stderr,
+    seconds)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        sys.stdin = saved
+    seconds = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rc, out.getvalue(), err.getvalue(), seconds
+
+
+def _decode_costs(eng, ids: list[int]) -> dict:
+    """On one engine, TOOLS_TOKENS tokens of the cli's completion loop taken
+    apart: decode_step (the logits graph's replay and the logits read
+    back) against the eager step with the same read-back (`_decode_logits`,
+    the same tokens at the same positions, logits compared), and the host
+    Sampler chain of the cli's flags alone, ms a token each; then a
+    profiled chunk of 16 decode_steps: device busy a token against the
+    unprofiled decode_step's wall, the idle share (the profiled wall,
+    which the profiler's host cost stretches, beside it)."""
+    import torch
+
+    from tpullm_torch.runtime.sampling import Sampler, SamplerParams
+
+    eng.reset()
+    eng.prefill(ids)
+    for t in (1, 2, 3):  # the logits graph's capture, outside the timing
+        eng.decode_step(t)
+    sampler = Sampler(SamplerParams(temp=0.8, seed=1, penalty_repeat=1.1, penalty_last_n=64))
+    eng.reset()
+    logits = eng.prefill(ids)
+    toks, rows, t_step, t_sample = [], [], 0.0, 0.0
+    for _ in range(TOOLS_TOKENS):
+        t0 = time.perf_counter()
+        tok = sampler.sample(logits)
+        sampler.accept(tok)
+        t1 = time.perf_counter()
+        logits = eng.decode_step(tok)
+        t_step += time.perf_counter() - t1
+        t_sample += t1 - t0
+        toks.append(tok)
+        rows.append(logits)
+    eng.reset()
+    eng.prefill(ids)
+    torch.cuda.synchronize()
+    t_eager, worst = 0.0, 0.0
+    with torch.inference_mode():
+        for tok, row in zip(toks, rows):
+            t0 = time.perf_counter()
+            got = eng._decode_logits(torch.tensor([tok], device=eng.device)).cpu().numpy()
+            t_eager += time.perf_counter() - t0
+            worst = max(worst, float(np.abs(got - row).max()))
+    eng.reset()
+    eng.prefill(ids)
+    torch.cuda.synchronize()
+
+    def chunk():
+        t0 = time.perf_counter()
+        for tok in toks[:16]:
+            eng.decode_step(tok)
+        return time.perf_counter() - t0
+
+    wall, prof = profiled(chunk)
+    busy = sum(us for _, us, _ in device_events(prof)) / 1e3
+    graph_ms = t_step * 1e3 / TOOLS_TOKENS
+    return dict(graph_ms=graph_ms, eager_ms=t_eager * 1e3 / TOOLS_TOKENS,
+                sampler_ms=t_sample * 1e3 / TOOLS_TOKENS, max_abs_diff_graph_eager=worst,
+                profiled_wall_ms=wall * 1e3 / 16, profiled_busy_ms=busy / 16,
+                idle_share=1 - busy / 16 / graph_ms)
+
+
+def window_nll(eng, corpus: Path) -> tuple[list[float], float]:
+    """Perplexity's windows (PPL_WINDOWS of 512 tokens of `corpus`, the NLL
+    over each window's second half, its targets gathered on the device by
+    the tool's own `_target_logprobs`) on `eng`: ms of each window, and the
+    mean NLL a token (nats, the ln of the PPL, finite where the PPL passes
+    f64)."""
+    import torch
+
+    from tpullm_torch.tools.perplexity import _target_logprobs
+
+    ids = eng.tokenizer.tokenize(corpus.read_text(encoding="utf-8"), add_special=True)
+    nll, count, ms = 0.0, 0, []
+    for wi in range(PPL_WINDOWS):
+        window = ids[wi * 512:(wi + 1) * 512]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.reset()
+        lps = _target_logprobs(eng.prefill_all_logits_device(window), range(256, 511),
+                               window[257:])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        nll -= sum(lps)
+        count += len(lps)
+    return ms, nll / count
+
+
+def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
+    """The tools a llama.cpp user runs, through their main()s, on the 8B
+    Q4_K_M (full width and depth, the BPE vocab): cli completion through the
+    host Sampler (and its costs taken apart, `_decode_costs`), the prompt
+    cache run twice, a two-turn chat through stdin, tokenize against the
+    engine's tokenizer, perplexity over SURVEY.md (PPL_WINDOWS windows of
+    512) with the kernels and with dense bf16 weights (the tool's PPL, and
+    the mean NLL a token, its log, which stays finite where the random
+    weights' PPL passes f64), the KLD of the kernels against a base
+    recorded by dense, the launches and time of each window, and the bench
+    sweep over the four cache types. Launch counts
+    are read over the whole phase, the flash f16 and f32 kernels' among
+    them."""
+    import ast
+    import gc
+    import re
+
+    import torch
+
+    from tpullm_torch.chat import apply_chat_template
+    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.tools import bench, cli, perplexity, tokenize
+
+    m = ["-m", str(path)]
+    out: dict = {}
+    reset_launches()  # just before the main path
+    # 1. completion, the host Sampler chain on decode_step's logits
+    rc, text, err, secs = run_tool(cli.main, m + ["-p", TOOLS_PROMPT, "-n", str(TOOLS_TOKENS),
+                                                  *TOOLS_SAMPLING, "-v", "-c", str(TOOLS_CTX)])
+    perf = re.search(r"prompt (\d+) tok ([\d.]+) t/s \| gen (\d+) tok ([\d.]+) t/s", err)
+    expect(rc == 0 and text.startswith(TOOLS_PROMPT) and perf is not None,
+           f"cli completion: rc {rc}, perf line in {err[-300:]!r}")
+    out["cli"] = dict(seconds=secs, prompt_tok_s=float(perf.group(2)),
+                      gen_tokens=int(perf.group(3)), gen_tok_s=float(perf.group(4)),
+                      text_chars=len(text) - len(TOOLS_PROMPT))
+    log(f"[tools] cli completion -n {TOOLS_TOKENS} {' '.join(TOOLS_SAMPLING)}: {secs:.1f}s with "
+        f"the load; gen {perf.group(3)} tok at {perf.group(4)} tok/s; text "
+        f"{text[len(TOOLS_PROMPT):][:60]!r}")
+
+    eng = Engine(path, max_seq=TOOLS_CTX)
+    ids = eng.tokenizer.tokenize(TOOLS_PROMPT, add_special=True, parse_special=True)
+    costs = _decode_costs(eng, ids)
+    out["decode"] = costs
+    log(f"[tools] decode_step {costs['graph_ms']:.3f} ms a token (logits graph, logits read "
+        f"back) against the eager step {costs['eager_ms']:.3f} ms; host Sampler chain "
+        f"{costs['sampler_ms']:.3f} ms a token; logits graph vs eager max |d| "
+        f"{costs['max_abs_diff_graph_eager']:.3g}; profiled chunk of 16: busy "
+        f"{costs['profiled_busy_ms']:.3f} ms a token, idle {costs['idle_share']:.3f} of the "
+        f"unprofiled decode_step (profiled wall {costs['profiled_wall_ms']:.3f} ms)")
+    expect(costs["max_abs_diff_graph_eager"] == 0.0,
+           "decode_step's logits (graph) equal the eager step's")
+
+    # 2. the prompt cache, twice at temp 0
+    cache = tmp / "session.npz"
+    cache.unlink(missing_ok=True)
+    pc = m + ["-p", TOOLS_PROMPT, "-n", "32", "--temp", "0", "-c", str(TOOLS_CTX),
+              "--prompt-cache", str(cache)]
+    first, second = run_tool(cli.main, pc), run_tool(cli.main, pc)
+    reused = re.search(r"reused (\d+) tokens", second[2])
+    log(f"[tools] prompt cache: first run {first[3]:.1f}s ({first[2].strip()!r}), second "
+        f"{second[3]:.1f}s ({second[2].strip()!r}); stdout "
+        f"{'equal' if first[1] == second[1] else 'DIFFERENT'}")
+    expect(first[0] == second[0] == 0 and "saved" in first[2] and reused is not None
+           and first[1] == second[1], "the prompt cache is reused and the output repeats")
+    out["prompt_cache"] = dict(reused=int(reused.group(1)), first_s=first[3],
+                               second_s=second[3])
+
+    # 3. chat: two scripted turns through stdin, against the same
+    # conversation rendered and answered greedily on this engine
+    turns = ["Hello there!", "Tell me one more thing."]
+    rc, text, err, secs = run_tool(cli.main, m + ["--chat", "-n", "16", "--temp", "0", "-c",
+                                                  str(TOOLS_CTX)],
+                                   stdin="\n".join(turns) + "\n\n")
+    want, msgs = "> ", []
+    for user in turns:
+        msgs.append({"role": "user", "content": user})
+        eng.reset()
+        prompt = apply_chat_template(eng.tokenizer.vocab.chat_template, msgs)
+        toks = eng.generate_tokens(eng.tokenizer.tokenize(prompt, add_special=True,
+                                                          parse_special=True), 16)
+        answer = "".join(eng.tokenizer.detokenize([t]) for t in toks)
+        msgs.append({"role": "assistant", "content": answer})
+        want += answer + "\n> "
+    log(f"[tools] chat, two turns through stdin in {secs:.1f}s: {text!r:.120}")
+    expect(rc == 0 and text == want, f"chat: the two greedy answers of the rendered "
+           f"conversation, got {text!r}, want {want!r}")
+
+    # 4. tokenize against the engine's tokenizer
+    rc, text, _, _ = run_tool(tokenize.main, m + ["-p", MIXED_SENTENCE, "--ids"])
+    want = eng.tokenizer.tokenize(MIXED_SENTENCE, add_special=True, parse_special=True)
+    expect(rc == 0 and ast.literal_eval(text.strip()) == want,
+           "tpullm-torch-tokenize's ids equal the engine tokenizer's")
+    log(f"[tools] tokenize: {len(want)} ids, equal to the engine's tokenizer")
+
+    # 5. perplexity over SURVEY.md: each window's time and launches and the
+    # mean NLL on this engine and on a dense one, then the tool with the
+    # kernels and with dense weights, and the KLD of the kernels against a
+    # base recorded by dense
+    corpus = ROOT / "SURVEY.md"
+    per = per_forward_launches(eng.params)
+    before = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.LAUNCHES["bf16"],
+              flash.DECODE_LAUNCHES["bf16"], sum(qmm.LAUNCHES.values()))
+    window_ms, nll_auto = window_nll(eng, corpus)
+    after = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.LAUNCHES["bf16"],
+             flash.DECODE_LAUNCHES["bf16"], sum(qmm.LAUNCHES.values()))
+    d = [b - a for a, b in zip(before, after)]
+    log(f"[tools] perplexity windows of 512: {[round(w, 2) for w in window_ms]} ms; launches "
+        f"over {PPL_WINDOWS} windows: qmm_tc {d[0]} (Q6_K {d[1]}), flash {d[2]} (decode regime "
+        f"{d[3]}), CUDA-core qmm {d[4]}; per forward {per}")
+    expect(d[0] == per["qmm"] * PPL_WINDOWS and d[4] == 0 and d[2] == per["flash"] * PPL_WINDOWS
+           and d[3] == 0 and d[1] >= PPL_WINDOWS,
+           "each window's forward ran every linear and the Q6_K head on qmm_tc and flash in "
+           "its prefill regime")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = Engine(path, max_seq=TOOLS_CTX, mode="dense")
+    dense_load_s = dense.perf.t_load_s
+    dense_ms, nll_dense = window_nll(dense, corpus)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppl_args = m + ["-f", str(corpus), "-c", "512", "--max-windows", str(PPL_WINDOWS), "--json"]
+    ppl = {}
+    for mode in ("auto", "dense"):
+        rc, text, _, secs = run_tool(perplexity.main, ppl_args + ["--mode", mode])
+        ppl[mode] = dict(json.loads(text), seconds=secs)
+        expect(rc == 0 and ppl[mode]["n_tokens"] == 255 * PPL_WINDOWS,
+               f"perplexity {mode}: {ppl[mode]}")
+    expect(all(ppl[mode]["ppl"] == np.inf if nll >= np.log(np.finfo(np.float64).max)
+               else np.isclose(ppl[mode]["ppl"], np.exp(nll), rtol=1e-3, atol=0.0)
+               for mode, nll in (("auto", nll_auto), ("dense", nll_dense))),
+           "the tool's PPL is exp of the windows' mean NLL (inf past f64; rtol 1e-3: the "
+           "tool's engine holds 512 positions, this one TOOLS_CTX, so attention sums "
+           "another number of masked keys)")
+    base = tmp / "kld_base.npz"
+    rc, _, _, base_s = run_tool(perplexity.main, ppl_args + ["--mode", "dense",
+                                                             "--kl-divergence-base", str(base)])
+    expect(rc == 0 and base.exists(), "the dense run recorded the KLD base")
+    rc, text, _, kld_s = run_tool(perplexity.main, ppl_args + ["--kl-divergence", str(base)])
+    kld = json.loads(text)
+    base.unlink()
+    expect(rc == 0 and kld["kld"] >= 0 and kld["n_tokens"] == 512 * PPL_WINDOWS,
+           f"KLD of the kernels against dense: {kld}")
+    out["perplexity"] = dict(window_ms=window_ms, dense_window_ms=dense_ms, nll_auto=nll_auto,
+                             nll_dense=nll_dense, dense_load_s=dense_load_s, auto=ppl["auto"],
+                             dense=ppl["dense"], kld=kld, kld_base_s=base_s, kld_s=kld_s)
+    log(f"[tools] perplexity, SURVEY.md, {PPL_WINDOWS} windows of 512: PPL auto (the kernels) "
+        f"{ppl['auto']['ppl']:.6g} ({ppl['auto']['seconds']:.1f}s), dense (bf16 weights, "
+        f"torch.matmul) {ppl['dense']['ppl']:.6g} ({ppl['dense']['seconds']:.1f}s); mean NLL a "
+        f"token (ln PPL) auto {nll_auto:.4f}, dense {nll_dense:.4f} nats (relative "
+        f"{abs(nll_auto - nll_dense) / abs(nll_dense):.2e}); dense windows "
+        f"{[round(w, 2) for w in dense_ms]} ms, dense load {dense_load_s:.1f}s; KLD of auto "
+        f"against the dense base {kld['kld']:.6g}, same top {kld['same_top_p']:.4f} over "
+        f"{kld['n_tokens']} tokens (base recorded in {base_s:.1f}s, KLD run {kld_s:.1f}s)")
+
+    # 6. the bench sweep
+    rc, text, _, secs = run_tool(bench.main, m + BENCH_ARGS)
+    rows = [json.loads(line) for line in text.splitlines() if line.strip()]
+    expect(rc == 0 and len(rows) == 8 and all(r["pp_ts"] > 0 and r["tg_ts"] > 0 for r in rows),
+           f"bench: 8 rows with pp and tg rates, got {rows}")
+    out["bench"] = dict(seconds=secs, rows=rows)
+    for r in rows:
+        log(f"[tools] bench kv={r['type_kv']} d={r['n_depth']}: pp{r['n_prompt']} "
+            f"{r['pp_ts']} ± {r['pp_stddev']} tok/s, tg{r['n_gen']} {r['tg_ts']} ± "
+            f"{r['tg_stddev']} tok/s")
+    torch.cuda.synchronize()
+    got = read_launches()  # just after the main path
+    for fmt in FLASH_FORMATS:
+        key = f"flash_{fmt}"
+        expect(got[key + ".decode"] > 0 and got[key] - got[key + ".decode"] > 0,
+               f"tools: {key} launched in both regimes")
+    expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0,
+           "tools: no call through the dequantize or dense-attention routes")
+    log(f"[tools] launches over the phase: {got}; {secs:.1f}s for the bench")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = got
+    return out
 
 
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
@@ -1372,10 +1699,11 @@ def phase_presets(tmp: Path, launches: dict) -> list[dict]:
 
 
 def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
-    """Llama-3-8B at IQ1_S and IQ3_XXS at full depth (32 tokens a prompt;
-    between them IQ1_S, IQ2_XXS, IQ2_S, IQ3_XXS and an IQ3_S embedding); at
-    IQ2_XXS, IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 with 4 layers (one
-    prompt, 16 decode steps); Mixtral-8x7B at IQ2_XXS with 4 layers (a
+    """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at IQ1_S,
+    IQ3_XXS (between them IQ1_S, IQ2_XXS, IQ2_S, IQ3_XXS and an IQ3_S
+    embedding), IQ2_XXS, IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 (the
+    IQ1_S and IQ3_XXS runs were at full depth before the tools phase
+    joined the smoke, and were cut to keep its time); Mixtral-8x7B at IQ2_XXS with 4 layers (a
     64-token prompt through qmm_stack, decode through qmm_gather); the 8B at
     Q4_K_M with 4 layers and qmm.GROUPED_TYPES = {Q4_K, Q6_K}: every 2-D
     launch goes through qmm_grouped."""
@@ -1385,11 +1713,8 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
     from tpullm_torch.ops.kernels import qmm
 
     runs = []
-    for ftype in ("IQ1_S", "IQ3_XXS"):
-        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype)
-        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, n_gen=32))
-        path.unlink()
-    for ftype in ("IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M", "TQ1_0", "TQ2_0"):
+    for ftype in ("IQ1_S", "IQ3_XXS", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M", "TQ1_0",
+                  "TQ2_0"):
         path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
         runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
         path.unlink()
@@ -1414,13 +1739,21 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
            "the grouped run's 2-D launches all went through qmm_grouped")
     # the 512-token prefill's 2-D qmm kernels by name: each layer's linears
     # on the grouped tensor-core kernel, the head (its last row only) on the
-    # gemv body, and no other
+    # gemv body, and no other. The trace names the kernels; it can drop a
+    # launch (two runs on the H100 each lost one qmm_grouped_tc_kernel event),
+    # never add one, so its counts are held as upper bounds, and the
+    # wrappers' count of the forward's qmm_grouped launches (each one of the
+    # two kernels) as the total: together the exact split
     per = run["per_forward"]
     two_d = {k: n for k, n in run["prefill_profile"]["launches"].items()
              if k not in REDUCTION_KERNELS and not k.startswith(("qmm_stack", "qmm_gather", "flash"))}
     want = {"qmm_grouped_tc_kernel": per["qmm_layers"], "qmm_grouped_gemv_kernel": per["head"]}
-    expect(two_d == want, f"the grouped run's 512-token prefill ran the 2-D kernels {two_d}, "
-           f"not {want}")
+    counted = run["prefill_profile"]["counted"]
+    expect(set(two_d) == set(want) and all(two_d[k] <= want[k] for k in want)
+           and counted.get("qmm_grouped") == per["qmm"] and not counted.get("qmm_tc")
+           and not any(counted.get(k) for k in QMM_KEYS.values()),
+           f"the grouped run's 512-token prefill ran the 2-D kernels {two_d} (traced) and "
+           f"{counted} (counted), not {want}")
     runs.append(run)
     path.unlink()
     return runs
@@ -1537,12 +1870,14 @@ def main() -> int:
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
-        runs = timed("slice", phase_slice, Path(tmp), launches)
+        runs, slice_path = timed("slice", phase_slice, Path(tmp), launches)
+        tools = timed("tools", phase_tools, slice_path, Path(tmp), launches)
+        slice_path.unlink()
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         timed("routes", phase_routes, dev, Path(tmp))
-    log("[runs] summary " + json.dumps({"runs": runs}))
+    log("[runs] summary " + json.dumps({"runs": runs, "tools": tools}))
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 

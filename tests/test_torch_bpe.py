@@ -5,13 +5,13 @@ synthetic byte-level vocab with merges for every pretokenizer family, and a
 tiny model with a Llama-3 style vocab (`vocab="bpe"`) through both Engines.
 
 `regex` carries its own Unicode tables, newer than the standard library's
-`unicodedata` (Unicode 15.0 in Python 3.12): code points whose general
-category moved between the two versions (KNOWN_SPLITS) are the only ones on
-which the two may disagree, and the drawn texts leave them out.
+`unicodedata` (Unicode 15.0 in Python 3.12). The port ships `regex`'s runs
+as data (tpullm_torch/tokenizer/unicode_props.npz), so the classes agree on
+every code point, assigned in either version or in neither, and the drawn
+texts take unassigned code points too.
 """
 
 import re
-import sys
 import unicodedata
 
 import numpy as np
@@ -23,6 +23,7 @@ from hypothesis import strategies as st
 import jax.numpy as jnp
 
 from test_torch_presets import one_torch_thread  # noqa: F401 (autouse)
+from torch_unicode_props import all_code_points, regex_runs, regex_unicode_version
 from tpullm.runtime.engine import Engine as JEngine
 from tpullm.tokenizer import bpe as jbpe
 from tpullm.tokenizer.vocab import SpecialIds as JSpecialIds
@@ -34,13 +35,13 @@ from tpullm_torch.runtime.engine import Engine
 from tpullm_torch.tokenizer import BPETokenizer, Vocab, bpe, from_gguf
 from tpullm_torch.tokenizer.vocab import SpecialIds
 
-# U+0295 LATIN LETTER PHARYNGEAL VOICED FRICATIVE: Ll in Unicode 15.0, Lo
-# from Unicode 16.0 (the `regex` module's tables)
-KNOWN_SPLITS = {0x0295: ("Ll", "Lo")}
+# every code point, as one string
+ALL = all_code_points()
 
-# every code point assigned in unicodedata's Unicode version, as one string
-ASSIGNED = "".join(chr(c) for c in range(sys.maxunicode + 1)
-                   if unicodedata.category(chr(c)) not in ("Cn", "Cs"))
+# code points on which Python 3.12's unicodedata (Unicode 15.0) and
+# `regex`'s newer tables disagree: U+0295 (Ll in 15.0, Lo from 16.0),
+# U+1C89 (Lu, new in 16.0), U+088F (new in 17.0), U+20C1 (Sc, new in 17.0)
+NEWER_TABLES = "\u0295\u1c89\u088f\u20c1"
 
 FAMILIES = sorted(bpe.PRE_TABLE)
 ALIASES = sorted(bpe._ALIASES)
@@ -61,32 +62,58 @@ FIXED = [
 
 
 def _class_diff(name: str, form: str) -> set[int]:
-    """Code points of ASSIGNED on which `form` (a pattern with {p} for the
+    """Code points (all of them) on which `form` (a pattern with {p} for the
     property) matches differently in `regex` and in the port's translation."""
     prop = r"\s" if name == "space" else rf"\p{{{name}}}"
     pat = form.format(p=prop)
-    got = set(re.findall(bpe.translate(pat), ASSIGNED))
-    want = set(regex.findall(pat, ASSIGNED))
+    got = set(re.findall(bpe.translate(pat), ALL))
+    want = set(regex.findall(pat, ALL))
     return {ord(c) for c in got ^ want}
+
+
+@pytest.mark.parametrize("name", [*bpe.PROPERTY_CLASSES, "space"])
+def test_property_tables_equal_regex(name):
+    """The shipped runs of each class equal the installed `regex`'s, rebuilt
+    over all 0x110000 code points; the file names the `regex` and Unicode
+    versions it came from."""
+    props = bpe.unicode_props()
+    assert props["regex_version"] == regex.__version__
+    assert props["unicode_version"] == regex_unicode_version()
+    np.testing.assert_array_equal(props[name], regex_runs(name, ALL))
+    assert bpe.property_ranges(name) == tuple(map(tuple, regex_runs(name, ALL).tolist()))
 
 
 @pytest.mark.parametrize("form", ["{p}", "[{p}]", "[^{p}]", "[a{p}0-9]", "[^\\r\\n{p}]"])
 @pytest.mark.parametrize("name", [*bpe.PROPERTY_CLASSES, "space"])
 def test_property_class_matches_regex(name, form):
-    """Membership of every assigned code point, in and out of a class,
-    negated or not: the same in the translated stdlib class as in `regex`,
-    but for the code points whose category the newer tables moved."""
+    """Membership of every code point, assigned or not, in and out of a
+    class, negated or not: the same in the translated stdlib class as in
+    `regex`."""
     diff = _class_diff(name, form)
-    for c in diff:
-        assert c in KNOWN_SPLITS, f"U+{c:04X} ({unicodedata.category(chr(c))})"
-        assert unicodedata.category(chr(c)) == KNOWN_SPLITS[c][0]
+    assert not diff, [f"U+{c:04X} ({unicodedata.category(chr(c))})" for c in sorted(diff)[:8]]
+
+
+@pytest.mark.parametrize("text", [
+    "wordᲉend ok",  # U+1C89: Lu in regex, unassigned in Unicode 15.0
+    "ʕaʕ ʕ1",  # U+0295: Lo in regex, Ll in Unicode 15.0
+    "x\u088fy 1\u20c1 2",  # U+088F, U+20C1: new in Unicode 17.0
+    "IT'ſ it'ſ DON'K don'K 'ſ 'K",  # contractions on non-ASCII case folds
+    "'\u017fS \u212a'\u212a ſt 'ſt",
+])
+@pytest.mark.parametrize("pre", FAMILIES)
+def test_split_equals_reference_on_newer_tables(pre, text):
+    """Pretokenizer splits equal the reference's where the newer tables and
+    the case folds matter (the reference splits with `regex`)."""
+    patterns = bpe.resolve_pre(pre)["regexes"]
+    assert patterns == jbpe.resolve_pre(pre)["regexes"]
+    assert bpe.regex_split(text, patterns) == jbpe.regex_split(text, patterns)
 
 
 def test_not_space_and_white_space():
     """\\S and \\s as regex reads them: White_Space, without U+001C..U+001F,
     which `re`'s own \\s and str.isspace take."""
     assert _class_diff("space", "{p}") == set()
-    assert set(re.findall(bpe.translate(r"\S"), ASSIGNED)) == set(regex.findall(r"\S", ASSIGNED))
+    assert set(re.findall(bpe.translate(r"\S"), ALL)) == set(regex.findall(r"\S", ALL))
     assert re.fullmatch(r"\s", "\x1c") and not re.fullmatch(bpe.translate(r"\s"), "\x1c")
 
 
@@ -141,13 +168,14 @@ def test_bpe_matches_jax_on_fixed_strings(bpe_data, pre):
         [ref.piece_bytes(i) for i in range(len(ref.vocab.tokens))]
 
 
-# text drawn from every assigned code point but the surrogates and KNOWN_SPLITS,
-# with the ASCII that the patterns single out drawn more often
+# text drawn from every code point but the surrogates (assigned or not), with
+# the ASCII that the patterns single out and the code points whose class the
+# newer tables changed drawn more often
 _TEXT = st.text(
     alphabet=st.one_of(
-        st.characters(exclude_categories=("Cs", "Cn"),
-                      exclude_characters="".join(map(chr, KNOWN_SPLITS))),
-        st.sampled_from(list(" \t\r\n'sStTdDmMlLvVrReE0123456789.,!?$+<=>^~|`/-_\x1c　"))),
+        st.characters(exclude_categories=("Cs",)),
+        st.sampled_from(list(" \t\r\n'sStTdDmMlLvVrReE0123456789.,!?$+<=>^~|`/-_\x1c　ſK"
+                             + NEWER_TABLES))),
     max_size=48)
 
 

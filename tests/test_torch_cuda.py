@@ -465,7 +465,7 @@ def test_split_outputs_on_two_streams_at_once(dev):
     x = torch.randn(2, K, generator=torch.Generator(dev).manual_seed(6), device=dev)
     x = x.to(torch.bfloat16)
     ids = torch.tensor([5, 2], dtype=torch.int32, device=dev)
-    attend, _, _ = _flash_inputs(dev, False, 2, 1, 32, 8, 4096, 128, (37, 3000), 6, False)
+    attend, _, _ = _flash_inputs(dev, "bf16", 2, 1, 32, 8, 4096, 128, (37, 3000), 6, False)
     calls = (lambda: qmm.qmm(x[:1], planes, GGMLType.Q4_K, N, K),
              lambda: qmm.qmm_grouped(x[:1], planes, GGMLType.Q4_K, N, K),
              lambda: qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K), attend)
@@ -485,18 +485,29 @@ def test_split_outputs_on_two_streams_at_once(dev):
     assert all(torch.equal(a, b) for outs in got for a, b in zip(outs, want))
 
 
-def _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets, seed, extras):
+KV_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets, seed, extras):
+    """(kernel, plain, NMSE bound) of one flash call on random inputs; `kv`
+    the cache format: "bf16", "f16", "f32" (K and V drawn in bf16 and
+    widened, then offset by a value below bf16's resolution so that the
+    wider types hold bits bf16 does not) or "q8"."""
     g = torch.Generator(dev).manual_seed(seed)
     q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    if kv in ("f16", "f32"):
+        fine = 1e-3 * torch.randn(2, B, Hkv, S, D, generator=g, device=dev)
+        k = (k.float() + fine[0]).to(KV_DTYPES[kv])
+        v = (v.float() + fine[1]).to(KV_DTYPES[kv])
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     kw = dict(softcap=0.0, sliding_window=0, sinks=None, alibi_slopes=None)
     if extras:
         kw = dict(softcap=30.0, sliding_window=100,
                   sinks=torch.randn(H, generator=g, device=dev),
                   alibi_slopes=torch.linspace(0.5, 0.01, H, device=dev))
-    if not q8:
+    if kv != "q8":
         return (lambda: flash.flash_attention(q, k, v, off, D ** -0.5, **kw),
                 lambda: flash.flash_reference(q, k, v, off, D ** -0.5, **kw), FLASH_NMSE_BOUND)
     from tpullm_torch.runtime.kvcache import QuantKVCache
@@ -508,6 +519,32 @@ def _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets, seed, extras):
                                           v_scale=v_s, **kw), FLASH_Q8_NMSE_BOUND)
 
 
+def _flash_regimes(dev, T, D, kv, extras):
+    """The body of the regime tests (see test_flash_regimes_match_plain);
+    the NMSE of each kv_len."""
+    B, H, Hkv, S = 2, 8, 2, 4096
+    decode = flash.regime(T, H, Hkv) == "decode"
+    errs = {}
+    for kv_len in (1, 31, 32, 33, 4095, 4096):
+        if kv_len < T:
+            continue
+        offsets = (kv_len - T, (7 * kv_len + 1000) % (S - T + 1))
+        kernel, plain, bound = _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets,
+                                             seed=T + kv_len + D, extras=extras)
+        before = flash.LAUNCHES[kv], flash.DECODE_LAUNCHES[kv]
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        assert (flash.LAUNCHES[kv], flash.DECODE_LAUNCHES[kv]) == \
+            (before[0] + 2, before[1] + 2 * decode)
+        ref = plain()
+        assert got.shape == (B, T, H, D) and torch.isfinite(got.float()).all()
+        errs[kv_len] = _nmse(got.float(), ref.float())
+        assert errs[kv_len] <= bound, kv_len
+        assert torch.equal(got, again), kv_len
+    return errs
+
+
 @pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
 @pytest.mark.parametrize("D", [64, 128])
@@ -517,25 +554,20 @@ def test_flash_regimes_match_plain(dev, T, D, q8, extras):
     tensor-core prefill) at kv_len 1, 31, 32, 33, 4095 and 4096 of S = 4096
     (the second batch at another kv_len), each call one launch, counted in
     its regime, and bit-identical when repeated back to back."""
-    B, H, Hkv, S = 2, 8, 2, 4096
-    decode = flash.regime(T, H, Hkv) == "decode"
-    for kv_len in (1, 31, 32, 33, 4095, 4096):
-        if kv_len < T:
-            continue
-        offsets = (kv_len - T, (7 * kv_len + 1000) % (S - T + 1))
-        kernel, plain, bound = _flash_inputs(dev, q8, B, T, H, Hkv, S, D, offsets,
-                                             seed=T + kv_len + D, extras=extras)
-        fmt = "q8" if q8 else "bf16"
-        before = flash.LAUNCHES[fmt], flash.DECODE_LAUNCHES[fmt]
-        got = kernel()
-        again = kernel()
-        torch.cuda.synchronize()
-        assert (flash.LAUNCHES[fmt], flash.DECODE_LAUNCHES[fmt]) == \
-            (before[0] + 2, before[1] + 2 * decode)
-        ref = plain()
-        assert got.shape == (B, T, H, D) and torch.isfinite(got.float()).all()
-        assert _nmse(got.float(), ref.float()) <= bound, kv_len
-        assert torch.equal(got, again), kv_len
+    _flash_regimes(dev, T, D, "q8" if q8 else "bf16", extras)
+
+
+@pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
+@pytest.mark.parametrize("kv", ["f16", "f32"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
+def test_flash_f16_f32_regimes_match_plain(dev, T, D, kv, extras):
+    """The f16 and f32 caches in both regimes, as the bf16 and q8 ones above,
+    against flash_reference in f32 (NMSE bound 2e-3), each kv_len's NMSE
+    printed."""
+    errs = _flash_regimes(dev, T, D, kv, extras)
+    print(f"flash {kv} T={T} D={D} extras={extras}: NMSE by kv_len "
+          + ", ".join(f"{n}: {e:.2e}" for n, e in errs.items()))
 
 
 @pytest.mark.parametrize("q8", [False, True])
@@ -576,24 +608,25 @@ def test_flash_kernel_matches_plain(dev, q8, T, S, D, softcap, window, sinks, al
     assert _nmse(got.float(), ref.float()) <= bound
 
 
-@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+@pytest.mark.parametrize("kv", ["bf16", "q8_0", "f16", "f32"])
 def test_engine_on_the_card_matches_the_cpu(dev, tmp_path, kv):
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
     from tpullm_torch.runtime.engine import Engine
 
     path = make_synthetic_llama_gguf(tmp_path / "tiny.gguf", shape="tiny", seed=0)
-    kv_dtype = torch.bfloat16 if kv == "bf16" else "q8_0"
+    kv_dtype = torch.bfloat16 if kv == "bf16" else kv
     gpu = Engine(path, max_seq=256, kv_dtype=kv_dtype)
     cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv_dtype)
     assert gpu.device.type == "cuda"
     ids = gpu.tokenizer.tokenize("the quick brown fox", add_special=True)
-    before = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES["q8" if kv == "q8_0" else "bf16"]
+    fmt = "q8" if kv == "q8_0" else kv
+    before = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES[fmt]
     a, b = gpu.prefill(ids), cpu.prefill(ids)
     assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
     for tok in (300, 17, 42):
         a, b = gpu.decode_step(tok), cpu.decode_step(tok)
         assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
-    after = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES["q8" if kv == "q8_0" else "bf16"]
+    after = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES[fmt]
     assert after[0] > before[0] and after[1] == before[1] + 4 * gpu.hp.n_layer
     gpu.reset()
     cpu.reset()
@@ -774,3 +807,100 @@ def test_sampled_decode_graph_is_deterministic(dev, tmp_path):
         runs.append(eng.generate_tokens_device(ids, 48, temp=0.8, seed=seed, chunk=16,
                                                stop_on_eog=False))
     assert runs[0] == runs[1] and runs[0] != runs[2] and len(runs[0]) == 48
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0", "f16", "f32"])
+@pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
+def test_decode_step_graph_matches_eager(dev, tmp_path, shape, kv):
+    """decode_step replays the logits-only graph (captured at its first
+    call): its logits equal the eager _decode_logits' at the same state,
+    bit for bit, interleaved with prefill, prefill_all_logits,
+    generate_tokens_device, reset and load_state (f16/f32/bf16), and after
+    new_cache (which drops the graphs); each replay adds one forward's
+    launches."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime import state
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    eng = Engine(path, max_seq=96, kv_dtype=torch.bfloat16 if kv == "bf16" else kv)
+    ids = eng.tokenizer.tokenize("hello world the quick", add_special=True)
+
+    def check(tok: int):
+        """decode_step(tok) against the eager step at the same n_past."""
+        n = eng.n_past
+        got = eng.decode_step(tok)
+        row = None if kv == "q8_0" else eng.cache.k[:, :, :, n].clone()
+        eng.n_past = n
+        want = eng._decode_logits(torch.tensor([tok], device=dev)).cpu().numpy()
+        assert np.array_equal(got, want), (n, tok)
+        if row is not None:  # the replay and the eager step wrote the same row
+            assert torch.equal(eng.cache.k[:, :, :, n], row)
+
+    eng.prefill(ids)
+    check(300)  # the first call: eager step, then capture
+    runner = eng.logits_runner()
+    per = _forward_launches(eng.params)
+    assert runner.launches_per_replay()["qmm"] == per["qmm"]
+    assert runner.launches_per_replay()["flash_decode"] == per["flash"]
+    check(17)
+    eng.prefill_all_logits([5, 6, 7])
+    check(42)
+    eng.generate_tokens_device(ids, 8, chunk=4)
+    check(9)
+    eng.reset()
+    eng.prefill(ids[:2])
+    check(11)
+    if kv != "q8_0":
+        state.save_state(eng, tmp_path / "s.npz", tokens=ids[:2] + [11])
+        eng.reset()
+        eng.prefill([1, 2, 3, 4, 5, 6])
+        assert state.load_state(eng, tmp_path / "s.npz") == ids[:2] + [11]
+        check(12)
+    assert eng.logits_runner() is runner and runner.replays >= 4
+    eng.new_cache()
+    assert eng.logits_runner() is not runner
+    eng.prefill(ids)
+    check(300)
+    check(301)
+
+
+@pytest.mark.parametrize("ftype", ["Q4_K_M", "Q2_K", "Q4_0", "IQ4_XS", "IQ2_XXS", "TQ2_0",
+                                   "MXFP4_MOE"])
+def test_dense_mode_on_the_card(dev, tmp_path, ftype):
+    """Weight mode "dense" on the card (bf16 weights dequantized on the
+    device, torch.matmul): logits NMSE ≤ 1e-3 against the same mode on the
+    CPU and the same greedy ids; no qmm launch, flash as in auto; for
+    Q4_K_M also NMSE ≤ 1e-3 against auto on the card (2.7e-5 on the CPU;
+    the chaotic tiny models amplify the bf16 scale rounding of the packed
+    planes elsewhere, up to 0.1 on the CPU, so other presets are held
+    against the CPU only)."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    shape = "tiny-moe" if ftype == "MXFP4_MOE" else "tiny"
+    path = make_synthetic_llama_gguf(tmp_path / "m.gguf", shape=shape, seed=0, ftype=ftype)
+    gpu = Engine(path, max_seq=128, mode="dense")
+    cpu = Engine(path, device="cpu", max_seq=128, mode="dense")
+    ids = gpu.tokenizer.tokenize("the lazy dog jumps over the quick brown fox hello world",
+                                 add_special=True)
+    before = (sum(qmm.LAUNCHES.values()) + sum(qmm.TC_LAUNCHES.values())
+              + sum(qmm.STACK_LAUNCHES.values()) + sum(qmm.GATHER_LAUNCHES.values()),
+              flash.LAUNCHES["bf16"])
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (300, 17, 42):
+        assert _nmse(torch.from_numpy(gpu.decode_step(tok)),
+                     torch.from_numpy(cpu.decode_step(tok))) <= 1e-3
+    after = (sum(qmm.LAUNCHES.values()) + sum(qmm.TC_LAUNCHES.values())
+             + sum(qmm.STACK_LAUNCHES.values()) + sum(qmm.GATHER_LAUNCHES.values()),
+             flash.LAUNCHES["bf16"])
+    assert after[0] == before[0] and after[1] == before[1] + 4 * gpu.hp.n_layer
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)
+    if ftype == "Q4_K_M":
+        auto = Engine(path, max_seq=128)
+        gpu.reset()
+        assert _nmse(torch.from_numpy(gpu.prefill(ids)),
+                     torch.from_numpy(auto.prefill(ids))) <= 1e-3

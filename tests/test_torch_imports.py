@@ -1,8 +1,10 @@
 """Import guard: tpullm_torch and chip_smoke.py import neither JAX nor the
 tpullm package (tpullm_torch keeps its own copies of what it needs), and
 tpullm_torch does not import `regex` (the BPE tokenizer's patterns run on
-the standard library's `re`; the card's machine is not known to have
-`regex`, and chip_smoke.py only reports whether it imports there)."""
+the standard library's `re`, their property classes shipped as data; the
+card's machine is not known to have `regex` in every setup, and
+chip_smoke.py only reports whether it imports there). Every module of the
+package, the tools among them, imports with the three blocked."""
 
 import ast
 import os
@@ -51,6 +53,11 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.ops.kernels.qmm, tpullm_torch.ops.kernels.flash\n"
         "import tpullm_torch.ops.moe, tpullm_torch.models.llama, tpullm_torch.models.weights\n"
         "import tpullm_torch.grammar, tpullm_torch.runtime.sampling, tpullm_torch.runtime.graph\n"
+        "import tpullm_torch.runtime.state, tpullm_torch.chat, tpullm_torch.jinja\n"
+        "import tpullm_torch.utils.logging, tpullm_torch.utils.console\n"
+        "import tpullm_torch.grammar.json_partial\n"
+        "import tpullm_torch.tools.cli, tpullm_torch.tools.perplexity, tpullm_torch.tools.bench\n"
+        "import tpullm_torch.tools.tokenize, tpullm_torch.tools.compare_bench\n"
         "from tpullm_torch.tokenizer import bpe\n"
         "assert bpe.regex_split(\"it's 1234\", bpe.resolve_pre('llama-bpe')['regexes']) == \\\n"
         "    ['it', \"'s\", ' ', '123', '4']\n"

@@ -1,8 +1,11 @@
 // Causal online-softmax attention over the head-major KV cache, for Hopper.
 //
 // Replaces the TPU kernel tpullm/ops/pallas/flash.py::_make_kernel, launched
-// by _run: quant=false (bf16 K/V, entry flash_attention) and quant=true (int8
-// K/V with one f32 scale per position, entry flash_attention_q8). Semantics
+// by _run: quant=false (dense K/V, entry flash_attention: bf16, f16 or f32,
+// the cache types the JAX kernel upcasts to f32 in its body) and quant=true
+// (int8 K/V with one f32 scale per position, entry flash_attention_q8). Both
+// kernels are templated on the cache element type KV (kKvBf16, kKvF16,
+// kKvF32, kKvQ8); q and the output stay bf16. Semantics
 // kept from the TPU kernel: per-batch offsets (query row t sits at position
 // off + t, kv_len = off + T), GQA by h / (H / Hkv), optional softcap (tanh)
 // before ALiBi slope_h · (k_pos − q_pos) and the mask, sliding window,
@@ -16,11 +19,11 @@
 //
 // R ≤ kDecodeRows = 16 (decode; the 8B's T = 1 is R = 4): split-KV on CUDA
 //   cores, flash_decode_kernel. What bounds it: the K/V bytes up to kv_len
-//   (2 · kv_len · D · 2 bytes a KV head in bf16, half that plus the scales
-//   in q8). One block per (batch, KV head, split): the R rows of the G
-//   heads of one KV head share every K/V tile, so each is read once (the
-//   old grid read it G times). Each batch's key range [window start,
-//   kv_len) is cut into splits of whole 64-key tiles (kv_split, mirrored by
+//   (2 · kv_len · D · 2 bytes a KV head in bf16 and f16, twice that in
+//   f32, half that plus the scales in q8). One block per (batch, KV head,
+//   split): the R rows of the G heads of one KV head share every K/V tile,
+//   so each is read once (the old grid read it G times). Each batch's key
+//   range [window start, kv_len) is cut into splits of whole 64-key tiles (kv_split, mirrored by
 //   ops/kernels/flash.py kv_splits): as many as max_splits, which the
 //   wrapper sizes so that B · Hkv · max_splits blocks cover the card about
 //   twice; a short context gets fewer (kv_len 38 one, kv_len 3001 sixteen,
@@ -31,12 +34,12 @@
 //   256 threads a block: in the scores, thread = (key, row group of 4), so
 //   the 8B's R = 4 is one row a thread; q is held once as f32 in shared
 //   memory. K/V tiles go 16 bytes a thread into a 2-stage cp.async ring.
-//   Scores, softmax and P·V are f32 FMAs (no new rounding point; int8 codes
-//   are exact in f32). A split writes f32 (m, l, acc) partials; the last
-//   block of each (batch, KV head) to finish, found through a counter of the
-//   launch's stream (ops/kernels/_build.py counters) that it resets, merges
-//   them in split order (deterministic), folds in the sink
-//   column, divides by safe l and rounds to bf16. The combine runs in the
+//   Scores, softmax and P·V are f32 FMAs (no new rounding point; int8
+//   codes, f16 and bf16 are exact in f32, f32 is read as it is). A split
+//   writes f32 (m, l, acc) partials; the last block of each (batch, KV
+//   head) to finish, found through a counter of the launch's stream
+//   (ops/kernels/_build.py counters) that it resets, merges them in split
+//   order (deterministic), folds in the sink column, divides by safe l and rounds to bf16. The combine runs in the
 //   same launch rather than as a second kernel because decode is host-bound
 //   (the card idles most of a token): a second launch a layer would cost
 //   the host as much as the kernel costs the card. A batch with one split
@@ -51,12 +54,19 @@
 //   registers. Tiles wholly above the block's causal diagonal or before its
 //   window are never loaded; a warp skips the tiles wholly above its own
 //   diagonal or before its own window, and masks only tiles that straddle
-//   an edge. q8: the int8 codes are exact in bf16 (a conversion pass per
-//   tile in shared memory); the per-key K scale multiplies the f32 score
-//   after the product; the per-key V scale folds into p. The new rounding
+//   an edge. The other cache types reach the tensor cores through a
+//   conversion pass per tile in shared memory from a ring of raw tiles. q8:
+//   the int8 codes are exact in bf16; the per-key K scale multiplies the
+//   f32 score after the product; the per-key V scale folds into p. f16 and
+//   f32: each value as two bf16 terms, hi = bf16(x) and lo = bf16(x − hi),
+//   exact for f16 (11 significant bits) and about 16 bits of f32's 24;
+//   QK takes q·K_hi + q·K_lo and PV adds p_hi·V_lo to the two p terms below
+//   (p_lo·V_lo, under 2^-16 of the product, is left out). The new rounding
 //   point, p (or p · v_s) to bf16 for the PV product, is carried as two bf16
 //   terms, hi = bf16(p), lo = bf16(p − hi), so p is kept to about 16 bits
 //   against f32's 24; the JAX kernel multiplies in f32.
+
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -78,6 +88,13 @@ constexpr int kPreTK = 64;         // keys a tile (prefill)
 constexpr int kPreStages = 2;
 
 __device__ __forceinline__ float exp_e(float x) { return exp2f(x * kLog2e); }
+
+// the cache element types (the template parameter KV) and their bytes
+constexpr int kKvBf16 = 0, kKvF16 = 1, kKvF32 = 2, kKvQ8 = 3;
+template <int KV>
+__host__ __device__ constexpr int kv_bytes() {
+  return KV == kKvQ8 ? 1 : KV == kKvF32 ? 4 : 2;
+}
 
 // The decode regime's split of one batch's keys: [lo, hi) in n splits of
 // `per` keys (whole tiles), as ops/kernels/flash.py kv_splits.
@@ -102,15 +119,41 @@ __device__ __forceinline__ float code_f32(uint32_t w, int byte) {
   return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440u + byte)) - 8388736.f;
 }
 
-// four bf16 (8 bytes) or four int8 (4 bytes) of shared memory → f32
-template <bool kQ8>
+// four values of shared memory in the cache's type → f32 (exact)
+template <int KV>
 __device__ __forceinline__ void load4(const char* p, float (&v)[4]) {
-  if constexpr (kQ8) {
+  if constexpr (KV == kKvQ8) {
     const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = code_f32(w, c);
+  } else if constexpr (KV == kKvF32) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (KV == kKvF16) {
+    const __half2* h = reinterpret_cast<const __half2*>(p);
+    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
   } else {
     load_bf16x4(reinterpret_cast<const __nv_bfloat16*>(p), v);
+  }
+}
+
+// the 16 bytes of `raw` (16 / kv_bytes values in the cache's type) → f32
+template <int KV>
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&v)[16 / kv_bytes<KV>()]) {
+  const char* p = reinterpret_cast<const char*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 16 / kv_bytes<KV>(); e += 4) {
+    float f[4];
+    load4<KV>(p + e * kv_bytes<KV>(), f);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[e + c] = f[c];
   }
 }
 
@@ -139,9 +182,10 @@ __device__ __forceinline__ void decode_finish(__nv_bfloat16* __restrict__ out, i
 // Shared memory of a decode block: q rows (f32), the K/V ring (K rows padded
 // by 16 bytes so that 8 lanes reading 8 keys hit distinct banks; q8: the
 // per-key scales after V), the probabilities p [16][65] and per-row state.
-template <int D, bool kQ8>
+template <int D, int KV>
 struct DecSmem {
-  static constexpr int kEs = kQ8 ? 1 : 2;
+  static constexpr bool kQ8 = KV == kKvQ8;
+  static constexpr int kEs = kv_bytes<KV>();
   static constexpr int kKPitch = D * kEs + 16;
   static constexpr int kVPitch = D * kEs;
   static constexpr int kV = kDecTK * kKPitch;
@@ -157,10 +201,10 @@ struct DecSmem {
                 "the ring holds every split's (m, l) for the combine");
 };
 
-template <int D, bool kQ8>
+template <int D, int KV>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
-                    const char* __restrict__ k,            // [B, Hkv, S, D] bf16 | int8
+                    const char* __restrict__ k,            // [B, Hkv, S, D] of type KV
                     const char* __restrict__ v,
                     const float* __restrict__ k_scale,     // [B, Hkv, S] (q8)
                     const float* __restrict__ v_scale,
@@ -172,7 +216,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
                     int* __restrict__ counters,            // [B·Hkv], zero between launches
                     int T, int H, int Hkv, int S, float scale, float softcap, int window,
                     int max_splits) {
-  using L = DecSmem<D, kQ8>;
+  using L = DecSmem<D, KV>;
+  constexpr bool kQ8 = L::kQ8;
   constexpr int RB = D * L::kEs;  // bytes of one K or V row
   constexpr int QD = D / 4;       // threads a row in P·V (4 features each)
   constexpr int RG = kDecThreads / QD;
@@ -270,15 +315,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
       for (int d0 = 0; d0 < D; d0 += 16 / L::kEs) {
         float kf[16 / L::kEs];
         const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0 * L::kEs);
-        if constexpr (kQ8) {
-          const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-          for (int e = 0; e < 16; ++e) kf[e] = code_f32(words[e / 4], e % 4);
-        } else {
-          const __nv_bfloat16* kh = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(kh[e]);
-        }
+        unpack16<KV>(raw, kf);
 #pragma unroll
         for (int i = 0; i < kDecodeRows / kGroups; ++i) {
           const int r = grp_r + kGroups * i;
@@ -350,7 +387,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll 4
       for (int jj = 0; jj < nk; ++jj) {
         float vv[4];
-        load4<kQ8>(vt + jj * L::kVPitch, vv);
+        load4<KV>(vt + jj * L::kVPitch, vv);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int r = rg + RG * i;
@@ -450,25 +487,30 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 }
 
 // Shared memory of a prefill block: the K/V ring, rows padded by 8 bf16 so
-// that the 8 rows an ldmatrix reads fall in distinct bank groups. q8: the
-// ring holds the int8 codes and the per-key scales, and one bf16 K and V
-// tile takes each tile's conversion. The Q tile, read once into registers,
-// is first copied into the space the second tile takes after it (ring
-// stage 1; q8: the conversion tiles).
-template <int D, bool kQ8>
+// that the 8 rows an ldmatrix reads fall in distinct bank groups. Other
+// cache types than bf16: the ring holds the raw tiles (q8: and the per-key
+// scales), and bf16 K and V tiles take each tile's conversion, kTerms of
+// each (hi, then lo). The Q tile, read once into registers, is first copied
+// into the space the second tile takes after it (ring stage 1; converted:
+// the conversion tiles).
+template <int D, int KV>
 struct PreSmem {
+  static constexpr bool kQ8 = KV == kKvQ8;
+  static constexpr bool kConv = KV != kKvBf16;
+  static constexpr int kTerms = KV == kKvF16 || KV == kKvF32 ? 2 : 1;
   static constexpr int kPitch = D + 8;  // bf16 a row of Q, K, V
   static constexpr int kTile = kPreTK * kPitch * 2;
-  static constexpr int kRaw = kPreTK * D;  // bytes of one int8 K or V tile
-  static constexpr int kStage = kQ8 ? 2 * kRaw + 2 * kPreTK * 4 : 2 * kTile;
+  static constexpr int kRaw = kPreTK * D * kv_bytes<KV>();  // bytes of one raw K or V tile
+  static constexpr int kStage = kConv ? 2 * kRaw + (kQ8 ? 2 * kPreTK * 4 : 0) : 2 * kTile;
   static constexpr int ring_off = 0;
   static constexpr int conv_off = kPreStages * kStage;
-  static constexpr int q_off = kQ8 ? conv_off : kStage;
-  static constexpr int bytes = conv_off + (kQ8 ? 2 * kTile : 0);
+  static constexpr int q_off = kConv ? conv_off : kStage;
+  static constexpr int bytes = conv_off + (kConv ? 2 * kTerms * kTile : 0);
   static_assert(kPreBM * kPitch * 2 <= bytes - q_off, "the Q tile fits where it is copied");
+  static_assert(bytes <= 232448, "a block's shared memory fits the SM");
 };
 
-template <int D, bool kQ8>
+template <int D, int KV>
 __global__ void __launch_bounds__(kPreThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict__ k,
                      const char* __restrict__ v, const float* __restrict__ k_scale,
@@ -476,9 +518,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
                      const float* __restrict__ sinks, const float* __restrict__ slopes,
                      __nv_bfloat16* __restrict__ out, int T, int H, int Hkv, int S,
                      float scale, float softcap, int window) {
-  using L = PreSmem<D, kQ8>;
+  using L = PreSmem<D, KV>;
+  constexpr bool kQ8 = L::kQ8;
   constexpr int P = L::kPitch;
-  constexpr int RB = D * (kQ8 ? 1 : 2);  // bytes of a K or V row in the cache
+  constexpr int RB = D * kv_bytes<KV>();  // bytes of a K or V row in the cache
   extern __shared__ __align__(16) char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
   char* ring = smem + L::ring_off;
@@ -503,9 +546,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
       const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
       const bool ok = kt + r < k_end;
       const size_t src = (size_t)(ok ? kt + r : kt) * RB + seg;
-      if constexpr (kQ8) {
-        cp_async16(st + r * D + seg, kb + src, ok ? 16 : 0);
-        cp_async16(st + L::kRaw + r * D + seg, vb + src, ok ? 16 : 0);
+      if constexpr (L::kConv) {
+        cp_async16(st + r * RB + seg, kb + src, ok ? 16 : 0);
+        cp_async16(st + L::kRaw + r * RB + seg, vb + src, ok ? 16 : 0);
       } else {
         cp_async16(st + r * P * 2 + seg, kb + src, ok ? 16 : 0);
         cp_async16(st + L::kTile + r * P * 2 + seg, vb + src, ok ? 16 : 0);
@@ -561,29 +604,46 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
     cp_async_commit();
     const char* st = ring + (it % kPreStages) * L::kStage;
     const int kt = k_begin + it * kPreTK;
+    // the bf16 tiles the products read: K hi, K lo, V hi, V lo (the lo
+    // tiles only with two terms)
     const __nv_bfloat16* kt_s;
     const __nv_bfloat16* vt_s;
-    if constexpr (kQ8) {  // int8 codes → bf16 (exact)
+    if constexpr (L::kConv) {  // raw tiles → kTerms bf16 terms each
+      constexpr int kEs = kv_bytes<KV>();
       __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem + L::conv_off);
       for (int i = tid; i < 2 * kPreTK * (D / 16); i += kPreThreads) {
         const int which = i / (kPreTK * (D / 16)), rem = i % (kPreTK * (D / 16));
         const int r = rem / (D / 16), seg = (rem % (D / 16)) * 16;
-        const uint4 raw = *reinterpret_cast<const uint4*>(st + which * L::kRaw + r * D + seg);
-        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-        __nv_bfloat16* dst = conv + which * (L::kTile / 2) + r * P + seg;
-        uint32_t w[8];
+        const char* src = st + which * L::kRaw + (r * D + seg) * kEs;
+        float f[16];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const __nv_bfloat162 pr = __floats2bfloat162_rn(code_f32(words[e / 2], 2 * (e % 2)),
-                                                          code_f32(words[e / 2], 2 * (e % 2) + 1));
-          w[e] = *reinterpret_cast<const uint32_t*>(&pr);
+        for (int c = 0; c < kEs; ++c) {  // 16 values: kEs chunks of 16 bytes
+          float g[16 / kEs];
+          const uint4 raw = *reinterpret_cast<const uint4*>(src + 16 * c);
+          unpack16<KV>(raw, g);
+#pragma unroll
+          for (int e = 0; e < 16 / kEs; ++e) f[c * (16 / kEs) + e] = g[e];
         }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-        *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+#pragma unroll
+        for (int term = 0; term < L::kTerms; ++term) {
+          __nv_bfloat16* dst = conv + (which * L::kTerms + term) * (L::kTile / 2) + r * P + seg;
+          uint32_t w[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const __nv_bfloat162 pr = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+            w[e] = *reinterpret_cast<const uint32_t*>(&pr);
+            if (term + 1 < L::kTerms) {  // what the hi term leaves, for the lo term
+              f[2 * e] -= __low2float(pr);
+              f[2 * e + 1] -= __high2float(pr);
+            }
+          }
+          *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+        }
       }
       __syncthreads();
       kt_s = conv;
-      vt_s = conv + L::kTile / 2;
+      vt_s = conv + L::kTerms * (L::kTile / 2);
     } else {
       kt_s = reinterpret_cast<const __nv_bfloat16*>(st);
       vt_s = reinterpret_cast<const __nv_bfloat16*>(st + L::kTile);
@@ -603,11 +663,15 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
     for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < kPreTK / 16; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, kt_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        const int at = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                       ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int term = 0; term < L::kTerms; ++term) {
+          uint32_t r[4];
+          ldmatrix_x4(r, kt_s + term * (L::kTile / 2) + at);
+          mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        }
       }
     }
 
@@ -673,12 +737,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
       }
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
+        const int at = (ks * 16 + (lane & 15)) * P + dp * 16 + (lane >> 4) * 8;
         uint32_t r[4];
-        ldmatrix_x4_trans(r, vt_s + (ks * 16 + (lane & 15)) * P + dp * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(r, vt_s + at);
         mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
         mma_bf16(o[2 * dp + 1], a_hi, r[2], r[3]);
         mma_bf16(o[2 * dp], a_lo, r[0], r[1]);
         mma_bf16(o[2 * dp + 1], a_lo, r[2], r[3]);
+        if constexpr (L::kTerms == 2) {  // p_hi · V_lo
+          ldmatrix_x4_trans(r, vt_s + L::kTile / 2 + at);
+          mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], a_hi, r[2], r[3]);
+        }
       }
     }
   }
@@ -724,7 +794,7 @@ cudaError_t smem_attributes(Kernel* kernel, int bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D, bool kQ8>
+template <int D, int KV>
 int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
              const void* v_scale, const void* offsets, const void* sinks, const void* slopes,
              void* out, void* partial, void* counters, int B, int T, int H, int Hkv, int S,
@@ -740,25 +810,25 @@ int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (T * (H / Hkv) <= kDecodeRows) {
     if (max_splits < 1 || max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
-    constexpr int smem = DecSmem<D, kQ8>::bytes;
-    static const cudaError_t attr = smem_attributes(flash_decode_kernel<D, kQ8>, smem);
+    constexpr int smem = DecSmem<D, KV>::bytes;
+    static const cudaError_t attr = smem_attributes(flash_decode_kernel<D, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_decode_kernel<D, kQ8><<<dim3(B * Hkv, max_splits), kDecThreads, smem, stream>>>(
+    flash_decode_kernel<D, KV><<<dim3(B * Hkv, max_splits), kDecThreads, smem, stream>>>(
         qb, kb, vb, ks, vs, ob, sk, sl, o, static_cast<float*>(partial),
         static_cast<int*>(counters), T, H, Hkv, S, scale, softcap, window, max_splits);
   } else {
     if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
-    constexpr int smem = PreSmem<D, kQ8>::bytes;
-    static const cudaError_t attr = smem_attributes(flash_prefill_kernel<D, kQ8>, smem);
+    constexpr int smem = PreSmem<D, KV>::bytes;
+    static const cudaError_t attr = smem_attributes(flash_prefill_kernel<D, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_prefill_kernel<D, kQ8><<<dim3((T + kPreBM - 1) / kPreBM, B * H), kPreThreads, smem,
+    flash_prefill_kernel<D, KV><<<dim3((T + kPreBM - 1) / kPreBM, B * H), kPreThreads, smem,
                                    stream>>>(qb, kb, vb, ks, vs, ob, sk, sl, o, T, H, Hkv, S,
                                              scale, softcap, window);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool kQ8>
+template <int KV>
 int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* offsets, const void* sinks, const void* slopes,
            void* out, void* partial, void* counters, int B, int T, int H, int Hkv, int S,
@@ -767,10 +837,10 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
     case 64:
-      return launch_d<64, kQ8>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
+      return launch_d<64, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
                                counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
     case 128:
-      return launch_d<128, kQ8>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
+      return launch_d<128, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
                                 partial, counters, B, T, H, Hkv, S, scale, softcap, window,
                                 max_splits, s);
     default: return (int)cudaErrorInvalidValue;
@@ -782,14 +852,20 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 // partial: f32 [B·Hkv·max_splits·R·(D + 2)] and counters: int32 [B·Hkv]
 // (zero, left zero) for the decode regime, R = T·H/Hkv ≤ 16; unread (may be
 // null) in the prefill regime.
-extern "C" int tpullm_flash_bf16(const void* q, const void* k, const void* v,
-                                 const void* offsets, const void* sinks, const void* slopes,
-                                 void* out, void* partial, void* counters, int B, int T, int H,
-                                 int Hkv, int S, int D, float scale, float softcap, int window,
-                                 int max_splits, void* stream) {
-  return launch<false>(q, k, nullptr, v, nullptr, offsets, sinks, slopes, out, partial,
-                       counters, B, T, H, Hkv, S, D, scale, softcap, window, max_splits, stream);
-}
+#define TPULLM_FLASH_DENSE(name, KV)                                                        \
+  extern "C" int name(const void* q, const void* k, const void* v, const void* offsets,      \
+                      const void* sinks, const void* slopes, void* out, void* partial,       \
+                      void* counters, int B, int T, int H, int Hkv, int S, int D, float scale, \
+                      float softcap, int window, int max_splits, void* stream) {             \
+    return launch<KV>(q, k, nullptr, v, nullptr, offsets, sinks, slopes, out, partial,       \
+                      counters, B, T, H, Hkv, S, D, scale, softcap, window, max_splits,      \
+                      stream);                                                               \
+  }
+
+// a dense cache: q bf16, k and v of the entry's type
+TPULLM_FLASH_DENSE(tpullm_flash_bf16, kKvBf16)
+TPULLM_FLASH_DENSE(tpullm_flash_f16, kKvF16)
+TPULLM_FLASH_DENSE(tpullm_flash_f32, kKvF32)
 
 extern "C" int tpullm_flash_q8(const void* q, const void* k_q, const void* k_s,
                                const void* v_q, const void* v_s, const void* offsets,
@@ -797,6 +873,6 @@ extern "C" int tpullm_flash_q8(const void* q, const void* k_q, const void* k_s,
                                void* counters, int B, int T, int H, int Hkv, int S, int D,
                                float scale, float softcap, int window, int max_splits,
                                void* stream) {
-  return launch<true>(q, k_q, k_s, v_q, v_s, offsets, sinks, slopes, out, partial, counters, B,
+  return launch<kKvQ8>(q, k_q, k_s, v_q, v_s, offsets, sinks, slopes, out, partial, counters, B,
                       T, H, Hkv, S, D, scale, softcap, window, max_splits, stream);
 }

@@ -22,19 +22,23 @@ from ..ops.moe import moe_ffn, route
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_angles, rope_angles
 from .hparams import HParams
-from .weights import load_embedding, load_expert_stack, load_linear, load_vector
+from .weights import MODES, load_embedding, load_expert_stack, load_linear, load_vector
 
 Params = dict[str, Any]
 
 
-def build_params(r: GGUFReader, hp: HParams, device,
-                 dtype=torch.bfloat16) -> Params:
+def build_params(r: GGUFReader, hp: HParams, device, dtype=torch.bfloat16,
+                 mode: str = "auto") -> Params:
     """Weights from GGUF onto `device`: packed planes for quantized
-    linears, f32 norm vectors, a dense embedding table."""
+    linears and expert stacks (mode "auto" or "quant"; "dense": every
+    linear and stack dequantized to `dtype`, models.weights.dense_weight),
+    f32 norm vectors, a dense embedding table."""
+    if mode not in MODES:
+        raise ValueError(f"weight mode {mode!r} is not one of {MODES}")
     t = r.tensors
 
     def linear(name):
-        return load_linear(t[name], device, dtype) if name in t else None
+        return load_linear(t[name], device, dtype, mode) if name in t else None
 
     def vector(name):
         return load_vector(t[name], device) if name in t else None
@@ -64,7 +68,7 @@ def build_params(r: GGUFReader, hp: HParams, device,
             layer["router"] = linear(p + "ffn_gate_inp.weight")
             for key, name in (("w_gate_exps", "ffn_gate_exps"), ("w_up_exps", "ffn_up_exps"),
                               ("w_down_exps", "ffn_down_exps")):
-                layer[key] = load_expert_stack(t[p + name + ".weight"], device, dtype)
+                layer[key] = load_expert_stack(t[p + name + ".weight"], device, dtype, mode)
         layers.append(layer)
     return {
         "tok_embd": load_embedding(t["token_embd.weight"], device, dtype),

@@ -3,7 +3,9 @@ their loading from GGUF tensors.
 
 `QuantLinear` keeps the repacked planes resident on the device and computes
 through the fused dequant matmul (ops.qmatmul.matmul: the qmm kernel on the
-card). `DenseLinear` is the F32/F16/BF16 path. `FusedLinear` concatenates
+card). `DenseLinear` is the F32/F16/BF16 path, and every linear in the weight
+mode "dense" (the user's choice of a plain product, torch.matmul, on
+dequantized weights; never taken for a type the kernels hold unless asked). `FusedLinear` concatenates
 same-input linears along N so QKV and gate+up stream one plane set.
 `QuantExpertStack` holds a MoE layer's stacked experts as planes with a
 leading expert axis; ops/moe.py computes through it.
@@ -142,22 +144,48 @@ def fuse_llama_params(params: dict) -> dict:
     return params
 
 
+# the weight modes of build_params (the JAX package's load_linear modes):
+# "auto" and "quant" keep the ported quantized types packed on the kernels,
+# "dense" dequantizes every linear and expert stack at load
+MODES = ("auto", "quant", "dense")
+
+
 def _dense_array(info: GGUFTensorInfo) -> np.ndarray:
     """A writable f32 copy (the reader's arrays view a read-only mmap)."""
     return np.array(info.to_numpy(), dtype=np.float32)
 
 
-def load_linear(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> nn.Module:
-    """A GGUF 2-D weight (logical (n_out, n_in)) → QuantLinear for the ported
-    quant types, DenseLinear [n_in, n_out] for plain float types."""
+def dense_weight(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.Tensor:
+    """A GGUF 2-D weight (logical (n_out, n_in)) as a dense [n_in, n_out]
+    tensor of `dtype` on `device`, with the values of the JAX package's
+    dense_from_info (its host f32 codec rounded once to dtype): a quantized
+    type's blocks go up packed and dequantize on the device from their
+    f32-scale planes (values · scale − minus in f32, the codec's
+    arithmetic), one tensor at a time, so no model's f32 weights are held
+    on the host."""
     n_out, n_in = info.shape[1], info.shape[0]
-    if TYPE_TRAITS[info.ggml_type].is_quantized:
-        if not qmatmul.supports(info.ggml_type):
-            raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
-        planes = qmatmul.repack(info.data, info.ggml_type, n_out, n_in, device)
-        return QuantLinear(info.ggml_type, n_out, n_in, planes)
-    w = torch.from_numpy(np.ascontiguousarray(_dense_array(info).T))
-    return DenseLinear(w.to(device=device, dtype=dtype))
+    if not TYPE_TRAITS[info.ggml_type].is_quantized:
+        w = torch.from_numpy(np.ascontiguousarray(_dense_array(info).T))
+        return w.to(device=device, dtype=dtype)
+    if not qmatmul.supports(info.ggml_type):
+        raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
+    planes = qmatmul.repack_planes(qmatmul.upload_blocks(info.data, device), info.ggml_type,
+                                   n_out, n_in)
+    return qmatmul.dequant_planes(planes, info.ggml_type, n_out, n_in).to(dtype)
+
+
+def load_linear(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
+                mode: str = "auto") -> nn.Module:
+    """A GGUF 2-D weight (logical (n_out, n_in)) → QuantLinear for the ported
+    quant types, DenseLinear [n_in, n_out] for plain float types and, in
+    mode "dense", for every type."""
+    n_out, n_in = info.shape[1], info.shape[0]
+    if mode == "dense" or not TYPE_TRAITS[info.ggml_type].is_quantized:
+        return DenseLinear(dense_weight(info, device, dtype))
+    if not qmatmul.supports(info.ggml_type):
+        raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
+    planes = qmatmul.repack(info.data, info.ggml_type, n_out, n_in, device)
+    return QuantLinear(info.ggml_type, n_out, n_in, planes)
 
 
 def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.Tensor:
@@ -180,9 +208,11 @@ def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.
     return torch.from_numpy(_dense_array(info)).to(device=device, dtype=dtype)
 
 
-def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16):
+def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
+                      mode: str = "auto"):
     """A stacked expert tensor (ggml ne (n_in, n_out, E)) → QuantExpertStack
-    for the ported quant types, else a dense [E, n_in, n_out] tensor. The
+    for the ported quant types, else (and in mode "dense") a dense
+    [E, n_in, n_out] tensor, each expert as `dense_weight` makes it. The
     packed bytes go up and are repacked one expert at a time into planes
     allocated once for the whole stack, so the transient memory is one
     expert's repack, not the stack's."""
@@ -193,6 +223,13 @@ def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16):
     if not qmatmul.supports(info.ggml_type):
         raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
     data = info.data.reshape(E, -1)
+    if mode == "dense":
+        w = torch.empty((E, n_in, n_out), dtype=dtype, device=device)
+        for e in range(E):
+            planes = qmatmul.repack_planes(qmatmul.upload_blocks(data[e], device),
+                                           info.ggml_type, n_out, n_in)
+            w[e].copy_(qmatmul.dequant_planes(planes, info.ggml_type, n_out, n_in))
+        return w
     planes: dict[str, torch.Tensor] = {}
     for e in range(E):
         one = qmatmul.repack(data[e], info.ggml_type, n_out, n_in, device)

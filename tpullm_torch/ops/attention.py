@@ -91,7 +91,7 @@ def attention_cached(q, cache, li: int, scale: float, offsets: torch.Tensor,
     for a head dim the kernel does not take, through the dense path."""
     quant = hasattr(cache, "kv_packed")
     if q.is_cuda and not flash.takes(q.shape[-1], (cache.v_q if quant else cache.v).shape[-1]):
-        flash.ATTN_DENSE_ROUTES["q8" if quant else "bf16"] += 1
+        flash.ATTN_DENSE_ROUTES["q8" if quant else flash.DENSE_FORMATS[cache.k.dtype]] += 1
         if quant:
             k_q, k_s, v_q, v_s = cache.kv_packed(li)
             k, v = k_q.float() * k_s[..., None], v_q.float() * v_s[..., None]

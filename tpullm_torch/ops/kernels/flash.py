@@ -2,7 +2,8 @@
 versions.
 
 Replaces tpullm/ops/pallas/flash.py::_make_kernel (the pallas_call in _run):
-the bf16-KV instantiation (quant=False, entry flash_attention) and the
+the dense-KV instantiation (quant=False, entry flash_attention, on a bf16,
+f16 or f32 cache, which the JAX kernel upcasts to f32) and the
 int8+scale-KV instantiation (quant=True, entry flash_attention_q8). Source:
 tpullm_torch/csrc/flash.cu, in two regimes picked by `regime` from the query
 rows that share one KV head, R = T·H/Hkv: up to DECODE_ROWS the split-KV
@@ -29,14 +30,17 @@ import torch
 
 from . import _build
 
+# the KV formats of the kernels: the dense cache dtypes, then int8 + scales
+DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+FORMATS = (*DENSE_FORMATS.values(), "q8")
 # launches of the kernels, by KV format (both regimes), and of the decode
 # regime alone; plain counts a run can read
-LAUNCHES = {"bf16": 0, "q8": 0}
-DECODE_LAUNCHES = {"bf16": 0, "q8": 0}
+LAUNCHES = dict.fromkeys(FORMATS, 0)
+DECODE_LAUNCHES = dict.fromkeys(FORMATS, 0)
 # calls ops.attention sent to its dense path on the card because the kernel
 # does not take their head dims (`takes`), by KV format; 0 on a model whose
 # heads the kernel takes
-ATTN_DENSE_ROUTES = {"bf16": 0, "q8": 0}
+ATTN_DENSE_ROUTES = dict.fromkeys(FORMATS, 0)
 
 DECODE_ROWS = 16  # csrc/flash.cu kDecodeRows: R = T·H/Hkv up to this is decode
 DECODE_TILE = 64  # keys a decode tile (kDecTK): splits are whole tiles
@@ -46,7 +50,7 @@ PREFILL_ROWS = 64  # query rows a prefill block (kPreBM)
 NEG_INF = -1e30  # the running max before any key
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_BF16_ARGS = (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P)
+_DENSE_ARGS = (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P)
 _Q8_ARGS = (_P,) * 11 + (_I,) * 6 + (_F, _F, _I, _I, _P)
 _HEAD_DIMS = (64, 128)
 
@@ -304,16 +308,19 @@ def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks,
 
 def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,
                     sliding_window: int = 0, sinks=None, alibi_slopes=None):
-    """bf16 KV: q [B,T,H,D], k/v [B,Hkv,S,D] → [B,T,H,D]. The kernel of the
-    call's regime on a CUDA tensor, the plain version on a CPU tensor."""
+    """Dense KV: q [B,T,H,D] bf16, k/v [B,Hkv,S,D] bf16, f16 or f32 (one
+    dtype) → [B,T,H,D] bf16. The kernel of the call's regime and the
+    cache's dtype on a CUDA tensor, the plain version on a CPU tensor."""
     if not q.is_cuda:
         return flash_reference(q, k, v, offsets, scale, softcap, sliding_window,
                                sinks, alibi_slopes)
     _check(q, (k, v), offsets, sinks, alibi_slopes)
-    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise ValueError("flash: the bf16 kernel takes a bf16 cache")
-    fn = _build.bind("flash", "tpullm_flash_bf16", _BF16_ARGS)
-    return _launch("bf16", fn, q, (k.data_ptr(), v.data_ptr()), k, offsets, scale, softcap,
+    fmt = DENSE_FORMATS.get(k.dtype)
+    if fmt is None or v.dtype != k.dtype:
+        raise ValueError(f"flash: the dense kernels take a bf16, f16 or f32 cache (K and V "
+                         f"alike), got {k.dtype} / {v.dtype}")
+    fn = _build.bind("flash", f"tpullm_flash_{fmt}", _DENSE_ARGS)
+    return _launch(fmt, fn, q, (k.data_ptr(), v.data_ptr()), k, offsets, scale, softcap,
                    sliding_window, sinks, alibi_slopes)
 
 

@@ -9,7 +9,13 @@ token stays a device tensor and feeds the next step, so the host reads
 token ids back once per chunk and never reads logits on that path.
 `generate_tokens` is the JAX package's host loop instead: prefill, then
 `decode_step`s whose logits go through a `Sampler` (penalties, grammars,
-mirostat, ...).
+mirostat, ...). `decode_step` runs the logits-only step
+(runtime/graph.py `LogitsRunner`: on the card a CUDA graph replayed a
+step) and reads its logits back.
+
+The cache is written in place and never replaced by the engine's own
+paths, so the runners' graphs stay valid across `reset`, prefills and
+runtime/state.py's `load_state`; `new_cache` makes a new one and drops them.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from ..gguf.reader import GGUFReader
 from ..models.registry import get_arch, load_hparams
 from ..models.weights import fuse_llama_params
 from ..ops.sampling_ops import SamplingParams, sample_token
-from .graph import DecodeRunner
+from .graph import DecodeRunner, LogitsRunner
 from .kvcache import make_cache
 from .sampling import Sampler, SamplerParams
 
@@ -50,30 +56,52 @@ class PerfCounters:
 
 
 class Engine:
-    def __init__(self, model_path, *, device=None, max_seq: int = 2048,
-                 kv_dtype=torch.bfloat16):
+    def __init__(self, model_path, *, device=None, mode: str = "auto",
+                 dtype=torch.bfloat16, max_seq: int = 2048, kv_dtype=torch.bfloat16,
+                 override_kv: dict | None = None):
         """`device=None` means CUDA (raises when there is none); the tests
-        pass device="cpu". `kv_dtype` is a torch dtype or "q8_0"."""
+        pass device="cpu". `mode` is the weight mode of build_params
+        ("auto" and "quant": packed planes on the kernels; "dense": every
+        linear dequantized to `dtype`, a plain product). `kv_dtype` is a
+        torch dtype or a cache type: "f16", "bf16", "f32", "q8_0".
+        `override_kv` updates the GGUF metadata before anything reads it
+        (≡ --override-kv)."""
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise ValueError(f"dtype {dtype}: on the card the flash kernels take bf16 "
+                             "queries, so the activations are bf16")
         t0 = time.perf_counter()
         self.reader = GGUFReader(model_path)
+        if override_kv:
+            self.reader.metadata.update(override_kv)
         self.hp = load_hparams(self.reader)
         self.arch = get_arch(self.hp.arch)
         self.tokenizer = tokenizer_mod.from_gguf(self.reader)
         with torch.inference_mode():
-            params = self.arch.build_params(self.reader, self.hp, self.device)
+            params = self.arch.build_params(self.reader, self.hp, self.device, dtype, mode)
             self.params = fuse_llama_params(params)
         self.max_seq = max_seq
         self.batch = 1
         self.prefill_cap = min(max_seq, PREFILL_CHUNK)
+        self.kv_dtype = kv_dtype
         self.cache = make_cache(self.hp, self.batch, max_seq, kv_dtype, self.device)
         self.n_past = 0
         self._runners: dict = {}  # (SamplingParams, chunk) → DecodeRunner
+        self._logits_runner: LogitsRunner | None = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # load time includes the repack
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
 
     def reset(self):
+        self.n_past = 0
+
+    def new_cache(self):
+        """A new, zeroed cache in place of the engine's, and n_past 0. The
+        runners' graphs hold the old cache's buffers, so they are dropped
+        (the next run captures anew)."""
+        self.cache = make_cache(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
+        self._runners.clear()
+        self._logits_runner = None
         self.n_past = 0
 
     def _bucket(self, n: int) -> int:
@@ -130,11 +158,24 @@ class Engine:
         self.perf.n_prefill += len(tokens)
         return out
 
+    def logits_runner(self) -> LogitsRunner:
+        """The engine's logits-only decode step (its CUDA graph is captured
+        at its first run and kept)."""
+        if self._logits_runner is None:
+            self._logits_runner = LogitsRunner(self)
+        return self._logits_runner
+
     def decode_step(self, token: int) -> np.ndarray:
-        """Feed one token; returns next-token logits [n_vocab]."""
+        """Feed one token; returns next-token logits [n_vocab] (a copy): one
+        step of `logits_runner`, the numbers of the eager `_decode_logits`."""
+        if self.n_past >= self.max_seq:
+            raise ValueError(f"context overflow: decode at n_past={self.n_past} >= "
+                             f"max_seq={self.max_seq}")
         t0 = time.perf_counter()
-        tok = torch.full((1,), int(token), dtype=torch.int64, device=self.device)
-        out = self._decode_logits(tok).cpu().numpy()
+        with torch.inference_mode():
+            logits = self.logits_runner().run(int(token), self.n_past)
+            out = logits.to("cpu", copy=True).numpy()
+        self.n_past += 1
         self.perf.t_decode_s += time.perf_counter() - t0
         self.perf.n_decode += 1
         return out
@@ -236,13 +277,14 @@ class Engine:
         return self.tokenizer.detokenize(out)
 
     @torch.inference_mode()
-    def prefill_all_logits(self, tokens: list[int]) -> np.ndarray:
-        """Like prefill, but the logits of every position [T, n_vocab] (the
-        perplexity path); prompts longer than the prefill cap in chunks."""
+    def prefill_all_logits_device(self, tokens: list[int]) -> torch.Tensor:
+        """Like prefill, but the f32 logits of every position [T, n_vocab],
+        left on the device (the perplexity tools reduce them there);
+        prompts longer than the prefill cap in chunks."""
         n = len(tokens)
         if n > self.prefill_cap:
-            return np.concatenate([self.prefill_all_logits(tokens[i:i + self.prefill_cap])
-                                   for i in range(0, n, self.prefill_cap)], axis=0)
+            return torch.cat([self.prefill_all_logits_device(tokens[i:i + self.prefill_cap])
+                              for i in range(0, n, self.prefill_cap)], dim=0)
         if self.n_past + n > self.max_seq:
             raise ValueError(f"context overflow: {self.n_past}+{n} > {self.max_seq}")
         toks = self._padded(tokens)
@@ -250,7 +292,12 @@ class Engine:
             self.hp, self.params, toks, self._positions(self.n_past, toks.shape[1]), self.cache,
             self.n_past)
         self.n_past += n
-        return logits[0, :n].cpu().numpy()
+        return logits[0, :n]
+
+    def prefill_all_logits(self, tokens: list[int]) -> np.ndarray:
+        """Like prefill, but the logits of every position [T, n_vocab] (the
+        JAX package's prefill_all_logits)."""
+        return self.prefill_all_logits_device(tokens).cpu().numpy()
 
     @torch.inference_mode()
     def embed_tokens(self, tokens: list[int], pooling: str | None = None,

@@ -1,6 +1,7 @@
-"""The decode chunk on static device buffers, captured as a CUDA graph.
+"""Decode steps on static device buffers, captured as CUDA graphs: the
+decode chunk with sampling on the device, and the logits-only step.
 
-The port's counterpart of the JAX package's `decode_chunk`
+`DecodeRunner` is the port's counterpart of the JAX package's `decode_chunk`
 (tpullm/runtime/engine.py `_get_device_gen`: a jax.jit of a lax.scan over
 decode steps). `DecodeRunner.step` is one decode step that reads and writes
 only device buffers: it embeds the token of `token`, runs the forward at
@@ -19,14 +20,28 @@ stream's split counters and the library handles, and computes RoPE's
 inverse frequencies), then captures; a failed capture raises. On the CPU
 the same step runs eagerly: the tests' path.
 
+`LogitsRunner` is the same step without the sampling: it writes the f32
+logits [V] of the token in `token` at the slot in `n_past` into `logits`,
+and the host reads them (Engine.decode_step, the JAX package's jitted
+`_step`: the host Sampler chain, perplexity-style scoring, the bench's tg
+loop). The host sets `token` and `n_past` before each step, so the step
+keeps no count of its own.
+
+Both follow one set of rules (`_CapturedStep`): the step reads and writes
+only device buffers, the engine's parameters and its cache, which is
+written in place (runtime/kvcache.py), so a captured graph stays valid
+across Engine.reset, prefills and state loads; a path that replaces the
+cache object drops the engine's runners (Engine.new_cache).
+
 Launch counts: the kernel wrappers count in Python, so a capture adds to
-their counts once and a replay adds nothing. The runner takes back what the
+their counts once and a replay adds nothing. A runner takes back what the
 capture added and adds it again at every replay, so the counts hold the
 launches that ran on the card.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -54,19 +69,15 @@ def _add_counts(delta: list[dict], sign: int = 1) -> None:
             counts[k] += sign * v
 
 
-class DecodeRunner:
-    """Decode steps of one engine under one SamplingParams, `chunk` at most
-    a run, on static device buffers; on the card one step captured as a
-    CUDA graph and replayed."""
+class _CapturedStep:
+    """One step of `engine` on static device buffers (`step`, written by a
+    subclass); on the card captured as a CUDA graph on the runner's own
+    stream at its first run, after one eager step on that stream, and
+    replayed once a step; on the CPU run eagerly."""
 
-    def __init__(self, engine, sp: SamplingParams, chunk: int):
+    def __init__(self, engine):
         dev = engine.device
-        self.engine, self.sp, self.chunk = engine, sp, chunk
-        self.gen = torch.Generator(device=dev)
-        self.token = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.n_past = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.step_index = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.ids = torch.zeros(chunk, dtype=torch.int64, device=dev)
+        self.engine = engine
         self.cuda = dev.type == "cuda"
         self.stream = torch.cuda.Stream(dev) if self.cuda else None
         self.graph = None
@@ -74,6 +85,81 @@ class DecodeRunner:
         self.capture_s: float | None = None
         self.pool_bytes: int | None = None  # the graph pool's reserved bytes
         self.replays = 0
+
+    def step(self) -> None:
+        raise NotImplementedError
+
+    def _register(self, graph) -> None:
+        """Register the generators whose state the step advances."""
+
+    def _capture(self) -> None:
+        """Capture one step as a graph on the runner's stream, the cyclic
+        garbage collector held off meanwhile: a dead engine's graph or
+        stream (an engine and its runners form a cycle) destroyed
+        mid-capture would invalidate the capture."""
+        dev = self.engine.device
+        before = [dict(c) for c in launch_counts()]
+        g = torch.cuda.CUDAGraph()
+        self._register(g)
+        was_enabled = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(g, stream=self.stream):
+                reserved = torch.cuda.memory_reserved(dev)
+                self.step()
+        finally:
+            if was_enabled:
+                gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.replay_counts = [{key: c[key] - b[key] for key in c if c[key] != b[key]}
+                              for c, b in zip(launch_counts(), before)]
+        _add_counts(self.replay_counts, -1)  # the capture launched nothing
+        self.graph = g
+
+    def launches_per_replay(self) -> dict[str, int]:
+        """The launches one replay adds, summed over formats, by COUNT_NAMES."""
+        return {name: sum(d.values()) for name, d in zip(COUNT_NAMES, self.replay_counts)}
+
+    def _steps(self, n: int) -> None:
+        """`n` steps from the buffers' state: on the card replays of the
+        graph (the first run executes its first step eagerly, then
+        captures), the current stream ordered after them; on the CPU the
+        step run eagerly."""
+        if not self.cuda:
+            for _ in range(n):
+                self.step()
+            return
+        current = torch.cuda.current_stream(self.engine.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            done = 0
+            if self.graph is None:
+                self.step()  # eagerly: it sets up the launches the graph holds
+                done = 1
+                self._capture()
+            for _ in range(done, n):
+                self.graph.replay()
+                _add_counts(self.replay_counts)
+                self.replays += 1
+        current.wait_stream(self.stream)
+
+
+class DecodeRunner(_CapturedStep):
+    """Decode steps of one engine under one SamplingParams, `chunk` at most
+    a run, on static device buffers; on the card one step captured as a
+    CUDA graph and replayed."""
+
+    def __init__(self, engine, sp: SamplingParams, chunk: int):
+        super().__init__(engine)
+        dev = engine.device
+        self.sp, self.chunk = sp, chunk
+        self.gen = torch.Generator(device=dev)
+        self.token = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.n_past = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.step_index = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.ids = torch.zeros(chunk, dtype=torch.int64, device=dev)
 
     def start(self, token: torch.Tensor, n_past: int) -> None:
         """Load the buffers: the sampled `token` (a device id) goes in at
@@ -92,27 +178,9 @@ class DecodeRunner:
         self.n_past.add_(1)
         self.step_index.add_(1)
 
-    def _capture(self) -> None:
-        """Capture one step as a graph on the runner's stream."""
-        dev = self.engine.device
-        before = [dict(c) for c in launch_counts()]
-        g = torch.cuda.CUDAGraph()
+    def _register(self, graph) -> None:
         if self.sp.temp > 0.0:  # the draw's generator advances at every replay
-            g.register_generator_state(self.gen)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(g, stream=self.stream):
-            reserved = torch.cuda.memory_reserved(dev)
-            self.step()
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.replay_counts = [{key: c[key] - b[key] for key in c if c[key] != b[key]}
-                              for c, b in zip(launch_counts(), before)]
-        _add_counts(self.replay_counts, -1)  # the capture launched nothing
-        self.graph = g
-
-    def launches_per_replay(self) -> dict[str, int]:
-        """The launches one replay adds, summed over formats, by COUNT_NAMES."""
-        return {name: sum(d.values()) for name, d in zip(COUNT_NAMES, self.replay_counts)}
+            graph.register_generator_state(self.gen)
 
     def run(self, n: int) -> list[int]:
         """`n` decode steps (at most `chunk`) from the buffers' state; their
@@ -121,21 +189,34 @@ class DecodeRunner:
         if not 0 < n <= self.chunk:
             raise ValueError(f"a run takes 1 to {self.chunk} steps, not {n}")
         self.step_index.zero_()
-        if not self.cuda:
-            for _ in range(n):
-                self.step()
-            return self.ids[:n].tolist()
-        current = torch.cuda.current_stream(self.engine.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            done = 0
-            if self.graph is None:
-                self.step()  # eagerly: it sets up the launches the graph holds
-                done = 1
-                self._capture()
-            for _ in range(done, n):
-                self.graph.replay()
-                _add_counts(self.replay_counts)
-                self.replays += 1
-        current.wait_stream(self.stream)
+        self._steps(n)
         return self.ids[:n].tolist()
+
+
+class LogitsRunner(_CapturedStep):
+    """The logits of one decode step of one engine on static device buffers
+    (token, n_past int32, f32 logits [V]); on the card one step captured as
+    a CUDA graph and replayed, no sampling."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        dev = engine.device
+        self.token = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.n_past = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.logits = torch.zeros(engine.hp.n_vocab, dtype=torch.float32, device=dev)
+
+    def step(self) -> None:
+        """One decode step on the buffers: the logits of `token` at cache
+        slot `n_past` into `logits` (the cache row written)."""
+        e = self.engine
+        logits, e.cache = e.arch.forward(e.hp, e.params, self.token.reshape(1, 1),
+                                         self.n_past.reshape(1, 1), e.cache, self.n_past)
+        self.logits.copy_(logits[0, 0])
+
+    def run(self, token: int, n_past: int) -> torch.Tensor:
+        """The next-token logits [V] (the runner's buffer, valid until its
+        next run) of `token` fed at cache slot `n_past`."""
+        self.token.fill_(int(token))
+        self.n_past.fill_(int(n_past))
+        self._steps(1)
+        return self.logits

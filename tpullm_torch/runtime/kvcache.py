@@ -42,7 +42,7 @@ def _seq_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, off,
     if isinstance(off, torch.Tensor):
         if T != 1 or off.numel() != 1:
             raise ValueError(f"a write at a device offset takes one row, got T={T}")
-        dst.index_copy_(seq_axis, off.reshape(1).long(), new_arr)
+        dst.index_copy_(seq_axis, off.reshape(1).long(), new_arr.to(dst.dtype))
         return
     if off < 0:
         return

@@ -1,0 +1,84 @@
+"""Context / sequence state serialization: the JAX package's
+runtime/state.py (llama_state_* session files) for the port's Engine, in
+the same npz format, so a file saved by either package restores in the
+other.
+
+A state file holds the live KV-cache prefix (row 0, positions [0, n_past))
+as f32 (lossless from bf16 and f16; npz has no bf16 dtype), the token
+history and the model's shape. Restore writes into the engine's cache in
+place (`copy_` into its slices), never a new cache object: the engine's
+captured decode graphs hold the cache's buffers (runtime/graph.py).
+
+A q8 cache has no dense K/V to save (the JAX package's QuantKVCache has no
+`.k` either) and raises a ValueError; iSWA and MLA state files wait for
+those caches in the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MAGIC = "tpullm-state-v1"
+
+
+def _meta(hp) -> dict:
+    return {
+        "arch": hp.arch,
+        "n_layer": hp.n_layer,
+        "n_head_kv": hp.n_head_kv,
+        "head_dim": hp.head_dim,
+        "head_dim_v": hp.head_dim_v,
+    }
+
+
+def _dense_cache(engine):
+    cache = engine.cache
+    if not hasattr(cache, "k"):
+        raise ValueError(f"state files hold a dense KV cache (bf16, f16 or f32); this engine's "
+                         f"is {type(cache).__name__} (kv_dtype {engine.kv_dtype!r})")
+    return cache
+
+
+def save_state(engine, path, tokens: list[int] | None = None):
+    """Save the engine's sequence state (batch row 0, n_past positions)."""
+    cache = _dense_cache(engine)
+    n = int(engine.n_past)
+    k = cache.k[:, 0, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
+    v = cache.v[:, 0, :, :n].float().cpu().numpy()
+    np.savez_compressed(
+        path, magic=MAGIC, n_past=n, k=k, v=v,
+        tokens=np.asarray(tokens if tokens is not None else [], dtype=np.int64),
+        **{f"meta_{key}": val for key, val in _meta(engine.hp).items()},
+    )
+    return path
+
+
+def load_state(engine, path) -> list[int]:
+    """Restore a saved sequence into the engine's cache, in place; returns
+    the token prefix."""
+    with np.load(path, allow_pickle=False) as z:
+        _check(engine.hp, z)
+        n = int(z["n_past"])
+        if n > engine.max_seq:
+            raise ValueError(f"saved state ({n} tokens) exceeds max_seq {engine.max_seq}")
+        if "swa_k" in z.files or "mla_kvr" in z.files:
+            raise ValueError("iSWA and MLA state files are not restored by the port yet")
+        cache = _dense_cache(engine)
+        if n:
+            with torch.inference_mode():
+                cache.k[:, 0, :, :n].copy_(torch.from_numpy(z["k"]))
+                cache.v[:, 0, :, :n].copy_(torch.from_numpy(z["v"]))
+        tokens = [int(t) for t in z["tokens"]]
+    engine.n_past = n
+    return tokens
+
+
+def _check(hp, z):
+    if str(z["magic"]) != MAGIC:
+        raise ValueError("not a tpullm state file")
+    for key, val in _meta(hp).items():
+        got = z[f"meta_{key}"]
+        got = str(got) if key == "arch" else int(got)
+        if got != val:
+            raise ValueError(f"state/model mismatch on {key}: {got} != {val}")

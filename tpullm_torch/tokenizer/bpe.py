@@ -9,18 +9,22 @@ The patterns are the tokenizer families' own (from each model's
 tokenizer.json), written with Unicode property classes (\\p{L}, \\p{N},
 ...). The port runs them on the standard library's `re`, which has no
 property classes: `translate` rewrites each \\p{X} (in or out of a class,
-in negated classes too) as explicit code-point ranges built once from
-`unicodedata.category`, and \\s/\\S as the Unicode White_Space set (`re`'s
-own \\s also takes U+001C..U+001F, which White_Space does not). The
-compiled patterns are cached.
+in negated classes too) as explicit code-point ranges, and \\s/\\S as the
+Unicode White_Space set (`re`'s own \\s also takes U+001C..U+001F, which
+White_Space does not). The ranges are data, `unicode_props.npz`: the runs
+of each class as the JAX package's `regex` module has them (its tables are
+newer than the standard library's `unicodedata`), with the `regex` and
+Unicode versions they came from (`unicode_props`; written by
+tests/torch_unicode_props.py). The compiled patterns are cached.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import re
-import sys
-import unicodedata
+
+import numpy as np
 
 from .vocab import Vocab
 
@@ -52,44 +56,24 @@ def unicode_to_byte() -> dict[str, int]:
 # the property classes the patterns use: a one-letter name is a major
 # category (every category of that letter), a two-letter name one category
 PROPERTY_CLASSES = ("L", "N", "P", "S", "M", "Lu", "Ll", "Lt", "Lm", "Lo")
-# U+001C..U+001F: str.isspace() and `re`'s \s take them, White_Space does not
-_NOT_WHITE_SPACE = frozenset(range(0x1C, 0x20))
-
-
-def _runs(points) -> tuple[tuple[int, int], ...]:
-    """Sorted code points → maximal (lo, hi) runs."""
-    out: list[list[int]] = []
-    for c in points:
-        if out and c == out[-1][1] + 1:
-            out[-1][1] = c
-        else:
-            out.append([c, c])
-    return tuple((lo, hi) for lo, hi in out)
 
 
 @functools.lru_cache(maxsize=1)
-def _category_points() -> dict[str, list[int]]:
-    """Every code point by its general category (one pass over 0x110000)."""
-    by_cat: dict[str, list[int]] = {}
-    category = unicodedata.category
-    for c in range(sys.maxunicode + 1):
-        by_cat.setdefault(category(chr(c)), []).append(c)
-    return by_cat
+def unicode_props() -> dict:
+    """`unicode_props.npz`: each class's [n, 2] runs, and the `regex` and
+    Unicode versions they were taken from ("regex_version",
+    "unicode_version")."""
+    with np.load(os.path.join(os.path.dirname(__file__), "unicode_props.npz")) as z:
+        return {k: (str(z[k]) if k.endswith("_version") else z[k]) for k in z.files}
 
 
 @functools.lru_cache(maxsize=None)
 def property_ranges(name: str) -> tuple[tuple[int, int], ...]:
     """The code-point runs of \\p{name} (a name of PROPERTY_CLASSES), or of
-    White_Space for name "space"."""
-    if name == "space":
-        return _runs(c for c in range(sys.maxunicode + 1)
-                     if chr(c).isspace() and c not in _NOT_WHITE_SPACE)
-    if name not in PROPERTY_CLASSES:
+    White_Space for name "space", as `unicode_props.npz` holds them."""
+    if name != "space" and name not in PROPERTY_CLASSES:
         raise ValueError(f"property class \\p{{{name}}} is not translated")
-    cats = _category_points()
-    points = sorted(c for cat, cs in cats.items()
-                    if (cat[0] == name if len(name) == 1 else cat == name) for c in cs)
-    return _runs(points)
+    return tuple((int(lo), int(hi)) for lo, hi in unicode_props()[name])
 
 
 def _class_body(name: str) -> str:
