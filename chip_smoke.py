@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and exits nonzero:
  1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-    whether the `regex` module imports there (for information: the port
-    does not use it);
+    whether the `regex` and `aiohttp` modules import there (for
+    information: the port uses neither);
  2. build: compiles every kernel library from tpullm_torch/csrc with nvcc,
     one process per library (the qmm sources once per layout family), and
     prints each library's compile seconds, the `-Xptxas -v` report, and
@@ -35,6 +35,12 @@ Phases, in order; any failure raises and exits nonzero:
     bounds of the JAX package's conformance sweep; each timed with CUDA
     events over a CUDA graph of back-to-back calls (device time, not the
     Python wrapper's dispatch) beside its bound and a PyTorch library call;
+ 3b. batched kernels: the shapes continuous batching gives the kernels,
+    each against its plain version and timed as in 3: flash's decode
+    regime at B = 4 and 8 slots with idle slots at offset −1 (their rows
+    exactly 0) and kv lengths 20 to 4000, bf16 and q8 caches; qmm at M = 4
+    and 8 (the 8B's Q4_K gate_up and Q6_K down); qmm_gather at 8 and 16
+    routed slots of Mixtral's Q4_K experts;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -66,6 +72,20 @@ Phases, in order; any failure raises and exits nonzero:
     window) with the kernels and with dense bf16 weights, the KLD of the
     kernels against a base the dense run records, and the bench sweep
     -p 512 -n 128 -d 0,4096 -ctk bf16,f16,f32,q8_0 -r 3;
+ 5c. server: continuous batching on the same 8B GGUF: tpullm-torch-server's
+    app (a BatchEngine of 4 slots, context 4096, bf16 cache, its two decode
+    graphs captured on the scheduler's thread) on 127.0.0.1 in this
+    process, 8 requests at once through http.client (4 streamed chats and 4
+    completions, prompts of 32 to 1024 tokens, 64 to 256 new tokens, greedy
+    and seeded): each request's TTFT and rate, the aggregate rate; then the
+    batched graph's ms a step at 1, 2 and 4 slots generating, its launches a
+    replay, a profiled step by kernel family, and the batched logits
+    teacher-forced on the single-stream Engine's greedy ids against its
+    decode_step logits (NMSE ≤ 1e-3, the greedy ids that agree and where
+    they part); a q8-cache BatchEngine at 4 slots; Mixtral Q4_K_M with 4
+    layers at 4 slots (a joint prefill round and 32 batched steps
+    teacher-forced on its Engine, the gather regime); and
+    tpullm-torch-batched-bench -npp 128 -ntg 64 -npl 1,2,4,8 on the 8B;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
     16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
@@ -256,6 +276,13 @@ def phase_card() -> str:
         found = f"does not import ({e})"
     log(f"[env] the regex module {found}; tpullm_torch does not use it "
         "(its BPE patterns run on the standard library's re)")
+    try:
+        import aiohttp
+        found = f"imports (aiohttp {aiohttp.__version__})"
+    except ImportError as e:
+        found = f"does not import ({e})"
+    log(f"[env] the aiohttp module {found}; tpullm_torch.server does not use it "
+        "(its HTTP layer is the standard library's http.server)")
     return smi
 
 
@@ -626,9 +653,11 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
     decode = flash.regime(T, H, Hkv) == "decode"
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
+    idle = [b for b, o in enumerate(offsets) if o < 0]  # no visible key in their first row
     row = dict(regime="decode" if decode else "prefill", nmse=nmse(got.float(), ref.float()),
                max_abs_err=float((got.float() - ref.float()).abs().max()),
-               finite=bool(torch.isfinite(got.float()).all()))
+               finite=bool(torch.isfinite(got.float()).all()),
+               idle_zero=not bool(got[idle, 0].float().any()))
     if not timed:
         return row
     # the plain version of the kernel's own order: its split plan, or its
@@ -715,6 +744,106 @@ def phase_flash(dev, results: dict):
                               "(plain versions, f32 output, against f32 p)")
             log(f"[flash] {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
                 f"{row['max_abs_err']:.3g}{extra}")
+    torch.cuda.empty_cache()
+
+
+# the batched shapes of continuous batching (the server phase's paths)
+BATCH_OFFSETS = (-1, 19, -1, 3000, 63, -1, 3999, 500)  # per slot; −1 idle
+SLOT_COUNTS = (4, 8)
+
+
+def _held_row(tag: str, key: str, label: str, kernel, plain, library, n_bytes: float,
+              flops: float, iters: int) -> dict:
+    """One kernel call against its plain version (NMSE within the bound,
+    finite), timed with its plain version and library call beside its
+    bound."""
+    import torch
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = nmse(got.float(), ref.float())
+    mae = float((got.float() - ref.float()).abs().max())
+    expect(bool(torch.isfinite(got.float()).all()), f"{key} {label} finite")
+    expect(err <= QMM_NMSE_BOUND, f"{key} {label} NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+    bms, by = bound_ms(n_bytes, flops)
+    row = dict(case=label, nmse=err, max_abs_err=mae, ms=time_ms(kernel, iters),
+               plain_ms=time_ms(plain, 1, 1, graph=False), bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, iters))
+    log(f"[{tag}] {key} {label}: nmse {err:.2e} max|d| {mae:.3g} kernel {row['ms']:.4f} ms "
+        f"bound {bms:.4f} ms ({by}) plain {row['plain_ms']:.3f} ms library "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def phase_batched_kernels(dev, results: dict, batched: dict):
+    """The kernels at the shapes continuous batching gives them, each
+    against its plain version: flash's decode regime at B = 4 and 8 slots
+    with offsets BATCH_OFFSETS (idle slots at −1: their rows exactly 0;
+    kv lengths 20 to 4000 of S = 4096), bf16 and q8 caches, the 8B's heads;
+    qmm at M = 4 and 8 (the batched decode step) for the 8B's Q4_K gate_up
+    and Q6_K down; qmm_gather at 8 and 16 routed slots (4 and 8 slots'
+    top-2) of Mixtral's Q4_K gate experts. Rows go to `results` (the
+    kernels line's errors) and to `batched` by kernel."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import qmm
+
+    gen = torch.Generator(dev).manual_seed(5)
+    for fmt, key in zip(("bf16", "q8"), ("flash_bf16", "flash_q8")):
+        bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+        for B in SLOT_COUNTS:
+            row = _flash_case(dev, gen, fmt=fmt, B=B, T=1, H=32, Hkv=8, D=128, S=4096,
+                              offsets=BATCH_OFFSETS[:B], timed=True)
+            row["case"] = f"{fmt} T=1 B={B} slots {list(BATCH_OFFSETS[:B])} S=4096"
+            expect(row["finite"] and row["idle_zero"], f"flash {row['case']}: finite, idle rows 0")
+            expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                   f"flash {row['case']} NMSE {row['nmse']:.3e}, own order "
+                   f"{row['nmse_own_order']:.3e} <= {bound}")
+            results[key].append(row)
+            batched.setdefault(key, []).append(row)
+            log(f"[batched] {key} {row['case']}: nmse {row['nmse']:.2e} (own order "
+                f"{row['nmse_own_order']:.2e}), idle rows 0, kernel {row['ms']:.4f} ms bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain {row['plain_ms']:.3f} ms "
+                f"sdpa {row['library_ms']:.4f} ms")
+    for fmt, name, K, N in (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "down", 14336, 4096)):
+        gtype, key = GGMLType[fmt], QMM_KEYS[fmt]
+        planes = _random_planes(gtype, N, K, gen, dev)
+        plane_b = sum(t.numel() * t.element_size() for t in planes.values())
+        w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
+        for M in SLOT_COUNTS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            row = _held_row("batched", key, f"{fmt} {name} M={M}",
+                            lambda x=x: qmm.qmm(x, planes, gtype, N, K),
+                            lambda x=x: qmm.qmm_reference(x, planes, gtype, N, K),
+                            lambda x=x: torch.matmul(x, w_lib),
+                            M * K * 2 + plane_b + M * N * 2, 2.0 * M * K * N, 20)
+            results[key].append(row)
+            batched.setdefault(key, []).append(row)
+        del planes, w_lib
+    name, K, N = EXPERT_SHAPES[0]
+    gtype = GGMLType.Q4_K
+    planes = _random_stack(gtype, N, K, gen, dev)
+    expert_b = sum(t.numel() * t.element_size() for t in planes.values()) / N_EXPERT
+    w_lib = torch.stack([qmatmul.dequant_planes({k: v[e] for k, v in planes.items()},
+                                                gtype, N, K, dtype=torch.bfloat16)
+                         for e in range(N_EXPERT)])
+    for slots in SLOT_COUNTS:
+        T = 2 * slots  # each slot's token routed to its top-2
+        x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+        ids = torch.stack([torch.randperm(N_EXPERT, generator=gen, device=dev)[:2]
+                           for _ in range(slots)]).reshape(T).int()
+        n_unique = int(torch.unique(ids).numel())
+        row = _held_row("batched", "qmm_gather", f"Q4_K {name} T={T} ({slots} slots × top-2)",
+                        lambda x=x, ids=ids: qmm.qmm_gather(x, ids, planes, gtype, N, K),
+                        lambda x=x, ids=ids: qmm.qmm_gather_reference(x, ids, planes, gtype, N, K),
+                        lambda x=x, ids=ids: torch.bmm(x[:, None, :], w_lib[ids.long()])[:, 0],
+                        x.numel() * 2 + T * 4 + n_unique * expert_b + T * N * 2,
+                        2.0 * T * K * N, 20)
+        results["qmm_gather"].append(row)
+        batched.setdefault("qmm_gather", []).append(row)
+    del planes, w_lib
     torch.cuda.empty_cache()
 
 
@@ -1673,6 +1802,366 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     return out
 
 
+SERVE_SLOTS = 4
+SERVE_CTX = 4096
+# the burst: (route, prompt words, max_tokens, temperature, seed); 4 streamed
+# chats and 4 completions, prompts of 32 to 1024 tokens, greedy and seeded
+SERVE_BURST = (("/v1/chat/completions", 24, 64, 0.0, None),
+               ("/v1/chat/completions", 300, 128, 0.8, 11),
+               ("/v1/chat/completions", 640, 192, 0.0, None),
+               ("/v1/chat/completions", 960, 256, 0.8, 12),
+               ("/v1/completions", 31, 256, 0.8, 13),
+               ("/v1/completions", 255, 192, 0.0, None),
+               ("/v1/completions", 511, 128, 0.8, 14),
+               ("/v1/completions", 1023, 64, 0.0, None))
+SERVE_STEPS = 32  # decode steps a timing, and of the q8 and Mixtral runs
+TEACHER_STEPS = 16  # teacher-forced decode steps a slot against Engine
+TEACHER_LENS = (40, 200, 700, 1000)  # the slots' prompts in that check
+SERVE_NMSE_BOUND = 1e-3  # batched logits against Engine.decode_step's
+
+
+def _word_ids(tok, n: int) -> list[int]:
+    """BOS and n − 1 word tokens (each word one token with its space)."""
+    words = "the quick brown fox jumps over the lazy dog hello world".split()
+    space = "Ġ" if tok.vocab.model == "gpt2" else "▁"
+    return [tok.vocab.special.bos] + [tok.vocab.token_to_id[space + words[i % len(words)]]
+                                      for i in range(n - 1)]
+
+
+def _words(n: int) -> str:
+    words = "the quick brown fox jumps over the lazy dog hello world".split()
+    return " ".join(words[i % len(words)] for i in range(n))
+
+
+def _http_request(port: int, route: str, body: dict, timeout: float = 600.0) -> dict:
+    """One POST through http.client: status, the JSON body (or, streamed,
+    the SSE payloads and the client's time to the first one), seconds."""
+    import http.client
+
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
+        r = c.getresponse()
+        out = {"status": r.status}
+        if body.get("stream"):
+            events, first = [], None
+            for line in r:
+                if line.startswith(b"data: "):
+                    first = first or time.perf_counter() - t0
+                    events.append(line[6:].strip().decode())
+            out.update(events=events, client_ttft_s=first)
+        else:
+            out["json"] = json.loads(r.read())
+    finally:
+        c.close()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _burst(port: int, tok) -> tuple[list[dict], float]:
+    """SERVE_BURST sent at once, a thread a request; (results, wall s)."""
+    import threading
+
+    results: list = [None] * len(SERVE_BURST)
+
+    def send(i, route, words, n, temp, seed):
+        body = {"max_tokens": n, "temperature": temp, **({"seed": seed} if seed else {})}
+        if route == "/v1/chat/completions":
+            body.update(messages=[{"role": "user", "content": _words(words)}], stream=True)
+        else:
+            body["prompt"] = _words(words)
+        try:
+            results[i] = _http_request(port, route, body)
+        except Exception as e:  # reported by the check below
+            results[i] = {"error": repr(e)}
+        results[i].update(route=route, words=words, max_tokens=n, temp=temp, seed=seed)
+
+    threads = [threading.Thread(target=send, args=(i, *req)) for i, req in enumerate(SERVE_BURST)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    expect(not any(t.is_alive() for t in threads), "every request of the burst returned")
+    for r in results:
+        expect("error" not in r and r["status"] == 200, f"request {r.get('route')}: {r}")
+        if r["route"] == "/v1/chat/completions":
+            expect(r["events"][-1] == "[DONE]", f"{r['route']}: the stream ends with [DONE]")
+            final = json.loads(r["events"][-2])
+            r["stats"], r["finish_reason"] = final["timings"], final["choices"][0]["finish_reason"]
+            r["text"] = "".join(json.loads(e)["choices"][0]["delta"].get("content", "")
+                                for e in r["events"][:-2])
+        else:
+            r["stats"] = r["json"]["timings"]
+            r["finish_reason"] = r["json"]["choices"][0]["finish_reason"]
+            r["text"] = r["json"]["choices"][0]["text"]
+        st = r["stats"]
+        expect(st["predicted_n"] > 0 and r["finish_reason"] in ("stop", "length"),
+               f"{r['route']} generated: {st}")
+        expect(r["finish_reason"] == "stop" or st["predicted_n"] == r["max_tokens"],
+               f"{r['route']}: {st['predicted_n']} of {r['max_tokens']} tokens")
+        expect(st["prompt_n"] >= 32 and st["prompt_n"] <= 1024 + 64,
+               f"{r['route']}: a prompt of {st['prompt_n']} tokens")
+    return results, wall
+
+
+def _batch_launches(eng) -> dict:
+    """The launches one batched decode step makes (one forward at M =
+    n_slots: every 2-D qmm on CUDA cores, flash in its decode regime, the
+    gather for each expert stack)."""
+    per = per_forward_launches(eng.params)
+    return {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
+            "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
+            "flash_decode": per["flash"], "attn_dense_routes": 0}
+
+
+def _step_ms(eng, active, prompt: list[int], greedy: bool = True) -> float:
+    """Wall ms a batched decode step with the slots `active` generating
+    (the step runs over the first max(active) + 1 slots, the others among
+    them idle at −1), over SERVE_STEPS steps after a joint prefill."""
+    import torch
+
+    for s in range(eng.n_slots):
+        eng.free_slot(s)
+    eng.prefill_slots({s: prompt for s in active})
+    cur = {s: 5 for s in active}
+    step = eng.decode_batch_greedy if greedy else \
+        (lambda c: {s: int(np.argmax(r)) for s, r in eng.decode_batch(c).items()})
+    cur = step(cur)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        cur = step(cur)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
+
+
+def _profile_step(eng, prompt: list[int], steps: int = 8) -> dict:
+    """Device ms a batched greedy step by kernel family (torch.profiler,
+    `profiled`) with every slot generating."""
+    import torch
+
+    for s in range(eng.n_slots):
+        eng.free_slot(s)
+    eng.prefill_slots({s: prompt for s in range(eng.n_slots)})
+    cur = {s: 5 for s in range(eng.n_slots)}
+    torch.cuda.synchronize()
+
+    def run():
+        c = cur
+        for _ in range(steps):
+            c = eng.decode_batch_greedy(c)
+
+    _, prof = profiled(run)
+    fam = {"qmm": 0.0, "qmm_stack": 0.0, "qmm_gather": 0.0, "flash": 0.0, "other": 0.0}
+    for key, us, _ in device_events(prof):
+        fam[_family(key)] += us
+    return {k: v / 1e3 / steps for k, v in fam.items()}
+
+
+def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int) -> dict:
+    """Each slot s of the BatchEngine prefills prompts[s] (one joint round)
+    and is fed, step by step in one batched step, the greedy ids of the
+    single-stream Engine on the same prompt; each slot's logits held
+    against Engine's (prefill, then decode_step) within SERVE_NMSE_BOUND.
+    Reports the greedy ids that agree, and where they part, the step and
+    Engine's top-2 margin."""
+    ref_logits, ref_ids = [], []
+    for p in prompts:
+        single.reset()
+        rows = [single.prefill(p)]
+        ids = [int(np.argmax(rows[0]))]
+        for _ in range(steps):
+            rows.append(single.decode_step(ids[-1]))
+            ids.append(int(np.argmax(rows[-1])))
+        ref_logits.append(rows)
+        ref_ids.append(ids)
+    for s in range(eng.n_slots):
+        eng.free_slot(s)
+    got = eng.prefill_slots(dict(enumerate(prompts)))
+    worst, agree, parted = 0.0, 0, []
+    for step in range(steps + 1):
+        if step:
+            got = eng.decode_batch({s: ref_ids[s][step - 1] for s in range(len(prompts))})
+        for s in range(len(prompts)):
+            ref = ref_logits[s][step]
+            err = float(np.mean((got[s].astype(np.float64) - ref) ** 2)
+                        / np.mean(ref.astype(np.float64) ** 2))
+            worst = max(worst, err)
+            if int(np.argmax(got[s])) == ref_ids[s][step]:
+                agree += 1
+            else:
+                top2 = np.sort(ref)[-2:]
+                parted.append(dict(slot=s, step=step, margin=float(top2[1] - top2[0])))
+    n = (steps + 1) * len(prompts)
+    log(f"[{label}] teacher-forced on Engine's greedy ids, {len(prompts)} slots × {steps + 1} "
+        f"positions (prompts of {[len(p) for p in prompts]} tokens): worst NMSE {worst:.2e} "
+        f"(bound {SERVE_NMSE_BOUND}); greedy ids agree {agree}/{n}; parted at {parted}")
+    expect(worst <= SERVE_NMSE_BOUND, f"{label}: batched logits against Engine's, NMSE "
+           f"{worst:.3e} <= {SERVE_NMSE_BOUND}")
+    return dict(worst_nmse=worst, ids_agree=agree, positions=n, parted=parted)
+
+
+def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
+    """Continuous batching on the 8B Q4_K_M (full depth; the slice's file):
+    tpullm-torch-server's app (BatchEngine of SERVE_SLOTS slots, context
+    SERVE_CTX, bf16 cache; its decode graphs captured on the scheduler's
+    thread at start) on 127.0.0.1 in this process, SERVE_BURST sent at
+    once through http.client (each request's TTFT and rate, the aggregate
+    generated rate); then on the same engine the graph's ms a step at 1, 2
+    and 4 slots generating (greedy ids; at 4 also the logits variant), the
+    launches a replay, a profiled step by kernel family, and the batched
+    logits teacher-forced against the single-stream Engine; a q8-cache
+    engine at 4 slots for SERVE_STEPS steps; Mixtral Q4_K_M with 4 layers at
+    4 slots (one joint prefill round, SERVE_STEPS batched steps
+    teacher-forced against its Engine: the gather regime); and
+    tpullm-torch-batched-bench -npp 128 -ntg 64 -npl 1,2,4,8 on the 8B."""
+    import gc
+
+    import torch
+
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.server.api import make_app, serve
+    from tpullm_torch.tools import batched_bench
+
+    out: dict = {}
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the main path
+    app, sched = make_app(path, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, prefill_chunk=512)
+    eng = sched.engine
+    httpd = serve(app, "127.0.0.1", 0)
+    try:
+        t0 = time.perf_counter()
+        sched.precompile(background=False)
+        out["capture_s"] = time.perf_counter() - t0
+        expect(all(r.graph is not None for r in eng._runners.values())
+               and len(eng._runners) == 2 * SERVE_SLOTS,
+               "both decode graphs at every width captured on the scheduler's thread")
+        results, wall = _burst(httpd.server_address[1], eng.tokenizer)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+    expect(not sched._thread.is_alive(), "the scheduler's thread stopped")
+    gen_total = sum(r["stats"]["predicted_n"] for r in results)
+    out["burst"] = [dict(route=r["route"], prompt_n=r["stats"]["prompt_n"],
+                         predicted_n=r["stats"]["predicted_n"], temp=r["temp"],
+                         finish=r["finish_reason"], ttft_ms=r["stats"]["ttft_ms"],
+                         client_ttft_ms=(r["client_ttft_s"] * 1e3 if r.get("client_ttft_s")
+                                         else None),
+                         seconds=r["seconds"],
+                         tok_s=r["stats"]["predicted_n"] / max(
+                             (r["stats"]["total_ms"] - r["stats"]["ttft_ms"]) / 1e3, 1e-9))
+                    for r in results]
+    out.update(burst_wall_s=wall, generated=gen_total, aggregate_tok_s=gen_total / wall,
+               load_s=eng.perf.t_load_s)
+    for b, r in zip(out["burst"], results):
+        log(f"[server] {b['route']} prompt {b['prompt_n']} tok, temp {b['temp']}: "
+            f"{b['predicted_n']} tokens ({b['finish']}), TTFT {b['ttft_ms']:.1f} ms after "
+            f"admission" + (f", {b['client_ttft_ms']:.1f} ms at the client"
+                            if b['client_ttft_ms'] else "")
+            + f", {b['tok_s']:.1f} tok/s, {b['seconds']:.2f} s in all; text "
+            f"{r['text'][:48]!r}")
+    log(f"[server] 8 requests on {SERVE_SLOTS} slots: {gen_total} tokens generated in "
+        f"{wall:.2f} s, {gen_total / wall:.1f} tok/s in aggregate; load {eng.perf.t_load_s:.1f} s, "
+        f"graphs captured in {out['capture_s']:.2f} s")
+
+    want = _batch_launches(eng)
+    for (greedy, width), r in sorted(eng._runners.items()):
+        one = r.launches_per_replay()
+        log(f"[server] launches per replay ({'greedy' if greedy else 'logits'} variant, "
+            f"width {width}): {one}; capture {r.capture_s:.3f} s, pool "
+            f"{r.pool_bytes / 2**20:.1f} MiB")
+        expect(one == want, f"server: launches per replay {one} = one forward's {want}")
+    out["launches_per_replay"] = want
+    prompt = _word_ids(eng.tokenizer, 128)
+    out["step_ms"] = {n: _step_ms(eng, range(n), prompt) for n in (1, 2, 4)}
+    out["step_ms_last_slot"] = _step_ms(eng, [SERVE_SLOTS - 1], prompt)
+    out["step_ms_logits_4"] = _step_ms(eng, range(4), prompt, greedy=False)
+    out["agg_tok_s"] = {n: n * 1e3 / ms for n, ms in out["step_ms"].items()}
+    log(f"[server] batched graph, ms a step by active slots 0..n−1 (greedy ids, 128-token "
+        f"prompts): {out['step_ms']} → {out['agg_tok_s']} tok/s in aggregate; one slot "
+        f"active in the last slot (the full width) {out['step_ms_last_slot']:.3f} ms; the "
+        f"logits variant at 4 slots ([4, V] read back) {out['step_ms_logits_4']:.3f} ms")
+    out["profile"] = _profile_step(eng, prompt)
+    busy = sum(out["profile"].values())
+    log(f"[server] profiled step at {eng.n_slots} slots, device ms by family "
+        f"{ {k: round(v, 4) for k, v in out['profile'].items()} } = {busy:.3f} ms busy of "
+        f"{out['step_ms'][4]:.3f} ms a step")
+
+    single = Engine(path, max_seq=SERVE_CTX)
+    out["teacher"] = teacher_forced("server", eng, single,
+                                    [_word_ids(eng.tokenizer, n) for n in TEACHER_LENS],
+                                    TEACHER_STEPS)
+    del single, eng, sched, app
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q8 = BatchEngine(path, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, kv_dtype="q8_0")
+    q8_ms = _step_ms(q8, range(SERVE_SLOTS), prompt)
+    one = q8.runner(True, SERVE_SLOTS).launches_per_replay()
+    expect(one == _batch_launches(q8), f"q8 server engine: launches per replay {one}")
+    ids = q8.decode_batch_greedy({s: 7 for s in range(SERVE_SLOTS)})
+    expect(all(0 <= t < q8.hp.n_vocab for t in ids.values()), "q8 ids in range")
+    out["q8_step_ms"] = q8_ms
+    log(f"[server] q8 cache, {SERVE_SLOTS} slots, {SERVE_STEPS} steps: {q8_ms:.3f} ms a step "
+        f"({SERVE_SLOTS * 1e3 / q8_ms:.1f} tok/s in aggregate); launches per replay {one}")
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    got = read_launches()  # the 8B's part of the phase
+    expect(got["qmm_tc"] > 0 and got["qmm_q4k"] > 0 and got["qmm_q6k"] > 0
+           and got["flash_bf16.decode"] > 0 and got["flash_bf16"] > got["flash_bf16.decode"]
+           and got["flash_q8.decode"] > 0 and got["dequant_routes"] == 0
+           and got["attn_dense_routes"] == 0, f"server: the 8B's launches {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+
+    mpath = synthesize(tmp, "server-mixtral", "mixtral-8x7b", "Q4_K_M", n_layer=4)
+    reset_launches()
+    meng = BatchEngine(mpath, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX)
+    msingle = Engine(mpath, max_seq=SERVE_CTX)
+    out["mixtral"] = teacher_forced("server-mixtral", meng, msingle,
+                                    [_word_ids(meng.tokenizer, n) for n in (33, 100, 250, 500)],
+                                    SERVE_STEPS)
+    one = meng.runner(False, SERVE_SLOTS).launches_per_replay()
+    expect(one == _batch_launches(meng), f"mixtral batched step: launches per replay {one}")
+    out["mixtral"]["step_ms"] = _step_ms(meng, range(SERVE_SLOTS),
+                                         _word_ids(meng.tokenizer, 64))
+    torch.cuda.synchronize()
+    got = read_launches()
+    expect(got["qmm_stack"] > 0 and got["qmm_gather"] > 0, f"server-mixtral: launches {got}")
+    log(f"[server-mixtral] 4 layers, {SERVE_SLOTS} slots: launches per replay {one}; "
+        f"{out['mixtral']['step_ms']:.3f} ms a step; launches {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    del meng, msingle
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpath.unlink()
+
+    reset_launches()
+    rc, text, err, secs = run_tool(batched_bench.main, ["-m", str(path), "-npp", "128",
+                                                        "-ntg", "64", "-npl", "1,2,4,8",
+                                                        "-c", "2048", "-o", "json"])
+    expect(rc == 0, f"batched-bench rc {rc}: {err[-300:]}")
+    out["batched_bench"] = json.loads(text)
+    expect([r["b"] for r in out["batched_bench"]] == [1, 2, 4, 8], "batched-bench rows")
+    for r in out["batched_bench"]:
+        log(f"[server] batched-bench pp 128 tg 64 B {r['b']}: pp {r['pp_ts']} tok/s, tg "
+            f"{r['tg_ts']} tok/s, total {r['total_ts']} tok/s")
+    log(f"[server] batched-bench {secs:.1f} s")
+    got = read_launches()
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
     bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
@@ -1867,17 +2356,20 @@ def main() -> int:
     timed("grouped", phase_grouped, dev, results)
     timed("moe kernels", phase_moe_kernels, dev, results)
     timed("flash", phase_flash, dev, results)
+    batched: dict = {}
+    timed("batched kernels", phase_batched_kernels, dev, results, batched)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs, slice_path = timed("slice", phase_slice, Path(tmp), launches)
         tools = timed("tools", phase_tools, slice_path, Path(tmp), launches)
+        server = timed("server", phase_server, slice_path, Path(tmp), launches)
         slice_path.unlink()
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         timed("routes", phase_routes, dev, Path(tmp))
-    log("[runs] summary " + json.dumps({"runs": runs, "tools": tools}))
+    log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server}))
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 
@@ -1947,6 +2439,10 @@ def main() -> int:
             entry["launched_through"] = ["qmm_stack", "qmm_gather"]
             entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
                                  + launches.get("qmm_gather.MXFP4", 0))
+        if key in batched:  # the shapes of continuous batching (phase_batched_kernels)
+            entry["batched"] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")}
+                                for r in batched[key]]
         expect(entry["launches"] > 0, f"{key} launched on the main path")
         kernels.append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -904,3 +904,194 @@ def test_dense_mode_on_the_card(dev, tmp_path, ftype):
         gpu.reset()
         assert _nmse(torch.from_numpy(gpu.prefill(ids)),
                      torch.from_numpy(auto.prefill(ids))) <= 1e-3
+
+
+# -- continuous batching (runtime/batch_engine.py, server/) ----------------------
+
+@pytest.mark.parametrize("kv", ["bf16", "q8", "f16", "f32"])
+@pytest.mark.parametrize("B", [4, 8])
+def test_flash_decode_with_idle_slots_matches_plain(dev, B, kv):
+    """The decode regime at B = 4 and 8 with per-slot offsets that include
+    −1 (idle) and kv lengths from 20 to 4000 of S = 4096 (the 8B's heads):
+    idle rows exactly 0, every row finite, NMSE against the plain version
+    within the bound, one launch."""
+    H, Hkv, D, S = 32, 8, 128, 4096
+    offsets = [-1, 19, -1, 3000, 63, -1, 3999, 500][:B]
+    g = torch.Generator(dev).manual_seed(B)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    before = flash.DECODE_LAUNCHES[kv]
+    if kv == "q8":
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        k_q, k_s = QuantKVCache._quantize(k)
+        v_q, v_s = QuantKVCache._quantize(v)
+        got = flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, scale)
+        ref = flash.flash_reference(q, k_q, v_q, off, scale, k_scale=k_s, v_scale=v_s)
+        bound = FLASH_Q8_NMSE_BOUND
+    else:
+        dt = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[kv]
+        k, v = k.to(dt), v.to(dt)
+        got = flash.flash_attention(q, k, v, off, scale)
+        ref = flash.flash_reference(q, k, v, off, scale)
+        bound = FLASH_NMSE_BOUND
+    torch.cuda.synchronize()
+    assert flash.DECODE_LAUNCHES[kv] == before + 1
+    idle = [b for b, o in enumerate(offsets) if o < 0]
+    assert torch.isfinite(got.float()).all() and not got[idle].float().any()
+    assert _nmse(got.float(), ref.float()) <= bound
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T", [8, 64])
+def test_flash_prefill_with_idle_slots_matches_plain(dev, T, q8):
+    """A joint prefill round's attention (4 slots × a bucket of T, the
+    tensor-core regime) with idle slots at −1: every row finite, the first
+    row of an idle slot (no visible key) exactly 0, NMSE within the bound
+    against the plain version."""
+    B, H, Hkv, D, S = 4, 32, 8, 128, 512
+    offsets = [-1, 0, 100, -1]
+    g = torch.Generator(dev).manual_seed(T)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    assert flash.regime(T, H, Hkv) == "prefill"
+    if q8:
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        k_q, k_s = QuantKVCache._quantize(k)
+        v_q, v_s = QuantKVCache._quantize(v)
+        got = flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, scale)
+        ref = flash.flash_reference(q, k_q, v_q, off, scale, k_scale=k_s, v_scale=v_s)
+    else:
+        got = flash.flash_attention(q, k, v, off, scale)
+        ref = flash.flash_reference(q, k, v, off, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all() and not got[[0, 3], 0].float().any()
+    assert _nmse(got.float(), ref.float()) <= (FLASH_Q8_NMSE_BOUND if q8 else FLASH_NMSE_BOUND)
+
+
+@pytest.mark.parametrize("name,K,N", [("Q4_K", 4096, 28672), ("Q6_K", 14336, 4096)])
+@pytest.mark.parametrize("M", [4, 8])
+def test_qmm_at_slot_counts_matches_plain(dev, name, K, N, M):
+    """qmm at M = n_slots (the batched decode step) at the 8B's gate_up
+    (Q4_K) and down (Q6_K): one launch on CUDA cores, NMSE within the
+    bound."""
+    planes = _planes(name, N, K, dev, seed=M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    before = qmm.LAUNCHES[name]
+    got = qmm.qmm(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+    assert torch.isfinite(got.float()).all() and _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+def _batch_engines(tmp_path, shape, kv, **kw):
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    path = tmp_path / f"{shape}.gguf"
+    if not path.exists():
+        make_synthetic_llama_gguf(path, shape=shape, seed=0)
+    kv_dtype = torch.bfloat16 if kv == "bf16" else kv
+    return [BatchEngine(path, device=d, n_slots=4, max_seq=128, kv_dtype=kv_dtype, **kw)
+            for d in (None, "cpu")]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+@pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
+def test_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path, shape, kv):
+    """A joint prefill round of three slots (one idle), then batched steps
+    with mixed and idle slots: per-slot logits of the card (graph replays)
+    within NMSE 1e-3 of the CPU's, the greedy step's ids equal; each replay
+    adds one forward's launches at M = n_slots."""
+    gpu, cpu = _batch_engines(tmp_path, shape, kv)
+    assert gpu.device.type == "cuda"
+    prompts = {0: [1, 300, 301, 302, 303], 1: [1, 17], 3: list(range(1, 40))}
+    a, b = gpu.prefill_slots(prompts), cpu.prefill_slots(prompts)
+    for s in prompts:
+        assert np.isfinite(a[s]).all() and _nmse(torch.from_numpy(a[s]),
+                                                 torch.from_numpy(b[s])) <= 1e-3
+    for feed in ({0: 300, 1: 17, 3: 42}, {1: 18}, {0: 5, 3: 6}):
+        a, b = gpu.decode_batch(feed), cpu.decode_batch(feed)
+        for s in feed:
+            assert _nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) <= 1e-3
+    feed = {0: 7, 1: 8, 3: 9}
+    assert gpu.decode_batch_greedy(feed) == cpu.decode_batch_greedy(feed)
+    per = _forward_launches(gpu.params)
+    one = gpu.runner(False, 4).launches_per_replay()
+    assert one["qmm"] == per["qmm"] and one["flash_decode"] == per["flash"]
+    assert one["qmm_gather"] == per["experts"] and one["qmm_tc"] == 0
+    assert gpu.runner(False, 4).replays == 1 and gpu.runner(True, 4).graph is not None
+    assert gpu.runner(False, 2).graph is not None  # {1: 18}: the step of the first 2 slots
+
+
+def test_batched_graph_ids_equal_the_eager_step(dev, tmp_path):
+    """The greedy step as graph replays (at each step's width) against the
+    full-width step run eagerly (BatchRunner.step) on a second engine from
+    the same state: equal ids at every step, slots joining and leaving."""
+    a, _ = _batch_engines(tmp_path, "tiny", "bf16")
+    b, _ = _batch_engines(tmp_path, "tiny", "bf16")
+    prompts = {0: [1, 300, 301], 2: [1, 5, 6, 7, 8]}
+    a.prefill_slots(prompts)
+    b.prefill_slots(prompts)
+    feeds = [{0: 11, 2: 12}, {0: 13, 3: 14}, {0: 15, 1: 16, 2: 17}, {1: 18, 3: 19},
+             {0: 20, 3: 21}]
+    a.prefill_slot(1, [1, 2])
+    b.prefill_slot(1, [1, 2])
+    runner = b.runner(True, 4)
+    for feed in feeds:
+        got = a.decode_batch_greedy(feed)
+        runner.inputs.copy_(b._inputs(feed, 4))
+        with torch.inference_mode():
+            runner.step()
+        for s in feed:
+            b.n_past[s] += 1
+        assert got == {s: int(runner.ids[s]) for s in feed}
+    assert a.runner(True, 4).replays == 2 and runner.graph is None
+
+
+def test_server_on_the_card(dev, tmp_path):
+    """tpullm-torch-server's app on the card: a completion and a streamed
+    chat through HTTP, the decode graphs captured on the scheduler's
+    thread at start-up (precompile), and the scheduler stopped after."""
+    import http.client
+    import json
+
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.server.api import make_app, serve
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny.gguf", shape="tiny", seed=0)
+    app, sched = make_app(path, n_slots=2, max_seq=128)
+    httpd = serve(app, "127.0.0.1", 0)
+    try:
+        sched.precompile(background=False)
+        assert len(sched.engine._runners) == 4  # two variants, widths 1 and 2
+        assert all(r.graph is not None for r in sched.engine._runners.values())
+        port = httpd.server_address[1]
+        for path_, body in (("/v1/completions", {"prompt": "the quick", "max_tokens": 6,
+                                                  "temperature": 0}),
+                            ("/v1/chat/completions", {"messages": [{"role": "user",
+                                                                    "content": "hi"}],
+                                                       "max_tokens": 6, "stream": True,
+                                                       "temperature": 0.8, "seed": 3})):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            c.request("POST", path_, json.dumps(body), {"Content-Type": "application/json"})
+            r = c.getresponse()
+            raw = r.read().decode()
+            c.close()
+            assert r.status == 200, raw
+            assert ("data: [DONE]" in raw) if body.get("stream") else \
+                json.loads(raw)["usage"]["completion_tokens"] > 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+    assert not sched._thread.is_alive()

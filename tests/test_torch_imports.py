@@ -3,8 +3,10 @@ tpullm package (tpullm_torch keeps its own copies of what it needs), and
 tpullm_torch does not import `regex` (the BPE tokenizer's patterns run on
 the standard library's `re`, their property classes shipped as data; the
 card's machine is not known to have `regex` in every setup, and
-chip_smoke.py only reports whether it imports there). Every module of the
-package, the tools among them, imports with the three blocked."""
+chip_smoke.py only reports whether it imports there) nor `aiohttp` (the
+server's HTTP layer is the standard library's http.server: the card's
+machine has no aiohttp). Every module of the package, the tools and the
+server among them, imports with the four blocked."""
 
 import ast
 import os
@@ -21,7 +23,7 @@ FILES = sorted((ROOT / "tpullm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 def _forbidden_in(path: Path):
     banned = ("jax", "jaxlib", "tpullm")
     if ROOT / "tpullm_torch" in path.parents:
-        banned += ("regex",)
+        banned += ("regex", "aiohttp")
     return lambda module: module.split(".")[0] in banned
 
 
@@ -49,6 +51,7 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['tpullm'] = None\n"
         "sys.modules['regex'] = None\n"
+        "sys.modules['aiohttp'] = None\n"
         "import tpullm_torch.runtime.engine, tpullm_torch.convert, tpullm_torch.models.synth\n"
         "import tpullm_torch.ops.kernels.qmm, tpullm_torch.ops.kernels.flash\n"
         "import tpullm_torch.ops.moe, tpullm_torch.models.llama, tpullm_torch.models.weights\n"
@@ -58,10 +61,14 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.grammar.json_partial\n"
         "import tpullm_torch.tools.cli, tpullm_torch.tools.perplexity, tpullm_torch.tools.bench\n"
         "import tpullm_torch.tools.tokenize, tpullm_torch.tools.compare_bench\n"
+        "import tpullm_torch.runtime.batch_engine, tpullm_torch.tools.batched_bench\n"
+        "import tpullm_torch.server, tpullm_torch.server.api, tpullm_torch.server.router\n"
+        "import tpullm_torch.server.scheduler, tpullm_torch.server.__main__\n"
         "from tpullm_torch.tokenizer import bpe\n"
         "assert bpe.regex_split(\"it's 1234\", bpe.resolve_pre('llama-bpe')['regexes']) == \\\n"
         "    ['it', \"'s\", ' ', '123', '4']\n"
-        "assert not any(m in ('jax', 'regex') or m.startswith(('jax.', 'tpullm.', 'regex.'))\n"
+        "assert not any(m in ('jax', 'regex', 'aiohttp')\n"
+        "               or m.startswith(('jax.', 'tpullm.', 'regex.', 'aiohttp.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

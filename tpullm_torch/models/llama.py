@@ -4,9 +4,10 @@ append → SwiGLU FFN, residual chain, final norm and output head.
 The graph of the JAX package's models/llama.py, dense FFN and MoE FFN
 (mixtral: a router, softmax top-k with renormalised weights, stacked
 experts), run eagerly: `forward` updates the cache in place. The cache
-offset is a host int, or, for one decode row, a device int32 tensor (the
-captured decode step: nothing in the forward then reads a value back to the
-host).
+offset is a host int, or, for one decode row, a 0-d device int32 tensor
+(the captured decode step: nothing in the forward then reads a value back
+to the host), or an int32 [B] device tensor of per-slot offsets with −1 for
+an idle slot (continuous batching, runtime/batch_engine.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..ops.attention import alibi_slopes, attention_cached
 from ..ops.moe import moe_ffn, route
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_angles, rope_angles
+from ..runtime.kvcache import slot_rows
 from .hparams import HParams
 from .weights import MODES, load_embedding, load_expert_stack, load_linear, load_vector
 
@@ -143,21 +145,30 @@ def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor, cache, cache_offset,
-            last_index: int | None = None, return_hidden: bool = False):
+            last_index=None, return_hidden: bool = False):
     """tokens/positions [B, T] → (logits [B, T, n_vocab] f32, cache). With
     last_index=i the head runs on row i only and logits are [B, 1, n_vocab]
-    (the prefill path: the head of an 8B model is ~6% of its FLOPs). With
-    return_hidden, (the final-norm hidden states [B, T, n_embd] f32, cache)
-    instead (the embeddings path).
+    (the prefill path: the head of an 8B model is ~6% of its FLOPs); a [B]
+    device tensor of indices picks row last_index[b] of batch row b (a
+    joint prefill round of several slots). With return_hidden, (the
+    final-norm hidden states [B, T, n_embd] f32, cache) instead (the
+    embeddings path).
 
-    `cache_offset` is the cache slot of row 0: a host int, or at T = 1 a
-    device int32 tensor of one element, which the flash kernel then reads as
-    its offsets and the cache write as its index."""
+    `cache_offset` is the cache slot of row 0: a host int, or at T = 1 a 0-d
+    device int32 tensor, which the flash kernel then reads as its offsets
+    and the cache write as its index; or an int32 [B] device tensor, the
+    offset of each batch row (a slot), −1 where the slot is idle: its cache
+    rows are left as they are (runtime/kvcache.py `_slot_write`)."""
     B, T = tokens.shape
     x = params["tok_embd"][tokens]
     if hp.embd_scale != 1.0:
         x = x * hp.embd_scale
-    if isinstance(cache_offset, torch.Tensor):
+    if isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1:
+        if cache_offset.shape[0] != B:
+            raise ValueError(f"per-slot offsets [{cache_offset.shape[0]}] for a batch of {B}")
+        offsets = cache_offset.to(torch.int32).contiguous()
+        cache_offset = slot_rows(offsets, T, cache.max_len)  # one plan for every layer
+    elif isinstance(cache_offset, torch.Tensor):
         offsets = cache_offset.reshape(1).to(torch.int32).expand(B).contiguous()
     else:
         offsets = torch.full((B,), int(cache_offset), dtype=torch.int32, device=x.device)
@@ -186,6 +197,9 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
         x = x + ffn
     if return_hidden:
         return rms_norm(x, params["output_norm"], hp.rms_eps).float(), cache
-    if last_index is not None:
+    if isinstance(last_index, torch.Tensor):  # one flagged row per batch row
+        idx = last_index.to(torch.int64).reshape(B, 1, 1).expand(B, 1, x.shape[-1])
+        x = x.gather(1, idx)
+    elif last_index is not None:
         x = x[:, last_index:last_index + 1]
     return output_head(hp, params, x), cache

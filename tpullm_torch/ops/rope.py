@@ -76,3 +76,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rp: RopeParams) -> torc
     """x: [B, T, H, D], positions: [B, T] → same shape, first rp.dims rotated."""
     cos, sin = rope_angles(rp, positions)
     return apply_rope_angles(x, cos, sin, rp.style)
+
+
+def rotate_cached_keys(k: torch.Tensor, delta: torch.Tensor, rp: RopeParams) -> torch.Tensor:
+    """Cached, already rotated keys k [..., S, D] turned by a further delta
+    [S] positions (the JAX package's ops/rope.py rotate_cached_keys, for a
+    context shift): R(pos + delta) = R(delta)·R(pos) for every scaling the
+    port has, and the magnitude scale is already in the keys, so it is not
+    applied again. f32 math; the result in k's dtype."""
+    cos, sin = rope_angles(rp, delta, mscale_on=False)  # [S, n_rot/2]
+    n_rot = cos.shape[-1] * 2
+    rot = k[..., :n_rot].float()
+    if rp.style == "norm":
+        x0, x1 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1).reshape(rot.shape)
+    elif rp.style == "neox":
+        half = n_rot // 2
+        x0, x1 = rot[..., :half], rot[..., half:]
+        out = torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], dim=-1)
+    else:
+        raise ValueError(f"unknown rope style {rp.style}")
+    out = out.to(k.dtype)
+    if k.shape[-1] > n_rot:
+        out = torch.cat([out, k[..., n_rot:]], dim=-1)
+    return out

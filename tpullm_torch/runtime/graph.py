@@ -27,7 +27,19 @@ and the host reads them (Engine.decode_step, the JAX package's jitted
 loop). The host sets `token` and `n_past` before each step, so the step
 keeps no count of its own.
 
-Both follow one set of rules (`_CapturedStep`): the step reads and writes
+`BatchRunner` is one batched decode step of a BatchEngine
+(runtime/batch_engine.py) over its first `width` slots: the width rows of
+one forward at per-slot offsets, −1 for an idle slot, read from static
+buffers (tokens, positions and offsets in one int32 [3, width] buffer, so
+the host loads them with one copy), against a view of those slots' cache
+rows; it writes the f32 logits [width, V] (BatchEngine.decode_batch) or,
+in its greedy variant, the argmax ids [width]
+(BatchEngine.decode_batch_greedy). A step runs at the width of the highest
+generating slot, so the rows computed follow the load. Its graph is
+captured, and replayed, on the thread that calls it (the server's
+scheduler thread).
+
+All follow one set of rules (`_CapturedStep`): the step reads and writes
 only device buffers, the engine's parameters and its cache, which is
 written in place (runtime/kvcache.py), so a captured graph stays valid
 across Engine.reset, prefills and state loads; a path that replaces the
@@ -75,6 +87,8 @@ class _CapturedStep:
     stream at its first run, after one eager step on that stream, and
     replayed once a step; on the CPU run eagerly."""
 
+    capture_mode = "global"  # torch.cuda.graph's capture_error_mode
+
     def __init__(self, engine):
         dev = engine.device
         self.engine = engine
@@ -105,7 +119,7 @@ class _CapturedStep:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(g, stream=self.stream):
+            with torch.cuda.graph(g, stream=self.stream, capture_error_mode=self.capture_mode):
                 reserved = torch.cuda.memory_reserved(dev)
                 self.step()
         finally:
@@ -171,7 +185,8 @@ class DecodeRunner(_CapturedStep):
         """One decode step on the buffers (nothing read back to the host)."""
         e = self.engine
         logits, e.cache = e.arch.forward(e.hp, e.params, self.token.reshape(1, 1),
-                                         self.n_past.reshape(1, 1), e.cache, self.n_past)
+                                         self.n_past.reshape(1, 1), e.cache,
+                                         self.n_past.reshape(()))
         tok = sample_token(logits[0, 0], self.gen, self.sp)
         self.ids.index_copy_(0, self.step_index, tok.reshape(1))
         self.token.copy_(tok.reshape(1))
@@ -210,7 +225,8 @@ class LogitsRunner(_CapturedStep):
         slot `n_past` into `logits` (the cache row written)."""
         e = self.engine
         logits, e.cache = e.arch.forward(e.hp, e.params, self.token.reshape(1, 1),
-                                         self.n_past.reshape(1, 1), e.cache, self.n_past)
+                                         self.n_past.reshape(1, 1), e.cache,
+                                         self.n_past.reshape(()))
         self.logits.copy_(logits[0, 0])
 
     def run(self, token: int, n_past: int) -> torch.Tensor:
@@ -220,3 +236,47 @@ class LogitsRunner(_CapturedStep):
         self.n_past.fill_(int(n_past))
         self._steps(1)
         return self.logits
+
+
+class BatchRunner(_CapturedStep):
+    """One batched decode step of a BatchEngine's first `width` slots on
+    static device buffers: `inputs` int32 [3, width] holds each slot's
+    token, RoPE position and cache offset (−1: idle, its cache rows
+    untouched); the step writes the f32 logits [width, V] into `logits`,
+    or with `greedy` their argmax into `ids` (the first index on ties, as
+    the JAX package's argmax). On the card one step captured as a CUDA
+    graph and replayed; the capture's error mode is the thread's own, so a
+    server's other threads are not drawn into it."""
+
+    capture_mode = "thread_local"
+
+    def __init__(self, engine, greedy: bool, width: int):
+        super().__init__(engine)
+        dev = engine.device
+        self.greedy, self.width = greedy, width
+        self.inputs = torch.zeros(3, width, dtype=torch.int32, device=dev)
+        self.inputs[2].fill_(-1)
+        if greedy:
+            self.ids = torch.zeros(width, dtype=torch.int64, device=dev)
+        else:
+            self.logits = torch.zeros(width, engine.hp.n_vocab, dtype=torch.float32, device=dev)
+
+    def step(self) -> None:
+        """One decode step of the slots on the buffers (nothing read back)."""
+        e, B = self.engine, self.width
+        cache = e.cache if B == e.n_slots else e.cache.first_slots(B)
+        tokens, positions, offsets = self.inputs[0], self.inputs[1], self.inputs[2]
+        logits, _ = e.arch.forward(e.hp, e.params, tokens.long().reshape(B, 1),
+                                   positions.reshape(B, 1), cache, offsets)
+        if self.greedy:
+            self.ids.copy_(torch.argmax(logits[:, 0], dim=-1))
+        else:
+            self.logits.copy_(logits[:, 0])
+
+    def run(self, inputs: torch.Tensor) -> torch.Tensor:
+        """One step from `inputs` (an int32 [3, width] host tensor: tokens,
+        positions, offsets); the runner's `ids` or `logits` buffer, valid
+        until its next run."""
+        self.inputs.copy_(inputs)
+        self._steps(1)
+        return self.ids if self.greedy else self.logits

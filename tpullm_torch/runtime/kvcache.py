@@ -5,6 +5,13 @@ is contiguous and the flash kernel reads (S, D) rows directly. Writes update
 the preallocated tensors in place (the JAX package returns new arrays and
 relies on buffer donation instead). `QuantKVCache` stores int8 codes with one
 f32 scale per (layer, batch, head, position) vector.
+
+An offset is a host int or a 0-d device tensor (every batch row writes at
+that position: the single-stream Engine), or an int32 [B] device tensor of
+per-slot positions (continuous batching, runtime/batch_engine.py), where a
+negative entry leaves that slot's rows as they are (the JAX package's rule:
+`offset.ndim == 0` is the scalar path); a forward turns per-slot offsets
+into `SlotRows` once for all its layers.
 """
 
 from __future__ import annotations
@@ -53,6 +60,59 @@ def _seq_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, off,
     dst.narrow(seq_axis, off, n).copy_(new_arr.narrow(seq_axis, 0, n))
 
 
+@dataclass(frozen=True)
+class SlotRows:
+    """Where a per-slot write of T rows per slot goes, computed once a
+    forward (`slot_rows`) and shared by every layer's K, V (and q8 scale)
+    writes: row t of slot b goes to position idx[b, t] where keep[b, t]."""
+
+    idx: torch.Tensor  # [B, T] int64
+    keep: torch.Tensor  # [B, T] bool
+
+
+def slot_rows(offsets: torch.Tensor, T: int, S: int) -> SlotRows:
+    """The rows of a per-slot write of T rows into an S-position cache: row
+    t of slot b at offsets[b] + t where offsets[b] >= 0 and the position is
+    below S (each slot clamped at the context end as `_seq_write` clamps
+    one). A masked entry points at its slot's row offsets[b] − 1 (0 for an
+    idle slot), which no kept entry of that slot writes."""
+    off = offsets.to(torch.int64).reshape(-1, 1)
+    pos = off + torch.arange(T, device=offsets.device)[None]  # [B, T]
+    keep = (off >= 0) & (pos < S)
+    return SlotRows(torch.where(keep, pos, (off - 1).clamp(min=0)), keep)
+
+
+def _slot_write(cache_arr: torch.Tensor, new_arr: torch.Tensor, rows: SlotRows,
+                seq_axis: int, layer: int) -> None:
+    """Per-slot write of `new_arr` [B, ..., T, ...] into layer `layer` of
+    the full cache `cache_arr` [L, B, ..., S, ...], in place, at `rows`;
+    everything else keeps what was there.
+
+    Nothing is read back to the host (a captured decode step runs it): the
+    rows at the write's positions are gathered, blended with the new rows
+    under the mask and scattered back, so a masked entry writes back its
+    row's own value (the scatter's duplicate indices all carry one value)."""
+    dst = cache_arr[layer]
+    shape = [dst.shape[0]] + [1] * (dst.ndim - 1)
+    shape[seq_axis] = new_arr.shape[seq_axis]
+    idx = rows.idx.reshape(shape).expand(new_arr.shape)
+    old = dst.gather(seq_axis, idx)
+    dst.scatter_(seq_axis, idx,
+                 torch.where(rows.keep.reshape(shape), new_arr.to(dst.dtype), old))
+
+
+def _write(cache_arr: torch.Tensor, new_arr: torch.Tensor, offset, seq_axis: int,
+           layer: int) -> None:
+    """A scalar offset through `_seq_write`; per-slot offsets (SlotRows, or
+    an int32 [B] tensor) through `_slot_write`."""
+    if isinstance(offset, torch.Tensor) and offset.ndim == 1:
+        offset = slot_rows(offset, new_arr.shape[seq_axis], cache_arr.shape[seq_axis + 1])
+    if isinstance(offset, SlotRows):
+        _slot_write(cache_arr, new_arr, offset, seq_axis, layer)
+    else:
+        _seq_write(cache_arr, new_arr, offset, seq_axis, layer=layer)
+
+
 @dataclass
 class KVCache:
     k: torch.Tensor  # [n_layer, B, Hkv, S, Dk]
@@ -66,6 +126,15 @@ class KVCache:
         return cls(torch.zeros(shape_k, dtype=dtype, device=device),
                    torch.zeros(shape_v, dtype=dtype, device=device))
 
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    def first_slots(self, n: int) -> "KVCache":
+        """A view of batch rows [0, n): its writes land in this cache (each
+        layer's rows stay contiguous)."""
+        return KVCache(self.k[:, :n], self.v[:, :n])
+
     def kv(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Attention-ready (k, v) views for a layer: [B, Hkv, S, D]."""
         return self.k[layer], self.v[layer]
@@ -73,9 +142,10 @@ class KVCache:
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
                offset) -> "KVCache":
         """Write k/v [B, Hkv, T, D] at sequence position `offset` of `layer`
-        (a host int, or a device tensor at T = 1: `_seq_write`)."""
-        _seq_write(self.k, k_new, offset, seq_axis=2, layer=layer)
-        _seq_write(self.v, v_new, offset, seq_axis=2, layer=layer)
+        (a host int or 0-d device tensor, the latter at T = 1: `_seq_write`;
+        per-slot int32 [B] offsets or their SlotRows: `_slot_write`)."""
+        _write(self.k, k_new, offset, 2, layer)
+        _write(self.v, v_new, offset, 2, layer)
         return self
 
 
@@ -100,6 +170,14 @@ class QuantKVCache:
                    torch.zeros(ss, dtype=torch.float32, device=device),
                    torch.zeros(ss, dtype=torch.float32, device=device))
 
+    @property
+    def max_len(self) -> int:
+        return self.k_q.shape[3]
+
+    def first_slots(self, n: int) -> "QuantKVCache":
+        """A view of batch rows [0, n), as KVCache.first_slots."""
+        return QuantKVCache(self.k_q[:, :n], self.v_q[:, :n], self.k_s[:, :n], self.v_s[:, :n])
+
     @staticmethod
     def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """[..., D] → (int8 codes, f32 scale[...]): amax/127, round half to
@@ -119,10 +197,8 @@ class QuantKVCache:
                offset) -> "QuantKVCache":
         k_q, k_s = self._quantize(k_new)  # [B, Hkv, T, D], [B, Hkv, T]
         v_q, v_s = self._quantize(v_new)
-        _seq_write(self.k_q, k_q, offset, seq_axis=2, layer=layer)
-        _seq_write(self.v_q, v_q, offset, seq_axis=2, layer=layer)
-        _seq_write(self.k_s, k_s, offset, seq_axis=2, layer=layer)
-        _seq_write(self.v_s, v_s, offset, seq_axis=2, layer=layer)
+        for arr, new in ((self.k_q, k_q), (self.v_q, v_q), (self.k_s, k_s), (self.v_s, v_s)):
+            _write(arr, new, offset, 2, layer)
         return self
 
 

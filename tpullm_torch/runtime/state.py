@@ -9,6 +9,10 @@ history and the model's shape. Restore writes into the engine's cache in
 place (`copy_` into its slices), never a new cache object: the engine's
 captured decode graphs hold the cache's buffers (runtime/graph.py).
 
+`save_slot_state` / `load_slot_state` do the same for one slot of a
+BatchEngine (the server's slot save and restore), in the same format: the
+slot's rows [0, n_past[slot]) in place of row 0's.
+
 A q8 cache has no dense K/V to save (the JAX package's QuantKVCache has no
 `.k` either) and raises a ValueError; iSWA and MLA state files wait for
 those caches in the port.
@@ -40,12 +44,10 @@ def _dense_cache(engine):
     return cache
 
 
-def save_state(engine, path, tokens: list[int] | None = None):
-    """Save the engine's sequence state (batch row 0, n_past positions)."""
+def _save_row(engine, row: int, n: int, path, tokens):
     cache = _dense_cache(engine)
-    n = int(engine.n_past)
-    k = cache.k[:, 0, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
-    v = cache.v[:, 0, :, :n].float().cpu().numpy()
+    k = cache.k[:, row, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
+    v = cache.v[:, row, :, :n].float().cpu().numpy()
     np.savez_compressed(
         path, magic=MAGIC, n_past=n, k=k, v=v,
         tokens=np.asarray(tokens if tokens is not None else [], dtype=np.int64),
@@ -54,9 +56,9 @@ def save_state(engine, path, tokens: list[int] | None = None):
     return path
 
 
-def load_state(engine, path) -> list[int]:
-    """Restore a saved sequence into the engine's cache, in place; returns
-    the token prefix."""
+def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
+    """The file's rows written into batch row `row` of the engine's cache,
+    in place; (n_past, tokens)."""
     with np.load(path, allow_pickle=False) as z:
         _check(engine.hp, z)
         n = int(z["n_past"])
@@ -67,10 +69,32 @@ def load_state(engine, path) -> list[int]:
         cache = _dense_cache(engine)
         if n:
             with torch.inference_mode():
-                cache.k[:, 0, :, :n].copy_(torch.from_numpy(z["k"]))
-                cache.v[:, 0, :, :n].copy_(torch.from_numpy(z["v"]))
-        tokens = [int(t) for t in z["tokens"]]
-    engine.n_past = n
+                cache.k[:, row, :, :n].copy_(torch.from_numpy(z["k"]))
+                cache.v[:, row, :, :n].copy_(torch.from_numpy(z["v"]))
+        return n, [int(t) for t in z["tokens"]]
+
+
+def save_state(engine, path, tokens: list[int] | None = None):
+    """Save the engine's sequence state (batch row 0, n_past positions)."""
+    return _save_row(engine, 0, int(engine.n_past), path, tokens)
+
+
+def load_state(engine, path) -> list[int]:
+    """Restore a saved sequence into the engine's cache, in place; returns
+    the token prefix."""
+    engine.n_past, tokens = _load_row(engine, 0, path)
+    return tokens
+
+
+def save_slot_state(bengine, slot: int, path, tokens: list[int] | None = None):
+    """Save one slot of a BatchEngine (its n_past[slot] positions)."""
+    return _save_row(bengine, slot, int(bengine.n_past[slot]), path, tokens)
+
+
+def load_slot_state(bengine, slot: int, path) -> list[int]:
+    """Restore a saved sequence into one slot of a BatchEngine, in place;
+    returns the token prefix."""
+    bengine.n_past[slot], tokens = _load_row(bengine, slot, path)
     return tokens
 
 
