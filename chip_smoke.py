@@ -38,9 +38,11 @@ Phases, in order; any failure raises and exits nonzero:
  3b. batched kernels: the shapes continuous batching gives the kernels,
     each against its plain version and timed as in 3: flash's decode
     regime at B = 4 and 8 slots with idle slots at offset −1 (their rows
-    exactly 0) and kv lengths 20 to 4000, bf16 and q8 caches; qmm at M = 4
-    and 8 (the 8B's Q4_K gate_up and Q6_K down); qmm_gather at 8 and 16
-    routed slots of Mixtral's Q4_K experts;
+    exactly 0) and kv lengths 20 to 4000, and its prefill regime in a joint
+    round of 4 slots (two idle, T = 8 and 512), bf16 and q8 caches; qmm at
+    M = 4 and 8 and qmm_tc at M = 4 × 512 (the 8B's Q4_K gate_up and Q6_K
+    down); qmm_stack at 4 × 512 rows over Mixtral's 8 experts; qmm_gather
+    at 8 and 16 routed slots of Mixtral's Q4_K experts;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -73,8 +75,8 @@ Phases, in order; any failure raises and exits nonzero:
     kernels against a base the dense run records, and the bench sweep
     -p 512 -n 128 -d 0,4096 -ctk bf16,f16,f32,q8_0 -r 3;
  5c. server: continuous batching on the same 8B GGUF: tpullm-torch-server's
-    app (a BatchEngine of 4 slots, context 4096, bf16 cache, its two decode
-    graphs captured on the scheduler's thread) on 127.0.0.1 in this
+    app (a BatchEngine of 4 slots, context 4096, bf16 cache, its decode
+    graph of every width captured on the scheduler's thread) on 127.0.0.1 in this
     process, 8 requests at once through http.client (4 streamed chats and 4
     completions, prompts of 32 to 1024 tokens, 64 to 256 new tokens, greedy
     and seeded): each request's TTFT and rate, the aggregate rate; then the
@@ -97,9 +99,9 @@ Phases, in order; any failure raises and exits nonzero:
     Q6_K in qmm.GROUPED_TYPES, every 2-D launch through qmm_grouped, and a
     profiled 512-token prefill whose every 2-D launch of the layers ran
     qmm_grouped_tc_kernel;
- 8. mixtral: a Mixtral-8x7B Q4_K_M GGUF (≈28 GB, the 8-expert recipe)
-    synthesized from a seed and served the same way with a bf16 KV cache,
-    with the graph phase;
+ 8. mixtral: a Mixtral-8x7B Q4_K_M GGUF with 4 layers (the 8-expert
+    recipe; its Q4_K, Q5_K, Q6_K and Q8_0 tensors) synthesized from a seed
+    and served the same way with a bf16 KV cache, with the graph phase;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dim 96 through the counted dense path;
@@ -750,6 +752,11 @@ def phase_flash(dev, results: dict):
 # the batched shapes of continuous batching (the server phase's paths)
 BATCH_OFFSETS = (-1, 19, -1, 3000, 63, -1, 3999, 500)  # per slot; −1 idle
 SLOT_COUNTS = (4, 8)
+# a joint prefill round of SERVE_SLOTS slots: two fed (one at the start of
+# its prompt, one deep in it), two idle; its buckets' smallest and largest
+ROUND_OFFSETS = (-1, 0, 2500, -1)
+ROUND_TOKENS = (8, 512)
+ROUND_ROWS = 4 * 512  # qmm_tc's and qmm_stack's rows in such a round of full chunks
 
 
 def _held_row(tag: str, key: str, label: str, kernel, plain, library, n_bytes: float,
@@ -779,11 +786,17 @@ def phase_batched_kernels(dev, results: dict, batched: dict):
     """The kernels at the shapes continuous batching gives them, each
     against its plain version: flash's decode regime at B = 4 and 8 slots
     with offsets BATCH_OFFSETS (idle slots at −1: their rows exactly 0;
-    kv lengths 20 to 4000 of S = 4096), bf16 and q8 caches, the 8B's heads;
-    qmm at M = 4 and 8 (the batched decode step) for the 8B's Q4_K gate_up
-    and Q6_K down; qmm_gather at 8 and 16 routed slots (4 and 8 slots'
-    top-2) of Mixtral's Q4_K gate experts. Rows go to `results` (the
-    kernels line's errors) and to `batched` by kernel."""
+    kv lengths 20 to 4000 of S = 4096), and its prefill regime at the
+    joint round's B = SERVE_SLOTS with offsets ROUND_OFFSETS and T = 8 and
+    512 (the smallest bucket and the prefill chunk; idle slots' first rows
+    exactly 0), bf16 and q8 caches, the 8B's heads; qmm at M = 4 and 8 (the
+    batched decode step) and qmm_tc at M = SERVE_SLOTS × 512 (a joint
+    round of full chunks) for the 8B's Q4_K gate_up and Q6_K down;
+    qmm_stack at the same rows over Mixtral's 8 experts (Q4_K gate on the
+    shared x, Q6_K down on each expert's own x, as ops/moe.py feeds them);
+    qmm_gather at 8 and 16 routed slots (4 and 8 slots' top-2) of Mixtral's
+    Q4_K gate experts. Rows go to `results` (the kernels line's errors) and
+    to `batched` by kernel."""
     import torch
 
     from tpullm_torch.gguf.constants import GGMLType
@@ -793,18 +806,22 @@ def phase_batched_kernels(dev, results: dict, batched: dict):
     gen = torch.Generator(dev).manual_seed(5)
     for fmt, key in zip(("bf16", "q8"), ("flash_bf16", "flash_q8")):
         bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
-        for B in SLOT_COUNTS:
-            row = _flash_case(dev, gen, fmt=fmt, B=B, T=1, H=32, Hkv=8, D=128, S=4096,
-                              offsets=BATCH_OFFSETS[:B], timed=True)
-            row["case"] = f"{fmt} T=1 B={B} slots {list(BATCH_OFFSETS[:B])} S=4096"
+        cases = [(1, BATCH_OFFSETS[:B]) for B in SLOT_COUNTS]
+        cases += [(T, ROUND_OFFSETS) for T in ROUND_TOKENS]
+        for T, offsets in cases:
+            B = len(offsets)
+            row = _flash_case(dev, gen, fmt=fmt, B=B, T=T, H=32, Hkv=8, D=128, S=4096,
+                              offsets=offsets, timed=True)
+            row["case"] = (f"{fmt} T={T} B={B} slots {list(offsets)} S=4096"
+                           + (" (joint round)" if T > 1 else ""))
             expect(row["finite"] and row["idle_zero"], f"flash {row['case']}: finite, idle rows 0")
             expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
                    f"flash {row['case']} NMSE {row['nmse']:.3e}, own order "
                    f"{row['nmse_own_order']:.3e} <= {bound}")
             results[key].append(row)
             batched.setdefault(key, []).append(row)
-            log(f"[batched] {key} {row['case']}: nmse {row['nmse']:.2e} (own order "
-                f"{row['nmse_own_order']:.2e}), idle rows 0, kernel {row['ms']:.4f} ms bound "
+            log(f"[batched] {key} {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} (own "
+                f"order {row['nmse_own_order']:.2e}), idle rows 0, kernel {row['ms']:.4f} ms bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain {row['plain_ms']:.3f} ms "
                 f"sdpa {row['library_ms']:.4f} ms")
     for fmt, name, K, N in (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "down", 14336, 4096)):
@@ -812,16 +829,39 @@ def phase_batched_kernels(dev, results: dict, batched: dict):
         planes = _random_planes(gtype, N, K, gen, dev)
         plane_b = sum(t.numel() * t.element_size() for t in planes.values())
         w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
-        for M in SLOT_COUNTS:
+        for M in SLOT_COUNTS + (ROUND_ROWS,):
+            tc = M >= qmm.TC_MIN_M
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            row = _held_row("batched", key, f"{fmt} {name} M={M}",
+            row = _held_row("batched", "qmm_tc" if tc else key, f"{fmt} {name} M={M}",
                             lambda x=x: qmm.qmm(x, planes, gtype, N, K),
                             lambda x=x: qmm.qmm_reference(x, planes, gtype, N, K),
                             lambda x=x: torch.matmul(x, w_lib),
-                            M * K * 2 + plane_b + M * N * 2, 2.0 * M * K * N, 20)
-            results[key].append(row)
-            batched.setdefault(key, []).append(row)
-        del planes, w_lib
+                            M * K * 2 + plane_b + M * N * 2, 2.0 * M * K * N, 5 if tc else 20)
+            results["qmm_tc" if tc else key].append(row)
+            batched.setdefault("qmm_tc" if tc else key, []).append(row)
+        del planes, w_lib, x
+    M = ROUND_ROWS
+    for fmt, (name, K, N), shared in (("Q4_K", EXPERT_SHAPES[0], True),
+                                      ("Q6_K", EXPERT_SHAPES[1], False)):
+        gtype = GGMLType[fmt]
+        planes = _random_stack(gtype, N, K, gen, dev)
+        expert_b = sum(t.numel() * t.element_size() for t in planes.values()) / N_EXPERT
+        w_lib = torch.stack([qmatmul.dequant_planes({k: v[e] for k, v in planes.items()},
+                                                    gtype, N, K, dtype=torch.bfloat16)
+                             for e in range(N_EXPERT)])
+        x = torch.randn(*((M, K) if shared else (N_EXPERT, M, K)), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        row = _held_row("batched", "qmm_stack", f"{fmt} {name} M={M} (joint round) "
+                        f"{'shared' if shared else 'batched'}",
+                        lambda: qmm.qmm_stack(x, planes, gtype, N, K),
+                        lambda: qmm.qmm_stack_reference(x, planes, gtype, N, K),
+                        lambda: torch.matmul(x, w_lib),
+                        x.numel() * 2 + N_EXPERT * expert_b + N_EXPERT * M * N * 2,
+                        2.0 * N_EXPERT * M * K * N, 3)
+        results["qmm_stack"].append(row)
+        batched.setdefault("qmm_stack", []).append(row)
+        del planes, w_lib, x
+        torch.cuda.empty_cache()
     name, K, N = EXPERT_SHAPES[0]
     gtype = GGMLType.Q4_K
     planes = _random_stack(gtype, N, K, gen, dev)
@@ -2011,7 +2051,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     thread at start) on 127.0.0.1 in this process, SERVE_BURST sent at
     once through http.client (each request's TTFT and rate, the aggregate
     generated rate); then on the same engine the graph's ms a step at 1, 2
-    and 4 slots generating (greedy ids; at 4 also the logits variant), the
+    and 4 slots generating (ids read back; at 4 also the logits), the
     launches a replay, a profiled step by kernel family, and the batched
     logits teacher-forced against the single-stream Engine; a q8-cache
     engine at 4 slots for SERVE_STEPS steps; Mixtral Q4_K_M with 4 layers at
@@ -2038,8 +2078,8 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
         sched.precompile(background=False)
         out["capture_s"] = time.perf_counter() - t0
         expect(all(r.graph is not None for r in eng._runners.values())
-               and len(eng._runners) == 2 * SERVE_SLOTS,
-               "both decode graphs at every width captured on the scheduler's thread")
+               and len(eng._runners) == SERVE_SLOTS,
+               "the decode graph of every width captured on the scheduler's thread")
         results, wall = _burst(httpd.server_address[1], eng.tokenizer)
     finally:
         httpd.shutdown()
@@ -2070,11 +2110,10 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
         f"graphs captured in {out['capture_s']:.2f} s")
 
     want = _batch_launches(eng)
-    for (greedy, width), r in sorted(eng._runners.items()):
+    for width, r in sorted(eng._runners.items()):
         one = r.launches_per_replay()
-        log(f"[server] launches per replay ({'greedy' if greedy else 'logits'} variant, "
-            f"width {width}): {one}; capture {r.capture_s:.3f} s, pool "
-            f"{r.pool_bytes / 2**20:.1f} MiB")
+        log(f"[server] launches per replay (width {width}): {one}; capture "
+            f"{r.capture_s:.3f} s, pool {r.pool_bytes / 2**20:.1f} MiB")
         expect(one == want, f"server: launches per replay {one} = one forward's {want}")
     out["launches_per_replay"] = want
     prompt = _word_ids(eng.tokenizer, 128)
@@ -2085,7 +2124,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     log(f"[server] batched graph, ms a step by active slots 0..n−1 (greedy ids, 128-token "
         f"prompts): {out['step_ms']} → {out['agg_tok_s']} tok/s in aggregate; one slot "
         f"active in the last slot (the full width) {out['step_ms_last_slot']:.3f} ms; the "
-        f"logits variant at 4 slots ([4, V] read back) {out['step_ms_logits_4']:.3f} ms")
+        f"logits read back at 4 slots ([4, V]) {out['step_ms_logits_4']:.3f} ms")
     out["profile"] = _profile_step(eng, prompt)
     busy = sum(out["profile"].values())
     log(f"[server] profiled step at {eng.n_slots} slots, device ms by family "
@@ -2102,7 +2141,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
 
     q8 = BatchEngine(path, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, kv_dtype="q8_0")
     q8_ms = _step_ms(q8, range(SERVE_SLOTS), prompt)
-    one = q8.runner(True, SERVE_SLOTS).launches_per_replay()
+    one = q8.runner(SERVE_SLOTS).launches_per_replay()
     expect(one == _batch_launches(q8), f"q8 server engine: launches per replay {one}")
     ids = q8.decode_batch_greedy({s: 7 for s in range(SERVE_SLOTS)})
     expect(all(0 <= t < q8.hp.n_vocab for t in ids.values()), "q8 ids in range")
@@ -2129,7 +2168,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     out["mixtral"] = teacher_forced("server-mixtral", meng, msingle,
                                     [_word_ids(meng.tokenizer, n) for n in (33, 100, 250, 500)],
                                     SERVE_STEPS)
-    one = meng.runner(False, SERVE_SLOTS).launches_per_replay()
+    one = meng.runner(SERVE_SLOTS).launches_per_replay()
     expect(one == _batch_launches(meng), f"mixtral batched step: launches per replay {one}")
     out["mixtral"]["step_ms"] = _step_ms(meng, range(SERVE_SLOTS),
                                          _word_ids(meng.tokenizer, 64))
@@ -2249,11 +2288,12 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
 
 
 def phase_mixtral(tmp: Path, launches: dict) -> dict:
-    """Mixtral-8x7B Q4_K_M (the 8-expert recipe) at full width and depth,
-    with a bf16 KV cache."""
+    """Mixtral-8x7B Q4_K_M (the 8-expert recipe) at full width with 4
+    layers (cut from 32 to keep the run in its time), with a bf16 KV
+    cache."""
     import torch
 
-    path = synthesize(tmp, "mixtral", "mixtral-8x7b", "Q4_K_M")
+    path = synthesize(tmp, "mixtral", "mixtral-8x7b", "Q4_K_M", n_layer=4)
     run = serve("mixtral", path, torch.bfloat16, launches, graph=True)
     expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0
            and run["launches"]["qmm_q5k"] > 0 and run["launches"]["qmm_q8_0"] > 0,

@@ -139,14 +139,15 @@ def test_step_width_follows_the_highest_slot(paths):
     for e in (a, b):
         e.prefill_slots({0: [1, 5, 9, 2, 7], 2: [3, 8, 4]})
     got = a.decode_batch({0: 11})[0]
-    assert list(a._runners) == [(False, 1)]
+    assert list(a._runners) == [1]
     before = b.cache.k[:, 1:].clone()
     with torch.inference_mode():
-        full = b.runner(False, SLOTS).run(b._inputs({0: 11}, SLOTS))[0].numpy()
-    assert _nmse(got, full) <= 1e-10
+        full = b.runner(SLOTS)
+        full.run(b._inputs({0: 11}, SLOTS))
+    assert _nmse(got, full.logits[0].numpy()) <= 1e-10
     assert torch.equal(b.cache.k[:, 1:], before)
     a.decode_batch_greedy({0: 12, 2: 13})
-    assert set(a._runners) == {(False, 1), (True, 3)}
+    assert set(a._runners) == {1, 3}
 
 
 def test_joint_prefill_equals_sequential(paths):
@@ -329,19 +330,51 @@ class _Calls(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("kv", ["bf16", "q8_0"])
-@pytest.mark.parametrize("greedy", [False, True])
-def test_batched_step_reads_nothing_back(paths, kv, greedy):
+@pytest.mark.parametrize("width", [1, SLOTS])
+def test_batched_step_reads_nothing_back(paths, kv, width):
     """One step of the batched runner (what the card captures as a graph)
-    with slots idle and active: no aten call that reads a value back to
-    the host."""
+    at a width below the slot count (a view of the first slots' cache) and
+    at the full width, with slots idle and active: no aten call that reads
+    a value back to the host."""
     e = _port(paths["tiny"], kv_dtype=kv)
     e.prefill_slots({0: [1, 5, 9], 2: [3, 8]})
-    runner = e.runner(greedy, SLOTS)
-    runner.inputs.copy_(e._inputs({0: 11, 2: 12}, SLOTS))
+    runner = e.runner(width)
+    runner.inputs.copy_(e._inputs({0: 11, 2: 12} if width == SLOTS else {0: 11}, width))
     with torch.inference_mode(), _Calls() as mode:
         runner.step()
     assert len(mode.calls) > 100
     assert not [c for c in mode.calls if any(h in c for h in HOST_READS)]
+
+
+def test_batched_bench_rows_match_the_jax_tool(paths, capsys, monkeypatch):
+    """tpullm-torch-batched-bench on the CPU: the JAX tool's grid of rows
+    and their keys for the same arguments, every rate positive, and the
+    decode step of every width made before the first timed case."""
+    import json
+
+    from tpullm.tools.batched_bench import main as jax_main
+
+    from tpullm_torch.tools import batched_bench
+
+    argv = ["-m", str(paths["tiny-1l"]), "-npp", "8", "-ntg", "4", "-npl", "1,2", "-c", "64",
+            "--mode", "dense", "-o", "json"]
+    widths = []
+    run_case = batched_bench.run_case
+
+    def spy(eng, pp, tg, b):
+        widths.append(sorted(eng._runners))
+        return run_case(eng, pp, tg, b)
+
+    monkeypatch.setattr(batched_bench, "run_case", spy)
+    assert batched_bench.main(argv + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert jax_main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert [(r["pp"], r["tg"], r["b"]) for r in got] == [(r["pp"], r["tg"], r["b"])
+                                                         for r in want] == [(8, 4, 1), (8, 4, 2)]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert all(r["pp_ts"] > 0 and r["tg_ts"] > 0 for r in got)
+    assert widths == [[1, 2], [1, 2]]
 
 
 def test_not_ported_paths_raise(paths):

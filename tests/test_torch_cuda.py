@@ -1026,11 +1026,11 @@ def test_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path, shape, kv):
     feed = {0: 7, 1: 8, 3: 9}
     assert gpu.decode_batch_greedy(feed) == cpu.decode_batch_greedy(feed)
     per = _forward_launches(gpu.params)
-    one = gpu.runner(False, 4).launches_per_replay()
+    one = gpu.runner(4).launches_per_replay()
     assert one["qmm"] == per["qmm"] and one["flash_decode"] == per["flash"]
     assert one["qmm_gather"] == per["experts"] and one["qmm_tc"] == 0
-    assert gpu.runner(False, 4).replays == 1 and gpu.runner(True, 4).graph is not None
-    assert gpu.runner(False, 2).graph is not None  # {1: 18}: the step of the first 2 slots
+    assert gpu.runner(4).replays == 2  # captured at the first step, then two replays
+    assert gpu.runner(2).graph is not None  # {1: 18}: the step of the first 2 slots
 
 
 def test_batched_graph_ids_equal_the_eager_step(dev, tmp_path):
@@ -1046,7 +1046,7 @@ def test_batched_graph_ids_equal_the_eager_step(dev, tmp_path):
              {0: 20, 3: 21}]
     a.prefill_slot(1, [1, 2])
     b.prefill_slot(1, [1, 2])
-    runner = b.runner(True, 4)
+    runner = b.runner(4)
     for feed in feeds:
         got = a.decode_batch_greedy(feed)
         runner.inputs.copy_(b._inputs(feed, 4))
@@ -1055,7 +1055,7 @@ def test_batched_graph_ids_equal_the_eager_step(dev, tmp_path):
         for s in feed:
             b.n_past[s] += 1
         assert got == {s: int(runner.ids[s]) for s in feed}
-    assert a.runner(True, 4).replays == 2 and runner.graph is None
+    assert a.runner(4).replays == 2 and runner.graph is None
 
 
 def test_server_on_the_card(dev, tmp_path):
@@ -1073,7 +1073,7 @@ def test_server_on_the_card(dev, tmp_path):
     httpd = serve(app, "127.0.0.1", 0)
     try:
         sched.precompile(background=False)
-        assert len(sched.engine._runners) == 4  # two variants, widths 1 and 2
+        assert len(sched.engine._runners) == 2  # one graph a width: 1 and 2
         assert all(r.graph is not None for r in sched.engine._runners.values())
         port = httpd.server_address[1]
         for path_, body in (("/v1/completions", {"prompt": "the quick", "max_tokens": 6,

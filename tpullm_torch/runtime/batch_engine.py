@@ -11,9 +11,9 @@ outputs are ignored.
 The decode step runs on static device buffers (runtime/graph.py
 `BatchRunner`): on the card one forward over the first `width` slots (the
 highest generating slot's index + 1; the scheduler fills the lowest free
-slot first) captured as a CUDA graph per width and replayed a step, in two
-variants, logits ([width, V] read back, `decode_batch`) and greedy ids
-([width], `decode_batch_greedy`).
+slot first) captured as a CUDA graph per width and replayed a step; it
+writes both the logits [width, V] (read back by `decode_batch`) and their
+argmax ids [width] (read back by `decode_batch_greedy`).
 The cache is written in place by every path here (prefill rounds, the
 decode step, `shift_slot`, slot state files), so the graphs stay valid for
 the engine's life; `drop_graphs` releases them.
@@ -79,31 +79,30 @@ class BatchEngine:
         # per-slot RoPE position offset against the cache slot count (the
         # JAX package's M-RoPE image grids; 0 here until mtmd is ported)
         self.rope_delta = np.zeros(n_slots, dtype=np.int32)
-        self._runners: dict[tuple[bool, int], BatchRunner] = {}  # (greedy, width) → runner
+        self._runners: dict[int, BatchRunner] = {}  # width → runner
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
 
     # -- graphs ------------------------------------------------------------------
 
-    def runner(self, greedy: bool, width: int) -> BatchRunner:
-        """The engine's batched decode step over its first `width` slots,
-        logits or greedy ids (its CUDA graph is captured at its first run,
-        on the calling thread)."""
-        r = self._runners.get((greedy, width))
+    def runner(self, width: int) -> BatchRunner:
+        """The engine's batched decode step over its first `width` slots
+        (its CUDA graph is captured at its first run, on the calling
+        thread)."""
+        r = self._runners.get(width)
         if r is None:
-            r = self._runners[greedy, width] = BatchRunner(self, greedy, width)
+            r = self._runners[width] = BatchRunner(self, width)
         return r
 
     def precompile(self):
-        """Captures every decode graph (both variants at every width) ahead
+        """Captures every decode graph (one a width) ahead
         of the first request (the JAX package compiles its programs here):
         one step with every slot idle, which writes no cache row. Call it
         on the thread that will decode."""
         with torch.inference_mode():
-            for greedy in (True, False):
-                for width in range(1, self.n_slots + 1):
-                    self.runner(greedy, width).run(self._inputs({}, width))
+            for width in range(1, self.n_slots + 1):
+                self.runner(width).run(self._inputs({}, width))
 
     def drop_graphs(self):
         """Releases the decode graphs (and their memory pools); the next
@@ -291,7 +290,9 @@ class BatchEngine:
         t0 = time.perf_counter()
         width = max(tokens) + 1
         with torch.inference_mode():
-            ids = self.runner(True, width).run(self._inputs(tokens, width)).tolist()
+            r = self.runner(width)
+            r.run(self._inputs(tokens, width))
+            ids = r.ids.tolist()
         out = {}
         for slot in tokens:
             self.n_past[slot] += 1
@@ -305,8 +306,9 @@ class BatchEngine:
         t0 = time.perf_counter()
         width = max(tokens) + 1
         with torch.inference_mode():
-            logits = self.runner(False, width).run(self._inputs(tokens, width))
-            logits = logits.to("cpu", copy=True).numpy()
+            r = self.runner(width)
+            r.run(self._inputs(tokens, width))
+            logits = r.logits.to("cpu", copy=True).numpy()
         out = {}
         for slot in tokens:
             self.n_past[slot] += 1

@@ -32,9 +32,9 @@ keeps no count of its own.
 one forward at per-slot offsets, −1 for an idle slot, read from static
 buffers (tokens, positions and offsets in one int32 [3, width] buffer, so
 the host loads them with one copy), against a view of those slots' cache
-rows; it writes the f32 logits [width, V] (BatchEngine.decode_batch) or,
-in its greedy variant, the argmax ids [width]
-(BatchEngine.decode_batch_greedy). A step runs at the width of the highest
+rows; it writes the f32 logits [width, V] (which BatchEngine.decode_batch
+reads back) and their argmax ids [width] (BatchEngine.decode_batch_greedy).
+A step runs at the width of the highest
 generating slot, so the rows computed follow the load. Its graph is
 captured, and replayed, on the thread that calls it (the server's
 scheduler thread).
@@ -85,9 +85,9 @@ class _CapturedStep:
     """One step of `engine` on static device buffers (`step`, written by a
     subclass); on the card captured as a CUDA graph on the runner's own
     stream at its first run, after one eager step on that stream, and
-    replayed once a step; on the CPU run eagerly."""
-
-    capture_mode = "global"  # torch.cuda.graph's capture_error_mode
+    replayed once a step; on the CPU run eagerly. The capture's error mode
+    is the thread's own, so a server's other threads are not drawn into
+    it."""
 
     def __init__(self, engine):
         dev = engine.device
@@ -119,7 +119,7 @@ class _CapturedStep:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(g, stream=self.stream, capture_error_mode=self.capture_mode):
+            with torch.cuda.graph(g, stream=self.stream, capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)
                 self.step()
         finally:
@@ -242,24 +242,19 @@ class BatchRunner(_CapturedStep):
     """One batched decode step of a BatchEngine's first `width` slots on
     static device buffers: `inputs` int32 [3, width] holds each slot's
     token, RoPE position and cache offset (−1: idle, its cache rows
-    untouched); the step writes the f32 logits [width, V] into `logits`,
-    or with `greedy` their argmax into `ids` (the first index on ties, as
-    the JAX package's argmax). On the card one step captured as a CUDA
-    graph and replayed; the capture's error mode is the thread's own, so a
-    server's other threads are not drawn into it."""
+    untouched); the step writes the f32 logits [width, V] into `logits`
+    and their argmax into `ids` (the first index on ties, as the JAX
+    package's argmax), and the host reads back the one it needs. On the
+    card one step captured as a CUDA graph and replayed."""
 
-    capture_mode = "thread_local"
-
-    def __init__(self, engine, greedy: bool, width: int):
+    def __init__(self, engine, width: int):
         super().__init__(engine)
         dev = engine.device
-        self.greedy, self.width = greedy, width
+        self.width = width
         self.inputs = torch.zeros(3, width, dtype=torch.int32, device=dev)
         self.inputs[2].fill_(-1)
-        if greedy:
-            self.ids = torch.zeros(width, dtype=torch.int64, device=dev)
-        else:
-            self.logits = torch.zeros(width, engine.hp.n_vocab, dtype=torch.float32, device=dev)
+        self.ids = torch.zeros(width, dtype=torch.int64, device=dev)
+        self.logits = torch.zeros(width, engine.hp.n_vocab, dtype=torch.float32, device=dev)
 
     def step(self) -> None:
         """One decode step of the slots on the buffers (nothing read back)."""
@@ -268,15 +263,12 @@ class BatchRunner(_CapturedStep):
         tokens, positions, offsets = self.inputs[0], self.inputs[1], self.inputs[2]
         logits, _ = e.arch.forward(e.hp, e.params, tokens.long().reshape(B, 1),
                                    positions.reshape(B, 1), cache, offsets)
-        if self.greedy:
-            self.ids.copy_(torch.argmax(logits[:, 0], dim=-1))
-        else:
-            self.logits.copy_(logits[:, 0])
+        self.logits.copy_(logits[:, 0])
+        self.ids.copy_(torch.argmax(self.logits, dim=-1))
 
-    def run(self, inputs: torch.Tensor) -> torch.Tensor:
+    def run(self, inputs: torch.Tensor) -> None:
         """One step from `inputs` (an int32 [3, width] host tensor: tokens,
-        positions, offsets); the runner's `ids` or `logits` buffer, valid
-        until its next run."""
+        positions, offsets); the runner's `ids` and `logits` buffers hold
+        its output until its next run."""
         self.inputs.copy_(inputs)
         self._steps(1)
-        return self.ids if self.greedy else self.logits

@@ -2,7 +2,8 @@
 package's tools/batched_bench.py, ≡ llama-batched-bench), on the port's
 BatchEngine: for each (PP, TG, B), B slots prefill PP tokens each in joint
 rounds, then decode TG steps with all B slots in one batched step (the
-greedy decode graph); per-phase and total t/s.
+decode graph of width B, captured before the first case, so no timed
+window holds a capture); per-phase and total t/s.
 
     tpullm-torch-batched-bench -m model.gguf -npp 128 -ntg 64 -npl 1,2,4,8
 
@@ -73,6 +74,7 @@ def main(argv=None):
     n_slots = max(args.npl)
     eng = BatchEngine(args.model, device=args.device, n_slots=n_slots,
                       max_seq=args.ctx_size, mode=args.mode)
+    eng.precompile()  # every width's decode graph, captured before any timed step
     rows = []
     for pp in args.npp:
         for tg in args.ntg:
