@@ -43,6 +43,13 @@ Phases, in order; any failure raises and exits nonzero:
     M = 4 and 8 and qmm_tc at M = 4 × 512 (the 8B's Q4_K gate_up and Q6_K
     down); qmm_stack at 4 × 512 rows over Mixtral's 8 experts; qmm_gather
     at 8 and 16 routed slots of Mixtral's Q4_K experts;
+ 3c. verify kernels: the shapes speculative verification gives the
+    kernels, each against its plain version and timed as in 3: flash at
+    B = 1, offset 2500, T = 1 and 4 (the decode regime) and T = 8 (the
+    verify bucket of the cli's --draft-max 5: the prefill regime), and at
+    4 slots × 9 rows (the server's --draft-max 8) with offsets (−1, 0,
+    2500, 100), bf16 and q8 caches; qmm at M = 8 and 9 and qmm_tc at M = 36
+    (the 8B's Q4_K gate_up and Q6_K down);
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -88,6 +95,21 @@ Phases, in order; any failure raises and exits nonzero:
     layers at 4 slots (a joint prefill round and 32 batched steps
     teacher-forced on its Engine, the gather regime); and
     tpullm-torch-batched-bench -npp 128 -ntg 64 -npl 1,2,4,8 on the 8B;
+ 5d. speculative: on the same 8B GGUF, generate_speculative with the
+    n-gram speculator (--draft-max 5), greedy, 128 tokens after a
+    repetitive 256-token prompt, bf16 and q8 caches, and with a draft
+    Engine on the same file (acceptance ≥ 0.9): the ids against the plain
+    graph decode's, the verify rows teacher-forced against decode_step's
+    (NMSE ≤ 1e-3, where the argmax parts and its margin), every round a
+    replay of the verify graph with one forward's launches and no eager
+    forward on the target or the draft but their prompts' and their graphs'
+    first runs, rounds, drafts, acceptance, a verify replay's ms against a
+    decode replay's and tok/s against the plain graph decode; the server's
+    app at 4 slots plain, with --spec-type ngram_simple and with a draft
+    model (--draft-max 8), 4 greedy completions at once: the same texts,
+    the /metrics counters, each verify graph's launches a replay and one
+    verify step's read around it, a verify step's ms against a decode
+    step's; tpullm-torch-lookup create, stats and run;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
     16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
@@ -2201,6 +2223,494 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     return out
 
 
+# the verify shapes: single-stream verification at the cli's --draft-max 5
+# (6 tokens in the prefill bucket of VERIFY_T rows) deep in the context, and
+# a batched verify of SERVE_SLOTS slots × VERIFY_ROWS (the server's
+# --draft-max 8 + 1) with an idle slot and a slot at the start of its cache
+VERIFY_T = 8
+VERIFY_OFFSET = 2500
+VERIFY_ROWS = 9
+VERIFY_OFFSETS = (-1, 0, 2500, 100)
+SPEC_DRAFT = 5  # the cli's --draft-max default
+SPEC_SERVER_DRAFT = 8  # the server's --draft-max default
+SPEC_TOKENS = 128  # greedy tokens of each single-stream run
+SPEC_PROMPT = 256  # word tokens of its prompt (the words repeat: n-grams recur)
+SPEC_TIMED = 20  # calls a replay timing
+# the server's requests: (prompt words, max_tokens), sent at once, greedy
+SPEC_REQUESTS = ((31, 128), (120, 128), (300, 96), (700, 64))
+
+
+def phase_verify_kernels(dev, results: dict, verify: dict):
+    """The kernels at the shapes speculative verification gives them, each
+    against its plain version: flash at B = 1 and offset VERIFY_OFFSET for
+    T = 1 and 4 (the decode regime: 4 × 32/8 = 16 query rows a KV head)
+    and T = VERIFY_T (the prefill regime), and at B = SERVE_SLOTS, T =
+    VERIFY_ROWS with offsets VERIFY_OFFSETS (an idle slot: its rows exactly
+    0), bf16 and q8 caches, the 8B's heads, S = 4096; qmm at M = VERIFY_T
+    and VERIFY_ROWS (CUDA cores) and qmm_tc at M = SERVE_SLOTS ×
+    VERIFY_ROWS for the 8B's Q4_K gate_up and Q6_K down. Rows go to
+    `results` (the kernels line's errors) and to `verify` by kernel."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import qmm
+
+    gen = torch.Generator(dev).manual_seed(13)
+    for fmt, key in zip(("bf16", "q8"), ("flash_bf16", "flash_q8")):
+        bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+        for T, offsets in ((1, (VERIFY_OFFSET,)), (4, (VERIFY_OFFSET,)),
+                           (VERIFY_T, (VERIFY_OFFSET,)), (VERIFY_ROWS, VERIFY_OFFSETS)):
+            row = _flash_case(dev, gen, fmt=fmt, B=len(offsets), T=T, H=32, Hkv=8, D=128,
+                              S=4096, offsets=offsets, timed=True)
+            row["case"] = f"{fmt} T={T} B={len(offsets)} offsets {list(offsets)} S=4096 (verify)"
+            expect(row["finite"] and row["idle_zero"], f"flash {row['case']}: finite, idle rows 0")
+            expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                   f"flash {row['case']} NMSE {row['nmse']:.3e}, own order "
+                   f"{row['nmse_own_order']:.3e} <= {bound}")
+            results[key].append(row)
+            verify.setdefault(key, []).append(row)
+            log(f"[verify] {key} {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} (own "
+                f"order {row['nmse_own_order']:.2e}), kernel {row['ms']:.4f} ms bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain {row['plain_ms']:.3f} ms "
+                f"sdpa {row['library_ms']:.4f} ms")
+    for fmt, name, K, N in (("Q4_K", "gate_up", 4096, 28672), ("Q6_K", "down", 14336, 4096)):
+        gtype, key = GGMLType[fmt], QMM_KEYS[fmt]
+        planes = _random_planes(gtype, N, K, gen, dev)
+        plane_b = sum(t.numel() * t.element_size() for t in planes.values())
+        w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
+        for M in (VERIFY_T, VERIFY_ROWS, SERVE_SLOTS * VERIFY_ROWS):
+            tc = M >= qmm.TC_MIN_M
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            row = _held_row("verify", "qmm_tc" if tc else key, f"{fmt} {name} M={M} (verify)",
+                            lambda x=x: qmm.qmm(x, planes, gtype, N, K),
+                            lambda x=x: qmm.qmm_reference(x, planes, gtype, N, K),
+                            lambda x=x: torch.matmul(x, w_lib),
+                            M * K * 2 + plane_b + M * N * 2, 2.0 * M * K * N, 20)
+            results["qmm_tc" if tc else key].append(row)
+            verify.setdefault("qmm_tc" if tc else key, []).append(row)
+        del planes, w_lib, x
+    torch.cuda.empty_cache()
+
+
+def verify_launches(eng, rows: int, T: int) -> dict:
+    """The launches one verify forward of `rows` rows in all (T a slot)
+    makes, by COUNT_NAMES: every 2-D qmm, the head on every row among
+    them, on the tensor cores from TC_MIN_M rows and on CUDA cores below;
+    each expert stack gathered up to the gather threshold; flash once a
+    layer, in the regime T·H/Hkv picks."""
+    from tpullm_torch.ops import moe
+    from tpullm_torch.ops.kernels import flash, qmm
+
+    per = per_forward_launches(eng.params)
+    tc = rows >= qmm.TC_MIN_M
+    stack = rows > moe._GATHER_MAX_TOKENS
+    decode = flash.regime(T, eng.hp.n_head, eng.hp.n_head_kv) == "decode"
+    return {"qmm": 0 if tc else per["qmm"], "qmm_tc": per["qmm"] if tc else 0,
+            "qmm_stack": per["experts"] if stack else 0,
+            "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
+            "dequant_routes": 0, "flash": per["flash"],
+            "flash_decode": per["flash"] if decode else 0, "attn_dense_routes": 0}
+
+
+def count_forwards(eng):
+    """A context manager: the forwards `eng` runs in Python meanwhile (an
+    eager step, or a graph's capture; a replay runs none), as a list of
+    their token shapes."""
+    import contextlib
+    import dataclasses
+
+    @contextlib.contextmanager
+    def counting():
+        calls, arch = [], eng.arch
+
+        def forward(*a, **kw):
+            calls.append(tuple(a[2].shape))
+            return arch.forward(*a, **kw)
+
+        eng.arch = dataclasses.replace(arch, forward=forward)
+        try:
+            yield calls
+        finally:
+            eng.arch = arch
+    return counting()
+
+
+def spec_teacher_forced(label: str, eng, prompt: list[int], out: list[int],
+                        plain: list[int], k: int) -> dict:
+    """The speculative run's ids `out` fed teacher-forced after `prompt`
+    twice: a decode_step a token (the plain path's logits), and in verify
+    forwards of k + 1 tokens (the speculative path's shape); every verify
+    row held against its decode_step row within SERVE_NMSE_BOUND. Reports
+    the rows whose argmax part, and the first position where `out` parts
+    from the plain greedy ids `plain`, each with the decode_step row's
+    top-2 margin."""
+    eng.reset()
+    first = eng.prefill(prompt)
+    dec = [first] + [eng.decode_step(t) for t in out[:-1]]
+    eng.reset()
+    eng.prefill(prompt)
+    ver = [first]
+    for i in range(0, len(out) - 1, k + 1):
+        ver.extend(eng.verify_logits(out[i:i + k + 1][: len(out) - 1 - i]))
+    worst, parted = 0.0, []
+
+    def margin(row):
+        top2 = np.sort(row)[-2:]
+        return float(top2[1] - top2[0])
+
+    for step, (v, d) in enumerate(zip(ver, dec)):
+        worst = max(worst, float(np.mean((v.astype(np.float64) - d) ** 2)
+                                 / np.mean(d.astype(np.float64) ** 2)))
+        if int(np.argmax(v)) != int(np.argmax(d)):
+            parted.append(dict(step=step, margin=margin(d)))
+    first_diff = next((i for i, (a, b) in enumerate(zip(out, plain)) if a != b), None)
+    res = dict(worst_nmse=worst, rows=len(ver), parted=parted, ids_equal=out == plain,
+               first_diff=first_diff,
+               first_diff_margin=margin(dec[first_diff]) if first_diff is not None else None)
+    log(f"[{label}] teacher-forced on the speculative ids: {len(ver)} verify rows against "
+        f"decode_step's, worst NMSE {worst:.2e} (bound {SERVE_NMSE_BOUND}); argmax parted at "
+        f"{parted}; ids equal to plain greedy: {out == plain}"
+        + (f" (first parting at {first_diff}, top-2 margin {res['first_diff_margin']:.4g})"
+           if first_diff is not None else ""))
+    expect(worst <= SERVE_NMSE_BOUND, f"{label}: verify rows against decode_step's, NMSE "
+           f"{worst:.3e} <= {SERVE_NMSE_BOUND}")
+    return res
+
+
+def _replay_ms(eng, prompt: list[int], k: int) -> dict:
+    """At n_past = len(prompt): the verify graph of k + 1 tokens (its
+    bucket) and the logits graph of one token, each as the host calls it
+    (run(): inputs loaded, one replay; wall ms) and as a bare replay on the
+    device (CUDA events around SPEC_TIMED replays)."""
+    import torch
+
+    eng.reset()
+    eng.prefill(prompt)
+    n = eng.n_past
+    vr, lr = eng.verify_runner(eng._bucket(k + 1)), eng.logits_runner()
+    seq = prompt[-(k + 1):]
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPEC_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SPEC_TIMED
+
+    def device(graph):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(SPEC_TIMED):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / SPEC_TIMED
+
+    with torch.inference_mode():
+        out = dict(verify_wall_ms=wall(lambda: vr.run(seq, n)),
+                   decode_wall_ms=wall(lambda: lr.run(seq[0], n)))
+        out.update(verify_device_ms=device(vr.graph), decode_device_ms=device(lr.graph),
+                   verify_rows=vr.rows)
+    eng.reset()
+    return out
+
+
+def _spec_run(label: str, eng, spec, prompt: list[int], plain: list[int], plain_s: float,
+              draft=None) -> dict:
+    """One timed generate_speculative of SPEC_TOKENS greedy tokens (its
+    graphs captured by a warm-up run before): ids against the plain greedy
+    ids (teacher-forced where they part), the verify rounds as replays of
+    the target's verify graph (one forward's launches each), no eager
+    forward on the target but its prompt's, none on the draft but its
+    prompt's and its graphs' first runs."""
+    import contextlib
+
+    import torch
+
+    from tpullm_torch.runtime.speculative import generate_speculative
+
+    eng.reset()
+    replays = {r: v.replays for r, v in eng._verify_runners.items()}
+    d_runners = (len(draft._runners) + len(draft._verify_runners)
+                 + (draft._logits_runner is not None)) if draft is not None else 0
+    with count_forwards(eng) as t_fw, (count_forwards(draft) if draft is not None
+                                       else contextlib.nullcontext([])) as d_fw:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = generate_speculative(eng, spec, prompt, SPEC_TOKENS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    new = sum(r not in replays for r in eng._verify_runners)
+    done = sum(v.replays - replays.get(r, 0) for r, v in eng._verify_runners.items()) + new
+    expect(st.n_rounds - 1 <= done <= st.n_rounds,
+           f"{label}: {done} verify forwards for {st.n_rounds} rounds")
+    expect(len(t_fw) <= 1 + 2 * new,
+           f"{label}: the target's forwards in Python {len(t_fw)} (its prompt, and the first "
+           f"run and capture of {new} new verify graphs)")
+    if draft is not None:
+        d_new = (len(draft._runners) + len(draft._verify_runners)
+                 + (draft._logits_runner is not None)) - d_runners
+        expect(len(d_fw) <= 1 + 2 * d_new,
+               f"{label}: the draft's forwards in Python {len(d_fw)} (its prompt, and the first "
+               f"run and capture of {d_new} new graphs) over {st.n_rounds} rounds")
+    for rows, r in eng._verify_runners.items():
+        want = verify_launches(eng, rows, rows)
+        expect(r.graph is not None and r.launches_per_replay() == want,
+               f"{label}: verify graph of {rows} rows launches {r.launches_per_replay()} a "
+               f"replay = one forward's {want}")
+    tf = spec_teacher_forced(label, eng, prompt, out, plain, spec.n_draft)
+    res = dict(rounds=st.n_rounds, drafted=st.n_drafted, accepted=st.n_accepted,
+               accept_rate=st.accept_rate, generated=len(out), seconds=secs,
+               tok_s=len(out) / secs, plain_tok_s=len(plain) / plain_s, teacher=tf,
+               target_python_forwards=len(t_fw),
+               draft_python_forwards=len(d_fw) if draft is not None else None)
+    log(f"[{label}] {st.n_rounds} rounds, {st.n_drafted} drafted, {st.n_accepted} accepted "
+        f"(acceptance {st.accept_rate:.3f}), {len(out)} tokens: {res['tok_s']:.1f} tok/s against "
+        f"{res['plain_tok_s']:.1f} for the plain graph decode (both with the {len(prompt)}-token "
+        f"prompt's prefill); forwards run in Python: target {len(t_fw)}"
+        + (f", draft {len(d_fw)}" if draft is not None else ""))
+    return res
+
+
+def _spec_burst(port: int, tok) -> list[dict]:
+    """SPEC_REQUESTS sent at once (greedy completions), a thread a request."""
+    import threading
+
+    results: list = [None] * len(SPEC_REQUESTS)
+
+    def send(i, words, n):
+        try:
+            results[i] = _http_request(port, "/v1/completions",
+                                       {"prompt": _words(words), "max_tokens": n,
+                                        "temperature": 0.0})
+        except Exception as e:  # reported by the check below
+            results[i] = {"error": repr(e)}
+
+    threads = [threading.Thread(target=send, args=(i, *req))
+               for i, req in enumerate(SPEC_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    expect(not any(t.is_alive() for t in threads), "every speculative request returned")
+    for r in results:
+        expect("error" not in r and r["status"] == 200, f"speculative request: {r}")
+    return [dict(text=r["json"]["choices"][0]["text"],
+                 n=r["json"]["usage"]["completion_tokens"], seconds=r["seconds"])
+            for r in results]
+
+
+def _metrics(port: int) -> dict:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", "/metrics")
+        text = c.getresponse().read().decode()
+    finally:
+        c.close()
+    return {k: float(v) for k, v in (line.split() for line in text.splitlines()
+                                     if line and not line.startswith("#"))}
+
+
+def _verify_step_ms(eng, prompt: list[int]) -> dict:
+    """Wall ms of a batched verify step (every slot, VERIFY_ROWS tokens,
+    ids read back) against a batched greedy decode step, all slots at
+    len(prompt)."""
+    import torch
+
+    for s in range(eng.n_slots):
+        eng.free_slot(s)
+    eng.prefill_slots({s: prompt for s in range(eng.n_slots)})
+    seqs = {s: prompt[-VERIFY_ROWS:] for s in range(eng.n_slots)}
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SPEC_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SPEC_TIMED
+
+    def decode():
+        eng.decode_batch_greedy({s: 5 for s in range(eng.n_slots)})
+        for s in range(eng.n_slots):
+            eng.n_past[s] -= 1
+
+    return dict(verify_ms=wall(lambda: eng.verify_batch_greedy(seqs, VERIFY_ROWS)),
+                decode_ms=wall(decode))
+
+
+def phase_speculative(path: Path, tmp: Path, launches: dict) -> dict:
+    """Speculative decoding on the 8B Q4_K_M (full depth; the slice's
+    file): (a) generate_speculative with NgramSpeculator (--draft-max 5),
+    greedy, SPEC_TOKENS tokens after a repetitive prompt of SPEC_PROMPT
+    word tokens, bf16 and q8 caches: ids against the plain graph decode's,
+    the verify rows teacher-forced against decode_step's, rounds, drafts,
+    acceptance, ms a verify replay against a decode replay, tok/s against
+    the plain graph decode; (b) the same with a draft Engine on the same
+    file (acceptance ≥ 0.9); (c) tpullm-torch-server's app with 4 slots,
+    plain, then --spec-type ngram_simple, then --draft-model (the same
+    file), SPEC_REQUESTS at once: the same texts, the /metrics counters,
+    each verify graph's launches a replay, one verify step's launches read
+    around it, and a verify step's ms against a decode step's; (e)
+    tpullm-torch-lookup create, stats and run."""
+    import gc
+
+    import torch
+
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.speculative import (DraftModelSpeculator, NgramSpeculator,
+                                                  generate_speculative)
+    from tpullm_torch.server.api import make_app, serve
+    from tpullm_torch.tools import lookup
+
+    out: dict = {}
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the main path
+    # (a) and (b): single stream
+    for kv in (torch.bfloat16, "q8_0"):
+        kv_name = "bf16" if kv is torch.bfloat16 else "q8_0"
+        label = f"spec-ngram {kv_name}"
+        eng = Engine(path, max_seq=SERVE_CTX, kv_dtype=kv)
+        prompt = _word_ids(eng.tokenizer, SPEC_PROMPT)
+        eng.generate_tokens_device(prompt, 32)  # warm-up: the decode graph
+        eng.reset()
+        generate_speculative(eng, NgramSpeculator(n_draft=SPEC_DRAFT), prompt, 32)
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = eng.generate_tokens_device(prompt, SPEC_TOKENS)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        expect(len(plain) > 0, f"{label}: plain greedy ran {len(plain)} tokens")
+        res = _spec_run(label, eng, NgramSpeculator(n_draft=SPEC_DRAFT), prompt, plain, plain_s)
+        res.update(_replay_ms(eng, prompt, SPEC_DRAFT))
+        log(f"[{label}] verify graph ({res['verify_rows']} rows) {res['verify_wall_ms']:.3f} ms a "
+            f"run ({res['verify_device_ms']:.3f} ms a bare replay on the device) against the "
+            f"logits graph's decode {res['decode_wall_ms']:.3f} ms ({res['decode_device_ms']:.3f}"
+            f" ms): a verify costs {res['verify_device_ms'] / res['decode_device_ms']:.2f} "
+            "decode steps")
+        out[label] = res
+        if kv_name == "bf16":
+            label = "spec-draft bf16"
+            draft = Engine(path, max_seq=SERVE_CTX)
+            generate_speculative(eng, DraftModelSpeculator(draft, n_draft=SPEC_DRAFT), prompt, 32)
+            draft.reset()
+            res = _spec_run(label, eng, DraftModelSpeculator(draft, n_draft=SPEC_DRAFT), prompt,
+                            plain, plain_s, draft=draft)
+            expect(res["accept_rate"] >= 0.9,
+                   f"{label}: the target as its own draft accepts {res['accept_rate']:.3f} >= 0.9")
+            out[label] = res
+            del draft
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c): the server
+    texts = {}
+    for mode, kw in (("plain", {}),
+                     ("ngram_simple", dict(spec_type="ngram_simple", n_draft=SPEC_SERVER_DRAFT)),
+                     ("draft", dict(draft_model_path=path, n_draft=SPEC_SERVER_DRAFT))):
+        app, sched = make_app(path, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, prefill_chunk=512,
+                              **kw)
+        eng = sched.engine
+        httpd = serve(app, "127.0.0.1", 0)
+        try:
+            sched.precompile(background=False)
+            t0 = time.perf_counter()
+            got = _spec_burst(httpd.server_address[1], eng.tokenizer)
+            wall = time.perf_counter() - t0
+            metrics = _metrics(httpd.server_address[1])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            sched.stop()
+        expect(not sched._thread.is_alive(), f"server {mode}: the scheduler's thread stopped")
+        texts[mode] = [r["text"] for r in got]
+        gen = sum(r["n"] for r in got)
+        res = dict(generated=gen, wall_s=wall, aggregate_tok_s=gen / wall,
+                   drafted=sched.n_spec_drafted, accepted=sched.n_spec_accepted,
+                   metrics={k: v for k, v in metrics.items() if "spec" in k})
+        if mode != "plain":
+            expect(metrics["tpullm_spec_tokens_drafted_total"] > 0
+                   and metrics["tpullm_spec_tokens_accepted_total"] > 0
+                   and metrics["tpullm_spec_accept_rate"] > 0,
+                   f"server {mode}: /metrics spec counters {res['metrics']}")
+            expect(texts[mode] == texts["plain"],
+                   f"server {mode}: the texts of the plain scheduler")
+            expect(len(eng._verify_runners) == SERVE_SLOTS
+                   and all(r.graph is not None for r in eng._verify_runners.values()),
+                   f"server {mode}: a verify graph captured a width, {list(eng._verify_runners)}")
+            for (width, rows), r in sorted(eng._verify_runners.items()):
+                want = verify_launches(eng, width * rows, rows)
+                expect(r.launches_per_replay() == want,
+                       f"server {mode}: verify graph ({width} slots × {rows} rows) launches "
+                       f"{r.launches_per_replay()} a replay = one forward's {want}")
+            res["verify_replays"] = {f"{w}x{r}": v.replays
+                                     for (w, r), v in eng._verify_runners.items()}
+            # one verify step's launches, read around it
+            torch.cuda.synchronize()
+            before = read_launches()
+            eng.verify_step({s: [5] for s in range(SERVE_SLOTS)}, VERIFY_ROWS)
+            torch.cuda.synchronize()
+            after = read_launches()
+            one = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+            want = verify_launches(eng, SERVE_SLOTS * VERIFY_ROWS, VERIFY_ROWS)
+            cc = sum(one.get(k, 0) for k in QMM_KEYS.values())
+            expect(one.get("qmm_tc", 0) == want["qmm_tc"] and cc == want["qmm"]
+                   and one.get("flash_bf16", 0) == want["flash"]
+                   and one.get("flash_bf16.decode", 0) == want["flash_decode"],
+                   f"server {mode}: one verify step launched {one}, one forward's {want}")
+            res["one_verify_step_launches"] = one
+            if mode == "ngram_simple":
+                res.update(_verify_step_ms(eng, _word_ids(eng.tokenizer, 128)))
+                log(f"[spec-server] batched verify step, {SERVE_SLOTS} slots × {VERIFY_ROWS} rows "
+                    f"(ids read back): {res['verify_ms']:.3f} ms against a batched greedy decode "
+                    f"step's {res['decode_ms']:.3f} ms")
+        out[f"server {mode}"] = res
+        log(f"[spec-server] {mode}: {len(got)} requests, {gen} tokens in {wall:.2f} s "
+            f"({gen / wall:.1f} tok/s in aggregate); drafted {sched.n_spec_drafted}, accepted "
+            f"{sched.n_spec_accepted}; /metrics {res['metrics']}")
+        del app, sched, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e): tpullm-torch-lookup
+    corpus = tmp / "lookup_corpus.txt"
+    corpus.write_text((ROOT / "SURVEY.md").read_text(encoding="utf-8")[:20000], encoding="utf-8")
+    static = tmp / "lookup_static.npz"
+    rc, text, err, secs = run_tool(lookup.main, ["create", "-m", str(path), "-f", str(corpus),
+                                                 "-o", str(static)])
+    expect(rc == 0 and "n-grams" in text and static.exists(), f"lookup create: {rc} {err[-300:]}")
+    log(f"[lookup] create {secs:.1f}s: {text.strip()}")
+    rc, text, err, _ = run_tool(lookup.main, ["stats", str(static)])
+    expect(rc == 0 and "2-grams" in text, f"lookup stats: {rc} {text!r}")
+    log(f"[lookup] stats: {' / '.join(text.strip().splitlines())}")
+    rc, text, err, secs = run_tool(lookup.main, ["run", "-m", str(path), "-p", _words(64), "-n",
+                                                 "64", "-c", "2048", "--static", str(static)])
+    last = err.strip().splitlines()[-1] if err.strip() else ""
+    expect(rc == 0 and text.strip() and last.startswith("n_drafted="),
+           f"lookup run: {rc} {err[-300:]}")
+    out["lookup"] = dict(run_seconds=secs, line=last)
+    log(f"[lookup] run 64 tokens with the static cache, {secs:.1f}s with the load: {last}")
+
+    torch.cuda.synchronize()
+    got = read_launches()
+    expect(got["qmm_tc"] > 0 and got["qmm_q4k"] > 0 and got["flash_bf16"] > 0
+           and got["flash_q8"] > 0 and got["dequant_routes"] == 0
+           and got["attn_dense_routes"] == 0, f"speculative: launches {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
     bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
@@ -2398,18 +2908,22 @@ def main() -> int:
     timed("flash", phase_flash, dev, results)
     batched: dict = {}
     timed("batched kernels", phase_batched_kernels, dev, results, batched)
+    verify: dict = {}
+    timed("verify kernels", phase_verify_kernels, dev, results, verify)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs, slice_path = timed("slice", phase_slice, Path(tmp), launches)
         tools = timed("tools", phase_tools, slice_path, Path(tmp), launches)
         server = timed("server", phase_server, slice_path, Path(tmp), launches)
+        spec = timed("speculative", phase_speculative, slice_path, Path(tmp), launches)
         slice_path.unlink()
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         timed("routes", phase_routes, dev, Path(tmp))
-    log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server}))
+    log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
+                                        "speculative": spec}))
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 
@@ -2479,10 +2993,12 @@ def main() -> int:
             entry["launched_through"] = ["qmm_stack", "qmm_gather"]
             entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
                                  + launches.get("qmm_gather.MXFP4", 0))
-        if key in batched:  # the shapes of continuous batching (phase_batched_kernels)
-            entry["batched"] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms")}
-                                for r in batched[key]]
+        for name, rows_by_key in (("batched", batched), ("verify", verify)):
+            # the shapes of continuous batching and of speculative verification
+            if key in rows_by_key:
+                entry[name] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")}
+                               for r in rows_by_key[key]]
         expect(entry["launches"] > 0, f"{key} launched on the main path")
         kernels.append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

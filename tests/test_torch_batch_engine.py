@@ -379,8 +379,6 @@ def test_batched_bench_rows_match_the_jax_tool(paths, capsys, monkeypatch):
 
 def test_not_ported_paths_raise(paths):
     e = _port(paths["tiny"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3.8"):
-        e.verify_batch({0: [1]}, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3.7"):
         e.prefill_slot_embeddings(0, np.zeros((1, e.hp.n_embd)))
     with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3.9"):

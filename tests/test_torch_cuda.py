@@ -5,6 +5,8 @@ without an NVIDIA GPU; on a machine with one:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1095,3 +1097,165 @@ def test_server_on_the_card(dev, tmp_path):
         httpd.server_close()
         sched.stop()
     assert not sched._thread.is_alive()
+
+
+def _verify_launches(eng, rows: int, T: int) -> dict:
+    """Launches one verify forward of `rows` rows in all (T a slot) makes:
+    every 2-D qmm (the head on every row) on the tensor cores from 16 rows,
+    on CUDA cores below; the expert stacks gathered up to 16 rows; flash
+    once per layer, in the regime T·H/Hkv picks."""
+    from tpullm_torch.ops import moe
+
+    per = _forward_launches(eng.params)
+    tc = rows >= qmm.TC_MIN_M
+    stack = rows > moe._GATHER_MAX_TOKENS
+    decode = flash.regime(T, eng.hp.n_head, eng.hp.n_head_kv) == "decode"
+    return {"qmm": 0 if tc else per["qmm"], "qmm_tc": per["qmm"] if tc else 0,
+            "qmm_stack": per["experts"] if stack else 0,
+            "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
+            "dequant_routes": 0, "flash": per["flash"],
+            "flash_decode": per["flash"] if decode else 0, "attn_dense_routes": 0}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+@pytest.mark.parametrize("shape", ["tiny", "tiny-moe"])
+def test_verify_graph_matches_eager_prefill_all_logits(dev, tmp_path, shape, kv):
+    """Engine.verify_logits replays the verify graph of the prefill bucket
+    (8 and 16 rows): its logits within NMSE 1e-3 of the eager
+    prefill_all_logits at the same state, verify_ids their argmax; each
+    replay launches one forward's kernels at its rows."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    eng = Engine(path, max_seq=96, kv_dtype=torch.bfloat16 if kv == "bf16" else kv)
+    ids = eng.tokenizer.tokenize("hello world the quick", add_special=True)
+    eng.prefill(ids)
+    for tail in ([300, 301, 17], [5, 6, 7, 8, 9], list(range(40, 52)), [11, 12]):
+        n = eng.n_past
+        want = eng.prefill_all_logits(tail)
+        eng.n_past = n
+        got = eng.verify_logits(tail)
+        eng.n_past = n
+        assert np.isfinite(got).all()
+        assert _nmse(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-3
+        assert eng.verify_ids(tail) == [int(i) for i in np.argmax(got, axis=-1)]
+    for rows, r in eng._verify_runners.items():
+        assert r.graph is not None and r.replays >= 1
+        assert r.launches_per_replay() == _verify_launches(eng, rows, rows)
+
+
+def test_speculative_rounds_are_graph_replays(dev, tmp_path):
+    """generate_speculative on the card with an n-gram and a draft
+    speculator (the target's own file): greedy ids equal the plain greedy
+    ids; every verify round but each bucket's first (run eagerly before
+    its capture) is a replay of the target's verify graph, and the draft
+    catches up and drafts on its graphs only (no eager forward after its
+    prompt)."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime import speculative
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny-moe.gguf", shape="tiny-moe", seed=0)
+    eng, draft = Engine(path, max_seq=128), Engine(path, max_seq=128)
+    ids = eng.tokenizer.tokenize("hello world", add_special=True)
+    plain = list(eng.generate_tokens(ids, 40))
+    for spec in (speculative.NgramSpeculator(n_draft=4),
+                 speculative.DraftModelSpeculator(draft, n_draft=4)):
+        eng.reset()
+        before = sum(r.replays for r in eng._verify_runners.values())
+        eager = []
+        arch = draft.arch
+
+        def counting(*a, **kw):  # the draft's forwards that run in Python
+            eager.append(a[2].shape)
+            return arch.forward(*a, **kw)
+
+        draft.arch = dataclasses.replace(arch, forward=counting)
+        try:
+            out, stats = speculative.generate_speculative(eng, spec, ids, 40)
+        finally:
+            draft.arch = arch
+        assert out == plain
+        replays = sum(r.replays for r in eng._verify_runners.values()) - before
+        assert replays + len(eng._verify_runners) >= stats.n_rounds >= replays
+        if isinstance(spec, speculative.DraftModelSpeculator):
+            assert stats.accept_rate > 0.9
+            # the draft's prompt, then only each of its runners' first run
+            # (the eager step before the capture, and the capture itself)
+            runners = (len(draft._runners) + len(draft._verify_runners)
+                       + (draft._logits_runner is not None))
+            assert len(eager) <= 1 + 2 * runners
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0"])
+def test_verify_batch_on_the_card_matches_the_cpu(dev, tmp_path, kv):
+    """BatchEngine.verify_batch on the card (a graph replay of 4 slots × 5
+    rows, slot 1 idle) against the CPU's: each slot's logits within NMSE
+    1e-3, n_past unchanged, the idle slot's cache rows untouched; the
+    greedy ids equal; the replay launches one forward's kernels at 20 rows
+    (the tensor cores)."""
+    gpu, cpu = _batch_engines(tmp_path, "tiny", kv)
+    prompts = {0: [1, 300, 301, 302, 303], 2: [1, 17], 3: list(range(1, 40))}
+    gpu.prefill_slots(prompts)
+    cpu.prefill_slots(prompts)
+    c = gpu.cache
+    idle = [t[:, 1].clone() for t in ((c.k, c.v) if hasattr(c, "k") else (c.k_q, c.k_s))]
+    seqs = {0: [5, 6, 7, 8], 2: [9], 3: [10, 11]}
+    a, b = gpu.verify_batch(seqs, 5), cpu.verify_batch(seqs, 5)
+    for s in seqs:
+        assert np.isfinite(a[s]).all()
+        assert _nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) <= 1e-3
+    assert list(gpu.n_past) == list(cpu.n_past)
+    after = [t[:, 1] for t in ((c.k, c.v) if hasattr(c, "k") else (c.k_q, c.k_s))]
+    assert all(torch.equal(x, y) for x, y in zip(idle, after))
+    assert gpu.verify_batch_greedy(seqs, 5) == cpu.verify_batch_greedy(seqs, 5)
+    r = gpu._verify_runners[(4, 5)]
+    assert r.graph is not None and r.replays == 1
+    assert r.launches_per_replay() == _verify_launches(gpu, 20, 5)
+
+
+def test_speculative_server_on_the_card(dev, tmp_path):
+    """The scheduler with ngram and draft speculation on the card: three
+    concurrent greedy requests give the plain scheduler's ids; precompile
+    captured the verify graphs, and every verify step was a replay."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.sampling import SamplerParams
+    from tpullm_torch.server.scheduler import GenRequest, Scheduler
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny-moe.gguf", shape="tiny-moe", seed=0)
+
+    def serve(sched, prompts):
+        reqs = [sched.submit(GenRequest(prompt_ids=p, max_tokens=24,
+                                        sampling=SamplerParams(temp=0.0))) for p in prompts]
+        sched.start()
+        sched.precompile(background=False)
+        try:
+            out = []
+            for r in reqs:
+                toks = []
+                while True:
+                    ev = r.out.get(timeout=120)
+                    if ev[0] != "token":
+                        break
+                    toks.append(ev[1])
+                out.append(toks)
+        finally:
+            sched.stop()
+        return out
+
+    eng = BatchEngine(path, n_slots=3, max_seq=128)
+    tok = eng.tokenizer
+    prompts = [tok.tokenize(p, add_special=True)
+               for p in ("the dog the dog the dog", "world hello world hello", "the lazy dog")]
+    plain = serve(Scheduler(eng), prompts)
+    for kw in (dict(spec_type="ngram_simple"),
+               dict(draft_engine=BatchEngine(path, n_slots=3, max_seq=128))):
+        for s in range(eng.n_slots):
+            eng.free_slot(s)
+        sched = Scheduler(eng, n_draft=4, **kw)
+        assert serve(sched, prompts) == plain
+        assert sched.n_spec_drafted > 0
+        assert all(r.graph is not None for r in eng._verify_runners.values())
+        assert sorted(eng._verify_runners) == [(1, 5), (2, 5), (3, 5)]

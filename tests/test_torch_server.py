@@ -305,11 +305,6 @@ def test_scheduler_survives_a_request_it_cannot_admit(engine):
         assert sched._thread.is_alive() and len(_greedy(sched, ids, 4)) == 4
 
 
-def test_scheduler_refuses_speculation(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md 1.3.8"):
-        Scheduler(engine, spec_type="ngram_simple")
-
-
 # -- HTTP --------------------------------------------------------------------------
 
 def _port_http(app, requests, headers=None):
@@ -659,7 +654,39 @@ def test_router_loads_and_evicts(paths):
 def test_server_main_refuses_flags_not_ported(capsys):
     from tpullm_torch.server.__main__ import main
 
-    for flag in (["--tp", "2"], ["--mmproj", "x.gguf"], ["--spec-type", "ngram_simple"]):
+    for flag in (["--tp", "2"], ["--mmproj", "x.gguf"]):
         with pytest.raises(SystemExit):
             main(["-m", "x.gguf", *flag])
         assert "not ported yet (ROADMAP.md 1.3." in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--spec-type", "ngram_mod", "--draft-max", "5"],
+     dict(spec_type="ngram_mod", draft_model_path=None, n_draft=5)),
+    (["--draft-model", "draft.gguf"], dict(spec_type=None, draft_model_path="draft.gguf",
+                                           n_draft=8)),
+    ([], dict(spec_type=None, draft_model_path=None, n_draft=8))],
+    ids=["spec-type", "draft-model", "none"])
+def test_server_main_speculation_flags_reach_make_app(monkeypatch, argv, want):
+    """--spec-type (the JAX server's choices), --draft-model and
+    --draft-max (default 8) parse and reach make_app; an unknown strategy
+    is refused by the parser."""
+    from tpullm_torch.server import __main__ as srv_main
+    from tpullm_torch.server import api
+
+    seen = {}
+
+    class Reached(Exception):
+        pass
+
+    def fake_make_app(model, **kw):
+        seen.update(kw, model=model)
+        raise Reached
+
+    monkeypatch.setattr(api, "make_app", fake_make_app)
+    with pytest.raises(Reached):
+        srv_main.main(["-m", "x.gguf", "--device", "cpu", *argv])
+    assert seen["model"] == "x.gguf" and seen["device"] == "cpu"
+    assert {k: seen[k] for k in want} == want
+    with pytest.raises(SystemExit):
+        srv_main.main(["-m", "x.gguf", "--spec-type", "medusa"])

@@ -13,15 +13,19 @@ The decode step runs on static device buffers (runtime/graph.py
 highest generating slot's index + 1; the scheduler fills the lowest free
 slot first) captured as a CUDA graph per width and replayed a step; it
 writes both the logits [width, V] (read back by `decode_batch`) and their
-argmax ids [width] (read back by `decode_batch_greedy`).
+argmax ids [width] (read back by `decode_batch_greedy`). Speculative
+verification (`verify_step`, `verify_batch`, `verify_batch_greedy`) is the
+same runner at a fixed number of rows a slot (the scheduler's n_draft + 1):
+one graph per (width, rows), each slot's pending token and drafts padded
+to the rows; it does not advance n_past, and the rows past the committed
+prefix stay invisible (causal by position) until they are overwritten.
 The cache is written in place by every path here (prefill rounds, the
-decode step, `shift_slot`, slot state files), so the graphs stay valid for
-the engine's life; `drop_graphs` releases them.
+decode and verify steps, `shift_slot`, slot state files), so the graphs
+stay valid for the engine's life; `drop_graphs` releases them.
 
-Not ported yet (ROADMAP.md 1.3.7–1.3.9, 1.4, 1.6): mesh serving and the
-pipeline, a shared `Model`, recurrent archs, the iSWA cache, multimodal
-prefill (`prefill_slot_embeddings`) and speculative verification
-(`verify_batch`).
+Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.4, 1.6): mesh serving and the
+pipeline, a shared `Model`, recurrent archs, the iSWA cache and multimodal
+prefill (`prefill_slot_embeddings`).
 """
 
 from __future__ import annotations
@@ -79,35 +83,43 @@ class BatchEngine:
         # per-slot RoPE position offset against the cache slot count (the
         # JAX package's M-RoPE image grids; 0 here until mtmd is ported)
         self.rope_delta = np.zeros(n_slots, dtype=np.int32)
-        self._runners: dict[int, BatchRunner] = {}  # width → runner
+        self._runners: dict[int, BatchRunner] = {}  # width → decode runner
+        self._verify_runners: dict[tuple[int, int], BatchRunner] = {}  # (width, rows) → runner
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
 
     # -- graphs ------------------------------------------------------------------
 
-    def runner(self, width: int) -> BatchRunner:
-        """The engine's batched decode step over its first `width` slots
-        (its CUDA graph is captured at its first run, on the calling
-        thread)."""
-        r = self._runners.get(width)
+    def runner(self, width: int, rows: int = 1) -> BatchRunner:
+        """The engine's batched step over its first `width` slots, `rows`
+        tokens a slot (1: the decode step; more: the verify step), its CUDA
+        graph captured at its first run, on the calling thread."""
+        runners = self._runners if rows == 1 else self._verify_runners
+        key = width if rows == 1 else (width, rows)
+        r = runners.get(key)
         if r is None:
-            r = self._runners[width] = BatchRunner(self, width)
+            r = runners[key] = BatchRunner(self, width, rows)
         return r
 
-    def precompile(self):
-        """Captures every decode graph (one a width) ahead
-        of the first request (the JAX package compiles its programs here):
-        one step with every slot idle, which writes no cache row. Call it
-        on the thread that will decode."""
+    def precompile(self, widths: tuple = ()):
+        """Captures every decode graph (one a width) and, for each verify
+        row count in `widths` (the scheduler's n_draft + 1), its verify
+        graph of every width, ahead of the first request (the JAX package
+        compiles its programs here): one step with every slot idle, which
+        writes no cache row. Call it on the thread that will decode."""
         with torch.inference_mode():
-            for width in range(1, self.n_slots + 1):
-                self.runner(width).run(self._inputs({}, width))
+            for rows in (1, *widths):
+                for width in range(1, self.n_slots + 1):
+                    idle = torch.zeros(2 * rows + 1, width, dtype=torch.int32)
+                    idle[2 * rows] = -1
+                    self.runner(width, rows).run(idle)
 
     def drop_graphs(self):
-        """Releases the decode graphs (and their memory pools); the next
-        decode captures anew."""
+        """Releases the decode and verify graphs (and their memory pools);
+        the next step captures anew."""
         self._runners.clear()
+        self._verify_runners.clear()
 
     # -- slot lifecycle ----------------------------------------------------------
 
@@ -223,8 +235,47 @@ class BatchEngine:
             v = v / max(np.linalg.norm(v), 1e-12)
         return v
 
-    def verify_batch(self, tokens: dict[int, list[int]], width: int):
-        raise _not_ported("speculative verification", "1.3.8")
+    def verify_step(self, tokens: dict[int, list[int]], width: int) -> BatchRunner:
+        """Speculative verification (≡ the reference server's can_speculate
+        batch: one llama_batch of token + drafts per slot): up to `width`
+        tokens of each slot in `tokens` fed at its n_past in one replay of
+        the verify graph of `width` rows a slot (the rows past a slot's
+        tokens padded with id 0, written and never read), the slots not in
+        `tokens` idle. Does NOT advance n_past: the caller commits the
+        accepted prefix. Returns the runner, whose `ids` [slots, width] and
+        `logits` [slots, width, V] hold the rows until its next run."""
+        t0 = time.perf_counter()
+        slots = max(tokens) + 1
+        a = np.zeros((2 * width + 1, slots), dtype=np.int32)
+        a[2 * width] = -1
+        for slot, seq in tokens.items():
+            start = int(self.n_past[slot])
+            if not 0 < len(seq) <= width or start + width > self.max_seq:
+                raise ValueError(f"slot {slot} verify of {len(seq)} tokens at {start} "
+                                 f"({width} rows, max_seq {self.max_seq})")
+            a[:len(seq), slot] = seq
+            rs = start + int(self.rope_delta[slot])
+            a[width:2 * width, slot] = np.arange(rs, rs + width)
+            a[2 * width, slot] = start
+        with torch.inference_mode():
+            r = self.runner(slots, width)
+            r.run(torch.from_numpy(a))
+        self.perf.t_decode_s += time.perf_counter() - t0
+        self.perf.n_decode += sum(len(s) for s in tokens.values())
+        return r
+
+    def verify_batch(self, tokens: dict[int, list[int]], width: int) -> dict[int, np.ndarray]:
+        """verify_step, then {slot: logits [width, V]}: each slot's own
+        rows read back. n_past is not advanced."""
+        r = self.verify_step(tokens, width)
+        return {slot: r.logits[slot].to("cpu", copy=True).numpy() for slot in tokens}
+
+    def verify_batch_greedy(self, tokens: dict[int, list[int]],
+                            width: int) -> dict[int, list[int]]:
+        """verify_step, then {slot: argmax ids [width]} computed on the
+        device (the read-back is the ids only). n_past is not advanced."""
+        ids = self.verify_step(tokens, width).ids.tolist()
+        return {slot: ids[slot] for slot in tokens}
 
     def rewind(self, slot: int, n_past: int):
         """Roll a slot's valid-cache length back."""
@@ -292,7 +343,7 @@ class BatchEngine:
         with torch.inference_mode():
             r = self.runner(width)
             r.run(self._inputs(tokens, width))
-            ids = r.ids.tolist()
+            ids = r.ids[:, 0].tolist()
         out = {}
         for slot in tokens:
             self.n_past[slot] += 1
@@ -308,7 +359,7 @@ class BatchEngine:
         with torch.inference_mode():
             r = self.runner(width)
             r.run(self._inputs(tokens, width))
-            logits = r.logits.to("cpu", copy=True).numpy()
+            logits = r.logits[:, 0].to("cpu", copy=True).numpy()
         out = {}
         for slot in tokens:
             self.n_past[slot] += 1

@@ -11,7 +11,11 @@ token ids back once per chunk and never reads logits on that path.
 `decode_step`s whose logits go through a `Sampler` (penalties, grammars,
 mirostat, ...). `decode_step` runs the logits-only step
 (runtime/graph.py `LogitsRunner`: on the card a CUDA graph replayed a
-step) and reads its logits back.
+step) and reads its logits back. Speculative verification
+(runtime/speculative.py) feeds a few tokens at once through
+`verify_logits` / `verify_ids` (runtime/graph.py `VerifyRunner`: one
+forward at the prefill bucket, on the card a CUDA graph per bucket), and a
+draft engine catches up through `feed`, on the same graphs.
 
 The cache is written in place and never replaced by the engine's own
 paths, so the runners' graphs stay valid across `reset`, prefills and
@@ -32,7 +36,7 @@ from ..gguf.reader import GGUFReader
 from ..models.registry import get_arch, load_hparams
 from ..models.weights import fuse_llama_params
 from ..ops.sampling_ops import SamplingParams, sample_token
-from .graph import DecodeRunner, LogitsRunner
+from .graph import DecodeRunner, LogitsRunner, VerifyRunner
 from .kvcache import make_cache
 from .sampling import Sampler, SamplerParams
 
@@ -88,6 +92,7 @@ class Engine:
         self.n_past = 0
         self._runners: dict = {}  # (SamplingParams, chunk) → DecodeRunner
         self._logits_runner: LogitsRunner | None = None
+        self._verify_runners: dict[int, VerifyRunner] = {}  # rows → runner
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # load time includes the repack
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
@@ -102,6 +107,7 @@ class Engine:
         self.cache = make_cache(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
         self._runners.clear()
         self._logits_runner = None
+        self._verify_runners.clear()
         self.n_past = 0
 
     def _bucket(self, n: int) -> int:
@@ -179,6 +185,56 @@ class Engine:
         self.perf.t_decode_s += time.perf_counter() - t0
         self.perf.n_decode += 1
         return out
+
+    def verify_runner(self, rows: int) -> VerifyRunner:
+        """The engine's verification forward of `rows` tokens (its CUDA
+        graph is captured at its first run and kept)."""
+        runner = self._verify_runners.get(rows)
+        if runner is None:
+            runner = self._verify_runners[rows] = VerifyRunner(self, rows)
+        return runner
+
+    def _verify(self, tokens: list[int]) -> VerifyRunner:
+        """`tokens` fed at n_past in one forward at their prefill bucket
+        (one replay of `verify_runner`); n_past advances by len(tokens)."""
+        n = len(tokens)
+        if n == 0 or self.n_past + n > self.max_seq:
+            raise ValueError(f"verify of {n} tokens at n_past={self.n_past} "
+                             f"(max_seq {self.max_seq})")
+        runner = self.verify_runner(self._bucket(n))
+        with torch.inference_mode():
+            runner.run(tokens, self.n_past)
+        self.n_past += n
+        return runner
+
+    def verify_logits(self, tokens: list[int]) -> np.ndarray:
+        """The logits of every position [T, n_vocab] of `tokens` fed at
+        n_past (the numbers of prefill_all_logits, through the verify
+        graph); only the T rows are read back."""
+        n = len(tokens)
+        return self._verify(tokens).logits[:n].to("cpu", copy=True).numpy()
+
+    def verify_ids(self, tokens: list[int]) -> list[int]:
+        """The argmax ids [T] of verify_logits, computed on the device: only
+        the ids are read back (greedy acceptance)."""
+        n = len(tokens)
+        return self._verify(tokens).ids[:n].tolist()
+
+    def feed(self, tokens: list[int]) -> None:
+        """Feed `tokens` into the cache at n_past, no logits read back (a
+        draft engine catching up): one token through the logits graph, a
+        few at once through the verify graph, a prompt's worth eagerly."""
+        tokens = list(tokens)
+        if len(tokens) == 1:
+            if self.n_past >= self.max_seq:
+                raise ValueError(f"context overflow: feed at n_past={self.n_past}")
+            with torch.inference_mode():
+                self.logits_runner().run(tokens[0], self.n_past)
+            self.n_past += 1
+        elif 1 < len(tokens) <= PREFILL_BUCKETS[1]:
+            self._verify(tokens)
+        elif tokens:
+            self._prefill_logits(tokens)
 
     def decode_runner(self, sp: SamplingParams, chunk: int) -> DecodeRunner:
         """The engine's decode runner for `sp` and `chunk` (its CUDA graphs

@@ -27,16 +27,27 @@ and the host reads them (Engine.decode_step, the JAX package's jitted
 loop). The host sets `token` and `n_past` before each step, so the step
 keeps no count of its own.
 
-`BatchRunner` is one batched decode step of a BatchEngine
-(runtime/batch_engine.py) over its first `width` slots: the width rows of
-one forward at per-slot offsets, −1 for an idle slot, read from static
-buffers (tokens, positions and offsets in one int32 [3, width] buffer, so
-the host loads them with one copy), against a view of those slots' cache
-rows; it writes the f32 logits [width, V] (which BatchEngine.decode_batch
-reads back) and their argmax ids [width] (BatchEngine.decode_batch_greedy).
-A step runs at the width of the highest
-generating slot, so the rows computed follow the load. Its graph is
-captured, and replayed, on the thread that calls it (the server's
+`VerifyRunner` is the speculative verification of a single-stream
+Engine (the JAX package's jitted prefill of `prefill_all_logits` at a
+bucket): `rows` tokens (a prefill bucket) fed at the cache offset held in
+a device int32, through the per-slot offset path of the forward (the
+cache write by gather/blend/scatter, so nothing is read back); it writes
+the f32 logits [rows, V] and their argmax ids [rows]. The host loads the
+tokens and the offset with one copy.
+
+`BatchRunner` is one batched step of a BatchEngine
+(runtime/batch_engine.py) over its first `width` slots, `rows` tokens a
+slot: the width × rows rows of one forward at per-slot offsets, −1 for an
+idle slot, read from static buffers (tokens, positions and offsets in one
+int32 [2 rows + 1, width] buffer, so the host loads them with one copy),
+against a view of those slots' cache rows; it writes the f32 logits
+[width, rows, V] and their argmax ids [width, rows]. At one row a slot it
+is the decode step (BatchEngine.decode_batch reads the logits back,
+BatchEngine.decode_batch_greedy the ids); at `rows` > 1 the speculative
+verification (BatchEngine.verify_batch: each slot's pending token and its
+drafts, the rows past them padded). A step runs at the width of the
+highest generating slot, so the rows computed follow the load. Its graph
+is captured, and replayed, on the thread that calls it (the server's
 scheduler thread).
 
 All follow one set of rules (`_CapturedStep`): the step reads and writes
@@ -238,37 +249,77 @@ class LogitsRunner(_CapturedStep):
         return self.logits
 
 
-class BatchRunner(_CapturedStep):
-    """One batched decode step of a BatchEngine's first `width` slots on
-    static device buffers: `inputs` int32 [3, width] holds each slot's
-    token, RoPE position and cache offset (−1: idle, its cache rows
-    untouched); the step writes the f32 logits [width, V] into `logits`
-    and their argmax into `ids` (the first index on ties, as the JAX
-    package's argmax), and the host reads back the one it needs. On the
-    card one step captured as a CUDA graph and replayed."""
+class VerifyRunner(_CapturedStep):
+    """One forward of `rows` tokens of a single-stream engine at the cache
+    offset in `inputs[rows]`, on static device buffers (`inputs` int32
+    [rows + 1]: the tokens, then the offset); it writes the f32 logits
+    [rows, V] into `logits` and their argmax into `ids` (the first index
+    on ties, as numpy's). On the card one forward captured as a CUDA graph
+    and replayed."""
 
-    def __init__(self, engine, width: int):
+    def __init__(self, engine, rows: int):
         super().__init__(engine)
         dev = engine.device
-        self.width = width
-        self.inputs = torch.zeros(3, width, dtype=torch.int32, device=dev)
-        self.inputs[2].fill_(-1)
-        self.ids = torch.zeros(width, dtype=torch.int64, device=dev)
-        self.logits = torch.zeros(width, engine.hp.n_vocab, dtype=torch.float32, device=dev)
+        self.rows = rows
+        self.inputs = torch.zeros(rows + 1, dtype=torch.int32, device=dev)
+        self.arange = torch.arange(rows, dtype=torch.int32, device=dev)
+        self.ids = torch.zeros(rows, dtype=torch.int64, device=dev)
+        self.logits = torch.zeros(rows, engine.hp.n_vocab, dtype=torch.float32, device=dev)
 
     def step(self) -> None:
-        """One decode step of the slots on the buffers (nothing read back)."""
-        e, B = self.engine, self.width
+        """The forward of the buffers' tokens at their offset (nothing read
+        back); its cache rows written in place."""
+        e, T = self.engine, self.rows
+        off = self.inputs[T:]
+        logits, _ = e.arch.forward(e.hp, e.params, self.inputs[:T].long().reshape(1, T),
+                                   (off + self.arange).reshape(1, T), e.cache, off)
+        self.logits.copy_(logits[0])
+        self.ids.copy_(torch.argmax(self.logits, dim=-1))
+
+    def run(self, tokens: list[int], n_past: int) -> None:
+        """The forward of `tokens` (at most `rows`, the rest padded with id
+        0) fed at cache slot `n_past`; the runner's `ids` and `logits` hold
+        its output until its next run."""
+        a = torch.zeros(self.rows + 1, dtype=torch.int32)
+        a[:len(tokens)] = torch.tensor(tokens, dtype=torch.int32)
+        a[self.rows] = n_past
+        self.inputs.copy_(a)
+        self._steps(1)
+
+
+class BatchRunner(_CapturedStep):
+    """One batched step of a BatchEngine's first `width` slots, `rows`
+    tokens a slot, on static device buffers: `inputs` int32 [2 rows + 1,
+    width] holds each slot's tokens (rows 0..rows−1), RoPE positions (the
+    next `rows`) and cache offset (the last; −1: idle, its cache rows
+    untouched); the step writes the f32 logits [width, rows, V] into
+    `logits` and their argmax into `ids` [width, rows] (the first index on
+    ties, as the JAX package's argmax), and the host reads back the ones it
+    needs. On the card one step captured as a CUDA graph and replayed."""
+
+    def __init__(self, engine, width: int, rows: int = 1):
+        super().__init__(engine)
+        dev = engine.device
+        self.width, self.rows = width, rows
+        self.inputs = torch.zeros(2 * rows + 1, width, dtype=torch.int32, device=dev)
+        self.inputs[2 * rows].fill_(-1)
+        self.ids = torch.zeros(width, rows, dtype=torch.int64, device=dev)
+        self.logits = torch.zeros(width, rows, engine.hp.n_vocab, dtype=torch.float32,
+                                  device=dev)
+
+    def step(self) -> None:
+        """One step of the slots on the buffers (nothing read back)."""
+        e, B, T = self.engine, self.width, self.rows
         cache = e.cache if B == e.n_slots else e.cache.first_slots(B)
-        tokens, positions, offsets = self.inputs[0], self.inputs[1], self.inputs[2]
-        logits, _ = e.arch.forward(e.hp, e.params, tokens.long().reshape(B, 1),
-                                   positions.reshape(B, 1), cache, offsets)
-        self.logits.copy_(logits[:, 0])
+        tokens, positions = self.inputs[:T].t(), self.inputs[T:2 * T].t()
+        logits, _ = e.arch.forward(e.hp, e.params, tokens.long(), positions.contiguous(),
+                                   cache, self.inputs[2 * T])
+        self.logits.copy_(logits)
         self.ids.copy_(torch.argmax(self.logits, dim=-1))
 
     def run(self, inputs: torch.Tensor) -> None:
-        """One step from `inputs` (an int32 [3, width] host tensor: tokens,
-        positions, offsets); the runner's `ids` and `logits` buffers hold
-        its output until its next run."""
+        """One step from `inputs` (an int32 [2 rows + 1, width] host tensor:
+        tokens, positions, offsets); the runner's `ids` and `logits`
+        buffers hold its output until its next run."""
         self.inputs.copy_(inputs)
         self._steps(1)

@@ -364,3 +364,18 @@ class Sampler:
         logits = apply_xtc(logits, p.xtc_probability, p.xtc_threshold, self.rng)
         logits = apply_temp_ext(logits, p.temp, p.dynatemp_range, p.dynatemp_exponent)
         return self._dist(logits)
+
+
+def argmax_exact(sampler: Sampler) -> bool:
+    """Whether `sampler` picks the argmax of the logits it is given: greedy,
+    and no transform on the host that could move the argmax (bias,
+    penalties, DRY, a grammar). Then the argmax computed on the device is
+    its pick, and only ids need to come back."""
+    p = sampler.params
+    return (p.greedy
+            and not p.logit_bias
+            and p.penalty_repeat == 1.0
+            and p.penalty_freq == 0.0
+            and p.penalty_present == 0.0
+            and p.dry_multiplier == 0.0
+            and sampler.constraint_fn is None)

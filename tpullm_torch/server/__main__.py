@@ -4,9 +4,11 @@ package's tpullm-server, ≡ llama-server).
     tpullm-torch-server -m model.gguf --port 8080 -np 4 -c 4096
 
 Runs on the card unless asked for the CPU (`--device cpu`); several `-m
-NAME=PATH` start the multi-model router. Multimodal projectors, mesh
-serving (--tp/--dp/--pp/--ep), speculative decoding and multi-host flags
-are refused: not ported yet.
+NAME=PATH` start the multi-model router. Speculative decoding in the
+scheduler: `--spec-type` (an n-gram strategy) or `--draft-model` (a draft
+GGUF with the target's slot layout), up to `--draft-max` drafts a round.
+Multimodal projectors, mesh serving (--tp/--dp/--pp/--ep) and multi-host
+flags are refused: not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import sys
 NOT_PORTED = "not ported yet (ROADMAP.md 1.3.{item})"
 # the JAX server's flags this one refuses, with their ROADMAP.md 1.3 items
 REFUSED = (("--mmproj", 7), ("--tp", 9), ("--dp", 9), ("--pp", 9), ("--ep", 9),
-           ("--draft-model", 8), ("--draft-max", 8), ("--spec-type", 8),
            ("--dist-coordinator", 9), ("--dist-nprocs", 9), ("--dist-procid", 9))
+SPEC_TYPES = ("draft", "ngram_simple", "ngram_cache", "ngram_mod", "ngram_map_k",
+              "ngram_map_k4v")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,6 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="directory for /slots/:id?action=save|restore files")
     ap.add_argument("--kv-type", default=None, choices=["f16", "bf16", "f32", "q8_0"],
                     help="KV cache storage type (≡ -ctk/-ctv)")
+    ap.add_argument("--draft-model", default=None,
+                    help="draft model GGUF for in-scheduler speculative decoding (≡ -md)")
+    ap.add_argument("--draft-max", type=int, default=8,
+                    help="max draft tokens per speculation step (≡ --draft-max)")
+    ap.add_argument("--spec-type", default=None, choices=SPEC_TYPES,
+                    help="speculation strategy (default: draft if --draft-model given, "
+                         "else off)")
     ap.add_argument("--cache-reuse", type=int, default=0,
                     help="min chunk size for mid-prompt cache reuse via position shifting")
     ap.add_argument("--device", default="cuda",
@@ -99,7 +109,9 @@ def main(argv=None):
         return 0
 
     app, sched = make_app(args.model[0], slot_save_path=args.slot_save_path,
-                          cache_reuse=args.cache_reuse, api_keys=api_keys, **engine_kw)
+                          spec_type=args.spec_type, draft_model_path=args.draft_model,
+                          n_draft=args.draft_max, cache_reuse=args.cache_reuse,
+                          api_keys=api_keys, **engine_kw)
     sched.precompile(background=True)
     httpd = serve(app, args.host, args.port)
     print(f"tpullm-torch-server listening on http://{args.host}:{httpd.server_address[1]} "

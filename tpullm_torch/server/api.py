@@ -662,12 +662,21 @@ class Server:
                         headers={"Cache-Control": "no-cache"}, chunks=chunks())
 
 
-def make_app(model_path, slot_save_path: str | None = None, cache_reuse: int = 0,
+def make_app(model_path, slot_save_path: str | None = None, spec_type: str | None = None,
+             draft_model_path=None, n_draft: int = 8, cache_reuse: int = 0,
              api_keys: list[str] | None = None, **engine_kw) -> tuple[App, Scheduler]:
-    """A BatchEngine on `model_path`, its Scheduler started, and the
-    Server's App (serve it with `serve`)."""
+    """A BatchEngine on `model_path`, its Scheduler started (speculative
+    with `spec_type` or a draft model), and the Server's App (serve it
+    with `serve`)."""
     from ..runtime.batch_engine import BatchEngine
 
-    sched = Scheduler(BatchEngine(model_path, **engine_kw), cache_reuse=cache_reuse)
+    engine = BatchEngine(model_path, **engine_kw)
+    draft_engine = None
+    if draft_model_path is not None:
+        # the draft model shares the target's slot layout, so one batched
+        # draft step serves every speculating slot (≡ server -md)
+        draft_engine = BatchEngine(draft_model_path, **engine_kw)
+    sched = Scheduler(engine, spec_type=spec_type, draft_engine=draft_engine, n_draft=n_draft,
+                      cache_reuse=cache_reuse)
     sched.start()
     return Server(sched, slot_save_path=slot_save_path, api_keys=api_keys).app, sched

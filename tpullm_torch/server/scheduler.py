@@ -11,8 +11,13 @@ thread only (torch's current stream is per thread); other threads hand it
 work through queues (`embed`, and `_call`: slot save, restore and erase,
 the graphs' capture at start-up) and never touch a CUDA tensor.
 
-Speculative decoding (`spec_type`, `draft_engine`) is not ported yet
-(ROADMAP.md 1.3.8).
+With speculation (`spec_type`: an n-gram speculator per slot, or `draft`
+with a draft BatchEngine of the same slot layout) every generating slot
+drafts up to `n_draft` tokens, and one verify step (BatchEngine.verify_step:
+one graph replay of n_draft + 1 rows a slot) checks them all; each slot
+keeps the longest prefix its sampler agrees with (exact match), so the
+output is the plain scheduler's. Greedy slots read back the verified ids
+only, sampled slots their own rows of logits.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import numpy as np
 
 from ..grammar import GrammarConstraint, LazyGrammarConstraint
 from ..runtime.batch_engine import BatchEngine
-from ..runtime.sampling import Sampler, SamplerParams
+from ..runtime.sampling import Sampler, SamplerParams, argmax_exact
+from ..runtime.speculative import make_speculator
 from ..runtime.state import load_slot_state, save_slot_state
 
 
@@ -66,16 +72,15 @@ class _Slot:
     tokens: list = field(default_factory=list)  # prompt + generated ids
     pending_token: int | None = None
     prefill_tail: list | None = None  # prompt tokens not yet fed
+    speculator: object = None  # per-slot draft proposer (ngram family)
     t_start: float = 0.0
     t_first_token: float = 0.0
 
 
 class Scheduler:
     def __init__(self, engine: BatchEngine, *, spec_type: str | None = None,
-                 draft_engine: BatchEngine | None = None, cache_reuse: int = 0):
-        if spec_type is not None or draft_engine is not None:
-            raise NotImplementedError("speculative decoding in the scheduler is not ported yet "
-                                      "(ROADMAP.md 1.3.8)")
+                 draft_engine: BatchEngine | None = None, n_draft: int = 8,
+                 cache_reuse: int = 0):
         self.engine = engine
         self.slots = [_Slot(i) for i in range(engine.n_slots)]
         self.pending: queue.Queue[GenRequest] = queue.Queue()
@@ -84,6 +89,16 @@ class Scheduler:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
+        # in-scheduler speculative decoding (≡ server-context.cpp
+        # can_speculate: every slot keeps decoding while drafted tokens are
+        # verified in one batched forward of fixed shape)
+        self.spec_type = spec_type
+        self.draft_engine = draft_engine
+        if spec_type == "draft" and draft_engine is None:
+            raise ValueError("spec_type=draft requires a draft_engine")
+        if draft_engine is not None and spec_type is None:
+            self.spec_type = "draft"
+        self.n_draft = max(1, n_draft)
         # --cache-reuse: min chunk length for mid-prompt KV reuse via
         # position shifting (0 = common-prefix reuse only)
         self.cache_reuse = cache_reuse if engine.can_shift else 0
@@ -138,14 +153,22 @@ class Scheduler:
         self._thread.start()
 
     def precompile(self, background: bool = True):
-        """Captures the engine's decode graphs on the scheduler's thread
-        ahead of the first request (the JAX package compiles its programs
-        here). With `background` it is queued and this returns at once."""
+        """Captures the engine's decode graphs (and, with speculation, its
+        verify graphs of n_draft + 1 rows, and the draft engine's graphs) on
+        the scheduler's thread ahead of the first request (the JAX package
+        compiles its programs here). With `background` it is queued and
+        this returns at once."""
+        def job():
+            widths = (self.n_draft + 1,) if self.spec_type else ()
+            self.engine.precompile(widths)
+            if self.draft_engine is not None:
+                self.draft_engine.precompile(widths)
+
         if background and self._thread is not None:
-            self._jobs.put((self.engine.precompile, (), queue.Queue()))
+            self._jobs.put((job, (), queue.Queue()))
             self._wake.set()
             return None
-        return self._call(self.engine.precompile)
+        return self._call(job)
 
     def stop(self):
         self._stop.set()
@@ -176,7 +199,10 @@ class Scheduler:
             if s.state != SlotState.IDLE:
                 raise ValueError(f"slot {slot_id} busy")
             self.engine.free_slot(slot_id)
+            if self.draft_engine is not None:
+                self.draft_engine.free_slot(slot_id)
             s.tokens = []
+            s.speculator = None
             return {"id_slot": slot_id, "n_erased": 1}
         return self._call(job)
 
@@ -288,36 +314,160 @@ class Scheduler:
             if s.state == SlotState.GENERATING and s.pending_token is not None
         }
         if gen:
-            if all(self._device_greedy_ok(self.slots[i]) for i in gen):
-                # ids-only read-back: argmax on the device
-                ids = self.engine.decode_batch_greedy(gen)
-                for idx, tok in ids.items():
-                    self._advance_token(self.slots[idx], tok)
+            if self.spec_type:
+                self._speculative_step(gen)
             else:
-                logits = self.engine.decode_batch(gen)
-                for idx, lg in logits.items():
-                    self._advance(self.slots[idx], lg)
+                self._decode(gen)
             did = True
         return did
+
+    def _decode(self, gen: dict[int, int]):
+        """One batched decode step for `gen` ({slot: pending token})."""
+        if all(self._device_greedy_ok(self.slots[i]) for i in gen):
+            # ids-only read-back: argmax on the device
+            ids = self.engine.decode_batch_greedy(gen)
+            for idx, tok in ids.items():
+                self._advance_token(self.slots[idx], tok)
+        else:
+            logits = self.engine.decode_batch(gen)
+            for idx, lg in logits.items():
+                self._advance(self.slots[idx], lg)
 
     @staticmethod
     def _device_greedy_ok(slot: _Slot) -> bool:
         """Argmax on the device is exact iff no host-side logits transform
-        can change the argmax: greedy temp, no penalties/DRY/bias, no
-        grammar constraint, and the request wants no logprobs."""
-        s = slot.sampler
-        p = s.params
-        return (
-            p.greedy
-            and p.mirostat == 0
-            and not p.logit_bias
-            and p.penalty_repeat == 1.0
-            and p.penalty_freq == 0.0
-            and p.penalty_present == 0.0
-            and p.dry_multiplier == 0.0
-            and s.constraint_fn is None
-            and slot.request.n_probs == 0
-        )
+        can change the argmax (greedy temp, no penalties/DRY/bias, no
+        grammar constraint: `argmax_exact`) and the request wants no
+        logprobs."""
+        return argmax_exact(slot.sampler) and slot.request.n_probs == 0
+
+    # -- speculative decoding ---------------------------------------------------
+
+    def _speculative_step(self, gen: dict[int, int]):
+        """Draft + batched verify for every generating slot (≡ the
+        reference's update_slots speculative branch). Slots with no draft
+        this round ride the same verify step with a single token."""
+        eng = self.engine
+        width = self.n_draft + 1
+        # stay clear of the context end: the verify write needs width cache
+        # rows and the step after the accept one more
+        can = {idx: pend for idx, pend in gen.items()
+               if int(eng.n_past[idx]) + width + 1 < eng.max_seq}
+        no_room = {idx: pend for idx, pend in gen.items() if idx not in can}
+        drafts = self._propose(can) if can else {}
+        if not any(drafts.values()):
+            self._decode(gen)
+            return
+        # draft-less slots with room ride the same verify step (its shape is
+        # fixed: a one-token row costs nothing extra)
+        seqs = {idx: [gen[idx]] + drafts.get(idx, [])[: width - 1] for idx in can}
+        r = eng.verify_step(seqs, width)
+        greedy = {idx for idx in seqs if self._device_greedy_ok(self.slots[idx])}
+        ids = r.ids.tolist() if greedy else None
+        rows = {idx: r.logits[idx].to("cpu", copy=True).numpy()
+                for idx in seqs if idx not in greedy}  # a sampled slot's own rows
+        for idx, fed in seqs.items():
+            if idx in greedy:
+                self._accept(self.slots[idx], fed, ids=ids[idx])
+            else:
+                self._accept(self.slots[idx], fed, logits_rows=rows[idx])
+        if no_room:  # rare: the last `width` tokens before a context shift
+            self._decode(no_room)
+
+    def _propose(self, gen: dict[int, int]) -> dict[int, list[int]]:
+        if self.spec_type == "draft":
+            return self._propose_draft(gen)
+        out = {}
+        for idx, pend in gen.items():
+            slot = self.slots[idx]
+            if slot.speculator is None:
+                slot.speculator = make_speculator(self.spec_type, n_draft=self.n_draft)
+            # slot.tokens ends with the pending token = the speculator
+            # contract's "ctx ending in the next token to feed"
+            slot.speculator.resync(slot.tokens)
+            out[idx] = slot.speculator.propose(pend, self.n_draft)
+        return out
+
+    def _propose_draft(self, gen: dict[int, int]) -> dict[int, list[int]]:
+        """Batched greedy draft continuation on the draft model: n_draft
+        batched steps serve every speculating slot at once, the argmax on
+        the device. A slot's draft cache is first brought to its context
+        but the pending token: rewound, or fed the few tokens it misses
+        together with the pending token in one verify step (whose ids at
+        the pending token's row are the first drafts), or, for a prompt's
+        worth, in joint prefill rounds."""
+        d = self.draft_engine
+        rows = self.n_draft + 1
+        tails, long = {}, {}
+        for idx in gen:
+            toks = self.slots[idx].tokens
+            want = len(toks) - 1  # the draft cache holds ctx[:-1]
+            have = int(d.n_past[idx])
+            if have > want:
+                d.rewind(idx, want)
+                have = want
+            tail = toks[have:want]
+            if len(tail) >= rows:
+                long[idx] = tail
+            elif tail:
+                tails[idx] = tail
+        if long:
+            d.prefill_slots(long)
+        drafts = {idx: [] for idx in gen}
+        cur = dict(gen)
+        first = None
+        if tails and all(int(d.n_past[i]) + rows <= d.max_seq for i in gen):
+            seqs = {i: tails.get(i, []) + [cur[i]] for i in gen}
+            ids = d.verify_batch_greedy(seqs, rows)
+            first = {i: ids[i][len(seqs[i]) - 1] for i in gen}
+            for i, seq in seqs.items():
+                d.n_past[i] += len(seq)
+        elif tails:
+            d.prefill_slots(tails)
+        for step in range(self.n_draft):
+            if step == 0 and first is not None:
+                out = first
+            else:
+                if any(int(d.n_past[i]) + 1 >= d.max_seq for i in cur):
+                    break
+                out = d.decode_batch_greedy(cur)
+            for idx, t in out.items():
+                drafts[idx].append(t)
+                cur[idx] = t
+        return drafts
+
+    def _accept(self, slot: _Slot, fed: list[int], logits_rows=None, ids=None):
+        """Longest-matching-prefix acceptance over one slot's verify rows
+        (their logits, or for a greedy slot their argmax ids). fed[0] is the
+        committed pending token; fed[1:] are drafts. Row j holds the
+        distribution after fed[:j+1]."""
+        eng, idx = self.engine, slot.index
+        old = int(eng.n_past[idx])
+        n_drafted = len(fed) - 1
+        n_accepted = 0
+        n_valid = 0
+        for j in range(len(fed)):
+            n_valid = j + 1
+            if ids is not None:
+                self._advance_token(slot, ids[j], spec=True)
+            else:
+                self._advance(slot, logits_rows[j], spec=True)
+            if slot.state != SlotState.GENERATING:
+                break
+            if j + 1 < len(fed) and slot.pending_token == fed[j + 1]:
+                n_accepted += 1
+                continue
+            break
+        eng.n_past[idx] = old + n_valid
+        self.n_spec_drafted += n_drafted
+        self.n_spec_accepted += n_accepted
+        if slot.speculator is not None and hasattr(slot.speculator, "accept"):
+            slot.speculator.accept(n_accepted)
+        # the context-shift check deferred from the accept loop (n_past was
+        # not yet committed there)
+        if (slot.state == SlotState.GENERATING
+                and int(eng.n_past[idx]) + 1 >= eng.max_seq):
+            self._context_shift(slot)
 
     def _prepare_admit(self, slot: _Slot, req: GenRequest) -> list[int] | None:
         """Slot bookkeeping for a new request up to (not including) the
@@ -373,6 +523,12 @@ class Scheduler:
         else:
             eng.free_slot(slot.index)
             tail = req.prompt_ids
+        # speculative state belongs to the previous request; the draft cache
+        # keeps only the prefix that still matches the new prompt
+        slot.speculator = None
+        if self.draft_engine is not None:
+            d = self.draft_engine
+            d.rewind(slot.index, min(int(d.n_past[slot.index]), n_common))
         slot.tokens = list(req.prompt_ids)
         self.n_prompt_tokens += n
         return tail
@@ -411,14 +567,17 @@ class Scheduler:
             eng.shift_slot(idx_slot, idx, delta)
         return head_p
 
-    def _advance(self, slot: _Slot, logits: np.ndarray, first: bool = False):
+    def _advance(self, slot: _Slot, logits: np.ndarray, first: bool = False,
+                 spec: bool = False):
         token = slot.sampler.sample(logits)
-        self._advance_token(slot, token, logits=logits, first=first)
+        self._advance_token(slot, token, logits=logits, first=first, spec=spec)
 
     def _advance_token(self, slot: _Slot, token: int, logits: np.ndarray | None = None,
-                       first: bool = False):
+                       first: bool = False, spec: bool = False):
         """Bookkeeping after one sampled token; `logits` is None on the
-        device-greedy path (taken only when n_probs == 0)."""
+        device-greedy path (taken only when n_probs == 0). Inside a
+        speculative accept run (`spec`) n_past is not yet committed, so the
+        context-shift check waits for `_accept`."""
         req = slot.request
         slot.sampler.accept(token)
         vocab = self.engine.tokenizer.vocab
@@ -452,7 +611,7 @@ class Scheduler:
         if slot.n_generated >= req.max_tokens:
             self._finish(slot, "length")
             return
-        if int(self.engine.n_past[slot.index]) + 1 >= self.engine.max_seq:
+        if not spec and int(self.engine.n_past[slot.index]) + 1 >= self.engine.max_seq:
             self._context_shift(slot)
         slot.pending_token = token
 
@@ -470,6 +629,10 @@ class Scheduler:
         # would write it into the cache twice
         eng.prefill_slot(slot.index, kept[:-1])
         slot.tokens = list(kept)
+        # the draft cache no longer matches the compressed history; ngram
+        # speculators realign through their prefix-safe resync
+        if self.draft_engine is not None:
+            self.draft_engine.free_slot(slot.index)
         self.n_context_shifts += 1
         self._wake.set()
 

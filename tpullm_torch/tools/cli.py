@@ -7,13 +7,16 @@ fallback (≡ LLAMA_ARG_* convention). It runs on the card (`--device cuda`,
 the default) unless asked for the CPU (`--device cpu`); the completion's
 tokens come from `Engine.generate_tokens`: a prefill, then logits-only
 decode steps (on the card CUDA-graph replays) through the host Sampler.
+With a draft model (-md) or n-gram lookup (--spec-ngram) they come from
+`generate_speculative` instead: up to --draft-max drafts a round, verified
+in one forward (on the card a graph replay).
 
     python -m tpullm_torch.tools.cli -m model.gguf -p "Once upon a time" -n 64
+    python -m tpullm_torch.tools.cli -m model.gguf -md draft.gguf -p "..." -n 64 -v
 
-Not ported yet (each exits with a message, ROADMAP 1.4): speculative
-decoding (-md, --spec-ngram), self-extend (--grp-attn-n > 1) and the iSWA
-cache switch (--swa-full). The Hugging Face download flags are left out:
-the port's machines have no network.
+Not ported yet (each exits with a message, ROADMAP 1.4): self-extend
+(--grp-attn-n > 1) and the iSWA cache switch (--swa-full). The Hugging
+Face download flags are left out: the port's machines have no network.
 """
 
 from __future__ import annotations
@@ -56,11 +59,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="weight path: packed planes on the qmm kernels, or dequantized "
                          "bf16 through torch.matmul")
     ap.add_argument("-md", "--model-draft", default=_env("model_draft"),
-                    help=f"draft model for speculative decoding ({NOT_PORTED})")
+                    help="draft model for speculative decoding")
     ap.add_argument("--draft-max", type=int, default=int(_env("draft_max", 5)),
                     help="max draft tokens per round")
     ap.add_argument("--spec-ngram", action="store_true",
-                    help=f"model-free n-gram speculation ({NOT_PORTED})")
+                    help="model-free n-gram speculation")
     ap.add_argument("--prompt-cache", default=None,
                     help="session file: restore matching prompt prefix, save after")
     ap.add_argument("--override-kv", action="append", default=[],
@@ -117,8 +120,7 @@ def apply_preset(args, parser, argv):
 
 def check_ported(args) -> None:
     """Exit with a message for the options the port does not serve yet."""
-    for flag, used in (("-md/--model-draft", args.model_draft), ("--spec-ngram", args.spec_ngram),
-                       ("--grp-attn-n > 1", int(args.grp_attn_n) > 1),
+    for flag, used in (("--grp-attn-n > 1", int(args.grp_attn_n) > 1),
                        ("--swa-full", args.swa_full)):
         if used:
             raise SystemExit(f"tpullm-torch: {flag} is {NOT_PORTED}")
@@ -179,16 +181,38 @@ def run_completion(args) -> int:
         except ValueError as e:
             print(f"[prompt cache ignored: {e}]", file=sys.stderr)
             eng.reset()
-    out_toks = []
-    for tok in eng.generate_tokens(ids_tail, max_new_tokens=args.n_predict, sampler=sampler):
-        out_toks.append(tok)
-        sys.stdout.write(eng.tokenizer.detokenize([tok]))
-        sys.stdout.flush()
-    if args.prompt_cache:
-        from ..runtime.state import save_state
+    if args.model_draft or args.spec_ngram:
+        # the speculative path manages its own cache: a restored state is dropped
+        eng.reset()
+        from ..runtime.engine import Engine
+        from ..runtime.speculative import (DraftModelSpeculator, NgramSpeculator,
+                                           generate_speculative)
 
-        save_state(eng, args.prompt_cache, tokens=ids + out_toks[:-1])
-        print(f"[prompt cache: saved {eng.n_past} tokens]", file=sys.stderr)
+        if args.model_draft:
+            spec = DraftModelSpeculator(
+                Engine(args.model_draft, device=args.device, mode=args.mode,
+                       max_seq=int(args.ctx_size)),
+                n_draft=int(args.draft_max))
+        else:
+            spec = NgramSpeculator(n_draft=int(args.draft_max))
+        out, stats = generate_speculative(eng, spec, ids, max_new_tokens=args.n_predict,
+                                          sampler=sampler)
+        sys.stdout.write(eng.tokenizer.detokenize(out))
+        if args.verbose:
+            print(f"\nspeculative: {stats.n_rounds} rounds, {stats.n_drafted} drafted, "
+                  f"accept {stats.accept_rate:.0%}", file=sys.stderr)
+    else:
+        out_toks = []
+        for tok in eng.generate_tokens(ids_tail, max_new_tokens=args.n_predict,
+                                       sampler=sampler):
+            out_toks.append(tok)
+            sys.stdout.write(eng.tokenizer.detokenize([tok]))
+            sys.stdout.flush()
+        if args.prompt_cache:
+            from ..runtime.state import save_state
+
+            save_state(eng, args.prompt_cache, tokens=ids + out_toks[:-1])
+            print(f"[prompt cache: saved {eng.n_past} tokens]", file=sys.stderr)
     sys.stdout.write("\n")
     if args.verbose:
         print(eng.perf.report(), file=sys.stderr)
