@@ -35,6 +35,12 @@ Phases, in order; any failure raises and exits nonzero:
     bounds of the JAX package's conformance sweep; each timed with CUDA
     events over a CUDA graph of back-to-back calls (device time, not the
     Python wrapper's dispatch) beside its bound and a PyTorch library call;
+ 3a. flash at head dim 256 (the Gemma family): bf16, f16, f32 and q8 KV,
+    Gemma-3-4B's heads (8 on 4 KV heads), S = 4096, the decode regime at
+    T = 1 (B = 2, and B = 1 in a window of 1024) and the prefill regime at
+    T = 512 (B = 2, and B = 1 in the window), each timed as in 3 and
+    against the plain version of its own order, and Gemma-2's softcap 50
+    in both regimes;
  3b. batched kernels: the shapes continuous batching gives the kernels,
     each against its plain version and timed as in 3: flash's decode
     regime at B = 4 and 8 slots with idle slots at offset −1 (their rows
@@ -124,6 +130,19 @@ Phases, in order; any failure raises and exits nonzero:
  8. mixtral: a Mixtral-8x7B Q4_K_M GGUF with 4 layers (the 8-expert
     recipe; its Q4_K, Q5_K, Q6_K and Q8_0 tensors) synthesized from a seed
     and served the same way with a bf16 KV cache, with the graph phase;
+ 8b. gemma: Gemma-3-4B Q4_K_M (34 layers, head dim 256, a window of 1024 on
+    five layers of six, vocab 262144, tied head) synthesized from a seed:
+    the tied Q6_K embedding's load peak in one piece and in row chunks;
+    Engine with the bf16 iSWA ring (2048 slots), with swa_full and with a
+    q8 cache, prompts of 512 and 2560 tokens (the longer wraps the ring)
+    and 64 greedy tokens each on the decode graph: TTFT, decode tok/s, the
+    launches of a decode replay and of a prefill forward (the ring: flash
+    on the 5 global layers, attention_ring on the 29 others), a decode
+    token's device time by family; f16 and f32 rings; ring against
+    swa_full teacher-forced on the same ids (NMSE ≤ 1e-3), each run
+    against dense bf16 weights; a state file of the ring engine saved and
+    restored; a BatchEngine of 4 slots on the ring against Engine, a slot
+    freed and admitted again;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dim 96 through the counted dense path;
@@ -193,7 +212,10 @@ QMM_EXTRA = {"Q4_K": QMM_SHAPES[:2] + QMM_SHAPES[4:], "Q6_K": QMM_SHAPES[:2] + Q
 # the flash kernels by KV cache format (ops/kernels/flash.py FORMATS)
 FLASH_FORMATS = ("bf16", "f16", "f32", "q8")
 FLASH_KEYS = tuple(f"flash_{fmt}" for fmt in FLASH_FORMATS)
-KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS)
+# flash's instantiations at head dim 256 (the Gemma family), a line each
+FLASH256_KEYS = tuple(f"flash_{fmt}_d256" for fmt in FLASH_FORMATS)
+KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS,
+           *FLASH256_KEYS)
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
@@ -201,19 +223,20 @@ REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_tc": "Q4_K gate_up M=512",
                   "qmm_grouped": "Q4_K gate_up M=1", "qmm_stack": "Q4_K gate M=512 shared",
                   "qmm_gather": "Q4_K gate T=2",
-                  **{f"flash_{fmt}": f"{fmt} T=1 S=4096" for fmt in FLASH_FORMATS}}
+                  **{f"flash_{fmt}": f"{fmt} T=1 S=4096" for fmt in FLASH_FORMATS},
+                  **{f"flash_{fmt}_d256": f"{fmt} T=1 B=2 S=4096 D=256" for fmt in FLASH_FORMATS}}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
-            **{key: "tpullm/ops/pallas/flash.py:69" for key in FLASH_KEYS}}
+            **{key: "tpullm/ops/pallas/flash.py:69" for key in FLASH_KEYS + FLASH256_KEYS}}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
-           **{key: "tpullm_torch/csrc/flash.cu" for key in FLASH_KEYS}}
+           **{key: "tpullm_torch/csrc/flash.cu" for key in FLASH_KEYS + FLASH256_KEYS}}
 
 
 def log(*a):
@@ -339,7 +362,10 @@ def ptxas_entries(report: str) -> list[tuple[str, int, int, int]]:
     return out
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Builds every library; returns each kernel's (registers, spill store
+    bytes, spill load bytes) from the ptxas report (empty for libraries
+    built before)."""
     from tpullm_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
@@ -347,9 +373,10 @@ def phase_build():
     log(f"[build] {len(reports)} libraries in {time.perf_counter() - t0:.1f}s "
         f"into {_build.BUILD_DIR}; nvcc seconds per library "
         f"{ {name: round(sec, 1) for name, (_, sec) in reports.items()} }")
-    tc = []
+    tc, regs = [], {}
     for name, (rep, _) in reports.items():
         entries = ptxas_entries(rep)
+        regs.update({k: (r, st, ld) for k, r, st, ld in entries})
         log(f"[build] {name}: " + "; ".join(f"{k} {r} regs, spill {st}/{ld} B"
                                            for k, r, st, ld in entries))
         tc += [(k, r, st, ld) for k, r, st, ld in entries
@@ -360,6 +387,9 @@ def phase_build():
             log(f"[build] {kind}: {len(ks)} instantiations, registers {min(e[1] for e in ks)}–"
                 f"{max(e[1] for e in ks)}, spill stores {max(e[2] for e in ks)} B at most, "
                 f"spilling: {[e[0] for e in ks if e[2] or e[3]]}")
+    d256 = {k: v for k, v in regs.items() if k.startswith("flash_") and "<256," in k}
+    log(f"[build] flash at D = 256 (registers, spill stores, spill loads): {d256}")
+    return regs
 
 
 def _random_planes(gtype, n_out: int, n_in: int, gen, dev):
@@ -700,15 +730,22 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
             row[f"p_terms{terms}_nmse"] = nmse(rounded, exact)
         del exact, rounded
     row["nmse_own_order"] = nmse(got.float(), own.float())
-    # work this run's data needs: keys up to each row's position, per head
+    # work this run's data needs: keys up to each row's position (in its
+    # window), per head, and the keys [window start, kv_len) read
     q_pos = np.asarray(offsets)[:, None] + np.arange(T)[None]
-    visible = float(np.minimum(q_pos + 1, S).sum())
+    vis = np.minimum(q_pos + 1, S)
+    visible = float((np.minimum(vis, window) if window > 0 else vis).sum())
     kv_len = np.minimum(np.asarray(offsets) + T, S)
+    if window > 0:
+        kv_len = kv_len - np.maximum(0, np.asarray(offsets) - window + 1)
     per_pos = D * k.element_size() if not q8 else D + 4  # bytes of one K (or V) row
     n_bytes = 2 * q.numel() * 2 + 2 * float(kv_len.sum()) * Hkv * per_pos
     bms, by = bound_ms(n_bytes, 4.0 * D * H * visible)
     pos = torch.arange(S, device=dev)
-    mask = (pos[None, None, :] <= (off[:, None] + torch.arange(T, device=dev))[..., None])
+    q_at = (off[:, None] + torch.arange(T, device=dev))[..., None]
+    mask = pos[None, None, :] <= q_at
+    if window > 0:
+        mask &= pos[None, None, :] > q_at - window
     mask = mask[:, None]  # [B, 1, T, S]
     qt = q.transpose(1, 2).to(k_lib.dtype)  # SDPA on the cache's dtype
     k_lib = k_lib.repeat_interleave(H // Hkv, dim=1)  # GQA heads expanded outside the timing
@@ -768,6 +805,54 @@ def phase_flash(dev, results: dict):
                               "(plain versions, f32 output, against f32 p)")
             log(f"[flash] {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
                 f"{row['max_abs_err']:.3g}{extra}")
+    torch.cuda.empty_cache()
+
+
+# Gemma-3-4B's attention: 8 query heads on 4 KV heads of head dim 256, a
+# window of 1024 on five layers of six; Gemma-2's softcap 50
+D256_HEADS = dict(H=8, Hkv=4, D=256, S=4096)
+D256_WINDOW = 1024
+
+
+def phase_flash256(dev, results: dict):
+    """Flash at head dim 256 (the Gemma family), each KV format: the decode
+    regime at T = 1, B = 2 and B = 1, the prefill regime at T = 512, each
+    without and with Gemma-3's window of 1024, S = 4096 (timed beside its
+    bound and SDPA on the cache's dtype, and against the plain version of
+    its own order), and Gemma-2's softcap 50 in both regimes (timed beside
+    SDPA without it, which has none); rows go to `results` under
+    flash_<fmt>_d256."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(7)
+    w = D256_WINDOW
+    for fmt in FLASH_FORMATS:
+        key = f"flash_{fmt}_d256"
+        bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+        cases = [(f"{fmt} T=1 B=2 S=4096 D=256", dict(T=1, B=2, offsets=(37, 3000))),
+                 (f"{fmt} T=1 B=1 window={w} S=4096 D=256",
+                  dict(T=1, B=1, offsets=(3000,), window=w)),
+                 (f"{fmt} T=512 B=2 S=4096 D=256", dict(T=512, B=2, offsets=(0, 2500))),
+                 (f"{fmt} T=512 B=1 window={w} S=4096 D=256",
+                  dict(T=512, B=1, offsets=(2500,), window=w)),
+                 (f"{fmt} T=1 B=2 softcap=50 window={w} D=256",
+                  dict(T=1, B=2, offsets=(37, 3000), softcap=50.0, window=w)),
+                 (f"{fmt} T=512 B=2 softcap=50 D=256",
+                  dict(T=512, B=2, offsets=(0, 2500), softcap=50.0))]
+        for label, kw in cases:
+            row = _flash_case(dev, gen, fmt=fmt, timed=True, **D256_HEADS, **kw)
+            row["case"] = label
+            expect(row["finite"], f"flash {label} finite")
+            expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                   f"flash {label} NMSE {row['nmse']:.3e}, against the plain version of its "
+                   f"own order {row['nmse_own_order']:.3e} <= {bound}")
+            results.setdefault(key, []).append(row)
+            log(f"[flash256] {label} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
+                f"{row['max_abs_err']:.3g} (own order {row['nmse_own_order']:.2e}) kernel "
+                f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}) plain {row['plain_ms']:.3f} ms sdpa "
+                f"{row['library_ms']:.4f} ms" + (" (SDPA without the softcap)"
+                                                 if "softcap" in label else ""))
     torch.cuda.empty_cache()
 
 
@@ -933,7 +1018,9 @@ def read_launches() -> dict:
                 **{f"flash_{fmt}": flash.LAUNCHES[fmt] for fmt in FLASH_FORMATS},
                 **{f"flash_{fmt}.decode": flash.DECODE_LAUNCHES[fmt] for fmt in FLASH_FORMATS},
                 "dequant_routes": sum(qmm.DEQUANT_ROUTES.values()),
-                "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values())})
+                "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values()),
+                "attn_ring_routes": sum(flash.ATTN_RING_ROUTES.values()),
+                **{f"flash_{k}": n for k, n in flash.HEAD_DIM_LAUNCHES.items()}})
     for kind, counts in (("qmm_tc", qmm.TC_LAUNCHES), ("qmm_grouped", qmm.GROUPED_LAUNCHES),
                          ("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
         got.update({f"{kind}.{fmt}": n for fmt, n in counts.items() if n})
@@ -1459,7 +1546,8 @@ def graph_decode(label: str, kv_name: str, eng, word_ids, count, graph_prof: dic
     one = runner.launches_per_replay()
     want = {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
             "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"], "attn_dense_routes": 0}
+            "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+            "attn_dense_routes": 0, "attn_ring_routes": 0}
     log(f"{tag} launches per replay (one token) {one}; capture {runner.capture_s:.3f} s, "
         f"graph pool {runner.pool_bytes / 2**20:.1f} MiB")
     expect(one == want, f"{label}: launches per replay {one} = per forward {want}")
@@ -1976,7 +2064,8 @@ def _batch_launches(eng) -> dict:
     per = per_forward_launches(eng.params)
     return {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
             "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"], "attn_dense_routes": 0}
+            "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+            "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
 def _step_ms(eng, active, prompt: list[int], greedy: bool = True) -> float:
@@ -2310,7 +2399,8 @@ def verify_launches(eng, rows: int, T: int) -> dict:
             "qmm_stack": per["experts"] if stack else 0,
             "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
             "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"] if decode else 0, "attn_dense_routes": 0}
+            "flash_decode": per["flash"] if decode else 0,
+            "flash_head_dim": per["flash"], "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
 def count_forwards(eng):
@@ -2711,6 +2801,310 @@ def phase_speculative(path: Path, tmp: Path, launches: dict) -> dict:
     return out
 
 
+# Gemma-3-4B (google/gemma-3-4b-it text_config) at Q4_K_M on the iSWA ring
+GEMMA_CTX = 4096  # max_seq: the ring is R = round_up(1023 + 1024, 128) = 2048 slots
+GEMMA_LENS = (512, 2560)  # prompts; 2560 wraps the ring, its prefill three chunks of ≤ 1024
+GEMMA_GEN = 64  # greedy tokens a prompt
+GEMMA_RING = 2048
+GEMMA_SLOTS = 4
+# ring against swa_full, teacher-forced on the same ids over the 2560-token
+# prompt and its 64 tokens: the ring's layers run attention_reference in
+# f32, swa_full's the flash kernel (p to bf16 as two terms); both hold bf16
+# K/V and round their outputs to bf16 alike
+GEMMA_RING_NMSE_BOUND = 1e-3
+
+
+def _nmse_np(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.mean((got - ref) ** 2) / max(np.mean(ref * ref), 1e-300))
+
+
+def _teacher_logits(eng, prompt: list[int], ids: list[int]) -> list:
+    """Logits of `prompt`'s last row and of decode_step over ids[:-1] (the
+    logits graph), teacher-forced: len(ids) rows."""
+    eng.reset()
+    rows = [eng.prefill(prompt)]
+    for t in ids[:-1]:
+        rows.append(eng.decode_step(t))
+    return rows
+
+
+def gemma_launch_want(eng, rows: int) -> dict:
+    """One gemma forward's launches by COUNT_NAMES at `rows` rows (1: a
+    decode step): every 2-D qmm of the layers (the tied head is a plain
+    product), flash on the global layers (every layer without the ring) in
+    the regime T·H/Hkv picks, the ring's layers through attention_ring."""
+    from tpullm_torch.ops.kernels import flash, qmm
+
+    per = per_forward_launches(eng.params)
+    n_ring = sum(eng.hp.is_swa(i) for i in range(eng.hp.n_layer)) if eng.ring else 0
+    n_flash = eng.hp.n_layer - n_ring
+    tc = rows >= qmm.TC_MIN_M
+    decode = flash.regime(rows, eng.hp.n_head, eng.hp.n_head_kv) == "decode"
+    return {"qmm": 0 if tc else per["qmm_layers"], "qmm_tc": per["qmm_layers"] if tc else 0,
+            "qmm_stack": 0, "qmm_gather": 0, "qmm_grouped": 0, "dequant_routes": 0,
+            "flash": n_flash, "flash_decode": n_flash if decode else 0,
+            "flash_head_dim": n_flash, "attn_dense_routes": 0, "attn_ring_routes": n_ring}
+
+
+def _launch_delta(before: list) -> dict:
+    """The launches since `before` (a snapshot of launch_counts()) by
+    COUNT_NAMES."""
+    from tpullm_torch.runtime.graph import COUNT_NAMES, launch_counts
+
+    return {name: sum(c.values()) - sum(b.values())
+            for name, c, b in zip(COUNT_NAMES, launch_counts(), before)}
+
+
+def _snapshot() -> list:
+    from tpullm_torch.runtime.graph import launch_counts
+
+    return [dict(c) for c in launch_counts()]
+
+
+def embedding_peak(path: Path) -> dict:
+    """The card's peak GiB above the baseline of load_embedding on the
+    model's tied table: in one piece (as it loaded before the row chunks) and in its
+    row chunks."""
+    import torch
+
+    from tpullm_torch.gguf.reader import GGUFReader
+    from tpullm_torch.models.weights import EMBEDDING_CHUNK_ROWS, load_embedding
+
+    info = GGUFReader(path).tensors["token_embd.weight"]
+    out = {}
+    for name, rows in (("one_piece", info.shape[1]), ("chunked", EMBEDDING_CHUNK_ROWS)):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        w = load_embedding(info, torch.device("cuda"), chunk_rows=rows)
+        torch.cuda.synchronize()
+        out[name] = dict(peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                         table_gib=w.numel() * w.element_size() / 2**30,
+                         s=time.perf_counter() - t0)
+        del w
+    log(f"[gemma] embedding {info.ggml_type.name} {tuple(info.shape)}: peak above the "
+        f"baseline {out['one_piece']['peak_gib']:.2f} GiB in one piece, "
+        f"{out['chunked']['peak_gib']:.2f} GiB in chunks of {EMBEDDING_CHUNK_ROWS} rows "
+        f"(the bf16 table {out['chunked']['table_gib']:.2f} GiB)")
+    return out
+
+
+def gemma_run(label: str, eng, word_ids) -> dict:
+    """One cache kind of an Engine on Gemma-3-4B: a warm-up generation,
+    then each prompt of GEMMA_LENS and GEMMA_GEN greedy tokens (the decode
+    graph), TTFT and decode tok/s; one prefill forward's and one decode
+    replay's launches against gemma_launch_want; the ids of the 2560-token
+    prompt's generation."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+
+    before = _snapshot()
+    eng.generate_tokens_device(word_ids(16), 8, stop_on_eog=False)
+    out = dict(kv=label, ttft_ms={}, decode_tok_s={}, ids={})
+    for n in GEMMA_LENS:
+        eng.reset()
+        p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
+        ids = eng.generate_tokens_device(word_ids(n), GEMMA_GEN, stop_on_eog=False)
+        ttft = eng.perf.t_prefill_s - p0[0]
+        rate = (eng.perf.n_decode - p0[2]) / (eng.perf.t_decode_s - p0[1])
+        expect(len(ids) == GEMMA_GEN and all(0 <= t < eng.hp.n_vocab for t in ids),
+               f"gemma {label}: {GEMMA_GEN} ids in range from the {n}-token prompt")
+        out["ttft_ms"][n], out["decode_tok_s"][n], out["ids"][n] = ttft * 1e3, rate, ids
+        log(f"[gemma] {label} prompt {n}: TTFT {ttft * 1e3:.1f} ms, decode {rate:.2f} tok/s "
+            f"(graph), first ids {ids[:6]}")
+    runner = eng.decode_runner(SamplingParams(), 32)
+    one = runner.launches_per_replay()
+    want = gemma_launch_want(eng, 1)
+    log(f"[gemma] {label} launches per decode replay {one}")
+    expect(one == want, f"gemma {label}: launches per decode replay {one} = {want}")
+    eng.reset()
+    snap = _snapshot()
+    eng.prefill(word_ids(512))
+    torch.cuda.synchronize()
+    got = _launch_delta(snap)
+    want = gemma_launch_want(eng, 512)
+    log(f"[gemma] {label} launches of one 512-token prefill forward {got}")
+    expect(got == want, f"gemma {label}: one prefill forward's launches {got} = {want}")
+    out["launches_per_decode"], out["launches_per_prefill"] = one, got
+    prof = profile_decode(eng, runner, word_ids(512), 32)
+    out["device_ms_per_token"] = prof["device_ms_per_token"]
+    out["event_span_ms_per_token"] = prof["event_span_ms_per_token"]
+    log(f"[gemma] {label}: a decode token's device ms by family (32 graph replays after a "
+        f"512-token prompt) { {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } "
+        f"(event span {prof['event_span_ms_per_token']:.3f} ms)")
+    out["run_launches"] = _launch_delta(before)
+    return out
+
+
+def phase_gemma(tmp: Path, launches: dict) -> dict:
+    """Gemma-3-4B Q4_K_M at full width and depth (34 layers, head dim 256,
+    5 of 6 layers on a 1024-token window, vocab 262144, tied head),
+    synthesized from seed 0:
+    1. the tied Q6_K embedding's load peak in one piece and in row chunks;
+    2. Engine with the bf16 ring (R = 2048), with swa_full=True and with a
+       q8 cache (the q8 cache keeps every layer in full, windows in flash):
+       prompts of 512 and 2560 tokens (the longer wraps the ring; on the
+       ring three prefill chunks), 64 greedy tokens each on the decode
+       graph; TTFT, decode tok/s; launches of a decode replay and of a
+       prefill forward (the ring: flash 5, attention_ring 29; otherwise
+       flash 34); a decode token's device time by family, attention_ring's
+       share timed as its call at the decode shape; the ring engine also
+       runs f16 and f32 rings (flash at D = 256 on every cache format);
+    3. ring against swa_full, teacher-forced on the ring's greedy ids over
+       the 2560-token prompt: logits NMSE ≤ GEMMA_RING_NMSE_BOUND; each
+       run's greedy ids and where they part; each run teacher-forced
+       against dense bf16 weights on the same cache kind, NMSE printed;
+    4. a state file of the ring engine saved and restored (the ring and
+       its slot positions), the continuation's logits equal;
+    5. a BatchEngine of 4 slots on the ring (prefill chunk 512), its
+       batched logits teacher-forced against Engine.decode_step, then a
+       slot freed (its ring marked empty) and admitted again."""
+    import torch
+
+    from tpullm_torch.ops import attention
+    from tpullm_torch.ops.kernels import flash
+    from tpullm_torch.runtime import state
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import SWACache
+
+    path = synthesize(tmp, "gemma", "gemma-3-4b", "Q4_K_M")
+    emb = embedding_peak(path)
+    result = dict(embedding=emb, runs={})
+    tf = {}
+    reset_launches()  # just before the main path
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(path, max_seq=GEMMA_CTX)
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    hp = eng.hp
+    log(f"[gemma] {hp.arch}: {hp.n_layer} layers, n_embd {hp.n_embd}, heads {hp.n_head}/"
+        f"{hp.n_head_kv} of {hp.head_dim}, window {hp.sliding_window} (global layers "
+        f"{[i for i in range(hp.n_layer) if not hp.is_swa(i)]}), vocab {hp.n_vocab}; loaded "
+        f"in {eng.perf.t_load_s:.1f}s, peak {load_peak:.2f} GiB")
+    expect(isinstance(eng.cache, SWACache) and eng.cache.ring_len == GEMMA_RING
+           and eng.prefill_cap == 1024, "gemma: the ring of 2048 slots, prefill chunks of 1024")
+
+    def word_ids(n):
+        return _word_ids(eng.tokenizer, n)
+
+    prompt = word_ids(GEMMA_LENS[-1])
+    run = gemma_run("ring bf16", eng, word_ids)
+    run.update(load_s=eng.perf.t_load_s, load_peak_gib=load_peak)
+    ids = run["ids"][GEMMA_LENS[-1]]
+    tf["ring"] = _teacher_logits(eng, prompt, ids)
+    # attention_ring's share of a decode token: its call at the decode shape
+    g = torch.Generator("cuda").manual_seed(3)
+    q = torch.randn(1, 1, hp.n_head, hp.head_dim, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(1, hp.n_head_kv, GEMMA_RING, hp.head_dim, generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    mask = torch.ones(1, 1, GEMMA_RING, dtype=torch.bool, device="cuda")
+    ring_call = time_ms(lambda: attention.attention_reference(q, k, v, mask, 0.0625), 20)
+    n_ring = sum(hp.is_swa(i) for i in range(hp.n_layer))
+    run["attn_ring_ms_per_token"] = ring_call * n_ring
+    log(f"[gemma] ring bf16: attention_ring at the decode shape (the full ring) "
+        f"{ring_call:.4f} ms a call × {n_ring} = {ring_call * n_ring:.3f} ms of 'other'")
+    # state file: the ring and its slot positions round trip
+    eng.reset()
+    sp = word_ids(512)
+    eng.prefill(sp)
+    f = tmp / "gemma-state.npz"
+    t0 = time.perf_counter()
+    state.save_state(eng, f, tokens=sp)
+    want = [eng.decode_step(t) for t in (5, 6)]
+    eng.reset()
+    t1 = time.perf_counter()
+    expect(state.load_state(eng, f) == sp and eng.n_past == 512, "gemma: the state restores")
+    got = [eng.decode_step(t) for t in (5, 6)]
+    err = max(_nmse_np(a, b) for a, b in zip(got, want))
+    log(f"[gemma] state file of the ring engine ({f.stat().st_size / 2**20:.1f} MiB, saved in "
+        f"{t1 - t0:.1f}s with two steps): the continuation after the restore NMSE {err:.2e}")
+    expect(err <= 1e-10, f"gemma: the restored ring continues as saved (NMSE {err:.3e})")
+    f.unlink()
+    result["state_nmse"] = err
+    # the other cache formats on the ring: flash at D = 256 on f16 and f32
+    for kv in ("f16", "f32"):
+        eng.new_cache(kv_dtype=kv)
+        eng.generate_tokens_device(word_ids(512), 16, stop_on_eog=False)
+        log(f"[gemma] {kv} ring: 512-token prompt and 16 tokens; flash {kv} launches at D = 256 "
+            f"{ {k: v for k, v in flash.HEAD_DIM_LAUNCHES.items() if k.startswith(kv + '.d256')} }")
+    result["runs"]["ring"] = run
+    eng.new_cache(kv_dtype=torch.bfloat16)  # the serving check's single-stream Engine
+
+    for name, kw in (("swa_full", dict(swa_full=True)), ("q8", dict(kv_dtype="q8_0"))):
+        e = Engine(path, max_seq=GEMMA_CTX, **kw)
+        expect(not isinstance(e.cache, SWACache), f"gemma {name}: a full cache")
+        r = gemma_run(name, e, word_ids)
+        tf[name] = _teacher_logits(e, prompt, ids)
+        result["runs"][name] = r
+        del e
+        torch.cuda.empty_cache()
+
+    a, b = result["runs"]["ring"]["ids"], result["runs"]["swa_full"]["ids"]
+    for n in GEMMA_LENS:
+        part = next((i for i, (x, y) in enumerate(zip(a[n], b[n])) if x != y), None)
+        log(f"[gemma] greedy ids from the {n}-token prompt, ring {a[n][:12]}… swa_full "
+            f"{b[n][:12]}…: {'equal' if part is None else f'first differ at {part}'}")
+    ring_err = max(_nmse_np(x, y) for x, y in zip(tf["ring"], tf["swa_full"]))
+    log(f"[gemma] ring against swa_full, teacher-forced on {len(ids)} positions after the "
+        f"2560-token prompt: worst NMSE {ring_err:.2e} (bound {GEMMA_RING_NMSE_BOUND})")
+    expect(ring_err <= GEMMA_RING_NMSE_BOUND, f"gemma: ring against swa_full NMSE {ring_err:.3e}")
+    result["ring_vs_swa_full_nmse"] = ring_err
+
+    dense = Engine(path, max_seq=GEMMA_CTX, mode="dense")
+    result["dense_nmse"] = {}
+    for name, kw in (("ring", dict(kv_dtype=torch.bfloat16, swa_full=False)),
+                     ("swa_full", dict(kv_dtype=torch.bfloat16, swa_full=True)),
+                     ("q8", dict(kv_dtype="q8_0", swa_full=False))):
+        dense.new_cache(**kw)
+        rows = _teacher_logits(dense, prompt, ids)
+        errs = [_nmse_np(x, y) for x, y in zip(tf[name], rows)]
+        same = sum(int(np.argmax(x) == np.argmax(y)) for x, y in zip(tf[name], rows))
+        expect(all(np.isfinite(r).all() for r in rows), f"gemma dense {name}: finite logits")
+        result["dense_nmse"][name] = dict(worst=max(errs), mean=float(np.mean(errs)),
+                                          same_top=same, positions=len(rows))
+        log(f"[gemma] {name}: the kernels against dense bf16 weights, teacher-forced: NMSE "
+            f"worst {max(errs):.2e} mean {np.mean(errs):.2e}, same argmax {same}/{len(rows)}")
+    del dense, tf
+    torch.cuda.empty_cache()
+
+    be = BatchEngine(path, n_slots=GEMMA_SLOTS, max_seq=GEMMA_CTX, prefill_chunk=512)
+    single = eng
+    expect(isinstance(be.cache, SWACache) and be.cache.ring_len == 1536,
+           "gemma serving: a ring of 1536 slots a slot (window and a chunk of 512)")
+    lens = (40, 700, 1300, 2000)
+    prompts = [word_ids(n) for n in lens]
+    be.precompile()
+    result["serving"] = teacher_forced("gemma serving", be, single, prompts, 16)
+    be.free_slot(2)
+    expect(int(be.cache.slot_pos[2].max()) == -1, "gemma serving: the freed slot's ring is empty")
+    single.reset()
+    ref = single.prefill(prompts[0])
+    got = be.prefill_slots({2: prompts[0]})[2]
+    err = _nmse_np(got, ref)
+    log(f"[gemma serving] slot 2 freed and admitted with the {lens[0]}-token prompt: NMSE "
+        f"against Engine {err:.2e}")
+    expect(err <= SERVE_NMSE_BOUND, f"gemma serving: the re-admitted slot NMSE {err:.3e}")
+    result["serving"]["readmitted_nmse"] = err
+    del be, single, eng
+    torch.cuda.empty_cache()
+    got = read_launches()  # just after the main path
+    log(f"[gemma] launches of the phase {got}")
+    expect(got["attn_dense_routes"] == 0, "gemma: no call through the dense attention route")
+    for fmt in FLASH_FORMATS:
+        for r in ("decode", "prefill"):
+            expect(got[f"flash_{fmt}.d256.{r}"] > 0,
+                   f"gemma: flash {fmt} at D = 256 launched in the {r} regime")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["launches"] = got
+    path.unlink()
+    return result
+
+
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
     bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
@@ -2900,12 +3294,13 @@ def main() -> int:
         return out
 
     smi = timed("card", phase_card)
-    timed("build", phase_build)
+    ptxas = timed("build", phase_build)
     results: dict = {}
     timed("qmm", phase_qmm, dev, results)
     timed("grouped", phase_grouped, dev, results)
     timed("moe kernels", phase_moe_kernels, dev, results)
     timed("flash", phase_flash, dev, results)
+    timed("flash d256", phase_flash256, dev, results)
     batched: dict = {}
     timed("batched kernels", phase_batched_kernels, dev, results, batched)
     verify: dict = {}
@@ -2921,9 +3316,13 @@ def main() -> int:
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
+        gemma = timed("gemma", phase_gemma, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
-                                        "speculative": spec}))
+                                        "speculative": spec, "gemma": gemma}))
+    for fmt in FLASH_FORMATS:
+        launches[f"flash_{fmt}_d256"] = (launches[f"flash_{fmt}.d256.decode"]
+                                         + launches[f"flash_{fmt}.d256.prefill"])
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 
@@ -2968,7 +3367,23 @@ def main() -> int:
                                            if k.startswith(key + ".")}
         if "cold_ms" in rep:
             entry["cold_ms"] = rep["cold_ms"]
-        if key.startswith("flash"):
+        if key in FLASH256_KEYS:
+            # the decode regime at B = 2 (representative) and B = 1 in the
+            # window, the prefill regime beside it; launches from the Gemma phase
+            fmt = key.split("_")[1]
+            win = next(r for r in rows if r["case"].startswith(f"{fmt} T=1 B=1 window="))
+            pre = next(r for r in rows if r["case"] == f"{fmt} T=512 B=2 S=4096 D=256")
+            entry.update(window_case=win["case"], window_ms=win["ms"],
+                         window_bound_ms=win["bound_ms"], window_library_ms=win["library_ms"],
+                         prefill_case=pre["case"], prefill_ms=pre["ms"],
+                         prefill_plain_ms=pre["plain_ms"], prefill_bound_ms=pre["bound_ms"],
+                         prefill_bound_by=pre["bound_by"], prefill_library_ms=pre["library_ms"],
+                         launches_decode=launches[f"flash_{fmt}.d256.decode"],
+                         launches_prefill=launches[f"flash_{fmt}.d256.prefill"],
+                         registers=ptxas.get(f"flash_decode_kernel<256,{FLASH_FORMATS.index(fmt)}>"),
+                         prefill_registers=ptxas.get(
+                             f"flash_prefill_kernel<256,{FLASH_FORMATS.index(fmt)}>"))
+        elif key.startswith("flash"):
             # the representative is the decode regime (T = 1); the decode
             # regime at short contexts and the prefill regime beside it
             for r in rows:

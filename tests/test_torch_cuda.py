@@ -549,7 +549,7 @@ def _flash_regimes(dev, T, D, kv, extras):
 
 @pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
 def test_flash_regimes_match_plain(dev, T, D, q8, extras):
     """Both regimes (GQA 8/2: T ≤ 4 is the split-KV decode, T ≥ 8 the
@@ -561,7 +561,7 @@ def test_flash_regimes_match_plain(dev, T, D, q8, extras):
 
 @pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
 @pytest.mark.parametrize("kv", ["f16", "f32"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
 def test_flash_f16_f32_regimes_match_plain(dev, T, D, kv, extras):
     """The f16 and f32 caches in both regimes, as the bf16 and q8 ones above,
@@ -581,6 +581,11 @@ def test_flash_f16_f32_regimes_match_plain(dev, T, D, kv, extras):
     (1, 256, 128, 0.0, 0, True, False),
     (33, 200, 64, 0.0, 0, False, True),
     (20, 160, 128, 25.0, 32, True, True),
+    # Gemma at head dim 256: gemma3's window of 1024, gemma2's softcap 50
+    (1, 2048, 256, 0.0, 1024, False, False),
+    (512, 2048, 256, 0.0, 1024, False, False),
+    (1, 2048, 256, 50.0, 1024, False, False),
+    (300, 1200, 256, 50.0, 0, False, False),
 ])
 def test_flash_kernel_matches_plain(dev, q8, T, S, D, softcap, window, sinks, alibi):
     B, H, Hkv = 2, 8, 2
@@ -633,6 +638,71 @@ def test_engine_on_the_card_matches_the_cpu(dev, tmp_path, kv):
     gpu.reset()
     cpu.reset()
     assert gpu.generate_tokens_device(ids, 8) == cpu.generate_tokens_device(ids, 8)
+
+
+@pytest.mark.parametrize("kind", ["ring", "swa_full", "q8", "gemma2-ring", "gemma"])
+def test_gemma_engine_on_the_card_matches_the_cpu(dev, tmp_path, kind):
+    """tiny gemma3 (gemma2, gemma) on the card against the CPU: the ring
+    (its SWA layers through attention_ring, the global layer through flash
+    at D = 256), swa_full and q8 (every layer through flash, the SWA ones
+    windowed): prompt and decode_step logits within NMSE 1e-3 over 295
+    tokens (the ring of 128 wraps: max_seq 512, the prefill cap 16), greedy
+    ids of the decode graph equal; a replay's launches one forward's."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import SWACache
+
+    shape = {"gemma2-ring": "tiny-gemma2", "gemma": "tiny-gemma"}.get(kind, "tiny-gemma3")
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    kw = {"swa_full": dict(swa_full=True), "q8": dict(kv_dtype="q8_0")}.get(kind, {})
+    gpu, cpu = (Engine(path, device=d, max_seq=512, **kw) for d in (None, "cpu"))
+    assert isinstance(gpu.cache, SWACache) == kind.endswith("ring")
+    for e in (gpu, cpu):
+        e.prefill_cap = 16
+        e.new_cache()
+    ids = list(range(5, 300))
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 40, chunk=8) == \
+        cpu.generate_tokens_device(ids, 40, chunk=8)
+    one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
+    n_ring = sum(gpu.hp.is_swa(i) for i in range(6)) if kind.endswith("ring") else 0
+    assert one["flash"] == one["flash_decode"] == one["flash_head_dim"] == 6 - n_ring
+    assert one["attn_ring_routes"] == n_ring and one["attn_dense_routes"] == 0
+
+
+def test_gemma_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A BatchEngine of 3 slots on tiny gemma3's ring (prefill chunk 32, R =
+    128, max_seq 256): a joint round, batched steps with an idle slot (its
+    ring untouched), a freed slot admitted again: per-slot logits within
+    NMSE 1e-3 of the CPU's."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    path = make_synthetic_llama_gguf(tmp_path / "g3.gguf", shape="tiny-gemma3", seed=0)
+    gpu, cpu = (BatchEngine(path, device=d, n_slots=3, max_seq=256, prefill_chunk=32)
+                for d in (None, "cpu"))
+    assert gpu.cache.ring_len == 128
+    prompts = {0: list(range(5, 200)), 2: list(range(7, 40))}
+    a, b = gpu.prefill_slots(prompts), cpu.prefill_slots(prompts)
+    errs = [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in prompts]
+    idle = gpu.cache.swa_k[:, 1].clone()
+    for feed in ({0: 300, 2: 17}, {2: 18}, {0: 5, 2: 6}):
+        a, b = gpu.decode_batch(feed), cpu.decode_batch(feed)
+        errs += [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in feed]
+    assert torch.equal(gpu.cache.swa_k[:, 1], idle)
+    gpu.free_slot(2)
+    cpu.free_slot(2)
+    assert int(gpu.cache.slot_pos[2].max()) == -1
+    a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
+    errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
+    assert max(errs) <= 1e-3, errs
 
 
 def test_moe_engine_on_the_card_matches_the_cpu(dev, tmp_path):
@@ -783,7 +853,8 @@ def test_decode_graph_matches_decode_step(dev, tmp_path, shape, kv):
     assert runner.launches_per_replay() == {
         "qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
         "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-        "flash_decode": per["flash"], "attn_dense_routes": 0}
+        "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+        "attn_dense_routes": 0, "attn_ring_routes": 0}
     assert runner.replays == 40 - len(ids) - 1  # the first step ran eagerly, before the capture
     forwards = 1 + (40 - len(ids))  # the prefill (bucket 8: the same regimes) and the steps
     after = (sum(qmm.LAUNCHES.values()), flash.DECODE_LAUNCHES[fmt],
@@ -1114,7 +1185,8 @@ def _verify_launches(eng, rows: int, T: int) -> dict:
             "qmm_stack": per["experts"] if stack else 0,
             "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
             "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"] if decode else 0, "attn_dense_routes": 0}
+            "flash_decode": per["flash"] if decode else 0,
+            "flash_head_dim": per["flash"], "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
 @pytest.mark.parametrize("kv", ["bf16", "q8_0"])

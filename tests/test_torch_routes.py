@@ -219,7 +219,7 @@ def test_qmm_and_qmm_grouped_launch_by_one_plan(M, K, N, grouped, monkeypatch):
 
 
 @pytest.mark.parametrize("d,dv,want", [(64, 64, True), (128, 128, True), (80, 80, False),
-                                       (96, 96, False), (256, 256, False), (192, 128, False)])
+                                       (96, 96, False), (256, 256, True), (192, 128, False)])
 def test_flash_takes_head_dims(d, dv, want):
     assert flash.takes(d, dv) is want
 

@@ -129,7 +129,7 @@ def test_override_kv_and_preset(ggufs, tmp_path):
     assert rc == rc_j == 0 and got == want
 
 
-@pytest.mark.parametrize("flags", [["--grp-attn-n", "2"], ["--swa-full"]])
+@pytest.mark.parametrize("flags", [["--grp-attn-n", "2"]])
 def test_cli_unported_options_exit(ggufs, flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["-m", ggufs["tiny"], "--device", "cpu", "-p", "x", *flags])

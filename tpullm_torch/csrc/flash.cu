@@ -31,6 +31,8 @@
 //   lost: below a tile the merge they add costs more than the parallelism
 //   gives, so a short context is latency-bound by one block's pass over one
 //   tile (the launch, the scores, the softmax, P·V).
+//   Head dims 64, 128 and 256 (`launch`). At D = 256 an f32 cache's ring
+//   holds one stage (the shared memory of two exceeds the SM's).
 //   256 threads a block: in the scores, thread = (key, row group of 4), so
 //   the 8B's R = 4 is one row a thread; q is held once as f32 in shared
 //   memory. K/V tiles go 16 bytes a thread into a 2-stage cp.async ring.
@@ -48,8 +50,10 @@
 // R > 16 (prefill): flash_prefill_kernel, tensor cores, FlashAttention-2
 //   layout. What bounds it: the QK and PV products, 4 · D · (visible pairs)
 //   · H FLOP against 989 TFLOP/s. A block of 4 warps holds 64 query rows of
-//   one head, each warp 16 rows; 64-key K/V tiles go through a 2-stage
-//   cp.async ring and are read by ldmatrix; QK and PV are mma.sync
+//   one head, each warp 16 rows (at D = 256, 8 warps: each row group's two
+//   warps hold one half of O's features each, 64 f32 a thread as at
+//   D = 128, and both compute the group's scores); 64-key K/V tiles go
+//   through a 2-stage cp.async ring and are read by ldmatrix; QK and PV are mma.sync
 //   m16n8k16 with bf16 inputs and f32 sums; the online softmax stays in
 //   registers. Tiles wholly above the block's causal diagonal or before its
 //   window are never loaded; a warp skips the tiles wholly above its own
@@ -61,7 +65,8 @@
 //   f32: each value as two bf16 terms, hi = bf16(x) and lo = bf16(x − hi),
 //   exact for f16 (11 significant bits) and about 16 bits of f32's 24;
 //   QK takes q·K_hi + q·K_lo and PV adds p_hi·V_lo to the two p terms below
-//   (p_lo·V_lo, under 2^-16 of the product, is left out). The new rounding
+//   (p_lo·V_lo, under 2^-16 of the product, is left out). At D = 256 the
+//   f16 ring holds one stage and the f32 one none (PreSmem). The new rounding
 //   point, p (or p · v_s) to bf16 for the PV product, is carried as two bf16
 //   terms, hi = bf16(p), lo = bf16(p − hi), so p is kept to about 16 bits
 //   against f32's 24; the JAX kernel multiplies in f32.
@@ -80,12 +85,11 @@ constexpr int kDecodeRows = 16;    // R = T·G at most this: the decode regime
 constexpr int kDecThreads = 256;  // 64 keys × 4 row groups in the scores
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecTK = 64;         // keys a tile (decode)
-constexpr int kDecStages = 2;
 constexpr int kMaxSplits = 64;     // splits of one (batch, KV head) at most
-constexpr int kPreThreads = 128;   // 4 warps × 16 query rows
+constexpr int kPreThreads = 128;   // 4 warps × 16 query rows (each half of Dv at D = 256)
 constexpr int kPreBM = 64;         // query rows a prefill block
 constexpr int kPreTK = 64;         // keys a tile (prefill)
-constexpr int kPreStages = 2;
+constexpr int kMaxSmem = 232448;   // a block's shared memory at most (227 KB)
 
 __device__ __forceinline__ float exp_e(float x) { return exp2f(x * kLog2e); }
 
@@ -182,6 +186,8 @@ __device__ __forceinline__ void decode_finish(__nv_bfloat16* __restrict__ out, i
 // Shared memory of a decode block: q rows (f32), the K/V ring (K rows padded
 // by 16 bytes so that 8 lanes reading 8 keys hit distinct banks; q8: the
 // per-key scales after V), the probabilities p [16][65] and per-row state.
+// The ring holds two stages where they fit, else one (f32 at D = 256: the
+// next tile is then loaded after the P·V of this one).
 template <int D, int KV>
 struct DecSmem {
   static constexpr bool kQ8 = KV == kKvQ8;
@@ -194,11 +200,14 @@ struct DecSmem {
   static constexpr int kPPitch = kDecTK + 1;
   static constexpr int q_off = 0;
   static constexpr int ring_off = kDecodeRows * D * 4;
-  static constexpr int p_off = ring_off + kDecStages * kStage;
+  static constexpr int kTail = kDecodeRows * kPPitch * 4 + 4 * kDecodeRows * 4 + 16;
+  static constexpr int kStages = ring_off + 2 * kStage + kTail <= kMaxSmem ? 2 : 1;
+  static constexpr int p_off = ring_off + kStages * kStage;
   static constexpr int row_off = p_off + kDecodeRows * kPPitch * 4;
   static constexpr int bytes = row_off + 4 * kDecodeRows * 4 + 16;
-  static_assert(kDecStages * kStage >= 2 * kMaxSplits * kDecodeRows * 4,
+  static_assert(kStages * kStage >= 2 * kMaxSplits * kDecodeRows * 4,
                 "the ring holds every split's (m, l) for the combine");
+  static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
 
 template <int D, int KV>
@@ -244,7 +253,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
   const char* kb = k + kv_row0 * RB;
   const char* vb = v + kv_row0 * RB;
   auto load_tile = [&](int it) {
-    char* st = ring + (it % kDecStages) * L::kStage;
+    char* st = ring + (it % L::kStages) * L::kStage;
     const int kt = k0 + it * kDecTK;
     for (int i = tid; i < kDecTK * (RB / 16); i += kDecThreads) {
       const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
@@ -300,9 +309,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();  // tile it landed; every reader of tile it-1 is done
-    if (it + 1 < ntiles) load_tile(it + 1);
+    if (L::kStages > 1 && it + 1 < ntiles) load_tile(it + 1);
     cp_async_commit();
-    const char* st = ring + (it % kDecStages) * L::kStage;
+    const char* st = ring + (it % L::kStages) * L::kStage;
     const float* kss = reinterpret_cast<const float*>(st + L::kScales);
     const int kt = k0 + it * kDecTK;
 
@@ -399,6 +408,11 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
         }
       }
     }
+    if constexpr (L::kStages == 1) {  // one stage: the next tile after every reader of this one
+      __syncthreads();
+      if (it + 1 < ntiles) load_tile(it + 1);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 
@@ -492,26 +506,38 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 // scales), and bf16 K and V tiles take each tile's conversion, kTerms of
 // each (hi, then lo). The Q tile, read once into registers, is first copied
 // into the space the second tile takes after it (ring stage 1; converted:
-// the conversion tiles).
+// the conversion tiles). The converted ring holds two stages where they fit
+// the SM; f16 at D = 256 holds one (the next tile is loaded once this one is
+// converted), f32 at D = 256 none (each tile is converted straight from
+// global memory).
 template <int D, int KV>
 struct PreSmem {
   static constexpr bool kQ8 = KV == kKvQ8;
   static constexpr bool kConv = KV != kKvBf16;
   static constexpr int kTerms = KV == kKvF16 || KV == kKvF32 ? 2 : 1;
+  // warps a row group: above D = 128 each of a row group's two warps holds
+  // half of O's features (16 × 128 f32 a warp, as at D = 128)
+  static constexpr int kDvSplit = D > 128 ? 2 : 1;
+  static constexpr int kThreads = kPreThreads * kDvSplit;
   static constexpr int kPitch = D + 8;  // bf16 a row of Q, K, V
   static constexpr int kTile = kPreTK * kPitch * 2;
   static constexpr int kRaw = kPreTK * D * kv_bytes<KV>();  // bytes of one raw K or V tile
   static constexpr int kStage = kConv ? 2 * kRaw + (kQ8 ? 2 * kPreTK * 4 : 0) : 2 * kTile;
+  static constexpr int kConvBytes = kConv ? 2 * kTerms * kTile : 0;
+  static constexpr int kStages = 2 * kStage + kConvBytes <= kMaxSmem ? 2
+                                 : kStage + kConvBytes <= kMaxSmem ? 1 : 0;
   static constexpr int ring_off = 0;
-  static constexpr int conv_off = kPreStages * kStage;
+  static constexpr int conv_off = kStages * kStage;
   static constexpr int q_off = kConv ? conv_off : kStage;
-  static constexpr int bytes = conv_off + (kConv ? 2 * kTerms * kTile : 0);
+  static constexpr int bytes = conv_off + kConvBytes;
+  static_assert(kConv ? (!kQ8 || kStages == 2) : kStages == 2,
+                "bf16 and q8 (whose scales stay in the ring) hold two stages");
   static_assert(kPreBM * kPitch * 2 <= bytes - q_off, "the Q tile fits where it is copied");
-  static_assert(bytes <= 232448, "a block's shared memory fits the SM");
+  static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
 
 template <int D, int KV>
-__global__ void __launch_bounds__(kPreThreads)
+__global__ void __launch_bounds__(kPreThreads * (D > 128 ? 2 : 1))
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict__ k,
                      const char* __restrict__ v, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, const int* __restrict__ offsets,
@@ -521,6 +547,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   using L = PreSmem<D, KV>;
   constexpr bool kQ8 = L::kQ8;
   constexpr int P = L::kPitch;
+  constexpr int NT = L::kThreads;
+  constexpr int DV = D / L::kDvSplit;     // O's features a warp
   constexpr int RB = D * kv_bytes<KV>();  // bytes of a K or V row in the cache
   extern __shared__ __align__(16) char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
@@ -528,6 +556,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
 
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hkv);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this warp's row group (16 query rows) and its half of O's features
+  const int rw = warp % (kPreBM / 16), dh = warp / (kPreBM / 16);
   const int t0 = blockIdx.x * kPreBM;
   const int off = offsets[b];
   const int nrows = min(kPreBM, T - t0);
@@ -540,32 +570,34 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   const char* kb = k + kv_row0 * RB;
   const char* vb = v + kv_row0 * RB;
   auto load_tile = [&](int it) {
-    char* st = ring + (it % kPreStages) * L::kStage;
-    const int kt = k_begin + it * kPreTK;
-    for (int i = tid; i < kPreTK * (RB / 16); i += kPreThreads) {
-      const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
-      const bool ok = kt + r < k_end;
-      const size_t src = (size_t)(ok ? kt + r : kt) * RB + seg;
-      if constexpr (L::kConv) {
-        cp_async16(st + r * RB + seg, kb + src, ok ? 16 : 0);
-        cp_async16(st + L::kRaw + r * RB + seg, vb + src, ok ? 16 : 0);
-      } else {
-        cp_async16(st + r * P * 2 + seg, kb + src, ok ? 16 : 0);
-        cp_async16(st + L::kTile + r * P * 2 + seg, vb + src, ok ? 16 : 0);
-      }
-    }
-    if constexpr (kQ8) {
-      for (int i = tid; i < 2 * kPreTK; i += kPreThreads) {
-        const int r = i % kPreTK;
+    if constexpr (L::kStages > 0) {
+      char* st = ring + (it % L::kStages) * L::kStage;
+      const int kt = k_begin + it * kPreTK;
+      for (int i = tid; i < kPreTK * (RB / 16); i += NT) {
+        const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
         const bool ok = kt + r < k_end;
-        const float* src = (i < kPreTK ? k_scale : v_scale) + kv_row0 + (ok ? kt + r : kt);
-        cp_async4(st + 2 * L::kRaw + i * 4, src, ok ? 4 : 0);
+        const size_t src = (size_t)(ok ? kt + r : kt) * RB + seg;
+        if constexpr (L::kConv) {
+          cp_async16(st + r * RB + seg, kb + src, ok ? 16 : 0);
+          cp_async16(st + L::kRaw + r * RB + seg, vb + src, ok ? 16 : 0);
+        } else {
+          cp_async16(st + r * P * 2 + seg, kb + src, ok ? 16 : 0);
+          cp_async16(st + L::kTile + r * P * 2 + seg, vb + src, ok ? 16 : 0);
+        }
+      }
+      if constexpr (kQ8) {
+        for (int i = tid; i < 2 * kPreTK; i += NT) {
+          const int r = i % kPreTK;
+          const bool ok = kt + r < k_end;
+          const float* src = (i < kPreTK ? k_scale : v_scale) + kv_row0 + (ok ? kt + r : kt);
+          cp_async4(st + 2 * L::kRaw + i * 4, src, ok ? 4 : 0);
+        }
       }
     }
   };
 
   // the Q tile (rows past T zero) and the first K/V tile
-  for (int i = tid; i < kPreBM * (D / 8); i += kPreThreads) {
+  for (int i = tid; i < kPreBM * (D / 8); i += NT) {
     const int r = i / (D / 8), seg = (i % (D / 8)) * 8;
     const int t = t0 + min(r, nrows - 1);
     cp_async16(qs + r * P + seg, q + (((size_t)b * T + t) * H + h) * D + seg, r < nrows ? 16 : 0);
@@ -573,9 +605,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   if (ntiles > 0) load_tile(0);
   cp_async_commit();
 
-  // this warp's rows: 16·warp .. of the block; this thread's two rows
-  const int w_rows = min(16, nrows - 16 * warp);
-  const int w_first = q_first + 16 * warp, w_last = w_first + w_rows - 1;
+  // this warp's rows: 16·rw .. of the block; this thread's two rows
+  const int w_rows = min(16, nrows - 16 * rw);
+  const int w_first = q_first + 16 * rw, w_last = w_first + w_rows - 1;
   const int qa = w_first + (lane >> 2), qb = qa + 8;
   // the softmax runs in log2 units (scores times log2 e), so that each p is
   // one exp2: the scale, the softcap and the ALiBi slope carry the factor
@@ -584,9 +616,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   const float slope2 = slopes != nullptr ? slopes[h] * kLog2e : 0.f;
 
   uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
@@ -597,12 +629,12 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], qs + (16 * warp + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(qf[kk], qs + (16 * rw + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
       __syncthreads();  // every warp holds its Q rows: their space takes tile 1
     }
-    if (it + 1 < ntiles) load_tile(it + 1);
+    if (L::kStages == 2 && it + 1 < ntiles) load_tile(it + 1);
     cp_async_commit();
-    const char* st = ring + (it % kPreStages) * L::kStage;
+    const char* st = ring + (L::kStages > 0 ? (it % L::kStages) * L::kStage : 0);
     const int kt = k_begin + it * kPreTK;
     // the bf16 tiles the products read: K hi, K lo, V hi, V lo (the lo
     // tiles only with two terms)
@@ -611,15 +643,21 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
     if constexpr (L::kConv) {  // raw tiles → kTerms bf16 terms each
       constexpr int kEs = kv_bytes<KV>();
       __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem + L::conv_off);
-      for (int i = tid; i < 2 * kPreTK * (D / 16); i += kPreThreads) {
+      for (int i = tid; i < 2 * kPreTK * (D / 16); i += NT) {
         const int which = i / (kPreTK * (D / 16)), rem = i % (kPreTK * (D / 16));
         const int r = rem / (D / 16), seg = (rem % (D / 16)) * 16;
-        const char* src = st + which * L::kRaw + (r * D + seg) * kEs;
+        // the raw tile in the ring, or with no ring the cache's row (zero past k_end)
+        const bool ok = L::kStages > 0 || kt + r < k_end;
+        const char* src = L::kStages > 0
+                              ? st + which * L::kRaw + (r * D + seg) * kEs
+                              : (which ? vb : kb) + ((size_t)(ok ? kt + r : kt) * D + seg) * kEs;
         float f[16];
 #pragma unroll
         for (int c = 0; c < kEs; ++c) {  // 16 values: kEs chunks of 16 bytes
           float g[16 / kEs];
-          const uint4 raw = *reinterpret_cast<const uint4*>(src + 16 * c);
+          const uint4 raw = !ok ? make_uint4(0u, 0u, 0u, 0u)
+                            : L::kStages > 0 ? *reinterpret_cast<const uint4*>(src + 16 * c)
+                                             : __ldg(reinterpret_cast<const uint4*>(src + 16 * c));
           unpack16<KV>(raw, g);
 #pragma unroll
           for (int e = 0; e < 16 / kEs; ++e) f[c * (16 / kEs) + e] = g[e];
@@ -642,6 +680,10 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
         }
       }
       __syncthreads();
+      if (L::kStages == 1) {  // the stage is free once converted: the next tile overlaps the products
+        if (it + 1 < ntiles) load_tile(it + 1);
+        cp_async_commit();
+      }
       kt_s = conv;
       vt_s = conv + L::kTerms * (L::kTile / 2);
     } else {
@@ -715,7 +757,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + sum[i];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       o[dt][0] *= corr[0];
       o[dt][1] *= corr[0];
       o[dt][2] *= corr[1];
@@ -736,8 +778,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
         a_lo[f] = *reinterpret_cast<const uint32_t*>(&lo);
       }
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        const int at = (ks * 16 + (lane & 15)) * P + dp * 16 + (lane >> 4) * 8;
+      for (int dp = 0; dp < DV / 16; ++dp) {
+        const int at = (ks * 16 + (lane & 15)) * P + dh * DV + dp * 16 + (lane >> 4) * 8;
         uint32_t r[4];
         ldmatrix_x4_trans(r, vt_s + at);
         mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
@@ -774,11 +816,11 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int t = t0 + 16 * warp + (lane >> 2) + 8 * i;
+    const int t = t0 + 16 * rw + (lane >> 2) + 8 * i;
     if (t >= T) continue;
-    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * D + 2 * (lane & 3);
+    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * D + dh * DV + 2 * (lane & 3);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < DV / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
           __floats2bfloat162_rn(o[dt][2 * i] * inv[i], o[dt][2 * i + 1] * inv[i]);
   }
@@ -821,9 +863,9 @@ int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
     constexpr int smem = PreSmem<D, KV>::bytes;
     static const cudaError_t attr = smem_attributes(flash_prefill_kernel<D, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_prefill_kernel<D, KV><<<dim3((T + kPreBM - 1) / kPreBM, B * H), kPreThreads, smem,
-                                   stream>>>(qb, kb, vb, ks, vs, ob, sk, sl, o, T, H, Hkv, S,
-                                             scale, softcap, window);
+    flash_prefill_kernel<D, KV><<<dim3((T + kPreBM - 1) / kPreBM, B * H),
+                                   PreSmem<D, KV>::kThreads, smem, stream>>>(
+        qb, kb, vb, ks, vs, ob, sk, sl, o, T, H, Hkv, S, scale, softcap, window);
   }
   return (int)cudaGetLastError();
 }
@@ -841,6 +883,10 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
                                counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
     case 128:
       return launch_d<128, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
+                                partial, counters, B, T, H, Hkv, S, scale, softcap, window,
+                                max_splits, s);
+    case 256:
+      return launch_d<256, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
                                 partial, counters, B, T, H, Hkv, S, scale, softcap, window,
                                 max_splits, s);
     default: return (int)cudaErrorInvalidValue;

@@ -153,6 +153,8 @@ class Keys:
         VOCAB_SIZE = "{arch}.vocab_size"
         EXPERT_COUNT = "{arch}.expert_count"
         EXPERT_USED_COUNT = "{arch}.expert_used_count"
+        ATTN_LOGIT_SOFTCAPPING = "{arch}.attn_logit_softcapping"
+        FINAL_LOGIT_SOFTCAPPING = "{arch}.final_logit_softcapping"
 
     class Attention:
         HEAD_COUNT = "{arch}.attention.head_count"
@@ -163,11 +165,13 @@ class Keys:
         LAYERNORM_EPS = "{arch}.attention.layer_norm_epsilon"
         MAX_ALIBI_BIAS = "{arch}.attention.max_alibi_bias"
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
+        SLIDING_WINDOW_PATTERN = "{arch}.attention.sliding_window_pattern"
         SCALE = "{arch}.attention.scale"
 
     class Rope:
         DIMENSION_COUNT = "{arch}.rope.dimension_count"
         FREQ_BASE = "{arch}.rope.freq_base"
+        FREQ_BASE_SWA = "{arch}.rope.freq_base_swa"
         SCALING_TYPE = "{arch}.rope.scaling.type"
         SCALING_FACTOR = "{arch}.rope.scaling.factor"
         SCALING_ATTN_FACTOR = "{arch}.rope.scaling.attn_factor"

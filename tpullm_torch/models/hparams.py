@@ -1,12 +1,19 @@
-"""Model hyperparameters read from GGUF metadata: the fields the llama
-forward reads, and the metadata → hparams mapping for arch `llama`."""
+"""Model hyperparameters read from GGUF metadata: the fields the llama and
+gemma forwards read, and the metadata → hparams mapping for the archs the
+port runs (`ARCHS`), as the JAX package's models/hparams.py maps them."""
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 from ..gguf.constants import Keys
 from ..gguf.reader import GGUFReader
+
+# the archs whose metadata this module maps (models/registry.py runs them)
+ARCHS = ("llama", "gemma", "gemma2", "gemma3")
+# the default interleave of sliding-window layers: every Nth layer global
+_SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 
 
 @dataclass(frozen=True)
@@ -52,12 +59,22 @@ class HParams:
     n_expert: int = 0
     n_expert_used: int = 0
     pooling: str = "none"  # embeddings' default pooling (llama_pooling_type)
+    # iSWA: layer il is a sliding-window layer unless (il + 1) % swa_pattern
+    # == 0 (gemma2 2, gemma3 6; 1: every layer when sliding_window > 0)
+    swa_pattern: int = 1
+    softcap_attn: float = 0.0  # tanh softcap of the attention scores (gemma2)
+    softcap_final: float = 0.0  # tanh softcap of the logits (gemma2)
+    rope_freq_base_swa: float = 0.0  # RoPE base of the SWA layers; 0: the global base
+
+    def is_swa(self, il: int) -> bool:
+        return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
 
 
 def hparams_from_gguf(r: GGUFReader) -> HParams:
     arch = r.architecture
-    if arch != "llama":
+    if arch not in ARCHS:
         raise NotImplementedError(f"hparams for architecture {arch!r} are not ported")
+    gemma = arch.startswith("gemma")
 
     def k(template, default=None):
         v = r.metadata.get(template.format(arch=arch))
@@ -84,7 +101,9 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         ext_factor=float(k(Keys.Rope.SCALING_YARN_EXT_FACTOR, 0.0)),
         beta_fast=float(k(Keys.Rope.SCALING_YARN_BETA_FAST, 32.0)),
         beta_slow=float(k(Keys.Rope.SCALING_YARN_BETA_SLOW, 1.0)),
-        style="norm",  # llama GGUFs carry q/k permuted for interleaved pairs
+        # llama GGUFs carry q/k permuted for interleaved pairs; gemma's are
+        # in the HF layout, rotated by halves
+        style="neox" if gemma else "norm",
     )
     scale = k(Keys.Attention.SCALE)
     return HParams(
@@ -104,7 +123,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         max_alibi_bias=float(k(Keys.Attention.MAX_ALIBI_BIAS, 0.0)),
         sliding_window=int(k(Keys.Attention.SLIDING_WINDOW, 0)),
         attn_scale=float(scale) if scale is not None else None,
-        embd_scale=float(k("{arch}.embedding_scale", 1.0)),
+        embd_scale=float(k("{arch}.embedding_scale", math.sqrt(n_embd) if gemma else 1.0)),
         residual_scale=float(k("{arch}.residual_scale", 1.0)),
         logit_scale=float(k("{arch}.logit_scale", 1.0)),
         no_rope_step=int(k("{arch}.attention.no_rope_layer_step", 0)),
@@ -112,4 +131,9 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         n_expert_used=int(k(Keys.LLM.EXPERT_USED_COUNT, 0)),
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last", 4: "rank"}.get(
             int(k("{arch}.pooling_type", 0)), "none"),
+        swa_pattern=int(k(Keys.Attention.SLIDING_WINDOW_PATTERN, _SWA_PATTERN.get(arch, 1))),
+        softcap_attn=float(k(Keys.LLM.ATTN_LOGIT_SOFTCAPPING, 0.0)),
+        softcap_final=float(k(Keys.LLM.FINAL_LOGIT_SOFTCAPPING, 0.0)),
+        rope_freq_base_swa=float(k(Keys.Rope.FREQ_BASE_SWA,
+                                   10000.0 if arch == "gemma3" else 0.0)),
     )

@@ -131,7 +131,24 @@ def router_logits(router, hs: torch.Tensor) -> torch.Tensor:
     return hs.float() @ router.w.float()
 
 
+def forward_offsets(cache_offset, B: int, T: int, max_len: int, device):
+    """A forward's cache offset in its three forms (a host int, a 0-d device
+    tensor, or per-slot int32 [B] with −1 idle) → (the flash kernel's int32
+    [B] offsets, the offset every layer's cache write takes: per-slot
+    offsets planned once as SlotRows)."""
+    if isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1:
+        if cache_offset.shape[0] != B:
+            raise ValueError(f"per-slot offsets [{cache_offset.shape[0]}] for a batch of {B}")
+        offsets = cache_offset.to(torch.int32).contiguous()
+        return offsets, slot_rows(offsets, T, max_len)
+    if isinstance(cache_offset, torch.Tensor):
+        return cache_offset.reshape(1).to(torch.int32).expand(B).contiguous(), cache_offset
+    return torch.full((B,), int(cache_offset), dtype=torch.int32, device=device), cache_offset
+
+
 def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head in f32 (divided by logit_scale, then the
+    final-logit softcap where the model has one: gemma2)."""
     x = rms_norm(x, params["output_norm"], hp.rms_eps)
     if params["output"] is not None:
         logits = params["output"](x)
@@ -140,7 +157,25 @@ def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     if hp.logit_scale != 1.0:
         logits = logits / hp.logit_scale
+    if hp.softcap_final:
+        logits = torch.tanh(logits / hp.softcap_final) * hp.softcap_final
     return logits
+
+
+def finish(hp: HParams, params: Params, x: torch.Tensor, last_index, return_hidden: bool):
+    """The end of a forward from the last layer's x [B, T, E]: with
+    return_hidden the final-norm hidden states in f32; else the logits of
+    every row, of row last_index (a host int), or of row last_index[b] of
+    batch row b (a [B] device tensor)."""
+    if return_hidden:
+        return rms_norm(x, params["output_norm"], hp.rms_eps).float()
+    if isinstance(last_index, torch.Tensor):  # one flagged row per batch row
+        B = x.shape[0]
+        idx = last_index.to(torch.int64).reshape(B, 1, 1).expand(B, 1, x.shape[-1])
+        x = x.gather(1, idx)
+    elif last_index is not None:
+        x = x[:, last_index:last_index + 1]
+    return output_head(hp, params, x)
 
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,
@@ -163,15 +198,7 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
     x = params["tok_embd"][tokens]
     if hp.embd_scale != 1.0:
         x = x * hp.embd_scale
-    if isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1:
-        if cache_offset.shape[0] != B:
-            raise ValueError(f"per-slot offsets [{cache_offset.shape[0]}] for a batch of {B}")
-        offsets = cache_offset.to(torch.int32).contiguous()
-        cache_offset = slot_rows(offsets, T, cache.max_len)  # one plan for every layer
-    elif isinstance(cache_offset, torch.Tensor):
-        offsets = cache_offset.reshape(1).to(torch.int32).expand(B).contiguous()
-    else:
-        offsets = torch.full((B,), int(cache_offset), dtype=torch.int32, device=x.device)
+    offsets, cache_offset = forward_offsets(cache_offset, B, T, cache.max_len, x.device)
     rope_cs = rope_angles(hp.rope, positions)
     slopes = (alibi_slopes(hp.n_head, hp.max_alibi_bias, x.device)
               if hp.max_alibi_bias > 0.0 else None)
@@ -195,11 +222,4 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn
-    if return_hidden:
-        return rms_norm(x, params["output_norm"], hp.rms_eps).float(), cache
-    if isinstance(last_index, torch.Tensor):  # one flagged row per batch row
-        idx = last_index.to(torch.int64).reshape(B, 1, 1).expand(B, 1, x.shape[-1])
-        x = x.gather(1, idx)
-    elif last_index is not None:
-        x = x[:, last_index:last_index + 1]
-    return output_head(hp, params, x), cache
+    return finish(hp, params, x, last_index, return_hidden), cache

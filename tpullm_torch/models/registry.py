@@ -1,5 +1,6 @@
 """Architecture registry: GGUF `general.architecture` → (build_params,
-forward). Only the `llama` row is ported."""
+forward), the rows of the JAX package's models/registry.py that the port
+runs: `llama`, `gemma3` (alias `gemma2`) and `gemma`."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import llama
+from . import gemma, llama
 from .hparams import HParams, hparams_from_gguf
 
 
@@ -16,9 +17,15 @@ class ArchSpec:
     name: str
     build_params: Callable
     forward: Callable
+    # interleaved sliding-window attention: the Engine gives it the ring
+    # cache (runtime/kvcache.py SWACache) unless asked for swa_full
+    iswa: bool = False
 
 
-_REGISTRY = {"llama": ArchSpec("llama", llama.build_params, llama.forward)}
+_GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
+_REGISTRY = {"llama": ArchSpec("llama", llama.build_params, llama.forward),
+             "gemma3": _GEMMA3, "gemma2": _GEMMA3,
+             "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward)}
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -1,4 +1,4 @@
-"""Synthesis of random *packed* llama models from a seed.
+"""Synthesis of random *packed* llama and gemma models from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -40,6 +40,28 @@ SHAPES = {
     "tiny-moe": dict(n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
                      n_ff=512, n_vocab=384, rope_base=10000.0,
                      n_expert=8, n_expert_used=2),
+    # google/gemma-3-4b-it config.json text_config: head_dim 256, the 262144
+    # tokens of the tokenizer (the config's 262208 pad for image tokens),
+    # rope_scaling linear 8 on the global layers, query_pre_attn_scalar 256
+    # (= head_dim: no attention.scale key), tied embeddings
+    "gemma-3-4b": dict(arch="gemma3", n_layer=34, n_embd=2560, n_head=8, n_head_kv=4,
+                       head_dim=256, n_ff=10240, n_vocab=262144, rope_base=1000000.0,
+                       rope_base_swa=10000.0, rope_scaling=("linear", 8.0),
+                       sliding_window=1024, swa_pattern=6, rms_eps=1e-6, n_ctx=131072),
+    # the gemma test models: 6 layers (one global layer at gemma3's pattern of
+    # 6), 2 heads of head dim 256 on one KV head, a window of 16; gemma2 with
+    # its softcaps, gemma (v1) with no window
+    "tiny-gemma3": dict(arch="gemma3", n_layer=6, n_embd=256, n_head=2, n_head_kv=1,
+                        head_dim=256, n_ff=512, n_vocab=384, rope_base=1000000.0,
+                        rope_base_swa=10000.0, sliding_window=16, swa_pattern=6,
+                        rms_eps=1e-6),
+    "tiny-gemma2": dict(arch="gemma2", n_layer=6, n_embd=256, n_head=2, n_head_kv=1,
+                        head_dim=256, n_ff=512, n_vocab=384, rope_base=10000.0,
+                        sliding_window=16, swa_pattern=2, softcaps=(50.0, 30.0),
+                        rms_eps=1e-6),
+    "tiny-gemma": dict(arch="gemma", n_layer=6, n_embd=256, n_head=2, n_head_kv=1,
+                       head_dim=256, n_ff=512, n_vocab=384, rope_base=10000.0,
+                       rms_eps=1e-6),
 }
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
@@ -162,12 +184,13 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
 
 
 def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
-                n_expert: int = 0) -> GGMLType:
+                n_expert: int = 0, tied: bool = False) -> GGMLType:
     """The type llama.cpp's recipe `ftype` (a name of PRESETS) gives a llama
     tensor (llama_tensor_get_type in src/llama-quant.cpp, for a llama with
     n_gqa = 4 and no imatrix). `kind` is the tensor name without `blk.N.`
     and `.weight`; an expert stack (`*_exps`) takes its FFN kind's type.
-    The router (ffn_gate_inp) is never quantized.
+    The router (ffn_gate_inp) is never quantized. With a `tied` head (no
+    output.weight, as gemma's) token_embd takes the output's type.
 
     | ftype | default | attn_v | attn_output | ffn_down | output | token_embd |
     | Q4_K_M | Q4_K | Q6_K on use_more_bits layers | Q4_K | Q6_K on use_more_bits layers | Q6_K | Q4_K |
@@ -189,6 +212,8 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     attn_output Q5_K."""
     if kind == "ffn_gate_inp":
         return GGMLType.F32
+    if tied and kind == "token_embd":
+        kind = "output"
     if ftype == "MXFP4_MOE":
         return GGMLType.MXFP4 if kind.endswith("_exps") else GGMLType.Q8_0
     kind = kind.removesuffix("_exps")
@@ -314,7 +339,8 @@ def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
 def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
                               ftype: str = "Q4_K_M", n_layer: int | None = None,
                               n_vocab: int | None = None, vocab: str = "spm") -> str:
-    """Writes the synthetic model `shape` (a key of SHAPES) at preset
+    """Writes the synthetic model `shape` (a key of SHAPES: a llama, or a
+    gemma shape with its arch's metadata and tensors) at preset
     `ftype` (a name of PRESETS) to `path`, with `n_layer` layers and
     `n_vocab` tokens in place of the shape's own if given (an SPM vocab
     below the shape's keeps its first n_vocab tokens); the same arguments
@@ -337,11 +363,13 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         raise ValueError(f"unknown vocab {vocab!r}: 'spm' or 'bpe'")
     cfg = SHAPES[shape]
     rng = np.random.default_rng(seed)
+    arch = cfg.get("arch", "llama")
+    gemma = arch.startswith("gemma")
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = n_vocab or cfg["n_vocab"]
     n_expert = cfg.get("n_expert", 0)
-    head_dim = n_embd // n_head
+    head_dim = cfg.get("head_dim", n_embd // n_head)
     legacy = cfg.get("legacy", False)
     words = not legacy or ftype != "Q4_K_M"
 
@@ -354,23 +382,37 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     else:
         tokens, types, merges, special = _bpe_vocab(n_vocab, seed)
 
-    w = GGUFWriter(path, architecture="llama")
+    w = GGUFWriter(path, architecture=arch)
     w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}")
              + ("" if n_vocab == cfg["n_vocab"] else f"-v{n_vocab}")
              + ("" if vocab == "spm" else "-bpe"))
-    w.add_kv("llama.block_count", n_layer)
-    w.add_kv("llama.context_length", 8192)
-    w.add_kv("llama.embedding_length", n_embd)
-    w.add_kv("llama.feed_forward_length", n_ff)
-    w.add_kv("llama.attention.head_count", n_head)
-    w.add_kv("llama.attention.head_count_kv", n_head_kv)
-    w.add_kv("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add_kv("llama.rope.freq_base", cfg["rope_base"])
-    w.add_kv("llama.rope.dimension_count", head_dim)
-    w.add_kv("llama.vocab_size", n_vocab)
+    w.add_kv(f"{arch}.block_count", n_layer)
+    w.add_kv(f"{arch}.context_length", cfg.get("n_ctx", 8192))
+    w.add_kv(f"{arch}.embedding_length", n_embd)
+    w.add_kv(f"{arch}.feed_forward_length", n_ff)
+    w.add_kv(f"{arch}.attention.head_count", n_head)
+    w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
+    w.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", cfg.get("rms_eps", 1e-5))
+    w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
+    w.add_kv(f"{arch}.rope.dimension_count", head_dim)
+    w.add_kv(f"{arch}.vocab_size", n_vocab)
+    if gemma:
+        w.add_kv(f"{arch}.attention.key_length", head_dim)
+        w.add_kv(f"{arch}.attention.value_length", head_dim)
+    if "rope_base_swa" in cfg:
+        w.add_kv(f"{arch}.rope.freq_base_swa", cfg["rope_base_swa"])
+    if "rope_scaling" in cfg:
+        w.add_kv(f"{arch}.rope.scaling.type", cfg["rope_scaling"][0])
+        w.add_kv(f"{arch}.rope.scaling.factor", cfg["rope_scaling"][1])
+    if "sliding_window" in cfg:
+        w.add_kv(f"{arch}.attention.sliding_window", cfg["sliding_window"])
+        w.add_kv(f"{arch}.attention.sliding_window_pattern", cfg["swa_pattern"])
+    if "softcaps" in cfg:
+        w.add_kv(f"{arch}.attn_logit_softcapping", cfg["softcaps"][0])
+        w.add_kv(f"{arch}.final_logit_softcapping", cfg["softcaps"][1])
     if n_expert:
-        w.add_kv("llama.expert_count", n_expert)
-        w.add_kv("llama.expert_used_count", cfg["n_expert_used"])
+        w.add_kv(f"{arch}.expert_count", n_expert)
+        w.add_kv(f"{arch}.expert_used_count", cfg["n_expert_used"])
     if vocab == "spm":
         w.add_kv("tokenizer.ggml.model", "llama")
         w.add_kv("tokenizer.ggml.tokens", tokens[:n_vocab])
@@ -394,7 +436,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         """A quantized weight (n_stack > 1: a stack of experts), its bytes
         drawn when the file is written."""
         kind = name.split(".")[-2]
-        gtype = preset_type(ftype, kind, i, n_layer, n_expert)
+        gtype = preset_type(ftype, kind, i, n_layer, n_expert, tied=gemma)
         shape = (n_in, n_out) if n_stack == 1 else (n_in, n_out, n_stack)
         scale = 0.02 if legacy else n_in ** -0.5 / _RMS_PER_D[gtype]
         w.add_packed_tensor(name, shape, gtype, lambda: random_packed(
@@ -411,6 +453,12 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, i)
         packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, i)
         packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
+        if arch == "gemma3":
+            norm(p + "attn_q_norm.weight", head_dim)
+            norm(p + "attn_k_norm.weight", head_dim)
+        if arch in ("gemma2", "gemma3"):
+            norm(p + "post_attention_norm.weight", n_embd)
+            norm(p + "post_ffw_norm.weight", n_embd)
         norm(p + "ffn_norm.weight", n_embd)
         if n_expert:
             # the router: f32 normal / sqrt(n_embd), so its logits have unit scale
@@ -425,5 +473,6 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
             packed(p + "ffn_up.weight", n_ff, n_embd, i)
             packed(p + "ffn_down.weight", n_embd, n_ff, i)
     norm("output_norm.weight", n_embd)
-    packed("output.weight", n_vocab, n_embd)
+    if not gemma:  # gemma ties its head to token_embd
+        packed("output.weight", n_vocab, n_embd)
     return w

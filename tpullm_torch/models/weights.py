@@ -188,24 +188,35 @@ def load_linear(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
     return QuantLinear(info.ggml_type, n_out, n_in, planes)
 
 
-def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.Tensor:
+EMBEDDING_CHUNK_ROWS = 16384  # table rows (tokens) load_embedding dequantizes at a time
+
+
+def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
+                   chunk_rows: int = EMBEDDING_CHUNK_ROWS) -> torch.Tensor:
     """Embedding table as [n_vocab, n_embd]: a quantized table uploads
-    packed and dequantizes on the device through dequant_planes. A
+    packed and dequantizes on the device through dequant_planes, `chunk_rows`
+    tokens at a time into the table, so that its f32 intermediates are one
+    chunk's (Gemma-3's 262144 × 2560 table is 2.7 GB in f32); each row's
+    blocks dequantize alone, so the chunks give the values of one pass. A
     codebook type dequantizes from its f32-scale planes, scale·value in f32
     rounded once to `dtype`: the JAX package's dequant of such a table (a
     type its device repack does not take) is its f32 codec, whose values
     those planes hold bit for bit; the other types from the bf16-scale
     planes of `repack`, as the JAX package's device load does."""
-    if TYPE_TRAITS[info.ggml_type].is_quantized:
-        n_out, n_in = info.shape[1], info.shape[0]
+    if not TYPE_TRAITS[info.ggml_type].is_quantized:
+        return torch.from_numpy(_dense_array(info)).to(device=device, dtype=dtype)
+    n_out, n_in = info.shape[1], info.shape[0]
+    rows = info.data.reshape(n_out, -1)  # the packed blocks of one token a row
+    out = torch.empty((n_out, n_in), dtype=dtype, device=device)
+    for r0 in range(0, n_out, chunk_rows):
+        n = min(chunk_rows, n_out - r0)
         if info.ggml_type in qmatmul.CODEBOOK_TYPES:
-            blocks = qmatmul.upload_blocks(info.data, device)
-            planes = qmatmul.repack_planes(blocks, info.ggml_type, n_out, n_in)
+            blocks = qmatmul.upload_blocks(rows[r0:r0 + n], device)
+            planes = qmatmul.repack_planes(blocks, info.ggml_type, n, n_in)
         else:
-            planes = qmatmul.repack(info.data, info.ggml_type, n_out, n_in, device)
-        w = qmatmul.dequant_planes(planes, info.ggml_type, n_out, n_in, dtype=dtype)
-        return w.T.contiguous()  # [n_in, n_out] → [n_vocab, n_embd]
-    return torch.from_numpy(_dense_array(info)).to(device=device, dtype=dtype)
+            planes = qmatmul.repack(rows[r0:r0 + n], info.ggml_type, n, n_in, device)
+        out[r0:r0 + n] = qmatmul.dequant_planes(planes, info.ggml_type, n, n_in, dtype=dtype).T
+    return out
 
 
 def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16,

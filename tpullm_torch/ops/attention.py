@@ -9,6 +9,12 @@ main path.) The one exception is a shape the kernel does not take (a head
 dim outside flash._HEAD_DIMS, or Dk ≠ Dv): on the card it goes to the dense
 path, as the JAX package sends the shapes its flash kernel refuses there
 (tpullm/ops/attention.py `attention`), counted in flash.ATTN_DENSE_ROUTES.
+
+`attention_ring` is the sliding-window layers' attention over an iSWA ring
+cache (runtime/kvcache.py SWACache): dense attention under the mask the
+ring's slot positions give, as the JAX package computes them (its gemma
+forward passes no offsets for them, which sends them to
+attention_reference); counted on the card in flash.ATTN_RING_ROUTES.
 """
 
 from __future__ import annotations
@@ -89,20 +95,27 @@ def attention_cached(q, cache, li: int, scale: float, offsets: torch.Tensor,
     kernel of the cache's format (int8 + scales stream straight in for a
     QuantKVCache; the cache never widens in device memory), or on the card,
     for a head dim the kernel does not take, through the dense path."""
-    quant = hasattr(cache, "kv_packed")
-    if q.is_cuda and not flash.takes(q.shape[-1], (cache.v_q if quant else cache.v).shape[-1]):
-        flash.ATTN_DENSE_ROUTES["q8" if quant else flash.DENSE_FORMATS[cache.k.dtype]] += 1
-        if quant:
-            k_q, k_s, v_q, v_s = cache.kv_packed(li)
-            k, v = k_q.float() * k_s[..., None], v_q.float() * v_s[..., None]
-        else:
-            k, v = cache.kv(li)
-        return _attention_dense(q, k, v, offsets, scale, softcap, sliding_window, sinks,
-                                alibi_slopes)
-    if quant:
+    if hasattr(cache, "kv_packed"):
         k_q, k_s, v_q, v_s = cache.kv_packed(li)
+        if q.is_cuda and not flash.takes(q.shape[-1], v_q.shape[-1]):
+            flash.ATTN_DENSE_ROUTES["q8"] += 1
+            return _attention_dense(q, k_q.float() * k_s[..., None], v_q.float() * v_s[..., None],
+                                    offsets, scale, softcap, sliding_window, sinks, alibi_slopes)
         return flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale, softcap,
                                         sliding_window, sinks, alibi_slopes)
     k, v = cache.kv(li)
+    if q.is_cuda and not flash.takes(q.shape[-1], v.shape[-1]):
+        flash.ATTN_DENSE_ROUTES[flash.DENSE_FORMATS[k.dtype]] += 1
+        return _attention_dense(q, k, v, offsets, scale, softcap, sliding_window, sinks,
+                                alibi_slopes)
     return flash.flash_attention(q, k, v, offsets, scale, softcap, sliding_window,
                                  sinks, alibi_slopes)
+
+
+def attention_ring(q, k, v, mask, scale: float, softcap: float = 0.0) -> torch.Tensor:
+    """Attention of q [B,T,H,D] over a ring layer's k/v [B,Hkv,R,D] under
+    the ring's mask [B,T,R] (SWACache.ring_mask): attention_reference, as
+    the JAX package runs these layers; counted on the card by format."""
+    if q.is_cuda:
+        flash.ATTN_RING_ROUTES[flash.DENSE_FORMATS[k.dtype]] += 1
+    return attention_reference(q, k, v, mask, scale, softcap)

@@ -33,14 +33,22 @@ from . import _build
 # the KV formats of the kernels: the dense cache dtypes, then int8 + scales
 DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 FORMATS = (*DENSE_FORMATS.values(), "q8")
-# launches of the kernels, by KV format (both regimes), and of the decode
-# regime alone; plain counts a run can read
+_HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash.cu instantiates
+# launches of the kernels, by KV format (both regimes), of the decode
+# regime alone, and by KV format, head dim and regime ("bf16.d256.decode");
+# plain counts a run can read
 LAUNCHES = dict.fromkeys(FORMATS, 0)
 DECODE_LAUNCHES = dict.fromkeys(FORMATS, 0)
+HEAD_DIM_LAUNCHES = {f"{fmt}.d{d}.{r}": 0 for fmt in FORMATS for d in _HEAD_DIMS
+                     for r in ("decode", "prefill")}
 # calls ops.attention sent to its dense path on the card because the kernel
 # does not take their head dims (`takes`), by KV format; 0 on a model whose
 # heads the kernel takes
 ATTN_DENSE_ROUTES = dict.fromkeys(FORMATS, 0)
+# calls of the sliding-window layers of an iSWA ring cache on the card
+# (ops/attention.py attention_ring: dense attention under the ring's mask,
+# the JAX package's own route for them), by KV format
+ATTN_RING_ROUTES = dict.fromkeys(FORMATS, 0)
 
 DECODE_ROWS = 16  # csrc/flash.cu kDecodeRows: R = T·H/Hkv up to this is decode
 DECODE_TILE = 64  # keys a decode tile (kDecTK): splits are whole tiles
@@ -52,7 +60,6 @@ NEG_INF = -1e30  # the running max before any key
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DENSE_ARGS = (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P)
 _Q8_ARGS = (_P,) * 11 + (_I,) * 6 + (_F, _F, _I, _I, _P)
-_HEAD_DIMS = (64, 128)
 
 
 def regime(T: int, H: int, Hkv: int) -> str:
@@ -301,6 +308,7 @@ def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks,
             float(softcap), int(window), n_split, stream)
     _build.check(rc, f"flash {fmt} ({'decode' if decode else 'prefill'})")
     LAUNCHES[fmt] += 1
+    HEAD_DIM_LAUNCHES[f"{fmt}.d{D}.{'decode' if decode else 'prefill'}"] += 1
     if decode:
         DECODE_LAUNCHES[fmt] += 1
     return out

@@ -23,9 +23,13 @@ The cache is written in place by every path here (prefill rounds, the
 decode and verify steps, `shift_slot`, slot state files), so the graphs
 stay valid for the engine's life; `drop_graphs` releases them.
 
+An iSWA model (gemma2, gemma3) gets the ring cache (runtime/kvcache.py
+SWACache) with one ring a slot, sized for `prefill_chunk`, as the JAX
+package's BatchEngine gives it; a freed slot's ring is marked empty.
+
 Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.4, 1.6): mesh serving and the
-pipeline, a shared `Model`, recurrent archs, the iSWA cache and multimodal
-prefill (`prefill_slot_embeddings`).
+pipeline, a shared `Model`, recurrent archs, speculative verification on
+the ring cache and multimodal prefill (`prefill_slot_embeddings`).
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from ..models.weights import fuse_llama_params
 from ..ops.rope import rotate_cached_keys
 from .engine import PREFILL_BUCKETS, PerfCounters
 from .graph import BatchRunner
-from .kvcache import KVCache, QuantKVCache, make_cache
+from .kvcache import (KVCache, QuantKVCache, SWACache, make_cache, refuse_speculation,
+                      takes_ring)
 
 
 def _not_ported(what: str, item: str):
@@ -78,7 +83,11 @@ class BatchEngine:
         self.max_seq = max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)
         self.kv_dtype = kv_dtype
-        self.cache = make_cache(self.hp, n_slots, max_seq, kv_dtype, self.device)
+        if takes_ring(self.arch.iswa, self.hp, kv_dtype, max_seq):
+            self.cache = SWACache.new(self.hp, n_slots, max_seq, kv_dtype,
+                                      max_chunk=self.prefill_chunk, device=self.device)
+        else:
+            self.cache = make_cache(self.hp, n_slots, max_seq, kv_dtype, self.device)
         self.n_past = np.zeros(n_slots, dtype=np.int32)
         # per-slot RoPE position offset against the cache slot count (the
         # JAX package's M-RoPE image grids; 0 here until mtmd is ported)
@@ -124,8 +133,25 @@ class BatchEngine:
     # -- slot lifecycle ----------------------------------------------------------
 
     def free_slot(self, slot: int):
+        """The slot's state dropped: n_past 0, and on the ring its slot
+        positions marked empty (in place), so that the next request in it
+        attends nothing of the last one's window."""
         self.n_past[slot] = 0
         self.rope_delta[slot] = 0
+        if isinstance(self.cache, SWACache):
+            self.cache.reset_slots(slot)
+
+    def ring_holds(self, slot: int, n: int) -> bool:
+        """Whether a query at position `n` of the slot finds its window in
+        the cache: on the ring, every position of [n − window + 1, n) still
+        in a ring slot (a longer sequence since has overwritten them); a
+        full cache holds them all. Prompt-cache reuse asks it (the
+        reference server likewise re-processes the prompt of an SWA model
+        whose window left its cache)."""
+        if not isinstance(self.cache, SWACache) or n <= 0:
+            return True
+        need = np.arange(max(0, n - self.hp.sliding_window + 1), n)
+        return bool(np.isin(need, self.cache.slot_pos[slot].cpu().numpy()).all())
 
     def _bucket(self, n: int) -> int:
         for b in PREFILL_BUCKETS:
@@ -244,6 +270,7 @@ class BatchEngine:
         `tokens` idle. Does NOT advance n_past: the caller commits the
         accepted prefix. Returns the runner, whose `ids` [slots, width] and
         `logits` [slots, width, V] hold the rows until its next run."""
+        refuse_speculation(self.cache)
         t0 = time.perf_counter()
         slots = max(tokens) + 1
         a = np.zeros((2 * width + 1, slots), dtype=np.int32)

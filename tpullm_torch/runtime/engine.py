@@ -20,6 +20,11 @@ draft engine catches up through `feed`, on the same graphs.
 The cache is written in place and never replaced by the engine's own
 paths, so the runners' graphs stay valid across `reset`, prefills and
 runtime/state.py's `load_state`; `new_cache` makes a new one and drops them.
+
+An iSWA model (registry `iswa`: gemma2, gemma3) gets the ring cache
+(runtime/kvcache.py SWACache) as the JAX package gives it: a dense cache
+dtype, a window, max_seq above it and no `swa_full`; its prefill then runs
+in chunks of at most 1024 tokens, which the ring is sized for.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..models.registry import get_arch, load_hparams
 from ..models.weights import fuse_llama_params
 from ..ops.sampling_ops import SamplingParams, sample_token
 from .graph import DecodeRunner, LogitsRunner, VerifyRunner
-from .kvcache import make_cache
+from .kvcache import SWACache, make_cache, refuse_speculation, takes_ring
 from .sampling import Sampler, SamplerParams
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -62,14 +67,15 @@ class PerfCounters:
 class Engine:
     def __init__(self, model_path, *, device=None, mode: str = "auto",
                  dtype=torch.bfloat16, max_seq: int = 2048, kv_dtype=torch.bfloat16,
-                 override_kv: dict | None = None):
+                 override_kv: dict | None = None, swa_full: bool = False):
         """`device=None` means CUDA (raises when there is none); the tests
         pass device="cpu". `mode` is the weight mode of build_params
         ("auto" and "quant": packed planes on the kernels; "dense": every
         linear dequantized to `dtype`, a plain product). `kv_dtype` is a
         torch dtype or a cache type: "f16", "bf16", "f32", "q8_0".
         `override_kv` updates the GGUF metadata before anything reads it
-        (≡ --override-kv)."""
+        (≡ --override-kv). `swa_full` keeps a full-size cache for the
+        sliding-window layers of an iSWA model (≡ --swa-full)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise ValueError(f"dtype {dtype}: on the card the flash kernels take bf16 "
@@ -86,9 +92,8 @@ class Engine:
             self.params = fuse_llama_params(params)
         self.max_seq = max_seq
         self.batch = 1
-        self.prefill_cap = min(max_seq, PREFILL_CHUNK)
-        self.kv_dtype = kv_dtype
-        self.cache = make_cache(self.hp, self.batch, max_seq, kv_dtype, self.device)
+        self.kv_dtype, self.swa_full = kv_dtype, swa_full
+        self.cache = self._make_cache()
         self.n_past = 0
         self._runners: dict = {}  # (SamplingParams, chunk) → DecodeRunner
         self._logits_runner: LogitsRunner | None = None
@@ -97,14 +102,40 @@ class Engine:
             torch.cuda.synchronize(self.device)  # load time includes the repack
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
 
-    def reset(self):
-        self.n_past = 0
+    def _make_cache(self, prefill_cap: int | None = None):
+        """The cache of `kv_dtype` and `swa_full`: the ring for an iSWA
+        model on a dense dtype with a window below max_seq, sized for
+        prefill chunks of `prefill_cap` (default 1024), else the full cache
+        (chunks of PREFILL_CHUNK by default)."""
+        self.ring = not self.swa_full and takes_ring(self.arch.iswa, self.hp, self.kv_dtype,
+                                                     self.max_seq)
+        self.prefill_cap = prefill_cap or min(self.max_seq, 1024 if self.ring else PREFILL_CHUNK)
+        if self.ring:
+            return SWACache.new(self.hp, self.batch, self.max_seq, self.kv_dtype,
+                                max_chunk=self.prefill_cap, device=self.device)
+        return make_cache(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
 
-    def new_cache(self):
-        """A new, zeroed cache in place of the engine's, and n_past 0. The
-        runners' graphs hold the old cache's buffers, so they are dropped
-        (the next run captures anew)."""
-        self.cache = make_cache(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
+    def reset(self):
+        """n_past 0; on the ring every slot marked empty (in place), so that
+        a new sequence attends no entry of the last one."""
+        self.n_past = 0
+        if isinstance(self.cache, SWACache):
+            self.cache.reset_slots()
+
+    def new_cache(self, kv_dtype=None, swa_full: bool | None = None):
+        """A new, zeroed cache in place of the engine's, and n_past 0: of
+        another `kv_dtype` or `swa_full` where given (the prefill cap that
+        cache kind takes by default), else of the same kind at the current
+        prefill cap (a ring is sized for it). The runners' graphs hold the
+        old cache's buffers, so they are dropped (the next run captures
+        anew)."""
+        same = kv_dtype is None and swa_full is None
+        if kv_dtype is not None:
+            self.kv_dtype = kv_dtype
+        if swa_full is not None:
+            self.swa_full = swa_full
+        self.cache = None  # the old cache's memory goes before the new one's
+        self.cache = self._make_cache(self.prefill_cap if same else None)
         self._runners.clear()
         self._logits_runner = None
         self._verify_runners.clear()
@@ -189,6 +220,7 @@ class Engine:
     def verify_runner(self, rows: int) -> VerifyRunner:
         """The engine's verification forward of `rows` tokens (its CUDA
         graph is captured at its first run and kept)."""
+        refuse_speculation(self.cache)
         runner = self._verify_runners.get(rows)
         if runner is None:
             runner = self._verify_runners[rows] = VerifyRunner(self, rows)

@@ -74,7 +74,8 @@ from ..ops.sampling_ops import SamplingParams, sample_token
 
 # the names of launch_counts()'s dicts, in order
 COUNT_NAMES = ("qmm", "qmm_tc", "qmm_stack", "qmm_gather", "qmm_grouped", "dequant_routes",
-               "flash", "flash_decode", "attn_dense_routes")
+               "flash", "flash_decode", "flash_head_dim", "attn_dense_routes",
+               "attn_ring_routes")
 
 
 def launch_counts() -> tuple[dict, ...]:
@@ -83,7 +84,7 @@ def launch_counts() -> tuple[dict, ...]:
 
     return (qmm.LAUNCHES, qmm.TC_LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES,
             qmm.GROUPED_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.DECODE_LAUNCHES,
-            flash.ATTN_DENSE_ROUTES)
+            flash.HEAD_DIM_LAUNCHES, flash.ATTN_DENSE_ROUTES, flash.ATTN_RING_ROUTES)
 
 
 def _add_counts(delta: list[dict], sign: int = 1) -> None:

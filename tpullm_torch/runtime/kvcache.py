@@ -12,6 +12,10 @@ per-slot positions (continuous batching, runtime/batch_engine.py), where a
 negative entry leaves that slot's rows as they are (the JAX package's rule:
 `offset.ndim == 0` is the scalar path); a forward turns per-slot offsets
 into `SlotRows` once for all its layers.
+
+`SWACache` is the iSWA dual store (the JAX package's SWACache): the
+full-attention layers keep [n_full, B, Hkv, S, D], the sliding-window
+layers a ring of R slots whose absolute positions `slot_pos` records.
 """
 
 from __future__ import annotations
@@ -200,6 +204,152 @@ class QuantKVCache:
         for arr, new in ((self.k_q, k_q), (self.v_q, v_q), (self.k_s, k_s), (self.v_s, v_s)):
             _write(arr, new, offset, 2, layer)
         return self
+
+
+def takes_ring(iswa: bool, hp: HParams, kv_dtype, max_len: int) -> bool:
+    """Whether a cache gets the iSWA ring (the JAX package's rule): an iSWA
+    arch (registry `iswa`) with a window below max_len, on a dense dtype
+    (a q8 cache stays full, its windows in the flash kernel)."""
+    return (iswa and 0 < hp.sliding_window < max_len
+            and not isinstance(kv_dtype, str))
+
+
+def ring_len(window: int, max_chunk: int, max_len: int) -> int:
+    """The ring slots an iSWA cache gives its sliding-window layers: a
+    prefill chunk of C tokens needs window − 1 past keys and C new ones,
+    rounded up to 128 and at most max_len."""
+    r = window - 1 + min(max_chunk, max_len)
+    return min(max_len, -(-r // 128) * 128)
+
+
+@dataclass
+class SWACache:
+    """Dual KV store for interleaved sliding-window attention (the JAX
+    package's runtime/kvcache.py SWACache, ≡ llama_kv_cache_unified_iswa).
+
+    Full-attention layers keep [n_full, B, Hkv, max_len, D]; sliding-window
+    layers share a ring of R = `ring_len` slots, where the row at position
+    p of a write at offset o lands in slot (o + i) mod R (a write of more
+    than R rows keeps its last R). `slot_pos` [B, R] holds the absolute
+    position in each slot, −1 while empty, and the SWA mask comes from it:
+    a query at p attends slot s iff 0 ≤ pos_s ≤ p and p − pos_s < window.
+
+    Everything is written in place, and a forward's ring rows are computed
+    on the device from its offset (a host int, a 0-d device tensor, or
+    per-slot int32 [B] with −1 for an idle slot, whose rows and positions
+    stay as they are), so a decode step on the ring is captured as a CUDA
+    graph like one on a full cache. Dense dtypes only: a q8 cache keeps
+    the full QuantKVCache, its windows in the flash kernel."""
+
+    full_k: torch.Tensor  # [n_full, B, Hkv, S, Dk]
+    full_v: torch.Tensor  # [n_full, B, Hkv, S, Dv]
+    swa_k: torch.Tensor  # [n_swa, B, Hkv, R, Dk]
+    swa_v: torch.Tensor  # [n_swa, B, Hkv, R, Dv]
+    slot_pos: torch.Tensor  # [B, R] int32, −1 empty
+    layer_map: tuple  # layer → (is_swa, index among its kind)
+    window: int
+
+    @classmethod
+    def new(cls, hp: HParams, batch: int, max_len: int, dtype=torch.bfloat16,
+            max_chunk: int = 1024, device=None) -> "SWACache":
+        layer_map, n_full, n_swa = [], 0, 0
+        for li in range(hp.n_layer):
+            if hp.is_swa(li):
+                layer_map.append((True, n_swa))
+                n_swa += 1
+            else:
+                layer_map.append((False, n_full))
+                n_full += 1
+        R = ring_len(hp.sliding_window, max_chunk, max_len)
+
+        def zeros(n, s, d):
+            return torch.zeros((n, batch, hp.n_head_kv, s, d), dtype=dtype, device=device)
+
+        return cls(zeros(n_full, max_len, hp.head_dim), zeros(n_full, max_len, hp.head_dim_v),
+                   zeros(n_swa, R, hp.head_dim), zeros(n_swa, R, hp.head_dim_v),
+                   torch.full((batch, R), -1, dtype=torch.int32, device=device),
+                   tuple(layer_map), hp.sliding_window)
+
+    @property
+    def max_len(self) -> int:
+        return self.full_k.shape[3]
+
+    @property
+    def ring_len(self) -> int:
+        return self.swa_k.shape[3]
+
+    @property
+    def batch(self) -> int:
+        return self.full_k.shape[1]
+
+    def first_slots(self, n: int) -> "SWACache":
+        """A view of batch rows [0, n): its writes land in this cache."""
+        return SWACache(self.full_k[:, :n], self.full_v[:, :n], self.swa_k[:, :n],
+                        self.swa_v[:, :n], self.slot_pos[:n], self.layer_map, self.window)
+
+    def advance(self, positions: torch.Tensor, offset) -> SlotRows:
+        """Record this forward's positions [B, T] in `slot_pos`, in place
+        (once a forward, before its layers, so that the SWA mask covers the
+        rows being written), and return the ring rows every SWA layer's
+        write takes. `offset` is a host int, a 0-d device tensor or
+        per-slot int32 [B] (−1 idle: nothing kept); the rows are computed on
+        the device: rows [T − T', T), T' = min(T, R), go to slots
+        (o + T − T' + i) mod R."""
+        B, R, T = self.batch, self.ring_len, positions.shape[1]
+        dev = self.slot_pos.device
+        if isinstance(offset, torch.Tensor):
+            off = offset.to(torch.int64).reshape(-1).expand(B)
+        else:
+            off = torch.full((B,), int(offset), dtype=torch.int64, device=dev)
+        t = min(T, R)
+        idx = (off.clamp(min=0)[:, None] + (T - t) + torch.arange(t, device=dev)[None]) % R
+        rows = SlotRows(idx, (off >= 0)[:, None].expand(B, t))
+        old = self.slot_pos.gather(1, idx)
+        self.slot_pos.scatter_(1, idx, torch.where(rows.keep, positions[:, T - t:].to(torch.int32),
+                                                   old))
+        return rows
+
+    def ring_mask(self, positions: torch.Tensor) -> torch.Tensor:
+        """[B, T, R] SWA mask from the slot positions (after `advance`)."""
+        sp = self.slot_pos[:, None, :]
+        qp = positions[:, :, None]
+        return (sp >= 0) & (sp <= qp) & (sp > qp - self.window)
+
+    def kv(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        swa, loc = self.layer_map[layer]
+        if swa:
+            return self.swa_k[loc], self.swa_v[loc]
+        return self.full_k[loc], self.full_v[loc]
+
+    def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+               offset) -> "SWACache":
+        """Write k/v [B, Hkv, T, D] for `layer`: a full layer as KVCache
+        writes (offset: host int, 0-d tensor, per-slot tensor or SlotRows);
+        a ring layer at the ring rows `advance` returned (`offset`)."""
+        swa, loc = self.layer_map[layer]
+        if not swa:
+            _write(self.full_k, k_new, offset, 2, loc)
+            _write(self.full_v, v_new, offset, 2, loc)
+            return self
+        t = offset.idx.shape[1]
+        for arr, new in ((self.swa_k, k_new), (self.swa_v, v_new)):
+            _slot_write(arr, new[:, :, new.shape[2] - t:], offset, 2, loc)
+        return self
+
+    def reset_slots(self, slot: int | None = None) -> None:
+        """Mark every ring slot empty (of one batch row, or of all), in place:
+        a new sequence attends no stale entry."""
+        (self.slot_pos if slot is None else self.slot_pos[slot]).fill_(-1)
+
+
+def refuse_speculation(*caches) -> None:
+    """Speculative verification writes rows past the accepted prefix and
+    rolls them back; on a ring cache that is not ported (the JAX package's
+    ring takes it; the port's verify graphs do not hold the ring yet)."""
+    if any(isinstance(c, SWACache) for c in caches):
+        raise NotImplementedError(
+            "speculative decoding on an iSWA ring cache is not ported yet (ROADMAP.md "
+            "1.4.1); swa_full=True (--swa-full) gives the model a full cache")
 
 
 def make_cache(hp: HParams, batch: int, max_len: int, kv_dtype, device=None):

@@ -33,6 +33,7 @@ import torch
 
 from ..ops.sampling_ops import SamplingParams
 from .engine import Engine
+from .kvcache import refuse_speculation
 from .sampling import Sampler, SamplerParams, argmax_exact
 
 GREEDY = SamplingParams(temp=0.0)
@@ -290,6 +291,7 @@ def generate_speculative(
     applied to the target logits at that position, yields the same id
     (exact-match acceptance, the reference's default). A sampler that picks
     the argmax (`argmax_exact`) reads back the verified rows' ids only."""
+    refuse_speculation(target.cache, getattr(getattr(speculator, "engine", None), "cache", None))
     sampler = sampler or Sampler(SamplerParams(temp=0.0))
     stats = SpecStats()
     vocab = target.tokenizer.vocab

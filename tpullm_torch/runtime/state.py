@@ -13,15 +13,25 @@ captured decode graphs hold the cache's buffers (runtime/graph.py).
 BatchEngine (the server's slot save and restore), in the same format: the
 slot's rows [0, n_past[slot]) in place of row 0's.
 
+An iSWA ring cache (runtime/kvcache.py SWACache) saves as the JAX package
+saves it: the full-attention layers' rows [0, n_past) as `k`/`v`, and the
+whole ring of the row (`swa_k`, `swa_v`), its slot positions (`slot_pos`)
+and its window (`swa_window`); a restore checks the window and the ring's
+length against the engine's. A ring file restores only into a ring engine
+and a full file only into a full one.
+
 A q8 cache has no dense K/V to save (the JAX package's QuantKVCache has no
-`.k` either) and raises a ValueError; iSWA and MLA state files wait for
-those caches in the port.
+`.k` either) and raises a ValueError; MLA state files wait for that cache
+in the port.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils.npz import savez
+from .kvcache import SWACache
 
 MAGIC = "tpullm-state-v1"
 
@@ -37,21 +47,32 @@ def _meta(hp) -> dict:
 
 
 def _dense_cache(engine):
+    """The engine's cache as (k, v) [L, B, Hkv, S, D] of the layers the
+    file's `k`/`v` hold (a ring cache: its full-attention layers)."""
     cache = engine.cache
+    if isinstance(cache, SWACache):
+        return cache.full_k, cache.full_v
     if not hasattr(cache, "k"):
         raise ValueError(f"state files hold a dense KV cache (bf16, f16 or f32); this engine's "
                          f"is {type(cache).__name__} (kv_dtype {engine.kv_dtype!r})")
-    return cache
+    return cache.k, cache.v
 
 
 def _save_row(engine, row: int, n: int, path, tokens):
-    cache = _dense_cache(engine)
-    k = cache.k[:, row, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
-    v = cache.v[:, row, :, :n].float().cpu().numpy()
-    np.savez_compressed(
+    ck, cv = _dense_cache(engine)
+    k = ck[:, row, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
+    v = cv[:, row, :, :n].float().cpu().numpy()
+    extra = {}
+    cache = engine.cache
+    if isinstance(cache, SWACache):
+        extra = dict(swa_k=cache.swa_k[:, row].float().cpu().numpy(),
+                     swa_v=cache.swa_v[:, row].float().cpu().numpy(),
+                     slot_pos=cache.slot_pos[row].cpu().numpy(), swa_window=cache.window)
+    savez(
         path, magic=MAGIC, n_past=n, k=k, v=v,
         tokens=np.asarray(tokens if tokens is not None else [], dtype=np.int64),
         **{f"meta_{key}": val for key, val in _meta(engine.hp).items()},
+        **extra,
     )
     return path
 
@@ -64,13 +85,25 @@ def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
         n = int(z["n_past"])
         if n > engine.max_seq:
             raise ValueError(f"saved state ({n} tokens) exceeds max_seq {engine.max_seq}")
-        if "swa_k" in z.files or "mla_kvr" in z.files:
-            raise ValueError("iSWA and MLA state files are not restored by the port yet")
-        cache = _dense_cache(engine)
-        if n:
-            with torch.inference_mode():
-                cache.k[:, row, :, :n].copy_(torch.from_numpy(z["k"]))
-                cache.v[:, row, :, :n].copy_(torch.from_numpy(z["v"]))
+        if "mla_kvr" in z.files:
+            raise ValueError("MLA state files are not restored by the port yet")
+        cache = engine.cache
+        ring = isinstance(cache, SWACache)
+        if ("swa_k" in z.files) != ring:
+            raise ValueError("an iSWA state file restores into an iSWA ring engine, and a "
+                             "full-cache file into a full-cache one")
+        if ring and (int(z["swa_window"]) != cache.window
+                     or z["swa_k"].shape[2] != cache.ring_len):
+            raise ValueError("iSWA state geometry mismatch (window/ring)")
+        ck, cv = _dense_cache(engine)
+        with torch.inference_mode():
+            if n:
+                ck[:, row, :, :n].copy_(torch.from_numpy(z["k"]))
+                cv[:, row, :, :n].copy_(torch.from_numpy(z["v"]))
+            if ring:
+                cache.swa_k[:, row].copy_(torch.from_numpy(z["swa_k"]))
+                cache.swa_v[:, row].copy_(torch.from_numpy(z["swa_v"]))
+                cache.slot_pos[row].copy_(torch.from_numpy(z["slot_pos"].astype(np.int32)))
         return n, [int(t) for t in z["tokens"]]
 
 

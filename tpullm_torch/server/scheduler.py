@@ -34,6 +34,7 @@ import numpy as np
 
 from ..grammar import GrammarConstraint, LazyGrammarConstraint
 from ..runtime.batch_engine import BatchEngine
+from ..runtime.kvcache import refuse_speculation
 from ..runtime.sampling import Sampler, SamplerParams, argmax_exact
 from ..runtime.speculative import make_speculator
 from ..runtime.state import load_slot_state, save_slot_state
@@ -98,6 +99,8 @@ class Scheduler:
             raise ValueError("spec_type=draft requires a draft_engine")
         if draft_engine is not None and spec_type is None:
             self.spec_type = "draft"
+        if self.spec_type:
+            refuse_speculation(engine.cache, getattr(draft_engine, "cache", None))
         self.n_draft = max(1, n_draft)
         # --cache-reuse: min chunk length for mid-prompt KV reuse via
         # position shifting (0 = common-prefix reuse only)
@@ -516,6 +519,8 @@ class Scheduler:
         n_valid = n_common
         if n_common > 0 and self.cache_reuse > 0:
             n_valid = self._cache_reuse_shift(slot, req.prompt_ids, n_common)
+        if not eng.ring_holds(slot.index, n_valid):
+            n_valid = 0  # the ring no longer holds the window before it
         if n_valid > 0:
             eng.n_past[slot.index] = n_valid
             tail = req.prompt_ids[n_valid:]

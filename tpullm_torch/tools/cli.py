@@ -14,8 +14,9 @@ in one forward (on the card a graph replay).
     python -m tpullm_torch.tools.cli -m model.gguf -p "Once upon a time" -n 64
     python -m tpullm_torch.tools.cli -m model.gguf -md draft.gguf -p "..." -n 64 -v
 
-Not ported yet (each exits with a message, ROADMAP 1.4): self-extend
-(--grp-attn-n > 1) and the iSWA cache switch (--swa-full). The Hugging
+--swa-full gives an iSWA model (gemma2, gemma3) a full-size cache for its
+sliding-window layers in place of the ring. Not ported yet (it exits with
+a message, ROADMAP 1.4): self-extend (--grp-attn-n > 1). The Hugging
 Face download flags are left out: the port's machines have no network.
 """
 
@@ -75,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--grp-attn-n", type=int, default=1,
                     help=f"self-extend group size ({NOT_PORTED} above 1)")
     ap.add_argument("--swa-full", action="store_true",
-                    help=f"full-size KV cache for SWA layers ({NOT_PORTED})")
+                    help="full-size KV cache for SWA layers (disable the iSWA ring; "
+                         "≡ llama.cpp --swa-full)")
     ap.add_argument("--cache-type-kv", default=None, choices=["f16", "bf16", "f32", "q8_0"],
                     help="KV cache storage type (≡ --cache-type-k/v)")
     ap.add_argument("--chat", action="store_true", help="interactive chat")
@@ -120,8 +122,7 @@ def apply_preset(args, parser, argv):
 
 def check_ported(args) -> None:
     """Exit with a message for the options the port does not serve yet."""
-    for flag, used in (("--grp-attn-n > 1", int(args.grp_attn_n) > 1),
-                       ("--swa-full", args.swa_full)):
+    for flag, used in (("--grp-attn-n > 1", int(args.grp_attn_n) > 1),):
         if used:
             raise SystemExit(f"tpullm-torch: {flag} is {NOT_PORTED}")
 
@@ -133,7 +134,8 @@ def make_engine(args):
         raise SystemExit("-m/--model is required")
     kw = {"kv_dtype": args.cache_type_kv} if args.cache_type_kv else {}
     return Engine(args.model, device=args.device, mode=args.mode, max_seq=int(args.ctx_size),
-                  override_kv=parse_kv_overrides(args.override_kv or []), **kw)
+                  override_kv=parse_kv_overrides(args.override_kv or []),
+                  swa_full=args.swa_full, **kw)
 
 
 def make_sampler(args):
@@ -191,7 +193,7 @@ def run_completion(args) -> int:
         if args.model_draft:
             spec = DraftModelSpeculator(
                 Engine(args.model_draft, device=args.device, mode=args.mode,
-                       max_seq=int(args.ctx_size)),
+                       max_seq=int(args.ctx_size), swa_full=args.swa_full),
                 n_draft=int(args.draft_max))
         else:
             spec = NgramSpeculator(n_draft=int(args.draft_max))
