@@ -132,10 +132,11 @@ Phases, in order; any failure raises and exits nonzero:
     and served the same way with a bf16 KV cache, with the graph phase;
  8b. gemma: Gemma-3-4B Q4_K_M (34 layers, head dim 256, a window of 1024 on
     five layers of six, vocab 262144, tied head) synthesized from a seed:
-    the tied Q6_K embedding's load peak in one piece and in row chunks;
+    the tied Q6_K embedding's load peak in row chunks;
     Engine with the bf16 iSWA ring (2048 slots), with swa_full and with a
     q8 cache, prompts of 512 and 2560 tokens (the longer wraps the ring)
-    and 64 greedy tokens each on the decode graph: TTFT, decode tok/s, the
+    and 64 greedy tokens each on the decode graph: the prefill cold and
+    warm with each forward's ms, TTFT (warm), decode tok/s, the
     launches of a decode replay and of a prefill forward (the ring: flash
     on the 5 global layers, attention_ring on the 29 others), a decode
     token's device time by family; f16 and f32 rings; ring against
@@ -1015,12 +1016,13 @@ def read_launches() -> dict:
                 "qmm_grouped": sum(qmm.GROUPED_LAUNCHES.values()),
                 "qmm_stack": sum(qmm.STACK_LAUNCHES.values()),
                 "qmm_gather": sum(qmm.GATHER_LAUNCHES.values()),
-                **{f"flash_{fmt}": flash.LAUNCHES[fmt] for fmt in FLASH_FORMATS},
-                **{f"flash_{fmt}.decode": flash.DECODE_LAUNCHES[fmt] for fmt in FLASH_FORMATS},
+                **{f"flash_{fmt}": flash.launch_total(fmt) for fmt in FLASH_FORMATS},
+                **{f"flash_{fmt}.decode": flash.launch_total(fmt, "decode")
+                   for fmt in FLASH_FORMATS},
                 "dequant_routes": sum(qmm.DEQUANT_ROUTES.values()),
                 "attn_dense_routes": sum(flash.ATTN_DENSE_ROUTES.values()),
                 "attn_ring_routes": sum(flash.ATTN_RING_ROUTES.values()),
-                **{f"flash_{k}": n for k, n in flash.HEAD_DIM_LAUNCHES.items()}})
+                **{f"flash_{k}": n for k, n in flash.LAUNCHES.items()}})
     for kind, counts in (("qmm_tc", qmm.TC_LAUNCHES), ("qmm_grouped", qmm.GROUPED_LAUNCHES),
                          ("qmm_stack", qmm.STACK_LAUNCHES), ("qmm_gather", qmm.GATHER_LAUNCHES)):
         got.update({f"{kind}.{fmt}": n for fmt, n in counts.items() if n})
@@ -1546,7 +1548,7 @@ def graph_decode(label: str, kv_name: str, eng, word_ids, count, graph_prof: dic
     one = runner.launches_per_replay()
     want = {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
             "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+            "flash_decode": per["flash"],
             "attn_dense_routes": 0, "attn_ring_routes": 0}
     log(f"{tag} launches per replay (one token) {one}; capture {runner.capture_s:.3f} s, "
         f"graph pool {runner.pool_bytes / 2**20:.1f} MiB")
@@ -1871,11 +1873,11 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     # base recorded by dense
     corpus = ROOT / "SURVEY.md"
     per = per_forward_launches(eng.params)
-    before = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.LAUNCHES["bf16"],
-              flash.DECODE_LAUNCHES["bf16"], sum(qmm.LAUNCHES.values()))
+    before = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.launch_total("bf16"),
+              flash.launch_total("bf16", "decode"), sum(qmm.LAUNCHES.values()))
     window_ms, nll_auto = window_nll(eng, corpus)
-    after = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.LAUNCHES["bf16"],
-             flash.DECODE_LAUNCHES["bf16"], sum(qmm.LAUNCHES.values()))
+    after = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.launch_total("bf16"),
+             flash.launch_total("bf16", "decode"), sum(qmm.LAUNCHES.values()))
     d = [b - a for a, b in zip(before, after)]
     log(f"[tools] perplexity windows of 512: {[round(w, 2) for w in window_ms]} ms; launches "
         f"over {PPL_WINDOWS} windows: qmm_tc {d[0]} (Q6_K {d[1]}), flash {d[2]} (decode regime "
@@ -2064,7 +2066,7 @@ def _batch_launches(eng) -> dict:
     per = per_forward_launches(eng.params)
     return {"qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
             "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-            "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+            "flash_decode": per["flash"],
             "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
@@ -2400,7 +2402,7 @@ def verify_launches(eng, rows: int, T: int) -> dict:
             "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
             "dequant_routes": 0, "flash": per["flash"],
             "flash_decode": per["flash"] if decode else 0,
-            "flash_head_dim": per["flash"], "attn_dense_routes": 0, "attn_ring_routes": 0}
+            "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
 def count_forwards(eng):
@@ -2844,16 +2846,15 @@ def gemma_launch_want(eng, rows: int) -> dict:
     return {"qmm": 0 if tc else per["qmm_layers"], "qmm_tc": per["qmm_layers"] if tc else 0,
             "qmm_stack": 0, "qmm_gather": 0, "qmm_grouped": 0, "dequant_routes": 0,
             "flash": n_flash, "flash_decode": n_flash if decode else 0,
-            "flash_head_dim": n_flash, "attn_dense_routes": 0, "attn_ring_routes": n_ring}
+            "attn_dense_routes": 0, "attn_ring_routes": n_ring}
 
 
 def _launch_delta(before: list) -> dict:
     """The launches since `before` (a snapshot of launch_counts()) by
-    COUNT_NAMES."""
-    from tpullm_torch.runtime.graph import COUNT_NAMES, launch_counts
+    count_summary's names."""
+    from tpullm_torch.runtime.graph import count_summary, launch_counts
 
-    return {name: sum(c.values()) - sum(b.values())
-            for name, c, b in zip(COUNT_NAMES, launch_counts(), before)}
+    return count_summary([{k: c[k] - b[k] for k in c} for c, b in zip(launch_counts(), before)])
 
 
 def _snapshot() -> list:
@@ -2863,47 +2864,77 @@ def _snapshot() -> list:
 
 
 def embedding_peak(path: Path) -> dict:
-    """The card's peak GiB above the baseline of load_embedding on the
-    model's tied table: in one piece (as it loaded before the row chunks) and in its
-    row chunks."""
+    """The card's peak GiB above the baseline of load_embedding (row
+    chunks of EMBEDDING_CHUNK_ROWS) on the model's tied table."""
     import torch
 
     from tpullm_torch.gguf.reader import GGUFReader
     from tpullm_torch.models.weights import EMBEDDING_CHUNK_ROWS, load_embedding
 
     info = GGUFReader(path).tensors["token_embd.weight"]
-    out = {}
-    for name, rows in (("one_piece", info.shape[1]), ("chunked", EMBEDDING_CHUNK_ROWS)):
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        w = load_embedding(info, torch.device("cuda"), chunk_rows=rows)
-        torch.cuda.synchronize()
-        out[name] = dict(peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
-                         table_gib=w.numel() * w.element_size() / 2**30,
-                         s=time.perf_counter() - t0)
-        del w
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w = load_embedding(info, torch.device("cuda"))
+    torch.cuda.synchronize()
+    out = dict(peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               table_gib=w.numel() * w.element_size() / 2**30, s=time.perf_counter() - t0)
+    del w
     log(f"[gemma] embedding {info.ggml_type.name} {tuple(info.shape)}: peak above the "
-        f"baseline {out['one_piece']['peak_gib']:.2f} GiB in one piece, "
-        f"{out['chunked']['peak_gib']:.2f} GiB in chunks of {EMBEDDING_CHUNK_ROWS} rows "
-        f"(the bf16 table {out['chunked']['table_gib']:.2f} GiB)")
+        f"baseline {out['peak_gib']:.2f} GiB in chunks of {EMBEDDING_CHUNK_ROWS} rows (the "
+        f"bf16 table {out['table_gib']:.2f} GiB) in {out['s']:.2f} s")
     return out
 
 
+def _prefill_split(eng, toks: list[int]) -> tuple[float, list]:
+    """A prefill of `toks` after a reset: its wall ms to the last row's
+    logits on the host, and each forward's (rows, ms), the card
+    synchronized around each."""
+    import dataclasses
+
+    import torch
+
+    orig, split = eng.arch.forward, []
+
+    def forward(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        split.append((a[2].shape[1], round((time.perf_counter() - t) * 1e3, 1)))
+        return out
+
+    eng.reset()
+    eng.arch = dataclasses.replace(eng.arch, forward=forward)
+    try:
+        t0 = time.perf_counter()
+        eng.prefill(toks)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng.arch = dataclasses.replace(eng.arch, forward=orig)
+    return ms, split
+
+
 def gemma_run(label: str, eng, word_ids) -> dict:
-    """One cache kind of an Engine on Gemma-3-4B: a warm-up generation,
-    then each prompt of GEMMA_LENS and GEMMA_GEN greedy tokens (the decode
-    graph), TTFT and decode tok/s; one prefill forward's and one decode
-    replay's launches against gemma_launch_want; the ids of the 2560-token
-    prompt's generation."""
+    """One cache kind of an Engine on Gemma-3-4B: a warm-up generation;
+    each prompt of GEMMA_LENS prefilled twice, the first its chunk shapes'
+    first run (cold), with each forward's ms; then each prompt and
+    GEMMA_GEN greedy tokens (the decode graph), TTFT (warm) and decode
+    tok/s; one prefill forward's and one decode replay's launches against
+    gemma_launch_want; the ids of the 2560-token prompt's generation."""
     import torch
 
     from tpullm_torch.ops.sampling_ops import SamplingParams
 
     before = _snapshot()
     eng.generate_tokens_device(word_ids(16), 8, stop_on_eog=False)
-    out = dict(kv=label, ttft_ms={}, decode_tok_s={}, ids={})
+    out = dict(kv=label, ttft_ms={}, decode_tok_s={}, ids={}, prefill_ms={})
+    for n in GEMMA_LENS:
+        cold, warm = _prefill_split(eng, word_ids(n)), _prefill_split(eng, word_ids(n))
+        out["prefill_ms"][n] = dict(cold=cold, warm=warm)
+        log(f"[gemma] {label} prompt {n}: prefill cold {cold[0]:.1f} ms (forwards of rows, ms "
+            f"{cold[1]}), warm {warm[0]:.1f} ms ({warm[1]})")
     for n in GEMMA_LENS:
         eng.reset()
         p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
@@ -2913,7 +2944,7 @@ def gemma_run(label: str, eng, word_ids) -> dict:
         expect(len(ids) == GEMMA_GEN and all(0 <= t < eng.hp.n_vocab for t in ids),
                f"gemma {label}: {GEMMA_GEN} ids in range from the {n}-token prompt")
         out["ttft_ms"][n], out["decode_tok_s"][n], out["ids"][n] = ttft * 1e3, rate, ids
-        log(f"[gemma] {label} prompt {n}: TTFT {ttft * 1e3:.1f} ms, decode {rate:.2f} tok/s "
+        log(f"[gemma] {label} prompt {n}: TTFT (warm) {ttft * 1e3:.1f} ms, decode {rate:.2f} tok/s "
             f"(graph), first ids {ids[:6]}")
     runner = eng.decode_runner(SamplingParams(), 32)
     one = runner.launches_per_replay()
@@ -2943,12 +2974,13 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
     """Gemma-3-4B Q4_K_M at full width and depth (34 layers, head dim 256,
     5 of 6 layers on a 1024-token window, vocab 262144, tied head),
     synthesized from seed 0:
-    1. the tied Q6_K embedding's load peak in one piece and in row chunks;
+    1. the tied Q6_K embedding's load peak in row chunks;
     2. Engine with the bf16 ring (R = 2048), with swa_full=True and with a
        q8 cache (the q8 cache keeps every layer in full, windows in flash):
        prompts of 512 and 2560 tokens (the longer wraps the ring; on the
-       ring three prefill chunks), 64 greedy tokens each on the decode
-       graph; TTFT, decode tok/s; launches of a decode replay and of a
+       ring three prefill chunks), each prefilled cold and warm with its
+       forwards' ms, then 64 greedy tokens each on the decode graph; TTFT
+       (warm), decode tok/s; launches of a decode replay and of a
        prefill forward (the ring: flash 5, attention_ring 29; otherwise
        flash 34); a decode token's device time by family, attention_ring's
        share timed as its call at the decode shape; the ring engine also
@@ -3030,7 +3062,7 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
         eng.new_cache(kv_dtype=kv)
         eng.generate_tokens_device(word_ids(512), 16, stop_on_eog=False)
         log(f"[gemma] {kv} ring: 512-token prompt and 16 tokens; flash {kv} launches at D = 256 "
-            f"{ {k: v for k, v in flash.HEAD_DIM_LAUNCHES.items() if k.startswith(kv + '.d256')} }")
+            f"{ {k: v for k, v in flash.LAUNCHES.items() if k.startswith(kv + '.d256')} }")
     result["runs"]["ring"] = run
     eng.new_cache(kv_dtype=torch.bfloat16)  # the serving check's single-stream Engine
 
@@ -3259,7 +3291,7 @@ def phase_routes(dev, tmp: Path):
     err = nmse(out.float(), flash.flash_reference(q, cache.k[0], cache.v[0], off,
                                                   D ** -0.5).float())
     log(f"[routes] attention at head dim 96: dense route calls {dict(flash.ATTN_DENSE_ROUTES)}, "
-        f"flash launches {dict(flash.LAUNCHES)}; NMSE against the flash plain version {err:.2e}")
+        f"flash launches {flash.launch_total()}; NMSE against the flash plain version {err:.2e}")
     expect(nmse(out.float(), ref.float()) <= 1e-10,
            "head dim 96: the dense path is attention_reference")
     expect(flash.ATTN_DENSE_ROUTES["bf16"] == 1 and sum(flash.LAUNCHES.values()) == 0,

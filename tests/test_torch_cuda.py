@@ -533,11 +533,11 @@ def _flash_regimes(dev, T, D, kv, extras):
         offsets = (kv_len - T, (7 * kv_len + 1000) % (S - T + 1))
         kernel, plain, bound = _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets,
                                              seed=T + kv_len + D, extras=extras)
-        before = flash.LAUNCHES[kv], flash.DECODE_LAUNCHES[kv]
+        before = flash.launch_total(kv), flash.launch_total(kv, "decode")
         got = kernel()
         again = kernel()
         torch.cuda.synchronize()
-        assert (flash.LAUNCHES[kv], flash.DECODE_LAUNCHES[kv]) == \
+        assert (flash.launch_total(kv), flash.launch_total(kv, "decode")) == \
             (before[0] + 2, before[1] + 2 * decode)
         ref = plain()
         assert got.shape == (B, T, H, D) and torch.isfinite(got.float()).all()
@@ -627,13 +627,13 @@ def test_engine_on_the_card_matches_the_cpu(dev, tmp_path, kv):
     assert gpu.device.type == "cuda"
     ids = gpu.tokenizer.tokenize("the quick brown fox", add_special=True)
     fmt = "q8" if kv == "q8_0" else kv
-    before = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES[fmt]
+    before = qmm.LAUNCHES["Q4_K"], flash.launch_total(fmt)
     a, b = gpu.prefill(ids), cpu.prefill(ids)
     assert np.isfinite(a).all() and _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
     for tok in (300, 17, 42):
         a, b = gpu.decode_step(tok), cpu.decode_step(tok)
         assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
-    after = qmm.LAUNCHES["Q4_K"], flash.LAUNCHES[fmt]
+    after = qmm.LAUNCHES["Q4_K"], flash.launch_total(fmt)
     assert after[0] > before[0] and after[1] == before[1] + 4 * gpu.hp.n_layer
     gpu.reset()
     cpu.reset()
@@ -673,7 +673,7 @@ def test_gemma_engine_on_the_card_matches_the_cpu(dev, tmp_path, kind):
         cpu.generate_tokens_device(ids, 40, chunk=8)
     one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
     n_ring = sum(gpu.hp.is_swa(i) for i in range(6)) if kind.endswith("ring") else 0
-    assert one["flash"] == one["flash_decode"] == one["flash_head_dim"] == 6 - n_ring
+    assert one["flash"] == one["flash_decode"] == 6 - n_ring
     assert one["attn_ring_routes"] == n_ring and one["attn_dense_routes"] == 0
 
 
@@ -843,7 +843,7 @@ def test_decode_graph_matches_decode_step(dev, tmp_path, shape, kv):
         ref.append(int(np.argmax(eng.decode_step(ref[-1]))))
     eng.reset()
     fmt = "bf16" if kv == "bf16" else "q8"
-    before = (sum(qmm.LAUNCHES.values()), flash.DECODE_LAUNCHES[fmt],
+    before = (sum(qmm.LAUNCHES.values()), flash.launch_total(fmt, "decode"),
               sum(qmm.GATHER_LAUNCHES.values()))
     got = eng.generate_tokens_device(ids, 200, chunk=8, to_end=True)
     torch.cuda.synchronize()
@@ -853,11 +853,11 @@ def test_decode_graph_matches_decode_step(dev, tmp_path, shape, kv):
     assert runner.launches_per_replay() == {
         "qmm": per["qmm"], "qmm_tc": 0, "qmm_stack": 0, "qmm_gather": per["experts"],
         "qmm_grouped": 0, "dequant_routes": 0, "flash": per["flash"],
-        "flash_decode": per["flash"], "flash_head_dim": per["flash"],
+        "flash_decode": per["flash"],
         "attn_dense_routes": 0, "attn_ring_routes": 0}
     assert runner.replays == 40 - len(ids) - 1  # the first step ran eagerly, before the capture
     forwards = 1 + (40 - len(ids))  # the prefill (bucket 8: the same regimes) and the steps
-    after = (sum(qmm.LAUNCHES.values()), flash.DECODE_LAUNCHES[fmt],
+    after = (sum(qmm.LAUNCHES.values()), flash.launch_total(fmt, "decode"),
              sum(qmm.GATHER_LAUNCHES.values()))
     assert after == (before[0] + per["qmm"] * forwards, before[1] + per["flash"] * forwards,
                      before[2] + per["experts"] * forwards)
@@ -959,7 +959,7 @@ def test_dense_mode_on_the_card(dev, tmp_path, ftype):
                                  add_special=True)
     before = (sum(qmm.LAUNCHES.values()) + sum(qmm.TC_LAUNCHES.values())
               + sum(qmm.STACK_LAUNCHES.values()) + sum(qmm.GATHER_LAUNCHES.values()),
-              flash.LAUNCHES["bf16"])
+              flash.launch_total("bf16"))
     a, b = gpu.prefill(ids), cpu.prefill(ids)
     assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-3
     for tok in (300, 17, 42):
@@ -967,7 +967,7 @@ def test_dense_mode_on_the_card(dev, tmp_path, ftype):
                      torch.from_numpy(cpu.decode_step(tok))) <= 1e-3
     after = (sum(qmm.LAUNCHES.values()) + sum(qmm.TC_LAUNCHES.values())
              + sum(qmm.STACK_LAUNCHES.values()) + sum(qmm.GATHER_LAUNCHES.values()),
-             flash.LAUNCHES["bf16"])
+             flash.launch_total("bf16"))
     assert after[0] == before[0] and after[1] == before[1] + 4 * gpu.hp.n_layer
     gpu.reset()
     cpu.reset()
@@ -996,7 +996,7 @@ def test_flash_decode_with_idle_slots_matches_plain(dev, B, kv):
     v = torch.randn(B, Hkv, S, D, generator=g, device=dev)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     scale = D ** -0.5
-    before = flash.DECODE_LAUNCHES[kv]
+    before = flash.launch_total(kv, "decode")
     if kv == "q8":
         from tpullm_torch.runtime.kvcache import QuantKVCache
 
@@ -1012,7 +1012,7 @@ def test_flash_decode_with_idle_slots_matches_plain(dev, B, kv):
         ref = flash.flash_reference(q, k, v, off, scale)
         bound = FLASH_NMSE_BOUND
     torch.cuda.synchronize()
-    assert flash.DECODE_LAUNCHES[kv] == before + 1
+    assert flash.launch_total(kv, "decode") == before + 1
     idle = [b for b, o in enumerate(offsets) if o < 0]
     assert torch.isfinite(got.float()).all() and not got[idle].float().any()
     assert _nmse(got.float(), ref.float()) <= bound
@@ -1186,7 +1186,7 @@ def _verify_launches(eng, rows: int, T: int) -> dict:
             "qmm_gather": 0 if stack else per["experts"], "qmm_grouped": 0,
             "dequant_routes": 0, "flash": per["flash"],
             "flash_decode": per["flash"] if decode else 0,
-            "flash_head_dim": per["flash"], "attn_dense_routes": 0, "attn_ring_routes": 0}
+            "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
 @pytest.mark.parametrize("kv", ["bf16", "q8_0"])

@@ -207,10 +207,41 @@ def test_kernel_source_constants_match_the_wrapper():
 def test_cpu_tensors_take_the_plain_version_in_both_regimes():
     for T in (1, 16):
         q, k, v, off, _, _ = _inputs(T, (0, 3), seed=2)
-        before = dict(flash.LAUNCHES), dict(flash.DECODE_LAUNCHES)
+        before = dict(flash.LAUNCHES)
         got = flash.flash_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
                                     _t(v, torch.bfloat16), torch.from_numpy(off), 0.125)
         ref = flash.flash_reference(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
                                     _t(v, torch.bfloat16), torch.from_numpy(off), 0.125)
         assert torch.equal(got, ref)
-        assert (flash.LAUNCHES, flash.DECODE_LAUNCHES) == before
+        assert flash.LAUNCHES == before
+
+
+# a launch count as the wrapper keeps it: bf16 at D = 256 3 decode and 2
+# prefill launches, q8 at D = 128 4 decode launches, f32 at D = 64 1 prefill
+_COUNTS = {**dict.fromkeys(flash.LAUNCHES, 0), "bf16.d256.decode": 3, "bf16.d256.prefill": 2,
+           "q8.d128.decode": 4, "f32.d64.prefill": 1}
+
+
+@pytest.mark.parametrize("fmt,regime,want", [
+    (None, None, 10), ("bf16", None, 5), (None, "decode", 7), ("q8", "prefill", 0),
+    ("f32", "prefill", 1), ("f16", None, 0)])
+def test_launch_total_sums_by_format_and_regime(fmt, regime, want):
+    """flash.LAUNCHES is keyed by format, head dim and regime; launch_total
+    sums the keys of one format and/or one regime (None takes all)."""
+    assert set(flash.LAUNCHES) == set(_COUNTS)
+    assert flash.launch_total(fmt, regime, counts=_COUNTS) == want
+
+
+def test_count_summary_names_flash_decode():
+    """runtime.graph.count_summary sums each launch_counts() dict by
+    COUNT_NAMES and gives flash's decode regime as "flash_decode"; a runner
+    never captured (no dicts) launched nothing."""
+    from tpullm_torch.runtime.graph import COUNT_NAMES, count_summary
+
+    counts = [{} for _ in COUNT_NAMES]
+    counts[COUNT_NAMES.index("flash")] = _COUNTS
+    counts[COUNT_NAMES.index("attn_ring_routes")] = {"bf16": 29}
+    got = count_summary(counts)
+    assert got == {**dict.fromkeys(COUNT_NAMES, 0), "flash": 10, "flash_decode": 7,
+                   "attn_ring_routes": 29}
+    assert count_summary([]) == {}

@@ -58,7 +58,7 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.models.gemma, tpullm_torch.models.registry\n"
         "import tpullm_torch.grammar, tpullm_torch.runtime.sampling, tpullm_torch.runtime.graph\n"
         "import tpullm_torch.runtime.state, tpullm_torch.chat, tpullm_torch.jinja\n"
-        "import tpullm_torch.utils.logging, tpullm_torch.utils.console, tpullm_torch.utils.npz\n"
+        "import tpullm_torch.utils.logging, tpullm_torch.utils.console\n"
         "import tpullm_torch.grammar.json_partial\n"
         "import tpullm_torch.tools.cli, tpullm_torch.tools.perplexity, tpullm_torch.tools.bench\n"
         "import tpullm_torch.tools.tokenize, tpullm_torch.tools.compare_bench\n"

@@ -132,26 +132,3 @@ def test_q8_cache_and_mismatches_raise(engines, tmp_path):
     np.savez(tmp_path / "x.npz", magic="something else")
     with pytest.raises(ValueError, match="not a tpullm state file"):
         state.load_state(te, tmp_path / "x.npz")
-
-
-def test_savez_writes_numpys_npz(tmp_path):
-    """utils.npz.savez (state files, the KLD base) writes np.savez_compressed's
-    format at deflate level 1: np.load gives back every array and scalar,
-    and a path without ".npz" gets it, as numpy's writer does."""
-    import zipfile
-
-    from tpullm_torch.utils.npz import savez
-
-    rng = np.random.default_rng(0)
-    arrays = dict(k=rng.standard_normal((2, 3, 5)).astype(np.float32), n_past=7,
-                  magic="tpullm-state-v1", ids=np.arange(4, dtype=np.int64),
-                  h=rng.standard_normal(8).astype(np.float16))
-    savez(tmp_path / "a", **arrays)
-    np.savez_compressed(tmp_path / "b", **arrays)
-    with np.load(tmp_path / "a.npz") as got, np.load(tmp_path / "b.npz") as want:
-        assert sorted(got.files) == sorted(want.files)
-        for name in want.files:
-            assert got[name].dtype == want[name].dtype
-            np.testing.assert_array_equal(got[name], want[name])
-    with zipfile.ZipFile(tmp_path / "a.npz") as zf:
-        assert {i.compress_type for i in zf.infolist()} == {zipfile.ZIP_DEFLATED}

@@ -191,11 +191,10 @@ def load_linear(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
 EMBEDDING_CHUNK_ROWS = 16384  # table rows (tokens) load_embedding dequantizes at a time
 
 
-def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
-                   chunk_rows: int = EMBEDDING_CHUNK_ROWS) -> torch.Tensor:
+def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.Tensor:
     """Embedding table as [n_vocab, n_embd]: a quantized table uploads
-    packed and dequantizes on the device through dequant_planes, `chunk_rows`
-    tokens at a time into the table, so that its f32 intermediates are one
+    packed and dequantizes on the device through dequant_planes,
+    EMBEDDING_CHUNK_ROWS tokens at a time into the table, so that its f32 intermediates are one
     chunk's (Gemma-3's 262144 × 2560 table is 2.7 GB in f32); each row's
     blocks dequantize alone, so the chunks give the values of one pass. A
     codebook type dequantizes from its f32-scale planes, scale·value in f32
@@ -208,8 +207,8 @@ def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
     n_out, n_in = info.shape[1], info.shape[0]
     rows = info.data.reshape(n_out, -1)  # the packed blocks of one token a row
     out = torch.empty((n_out, n_in), dtype=dtype, device=device)
-    for r0 in range(0, n_out, chunk_rows):
-        n = min(chunk_rows, n_out - r0)
+    for r0 in range(0, n_out, EMBEDDING_CHUNK_ROWS):
+        n = min(EMBEDDING_CHUNK_ROWS, n_out - r0)
         if info.ggml_type in qmatmul.CODEBOOK_TYPES:
             blocks = qmatmul.upload_blocks(rows[r0:r0 + n], device)
             planes = qmatmul.repack_planes(blocks, info.ggml_type, n, n_in)

@@ -34,13 +34,10 @@ from . import _build
 DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 FORMATS = (*DENSE_FORMATS.values(), "q8")
 _HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash.cu instantiates
-# launches of the kernels, by KV format (both regimes), of the decode
-# regime alone, and by KV format, head dim and regime ("bf16.d256.decode");
-# plain counts a run can read
-LAUNCHES = dict.fromkeys(FORMATS, 0)
-DECODE_LAUNCHES = dict.fromkeys(FORMATS, 0)
-HEAD_DIM_LAUNCHES = {f"{fmt}.d{d}.{r}": 0 for fmt in FORMATS for d in _HEAD_DIMS
-                     for r in ("decode", "prefill")}
+# launches of the kernels by KV format, head dim and regime
+# ("bf16.d256.decode"), plain counts a run can read; launch_total sums them
+LAUNCHES = {f"{fmt}.d{d}.{r}": 0 for fmt in FORMATS for d in _HEAD_DIMS
+            for r in ("decode", "prefill")}
 # calls ops.attention sent to its dense path on the card because the kernel
 # does not take their head dims (`takes`), by KV format; 0 on a model whose
 # heads the kernel takes
@@ -307,11 +304,15 @@ def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks,
             out.data_ptr(), _ptr(partial), _ptr(counters), B, T, H, Hkv, S, D, float(scale),
             float(softcap), int(window), n_split, stream)
     _build.check(rc, f"flash {fmt} ({'decode' if decode else 'prefill'})")
-    LAUNCHES[fmt] += 1
-    HEAD_DIM_LAUNCHES[f"{fmt}.d{D}.{'decode' if decode else 'prefill'}"] += 1
-    if decode:
-        DECODE_LAUNCHES[fmt] += 1
+    LAUNCHES[f"{fmt}.d{D}.{'decode' if decode else 'prefill'}"] += 1
     return out
+
+
+def launch_total(fmt: str | None = None, regime: str | None = None, counts=None) -> int:
+    """`counts` (LAUNCHES, or a delta of it) summed over the keys of one KV
+    format and/or one regime ("decode", "prefill"); None takes every one."""
+    return sum(n for key, n in (LAUNCHES if counts is None else counts).items()
+               if fmt in (None, key.split(".")[0]) and regime in (None, key.split(".")[-1]))
 
 
 def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,

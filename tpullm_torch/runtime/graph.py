@@ -74,8 +74,7 @@ from ..ops.sampling_ops import SamplingParams, sample_token
 
 # the names of launch_counts()'s dicts, in order
 COUNT_NAMES = ("qmm", "qmm_tc", "qmm_stack", "qmm_gather", "qmm_grouped", "dequant_routes",
-               "flash", "flash_decode", "flash_head_dim", "attn_dense_routes",
-               "attn_ring_routes")
+               "flash", "attn_dense_routes", "attn_ring_routes")
 
 
 def launch_counts() -> tuple[dict, ...]:
@@ -83,8 +82,21 @@ def launch_counts() -> tuple[dict, ...]:
     from ..ops.kernels import flash, qmm
 
     return (qmm.LAUNCHES, qmm.TC_LAUNCHES, qmm.STACK_LAUNCHES, qmm.GATHER_LAUNCHES,
-            qmm.GROUPED_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.DECODE_LAUNCHES,
-            flash.HEAD_DIM_LAUNCHES, flash.ATTN_DENSE_ROUTES, flash.ATTN_RING_ROUTES)
+            qmm.GROUPED_LAUNCHES, qmm.DEQUANT_ROUTES, flash.LAUNCHES, flash.ATTN_DENSE_ROUTES,
+            flash.ATTN_RING_ROUTES)
+
+
+def count_summary(counts: list[dict]) -> dict:
+    """Dicts in the order of launch_counts() (counts or deltas of them)
+    summed by COUNT_NAMES, with flash's decode regime as "flash_decode"."""
+    from ..ops.kernels import flash
+
+    if not counts:  # a runner never captured (on the CPU) launched nothing
+        return {}
+    out = {name: sum(d.values()) for name, d in zip(COUNT_NAMES, counts)}
+    flash_counts = counts[COUNT_NAMES.index("flash")]
+    out["flash_decode"] = flash.launch_total(regime="decode", counts=flash_counts)
+    return out
 
 
 def _add_counts(delta: list[dict], sign: int = 1) -> None:
@@ -145,8 +157,8 @@ class _CapturedStep:
         self.graph = g
 
     def launches_per_replay(self) -> dict[str, int]:
-        """The launches one replay adds, summed over formats, by COUNT_NAMES."""
-        return {name: sum(d.values()) for name, d in zip(COUNT_NAMES, self.replay_counts)}
+        """The launches one replay adds, summed over formats (count_summary)."""
+        return count_summary(self.replay_counts)
 
     def _steps(self, n: int) -> None:
         """`n` steps from the buffers' state: on the card replays of the

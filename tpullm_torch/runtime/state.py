@@ -5,7 +5,9 @@ other.
 
 A state file holds the live KV-cache prefix (row 0, positions [0, n_past))
 as f32 (lossless from bf16 and f16; npz has no bf16 dtype), the token
-history and the model's shape. Restore writes into the engine's cache in
+history and the model's shape, stored uncompressed (np.savez: deflating
+a Gemma-3-4B ring's 0.5 GB of rows took a minute; the JAX package deflates,
+and np.load reads either). Restore writes into the engine's cache in
 place (`copy_` into its slices), never a new cache object: the engine's
 captured decode graphs hold the cache's buffers (runtime/graph.py).
 
@@ -30,7 +32,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.npz import savez
 from .kvcache import SWACache
 
 MAGIC = "tpullm-state-v1"
@@ -68,7 +69,7 @@ def _save_row(engine, row: int, n: int, path, tokens):
         extra = dict(swa_k=cache.swa_k[:, row].float().cpu().numpy(),
                      swa_v=cache.swa_v[:, row].float().cpu().numpy(),
                      slot_pos=cache.slot_pos[row].cpu().numpy(), swa_window=cache.window)
-    savez(
+    np.savez(
         path, magic=MAGIC, n_past=n, k=k, v=v,
         tokens=np.asarray(tokens if tokens is not None else [], dtype=np.int64),
         **{f"meta_{key}": val for key, val in _meta(engine.hp).items()},

@@ -29,8 +29,6 @@ _MAX_LOG = math.log(sys.float_info.max)  # exp overflows f64 past this
 import numpy as np
 import torch
 
-from ..utils.npz import savez
-
 
 def _ppl(nll: float, count: int) -> float:
     """exp of the mean NLL; inf past f64's range."""
@@ -109,7 +107,8 @@ def save_logits_base(engine, text: str, path: str, n_ctx: int = 512,
     """Record a run's logits for later KLD comparison
     (≡ perplexity --kl-divergence-base output)."""
     logits, ids = _window_logits(engine, text, n_ctx, max_windows)
-    savez(path, logits=logits, ids=np.asarray(ids, np.int64), n_ctx=n_ctx)
+    np.savez_compressed(path, logits=logits, ids=np.asarray(ids, np.int64),
+                        n_ctx=n_ctx)
     return path
 
 
