@@ -41,6 +41,12 @@ Phases, in order; any failure raises and exits nonzero:
     T = 512 (B = 2, and B = 1 in the window), each timed as in 3 and
     against the plain version of its own order, and Gemma-2's softcap 50
     in both regimes;
+ 3a'. flash's latent form (the MLA cache: Dk 576, Dv 512, bf16, 16 heads on
+    one KV head, S = 4096): the decode regime at T = 1 (B = 2, kv 38 /
+    3001; B = 1, kv 20; an idle slot) and the prefill regime at T = 512
+    (offsets 0 / 2500) and in a joint round (B = 4, T = 8, two idle), each
+    against its plain version and that of its own order, timed beside its
+    bound and SDPA (enable_gqa);
  3b. batched kernels: the shapes continuous batching gives the kernels,
     each against its plain version and timed as in 3: flash's decode
     regime at B = 4 and 8 slots with idle slots at offset −1 (their rows
@@ -144,6 +150,20 @@ Phases, in order; any failure raises and exits nonzero:
     against dense bf16 weights; a state file of the ring engine saved and
     restored; a BatchEngine of 4 slots on the ring against Engine, a slot
     freed and admitted again;
+ 8c. deepseek2: DeepSeek-V2-Lite Q4_K_M (27 layers, MLA with kv_lora_rank
+    512 + 64 rope dims, 64 routed experts top-6 and 2 shared, one dense
+    lead layer, vocab 102400) synthesized from a seed at full depth (9.65
+    GiB): Engine on the bf16 latent at context 4096, prompts of 512 and
+    2560 tokens cold and warm, 64 greedy tokens each on the decode graph,
+    load s and peak GiB, TTFT (warm), decode tok/s, the launches of a
+    decode replay and of a prefill forward (flash's latent form 27 a
+    forward, the packed gate/up expert stacks through qmm_gather or
+    qmm_stack, the K = 1408 down stacks dense at load, the dense lead's K
+    = 10944 down through the dequantize route), device ms by family; the
+    latent's bytes a position against the decompressed cache's; the
+    kernels against dense bf16 weights teacher-forced (the greedy ids
+    equal); an MLA state file round trip; a BatchEngine of 4 slots
+    teacher-forced against Engine;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dim 96 through the counted dense path;
@@ -215,8 +235,10 @@ FLASH_FORMATS = ("bf16", "f16", "f32", "q8")
 FLASH_KEYS = tuple(f"flash_{fmt}" for fmt in FLASH_FORMATS)
 # flash's instantiations at head dim 256 (the Gemma family), a line each
 FLASH256_KEYS = tuple(f"flash_{fmt}_d256" for fmt in FLASH_FORMATS)
+# flash's latent form (the MLA cache: Dk 576, Dv 512, bf16)
+FLASH_MLA_KEY = "flash_bf16_d576v512"
 KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS,
-           *FLASH256_KEYS)
+           *FLASH256_KEYS, FLASH_MLA_KEY)
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
@@ -225,19 +247,22 @@ REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_grouped": "Q4_K gate_up M=1", "qmm_stack": "Q4_K gate M=512 shared",
                   "qmm_gather": "Q4_K gate T=2",
                   **{f"flash_{fmt}": f"{fmt} T=1 S=4096" for fmt in FLASH_FORMATS},
-                  **{f"flash_{fmt}_d256": f"{fmt} T=1 B=2 S=4096 D=256" for fmt in FLASH_FORMATS}}
+                  **{f"flash_{fmt}_d256": f"{fmt} T=1 B=2 S=4096 D=256" for fmt in FLASH_FORMATS},
+                  FLASH_MLA_KEY: "T=1 B=2 kv=38/3001 S=4096"}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
-            **{key: "tpullm/ops/pallas/flash.py:69" for key in FLASH_KEYS + FLASH256_KEYS}}
+            **{key: "tpullm/ops/pallas/flash.py:69" for key in FLASH_KEYS + FLASH256_KEYS},
+            FLASH_MLA_KEY: "tpullm/ops/pallas/flash.py:69"}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
-           **{key: "tpullm_torch/csrc/flash.cu" for key in FLASH_KEYS + FLASH256_KEYS}}
+           **{key: "tpullm_torch/csrc/flash.cu" for key in (*FLASH_KEYS, *FLASH256_KEYS,
+                                                            FLASH_MLA_KEY)}}
 
 
 def log(*a):
@@ -348,8 +373,8 @@ def ptxas_entries(report: str) -> list[tuple[str, int, int, int]]:
                 d = re.match(r"\d+", mangled[i:])
                 ident = mangled[i + d.end():i + d.end() + int(d.group())] if d else ""
                 if ident.endswith("_kernel") and ident.isidentifier():
-                    targs = re.match(r"I((?:Li\d+E)+)E", mangled[i + d.end() + len(ident):])
-                    args = re.findall(r"Li(\d+)E", targs.group(1)) if targs else []
+                    targs = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i + d.end() + len(ident):])
+                    args = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
                     cur = f"{ident}<{','.join(args)}>"
                     break
             continue
@@ -390,6 +415,9 @@ def phase_build() -> dict:
                 f"spilling: {[e[0] for e in ks if e[2] or e[3]]}")
     d256 = {k: v for k, v in regs.items() if k.startswith("flash_") and "<256," in k}
     log(f"[build] flash at D = 256 (registers, spill stores, spill loads): {d256}")
+    mla = {k: v for k, v in regs.items() if k.startswith("flash_") and "<576,512" in k}
+    log(f"[build] flash's latent form, Dk 576 / Dv 512 (registers, spill stores, spill "
+        f"loads): {mla}")
     return regs
 
 
@@ -3137,6 +3165,321 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
     return result
 
 
+# DeepSeek-V2-Lite's MLA attention: 16 query heads on the latent's one KV
+# head, Dk = kv_lora_rank + n_rot = 576, Dv = kv_lora_rank = 512, bf16
+MLA_HEADS = dict(H=16, Hkv=1, Dk=576, Dv=512, S=4096)
+MLA_SCALE = 192 ** -0.5  # the per-head key width's (qk_nope 128 + rope 64)
+
+
+def _flash_mla_case(dev, gen, *, B, T, offsets, H, Hkv, Dk, Dv, S) -> dict:
+    """The latent form (v = k[..., :Dv]) on random bf16 inputs against its
+    plain version and the plain version of its own order, timed beside its
+    bound and SDPA (enable_gqa, the values a copy of the latent's prefix)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpullm_torch.ops.kernels import flash
+
+    q = torch.randn(B, T, H, Dk, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(B, Hkv, S, Dk, generator=gen, device=dev).to(torch.bfloat16)
+    v = c[..., :Dv]
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return flash.flash_attention(q, c, v, off, MLA_SCALE)
+
+    def plain():
+        return flash.flash_reference(q, c, v, off, MLA_SCALE)
+    decode = flash.regime(T, H, Hkv) == "decode"
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    own = (flash.flash_split_reference(q, c, v, off, MLA_SCALE, n_sm=n_sm, p_terms=2) if decode
+           else flash.flash_prefill_reference(q, c, v, off, MLA_SCALE))
+    idle = [b for b, o in enumerate(offsets) if o < 0]
+    row = dict(regime="decode" if decode else "prefill", nmse=nmse(got.float(), ref.float()),
+               nmse_own_order=nmse(got.float(), own.float()),
+               max_abs_err=float((got.float() - ref.float()).abs().max()),
+               finite=bool(torch.isfinite(got.float()).all()),
+               idle_zero=not bool(got[idle, 0].float().any()))
+    del own
+    # the work this run's data needs: the valid keys' latent rows read once
+    # (decode), 2·(Dk + Dv) FLOP a visible (query, key) pair a head
+    q_pos = np.asarray(offsets)[:, None] + np.arange(T)[None]
+    visible = float(np.clip(q_pos + 1, 0, S).sum())
+    kv_len = float(np.clip(np.asarray(offsets) + T, 0, S).sum())
+    n_bytes = q.numel() * 2 + B * T * H * Dv * 2 + kv_len * Hkv * Dk * 2
+    bms, by = bound_ms(n_bytes, 2.0 * (Dk + Dv) * H * visible)
+    pos = torch.arange(S, device=dev)
+    q_at = (off[:, None] + torch.arange(T, device=dev))[..., None]
+    mask = (pos[None, None, :] <= q_at)[:, None]  # [B, 1, T, S]
+    qt, vt = q.transpose(1, 2), v.contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, c, vt, attn_mask=mask, scale=MLA_SCALE,
+                                              enable_gqa=True)
+    row.update(ms=time_ms(kernel, 20), eager_ms=time_ms(kernel, 20, graph=False),
+               plain_ms=time_ms(plain, 2, 1, graph=False), bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, 20), visible_pairs_per_head=visible)
+    return row
+
+
+def phase_flash_mla(dev, results: dict):
+    """Flash's latent form at DeepSeek-V2-Lite's attention (MLA_HEADS, S =
+    4096): the decode regime at T = 1, B = 2 with kv 38 / 3001 and B = 1
+    with kv 20, and an idle slot (offset −1); the prefill regime at T = 512
+    with offsets 0 / 2500 and in a joint round (B = 4, T = 8, two idle);
+    each against its plain version and that of its own order (NMSE within
+    FLASH_NMSE_BOUND), timed beside its bound and SDPA; rows under FLASH_MLA_KEY."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(11)
+    cases = [("T=1 B=2 kv=38/3001 S=4096", dict(B=2, T=1, offsets=(37, 3000))),
+             ("T=1 B=1 kv=20 S=4096", dict(B=1, T=1, offsets=(19,))),
+             ("T=1 B=2 idle/kv=501 S=4096", dict(B=2, T=1, offsets=(-1, 500))),
+             ("T=512 B=2 offsets=0/2500 S=4096", dict(B=2, T=512, offsets=(0, 2500))),
+             ("T=8 B=4 offsets=-1/0/2500/-1 S=4096", dict(B=4, T=8, offsets=(-1, 0, 2500, -1)))]
+    for label, kw in cases:
+        row = _flash_mla_case(dev, gen, **MLA_HEADS, **kw)
+        row["case"] = label
+        expect(row["finite"] and row["idle_zero"], f"flash mla {label}: finite, idle rows 0")
+        expect(row["nmse"] <= FLASH_NMSE_BOUND and row["nmse_own_order"] <= FLASH_NMSE_BOUND,
+               f"flash mla {label} NMSE {row['nmse']:.3e}, against the plain version of its "
+               f"own order {row['nmse_own_order']:.3e} <= {FLASH_NMSE_BOUND}")
+        results.setdefault(FLASH_MLA_KEY, []).append(row)
+        log(f"[flash mla] {label} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
+            f"{row['max_abs_err']:.3g} (own order {row['nmse_own_order']:.2e}) kernel "
+            f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) plain {row['plain_ms']:.3f} ms sdpa (enable_gqa) "
+            f"{row['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+
+
+DS2_CTX = 4096  # max_seq
+DS2_LENS = (512, 2560)  # prompts
+DS2_GEN = 64  # greedy tokens a prompt
+DS2_SLOTS = 4
+DS2_TEACHER = 32  # teacher-forced positions against dense weights (after the 512 prompt)
+
+
+def ds2_launch_want(eng, rows: int) -> dict:
+    """One deepseek2 forward's launches by COUNT_NAMES at `rows` rows (1: a
+    decode step): every quantized 2-D linear the kernels take through qmm
+    (qmm_tc from 16 rows but the head, on the last row), the others (the
+    dense lead's K = 10944 down) through the dequantize route; the packed
+    expert stacks through qmm_gather (≤ 16 rows) or qmm_stack, the dense
+    ones (K = 1408 down) through no kernel; flash's latent form once a
+    layer in the regime T·H/Hkv picks."""
+    from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
+    from tpullm_torch.ops import moe
+    from tpullm_torch.ops.kernels import flash, qmm
+
+    def base(m):
+        return m.base if isinstance(m, FusedLinear) else m
+
+    quant = [base(m) for layer in eng.params["layers"] for m in layer.values()
+             if isinstance(base(m), QuantLinear)]
+    taken = sum(qmm.takes(m.n_in, m.n_out) for m in quant)
+    stacks = sum(isinstance(m, QuantExpertStack) for layer in eng.params["layers"]
+                 for m in layer.values())
+    tc = rows >= qmm.TC_MIN_M
+    gather = rows <= moe._GATHER_MAX_TOKENS
+    decode = flash.regime(rows, eng.hp.n_head, 1) == "decode"
+    L = eng.hp.n_layer
+    return {"qmm": (0 if tc else taken) + 1, "qmm_tc": taken if tc else 0,
+            "qmm_stack": 0 if gather else stacks, "qmm_gather": stacks if gather else 0,
+            "qmm_grouped": 0, "dequant_routes": len(quant) - taken, "flash": L,
+            "flash_decode": L if decode else 0, "attn_dense_routes": 0, "attn_ring_routes": 0}
+
+
+def ds2_run(label: str, eng, word_ids) -> dict:
+    """Engine on DeepSeek-V2-Lite: a warm-up generation; each prompt of
+    DS2_LENS prefilled cold and warm with each forward's ms; each prompt and
+    DS2_GEN greedy tokens on the decode graph: TTFT (warm), decode tok/s;
+    the launches of a decode replay and of a 512-token prefill forward
+    against ds2_launch_want; a decode token's and a 512-token prefill's
+    device ms by family."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+
+    eng.generate_tokens_device(word_ids(16), 8, stop_on_eog=False)
+    out = dict(kv=label, ttft_ms={}, decode_tok_s={}, ids={}, prefill_ms={})
+    for n in DS2_LENS:
+        cold, warm = _prefill_split(eng, word_ids(n)), _prefill_split(eng, word_ids(n))
+        out["prefill_ms"][n] = dict(cold=cold, warm=warm)
+        log(f"[deepseek2] {label} prompt {n}: prefill cold {cold[0]:.1f} ms (forwards of rows, "
+            f"ms {cold[1]}), warm {warm[0]:.1f} ms ({warm[1]})")
+    for n in DS2_LENS:
+        eng.reset()
+        p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
+        ids = eng.generate_tokens_device(word_ids(n), DS2_GEN, stop_on_eog=False)
+        ttft = eng.perf.t_prefill_s - p0[0]
+        rate = (eng.perf.n_decode - p0[2]) / (eng.perf.t_decode_s - p0[1])
+        expect(len(ids) == DS2_GEN and all(0 <= t < eng.hp.n_vocab for t in ids),
+               f"deepseek2 {label}: {DS2_GEN} ids in range from the {n}-token prompt")
+        out["ttft_ms"][n], out["decode_tok_s"][n], out["ids"][n] = ttft * 1e3, rate, ids
+        log(f"[deepseek2] {label} prompt {n}: TTFT (warm) {ttft * 1e3:.1f} ms, decode "
+            f"{rate:.2f} tok/s (graph), first ids {ids[:6]}")
+    runner = eng.decode_runner(SamplingParams(), 32)
+    one = runner.launches_per_replay()
+    want = ds2_launch_want(eng, 1)
+    log(f"[deepseek2] {label} launches per decode replay {one}")
+    expect(one == want, f"deepseek2 {label}: launches per decode replay {one} = {want}")
+    eng.reset()
+    snap = _snapshot()
+    eng.prefill(word_ids(512))
+    torch.cuda.synchronize()
+    got = _launch_delta(snap)
+    want = ds2_launch_want(eng, 512)
+    log(f"[deepseek2] {label} launches of one 512-token prefill forward {got}")
+    expect(got == want, f"deepseek2 {label}: one prefill forward's launches {got} = {want}")
+    out["launches_per_decode"], out["launches_per_prefill"] = one, got
+    prof = profile_decode(eng, runner, word_ids(512), 32)
+    out["device_ms_per_token"] = prof["device_ms_per_token"]
+    out["event_span_ms_per_token"] = prof["event_span_ms_per_token"]
+    out["decode_top"] = prof["top"]
+    log(f"[deepseek2] {label}: a decode token's device ms by family (32 graph replays after a "
+        f"512-token prompt) { {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } "
+        f"(event span {prof['event_span_ms_per_token']:.3f} ms); top {prof['top']}")
+    pre = profile_prefill(eng, word_ids(512))
+    out["prefill_profile"] = pre
+    log(f"[deepseek2] {label}: a 512-token prefill's device ms by family "
+        f"{ {k: round(v, 3) for k, v in pre['device_ms'].items()} }, wall {pre['wall_ms']:.1f} ms, "
+        f"kernels {pre['launches']}")
+    return out
+
+
+def phase_deepseek2(tmp: Path, launches: dict) -> dict:
+    """DeepSeek-V2-Lite Q4_K_M at full width and depth (27 layers, MLA with
+    kv_lora_rank 512 + 64 rope dims, 16 heads, 64 routed experts top-6 and
+    2 shared, one dense lead layer, vocab 102400), synthesized from seed 0:
+    1. Engine on the bf16 latent at context 4096 (ds2_run): load s and peak
+       GiB, prompts of 512 and 2560 tokens cold and warm, 64 greedy tokens
+       each on the decode graph, TTFT (warm), decode tok/s, launches per
+       forward (flash's latent form 27 a forward in both regimes, the
+       expert kernels of the packed gate/up stacks, one dequantize-route
+       call: the dense lead's K = 10944 down), device ms by family;
+    2. the latent's bytes a position against the decompressed cache's;
+    3. the kernels against dense bf16 weights, teacher-forced on the
+       packed run's greedy ids after the 512-token prompt: NMSE, and the
+       greedy ids equal;
+    4. an MLA state file saved and restored, the continuation equal;
+    5. a BatchEngine of 4 slots on the latent, its batched logits
+       teacher-forced against Engine.decode_step (NMSE ≤ SERVE_NMSE_BOUND)."""
+    import torch
+
+    from tpullm_torch.models.deepseek2 import mla_dims
+    from tpullm_torch.models.weights import QuantExpertStack
+    from tpullm_torch.ops.kernels import qmm
+    from tpullm_torch.runtime import state
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import MLACache
+
+    path = synthesize(tmp, "deepseek2", "deepseek-v2-lite", "Q4_K_M")
+    result: dict = {}
+    reset_launches()  # just before the main path
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(path, max_seq=DS2_CTX)
+    load_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hp = eng.hp
+    layers = eng.params["layers"]
+    dense_stacks = sum(isinstance(v, torch.Tensor) and v.dim() == 3 and k.endswith("_exps")
+                       for layer in layers for k, v in layer.items())
+    packed_stacks = sum(isinstance(v, QuantExpertStack) for layer in layers for v in layer.values())
+    log(f"[deepseek2] {hp.arch}: {hp.n_layer} layers, n_embd {hp.n_embd}, {hp.n_head} heads, "
+        f"kv_lora {hp.n_lora_kv} + rope {hp.rope.dims}, experts {hp.n_expert} top-"
+        f"{hp.n_expert_used} + {hp.n_expert_shared} shared, vocab {hp.n_vocab}; loaded in "
+        f"{eng.perf.t_load_s:.1f}s, peak {load_peak:.2f} GiB above the baseline of "
+        f"{base / 2**30:.2f} GiB; {eng.report()}; expert stacks "
+        f"packed {packed_stacks}, dense at load (K = {hp.n_ff_exp}: no kernel takes it) "
+        f"{dense_stacks}")
+    expect(isinstance(eng.cache, MLACache) and eng.cache.c.dtype == torch.bfloat16,
+           "deepseek2: the bf16 latent cache")
+    expect(packed_stacks == 2 * (hp.n_layer - 1) and dense_stacks == hp.n_layer - 1,
+           "deepseek2: gate/up stacks packed, the K = 1408 down stacks dense")
+    Dk, Dv, _, _ = mla_dims(hp)
+    latent_b = hp.n_layer * eng.cache.c.shape[-1] * 2
+    full_b = hp.n_layer * hp.n_head * (Dk + Dv) * 2
+    log(f"[deepseek2] the latent: {latent_b} B a position against {full_b} B decompressed "
+        f"({full_b / latent_b:.2f}×)")
+    result.update(load_s=eng.perf.t_load_s, load_peak_gib=load_peak, latent_bytes=latent_b,
+                  decompressed_bytes=full_b)
+
+    def word_ids(n):
+        return _word_ids(eng.tokenizer, n)
+
+    before = _snapshot()
+    run = ds2_run("bf16 latent", eng, word_ids)
+    result["run"] = run
+    routes = _launch_delta(before)
+    log(f"[deepseek2] the run's launches {routes}; dequantize-route calls by format "
+        f"{ {k: v for k, v in qmm.DEQUANT_ROUTES.items() if v} } (the dense lead's K = "
+        f"{hp.n_ff} down, one a forward); dense down-expert stacks {dense_stacks} (no kernel, "
+        f"a plain product on weights dequantized at load)")
+
+    # the kernels against dense bf16 weights, teacher-forced on the run's ids
+    prompt = word_ids(DS2_LENS[0])
+    ids = run["ids"][DS2_LENS[0]][:DS2_TEACHER]
+    packed_rows = _teacher_logits(eng, prompt, ids)
+    dense = Engine(path, max_seq=DS2_CTX, mode="dense")
+    dense_rows = _teacher_logits(dense, prompt, ids)
+    del dense
+    torch.cuda.empty_cache()
+    errs = [_nmse_np(a, b) for a, b in zip(packed_rows, dense_rows)]
+    same = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(packed_rows, dense_rows))
+    margins = [float(np.diff(np.sort(b)[-2:])[0]) for b in dense_rows]
+    result["dense"] = dict(worst=max(errs), mean=float(np.mean(errs)), same_top=same,
+                           positions=len(ids), min_margin=min(margins))
+    log(f"[deepseek2] the kernels against dense bf16 weights, teacher-forced on {len(ids)} "
+        f"positions after the {DS2_LENS[0]}-token prompt: NMSE worst {max(errs):.2e} mean "
+        f"{np.mean(errs):.2e}, same argmax {same}/{len(ids)} (dense top-2 margin at least "
+        f"{min(margins):.3g})")
+    expect(all(np.isfinite(r).all() for r in dense_rows), "deepseek2 dense: finite logits")
+    expect(same == len(ids), f"deepseek2: greedy ids equal dense weights' ({same}/{len(ids)})")
+
+    # state file: the latent round trip
+    eng.reset()
+    eng.prefill(prompt)
+    f = tmp / "deepseek2-state.npz"
+    t0 = time.perf_counter()
+    state.save_state(eng, f, tokens=prompt)
+    t1 = time.perf_counter()
+    want = [eng.decode_step(t) for t in (5, 6)]
+    eng.reset()
+    expect(state.load_state(eng, f) == prompt and eng.n_past == len(prompt),
+           "deepseek2: the MLA state restores")
+    got = [eng.decode_step(t) for t in (5, 6)]
+    err = max(_nmse_np(a, b) for a, b in zip(got, want))
+    log(f"[deepseek2] MLA state file ({f.stat().st_size / 2**20:.1f} MiB for {len(prompt)} "
+        f"positions, saved in {t1 - t0:.2f}s): the continuation after the restore NMSE {err:.2e}")
+    expect(err <= 1e-10, f"deepseek2: the restored latent continues as saved (NMSE {err:.3e})")
+    f.unlink()
+    result["state_nmse"] = err
+
+    be = BatchEngine(path, n_slots=DS2_SLOTS, max_seq=DS2_CTX, prefill_chunk=512)
+    expect(isinstance(be.cache, MLACache), "deepseek2 serving: the latent cache")
+    be.precompile()
+    prompts = [word_ids(n) for n in (40, 700, 1300, 2000)]
+    result["serving"] = teacher_forced("deepseek2 serving", be, eng, prompts, 16)
+    del be, eng
+    torch.cuda.empty_cache()
+    got = read_launches()  # just after the main path
+    log(f"[deepseek2] launches of the phase {got}")
+    expect(got["attn_dense_routes"] == 0, "deepseek2: no call through the dense attention route")
+    for r in ("decode", "prefill"):
+        expect(got[f"flash_bf16.d576v512.{r}"] > 0,
+               f"deepseek2: flash's latent form launched in the {r} regime")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["launches"] = got
+    path.unlink()
+    return result
+
+
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
     bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
@@ -3333,6 +3676,7 @@ def main() -> int:
     timed("moe kernels", phase_moe_kernels, dev, results)
     timed("flash", phase_flash, dev, results)
     timed("flash d256", phase_flash256, dev, results)
+    timed("flash mla", phase_flash_mla, dev, results)
     batched: dict = {}
     timed("batched kernels", phase_batched_kernels, dev, results, batched)
     verify: dict = {}
@@ -3349,12 +3693,16 @@ def main() -> int:
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         gemma = timed("gemma", phase_gemma, Path(tmp), launches)
+        ds2 = timed("deepseek2", phase_deepseek2, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
-                                        "speculative": spec, "gemma": gemma}))
+                                        "speculative": spec, "gemma": gemma,
+                                        "deepseek2": ds2}))
     for fmt in FLASH_FORMATS:
         launches[f"flash_{fmt}_d256"] = (launches[f"flash_{fmt}.d256.decode"]
                                          + launches[f"flash_{fmt}.d256.prefill"])
+    launches[FLASH_MLA_KEY] = (launches["flash_bf16.d576v512.decode"]
+                               + launches["flash_bf16.d576v512.prefill"])
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 
@@ -3412,9 +3760,26 @@ def main() -> int:
                          prefill_bound_by=pre["bound_by"], prefill_library_ms=pre["library_ms"],
                          launches_decode=launches[f"flash_{fmt}.d256.decode"],
                          launches_prefill=launches[f"flash_{fmt}.d256.prefill"],
-                         registers=ptxas.get(f"flash_decode_kernel<256,{FLASH_FORMATS.index(fmt)}>"),
+                         registers=ptxas.get(
+                             f"flash_decode_kernel<256,{FLASH_FORMATS.index(fmt)}>"),
                          prefill_registers=ptxas.get(
                              f"flash_prefill_kernel<256,{FLASH_FORMATS.index(fmt)}>"))
+        elif key == FLASH_MLA_KEY:
+            # the decode regime at B = 2 (representative) and B = 1 kv 20, the
+            # prefill regime beside it; launches from the deepseek2 phase
+            kv20 = next(r for r in rows if r["case"].startswith("T=1 B=1 kv=20"))
+            pre = next(r for r in rows if r["case"].startswith("T=512 B=2"))
+            entry.update(kv20_ms=kv20["ms"], kv20_bound_ms=kv20["bound_ms"],
+                         kv20_library_ms=kv20["library_ms"], prefill_case=pre["case"],
+                         prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
+                         prefill_bound_ms=pre["bound_ms"], prefill_bound_by=pre["bound_by"],
+                         prefill_library_ms=pre["library_ms"],
+                         launches_decode=launches["flash_bf16.d576v512.decode"],
+                         launches_prefill=launches["flash_bf16.d576v512.prefill"],
+                         registers=ptxas.get("flash_mla_kernel<576,512,1>"),
+                         prefill_registers=ptxas.get("flash_mla_kernel<576,512,0>"))
+            expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
+                   f"{key} launched in both regimes on the main path")
         elif key.startswith("flash"):
             # the representative is the decode regime (T = 1); the decode
             # regime at short contexts and the prefill regime beside it

@@ -144,13 +144,15 @@ def test_grouped_types_route_matmul_to_the_grouped_kernel(dev, monkeypatch):
 
 
 def _stack(name, E, n_out, n_in, dev, seed):
-    from tpullm_torch.gguf.reader import GGUFTensorInfo
+    """A packed stack of random experts at any shape (load_expert_stack
+    loads one that no kernel takes dense, as the JAX package does)."""
     from tpullm_torch.models.synth import random_packed
-    from tpullm_torch.models.weights import load_expert_stack
+    from tpullm_torch.models.weights import QuantExpertStack
 
     raw = random_packed(np.random.default_rng(seed), GGMLType[name], E * n_out * n_in)
-    info = GGUFTensorInfo("blk.0.ffn_up_exps.weight", GGMLType[name], (n_in, n_out, E), 0, raw)
-    return load_expert_stack(info, dev)
+    per = [qmatmul.repack(d, GGMLType[name], n_out, n_in, dev) for d in raw.reshape(E, -1)]
+    planes = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    return QuantExpertStack(GGMLType[name], E, n_out, n_in, planes)
 
 
 @pytest.mark.parametrize("name", FORMATS)
@@ -700,6 +702,122 @@ def test_gemma_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
     gpu.free_slot(2)
     cpu.free_slot(2)
     assert int(gpu.cache.slot_pos[2].max()) == -1
+    a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
+    errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
+    assert max(errs) <= 1e-3, errs
+
+
+# the MLA latent (DeepSeek-V2-Lite's attention): (B, T, offsets), S = 4096
+LATENT_CASES = [(2, 1, (37, 3000)), (1, 1, (19,)), (2, 1, (-1, 500)), (2, 512, (0, 2500)),
+                (4, 8, (-1, 0, 2500, -1)), (2, 100, (-1, 60))]
+
+
+@pytest.mark.parametrize("B,T,offsets", LATENT_CASES,
+                         ids=lambda c: str(c).replace(" ", "") if isinstance(c, tuple) else None)
+def test_flash_latent_matches_plain(dev, B, T, offsets):
+    """The latent form (Dk 576, Dv 512, v = k[..., :512], 16 heads on one KV
+    head, bf16) in both regimes against flash_reference and the plain
+    version of its own order; one launch counted under bf16.d576v512; an
+    idle slot's (offset −1) first row exactly 0."""
+    g = torch.Generator(dev).manual_seed(B * 1000 + T)
+    q = torch.randn(B, T, 16, 576, generator=g, device=dev).to(torch.bfloat16)
+    c = torch.randn(B, 1, 4096, 576, generator=g, device=dev).to(torch.bfloat16)
+    v = c[..., :512]
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    reg = flash.regime(T, 16, 1)
+    key = f"bf16.d576v512.{reg}"
+    before = flash.LAUNCHES[key]
+    got = flash.flash_attention(q, c, v, off, 192 ** -0.5)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES[key] == before + 1
+    ref = flash.flash_reference(q, c, v, off, 192 ** -0.5)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    own = (flash.flash_split_reference(q, c, v, off, 192 ** -0.5, n_sm=n_sm, p_terms=2)
+           if reg == "decode"
+           else flash.flash_prefill_reference(q, c, v, off, 192 ** -0.5))
+    assert got.shape == (B, T, 16, 512) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND
+    assert _nmse(got.float(), own.float()) <= FLASH_NMSE_BOUND
+    for b, o in enumerate(offsets):
+        if o < 0:
+            assert not got[b, 0].float().any()
+
+
+def test_latent_f16_and_other_widths_take_the_dense_route(dev):
+    """An f16 latent, and a latent of (32, 24), go to the counted dense
+    route (no kernel takes them); the bf16 one at (576, 512) to the kernel."""
+    from tpullm_torch.ops.attention import attention_cached
+    from tpullm_torch.runtime.kvcache import MLACache
+
+    g = torch.Generator(dev).manual_seed(3)
+    off = torch.tensor([30], dtype=torch.int32, device=dev)
+    for dtype, (kvr, rope), routed in ((torch.float16, (512, 64), True),
+                                       (torch.bfloat16, (24, 8), True),
+                                       (torch.bfloat16, (512, 64), False)):
+        cache = MLACache(torch.randn(1, 1, 1, 64, kvr + rope, generator=g, device=dev).to(dtype),
+                         kvr)
+        q = torch.randn(1, 1, 16, kvr + rope, generator=g, device=dev).to(torch.bfloat16)
+        fmt = flash.DENSE_FORMATS[dtype]
+        before = flash.ATTN_DENSE_ROUTES[fmt], flash.launch_total()
+        out = attention_cached(q, cache, 0, 0.1, off)
+        k, v = cache.kv(0)
+        ref = flash.flash_reference(q, k, v, off, 0.1)
+        assert out.shape == (1, 1, 16, kvr) and _nmse(out.float(), ref.float()) <= 1e-5
+        assert (flash.ATTN_DENSE_ROUTES[fmt] - before[0], flash.launch_total() - before[1]) == \
+            ((1, 0) if routed else (0, 1))
+
+
+def test_deepseek2_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """tiny-deepseek2 (the latent at 576 / 512, 16 heads) on the card against
+    the CPU: a 40-token prompt's and decode_step's logits within NMSE 1e-3,
+    the decode graph's greedy ids equal; a replay launches the latent
+    kernel once a layer in the decode regime, a 40-token prefill once a
+    layer in the prefill regime, and no dense route."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import MLACache
+
+    path = make_synthetic_llama_gguf(tmp_path / "tds2.gguf", shape="tiny-deepseek2", seed=0)
+    gpu, cpu = (Engine(path, device=d, max_seq=256) for d in (None, "cpu"))
+    assert isinstance(gpu.cache, MLACache) and gpu.cache.c.is_cuda
+    ids = list(range(5, 45))
+    before = flash.LAUNCHES["bf16.d576v512.prefill"]
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert flash.LAUNCHES["bf16.d576v512.prefill"] == before + 3
+    errs = [_nmse(torch.from_numpy(a), torch.from_numpy(b))]
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        errs.append(_nmse(torch.from_numpy(a), torch.from_numpy(b)))
+    assert np.isfinite(a).all() and max(errs) <= 1e-3, errs
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 24, chunk=8) == \
+        cpu.generate_tokens_device(ids, 24, chunk=8)
+    one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
+    assert one["flash"] == one["flash_decode"] == 3 and one["attn_dense_routes"] == 0
+
+
+def test_deepseek2_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A BatchEngine of 3 slots on tiny-deepseek2's latent: a joint round,
+    batched steps with an idle slot (its latent rows untouched), a freed
+    slot admitted again: per-slot logits within NMSE 1e-3 of the CPU's."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tds2.gguf", shape="tiny-deepseek2", seed=0)
+    gpu, cpu = (BatchEngine(path, device=d, n_slots=3, max_seq=256, prefill_chunk=32)
+                for d in (None, "cpu"))
+    prompts = {0: list(range(5, 100)), 2: list(range(7, 40))}
+    a, b = gpu.prefill_slots(prompts), cpu.prefill_slots(prompts)
+    errs = [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in prompts]
+    idle = gpu.cache.c[:, 1].clone()
+    for feed in ({0: 300, 2: 17}, {2: 18}, {0: 5, 2: 6}):
+        a, b = gpu.decode_batch(feed), cpu.decode_batch(feed)
+        errs += [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in feed]
+    assert torch.equal(gpu.cache.c[:, 1], idle)
+    gpu.free_slot(2)
+    cpu.free_slot(2)
     a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
     errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
     assert max(errs) <= 1e-3, errs

@@ -23,7 +23,7 @@ from tpullm.runtime.engine import Engine as JEngine
 from tpullm_torch.gguf.constants import GGMLType
 from tpullm_torch.gguf.reader import GGUFTensorInfo
 from tpullm_torch.models.synth import make_synthetic_llama_gguf, random_packed
-from tpullm_torch.models.weights import QuantLinear, load_expert_stack
+from tpullm_torch.models.weights import QuantExpertStack, QuantLinear, load_expert_stack
 from tpullm_torch.ops import attention, qmatmul
 from tpullm_torch.ops.kernels import flash, qmm
 from tpullm_torch.runtime.engine import Engine
@@ -75,8 +75,13 @@ def _stacks(name, n_out, n_in, seed, e=4):
     shape = (n_in, n_out, e)
     port = GGUFTensorInfo("blk.0.ffn_up_exps.weight", GGMLType[name], shape, 0, data)
     ref = JInfo("blk.0.ffn_up_exps.weight", JGGMLType[name], shape, 0, data)
-    # the JAX package would load a stack of this shape dense: its planes, directly
-    return load_expert_stack(port, "cpu"), jquant_expert_stack(ref)
+    # both packages load a stack of a shape no kernel takes dense: the
+    # routes are held on its planes, made directly
+    assert isinstance(load_expert_stack(port, "cpu"), torch.Tensor)
+    per = [qmatmul.repack(d, GGMLType[name], n_out, n_in, "cpu") for d in data.reshape(e, -1)]
+    planes = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    return (QuantExpertStack(GGMLType[name], e, n_out, n_in, planes),
+            jquant_expert_stack(ref))
 
 
 @pytest.mark.parametrize("name", STACK_FORMATS)

@@ -9,7 +9,9 @@ QuantExpertStack-like objects (`n_expert` beside `planes`) become
 `QuantLinear`, DenseLinear-like (`w`, the MoE router among them)
 `DenseLinear`, and FusedLinear-like (`base`, `splits`) `FusedLinear`; both
 the fused (`wqkv`/`wgu`) and the unfused layout carry over, and dense
-expert stacks stay tensors.
+expert stacks stay tensors. Any layer keys carry over as they are: the
+gemma tree's norms, and deepseek2's (`wk_b` / `wv_b` as tensors, the
+shared experts as linears, `exp_probs_b`, `wkv_b` None when absorbed).
 """
 
 from __future__ import annotations

@@ -70,6 +70,14 @@
 //   point, p (or p · v_s) to bf16 for the PV product, is carried as two bf16
 //   terms, hi = bf16(p), lo = bf16(p − hi), so p is kept to about 16 bits
 //   against f32's 24; the JAX kernel multiplies in f32.
+//
+// The latent form (the MLA cache of DeepSeek-V2/V3: Dk = 576, Dv = 512, one
+// bf16 KV head whose rows are [kv_lora latent | rope key] and whose values
+// are each row's first 512 features, a view the JAX kernel takes as its
+// own v) is flash_mla_kernel (below), both regimes on the tensor cores. It
+// is its own library (-DTPULLM_FLASH_LATENT, the entry
+// tpullm_flash_latent_bf16), so that its nvcc runs beside the dense and q8
+// one.
 
 #include <cuda_fp16.h>
 
@@ -826,6 +834,373 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   }
 }
 
+// The latent form (the MLA cache: DK = 576, DV = 512, bf16, one KV head
+// whose rows hold the keys and, in their first DV features, the values),
+// both regimes on the tensor cores: mma.sync m16n8k16 as
+// flash_prefill_kernel, but Q (36 16-wide k-steps) does not fit in
+// registers beside O, so it stays in shared memory and is read by ldmatrix
+// at every tile, and O (16 × 512 f32 a row group of 16 query rows) is split
+// over the row group's four warps, 128 features each. The scores are not
+// computed four times: each warp takes a quarter of the tile's 64 keys over
+// the whole DK, the four exchange their partial row maxima through shared
+// memory (so the online softmax's max is the tile's), and each writes its p
+// as hi + lo bf16 terms (as flash_prefill_kernel rounds it) into a shared
+// [16][64] tile that all four read as the A operand of P·V. A row group's
+// warps meet at a named barrier of their own, so a row group that skips a
+// tile (wholly above its diagonal) waits for no other. Each K tile is
+// loaded once (a 2-stage cp.async ring of 64-key tiles) and serves QK (all
+// DK features) and P·V (its first DV features, ldmatrix .trans). No
+// softcap, ALiBi, window or sinks (MLA has none; the wrapper refuses them).
+//   kSplit = false (prefill, T·H/Hkv > 16): a block is 32 query rows of one
+//   head (two row groups, 256 threads), keys from 0 to its last row's
+//   position; 196,624 bytes of shared memory. Bound: the QK and PV products,
+//   2 · (DK + DV) · (visible pairs) · H FLOP against 989 TFLOP/s.
+//   kSplit = true (decode, T·H/Hkv ≤ 16: DeepSeek's 16 heads at T = 1 are
+//   exactly one row group): a block is the ≤ 16 rows r = t·G + g of one
+//   (batch, KV head) over one split of its keys (kv_split, as
+//   flash_decode_kernel cuts them), 128 threads; a split writes f32 (m, l,
+//   acc) partials and the last block of its (batch, KV head) merges them in
+//   split order, as flash_decode_kernel does; 173,072 bytes of shared
+//   memory. Bound: the latent rows up to kv_len, read once. The scores are
+//   on the tensor cores here too: on CUDA cores, as flash_decode_kernel
+//   forms them, each key re-reads the 16 query rows of 576 from shared
+//   memory (0.030 ms for one 64-key tile, measured on the card).
+constexpr int kMlaWarpsRG = 4;  // warps a row group of 16 rows
+
+template <bool kSplit>
+__host__ __device__ constexpr int mla_rows() {  // query rows a block
+  return kSplit ? 16 : 32;
+}
+template <bool kSplit>
+__host__ __device__ constexpr int mla_threads() {
+  return mla_rows<kSplit>() / 16 * kMlaWarpsRG * 32;
+}
+
+template <int DK, int DV, bool kSplit>
+struct MlaSmem {
+  static constexpr int kBM = mla_rows<kSplit>();
+  static constexpr int kPitch = DK + 8;         // bf16 a row of Q and of a K tile
+  static constexpr int kTile = kPreTK * kPitch * 2;
+  static constexpr int kPPitch = kPreTK + 8;    // bf16 a row of p
+  static constexpr int q_off = 0;
+  static constexpr int ring_off = kBM * kPitch * 2;
+  static constexpr int p_off = ring_off + 2 * kTile;             // p hi, then p lo: [BM][kPPitch]
+  static constexpr int mx_off = p_off + 2 * kBM * kPPitch * 2;   // [BM][kMlaWarpsRG] f32
+  static constexpr int bytes = mx_off + kBM * kMlaWarpsRG * 4 + 16;
+  static_assert(DK % 16 == 0 && DV % (16 * kMlaWarpsRG) == 0 && DV < DK, "the latent dims");
+  static_assert(2 * kTile >= 2 * kMaxSplits * kDecodeRows * 4,
+                "the ring holds every split's (m, l) for the combine");
+  static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
+};
+
+// the named barrier of one row group's kMlaWarpsRG warps (id 0 is __syncthreads)
+__device__ __forceinline__ void row_group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(kMlaWarpsRG * 32) : "memory");
+}
+
+template <int DK, int DV, bool kSplit>
+__global__ void __launch_bounds__(mla_threads<kSplit>())
+flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
+                 const __nv_bfloat16* __restrict__ kv,  // [B, Hkv, S, DK]; V = [..., :DV]
+                 const int* __restrict__ offsets,       // [B]
+                 __nv_bfloat16* __restrict__ out,       // [B, T, H, DV]
+                 float* __restrict__ partial,           // [B·Hkv, max_splits, R, DV + 2] (split)
+                 int* __restrict__ counters,            // [B·Hkv], zero between launches
+                 int T, int H, int Hkv, int S, float scale, int max_splits) {
+  using L = MlaSmem<DK, DV, kSplit>;
+  constexpr int BM = L::kBM;
+  constexpr int NT = mla_threads<kSplit>();
+  constexpr int P = L::kPitch;
+  constexpr int PP = L::kPPitch;
+  constexpr int QW = kPreTK / kMlaWarpsRG;  // keys a warp scores in a tile
+  constexpr int DW = DV / kMlaWarpsRG;      // O's features a warp holds
+  extern __shared__ __align__(16) char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
+  char* ring = smem + L::ring_off;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp / kMlaWarpsRG, wq = warp % kMlaWarpsRG;  // row group, quarter
+  const int G = H / Hkv;
+  // prefill: 32 rows t0 .. of head h; split: the R = T·G rows r = t·G + g
+  // of KV head hk, split z of its keys [k0, k1)
+  int b, hk, h = 0, t0 = 0, nrows, k0 = 0, k1, n_split = 1, grp = 0, z = 0;
+  if constexpr (kSplit) {
+    grp = blockIdx.x;
+    b = grp / Hkv;
+    hk = grp % Hkv;
+    z = blockIdx.y;
+    nrows = T * G;
+    const KvSplit sp = kv_split(offsets[b], T, S, 0, max_splits);
+    if (z >= sp.n) return;
+    n_split = sp.n;
+    k0 = sp.lo + z * sp.per;
+    k1 = min(sp.hi, k0 + sp.per);
+  } else {
+    b = blockIdx.y / H;
+    h = blockIdx.y % H;
+    hk = h / G;
+    t0 = blockIdx.x * BM;
+    nrows = min(BM, T - t0);
+    k1 = min(S, offsets[b] + t0 + nrows);  // up to the block's last row
+  }
+  const int off = offsets[b];
+  const int ntiles = k1 > k0 ? (k1 - k0 + kPreTK - 1) / kPreTK : 0;
+  const __nv_bfloat16* kb = kv + ((size_t)b * Hkv + hk) * S * DK;
+  auto load_tile = [&](int it) {
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(ring + (it & 1) * L::kTile);
+    const int kt = k0 + it * kPreTK;
+    for (int i = tid; i < kPreTK * (DK / 8); i += NT) {
+      const int r = i / (DK / 8), seg = (i % (DK / 8)) * 8;
+      const bool ok = kt + r < k1;
+      cp_async16(st + r * P + seg, kb + (size_t)(ok ? kt + r : kt) * DK + seg, ok ? 16 : 0);
+    }
+  };
+  // the query row of block row r (rows past nrows zero)
+  auto q_row = [&](int r) -> const __nv_bfloat16* {
+    if constexpr (kSplit) return q + (((size_t)b * T + r / G) * H + hk * G + r % G) * DK;
+    return q + (((size_t)b * T + t0 + r) * H + h) * DK;
+  };
+  for (int i = tid; i < BM * (DK / 8); i += NT) {
+    const int r = i / (DK / 8), seg = (i % (DK / 8)) * 8;
+    cp_async16(qs + r * P + seg, q_row(min(r, nrows - 1)) + seg, r < nrows ? 16 : 0);
+  }
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();
+
+  // this row group's rows and this thread's two of them (a row past nrows
+  // sees no key); its p tiles and maxima
+  const int w_rows = min(16, nrows - 16 * rw);
+  const int ra = 16 * rw + (lane >> 2), rb = ra + 8;
+  auto q_pos = [&](int r) {
+    if (r >= nrows) return -1;
+    return kSplit ? off + r / G : off + t0 + r;
+  };
+  const int qa = q_pos(ra), qb = q_pos(rb);
+  const int w_first = kSplit ? off : off + t0 + 16 * rw;  // the row group's first position
+  const int w_last = kSplit ? off + T - 1 : w_first + w_rows - 1;
+  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off) + 16 * rw * PP;
+  __nv_bfloat16* p_lo = p_hi + BM * PP;
+  float* mx_s = reinterpret_cast<float*>(smem + L::mx_off) + 16 * rw * kMlaWarpsRG;
+  const float scale2 = scale * kLog2e;  // the softmax in log2 units, as flash_prefill_kernel
+
+  float o[DW / 8][4];
+#pragma unroll
+  for (int i = 0; i < DW / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and Q) landed; every reader of tile it-1 and of p is done
+    if (it + 1 < ntiles) load_tile(it + 1);
+    cp_async_commit();
+    const int kt = k0 + it * kPreTK;
+    if (w_rows <= 0 || kt > w_last) continue;  // the row group sees no key of the tile
+    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(ring + (it & 1) * L::kTile);
+    const bool edge = kSplit || kt + kPreTK - 1 > w_first || kt + kPreTK > k1;
+
+    // this warp's QW keys (wq·QW ..) against the row group's 16 rows, over all of DK
+    float s[QW / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < QW / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (16 * rw + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < QW / 16; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + (wq * QW + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], a, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int nt = 0; nt < QW / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k_pos = kt + wq * QW + nt * 8 + 2 * (lane & 3) + (e & 1);
+        float x = s[nt][e] * scale2;
+        if (edge && !(k_pos <= (e < 2 ? qa : qb) && k_pos < k1)) x = -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    if ((lane & 3) == 0) {  // the tile's row maxima: the four warps' partial ones
+      mx_s[(lane >> 2) * kMlaWarpsRG + wq] = mx[0];
+      mx_s[((lane >> 2) + 8) * kMlaWarpsRG + wq] = mx[1];
+    }
+    row_group_sync(1 + rw);
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* row = mx_s + ((lane >> 2) + 8 * i) * kMlaWarpsRG;
+#pragma unroll
+      for (int w = 0; w < kMlaWarpsRG; ++w) mx[i] = fmaxf(mx[i], row[w]);
+      corr[i] = exp2f(m_i[i] - mx[i]);
+      m_i[i] = mx[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < QW / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // p as hi + lo bf16 terms into the row group's p tiles
+        const float p0 = exp2f(s[nt][2 * i] - mx[i]), p1 = exp2f(s[nt][2 * i + 1] - mx[i]);
+        sum[i] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi));
+        const int at = ((lane >> 2) + 8 * i) * PP + wq * QW + nt * 8 + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(p_hi + at) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(p_lo + at) = lo;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + sum[i];  // over this warp's keys
+#pragma unroll
+    for (int dt = 0; dt < DW / 8; ++dt) {
+      o[dt][0] *= corr[0];
+      o[dt][1] *= corr[0];
+      o[dt][2] *= corr[1];
+      o[dt][3] *= corr[1];
+    }
+    row_group_sync(1 + rw);
+
+    // P·V over the tile's 64 keys for this warp's DW features
+#pragma unroll
+    for (int kq = 0; kq < kPreTK / 16; ++kq) {
+      uint32_t a_hi[4], a_lo[4];
+      ldmatrix_x4(a_hi, p_hi + (lane & 15) * PP + kq * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(a_lo, p_lo + (lane & 15) * PP + kq * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int dp = 0; dp < DW / 16; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, ks + (kq * 16 + (lane & 15)) * P + wq * DW + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
+        mma_bf16(o[2 * dp + 1], a_hi, r[2], r[3]);
+        mma_bf16(o[2 * dp], a_lo, r[0], r[1]);
+        mma_bf16(o[2 * dp + 1], a_lo, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // l: each warp's sums over its keys, summed over the row group's four warps
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+  }
+  __syncthreads();  // every warp is past its last tile: the maxima's space is free
+  if ((lane & 3) == 0) {
+    mx_s[(lane >> 2) * kMlaWarpsRG + wq] = l_i[0];
+    mx_s[((lane >> 2) + 8) * kMlaWarpsRG + wq] = l_i[1];
+  }
+  __syncthreads();
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* row = mx_s + ((lane >> 2) + 8 * i) * kMlaWarpsRG;
+    l_row[i] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMlaWarpsRG; ++w) l_row[i] += row[w];
+  }
+  // output row r of this block: [b, t, head]
+  auto out_row = [&](int r) -> __nv_bfloat16* {
+    if constexpr (kSplit) return out + (((size_t)b * T + r / G) * H + hk * G + r % G) * DV;
+    return out + (((size_t)b * T + t0 + r) * H + h) * DV;
+  };
+  if (n_split == 1) {
+    if (w_rows <= 0) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = ra + 8 * i;
+      if (r >= nrows) continue;
+      const float inv = 1.f / (l_row[i] > 0.f ? l_row[i] : 1.f);
+      __nv_bfloat16* dst = out_row(r) + wq * DW + 2 * (lane & 3);
+#pragma unroll
+      for (int dt = 0; dt < DW / 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
+            __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
+    }
+    return;
+  }
+  if constexpr (kSplit) {
+    // partials of split z: acc [R][DV], then (m, l) [R][2] after all the acc
+    const int R = nrows;
+    const size_t n_acc = (size_t)gridDim.x * max_splits * R * DV;
+    float* pacc = partial + ((size_t)grp * max_splits + z) * R * DV;
+    float* pml = partial + n_acc + ((size_t)grp * max_splits + z) * R * 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = ra + 8 * i;
+      if (r >= R) continue;
+#pragma unroll
+      for (int dt = 0; dt < DW / 8; ++dt)
+        *reinterpret_cast<float2*>(pacc + (size_t)r * DV + wq * DW + dt * 8 + 2 * (lane & 3)) =
+            make_float2(o[dt][2 * i], o[dt][2 * i + 1]);
+      if (wq == 0 && (lane & 3) == 0) {
+        pml[2 * r] = m_i[i];
+        pml[2 * r + 1] = l_row[i];
+      }
+    }
+    int* flag = reinterpret_cast<int*>(smem + L::mx_off + BM * kMlaWarpsRG * 4);
+    __threadfence();  // this block's partials are visible before its count
+    __syncthreads();
+    if (tid == 0) *flag = atomicAdd(counters + grp, 1) == n_split - 1;
+    __syncthreads();
+    if (!*flag) return;
+    __threadfence();  // the last block: every split's partials are visible
+
+    // every split's (m, l) into the ring (free now), each row's merged max,
+    // the weights 2^(m_z − m) in place of m_z (m is in log2 units here), the
+    // merged l
+    const float* gacc = partial + (size_t)grp * max_splits * R * DV;
+    const float* gml = partial + n_acc + (size_t)grp * max_splits * R * 2;
+    float* cm = reinterpret_cast<float*>(ring);  // [n][R]
+    float* cl = cm + kMaxSplits * kDecodeRows;   // [n][R]
+    float* m_s = mx_s;                           // [R] (row group 0's maxima space)
+    float* l_s = m_s + kDecodeRows;
+    for (int i = tid; i < n_split * R; i += NT) {
+      cm[i] = __ldcg(gml + 2 * i);
+      cl[i] = __ldcg(gml + 2 * i + 1);
+    }
+    __syncthreads();
+    if (tid < R) {
+      float m = kNegInf, l = 0.f;
+      for (int zz = 0; zz < n_split; ++zz) m = fmaxf(m, cm[zz * R + tid]);
+      for (int zz = 0; zz < n_split; ++zz) {  // in split order
+        const float w = exp2f(cm[zz * R + tid] - m);
+        cm[zz * R + tid] = w;
+        l += cl[zz * R + tid] * w;
+      }
+      m_s[tid] = m;
+      l_s[tid] = l;
+    }
+    __syncthreads();
+    for (int i = tid; i < R * (DV / 4); i += NT) {
+      const int r = i / (DV / 4), dq = i % (DV / 4);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int zz = 0; zz < n_split; ++zz) {  // in split order
+        const float w = cm[zz * R + r];
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * DV + 4 * dq));
+        acc[0] += a.x * w;
+        acc[1] += a.y * w;
+        acc[2] += a.z * w;
+        acc[3] += a.w * w;
+      }
+      decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], acc, nullptr);
+    }
+    if (tid == 0) counters[grp] = 0;  // ready for the next launch
+  }
+}
+
 // A kernel's dynamic shared memory (above 48 KB) and the whole SM's shared
 // memory preferred over L1, so that the blocks it allows fit on one SM.
 template <class Kernel>
@@ -870,6 +1245,38 @@ int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
   return (int)cudaGetLastError();
 }
 
+// The latent form (DV < DK, V the first DV features of each K row):
+// flash_mla_kernel in the regime of T·H/Hkv.
+template <int DK, int DV, bool kSplit>
+int launch_mla(const void* q, const void* kv, const void* offsets, void* out, void* partial,
+               void* counters, int B, int T, int H, int Hkv, int S, float scale, int max_splits,
+               cudaStream_t stream) {
+  constexpr int smem = MlaSmem<DK, DV, kSplit>::bytes;
+  static const cudaError_t attr = smem_attributes(flash_mla_kernel<DK, DV, kSplit>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid = kSplit ? dim3(B * Hkv, max_splits)
+                           : dim3((T + mla_rows<false>() - 1) / mla_rows<false>(), B * H);
+  flash_mla_kernel<DK, DV, kSplit><<<grid, mla_threads<kSplit>(), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
+      static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), static_cast<int*>(counters), T, H, Hkv, S, scale, max_splits);
+  return (int)cudaGetLastError();
+}
+
+template <int DK, int DV>
+int launch_latent(const void* q, const void* kv, const void* offsets, void* out, void* partial,
+                  void* counters, int B, int T, int H, int Hkv, int S, float scale,
+                  int max_splits, cudaStream_t stream) {
+  if (T * (H / Hkv) <= kDecodeRows) {
+    if (max_splits < 1 || max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
+    return launch_mla<DK, DV, true>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S,
+                                    scale, max_splits, stream);
+  }
+  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
+  return launch_mla<DK, DV, false>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S, scale,
+                                   1, stream);
+}
+
 template <int KV>
 int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* offsets, const void* sinks, const void* slopes,
@@ -895,6 +1302,7 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 
 }  // namespace
 
+#ifndef TPULLM_FLASH_LATENT
 // partial: f32 [B·Hkv·max_splits·R·(D + 2)] and counters: int32 [B·Hkv]
 // (zero, left zero) for the decode regime, R = T·H/Hkv ≤ 16; unread (may be
 // null) in the prefill regime.
@@ -922,3 +1330,21 @@ extern "C" int tpullm_flash_q8(const void* q, const void* k_q, const void* k_s,
   return launch<kKvQ8>(q, k_q, k_s, v_q, v_s, offsets, sinks, slopes, out, partial, counters, B,
                       T, H, Hkv, S, D, scale, softcap, window, max_splits, stream);
 }
+
+#else  // the latent form's library (its own nvcc, built beside the one above)
+
+// q bf16 [B, T, H, DK], kv the bf16 latent [B, Hkv, S, DK] whose rows' first
+// DV features are V; out bf16 [B, T, H, DV]; partial f32
+// [B·Hkv·max_splits·R·(DV + 2)] and counters as above. (DK, DV) = (576, 512).
+extern "C" int tpullm_flash_latent_bf16(const void* q, const void* kv, const void* offsets,
+                                        void* out, void* partial, void* counters, int B, int T,
+                                        int H, int Hkv, int S, int DK, int DV, float scale,
+                                        int max_splits, void* stream) {
+  if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (DK == 576 && DV == 512)
+    return launch_latent<576, 512>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S, scale,
+                                   max_splits, static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
+}
+
+#endif

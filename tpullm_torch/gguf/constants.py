@@ -153,6 +153,12 @@ class Keys:
         VOCAB_SIZE = "{arch}.vocab_size"
         EXPERT_COUNT = "{arch}.expert_count"
         EXPERT_USED_COUNT = "{arch}.expert_used_count"
+        EXPERT_FEED_FORWARD_LENGTH = "{arch}.expert_feed_forward_length"
+        EXPERT_SHARED_COUNT = "{arch}.expert_shared_count"
+        EXPERT_GATING_FUNC = "{arch}.expert_gating_func"
+        EXPERT_WEIGHTS_SCALE = "{arch}.expert_weights_scale"
+        EXPERT_WEIGHTS_NORM = "{arch}.expert_weights_norm"
+        LEADING_DENSE_BLOCK_COUNT = "{arch}.leading_dense_block_count"
         ATTN_LOGIT_SOFTCAPPING = "{arch}.attn_logit_softcapping"
         FINAL_LOGIT_SOFTCAPPING = "{arch}.final_logit_softcapping"
 
@@ -167,6 +173,10 @@ class Keys:
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
         SLIDING_WINDOW_PATTERN = "{arch}.attention.sliding_window_pattern"
         SCALE = "{arch}.attention.scale"
+        Q_LORA_RANK = "{arch}.attention.q_lora_rank"
+        KV_LORA_RANK = "{arch}.attention.kv_lora_rank"
+        KEY_LENGTH_MLA = "{arch}.attention.key_length_mla"
+        VALUE_LENGTH_MLA = "{arch}.attention.value_length_mla"
 
     class Rope:
         DIMENSION_COUNT = "{arch}.rope.dimension_count"
@@ -179,6 +189,7 @@ class Keys:
         SCALING_YARN_EXT_FACTOR = "{arch}.rope.scaling.yarn_ext_factor"
         SCALING_YARN_BETA_FAST = "{arch}.rope.scaling.yarn_beta_fast"
         SCALING_YARN_BETA_SLOW = "{arch}.rope.scaling.yarn_beta_slow"
+        SCALING_YARN_LOG_MUL = "{arch}.rope.scaling.yarn_log_multiplier"
 
     class Tokenizer:
         MODEL = "tokenizer.ggml.model"

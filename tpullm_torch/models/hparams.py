@@ -1,6 +1,7 @@
-"""Model hyperparameters read from GGUF metadata: the fields the llama and
-gemma forwards read, and the metadata → hparams mapping for the archs the
-port runs (`ARCHS`), as the JAX package's models/hparams.py maps them."""
+"""Model hyperparameters read from GGUF metadata: the fields the llama,
+gemma and deepseek2 forwards read, and the metadata → hparams mapping for
+the archs the port runs (`ARCHS`), as the JAX package's models/hparams.py
+maps them."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from ..gguf.constants import Keys
 from ..gguf.reader import GGUFReader
 
 # the archs whose metadata this module maps (models/registry.py runs them)
-ARCHS = ("llama", "gemma", "gemma2", "gemma3")
+ARCHS = ("llama", "gemma", "gemma2", "gemma3", "deepseek2")
 # the default interleave of sliding-window layers: every Nth layer global
 _SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 
@@ -65,6 +66,21 @@ class HParams:
     softcap_attn: float = 0.0  # tanh softcap of the attention scores (gemma2)
     softcap_final: float = 0.0  # tanh softcap of the logits (gemma2)
     rope_freq_base_swa: float = 0.0  # RoPE base of the SWA layers; 0: the global base
+    # deepseek2 (MLA): q and kv LoRA ranks (0: q direct), the per-head
+    # key/value dims of files that store the MQA form in key_length /
+    # value_length (0: those keys hold them), the leading dense layers
+    n_lora_q: int = 0
+    n_lora_kv: int = 0
+    head_dim_k_mla: int = 0
+    head_dim_v_mla: int = 0
+    n_layer_dense_lead: int = 0
+    # MoE beyond mixtral: shared experts, an expert's FFN width, the routing
+    # weights' scale and renormalisation, and the gating (softmax | sigmoid)
+    n_expert_shared: int = 0
+    n_ff_exp: int = 0
+    expert_weights_scale: float = 1.0
+    expert_weights_norm: bool = False
+    expert_gating_func: str = "softmax"
 
     def is_swa(self, il: int) -> bool:
         return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
@@ -136,4 +152,16 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         softcap_final=float(k(Keys.LLM.FINAL_LOGIT_SOFTCAPPING, 0.0)),
         rope_freq_base_swa=float(k(Keys.Rope.FREQ_BASE_SWA,
                                    10000.0 if arch == "gemma3" else 0.0)),
+        n_lora_q=int(k(Keys.Attention.Q_LORA_RANK, 0) or 0),
+        n_lora_kv=int(k(Keys.Attention.KV_LORA_RANK, 0) or 0),
+        head_dim_k_mla=int(k(Keys.Attention.KEY_LENGTH_MLA, 0) or 0),
+        head_dim_v_mla=int(k(Keys.Attention.VALUE_LENGTH_MLA, 0) or 0),
+        n_layer_dense_lead=int(k(Keys.LLM.LEADING_DENSE_BLOCK_COUNT, 0)),
+        n_expert_shared=int(k(Keys.LLM.EXPERT_SHARED_COUNT, 0)),
+        n_ff_exp=int(k(Keys.LLM.EXPERT_FEED_FORWARD_LENGTH, 0)),
+        expert_weights_scale=float(k(Keys.LLM.EXPERT_WEIGHTS_SCALE, 1.0)),
+        expert_weights_norm=bool(k(Keys.LLM.EXPERT_WEIGHTS_NORM, False)),
+        # llama_expert_gating_func_type: 1 softmax, 2 sigmoid
+        expert_gating_func={1: "softmax", 2: "sigmoid"}.get(
+            int(k(Keys.LLM.EXPERT_GATING_FUNC, 1) or 1), "softmax"),
     )

@@ -1,6 +1,7 @@
 """Architecture registry: GGUF `general.architecture` → (build_params,
 forward), the rows of the JAX package's models/registry.py that the port
-runs: `llama`, `gemma3` (alias `gemma2`) and `gemma`."""
+runs: `llama`, `gemma3` (alias `gemma2`), `gemma` and `deepseek2` (its
+aliases minicpm3 and plm are not ported)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import gemma, llama
+from . import deepseek2, gemma, llama
 from .hparams import HParams, hparams_from_gguf
 
 
@@ -20,12 +21,17 @@ class ArchSpec:
     # interleaved sliding-window attention: the Engine gives it the ring
     # cache (runtime/kvcache.py SWACache) unless asked for swa_full
     iswa: bool = False
+    # an arch that brings its own cache: (hp, batch, max_len, kv_dtype,
+    # device) → cache (deepseek2: the MLA latent)
+    make_cache: Callable | None = None
 
 
 _GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
 _REGISTRY = {"llama": ArchSpec("llama", llama.build_params, llama.forward),
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
-             "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward)}
+             "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
+             "deepseek2": ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
+                                   make_cache=deepseek2.make_cache)}
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -1,4 +1,4 @@
-"""Synthesis of random *packed* llama and gemma models from a seed.
+"""Synthesis of random *packed* llama, gemma and deepseek2 models from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -62,6 +62,30 @@ SHAPES = {
     "tiny-gemma": dict(arch="gemma", n_layer=6, n_embd=256, n_head=2, n_head_kv=1,
                        head_dim=256, n_ff=512, n_vocab=384, rope_base=10000.0,
                        rms_eps=1e-6),
+    # deepseek-ai/DeepSeek-V2-Lite config.json: q_lora_rank null (q direct),
+    # kv_lora_rank 512, qk_nope_head_dim 128, qk_rope_head_dim 64, v_head_dim
+    # 128, 64 routed experts (moe_intermediate_size 1408) top-6 softmax, not
+    # renormalised, 2 shared, first_k_dense_replace 1 (intermediate_size
+    # 10944), YaRN factor 40 on 4096 (mscale_all_dim 0.707: the converter's
+    # yarn_log_multiplier 0.0707); the older converter's metadata (per-head
+    # key/value lengths, head_count_kv = n_head, the fused attn_kv_b)
+    "deepseek-v2-lite": dict(arch="deepseek2", n_layer=27, n_embd=2048, n_head=16,
+                             n_head_kv=16, n_ff=10944, n_vocab=102400, rope_base=10000.0,
+                             rms_eps=1e-6, n_ctx=163840, kv_lora=512, qk_nope=128,
+                             qk_rope=64, v_dim=128, n_expert=64, n_expert_used=6,
+                             n_ff_exp=1408, n_expert_shared=2, n_dense_lead=1,
+                             gating=1, weights_scale=1.0, weights_norm=False,
+                             rope_scaling=("yarn", 40.0), rope_orig_ctx=4096,
+                             yarn_log_mul=0.0707),
+    # the deepseek2 test model: the latent of the kernel's widths (kv_lora 512
+    # and 64 rope dims: Dk 576, Dv 512, 16 heads on the latent's one KV head)
+    # with narrow heads (qk_nope and v 32), one dense lead layer, 4 experts
+    # top-2 softmax not renormalised (V2's routing), one shared expert
+    "tiny-deepseek2": dict(arch="deepseek2", n_layer=3, n_embd=256, n_head=16, n_head_kv=16,
+                           n_ff=512, n_vocab=384, rope_base=10000.0, rms_eps=1e-6,
+                           kv_lora=512, qk_nope=32, qk_rope=64, v_dim=32, n_expert=4,
+                           n_expert_used=2, n_ff_exp=256, n_expert_shared=1, n_dense_lead=1,
+                           gating=1, weights_scale=1.0, weights_norm=False),
 }
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
@@ -83,6 +107,7 @@ SCALE_FIELDS = {
 # RMS of a decoded weight per unit block scale d, over random_packed's draws
 # (the sub-scales and codes are random bytes); MXFP4's is its table's RMS
 _RMS_PER_D = {GGMLType.Q8_0: 77.2, GGMLType.Q4_K: 311.0, GGMLType.Q5_K: 677.9,
+              GGMLType.Q5_0: math.sqrt(2736 / 32),  # codes q − 16 uniform over −16 .. 15
               GGMLType.Q6_K: 1410.7,
               GGMLType.MXFP4: math.sqrt(sum(v * v for v in MXFP4_VALUES) / 16),
               # over a [1024, 4096] draw of each (uint32 words, seed 0)
@@ -183,14 +208,37 @@ def use_more_bits(i_layer: int, n_layer: int) -> bool:
             or (i_layer - n_layer // 8) % 3 == 2)
 
 
+# the fallback of llama_tensor_get_type for a tensor whose rows (n_in) are
+# not a multiple of 256, the K-quants' super-block
+_K_FALLBACK = {**{t: GGMLType.IQ4_NL for t in (
+    GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.IQ4_XS, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
+    GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S, GGMLType.IQ1_M)},
+    GGMLType.TQ1_0: GGMLType.Q4_0, GGMLType.TQ2_0: GGMLType.Q4_0,
+    GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q5_K: GGMLType.Q5_1, GGMLType.Q6_K: GGMLType.Q8_0}
+
+
 def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
-                n_expert: int = 0, tied: bool = False) -> GGMLType:
+                n_expert: int = 0, tied: bool = False, n_in: int = 256) -> GGMLType:
     """The type llama.cpp's recipe `ftype` (a name of PRESETS) gives a llama
     tensor (llama_tensor_get_type in src/llama-quant.cpp, for a llama with
     n_gqa = 4 and no imatrix). `kind` is the tensor name without `blk.N.`
-    and `.weight`; an expert stack (`*_exps`) takes its FFN kind's type.
-    The router (ffn_gate_inp) is never quantized. With a `tied` head (no
-    output.weight, as gemma's) token_embd takes the output's type.
+    and `.weight`; an expert stack (`*_exps`) and a shared expert
+    (`*_shexp`) take their FFN kind's type. The router (ffn_gate_inp) is
+    never quantized. With a `tied` head (no output.weight, as gemma's)
+    token_embd takes the output's type. A tensor whose rows (`n_in`) are
+    not a multiple of 256 takes the recipe's fallback for its type (Q4_K →
+    Q5_0, Q5_K → Q5_1, Q6_K → Q8_0, TQ1_0 / TQ2_0 → Q4_0, Q2_K, Q3_K and
+    the i-quants → IQ4_NL).
+
+    deepseek2's tensors: attn_q (or attn_q_a and attn_q_b), attn_kv_a_mqa,
+    attn_kv_b and attn_output take the default type (no rule names them:
+    attn_kv_b counts among llama.cpp's attn_v tensors but is not typed as
+    one); ffn_down, ffn_down_exps and ffn_down_shexp the ffn_down rule at
+    their layer (llama.cpp parses it from the name when there are experts,
+    over n_layer layers); ffn_gate/up_shexp the default; exp_probs_b is an
+    f32 bias like the norms. At Q4_K_M DeepSeek-V2-Lite's K = 1408 down
+    experts take Q5_0, or Q8_0 on use_more_bits layers, as does its dense
+    lead's K = 10944 ffn_down.
 
     | ftype | default | attn_v | attn_output | ffn_down | output | token_embd |
     | Q4_K_M | Q4_K | Q6_K on use_more_bits layers | Q4_K | Q6_K on use_more_bits layers | Q6_K | Q4_K |
@@ -212,11 +260,17 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     attn_output Q5_K."""
     if kind == "ffn_gate_inp":
         return GGMLType.F32
+    gtype = _preset_type(ftype, kind, i_layer, n_layer, n_expert, tied)
+    return _K_FALLBACK.get(gtype, gtype) if n_in % 256 else gtype
+
+
+def _preset_type(ftype: str, kind: str, i_layer: int, n_layer: int, n_expert: int,
+                 tied: bool) -> GGMLType:
     if tied and kind == "token_embd":
         kind = "output"
     if ftype == "MXFP4_MOE":
         return GGMLType.MXFP4 if kind.endswith("_exps") else GGMLType.Q8_0
-    kind = kind.removesuffix("_exps")
+    kind = kind.removesuffix("_exps").removesuffix("_shexp")
     if ftype == "Q4_K_M":
         if kind == "output":
             return GGMLType.Q6_K
@@ -365,6 +419,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     rng = np.random.default_rng(seed)
     arch = cfg.get("arch", "llama")
     gemma = arch.startswith("gemma")
+    mla = arch == "deepseek2"
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = n_vocab or cfg["n_vocab"]
@@ -394,7 +449,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
     w.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", cfg.get("rms_eps", 1e-5))
     w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
-    w.add_kv(f"{arch}.rope.dimension_count", head_dim)
+    w.add_kv(f"{arch}.rope.dimension_count", cfg.get("qk_rope", head_dim))
     w.add_kv(f"{arch}.vocab_size", n_vocab)
     if gemma:
         w.add_kv(f"{arch}.attention.key_length", head_dim)
@@ -404,6 +459,19 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     if "rope_scaling" in cfg:
         w.add_kv(f"{arch}.rope.scaling.type", cfg["rope_scaling"][0])
         w.add_kv(f"{arch}.rope.scaling.factor", cfg["rope_scaling"][1])
+    if "rope_orig_ctx" in cfg:  # YaRN as llama.cpp's deepseek2 converter writes it
+        w.add_kv(f"{arch}.rope.scaling.original_context_length", cfg["rope_orig_ctx"])
+        w.add_kv(f"{arch}.rope.scaling.yarn_log_multiplier", cfg["yarn_log_mul"])
+    if mla:
+        w.add_kv(f"{arch}.attention.key_length", cfg["qk_nope"] + cfg["qk_rope"])
+        w.add_kv(f"{arch}.attention.value_length", cfg["v_dim"])
+        w.add_kv(f"{arch}.attention.kv_lora_rank", cfg["kv_lora"])
+        w.add_kv(f"{arch}.leading_dense_block_count", cfg["n_dense_lead"])
+        w.add_kv(f"{arch}.expert_feed_forward_length", cfg["n_ff_exp"])
+        w.add_kv(f"{arch}.expert_shared_count", cfg["n_expert_shared"])
+        w.add_kv(f"{arch}.expert_weights_scale", cfg["weights_scale"])
+        w.add_kv(f"{arch}.expert_weights_norm", cfg["weights_norm"])
+        w.add_kv(f"{arch}.expert_gating_func", cfg["gating"])
     if "sliding_window" in cfg:
         w.add_kv(f"{arch}.attention.sliding_window", cfg["sliding_window"])
         w.add_kv(f"{arch}.attention.sliding_window_pattern", cfg["swa_pattern"])
@@ -436,7 +504,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         """A quantized weight (n_stack > 1: a stack of experts), its bytes
         drawn when the file is written."""
         kind = name.split(".")[-2]
-        gtype = preset_type(ftype, kind, i, n_layer, n_expert, tied=gemma)
+        gtype = preset_type(ftype, kind, i, n_layer, n_expert, tied=gemma, n_in=n_in)
         shape = (n_in, n_out) if n_stack == 1 else (n_in, n_out, n_stack)
         scale = 0.02 if legacy else n_in ** -0.5 / _RMS_PER_D[gtype]
         w.add_packed_tensor(name, shape, gtype, lambda: random_packed(
@@ -445,34 +513,73 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     def norm(name, n):
         w.add_tensor(name, np.ones(n, dtype=np.float32))
 
+    def router(name):
+        # f32 normal / sqrt(n_embd), so its logits have unit scale
+        w.add_packed_tensor(name, (n_embd, n_expert), GGMLType.F32,
+                            lambda: (rng.standard_normal((n_expert, n_embd))
+                                     * n_embd ** -0.5).astype("<f4").reshape(-1).view(np.uint8))
+
     packed("token_embd.weight", n_vocab, n_embd)
-    for i in range(n_layer):
-        p = f"blk.{i}."
-        norm(p + "attn_norm.weight", n_embd)
-        packed(p + "attn_q.weight", n_head * head_dim, n_embd, i)
-        packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, i)
-        packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, i)
-        packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
-        if arch == "gemma3":
-            norm(p + "attn_q_norm.weight", head_dim)
-            norm(p + "attn_k_norm.weight", head_dim)
-        if arch in ("gemma2", "gemma3"):
-            norm(p + "post_attention_norm.weight", n_embd)
-            norm(p + "post_ffw_norm.weight", n_embd)
-        norm(p + "ffn_norm.weight", n_embd)
-        if n_expert:
-            # the router: f32 normal / sqrt(n_embd), so its logits have unit scale
-            w.add_packed_tensor(p + "ffn_gate_inp.weight", (n_embd, n_expert), GGMLType.F32,
-                                lambda: (rng.standard_normal((n_expert, n_embd))
-                                         * n_embd ** -0.5).astype("<f4").reshape(-1).view(np.uint8))
-            packed(p + "ffn_gate_exps.weight", n_ff, n_embd, i, n_expert)
-            packed(p + "ffn_up_exps.weight", n_ff, n_embd, i, n_expert)
-            packed(p + "ffn_down_exps.weight", n_embd, n_ff, i, n_expert)
-        else:
-            packed(p + "ffn_gate.weight", n_ff, n_embd, i)
-            packed(p + "ffn_up.weight", n_ff, n_embd, i)
-            packed(p + "ffn_down.weight", n_embd, n_ff, i)
+    if mla:
+        _deepseek2_layers(cfg, n_layer, packed, norm, router)
+    else:
+        for i in range(n_layer):
+            p = f"blk.{i}."
+            norm(p + "attn_norm.weight", n_embd)
+            packed(p + "attn_q.weight", n_head * head_dim, n_embd, i)
+            packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, i)
+            packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, i)
+            packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
+            if arch == "gemma3":
+                norm(p + "attn_q_norm.weight", head_dim)
+                norm(p + "attn_k_norm.weight", head_dim)
+            if arch in ("gemma2", "gemma3"):
+                norm(p + "post_attention_norm.weight", n_embd)
+                norm(p + "post_ffw_norm.weight", n_embd)
+            norm(p + "ffn_norm.weight", n_embd)
+            if n_expert:
+                router(p + "ffn_gate_inp.weight")
+                packed(p + "ffn_gate_exps.weight", n_ff, n_embd, i, n_expert)
+                packed(p + "ffn_up_exps.weight", n_ff, n_embd, i, n_expert)
+                packed(p + "ffn_down_exps.weight", n_embd, n_ff, i, n_expert)
+            else:
+                packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+                packed(p + "ffn_up.weight", n_ff, n_embd, i)
+                packed(p + "ffn_down.weight", n_embd, n_ff, i)
     norm("output_norm.weight", n_embd)
     if not gemma:  # gemma ties its head to token_embd
         packed("output.weight", n_vocab, n_embd)
     return w
+
+
+def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:
+    """The layers of a deepseek2 shape, with the tensor names the JAX
+    package's models/deepseek2.py reads (the fused attn_kv_b of the older
+    converter, not the split attn_k_b / attn_v_b of newer ones): q direct
+    (no q LoRA), the kv compression and its norm, attn_kv_b, the output;
+    the leading dense layers' SwiGLU, then a router (no exp_probs_b: V2's
+    routing), the expert stacks and the shared expert."""
+    n_embd, n_head, E = cfg["n_embd"], cfg["n_head"], cfg["n_expert"]
+    dk, kvr, rope = cfg["qk_nope"] + cfg["qk_rope"], cfg["kv_lora"], cfg["qk_rope"]
+    n_sh = cfg["n_ff_exp"] * cfg["n_expert_shared"]
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        norm(p + "attn_norm.weight", n_embd)
+        packed(p + "attn_q.weight", n_head * dk, n_embd, i)
+        packed(p + "attn_kv_a_mqa.weight", kvr + rope, n_embd, i)
+        norm(p + "attn_kv_a_norm.weight", kvr)
+        packed(p + "attn_kv_b.weight", n_head * (cfg["qk_nope"] + cfg["v_dim"]), kvr, i)
+        packed(p + "attn_output.weight", n_embd, n_head * cfg["v_dim"], i)
+        norm(p + "ffn_norm.weight", n_embd)
+        if i < cfg["n_dense_lead"]:
+            packed(p + "ffn_gate.weight", cfg["n_ff"], n_embd, i)
+            packed(p + "ffn_up.weight", cfg["n_ff"], n_embd, i)
+            packed(p + "ffn_down.weight", n_embd, cfg["n_ff"], i)
+            continue
+        router(p + "ffn_gate_inp.weight")
+        packed(p + "ffn_gate_exps.weight", cfg["n_ff_exp"], n_embd, i, E)
+        packed(p + "ffn_up_exps.weight", cfg["n_ff_exp"], n_embd, i, E)
+        packed(p + "ffn_down_exps.weight", n_embd, cfg["n_ff_exp"], i, E)
+        packed(p + "ffn_gate_shexp.weight", n_sh, n_embd, i)
+        packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
+        packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)

@@ -221,11 +221,17 @@ def load_embedding(info: GGUFTensorInfo, device, dtype=torch.bfloat16) -> torch.
 def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
                       mode: str = "auto"):
     """A stacked expert tensor (ggml ne (n_in, n_out, E)) → QuantExpertStack
-    for the ported quant types, else (and in mode "dense") a dense
-    [E, n_in, n_out] tensor, each expert as `dense_weight` makes it. The
-    packed bytes go up and are repacked one expert at a time into planes
-    allocated once for the whole stack, so the transient memory is one
-    expert's repack, not the stack's."""
+    for the ported quant types at a shape the qmm_stack and qmm_gather
+    kernels take (`qmm.takes`), else (and in mode "dense") a dense
+    [E, n_in, n_out] tensor, each expert as `dense_weight` makes it: the
+    JAX package's rule (`_expert_stack_packable`), so that a stack no
+    kernel takes is dequantized once at load and not on every call
+    (DeepSeek-V2-Lite's down experts, K = 1408). The packed bytes go up and
+    are repacked one expert at a time into planes allocated once for the
+    whole stack, so the transient memory is one expert's repack, not the
+    stack's."""
+    from ..ops.kernels import qmm
+
     n_in, n_out, E = info.shape
     if not TYPE_TRAITS[info.ggml_type].is_quantized:
         w = _dense_array(info).transpose(0, 2, 1)  # (E, n_out, n_in) → (E, n_in, n_out)
@@ -233,7 +239,7 @@ def load_expert_stack(info: GGUFTensorInfo, device, dtype=torch.bfloat16,
     if not qmatmul.supports(info.ggml_type):
         raise NotImplementedError(f"{info.name}: {info.ggml_type.name} is not ported")
     data = info.data.reshape(E, -1)
-    if mode == "dense":
+    if mode == "dense" or not qmm.takes(n_in, n_out):
         w = torch.empty((E, n_in, n_out), dtype=dtype, device=device)
         for e in range(E):
             planes = qmatmul.repack_planes(qmatmul.upload_blocks(data[e], device),

@@ -6,9 +6,13 @@ format: a CUDA tensor goes to the kernel, at every T and every S, and a CPU
 tensor to the kernel's plain version. (The JAX package sends bf16 decode at
 S < 4096 to its dense path; on the card the plain version never runs on the
 main path.) The one exception is a shape the kernel does not take (a head
-dim outside flash._HEAD_DIMS, or Dk ≠ Dv): on the card it goes to the dense
-path, as the JAX package sends the shapes its flash kernel refuses there
-(tpullm/ops/attention.py `attention`), counted in flash.ATTN_DENSE_ROUTES.
+dim outside flash._HEAD_DIMS, or Dk ≠ Dv but for the MLA latent): on the
+card it goes to the dense path, as the JAX package sends the shapes its
+flash kernel refuses there (tpullm/ops/attention.py `attention`), counted
+in flash.ATTN_DENSE_ROUTES. The MLA latent (runtime/kvcache.py MLACache:
+v a view of k's first kv_lora_rank features) goes to the kernel's latent
+form on a bf16 cache at (Dk, Dv) = (576, 512), DeepSeek-V2/V3's; an f16 or
+f32 latent, and other latent widths, to the dense path.
 
 `attention_ring` is the sliding-window layers' attention over an iSWA ring
 cache (runtime/kvcache.py SWACache): dense attention under the mask the
@@ -104,7 +108,7 @@ def attention_cached(q, cache, li: int, scale: float, offsets: torch.Tensor,
         return flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale, softcap,
                                         sliding_window, sinks, alibi_slopes)
     k, v = cache.kv(li)
-    if q.is_cuda and not flash.takes(q.shape[-1], v.shape[-1]):
+    if q.is_cuda and not flash.takes(q.shape[-1], v.shape[-1], flash.is_latent(k, v), k.dtype):
         flash.ATTN_DENSE_ROUTES[flash.DENSE_FORMATS[k.dtype]] += 1
         return _attention_dense(q, k, v, offsets, scale, softcap, sliding_window, sinks,
                                 alibi_slopes)

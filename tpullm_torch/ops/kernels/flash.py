@@ -13,6 +13,16 @@ tensor-core prefill kernel (bound: the QK and PV products).
 Layouts as in the JAX package: q [B, T, H, D] (caller layout), k/v
 [B, Hkv, S, D] (cache layout), k_s/v_s [B, Hkv, S] f32, offsets [B] int32
 (query row t sits at position off_b + t; kv_len_b = off_b + T).
+
+The latent form (the MLA cache, runtime/kvcache.py MLACache): Dk = 576,
+Dv = 512 on a bf16 cache of one KV head, v a view of k's first 512
+features (`is_latent`), the output [B, T, H, Dv]. Its own library
+(`flash_latent`): csrc/flash.cu flash_mla_kernel, both regimes on the
+tensor cores (the decode regime split over the keys as above, p for the
+PV product as two bf16 terms in both: `flash_split_reference(...,
+p_terms=2)` is its decode order's plain version). The plain versions take
+Dk ≠ Dv as they are.
+
 `flash_reference` computes the same function densely in f32 and casts the
 output to q's dtype; rows that see no key give 0. It is what a CPU tensor
 takes. Beside it, the plain versions of the kernels' own orders:
@@ -34,10 +44,21 @@ from . import _build
 DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 FORMATS = (*DENSE_FORMATS.values(), "q8")
 _HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash.cu instantiates
-# launches of the kernels by KV format, head dim and regime
-# ("bf16.d256.decode"), plain counts a run can read; launch_total sums them
+LATENT_DIMS = ((576, 512),)  # (Dk, Dv) of the latent form it instantiates (bf16)
+
+
+def dims_key(d: int, dv: int) -> str:
+    """The head dims' part of a LAUNCHES key: "d128", or "d576v512"."""
+    return f"d{d}" if d == dv else f"d{d}v{dv}"
+
+
+# launches of the kernels by KV format, head dims and regime
+# ("bf16.d256.decode", "bf16.d576v512.prefill"), plain counts a run can
+# read; launch_total sums them
 LAUNCHES = {f"{fmt}.d{d}.{r}": 0 for fmt in FORMATS for d in _HEAD_DIMS
             for r in ("decode", "prefill")}
+LAUNCHES.update({f"bf16.{dims_key(d, dv)}.{r}": 0 for d, dv in LATENT_DIMS
+                 for r in ("decode", "prefill")})
 # calls ops.attention sent to its dense path on the card because the kernel
 # does not take their head dims (`takes`), by KV format; 0 on a model whose
 # heads the kernel takes
@@ -57,6 +78,7 @@ NEG_INF = -1e30  # the running max before any key
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DENSE_ARGS = (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P)
 _Q8_ARGS = (_P,) * 11 + (_I,) * 6 + (_F, _F, _I, _I, _P)
+_LATENT_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 
 
 def regime(T: int, H: int, Hkv: int) -> str:
@@ -164,11 +186,14 @@ def _kv(k, v, k_scale, v_scale, b, k0, k1):
 
 def flash_split_reference(q, k, v, offsets, scale: float, softcap: float = 0.0,
                           sliding_window: int = 0, sinks=None, alibi_slopes=None,
-                          k_scale=None, v_scale=None, n_sm: int = 132) -> torch.Tensor:
+                          k_scale=None, v_scale=None, n_sm: int = 132,
+                          p_terms: int = 0) -> torch.Tensor:
     """The decode regime's plain version: per batch, the splits of
     `kv_splits` on `max_splits(B, Hkv, S, n_sm)`, each an f32 (m, l, acc)
     partial (a masked key adds 0; m starts at NEG_INF), merged in split
-    order, then the sink column and safe l; output in q's dtype."""
+    order, then the sink column and safe l; output in q's dtype. p enters
+    the PV product in f32 (p_terms 0: flash_decode_kernel), or rounded as
+    `_round_p` rounds it (2: the latent form's decode)."""
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -189,6 +214,8 @@ def flash_split_reference(q, k, v, offsets, scale: float, softcap: float = 0.0,
                 torch.full(s.shape[:-1], NEG_INF, device=q.device)
             p = torch.exp(s - m[..., None])
             pv = p if vs is None else p * vs[:, None, None, :]
+            if p_terms:
+                pv = _round_p(pv, p_terms)
             parts.append((m, p.sum(-1), torch.einsum("hgtn,hnd->hgtd", pv, vf)))
         m = parts[0][0]
         for pm, _, _ in parts[1:]:
@@ -251,8 +278,19 @@ def flash_prefill_reference(q, k, v, offsets, scale: float, softcap: float = 0.0
     return out.to(q.dtype)
 
 
-def takes(d: int, dv: int) -> bool:
-    """Whether the kernel takes query/key head dim d and value head dim dv."""
+def is_latent(k, v) -> bool:
+    """Whether v is the first v.shape[-1] features of k's rows, a view of
+    the same memory (the MLA latent: runtime/kvcache.py MLACache.kv)."""
+    return (v.shape[-1] < k.shape[-1] and v.shape[:-1] == k.shape[:-1]
+            and v.data_ptr() == k.data_ptr() and v.stride() == k.stride())
+
+
+def takes(d: int, dv: int, latent: bool = False, dtype=torch.bfloat16) -> bool:
+    """Whether the kernel takes query/key head dim d and value head dim dv:
+    Dk = Dv in _HEAD_DIMS, or the latent form (v a view of k) at
+    LATENT_DIMS on a bf16 cache."""
+    if latent:
+        return (d, dv) in LATENT_DIMS and dtype == torch.bfloat16
     return d in _HEAD_DIMS and dv == d
 
 
@@ -280,8 +318,46 @@ def _check(q, kv, offsets, sinks, slopes):
             raise ValueError("flash: sinks / ALiBi slopes must be f32 [H]")
 
 
+def _check_latent(q, k, v, offsets, softcap, window, sinks, slopes):
+    B, T, H, D = q.shape
+    if not takes(D, v.shape[-1], True, k.dtype) or k.shape[0] != B or H % k.shape[1] \
+            or k.shape[-1] != D:
+        raise ValueError(f"flash: the latent form takes (Dk, Dv) in {LATENT_DIMS} on a bf16 "
+                         f"cache; got q {tuple(q.shape)}, k {tuple(k.shape)} {k.dtype}, "
+                         f"v {tuple(v.shape)}")
+    if softcap or window or sinks is not None or slopes is not None:
+        raise ValueError("flash: the latent form takes no softcap, window, sinks or ALiBi")
+    if q.dtype != torch.bfloat16:
+        raise ValueError("flash: q must be bf16")
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (B,):
+        raise ValueError("flash: offsets must be int32 [B]")
+    for t in (q, k, offsets):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash: every operand must be on the same CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % (16 if t is not offsets else 4):
+            raise ValueError("flash: operands must be contiguous and aligned")
+
+
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def _scratch(q, k, dv: int):
+    """(output [B, T, H, dv], the stream, the decode regime's split count,
+    its partials and counters: None where one split takes the keys, or in
+    the prefill regime)."""
+    B, T, H, _ = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = torch.empty((B, T, H, dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split, partial, counters = 1, None, None
+    if regime(T, H, Hkv) == "decode":
+        n_split = max_splits(B, Hkv, S, _build.n_sm(q.device))
+        if n_split > 1:
+            partial = torch.empty(B * Hkv * n_split * T * (H // Hkv) * (dv + 2),
+                                  dtype=torch.float32, device=q.device)
+            counters = _build.counters(q.device, stream, B * Hkv)
+    return out, stream, n_split, partial, counters
 
 
 def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks, slopes):
@@ -290,21 +366,27 @@ def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks,
     themselves."""
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    decode = regime(T, H, Hkv) == "decode"
-    n_split, partial, counters = 1, None, None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if decode:
-        n_split = max_splits(B, Hkv, S, _build.n_sm(q.device))
-        if n_split > 1:
-            partial = torch.empty(B * Hkv * n_split * T * (H // Hkv) * (D + 2),
-                                  dtype=torch.float32, device=q.device)
-            counters = _build.counters(q.device, stream, B * Hkv)
+    out, stream, n_split, partial, counters = _scratch(q, k, D)
+    reg = regime(T, H, Hkv)
     rc = fn(q.data_ptr(), *kv_ptrs, offsets.data_ptr(), _ptr(sinks), _ptr(slopes),
             out.data_ptr(), _ptr(partial), _ptr(counters), B, T, H, Hkv, S, D, float(scale),
             float(softcap), int(window), n_split, stream)
-    _build.check(rc, f"flash {fmt} ({'decode' if decode else 'prefill'})")
-    LAUNCHES[f"{fmt}.d{D}.{'decode' if decode else 'prefill'}"] += 1
+    _build.check(rc, f"flash {fmt} ({reg})")
+    LAUNCHES[f"{fmt}.d{D}.{reg}"] += 1
+    return out
+
+
+def _launch_latent(q, k, dv: int, offsets, scale):
+    """One launch of the latent form (v = k[..., :dv]) in q's regime."""
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out, stream, n_split, partial, counters = _scratch(q, k, dv)
+    reg = regime(T, H, Hkv)
+    fn = _build.bind("flash_latent", "tpullm_flash_latent_bf16", _LATENT_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), offsets.data_ptr(), out.data_ptr(), _ptr(partial),
+            _ptr(counters), B, T, H, Hkv, S, D, dv, float(scale), n_split, stream)
+    _build.check(rc, f"flash latent bf16 {dims_key(D, dv)} ({reg})")
+    LAUNCHES[f"bf16.{dims_key(D, dv)}.{reg}"] += 1
     return out
 
 
@@ -318,11 +400,16 @@ def launch_total(fmt: str | None = None, regime: str | None = None, counts=None)
 def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,
                     sliding_window: int = 0, sinks=None, alibi_slopes=None):
     """Dense KV: q [B,T,H,D] bf16, k/v [B,Hkv,S,D] bf16, f16 or f32 (one
-    dtype) → [B,T,H,D] bf16. The kernel of the call's regime and the
-    cache's dtype on a CUDA tensor, the plain version on a CPU tensor."""
+    dtype) → [B,T,H,D] bf16; or the latent form (v a view of k's first Dv
+    features, `is_latent`) → [B,T,H,Dv]. The kernel of the call's regime
+    and the cache's dtype on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if not q.is_cuda:
         return flash_reference(q, k, v, offsets, scale, softcap, sliding_window,
                                sinks, alibi_slopes)
+    if is_latent(k, v):
+        _check_latent(q, k, v, offsets, softcap, sliding_window, sinks, alibi_slopes)
+        return _launch_latent(q, k, v.shape[-1], offsets, scale)
     _check(q, (k, v), offsets, sinks, alibi_slopes)
     fmt = DENSE_FORMATS.get(k.dtype)
     if fmt is None or v.dtype != k.dtype:

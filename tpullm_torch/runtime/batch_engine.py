@@ -87,7 +87,8 @@ class BatchEngine:
             self.cache = SWACache.new(self.hp, n_slots, max_seq, kv_dtype,
                                       max_chunk=self.prefill_chunk, device=self.device)
         else:
-            self.cache = make_cache(self.hp, n_slots, max_seq, kv_dtype, self.device)
+            make = self.arch.make_cache or make_cache
+            self.cache = make(self.hp, n_slots, max_seq, kv_dtype, self.device)
         self.n_past = np.zeros(n_slots, dtype=np.int32)
         # per-slot RoPE position offset against the cache slot count (the
         # JAX package's M-RoPE image grids; 0 here until mtmd is ported)

@@ -24,7 +24,9 @@ runtime/state.py's `load_state`; `new_cache` makes a new one and drops them.
 An iSWA model (registry `iswa`: gemma2, gemma3) gets the ring cache
 (runtime/kvcache.py SWACache) as the JAX package gives it: a dense cache
 dtype, a window, max_seq above it and no `swa_full`; its prefill then runs
-in chunks of at most 1024 tokens, which the ring is sized for.
+in chunks of at most 1024 tokens, which the ring is sized for. An arch
+that brings its own cache (registry `make_cache`: deepseek2's MLA latent)
+gets it.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..models.registry import get_arch, load_hparams
 from ..models.weights import fuse_llama_params
 from ..ops.sampling_ops import SamplingParams, sample_token
 from .graph import DecodeRunner, LogitsRunner, VerifyRunner
-from .kvcache import SWACache, make_cache, refuse_speculation, takes_ring
+from .kvcache import SWACache, describe, make_cache, refuse_speculation, takes_ring
 from .sampling import Sampler, SamplerParams
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -113,7 +115,13 @@ class Engine:
         if self.ring:
             return SWACache.new(self.hp, self.batch, self.max_seq, self.kv_dtype,
                                 max_chunk=self.prefill_cap, device=self.device)
-        return make_cache(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
+        make = self.arch.make_cache or make_cache
+        return make(self.hp, self.batch, self.max_seq, self.kv_dtype, self.device)
+
+    def report(self) -> str:
+        """The perf counters and the cache: its kind and dtype (an MLA
+        latent's bf16 for a q8 request) and its bytes a position."""
+        return f"{self.perf.report()} | cache {describe(self.cache)}"
 
     def reset(self):
         """n_past 0; on the ring every slot marked empty (in place), so that

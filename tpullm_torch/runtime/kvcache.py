@@ -16,6 +16,11 @@ into `SlotRows` once for all its layers.
 `SWACache` is the iSWA dual store (the JAX package's SWACache): the
 full-attention layers keep [n_full, B, Hkv, S, D], the sliding-window
 layers a ring of R slots whose absolute positions `slot_pos` records.
+
+`MLACache` is the absorbed-MLA latent of DeepSeek-V2/V3 (the JAX package's
+MLACache): one plane [n_layer, B, 1, S, kv_lora_rank + n_rot] whose rows
+are the keys of an MQA attention and whose first kv_lora_rank features are
+its values, written in place as `KVCache` writes.
 """
 
 from __future__ import annotations
@@ -204,6 +209,68 @@ class QuantKVCache:
         for arr, new in ((self.k_q, k_q), (self.v_q, v_q), (self.k_s, k_s), (self.v_s, v_s)):
             _write(arr, new, offset, 2, layer)
         return self
+
+
+@dataclass
+class MLACache:
+    """The absorbed-MLA latent cache (the JAX package's MLACache, ≡ the
+    reference's is_mla cache: llama-kv-cache.cpp caches the kv_lora_rank +
+    n_rot latent and llm_build_deepseek2 runs MQA at DKQ = kv_lora_rank +
+    n_rot, DV = kv_lora_rank).
+
+    One plane a layer: c[..., :kvr] is the compressed KV latent, shared by
+    the no-RoPE scores and the values (V is a view of K, not a copy),
+    c[..., kvr:] the shared RoPE key. A position holds kvr + n_rot values
+    in place of n_head · (Dk + Dv): 576 against 16 · (192 + 128) = 5120 for
+    DeepSeek-V2-Lite. Written in place at the offsets KVCache takes (a host
+    int, a 0-d device tensor at T = 1, per-slot int32 [B] or SlotRows), so
+    the decode graphs and the batched step hold it."""
+
+    c: torch.Tensor  # [n_layer, B, 1, S, kvr + n_rot]
+    kvr: int  # the latent's width: the values are c[..., :kvr]
+
+    @classmethod
+    def new(cls, n_layer: int, batch: int, max_len: int, kvr: int, n_rot: int,
+            dtype=torch.bfloat16, device=None) -> "MLACache":
+        return cls(torch.zeros((n_layer, batch, 1, max_len, kvr + n_rot), dtype=dtype,
+                               device=device), kvr)
+
+    @property
+    def max_len(self) -> int:
+        return self.c.shape[3]
+
+    @property
+    def batch(self) -> int:
+        return self.c.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.c.dtype
+
+    def first_slots(self, n: int) -> "MLACache":
+        """A view of batch rows [0, n): its writes land in this cache."""
+        return MLACache(self.c[:, :n], self.kvr)
+
+    def kv(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(k, v): k [B, 1, S, kvr + n_rot] and v = k[..., :kvr], a view."""
+        k = self.c[layer]
+        return k, k[..., :self.kvr]
+
+    def update(self, layer: int, k_new: torch.Tensor, v_new=None, offset=0) -> "MLACache":
+        """Write the latent rows k_new [B, 1, T, kvr + n_rot] of `layer` at
+        `offset` (the forms KVCache.update takes); v_new is unused."""
+        _write(self.c, k_new, offset, 2, layer)
+        return self
+
+
+def describe(cache) -> str:
+    """A cache's kind, dtype and bytes a cached position (every layer and
+    store, one batch row; a ring's slots counted as positions), for
+    Engine.report."""
+    arrs = [v for v in vars(cache).values() if isinstance(v, torch.Tensor) and v.dim() >= 4]
+    per = sum(a.numel() // (a.shape[1] * a.shape[3]) * a.element_size() for a in arrs)
+    dtype = str(arrs[0].dtype).removeprefix("torch.")
+    return f"{type(cache).__name__} {dtype} ({per} B a position)"
 
 
 def takes_ring(iswa: bool, hp: HParams, kv_dtype, max_len: int) -> bool:

@@ -22,9 +22,13 @@ and its window (`swa_window`); a restore checks the window and the ring's
 length against the engine's. A ring file restores only into a ring engine
 and a full file only into a full one.
 
+An MLA latent cache (runtime/kvcache.py MLACache) saves as the JAX package
+saves it: the latent plane's rows [0, n_past) as `k` [L, 1, n, kvr + n_rot],
+an empty `v`, and the latent's width as `mla_kvr`; it restores only into an
+MLACache engine of that width, and a file of another cache not into one.
+
 A q8 cache has no dense K/V to save (the JAX package's QuantKVCache has no
-`.k` either) and raises a ValueError; MLA state files wait for that cache
-in the port.
+`.k` either) and raises a ValueError.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kvcache import SWACache
+from .kvcache import MLACache, SWACache
 
 MAGIC = "tpullm-state-v1"
 
@@ -53,6 +57,8 @@ def _dense_cache(engine):
     cache = engine.cache
     if isinstance(cache, SWACache):
         return cache.full_k, cache.full_v
+    if isinstance(cache, MLACache):  # the latent is the state; no V plane
+        return cache.c, None
     if not hasattr(cache, "k"):
         raise ValueError(f"state files hold a dense KV cache (bf16, f16 or f32); this engine's "
                          f"is {type(cache).__name__} (kv_dtype {engine.kv_dtype!r})")
@@ -62,9 +68,12 @@ def _dense_cache(engine):
 def _save_row(engine, row: int, n: int, path, tokens):
     ck, cv = _dense_cache(engine)
     k = ck[:, row, :, :n].float().cpu().numpy()  # [L, Hkv, n, Dk]
-    v = cv[:, row, :, :n].float().cpu().numpy()
+    v = cv[:, row, :, :n].float().cpu().numpy() if cv is not None else \
+        np.zeros((0,), dtype=np.float32)
     extra = {}
     cache = engine.cache
+    if isinstance(cache, MLACache):
+        extra = dict(mla_kvr=cache.kvr)
     if isinstance(cache, SWACache):
         extra = dict(swa_k=cache.swa_k[:, row].float().cpu().numpy(),
                      swa_v=cache.swa_v[:, row].float().cpu().numpy(),
@@ -86,9 +95,11 @@ def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
         n = int(z["n_past"])
         if n > engine.max_seq:
             raise ValueError(f"saved state ({n} tokens) exceeds max_seq {engine.max_seq}")
-        if "mla_kvr" in z.files:
-            raise ValueError("MLA state files are not restored by the port yet")
         cache = engine.cache
+        if ("mla_kvr" in z.files) != isinstance(cache, MLACache) or (
+                "mla_kvr" in z.files and int(z["mla_kvr"]) != cache.kvr):
+            raise ValueError("an MLA state file restores into an MLACache engine of its "
+                             "latent width, and another file not into one")
         ring = isinstance(cache, SWACache)
         if ("swa_k" in z.files) != ring:
             raise ValueError("an iSWA state file restores into an iSWA ring engine, and a "
@@ -100,7 +111,8 @@ def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
         with torch.inference_mode():
             if n:
                 ck[:, row, :, :n].copy_(torch.from_numpy(z["k"]))
-                cv[:, row, :, :n].copy_(torch.from_numpy(z["v"]))
+                if cv is not None:
+                    cv[:, row, :, :n].copy_(torch.from_numpy(z["v"]))
             if ring:
                 cache.swa_k[:, row].copy_(torch.from_numpy(z["swa_k"]))
                 cache.swa_v[:, row].copy_(torch.from_numpy(z["swa_v"]))
