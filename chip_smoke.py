@@ -62,6 +62,16 @@ Phases, in order; any failure raises and exits nonzero:
     4 slots × 9 rows (the server's --draft-max 8) with offsets (−1, 0,
     2500, 100), bf16 and q8 caches; qmm at M = 8 and 9 and qmm_tc at M = 36
     (the 8B's Q4_K gate_up and Q6_K down);
+ 3d. qwen kernels: the Qwen shapes, each against its plain version and
+    timed as in 3: qmm_gather over 128 experts (Qwen3-30B-A3B's Q4_K gate
+    2048 → 768 and Q6_K down 768 → 2048) at T = 8, 32 and 128 rows (1, 4
+    and 16 tokens' top-8: the bit-set path past 32 experts) and ids outside
+    the stack giving NaN rows; qmm_stack over the 128 experts at M = 512;
+    flash at D = 128 with 32 heads over 4 and 28 over 4 (a group of 7),
+    bf16 and q8, T = 1 and 512, and for the group of 7 T = 2 (decode) and
+    T = 3 (prefill); qmm at the Qwen 2-D linears' shapes, M = 1 and 512
+    (Qwen2.5-7B's qkv, wo, gate_up, down and head at K = 3584 and 18944,
+    Qwen3-30B-A3B's qkv, wo and head);
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -164,6 +174,21 @@ Phases, in order; any failure raises and exits nonzero:
     kernels against dense bf16 weights teacher-forced (the greedy ids
     equal); an MLA state file round trip; a BatchEngine of 4 slots
     teacher-forced against Engine;
+ 8d. qwen: tiny-qwen3moe (bf16 and q8), tiny-qwen2moe and tiny-qwen2 on
+    the card against the CPU; Qwen3-30B-A3B Q4_K_M (48 layers, n_embd 2048,
+    32 heads over 4 of 128, 128 experts top-8 of 768, vocab 151936, Qwen's
+    BPE with pre "qwen2") synthesized from a seed at full depth (17.28
+    GiB): what earlier phases leave on the card, load s and peak GiB, served
+    through Engine (`serve`) on a bf16 and on a q8 cache, prompts of 16
+    (the gather at 128 rows), 2560 (one forward at the 4096 bucket, every
+    expert on every token) and 512 (on the bf16 cache 2560 again: the
+    determinism check), 64 greedy tokens each on the decode graph,
+    launches per regime, device ms by family of a decode token and of a
+    512-token prefill, a decode replay's and a prefill forward's launches;
+    a BatchEngine of 4 slots (one idle) teacher-forced against Engine; no
+    dequantize-route or dense-attention call; then Qwen2.5-7B Q4_K_M at
+    full width with 4 layers (28 heads over 4, K = 3584 and 18944): served,
+    and teacher-forced against dense bf16 weights;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dim 96 through the counted dense path;
@@ -181,6 +206,7 @@ or without the repository beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import subprocess
@@ -595,11 +621,11 @@ def phase_grouped(dev, results: dict):
     torch.cuda.empty_cache()
 
 
-def _random_stack(gtype, n_out: int, n_in: int, gen, dev) -> dict:
-    """N_EXPERT experts' random planes, stacked [E, rows, N]."""
+def _random_stack(gtype, n_out: int, n_in: int, gen, dev, n_expert: int = N_EXPERT) -> dict:
+    """n_expert experts' random planes, stacked [E, rows, N]."""
     import torch
 
-    per = [_random_planes(gtype, n_out, n_in, gen, dev) for _ in range(N_EXPERT)]
+    per = [_random_planes(gtype, n_out, n_in, gen, dev) for _ in range(n_expert)]
     return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
 
@@ -1141,8 +1167,7 @@ def phase_tiny(dev, tmp: Path):
     CPU: logits NMSE ≤ 1e-3, greedy ids equal."""
     import torch
 
-    from tpullm_torch.models.synth import PRESETS, make_synthetic_llama_gguf
-    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.models.synth import PRESETS
 
     fox = "the quick brown fox jumps over the lazy dog"
     # 52 tokens: the all-experts regime at prefill, the gather regime at decode
@@ -1155,27 +1180,40 @@ def phase_tiny(dev, tmp: Path):
             ("tiny", "Q2_K", "q8_0", fox), ("tiny-moe", "MXFP4_MOE", torch.bfloat16, dog),
             ("tiny-moe", "IQ2_XXS", torch.bfloat16, dog)]
     for shape, ftype, kv, prompt in runs:
-        path = make_synthetic_llama_gguf(tmp / f"{shape}-{ftype}.gguf", shape=shape, seed=0,
-                                         ftype=ftype)
-        gpu = Engine(path, max_seq=256, kv_dtype=kv)
-        cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv)
-        ids = gpu.tokenizer.tokenize(prompt)
-        errs = [nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
-        for tok in (300, 17, 42, 260, 5):
-            errs.append(nmse(torch.from_numpy(gpu.decode_step(tok)),
-                             torch.from_numpy(cpu.decode_step(tok))))
-        gpu.reset()
-        cpu.reset()
-        a = gpu.generate_tokens_device(ids, 16)
-        b = cpu.generate_tokens_device(ids, 16)
-        kv_name = "bf16" if kv is torch.bfloat16 else kv
-        what = f"{shape} {ftype} kv={kv_name}"
-        log(f"[tiny] {what} {len(ids)}-token prompt: logits NMSE card vs cpu "
-            f"max {max(errs):.2e}; greedy {'equal' if a == b else 'DIFFERENT'}")
-        expect(max(errs) <= 1e-3, f"{what} logits NMSE {max(errs):.3e} <= 1e-3")
-        expect(a == b, f"{what} greedy ids card {a} vs cpu {b}")
+        gpu, cpu = tiny_card_vs_cpu("tiny", tmp, shape, ftype, kv, prompt)
         if (shape, ftype, kv) == ("tiny", "Q4_K_M", torch.bfloat16):
             grammar_run(gpu, cpu)
+
+
+def tiny_card_vs_cpu(tag: str, tmp: Path, shape: str, ftype: str, kv, prompt: str):
+    """The synthetic `shape` at `ftype` served on the card and on the CPU
+    from one file: the prompt's logits and five decode steps' within NMSE
+    1e-3, 16 greedy ids of the decode graph equal; returns both Engines."""
+    import torch
+
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp / f"{shape}-{ftype}.gguf", shape=shape, seed=0,
+                                     ftype=ftype)
+    gpu = Engine(path, max_seq=256, kv_dtype=kv)
+    cpu = Engine(path, device="cpu", max_seq=256, kv_dtype=kv)
+    ids = gpu.tokenizer.tokenize(prompt)
+    errs = [nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+    for tok in (300, 17, 42, 260, 5):
+        errs.append(nmse(torch.from_numpy(gpu.decode_step(tok)),
+                         torch.from_numpy(cpu.decode_step(tok))))
+    gpu.reset()
+    cpu.reset()
+    a = gpu.generate_tokens_device(ids, 16)
+    b = cpu.generate_tokens_device(ids, 16)
+    kv_name = "bf16" if kv is torch.bfloat16 else kv
+    what = f"{shape} {ftype} kv={kv_name}"
+    log(f"[{tag}] {what} {len(ids)}-token prompt: logits NMSE card vs cpu "
+        f"max {max(errs):.2e}; greedy {'equal' if a == b else 'DIFFERENT'}")
+    expect(max(errs) <= 1e-3, f"{what} logits NMSE {max(errs):.3e} <= 1e-3")
+    expect(a == b, f"{what} greedy ids card {a} vs cpu {b}")
+    return gpu, cpu
 
 
 # words of lower-case letters, each after a space
@@ -1235,13 +1273,20 @@ def profiled(fn):
 
 
 def device_events(prof):
-    """(key, device µs, count) of each event with device time in a
-    profile, without the profiler's own step ranges (which the profiler
-    credits with the device time of the kernels launched under them that no
-    other operator claims: the graph replays and the port's kernels)."""
+    """(key, device µs, count) of each device-side event of a profile (a
+    kernel, a copy or a fill, by name), each counted once. Left out: the
+    host-side events (an operator's self device time is that of the kernels
+    it launched, which the profile also lists under their own names:
+    counting both would count every aten operator's kernels twice), and the
+    profiler's step ranges, which it also draws on the device's timeline as
+    annotations spanning the step's kernels."""
+    from torch.autograd import DeviceType
+
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if us > 0.0 and not e.key.startswith("ProfilerStep"):
+        if (us > 0.0 and e.device_type != DeviceType.CPU
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("ProfilerStep")):
             yield e.key, us, e.count
 
 
@@ -1341,6 +1386,9 @@ def profile_prefill(eng, ids) -> dict:
         m = re.search(r"\b((?:qmm|flash)_\w*kernel)\b", key)
         if m:
             launches[m.group(1)] = launches.get(m.group(1), 0) + n
+    busy = sum(fam.values()) / 1e3
+    expect(busy <= wall * 1e3, f"profile_prefill: {busy:.3f} ms of device time within the "
+           f"prefill's {wall * 1e3:.3f} ms wall (one stream: no event counted twice)")
     return {"device_ms": {k: v / 1e3 for k, v in fam.items()}, "wall_ms": wall * 1e3,
             "launches": launches, "counted": counted}
 
@@ -1368,9 +1416,10 @@ def plane_bytes(params, n_expert_used: int) -> tuple[float, float]:
 
 def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
           short: int | None = None, n_gen: int = 64, prefill_len: int | None = None,
-          graph: bool = False) -> dict:
+          graph: bool = False, engine=None, repeat: bool = True) -> dict:
     """Serves the GGUF at `path` through Engine: one warm-up generation,
-    then three prompts and the second again, `n_gen` greedy tokens each
+    then three prompts and the second again (not with `repeat` False),
+    `n_gen` greedy tokens each
     (the decode chunk as CUDA-graph replays); a profiled chunk of replays;
     launch counts against the expected count per
     forward of each MoE regime. The prompts are "hello world", its words
@@ -1379,7 +1428,9 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     of that many word tokens and 16 greedy tokens (16 decode steps) instead
     (a model cut to a few layers: its TTFT says little); with `prefill_len`
     as well, a profiled prefill of that many word tokens. With `graph`,
-    the graph phase (`graph_decode`) on the same engine."""
+    the graph phase (`graph_decode`) on the same engine. With `engine` (an
+    Engine already loaded from `path`), that engine on a new cache of `kv`
+    (its load and load peak are the caller's)."""
     import torch
 
     from tpullm_torch.ops.sampling_ops import SamplingParams
@@ -1391,12 +1442,17 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # just before the main path
-    eng = Engine(path, max_seq=4096, kv_dtype=kv)
-    load_peak = torch.cuda.max_memory_allocated() / 2**30
+    if engine is None:
+        eng = Engine(path, max_seq=4096, kv_dtype=kv)
+        load_peak = torch.cuda.max_memory_allocated() / 2**30
+    else:
+        eng = engine
+        eng.new_cache(kv_dtype=kv)
+        load_peak = None  # the caller's
     resident, per_token = plane_bytes(eng.params, max(eng.hp.n_expert_used, 1))
     log(f"[{label}] kv={kv_name}: {eng.hp.n_layer} layers loaded in {eng.perf.t_load_s:.1f}s "
-        f"(peak memory {load_peak:.2f} GiB); "
-        f"planes resident {resident / 2**30:.2f} GiB; one decode token streams "
+        + (f"(peak memory {load_peak:.2f} GiB); " if load_peak is not None else "(before); ")
+        + f"planes resident {resident / 2**30:.2f} GiB; one decode token streams "
         f"{per_token / 1e9:.3f} GB of planes, a bound of "
         f"{per_token / PEAK_BYTES * 1e3:.3f} ms per token")
     tok = eng.tokenizer
@@ -1423,10 +1479,11 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     # one short generation first, at the prompts' chunk: lazy set-up
     # (allocator, first launches, the decode graph's capture) is paid once
     # per process, not per request
+    n_decode = eng.perf.n_decode  # a passed engine's earlier steps aside
     eng.generate_tokens_device(prompts[0], 8, temp=0.0, stop_on_eog=False, chunk=chunk)
-    count(len(prompts[0]), eng.perf.n_decode)
+    count(len(prompts[0]), eng.perf.n_decode - n_decode)
     per_prompt = []
-    for i, ids in enumerate(prompts if short else prompts + [prompts[1]]):
+    for i, ids in enumerate(prompts if short or not repeat else prompts + [prompts[1]]):
         eng.reset()
         p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
         out = eng.generate_tokens_device(ids, n_gen, temp=0.0, stop_on_eog=False, chunk=chunk)
@@ -1441,7 +1498,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
             f"TTFT {ttft * 1e3:.1f} ms ({len(ids) / ttft:.1f} tok/s prefill), decode "
             f"{dec_n / dec_s:.2f} tok/s over {dec_n} steps, first ids {out[:6]}, text "
             f"{tok.detokenize(out[:12])!r}")
-    if not short:
+    if not short and repeat:
         expect(per_prompt[3]["out"] == per_prompt[1]["out"], "greedy output is deterministic")
     prof = profile_decode(eng, eng.decode_runner(SamplingParams(), chunk), prompts[0], chunk)
     count(len(prompts[0]), prof["steps"])
@@ -1499,6 +1556,7 @@ def serve(label: str, path, kv, launches: dict, lens: tuple | None = None,
     if not short:
         run["pp512_tok_s"] = 512 / per_prompt[2]["ttft_s"]
     del eng
+    gc.collect()  # an engine and its graph runners refer to each other
     torch.cuda.empty_cache()
     return run
 
@@ -1694,7 +1752,6 @@ def run_tool(main, argv: list[str], stdin: str | None = None) -> tuple[int, str,
     the allocator's cache emptied. Returns (exit code, stdout, stderr,
     seconds)."""
     import contextlib
-    import gc
     import io
 
     import torch
@@ -1814,7 +1871,6 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     are read over the whole phase, the flash f16 and f32 kernels' among
     them."""
     import ast
-    import gc
     import re
 
     import torch
@@ -2142,23 +2198,16 @@ def _profile_step(eng, prompt: list[int], steps: int = 8) -> dict:
     return {k: v / 1e3 / steps for k, v in fam.items()}
 
 
-def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int) -> dict:
+def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int,
+                   refs: tuple | None = None) -> dict:
     """Each slot s of the BatchEngine prefills prompts[s] (one joint round)
     and is fed, step by step in one batched step, the greedy ids of the
     single-stream Engine on the same prompt; each slot's logits held
     against Engine's (prefill, then decode_step) within SERVE_NMSE_BOUND.
     Reports the greedy ids that agree, and where they part, the step and
-    Engine's top-2 margin."""
-    ref_logits, ref_ids = [], []
-    for p in prompts:
-        single.reset()
-        rows = [single.prefill(p)]
-        ids = [int(np.argmax(rows[0]))]
-        for _ in range(steps):
-            rows.append(single.decode_step(ids[-1]))
-            ids.append(int(np.argmax(rows[-1])))
-        ref_logits.append(rows)
-        ref_ids.append(ids)
+    Engine's top-2 margin. `refs`: Engine's (logits, ids) from
+    engine_refs, taken before (`single` is then not used)."""
+    ref_logits, ref_ids = refs or engine_refs(single, prompts, steps)
     for s in range(eng.n_slots):
         eng.free_slot(s)
     got = eng.prefill_slots(dict(enumerate(prompts)))
@@ -2185,6 +2234,22 @@ def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int
     return dict(worst_nmse=worst, ids_agree=agree, positions=n, parted=parted)
 
 
+def engine_refs(single, prompts: list[list[int]], steps: int) -> tuple[list, list]:
+    """The single-stream Engine's logits (prefill, then `steps` decode
+    steps) and greedy ids on each prompt, for teacher_forced."""
+    ref_logits, ref_ids = [], []
+    for p in prompts:
+        single.reset()
+        rows = [single.prefill(p)]
+        ids = [int(np.argmax(rows[0]))]
+        for _ in range(steps):
+            rows.append(single.decode_step(ids[-1]))
+            ids.append(int(np.argmax(rows[-1])))
+        ref_logits.append(rows)
+        ref_ids.append(ids)
+    return ref_logits, ref_ids
+
+
 def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     """Continuous batching on the 8B Q4_K_M (full depth; the slice's file):
     tpullm-torch-server's app (BatchEngine of SERVE_SLOTS slots, context
@@ -2199,8 +2264,6 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     4 slots (one joint prefill round, SERVE_STEPS batched steps
     teacher-forced against its Engine: the gather regime); and
     tpullm-torch-batched-bench -npp 128 -ntg 64 -npl 1,2,4,8 on the 8B."""
-    import gc
-
     import torch
 
     from tpullm_torch.runtime.batch_engine import BatchEngine
@@ -2409,6 +2472,155 @@ def phase_verify_kernels(dev, results: dict, verify: dict):
             results["qmm_tc" if tc else key].append(row)
             verify.setdefault("qmm_tc" if tc else key, []).append(row)
         del planes, w_lib, x
+    torch.cuda.empty_cache()
+
+
+# Qwen3-30B-A3B's experts: 128 of them, gate and up 2048 → 768, down 768 → 2048
+QWEN_EXPERTS = 128
+QWEN_EXPERT_SHAPES = (("Q4_K", "gate", 2048, 768), ("Q6_K", "down", 768, 2048))
+QWEN_GATHER_TOKENS = (1, 4, 16)  # tokens whose top-8 the gather takes: T = 8, 32, 128 rows
+QWEN_TOP_K = 8
+# the GQA shapes of the Qwen phase: Qwen3-30B-A3B's 32 heads over 4 (a group of 8) and
+# Qwen2.5-7B's 28 over 4 (a group of 7: decode rows T·7 cross DECODE_ROWS at T = 3)
+QWEN_HEADS = ((32, 4), (28, 4))
+# the Qwen 2-D linears at their Q4_K_M types (fused as the loader fuses them
+# where the types agree): Qwen2.5-7B's at K = 3584 (14 chunks of 256) and
+# its down at K = 18944 (74 chunks: split unevenly below 16 rows; Q6_K or
+# Q4_K by layer), its head; Qwen3-30B-A3B's fused qkv, wo and head
+QWEN_QMM_SHAPES = (("Q4_K", "qwen2.5-7b qkv", 3584, 4608), ("Q4_K", "qwen2.5-7b wo", 3584, 3584),
+                   ("Q4_K", "qwen2.5-7b gate_up", 3584, 37888),
+                   ("Q6_K", "qwen2.5-7b down", 18944, 3584),
+                   ("Q4_K", "qwen2.5-7b down", 18944, 3584),
+                   ("Q6_K", "qwen2.5-7b head", 3584, 152064),
+                   ("Q4_K", "qwen3-30b-a3b qkv", 2048, 5120),
+                   ("Q4_K", "qwen3-30b-a3b wo", 4096, 2048),
+                   ("Q6_K", "qwen3-30b-a3b head", 2048, 151936))
+QWEN_QMM_ROWS = (1, 512)
+
+
+def phase_qwen_kernels(dev, results: dict, qwen: dict):
+    """The kernels at the Qwen shapes, each against its plain version and
+    timed as in phase 3: qmm_gather over QWEN_EXPERTS experts (Q4_K gate
+    2048 → 768, Q6_K down 768 → 2048) at 1, 4 and 16 tokens' top-8 (T = 8,
+    32 and 128 rows: the bit-set path of csrc/qmm_moe.cu, past 32 experts),
+    and ids outside 0..E-1 giving NaN rows; qmm_stack over the 128 experts
+    at M = 512 (the gate on a shared x, the down on each expert's own x);
+    qmm at QWEN_QMM_SHAPES, M in QWEN_QMM_ROWS (the CUDA-core kernel at 1,
+    the tensor-core kernel at 512; one launch of the regime's counter a
+    call, its K split logged);
+    flash at D = 128 with H / Hkv of QWEN_HEADS, bf16 and q8 caches: the
+    decode regime at T = 1 (B = 2, kv 38 / 3001), the prefill regime at T =
+    512 (offsets 0 / 2500), and for the group of 7 T = 2 (14 rows: decode)
+    and T = 3 (21 rows: prefill) at offset 2500. Rows go to `results` (the
+    kernels line's errors) and to `qwen` by kernel."""
+    import torch
+
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import qmatmul
+    from tpullm_torch.ops.kernels import qmm
+
+    gen = torch.Generator(dev).manual_seed(16)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for fmt, name, K, N in QWEN_QMM_SHAPES:
+        gtype = GGMLType[fmt]
+        planes = _random_planes(gtype, N, K, gen, dev)
+        plane_b = sum(t.numel() * t.element_size() for t in planes.values())
+        w_lib = qmatmul.dequant_planes(planes, gtype, N, K, dtype=torch.bfloat16)
+        for M in QWEN_QMM_ROWS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            tc = M >= qmm.TC_MIN_M
+            tm, split, per = (qmm.plan if tc else qmm.gemv_plan)(M, K, N, n_sm)
+            before = (qmm.LAUNCHES[fmt], qmm.TC_LAUNCHES[fmt])
+            qmm.qmm(x, planes, gtype, N, K)
+            torch.cuda.synchronize()
+            expect((qmm.LAUNCHES[fmt], qmm.TC_LAUNCHES[fmt])
+                   == (before[0] + (not tc), before[1] + tc),
+                   f"qmm {fmt} {name} M={M}: one launch of the {'tensor' if tc else 'CUDA'}-core "
+                   "kernel")
+            key = "qmm_tc" if tc else QMM_KEYS[fmt]
+            row = _held_row(
+                "qwen", key, f"{fmt} {name} K={K} N={N} M={M} (K split {split} × {per} chunks)",
+                lambda: qmm.qmm(x, planes, gtype, N, K),
+                lambda: qmm.qmm_reference(x, planes, gtype, N, K),
+                lambda: torch.matmul(x, w_lib),
+                M * K * 2 + plane_b + M * N * 2, 2.0 * M * K * N, 5 if tc else 20)
+            results.setdefault(key, []).append(row)
+            qwen.setdefault(key, []).append(row)
+        del planes, w_lib, x
+        torch.cuda.empty_cache()
+    E, M = QWEN_EXPERTS, 512
+    for fmt, name, K, N in QWEN_EXPERT_SHAPES:
+        gtype = GGMLType[fmt]
+        planes = _random_stack(gtype, N, K, gen, dev, n_expert=E)
+        expert_b = sum(t.numel() * t.element_size() for t in planes.values()) / E
+        w_lib = torch.stack([qmatmul.dequant_planes({k: v[e] for k, v in planes.items()},
+                                                    gtype, N, K, dtype=torch.bfloat16)
+                             for e in range(E)])  # [E, K, N]
+        rows = []
+        for n_tok in QWEN_GATHER_TOKENS:
+            T = n_tok * QWEN_TOP_K  # each token's top-8: distinct experts
+            x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+            ids = torch.stack([torch.randperm(E, generator=gen, device=dev)[:QWEN_TOP_K]
+                               for _ in range(n_tok)]).reshape(T).int()
+            n_unique = int(torch.unique(ids).numel())
+            rows.append(("qmm_gather", _held_row(
+                "qwen", "qmm_gather", f"{fmt} {name} E={E} T={T} ({n_tok} tokens × top-8)",
+                lambda x=x, ids=ids: qmm.qmm_gather(x, ids, planes, gtype, N, K),
+                lambda x=x, ids=ids: qmm.qmm_gather_reference(x, ids, planes, gtype, N, K),
+                lambda x=x, ids=ids: torch.bmm(x[:, None, :], w_lib[ids.long()])[:, 0],
+                x.numel() * 2 + T * 4 + n_unique * expert_b + T * N * 2, 2.0 * T * K * N,
+                20 if T < 128 else 5)))
+        # ids outside 0..E-1 give NaN rows past 32 experts too
+        x = torch.randn(40, K, generator=gen, device=dev).to(torch.bfloat16)
+        ids = torch.randint(0, E, (40,), generator=gen, device=dev, dtype=torch.int32)
+        ids[3], ids[17] = E, -1
+        valid = (ids >= 0) & (ids < E)
+        got = qmm.qmm_gather(x, ids, planes, gtype, N, K)
+        ref = qmm.qmm_gather_reference(x[valid], ids[valid], planes, gtype, N, K)
+        torch.cuda.synchronize()
+        err = nmse(got[valid].float(), ref.float())
+        expect(bool(torch.isnan(got[~valid].float()).all()),
+               f"qmm_gather {fmt} {name} E={E}: NaN rows for ids outside the stack")
+        expect(err <= QMM_NMSE_BOUND, f"qmm_gather {fmt} {name} E={E} beside invalid ids: "
+               f"NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+        log(f"[qwen] qmm_gather {fmt} {name} E={E} T=40, ids {E} and -1 at rows 3, 17: NaN "
+            f"rows; the others nmse {err:.2e}")
+        shared = name == "gate"  # ops/moe.py feeds the gate x, the down each expert's own
+        x = torch.randn(*((M, K) if shared else (E, M, K)), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        rows.append(("qmm_stack", _held_row(
+            "qwen", "qmm_stack", f"{fmt} {name} E={E} M={M} {'shared' if shared else 'batched'}",
+            lambda: qmm.qmm_stack(x, planes, gtype, N, K),
+            lambda: qmm.qmm_stack_reference(x, planes, gtype, N, K),
+            lambda: torch.matmul(x, w_lib),
+            x.numel() * 2 + E * expert_b + E * M * N * 2, 2.0 * E * M * K * N, 3)))
+        for key, row in rows:
+            results[key].append(row)
+            qwen.setdefault(key, []).append(row)
+        del planes, w_lib, x
+        torch.cuda.empty_cache()
+    for H, Hkv in QWEN_HEADS:
+        for fmt, key in (("bf16", "flash_bf16"), ("q8", "flash_q8")):
+            bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+            cases = [(1, (37, 3000)), (512, (0, 2500))]
+            if H // Hkv == 7:
+                cases += [(2, (2500,)), (3, (2500,))]
+            for T, offsets in cases:
+                row = _flash_case(dev, gen, fmt=fmt, B=len(offsets), T=T, H=H, Hkv=Hkv, D=128,
+                                  S=4096, offsets=offsets, timed=True)
+                row["case"] = f"{fmt} T={T} B={len(offsets)} H={H}/{Hkv} offsets {list(offsets)}"
+                expect(row["finite"], f"flash {row['case']}: finite")
+                expect(row["regime"] == ("decode" if T * H // Hkv <= 16 else "prefill"),
+                       f"flash {row['case']}: the {row['regime']} regime")
+                expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                       f"flash {row['case']} NMSE {row['nmse']:.3e}, own order "
+                       f"{row['nmse_own_order']:.3e} <= {bound}")
+                results[key].append(row)
+                qwen.setdefault(key, []).append(row)
+                log(f"[qwen] {key} {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} (own "
+                    f"order {row['nmse_own_order']:.2e}) kernel {row['ms']:.4f} ms bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain {row['plain_ms']:.3f} "
+                    f"ms sdpa {row['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -2680,8 +2892,6 @@ def phase_speculative(path: Path, tmp: Path, launches: dict) -> dict:
     each verify graph's launches a replay, one verify step's launches read
     around it, and a verify step's ms against a decode step's; (e)
     tpullm-torch-lookup create, stats and run."""
-    import gc
-
     import torch
 
     from tpullm_torch.runtime.batch_engine import BatchEngine
@@ -3009,9 +3219,9 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
        ring three prefill chunks), each prefilled cold and warm with its
        forwards' ms, then 64 greedy tokens each on the decode graph; TTFT
        (warm), decode tok/s; launches of a decode replay and of a
-       prefill forward (the ring: flash 5, attention_ring 29; otherwise
-       flash 34); a decode token's device time by family, attention_ring's
-       share timed as its call at the decode shape; the ring engine also
+       prefill forward (the ring: flash on the global layers, attention_ring
+       on the others; otherwise flash on every layer); a decode token's
+       device time by family, attention_ring's share timed as its call at the decode shape; the ring engine also
        runs f16 and f32 rings (flash at D = 256 on every cache format);
     3. ring against swa_full, teacher-forced on the ring's greedy ids over
        the 2560-token prompt: logits NMSE ≤ GEMMA_RING_NMSE_BOUND; each
@@ -3262,17 +3472,20 @@ DS2_SLOTS = 4
 DS2_TEACHER = 32  # teacher-forced positions against dense weights (after the 512 prompt)
 
 
-def ds2_launch_want(eng, rows: int) -> dict:
-    """One deepseek2 forward's launches by COUNT_NAMES at `rows` rows (1: a
-    decode step): every quantized 2-D linear the kernels take through qmm
-    (qmm_tc from 16 rows but the head, on the last row), the others (the
-    dense lead's K = 10944 down) through the dequantize route; the packed
-    expert stacks through qmm_gather (≤ 16 rows) or qmm_stack, the dense
-    ones (K = 1408 down) through no kernel; flash's latent form once a
-    layer in the regime T·H/Hkv picks."""
+def moe_launch_want(eng, rows: int) -> dict:
+    """One MoE forward's launches by COUNT_NAMES at `rows` rows (1: a
+    decode step; deepseek2 and the qwen-moe graph): every quantized 2-D
+    linear the kernels take through qmm (qmm_tc from 16 rows but the head,
+    on the last row), the others (deepseek2's dense lead's K = 10944 down)
+    through the dequantize route; the packed expert stacks through
+    qmm_gather (≤ 16 rows) or qmm_stack, the dense ones (deepseek2's K =
+    1408 down) through no kernel; flash once a layer in the regime
+    T·H/kv_heads picks (the engine's cache: the MLA latent one KV head,
+    else hp.n_head_kv)."""
     from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
     from tpullm_torch.ops import moe
     from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.kvcache import MLACache
 
     def base(m):
         return m.base if isinstance(m, FusedLinear) else m
@@ -3284,8 +3497,9 @@ def ds2_launch_want(eng, rows: int) -> dict:
                  for m in layer.values())
     tc = rows >= qmm.TC_MIN_M
     gather = rows <= moe._GATHER_MAX_TOKENS
-    decode = flash.regime(rows, eng.hp.n_head, 1) == "decode"
-    L = eng.hp.n_layer
+    kv_heads = 1 if isinstance(eng.cache, MLACache) else eng.hp.n_head_kv
+    decode = flash.regime(rows, eng.hp.n_head, kv_heads) == "decode"
+    L = len(eng.params["layers"])
     return {"qmm": (0 if tc else taken) + 1, "qmm_tc": taken if tc else 0,
             "qmm_stack": 0 if gather else stacks, "qmm_gather": stacks if gather else 0,
             "qmm_grouped": 0, "dequant_routes": len(quant) - taken, "flash": L,
@@ -3297,7 +3511,7 @@ def ds2_run(label: str, eng, word_ids) -> dict:
     DS2_LENS prefilled cold and warm with each forward's ms; each prompt and
     DS2_GEN greedy tokens on the decode graph: TTFT (warm), decode tok/s;
     the launches of a decode replay and of a 512-token prefill forward
-    against ds2_launch_want; a decode token's and a 512-token prefill's
+    against moe_launch_want; a decode token's and a 512-token prefill's
     device ms by family."""
     import torch
 
@@ -3323,7 +3537,7 @@ def ds2_run(label: str, eng, word_ids) -> dict:
             f"{rate:.2f} tok/s (graph), first ids {ids[:6]}")
     runner = eng.decode_runner(SamplingParams(), 32)
     one = runner.launches_per_replay()
-    want = ds2_launch_want(eng, 1)
+    want = moe_launch_want(eng, 1)
     log(f"[deepseek2] {label} launches per decode replay {one}")
     expect(one == want, f"deepseek2 {label}: launches per decode replay {one} = {want}")
     eng.reset()
@@ -3331,7 +3545,7 @@ def ds2_run(label: str, eng, word_ids) -> dict:
     eng.prefill(word_ids(512))
     torch.cuda.synchronize()
     got = _launch_delta(snap)
-    want = ds2_launch_want(eng, 512)
+    want = moe_launch_want(eng, 512)
     log(f"[deepseek2] {label} launches of one 512-token prefill forward {got}")
     expect(got == want, f"deepseek2 {label}: one prefill forward's launches {got} = {want}")
     out["launches_per_decode"], out["launches_per_prefill"] = one, got
@@ -3357,7 +3571,7 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
     1. Engine on the bf16 latent at context 4096 (ds2_run): load s and peak
        GiB, prompts of 512 and 2560 tokens cold and warm, 64 greedy tokens
        each on the decode graph, TTFT (warm), decode tok/s, launches per
-       forward (flash's latent form 27 a forward in both regimes, the
+       forward (flash's latent form once a layer in both regimes, the
        expert kernels of the packed gate/up stacks, one dequantize-route
        call: the dense lead's K = 10944 down), device ms by family;
     2. the latent's bytes a position against the decompressed cache's;
@@ -3380,6 +3594,7 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
     path = synthesize(tmp, "deepseek2", "deepseek-v2-lite", "Q4_K_M")
     result: dict = {}
     reset_launches()  # just before the main path
+    gc.collect()  # earlier phases' engines and graph runners, in reference cycles
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()  # what earlier phases still hold
     torch.cuda.reset_peak_memory_stats()
@@ -3476,6 +3691,172 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     result["launches"] = got
+    path.unlink()
+    return result
+
+
+QWEN_CTX = 4096  # max_seq
+# prompts of the Qwen3-30B-A3B serve: 16 tokens (a gather-regime prefill: 128
+# rows of qmm_gather), 2560 (one forward at the 4096 bucket, every expert on
+# every token) and 512, then on the bf16 cache 2560 again (warm, and the
+# determinism check)
+QWEN_LENS = (16, 2560, 512)
+QWEN_SLOT_LENS = (40, 200, 500)  # the BatchEngine round's prompts (its slot 3 idle)
+QWEN_TEACHER = 8  # teacher-forced batched steps against Engine
+QWEN7B_LAYERS = 4  # Qwen2.5-7B's depth on the card (full width)
+QWEN_TEACHER_7B = 16  # its positions teacher-forced against dense weights
+
+
+def phase_qwen(tmp: Path, launches: dict) -> dict:
+    """The Qwen families (arch qwen3moe, the qwen-moe graph; arch qwen2, an
+    alias of the llama graph), synthesized from seed 0 on Qwen's BPE (pre
+    "qwen2"):
+    1. tiny-qwen3moe (a 30-token prompt: every expert; a 7-token one, q8:
+       the gather), tiny-qwen2moe and tiny-qwen2 on the card against the
+       CPU (tiny_card_vs_cpu);
+    2. Qwen3-30B-A3B Q4_K_M at full width and depth (48 layers, n_embd 2048,
+       32 heads over 4 of 128, 128 experts top-8 of 768, vocab 151936): the
+       bytes earlier phases leave on the card, load s and peak GiB above
+       them, the planes a decode token streams; `serve` on a bf16 and on a
+       q8 cache (prompts QWEN_LENS, 64 greedy tokens each on the decode
+       graph: TTFT, decode tok/s, launches per regime, device ms by family
+       of a decode token and of a 512-token prefill); a decode replay's and
+       a 512-token prefill forward's launches against moe_launch_want;
+    3. a BatchEngine of 4 slots, slot 3 idle, teacher-forced on Engine's
+       greedy ids (its references taken before the Engine is released);
+    4. no call through the dequantize or the dense attention route in the
+       phase (qmm.DEQUANT_ROUTES and flash.ATTN_DENSE_ROUTES do not move);
+    5. Qwen2.5-7B Q4_K_M at full width, QWEN7B_LAYERS layers: `serve` (a
+       512-token prompt, 16 greedy tokens, a profiled prefill); then the
+       kernels at its shapes (K = 3584 and 18944, q/k/v biases) against
+       dense bf16 weights, teacher-forced on QWEN_TEACHER_7B positions of
+       the packed engine's greedy ids after a 512-token prompt: logits
+       within SERVE_NMSE_BOUND and the same argmax."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+
+    result: dict = {}
+    reset_launches()  # just before the main path (each serve resets them again)
+    long = " ".join(["the quick brown fox jumps over the lazy dog hello world"] * 3)
+    for shape, kv, prompt in (("tiny-qwen3moe", torch.bfloat16, long),
+                              ("tiny-qwen3moe", "q8_0", "hello world the quick fox"),
+                              ("tiny-qwen2moe", torch.bfloat16, long),
+                              ("tiny-qwen2", torch.bfloat16, long)):
+        gpu, cpu = tiny_card_vs_cpu("qwen", tmp, shape, "Q4_K_M", kv, prompt)
+        del gpu, cpu
+
+    def expect_no_routes(label):
+        expect(not any(qmm.DEQUANT_ROUTES.values()) and not any(flash.ATTN_DENSE_ROUTES.values()),
+               f"{label}: no dequantize-route or dense-attention call since the counts were set "
+               f"to 0 ({qmm.DEQUANT_ROUTES}, {flash.ATTN_DENSE_ROUTES})")
+    expect_no_routes("qwen tiny")
+
+    path = synthesize(tmp, "qwen", "qwen3-30b-a3b", "Q4_K_M", vocab="bpe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    log(f"[qwen] the card holds {base / 2**30:.2f} GiB of earlier phases' tensors before the "
+        f"load")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(path, max_seq=QWEN_CTX)
+    load_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hp = eng.hp
+    resident, per_token = plane_bytes(eng.params, hp.n_expert_used)
+    log(f"[qwen] {hp.arch}: {hp.n_layer} layers, n_embd {hp.n_embd}, {hp.n_head} heads over "
+        f"{hp.n_head_kv} of {hp.head_dim}, experts {hp.n_expert} top-{hp.n_expert_used} of "
+        f"{hp.n_ff_exp}, vocab {hp.n_vocab}, rope {hp.rope.style} θ {hp.rope.freq_base}; "
+        f"loaded in {eng.perf.t_load_s:.1f}s, peak {load_peak:.2f} GiB above the baseline; "
+        f"{eng.report()}; planes resident {resident / 2**30:.2f} GiB, a decode token streams "
+        f"{per_token / 1e9:.3f} GB (bound {per_token / PEAK_BYTES * 1e3:.3f} ms)")
+    expect(hp.arch == "qwen3moe" and hp.rope.style == "neox" and hp.n_expert == 128,
+           "qwen: Qwen3-30B-A3B's hparams (qwen3moe, NEOX RoPE, 128 experts)")
+    result.update(load_s=eng.perf.t_load_s, load_peak_gib=load_peak, baseline_gib=base / 2**30,
+                  resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
+                  decode_bound_ms=per_token / PEAK_BYTES * 1e3)
+
+    runs = []
+    for kv in (torch.bfloat16, "q8_0"):
+        run = serve("qwen3-30b-a3b", path, kv, launches, lens=QWEN_LENS, engine=eng,
+                    repeat=kv is torch.bfloat16)
+        expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0,
+               f"qwen {run['kv']}: qmm_stack and qmm_gather launched")
+        runs.append(run)
+        one = eng.decode_runner(SamplingParams(), 32).launches_per_replay()
+        want = moe_launch_want(eng, 1)
+        log(f"[qwen] kv={run['kv']} launches per decode replay {one}")
+        expect(one == want, f"qwen {run['kv']}: launches per decode replay {one} = {want}")
+        eng.reset()
+        snap = _snapshot()
+        eng.prefill(_word_ids(eng.tokenizer, QWEN_LENS[2]))
+        torch.cuda.synchronize()
+        got = _launch_delta(snap)
+        want = moe_launch_want(eng, QWEN_LENS[2])
+        log(f"[qwen] kv={run['kv']} launches of one {QWEN_LENS[2]}-token prefill forward {got}")
+        expect(got == want, f"qwen {run['kv']}: one prefill forward's launches {got} = {want}")
+        run.update(launches_per_decode=one, launches_per_prefill=got)
+    result["runs"] = runs
+
+    prompts = [_word_ids(eng.tokenizer, n) for n in QWEN_SLOT_LENS]
+    eng.new_cache(kv_dtype=torch.bfloat16)
+    refs = engine_refs(eng, prompts, QWEN_TEACHER)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the batched path
+    be = BatchEngine(path, n_slots=4, max_seq=QWEN_CTX, prefill_chunk=512)
+    be.precompile()
+    result["serving"] = teacher_forced("qwen serving", be, None, prompts, QWEN_TEACHER,
+                                       refs=refs)
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = read_launches()  # just after the batched path
+    log(f"[qwen] launches of the BatchEngine round (3 slots fed, 1 idle) {got}")
+    expect(got["qmm_stack"] > 0 and got["qmm_gather"] > 0 and got["flash_bf16.decode"] > 0
+           and got["flash_bf16"] > got["flash_bf16.decode"],
+           "qwen serving: qmm_stack (the joint round), qmm_gather and flash's decode regime "
+           "(the batched steps) and its prefill regime launched")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["serving"]["launches"] = got
+    expect_no_routes("qwen serving")
+    path.unlink()
+
+    path = synthesize(tmp, "qwen", "qwen2.5-7b", "Q4_K_M", n_layer=QWEN7B_LAYERS, vocab="bpe")
+    result["qwen2.5-7b"] = serve(f"qwen2.5-7b-{QWEN7B_LAYERS}l", path, torch.bfloat16, launches,
+                                 short=512, prefill_len=512)
+    eng = Engine(path, max_seq=QWEN_CTX)
+    prompt = _word_ids(eng.tokenizer, 512)
+    ids = eng.generate_tokens_device(prompt, QWEN_TEACHER_7B, temp=0.0, stop_on_eog=False,
+                                     chunk=QWEN_TEACHER_7B)
+    expect(len(ids) == QWEN_TEACHER_7B, f"qwen2.5-7b: {len(ids)} greedy ids")
+    packed_rows = _teacher_logits(eng, prompt, ids)
+    del eng
+    dense = Engine(path, max_seq=QWEN_CTX, mode="dense")
+    dense_rows = _teacher_logits(dense, prompt, ids)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [_nmse_np(a, b) for a, b in zip(packed_rows, dense_rows)]
+    same = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(packed_rows, dense_rows))
+    margins = [float(np.diff(np.sort(b)[-2:])[0]) for b in dense_rows]
+    result["qwen2.5-7b"]["dense"] = dict(worst=max(errs), mean=float(np.mean(errs)),
+                                         same_top=same, positions=len(ids),
+                                         min_margin=min(margins))
+    log(f"[qwen2.5-7b] the kernels against dense bf16 weights, teacher-forced on {len(ids)} "
+        f"positions after a 512-token prompt: NMSE worst {max(errs):.2e} mean "
+        f"{np.mean(errs):.2e}, same argmax {same}/{len(ids)} (dense top-2 margin at least "
+        f"{min(margins):.3g})")
+    expect(all(np.isfinite(r).all() for r in packed_rows + dense_rows),
+           "qwen2.5-7b: finite logits, packed and dense")
+    expect(max(errs) <= SERVE_NMSE_BOUND,
+           f"qwen2.5-7b: NMSE against dense weights {max(errs):.3e} <= {SERVE_NMSE_BOUND}")
+    expect(same == len(ids), f"qwen2.5-7b: greedy ids equal dense weights' ({same}/{len(ids)})")
+    expect_no_routes("qwen2.5-7b")
     path.unlink()
     return result
 
@@ -3681,6 +4062,8 @@ def main() -> int:
     timed("batched kernels", phase_batched_kernels, dev, results, batched)
     verify: dict = {}
     timed("verify kernels", phase_verify_kernels, dev, results, verify)
+    qwen: dict = {}
+    timed("qwen kernels", phase_qwen_kernels, dev, results, qwen)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
@@ -3694,10 +4077,11 @@ def main() -> int:
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
         gemma = timed("gemma", phase_gemma, Path(tmp), launches)
         ds2 = timed("deepseek2", phase_deepseek2, Path(tmp), launches)
+        qwen_run = timed("qwen", phase_qwen, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
                                         "speculative": spec, "gemma": gemma,
-                                        "deepseek2": ds2}))
+                                        "deepseek2": ds2, "qwen": qwen_run}))
     for fmt in FLASH_FORMATS:
         launches[f"flash_{fmt}_d256"] = (launches[f"flash_{fmt}.d256.decode"]
                                          + launches[f"flash_{fmt}.d256.prefill"])
@@ -3805,8 +4189,9 @@ def main() -> int:
             entry["launched_through"] = ["qmm_stack", "qmm_gather"]
             entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
                                  + launches.get("qmm_gather.MXFP4", 0))
-        for name, rows_by_key in (("batched", batched), ("verify", verify)):
-            # the shapes of continuous batching and of speculative verification
+        for name, rows_by_key in (("batched", batched), ("verify", verify), ("qwen", qwen)):
+            # the shapes of continuous batching, of speculative verification
+            # and of the Qwen models
             if key in rows_by_key:
                 entry[name] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")}

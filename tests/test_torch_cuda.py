@@ -6,6 +6,7 @@ without an NVIDIA GPU; on a machine with one:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +28,8 @@ FORMATS = ["Q4_K", "Q6_K", "Q5_K", "Q8_0", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP
 QMM_NMSE_BOUND = 5e-4
 FLASH_NMSE_BOUND = 2e-3
 FLASH_Q8_NMSE_BOUND = 5e-3
+# host time around a profiled step's calls (chip_smoke.py's PROFILE_MARGIN_S)
+PROFILE_MARGIN_S = 0.005
 
 
 @pytest.fixture
@@ -350,8 +353,11 @@ def test_qmm_grouped_below_16_rows_at_every_split(dev, name, M):
 def _kernel_names(fn, calls: int = 3) -> list[str]:
     """The qmm kernels that `calls` calls of fn launch, by the profiler's
     names, each with its launch count. The calls are profiled in the active
-    step of a schedule after a warm-up step of the same calls (a profile
-    that starts with them can miss their first kernels)."""
+    step of a schedule after a warm-up step of the same calls, with
+    PROFILE_MARGIN_S of host time before the first call and after the last
+    kernel ends (a profile that starts with them, or a step that ends at
+    the last kernel, can miss a kernel: on the H100 one of three
+    qmm_gather_kernel events went missing once)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     names: list[str] = []
@@ -364,9 +370,11 @@ def _kernel_names(fn, calls: int = 3) -> list[str]:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         for _ in range(2):
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
             prof.step()
     return names
 
@@ -1449,3 +1457,161 @@ def test_speculative_server_on_the_card(dev, tmp_path):
         assert sched.n_spec_drafted > 0
         assert all(r.graph is not None for r in eng._verify_runners.values())
         assert sorted(eng._verify_runners) == [(1, 5), (2, 5), (3, 5)]
+
+
+# ---------------------------------------------------------------------------
+# the Qwen shapes: 128 experts top-8, GQA groups of 8 and 7
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [8, 32, 128])
+@pytest.mark.parametrize("name,K,N", [("Q4_K", 2048, 768), ("Q6_K", 768, 2048)],
+                         ids=["gate", "down"])
+def test_qmm_gather_at_128_experts(dev, name, K, N, T):
+    """Qwen3-30B-A3B's expert stacks (128 experts; gate 2048 → 768, down
+    768 → 2048) through the gather at T / 8 tokens' top-8: the bit-set
+    path past 32 experts, one launch; ids 128 and −1 give NaN rows, the
+    others their expert's product."""
+    E = 128
+    stack = _stack(name, E, N, K, dev, seed=T)
+    g = torch.Generator(dev).manual_seed(T)
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.stack([torch.randperm(E, generator=g, device=dev)[:8]
+                       for _ in range(T // 8)]).reshape(T).int()
+    before = qmm.GATHER_LAUNCHES[name]
+    got = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    assert qmm.GATHER_LAUNCHES[name] == before + 1
+    ref = qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, N, K)
+    assert torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+    ids[1], ids[-1] = E, -1
+    valid = (ids >= 0) & (ids < E)
+    got = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[~valid].float()).all()
+    assert _nmse(got[valid].float(), ref[valid].float()) <= QMM_NMSE_BOUND
+
+
+# the Qwen 2-D linears at their Q4_K_M types: Qwen2.5-7B's at K = 3584 and
+# 18944 (74 chunks of 256, split unevenly below 16 rows), Qwen3-30B-A3B's
+QWEN_QMM_SHAPES = [("Q4_K", 3584, 4608), ("Q4_K", 3584, 3584), ("Q4_K", 3584, 37888),
+                   ("Q6_K", 18944, 3584), ("Q4_K", 18944, 3584), ("Q6_K", 3584, 152064),
+                   ("Q4_K", 2048, 5120), ("Q4_K", 4096, 2048), ("Q6_K", 2048, 151936)]
+
+
+@pytest.mark.parametrize("M", [1, 512])
+@pytest.mark.parametrize("name,K,N", QWEN_QMM_SHAPES,
+                         ids=["7b-qkv", "7b-wo", "7b-gate_up", "7b-down-q6k", "7b-down-q4k",
+                              "7b-head", "30b-a3b-qkv", "30b-a3b-wo", "30b-a3b-head"])
+def test_qmm_at_qwen_shapes(dev, name, K, N, M):
+    """qmm at the Qwen 2-D shapes, a decode row (the CUDA-core kernel, K
+    split by gemv_plan) and a 512-token prefill (the tensor-core kernel):
+    one launch of the regime's kernel, within the bound of its plain
+    version."""
+    planes = _planes(name, N, K, dev, seed=K + N + M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    tc = M >= qmm.TC_MIN_M
+    before = qmm.LAUNCHES[name], qmm.TC_LAUNCHES[name]
+    got = qmm.qmm(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert (qmm.LAUNCHES[name], qmm.TC_LAUNCHES[name]) == (before[0] + (not tc),
+                                                           before[1] + tc)
+    ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["shared", "batched"])
+def test_qmm_stack_at_128_experts(dev, batched):
+    """qmm_stack over 128 experts at M = 512 (the gate on a shared x, the
+    down on each expert's own x, as ops/moe.py feeds them)."""
+    E, M = 128, 512
+    name, K, N = ("Q6_K", 768, 2048) if batched else ("Q4_K", 2048, 768)
+    stack = _stack(name, E, N, K, dev, seed=E + batched)
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(*((E, M, K) if batched else (M, K)), generator=g, device=dev)
+    x = x.to(torch.bfloat16)
+    got = qmm.qmm_stack(x, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    ref = qmm.qmm_stack_reference(x, stack.planes, stack.gtype, N, K)
+    assert got.shape == (E, M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T", [1, 2, 3, 512])
+@pytest.mark.parametrize("H,Hkv", [(32, 4), (28, 4)], ids=["group8", "group7"])
+def test_flash_at_qwen_heads(dev, H, Hkv, T, q8):
+    """Flash at D = 128 with Qwen3-30B-A3B's 32 heads over 4 and Qwen2.5-7B's
+    28 over 4 (a group of 7: T·7 rows cross the decode regime's 16 at
+    T = 3), kv lengths 37 / 3000 + T of S = 4096: the regime T·H/Hkv picks,
+    one launch, within the bound of its cache."""
+    kv = "q8" if q8 else "bf16"
+    kernel, plain, bound = _flash_inputs(dev, kv, 2, T, H, Hkv, 4096, 128, (37, 3000),
+                                         seed=H + T, extras=False)
+    decode = flash.regime(T, H, Hkv) == "decode"
+    assert decode == (T * (H // Hkv) <= 16)
+    before = flash.launch_total(kv), flash.launch_total(kv, "decode")
+    got = kernel()
+    torch.cuda.synchronize()
+    assert (flash.launch_total(kv), flash.launch_total(kv, "decode")) == \
+        (before[0] + 1, before[1] + decode)
+    assert torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), plain().float()) <= bound
+
+
+@pytest.mark.parametrize("shape", ["tiny-qwen3moe", "tiny-qwen2moe", "tiny-qwen2", "tiny-qwen3"])
+def test_qwen_engine_on_the_card_matches_the_cpu(dev, tmp_path, shape):
+    """The tiny Qwen shapes on the card against the CPU: a 30-token prompt's
+    and three decode steps' logits within NMSE 1e-3 (the MoE shapes: the
+    stack at the prompt, the gather at decode), the decode graph's greedy
+    ids equal; a replay's launches: every quantized linear through qmm,
+    the experts through the gather, flash once a layer in the decode
+    regime, no counted route."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    gpu, cpu = (Engine(path, device=d, max_seq=256) for d in (None, "cpu"))
+    ids = list(range(5, 35))
+    errs = [_nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+    for tok in (300, 17, 42):
+        errs.append(_nmse(torch.from_numpy(gpu.decode_step(tok)),
+                          torch.from_numpy(cpu.decode_step(tok))))
+    assert max(errs) <= 1e-3, errs
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 24, chunk=8) == \
+        cpu.generate_tokens_device(ids, 24, chunk=8)
+    one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
+    n_moe = 3 * gpu.hp.n_layer if gpu.hp.n_expert else 0
+    assert one["qmm_gather"] == n_moe and one["qmm_stack"] == 0
+    assert one["flash"] == one["flash_decode"] == gpu.hp.n_layer
+    assert one["dequant_routes"] == one["attn_dense_routes"] == 0
+
+
+def test_qwen3moe_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A BatchEngine of 3 slots on tiny-qwen3moe: a joint round (every
+    expert), batched steps with an idle slot (the gather), a freed slot
+    admitted again: per-slot logits within NMSE 1e-3 of the CPU's."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tq3m.gguf", shape="tiny-qwen3moe", seed=0)
+    gpu, cpu = (BatchEngine(path, device=d, n_slots=3, max_seq=256, prefill_chunk=32)
+                for d in (None, "cpu"))
+    prompts = {0: list(range(5, 100)), 2: list(range(7, 40))}
+    a, b = gpu.prefill_slots(prompts), cpu.prefill_slots(prompts)
+    errs = [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in prompts]
+    idle = gpu.cache.k[:, 1].clone()
+    for feed in ({0: 300, 2: 17}, {2: 18}, {0: 5, 2: 6}):
+        a, b = gpu.decode_batch(feed), cpu.decode_batch(feed)
+        errs += [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in feed]
+    assert torch.equal(gpu.cache.k[:, 1], idle)
+    gpu.free_slot(2)
+    cpu.free_slot(2)
+    a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
+    errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
+    assert max(errs) <= 1e-3, errs

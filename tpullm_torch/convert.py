@@ -10,8 +10,11 @@ QuantExpertStack-like objects (`n_expert` beside `planes`) become
 `DenseLinear`, and FusedLinear-like (`base`, `splits`) `FusedLinear`; both
 the fused (`wqkv`/`wgu`) and the unfused layout carry over, and dense
 expert stacks stay tensors. Any layer keys carry over as they are: the
-gemma tree's norms, and deepseek2's (`wk_b` / `wv_b` as tensors, the
-shared experts as linears, `exp_probs_b`, `wkv_b` None when absorbed).
+gemma tree's norms, deepseek2's (`wk_b` / `wv_b` as tensors, the shared
+experts as linears, `exp_probs_b`, `wkv_b` None when absorbed), and the
+qwen-moe tree's (`shexp_gate_inp` as a tensor, the shared experts as
+linears, the dense lead layers' linears, `exp_probs_b`; a key the JAX
+layer lacks stays absent, as the forwards read layers with `get`).
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def module_from_jax(obj, device):
 
 
 def params_from_jax(tree_np: dict, device) -> dict:
-    """The JAX llama param tree (numpy leaves) → the port's param dict."""
+    """A JAX param tree (numpy leaves) of a forward the port runs → the
+    port's param dict."""
     layers = [{k: module_from_jax(v, device) for k, v in layer.items()}
               for layer in tree_np["layers"]]
     return {

@@ -32,7 +32,6 @@ from __future__ import annotations
 import os
 
 import torch
-import torch.nn.functional as F
 
 from ..gguf.reader import GGUFReader
 from ..ops.attention import attention_cached
@@ -41,7 +40,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_angles, rope_angles
 from ..runtime import kvcache
 from .hparams import HParams
-from .llama import Params, finish, forward_offsets, router_logits
+from .llama import Params, dense_ffn, finish, forward_offsets, router_logits, silu_glu
 from .weights import (MODES, dense_weight, load_embedding, load_expert_stack, load_linear,
                       load_vector)
 
@@ -139,23 +138,6 @@ def build_params(r: GGUFReader, hp: HParams, device, dtype=torch.bfloat16,
     }
 
 
-def _silu_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.silu(gate.float()).to(up.dtype) * up
-
-
-def _dense_ffn(layer: dict, h: torch.Tensor) -> torch.Tensor:
-    """The lead layers' FFN: SwiGLU (gate and up fused where they share a
-    type), or plm's gateless ReLU²."""
-    if layer.get("wgu") is not None:
-        gate, up = layer["wgu"](h)
-    elif layer["w_gate"] is not None:
-        gate, up = layer["w_gate"](h), layer["w_up"](h)
-    else:
-        up = layer["w_up"](h)
-        return layer["w_down"](torch.square(F.relu(up.float())).to(up.dtype))
-    return layer["w_down"](_silu_glu(gate, up))
-
-
 def forward(hp: HParams, params: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cache, cache_offset, last_index=None, return_hidden: bool = False):
     """tokens/positions [B, T] → (logits [B, T, n_vocab] f32, cache), with
@@ -208,7 +190,7 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor, positions: torch.
 
         h = rms_norm(x, layer["ffn_norm"], hp.rms_eps)
         if layer.get("router") is None:
-            ffn = _dense_ffn(layer, h)
+            ffn = dense_ffn(layer, h)
         else:
             hs = h.reshape(B * T, -1)
             weights, idx = route(router_logits(layer["router"], hs), hp.n_expert_used,
@@ -218,8 +200,8 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor, positions: torch.
                                  select_bias=layer["exp_probs_b"])
             ffn = moe_ffn(hs, weights, idx, layer["w_gate_exps"], layer["w_up_exps"],
                           layer["w_down_exps"])
-            shared = layer["w_down_shexp"](_silu_glu(layer["w_gate_shexp"](hs),
-                                                     layer["w_up_shexp"](hs)))
+            shared = layer["w_down_shexp"](silu_glu(layer["w_gate_shexp"](hs),
+                                                    layer["w_up_shexp"](hs)))
             ffn = (ffn + shared.to(ffn.dtype)).reshape(B, T, -1)
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale

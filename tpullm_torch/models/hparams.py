@@ -1,7 +1,7 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-gemma and deepseek2 forwards read, and the metadata → hparams mapping for
-the archs the port runs (`ARCHS`), as the JAX package's models/hparams.py
-maps them."""
+qwen-moe, gemma and deepseek2 forwards read, and the metadata → hparams
+mapping for the archs the port runs (`ARCHS`), as the JAX package's
+models/hparams.py maps them."""
 
 from __future__ import annotations
 
@@ -11,10 +11,42 @@ from dataclasses import dataclass
 from ..gguf.constants import Keys
 from ..gguf.reader import GGUFReader
 
-# the archs whose metadata this module maps (models/registry.py runs them)
-ARCHS = ("llama", "gemma", "gemma2", "gemma3", "deepseek2")
+# the archs whose metadata this module maps (models/registry.py runs them):
+# the llama graph and its aliases, the qwen-moe graph and its aliases, the
+# gemma family and deepseek2
+LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
+                 "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
+                 "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
+QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1",
+                    "hunyuan-moe", "minimax-m2", "bailingmoe", "bailingmoe2", "glm4moe",
+                    "exaone-moe")
+ARCHS = ("llama", *LLAMA_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES, "gemma", "gemma2", "gemma3",
+         "deepseek2")
 # the default interleave of sliding-window layers: every Nth layer global
 _SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
+
+# arch → RoPE style, the JAX package's NEOX_ROPE_ARCHS (llama.cpp's
+# llama_model_rope_type): these rotate halves (the HF layout), every other
+# arch adjacent pairs. Reference-converted GGUFs of the NORM archs carry
+# q/k permuted for the pairs, so a wrong style garbles a real checkpoint
+# without an error.
+NEOX_ROPE_ARCHS = {
+    "falcon", "falcon-h1", "grok", "dbrx", "bert", "jina-bert-v3",
+    "modern-bert", "nomic-bert", "nomic-bert-moe", "stablelm", "bitnet",
+    "qwen", "qwen2", "dream", "qwen2moe", "qwen3", "qwen3moe", "llada-moe",
+    "rnd1", "olmo2", "olmoe", "phi2", "phi3", "phimoe", "plamo", "plamo2",
+    "plamo3", "gemma", "gemma2", "gemma3", "gemma3n", "gemma-embedding",
+    "starcoder2", "openelm", "gptneox", "codeshell", "orion", "nemotron",
+    "exaone", "exaone4", "exaone-moe", "minicpm3", "bailingmoe2", "dots1",
+    "hunyuan-moe", "gpt-oss", "hunyuan-dense", "lfm2", "lfm2moe",
+    "smallthinker", "seed_oss", "grovemoe", "apertus", "minimax-m2",
+    "cogvlm", "pangu-embedded", "afmoe", "qwen3next", "mimo2", "step35",
+    "glm4moe",
+    "qwen2vl", "qwen3vl", "qwen3vlmoe",
+}
+# the archs whose per-head qk norms follow RoPE (llama.cpp's maincoder and
+# hunyuan graphs); every other arch norms before it
+QK_NORM_POST_ROPE_ARCHS = ("maincoder", "hunyuan-dense", "hunyuan-moe")
 
 
 @dataclass(frozen=True)
@@ -56,6 +88,11 @@ class HParams:
     logit_scale: float = 1.0
     # NoPE interleave: every Nth layer skips rope; 0 = never
     no_rope_step: int = 0
+    # the per-head qk norms after RoPE instead of before (maincoder, hunyuan)
+    qk_norm_post_rope: bool = False
+    # trailing NextN (multi-token prediction) layers the forward skips
+    # (bailingmoe2, glm4moe: n_layer counts them)
+    nextn_layers: int = 0
     # MoE (mixtral rides arch llama): experts per layer, experts per token
     n_expert: int = 0
     n_expert_used: int = 0
@@ -91,12 +128,14 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
     if arch not in ARCHS:
         raise NotImplementedError(f"hparams for architecture {arch!r} are not ported")
     gemma = arch.startswith("gemma")
+    minicpm = arch == "minicpm"
 
     def k(template, default=None):
         v = r.metadata.get(template.format(arch=arch))
         return default if v is None else v
 
     n_embd = int(k(Keys.LLM.EMBEDDING_LENGTH))
+    n_layer = int(k(Keys.LLM.BLOCK_COUNT))
     n_head = int(k(Keys.Attention.HEAD_COUNT))
     n_head_kv = int(k(Keys.Attention.HEAD_COUNT_KV, n_head))
     head_dim = int(k(Keys.Attention.KEY_LENGTH, n_embd // max(n_head, 1)))
@@ -117,9 +156,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         ext_factor=float(k(Keys.Rope.SCALING_YARN_EXT_FACTOR, 0.0)),
         beta_fast=float(k(Keys.Rope.SCALING_YARN_BETA_FAST, 32.0)),
         beta_slow=float(k(Keys.Rope.SCALING_YARN_BETA_SLOW, 1.0)),
-        # llama GGUFs carry q/k permuted for interleaved pairs; gemma's are
-        # in the HF layout, rotated by halves
-        style="neox" if gemma else "norm",
+        style="neox" if arch in NEOX_ROPE_ARCHS else "norm",
     )
     scale = k(Keys.Attention.SCALE)
     return HParams(
@@ -127,7 +164,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         n_vocab=int(n_vocab),
         n_ctx_train=int(k(Keys.LLM.CONTEXT_LENGTH, 2048)),
         n_embd=n_embd,
-        n_layer=int(k(Keys.LLM.BLOCK_COUNT)),
+        n_layer=n_layer,
         n_head=n_head,
         n_head_kv=n_head_kv,
         n_ff=int(k(Keys.LLM.FEED_FORWARD_LENGTH, 0)),
@@ -136,13 +173,22 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         rms_eps=float(k(Keys.Attention.LAYERNORM_RMS_EPS,
                         k(Keys.Attention.LAYERNORM_EPS, 1e-5))),
         rope=rope,
-        max_alibi_bias=float(k(Keys.Attention.MAX_ALIBI_BIAS, 0.0)),
+        # refact, and baichuan's 40-layer 13B, take ALiBi 8 without a key
+        max_alibi_bias=float(k(Keys.Attention.MAX_ALIBI_BIAS, 8.0 if arch == "refact" or (
+            arch == "baichuan" and n_layer == 40) else 0.0)),
         sliding_window=int(k(Keys.Attention.SLIDING_WINDOW, 0)),
         attn_scale=float(scale) if scale is not None else None,
-        embd_scale=float(k("{arch}.embedding_scale", math.sqrt(n_embd) if gemma else 1.0)),
-        residual_scale=float(k("{arch}.residual_scale", 1.0)),
-        logit_scale=float(k("{arch}.logit_scale", 1.0)),
-        no_rope_step=int(k("{arch}.attention.no_rope_layer_step", 0)),
+        # minicpm's multipliers without keys: embedding 12, residual
+        # 1.4/√n_layer, logits 256/n_embd (granite's keys otherwise)
+        embd_scale=float(k("{arch}.embedding_scale",
+                           12.0 if minicpm else math.sqrt(n_embd) if gemma else 1.0)),
+        residual_scale=float(k("{arch}.residual_scale",
+                               1.4 / math.sqrt(n_layer) if minicpm else 1.0)),
+        logit_scale=float(k("{arch}.logit_scale", 256.0 / n_embd if minicpm else 1.0)),
+        no_rope_step=int(k("{arch}.attention.no_rope_layer_step",
+                           4 if arch == "smollm3" else 0)),
+        qk_norm_post_rope=arch in QK_NORM_POST_ROPE_ARCHS,
+        nextn_layers=int(k("{arch}.nextn_predict_layers", 0)),
         n_expert=int(k(Keys.LLM.EXPERT_COUNT, 0)),
         n_expert_used=int(k(Keys.LLM.EXPERT_USED_COUNT, 0)),
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last", 4: "rank"}.get(

@@ -49,22 +49,11 @@ def build_params(r: GGUFReader, hp: HParams, device, dtype=torch.bfloat16,
     for i in range(hp.n_layer):
         p = f"blk.{i}."
         layer = {
-            "attn_norm": vector(p + "attn_norm.weight"),
-            "wq": linear(p + "attn_q.weight"),
-            "wk": linear(p + "attn_k.weight"),
-            "wv": linear(p + "attn_v.weight"),
-            "wo": linear(p + "attn_output.weight"),
-            "ffn_norm": vector(p + "ffn_norm.weight"),
+            **attn_params(p, linear, vector),
+            "bo": vector(p + "attn_output.bias"),
             "w_gate": linear(p + "ffn_gate.weight"),
             "w_up": linear(p + "ffn_up.weight"),
             "w_down": linear(p + "ffn_down.weight"),
-            # optional extras: qwen2-style attention biases, per-head qk norms
-            "bq": vector(p + "attn_q.bias"),
-            "bk": vector(p + "attn_k.bias"),
-            "bv": vector(p + "attn_v.bias"),
-            "bo": vector(p + "attn_output.bias"),
-            "q_norm": vector(p + "attn_q_norm.weight"),
-            "k_norm": vector(p + "attn_k_norm.weight"),
         }
         if p + "ffn_gate_inp.weight" in t:  # mixtral: a router and stacked experts
             layer["router"] = linear(p + "ffn_gate_inp.weight")
@@ -80,9 +69,37 @@ def build_params(r: GGUFReader, hp: HParams, device, dtype=torch.bfloat16,
     }
 
 
+def attn_params(p: str, linear, vector) -> dict:
+    """The attention entries of layer prefix `p` (attn_block's keys but
+    "bo") and its FFN pre-norm, as the llama family and the qwen-moe graph
+    load them: ffn_norm, or post_attention_norm where a file names it so
+    (seed_oss, glm4moe); qwen2-style q/k/v biases and qk norms (per head,
+    or over the whole projection) where the file has them. `linear` and
+    `vector` load a tensor by name, None where it is absent."""
+    ffn_norm = vector(p + "ffn_norm.weight")
+    return {
+        "attn_norm": vector(p + "attn_norm.weight"),
+        "wq": linear(p + "attn_q.weight"),
+        "wk": linear(p + "attn_k.weight"),
+        "wv": linear(p + "attn_v.weight"),
+        "wo": linear(p + "attn_output.weight"),
+        "ffn_norm": ffn_norm if ffn_norm is not None
+        else vector(p + "post_attention_norm.weight"),
+        "bq": vector(p + "attn_q.bias"),
+        "bk": vector(p + "attn_k.bias"),
+        "bv": vector(p + "attn_v.bias"),
+        "q_norm": vector(p + "attn_q_norm.weight"),
+        "k_norm": vector(p + "attn_k_norm.weight"),
+    }
+
+
 def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: int,
                cache_offset, offsets: torch.Tensor, slopes=None):
-    """One pre-norm GQA attention block with residual."""
+    """One pre-norm GQA attention block with residual (the llama family's
+    and the qwen-moe graph's). The order of the optional steps: biases; a
+    full-projection qk norm (q_norm over n_head·head_dim, minimax-m2 and
+    bailingmoe2) before the head split; per-head qk norms before RoPE, or
+    after it where hp.qk_norm_post_rope (maincoder, hunyuan)."""
     B, T = x.shape[:2]
     scale = hp.attn_scale if hp.attn_scale is not None else hp.head_dim ** -0.5
     h = rms_norm(x, layer["attn_norm"], hp.rms_eps)
@@ -97,19 +114,26 @@ def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: in
         k = k + layer["bk"].to(k.dtype)
     if layer.get("bv") is not None:
         v = v + layer["bv"].to(v.dtype)
+    q_norm, k_norm = layer.get("q_norm"), layer.get("k_norm")
+    full_qk_norm = (q_norm is not None and hp.n_head > 1
+                    and q_norm.shape[-1] == hp.n_head * hp.head_dim)
+    if full_qk_norm:
+        q = rms_norm(q, q_norm, hp.rms_eps)
+        k = rms_norm(k, k_norm, hp.rms_eps)
     q = q.reshape(B, T, hp.n_head, hp.head_dim)
     k = k.reshape(B, T, hp.n_head_kv, hp.head_dim)
     v = v.reshape(B, T, hp.n_head_kv, hp.head_dim_v)
-    if layer.get("q_norm") is not None:
-        q = rms_norm(q, layer["q_norm"], hp.rms_eps)
-    if layer.get("k_norm") is not None:
-        k = rms_norm(k, layer["k_norm"], hp.rms_eps)
+    head_norms = not full_qk_norm
+    if head_norms and not hp.qk_norm_post_rope:
+        q, k = _head_norms(hp, q, k, q_norm, k_norm)
     use_rope = hp.max_alibi_bias <= 0.0 and (
         hp.no_rope_step == 0 or (li + 1) % hp.no_rope_step != 0)
     if use_rope:
         cos, sin = rope_cs
         q = apply_rope_angles(q, cos, sin, hp.rope.style)
         k = apply_rope_angles(k, cos, sin, hp.rope.style)
+    if head_norms and hp.qk_norm_post_rope:
+        q, k = _head_norms(hp, q, k, q_norm, k_norm)
 
     cache = cache.update(li, k.transpose(1, 2), v.transpose(1, 2), cache_offset)
     attn = attention_cached(q.contiguous(), cache, li, scale, offsets,
@@ -120,6 +144,33 @@ def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: in
     if hp.residual_scale != 1.0:
         attn = attn * hp.residual_scale
     return x + attn, cache
+
+
+def _head_norms(hp: HParams, q, k, q_norm, k_norm):
+    """Per-head RMS norms of q [B, T, H, D] and k, where the layer has them."""
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, hp.rms_eps)
+    if k_norm is not None:
+        k = rms_norm(k, k_norm, hp.rms_eps)
+    return q, k
+
+
+def silu_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """SiLU(gate) · up, the activation in f32 rounded to up's dtype."""
+    return F.silu(gate.float()).to(up.dtype) * up
+
+
+def dense_ffn(layer: dict, h: torch.Tensor) -> torch.Tensor:
+    """A dense FFN: SwiGLU (gate and up fused where they share a type), or
+    the gateless ReLU² (plm) where the layer has no gate."""
+    if layer.get("wgu") is not None:  # one plane stream for gate|up
+        gate, up = layer["wgu"](h)
+    elif layer["w_gate"] is not None:
+        gate, up = layer["w_gate"](h), layer["w_up"](h)
+    else:
+        up = layer["w_up"](h)
+        return layer["w_down"](torch.square(F.relu(up.float())).to(up.dtype))
+    return layer["w_down"](silu_glu(gate, up))
 
 
 def router_logits(router, hs: torch.Tensor) -> torch.Tensor:
@@ -213,12 +264,7 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
             ffn = moe_ffn(hs, weights, idx, layer["w_gate_exps"], layer["w_up_exps"],
                           layer["w_down_exps"]).reshape(B, T, -1)
         else:
-            if layer.get("wgu") is not None:  # one plane stream for gate|up
-                gate, up = layer["wgu"](h)
-            else:
-                gate, up = layer["w_gate"](h), layer["w_up"](h)
-            act = F.silu(gate.float()).to(up.dtype) * up
-            ffn = layer["w_down"](act)
+            ffn = dense_ffn(layer, h)
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn

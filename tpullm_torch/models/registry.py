@@ -1,6 +1,9 @@
 """Architecture registry: GGUF `general.architecture` → (build_params,
 forward), the rows of the JAX package's models/registry.py that the port
-runs: `llama`, `gemma3` (alias `gemma2`), `gemma` and `deepseek2` (its
+runs: `llama` with 17 of its aliases (models/hparams.py LLAMA_ALIASES; the
+JAX package's arcee, apertus, llama-embed, qwen2vl and qwen3vl wait for
+their options), `qwen3moe` with 11 aliases (QWEN_MOE_ALIASES; qwen3vlmoe
+waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma` and `deepseek2` (its
 aliases minicpm3 and plm are not ported)."""
 
 from __future__ import annotations
@@ -9,8 +12,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import deepseek2, gemma, llama
-from .hparams import HParams, hparams_from_gguf
+from . import deepseek2, gemma, llama, qwen_moe
+from .hparams import LLAMA_ALIASES, QWEN_MOE_ALIASES, HParams, hparams_from_gguf
 
 
 @dataclass(frozen=True)
@@ -26,8 +29,11 @@ class ArchSpec:
     make_cache: Callable | None = None
 
 
+_LLAMA = ArchSpec("llama", llama.build_params, llama.forward)
+_QWEN_MOE = ArchSpec("qwen3moe", qwen_moe.build_params, qwen_moe.forward)
 _GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
-_REGISTRY = {"llama": ArchSpec("llama", llama.build_params, llama.forward),
+_REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES)},
+             **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES)},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
              "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
              "deepseek2": ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,

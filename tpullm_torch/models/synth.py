@@ -1,4 +1,5 @@
-"""Synthesis of random *packed* llama, gemma and deepseek2 models from a seed.
+"""Synthesis of random *packed* llama, qwen, gemma and deepseek2 models from
+a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -86,6 +87,42 @@ SHAPES = {
                            kv_lora=512, qk_nope=32, qk_rope=64, v_dim=32, n_expert=4,
                            n_expert_used=2, n_ff_exp=256, n_expert_shared=1, n_dense_lead=1,
                            gating=1, weights_scale=1.0, weights_norm=False),
+    # Qwen/Qwen3-30B-A3B config.json: 48 layers, hidden 2048, 32 heads over 4
+    # KV heads of head_dim 128 (q is 4096 wide), per-head q/k norms, 128
+    # experts (moe_intermediate_size 768) top-8 renormalised
+    # (norm_topk_prob), intermediate_size 6144 (no dense layer uses it), vocab
+    # 151936, rope_theta 1e6, rms_norm_eps 1e-6, max_position_embeddings
+    # 40960, untied; Qwen's byte-level BPE (pre "qwen2")
+    "qwen3-30b-a3b": dict(arch="qwen3moe", n_layer=48, n_embd=2048, n_head=32, n_head_kv=4,
+                          head_dim=128, n_ff=6144, n_vocab=151936, rope_base=1000000.0,
+                          rms_eps=1e-6, n_ctx=40960, n_expert=128, n_expert_used=8,
+                          n_ff_exp=768, qk_norm=True, vocab="bpe", pre="qwen2"),
+    # Qwen/Qwen2.5-7B config.json: 28 layers, hidden 3584, 28 heads over 4 KV
+    # heads (head_dim 128: a GQA group of 7), intermediate_size 18944, vocab
+    # 152064, q/k/v biases, rope_theta 1e6, rms_norm_eps 1e-6,
+    # max_position_embeddings 131072, untied
+    "qwen2.5-7b": dict(arch="qwen2", n_layer=28, n_embd=3584, n_head=28, n_head_kv=4,
+                       n_ff=18944, n_vocab=152064, rope_base=1000000.0, rms_eps=1e-6,
+                       n_ctx=131072, qkv_bias=True, vocab="bpe", pre="qwen2"),
+    # the qwen test models, at the widths of "tiny" (K a multiple of 256, so
+    # the packed planes and the plain qmm versions run), Qwen's BPE: qwen2
+    # with q/k/v biases, qwen3 with per-head q/k norms, qwen3moe with those
+    # norms and 16 experts top-4 renormalised (K = 256 on the down
+    # experts), qwen2moe with a sigmoid-gated shared expert, not renormalised
+    "tiny-qwen2": dict(arch="qwen2", n_layer=2, n_embd=256, n_head=4, n_head_kv=2, n_ff=512,
+                       n_vocab=384, rope_base=1000000.0, rms_eps=1e-6, qkv_bias=True,
+                       vocab="bpe", pre="qwen2"),
+    "tiny-qwen3": dict(arch="qwen3", n_layer=2, n_embd=256, n_head=4, n_head_kv=2, n_ff=512,
+                       n_vocab=384, rope_base=1000000.0, rms_eps=1e-6, qk_norm=True,
+                       vocab="bpe", pre="qwen2"),
+    "tiny-qwen3moe": dict(arch="qwen3moe", n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
+                          head_dim=128, n_ff=768, n_vocab=384, rope_base=1000000.0,
+                          rms_eps=1e-6, n_expert=16, n_expert_used=4, n_ff_exp=256,
+                          qk_norm=True, vocab="bpe", pre="qwen2"),
+    "tiny-qwen2moe": dict(arch="qwen2moe", n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
+                          n_ff=512, n_vocab=384, rope_base=1000000.0, rms_eps=1e-6,
+                          n_expert=16, n_expert_used=4, n_ff_exp=256, n_ff_shexp=512,
+                          qkv_bias=True, vocab="bpe", pre="qwen2"),
 }
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
@@ -392,7 +429,7 @@ def random_packed(rng: np.random.Generator, gtype: GGMLType, n_elements: int,
 
 def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
                               ftype: str = "Q4_K_M", n_layer: int | None = None,
-                              n_vocab: int | None = None, vocab: str = "spm") -> str:
+                              n_vocab: int | None = None, vocab: str | None = None) -> str:
     """Writes the synthetic model `shape` (a key of SHAPES: a llama, or a
     gemma shape with its arch's metadata and tensors) at preset
     `ftype` (a name of PRESETS) to `path`, with `n_layer` layers and
@@ -400,22 +437,25 @@ def make_synthetic_llama_gguf(path, shape: str = "llama-3-8b", seed: int = 0,
     below the shape's keeps its first n_vocab tokens); the same arguments
     give the same bytes. `vocab` "spm" writes an SPM vocab
     (tokenizer.ggml.model "llama"), "bpe" a byte-level BPE vocab with
-    merges as a Llama-3 GGUF carries it (model "gpt2", pre "llama-bpe":
-    `_bpe_vocab`); the weights are the same either way."""
+    merges as a Llama-3 GGUF carries it (model "gpt2", pre "llama-bpe", or
+    the shape's `pre`: "qwen2" for the Qwen shapes; `_bpe_vocab`); None the
+    shape's own ("bpe" for the Qwen shapes, else "spm"); the weights are
+    the same either way."""
     synthetic_writer(path, shape, seed, ftype, n_layer, n_vocab, vocab).write()
     return str(path)
 
 
 def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str = "Q4_K_M",
                      n_layer: int | None = None, n_vocab: int | None = None,
-                     vocab: str = "spm") -> GGUFWriter:
+                     vocab: str | None = None) -> GGUFWriter:
     """The writer of make_synthetic_llama_gguf, its payloads not drawn yet
     (`payload_bytes()` sizes the file before it is written)."""
     if ftype not in PRESETS:
         raise ValueError(f"unknown preset {ftype!r}; presets: {PRESETS}")
+    cfg = SHAPES[shape]
+    vocab = vocab or cfg.get("vocab", "spm")
     if vocab not in ("spm", "bpe"):
         raise ValueError(f"unknown vocab {vocab!r}: 'spm' or 'bpe'")
-    cfg = SHAPES[shape]
     rng = np.random.default_rng(seed)
     arch = cfg.get("arch", "llama")
     gemma = arch.startswith("gemma")
@@ -440,7 +480,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w = GGUFWriter(path, architecture=arch)
     w.add_kv("general.name", f"tpullm-synth-{shape}" + ("" if ftype == "Q4_K_M" else f"-{ftype}")
              + ("" if n_vocab == cfg["n_vocab"] else f"-v{n_vocab}")
-             + ("" if vocab == "spm" else "-bpe"))
+             + ("" if vocab == cfg.get("vocab", "spm") else f"-{vocab}"))
     w.add_kv(f"{arch}.block_count", n_layer)
     w.add_kv(f"{arch}.context_length", cfg.get("n_ctx", 8192))
     w.add_kv(f"{arch}.embedding_length", n_embd)
@@ -451,9 +491,13 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
     w.add_kv(f"{arch}.rope.dimension_count", cfg.get("qk_rope", head_dim))
     w.add_kv(f"{arch}.vocab_size", n_vocab)
-    if gemma:
+    if gemma or head_dim != n_embd // n_head:
         w.add_kv(f"{arch}.attention.key_length", head_dim)
         w.add_kv(f"{arch}.attention.value_length", head_dim)
+    if "n_ff_exp" in cfg and not mla:
+        w.add_kv(f"{arch}.expert_feed_forward_length", cfg["n_ff_exp"])
+    if "n_ff_shexp" in cfg:
+        w.add_kv(f"{arch}.expert_shared_feed_forward_length", cfg["n_ff_shexp"])
     if "rope_base_swa" in cfg:
         w.add_kv(f"{arch}.rope.freq_base_swa", cfg["rope_base_swa"])
     if "rope_scaling" in cfg:
@@ -490,7 +534,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         w.add_kv("tokenizer.ggml.eos_token_id", 2)
     else:
         w.add_kv("tokenizer.ggml.model", "gpt2")
-        w.add_kv("tokenizer.ggml.pre", "llama-bpe")
+        w.add_kv("tokenizer.ggml.pre", cfg.get("pre", "llama-bpe"))
         w.add_kv("tokenizer.ggml.tokens", tokens)
         w.add_kv("tokenizer.ggml.token_type", np.asarray(types, dtype=np.int32))
         w.add_kv("tokenizer.ggml.merges", merges)
@@ -513,6 +557,11 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     def norm(name, n):
         w.add_tensor(name, np.ones(n, dtype=np.float32))
 
+    def vector(name, n, scale, base=0.0):
+        """An f32 vector of base + scale·N(0, 1): biases, the shared
+        expert's gate, qk norms (base 1)."""
+        w.add_tensor(name, (base + rng.standard_normal(n) * scale).astype(np.float32))
+
     def router(name):
         # f32 normal / sqrt(n_embd), so its logits have unit scale
         w.add_packed_tensor(name, (n_embd, n_expert), GGMLType.F32,
@@ -523,6 +572,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     if mla:
         _deepseek2_layers(cfg, n_layer, packed, norm, router)
     else:
+        n_ff_exp, n_sh = cfg.get("n_ff_exp", n_ff), cfg.get("n_ff_shexp", 0)
         for i in range(n_layer):
             p = f"blk.{i}."
             norm(p + "attn_norm.weight", n_embd)
@@ -530,18 +580,29 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
             packed(p + "attn_k.weight", n_head_kv * head_dim, n_embd, i)
             packed(p + "attn_v.weight", n_head_kv * head_dim, n_embd, i)
             packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
+            if cfg.get("qkv_bias"):
+                for kind, n in (("q", n_head), ("k", n_head_kv), ("v", n_head_kv)):
+                    vector(p + f"attn_{kind}.bias", n * head_dim, 0.1)
             if arch == "gemma3":
                 norm(p + "attn_q_norm.weight", head_dim)
                 norm(p + "attn_k_norm.weight", head_dim)
+            if cfg.get("qk_norm"):
+                vector(p + "attn_q_norm.weight", head_dim, 0.1, base=1.0)
+                vector(p + "attn_k_norm.weight", head_dim, 0.1, base=1.0)
             if arch in ("gemma2", "gemma3"):
                 norm(p + "post_attention_norm.weight", n_embd)
                 norm(p + "post_ffw_norm.weight", n_embd)
             norm(p + "ffn_norm.weight", n_embd)
             if n_expert:
                 router(p + "ffn_gate_inp.weight")
-                packed(p + "ffn_gate_exps.weight", n_ff, n_embd, i, n_expert)
-                packed(p + "ffn_up_exps.weight", n_ff, n_embd, i, n_expert)
-                packed(p + "ffn_down_exps.weight", n_embd, n_ff, i, n_expert)
+                packed(p + "ffn_gate_exps.weight", n_ff_exp, n_embd, i, n_expert)
+                packed(p + "ffn_up_exps.weight", n_ff_exp, n_embd, i, n_expert)
+                packed(p + "ffn_down_exps.weight", n_embd, n_ff_exp, i, n_expert)
+                if n_sh:  # qwen2moe's shared expert and its sigmoid gate
+                    vector(p + "ffn_gate_inp_shexp.weight", n_embd, n_embd ** -0.5)
+                    packed(p + "ffn_gate_shexp.weight", n_sh, n_embd, i)
+                    packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
+                    packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)
             else:
                 packed(p + "ffn_gate.weight", n_ff, n_embd, i)
                 packed(p + "ffn_up.weight", n_ff, n_embd, i)

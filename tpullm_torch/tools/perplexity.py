@@ -105,10 +105,12 @@ def _window_logits(engine, text: str, n_ctx: int, max_windows: int | None):
 def save_logits_base(engine, text: str, path: str, n_ctx: int = 512,
                      max_windows: int | None = None):
     """Record a run's logits for later KLD comparison
-    (≡ perplexity --kl-divergence-base output)."""
+    (≡ perplexity --kl-divergence-base output), uncompressed (np.savez:
+    deflating four 512-token windows of a 128256-token vocab's f16 logits
+    took over a minute; the JAX package deflates, and np.load reads
+    either)."""
     logits, ids = _window_logits(engine, text, n_ctx, max_windows)
-    np.savez_compressed(path, logits=logits, ids=np.asarray(ids, np.int64),
-                        n_ctx=n_ctx)
+    np.savez(path, logits=logits, ids=np.asarray(ids, np.int64), n_ctx=n_ctx)
     return path
 
 
