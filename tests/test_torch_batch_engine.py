@@ -444,3 +444,36 @@ def test_flash_plain_versions_at_idle_offsets_match_pallas(plain, T, kv):
         np.testing.assert_allclose(ref[[0, 2], 0], tile_mean.numpy(), atol=1e-2)
         got[[0, 2], 0] = ref[[0, 2], 0]
     assert _nmse(got, ref) <= 1e-5
+
+
+def test_shared_model_feeds_engines_and_batch_engines(paths):
+    """runtime/model.py Model: loaded once, an Engine and a BatchEngine made
+    from it share its params (the same tensors, no second load) and compute
+    what engines loaded from the path compute, bit for bit; an engine that
+    asks for another weight mode, dtype or device, or an override_kv, is
+    refused; the JAX package's BatchEngine on the same file agrees."""
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.model import Model
+
+    path = paths["tiny"]
+    model = Model(path, device="cpu", mode="dense", dtype=torch.float32)
+    eng = Engine(model, max_seq=64, kv_dtype=torch.float32)
+    be = BatchEngine(model, n_slots=2, max_seq=64, kv_dtype=torch.float32)
+    assert eng.params is be.params is model.params and eng.tokenizer is model.tokenizer
+    assert eng.device == be.device == torch.device("cpu")
+    own = Engine(path, device="cpu", max_seq=64, mode="dense", dtype=torch.float32,
+                 kv_dtype=torch.float32)
+    ids = list(range(5, 35))
+    want = own.prefill(ids)
+    assert np.array_equal(eng.prefill(ids), want)
+    got = be.prefill_slots({1: ids})[1]
+    je = JBatchEngine(path, n_slots=2, max_seq=64, mode="dense", dtype=jnp.float32,
+                      kv_dtype=jnp.float32)
+    assert _nmse(got, je.prefill_slots({1: ids})[1]) <= 1e-6
+    assert _nmse(got, want) <= 1e-6
+    with pytest.raises(ValueError, match="load a separate Model"):
+        Engine(model, mode="quant")
+    with pytest.raises(ValueError, match="override_kv"):
+        Engine(model, override_kv={"general.name": "x"})
+    with pytest.raises(ValueError, match="device"):
+        BatchEngine(model, device="meta")

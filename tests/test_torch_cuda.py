@@ -559,11 +559,12 @@ def _flash_regimes(dev, T, D, kv, extras):
 
 @pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
 def test_flash_regimes_match_plain(dev, T, D, q8, extras):
     """Both regimes (GQA 8/2: T ≤ 4 is the split-KV decode, T ≥ 8 the
-    tensor-core prefill) at kv_len 1, 31, 32, 33, 4095 and 4096 of S = 4096
+    tensor-core prefill), at each instantiated head dim (80 and 96 from the
+    library flash_narrow), at kv_len 1, 31, 32, 33, 4095 and 4096 of S = 4096
     (the second batch at another kv_len), each call one launch, counted in
     its regime, and bit-identical when repeated back to back."""
     _flash_regimes(dev, T, D, "q8" if q8 else "bf16", extras)
@@ -571,7 +572,7 @@ def test_flash_regimes_match_plain(dev, T, D, q8, extras):
 
 @pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
 @pytest.mark.parametrize("kv", ["f16", "f32"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
 def test_flash_f16_f32_regimes_match_plain(dev, T, D, kv, extras):
     """The f16 and f32 caches in both regimes, as the bf16 and q8 ones above,
@@ -891,8 +892,8 @@ def test_routes_on_the_card(dev, tmp_path):
     """The shapes no kernel takes, on the card: the tiny model with a
     250-token head serves against the CPU with every head call through the
     counted dequantize-then-matmul route; a stack and a gather at N = 250
-    take its stack and gather forms; a head dim of 96 takes the counted
-    dense attention path."""
+    take its stack and gather forms; head dims (Dk 192, Dv 128), the
+    decompressed MLA form, take the counted dense attention path."""
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
     from tpullm_torch.ops import attention
     from tpullm_torch.runtime.engine import Engine
@@ -925,13 +926,14 @@ def test_routes_on_the_card(dev, tmp_path):
             qmm.GATHER_LAUNCHES["Q4_K"]) == (before[0] + 2, before[1], before[2])
 
     g = torch.Generator(dev).manual_seed(4)
-    cache = KVCache(torch.randn(1, 1, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16),
-                    torch.randn(1, 1, 2, 64, 96, generator=g, device=dev).to(torch.bfloat16))
-    q = torch.randn(1, 9, 8, 96, generator=g, device=dev).to(torch.bfloat16)
+    cache = KVCache(torch.randn(1, 1, 2, 64, 192, generator=g, device=dev).to(torch.bfloat16),
+                    torch.randn(1, 1, 2, 64, 128, generator=g, device=dev).to(torch.bfloat16))
+    q = torch.randn(1, 9, 8, 192, generator=g, device=dev).to(torch.bfloat16)
     off = torch.tensor([20], dtype=torch.int32, device=dev)
     before = flash.ATTN_DENSE_ROUTES["bf16"], dict(flash.LAUNCHES)
-    got = attention.attention_cached(q, cache, 0, 96 ** -0.5, off)
-    ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 96 ** -0.5)
+    got = attention.attention_cached(q, cache, 0, 192 ** -0.5, off)
+    ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 192 ** -0.5)
+    assert got.shape == (1, 9, 8, 128)
     assert (flash.ATTN_DENSE_ROUTES["bf16"], flash.LAUNCHES) == (before[0] + 1, before[1])
     assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND
 
@@ -1600,6 +1602,127 @@ def test_qwen3moe_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
     from tpullm_torch.runtime.batch_engine import BatchEngine
 
     path = make_synthetic_llama_gguf(tmp_path / "tq3m.gguf", shape="tiny-qwen3moe", seed=0)
+    gpu, cpu = (BatchEngine(path, device=d, n_slots=3, max_seq=256, prefill_chunk=32)
+                for d in (None, "cpu"))
+    prompts = {0: list(range(5, 100)), 2: list(range(7, 40))}
+    a, b = gpu.prefill_slots(prompts), cpu.prefill_slots(prompts)
+    errs = [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in prompts]
+    idle = gpu.cache.k[:, 1].clone()
+    for feed in ({0: 300, 2: 17}, {2: 18}, {0: 5, 2: 6}):
+        a, b = gpu.decode_batch(feed), cpu.decode_batch(feed)
+        errs += [_nmse(torch.from_numpy(a[s]), torch.from_numpy(b[s])) for s in feed]
+    assert torch.equal(gpu.cache.k[:, 1], idle)
+    gpu.free_slot(2)
+    cpu.free_slot(2)
+    a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
+    errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
+    assert max(errs) <= 1e-3, errs
+
+
+# ---------------------------------------------------------------------------
+# the Phi families and Qwen (v1): flash at head dims 96 and 80, the engines
+# ---------------------------------------------------------------------------
+
+# Phi-3-mini: 32 heads on 32 KV heads of 96, a window of 2047 on a full
+# cache of 4096; Phi-2: 32 on 32 of 80, no window, context 2048
+PHI_FLASH = {96: dict(S=4096, offset=3000, window=2047), 80: dict(S=2048, offset=1500, window=0)}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f16", "f32", "q8"])
+@pytest.mark.parametrize("D,T", [(96, 1), (96, 9), (96, 16), (96, 17), (96, 2560),
+                                 (80, 1), (80, 9), (80, 16), (80, 17)])
+def test_flash_at_phi_heads(dev, D, T, kv):
+    """Flash at the Phi heads (H = Hkv = 32, B = 1): the decode regime at
+    R = T = 1, 9 and 16 (P·V's 32 threads a row at D/4 = 24 and 20, the
+    lanes past it idle), the prefill regime from 17 rows; Phi-3 under its
+    window of 2047 at offset 3000 (keys from 954: lo > 0 in the split
+    plan) and its 2560-token prompt from offset 0 (k_begin > 0 from the
+    window's edge on; Phi-2's context of 2048 holds no such prompt); one
+    launch in its regime, within the bound of its cache; no dense-route
+    call."""
+    cfg = PHI_FLASH[D]
+    off = 0 if T == 2560 else cfg["offset"]
+    bound = FLASH_Q8_NMSE_BOUND if kv == "q8" else FLASH_NMSE_BOUND
+    g = torch.Generator(dev).manual_seed(D * T)
+    q = torch.randn(1, T, 32, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 32, cfg["S"], D, generator=g, device=dev).to(KV_DTYPES.get(kv,
+                                                                                   torch.bfloat16))
+    v = torch.randn(1, 32, cfg["S"], D, generator=g, device=dev).to(k.dtype)
+    offs = torch.tensor([off], dtype=torch.int32, device=dev)
+    w, scale = cfg["window"], D ** -0.5
+    if kv == "q8":
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        (k_q, k_s), (v_q, v_s) = QuantKVCache._quantize(k), QuantKVCache._quantize(v)
+
+        def kernel():
+            return flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, offs, scale, sliding_window=w)
+
+        def plain():
+            return flash.flash_reference(q, k_q, v_q, offs, scale, sliding_window=w,
+                                         k_scale=k_s, v_scale=v_s)
+    else:
+        def kernel():
+            return flash.flash_attention(q, k, v, offs, scale, sliding_window=w)
+
+        def plain():
+            return flash.flash_reference(q, k, v, offs, scale, sliding_window=w)
+    decode = flash.regime(T, 32, 32) == "decode"
+    assert decode == (T <= 16)
+    before = (flash.launch_total(kv), flash.launch_total(kv, "decode"),
+              sum(flash.ATTN_DENSE_ROUTES.values()))
+    got = kernel()
+    torch.cuda.synchronize()
+    assert (flash.launch_total(kv), flash.launch_total(kv, "decode"),
+            sum(flash.ATTN_DENSE_ROUTES.values())) == (before[0] + 1, before[1] + decode,
+                                                       before[2])
+    assert flash.LAUNCHES[f"{kv}.d{D}.{'decode' if decode else 'prefill'}"] > 0
+    assert got.shape == (1, T, 32, D) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), plain().float()) <= bound
+
+
+@pytest.mark.parametrize("shape", ["tiny-phi3", "tiny-phi2", "tiny-qwen"])
+def test_phi_engine_on_the_card_matches_the_cpu(dev, tmp_path, shape):
+    """The tiny Phi and Qwen (v1) shapes on the card against the CPU: a
+    40-token prompt's (past tiny-phi3's window of 16) and three decode
+    steps' logits within NMSE 1e-3, the decode graph's greedy ids equal; a
+    replay's launches: every quantized linear through qmm (the fused
+    attn_qkv and gate|up one launch each), flash once a layer at the
+    shape's head dim (96, 80, 64) in the decode regime, no counted route."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    gpu, cpu = (Engine(path, device=d, max_seq=256) for d in (None, "cpu"))
+    ids = list(range(5, 45))
+    errs = [_nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+    for tok in (300, 17, 42):
+        errs.append(_nmse(torch.from_numpy(gpu.decode_step(tok)),
+                          torch.from_numpy(cpu.decode_step(tok))))
+    assert max(errs) <= 1e-3, errs
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 24, chunk=8) == \
+        cpu.generate_tokens_device(ids, 24, chunk=8)
+    one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
+    d = gpu.hp.head_dim
+    assert one["flash"] == one["flash_decode"] == gpu.hp.n_layer
+    assert flash.LAUNCHES[f"bf16.d{d}.decode"] > 0 and flash.LAUNCHES[f"bf16.d{d}.prefill"] > 0
+    assert one["dequant_routes"] == one["attn_dense_routes"] == 0
+    # q|k|v, wo, gate|up (phi2: up) and down: four linears a layer, and the head
+    assert one["qmm"] == 4 * gpu.hp.n_layer + 1 and one["qmm_tc"] == 0
+
+
+def test_phi2_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A BatchEngine of 3 slots on tiny-phi2 (the parallel block, LayerNorm
+    biases, the biased head): a joint round, batched steps with an idle
+    slot (its cache rows untouched), a freed slot admitted again: per-slot
+    logits within NMSE 1e-3 of the CPU's."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    path = make_synthetic_llama_gguf(tmp_path / "tphi2.gguf", shape="tiny-phi2", seed=0)
     gpu, cpu = (BatchEngine(path, device=d, n_slots=3, max_seq=256, prefill_chunk=32)
                 for d in (None, "cpu"))
     prompts = {0: list(range(5, 100)), 2: list(range(7, 40))}

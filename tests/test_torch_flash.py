@@ -44,8 +44,8 @@ CASES = [
 ]
 
 
-def _inputs(T, offsets, seed):
-    B, H, Hkv, D, S = 2, 4, 2, 64, 64
+def _inputs(T, offsets, seed, D=64):
+    B, H, Hkv, S = 2, 4, 2, 64
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, T, H, D)).astype(np.float32)
     k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
@@ -95,6 +95,37 @@ def test_flash_reference_matches_pallas_q8(case):
         _t(q, torch.bfloat16), tt(k_q), tt(k_s), tt(v_q), tt(v_s), torch.from_numpy(off),
         scale, softcap, window, sinks=_t(sinks) if use_sinks else None,
         alibi_slopes=_t(slopes) if use_alibi else None)
+    assert _nmse(got.float().numpy(), np.asarray(ref, np.float32)) <= 1e-5
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "f16", "f32", "q8"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_flash_reference_matches_pallas_at_head_dims_80_and_96(d, fmt):
+    """The wrapper on CPU tensors (the kernels' plain version) at Phi-2's
+    and Phi-3's head dims, on each cache format, GQA 4 / 2, under a window
+    of 16, against the JAX Pallas kernel."""
+    q, k, v, off, _, _ = _inputs(8, (30, 50), seed=d, D=d)
+    scale = d ** -0.5
+    jq = jnp.asarray(q, jnp.bfloat16)
+    if fmt == "q8":
+        k_q, k_s = JQuantKVCache._quantize(jnp.asarray(k, jnp.bfloat16))
+        v_q, v_s = JQuantKVCache._quantize(jnp.asarray(v, jnp.bfloat16))
+        ref = jflash.flash_attention_q8(jq, k_q, k_s, v_q, v_s, jnp.asarray(off), scale,
+                                        sliding_window=16)
+
+        def tt(a):
+            return torch.from_numpy(np.asarray(a).copy())
+
+        got = flash.flash_attention_q8(_t(q, torch.bfloat16), tt(k_q), tt(k_s), tt(v_q),
+                                       tt(v_s), torch.from_numpy(off), scale, sliding_window=16)
+    else:
+        jt, tt_ = {"bf16": (jnp.bfloat16, torch.bfloat16), "f16": (jnp.float16, torch.float16),
+                   "f32": (jnp.float32, torch.float32)}[fmt]
+        ref = jflash.flash_attention(jq, jnp.asarray(k, jt), jnp.asarray(v, jt),
+                                     jnp.asarray(off), scale, sliding_window=16)
+        got = flash.flash_attention(_t(q, torch.bfloat16), _t(k, tt_), _t(v, tt_),
+                                    torch.from_numpy(off), scale, sliding_window=16)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert _nmse(got.float().numpy(), np.asarray(ref, np.float32)) <= 1e-5
 
 

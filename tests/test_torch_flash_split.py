@@ -126,6 +126,64 @@ def test_flash_prefill_reference_matches_pallas(case, q8):
     assert _nmse(got.float().numpy(), ref) <= NMSE_BOUND
 
 
+# head dims 80 (Phi-2) and 96 (Phi-3), as many KV heads as heads (their
+# MHA), every cache format, under a window: (T, offsets, window) in the
+# decode regime (T·G = 1, a split plan of two) and the prefill regime
+NARROW_CASES = [(1, (63, 200), 100), (40, (0, 150), 48)]
+NARROW_FORMATS = {"bf16": jnp.bfloat16, "f16": jnp.float16, "f32": jnp.float32, "q8": None}
+_TORCH_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_case(d: int, fmt: str, T: int, offsets: tuple, window: int):
+    """(torch args, kwargs, the JAX Pallas output as f32 numpy) at head dim
+    d on a cache of `fmt`, S = 256, 4 heads on 4 KV heads."""
+    q, k, v, off, _, _ = _case_inputs(T, offsets, 256, 4, 4, seed=d + T + window, D=d)
+    scale = d ** -0.5
+    jq = jnp.asarray(q, jnp.bfloat16)
+    kw = dict(scale=scale, sliding_window=window)
+    if fmt == "q8":
+        k_q, k_s = JQuantKVCache._quantize(jnp.asarray(k, jnp.bfloat16))
+        v_q, v_s = JQuantKVCache._quantize(jnp.asarray(v, jnp.bfloat16))
+        ref = jflash.flash_attention_q8(jq, k_q, k_s, v_q, v_s, jnp.asarray(off), scale,
+                                        sliding_window=window)
+
+        def tt(a):
+            return torch.from_numpy(np.asarray(a).copy())
+
+        args = (_t(q, torch.bfloat16), tt(k_q), tt(v_q), torch.from_numpy(off))
+        kw.update(k_scale=tt(k_s), v_scale=tt(v_s))
+    else:
+        jt = NARROW_FORMATS[fmt]
+        ref = jflash.flash_attention(jq, jnp.asarray(k, jt), jnp.asarray(v, jt),
+                                     jnp.asarray(off), scale, sliding_window=window)
+        args = (_t(q, torch.bfloat16), _t(k, _TORCH_DTYPES[fmt]), _t(v, _TORCH_DTYPES[fmt]),
+                torch.from_numpy(off))
+    return args, kw, np.asarray(ref, np.float32)
+
+
+@pytest.mark.parametrize("fmt", list(NARROW_FORMATS))
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("T,offsets,window", NARROW_CASES, ids=["decode", "prefill"])
+def test_own_orders_at_head_dims_80_and_96_match_pallas(T, offsets, window, d, fmt):
+    """The plain version of the order of the regime a call takes (the split
+    plan at T = 1, the 64-key tiles at T = 40), at head dims 80 and 96 on
+    each cache format under a window, against the JAX Pallas kernel and the
+    port's dense flash_reference."""
+    args, kw, ref = _narrow_case(d, fmt, T, offsets, window)
+    H, Hkv = args[0].shape[2], args[1].shape[1]
+    if flash.regime(T, H, Hkv) == "decode":
+        got = flash.flash_split_reference(*args, n_sm=8, **kw)
+        assert len(flash.kv_splits(offsets[1], T, 256, window,
+                                   flash.max_splits(2, Hkv, 256, 8))) == 2
+    else:
+        got = flash.flash_prefill_reference(*args, **kw)
+    dense = flash.flash_reference(*args, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert _nmse(got.float().numpy(), ref) <= NMSE_BOUND
+    assert _nmse(got.float().numpy(), dense.float().numpy()) <= NMSE_BOUND
+
+
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "q8"])
 def test_prefill_p_rounding_is_the_kernels(q8):
     """In f32 output (no bf16 output rounding to hide it): two bf16 terms of

@@ -14,7 +14,15 @@ gemma tree's norms, deepseek2's (`wk_b` / `wv_b` as tensors, the shared
 experts as linears, `exp_probs_b`, `wkv_b` None when absorbed), and the
 qwen-moe tree's (`shexp_gate_inp` as a tensor, the shared experts as
 linears, the dense lead layers' linears, `exp_probs_b`; a key the JAX
-layer lacks stays absent, as the forwards read layers with `get`).
+layer lacks stays absent, as the forwards read layers with `get`), the
+phi3 and qwen trees (q|k|v and gate|up fused by the JAX Engine from the
+row slices of one tensor: a FusedLinear whose planes are the port's
+fused load's; qwen's f32 biases) and phi2's (`attn_norm_b`, `bo`, `b_up`,
+`b_down`). The top-level entries beside the embedding and the layers carry
+over the same way (phi2's `output_norm_b` and `output_b`). Split q/k/v
+and gate/up of one type are then fused as the port's Engine fuses them
+(models/weights.py fuse_llama_params): phi2's, which the JAX Engine leaves
+apart, become the FusedLinear of the port's fused load.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import numpy as np
 import torch
 
 from .gguf.constants import GGMLType
-from .models.weights import DenseLinear, FusedLinear, QuantExpertStack, QuantLinear
+from .models.weights import (DenseLinear, FusedLinear, QuantExpertStack, QuantLinear,
+                             fuse_llama_params)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -59,9 +68,9 @@ def params_from_jax(tree_np: dict, device) -> dict:
     port's param dict."""
     layers = [{k: module_from_jax(v, device) for k, v in layer.items()}
               for layer in tree_np["layers"]]
-    return {
-        "tok_embd": tensor_from_numpy(tree_np["tok_embd"], device),
-        "layers": layers,
-        "output_norm": tensor_from_numpy(tree_np["output_norm"], device),
-        "output": module_from_jax(tree_np.get("output"), device),
-    }
+    out = {k: module_from_jax(v, device) for k, v in tree_np.items()
+           if k not in ("tok_embd", "layers")}
+    # q|k|v and gate|up fused where the port's Engine fuses them (the JAX
+    # Engine leaves phi2's apart)
+    return fuse_llama_params({"tok_embd": tensor_from_numpy(tree_np["tok_embd"], device),
+                              "layers": layers, "output": None, **out})

@@ -31,11 +31,15 @@
 //   lost: below a tile the merge they add costs more than the parallelism
 //   gives, so a short context is latency-bound by one block's pass over one
 //   tile (the launch, the scores, the softmax, P·V).
-//   Head dims 64, 128 and 256 (`launch`). At D = 256 an f32 cache's ring
-//   holds one stage (the shared memory of two exceeds the SM's).
+//   Head dims 64, 128 and 256 (`launch`), and 80 and 96 in a library of
+//   their own (-DTPULLM_FLASH_NARROW, so that its nvcc runs beside this
+//   one). At D = 256 an f32 cache's ring holds one stage (the shared memory
+//   of two exceeds the SM's).
 //   256 threads a block: in the scores, thread = (key, row group of 4), so
 //   the 8B's R = 4 is one row a thread; q is held once as f32 in shared
-//   memory. K/V tiles go 16 bytes a thread into a 2-stage cp.async ring.
+//   memory. In P·V a row takes the power of two of threads at or above D/4
+//   (each 4 features): 32 at D = 80 and 96, whose lanes past D/4 (20, 24)
+//   idle, so that the row groups divide the 256 threads and the 16 rows. K/V tiles go 16 bytes a thread into a 2-stage cp.async ring.
 //   Scores, softmax and P·V are f32 FMAs (no new rounding point; int8
 //   codes, f16 and bf16 are exact in f32, f32 is read as it is). A split
 //   writes f32 (m, l, acc) partials; the last block of each (batch, KV
@@ -192,15 +196,17 @@ __device__ __forceinline__ void decode_finish(__nv_bfloat16* __restrict__ out, i
 }
 
 // Shared memory of a decode block: q rows (f32), the K/V ring (K rows padded
-// by 16 bytes so that 8 lanes reading 8 keys hit distinct banks; q8: the
-// per-key scales after V), the probabilities p [16][65] and per-row state.
+// to an odd count of 16-byte units, by 16 bytes or, where the row is an odd
+// count already (q8 at D = 80: 5), by 32, so that 8 lanes reading 16 bytes
+// of 8 keys hit distinct banks; q8: the per-key scales after V), the
+// probabilities p [16][65] and per-row state.
 // The ring holds two stages where they fit, else one (f32 at D = 256: the
 // next tile is then loaded after the P·V of this one).
 template <int D, int KV>
 struct DecSmem {
   static constexpr bool kQ8 = KV == kKvQ8;
   static constexpr int kEs = kv_bytes<KV>();
-  static constexpr int kKPitch = D * kEs + 16;
+  static constexpr int kKPitch = D * kEs + (D * kEs / 16 % 2 ? 32 : 16);
   static constexpr int kVPitch = D * kEs;
   static constexpr int kV = kDecTK * kKPitch;
   static constexpr int kScales = kV + kDecTK * kVPitch;
@@ -215,8 +221,13 @@ struct DecSmem {
   static constexpr int bytes = row_off + 4 * kDecodeRows * 4 + 16;
   static_assert(kStages * kStage >= 2 * kMaxSplits * kDecodeRows * 4,
                 "the ring holds every split's (m, l) for the combine");
+  static_assert(D % 16 == 0 && D * kEs % 16 == 0, "K/V rows are whole 16-byte copies");
+  static_assert(kKPitch / 16 % 2 == 1, "a K row spans an odd count of 16-byte units");
   static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
+
+// the least power of two at or above n
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
 template <int D, int KV>
 __global__ void __launch_bounds__(kDecThreads)
@@ -236,9 +247,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
   using L = DecSmem<D, KV>;
   constexpr bool kQ8 = L::kQ8;
   constexpr int RB = D * L::kEs;  // bytes of one K or V row
-  constexpr int QD = D / 4;       // threads a row in P·V (4 features each)
-  constexpr int RG = kDecThreads / QD;
-  constexpr int RPT = kDecodeRows / RG;  // rows a thread in P·V
+  constexpr int QD = D / 4;                 // 4-feature groups of a row in P·V
+  constexpr int QT = pow2_at_least(QD);     // threads a row in P·V (those past QD idle)
+  constexpr int RG = kDecThreads / QT;      // row groups in P·V
+  constexpr int RPT = kDecodeRows / RG;     // rows a thread in P·V
+  static_assert(kDecThreads % QT == 0 && RG > 0 && kDecodeRows % RG == 0 && RPT * RG == kDecodeRows,
+                "P·V's row groups divide the block's threads and its rows");
+  static_assert(kDecThreads % kDecTK == 0 && kDecodeRows % (kDecThreads / kDecTK) == 0 &&
+                    kDecodeRows % kDecWarps == 0,
+                "the scores' row groups and the softmax's warps divide the rows");
   extern __shared__ __align__(16) char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::q_off);
   char* ring = smem + L::ring_off;
@@ -297,11 +314,12 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
   }
 
   // scores: thread = key j of the tile, rows grp + kGroups·i; softmax: warp
-  // w, rows w + kDecWarps·i; P·V: features 4·(tid % QD) .., rows tid / QD +
-  // RG·i
+  // w, rows w + kDecWarps·i; P·V: features 4·(tid % QT) .. (a thread whose
+  // tid % QT ≥ QD holds none: `pv` false), rows tid / QT + RG·i
   constexpr int kGroups = kDecThreads / kDecTK;
   const int j = tid % kDecTK, grp_r = tid / kDecTK;
-  const int dq = tid % QD, rg = tid / QD;
+  const int dq = tid % QT, rg = tid / QT;
+  const bool pv = dq < QD;
   float m_r[kDecodeRows / kDecWarps], l_r[kDecodeRows / kDecWarps];
 #pragma unroll
   for (int i = 0; i < kDecodeRows / kDecWarps; ++i) {
@@ -400,7 +418,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
           for (int e = 0; e < 4; ++e) acc[i][e] *= c;
         }
       }
-      const int nk = min(kDecTK, k1 - kt);  // keys past k1 have p = 0
+      const int nk = pv ? min(kDecTK, k1 - kt) : 0;  // keys past k1 have p = 0
 #pragma unroll 4
       for (int jj = 0; jj < nk; ++jj) {
         float vv[4];
@@ -438,8 +456,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rg + RG * i;
-      if (r < R) decode_finish(out, b, T, H, hk * G + r % G, r / G, D, dq, m_s[r], l_s[r], acc[i],
-                               sinks);
+      if (pv && r < R)
+        decode_finish(out, b, T, H, hk * G + r % G, r / G, D, dq, m_s[r], l_s[r], acc[i], sinks);
     }
     return;
   }
@@ -451,7 +469,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
-    if (r < R)
+    if (pv && r < R)
       *reinterpret_cast<float4*>(pacc + (size_t)r * D + 4 * dq) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
@@ -492,7 +510,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
-    if (r >= R) continue;
+    if (!pv || r >= R) continue;
     float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int zz = 0; zz < sp.n; ++zz) {  // in split order
@@ -540,6 +558,9 @@ struct PreSmem {
   static constexpr int bytes = conv_off + kConvBytes;
   static_assert(kConv ? (!kQ8 || kStages == 2) : kStages == 2,
                 "bf16 and q8 (whose scales stay in the ring) hold two stages");
+  static_assert(D % 16 == 0 && kPitch * 2 / 16 % 2 == 1,
+                "whole 16-wide k-steps; a row spans an odd count of 16-byte units (ldmatrix's "
+                "8 rows in distinct bank groups)");
   static_assert(kPreBM * kPitch * 2 <= bytes - q_off, "the Q tile fits where it is copied");
   static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
@@ -1285,6 +1306,14 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   switch (D) {
+#ifdef TPULLM_FLASH_NARROW
+    case 80:
+      return launch_d<80, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
+                               counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
+    case 96:
+      return launch_d<96, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
+                               counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
+#else
     case 64:
       return launch_d<64, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
                                counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
@@ -1296,6 +1325,7 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
       return launch_d<256, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
                                 partial, counters, B, T, H, Hkv, S, scale, softcap, window,
                                 max_splits, s);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1303,7 +1333,8 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 }  // namespace
 
 #ifndef TPULLM_FLASH_LATENT
-// partial: f32 [B·Hkv·max_splits·R·(D + 2)] and counters: int32 [B·Hkv]
+// The dense and q8 entries (this library: D 64, 128 and 256; under
+// -DTPULLM_FLASH_NARROW: D 80 and 96). partial: f32 [B·Hkv·max_splits·R·(D + 2)] and counters: int32 [B·Hkv]
 // (zero, left zero) for the decode regime, R = T·H/Hkv ≤ 16; unread (may be
 // null) in the prefill regime.
 #define TPULLM_FLASH_DENSE(name, KV)                                                        \

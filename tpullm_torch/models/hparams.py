@@ -1,5 +1,5 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-qwen-moe, gemma and deepseek2 forwards read, and the metadata → hparams
+qwen-moe, gemma, deepseek2 and phi2 forwards read, and the metadata → hparams
 mapping for the archs the port runs (`ARCHS`), as the JAX package's
 models/hparams.py maps them."""
 
@@ -13,7 +13,7 @@ from ..gguf.reader import GGUFReader
 
 # the archs whose metadata this module maps (models/registry.py runs them):
 # the llama graph and its aliases, the qwen-moe graph and its aliases, the
-# gemma family and deepseek2
+# gemma family, deepseek2, and phi3, phi2 and qwen (v1)
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
@@ -21,7 +21,7 @@ QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1
                     "hunyuan-moe", "minimax-m2", "bailingmoe", "bailingmoe2", "glm4moe",
                     "exaone-moe")
 ARCHS = ("llama", *LLAMA_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES, "gemma", "gemma2", "gemma3",
-         "deepseek2")
+         "deepseek2", "phi3", "phi2", "qwen")
 # the default interleave of sliding-window layers: every Nth layer global
 _SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 

@@ -220,13 +220,20 @@ def finish(hp: HParams, params: Params, x: torch.Tensor, last_index, return_hidd
     batch row b (a [B] device tensor)."""
     if return_hidden:
         return rms_norm(x, params["output_norm"], hp.rms_eps).float()
+    return output_head(hp, params, pick_rows(x, last_index))
+
+
+def pick_rows(x: torch.Tensor, last_index) -> torch.Tensor:
+    """The rows of x [B, T, E] the head runs on: every row (None), row
+    last_index (a host int), or row last_index[b] of batch row b (a [B]
+    device tensor: no read-back, so a captured forward holds it)."""
     if isinstance(last_index, torch.Tensor):  # one flagged row per batch row
         B = x.shape[0]
         idx = last_index.to(torch.int64).reshape(B, 1, 1).expand(B, 1, x.shape[-1])
-        x = x.gather(1, idx)
-    elif last_index is not None:
-        x = x[:, last_index:last_index + 1]
-    return output_head(hp, params, x)
+        return x.gather(1, idx)
+    if last_index is not None:
+        return x[:, last_index:last_index + 1]
+    return x
 
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,

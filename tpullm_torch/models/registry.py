@@ -3,8 +3,10 @@ forward), the rows of the JAX package's models/registry.py that the port
 runs: `llama` with 17 of its aliases (models/hparams.py LLAMA_ALIASES; the
 JAX package's arcee, apertus, llama-embed, qwen2vl and qwen3vl wait for
 their options), `qwen3moe` with 11 aliases (QWEN_MOE_ALIASES; qwen3vlmoe
-waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma` and `deepseek2` (its
-aliases minicpm3 and plm are not ported)."""
+waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma`, `deepseek2` (its
+aliases minicpm3 and plm are not ported), `phi3` and `qwen` (their fused
+tensors loaded by models/phi3.py and models/qwen.py, the llama forward) and
+`phi2` (phimoe waits)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import deepseek2, gemma, llama, qwen_moe
+from . import deepseek2, gemma, llama, phi2, phi3, qwen, qwen_moe
 from .hparams import LLAMA_ALIASES, QWEN_MOE_ALIASES, HParams, hparams_from_gguf
 
 
@@ -37,7 +39,10 @@ _REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES)},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
              "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
              "deepseek2": ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
-                                   make_cache=deepseek2.make_cache)}
+                                   make_cache=deepseek2.make_cache),
+             "phi3": ArchSpec("phi3", phi3.build_params, llama.forward),
+             "phi2": ArchSpec("phi2", phi2.build_params, phi2.forward),
+             "qwen": ArchSpec("qwen", qwen.build_params, llama.forward)}
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -1,5 +1,5 @@
-"""Synthesis of random *packed* llama, qwen, gemma and deepseek2 models from
-a seed.
+"""Synthesis of random *packed* llama, qwen, gemma, deepseek2 and phi models
+from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -123,6 +123,42 @@ SHAPES = {
                           n_ff=512, n_vocab=384, rope_base=1000000.0, rms_eps=1e-6,
                           n_expert=16, n_expert_used=4, n_ff_exp=256, n_ff_shexp=512,
                           qkv_bias=True, vocab="bpe", pre="qwen2"),
+    # microsoft/Phi-3-mini-4k-instruct config.json: 32 layers, hidden 3072, 32
+    # heads over 32 KV heads (head dim 96), intermediate_size 8192 (ffn_up
+    # holds gate | up: 16384 rows), vocab 32064 (SPM), rope_theta 10000,
+    # rms_norm_eps 1e-5, sliding_window 2047 (every layer: no pattern key),
+    # max_position_embeddings 4096, untied
+    "phi-3-mini-4k": dict(arch="phi3", n_layer=32, n_embd=3072, n_head=32, n_head_kv=32,
+                          n_ff=8192, n_vocab=32064, rope_base=10000.0, rms_eps=1e-5,
+                          sliding_window=2047, n_ctx=4096),
+    # microsoft/phi-2 config.json: 32 layers, hidden 2560, 32 heads (head dim
+    # 80), intermediate_size 10240, partial_rotary_factor 0.4 (32 rotary
+    # dims), vocab 51200 (GPT-2's byte-level BPE, pre "phi-2"),
+    # layer_norm_eps 1e-5, max_position_embeddings 2048; LayerNorms with
+    # biases, q|k|v fused with a bias, biased FFN and head
+    "phi-2": dict(arch="phi2", n_layer=32, n_embd=2560, n_head=32, n_head_kv=32, n_ff=10240,
+                  n_rot=32, n_vocab=51200, rope_base=10000.0, rms_eps=1e-5, n_ctx=2048,
+                  vocab="bpe", pre="phi-2"),
+    # Qwen/Qwen-7B config.json: 32 layers, hidden 4096, 32 heads of 128 (MHA),
+    # intermediate_size 22016 (the GGUF's feed_forward_length is half: 11008,
+    # the width of gate and of up), vocab 151936, rotary_emb_base 10000,
+    # layer_norm_epsilon 1e-6, seq_length 8192, untied; q|k|v fused with a
+    # bias; Qwen's BPE (pre "qwen2")
+    "qwen-7b": dict(arch="qwen", n_layer=32, n_embd=4096, n_head=32, n_head_kv=32, n_ff=11008,
+                    n_vocab=151936, rope_base=10000.0, rms_eps=1e-6, n_ctx=8192, vocab="bpe",
+                    pre="qwen2"),
+    # the Phi and Qwen (v1) test models, every K a multiple of 256 (the packed
+    # K-quant planes): tiny-phi3 with Phi-3-mini's head dim 96 (8 heads) and
+    # a window of 16 (below the tests' prompts); tiny-phi2 with Phi-2's head
+    # dim 80 (16 heads) and 32 rotary dims, LayerNorm biases and a biased
+    # head; tiny-qwen at the widths of "tiny"
+    "tiny-phi3": dict(arch="phi3", n_layer=2, n_embd=768, n_head=8, n_head_kv=8, n_ff=512,
+                      n_vocab=384, rope_base=10000.0, rms_eps=1e-5, sliding_window=16),
+    "tiny-phi2": dict(arch="phi2", n_layer=2, n_embd=1280, n_head=16, n_head_kv=16, n_ff=512,
+                      n_rot=32, n_vocab=384, rope_base=10000.0, rms_eps=1e-5, vocab="bpe",
+                      pre="phi-2"),
+    "tiny-qwen": dict(arch="qwen", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                      n_vocab=384, rope_base=10000.0, rms_eps=1e-6, vocab="bpe", pre="qwen2"),
 }
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
@@ -267,6 +303,10 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     Q5_0, Q5_K → Q5_1, Q6_K → Q8_0, TQ1_0 / TQ2_0 → Q4_0, Q2_K, Q3_K and
     the i-quants → IQ4_NL).
 
+    A fused attn_qkv (phi3, phi2, qwen) takes llama.cpp's attn_qkv rule:
+    Q5_K at Q4_K_M, Q4_K at Q3_K_M and IQ3_M, else the default type
+    (ffn_up, fused gate|up or not, the default).
+
     deepseek2's tensors: attn_q (or attn_q_a and attn_q_b), attn_kv_a_mqa,
     attn_kv_b and attn_output take the default type (no rule names them:
     attn_kv_b counts among llama.cpp's attn_v tensors but is not typed as
@@ -277,10 +317,10 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     experts take Q5_0, or Q8_0 on use_more_bits layers, as does its dense
     lead's K = 10944 ffn_down.
 
-    | ftype | default | attn_v | attn_output | ffn_down | output | token_embd |
-    | Q4_K_M | Q4_K | Q6_K on use_more_bits layers | Q4_K | Q6_K on use_more_bits layers | Q6_K | Q4_K |
-    | Q2_K | Q2_K | Q4_K | Q3_K | Q3_K | Q6_K | Q2_K |
-    | Q3_K_M | Q3_K | Q5_K for layers 0-1, else Q4_K | Q4_K | Q5_K for i < n/16, else Q4_K | Q6_K | Q3_K |
+    | ftype | default | attn_v | attn_output | ffn_down | output | token_embd | attn_qkv |
+    | Q4_K_M | Q4_K | Q6_K on use_more_bits layers | Q4_K | Q6_K on use_more_bits layers | Q6_K | Q4_K | Q5_K |
+    | Q2_K | Q2_K | Q4_K | Q3_K | Q3_K | Q6_K | Q2_K | default |
+    | Q3_K_M | Q3_K | Q5_K for layers 0-1, else Q4_K | Q4_K | Q5_K for i < n/16, else Q4_K | Q6_K | Q3_K | Q4_K |
     | Q4_0, Q4_1, Q5_0, Q5_1 | that type | default | default | default | Q6_K | default |
     | IQ4_NL, IQ4_XS | that type | Q5_K | default | Q5_K for i < n/8, else default | Q6_K | default |
     | MXFP4_MOE | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 | Q8_0 |
@@ -288,7 +328,7 @@ def preset_type(ftype: str, kind: str, i_layer: int, n_layer: int,
     | IQ2_M | IQ2_S | Q4_K | IQ3_S | IQ3_S for i < n/8 | Q5_K | IQ3_S |
     | IQ1_S, IQ1_M | that type | Q4_K | IQ2_XXS | Q2_K for i < n/8 | Q5_K | Q2_K |
     | IQ3_XXS | IQ3_XXS (attn_q, attn_k IQ2_S) | Q4_K | default | Q4_K for i < n/8, else Q3_K | Q5_K | IQ3_S |
-    | IQ3_M | IQ3_S | Q4_K | Q4_K | Q4_K for i < n/8 | Q6_K | IQ3_S |
+    | IQ3_M | IQ3_S | Q4_K | Q4_K | Q4_K for i < n/8 | Q6_K | IQ3_S | Q4_K |
     | TQ1_0, TQ2_0 | that type | default | default | default | Q6_K | Q4_K |
 
     MXFP4_MOE makes every expert stack MXFP4. Q4_K_M with exactly 8
@@ -308,6 +348,8 @@ def _preset_type(ftype: str, kind: str, i_layer: int, n_layer: int, n_expert: in
     if ftype == "MXFP4_MOE":
         return GGMLType.MXFP4 if kind.endswith("_exps") else GGMLType.Q8_0
     kind = kind.removesuffix("_exps").removesuffix("_shexp")
+    if kind == "attn_qkv" and ftype in ("Q4_K_M", "Q3_K_M", "IQ3_M"):
+        return GGMLType.Q5_K if ftype == "Q4_K_M" else GGMLType.Q4_K
     if ftype == "Q4_K_M":
         if kind == "output":
             return GGMLType.Q6_K
@@ -460,6 +502,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     arch = cfg.get("arch", "llama")
     gemma = arch.startswith("gemma")
     mla = arch == "deepseek2"
+    phi2 = arch == "phi2"
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = n_vocab or cfg["n_vocab"]
@@ -487,9 +530,10 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.feed_forward_length", n_ff)
     w.add_kv(f"{arch}.attention.head_count", n_head)
     w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
-    w.add_kv(f"{arch}.attention.layer_norm_rms_epsilon", cfg.get("rms_eps", 1e-5))
+    w.add_kv(f"{arch}.attention.layer_norm_{'' if phi2 else 'rms_'}epsilon",
+             cfg.get("rms_eps", 1e-5))
     w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
-    w.add_kv(f"{arch}.rope.dimension_count", cfg.get("qk_rope", head_dim))
+    w.add_kv(f"{arch}.rope.dimension_count", cfg.get("n_rot", cfg.get("qk_rope", head_dim)))
     w.add_kv(f"{arch}.vocab_size", n_vocab)
     if gemma or head_dim != n_embd // n_head:
         w.add_kv(f"{arch}.attention.key_length", head_dim)
@@ -518,6 +562,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         w.add_kv(f"{arch}.expert_gating_func", cfg["gating"])
     if "sliding_window" in cfg:
         w.add_kv(f"{arch}.attention.sliding_window", cfg["sliding_window"])
+    if "swa_pattern" in cfg:
         w.add_kv(f"{arch}.attention.sliding_window_pattern", cfg["swa_pattern"])
     if "softcaps" in cfg:
         w.add_kv(f"{arch}.attn_logit_softcapping", cfg["softcaps"][0])
@@ -571,6 +616,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     packed("token_embd.weight", n_vocab, n_embd)
     if mla:
         _deepseek2_layers(cfg, n_layer, packed, norm, router)
+    elif arch in ("phi3", "phi2", "qwen"):
+        _fused_qkv_layers(cfg, n_layer, packed, norm, vector)
     else:
         n_ff_exp, n_sh = cfg.get("n_ff_exp", n_ff), cfg.get("n_ff_shexp", 0)
         for i in range(n_layer):
@@ -610,7 +657,43 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     norm("output_norm.weight", n_embd)
     if not gemma:  # gemma ties its head to token_embd
         packed("output.weight", n_vocab, n_embd)
+    if phi2:
+        vector("output_norm.bias", n_embd, 0.1)
+        vector("output.bias", n_vocab, 0.1)
     return w
+
+
+def _fused_qkv_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
+    """The layers of a phi3, phi2 or qwen shape, with the tensor names
+    llama.cpp's converter writes: q|k|v in one attn_qkv (with one fused
+    bias in qwen and phi2); phi3's ffn_up holds gate | up (2·n_ff rows),
+    qwen has gate and up apart, phi2 an un-gated up; phi2's LayerNorms and
+    its wo, up and down carry biases (random, as the qkv bias)."""
+    arch, n_embd, n_ff = cfg["arch"], cfg["n_embd"], cfg["n_ff"]
+    head_dim = n_embd // cfg["n_head"]
+    n_qkv = (cfg["n_head"] + 2 * cfg["n_head_kv"]) * head_dim
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        norm(p + "attn_norm.weight", n_embd)
+        packed(p + "attn_qkv.weight", n_qkv, n_embd, i)
+        if arch != "phi3":
+            vector(p + "attn_qkv.bias", n_qkv, 0.1)
+        packed(p + "attn_output.weight", n_embd, cfg["n_head"] * head_dim, i)
+        if arch == "phi2":
+            vector(p + "attn_norm.bias", n_embd, 0.1)
+            vector(p + "attn_output.bias", n_embd, 0.1)
+            packed(p + "ffn_up.weight", n_ff, n_embd, i)
+            vector(p + "ffn_up.bias", n_ff, 0.1)
+            packed(p + "ffn_down.weight", n_embd, n_ff, i)
+            vector(p + "ffn_down.bias", n_embd, 0.1)
+            continue
+        norm(p + "ffn_norm.weight", n_embd)
+        if arch == "phi3":
+            packed(p + "ffn_up.weight", 2 * n_ff, n_embd, i)
+        else:
+            packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+            packed(p + "ffn_up.weight", n_ff, n_embd, i)
+        packed(p + "ffn_down.weight", n_embd, n_ff, i)
 
 
 def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:

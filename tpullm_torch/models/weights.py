@@ -106,6 +106,18 @@ class FusedLinear(nn.Module):
         return torch.split(self.base(x), self.splits, dim=-1)
 
 
+def load_fused(info: GGUFTensorInfo, splits: tuple[int, ...], device, dtype=torch.bfloat16,
+               mode: str = "auto") -> FusedLinear:
+    """A GGUF tensor that holds several same-input linears one after another
+    in its rows (phi3's and qwen's attn_qkv, phi3's gate|up ffn_up) as one
+    FusedLinear of `splits` output widths: the tensor loads once as one
+    linear (a packed tensor's rows are whole blocks, so its planes are the
+    parts' planes side by side), never split and fused again."""
+    if sum(splits) != info.shape[1]:
+        raise ValueError(f"{info.name}: splits {splits} of {info.shape[1]} rows")
+    return FusedLinear(load_linear(info, device, dtype, mode), splits)
+
+
 def fuse_linears(linears: list) -> FusedLinear | None:
     """Concatenate same-type, same-n_in linears along n_out; None when the
     set is heterogeneous (e.g. Q4_K wq/wk beside a Q6_K wv: the Q4_K_M

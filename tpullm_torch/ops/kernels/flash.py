@@ -8,7 +8,10 @@ int8+scale-KV instantiation (quant=True, entry flash_attention_q8). Source:
 tpullm_torch/csrc/flash.cu, in two regimes picked by `regime` from the query
 rows that share one KV head, R = T·H/Hkv: up to DECODE_ROWS the split-KV
 decode kernel (CUDA cores; bound: the K/V bytes up to kv_len), above it the
-tensor-core prefill kernel (bound: the QK and PV products).
+tensor-core prefill kernel (bound: the QK and PV products). Head dims 64,
+128 and 256 in the library `flash`, 80 and 96 (Phi-2, Phi-3) in
+`flash_narrow`, the same source built apart so that the two compile side
+by side.
 
 Layouts as in the JAX package: q [B, T, H, D] (caller layout), k/v
 [B, Hkv, S, D] (cache layout), k_s/v_s [B, Hkv, S] f32, offsets [B] int32
@@ -43,7 +46,8 @@ from . import _build
 # the KV formats of the kernels: the dense cache dtypes, then int8 + scales
 DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 FORMATS = (*DENSE_FORMATS.values(), "q8")
-_HEAD_DIMS = (64, 128, 256)  # the head dims csrc/flash.cu instantiates
+_HEAD_DIMS = (64, 80, 96, 128, 256)  # the head dims csrc/flash.cu instantiates
+NARROW_DIMS = (80, 96)  # those of its library `flash_narrow` (-DTPULLM_FLASH_NARROW)
 LATENT_DIMS = ((576, 512),)  # (Dk, Dv) of the latent form it instantiates (bf16)
 
 
@@ -338,6 +342,11 @@ def _check_latent(q, k, v, offsets, softcap, window, sinks, slopes):
             raise ValueError("flash: operands must be contiguous and aligned")
 
 
+def _library(d: int) -> str:
+    """The kernel library that instantiates head dim d."""
+    return "flash_narrow" if d in NARROW_DIMS else "flash"
+
+
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -415,7 +424,7 @@ def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,
     if fmt is None or v.dtype != k.dtype:
         raise ValueError(f"flash: the dense kernels take a bf16, f16 or f32 cache (K and V "
                          f"alike), got {k.dtype} / {v.dtype}")
-    fn = _build.bind("flash", f"tpullm_flash_{fmt}", _DENSE_ARGS)
+    fn = _build.bind(_library(q.shape[-1]), f"tpullm_flash_{fmt}", _DENSE_ARGS)
     return _launch(fmt, fn, q, (k.data_ptr(), v.data_ptr()), k, offsets, scale, softcap,
                    sliding_window, sinks, alibi_slopes)
 
@@ -432,6 +441,6 @@ def flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale: float,
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 or \
             k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
         raise ValueError("flash: the q8 kernel takes int8 codes and f32 scales")
-    fn = _build.bind("flash", "tpullm_flash_q8", _Q8_ARGS)
+    fn = _build.bind(_library(q.shape[-1]), "tpullm_flash_q8", _Q8_ARGS)
     return _launch("q8", fn, q, (k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr()),
                    k_q, offsets, scale, softcap, sliding_window, sinks, alibi_slopes)

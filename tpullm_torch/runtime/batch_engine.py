@@ -28,28 +28,23 @@ SWACache) with one ring a slot, sized for `prefill_chunk`, as the JAX
 package's BatchEngine gives it; a freed slot's ring is marked empty.
 
 Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.4, 1.6): mesh serving and the
-pipeline, a shared `Model`, recurrent archs, speculative verification on
-the ring cache and multimodal prefill (`prefill_slot_embeddings`).
+pipeline, recurrent archs, speculative verification on the ring cache and
+multimodal prefill (`prefill_slot_embeddings`).
 """
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
 import torch
 
-from .. import tokenizer as tokenizer_mod
-from ..device import resolve_device
-from ..gguf.reader import GGUFReader
-from ..models.registry import get_arch, load_hparams
-from ..models.weights import fuse_llama_params
 from ..ops.rope import rotate_cached_keys
 from .engine import PREFILL_BUCKETS, PerfCounters
 from .graph import BatchRunner
 from .kvcache import (KVCache, QuantKVCache, SWACache, make_cache, refuse_speculation,
                       takes_ring)
+from .model import Model
 
 
 def _not_ported(what: str, item: str):
@@ -62,23 +57,16 @@ class BatchEngine:
                  prefill_chunk: int = 512, mesh=None):
         """`device=None` means CUDA (raises when there is none); the tests
         pass device="cpu". `mode`, `dtype` and `kv_dtype` as Engine's;
-        `prefill_chunk` caps the prompt tokens of one slot a round."""
+        `prefill_chunk` caps the prompt tokens of one slot a round.
+        `model_path` may be a loaded `runtime/model.py` Model, whose weights
+        the engine then shares."""
         if mesh is not None:
             raise _not_ported("mesh serving (tensor, data and pipeline parallel)", "1.3.9")
-        if not isinstance(model_path, (str, os.PathLike)):
-            raise _not_ported("a shared Model (runtime/model.py)", "1.4")
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(f"dtype {dtype}: on the card the flash kernels take bf16 "
-                             "queries, so the activations are bf16")
         t0 = time.perf_counter()
-        self.reader = GGUFReader(model_path)
-        self.hp = load_hparams(self.reader)
-        self.arch = get_arch(self.hp.arch)
-        self.tokenizer = tokenizer_mod.from_gguf(self.reader)
-        with torch.inference_mode():
-            self.params = fuse_llama_params(
-                self.arch.build_params(self.reader, self.hp, self.device, dtype, mode))
+        self.model = Model.of(model_path, device, mode, dtype)
+        self.device = self.model.device
+        self.reader, self.hp, self.arch = self.model.reader, self.model.hp, self.model.arch
+        self.tokenizer, self.params = self.model.tokenizer, self.model.params
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)

@@ -37,14 +37,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import tokenizer as tokenizer_mod
-from ..device import resolve_device
-from ..gguf.reader import GGUFReader
-from ..models.registry import get_arch, load_hparams
-from ..models.weights import fuse_llama_params
 from ..ops.sampling_ops import SamplingParams, sample_token
 from .graph import DecodeRunner, LogitsRunner, VerifyRunner
 from .kvcache import SWACache, describe, make_cache, refuse_speculation, takes_ring
+from .model import Model
 from .sampling import Sampler, SamplerParams
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -77,21 +73,14 @@ class Engine:
         torch dtype or a cache type: "f16", "bf16", "f32", "q8_0".
         `override_kv` updates the GGUF metadata before anything reads it
         (≡ --override-kv). `swa_full` keeps a full-size cache for the
-        sliding-window layers of an iSWA model (≡ --swa-full)."""
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            raise ValueError(f"dtype {dtype}: on the card the flash kernels take bf16 "
-                             "queries, so the activations are bf16")
+        sliding-window layers of an iSWA model (≡ --swa-full).
+        `model_path` may be a loaded `runtime/model.py` Model, whose weights
+        the engine then shares (its load time is then the cache's)."""
         t0 = time.perf_counter()
-        self.reader = GGUFReader(model_path)
-        if override_kv:
-            self.reader.metadata.update(override_kv)
-        self.hp = load_hparams(self.reader)
-        self.arch = get_arch(self.hp.arch)
-        self.tokenizer = tokenizer_mod.from_gguf(self.reader)
-        with torch.inference_mode():
-            params = self.arch.build_params(self.reader, self.hp, self.device, dtype, mode)
-            self.params = fuse_llama_params(params)
+        self.model = Model.of(model_path, device, mode, dtype, override_kv)
+        self.device = self.model.device
+        self.reader, self.hp, self.arch = self.model.reader, self.model.hp, self.model.arch
+        self.tokenizer, self.params = self.model.tokenizer, self.model.params
         self.max_seq = max_seq
         self.batch = 1
         self.kv_dtype, self.swa_full = kv_dtype, swa_full
