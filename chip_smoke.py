@@ -41,12 +41,19 @@ Phases, in order; any failure raises and exits nonzero:
     T = 512 (B = 2, and B = 1 in the window), each timed as in 3 and
     against the plain version of its own order, and Gemma-2's softcap 50
     in both regimes;
- 3a'. flash's latent form (the MLA cache: Dk 576, Dv 512, bf16, 16 heads on
-    one KV head, S = 4096): the decode regime at T = 1 (B = 2, kv 38 /
-    3001; B = 1, kv 20; an idle slot) and the prefill regime at T = 512
-    (offsets 0 / 2500) and in a joint round (B = 4, T = 8, two idle), each
-    against its plain version and that of its own order, timed beside its
-    bound and SDPA (enable_gqa);
+ 3a'. flash mla, flash dkdv: flash's latent form (the MLA cache, bf16, one
+    KV head, S = 4096) at DeepSeek-V2-Lite's (Dk 576, Dv 512, 16 heads): the decode
+    regime at T = 1 (B = 2, kv 38 / 3001; B = 1, kv 20; an idle slot) and
+    at T = 2 and 4 (R = 32, 64: row groups), the prefill regime at T = 512
+    (offsets 0 / 2500) and in a joint round (B = 4, T = 8, two idle); at
+    MiniCPM3's (288, 256, 40 heads): the decode regime at T = 1 (R = 40,
+    B = 2, kv 38 / 3001; also the prefill kernel timed at that call), T =
+    512 and a joint round; flash at Dk ≠ Dv (the library flash_dkdv): (192,
+    128) at 16 heads on 16 and (96, 64) at 40 on 40, bf16, f16, f32 and q8
+    caches, T = 1 and 512, B = 2, kv 38 / 3001; each against its plain
+    version and that of its own order, one counted launch a call, timed
+    beside its bound and SDPA (on the cache's dtype; enable_gqa for the
+    latent);
  3a''. phi kernels: qmm at the Phi-3-mini, Phi-2 and Qwen-7B (v1) 2-D
     shapes (the fused attn_qkv at Q5_K, Phi-3's gate|up, the Q6_K downs
     and heads), M = 1 and 512; flash at head dims 96 and 80 (Phi-3-mini,
@@ -187,9 +194,9 @@ Phases, in order; any failure raises and exits nonzero:
  8d. qwen: tiny-qwen3moe (bf16 and q8), tiny-qwen2moe and tiny-qwen2 on
     the card against the CPU; Qwen3-30B-A3B Q4_K_M (48 layers, n_embd 2048,
     32 heads over 4 of 128, 128 experts top-8 of 768, vocab 151936, Qwen's
-    BPE with pre "qwen2") synthesized from a seed at full depth (17.28
-    GiB): what earlier phases leave on the card, load s and peak GiB, served
-    through Engine (`serve`) on a bf16 and on a q8 cache, prompts of 16
+    BPE with pre "qwen2") synthesized from a seed at full width with 24 of
+    its 48 layers: what earlier phases leave on the card, load s and peak GiB, served
+    through Engine (`serve`) on a bf16 cache, prompts of 16
     (the gather at 128 rows), 2560 (one forward at the 4096 bucket, every
     expert on every token) and 512 (on the bf16 cache 2560 again: the
     determinism check), 64 greedy tokens each on the decode graph,
@@ -212,10 +219,26 @@ Phases, in order; any failure raises and exits nonzero:
     and teacher-forced against dense bf16 weights; Qwen-7B (v1) Q4_K_M at
     full width with 2 layers, served and teacher-forced against dense
     bf16 weights; no dequantize-route or dense-attention call;
+ 8f. mla models: deepseek2's MLA aliases synthesized from seed 0 at Q4_K_M:
+    tiny-minicpm3 and tiny-plm on the card against the CPU in both MLA
+    forms; MiniCPM3-4B (minicpm3: n_embd 2560, 40 heads on the latent 256 +
+    32, q LoRA 768, dense SwiGLU, vocab 73448) at full width with 24 of its
+    62 layers on the bf16 latent, context 4096: load s and peak GiB,
+    prompts of 512 and 2560 tokens cold and warm, 64 greedy tokens each on
+    the decode graph, TTFT, decode tok/s, launches per forward (flash's
+    latent form at (288, 256) once a layer in both regimes: the decode
+    regime at R = 40), device ms by family, teacher-forced against dense
+    bf16 weights; PLM-1.8B (plm: 32 layers, n_embd 2048, 16 heads on the
+    latent 512 + 64, q direct, a gateless ReLU² FFN of 8192, vocab 151936,
+    tied) at full width and depth the same way and a BatchEngine of 4 slots
+    on its Model teacher-forced against Engine; each model's decompressed
+    form (TPULLM_MLA=0: flash at (96, 64) and (192, 128)) on bf16, q8, f16
+    and f32 caches, briefly, its bf16 logits held against the absorbed
+    form's on the same ids;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
-    attention call at head dims (192, 128), the decompressed MLA form, through
-    the counted dense path;
+    attention call at head dims (112, 112), which no kernel instantiates,
+    through the counted dense path;
 10. the card line, the `kernels` JSON line, and the result line.
 
 Every serving run checks its launches per regime: each forward's 2-D qmm
@@ -287,10 +310,15 @@ FLASH_KEYS = tuple(f"flash_{fmt}" for fmt in FLASH_FORMATS)
 FLASH256_KEYS = tuple(f"flash_{fmt}_d256" for fmt in FLASH_FORMATS)
 # flash's instantiations at head dims 96 and 80 (Phi-3, Phi-2), a line each
 FLASH_NARROW_KEYS = tuple(f"flash_{fmt}_d{d}" for d in (96, 80) for fmt in FLASH_FORMATS)
-# flash's latent form (the MLA cache: Dk 576, Dv 512, bf16)
+# flash's latent form (the MLA cache, bf16): Dk 576, Dv 512 (DeepSeek-V2,
+# PLM) and Dk 288, Dv 256 (MiniCPM3)
 FLASH_MLA_KEY = "flash_bf16_d576v512"
+FLASH_MLA288_KEY = "flash_bf16_d288v256"
+# flash at key width ≠ value width (the decompressed MLA form), a line each
+DKDV_DIMS = ((192, 128), (96, 64))
+FLASH_DKDV_KEYS = tuple(f"flash_{fmt}_d{d}v{dv}" for d, dv in DKDV_DIMS for fmt in FLASH_FORMATS)
 KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS,
-           *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY)
+           *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY, FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
@@ -302,22 +330,26 @@ REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   **{f"flash_{fmt}_d256": f"{fmt} T=1 B=2 S=4096 D=256" for fmt in FLASH_FORMATS},
                   **{f"flash_{fmt}_d{d}": f"{fmt} T=1 B=2 S=4096 D={d}" for d in (96, 80)
                      for fmt in FLASH_FORMATS},
-                  FLASH_MLA_KEY: "T=1 B=2 kv=38/3001 S=4096"}
+                  FLASH_MLA_KEY: "T=1 B=2 kv=38/3001 S=4096",
+                  FLASH_MLA288_KEY: "d288v256 H=40 T=1 B=2 kv=38/3001 S=4096",
+                  **{f"flash_{fmt}_d{d}v{dv}": f"{fmt} T=1 B=2 S=4096 D={d}/{dv}"
+                     for d, dv in DKDV_DIMS for fmt in FLASH_FORMATS}}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
             "qmm_stack": "tpullm/ops/pallas/qmm.py:288",
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
             **{key: "tpullm/ops/pallas/flash.py:69"
-               for key in FLASH_KEYS + FLASH256_KEYS + FLASH_NARROW_KEYS},
-            FLASH_MLA_KEY: "tpullm/ops/pallas/flash.py:69"}
+               for key in (*FLASH_KEYS, *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY,
+                           FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)}}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
            "qmm_stack": "tpullm_torch/csrc/qmm_moe.cu",
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
            **{key: "tpullm_torch/csrc/flash.cu" for key in (*FLASH_KEYS, *FLASH256_KEYS,
-                                                            *FLASH_NARROW_KEYS, FLASH_MLA_KEY)}}
+                                                            *FLASH_NARROW_KEYS, FLASH_MLA_KEY,
+                                                            FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)}}
 
 
 def log(*a):
@@ -471,11 +503,15 @@ def phase_build() -> dict:
     d256 = {k: v for k, v in regs.items() if k.startswith("flash_") and "<256," in k}
     log(f"[build] flash at D = 256 (registers, spill stores, spill loads): {d256}")
     narrow = {k: v for k, v in regs.items() if k.startswith("flash_") and
-              ("<96," in k or "<80," in k)}
+              ("<96,96," in k or "<80,80," in k)}
     log(f"[build] flash at D = 96 and 80 (registers, spill stores, spill loads): {narrow}")
-    mla = {k: v for k, v in regs.items() if k.startswith("flash_") and "<576,512" in k}
-    log(f"[build] flash's latent form, Dk 576 / Dv 512 (registers, spill stores, spill "
-        f"loads): {mla}")
+    mla = {k: v for k, v in regs.items() if k.startswith("flash_mla")}
+    log(f"[build] flash's latent form, Dk 576 / Dv 512 and 288 / 256 (registers, spill "
+        f"stores, spill loads): {mla}")
+    dkdv = {k: v for k, v in regs.items() if k.startswith("flash_") and
+            ("<192,128," in k or "<96,64," in k)}
+    log(f"[build] flash at Dk ≠ Dv, (192, 128) and (96, 64) (registers, spill stores, spill "
+        f"loads): {dkdv}")
     return regs
 
 
@@ -750,11 +786,24 @@ def phase_moe_kernels(dev, results: dict):
             torch.cuda.empty_cache()
 
 
+def counted_call(key: str, fn):
+    """fn() (a flash wrapper's call), which must count exactly one launch,
+    under flash.LAUNCHES[key]."""
+    from tpullm_torch.ops.kernels import flash
+
+    before = flash.LAUNCHES[key], flash.launch_total()
+    out = fn()
+    expect((flash.LAUNCHES[key], flash.launch_total()) == (before[0] + 1, before[1] + 1),
+           f"flash {key}: one counted launch a call")
+    return out
+
+
 def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, window=0,
-                sinks=False, alibi=False, timed=False):
+                sinks=False, alibi=False, timed=False, DV=None):
     """One flash call on random inputs against its plain version; `fmt`
     the KV cache format (FLASH_FORMATS): q is bf16, K/V drawn in f32 and
-    stored in the cache's dtype (q8: quantized as the cache quantizes)."""
+    stored in the cache's dtype (q8: quantized as the cache quantizes); V
+    DV wide (None: D). The first call counts one launch under its key."""
     import torch
     import torch.nn.functional as F
 
@@ -764,9 +813,10 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
     q8 = fmt == "q8"
     kv_dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32,
                 "q8": torch.bfloat16}[fmt]
+    DV = DV or D
     q = torch.randn(B, T, H, D, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(kv_dtype)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn(B, Hkv, S, DV, generator=gen, device=dev).to(kv_dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     sk = torch.randn(H, generator=gen, device=dev) if sinks else None
     sl = torch.linspace(0.5, 0.01, H, device=dev) if alibi else None
@@ -792,8 +842,11 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
     def plain():
         return flash.flash_reference(q, *kv, off, scale, softcap, window, sk, sl, **kw)
     decode = flash.regime(T, H, Hkv) == "decode"
-    got, ref = kernel(), plain()
+    key = f"{fmt}.{flash.dims_key(D, DV)}.{'decode' if decode else 'prefill'}"
+    got = counted_call(key, kernel)
+    ref = plain()
     torch.cuda.synchronize()
+    expect(tuple(got.shape) == (B, T, H, DV), f"flash {key}: output {tuple(got.shape)}")
     idle = [b for b, o in enumerate(offsets) if o < 0]  # no visible key in their first row
     row = dict(regime="decode" if decode else "prefill", nmse=nmse(got.float(), ref.float()),
                max_abs_err=float((got.float() - ref.float()).abs().max()),
@@ -825,9 +878,10 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
     kv_len = np.minimum(np.asarray(offsets) + T, S)
     if window > 0:
         kv_len = kv_len - np.maximum(0, np.asarray(offsets) - window + 1)
-    per_pos = D * k.element_size() if not q8 else D + 4  # bytes of one K (or V) row
-    n_bytes = 2 * q.numel() * 2 + 2 * float(kv_len.sum()) * Hkv * per_pos
-    bms, by = bound_ms(n_bytes, 4.0 * D * H * visible)
+    # bytes of one position's K and V rows (q8: the codes and their scales)
+    per_pos = (D + DV) * k.element_size() if not q8 else D + DV + 8
+    n_bytes = q.numel() * 2 + B * T * H * DV * 2 + float(kv_len.sum()) * Hkv * per_pos
+    bms, by = bound_ms(n_bytes, 2.0 * (D + DV) * H * visible)
     pos = torch.arange(S, device=dev)
     q_at = (off[:, None] + torch.arange(T, device=dev))[..., None]
     mask = pos[None, None, :] <= q_at
@@ -1980,10 +2034,11 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     host Sampler (and its costs taken apart, `_decode_costs`), the prompt
     cache run twice, a two-turn chat through stdin, tokenize against the
     engine's tokenizer, perplexity over SURVEY.md (PPL_WINDOWS windows of
-    512) with the kernels and with dense bf16 weights (the tool's PPL, and
-    the mean NLL a token, its log, which stays finite where the random
-    weights' PPL passes f64), the KLD of the kernels against a base
-    recorded by dense, the launches and time of each window, and the bench
+    512) with the kernels and with dense bf16 weights (the tool's PPL; for
+    the kernels also the mean NLL a token on this engine, its log, which
+    stays finite where the random weights' PPL passes f64), the KLD of the
+    kernels against a base recorded by dense, the launches and time of
+    each window, and the bench
     sweep over the four cache types. Launch counts
     are read over the whole phase, the flash f16 and f32 kernels' among
     them."""
@@ -2069,9 +2124,9 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     log(f"[tools] tokenize: {len(want)} ids, equal to the engine's tokenizer")
 
     # 5. perplexity over SURVEY.md: each window's time and launches and the
-    # mean NLL on this engine and on a dense one, then the tool with the
-    # kernels and with dense weights, and the KLD of the kernels against a
-    # base recorded by dense
+    # mean NLL on this engine, then the tool with the kernels and with dense
+    # weights (its own load), and the KLD of the kernels against a base
+    # recorded by dense
     corpus = ROOT / "SURVEY.md"
     per = per_forward_launches(eng.params)
     before = (sum(qmm.TC_LAUNCHES.values()), qmm.TC_LAUNCHES["Q6_K"], flash.launch_total("bf16"),
@@ -2090,12 +2145,6 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    dense = Engine(path, max_seq=TOOLS_CTX, mode="dense")
-    dense_load_s = dense.perf.t_load_s
-    dense_ms, nll_dense = window_nll(dense, corpus)
-    del dense
-    gc.collect()
-    torch.cuda.empty_cache()
     ppl_args = m + ["-f", str(corpus), "-c", "512", "--max-windows", str(PPL_WINDOWS), "--json"]
     ppl = {}
     for mode in ("auto", "dense"):
@@ -2103,12 +2152,11 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
         ppl[mode] = dict(json.loads(text), seconds=secs)
         expect(rc == 0 and ppl[mode]["n_tokens"] == 255 * PPL_WINDOWS,
                f"perplexity {mode}: {ppl[mode]}")
-    expect(all(ppl[mode]["ppl"] == np.inf if nll >= np.log(np.finfo(np.float64).max)
-               else np.isclose(ppl[mode]["ppl"], np.exp(nll), rtol=1e-3, atol=0.0)
-               for mode, nll in (("auto", nll_auto), ("dense", nll_dense))),
-           "the tool's PPL is exp of the windows' mean NLL (inf past f64; rtol 1e-3: the "
-           "tool's engine holds 512 positions, this one TOOLS_CTX, so attention sums "
-           "another number of masked keys)")
+    expect(ppl["auto"]["ppl"] == np.inf if nll_auto >= np.log(np.finfo(np.float64).max)
+           else np.isclose(ppl["auto"]["ppl"], np.exp(nll_auto), rtol=1e-3, atol=0.0),
+           "the tool's PPL with the kernels is exp of the windows' mean NLL (inf past f64; "
+           "rtol 1e-3: the tool's engine holds 512 positions, this one TOOLS_CTX, so "
+           "attention sums another number of masked keys)")
     base = tmp / "kld_base.npz"
     rc, _, _, base_s = run_tool(perplexity.main, ppl_args + ["--mode", "dense",
                                                              "--kl-divergence-base", str(base)])
@@ -2118,15 +2166,12 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     base.unlink()
     expect(rc == 0 and kld["kld"] >= 0 and kld["n_tokens"] == 512 * PPL_WINDOWS,
            f"KLD of the kernels against dense: {kld}")
-    out["perplexity"] = dict(window_ms=window_ms, dense_window_ms=dense_ms, nll_auto=nll_auto,
-                             nll_dense=nll_dense, dense_load_s=dense_load_s, auto=ppl["auto"],
+    out["perplexity"] = dict(window_ms=window_ms, nll_auto=nll_auto, auto=ppl["auto"],
                              dense=ppl["dense"], kld=kld, kld_base_s=base_s, kld_s=kld_s)
     log(f"[tools] perplexity, SURVEY.md, {PPL_WINDOWS} windows of 512: PPL auto (the kernels) "
         f"{ppl['auto']['ppl']:.6g} ({ppl['auto']['seconds']:.1f}s), dense (bf16 weights, "
         f"torch.matmul) {ppl['dense']['ppl']:.6g} ({ppl['dense']['seconds']:.1f}s); mean NLL a "
-        f"token (ln PPL) auto {nll_auto:.4f}, dense {nll_dense:.4f} nats (relative "
-        f"{abs(nll_auto - nll_dense) / abs(nll_dense):.2e}); dense windows "
-        f"{[round(w, 2) for w in dense_ms]} ms, dense load {dense_load_s:.1f}s; KLD of auto "
+        f"token (ln PPL) auto {nll_auto:.4f} nats; KLD of auto "
         f"against the dense base {kld['kld']:.6g}, same top {kld['same_top_p']:.4f} over "
         f"{kld['n_tokens']} tokens (base recorded in {base_s:.1f}s, KLD run {kld_s:.1f}s)")
 
@@ -2377,7 +2422,8 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     and 4 slots generating (ids read back; at 4 also the logits), the
     launches a replay, a profiled step by kernel family, and the batched
     logits teacher-forced against the single-stream Engine; a q8-cache
-    engine at 4 slots for SERVE_STEPS steps; Mixtral Q4_K_M with 4 layers at
+    engine at 4 slots for SERVE_STEPS steps (both on the server engine's
+    Model: no second load of the 8B); Mixtral Q4_K_M with 4 layers at
     4 slots (one joint prefill round, SERVE_STEPS batched steps
     teacher-forced against its Engine: the gather regime); and
     tpullm-torch-batched-bench -npp 128 -ntg 64 -npl 1,2,4,8 on the 8B."""
@@ -2452,7 +2498,8 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
         f"{ {k: round(v, 4) for k, v in out['profile'].items()} } = {busy:.3f} ms busy of "
         f"{out['step_ms'][4]:.3f} ms a step")
 
-    single = Engine(path, max_seq=SERVE_CTX)
+    model = eng.model  # the single-stream and q8 engines share its weights
+    single = Engine(model, max_seq=SERVE_CTX)
     out["teacher"] = teacher_forced("server", eng, single,
                                     [_word_ids(eng.tokenizer, n) for n in TEACHER_LENS],
                                     TEACHER_STEPS)
@@ -2460,7 +2507,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    q8 = BatchEngine(path, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, kv_dtype="q8_0")
+    q8 = BatchEngine(model, n_slots=SERVE_SLOTS, max_seq=SERVE_CTX, kv_dtype="q8_0")
     q8_ms = _step_ms(q8, range(SERVE_SLOTS), prompt)
     one = q8.runner(SERVE_SLOTS).launches_per_replay()
     expect(one == _batch_launches(q8), f"q8 server engine: launches per replay {one}")
@@ -2469,7 +2516,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     out["q8_step_ms"] = q8_ms
     log(f"[server] q8 cache, {SERVE_SLOTS} slots, {SERVE_STEPS} steps: {q8_ms:.3f} ms a step "
         f"({SERVE_SLOTS * 1e3 / q8_ms:.1f} tok/s in aggregate); launches per replay {one}")
-    del q8
+    del q8, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3508,15 +3555,47 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
 
 
 # DeepSeek-V2-Lite's MLA attention: 16 query heads on the latent's one KV
-# head, Dk = kv_lora_rank + n_rot = 576, Dv = kv_lora_rank = 512, bf16
+# head, Dk = kv_lora_rank + n_rot = 576, Dv = kv_lora_rank = 512, bf16;
+# MiniCPM3-4B's: 40 heads on the latent 256 + 32 (R = 40 query rows at T = 1)
 MLA_HEADS = dict(H=16, Hkv=1, Dk=576, Dv=512, S=4096)
 MLA_SCALE = 192 ** -0.5  # the per-head key width's (qk_nope 128 + rope 64)
+MLA288_HEADS = dict(H=40, Hkv=1, Dk=288, Dv=256, S=4096)
+MLA288_SCALE = 96 ** -0.5  # MiniCPM3's per-head key width (qk_nope 64 + rope 32)
+# the decompressed form's heads: PLM / DeepSeek-V2's 16 of (192, 128) and
+# MiniCPM3's 40 of (96, 64), one KV head a query head
+DKDV_HEADS = {(192, 128): dict(H=16, Hkv=16), (96, 64): dict(H=40, Hkv=40)}
 
 
-def _flash_mla_case(dev, gen, *, B, T, offsets, H, Hkv, Dk, Dv, S) -> dict:
+def _latent_prefill_ms(q, c, dv: int, off, scale) -> float:
+    """The latent form's prefill kernel timed at a call the wrapper sends
+    to the decode regime (the C entry's max_splits 0 picks the prefill
+    kernel at any R): the same inputs, a launch the counts do not see."""
+    import torch
+
+    from tpullm_torch.ops.kernels import _build, flash
+
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, dv), dtype=q.dtype, device=q.device)
+    fn = _build.bind("flash_latent", "tpullm_flash_latent_bf16", flash._LATENT_ARGS)
+
+    def call():
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check(fn(q.data_ptr(), c.data_ptr(), off.data_ptr(), out.data_ptr(), None, None,
+                        B, T, H, c.shape[1], c.shape[2], D, dv, float(scale), 0, stream),
+                     "flash latent prefill kernel at a decode shape")
+        return out
+    ref = flash.flash_reference(q, c, c[..., :dv], off, scale)
+    err = nmse(call().float(), ref.float())
+    expect(err <= FLASH_NMSE_BOUND, f"the latent prefill kernel at a decode shape: NMSE {err:.3e}")
+    return time_ms(call, 20)
+
+
+def _flash_mla_case(dev, gen, *, B, T, offsets, H, Hkv, Dk, Dv, S, scale=MLA_SCALE) -> dict:
     """The latent form (v = k[..., :Dv]) on random bf16 inputs against its
-    plain version and the plain version of its own order, timed beside its
-    bound and SDPA (enable_gqa, the values a copy of the latent's prefix)."""
+    plain version and the plain version of its own order, one counted
+    launch a call, timed beside its bound and SDPA (enable_gqa, the values
+    a copy of the latent's prefix); in the decode regime also the prefill
+    kernel at the same call."""
     import torch
     import torch.nn.functional as F
 
@@ -3528,22 +3607,24 @@ def _flash_mla_case(dev, gen, *, B, T, offsets, H, Hkv, Dk, Dv, S) -> dict:
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
 
     def kernel():
-        return flash.flash_attention(q, c, v, off, MLA_SCALE)
+        return flash.flash_attention(q, c, v, off, scale)
 
     def plain():
-        return flash.flash_reference(q, c, v, off, MLA_SCALE)
-    decode = flash.regime(T, H, Hkv) == "decode"
-    got, ref = kernel(), plain()
+        return flash.flash_reference(q, c, v, off, scale)
+    decode = flash.regime(T, H, Hkv, latent=True) == "decode"
+    got = counted_call(f"bf16.{flash.dims_key(Dk, Dv)}.{'decode' if decode else 'prefill'}",
+                       kernel)
+    ref = plain()
     torch.cuda.synchronize()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    own = (flash.flash_split_reference(q, c, v, off, MLA_SCALE, n_sm=n_sm, p_terms=2) if decode
-           else flash.flash_prefill_reference(q, c, v, off, MLA_SCALE))
+    own = (flash.flash_split_reference(q, c, v, off, scale, n_sm=n_sm, p_terms=2) if decode
+           else flash.flash_prefill_reference(q, c, v, off, scale))
     idle = [b for b, o in enumerate(offsets) if o < 0]
     row = dict(regime="decode" if decode else "prefill", nmse=nmse(got.float(), ref.float()),
                nmse_own_order=nmse(got.float(), own.float()),
                max_abs_err=float((got.float() - ref.float()).abs().max()),
                finite=bool(torch.isfinite(got.float()).all()),
-               idle_zero=not bool(got[idle, 0].float().any()))
+               idle_zero=not bool(got[idle, 0].float().any()), rows=T * H // Hkv)
     del own
     # the work this run's data needs: the valid keys' latent rows read once
     # (decode), 2·(Dk + Dv) FLOP a visible (query, key) pair a head
@@ -3558,42 +3639,98 @@ def _flash_mla_case(dev, gen, *, B, T, offsets, H, Hkv, Dk, Dv, S) -> dict:
     qt, vt = q.transpose(1, 2), v.contiguous()
 
     def library():
-        return F.scaled_dot_product_attention(qt, c, vt, attn_mask=mask, scale=MLA_SCALE,
+        return F.scaled_dot_product_attention(qt, c, vt, attn_mask=mask, scale=scale,
                                               enable_gqa=True)
     row.update(ms=time_ms(kernel, 20), eager_ms=time_ms(kernel, 20, graph=False),
                plain_ms=time_ms(plain, 2, 1, graph=False), bound_ms=bms, bound_by=by,
                library_ms=time_ms(library, 20), visible_pairs_per_head=visible)
+    if decode:
+        row["prefill_kernel_ms"] = _latent_prefill_ms(q, c, Dv, off, scale)
     return row
 
 
 def phase_flash_mla(dev, results: dict):
     """Flash's latent form at DeepSeek-V2-Lite's attention (MLA_HEADS, S =
     4096): the decode regime at T = 1, B = 2 with kv 38 / 3001 and B = 1
-    with kv 20, and an idle slot (offset −1); the prefill regime at T = 512
-    with offsets 0 / 2500 and in a joint round (B = 4, T = 8, two idle);
-    each against its plain version and that of its own order (NMSE within
-    FLASH_NMSE_BOUND), timed beside its bound and SDPA; rows under FLASH_MLA_KEY."""
+    with kv 20, an idle slot (offset −1), and at T = 2 and 4 (R = 32, 64:
+    two and four row groups); the prefill regime at T = 512 with offsets 0
+    / 2500 and in a joint round (B = 4, T = 8, two idle); at MiniCPM3-4B's
+    (MLA288_HEADS): the decode regime at T = 1 (R = 40: three row groups,
+    the last of 8 rows; B = 2, kv 38 / 3001, and B = 1, kv 20), the
+    prefill regime at T = 2 (R = 80), 512 and in a joint round; each
+    against its plain version and that of its own order (NMSE within
+    FLASH_NMSE_BOUND), timed beside its bound and SDPA, the decode cases
+    also the prefill kernel at the same call; rows under FLASH_MLA_KEY and
+    FLASH_MLA288_KEY."""
     import torch
 
     gen = torch.Generator(dev).manual_seed(11)
-    cases = [("T=1 B=2 kv=38/3001 S=4096", dict(B=2, T=1, offsets=(37, 3000))),
-             ("T=1 B=1 kv=20 S=4096", dict(B=1, T=1, offsets=(19,))),
-             ("T=1 B=2 idle/kv=501 S=4096", dict(B=2, T=1, offsets=(-1, 500))),
-             ("T=512 B=2 offsets=0/2500 S=4096", dict(B=2, T=512, offsets=(0, 2500))),
-             ("T=8 B=4 offsets=-1/0/2500/-1 S=4096", dict(B=4, T=8, offsets=(-1, 0, 2500, -1)))]
-    for label, kw in cases:
-        row = _flash_mla_case(dev, gen, **MLA_HEADS, **kw)
+    v2 = [("T=1 B=2 kv=38/3001 S=4096", dict(B=2, T=1, offsets=(37, 3000))),
+          ("T=1 B=1 kv=20 S=4096", dict(B=1, T=1, offsets=(19,))),
+          ("T=1 B=2 idle/kv=501 S=4096", dict(B=2, T=1, offsets=(-1, 500))),
+          ("T=2 B=2 kv=39/3002 S=4096", dict(B=2, T=2, offsets=(37, 3000))),
+          ("T=4 B=2 kv=41/3004 S=4096", dict(B=2, T=4, offsets=(37, 3000))),
+          ("T=512 B=2 offsets=0/2500 S=4096", dict(B=2, T=512, offsets=(0, 2500))),
+          ("T=8 B=4 offsets=-1/0/2500/-1 S=4096", dict(B=4, T=8, offsets=(-1, 0, 2500, -1)))]
+    mc3 = [(f"d288v256 H=40 {label}", kw) for label, kw in (
+        ("T=1 B=2 kv=38/3001 S=4096", dict(B=2, T=1, offsets=(37, 3000))),
+        ("T=1 B=1 kv=20 S=4096", dict(B=1, T=1, offsets=(19,))),
+        ("T=2 B=2 kv=39/3002 S=4096", dict(B=2, T=2, offsets=(37, 3000))),
+        ("T=512 B=2 offsets=0/2500 S=4096", dict(B=2, T=512, offsets=(0, 2500))),
+        ("T=8 B=4 offsets=-1/0/2500/-1 S=4096", dict(B=4, T=8, offsets=(-1, 0, 2500, -1))))]
+    cases = ([(FLASH_MLA_KEY, label, dict(MLA_HEADS, scale=MLA_SCALE, **kw)) for label, kw in v2]
+             + [(FLASH_MLA288_KEY, label, dict(MLA288_HEADS, scale=MLA288_SCALE, **kw))
+                for label, kw in mc3])
+    for key, label, kw in cases:
+        row = _flash_mla_case(dev, gen, **kw)
         row["case"] = label
         expect(row["finite"] and row["idle_zero"], f"flash mla {label}: finite, idle rows 0")
         expect(row["nmse"] <= FLASH_NMSE_BOUND and row["nmse_own_order"] <= FLASH_NMSE_BOUND,
                f"flash mla {label} NMSE {row['nmse']:.3e}, against the plain version of its "
                f"own order {row['nmse_own_order']:.3e} <= {FLASH_NMSE_BOUND}")
-        results.setdefault(FLASH_MLA_KEY, []).append(row)
-        log(f"[flash mla] {label} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
-            f"{row['max_abs_err']:.3g} (own order {row['nmse_own_order']:.2e}) kernel "
+        results.setdefault(key, []).append(row)
+        extra = (f"; the prefill kernel at this call {row['prefill_kernel_ms']:.4f} ms"
+                 if "prefill_kernel_ms" in row else "")
+        log(f"[flash mla] {label} (R = {row['rows']}, {row['regime']}): nmse {row['nmse']:.2e} "
+            f"max|d| {row['max_abs_err']:.3g} (own order {row['nmse_own_order']:.2e}) kernel "
             f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}) plain {row['plain_ms']:.3f} ms sdpa (enable_gqa) "
-            f"{row['library_ms']:.4f} ms")
+            f"{row['library_ms']:.4f} ms{extra}")
+    torch.cuda.empty_cache()
+
+
+def phase_flash_dkdv(dev, results: dict):
+    """Flash at key width ≠ value width (the library flash_dkdv), each KV
+    format: (192, 128) at 16 heads on 16 (PLM, DeepSeek-V2 decompressed)
+    and (96, 64) at 40 on 40 (MiniCPM3 decompressed), the decode regime at
+    T = 1 (B = 2, kv 38 / 3001) and the prefill regime at T = 512 (offsets
+    0 / 2500), S = 4096; each against its plain version and that of its own
+    order, one counted launch a call, timed beside its bound and SDPA on
+    the cache's dtype; rows under flash_<fmt>_d<Dk>v<Dv>."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(19)
+    for (d, dv), heads in DKDV_HEADS.items():
+        for fmt in FLASH_FORMATS:
+            key = f"flash_{fmt}_d{d}v{dv}"
+            bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+            for label, kw in ((f"{fmt} T=1 B=2 S=4096 D={d}/{dv}",
+                               dict(T=1, B=2, offsets=(37, 3000))),
+                              (f"{fmt} T=512 B=2 S=4096 D={d}/{dv}",
+                               dict(T=512, B=2, offsets=(0, 2500)))):
+                row = _flash_case(dev, gen, fmt=fmt, D=d, DV=dv, S=4096, timed=True, **heads,
+                                  **kw)
+                row["case"] = label
+                expect(row["finite"], f"flash {label} finite")
+                expect(row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                       f"flash {label} NMSE {row['nmse']:.3e}, against the plain version of "
+                       f"its own order {row['nmse_own_order']:.3e} <= {bound}")
+                results.setdefault(key, []).append(row)
+                log(f"[flash dkdv] {label} ({row['regime']}): nmse {row['nmse']:.2e} max|d| "
+                    f"{row['max_abs_err']:.3g} (own order {row['nmse_own_order']:.2e}) kernel "
+                    f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain "
+                    f"{row['plain_ms']:.3f} ms sdpa {row['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -3612,8 +3749,9 @@ def moe_launch_want(eng, rows: int) -> dict:
     through the dequantize route; the packed expert stacks through
     qmm_gather (≤ 16 rows) or qmm_stack, the dense ones (deepseek2's K =
     1408 down) through no kernel; flash once a layer in the regime
-    T·H/kv_heads picks (the engine's cache: the MLA latent one KV head,
-    else hp.n_head_kv)."""
+    T·H/kv_heads picks (the engine's cache: the MLA latent one KV head and
+    its own decode rows, else hp.n_head_kv); the head through qmm unless it
+    is tied (a plain product)."""
     from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
     from tpullm_torch.ops import moe
     from tpullm_torch.ops.kernels import flash, qmm
@@ -3629,17 +3767,20 @@ def moe_launch_want(eng, rows: int) -> dict:
                  for m in layer.values())
     tc = rows >= qmm.TC_MIN_M
     gather = rows <= moe._GATHER_MAX_TOKENS
-    kv_heads = 1 if isinstance(eng.cache, MLACache) else eng.hp.n_head_kv
-    decode = flash.regime(rows, eng.hp.n_head, kv_heads) == "decode"
+    latent = isinstance(eng.cache, MLACache)
+    kv_heads = 1 if latent else eng.hp.n_head_kv
+    decode = flash.regime(rows, eng.hp.n_head, kv_heads, latent) == "decode"
     L = len(eng.params["layers"])
-    return {"qmm": (0 if tc else taken) + 1, "qmm_tc": taken if tc else 0,
+    head = per_forward_launches(eng.params)["head"]
+    return {"qmm": (0 if tc else taken) + head, "qmm_tc": taken if tc else 0,
             "qmm_stack": 0 if gather else stacks, "qmm_gather": stacks if gather else 0,
             "qmm_grouped": 0, "dequant_routes": len(quant) - taken, "flash": L,
             "flash_decode": L if decode else 0, "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
-def ds2_run(label: str, eng, word_ids) -> dict:
-    """Engine on DeepSeek-V2-Lite: a warm-up generation; each prompt of
+def ds2_run(label: str, eng, word_ids, tag: str = "deepseek2") -> dict:
+    """Engine on an MLA model (DeepSeek-V2-Lite; `tag` names the phase in
+    its lines): a warm-up generation; each prompt of
     DS2_LENS prefilled cold and warm with each forward's ms; each prompt and
     DS2_GEN greedy tokens on the decode graph: TTFT (warm), decode tok/s;
     the launches of a decode replay and of a 512-token prefill forward
@@ -3654,7 +3795,7 @@ def ds2_run(label: str, eng, word_ids) -> dict:
     for n in DS2_LENS:
         cold, warm = _prefill_split(eng, word_ids(n)), _prefill_split(eng, word_ids(n))
         out["prefill_ms"][n] = dict(cold=cold, warm=warm)
-        log(f"[deepseek2] {label} prompt {n}: prefill cold {cold[0]:.1f} ms (forwards of rows, "
+        log(f"[{tag}] {label} prompt {n}: prefill cold {cold[0]:.1f} ms (forwards of rows, "
             f"ms {cold[1]}), warm {warm[0]:.1f} ms ({warm[1]})")
     for n in DS2_LENS:
         eng.reset()
@@ -3663,34 +3804,34 @@ def ds2_run(label: str, eng, word_ids) -> dict:
         ttft = eng.perf.t_prefill_s - p0[0]
         rate = (eng.perf.n_decode - p0[2]) / (eng.perf.t_decode_s - p0[1])
         expect(len(ids) == DS2_GEN and all(0 <= t < eng.hp.n_vocab for t in ids),
-               f"deepseek2 {label}: {DS2_GEN} ids in range from the {n}-token prompt")
+               f"{tag} {label}: {DS2_GEN} ids in range from the {n}-token prompt")
         out["ttft_ms"][n], out["decode_tok_s"][n], out["ids"][n] = ttft * 1e3, rate, ids
-        log(f"[deepseek2] {label} prompt {n}: TTFT (warm) {ttft * 1e3:.1f} ms, decode "
+        log(f"[{tag}] {label} prompt {n}: TTFT (warm) {ttft * 1e3:.1f} ms, decode "
             f"{rate:.2f} tok/s (graph), first ids {ids[:6]}")
     runner = eng.decode_runner(SamplingParams(), 32)
     one = runner.launches_per_replay()
     want = moe_launch_want(eng, 1)
-    log(f"[deepseek2] {label} launches per decode replay {one}")
-    expect(one == want, f"deepseek2 {label}: launches per decode replay {one} = {want}")
+    log(f"[{tag}] {label} launches per decode replay {one}")
+    expect(one == want, f"{tag} {label}: launches per decode replay {one} = {want}")
     eng.reset()
     snap = _snapshot()
     eng.prefill(word_ids(512))
     torch.cuda.synchronize()
     got = _launch_delta(snap)
     want = moe_launch_want(eng, 512)
-    log(f"[deepseek2] {label} launches of one 512-token prefill forward {got}")
-    expect(got == want, f"deepseek2 {label}: one prefill forward's launches {got} = {want}")
+    log(f"[{tag}] {label} launches of one 512-token prefill forward {got}")
+    expect(got == want, f"{tag} {label}: one prefill forward's launches {got} = {want}")
     out["launches_per_decode"], out["launches_per_prefill"] = one, got
     prof = profile_decode(eng, runner, word_ids(512), 32)
     out["device_ms_per_token"] = prof["device_ms_per_token"]
     out["event_span_ms_per_token"] = prof["event_span_ms_per_token"]
     out["decode_top"] = prof["top"]
-    log(f"[deepseek2] {label}: a decode token's device ms by family (32 graph replays after a "
+    log(f"[{tag}] {label}: a decode token's device ms by family (32 graph replays after a "
         f"512-token prompt) { {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} } "
         f"(event span {prof['event_span_ms_per_token']:.3f} ms); top {prof['top']}")
     pre = profile_prefill(eng, word_ids(512))
     out["prefill_profile"] = pre
-    log(f"[deepseek2] {label}: a 512-token prefill's device ms by family "
+    log(f"[{tag}] {label}: a 512-token prefill's device ms by family "
         f"{ {k: round(v, 3) for k, v in pre['device_ms'].items()} }, wall {pre['wall_ms']:.1f} ms, "
         f"kernels {pre['launches']}")
     return out
@@ -3827,6 +3968,280 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
     return result
 
 
+# deepseek2's MLA aliases on the card (phase_mla_models)
+MLA_CTX = 4096  # max_seq
+# MiniCPM3-4B's depth on the card (full width; of 62: all of them made the
+# phase 77 s, against its budget of about 60)
+MINICPM3_LAYERS = 24
+MLA_DENSE_POSITIONS = 32  # positions teacher-forced against dense weights
+MLA_SLOT_LENS = (40, 700, 1300)  # the BatchEngine round's prompts (its slot 3 idle)
+MLA_SLOT_STEPS = 16  # teacher-forced batched steps against Engine
+MLA_BRIEF = (64, 16)  # the decompressed form's runs: prompt tokens, greedy tokens
+# the decompressed form's logits against the absorbed form's on the same ids:
+# the two round differently (the absorbed form's wk_b / wv_b products in bf16
+# on dense weights, the decompressed form's through the packed wkv_b and
+# per-head K/V), so they are held to SERVE_NMSE_BOUND, the bound of every
+# other comparison of two computations of one model on the card
+MLA_FORMS_NMSE_BOUND = SERVE_NMSE_BOUND
+
+
+class mla_form:
+    """TPULLM_MLA for a `with` block: "absorbed" (the default) or
+    "decompressed" (0); the form is read when a model loads and when its
+    cache is made."""
+
+    def __init__(self, form: str):
+        self.value = "0" if form == "decompressed" else "1"
+
+    def __enter__(self):
+        import os
+
+        self.before = os.environ.get("TPULLM_MLA")
+        os.environ["TPULLM_MLA"] = self.value
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.before is None:
+            os.environ.pop("TPULLM_MLA", None)
+        else:
+            os.environ["TPULLM_MLA"] = self.before
+
+
+def mla_absorbed_run(label: str, path: Path, launches: dict, dense: bool) -> tuple:
+    """An MLA alias on its bf16 latent at full width: load s and peak GiB;
+    ds2_run (prompts DS2_LENS cold and warm, DS2_GEN greedy tokens each on
+    the decode graph, TTFT, decode tok/s, launches per decode replay and
+    per 512-token prefill forward against moe_launch_want, device ms by
+    family); flash's latent form once a layer in both regimes (the decode
+    regime at T = 1), no counted route; with `dense`, the kernels against
+    dense bf16 weights (`against_dense`, MLA_DENSE_POSITIONS positions).
+    Returns (result, the Engine, the latent's launch key)."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import MLACache
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # just before the main path
+    eng = Engine(path, max_seq=MLA_CTX)
+    load_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hp = eng.hp
+    L = len(eng.params["layers"])
+    resident, per_token = plane_bytes(eng.params, 1)
+    dk, dv = hp.n_lora_kv + hp.rope.dims, hp.n_lora_kv
+    key = f"bf16.{flash.dims_key(dk, dv)}"
+    log(f"[mla] {label}: arch {hp.arch}, {L} layers, n_embd {hp.n_embd}, {hp.n_head} heads on "
+        f"the latent {hp.n_lora_kv} + rope {hp.rope.dims} (heads {hp.head_dim} / "
+        f"{hp.head_dim_v}), q LoRA {hp.n_lora_q}, n_ff {hp.n_ff}, vocab {hp.n_vocab}, "
+        f"multipliers {hp.embd_scale:.4g} / {hp.residual_scale:.4g} / {hp.logit_scale:.4g}, "
+        f"head {'tied' if eng.params['output'] is None else 'untied'}; loaded in "
+        f"{eng.perf.t_load_s:.1f}s, peak {load_peak:.2f} GiB above the {base / 2**30:.2f} GiB "
+        f"earlier phases hold; {eng.report()}; planes resident {resident / 2**30:.2f} GiB, a "
+        f"decode token streams {per_token / 1e9:.3f} GB (bound "
+        f"{per_token / PEAK_BYTES * 1e3:.3f} ms)")
+    expect(isinstance(eng.cache, MLACache) and eng.cache.c.dtype == torch.bfloat16
+           and eng.cache.c.shape[-1] == dk, f"{label}: the bf16 latent of {dk}")
+    result = dict(load_s=eng.perf.t_load_s, load_peak_gib=load_peak, n_layer=L,
+                  resident_gib=resident / 2**30, decode_plane_gb=per_token / 1e9,
+                  decode_bound_ms=per_token / PEAK_BYTES * 1e3)
+
+    def word_ids(n):
+        return _word_ids(eng.tokenizer, n)
+
+    result["run"] = run = ds2_run("bf16 latent", eng, word_ids, tag=label)
+    expect(run["launches_per_decode"].get("flash_decode") == L,
+           f"{label}: a decode step's attention in the latent's decode regime "
+           f"({run['launches_per_decode']})")
+    if dense:
+        result["dense"] = against_dense(label, path, MLA_CTX, MLA_DENSE_POSITIONS)
+    torch.cuda.synchronize()
+    got = read_launches()  # just after the main path
+    log(f"[mla] {label}: launches of the absorbed run {got}")
+    expect(got["attn_dense_routes"] == 0 and got["dequant_routes"] == 0,
+           f"{label}: no call through the dense attention or the dequantize route")
+    for r in ("decode", "prefill"):
+        expect(got[f"flash_{key}.{r}"] > 0, f"{label}: flash's latent form {key} launched in "
+               f"the {r} regime")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["launches"] = got
+    return result, eng, key
+
+
+def mla_decompressed_runs(label: str, path: Path, launches: dict, forms_ref: tuple) -> dict:
+    """The decompressed form (TPULLM_MLA=0) of an MLA alias at full width,
+    loaded once: per-head caches of bf16, q8, f16 and f32, each a
+    MLA_BRIEF run on the decode graph (flash at (Dk, Dv) of the heads once
+    a layer in both regimes, one launch a layer a forward, no counted
+    route); on bf16 first the logits teacher-forced on `forms_ref` (prompt,
+    ids, the absorbed form's rows) against the absorbed form's (NMSE ≤
+    MLA_FORMS_NMSE_BOUND)."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import KVCache, QuantKVCache
+
+    out: dict = {"runs": []}
+    with mla_form("decompressed"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = Engine(path, max_seq=MLA_CTX)
+        hp, L = eng.hp, len(eng.params["layers"])
+        dk, dv = hp.head_dim, hp.head_dim_v
+        expect(isinstance(eng.cache, KVCache) and eng.cache.k.shape[-1] == dk
+               and eng.cache.v.shape[-1] == dv, f"{label} decompressed: K {dk}, V {dv} a head")
+        prompt, ids, absorbed_rows = forms_ref
+        rows = _teacher_logits(eng, prompt, ids)
+        errs = [_nmse_np(a, b) for a, b in zip(rows, absorbed_rows)]
+        same = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(rows, absorbed_rows))
+        out.update(load_s=time.perf_counter() - t0, forms_worst=max(errs),
+                   forms_mean=float(np.mean(errs)), forms_same_top=same, forms_positions=len(ids))
+        log(f"[mla] {label} decompressed (heads {dk} / {dv}, {hp.n_head_kv} KV heads): loaded "
+            f"in {out['load_s']:.1f}s; against the absorbed form teacher-forced on {len(ids)} "
+            f"positions after a {len(prompt)}-token prompt: NMSE worst {max(errs):.2e} mean "
+            f"{np.mean(errs):.2e} (bound {MLA_FORMS_NMSE_BOUND}), same argmax "
+            f"{same}/{len(ids)}")
+        expect(max(errs) <= MLA_FORMS_NMSE_BOUND, f"{label}: the decompressed form against the "
+               f"absorbed one, NMSE {max(errs):.3e} <= {MLA_FORMS_NMSE_BOUND}")
+        for kv in (torch.bfloat16, "q8_0", torch.float16, torch.float32):
+            fmt = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}.get(kv, "q8")
+            eng.new_cache(kv_dtype=kv)
+            expect(isinstance(eng.cache, QuantKVCache) == (fmt == "q8"),
+                   f"{label} decompressed: the {fmt} cache")
+            n_prompt, n_gen = MLA_BRIEF
+            n_decode = eng.perf.n_decode
+            reset_launches()  # just before the main path
+            got_ids = eng.generate_tokens_device(_word_ids(eng.tokenizer, n_prompt), n_gen,
+                                                 temp=0.0, stop_on_eog=False, chunk=n_gen)
+            torch.cuda.synchronize()
+            got = read_launches()  # just after the main path
+            steps = eng.perf.n_decode - n_decode
+            k = f"flash_{fmt}.{flash.dims_key(dk, dv)}"
+            dec, pre = got[f"{k}.decode"], got[f"{k}.prefill"]
+            log(f"[mla] {label} decompressed kv={fmt}: {n_prompt}-token prompt, {len(got_ids)} "
+                f"greedy ids {got_ids[:6]}; {k} launches decode {dec}, prefill {pre} ({steps} "
+                f"decode steps); dense-route calls {got['attn_dense_routes']}")
+            expect(len(got_ids) == n_gen and pre == L and dec == L * steps > 0
+                   and got["attn_dense_routes"] == 0 and got["dequant_routes"] == 0,
+                   f"{label} decompressed {fmt}: {k} {L} a forward in both regimes ({pre} "
+                   f"prefill, {dec} decode over {steps} steps), no counted route")
+            for key, v in got.items():
+                launches[key] = launches.get(key, 0) + v
+            out["runs"].append(dict(kv=fmt, ids=got_ids, launches_decode=dec,
+                                    launches_prefill=pre))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mla_models(tmp: Path, launches: dict) -> dict:
+    """deepseek2's MLA aliases, synthesized from seed 0 at Q4_K_M:
+    1. tiny-minicpm3 (the latent 256 + 32 under 40 heads: R = 40 at T = 1;
+       heads 96 / 64) and tiny-plm (512 + 64; 192 / 128) on the card
+       against the CPU, each in both forms (tiny_card_vs_cpu);
+    2. MiniCPM3-4B at full width (MINICPM3_LAYERS layers) on the bf16
+       latent (mla_absorbed_run, with the check against dense weights),
+       then its decompressed form on bf16, q8, f16 and f32 caches
+       (mla_decompressed_runs);
+    3. PLM-1.8B at full width and depth on the bf16 latent (the ReLU² FFN),
+       a BatchEngine of 4 slots on its Model (slot 3 idle) teacher-forced
+       against Engine.decode_step, then its decompressed form;
+    each step's seconds logged; no call through a counted route."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    result: dict = {}
+    t_phase = time.perf_counter()
+
+    def step(what):
+        log(f"[mla] {what} at {time.perf_counter() - t_phase:.1f}s into the phase")
+
+    reset_launches()  # just before the main path
+    long = " ".join(["the quick brown fox jumps over the lazy dog hello world"] * 3)
+    for form in ("absorbed", "decompressed"):
+        with mla_form(form):
+            for shape in ("tiny-minicpm3", "tiny-plm"):
+                gpu, cpu = tiny_card_vs_cpu(f"mla {form}", tmp, shape, "Q4_K_M",
+                                            torch.bfloat16, long)
+                del gpu, cpu
+    got = read_launches()  # just after the main path
+    for k in ("bf16.d288v256", "bf16.d576v512", "bf16.d96v64", "bf16.d192v128"):
+        for r in ("decode", "prefill"):
+            expect(got[f"flash_{k}.{r}"] > 0, f"mla tiny: flash {k} launched in the {r} regime")
+    expect(got["attn_dense_routes"] == 0 and got["dequant_routes"] == 0,
+           "mla tiny: no counted route")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    step("tiny shapes, both forms")
+
+    def forms_ref(eng) -> tuple:
+        """A prompt, the absorbed engine's greedy ids on it and its rows
+        teacher-forced on them: what the decompressed form is held to."""
+        prompt = _word_ids(eng.tokenizer, MLA_BRIEF[0])
+        eng.reset()
+        ids = eng.generate_tokens_device(prompt, MLA_BRIEF[1], temp=0.0, stop_on_eog=False,
+                                         chunk=MLA_BRIEF[1])
+        return prompt, ids, _teacher_logits(eng, prompt, ids)
+
+    label = "minicpm3-4b" + (f"-{MINICPM3_LAYERS}l" if MINICPM3_LAYERS else "")
+    path = synthesize(tmp, "mla", "minicpm3-4b", "Q4_K_M", n_layer=MINICPM3_LAYERS)
+    res, eng, _ = mla_absorbed_run(label, path, launches, dense=True)
+    ref = forms_ref(eng)
+    del eng
+    step(f"{label} on the latent")
+    res["decompressed"] = mla_decompressed_runs(label, path, launches, ref)
+    result["minicpm3-4b"] = res
+    path.unlink()
+    step(f"{label} decompressed")
+
+    label = "plm-1.8b"
+    path = synthesize(tmp, "mla", "plm-1.8b", "Q4_K_M", vocab="bpe")
+    res, eng, key = mla_absorbed_run(label, path, launches, dense=False)
+    ref = forms_ref(eng)
+    prompts = [_word_ids(eng.tokenizer, n) for n in MLA_SLOT_LENS]
+    eng.new_cache(kv_dtype=torch.bfloat16)
+    refs = engine_refs(eng, prompts, MLA_SLOT_STEPS)
+    model = eng.model  # the BatchEngine shares the Engine's weights (no second load)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the batched path
+    be = BatchEngine(model, n_slots=4, max_seq=MLA_CTX, prefill_chunk=512)
+    be.precompile()
+    serving = teacher_forced(f"{label} serving", be, None, prompts, MLA_SLOT_STEPS, refs=refs)
+    del be, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = read_launches()  # just after the batched path
+    log(f"[mla] {label}: launches of the BatchEngine round (3 slots fed, 1 idle) {got}")
+    expect(got[f"flash_{key}.decode"] > 0 and got[f"flash_{key}.prefill"] > 0
+           and got["qmm_tc"] > 0 and got["attn_dense_routes"] == 0,
+           f"{label} serving: the latent form in both regimes, qmm_tc, no dense route")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    serving["launches"] = got
+    res["serving"] = serving
+    step(f"{label} on the latent, 4 slots")
+    res["decompressed"] = mla_decompressed_runs(label, path, launches, ref)
+    result["plm-1.8b"] = res
+    path.unlink()
+    step(f"{label} decompressed")
+    expect(not any(qmm.DEQUANT_ROUTES.values()) and not any(flash.ATTN_DENSE_ROUTES.values()),
+           f"mla models: no dequantize-route or dense-attention call ({qmm.DEQUANT_ROUTES}, "
+           f"{flash.ATTN_DENSE_ROUTES})")
+    return result
+
+
 QWEN_CTX = 4096  # max_seq
 # prompts of the Qwen3-30B-A3B serve: 16 tokens (a gather-regime prefill: 128
 # rows of qmm_gather), 2560 (one forward at the 4096 bucket, every expert on
@@ -3836,6 +4251,9 @@ QWEN_LENS = (16, 2560, 512)
 QWEN_SLOT_LENS = (40, 200, 500)  # the BatchEngine round's prompts (its slot 3 idle)
 QWEN_TEACHER = 8  # teacher-forced batched steps against Engine
 QWEN7B_LAYERS = 4  # Qwen2.5-7B's depth on the card (full width)
+# Qwen3-30B-A3B's depth on the card (full width; of 48: the smoke's time
+# limit, since the mla models phase)
+QWEN3_LAYERS = 24
 QWEN_TEACHER_7B = 16  # its positions teacher-forced against dense weights
 
 
@@ -3846,11 +4264,12 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
     1. tiny-qwen3moe (a 30-token prompt: every expert; a 7-token one, q8:
        the gather), tiny-qwen2moe and tiny-qwen2 on the card against the
        CPU (tiny_card_vs_cpu);
-    2. Qwen3-30B-A3B Q4_K_M at full width and depth (48 layers, n_embd 2048,
-       32 heads over 4 of 128, 128 experts top-8 of 768, vocab 151936): the
+    2. Qwen3-30B-A3B Q4_K_M at full width, QWEN3_LAYERS of its 48 layers
+       (n_embd 2048, 32 heads over 4 of 128, 128 experts top-8 of 768,
+       vocab 151936): the
        bytes earlier phases leave on the card, load s and peak GiB above
-       them, the planes a decode token streams; `serve` on a bf16 and on a
-       q8 cache (prompts QWEN_LENS, 64 greedy tokens each on the decode
+       them, the planes a decode token streams; `serve` on a bf16 cache
+       (prompts QWEN_LENS, 64 greedy tokens each on the decode
        graph: TTFT, decode tok/s, launches per regime, device ms by family
        of a decode token and of a 512-token prefill); a decode replay's and
        a 512-token prefill forward's launches against moe_launch_want;
@@ -3887,7 +4306,8 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
                f"to 0 ({qmm.DEQUANT_ROUTES}, {flash.ATTN_DENSE_ROUTES})")
     expect_no_routes("qwen tiny")
 
-    path = synthesize(tmp, "qwen", "qwen3-30b-a3b", "Q4_K_M", vocab="bpe")
+    path = synthesize(tmp, "qwen", "qwen3-30b-a3b", "Q4_K_M", n_layer=QWEN3_LAYERS,
+                      vocab="bpe")
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -3911,7 +4331,7 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
                   decode_bound_ms=per_token / PEAK_BYTES * 1e3)
 
     runs = []
-    for kv in (torch.bfloat16, "q8_0"):
+    for kv in (torch.bfloat16,):  # its q8 cache: the slice's and phi's q8 runs hold D = 128
         run = serve("qwen3-30b-a3b", path, kv, launches, lens=QWEN_LENS, engine=eng,
                     repeat=kv is torch.bfloat16)
         expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0,
@@ -4323,8 +4743,8 @@ def phase_routes(dev, tmp: Path):
     """The shapes the kernels do not take, on the card: the tiny model with
     a 250-token Q6_K head (N % 4 != 0) against the same model on the CPU,
     every head call through the dequantize-then-matmul route; one
-    attention_cached call at head dims (Dk 192, Dv 128), the decompressed
-    MLA form, through the dense path, against attention_reference."""
+    attention_cached call at head dims (112, 112), which no kernel
+    instantiates, through the dense path, against attention_reference."""
     import torch
 
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
@@ -4360,7 +4780,8 @@ def phase_routes(dev, tmp: Path):
 
     reset_launches()
     g = torch.Generator(dev).manual_seed(5)
-    B, T, H, Hkv, S, D, DV = 1, 24, 8, 2, 96, 192, 128
+    B, T, H, Hkv, S, D, DV = 1, 24, 8, 2, 96, 112, 112
+    expect(not flash.takes(D, DV), f"head dims {D} / {DV}: no kernel takes them")
     cache = KVCache(torch.randn(1, B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16),
                     torch.randn(1, B, Hkv, S, DV, generator=g, device=dev).to(torch.bfloat16))
     q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
@@ -4417,6 +4838,7 @@ def main() -> int:
     timed("flash", phase_flash, dev, results)
     timed("flash d256", phase_flash256, dev, results)
     timed("flash mla", phase_flash_mla, dev, results)
+    timed("flash dkdv", phase_flash_dkdv, dev, results)
     phi: dict = {}
     timed("phi kernels", phase_phi_kernels, dev, results, phi)
     batched: dict = {}
@@ -4440,16 +4862,24 @@ def main() -> int:
         ds2 = timed("deepseek2", phase_deepseek2, Path(tmp), launches)
         qwen_run = timed("qwen", phase_qwen, Path(tmp), launches)
         phi_run = timed("phi", phase_phi, Path(tmp), launches)
+        mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
                                         "speculative": spec, "gemma": gemma,
-                                        "deepseek2": ds2, "qwen": qwen_run, "phi": phi_run}))
+                                        "deepseek2": ds2, "qwen": qwen_run, "phi": phi_run,
+                                        "mla": mla_run}))
     for fmt in FLASH_FORMATS:
         for d in (256, 96, 80):
             launches[f"flash_{fmt}_d{d}"] = (launches[f"flash_{fmt}.d{d}.decode"]
                                              + launches[f"flash_{fmt}.d{d}.prefill"])
-    launches[FLASH_MLA_KEY] = (launches["flash_bf16.d576v512.decode"]
-                               + launches["flash_bf16.d576v512.prefill"])
+    for d, dv in DKDV_DIMS:
+        for fmt in FLASH_FORMATS:
+            launches[f"flash_{fmt}_d{d}v{dv}"] = (launches[f"flash_{fmt}.d{d}v{dv}.decode"]
+                                                 + launches[f"flash_{fmt}.d{d}v{dv}.prefill"])
+    for key in (FLASH_MLA_KEY, FLASH_MLA288_KEY):
+        dims = key.split("_")[-1]
+        launches[key] = (launches[f"flash_bf16.{dims}.decode"]
+                         + launches[f"flash_bf16.{dims}.prefill"])
     grouped_prefill_launches = next(r["prefill_profile"]["launches"] for r in runs
                                     if r["model"] == "8b-Q4_K_M-grouped")
 
@@ -4508,9 +4938,9 @@ def main() -> int:
                          launches_decode=launches[f"flash_{fmt}.d256.decode"],
                          launches_prefill=launches[f"flash_{fmt}.d256.prefill"],
                          registers=ptxas.get(
-                             f"flash_decode_kernel<256,{FLASH_FORMATS.index(fmt)}>"),
+                             f"flash_decode_kernel<256,256,{FLASH_FORMATS.index(fmt)}>"),
                          prefill_registers=ptxas.get(
-                             f"flash_prefill_kernel<256,{FLASH_FORMATS.index(fmt)}>"))
+                             f"flash_prefill_kernel<256,256,{FLASH_FORMATS.index(fmt)}>"))
         elif key in FLASH_NARROW_KEYS:
             # the decode regime at B = 2 (representative), the Phi shapes (32
             # heads on 32: R = 1, 9, 16; Phi-3's 2560-token windowed prefill)
@@ -4526,25 +4956,52 @@ def main() -> int:
                          launches_decode=launches[f"flash_{fmt}.d{d}.decode"],
                          launches_prefill=launches[f"flash_{fmt}.d{d}.prefill"],
                          registers=ptxas.get(
-                             f"flash_decode_kernel<{d},{FLASH_FORMATS.index(fmt)}>"),
+                             f"flash_decode_kernel<{d},{d},{FLASH_FORMATS.index(fmt)}>"),
                          prefill_registers=ptxas.get(
-                             f"flash_prefill_kernel<{d},{FLASH_FORMATS.index(fmt)}>"))
+                             f"flash_prefill_kernel<{d},{d},{FLASH_FORMATS.index(fmt)}>"))
             expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
                    f"{key} launched in both regimes on the main path")
-        elif key == FLASH_MLA_KEY:
+        elif key in FLASH_DKDV_KEYS:
+            # the decode regime at T = 1 (representative), the prefill regime
+            # at T = 512 beside it; launches from the mla models phase's
+            # decompressed runs
+            fmt, dims = key.split("_")[1], key.split("_")[2]
+            d, dv = (int(x) for x in dims[1:].split("v"))
+            pre = next(r for r in rows if r["case"] == f"{fmt} T=512 B=2 S=4096 D={d}/{dv}")
+            entry.update(prefill_case=pre["case"], prefill_ms=pre["ms"],
+                         prefill_plain_ms=pre["plain_ms"], prefill_bound_ms=pre["bound_ms"],
+                         prefill_bound_by=pre["bound_by"], prefill_library_ms=pre["library_ms"],
+                         launches_decode=launches[f"flash_{fmt}.{dims}.decode"],
+                         launches_prefill=launches[f"flash_{fmt}.{dims}.prefill"],
+                         registers=ptxas.get(
+                             f"flash_decode_kernel<{d},{dv},{FLASH_FORMATS.index(fmt)}>"),
+                         prefill_registers=ptxas.get(
+                             f"flash_prefill_kernel<{d},{dv},{FLASH_FORMATS.index(fmt)}>"))
+            expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
+                   f"{key} launched in both regimes on the main path")
+        elif key in (FLASH_MLA_KEY, FLASH_MLA288_KEY):
             # the decode regime at B = 2 (representative) and B = 1 kv 20, the
-            # prefill regime beside it; launches from the deepseek2 phase
-            kv20 = next(r for r in rows if r["case"].startswith("T=1 B=1 kv=20"))
-            pre = next(r for r in rows if r["case"].startswith("T=512 B=2"))
+            # prefill regime beside it, the decode regime's row groups (V2-Lite
+            # at T = 2, 4; MiniCPM3's R = 40) with the prefill kernel at that
+            # call; launches from the deepseek2 and mla models phases
+            dims = key.split("_")[-1]
+            d, dv = (int(x) for x in dims[1:].split("v"))
+            kv20 = next(r for r in rows if "T=1 B=1 kv=20" in r["case"])
+            pre = next(r for r in rows if "T=512 B=2" in r["case"])
             entry.update(kv20_ms=kv20["ms"], kv20_bound_ms=kv20["bound_ms"],
                          kv20_library_ms=kv20["library_ms"], prefill_case=pre["case"],
                          prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
                          prefill_bound_ms=pre["bound_ms"], prefill_bound_by=pre["bound_by"],
                          prefill_library_ms=pre["library_ms"],
-                         launches_decode=launches["flash_bf16.d576v512.decode"],
-                         launches_prefill=launches["flash_bf16.d576v512.prefill"],
-                         registers=ptxas.get("flash_mla_kernel<576,512,1>"),
-                         prefill_registers=ptxas.get("flash_mla_kernel<576,512,0>"))
+                         prefill_kernel_at_decode_ms=rep.get("prefill_kernel_ms"),
+                         row_groups=[{k: r[k] for k in ("case", "rows", "regime", "nmse", "ms",
+                                                        "bound_ms", "library_ms",
+                                                        "prefill_kernel_ms") if k in r}
+                                     for r in rows if r["rows"] > 16],
+                         launches_decode=launches[f"flash_bf16.{dims}.decode"],
+                         launches_prefill=launches[f"flash_bf16.{dims}.prefill"],
+                         registers=ptxas.get(f"flash_mla_kernel<{d},{dv},1>"),
+                         prefill_registers=ptxas.get(f"flash_mla_kernel<{d},{dv},0>"))
             expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
                    f"{key} launched in both regimes on the main path")
         elif key.startswith("flash"):

@@ -500,19 +500,21 @@ def test_split_outputs_on_two_streams_at_once(dev):
 KV_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
 
-def _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets, seed, extras):
+def _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets, seed, extras, DV=None):
     """(kernel, plain, NMSE bound) of one flash call on random inputs; `kv`
     the cache format: "bf16", "f16", "f32" (K and V drawn in bf16 and
     widened, then offset by a value below bf16's resolution so that the
-    wider types hold bits bf16 does not) or "q8"."""
+    wider types hold bits bf16 does not) or "q8"; V DV wide (D if None)."""
+    DV = DV or D
     g = torch.Generator(dev).manual_seed(seed)
     q = torch.randn(B, T, H, D, generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, DV, generator=g, device=dev).to(torch.bfloat16)
     if kv in ("f16", "f32"):
-        fine = 1e-3 * torch.randn(2, B, Hkv, S, D, generator=g, device=dev)
-        k = (k.float() + fine[0]).to(KV_DTYPES[kv])
-        v = (v.float() + fine[1]).to(KV_DTYPES[kv])
+        k = (k.float() + 1e-3 * torch.randn(B, Hkv, S, D, generator=g, device=dev)).to(
+            KV_DTYPES[kv])
+        v = (v.float() + 1e-3 * torch.randn(B, Hkv, S, DV, generator=g, device=dev)).to(
+            KV_DTYPES[kv])
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     kw = dict(softcap=0.0, sliding_window=0, sinks=None, alibi_slopes=None)
     if extras:
@@ -531,7 +533,7 @@ def _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets, seed, extras):
                                           v_scale=v_s, **kw), FLASH_Q8_NMSE_BOUND)
 
 
-def _flash_regimes(dev, T, D, kv, extras):
+def _flash_regimes(dev, T, D, kv, extras, DV=None):
     """The body of the regime tests (see test_flash_regimes_match_plain);
     the NMSE of each kv_len."""
     B, H, Hkv, S = 2, 8, 2, 4096
@@ -542,7 +544,7 @@ def _flash_regimes(dev, T, D, kv, extras):
             continue
         offsets = (kv_len - T, (7 * kv_len + 1000) % (S - T + 1))
         kernel, plain, bound = _flash_inputs(dev, kv, B, T, H, Hkv, S, D, offsets,
-                                             seed=T + kv_len + D, extras=extras)
+                                             seed=T + kv_len + D, extras=extras, DV=DV)
         before = flash.launch_total(kv), flash.launch_total(kv, "decode")
         got = kernel()
         again = kernel()
@@ -550,7 +552,7 @@ def _flash_regimes(dev, T, D, kv, extras):
         assert (flash.launch_total(kv), flash.launch_total(kv, "decode")) == \
             (before[0] + 2, before[1] + 2 * decode)
         ref = plain()
-        assert got.shape == (B, T, H, D) and torch.isfinite(got.float()).all()
+        assert got.shape == (B, T, H, DV or D) and torch.isfinite(got.float()).all()
         errs[kv_len] = _nmse(got.float(), ref.float())
         assert errs[kv_len] <= bound, kv_len
         assert torch.equal(got, again), kv_len
@@ -581,6 +583,27 @@ def test_flash_f16_f32_regimes_match_plain(dev, T, D, kv, extras):
     errs = _flash_regimes(dev, T, D, kv, extras)
     print(f"flash {kv} T={T} D={D} extras={extras}: NMSE by kv_len "
           + ", ".join(f"{n}: {e:.2e}" for n, e in errs.items()))
+
+
+@pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
+@pytest.mark.parametrize("kv", ["bf16", "f16", "f32", "q8"])
+@pytest.mark.parametrize("dims", [(192, 128), (96, 64)], ids=["192-128", "96-64"])
+@pytest.mark.parametrize("T", [1, 4, 8, 16, 40, 512])
+def test_flash_dkdv_regimes_match_plain(dev, T, dims, kv, extras):
+    """Key width ≠ value width (the decompressed MLA form: PLM and
+    DeepSeek-V2's (192, 128), MiniCPM3's (96, 64); the library flash_dkdv)
+    in both regimes on every cache format, as test_flash_regimes_match_plain
+    holds the others: each kv_len against flash_reference, one launch a
+    call counted under its pair's key, bit-identical when repeated."""
+    D, DV = dims
+    key = f"{kv}.{flash.dims_key(D, DV)}."
+    before = {r: flash.LAUNCHES[key + r] for r in ("decode", "prefill")}
+    errs = _flash_regimes(dev, T, D, kv, extras, DV=DV)
+    n = 2 * len(errs)
+    reg = flash.regime(T, 8, 2)
+    assert flash.LAUNCHES[key + reg] == before[reg] + n
+    print(f"flash {kv} T={T} {D}/{DV} extras={extras}: NMSE by kv_len "
+          + ", ".join(f"{k}: {e:.2e}" for k, e in errs.items()))
 
 
 @pytest.mark.parametrize("q8", [False, True])
@@ -733,7 +756,7 @@ def test_flash_latent_matches_plain(dev, B, T, offsets):
     c = torch.randn(B, 1, 4096, 576, generator=g, device=dev).to(torch.bfloat16)
     v = c[..., :512]
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
-    reg = flash.regime(T, 16, 1)
+    reg = flash.regime(T, 16, 1, latent=True)
     key = f"bf16.d576v512.{reg}"
     before = flash.LAUNCHES[key]
     got = flash.flash_attention(q, c, v, off, 192 ** -0.5)
@@ -750,6 +773,94 @@ def test_flash_latent_matches_plain(dev, B, T, offsets):
     for b, o in enumerate(offsets):
         if o < 0:
             assert not got[b, 0].float().any()
+
+
+# the latent form at MiniCPM3's (288, 256) with its 40 heads, and at V2-Lite's
+# (576, 512) with 16 heads at the verify's T = 2–4: (Dk, Dv, H, B, T,
+# offsets); R = T·H up to 64 takes the decode regime in row groups of 16
+LATENT_ROW_CASES = [(288, 256, 40, 2, 1, (37, 3000)), (288, 256, 40, 1, 1, (19,)),
+                    (288, 256, 40, 2, 1, (-1, 500)), (288, 256, 40, 2, 2, (0, 2500)),
+                    (288, 256, 40, 2, 512, (0, 2500)), (288, 256, 40, 4, 8, (-1, 0, 2500, -1)),
+                    (576, 512, 16, 2, 2, (37, 3000)), (576, 512, 16, 2, 3, (5, 1000)),
+                    (576, 512, 16, 2, 4, (0, 3000)), (576, 512, 16, 1, 4, (-1,)),
+                    (576, 512, 12, 2, 4, (70, 2000))]
+
+
+@pytest.mark.parametrize("Dk,Dv,H,B,T,offsets", LATENT_ROW_CASES,
+                         ids=lambda c: str(c).replace(" ", "") if isinstance(c, tuple) else None)
+def test_flash_latent_row_groups_match_plain(dev, Dk, Dv, H, B, T, offsets):
+    """The latent form at (288, 256) in both regimes, and the decode
+    regime's row groups (R = 40, 48, 64, 32 and a partial last group) at
+    both widths: against flash_reference and the plain version of its own
+    order (the split plan's, p as two bf16 terms), one launch counted under
+    its key and regime, idle slots' rows exactly 0, and a second call
+    bit-identical (each row group's counter left at zero)."""
+    g = torch.Generator(dev).manual_seed(Dk + H + B * 100 + T)
+    q = torch.randn(B, T, H, Dk, generator=g, device=dev).to(torch.bfloat16)
+    c = torch.randn(B, 1, 4096, Dk, generator=g, device=dev).to(torch.bfloat16)
+    v = c[..., :Dv]
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    scale = {576: 192, 288: 96}[Dk] ** -0.5  # the per-head key width's (qk_nope + rope)
+    reg = flash.regime(T, H, 1, latent=True)
+    assert reg == ("decode" if T * H <= 64 else "prefill")
+    key = f"bf16.{flash.dims_key(Dk, Dv)}.{reg}"
+    before = flash.LAUNCHES[key]
+    got = flash.flash_attention(q, c, v, off, scale)
+    again = flash.flash_attention(q, c, v, off, scale)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES[key] == before + 2
+    ref = flash.flash_reference(q, c, v, off, scale)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    own = (flash.flash_split_reference(q, c, v, off, scale, n_sm=n_sm, p_terms=2)
+           if reg == "decode" else flash.flash_prefill_reference(q, c, v, off, scale))
+    assert got.shape == (B, T, H, Dv) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND
+    assert _nmse(got.float(), own.float()) <= FLASH_NMSE_BOUND
+    assert torch.equal(got, again)
+    for b, o in enumerate(offsets):
+        if o < 0:
+            assert not got[b, 0].float().any()
+
+
+@pytest.mark.parametrize("form", ["absorbed", "decompressed", "decompressed-q8"])
+@pytest.mark.parametrize("shape", ["tiny-minicpm3", "tiny-plm"])
+def test_mla_alias_engine_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch, shape, form):
+    """tiny-minicpm3 (latent 288 / 256 under 40 heads; heads 96 / 64) and
+    tiny-plm (576 / 512; 192 / 128) on the card against the CPU, on the
+    latent and (TPULLM_MLA=0) on the per-head bf16 and q8 caches: a 40-token
+    prompt's and decode_step's logits within NMSE 1e-3, the decode graph's
+    greedy ids equal; a replay launches flash once a layer in the decode
+    regime at the form's shape, a 40-token prefill once a layer in the
+    prefill regime, and no dense route."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+
+    if form != "absorbed":
+        monkeypatch.setenv("TPULLM_MLA", "0")
+    kv = "q8_0" if form == "decompressed-q8" else "bf16"
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    gpu, cpu = (Engine(path, device=d, max_seq=256, kv_dtype=kv) for d in (None, "cpu"))
+    dims = {("tiny-minicpm3", True): "d288v256", ("tiny-minicpm3", False): "d96v64",
+            ("tiny-plm", True): "d576v512", ("tiny-plm", False): "d192v128"}[
+        shape, form == "absorbed"]
+    fmt = "q8" if form == "decompressed-q8" else "bf16"
+    ids = list(range(5, 45))
+    before = flash.LAUNCHES[f"{fmt}.{dims}.prefill"], flash.ATTN_DENSE_ROUTES[fmt]
+    a, b = gpu.prefill(ids), cpu.prefill(ids)
+    assert flash.LAUNCHES[f"{fmt}.{dims}.prefill"] == before[0] + 2
+    errs = [_nmse(torch.from_numpy(a), torch.from_numpy(b))]
+    for tok in (300, 17, 42):
+        a, b = gpu.decode_step(tok), cpu.decode_step(tok)
+        errs.append(_nmse(torch.from_numpy(a), torch.from_numpy(b)))
+    assert np.isfinite(a).all() and max(errs) <= 1e-3, errs
+    gpu.reset()
+    cpu.reset()
+    assert gpu.generate_tokens_device(ids, 24, chunk=8) == \
+        cpu.generate_tokens_device(ids, 24, chunk=8)
+    one = gpu.decode_runner(SamplingParams(), 8).launches_per_replay()
+    assert one["flash"] == one["flash_decode"] == 2 and one["attn_dense_routes"] == 0
+    assert flash.ATTN_DENSE_ROUTES[fmt] == before[1]
 
 
 def test_latent_f16_and_other_widths_take_the_dense_route(dev):
@@ -892,8 +1003,8 @@ def test_routes_on_the_card(dev, tmp_path):
     """The shapes no kernel takes, on the card: the tiny model with a
     250-token head serves against the CPU with every head call through the
     counted dequantize-then-matmul route; a stack and a gather at N = 250
-    take its stack and gather forms; head dims (Dk 192, Dv 128), the
-    decompressed MLA form, take the counted dense attention path."""
+    take its stack and gather forms; head dims (112, 112), which no kernel
+    instantiates, take the counted dense attention path."""
     from tpullm_torch.models.synth import make_synthetic_llama_gguf
     from tpullm_torch.ops import attention
     from tpullm_torch.runtime.engine import Engine
@@ -926,14 +1037,14 @@ def test_routes_on_the_card(dev, tmp_path):
             qmm.GATHER_LAUNCHES["Q4_K"]) == (before[0] + 2, before[1], before[2])
 
     g = torch.Generator(dev).manual_seed(4)
-    cache = KVCache(torch.randn(1, 1, 2, 64, 192, generator=g, device=dev).to(torch.bfloat16),
-                    torch.randn(1, 1, 2, 64, 128, generator=g, device=dev).to(torch.bfloat16))
-    q = torch.randn(1, 9, 8, 192, generator=g, device=dev).to(torch.bfloat16)
+    cache = KVCache(torch.randn(1, 1, 2, 64, 112, generator=g, device=dev).to(torch.bfloat16),
+                    torch.randn(1, 1, 2, 64, 112, generator=g, device=dev).to(torch.bfloat16))
+    q = torch.randn(1, 9, 8, 112, generator=g, device=dev).to(torch.bfloat16)
     off = torch.tensor([20], dtype=torch.int32, device=dev)
     before = flash.ATTN_DENSE_ROUTES["bf16"], dict(flash.LAUNCHES)
-    got = attention.attention_cached(q, cache, 0, 192 ** -0.5, off)
-    ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 192 ** -0.5)
-    assert got.shape == (1, 9, 8, 128)
+    got = attention.attention_cached(q, cache, 0, 112 ** -0.5, off)
+    ref = flash.flash_reference(q, cache.k[0], cache.v[0], off, 112 ** -0.5)
+    assert got.shape == (1, 9, 8, 112)
     assert (flash.ATTN_DENSE_ROUTES["bf16"], flash.LAUNCHES) == (before[0] + 1, before[1])
     assert _nmse(got.float(), ref.float()) <= FLASH_NMSE_BOUND
 

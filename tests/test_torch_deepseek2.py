@@ -423,13 +423,16 @@ def test_flash_plain_versions_latent(dims, T, offsets):
 
 
 def test_flash_takes_the_latent_form_only_at_576_512_bf16():
-    """The kernel's latent form: (576, 512) on a bf16 cache; f16 and f32
-    latents and other widths go to the counted dense route."""
+    """The kernel's latent form: (576, 512) (and MiniCPM3's (288, 256)) on a
+    bf16 cache; f16 and f32 latents and other widths go to the counted
+    dense route. The decompressed form's (192, 128) takes the dense
+    kernels at Dk ≠ Dv; (112, 112) stays refused."""
     assert flash.takes(576, 512, True, torch.bfloat16)
+    assert flash.takes(288, 256, True, torch.bfloat16)
     assert not flash.takes(576, 512, True, torch.float16)
     assert not flash.takes(576, 512, True, torch.float32)
     assert not flash.takes(32, 24, True, torch.bfloat16)
-    assert not flash.takes(192, 128) and flash.takes(128, 128)
+    assert flash.takes(192, 128) and flash.takes(128, 128) and not flash.takes(112, 112)
     assert flash.dims_key(576, 512) == "d576v512" and "bf16.d576v512.decode" in flash.LAUNCHES
     k = torch.zeros(1, 1, 8, 576)
     assert flash.is_latent(k, k[..., :512]) and not flash.is_latent(k, k[..., :512].clone())

@@ -224,7 +224,8 @@ def test_qmm_and_qmm_grouped_launch_by_one_plan(M, K, N, grouped, monkeypatch):
 
 
 @pytest.mark.parametrize("d,dv,want", [(64, 64, True), (128, 128, True), (80, 80, True),
-                                       (96, 96, True), (256, 256, True), (192, 128, False)])
+                                       (96, 96, True), (256, 256, True), (192, 128, True),
+                                       (96, 64, True), (112, 112, False)])
 def test_flash_takes_head_dims(d, dv, want):
     assert flash.takes(d, dv) is want
 

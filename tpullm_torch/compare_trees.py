@@ -9,8 +9,8 @@ again (N rounds of parent and this checkout, alternating which goes first;
 default 2), each in a process of its own that imports `tpullm_torch` from its
 checkout and builds that checkout's kernels, and measures in each, with the
 timing code of this file:
-- flash at T = 1 (H = 32, Hkv = 8, D = 128, S = 4096: the 8B's decode) in
-  both cache formats, at kv_len 38 and 3001 in one call (B = 2) and at
+- flash at T = 1 (H = 32, Hkv = 8, D = 128, S = 4096: the 8B's decode) on
+  bf16, q8, f16 and f32 caches, at kv_len 38 and 3001 in one call (B = 2) and at
   B = 1 with kv_len 20, 100 and 512; qmm at M = 1 on the 8B's gate_up,
   down and wo for a few formats; qmm_grouped (the group-factored kernel)
   at M = 1 on the 8B's gate_up for the same formats; qmm_gather on
@@ -25,8 +25,10 @@ timing code of this file:
 - the prefill kernels as graph-replay device time only: qmm (the
   tensor-core regime) and qmm_grouped at M = 16 and 512 on the 8B's
   gate_up for all 22 formats, qmm_stack at M = 512 on Mixtral's gate (8
-  experts, shared x) at Q4_K and Q6_K, flash at T = 512 (S = 4096, both
-  cache formats); and each tensor-core kernel's registers and spill bytes
+  experts, shared x) at Q4_K and Q6_K, flash at T = 512 (S = 4096, all
+  four cache formats); flash's MLA latent (Dk 576, Dv 512, 16 heads) at
+  T = 1 (B = 2, kv_len 38 / 3001) and T = 512; and each tensor-core
+  kernel's registers and spill bytes
   from the tree's build report;
 - one profiled 512-token prefill of a Llama-3-8B Q4_K_M with 4 layers
   (synthesized once by this checkout) with Q4_K and Q6_K in
@@ -205,19 +207,22 @@ def worker(tree: Path, gguf: str | None, grouped_gguf: str) -> dict:
         off = torch.tensor(offsets, dtype=torch.int32, device=dev)
         k_q, k_s = QuantKVCache._quantize(k)
         v_q, v_s = QuantKVCache._quantize(v)
+        kv16, kv32 = (k.half(), v.half()), (k.float(), v.float())
         fns = {"bf16": lambda: flash.flash_attention(q, k, v, off, D ** -0.5),
-               "q8": lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5)}
+               "q8": lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5),
+               "f16": lambda: flash.flash_attention(q, *kv16, off, D ** -0.5),
+               "f32": lambda: flash.flash_attention(q, *kv32, off, D ** -0.5)}
         for fmt, fn in fns.items():
-            ref = flash.flash_reference(q, *((k, v) if fmt == "bf16" else (k_q, v_q)), off,
-                                        D ** -0.5, **({} if fmt == "bf16" else
-                                                      dict(k_scale=k_s, v_scale=v_s)))
+            ref = flash.flash_reference(q, *((k_q, v_q) if fmt == "q8" else (k, v)), off,
+                                        D ** -0.5, **(dict(k_scale=k_s, v_scale=v_s)
+                                                      if fmt == "q8" else {}))
             err = float((fn().float() - ref.float()).abs().max())
             assert err < 0.05, f"flash {fmt} {label}: max |d| {err}"
             _measure(fn, timers, res, f"flash {fmt} {label}")
             if B == 1:
                 _record(res, f"flash {fmt} {label} cold_ms", timers[0],
                         lambda: (flush.zero_(), fn()), flush_ms)
-        del q, k, v, k_q, v_q
+        del q, k, v, k_q, v_q, kv16, kv32
     def random_planes(gtype, N, K):
         tt = TYPE_TRAITS[gtype]
         nb = N * K // tt.block_size
@@ -293,7 +298,20 @@ def worker(tree: Path, gguf: str | None, grouped_gguf: str) -> dict:
             lambda: flash.flash_attention(q, k, v, off, D ** -0.5))
     _record(res, "flash q8 T=512 graph_ms", timers[0],
             lambda: flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5))
-    del q, k, v, k_q, v_q
+    for fmt, dt in (("f16", torch.float16), ("f32", torch.float32)):
+        kd, vd = k.to(dt), v.to(dt)
+        _record(res, f"flash {fmt} T=512 graph_ms", timers[0],
+                lambda kd=kd, vd=vd: flash.flash_attention(q, kd, vd, off, D ** -0.5))
+    del q, k, v, k_q, v_q, kd, vd
+    c = torch.randn(2, 1, S, 576, generator=gen, device=dev).to(torch.bfloat16)
+    for T_l, B_l, offs in ((1, 2, (37, 3000)), (512, 1, (2500,))):
+        ql = torch.randn(B_l, T_l, 16, 576, generator=gen, device=dev).to(torch.bfloat16)
+        cl = c[:B_l]
+        ol = torch.tensor(offs, dtype=torch.int32, device=dev)
+        _record(res, f"flash latent d576 T={T_l} graph_ms", timers[0],
+                lambda ql=ql, cl=cl, ol=ol: flash.flash_attention(ql, cl, cl[..., :512], ol,
+                                                                  192 ** -0.5))
+    del c, ql, cl
     torch.cuda.empty_cache()
     gp = res["grouped prefill 512"] = _grouped_prefill(grouped_gguf)
     res["grouped prefill 512 busy_ms"] = gp["busy_ms"]

@@ -19,7 +19,7 @@
 //
 // R ≤ kDecodeRows = 16 (decode; the 8B's T = 1 is R = 4): split-KV on CUDA
 //   cores, flash_decode_kernel. What bounds it: the K/V bytes up to kv_len
-//   (2 · kv_len · D · 2 bytes a KV head in bf16 and f16, twice that in
+//   (kv_len · (D + DV) · 2 bytes a KV head in bf16 and f16, twice that in
 //   f32, half that plus the scales in q8). One block per (batch, KV head,
 //   split): the R rows of the G heads of one KV head share every K/V tile,
 //   so each is read once (the old grid read it G times). Each batch's key
@@ -31,15 +31,21 @@
 //   lost: below a tile the merge they add costs more than the parallelism
 //   gives, so a short context is latency-bound by one block's pass over one
 //   tile (the launch, the scores, the softmax, P·V).
-//   Head dims 64, 128 and 256 (`launch`), and 80 and 96 in a library of
+//   Head dims D = DV 64, 128 and 256 (`launch`), 80 and 96 in a library of
 //   their own (-DTPULLM_FLASH_NARROW, so that its nvcc runs beside this
-//   one). At D = 256 an f32 cache's ring holds one stage (the shared memory
-//   of two exceeds the SM's).
+//   one), and key width D ≠ value width DV at (192, 128) and (96, 64), the
+//   decompressed MLA form of DeepSeek-V2 / PLM and of MiniCPM3, in a third
+//   (-DTPULLM_FLASH_DKDV): the scores run over D, P·V, the partials and the
+//   output over DV. At D = 256 an f32 cache's ring holds one stage (the
+//   shared memory of two exceeds the SM's).
 //   256 threads a block: in the scores, thread = (key, row group of 4), so
 //   the 8B's R = 4 is one row a thread; q is held once as f32 in shared
-//   memory. In P·V a row takes the power of two of threads at or above D/4
-//   (each 4 features): 32 at D = 80 and 96, whose lanes past D/4 (20, 24)
-//   idle, so that the row groups divide the 256 threads and the 16 rows. K/V tiles go 16 bytes a thread into a 2-stage cp.async ring.
+//   memory. In P·V a row takes the power of two of threads at or above DV/4
+//   (each 4 features): 32 at DV = 80, 96 and 128, 16 at DV = 64, whose lanes
+//   past DV/4 (20, 24) idle, so that the row groups divide the 256 threads
+//   and the 16 rows. K/V tiles go 16 bytes a thread into a 2-stage cp.async
+//   ring; K rows are padded to an odd count of 16-byte units (the scores
+//   read one key a lane), V rows are not (P·V reads along a row).
 //   Scores, softmax and P·V are f32 FMAs (no new rounding point; int8
 //   codes, f16 and bf16 are exact in f32, f32 is read as it is). A split
 //   writes f32 (m, l, acc) partials; the last block of each (batch, KV
@@ -52,13 +58,14 @@
 //   finishes without partials.
 //
 // R > 16 (prefill): flash_prefill_kernel, tensor cores, FlashAttention-2
-//   layout. What bounds it: the QK and PV products, 4 · D · (visible pairs)
-//   · H FLOP against 989 TFLOP/s. A block of 4 warps holds 64 query rows of
-//   one head, each warp 16 rows (at D = 256, 8 warps: each row group's two
+//   layout. What bounds it: the QK and PV products, 2 · (D + DV) · (visible
+//   pairs) · H FLOP against 989 TFLOP/s. A block of 4 warps holds 64 query rows of
+//   one head, each warp 16 rows (at DV = 256, 8 warps: each row group's two
 //   warps hold one half of O's features each, 64 f32 a thread as at
-//   D = 128, and both compute the group's scores); 64-key K/V tiles go
+//   DV = 128, and both compute the group's scores); 64-key K/V tiles go
 //   through a 2-stage cp.async ring and are read by ldmatrix; QK and PV are mma.sync
-//   m16n8k16 with bf16 inputs and f32 sums; the online softmax stays in
+//   m16n8k16 with bf16 inputs and f32 sums (D / 16 k-steps of QK, DV / 8
+//   n-tiles of O a warp); the online softmax stays in
 //   registers. Tiles wholly above the block's causal diagonal or before its
 //   window are never loaded; a warp skips the tiles wholly above its own
 //   diagonal or before its own window, and masks only tiles that straddle
@@ -70,16 +77,23 @@
 //   exact for f16 (11 significant bits) and about 16 bits of f32's 24;
 //   QK takes q·K_hi + q·K_lo and PV adds p_hi·V_lo to the two p terms below
 //   (p_lo·V_lo, under 2^-16 of the product, is left out). At D = 256 the
-//   f16 ring holds one stage and the f32 one none (PreSmem). The new rounding
+//   f16 ring holds one stage and the f32 one none, at (192, 128) the f32
+//   ring one (PreSmem). The new rounding
 //   point, p (or p · v_s) to bf16 for the PV product, is carried as two bf16
 //   terms, hi = bf16(p), lo = bf16(p − hi), so p is kept to about 16 bits
 //   against f32's 24; the JAX kernel multiplies in f32.
 //
-// The latent form (the MLA cache of DeepSeek-V2/V3: Dk = 576, Dv = 512, one
-// bf16 KV head whose rows are [kv_lora latent | rope key] and whose values
-// are each row's first 512 features, a view the JAX kernel takes as its
-// own v) is flash_mla_kernel (below), both regimes on the tensor cores. It
-// is its own library (-DTPULLM_FLASH_LATENT, the entry
+// The latent form (the MLA cache: one bf16 KV head whose rows are
+// [kv_lora latent | rope key] and whose values are each row's first kv_lora
+// features, a view the JAX kernel takes as its own v; DeepSeek-V2/V3 and
+// PLM at (DK, DV) = (576, 512), MiniCPM3 at (288, 256)) is flash_mla_kernel
+// (below), both regimes on the tensor cores, with a regime rule of its own:
+// the decode regime takes R ≤ kLatentDecodeRows = 64 query rows, in row
+// groups of 16 (MiniCPM3's 40 heads at T = 1 are three, V2-Lite's verify at
+// T = 2–4 two to four), because all of a latent's heads share its one KV
+// head: the prefill grid would give R = 40 rows 40 blocks, each reading
+// the whole latent for one of its 32 rows, with no split over the keys.
+// It is its own library (-DTPULLM_FLASH_LATENT, the entry
 // tpullm_flash_latent_bf16), so that its nvcc runs beside the dense and q8
 // one.
 
@@ -94,6 +108,7 @@ using namespace tpullm;
 constexpr float kNegInf = -1e30f;  // the running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDecodeRows = 16;    // R = T·G at most this: the decode regime
+constexpr int kLatentDecodeRows = 64;  // the latent form's decode regime: R at most this
 constexpr int kDecThreads = 256;  // 64 keys × 4 row groups in the scores
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecTK = 64;         // keys a tile (decode)
@@ -173,10 +188,10 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float (&v)[16 / kv_by
   }
 }
 
-// Finishes one decode row from its merged (m, l, acc) for features 4·dq ..:
-// the sink column in the normalizer only, safe l, bf16 to out[b, t, h].
+// Finishes one decode row from its merged (m, l, acc) for features 4·dq ..
+// of DV: the sink column in the normalizer only, safe l, bf16 to out[b, t, h].
 __device__ __forceinline__ void decode_finish(__nv_bfloat16* __restrict__ out, int b, int T,
-                                              int H, int h, int t, int D, int dq, float m,
+                                              int H, int h, int t, int DV, int dq, float m,
                                               float l, const float (&o)[4],
                                               const float* __restrict__ sinks) {
   float c = 1.f;
@@ -192,22 +207,23 @@ __device__ __forceinline__ void decode_finish(__nv_bfloat16* __restrict__ out, i
   uint2 w;
   w.x = *reinterpret_cast<const uint32_t*>(&lo);
   w.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(out + (((size_t)b * T + t) * H + h) * D + 4 * dq) = w;
+  *reinterpret_cast<uint2*>(out + (((size_t)b * T + t) * H + h) * DV + 4 * dq) = w;
 }
 
-// Shared memory of a decode block: q rows (f32), the K/V ring (K rows padded
-// to an odd count of 16-byte units, by 16 bytes or, where the row is an odd
-// count already (q8 at D = 80: 5), by 32, so that 8 lanes reading 16 bytes
-// of 8 keys hit distinct banks; q8: the per-key scales after V), the
+// Shared memory of a decode block: q rows (f32, D wide), the K/V ring (K
+// rows of D padded to an odd count of 16-byte units, by 16 bytes or, where
+// the row is an odd count already (q8 at D = 80: 5), by 32, so that 8 lanes
+// reading 16 bytes of 8 keys hit distinct banks; V rows of DV unpadded: a
+// row's lanes read along it; q8: the per-key scales after V), the
 // probabilities p [16][65] and per-row state.
 // The ring holds two stages where they fit, else one (f32 at D = 256: the
 // next tile is then loaded after the P·V of this one).
-template <int D, int KV>
+template <int D, int DV, int KV>
 struct DecSmem {
   static constexpr bool kQ8 = KV == kKvQ8;
   static constexpr int kEs = kv_bytes<KV>();
   static constexpr int kKPitch = D * kEs + (D * kEs / 16 % 2 ? 32 : 16);
-  static constexpr int kVPitch = D * kEs;
+  static constexpr int kVPitch = DV * kEs;
   static constexpr int kV = kDecTK * kKPitch;
   static constexpr int kScales = kV + kDecTK * kVPitch;
   static constexpr int kStage = kScales + (kQ8 ? 2 * kDecTK * 4 : 0);
@@ -221,7 +237,7 @@ struct DecSmem {
   static constexpr int bytes = row_off + 4 * kDecodeRows * 4 + 16;
   static_assert(kStages * kStage >= 2 * kMaxSplits * kDecodeRows * 4,
                 "the ring holds every split's (m, l) for the combine");
-  static_assert(D % 16 == 0 && D * kEs % 16 == 0, "K/V rows are whole 16-byte copies");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D, "K/V rows are whole 16-byte copies");
   static_assert(kKPitch / 16 % 2 == 1, "a K row spans an odd count of 16-byte units");
   static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
@@ -229,25 +245,26 @@ struct DecSmem {
 // the least power of two at or above n
 __host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
 
-template <int D, int KV>
+template <int D, int DV, int KV>
 __global__ void __launch_bounds__(kDecThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
                     const char* __restrict__ k,            // [B, Hkv, S, D] of type KV
-                    const char* __restrict__ v,
+                    const char* __restrict__ v,            // [B, Hkv, S, DV] of type KV
                     const float* __restrict__ k_scale,     // [B, Hkv, S] (q8)
                     const float* __restrict__ v_scale,
                     const int* __restrict__ offsets,       // [B]
                     const float* __restrict__ sinks,       // [H] or null
                     const float* __restrict__ slopes,      // [H] or null
-                    __nv_bfloat16* __restrict__ out,       // [B, T, H, D]
-                    float* __restrict__ partial,           // [B·Hkv, max_splits, R, D + 2]
+                    __nv_bfloat16* __restrict__ out,       // [B, T, H, DV]
+                    float* __restrict__ partial,           // [B·Hkv, max_splits, R, DV + 2]
                     int* __restrict__ counters,            // [B·Hkv], zero between launches
                     int T, int H, int Hkv, int S, float scale, float softcap, int window,
                     int max_splits) {
-  using L = DecSmem<D, KV>;
+  using L = DecSmem<D, DV, KV>;
   constexpr bool kQ8 = L::kQ8;
-  constexpr int RB = D * L::kEs;  // bytes of one K or V row
-  constexpr int QD = D / 4;                 // 4-feature groups of a row in P·V
+  constexpr int RB = D * L::kEs;    // bytes of one K row
+  constexpr int RBV = DV * L::kEs;  // bytes of one V row
+  constexpr int QD = DV / 4;                // 4-feature groups of a row in P·V
   constexpr int QT = pow2_at_least(QD);     // threads a row in P·V (those past QD idle)
   constexpr int RG = kDecThreads / QT;      // row groups in P·V
   constexpr int RPT = kDecodeRows / RG;     // rows a thread in P·V
@@ -276,16 +293,19 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 
   const size_t kv_row0 = ((size_t)b * Hkv + hk) * S;
   const char* kb = k + kv_row0 * RB;
-  const char* vb = v + kv_row0 * RB;
+  const char* vb = v + kv_row0 * RBV;
   auto load_tile = [&](int it) {
     char* st = ring + (it % L::kStages) * L::kStage;
     const int kt = k0 + it * kDecTK;
+    // 16 bytes of a K row, and of the V row beside it while the V row
+    // (DV ≤ D) lasts
     for (int i = tid; i < kDecTK * (RB / 16); i += kDecThreads) {
       const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
       const bool ok = kt + r < k1;
-      const size_t src = (size_t)(ok ? kt + r : kt) * RB + seg;
-      cp_async16(st + r * L::kKPitch + seg, kb + src, ok ? 16 : 0);
-      cp_async16(st + L::kV + r * L::kVPitch + seg, vb + src, ok ? 16 : 0);
+      const size_t row = ok ? kt + r : kt;
+      cp_async16(st + r * L::kKPitch + seg, kb + row * RB + seg, ok ? 16 : 0);
+      if (seg < RBV)
+        cp_async16(st + L::kV + r * L::kVPitch + seg, vb + row * RBV + seg, ok ? 16 : 0);
     }
     if constexpr (kQ8) {
       for (int i = tid; i < 2 * kDecTK; i += kDecThreads) {
@@ -457,20 +477,20 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
     for (int i = 0; i < RPT; ++i) {
       const int r = rg + RG * i;
       if (pv && r < R)
-        decode_finish(out, b, T, H, hk * G + r % G, r / G, D, dq, m_s[r], l_s[r], acc[i], sinks);
+        decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], acc[i], sinks);
     }
     return;
   }
 
-  // partials of split z: acc [R][D], then (m, l) [R][2] after all the acc
-  const size_t n_acc = (size_t)gridDim.x * max_splits * R * D;
-  float* pacc = partial + ((size_t)grp * max_splits + z) * R * D;
+  // partials of split z: acc [R][DV], then (m, l) [R][2] after all the acc
+  const size_t n_acc = (size_t)gridDim.x * max_splits * R * DV;
+  float* pacc = partial + ((size_t)grp * max_splits + z) * R * DV;
   float* pml = partial + n_acc + ((size_t)grp * max_splits + z) * R * 2;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
     if (pv && r < R)
-      *reinterpret_cast<float4*>(pacc + (size_t)r * D + 4 * dq) =
+      *reinterpret_cast<float4*>(pacc + (size_t)r * DV + 4 * dq) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
   if (tid < R) {
@@ -486,7 +506,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 
   // every split's (m, l) into the ring (free now), then each row's merged
   // max, the weights exp(m_z − m) in place of m_z, and the merged l
-  const float* gacc = partial + (size_t)grp * max_splits * R * D;
+  const float* gacc = partial + (size_t)grp * max_splits * R * DV;
   const float* gml = partial + n_acc + (size_t)grp * max_splits * R * 2;
   float* cm = reinterpret_cast<float*>(ring);  // [n][R]
   float* cl = cm + kMaxSplits * kDecodeRows;    // [n][R]
@@ -515,41 +535,45 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll 4
     for (int zz = 0; zz < sp.n; ++zz) {  // in split order
       const float w = cm[zz * R + r];
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * D + 4 * dq));
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * DV + 4 * dq));
       o[0] += a.x * w;
       o[1] += a.y * w;
       o[2] += a.z * w;
       o[3] += a.w * w;
     }
-    decode_finish(out, b, T, H, hk * G + r % G, r / G, D, dq, m_s[r], l_s[r], o, sinks);
+    decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], o, sinks);
   }
   if (tid == 0) counters[grp] = 0;  // ready for the next launch
 }
 
-// Shared memory of a prefill block: the K/V ring, rows padded by 8 bf16 so
-// that the 8 rows an ldmatrix reads fall in distinct bank groups. Other
+// Shared memory of a prefill block: the K/V ring, rows (K and Q: D, V: DV)
+// padded by 8 bf16 so that the 8 rows an ldmatrix reads fall in distinct
+// bank groups. Other
 // cache types than bf16: the ring holds the raw tiles (q8: and the per-key
 // scales), and bf16 K and V tiles take each tile's conversion, kTerms of
 // each (hi, then lo). The Q tile, read once into registers, is first copied
 // into the space the second tile takes after it (ring stage 1; converted:
 // the conversion tiles). The converted ring holds two stages where they fit
-// the SM; f16 at D = 256 holds one (the next tile is loaded once this one is
-// converted), f32 at D = 256 none (each tile is converted straight from
-// global memory).
-template <int D, int KV>
+// the SM; f16 at D = 256 and f32 at (192, 128) hold one (the next tile is
+// loaded once this one is converted), f32 at D = 256 none (each tile is
+// converted straight from global memory).
+template <int D, int DV, int KV>
 struct PreSmem {
   static constexpr bool kQ8 = KV == kKvQ8;
   static constexpr bool kConv = KV != kKvBf16;
   static constexpr int kTerms = KV == kKvF16 || KV == kKvF32 ? 2 : 1;
-  // warps a row group: above D = 128 each of a row group's two warps holds
-  // half of O's features (16 × 128 f32 a warp, as at D = 128)
-  static constexpr int kDvSplit = D > 128 ? 2 : 1;
+  // warps a row group: above DV = 128 each of a row group's two warps holds
+  // half of O's features (16 × 128 f32 a warp, as at DV = 128)
+  static constexpr int kDvSplit = DV > 128 ? 2 : 1;
   static constexpr int kThreads = kPreThreads * kDvSplit;
-  static constexpr int kPitch = D + 8;  // bf16 a row of Q, K, V
-  static constexpr int kTile = kPreTK * kPitch * 2;
-  static constexpr int kRaw = kPreTK * D * kv_bytes<KV>();  // bytes of one raw K or V tile
-  static constexpr int kStage = kConv ? 2 * kRaw + (kQ8 ? 2 * kPreTK * 4 : 0) : 2 * kTile;
-  static constexpr int kConvBytes = kConv ? 2 * kTerms * kTile : 0;
+  static constexpr int kPitch = D + 8;    // bf16 a row of Q and K
+  static constexpr int kVPitch = DV + 8;  // bf16 a row of V
+  static constexpr int kTile = kPreTK * kPitch * 2;    // a bf16 K tile (and the Q tile)
+  static constexpr int kVTile = kPreTK * kVPitch * 2;  // a bf16 V tile
+  static constexpr int kRaw = kPreTK * D * kv_bytes<KV>();    // bytes of one raw K tile
+  static constexpr int kRawV = kPreTK * DV * kv_bytes<KV>();  // and of one raw V tile
+  static constexpr int kStage = kConv ? kRaw + kRawV + (kQ8 ? 2 * kPreTK * 4 : 0) : kTile + kVTile;
+  static constexpr int kConvBytes = kConv ? kTerms * (kTile + kVTile) : 0;
   static constexpr int kStages = 2 * kStage + kConvBytes <= kMaxSmem ? 2
                                  : kStage + kConvBytes <= kMaxSmem ? 1 : 0;
   static constexpr int ring_off = 0;
@@ -558,27 +582,30 @@ struct PreSmem {
   static constexpr int bytes = conv_off + kConvBytes;
   static_assert(kConv ? (!kQ8 || kStages == 2) : kStages == 2,
                 "bf16 and q8 (whose scales stay in the ring) hold two stages");
-  static_assert(D % 16 == 0 && kPitch * 2 / 16 % 2 == 1,
+  static_assert(D % 16 == 0 && DV % (16 * kDvSplit) == 0 && kPitch * 2 / 16 % 2 == 1 &&
+                    kVPitch * 2 / 16 % 2 == 1,
                 "whole 16-wide k-steps; a row spans an odd count of 16-byte units (ldmatrix's "
                 "8 rows in distinct bank groups)");
   static_assert(kPreBM * kPitch * 2 <= bytes - q_off, "the Q tile fits where it is copied");
   static_assert(bytes <= kMaxSmem, "a block's shared memory fits the SM");
 };
 
-template <int D, int KV>
-__global__ void __launch_bounds__(kPreThreads * (D > 128 ? 2 : 1))
+template <int D, int DV, int KV>
+__global__ void __launch_bounds__(kPreThreads * (DV > 128 ? 2 : 1))
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict__ k,
                      const char* __restrict__ v, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, const int* __restrict__ offsets,
                      const float* __restrict__ sinks, const float* __restrict__ slopes,
                      __nv_bfloat16* __restrict__ out, int T, int H, int Hkv, int S,
                      float scale, float softcap, int window) {
-  using L = PreSmem<D, KV>;
+  using L = PreSmem<D, DV, KV>;
   constexpr bool kQ8 = L::kQ8;
   constexpr int P = L::kPitch;
+  constexpr int PV = L::kVPitch;
   constexpr int NT = L::kThreads;
-  constexpr int DV = D / L::kDvSplit;     // O's features a warp
-  constexpr int RB = D * kv_bytes<KV>();  // bytes of a K or V row in the cache
+  constexpr int DW = DV / L::kDvSplit;      // O's features a warp
+  constexpr int RB = D * kv_bytes<KV>();    // bytes of a K row in the cache
+  constexpr int RBV = DV * kv_bytes<KV>();  // and of a V row
   extern __shared__ __align__(16) char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
   char* ring = smem + L::ring_off;
@@ -597,29 +624,27 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
 
   const size_t kv_row0 = ((size_t)b * Hkv + hk) * S;
   const char* kb = k + kv_row0 * RB;
-  const char* vb = v + kv_row0 * RB;
+  const char* vb = v + kv_row0 * RBV;
   auto load_tile = [&](int it) {
     if constexpr (L::kStages > 0) {
       char* st = ring + (it % L::kStages) * L::kStage;
       const int kt = k_begin + it * kPreTK;
+      char* sv = st + (L::kConv ? L::kRaw : L::kTile);
+      // 16 bytes of a K row, and of the V row beside it while it (DV ≤ D) lasts
       for (int i = tid; i < kPreTK * (RB / 16); i += NT) {
         const int r = i / (RB / 16), seg = (i % (RB / 16)) * 16;
         const bool ok = kt + r < k_end;
-        const size_t src = (size_t)(ok ? kt + r : kt) * RB + seg;
-        if constexpr (L::kConv) {
-          cp_async16(st + r * RB + seg, kb + src, ok ? 16 : 0);
-          cp_async16(st + L::kRaw + r * RB + seg, vb + src, ok ? 16 : 0);
-        } else {
-          cp_async16(st + r * P * 2 + seg, kb + src, ok ? 16 : 0);
-          cp_async16(st + L::kTile + r * P * 2 + seg, vb + src, ok ? 16 : 0);
-        }
+        const size_t row = ok ? kt + r : kt;
+        cp_async16(st + r * (L::kConv ? RB : P * 2) + seg, kb + row * RB + seg, ok ? 16 : 0);
+        if (seg < RBV)
+          cp_async16(sv + r * (L::kConv ? RBV : PV * 2) + seg, vb + row * RBV + seg, ok ? 16 : 0);
       }
       if constexpr (kQ8) {
         for (int i = tid; i < 2 * kPreTK; i += NT) {
           const int r = i % kPreTK;
           const bool ok = kt + r < k_end;
           const float* src = (i < kPreTK ? k_scale : v_scale) + kv_row0 + (ok ? kt + r : kt);
-          cp_async4(st + 2 * L::kRaw + i * 4, src, ok ? 4 : 0);
+          cp_async4(st + L::kRaw + L::kRawV + i * 4, src, ok ? 4 : 0);
         }
       }
     }
@@ -645,9 +670,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   const float slope2 = slopes != nullptr ? slopes[h] * kLog2e : 0.f;
 
   uint32_t qf[D / 16][4];
-  float o[DV / 8][4];
+  float o[DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i)
+  for (int i = 0; i < DW / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
@@ -672,14 +697,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
     if constexpr (L::kConv) {  // raw tiles → kTerms bf16 terms each
       constexpr int kEs = kv_bytes<KV>();
       __nv_bfloat16* conv = reinterpret_cast<__nv_bfloat16*>(smem + L::conv_off);
-      for (int i = tid; i < 2 * kPreTK * (D / 16); i += NT) {
-        const int which = i / (kPreTK * (D / 16)), rem = i % (kPreTK * (D / 16));
-        const int r = rem / (D / 16), seg = (rem % (D / 16)) * 16;
-        // the raw tile in the ring, or with no ring the cache's row (zero past k_end)
-        const bool ok = L::kStages > 0 || kt + r < k_end;
+      // 16 values of row r of the K tile (or, `vt`, of the V tile) at seg:
+      // the raw tile in the ring, or with no ring the cache's row (zero past
+      // k_end), into kTerms bf16 terms
+      auto convert = [&](bool vt, int r, int seg, bool ok) {
+        const int W = vt ? DV : D;  // the row's values
         const char* src = L::kStages > 0
-                              ? st + which * L::kRaw + (r * D + seg) * kEs
-                              : (which ? vb : kb) + ((size_t)(ok ? kt + r : kt) * D + seg) * kEs;
+                              ? st + (vt ? L::kRaw : 0) + (r * W + seg) * kEs
+                              : (vt ? vb : kb) + ((size_t)(ok ? kt + r : kt) * W + seg) * kEs;
         float f[16];
 #pragma unroll
         for (int c = 0; c < kEs; ++c) {  // 16 values: kEs chunks of 16 bytes
@@ -693,7 +718,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
         }
 #pragma unroll
         for (int term = 0; term < L::kTerms; ++term) {
-          __nv_bfloat16* dst = conv + (which * L::kTerms + term) * (L::kTile / 2) + r * P + seg;
+          __nv_bfloat16* dst =
+              vt ? conv + L::kTerms * (L::kTile / 2) + term * (L::kVTile / 2) + r * PV + seg
+                 : conv + term * (L::kTile / 2) + r * P + seg;
           uint32_t w[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -707,6 +734,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
           *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
           *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
         }
+      };
+      // a piece of K, and of the V row beside it while it (DV ≤ D) lasts
+      for (int i = tid; i < kPreTK * (D / 16); i += NT) {
+        const int r = i / (D / 16), seg = (i % (D / 16)) * 16;
+        const bool ok = L::kStages > 0 || kt + r < k_end;
+        convert(false, r, seg, ok);
+        if (seg < DV) convert(true, r, seg, ok);
       }
       __syncthreads();
       if (L::kStages == 1) {  // the stage is free once converted: the next tile overlaps the products
@@ -746,7 +780,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
       }
     }
 
-    const float* kss = reinterpret_cast<const float*>(st + 2 * L::kRaw);  // q8 only
+    const float* kss = reinterpret_cast<const float*>(st + L::kRaw + L::kRawV);  // q8 only
     float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
     for (int nt = 0; nt < kPreTK / 8; ++nt)
@@ -786,7 +820,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
 #pragma unroll
     for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * corr[i] + sum[i];
 #pragma unroll
-    for (int dt = 0; dt < DV / 8; ++dt) {
+    for (int dt = 0; dt < DW / 8; ++dt) {
       o[dt][0] *= corr[0];
       o[dt][1] *= corr[0];
       o[dt][2] *= corr[1];
@@ -807,8 +841,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
         a_lo[f] = *reinterpret_cast<const uint32_t*>(&lo);
       }
 #pragma unroll
-      for (int dp = 0; dp < DV / 16; ++dp) {
-        const int at = (ks * 16 + (lane & 15)) * P + dh * DV + dp * 16 + (lane >> 4) * 8;
+      for (int dp = 0; dp < DW / 16; ++dp) {
+        const int at = (ks * 16 + (lane & 15)) * PV + dh * DW + dp * 16 + (lane >> 4) * 8;
         uint32_t r[4];
         ldmatrix_x4_trans(r, vt_s + at);
         mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
@@ -816,7 +850,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
         mma_bf16(o[2 * dp], a_lo, r[0], r[1]);
         mma_bf16(o[2 * dp + 1], a_lo, r[2], r[3]);
         if constexpr (L::kTerms == 2) {  // p_hi · V_lo
-          ldmatrix_x4_trans(r, vt_s + L::kTile / 2 + at);
+          ldmatrix_x4_trans(r, vt_s + L::kVTile / 2 + at);
           mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
           mma_bf16(o[2 * dp + 1], a_hi, r[2], r[3]);
         }
@@ -847,21 +881,21 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
   for (int i = 0; i < 2; ++i) {
     const int t = t0 + 16 * rw + (lane >> 2) + 8 * i;
     if (t >= T) continue;
-    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * D + dh * DV + 2 * (lane & 3);
+    __nv_bfloat16* dst = out + (((size_t)b * T + t) * H + h) * DV + dh * DW + 2 * (lane & 3);
 #pragma unroll
-    for (int dt = 0; dt < DV / 8; ++dt)
+    for (int dt = 0; dt < DW / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
           __floats2bfloat162_rn(o[dt][2 * i] * inv[i], o[dt][2 * i + 1] * inv[i]);
   }
 }
 
-// The latent form (the MLA cache: DK = 576, DV = 512, bf16, one KV head
-// whose rows hold the keys and, in their first DV features, the values),
-// both regimes on the tensor cores: mma.sync m16n8k16 as
-// flash_prefill_kernel, but Q (36 16-wide k-steps) does not fit in
-// registers beside O, so it stays in shared memory and is read by ldmatrix
-// at every tile, and O (16 × 512 f32 a row group of 16 query rows) is split
-// over the row group's four warps, 128 features each. The scores are not
+// The latent form (the MLA cache: DK = 576, DV = 512 or DK = 288, DV = 256,
+// bf16, one KV head whose rows hold the keys and, in their first DV
+// features, the values), both regimes on the tensor cores: mma.sync
+// m16n8k16 as flash_prefill_kernel, but Q (36 or 18 16-wide k-steps) does
+// not fit in registers beside O, so it stays in shared memory and is read
+// by ldmatrix at every tile, and O (16 × DV f32 a row group of 16 query
+// rows) is split over the row group's four warps, DV / 4 features each. The scores are not
 // computed four times: each warp takes a quarter of the tile's 64 keys over
 // the whole DK, the four exchange their partial row maxima through shared
 // memory (so the online softmax's max is the tile's), and each writes its p
@@ -872,20 +906,26 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const char* __restrict
 // loaded once (a 2-stage cp.async ring of 64-key tiles) and serves QK (all
 // DK features) and P·V (its first DV features, ldmatrix .trans). No
 // softcap, ALiBi, window or sinks (MLA has none; the wrapper refuses them).
-//   kSplit = false (prefill, T·H/Hkv > 16): a block is 32 query rows of one
+//   kSplit = false (prefill, T·H/Hkv > 64): a block is 32 query rows of one
 //   head (two row groups, 256 threads), keys from 0 to its last row's
-//   position; 196,624 bytes of shared memory. Bound: the QK and PV products,
-//   2 · (DK + DV) · (visible pairs) · H FLOP against 989 TFLOP/s.
-//   kSplit = true (decode, T·H/Hkv ≤ 16: DeepSeek's 16 heads at T = 1 are
-//   exactly one row group): a block is the ≤ 16 rows r = t·G + g of one
-//   (batch, KV head) over one split of its keys (kv_split, as
-//   flash_decode_kernel cuts them), 128 threads; a split writes f32 (m, l,
-//   acc) partials and the last block of its (batch, KV head) merges them in
-//   split order, as flash_decode_kernel does; 173,072 bytes of shared
-//   memory. Bound: the latent rows up to kv_len, read once. The scores are
-//   on the tensor cores here too: on CUDA cores, as flash_decode_kernel
-//   forms them, each key re-reads the 16 query rows of 576 from shared
-//   memory (0.030 ms for one 64-key tile, measured on the card).
+//   position; 196,624 bytes of shared memory at (576, 512). Bound: the QK
+//   and PV products, 2 · (DK + DV) · (visible pairs) · H FLOP against 989
+//   TFLOP/s.
+//   kSplit = true (decode, T·H/Hkv ≤ kLatentDecodeRows = 64: DeepSeek's 16
+//   heads at T = 1 are exactly one row group, MiniCPM3's 40 three): a block
+//   is one row group, rows r = 16·y .. 16·y + 15 (y = blockIdx.z) of the R
+//   rows r = t·G + g of one (batch, KV head), over one split of its keys
+//   (kv_split, as flash_decode_kernel cuts them), 128 threads; a split
+//   writes f32 (m, l, acc) partials of its rows and the last of the splits
+//   of its (batch, KV head, row group), found through that group's own
+//   counter, merges them in split order, as flash_decode_kernel does. A
+//   row's order is the same whatever the row groups: each row group reads
+//   the same tiles (from L2 after the first), and no row waits for
+//   another's group. 173,072 bytes of shared memory at (576, 512). Bound:
+//   the latent rows up to kv_len, read once. The scores are on the tensor
+//   cores here too: on CUDA cores, as flash_decode_kernel forms them, each
+//   key re-reads the 16 query rows of 576 from shared memory (0.030 ms for
+//   one 64-key tile, measured on the card).
 constexpr int kMlaWarpsRG = 4;  // warps a row group of 16 rows
 
 template <bool kSplit>
@@ -926,7 +966,7 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
                  const int* __restrict__ offsets,       // [B]
                  __nv_bfloat16* __restrict__ out,       // [B, T, H, DV]
                  float* __restrict__ partial,           // [B·Hkv, max_splits, R, DV + 2] (split)
-                 int* __restrict__ counters,            // [B·Hkv], zero between launches
+                 int* __restrict__ counters,            // [B·Hkv·row groups], zero after a launch
                  int T, int H, int Hkv, int S, float scale, int max_splits) {
   using L = MlaSmem<DK, DV, kSplit>;
   constexpr int BM = L::kBM;
@@ -942,15 +982,16 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rw = warp / kMlaWarpsRG, wq = warp % kMlaWarpsRG;  // row group, quarter
   const int G = H / Hkv;
-  // prefill: 32 rows t0 .. of head h; split: the R = T·G rows r = t·G + g
-  // of KV head hk, split z of its keys [k0, k1)
-  int b, hk, h = 0, t0 = 0, nrows, k0 = 0, k1, n_split = 1, grp = 0, z = 0;
+  // prefill: 32 rows t0 .. of head h; split: rows r0 .. r0 + nrows − 1 of
+  // the R = T·G rows r = t·G + g of KV head hk, split z of its keys [k0, k1)
+  int b, hk, h = 0, t0 = 0, r0 = 0, nrows, k0 = 0, k1, n_split = 1, grp = 0, z = 0;
   if constexpr (kSplit) {
     grp = blockIdx.x;
     b = grp / Hkv;
     hk = grp % Hkv;
     z = blockIdx.y;
-    nrows = T * G;
+    r0 = 16 * blockIdx.z;
+    nrows = min(16, T * G - r0);
     const KvSplit sp = kv_split(offsets[b], T, S, 0, max_splits);
     if (z >= sp.n) return;
     n_split = sp.n;
@@ -978,7 +1019,8 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
   };
   // the query row of block row r (rows past nrows zero)
   auto q_row = [&](int r) -> const __nv_bfloat16* {
-    if constexpr (kSplit) return q + (((size_t)b * T + r / G) * H + hk * G + r % G) * DK;
+    if constexpr (kSplit)
+      return q + (((size_t)b * T + (r0 + r) / G) * H + hk * G + (r0 + r) % G) * DK;
     return q + (((size_t)b * T + t0 + r) * H + h) * DK;
   };
   for (int i = tid; i < BM * (DK / 8); i += NT) {
@@ -994,7 +1036,7 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
   const int ra = 16 * rw + (lane >> 2), rb = ra + 8;
   auto q_pos = [&](int r) {
     if (r >= nrows) return -1;
-    return kSplit ? off + r / G : off + t0 + r;
+    return kSplit ? off + (r0 + r) / G : off + t0 + r;
   };
   const int qa = q_pos(ra), qb = q_pos(rb);
   const int w_first = kSplit ? off : off + t0 + 16 * rw;  // the row group's first position
@@ -1134,7 +1176,8 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
   }
   // output row r of this block: [b, t, head]
   auto out_row = [&](int r) -> __nv_bfloat16* {
-    if constexpr (kSplit) return out + (((size_t)b * T + r / G) * H + hk * G + r % G) * DV;
+    if constexpr (kSplit)
+      return out + (((size_t)b * T + (r0 + r) / G) * H + hk * G + (r0 + r) % G) * DV;
     return out + (((size_t)b * T + t0 + r) * H + h) * DV;
   };
   if (n_split == 1) {
@@ -1153,15 +1196,16 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
     return;
   }
   if constexpr (kSplit) {
-    // partials of split z: acc [R][DV], then (m, l) [R][2] after all the acc
-    const int R = nrows;
+    // partials of split z: acc [R][DV], then (m, l) [R][2] after all the
+    // acc; this block's rows r0 .. r0 + nrows − 1 of them
+    const int R = T * G;
     const size_t n_acc = (size_t)gridDim.x * max_splits * R * DV;
-    float* pacc = partial + ((size_t)grp * max_splits + z) * R * DV;
-    float* pml = partial + n_acc + ((size_t)grp * max_splits + z) * R * 2;
+    float* pacc = partial + (((size_t)grp * max_splits + z) * R + r0) * DV;
+    float* pml = partial + n_acc + (((size_t)grp * max_splits + z) * R + r0) * 2;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = ra + 8 * i;
-      if (r >= R) continue;
+      if (r >= nrows) continue;
 #pragma unroll
       for (int dt = 0; dt < DW / 8; ++dt)
         *reinterpret_cast<float2*>(pacc + (size_t)r * DV + wq * DW + dt * 8 + 2 * (lane & 3)) =
@@ -1172,9 +1216,10 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
       }
     }
     int* flag = reinterpret_cast<int*>(smem + L::mx_off + BM * kMlaWarpsRG * 4);
+    int* counter = counters + (size_t)grp * gridDim.z + blockIdx.z;  // this row group's
     __threadfence();  // this block's partials are visible before its count
     __syncthreads();
-    if (tid == 0) *flag = atomicAdd(counters + grp, 1) == n_split - 1;
+    if (tid == 0) *flag = atomicAdd(counter, 1) == n_split - 1;
     __syncthreads();
     if (!*flag) return;
     __threadfence();  // the last block: every split's partials are visible
@@ -1182,43 +1227,49 @@ flash_mla_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, H, DK]
     // every split's (m, l) into the ring (free now), each row's merged max,
     // the weights 2^(m_z − m) in place of m_z (m is in log2 units here), the
     // merged l
-    const float* gacc = partial + (size_t)grp * max_splits * R * DV;
-    const float* gml = partial + n_acc + (size_t)grp * max_splits * R * 2;
-    float* cm = reinterpret_cast<float*>(ring);  // [n][R]
-    float* cl = cm + kMaxSplits * kDecodeRows;   // [n][R]
-    float* m_s = mx_s;                           // [R] (row group 0's maxima space)
+    // this row group's rows, global row r0 + r: their acc at gacc + (zz·R +
+    // r)·DV and (m, l) at gml + 2·(zz·R + r) for split zz
+    const float* gacc = partial + ((size_t)grp * max_splits * R + r0) * DV;
+    const float* gml = partial + n_acc + ((size_t)grp * max_splits * R + r0) * 2;
+    const int NR = nrows;
+    float* cm = reinterpret_cast<float*>(ring);  // [n][NR]
+    float* cl = cm + kMaxSplits * kDecodeRows;   // [n][NR]
+    float* m_s = mx_s;                           // [NR] (row group 0's maxima space)
     float* l_s = m_s + kDecodeRows;
-    for (int i = tid; i < n_split * R; i += NT) {
-      cm[i] = __ldcg(gml + 2 * i);
-      cl[i] = __ldcg(gml + 2 * i + 1);
+    for (int i = tid; i < n_split * NR; i += NT) {
+      const int zz = i / NR, r = i % NR;
+      cm[i] = __ldcg(gml + 2 * ((size_t)zz * R + r));
+      cl[i] = __ldcg(gml + 2 * ((size_t)zz * R + r) + 1);
     }
     __syncthreads();
-    if (tid < R) {
+    if (tid < NR) {
       float m = kNegInf, l = 0.f;
-      for (int zz = 0; zz < n_split; ++zz) m = fmaxf(m, cm[zz * R + tid]);
+      for (int zz = 0; zz < n_split; ++zz) m = fmaxf(m, cm[zz * NR + tid]);
       for (int zz = 0; zz < n_split; ++zz) {  // in split order
-        const float w = exp2f(cm[zz * R + tid] - m);
-        cm[zz * R + tid] = w;
-        l += cl[zz * R + tid] * w;
+        const float w = exp2f(cm[zz * NR + tid] - m);
+        cm[zz * NR + tid] = w;
+        l += cl[zz * NR + tid] * w;
       }
       m_s[tid] = m;
       l_s[tid] = l;
     }
     __syncthreads();
-    for (int i = tid; i < R * (DV / 4); i += NT) {
+    for (int i = tid; i < NR * (DV / 4); i += NT) {
       const int r = i / (DV / 4), dq = i % (DV / 4);
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       for (int zz = 0; zz < n_split; ++zz) {  // in split order
-        const float w = cm[zz * R + r];
-        const float4 a = __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * DV + 4 * dq));
+        const float w = cm[zz * NR + r];
+        const float4 a =
+            __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * DV + 4 * dq));
         acc[0] += a.x * w;
         acc[1] += a.y * w;
         acc[2] += a.z * w;
         acc[3] += a.w * w;
       }
-      decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], acc, nullptr);
+      decode_finish(out, b, T, H, hk * G + (r0 + r) % G, (r0 + r) / G, DV, dq, m_s[r], l_s[r], acc,
+                    nullptr);
     }
-    if (tid == 0) counters[grp] = 0;  // ready for the next launch
+    if (tid == 0) *counter = 0;  // ready for the next launch
   }
 }
 
@@ -1232,7 +1283,7 @@ cudaError_t smem_attributes(Kernel* kernel, int bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D, int KV>
+template <int D, int DV, int KV>
 int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
              const void* v_scale, const void* offsets, const void* sinks, const void* slopes,
              void* out, void* partial, void* counters, int B, int T, int H, int Hkv, int S,
@@ -1248,26 +1299,27 @@ int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (T * (H / Hkv) <= kDecodeRows) {
     if (max_splits < 1 || max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
-    constexpr int smem = DecSmem<D, KV>::bytes;
-    static const cudaError_t attr = smem_attributes(flash_decode_kernel<D, KV>, smem);
+    constexpr int smem = DecSmem<D, DV, KV>::bytes;
+    static const cudaError_t attr = smem_attributes(flash_decode_kernel<D, DV, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_decode_kernel<D, KV><<<dim3(B * Hkv, max_splits), kDecThreads, smem, stream>>>(
+    flash_decode_kernel<D, DV, KV><<<dim3(B * Hkv, max_splits), kDecThreads, smem, stream>>>(
         qb, kb, vb, ks, vs, ob, sk, sl, o, static_cast<float*>(partial),
         static_cast<int*>(counters), T, H, Hkv, S, scale, softcap, window, max_splits);
   } else {
     if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
-    constexpr int smem = PreSmem<D, KV>::bytes;
-    static const cudaError_t attr = smem_attributes(flash_prefill_kernel<D, KV>, smem);
+    constexpr int smem = PreSmem<D, DV, KV>::bytes;
+    static const cudaError_t attr = smem_attributes(flash_prefill_kernel<D, DV, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_prefill_kernel<D, KV><<<dim3((T + kPreBM - 1) / kPreBM, B * H),
-                                   PreSmem<D, KV>::kThreads, smem, stream>>>(
+    flash_prefill_kernel<D, DV, KV><<<dim3((T + kPreBM - 1) / kPreBM, B * H),
+                                       PreSmem<D, DV, KV>::kThreads, smem, stream>>>(
         qb, kb, vb, ks, vs, ob, sk, sl, o, T, H, Hkv, S, scale, softcap, window);
   }
   return (int)cudaGetLastError();
 }
 
 // The latent form (DV < DK, V the first DV features of each K row):
-// flash_mla_kernel in the regime of T·H/Hkv.
+// flash_mla_kernel in the regime of R = T·H/Hkv, the decode regime's grid a
+// block per (batch, KV head), split and row group of 16 rows.
 template <int DK, int DV, bool kSplit>
 int launch_mla(const void* q, const void* kv, const void* offsets, void* out, void* partial,
                void* counters, int B, int T, int H, int Hkv, int S, float scale, int max_splits,
@@ -1275,7 +1327,7 @@ int launch_mla(const void* q, const void* kv, const void* offsets, void* out, vo
   constexpr int smem = MlaSmem<DK, DV, kSplit>::bytes;
   static const cudaError_t attr = smem_attributes(flash_mla_kernel<DK, DV, kSplit>, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid = kSplit ? dim3(B * Hkv, max_splits)
+  const dim3 grid = kSplit ? dim3(B * Hkv, max_splits, (T * (H / Hkv) + 15) / 16)
                            : dim3((T + mla_rows<false>() - 1) / mla_rows<false>(), B * H);
   flash_mla_kernel<DK, DV, kSplit><<<grid, mla_threads<kSplit>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
@@ -1288,8 +1340,8 @@ template <int DK, int DV>
 int launch_latent(const void* q, const void* kv, const void* offsets, void* out, void* partial,
                   void* counters, int B, int T, int H, int Hkv, int S, float scale,
                   int max_splits, cudaStream_t stream) {
-  if (T * (H / Hkv) <= kDecodeRows) {
-    if (max_splits < 1 || max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
+  if (max_splits > 0 && T * (H / Hkv) <= kLatentDecodeRows) {
+    if (max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
     return launch_mla<DK, DV, true>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S,
                                     scale, max_splits, stream);
   }
@@ -1298,52 +1350,49 @@ int launch_latent(const void* q, const void* kv, const void* offsets, void* out,
                                    1, stream);
 }
 
+// the (D, DV) pairs a library instantiates: D = DV 64, 128, 256 in `flash`,
+// 80 and 96 in `flash_narrow`, (192, 128) and (96, 64) in `flash_dkdv`
+#if defined(TPULLM_FLASH_NARROW)
+#define TPULLM_FLASH_DIMS(X) X(80, 80) X(96, 96)
+#elif defined(TPULLM_FLASH_DKDV)
+#define TPULLM_FLASH_DIMS(X) X(192, 128) X(96, 64)
+#else
+#define TPULLM_FLASH_DIMS(X) X(64, 64) X(128, 128) X(256, 256)
+#endif
+
 template <int KV>
 int launch(const void* q, const void* k, const void* k_scale, const void* v,
            const void* v_scale, const void* offsets, const void* sinks, const void* slopes,
            void* out, void* partial, void* counters, int B, int T, int H, int Hkv, int S,
-           int D, float scale, float softcap, int window, int max_splits, void* stream_ptr) {
+           int D, int DV, float scale, float softcap, int window, int max_splits,
+           void* stream_ptr) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  switch (D) {
-#ifdef TPULLM_FLASH_NARROW
-    case 80:
-      return launch_d<80, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
+#define TPULLM_FLASH_CASE(d, dv)                                                             \
+  if (D == d && DV == dv)                                                                    \
+    return launch_d<d, dv, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial, \
                                counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
-    case 96:
-      return launch_d<96, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
-                               counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
-#else
-    case 64:
-      return launch_d<64, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out, partial,
-                               counters, B, T, H, Hkv, S, scale, softcap, window, max_splits, s);
-    case 128:
-      return launch_d<128, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
-                                partial, counters, B, T, H, Hkv, S, scale, softcap, window,
-                                max_splits, s);
-    case 256:
-      return launch_d<256, KV>(q, k, k_scale, v, v_scale, offsets, sinks, slopes, out,
-                                partial, counters, B, T, H, Hkv, S, scale, softcap, window,
-                                max_splits, s);
-#endif
-    default: return (int)cudaErrorInvalidValue;
-  }
+  TPULLM_FLASH_DIMS(TPULLM_FLASH_CASE)
+#undef TPULLM_FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 #ifndef TPULLM_FLASH_LATENT
-// The dense and q8 entries (this library: D 64, 128 and 256; under
-// -DTPULLM_FLASH_NARROW: D 80 and 96). partial: f32 [B·Hkv·max_splits·R·(D + 2)] and counters: int32 [B·Hkv]
+// The dense and q8 entries at key width D and value width DV (this library:
+// D = DV 64, 128 and 256; under -DTPULLM_FLASH_NARROW: D = DV 80 and 96;
+// under -DTPULLM_FLASH_DKDV: (192, 128) and (96, 64)). out bf16 [B, T, H, DV];
+// partial: f32 [B·Hkv·max_splits·R·(DV + 2)] and counters: int32 [B·Hkv]
 // (zero, left zero) for the decode regime, R = T·H/Hkv ≤ 16; unread (may be
 // null) in the prefill regime.
 #define TPULLM_FLASH_DENSE(name, KV)                                                        \
   extern "C" int name(const void* q, const void* k, const void* v, const void* offsets,      \
                       const void* sinks, const void* slopes, void* out, void* partial,       \
-                      void* counters, int B, int T, int H, int Hkv, int S, int D, float scale, \
-                      float softcap, int window, int max_splits, void* stream) {             \
+                      void* counters, int B, int T, int H, int Hkv, int S, int D, int DV,    \
+                      float scale, float softcap, int window, int max_splits, void* stream) { \
     return launch<KV>(q, k, nullptr, v, nullptr, offsets, sinks, slopes, out, partial,       \
-                      counters, B, T, H, Hkv, S, D, scale, softcap, window, max_splits,      \
+                      counters, B, T, H, Hkv, S, D, DV, scale, softcap, window, max_splits,  \
                       stream);                                                               \
   }
 
@@ -1356,25 +1405,32 @@ extern "C" int tpullm_flash_q8(const void* q, const void* k_q, const void* k_s,
                                const void* v_q, const void* v_s, const void* offsets,
                                const void* sinks, const void* slopes, void* out, void* partial,
                                void* counters, int B, int T, int H, int Hkv, int S, int D,
-                               float scale, float softcap, int window, int max_splits,
+                               int DV, float scale, float softcap, int window, int max_splits,
                                void* stream) {
   return launch<kKvQ8>(q, k_q, k_s, v_q, v_s, offsets, sinks, slopes, out, partial, counters, B,
-                      T, H, Hkv, S, D, scale, softcap, window, max_splits, stream);
+                      T, H, Hkv, S, D, DV, scale, softcap, window, max_splits, stream);
 }
 
 #else  // the latent form's library (its own nvcc, built beside the one above)
 
 // q bf16 [B, T, H, DK], kv the bf16 latent [B, Hkv, S, DK] whose rows' first
-// DV features are V; out bf16 [B, T, H, DV]; partial f32
-// [B·Hkv·max_splits·R·(DV + 2)] and counters as above. (DK, DV) = (576, 512).
+// DV features are V; out bf16 [B, T, H, DV]; in the decode regime (R =
+// T·H/Hkv ≤ 64) partial f32 [B·Hkv·max_splits·R·(DV + 2)] and counters
+// int32 [B·Hkv·⌈R/16⌉] (zero, left zero); max_splits 0 takes the prefill
+// kernel at any R (so that chip_smoke.py can time it against the decode
+// regime at one call). (DK, DV) = (576, 512) or (288, 256).
 extern "C" int tpullm_flash_latent_bf16(const void* q, const void* kv, const void* offsets,
                                         void* out, void* partial, void* counters, int B, int T,
                                         int H, int Hkv, int S, int DK, int DV, float scale,
                                         int max_splits, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (DK == 576 && DV == 512)
     return launch_latent<576, 512>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S, scale,
-                                   max_splits, static_cast<cudaStream_t>(stream));
+                                   max_splits, s);
+  if (DK == 288 && DV == 256)
+    return launch_latent<288, 256>(q, kv, offsets, out, partial, counters, B, T, H, Hkv, S, scale,
+                                   max_splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

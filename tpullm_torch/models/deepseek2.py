@@ -1,5 +1,7 @@
 """DeepSeek-V2/V3 decoder: multi-head latent attention (MLA) and MoE with
-shared experts (the JAX package's models/deepseek2.py, arch `deepseek2`).
+shared experts (the JAX package's models/deepseek2.py, arch `deepseek2`,
+and its aliases `minicpm3`, whose embedding, residual and logit multipliers
+come from models/hparams.py, and `plm`, all dense with a gateless ReLU²).
 
 The graph of llm_build_deepseek2: q direct (V2-Lite) or through a q LoRA
 with its norm (wq_a, q_a_norm, wq_b), the kv compression wkv_a_mqa into the
@@ -15,15 +17,18 @@ picks them:
     [kv_cmpr | k_pe] of each position (one KV head), attn_kv_b is split at
     load into wk_b [H, n_nope, kvr] and wv_b [H, Dv, kvr], the queries
     q_nope · wk_b concatenated with q_pe score against the latent directly
-    (Dk = kvr + n_rot = 576), the values are the latent's first kvr
-    features (Dv = 512), and wv_b projects the output. The two einsums
-    around the kernel are plain products, as the JAX package computes
-    them outside Pallas; the attention is the flash kernel's latent form;
-  * decompressed (a plain KVCache, TPULLM_MLA=0): the latent is expanded
-    through wkv_b into per-head keys [k_nope | k_pe] and values, MHA at
-    Dk = 192, Dv = 128 (the JAX package's oracle; on the card the counted
-    dense route, as no kernel takes Dk ≠ Dv there).
-The softmax scale is Dk^-0.5 with Dk the per-head key width (192), in both.
+    (Dk = kvr + n_rot: 576 for DeepSeek-V2 and PLM, 288 for MiniCPM3), the
+    values are the latent's first kvr features (Dv = 512, 256), and wv_b
+    projects the output. The two einsums around the kernel are plain
+    products, as the JAX package computes them outside Pallas; the
+    attention is the flash kernel's latent form;
+  * decompressed (a per-head KVCache, or QuantKVCache for a q8 request,
+    TPULLM_MLA=0): the latent is expanded through wkv_b into per-head keys
+    [k_nope | k_pe] and values, MHA at Dk = 192, Dv = 128 (DeepSeek-V2,
+    PLM) or Dk = 96, Dv = 64 (MiniCPM3): the JAX package's oracle, on the
+    card the flash kernel at Dk ≠ Dv.
+The softmax scale is Dk^-0.5 with Dk the per-head key width (192, 96), in
+both. The form is read at load from TPULLM_MLA, as in the JAX package.
 Offsets take the three forms of models/llama.py.
 """
 

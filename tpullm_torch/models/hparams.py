@@ -1,5 +1,5 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-qwen-moe, gemma, deepseek2 and phi2 forwards read, and the metadata → hparams
+qwen-moe, gemma, deepseek2 (minicpm3, plm) and phi2 forwards read, and the metadata → hparams
 mapping for the archs the port runs (`ARCHS`), as the JAX package's
 models/hparams.py maps them."""
 
@@ -13,7 +13,8 @@ from ..gguf.reader import GGUFReader
 
 # the archs whose metadata this module maps (models/registry.py runs them):
 # the llama graph and its aliases, the qwen-moe graph and its aliases, the
-# gemma family, deepseek2, and phi3, phi2 and qwen (v1)
+# gemma family, deepseek2 and its MLA aliases minicpm3 and plm, and phi3,
+# phi2 and qwen (v1)
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
@@ -21,7 +22,7 @@ QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1
                     "hunyuan-moe", "minimax-m2", "bailingmoe", "bailingmoe2", "glm4moe",
                     "exaone-moe")
 ARCHS = ("llama", *LLAMA_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES, "gemma", "gemma2", "gemma3",
-         "deepseek2", "phi3", "phi2", "qwen")
+         "deepseek2", "minicpm3", "plm", "phi3", "phi2", "qwen")
 # the default interleave of sliding-window layers: every Nth layer global
 _SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 
@@ -128,7 +129,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
     if arch not in ARCHS:
         raise NotImplementedError(f"hparams for architecture {arch!r} are not ported")
     gemma = arch.startswith("gemma")
-    minicpm = arch == "minicpm"
+    minicpm = arch in ("minicpm", "minicpm3")
 
     def k(template, default=None):
         v = r.metadata.get(template.format(arch=arch))
@@ -178,8 +179,8 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
             arch == "baichuan" and n_layer == 40) else 0.0)),
         sliding_window=int(k(Keys.Attention.SLIDING_WINDOW, 0)),
         attn_scale=float(scale) if scale is not None else None,
-        # minicpm's multipliers without keys: embedding 12, residual
-        # 1.4/√n_layer, logits 256/n_embd (granite's keys otherwise)
+        # minicpm's and minicpm3's multipliers without keys: embedding 12,
+        # residual 1.4/√n_layer, logits 256/n_embd (granite's keys otherwise)
         embd_scale=float(k("{arch}.embedding_scale",
                            12.0 if minicpm else math.sqrt(n_embd) if gemma else 1.0)),
         residual_scale=float(k("{arch}.residual_scale",

@@ -3,8 +3,9 @@ forward), the rows of the JAX package's models/registry.py that the port
 runs: `llama` with 17 of its aliases (models/hparams.py LLAMA_ALIASES; the
 JAX package's arcee, apertus, llama-embed, qwen2vl and qwen3vl wait for
 their options), `qwen3moe` with 11 aliases (QWEN_MOE_ALIASES; qwen3vlmoe
-waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma`, `deepseek2` (its
-aliases minicpm3 and plm are not ported), `phi3` and `qwen` (their fused
+waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma`, `deepseek2` with its
+aliases `minicpm3` (the MLA graph with minicpm's multipliers) and `plm`
+(all-dense MLA, a gateless ReLU² FFN), `phi3` and `qwen` (their fused
 tensors loaded by models/phi3.py and models/qwen.py, the llama forward) and
 `phi2` (phimoe waits)."""
 
@@ -34,12 +35,13 @@ class ArchSpec:
 _LLAMA = ArchSpec("llama", llama.build_params, llama.forward)
 _QWEN_MOE = ArchSpec("qwen3moe", qwen_moe.build_params, qwen_moe.forward)
 _GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
+_DEEPSEEK2 = ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
+                      make_cache=deepseek2.make_cache)
 _REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES)},
              **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES)},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
              "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
-             "deepseek2": ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
-                                   make_cache=deepseek2.make_cache),
+             **{name: _DEEPSEEK2 for name in ("deepseek2", "minicpm3", "plm")},
              "phi3": ArchSpec("phi3", phi3.build_params, llama.forward),
              "phi2": ArchSpec("phi2", phi2.build_params, phi2.forward),
              "qwen": ArchSpec("qwen", qwen.build_params, llama.forward)}

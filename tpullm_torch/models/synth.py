@@ -1,5 +1,5 @@
-"""Synthesis of random *packed* llama, qwen, gemma, deepseek2 and phi models
-from a seed.
+"""Synthesis of random *packed* llama, qwen, gemma, deepseek2 (and its MLA
+aliases minicpm3 and plm) and phi models from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -87,6 +87,40 @@ SHAPES = {
                            kv_lora=512, qk_nope=32, qk_rope=64, v_dim=32, n_expert=4,
                            n_expert_used=2, n_ff_exp=256, n_expert_shared=1, n_dense_lead=1,
                            gating=1, weights_scale=1.0, weights_norm=False),
+    # openbmb/MiniCPM3-4B config.json: 62 layers, hidden 2560, 40 heads (40 KV
+    # heads), q_lora_rank 768, kv_lora_rank 256, qk_nope_head_dim 64,
+    # qk_rope_head_dim 32, v_head_dim 64, intermediate_size 6400 (every layer
+    # dense SwiGLU), vocab 73448 (SPM), rms_norm_eps 1e-5, rope_theta 10000,
+    # max_position_embeddings 32768, untied; scale_emb 12, scale_depth 1.4 and
+    # dim_model_base 256 are the defaults models/hparams.py gives minicpm3
+    # (llama.cpp's converter writes no key for them), and its longrope
+    # factors are not written (neither package reads rope_factors_*). The
+    # keys as the converter writes them: key_length 96, value_length 64
+    # (per-head; no *_mla keys), head_count_kv 40
+    "minicpm3-4b": dict(arch="minicpm3", n_layer=62, n_embd=2560, n_head=40, n_head_kv=40,
+                        n_ff=6400, n_vocab=73448, rope_base=10000.0, rms_eps=1e-5,
+                        n_ctx=32768, q_lora=768, kv_lora=256, qk_nope=64, qk_rope=32,
+                        v_dim=64),
+    # PLM-Team/PLM-1.8B-Base config.json: 32 layers, hidden 2048, 16 heads (16
+    # KV heads), kv_lora_rank 512, qk_nope_head_dim 128, qk_rope_head_dim 64,
+    # v_head_dim 128, q direct (no q LoRA), intermediate_size 8192 with a
+    # gateless ReLU² (every layer dense), vocab 151936 (Qwen's BPE), rms
+    # 1e-6, rope_theta 100000, max_position_embeddings 4096, tied embeddings
+    "plm-1.8b": dict(arch="plm", n_layer=32, n_embd=2048, n_head=16, n_head_kv=16, n_ff=8192,
+                     n_vocab=151936, rope_base=100000.0, rms_eps=1e-6, n_ctx=4096, kv_lora=512,
+                     qk_nope=128, qk_rope=64, v_dim=128, gateless=True, tied=True,
+                     vocab="bpe", pre="qwen2"),
+    # the MLA alias test models, K a multiple of 256 on every linear: tiny-
+    # minicpm3 with MiniCPM3's latent (256 + 32: the kernel's (288, 256)) and
+    # heads (96 / 64), 40 heads on the latent's one KV head (R = 40 at T = 1),
+    # a q LoRA of 256; tiny-plm with PLM's latent (512 + 64) and heads (192 /
+    # 128), 4 heads, q direct, gateless ReLU², tied
+    "tiny-minicpm3": dict(arch="minicpm3", n_layer=2, n_embd=256, n_head=40, n_head_kv=40,
+                          n_ff=512, n_vocab=384, rope_base=10000.0, rms_eps=1e-5, q_lora=256,
+                          kv_lora=256, qk_nope=64, qk_rope=32, v_dim=64),
+    "tiny-plm": dict(arch="plm", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                     n_vocab=384, rope_base=100000.0, rms_eps=1e-6, kv_lora=512, qk_nope=128,
+                     qk_rope=64, v_dim=128, gateless=True, tied=True),
     # Qwen/Qwen3-30B-A3B config.json: 48 layers, hidden 2048, 32 heads over 4
     # KV heads of head_dim 128 (q is 4096 wide), per-head q/k norms, 128
     # experts (moe_intermediate_size 768) top-8 renormalised
@@ -501,7 +535,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     rng = np.random.default_rng(seed)
     arch = cfg.get("arch", "llama")
     gemma = arch.startswith("gemma")
-    mla = arch == "deepseek2"
+    tied = gemma or cfg.get("tied", False)
+    mla = arch in ("deepseek2", "minicpm3", "plm")
     phi2 = arch == "phi2"
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
@@ -554,6 +589,9 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         w.add_kv(f"{arch}.attention.key_length", cfg["qk_nope"] + cfg["qk_rope"])
         w.add_kv(f"{arch}.attention.value_length", cfg["v_dim"])
         w.add_kv(f"{arch}.attention.kv_lora_rank", cfg["kv_lora"])
+        if "q_lora" in cfg:
+            w.add_kv(f"{arch}.attention.q_lora_rank", cfg["q_lora"])
+    if mla and n_expert:
         w.add_kv(f"{arch}.leading_dense_block_count", cfg["n_dense_lead"])
         w.add_kv(f"{arch}.expert_feed_forward_length", cfg["n_ff_exp"])
         w.add_kv(f"{arch}.expert_shared_count", cfg["n_expert_shared"])
@@ -593,7 +631,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         """A quantized weight (n_stack > 1: a stack of experts), its bytes
         drawn when the file is written."""
         kind = name.split(".")[-2]
-        gtype = preset_type(ftype, kind, i, n_layer, n_expert, tied=gemma, n_in=n_in)
+        gtype = preset_type(ftype, kind, i, n_layer, n_expert, tied=tied, n_in=n_in)
         shape = (n_in, n_out) if n_stack == 1 else (n_in, n_out, n_stack)
         scale = 0.02 if legacy else n_in ** -0.5 / _RMS_PER_D[gtype]
         w.add_packed_tensor(name, shape, gtype, lambda: random_packed(
@@ -655,7 +693,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
                 packed(p + "ffn_up.weight", n_ff, n_embd, i)
                 packed(p + "ffn_down.weight", n_embd, n_ff, i)
     norm("output_norm.weight", n_embd)
-    if not gemma:  # gemma ties its head to token_embd
+    if not tied:  # gemma and plm tie their head to token_embd
         packed("output.weight", n_vocab, n_embd)
     if phi2:
         vector("output_norm.bias", n_embd, 0.1)
@@ -697,26 +735,34 @@ def _fused_qkv_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
 
 
 def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:
-    """The layers of a deepseek2 shape, with the tensor names the JAX
-    package's models/deepseek2.py reads (the fused attn_kv_b of the older
-    converter, not the split attn_k_b / attn_v_b of newer ones): q direct
-    (no q LoRA), the kv compression and its norm, attn_kv_b, the output;
-    the leading dense layers' SwiGLU, then a router (no exp_probs_b: V2's
-    routing), the expert stacks and the shared expert."""
-    n_embd, n_head, E = cfg["n_embd"], cfg["n_head"], cfg["n_expert"]
+    """The layers of a deepseek2, minicpm3 or plm shape, with the tensor
+    names the JAX package's models/deepseek2.py reads (the fused attn_kv_b
+    of the older converter, not the split attn_k_b / attn_v_b of newer
+    ones): q direct or through the q LoRA (attn_q_a, its norm, attn_q_b),
+    the kv compression and its norm, attn_kv_b, the output; the dense
+    layers' SwiGLU (plm: ffn_up and ffn_down only, the gateless ReLU²), and
+    past the dense lead a router (no exp_probs_b: V2's routing), the expert
+    stacks and the shared expert."""
+    n_embd, n_head, E = cfg["n_embd"], cfg["n_head"], cfg.get("n_expert", 0)
     dk, kvr, rope = cfg["qk_nope"] + cfg["qk_rope"], cfg["kv_lora"], cfg["qk_rope"]
-    n_sh = cfg["n_ff_exp"] * cfg["n_expert_shared"]
+    n_sh = cfg.get("n_ff_exp", 0) * cfg.get("n_expert_shared", 0)
     for i in range(n_layer):
         p = f"blk.{i}."
         norm(p + "attn_norm.weight", n_embd)
-        packed(p + "attn_q.weight", n_head * dk, n_embd, i)
+        if "q_lora" in cfg:
+            packed(p + "attn_q_a.weight", cfg["q_lora"], n_embd, i)
+            norm(p + "attn_q_a_norm.weight", cfg["q_lora"])
+            packed(p + "attn_q_b.weight", n_head * dk, cfg["q_lora"], i)
+        else:
+            packed(p + "attn_q.weight", n_head * dk, n_embd, i)
         packed(p + "attn_kv_a_mqa.weight", kvr + rope, n_embd, i)
         norm(p + "attn_kv_a_norm.weight", kvr)
         packed(p + "attn_kv_b.weight", n_head * (cfg["qk_nope"] + cfg["v_dim"]), kvr, i)
         packed(p + "attn_output.weight", n_embd, n_head * cfg["v_dim"], i)
         norm(p + "ffn_norm.weight", n_embd)
-        if i < cfg["n_dense_lead"]:
-            packed(p + "ffn_gate.weight", cfg["n_ff"], n_embd, i)
+        if not E or i < cfg["n_dense_lead"]:
+            if not cfg.get("gateless"):
+                packed(p + "ffn_gate.weight", cfg["n_ff"], n_embd, i)
             packed(p + "ffn_up.weight", cfg["n_ff"], n_embd, i)
             packed(p + "ffn_down.weight", n_embd, cfg["n_ff"], i)
             continue

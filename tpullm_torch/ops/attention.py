@@ -6,13 +6,15 @@ format: a CUDA tensor goes to the kernel, at every T and every S, and a CPU
 tensor to the kernel's plain version. (The JAX package sends bf16 decode at
 S < 4096 to its dense path; on the card the plain version never runs on the
 main path.) The one exception is a shape the kernel does not take (a head
-dim outside flash._HEAD_DIMS, or Dk ≠ Dv but for the MLA latent): on the
-card it goes to the dense path, as the JAX package sends the shapes its
-flash kernel refuses there (tpullm/ops/attention.py `attention`), counted
-in flash.ATTN_DENSE_ROUTES. The MLA latent (runtime/kvcache.py MLACache:
-v a view of k's first kv_lora_rank features) goes to the kernel's latent
-form on a bf16 cache at (Dk, Dv) = (576, 512), DeepSeek-V2/V3's; an f16 or
-f32 latent, and other latent widths, to the dense path.
+dim outside flash._HEAD_DIMS, or a pair Dk ≠ Dv outside flash.DKDV_DIMS,
+the decompressed MLA form's (192, 128) and (96, 64)): on the card it goes
+to the dense path, as the JAX package sends the shapes its flash kernel
+refuses there (tpullm/ops/attention.py `attention`), counted in
+flash.ATTN_DENSE_ROUTES. The MLA latent (runtime/kvcache.py MLACache: v a
+view of k's first kv_lora_rank features) goes to the kernel's latent form
+on a bf16 cache at (Dk, Dv) = (576, 512) (DeepSeek-V2/V3, PLM) and (288,
+256) (MiniCPM3); an f16 or f32 latent, and other latent widths, to the
+dense path.
 
 `attention_ring` is the sliding-window layers' attention over an iSWA ring
 cache (runtime/kvcache.py SWACache): dense attention under the mask the

@@ -44,6 +44,7 @@ LIBRARIES = {f"{src}{f}": (f"{src}.cu", (f"-DTPULLM_QMM_FAMILY={f}",))
              for src in ("qmm", "qmm_moe") for f in range(QMM_FAMILIES)}
 LIBRARIES["flash"] = ("flash.cu", ())
 LIBRARIES["flash_narrow"] = ("flash.cu", ("-DTPULLM_FLASH_NARROW",))  # head dims 80 and 96
+LIBRARIES["flash_dkdv"] = ("flash.cu", ("-DTPULLM_FLASH_DKDV",))  # Dk ≠ Dv: (192, 128), (96, 64)
 LIBRARIES["flash_latent"] = ("flash.cu", ("-DTPULLM_FLASH_LATENT",))  # the MLA latent form
 KERNELS = tuple(LIBRARIES)
 

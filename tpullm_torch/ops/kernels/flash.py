@@ -8,23 +8,31 @@ int8+scale-KV instantiation (quant=True, entry flash_attention_q8). Source:
 tpullm_torch/csrc/flash.cu, in two regimes picked by `regime` from the query
 rows that share one KV head, R = T·H/Hkv: up to DECODE_ROWS the split-KV
 decode kernel (CUDA cores; bound: the K/V bytes up to kv_len), above it the
-tensor-core prefill kernel (bound: the QK and PV products). Head dims 64,
-128 and 256 in the library `flash`, 80 and 96 (Phi-2, Phi-3) in
-`flash_narrow`, the same source built apart so that the two compile side
-by side.
+tensor-core prefill kernel (bound: the QK and PV products). Head dims Dk =
+Dv 64, 128 and 256 in the library `flash`, 80 and 96 (Phi-2, Phi-3) in
+`flash_narrow`, and key width Dk ≠ value width Dv at (192, 128) and
+(96, 64) (the decompressed MLA form of DeepSeek-V2 / PLM and of MiniCPM3)
+in `flash_dkdv`: the same source built apart so that the three compile
+side by side.
 
-Layouts as in the JAX package: q [B, T, H, D] (caller layout), k/v
-[B, Hkv, S, D] (cache layout), k_s/v_s [B, Hkv, S] f32, offsets [B] int32
-(query row t sits at position off_b + t; kv_len_b = off_b + T).
+Layouts as in the JAX package: q [B, T, H, Dk] (caller layout), k
+[B, Hkv, S, Dk] and v [B, Hkv, S, Dv] (cache layout), k_s/v_s [B, Hkv, S]
+f32, offsets [B] int32 (query row t sits at position off_b + t; kv_len_b =
+off_b + T); the output [B, T, H, Dv].
 
-The latent form (the MLA cache, runtime/kvcache.py MLACache): Dk = 576,
-Dv = 512 on a bf16 cache of one KV head, v a view of k's first 512
-features (`is_latent`), the output [B, T, H, Dv]. Its own library
-(`flash_latent`): csrc/flash.cu flash_mla_kernel, both regimes on the
-tensor cores (the decode regime split over the keys as above, p for the
+The latent form (the MLA cache, runtime/kvcache.py MLACache): (Dk, Dv) =
+(576, 512) (DeepSeek-V2/V3, PLM) or (288, 256) (MiniCPM3) on a bf16 cache
+of one KV head, v a view of k's first Dv features (`is_latent`). Its own
+library (`flash_latent`): csrc/flash.cu flash_mla_kernel, both regimes on
+the tensor cores (the decode regime split over the keys as above, p for the
 PV product as two bf16 terms in both: `flash_split_reference(...,
-p_terms=2)` is its decode order's plain version). The plain versions take
-Dk ≠ Dv as they are.
+p_terms=2)` is its decode order's plain version). Its decode regime takes
+up to LATENT_DECODE_ROWS = 64 rows (`regime(..., latent=True)`), in blocks
+of 16 rows each (row groups): every head of a latent shares its one KV
+head, so MiniCPM3's 40 heads make R = 40 at T = 1, and the prefill grid
+would read the whole latent once for each of them without splitting the
+keys. A row group changes no row's order: the plain version is the same
+split plan for every R.
 
 `flash_reference` computes the same function densely in f32 and casts the
 output to q's dtype; rows that see no key give 0. It is what a CPU tensor
@@ -46,9 +54,10 @@ from . import _build
 # the KV formats of the kernels: the dense cache dtypes, then int8 + scales
 DENSE_FORMATS = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 FORMATS = (*DENSE_FORMATS.values(), "q8")
-_HEAD_DIMS = (64, 80, 96, 128, 256)  # the head dims csrc/flash.cu instantiates
+_HEAD_DIMS = (64, 80, 96, 128, 256)  # the head dims Dk = Dv csrc/flash.cu instantiates
 NARROW_DIMS = (80, 96)  # those of its library `flash_narrow` (-DTPULLM_FLASH_NARROW)
-LATENT_DIMS = ((576, 512),)  # (Dk, Dv) of the latent form it instantiates (bf16)
+DKDV_DIMS = ((192, 128), (96, 64))  # (Dk, Dv), Dk ≠ Dv: `flash_dkdv` (-DTPULLM_FLASH_DKDV)
+LATENT_DIMS = ((576, 512), (288, 256))  # (Dk, Dv) of the latent form it instantiates (bf16)
 
 
 def dims_key(d: int, dv: int) -> str:
@@ -57,9 +66,10 @@ def dims_key(d: int, dv: int) -> str:
 
 
 # launches of the kernels by KV format, head dims and regime
-# ("bf16.d256.decode", "bf16.d576v512.prefill"), plain counts a run can
-# read; launch_total sums them
-LAUNCHES = {f"{fmt}.d{d}.{r}": 0 for fmt in FORMATS for d in _HEAD_DIMS
+# ("bf16.d256.decode", "q8.d192v128.decode", "bf16.d576v512.prefill"),
+# plain counts a run can read; launch_total sums them
+LAUNCHES = {f"{fmt}.{dims_key(d, dv)}.{r}": 0 for fmt in FORMATS
+            for d, dv in (*((d, d) for d in _HEAD_DIMS), *DKDV_DIMS)
             for r in ("decode", "prefill")}
 LAUNCHES.update({f"bf16.{dims_key(d, dv)}.{r}": 0 for d, dv in LATENT_DIMS
                  for r in ("decode", "prefill")})
@@ -73,6 +83,7 @@ ATTN_DENSE_ROUTES = dict.fromkeys(FORMATS, 0)
 ATTN_RING_ROUTES = dict.fromkeys(FORMATS, 0)
 
 DECODE_ROWS = 16  # csrc/flash.cu kDecodeRows: R = T·H/Hkv up to this is decode
+LATENT_DECODE_ROWS = 64  # kLatentDecodeRows: the latent form's decode regime, rows of 16
 DECODE_TILE = 64  # keys a decode tile (kDecTK): splits are whole tiles
 MAX_SPLITS = 64  # splits of one (batch, KV head) at most (kMaxSplits)
 PREFILL_TILE = 64  # keys a prefill tile (kPreTK)
@@ -80,15 +91,17 @@ PREFILL_ROWS = 64  # query rows a prefill block (kPreBM)
 NEG_INF = -1e30  # the running max before any key
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_DENSE_ARGS = (_P,) * 9 + (_I,) * 6 + (_F, _F, _I, _I, _P)
-_Q8_ARGS = (_P,) * 11 + (_I,) * 6 + (_F, _F, _I, _I, _P)
+_DENSE_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _F, _I, _I, _P)
+_Q8_ARGS = (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _I, _P)
 _LATENT_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 
 
-def regime(T: int, H: int, Hkv: int) -> str:
+def regime(T: int, H: int, Hkv: int, latent: bool = False) -> str:
     """The kernel a call takes: "decode" (split-KV) when the query rows
-    sharing one KV head, T·H/Hkv, are at most DECODE_ROWS, else "prefill"."""
-    return "decode" if T * (H // Hkv) <= DECODE_ROWS else "prefill"
+    sharing one KV head, T·H/Hkv, are at most DECODE_ROWS (the latent form:
+    LATENT_DECODE_ROWS), else "prefill"."""
+    return "decode" if T * (H // Hkv) <= (LATENT_DECODE_ROWS if latent else DECODE_ROWS) \
+        else "prefill"
 
 
 def max_splits(B: int, Hkv: int, S: int, n_sm: int) -> int:
@@ -197,7 +210,8 @@ def flash_split_reference(q, k, v, offsets, scale: float, softcap: float = 0.0,
     partial (a masked key adds 0; m starts at NEG_INF), merged in split
     order, then the sink column and safe l; output in q's dtype. p enters
     the PV product in f32 (p_terms 0: flash_decode_kernel), or rounded as
-    `_round_p` rounds it (2: the latent form's decode)."""
+    `_round_p` rounds it (2: the latent form's decode). Each row's order is
+    the same whatever R: the latent form's row groups split rows, not keys."""
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -291,19 +305,20 @@ def is_latent(k, v) -> bool:
 
 def takes(d: int, dv: int, latent: bool = False, dtype=torch.bfloat16) -> bool:
     """Whether the kernel takes query/key head dim d and value head dim dv:
-    Dk = Dv in _HEAD_DIMS, or the latent form (v a view of k) at
-    LATENT_DIMS on a bf16 cache."""
+    Dk = Dv in _HEAD_DIMS, (Dk, Dv) in DKDV_DIMS, or the latent form (v a
+    view of k) at LATENT_DIMS on a bf16 cache."""
     if latent:
         return (d, dv) in LATENT_DIMS and dtype == torch.bfloat16
-    return d in _HEAD_DIMS and dv == d
+    return (d in _HEAD_DIMS and dv == d) or (d, dv) in DKDV_DIMS
 
 
 def _check(q, kv, offsets, sinks, slopes):
     B, T, H, D = q.shape
     k, v = kv[0], kv[-1]
     if not takes(D, v.shape[-1]) or k.shape[0] != B or H % k.shape[1]:
-        raise ValueError(f"flash: needs head_dim in {_HEAD_DIMS} (K and V alike), "
-                         f"H % Hkv == 0; got q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise ValueError(f"flash: needs head_dim in {_HEAD_DIMS} (K and V alike) or (Dk, Dv) "
+                         f"in {DKDV_DIMS}, H % Hkv == 0; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype != torch.bfloat16:
         raise ValueError("flash: q must be bf16")
     if offsets.dtype != torch.int32 or tuple(offsets.shape) != (B,):
@@ -342,46 +357,48 @@ def _check_latent(q, k, v, offsets, softcap, window, sinks, slopes):
             raise ValueError("flash: operands must be contiguous and aligned")
 
 
-def _library(d: int) -> str:
-    """The kernel library that instantiates head dim d."""
-    return "flash_narrow" if d in NARROW_DIMS else "flash"
+def _library(d: int, dv: int) -> str:
+    """The kernel library that instantiates head dims (d, dv)."""
+    return "flash_dkdv" if d != dv else "flash_narrow" if d in NARROW_DIMS else "flash"
 
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def _scratch(q, k, dv: int):
+def _scratch(q, k, dv: int, latent: bool = False):
     """(output [B, T, H, dv], the stream, the decode regime's split count,
     its partials and counters: None where one split takes the keys, or in
-    the prefill regime)."""
+    the prefill regime). A counter a (batch, KV head, row group of 16)."""
     B, T, H, _ = q.shape
     Hkv, S = k.shape[1], k.shape[2]
+    R = T * (H // Hkv)
     out = torch.empty((B, T, H, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     n_split, partial, counters = 1, None, None
-    if regime(T, H, Hkv) == "decode":
+    if regime(T, H, Hkv, latent) == "decode":
         n_split = max_splits(B, Hkv, S, _build.n_sm(q.device))
         if n_split > 1:
-            partial = torch.empty(B * Hkv * n_split * T * (H // Hkv) * (dv + 2),
-                                  dtype=torch.float32, device=q.device)
-            counters = _build.counters(q.device, stream, B * Hkv)
+            partial = torch.empty(B * Hkv * n_split * R * (dv + 2), dtype=torch.float32,
+                                  device=q.device)
+            counters = _build.counters(q.device, stream, B * Hkv * -(-R // 16))
     return out, stream, n_split, partial, counters
 
 
-def _launch(fmt: str, fn, q, kv_ptrs, k, offsets, scale, softcap, window, sinks, slopes):
-    """One launch of the kernel of q's regime; the decode regime's partials
-    and the counters of the stream by which its last blocks find
-    themselves."""
+def _launch(fmt: str, fn, q, kv_ptrs, k, dv: int, offsets, scale, softcap, window, sinks,
+            slopes):
+    """One launch of the kernel of q's regime at value width dv; the decode
+    regime's partials and the counters of the stream by which its last
+    blocks find themselves."""
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    out, stream, n_split, partial, counters = _scratch(q, k, D)
+    out, stream, n_split, partial, counters = _scratch(q, k, dv)
     reg = regime(T, H, Hkv)
     rc = fn(q.data_ptr(), *kv_ptrs, offsets.data_ptr(), _ptr(sinks), _ptr(slopes),
-            out.data_ptr(), _ptr(partial), _ptr(counters), B, T, H, Hkv, S, D, float(scale),
-            float(softcap), int(window), n_split, stream)
-    _build.check(rc, f"flash {fmt} ({reg})")
-    LAUNCHES[f"{fmt}.d{D}.{reg}"] += 1
+            out.data_ptr(), _ptr(partial), _ptr(counters), B, T, H, Hkv, S, D, dv,
+            float(scale), float(softcap), int(window), n_split, stream)
+    _build.check(rc, f"flash {fmt} {dims_key(D, dv)} ({reg})")
+    LAUNCHES[f"{fmt}.{dims_key(D, dv)}.{reg}"] += 1
     return out
 
 
@@ -389,8 +406,8 @@ def _launch_latent(q, k, dv: int, offsets, scale):
     """One launch of the latent form (v = k[..., :dv]) in q's regime."""
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    out, stream, n_split, partial, counters = _scratch(q, k, dv)
-    reg = regime(T, H, Hkv)
+    out, stream, n_split, partial, counters = _scratch(q, k, dv, latent=True)
+    reg = regime(T, H, Hkv, latent=True)
     fn = _build.bind("flash_latent", "tpullm_flash_latent_bf16", _LATENT_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), offsets.data_ptr(), out.data_ptr(), _ptr(partial),
             _ptr(counters), B, T, H, Hkv, S, D, dv, float(scale), n_split, stream)
@@ -408,9 +425,9 @@ def launch_total(fmt: str | None = None, regime: str | None = None, counts=None)
 
 def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,
                     sliding_window: int = 0, sinks=None, alibi_slopes=None):
-    """Dense KV: q [B,T,H,D] bf16, k/v [B,Hkv,S,D] bf16, f16 or f32 (one
-    dtype) → [B,T,H,D] bf16; or the latent form (v a view of k's first Dv
-    features, `is_latent`) → [B,T,H,Dv]. The kernel of the call's regime
+    """Dense KV: q [B,T,H,Dk] bf16, k [B,Hkv,S,Dk] and v [B,Hkv,S,Dv] bf16,
+    f16 or f32 (one dtype) → [B,T,H,Dv] bf16; or the latent form (v a view
+    of k's first Dv features, `is_latent`) → [B,T,H,Dv]. The kernel of the call's regime
     and the cache's dtype on a CUDA tensor, the plain version on a CPU
     tensor."""
     if not q.is_cuda:
@@ -424,16 +441,16 @@ def flash_attention(q, k, v, offsets, scale: float, softcap: float = 0.0,
     if fmt is None or v.dtype != k.dtype:
         raise ValueError(f"flash: the dense kernels take a bf16, f16 or f32 cache (K and V "
                          f"alike), got {k.dtype} / {v.dtype}")
-    fn = _build.bind(_library(q.shape[-1]), f"tpullm_flash_{fmt}", _DENSE_ARGS)
-    return _launch(fmt, fn, q, (k.data_ptr(), v.data_ptr()), k, offsets, scale, softcap,
-                   sliding_window, sinks, alibi_slopes)
+    fn = _build.bind(_library(q.shape[-1], v.shape[-1]), f"tpullm_flash_{fmt}", _DENSE_ARGS)
+    return _launch(fmt, fn, q, (k.data_ptr(), v.data_ptr()), k, v.shape[-1], offsets, scale,
+                   softcap, sliding_window, sinks, alibi_slopes)
 
 
 def flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale: float,
                        softcap: float = 0.0, sliding_window: int = 0, sinks=None,
                        alibi_slopes=None):
-    """int8 KV with one f32 scale per position: k_q/v_q [B,Hkv,S,D] int8,
-    k_s/v_s [B,Hkv,S] f32 → [B,T,H,D]."""
+    """int8 KV with one f32 scale per position: k_q [B,Hkv,S,Dk] and v_q
+    [B,Hkv,S,Dv] int8, k_s/v_s [B,Hkv,S] f32 → [B,T,H,Dv]."""
     if not q.is_cuda:
         return flash_reference(q, k_q, v_q, offsets, scale, softcap, sliding_window,
                                sinks, alibi_slopes, k_scale=k_s, v_scale=v_s)
@@ -441,6 +458,7 @@ def flash_attention_q8(q, k_q, k_s, v_q, v_s, offsets, scale: float,
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 or \
             k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
         raise ValueError("flash: the q8 kernel takes int8 codes and f32 scales")
-    fn = _build.bind(_library(q.shape[-1]), "tpullm_flash_q8", _Q8_ARGS)
+    fn = _build.bind(_library(q.shape[-1], v_q.shape[-1]), "tpullm_flash_q8", _Q8_ARGS)
     return _launch("q8", fn, q, (k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr()),
-                   k_q, offsets, scale, softcap, sliding_window, sinks, alibi_slopes)
+                   k_q, v_q.shape[-1], offsets, scale, softcap, sliding_window, sinks,
+                   alibi_slopes)
