@@ -37,8 +37,10 @@ Phases, in order; any failure raises and exits nonzero:
     Python wrapper's dispatch) beside its bound and a PyTorch library call;
  3a. flash at head dim 256 (the Gemma family): bf16, f16, f32 and q8 KV,
     Gemma-3-4B's heads (8 on 4 KV heads), S = 4096, the decode regime at
-    T = 1 (B = 2, and B = 1 in a window of 1024) and the prefill regime at
-    T = 512 (B = 2, and B = 1 in the window), each timed as in 3 and
+    T = 1 (B = 2, and B = 1 in a window of 1024) and at T = 8 (B = 1 at
+    offset 2560, without and with the window: the ring speculation's
+    verify forward, R = 16) and the prefill regime at T = 512 (B = 2, and
+    B = 1 in the window), each timed as in 3 and
     against the plain version of its own order, and Gemma-2's softcap 50
     in both regimes;
  3a'. flash mla, flash dkdv: flash's latent form (the MLA cache, bf16, one
@@ -89,6 +91,14 @@ Phases, in order; any failure raises and exits nonzero:
     T = 3 (prefill); qmm at the Qwen 2-D linears' shapes, M = 1 and 512
     (Qwen2.5-7B's qkv, wo, gate_up, down and head at K = 3584 and 18944,
     Qwen3-30B-A3B's qkv, wo and head);
+ 3e. unfused kernels: qmm at the 8B's projections apart (Q4_K q
+    4096 → 4096, k 4096 → 1024, gate 4096 → 14336; Q6_K v 4096 → 1024), M
+    = 1 and 8: an Engine with a LoRA adapter launches them in place of the
+    fused q|k|v and gate|up;
+ 3f. gemma kernels: qmm at Gemma-3-4B's linears (q|k|v and q, k, v apart,
+    wo, gate|up, the Q6_K and Q4_K down), M = 1 and 8
+    (its ring speculation's verify forward), each against its plain
+    version and timed as in 3;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -149,8 +159,22 @@ Phases, in order; any failure raises and exits nonzero:
     the /metrics counters, each verify graph's launches a replay and one
     verify step's read around it, a verify step's ms against a decode
     step's; tpullm-torch-lookup create, stats and run;
+ 5e. engine options: on the same 8B GGUF, tpullm-torch-cvector-generator
+    as a subprocess (4 prompt pairs, --method pca, dense bf16 weights);
+    then one unfused Model shared by an Engine with a synthetic rank-16
+    LoRA adapter on every projection (7 qmm a layer), one with control
+    vectors (a synthetic file at strength 0.5, and the generated file),
+    a plain Engine (which fuses the Model: 5 qmm a layer) and one with
+    self-extend (grp_attn_n 4, a 2560-token prompt): each a prompt and 64
+    greedy tokens on the decode graph, load s, peak GiB, decode tok/s,
+    launches a decode replay, the logits teacher-forced on the greedy ids
+    through the logits graph against the eager step (NMSE ≤ 1e-3, the same
+    argmax), the adapter's and the vectors' logits against the plain
+    engine's (they act), self-extend's flash launches those of the plain
+    engine; GET /lora-adapters on a server over the adapter's Engine; the
+    cli with --grp-attn-n 4;
  6. presets: Llama-3-8B served the same way with 4 layers, one prompt and
-    16 decode steps each, at Q2_K (bf16 and q8 KV), IQ4_XS, Q4_0, Q4_1,
+    16 decode steps each, at Q2_K, IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
     MXFP4_MOE with 4 layers (a 64-token prompt through qmm_stack, decode
     through qmm_gather);
@@ -172,19 +196,27 @@ Phases, in order; any failure raises and exits nonzero:
     warm with each forward's ms, TTFT (warm), decode tok/s, the
     launches of a decode replay and of a prefill forward (the ring: flash
     on the 5 global layers, attention_ring on the 29 others), a decode
-    token's device time by family; f16 and f32 rings; ring against
+    token's device time by family; f16 and f32 rings; ring speculation:
+    n-gram generate_speculative (64 tokens after a repetitive prompt that
+    wraps the ring) against plain greedy decoding, its verify rows
+    teacher-forced against the swa_full engine's (NMSE ≤ 1e-3), a rejected
+    draft then a decode against an engine that never saw the draft, the
+    verify graph's launches (flash on the global layers, attention_ring on
+    the others) and ms against a decode replay's; ring against
     swa_full teacher-forced on the same ids (NMSE ≤ 1e-3), each run
     against dense bf16 weights; a state file of the ring engine saved and
     restored; a BatchEngine of 4 slots on the ring against Engine, a slot
-    freed and admitted again;
- 8c. deepseek2: DeepSeek-V2-Lite Q4_K_M (27 layers, MLA with kv_lora_rank
-    512 + 64 rope dims, 64 routed experts top-6 and 2 shared, one dense
-    lead layer, vocab 102400) synthesized from a seed at full depth (9.65
-    GiB): Engine on the bf16 latent at context 4096, prompts of 512 and
+    freed and admitted again; then the speculative Scheduler (n-gram
+    drafts) on that 4-slot ring BatchEngine, 4 requests, the ids of the
+    plain Scheduler;
+ 8c. deepseek2: DeepSeek-V2-Lite Q4_K_M (MLA with kv_lora_rank 512 + 64
+    rope dims, 64 routed experts top-6 and 2 shared, one dense lead layer,
+    vocab 102400) synthesized from a seed at full width with 9 of its 27
+    layers: Engine on the bf16 latent at context 4096, prompts of 512 and
     2560 tokens cold and warm, 64 greedy tokens each on the decode graph,
     load s and peak GiB, TTFT (warm), decode tok/s, the launches of a
-    decode replay and of a prefill forward (flash's latent form 27 a
-    forward, the packed gate/up expert stacks through qmm_gather or
+    decode replay and of a prefill forward (flash's latent form once a
+    layer a forward, the packed gate/up expert stacks through qmm_gather or
     qmm_stack, the K = 1408 down stacks dense at load, the dense lead's K
     = 10944 down through the dequantize route), device ms by family; the
     latent's bytes a position against the decompressed cache's; the
@@ -953,16 +985,23 @@ def phase_flash(dev, results: dict):
 # window of 1024 on five layers of six; Gemma-2's softcap 50
 D256_HEADS = dict(H=8, Hkv=4, D=256, S=4096)
 D256_WINDOW = 1024
+# Gemma-3-4B's ring speculation (GEMMA_SPEC_DRAFT 4 drafts and the pending
+# token): verify forwards in the bucket of 8 rows, from about the 2560-token
+# prompt's end
+GEMMA_VERIFY_ROWS = 8
+GEMMA_VERIFY_OFFSET = 2560
 
 
 def phase_flash256(dev, results: dict):
     """Flash at head dim 256 (the Gemma family), each KV format: the decode
-    regime at T = 1, B = 2 and B = 1, the prefill regime at T = 512, each
-    without and with Gemma-3's window of 1024, S = 4096 (timed beside its
-    bound and SDPA on the cache's dtype, and against the plain version of
-    its own order), and Gemma-2's softcap 50 in both regimes (timed beside
-    SDPA without it, which has none); rows go to `results` under
-    flash_<fmt>_d256."""
+    regime at T = 1, B = 2 and B = 1, and at T = 8, B = 1 from offset
+    GEMMA_VERIFY_OFFSET (Gemma-3's ring verify forward of GEMMA_VERIFY_ROWS:
+    R = 16, the decode regime's last row count), the prefill regime at
+    T = 512, each without and with Gemma-3's window of 1024, S = 4096
+    (timed beside its bound and SDPA on the cache's dtype, and against the
+    plain version of its own order), and Gemma-2's softcap 50 in both
+    regimes (timed beside SDPA without it, which has none); rows go to
+    `results` under flash_<fmt>_d256."""
     import torch
 
     gen = torch.Generator(dev).manual_seed(7)
@@ -973,6 +1012,10 @@ def phase_flash256(dev, results: dict):
         cases = [(f"{fmt} T=1 B=2 S=4096 D=256", dict(T=1, B=2, offsets=(37, 3000))),
                  (f"{fmt} T=1 B=1 window={w} S=4096 D=256",
                   dict(T=1, B=1, offsets=(3000,), window=w)),
+                 (f"{fmt} T={GEMMA_VERIFY_ROWS} B=1 S=4096 D=256",
+                  dict(T=GEMMA_VERIFY_ROWS, B=1, offsets=(GEMMA_VERIFY_OFFSET,))),
+                 (f"{fmt} T={GEMMA_VERIFY_ROWS} B=1 verify window={w} S=4096 D=256",
+                  dict(T=GEMMA_VERIFY_ROWS, B=1, offsets=(GEMMA_VERIFY_OFFSET,), window=w)),
                  (f"{fmt} T=512 B=2 S=4096 D=256", dict(T=512, B=2, offsets=(0, 2500))),
                  (f"{fmt} T=512 B=1 window={w} S=4096 D=256",
                   dict(T=512, B=1, offsets=(2500,), window=w)),
@@ -1022,6 +1065,51 @@ PHI_QMM_SHAPES = (("Q5_K", "phi-3-mini qkv", 3072, 9216),
                   ("Q6_K", "phi-2 head", 2560, 51200),
                   ("Q5_K", "qwen-7b qkv", 4096, 12288))
 PHI_QMM_ROWS = (1, 512)
+
+
+# the 8B's projections apart (an Engine with a LoRA adapter keeps them
+# unfused): Q4_K q, k, gate (up is gate's shape), Q6_K v (the Q4_K_M
+# recipe's attn_v in half the layers); wo is q's shape, down row 1's
+UNFUSED_QMM_SHAPES = (("Q4_K", "q", 4096, 4096), ("Q4_K", "k", 4096, 1024),
+                      ("Q4_K", "gate", 4096, 14336), ("Q6_K", "v", 4096, 1024))
+UNFUSED_QMM_ROWS = (1, 8)  # a decode step and the single-stream verify bucket
+
+
+def phase_unfused_kernels(dev, results: dict, unfused: dict):
+    """qmm at the 8B's unfused projection shapes (UNFUSED_QMM_SHAPES), M
+    in UNFUSED_QMM_ROWS (`qmm_at_shapes`): the linears a LoRA engine's
+    decode and verify forwards launch in place of the fused q|k|v and
+    gate|up."""
+    import torch
+
+    qmm_at_shapes("unfused", dev, torch.Generator(dev).manual_seed(19), UNFUSED_QMM_SHAPES,
+                  UNFUSED_QMM_ROWS, results, unfused)
+
+
+# Gemma-3-4B's 2-D linears at Q4_K_M (n_embd 2560, 8 heads on 4 of 256,
+# n_ff 10240): q|k|v fused where attn_v is Q4_K, apart (Q4_K q, k; Q6_K v)
+# on the recipe's use_more_bits layers (17 of 34); wo; the fused gate|up;
+# the down projections at Q6_K (use_more_bits layers) and Q4_K (the tied
+# head is a plain product)
+GEMMA_QMM_SHAPES = (("Q4_K", "gemma-3-4b q|k|v", 2560, 4096),
+                    ("Q4_K", "gemma-3-4b q", 2560, 2048),
+                    ("Q4_K", "gemma-3-4b k", 2560, 1024),
+                    ("Q6_K", "gemma-3-4b v", 2560, 1024),
+                    ("Q4_K", "gemma-3-4b wo", 2048, 2560),
+                    ("Q4_K", "gemma-3-4b gate|up", 2560, 20480),
+                    ("Q6_K", "gemma-3-4b down", 10240, 2560),
+                    ("Q4_K", "gemma-3-4b down", 10240, 2560))
+GEMMA_QMM_ROWS = (1, GEMMA_VERIFY_ROWS)  # a decode step and the ring's verify forward
+
+
+def phase_gemma_kernels(dev, results: dict, gemma: dict):
+    """qmm at Gemma-3-4B's linear shapes (GEMMA_QMM_SHAPES), M in
+    GEMMA_QMM_ROWS (`qmm_at_shapes`): the linears of its decode step and
+    of its ring speculation's verify forward."""
+    import torch
+
+    qmm_at_shapes("gemma", dev, torch.Generator(dev).manual_seed(23), GEMMA_QMM_SHAPES,
+                  GEMMA_QMM_ROWS, results, gemma)
 
 
 def phase_phi_kernels(dev, results: dict, phi: dict):
@@ -1256,19 +1344,20 @@ def read_launches() -> dict:
 
 def per_forward_launches(params) -> dict:
     """Kernel launches one forward makes: 2-D qmm in the layers (each
-    quantized linear, fused or not) and for the head (on the last row only),
-    expert kernels (each expert stack: in the gather regime qmm_gather, else
-    qmm_stack) and flash (one per layer)."""
+    quantized linear, fused or not, under a LoRA adapter or not) and for the
+    head (on the last row only), expert kernels (each expert stack: in the
+    gather regime qmm_gather, else qmm_stack) and flash (one per layer)."""
+    from tpullm_torch.models.lora import LoraLinear
     from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
 
     def is_quant(m):
-        return isinstance(m.base if isinstance(m, FusedLinear) else m, QuantLinear)
+        return isinstance(m.base if isinstance(m, (FusedLinear, LoraLinear)) else m, QuantLinear)
 
     head = int(is_quant(params["output"])) if params["output"] is not None else 0
     layers = experts = 0
     for layer in params["layers"]:
         layers += sum(is_quant(m) for m in layer.values()
-                      if isinstance(m, (QuantLinear, FusedLinear)))
+                      if isinstance(m, (QuantLinear, FusedLinear, LoraLinear)))
         experts += sum(isinstance(m, QuantExpertStack) for m in layer.values())
     return {"qmm": layers + head, "qmm_layers": layers, "head": head, "experts": experts,
             "flash": len(params["layers"])}
@@ -1490,14 +1579,15 @@ def _start(eng, runner, prompt) -> None:
     torch.cuda.synchronize()
 
 
-def profile_decode(eng, runner, ids, steps: int, eager: bool = False) -> dict:
+def profile_decode(eng, runner, ids, steps: int, eager: bool = False, n_top: int = 8) -> dict:
     """Device time a decode step by kernel family over `steps` decode steps
     of `runner` (one run) after a prefill of `ids`: replays of its CUDA
     graph, the main path, or with `eager` the same steps without a graph;
     from torch.profiler (`profiled`). Beside it the launches of each of the
     port's reduction kernels (REDUCTION_KERNELS) among them: 0, as every
     kernel a decode runs sums its K split in its own launch; and the
-    CUDA-event span of the steps on the card."""
+    CUDA-event span of the steps on the card; the `n_top` kernels by device
+    time."""
     import torch
 
     _start(eng, runner, ids)
@@ -1522,7 +1612,7 @@ def profile_decode(eng, runner, ids, steps: int, eager: bool = False) -> dict:
     return {"steps": steps, "graph": not eager, "reduce_launches": reduce_launches,
             "device_ms_per_token": {k: v / 1e3 / steps for k, v in fam.items()},
             "event_span_ms_per_token": start.elapsed_time(end) / steps,
-            "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:8]]}
+            "top": [(name[:60], round(us / 1e3 / steps, 4), n) for us, name, n in top[:n_top]]}
 
 
 def profile_prefill(eng, ids) -> dict:
@@ -3220,6 +3310,324 @@ def phase_speculative(path: Path, tmp: Path, launches: dict) -> dict:
     return out
 
 
+# the Engine options on the 8B (the slice's file): context, prompts, tokens
+OPT_CTX = 4096
+OPT_PROMPT = 512  # word tokens before each option's greedy run
+OPT_GEN = 64  # greedy tokens on the decode graph
+OPT_TEACHER = 32  # positions teacher-forced, the logits graph against the eager step
+OPT_NMSE_BOUND = 1e-3  # graph against eager (the same kernels; a captured step)
+OPT_PROFILE_STEPS = 16  # decode replays profiled a run
+# an option's logits against the plain engine's, teacher-forced on the
+# option's ids: NMSE above it (graph against eager reads 0 on these paths)
+OPT_ACTS_FLOOR = 1e-4
+LORA_RANK = 16
+LORA_STEMS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+CVEC_STRENGTH = 0.5
+SELF_EXTEND_N = 4
+SELF_EXTEND_PROMPT = 2560
+CVEC_PAIRS = (("I love this day, it is wonderful", "I hate this day, it is terrible"),
+              ("She smiled with joy", "She frowned with anger"),
+              ("What a delightful surprise", "What a dreadful surprise"),
+              ("The team celebrated the win", "The team mourned the loss"))
+
+
+def write_lora(path: Path, out: Path, seed: int = 5) -> dict:
+    """A rank-LORA_RANK adapter on every LORA_STEMS projection of every
+    layer of the GGUF at `path`, from `seed`: A ~ N(0, 1/n_in) (x A has unit
+    rows), B ~ N(0, 0.5²/rank), alpha = rank (scale 1): each linear moves
+    by ≈ 0.5 of a unit output (0.1 moved the logits by NMSE 5.3e-05 only)."""
+    from tpullm_torch.gguf.reader import GGUFReader
+    from tpullm_torch.models.lora import save_lora_gguf
+
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for name, info in GGUFReader(path).tensors.items():
+        parts = name.split(".")
+        if parts[0] == "blk" and parts[2] in LORA_STEMS:
+            n_out, n_in = info.shape[1], info.shape[0]
+            tensors[name] = (
+                rng.standard_normal((LORA_RANK, n_in), dtype=np.float32) * n_in ** -0.5,
+                rng.standard_normal((n_out, LORA_RANK), dtype=np.float32) * 0.5 / LORA_RANK ** 0.5)
+    t0 = time.perf_counter()
+    save_lora_gguf(out, tensors, alpha=float(LORA_RANK))
+    return dict(tensors=len(tensors), mib=out.stat().st_size / 2**20, write_s=time.perf_counter() - t0)
+
+
+def _eager_logits(eng, prompt: list[int], ids: list[int]) -> list:
+    """_teacher_logits through the eager step (_decode_logits) in place of
+    the logits graph."""
+    import torch
+
+    eng.reset()
+    rows = [eng.prefill(prompt)]
+    with torch.inference_mode():
+        for t in ids[:-1]:
+            tok = torch.tensor([t], dtype=torch.int64, device=eng.device)
+            rows.append(eng._decode_logits(tok).float().cpu().numpy())
+    return rows
+
+
+def option_run(label: str, eng, prompt: list[int], profile: bool = False) -> tuple[dict, list]:
+    """One Engine option on the 8B: a warm-up, then `prompt` and OPT_GEN
+    greedy tokens on the decode graph (TTFT, decode tok/s, the card's peak
+    GiB); the launches of a decode replay against one forward's
+    (per_forward_launches); the logits teacher-forced on the first
+    OPT_TEACHER ids through the logits graph against the eager step (NMSE ≤
+    OPT_NMSE_BOUND, the same argmax, and the graph's argmax the decode
+    graph's ids); with `profile`, OPT_PROFILE_STEPS replays of the decode
+    graph profiled (device ms a token by kernel family, the 12 costliest
+    kernels: where an option's extra time goes, against the slice phase's
+    profile of the plain 8B). Returns the run and the graph's rows."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+
+    eng.generate_tokens_device(prompt[:64], 8, stop_on_eog=False)  # the decode graph
+    eng.reset()
+    p0 = (eng.perf.t_prefill_s, eng.perf.t_decode_s, eng.perf.n_decode)
+    ids = eng.generate_tokens_device(prompt, OPT_GEN, stop_on_eog=False)
+    torch.cuda.synchronize()
+    ttft = (eng.perf.t_prefill_s - p0[0]) * 1e3
+    rate = (eng.perf.n_decode - p0[2]) / (eng.perf.t_decode_s - p0[1])
+    one = eng.decode_runner(SamplingParams(), 32).launches_per_replay()
+    per = per_forward_launches(eng.params)
+    expect(len(ids) == OPT_GEN and one.get("qmm") == per["qmm"] and one.get("qmm_tc", 0) == 0
+           and one.get("flash") == per["flash"] == one.get("flash_decode")
+           and not one.get("dequant_routes") and not one.get("attn_dense_routes"),
+           f"{label}: a decode replay's launches {one}, one forward's {per}")
+    t_ids = ids[:OPT_TEACHER]
+    graph = _teacher_logits(eng, prompt, t_ids)
+    eager = _eager_logits(eng, prompt, t_ids)
+    errs = [_nmse_np(a, b) for a, b in zip(graph, eager)]
+    same = sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(graph, eager))
+    expect(max(errs) <= OPT_NMSE_BOUND and same == len(graph),
+           f"{label}: graph against eager NMSE {max(errs):.3e}, same argmax {same}/{len(graph)}")
+    expect([int(np.argmax(r)) for r in graph] == t_ids,
+           f"{label}: the logits graph's argmax are the decode graph's greedy ids")
+    run = dict(load_s=eng.perf.t_load_s, ttft_ms=ttft, decode_tok_s=rate,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches_per_decode=one,
+               graph_vs_eager_nmse=max(errs), same_argmax=same, positions=len(graph),
+               teacher_ids=t_ids, report=eng.report())
+    log(f"[options] {label}: engine made in {eng.perf.t_load_s:.2f}s; {len(prompt)}-token prompt, "
+        f"TTFT {ttft:.1f} ms, {OPT_GEN} greedy tokens at {rate:.2f} tok/s on the decode graph; "
+        f"peak {run['peak_gib']:.2f} GiB; launches a decode replay {one}; teacher-forced "
+        f"{len(graph)} positions, graph against eager NMSE worst {max(errs):.2e} (bound "
+        f"{OPT_NMSE_BOUND}), same argmax {same}/{len(graph)}; {eng.report()}")
+    if profile:
+        prof = profile_decode(eng, eng.decode_runner(SamplingParams(), 32), prompt,
+                              OPT_PROFILE_STEPS, n_top=12)
+        run.update(device_ms_per_token=prof["device_ms_per_token"],
+                   event_span_ms_per_token=prof["event_span_ms_per_token"],
+                   top_kernels=prof["top"])
+        log(f"[options] {label}: a profiled decode token (the graph, {OPT_PROFILE_STEPS} "
+            f"replays): device ms by family "
+            f"{ {k: round(v, 4) for k, v in prof['device_ms_per_token'].items()} }, CUDA-event "
+            f"span {prof['event_span_ms_per_token']:.4f} ms; costliest kernels {prof['top']}")
+    return run, graph
+
+
+def residual_rms(eng, toks: list[int]) -> list[float]:
+    """The RMS of the residual stream after each layer of the llama graph
+    over `toks` (a throwaway forward from slot 0; n_past 0 after)."""
+    import torch
+
+    from tpullm_torch.models import llama
+
+    states: list = []
+    eng.reset()
+    with torch.inference_mode():
+        llama.forward(eng.hp, eng.params, eng._padded(toks), eng._positions(0, len(toks)),
+                      eng.cache, 0, return_hidden=True, layer_states=states)
+        out = [float(x[0, :len(toks)].float().pow(2).mean().sqrt()) for x in states]
+    eng.reset()
+    return out
+
+
+def _get_json(port: int, route: str):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", route)
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+class _EngineScheduler:
+    """A stand-in scheduler for the HTTP app's read-only routes over one
+    Engine (GET /lora-adapters reads `engine.lora_info`)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+
+def phase_engine_options(path: Path, tmp: Path, launches: dict) -> dict:
+    """The Engine's options on the 8B Q4_K_M (the slice's file):
+    1. tpullm-torch-cvector-generator as a subprocess, CVEC_PAIRS (4
+       prompt pairs), --method pca: its file and seconds (a dense bf16 load
+       of the 8B in that process);
+    2. one Model loaded unfused (load s, peak GiB) and shared by: an Engine
+       with a synthetic LoRA adapter (write_lora: rank 16 on all 7
+       projections of the 32 layers), an Engine with a synthetic control
+       vector at CVEC_STRENGTH, an Engine with the generated vector (its
+       logits finite), then a plain Engine, which fuses the Model (the
+       adapter engines keep their unfused copies of its tree), and an
+       Engine with grp_attn_n SELF_EXTEND_N on a SELF_EXTEND_PROMPT-token
+       prompt: option_run each (the adapter's decode replay 7 qmm a layer
+       plus the head, the plain one's the fused count); the adapter's, the
+       vectors' and self-extend's logits against the plain engine's
+       teacher-forced on the same ids (NMSE above OPT_ACTS_FLOOR: they
+       act); self-extend's flash launches, of a decode replay and of its
+       prompt's prefill, those of the plain engine;
+    3. GET /lora-adapters on the HTTP app over the adapter's Engine;
+    4. the cli with --grp-attn-n 4: 16 greedy tokens, the self-extend
+       Engine's."""
+    import os
+
+    import torch
+
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.model import Model
+    from tpullm_torch.server.api import Server, serve
+    from tpullm_torch.tools import cli
+    from tpullm_torch.tools.cvector import save_control_vector
+
+    out: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 1. the generator, in its own process
+    pos, neg, gen_cv = tmp / "cv_pos.txt", tmp / "cv_neg.txt", tmp / "cv_generated.gguf"
+    pos.write_text("\n".join(p for p, _ in CVEC_PAIRS) + "\n")
+    neg.write_text("\n".join(n for _, n in CVEC_PAIRS) + "\n")
+    cmd = [sys.executable, "-m", "tpullm_torch.tools.cvector", "-m", str(path),
+           "--positive-file", str(pos), "--negative-file", str(neg), "-o", str(gen_cv),
+           "--method", "pca"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=900)
+    out["cvector_generator"] = dict(rc=res.returncode, seconds=time.perf_counter() - t0,
+                                    stdout=res.stdout.strip()[-300:])
+    log(f"[options] tpullm-torch-cvector-generator (a subprocess, {len(CVEC_PAIRS)} pairs, pca): "
+        f"rc {res.returncode} in {out['cvector_generator']['seconds']:.1f}s: "
+        f"{res.stdout.strip()[-200:]} {res.stderr.strip()[-300:] if res.returncode else ''}")
+    expect(res.returncode == 0 and gen_cv.exists() and "wrote" in res.stdout,
+           "tpullm-torch-cvector-generator wrote its file")
+    # the adapter and the synthetic vector
+    ad = tmp / "lora-r16.gguf"
+    out["adapter"] = write_lora(path, ad)
+    log(f"[options] adapter {out['adapter']}")
+    reset_launches()  # just before the main path
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(path)
+    torch.cuda.synchronize()
+    out["model"] = dict(load_s=time.perf_counter() - t0, fused=model.is_fused,
+                        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    log(f"[options] the 8B loaded unfused in {out['model']['load_s']:.1f}s, peak "
+        f"{out['model']['peak_gib']:.2f} GiB above the baseline of {base / 2**30:.2f} GiB")
+    prompt = _word_ids(model.tokenizer, OPT_PROMPT)
+    rows = {}
+    torch.cuda.reset_peak_memory_stats()
+    lora_eng = Engine(model, max_seq=OPT_CTX, lora=[(str(ad), 1.0)])
+    out["lora"], rows["lora"] = option_run("lora r16", lora_eng, prompt, profile=True)
+    expect(out["lora"]["launches_per_decode"].get("qmm") == 7 * model.hp.n_layer + 1,
+           "lora: 7 qmm a layer and the head a decode replay")
+    httpd = serve(Server(_EngineScheduler(lora_eng)).app, "127.0.0.1", 0)
+    try:
+        status, body = _get_json(httpd.server_address[1], "/lora-adapters")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[options] GET /lora-adapters: {status} {body}")
+    expect(status == 200 and body == [{"id": 0, "path": str(ad), "scale": 1.0}],
+           f"/lora-adapters lists the adapter: {status} {body}")
+    out["lora"]["route"] = body
+    # the synthetic vector: a direction a layer of N(0, 1) components scaled
+    # to 0.25 of the RMS of that layer's residual stream (the adapter
+    # engine's, over 64 prompt tokens): at CVEC_STRENGTH it adds 0.125 of
+    # the stream's RMS a component (the random 8B's stream is large: fixed
+    # N(0, 1) and N(0, 8²) vectors vanish in its bf16 rounding)
+    rms = residual_rms(lora_eng, prompt[:64])
+    out["residual_rms"] = rms
+    log(f"[options] residual stream RMS by layer (the adapter engine, 64 tokens): "
+        f"{[round(r, 1) for r in rms]}")
+    cv = save_control_vector(tmp / "cv_synthetic.gguf", 0.25 * np.asarray(rms, np.float32)[:, None]
+                             * np.random.default_rng(6).standard_normal(
+                                 (model.hp.n_layer, model.hp.n_embd), dtype=np.float32))
+    torch.cuda.reset_peak_memory_stats()
+    cvec_eng = Engine(model, max_seq=OPT_CTX, control_vectors=[(str(cv), CVEC_STRENGTH)])
+    out["cvec"], rows["cvec"] = option_run(f"cvec ×{CVEC_STRENGTH}", cvec_eng, prompt)
+    gen_eng = Engine(model, max_seq=1024, control_vectors=[(str(gen_cv), 1.0)])
+    gen_logits = gen_eng.prefill(prompt)
+    expect(np.isfinite(gen_logits).all(), "the generated control vector: finite logits")
+    del gen_eng
+    torch.cuda.reset_peak_memory_stats()
+    plain = Engine(model, max_seq=OPT_CTX)
+    expect(model.is_fused, "the plain engine fused the shared Model")
+    out["plain"], _ = option_run("plain (fused)", plain, prompt)
+    for name in ("lora", "cvec"):
+        ids = out[name]["teacher_ids"]
+        errs = [_nmse_np(a, b) for a, b in zip(rows[name], _teacher_logits(plain, prompt, ids))]
+        out[name]["vs_plain_nmse"] = float(np.mean(errs))
+        log(f"[options] {name} against the plain engine on its ids: NMSE mean "
+            f"{np.mean(errs):.3e} (floor {OPT_ACTS_FLOOR}); first ids {ids[:8]}")
+        expect(np.mean(errs) > OPT_ACTS_FLOOR, f"{name}: the option acts on the logits")
+    del lora_eng, cvec_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    se = Engine(model, max_seq=OPT_CTX, grp_attn_n=SELF_EXTEND_N)
+    long = _word_ids(model.tokenizer, SELF_EXTEND_PROMPT)
+    out["self_extend"], rows["se"] = option_run(f"self-extend {SELF_EXTEND_N}", se, long)
+    ref = _teacher_logits(plain, long, out["self_extend"]["teacher_ids"])
+    out["self_extend"]["vs_plain_nmse"] = float(np.mean([_nmse_np(a, b)
+                                                         for a, b in zip(rows["se"], ref)]))
+    expect(out["self_extend"]["vs_plain_nmse"] > OPT_ACTS_FLOOR, "self-extend acts on the logits")
+    one_se, one_plain = out["self_extend"]["launches_per_decode"], out["plain"]["launches_per_decode"]
+    pre = {}
+    for name, e in (("self_extend", se), ("plain", plain)):
+        e.reset()
+        snap = _snapshot()
+        e.prefill(long)
+        torch.cuda.synchronize()
+        pre[name] = _launch_delta(snap)
+    log(f"[options] self-extend against plain: decode replay {one_se} / {one_plain}; the "
+        f"{SELF_EXTEND_PROMPT}-token prefill {pre['self_extend']} / {pre['plain']}; logits "
+        f"NMSE mean {out['self_extend']['vs_plain_nmse']:.3e}")
+    expect(one_se == one_plain and pre["self_extend"] == pre["plain"]
+           and pre["plain"]["flash"] == model.hp.n_layer,
+           "self-extend: the flash (and every other) launches of the plain engine")
+    out["self_extend"]["prefill_launches"] = pre["self_extend"]
+    # 4. the cli
+    argv = ["-m", str(path), "-p", TOOLS_PROMPT, "-n", "16", "--temp", "0", "-c", str(OPT_CTX),
+            "--grp-attn-n", str(SELF_EXTEND_N), "--no-display-prompt"]
+    rc, text, err, secs = run_tool(cli.main, argv)
+    ids = se.tokenizer.tokenize(TOOLS_PROMPT, add_special=True, parse_special=True)
+    se.reset()
+    want = "".join(se.tokenizer.detokenize([t])
+                   for t in se.generate_tokens_device(ids, 16, stop_on_eog=False))
+    log(f"[options] tpullm-torch --grp-attn-n {SELF_EXTEND_N}: rc {rc} in {secs:.1f}s (its load "
+        f"included): {text.strip()[:120]!r}; the engine's {want[:120]!r}")
+    expect(rc == 0 and text.rstrip("\n") == want, "the cli with --grp-attn-n: the engine's text")
+    out["cli"] = dict(rc=rc, seconds=secs, equal=text.rstrip("\n") == want)
+    del se, plain, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    got = read_launches()  # just after the main path
+    expect(got["qmm_tc"] > 0 and got["qmm_q4k"] > 0 and got["flash_bf16"] > 0
+           and got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0,
+           f"engine options: launches {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    for f in (ad, Path(cv), gen_cv):
+        f.unlink()
+    return out
+
+
 # Gemma-3-4B (google/gemma-3-4b-it text_config) at Q4_K_M on the iSWA ring
 GEMMA_CTX = 4096  # max_seq: the ring is R = round_up(1023 + 1024, 128) = 2048 slots
 GEMMA_LENS = (512, 2560)  # prompts; 2560 wraps the ring, its prefill three chunks of ≤ 1024
@@ -3387,6 +3795,242 @@ def gemma_run(label: str, eng, word_ids) -> dict:
     return out
 
 
+# n-gram speculation on Gemma-3-4B's ring: drafts a round, tokens, and the
+# speculative Scheduler's requests (prompt word tokens) and their tokens
+GEMMA_SPEC_DRAFT = 4  # verify forwards of 5 tokens: the bucket of 8 rows
+GEMMA_SPEC_TOKENS = 64
+GEMMA_SPEC_LENS = (300, 900, 1700, 2300)
+GEMMA_SPEC_GEN = 32
+# a rejected draft then a decode against an engine that never saw the draft:
+# the same forwards at the same offsets, the rejected rows masked
+GEMMA_ROLLBACK_NMSE_BOUND = 1e-6
+
+
+def _drain_ids(req, timeout: float = 600.0) -> list[int]:
+    """A scheduler request's token ids, read from its event queue to its end."""
+    toks = []
+    while True:
+        ev = req.out.get(timeout=timeout)
+        if ev[0] != "token":
+            return toks
+        toks.append(ev[1])
+
+
+class WrongDrafts:
+    """A speculator that knows the target's greedy ids (`refs`: (prompt,
+    ids) pairs) and drafts them with the second draft replaced by another
+    id: a round of two drafts or more accepts the first and rejects the
+    rest, so every round is a verify forward followed by a rollback. The
+    context's prompt picks the reference; an unknown context drafts
+    nothing."""
+
+    def __init__(self, refs, k: int):
+        self.refs = [(list(p), list(ids)) for p, ids in refs]
+        self.k, self.ctx = k, []
+
+    def resync(self, ctx):
+        self.ctx = list(ctx)
+
+    def propose(self, cur: int, max_tokens: int) -> list[int]:
+        for prompt, ids in self.refs:
+            if len(self.ctx) > len(prompt) and self.ctx[:len(prompt)] == prompt:
+                g = len(self.ctx) - len(prompt)  # tokens generated; the last is `cur`
+                out = ids[g:g + min(self.k, max_tokens)]
+                if len(out) > 1:
+                    out[1] = out[1] - 1 if out[1] else 1
+                return out
+        return []
+
+
+class wrong_drafts_in_scheduler:
+    """server/scheduler.py's speculator factory replaced, for a `with`
+    block, by WrongDrafts over `refs`: the speculative Scheduler's slots
+    then draft a wrong token every round."""
+
+    def __init__(self, refs, k: int):
+        self.refs, self.k = refs, k
+
+    def __enter__(self):
+        from tpullm_torch.server import scheduler
+
+        self.before = scheduler.make_speculator
+        scheduler.make_speculator = lambda *a, **kw: WrongDrafts(self.refs, self.k)
+
+    def __exit__(self, *exc):
+        from tpullm_torch.server import scheduler
+
+        scheduler.make_speculator = self.before
+
+
+def gemma_ring_speculation(eng, word_ids) -> dict:
+    """n-gram speculation on the ring Engine (bf16, 2048 slots): a warm-up,
+    then plain greedy decoding and generate_speculative, GEMMA_SPEC_TOKENS
+    tokens each after the 2560-token prompt (it wraps the ring; its 11
+    words repeat, so n-grams draft): the ids equal, the rounds, drafts and
+    acceptance, tok/s of both (each with its prompt's prefill); the verify
+    graph's launches a replay (flash on the global layers, attention_ring
+    on the others) and its ms against a decode replay's; WrongDrafts on the
+    same prompt (a rejection every round): the plain greedy ids, fewer
+    drafts accepted than drafted; the verify rows
+    teacher-forced on the speculative ids against a swa_full Engine's
+    (NMSE ≤ GEMMA_RING_NMSE_BOUND); a rejected draft then a decode against
+    an Engine that never saw the draft (NMSE ≤ GEMMA_ROLLBACK_NMSE_BOUND)."""
+    import torch
+
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.speculative import NgramSpeculator, generate_speculative
+
+    k = GEMMA_SPEC_DRAFT
+    prompt = word_ids(GEMMA_LENS[-1])
+    eng.reset()
+    generate_speculative(eng, NgramSpeculator(n_draft=k), word_ids(64), 16)  # warm-up
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = eng.generate_tokens_device(prompt, GEMMA_SPEC_TOKENS, stop_on_eog=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    eng.reset()
+    before = _snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, st = generate_speculative(eng, NgramSpeculator(n_draft=k), prompt, GEMMA_SPEC_TOKENS,
+                                   stop_on_eog=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    run_launches = _launch_delta(before)
+    first = next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b), None)
+    out = dict(rounds=st.n_rounds, drafted=st.n_drafted, accepted=st.n_accepted,
+               accept_rate=st.accept_rate, generated=len(got), tok_s=len(got) / secs,
+               plain_tok_s=len(plain) / plain_s, ids_equal=got == plain, first_diff=first,
+               run_launches=run_launches)
+    log(f"[gemma spec] ring bf16: {st.n_rounds} rounds, {st.n_drafted} drafted, "
+        f"{st.n_accepted} accepted (acceptance {st.accept_rate:.3f}; random weights: the "
+        f"acceptance is their loops'), {len(got)} tokens: {out['tok_s']:.1f} tok/s against "
+        f"{out['plain_tok_s']:.1f} for plain greedy decoding (both with the "
+        f"{len(prompt)}-token prompt's prefill); ids equal to plain greedy: {got == plain}"
+        + (f" (first differ at {first})" if first is not None else "")
+        + f"; the run's launches {run_launches}")
+    expect(got == plain and len(got) == GEMMA_SPEC_TOKENS,
+           f"gemma ring speculation: the plain greedy ids (first differ at {first})")
+    expect(st.n_drafted > 0 and st.n_accepted > 0, "gemma ring speculation: drafts accepted")
+    eng.reset()
+    wrong, wst = generate_speculative(eng, WrongDrafts([(prompt, plain)], k), prompt,
+                                      GEMMA_SPEC_TOKENS, stop_on_eog=False)
+    out["wrong_drafts"] = dict(rounds=wst.n_rounds, drafted=wst.n_drafted,
+                               accepted=wst.n_accepted, ids_equal=wrong == plain)
+    log(f"[gemma spec] wrong drafts on the ring: {wst.n_rounds} rounds, {wst.n_drafted} "
+        f"drafted, {wst.n_accepted} accepted (a rejection and a rollback every round); ids "
+        f"equal to plain greedy: {wrong == plain}")
+    expect(wrong == plain and 0 < wst.n_accepted < wst.n_drafted,
+           f"gemma ring speculation with rejected drafts: the plain greedy ids "
+           f"({wst.n_accepted} of {wst.n_drafted} accepted)")
+    rows = eng._bucket(k + 1)
+    vr = eng._verify_runners[rows]
+    one, want = vr.launches_per_replay(), gemma_launch_want(eng, rows)
+    log(f"[gemma spec] verify graph of {rows} rows: launches a replay {one} (flash on the "
+        f"{one.get('flash')} global layers, attention_ring on {one.get('attn_ring_routes')})")
+    expect(vr.graph is not None and one == want,
+           f"gemma ring speculation: a verify replay's launches {one} = {want}")
+    out["verify_launches"] = one
+    out.update(_replay_ms(eng, prompt, k))
+    log(f"[gemma spec] verify graph ({out['verify_rows']} rows) {out['verify_device_ms']:.3f} ms "
+        f"a bare replay ({out['verify_wall_ms']:.3f} ms a run) against the logits graph's "
+        f"{out['decode_device_ms']:.3f} ms ({out['decode_wall_ms']:.3f}): a verify costs "
+        f"{out['verify_device_ms'] / out['decode_device_ms']:.2f} decode steps")
+
+    full = Engine(eng.model, max_seq=GEMMA_CTX, swa_full=True)
+
+    def verify_rows(e):
+        e.reset()
+        rows = [e.prefill(prompt)]
+        for i in range(0, len(got) - 1, k + 1):
+            rows.extend(e.verify_logits(got[i:min(i + k + 1, len(got) - 1)]))
+        return rows
+
+    errs = [_nmse_np(a, b) for a, b in zip(verify_rows(eng), verify_rows(full))]
+    out["verify_vs_swa_full_nmse"] = max(errs)
+    log(f"[gemma spec] the ring's verify rows against swa_full's, teacher-forced on the "
+        f"{len(errs)} speculative positions: worst NMSE {max(errs):.2e} mean "
+        f"{np.mean(errs):.2e} (bound {GEMMA_RING_NMSE_BOUND})")
+    expect(max(errs) <= GEMMA_RING_NMSE_BOUND,
+           f"gemma ring speculation: verify rows against swa_full NMSE {max(errs):.3e}")
+    del full
+    fresh = Engine(eng.model, max_seq=GEMMA_CTX)  # a second ring on the same weights
+    for e in (eng, fresh):
+        e.reset()
+        e.prefill(prompt)
+    drafts = [plain[0]] + [t for t in word_ids(8)[1:] if t != plain[1]][:k]
+    eng.verify_ids(drafts)
+    eng.n_past -= k  # the drafts rejected, the pending token kept
+    fresh.verify_ids(drafts[:1])
+    a, b = eng.decode_step(plain[1]), fresh.decode_step(plain[1])
+    err, diff = _nmse_np(a, b), float(np.abs(a - b).max())
+    out.update(rollback_nmse=err, rollback_max_abs=diff)
+    log(f"[gemma spec] {k} drafts rejected on the ring, then a decode: against an engine that "
+        f"never saw them NMSE {err:.2e}, max abs {diff:.3g} (bound "
+        f"{GEMMA_ROLLBACK_NMSE_BOUND})")
+    expect(err <= GEMMA_ROLLBACK_NMSE_BOUND and int(np.argmax(a)) == int(np.argmax(b)),
+           f"gemma ring speculation: the decode after a rejected draft, NMSE {err:.3e}")
+    del fresh
+    eng.reset()
+    return out
+
+
+def gemma_spec_scheduler(be, word_ids) -> dict:
+    """The 4-slot ring BatchEngine under the plain Scheduler and then the
+    speculative one (spec_type ngram_simple, GEMMA_SPEC_DRAFT drafts), and
+    the speculative one again with WrongDrafts (a rejection every round, so
+    each batched verify on the ring is followed by rollbacks):
+    GEMMA_SPEC_LENS requests at once, GEMMA_SPEC_GEN greedy tokens each;
+    the ids equal, drafts and acceptance, the wall of each."""
+    from tpullm_torch.runtime.sampling import SamplerParams
+    from tpullm_torch.server.scheduler import GenRequest, Scheduler
+
+    prompts = [word_ids(n) for n in GEMMA_SPEC_LENS]
+
+    def run(sched):
+        for s in range(be.n_slots):
+            be.free_slot(s)
+        reqs = [sched.submit(GenRequest(prompt_ids=p, max_tokens=GEMMA_SPEC_GEN,
+                                        sampling=SamplerParams(temp=0.0))) for p in prompts]
+        t0 = time.perf_counter()
+        sched.start()
+        try:
+            ids = [_drain_ids(r) for r in reqs]
+        finally:
+            sched.stop()
+        return ids, time.perf_counter() - t0
+
+    plain, plain_s = run(Scheduler(be))
+    spec = Scheduler(be, spec_type="ngram_simple", n_draft=GEMMA_SPEC_DRAFT)
+    got, spec_s = run(spec)
+    out = dict(ids_equal=got == plain, drafted=spec.n_spec_drafted,
+               accepted=spec.n_spec_accepted, plain_s=plain_s, spec_s=spec_s,
+               verify_graphs=sorted(f"{w}x{r}" for w, r in be._verify_runners))
+    log(f"[gemma spec] the speculative Scheduler on the 4-slot ring BatchEngine: "
+        f"{len(prompts)} requests of {GEMMA_SPEC_GEN} greedy tokens, drafted "
+        f"{spec.n_spec_drafted}, accepted {spec.n_spec_accepted}, {spec_s:.2f} s against the "
+        f"plain Scheduler's {plain_s:.2f} s; ids equal: {got == plain}; verify graphs "
+        f"{out['verify_graphs']}")
+    expect(got == plain and all(len(t) == GEMMA_SPEC_GEN for t in got),
+           "gemma: the speculative Scheduler on the ring gives the plain Scheduler's ids")
+    expect(spec.n_spec_drafted > 0 and spec.n_spec_accepted > 0,
+           "gemma: the speculative Scheduler drafted and accepted")
+    wrong = Scheduler(be, spec_type="ngram_simple", n_draft=GEMMA_SPEC_DRAFT)
+    with wrong_drafts_in_scheduler(list(zip(prompts, plain)), GEMMA_SPEC_DRAFT):
+        got_w, wrong_s = run(wrong)
+    out["wrong_drafts"] = dict(ids_equal=got_w == plain, drafted=wrong.n_spec_drafted,
+                               accepted=wrong.n_spec_accepted, spec_s=wrong_s)
+    log(f"[gemma spec] the speculative Scheduler with wrong drafts: drafted "
+        f"{wrong.n_spec_drafted}, accepted {wrong.n_spec_accepted}, {wrong_s:.2f} s; ids equal "
+        f"to the plain Scheduler's: {got_w == plain}")
+    expect(got_w == plain and 0 < wrong.n_spec_accepted < wrong.n_spec_drafted,
+           f"gemma: the speculative Scheduler with rejected drafts gives the plain Scheduler's "
+           f"ids ({wrong.n_spec_accepted} of {wrong.n_spec_drafted} accepted)")
+    return out
+
+
 def phase_gemma(tmp: Path, launches: dict) -> dict:
     """Gemma-3-4B Q4_K_M at full width and depth (34 layers, head dim 256,
     5 of 6 layers on a 1024-token window, vocab 262144, tied head),
@@ -3410,7 +4054,9 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
        its slot positions), the continuation's logits equal;
     5. a BatchEngine of 4 slots on the ring (prefill chunk 512), its
        batched logits teacher-forced against Engine.decode_step, then a
-       slot freed (its ring marked empty) and admitted again."""
+       slot freed (its ring marked empty) and admitted again, then the
+       speculative Scheduler on it (gemma_spec_scheduler);
+    6. ring speculation on the bf16 ring Engine (gemma_ring_speculation)."""
     import torch
 
     from tpullm_torch.ops import attention
@@ -3474,6 +4120,7 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
     expect(err <= 1e-10, f"gemma: the restored ring continues as saved (NMSE {err:.3e})")
     f.unlink()
     result["state_nmse"] = err
+    result["speculation"] = gemma_ring_speculation(eng, word_ids)
     # the other cache formats on the ring: flash at D = 256 on f16 and f32
     for kv in ("f16", "f32"):
         eng.new_cache(kv_dtype=kv)
@@ -3538,6 +4185,7 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
         f"against Engine {err:.2e}")
     expect(err <= SERVE_NMSE_BOUND, f"gemma serving: the re-admitted slot NMSE {err:.3e}")
     result["serving"]["readmitted_nmse"] = err
+    result["spec_scheduler"] = gemma_spec_scheduler(be, word_ids)
     del be, single, eng
     torch.cuda.empty_cache()
     got = read_launches()  # just after the main path
@@ -3735,6 +4383,7 @@ def phase_flash_dkdv(dev, results: dict):
 
 
 DS2_CTX = 4096  # max_seq
+DS2_LAYERS = 9  # of DeepSeek-V2-Lite's 27: the dense lead and 8 MoE layers
 DS2_LENS = (512, 2560)  # prompts
 DS2_GEN = 64  # greedy tokens a prompt
 DS2_SLOTS = 4
@@ -3838,7 +4487,7 @@ def ds2_run(label: str, eng, word_ids, tag: str = "deepseek2") -> dict:
 
 
 def phase_deepseek2(tmp: Path, launches: dict) -> dict:
-    """DeepSeek-V2-Lite Q4_K_M at full width and depth (27 layers, MLA with
+    """DeepSeek-V2-Lite Q4_K_M at full width with DS2_LAYERS of its 27 layers (MLA with
     kv_lora_rank 512 + 64 rope dims, 16 heads, 64 routed experts top-6 and
     2 shared, one dense lead layer, vocab 102400), synthesized from seed 0:
     1. Engine on the bf16 latent at context 4096 (ds2_run): load s and peak
@@ -3864,7 +4513,7 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
     from tpullm_torch.runtime.engine import Engine
     from tpullm_torch.runtime.kvcache import MLACache
 
-    path = synthesize(tmp, "deepseek2", "deepseek-v2-lite", "Q4_K_M")
+    path = synthesize(tmp, "deepseek2", "deepseek-v2-lite", "Q4_K_M", n_layer=DS2_LAYERS)
     result: dict = {}
     reset_launches()  # just before the main path
     gc.collect()  # earlier phases' engines and graph runners, in reference cycles
@@ -3971,8 +4620,9 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
 # deepseek2's MLA aliases on the card (phase_mla_models)
 MLA_CTX = 4096  # max_seq
 # MiniCPM3-4B's depth on the card (full width; of 62: all of them made the
-# phase 77 s, against its budget of about 60)
-MINICPM3_LAYERS = 24
+# phase 77 s, against its budget of about 60; 24 until the engine options
+# phase came)
+MINICPM3_LAYERS = 12
 MLA_DENSE_POSITIONS = 32  # positions teacher-forced against dense weights
 MLA_SLOT_LENS = (40, 700, 1300)  # the BatchEngine round's prompts (its slot 3 idle)
 MLA_SLOT_STEPS = 16  # teacher-forced batched steps against Engine
@@ -4252,8 +4902,8 @@ QWEN_SLOT_LENS = (40, 200, 500)  # the BatchEngine round's prompts (its slot 3 i
 QWEN_TEACHER = 8  # teacher-forced batched steps against Engine
 QWEN7B_LAYERS = 4  # Qwen2.5-7B's depth on the card (full width)
 # Qwen3-30B-A3B's depth on the card (full width; of 48: the smoke's time
-# limit, since the mla models phase)
-QWEN3_LAYERS = 24
+# limit; 24 since the mla models phase, 8 since the engine options phase)
+QWEN3_LAYERS = 8
 QWEN_TEACHER_7B = 16  # its positions teacher-forced against dense weights
 
 
@@ -4639,17 +5289,15 @@ def phase_phi(tmp: Path, launches: dict) -> dict:
 
 
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
-    """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K (a
-    bf16 and a q8 KV cache), IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and
-    Q3_K_M; Mixtral-8x7B at MXFP4_MOE with 4 layers, a 64-token prompt (the
+    """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K,
+    IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M (a bf16 KV cache;
+    the q8 cache's flash runs in the slice, server and speculative
+    phases); Mixtral-8x7B at MXFP4_MOE with 4 layers, a 64-token prompt (the
     all-experts regime) and its decode (gather)."""
     import torch
 
     runs = []
-    path = synthesize(tmp, "8b-Q2_K", "llama-3-8b", "Q2_K", n_layer=4)
-    runs += [serve("8b-Q2_K", path, kv, launches, short=64) for kv in (torch.bfloat16, "q8_0")]
-    path.unlink()
-    for ftype in ("IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
+    for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
         path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
         runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
         path.unlink()
@@ -4847,6 +5495,10 @@ def main() -> int:
     timed("verify kernels", phase_verify_kernels, dev, results, verify)
     qwen: dict = {}
     timed("qwen kernels", phase_qwen_kernels, dev, results, qwen)
+    unfused: dict = {}
+    timed("unfused kernels", phase_unfused_kernels, dev, results, unfused)
+    gemma_k: dict = {}
+    timed("gemma kernels", phase_gemma_kernels, dev, results, gemma_k)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
@@ -4854,6 +5506,8 @@ def main() -> int:
         tools = timed("tools", phase_tools, slice_path, Path(tmp), launches)
         server = timed("server", phase_server, slice_path, Path(tmp), launches)
         spec = timed("speculative", phase_speculative, slice_path, Path(tmp), launches)
+        options = timed("engine options", phase_engine_options, slice_path, Path(tmp),
+                        launches)
         slice_path.unlink()
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
@@ -4865,7 +5519,8 @@ def main() -> int:
         mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
-                                        "speculative": spec, "gemma": gemma,
+                                        "speculative": spec, "options": options,
+                                        "gemma": gemma,
                                         "deepseek2": ds2, "qwen": qwen_run, "phi": phi_run,
                                         "mla": mla_run}))
     for fmt in FLASH_FORMATS:
@@ -4930,7 +5585,11 @@ def main() -> int:
             fmt = key.split("_")[1]
             win = next(r for r in rows if r["case"].startswith(f"{fmt} T=1 B=1 window="))
             pre = next(r for r in rows if r["case"] == f"{fmt} T=512 B=2 S=4096 D=256")
-            entry.update(window_case=win["case"], window_ms=win["ms"],
+            entry.update(verify=[{k: r[k] for k in ("case", "regime", "nmse", "ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "library_ms")}
+                                 for r in rows
+                                 if r["case"].startswith(f"{fmt} T={GEMMA_VERIFY_ROWS} ")],
+                         window_case=win["case"], window_ms=win["ms"],
                          window_bound_ms=win["bound_ms"], window_library_ms=win["library_ms"],
                          prefill_case=pre["case"], prefill_ms=pre["ms"],
                          prefill_plain_ms=pre["plain_ms"], prefill_bound_ms=pre["bound_ms"],
@@ -5030,9 +5689,10 @@ def main() -> int:
             entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
                                  + launches.get("qmm_gather.MXFP4", 0))
         for name, rows_by_key in (("batched", batched), ("verify", verify), ("qwen", qwen),
-                                  ("phi", phi)):
+                                  ("phi", phi), ("unfused", unfused), ("gemma", gemma_k)):
             # the shapes of continuous batching, of speculative verification,
-            # of the Qwen models and of the Phi models and Qwen (v1)
+            # of the Qwen models, of the Phi models and Qwen (v1), of the
+            # 8B's projections apart (a LoRA engine's), and of Gemma-3-4B
             if key in rows_by_key:
                 entry[name] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")}

@@ -1456,6 +1456,82 @@ def test_verify_graph_matches_eager_prefill_all_logits(dev, tmp_path, shape, kv)
         assert r.launches_per_replay() == _verify_launches(eng, rows, rows)
 
 
+def test_ring_verify_graph_rollback_matches_a_fresh_engine(dev, tmp_path):
+    """Speculative rollback on the iSWA ring under the verify graph (the
+    tiny gemma3, bf16, a ring of 128 slots for chunks of 16, wrapped by a
+    140-token prompt): a verify of 6 tokens, n_past rewound by 4, a verify
+    of 4 other tokens at the rewound offset (a replay of the same graph),
+    two decode steps: every row equals an engine on the same weights that
+    never saw the rejected tokens (NMSE ≤ 1e-6), and the ring's slot
+    positions equal."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.runtime.kvcache import SWACache
+
+    path = make_synthetic_llama_gguf(tmp_path / "g.gguf", shape="tiny-gemma3", seed=0)
+    engs = []
+    for _ in range(2):
+        e = Engine(path if not engs else engs[0].model, max_seq=256)
+        e.prefill_cap = 16
+        e.new_cache()
+        assert isinstance(e.cache, SWACache) and e.cache.ring_len == 128
+        engs.append(e)
+    eng, fresh = engs
+    rng = np.random.default_rng(4)
+    prompt, drafts, other = (rng.integers(5, 380, size=n).tolist() for n in (140, 6, 4))
+    for e in engs:
+        e.prefill(prompt)
+    eng.verify_logits(drafts)
+    eng.n_past -= 4
+    fresh.verify_logits(drafts[:2])
+    rows = [(eng.verify_logits(other), fresh.verify_logits(other))]
+    rows += [(eng.decode_step(t), fresh.decode_step(t)) for t in (30, 31)]
+    for a, b in rows:
+        assert np.isfinite(a).all()
+        assert _nmse(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-6
+    assert torch.equal(eng.cache.slot_pos, fresh.cache.slot_pos)
+    assert eng._verify_runners[8].graph is not None and eng._verify_runners[8].replays >= 1
+
+
+def test_engine_options_on_the_card_match_the_cpu(dev, tmp_path):
+    """An Engine with a LoRA adapter, control vectors and self-extend
+    (grp_attn_n 2) on the tiny Q4_K_M model: on the card (the qmm and
+    flash kernels, the decode graph) its prompt logits within NMSE 1e-3 of
+    the same engine on the CPU, and 16 greedy ids of the decode graph
+    equal the CPU's; the adapter engine's decode replay launches 7 qmm a
+    layer and the head."""
+    from tpullm_torch.gguf.reader import GGUFReader
+    from tpullm_torch.models.lora import save_lora_gguf
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.tools.cvector import save_control_vector
+
+    path = make_synthetic_llama_gguf(tmp_path / "tiny.gguf", shape="tiny", seed=0)
+    rng = np.random.default_rng(5)
+    tensors = {}
+    for name, info in GGUFReader(path).tensors.items():
+        if name.startswith("blk.") and name.split(".")[2] in ("attn_q", "attn_v", "ffn_up",
+                                                               "ffn_down"):
+            n_out, n_in = info.shape[1], info.shape[0]
+            tensors[name] = (rng.standard_normal((4, n_in)).astype(np.float32) * 0.05,
+                             rng.standard_normal((n_out, 4)).astype(np.float32) * 0.05)
+    ad = save_lora_gguf(tmp_path / "a.gguf", tensors, alpha=8.0)
+    cv = save_control_vector(tmp_path / "cv.gguf", rng.standard_normal((2, 256)).astype(
+        np.float32) * 5e8)
+    kw = dict(max_seq=128, lora=[(ad, 0.5)], control_vectors=[(cv, 0.7)], grp_attn_n=2)
+    card, cpu = Engine(path, **kw), Engine(path, device="cpu", **kw)
+    ids = list(range(5, 45))
+    got, want = card.prefill_all_logits(ids), cpu.prefill_all_logits(ids)
+    assert np.isfinite(got).all() and _nmse(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-3
+    card.reset()
+    cpu.reset()
+    assert card.generate_tokens_device(ids, 16, temp=0.0, chunk=8) == \
+        cpu.generate_tokens_device(ids, 16, temp=0.0, chunk=8)
+    (runner,) = card._runners.values()
+    one = runner.launches_per_replay()
+    assert one["qmm"] == 7 * card.hp.n_layer + 1 and one["flash"] == card.hp.n_layer
+
+
 def test_speculative_rounds_are_graph_replays(dev, tmp_path):
     """generate_speculative on the card with an n-gram and a draft
     speculator (the target's own file): greedy ids equal the plain greedy

@@ -112,14 +112,14 @@ def test_hparams_match_jax(paths, name):
 
 def test_registry_and_cache_kinds(paths, monkeypatch):
     """deepseek2 brings its cache: the bf16 latent [L, B, 1, S, kvr + n_rot]
-    (a q8 request too, as the JAX package rules; f16 and f32 as asked);
+    (for every named type, as the JAX package rules; a torch dtype as asked);
     TPULLM_MLA=0 the decompressed form's per-head cache. Engine.report
     names the latent's dtype."""
     spec = get_arch("deepseek2")
     assert spec.forward is deepseek2.forward and spec.make_cache is deepseek2.make_cache
     hp = hparams_from_gguf(GGUFReader(paths["tiny"]))
     for kv, want in ((torch.bfloat16, torch.bfloat16), ("q8_0", torch.bfloat16),
-                     ("f16", torch.float16), (torch.float32, torch.float32)):
+                     ("f16", torch.bfloat16), (torch.float32, torch.float32)):
         c = deepseek2.make_cache(hp, 2, 64, kv)
         assert isinstance(c, kvcache.MLACache) and c.c.dtype == want
         assert tuple(c.c.shape) == (3, 2, 1, 64, 576) and c.kvr == 512
@@ -130,6 +130,44 @@ def test_registry_and_cache_kinds(paths, monkeypatch):
     c = deepseek2.make_cache(hp, 1, 64, torch.bfloat16)
     assert isinstance(c, kvcache.KVCache) and tuple(c.k.shape) == (3, 1, 16, 64, 96)
     assert tuple(c.v.shape) == (3, 1, 16, 64, 32)
+
+
+def _arrays(cache) -> dict:
+    """A cache's kind and its arrays' (dtype, shape), either package's."""
+    out = {"kind": type(cache).__name__}
+    for name, v in vars(cache).items():
+        if hasattr(v, "shape") and hasattr(v, "dtype"):
+            out[name] = (str(v.dtype).removeprefix("torch."), tuple(v.shape))
+    return out
+
+
+MLA_KV = {"f16": ("f16", "f16"), "bf16": ("bf16", "bf16"), "f32": ("f32", "f32"),
+          "q8_0": ("q8_0", "q8_0"), "dtype-bf16": (torch.bfloat16, jnp.bfloat16),
+          "dtype-f16": (torch.float16, jnp.float16), "dtype-f32": (torch.float32, jnp.float32)}
+
+
+@pytest.mark.parametrize("kv", list(MLA_KV))
+@pytest.mark.parametrize("form", ["absorbed", "decompressed", "decompressed-mla-keys"])
+def test_mla_cache_types_as_jax(paths, monkeypatch, form, kv):
+    """deepseek2.make_cache against the JAX package's `_mla_cache`
+    (tpullm/models/registry.py) for every named cache type and dtype, in
+    both forms: the same kind, and every array of the same dtype and
+    shape. Absorbed, and decompressed with the *_mla keys (per-head dims
+    of 40 / 24 set on both packages' hparams), every name gives bf16;
+    decompressed without them kvcache.make_cache maps the names (q8_0: the
+    quantized cache); a dtype is kept."""
+    monkeypatch.setenv("TPULLM_MLA", "1" if form == "absorbed" else "0")
+    hp = hparams_from_gguf(GGUFReader(paths["tiny"]))
+    jhp = jhparams(JReader(paths["tiny"]))
+    if form == "decompressed-mla-keys":
+        hp = dataclasses.replace(hp, head_dim_k_mla=40, head_dim_v_mla=24)
+        jhp = dataclasses.replace(jhp, head_dim_k_mla=40, head_dim_v_mla=24)
+    tkv, jkv_ = MLA_KV[kv]
+    got = _arrays(deepseek2.make_cache(hp, 2, 64, tkv))
+    want = _arrays(jget_arch("deepseek2").make_cache(jhp, 2, 64, jkv_))
+    assert got == want
+    if form != "decompressed" and isinstance(tkv, str):
+        assert {v[0] for k, v in got.items() if k != "kind"} == {"bfloat16"}
 
 
 def test_mla_cache_writes_and_views():

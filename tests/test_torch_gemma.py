@@ -548,22 +548,37 @@ def test_ring_holds_the_window(paths):
 
 
 def test_speculative_refused_on_the_ring(paths):
-    """Speculative verification on a ring cache raises a NotImplementedError
-    naming its ROADMAP item; with swa_full it runs."""
+    """Speculative verification on a ring cache, once refused (ROADMAP
+    1.4.1), runs: greedy n-gram speculation gives the ring's plain greedy
+    ids and the swa_full engine's speculative ids; verify_logits on the
+    ring equal swa_full's (RTOL/ATOL); BatchEngine.verify_batch on the ring
+    equals Engine.verify_logits. What stays refused is a verify wider than
+    the ring's max_rows (tests/test_torch_ring_speculative.py holds the
+    ring against the JAX package's)."""
     from tpullm_torch.runtime.speculative import NgramSpeculator, generate_speculative
 
-    eng = Engine(paths["gemma3"], device="cpu", max_seq=128)
-    with pytest.raises(NotImplementedError, match="1.4.1"):
-        generate_speculative(eng, NgramSpeculator(n_draft=3), _ids(20, 11), 4)
-    with pytest.raises(NotImplementedError, match="1.4.1"):
-        eng.verify_logits([5, 6, 7])
-    be = BatchEngine(paths["gemma3"], device="cpu", n_slots=2, max_seq=128)
-    with pytest.raises(NotImplementedError, match="1.4.1"):
-        be.verify_batch({0: [5, 6]}, 3)
-    full = Engine(paths["gemma3"], device="cpu", max_seq=128, swa_full=True)
-    out, _ = generate_speculative(full, NgramSpeculator(n_draft=3), _ids(20, 11), 4,
-                                  stop_on_eog=False)
-    assert len(out) == 4
+    eng = _f32(paths["gemma3"], max_seq=128)
+    full = _f32(paths["gemma3"], max_seq=128, swa_full=True)
+    prompt = _ids(10, 11) * 2
+    plain = list(eng.generate_tokens(prompt, 8))
+    eng.reset()
+    out, stats = generate_speculative(eng, NgramSpeculator(n_draft=3), prompt, 8,
+                                      stop_on_eog=False)
+    want, _ = generate_speculative(full, NgramSpeculator(n_draft=3), prompt, 8,
+                                   stop_on_eog=False)
+    assert out == plain == want and stats.n_drafted > 0
+    got = eng.verify_logits([5, 6, 7])
+    np.testing.assert_allclose(got, full.verify_logits([5, 6, 7]), rtol=RTOL, atol=ATOL)
+    be = BatchEngine(paths["gemma3"], device="cpu", n_slots=2, max_seq=128, mode="dense",
+                     dtype=torch.float32, kv_dtype=torch.float32)
+    eng.reset()
+    eng.prefill(prompt)
+    be.prefill_slot(0, prompt)
+    rows = be.verify_batch({0: [5, 6]}, 3)[0]
+    np.testing.assert_allclose(rows[:2], eng.verify_logits([5, 6]), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="exceeds its"):
+        BatchEngine(paths["gemma3"], device="cpu", n_slots=2, max_seq=256,
+                    prefill_chunk=16).verify_batch({0: [5, 6]}, 128)
 
 
 # ---------------------------------------------------------------------------

@@ -67,7 +67,7 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.server, tpullm_torch.server.api, tpullm_torch.server.router\n"
         "import tpullm_torch.server.scheduler, tpullm_torch.server.__main__\n"
         "import tpullm_torch.runtime.speculative, tpullm_torch.runtime.ngram_cache\n"
-        "import tpullm_torch.tools.lookup\n"
+        "import tpullm_torch.tools.lookup, tpullm_torch.tools.cvector, tpullm_torch.models.lora\n"
         "from tpullm_torch.tokenizer import bpe\n"
         "assert bpe.regex_split(\"it's 1234\", bpe.resolve_pre('llama-bpe')['regexes']) == \\\n"
         "    ['it', \"'s\", ' ', '123', '4']\n"

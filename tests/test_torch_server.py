@@ -558,7 +558,7 @@ DEFERRED = [("POST", "/v1/messages", "1.3.1"), ("POST", "/v1/messages/count_toke
             ("POST", "/v1/reranking", "1.3.3"), ("GET", "/api/tags", "1.3.4"),
             ("POST", "/api/show", "1.3.4"), ("GET", "/", "1.3.5"), ("GET", "/index.html", "1.3.5"),
             ("GET", "/manifest.webmanifest", "1.3.5"), ("GET", "/sw.js", "1.3.5"),
-            ("GET", "/icon.svg", "1.3.5"), ("GET", "/lora-adapters", "1.3.6")]
+            ("GET", "/icon.svg", "1.3.5")]
 
 
 def test_deferred_routes_answer_501(engine):

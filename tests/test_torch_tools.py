@@ -131,8 +131,14 @@ def test_override_kv_and_preset(ggufs, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--grp-attn-n", "2"]])
 def test_cli_unported_options_exit(ggufs, flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["-m", ggufs["tiny"], "--device", "cpu", "-p", "x", *flags])
+    """The options the cli once refused as not ported (self-extend,
+    --grp-attn-n above 1) now run: a greedy completion of 12 tokens on
+    dense weights equals the JAX cli's with the same flags."""
+    argv = ["-m", ggufs["tiny"], "-p", PROMPTS["tiny"], "-n", "12", "--temp", "0",
+            "--mode", "dense", "-c", "64", "--no-display-prompt", *flags]
+    rc, got, _ = _run(cli.main, argv + ["--device", "cpu"])
+    rc_j, want, _ = _run(jcli.main, argv)
+    assert rc == rc_j == 0 and got == want and got.strip()
 
 
 def test_chat_two_turns(ggufs):

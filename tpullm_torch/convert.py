@@ -19,10 +19,14 @@ phi3 and qwen trees (q|k|v and gate|up fused by the JAX Engine from the
 row slices of one tensor: a FusedLinear whose planes are the port's
 fused load's; qwen's f32 biases) and phi2's (`attn_norm_b`, `bo`, `b_up`,
 `b_down`). The top-level entries beside the embedding and the layers carry
-over the same way (phi2's `output_norm_b` and `output_b`). Split q/k/v
-and gate/up of one type are then fused as the port's Engine fuses them
-(models/weights.py fuse_llama_params): phi2's, which the JAX Engine leaves
-apart, become the FusedLinear of the port's fused load.
+over the same way (phi2's `output_norm_b` and `output_b`), and so does a
+JAX Engine's `cvec` (its control vectors, [n_layer, n_embd]). A
+LoraLinear-like (`base`, `a_t`, `b_t`, `scale`) becomes models/lora.py's
+`LoraLinear` around its base. Split q/k/v and gate/up of one type are then
+fused as the port's Engine fuses them (models/weights.py
+fuse_llama_params): phi2's, which the JAX Engine leaves apart, become the
+FusedLinear of the port's fused load; a tree with LoRA wrappers stays
+unfused, as an Engine with adapters does.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from .gguf.constants import GGMLType
+from .models.lora import LoraLinear
 from .models.weights import (DenseLinear, FusedLinear, QuantExpertStack, QuantLinear,
                              fuse_llama_params)
 
@@ -50,6 +55,9 @@ def module_from_jax(obj, device):
     """One JAX weight container (or None) → the port's module."""
     if obj is None:
         return None
+    if hasattr(obj, "a_t") and hasattr(obj, "b_t"):
+        return LoraLinear(module_from_jax(obj.base, device), tensor_from_numpy(obj.a_t, device),
+                          tensor_from_numpy(obj.b_t, device), obj.scale)
     if hasattr(obj, "splits"):
         return FusedLinear(module_from_jax(obj.base, device), tuple(obj.splits))
     if hasattr(obj, "planes"):
@@ -70,7 +78,10 @@ def params_from_jax(tree_np: dict, device) -> dict:
               for layer in tree_np["layers"]]
     out = {k: module_from_jax(v, device) for k, v in tree_np.items()
            if k not in ("tok_embd", "layers")}
+    params = {"tok_embd": tensor_from_numpy(tree_np["tok_embd"], device), "layers": layers,
+              "output": None, **out}
+    if any(isinstance(m, LoraLinear) for layer in layers for m in layer.values()):
+        return params  # an Engine with adapters keeps its projections apart
     # q|k|v and gate|up fused where the port's Engine fuses them (the JAX
     # Engine leaves phi2's apart)
-    return fuse_llama_params({"tok_embd": tensor_from_numpy(tree_np["tok_embd"], device),
-                              "layers": layers, "output": None, **out})
+    return fuse_llama_params(params)

@@ -65,20 +65,20 @@ def mla_dims(hp: HParams) -> tuple[int, int, int, int]:
 
 
 def make_cache(hp: HParams, batch: int, max_len: int, kv_dtype, device=None):
-    """The absorbed form's latent cache (MLACache) in kv_dtype, where a q8
-    request gets a bf16 latent as in the JAX package (the latent is already
-    ~9× smaller than the decompressed cache; the names "f16" and "f32"
-    give those dtypes). TPULLM_MLA=0: the decompressed form's per-head
-    cache (a q8 one where the file's key_length holds the per-head dims)."""
-    named = {"f16": torch.float16, "f32": torch.float32, "bf16": torch.bfloat16}
+    """The JAX package's MLA cache rule (models/registry.py `_mla_cache`):
+    every named cache type ("f16", "bf16", "f32", "q8_0") gives a bf16
+    cache, a torch dtype its own. Absorbed: the latent cache (MLACache;
+    the latent is already ~9× smaller than the decompressed cache).
+    TPULLM_MLA=0: the decompressed form's per-head cache at the *_mla
+    dims, or, where the file's key_length holds the per-head dims,
+    kvcache.make_cache (the names mapped there, q8 too)."""
+    dtype = torch.bfloat16 if isinstance(kv_dtype, str) else kv_dtype
     if mla_absorbed(hp):
-        dtype = named.get(kv_dtype, torch.bfloat16) if isinstance(kv_dtype, str) else kv_dtype
         return kvcache.MLACache.new(hp.n_layer, batch, max_len, hp.n_lora_kv, hp.rope.dims,
                                     dtype, device)
     if not hp.head_dim_k_mla:
         return kvcache.make_cache(hp, batch, max_len, kv_dtype, device)
     Dk, Dv, _, _ = mla_dims(hp)
-    dtype = named.get(kv_dtype, torch.bfloat16) if isinstance(kv_dtype, str) else kv_dtype
     return kvcache.KVCache(
         torch.zeros((hp.n_layer, batch, hp.n_head, max_len, Dk), dtype=dtype, device=device),
         torch.zeros((hp.n_layer, batch, hp.n_head, max_len, Dv), dtype=dtype, device=device))

@@ -238,7 +238,7 @@ def pick_rows(x: torch.Tensor, last_index) -> torch.Tensor:
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor, cache, cache_offset,
-            last_index=None, return_hidden: bool = False):
+            last_index=None, return_hidden: bool = False, layer_states: list | None = None):
     """tokens/positions [B, T] → (logits [B, T, n_vocab] f32, cache). With
     last_index=i the head runs on row i only and logits are [B, 1, n_vocab]
     (the prefill path: the head of an 8B model is ~6% of its FLOPs); a [B]
@@ -251,7 +251,12 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
     device int32 tensor, which the flash kernel then reads as its offsets
     and the cache write as its index; or an int32 [B] device tensor, the
     offset of each batch row (a slot), −1 where the slot is idle: its cache
-    rows are left as they are (runtime/kvcache.py `_slot_write`)."""
+    rows are left as they are (runtime/kvcache.py `_slot_write`).
+
+    params["cvec"] [n_layer, n_embd], where an engine has control vectors,
+    is added to the residual stream after each layer, in x's dtype (the JAX
+    llama graph's llama_adapter_cvec). `layer_states`, a list, receives x
+    [B, T, n_embd] after each layer (tools/cvector.py's capture)."""
     B, T = tokens.shape
     x = params["tok_embd"][tokens]
     if hp.embd_scale != 1.0:
@@ -260,6 +265,7 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
     rope_cs = rope_angles(hp.rope, positions)
     slopes = (alibi_slopes(hp.n_head, hp.max_alibi_bias, x.device)
               if hp.max_alibi_bias > 0.0 else None)
+    cvec = params.get("cvec")
     for li, layer in enumerate(params["layers"]):
         x, cache = attn_block(hp, layer, x, rope_cs, cache, li, cache_offset,
                               offsets, slopes)
@@ -275,4 +281,8 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn
+        if cvec is not None:
+            x = x + cvec[li].to(x.dtype)
+        if layer_states is not None:
+            layer_states.append(x)
     return finish(hp, params, x, last_index, return_hidden), cache

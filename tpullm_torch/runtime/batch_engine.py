@@ -25,11 +25,15 @@ stay valid for the engine's life; `drop_graphs` releases them.
 
 An iSWA model (gemma2, gemma3) gets the ring cache (runtime/kvcache.py
 SWACache) with one ring a slot, sized for `prefill_chunk`, as the JAX
-package's BatchEngine gives it; a freed slot's ring is marked empty.
+package's BatchEngine gives it; a freed slot's ring is marked empty. The
+verify step runs on it as on a full cache: each slot's ring rows come from
+its offset on the device (an idle slot's −1 writes none), and a rejected
+draft's rows stay invisible until their positions are written again;
+a verify wider than the ring's `max_rows` is refused.
 
-Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.4, 1.6): mesh serving and the
-pipeline, recurrent archs, speculative verification on the ring cache and
-multimodal prefill (`prefill_slot_embeddings`).
+Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.6): mesh serving and the
+pipeline, recurrent archs and multimodal prefill
+(`prefill_slot_embeddings`).
 """
 
 from __future__ import annotations
@@ -42,8 +46,7 @@ import torch
 from ..ops.rope import rotate_cached_keys
 from .engine import PREFILL_BUCKETS, PerfCounters
 from .graph import BatchRunner
-from .kvcache import (KVCache, QuantKVCache, SWACache, make_cache, refuse_speculation,
-                      takes_ring)
+from .kvcache import KVCache, QuantKVCache, SWACache, make_cache, takes_ring
 from .model import Model
 
 
@@ -66,7 +69,7 @@ class BatchEngine:
         self.model = Model.of(model_path, device, mode, dtype)
         self.device = self.model.device
         self.reader, self.hp, self.arch = self.model.reader, self.model.hp, self.model.arch
-        self.tokenizer, self.params = self.model.tokenizer, self.model.params
+        self.tokenizer, self.params = self.model.tokenizer, self.model.fused()
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.prefill_chunk = min(prefill_chunk, max_seq)
@@ -258,8 +261,12 @@ class BatchEngine:
         tokens padded with id 0, written and never read), the slots not in
         `tokens` idle. Does NOT advance n_past: the caller commits the
         accepted prefix. Returns the runner, whose `ids` [slots, width] and
-        `logits` [slots, width, V] hold the rows until its next run."""
-        refuse_speculation(self.cache)
+        `logits` [slots, width, V] hold the rows until its next run. On the
+        ring, `width` is at most the cache's `max_rows`."""
+        if isinstance(self.cache, SWACache) and width > self.cache.max_rows:
+            raise ValueError(f"a verify of {width} rows a slot on a ring of "
+                             f"{self.cache.ring_len} slots (window {self.cache.window}) "
+                             f"exceeds its {self.cache.max_rows} rows")
         t0 = time.perf_counter()
         slots = max(tokens) + 1
         a = np.zeros((2 * width + 1, slots), dtype=np.int32)

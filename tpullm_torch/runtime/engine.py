@@ -24,9 +24,21 @@ runtime/state.py's `load_state`; `new_cache` makes a new one and drops them.
 An iSWA model (registry `iswa`: gemma2, gemma3) gets the ring cache
 (runtime/kvcache.py SWACache) as the JAX package gives it: a dense cache
 dtype, a window, max_seq above it and no `swa_full`; its prefill then runs
-in chunks of at most 1024 tokens, which the ring is sized for. An arch
-that brings its own cache (registry `make_cache`: deepseek2's MLA latent)
-gets it.
+in chunks of at most 1024 tokens, which the ring is sized for, and so does
+a verification of more tokens than that (the JAX package verifies through
+its chunked prefill_all_logits). Speculative rollback rewinds n_past on
+the ring as on a full cache. An arch that brings its own cache (registry
+`make_cache`: deepseek2's MLA latent) gets it.
+
+The JAX Engine's options: `lora` (models/lora.py adapters wrapped around
+the named linears at load, so the engine's q|k|v and gate|up stay
+unfused), `control_vectors` (runtime vectors summed over their files into
+params["cvec"], which the llama graph adds to each layer's residual
+stream; other graphs ignore it, as the JAX package's do) and `grp_attn_n`
+(self-extend: RoPE positions slot // grp_attn_n, the cache slots and the
+causal mask unchanged). Under self-extend every path computes its
+positions the same way: the eager prefill on the host, the decode, logits
+and verify graphs on the device from their n_past buffers.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ import torch
 
 from ..ops.sampling_ops import SamplingParams, sample_token
 from .graph import DecodeRunner, LogitsRunner, VerifyRunner
-from .kvcache import SWACache, describe, make_cache, refuse_speculation, takes_ring
+from .kvcache import SWACache, describe, make_cache, takes_ring
 from .model import Model
 from .sampling import Sampler, SamplerParams
 
@@ -65,7 +77,9 @@ class PerfCounters:
 class Engine:
     def __init__(self, model_path, *, device=None, mode: str = "auto",
                  dtype=torch.bfloat16, max_seq: int = 2048, kv_dtype=torch.bfloat16,
-                 override_kv: dict | None = None, swa_full: bool = False):
+                 override_kv: dict | None = None, swa_full: bool = False,
+                 lora: list | None = None, control_vectors: list | None = None,
+                 grp_attn_n: int = 1):
         """`device=None` means CUDA (raises when there is none); the tests
         pass device="cpu". `mode` is the weight mode of build_params
         ("auto" and "quant": packed planes on the kernels; "dense": every
@@ -75,12 +89,28 @@ class Engine:
         (≡ --override-kv). `swa_full` keeps a full-size cache for the
         sliding-window layers of an iSWA model (≡ --swa-full).
         `model_path` may be a loaded `runtime/model.py` Model, whose weights
-        the engine then shares (its load time is then the cache's)."""
+        the engine then shares (its load time is then the cache's).
+        `lora` [(path, scale), ...] wraps the adapters' linears (unfused:
+        on a shared Model one no plain engine has fused yet);
+        `control_vectors` [(path, strength), ...] adds their sum to the
+        residual stream of the llama graph; `grp_attn_n` > 1 is
+        self-extend (RoPE positions slot // grp_attn_n)."""
         t0 = time.perf_counter()
+        self.lora_info = [(str(p), float(s)) for p, s in lora or []]  # for /lora-adapters
+        self.cvec_info = [(str(p), float(s)) for p, s in control_vectors or []]
         self.model = Model.of(model_path, device, mode, dtype, override_kv)
         self.device = self.model.device
         self.reader, self.hp, self.arch = self.model.reader, self.model.hp, self.model.arch
-        self.tokenizer, self.params = self.model.tokenizer, self.model.params
+        self.tokenizer = self.model.tokenizer
+        # the JAX rules: unfused under an adapter, and under control vectors
+        # on a shared Model; fused (once, on the Model) otherwise
+        shared = isinstance(model_path, Model)
+        if self.lora_info or (self.cvec_info and shared):
+            self.params = self.model.unfused_view()
+        else:
+            self.params = self.model.fused()
+        self._adapt(dtype)
+        self.grp_attn_n = max(1, int(grp_attn_n))
         self.max_seq = max_seq
         self.batch = 1
         self.kv_dtype, self.swa_full = kv_dtype, swa_full
@@ -92,6 +122,23 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # load time includes the repack
         self.perf = PerfCounters(t_load_s=time.perf_counter() - t0)
+
+    @torch.inference_mode()
+    def _adapt(self, dtype) -> None:
+        """The LoRA adapters wrapped around their linears (in the engine's
+        copy of the tree's structure), and the control vectors summed into
+        params["cvec"] [n_layer, n_embd] f32 of a shallow copy (the JAX
+        Engine's load): the Model's own tree stays as it was."""
+        from ..models.lora import apply_lora, load_lora_gguf
+        from ..tools.cvector import load_control_vector
+
+        for path, scale in self.lora_info:
+            apply_lora(self.params, load_lora_gguf(path), scale, dtype=dtype)
+        if self.cvec_info:
+            total = sum(load_control_vector(path, self.hp.n_layer, strength)
+                        for path, strength in self.cvec_info)
+            self.params = {**self.params, "cvec": torch.from_numpy(
+                np.asarray(total, np.float32)).to(self.device)}
 
     def _make_cache(self, prefill_cap: int | None = None):
         """The cache of `kv_dtype` and `swa_full`: the ring for an iSWA
@@ -109,8 +156,25 @@ class Engine:
 
     def report(self) -> str:
         """The perf counters and the cache: its kind and dtype (an MLA
-        latent's bf16 for a q8 request) and its bytes a position."""
-        return f"{self.perf.report()} | cache {describe(self.cache)}"
+        latent's bf16 for a q8 request) and its bytes a position; the LoRA
+        adapters, control vectors and self-extend group where the engine
+        has them."""
+        out = f"{self.perf.report()} | cache {describe(self.cache)}"
+        for name, items in (("lora", self.lora_info), ("cvec", self.cvec_info)):
+            if items:
+                out += f" | {name} " + ", ".join(f"{p} ×{s:g}" for p, s in items)
+        if self.grp_attn_n > 1:
+            out += f" | self-extend grp_attn_n {self.grp_attn_n}"
+        return out
+
+    def rope_positions(self, slots: torch.Tensor) -> torch.Tensor:
+        """The RoPE positions of cache slots (an int tensor, on the host or
+        the device): slot // grp_attn_n under self-extend, else the slots.
+        The graphs call it on their device n_past, so a replay computes the
+        positions of its own step."""
+        if self.grp_attn_n == 1:
+            return slots
+        return torch.div(slots, self.grp_attn_n, rounding_mode="floor")
 
     def reset(self):
         """n_past 0; on the ring every slot marked empty (in place), so that
@@ -145,8 +209,9 @@ class Engine:
         raise ValueError(f"prompt of {n} tokens exceeds max bucket")
 
     def _positions(self, start: int, count: int) -> torch.Tensor:
+        """[batch, count] RoPE positions of the cache slots from `start`."""
         pos = torch.arange(start, start + count, dtype=torch.int32, device=self.device)
-        return pos[None].expand(self.batch, count)
+        return self.rope_positions(pos)[None].expand(self.batch, count)
 
     def _padded(self, tokens: list[int]) -> torch.Tensor:
         """`tokens` as row 0 of a [batch, bucket] id tensor on the device."""
@@ -216,8 +281,15 @@ class Engine:
 
     def verify_runner(self, rows: int) -> VerifyRunner:
         """The engine's verification forward of `rows` tokens (its CUDA
-        graph is captured at its first run and kept)."""
-        refuse_speculation(self.cache)
+        graph is captured at its first run and kept). On the ring, rows up
+        to the cache's `max_rows` (runtime/kvcache.py SWACache: a wider
+        forward would overwrite slots its own queries see); the engine's
+        verify takes at most prefill_cap rows a forward, which the ring is
+        sized for."""
+        if isinstance(self.cache, SWACache) and rows > self.cache.max_rows:
+            raise ValueError(f"a verify forward of {rows} rows on a ring of "
+                             f"{self.cache.ring_len} slots (window {self.cache.window}) "
+                             f"exceeds its {self.cache.max_rows} rows")
         runner = self._verify_runners.get(rows)
         if runner is None:
             runner = self._verify_runners[rows] = VerifyRunner(self, rows)
@@ -239,14 +311,20 @@ class Engine:
     def verify_logits(self, tokens: list[int]) -> np.ndarray:
         """The logits of every position [T, n_vocab] of `tokens` fed at
         n_past (the numbers of prefill_all_logits, through the verify
-        graph); only the T rows are read back."""
+        graph); only the T rows are read back. More tokens than the prefill
+        cap go through prefill_all_logits in chunks of it, as the JAX
+        package verifies."""
         n = len(tokens)
+        if n > self.prefill_cap:
+            return self.prefill_all_logits(tokens)
         return self._verify(tokens).logits[:n].to("cpu", copy=True).numpy()
 
     def verify_ids(self, tokens: list[int]) -> list[int]:
         """The argmax ids [T] of verify_logits, computed on the device: only
         the ids are read back (greedy acceptance)."""
         n = len(tokens)
+        if n > self.prefill_cap:
+            return torch.argmax(self.prefill_all_logits_device(tokens), dim=-1).tolist()
         return self._verify(tokens).ids[:n].tolist()
 
     def feed(self, tokens: list[int]) -> None:
@@ -393,8 +471,9 @@ class Engine:
         `normalize`. A throwaway prefill at slot 0; n_past is 0 after."""
         pooling = pooling or (self.hp.pooling if self.hp.pooling != "none" else "mean")
         toks = self._padded(tokens)
+        pos = torch.arange(toks.shape[1], dtype=torch.int32, device=self.device)  # plain, as the JAX embed_tokens
         hidden, self.cache = self.arch.forward(
-            self.hp, self.params, toks, self._positions(0, toks.shape[1]), self.cache, 0,
+            self.hp, self.params, toks, pos[None].expand(self.batch, -1), self.cache, 0,
             return_hidden=True)
         self.n_past = 0  # the embedding pass does not advance generation state
         h = hidden[0, :len(tokens)].cpu().numpy()  # [n, E] f32

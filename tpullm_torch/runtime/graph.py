@@ -50,6 +50,13 @@ highest generating slot, so the rows computed follow the load. Its graph
 is captured, and replayed, on the thread that calls it (the server's
 scheduler thread).
 
+The single-stream runners take their RoPE positions from the engine's
+`rope_positions` of the device slot buffer (self-extend divides them by
+`grp_attn_n` there, inside the graph), so a replay never reuses the
+positions of the step it was captured at. On an iSWA ring the cache's
+`advance` computes the ring rows from the same device offset, so a verify
+replayed after a rollback writes the slots of the rewound positions.
+
 All follow one set of rules (`_CapturedStep`): the step reads and writes
 only device buffers, the engine's parameters and its cache, which is
 written in place (runtime/kvcache.py), so a captured graph stays valid
@@ -209,7 +216,7 @@ class DecodeRunner(_CapturedStep):
         """One decode step on the buffers (nothing read back to the host)."""
         e = self.engine
         logits, e.cache = e.arch.forward(e.hp, e.params, self.token.reshape(1, 1),
-                                         self.n_past.reshape(1, 1), e.cache,
+                                         e.rope_positions(self.n_past).reshape(1, 1), e.cache,
                                          self.n_past.reshape(()))
         tok = sample_token(logits[0, 0], self.gen, self.sp)
         self.ids.index_copy_(0, self.step_index, tok.reshape(1))
@@ -249,7 +256,7 @@ class LogitsRunner(_CapturedStep):
         slot `n_past` into `logits` (the cache row written)."""
         e = self.engine
         logits, e.cache = e.arch.forward(e.hp, e.params, self.token.reshape(1, 1),
-                                         self.n_past.reshape(1, 1), e.cache,
+                                         e.rope_positions(self.n_past).reshape(1, 1), e.cache,
                                          self.n_past.reshape(()))
         self.logits.copy_(logits[0, 0])
 
@@ -285,7 +292,8 @@ class VerifyRunner(_CapturedStep):
         e, T = self.engine, self.rows
         off = self.inputs[T:]
         logits, _ = e.arch.forward(e.hp, e.params, self.inputs[:T].long().reshape(1, T),
-                                   (off + self.arange).reshape(1, T), e.cache, off)
+                                   e.rope_positions(off + self.arange).reshape(1, T), e.cache,
+                                   off)
         self.logits.copy_(logits[0])
         self.ids.copy_(torch.argmax(self.logits, dim=-1))
 

@@ -306,7 +306,17 @@ class SWACache:
     per-slot int32 [B] with −1 for an idle slot, whose rows and positions
     stay as they are), so a decode step on the ring is captured as a CUDA
     graph like one on a full cache. Dense dtypes only: a q8 cache keeps
-    the full QuantKVCache, its windows in the flash kernel."""
+    the full QuantKVCache, its windows in the flash kernel.
+
+    Speculative rollback is a rewind of n_past, as on the JAX package's
+    ring: a rejected row stays in `slot_pos` at a position above every
+    later query (`ring_mask`'s pos_s ≤ p hides it) until the write of that
+    position, which lands in the same slot, overwrites it. A forward of T
+    rows at offset o overwrites the slots of positions o + i − R; a query
+    at o + j needs the window before it, so T may be at most
+    `max_rows` = R − window + 1 (≥ the prefill chunk the ring was sized
+    for): verification forwards (n_draft + 1 rows) sit far below it, and
+    the engines refuse a wider one (runtime/engine.py, batch_engine.py)."""
 
     full_k: torch.Tensor  # [n_full, B, Hkv, S, Dk]
     full_v: torch.Tensor  # [n_full, B, Hkv, S, Dv]
@@ -348,6 +358,13 @@ class SWACache:
     @property
     def batch(self) -> int:
         return self.full_k.shape[1]
+
+    @property
+    def max_rows(self) -> int:
+        """The most rows one forward may write without overwriting a slot
+        that one of its own queries still sees (a ring as long as the
+        context never wraps inside it)."""
+        return self.max_len if self.ring_len >= self.max_len else self.ring_len - self.window + 1
 
     def first_slots(self, n: int) -> "SWACache":
         """A view of batch rows [0, n): its writes land in this cache."""
@@ -407,16 +424,6 @@ class SWACache:
         """Mark every ring slot empty (of one batch row, or of all), in place:
         a new sequence attends no stale entry."""
         (self.slot_pos if slot is None else self.slot_pos[slot]).fill_(-1)
-
-
-def refuse_speculation(*caches) -> None:
-    """Speculative verification writes rows past the accepted prefix and
-    rolls them back; on a ring cache that is not ported (the JAX package's
-    ring takes it; the port's verify graphs do not hold the ring yet)."""
-    if any(isinstance(c, SWACache) for c in caches):
-        raise NotImplementedError(
-            "speculative decoding on an iSWA ring cache is not ported yet (ROADMAP.md "
-            "1.4.1); swa_full=True (--swa-full) gives the model a full cache")
 
 
 def make_cache(hp: HParams, batch: int, max_len: int, kv_dtype, device=None):

@@ -11,7 +11,9 @@ card a CUDA graph per bucket, replayed a round), so a round costs one draft
 chain and one target pass however many tokens are accepted. Under a greedy
 sampler only the argmax ids of the verified rows come back to the host.
 Cache rollback is free: rejecting tokens just rewinds n_past, and the next
-forward overwrites the stale rows before any query can attend them.
+forward overwrites the stale rows before any query can attend them, on a
+full cache and on an iSWA ring alike (a ring slot keeps its rejected row's
+position, above every later query, until that position is written again).
 
 A draft Engine catches up through `Engine.feed` (one or a few tokens on
 the logits and verify graphs) and drafts greedily through a decode runner
@@ -33,7 +35,6 @@ import torch
 
 from ..ops.sampling_ops import SamplingParams
 from .engine import Engine
-from .kvcache import refuse_speculation
 from .sampling import Sampler, SamplerParams, argmax_exact
 
 GREEDY = SamplingParams(temp=0.0)
@@ -291,7 +292,6 @@ def generate_speculative(
     applied to the target logits at that position, yields the same id
     (exact-match acceptance, the reference's default). A sampler that picks
     the argmax (`argmax_exact`) reads back the verified rows' ids only."""
-    refuse_speculation(target.cache, getattr(getattr(speculator, "engine", None), "cache", None))
     sampler = sampler or Sampler(SamplerParams(temp=0.0))
     stats = SpecStats()
     vocab = target.tokenizer.vocab

@@ -9,8 +9,8 @@ event queue; it never touches a CUDA tensor (the scheduler's thread runs
 every call into the engine).
 
 Answered with a 501 whose JSON names the ROADMAP.md item: the Anthropic
-messages routes, the responses API, rerank, the Ollama routes,
-`/lora-adapters`, the WebUI and image or audio content.
+messages routes, the responses API, rerank, the Ollama routes, the WebUI
+and image or audio content.
 """
 
 from __future__ import annotations
@@ -296,8 +296,7 @@ class Server:
                                  ("/manifest.webmanifest", "the WebUI", "1.3.5"),
                                  ("/sw.js", "the WebUI", "1.3.5"),
                                  ("/icon.svg", "the WebUI", "1.3.5"),
-                                 ("/api/tags", "the Ollama routes", "1.3.4"),
-                                 ("/lora-adapters", "LoRA adapters", "1.3.6")):
+                                 ("/api/tags", "the Ollama routes", "1.3.4")):
             add("GET", path, self._deferred(what, item))
         for path, what, item in (("/api/show", "the Ollama routes", "1.3.4"),
                                  ("/rerank", "reranking", "1.3.3"),
@@ -314,6 +313,7 @@ class Server:
         add("GET", "/v1/models", self.models)
         add("GET", "/models", self.models)  # llama.cpp alias
         add("GET", "/props", self.props)
+        add("GET", "/lora-adapters", self.lora_adapters)
         add("GET", "/metrics", self.metrics)
         add("GET", "/slots", self.slots)
         add("POST", "/slots/{slot_id}", self.slot_action)
@@ -355,6 +355,14 @@ class Server:
             "arch": eng.hp.arch,
             "n_vocab": eng.hp.n_vocab,
         })
+
+    def lora_adapters(self, request):
+        """GET /lora-adapters: the adapters the engine wrapped at load, with
+        their scales (≡ server handle_lora_adapters_list); [] for an engine
+        without any (a BatchEngine has none)."""
+        loras = getattr(self.sched.engine, "lora_info", []) or []
+        return json_response([{"id": i, "path": p, "scale": s}
+                              for i, (p, s) in enumerate(loras)])
 
     def metrics(self, request):
         s = self.sched

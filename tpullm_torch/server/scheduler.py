@@ -34,7 +34,6 @@ import numpy as np
 
 from ..grammar import GrammarConstraint, LazyGrammarConstraint
 from ..runtime.batch_engine import BatchEngine
-from ..runtime.kvcache import refuse_speculation
 from ..runtime.sampling import Sampler, SamplerParams, argmax_exact
 from ..runtime.speculative import make_speculator
 from ..runtime.state import load_slot_state, save_slot_state
@@ -99,8 +98,6 @@ class Scheduler:
             raise ValueError("spec_type=draft requires a draft_engine")
         if draft_engine is not None and spec_type is None:
             self.spec_type = "draft"
-        if self.spec_type:
-            refuse_speculation(engine.cache, getattr(draft_engine, "cache", None))
         self.n_draft = max(1, n_draft)
         # --cache-reuse: min chunk length for mid-prompt KV reuse via
         # position shifting (0 = common-prefix reuse only)

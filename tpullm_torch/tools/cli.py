@@ -15,8 +15,8 @@ in one forward (on the card a graph replay).
     python -m tpullm_torch.tools.cli -m model.gguf -md draft.gguf -p "..." -n 64 -v
 
 --swa-full gives an iSWA model (gemma2, gemma3) a full-size cache for its
-sliding-window layers in place of the ring. Not ported yet (it exits with
-a message, ROADMAP 1.4): self-extend (--grp-attn-n > 1). The Hugging
+sliding-window layers in place of the ring. --grp-attn-n N > 1 is
+self-extend: RoPE positions slot // N (Engine's grp_attn_n). The Hugging
 Face download flags are left out: the port's machines have no network.
 """
 
@@ -25,9 +25,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-NOT_PORTED = "not ported yet (ROADMAP 1.4)"
-
 
 def _env(name, default=None):
     return os.environ.get(f"TPULLM_{name.upper().replace('-', '_')}", default)
@@ -74,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--preset", default=_env("preset"),
                     help="ini-style preset file of flag defaults")
     ap.add_argument("--grp-attn-n", type=int, default=1,
-                    help=f"self-extend group size ({NOT_PORTED} above 1)")
+                    help="self-extend group size: rope positions compress to "
+                         "slot//N (= passkey --grp-attn-n)")
     ap.add_argument("--swa-full", action="store_true",
                     help="full-size KV cache for SWA layers (disable the iSWA ring; "
                          "≡ llama.cpp --swa-full)")
@@ -120,13 +118,6 @@ def apply_preset(args, parser, argv):
     return parser.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Exit with a message for the options the port does not serve yet."""
-    for flag, used in (("--grp-attn-n > 1", int(args.grp_attn_n) > 1),):
-        if used:
-            raise SystemExit(f"tpullm-torch: {flag} is {NOT_PORTED}")
-
-
 def make_engine(args):
     from ..runtime.engine import Engine
 
@@ -135,7 +126,7 @@ def make_engine(args):
     kw = {"kv_dtype": args.cache_type_kv} if args.cache_type_kv else {}
     return Engine(args.model, device=args.device, mode=args.mode, max_seq=int(args.ctx_size),
                   override_kv=parse_kv_overrides(args.override_kv or []),
-                  swa_full=args.swa_full, **kw)
+                  swa_full=args.swa_full, grp_attn_n=int(args.grp_attn_n), **kw)
 
 
 def make_sampler(args):
@@ -279,7 +270,6 @@ def main(argv=None):
         _ml.set_file(args.log_file)
     if args.preset:
         args = apply_preset(args, parser, argv)
-    check_ported(args)
     if args.chat:
         return run_chat(args)
     return run_completion(args)
