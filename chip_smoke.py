@@ -99,6 +99,11 @@ Phases, in order; any failure raises and exits nonzero:
     wo, gate|up, the Q6_K and Q4_K down), M = 1 and 8
     (its ring speculation's verify forward), each against its plain
     version and timed as in 3;
+ 3g. option kernels: flash at Falcon-7B's decode token (71 heads on one KV
+    head of 64, R = 71: the decode regime in five row groups) on every
+    cache format, B = 2 at kv 38 / 3001 and B = 1 at kv 1024, beside the
+    prefill kernel at the same call (the route before the row groups); qmm
+    at Apertus-8B's and AFM-4.5B's FFN shapes, M = 1 and 512;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -126,10 +131,10 @@ Phases, in order; any failure raises and exits nonzero:
     Sampler's ms a token; the idle share of a profiled chunk), the prompt
     cache run twice (reused, the same stdout at temp 0), a two-turn chat
     through stdin, tokenize against the engine's tokenizer, perplexity
-    over SURVEY.md (4 windows of 512; the launches and time of each
+    over SURVEY.md (2 windows of 512; the launches and time of each
     window) with the kernels and with dense bf16 weights, the KLD of the
     kernels against a base the dense run records, and the bench sweep
-    -p 512 -n 128 -d 0,4096 -ctk bf16,f16,f32,q8_0 -r 3;
+    -p 512 -n 128 -d 4096 -ctk bf16,f16,f32,q8_0 -r 1;
  5c. server: continuous batching on the same 8B GGUF: tpullm-torch-server's
     app (a BatchEngine of 4 slots, context 4096, bf16 cache, its decode
     graph of every width captured on the scheduler's thread) on 127.0.0.1 in this
@@ -160,7 +165,7 @@ Phases, in order; any failure raises and exits nonzero:
     verify step's read around it, a verify step's ms against a decode
     step's; tpullm-torch-lookup create, stats and run;
  5e. engine options: on the same 8B GGUF, tpullm-torch-cvector-generator
-    as a subprocess (4 prompt pairs, --method pca, dense bf16 weights);
+    in this process (its main(); 4 prompt pairs, --method pca, dense bf16 weights);
     then one unfused Model shared by an Engine with a synthetic rank-16
     LoRA adapter on every projection (7 qmm a layer), one with control
     vectors (a synthetic file at strength 0.5, and the generated file),
@@ -187,7 +192,7 @@ Phases, in order; any failure raises and exits nonzero:
  8. mixtral: a Mixtral-8x7B Q4_K_M GGUF with 4 layers (the 8-expert
     recipe; its Q4_K, Q5_K, Q6_K and Q8_0 tensors) synthesized from a seed
     and served the same way with a bf16 KV cache, with the graph phase;
- 8b. gemma: Gemma-3-4B Q4_K_M (34 layers, head dim 256, a window of 1024 on
+ 8b. gemma: Gemma-3-4B Q4_K_M (12 of its 34 layers, GEMMA_LAYERS; head dim 256, a window of 1024 on
     five layers of six, vocab 262144, tied head) synthesized from a seed:
     the tied Q6_K embedding's load peak in row chunks;
     Engine with the bf16 iSWA ring (2048 slots), with swa_full and with a
@@ -239,8 +244,8 @@ Phases, in order; any failure raises and exits nonzero:
     full width with 4 layers (28 heads over 4, K = 3584 and 18944): served,
     and teacher-forced against dense bf16 weights;
  8e. phi: tiny-phi3, tiny-phi2 and tiny-qwen on the card against the CPU;
-    Phi-3-mini-4k Q4_K_M (32 layers, n_embd 3072, 32 heads on 32 of 96, a
-    window of 2047 on every layer, vocab 32064) at full width and depth,
+    Phi-3-mini-4k Q4_K_M (PHI3_LAYERS = 16 of its 32 layers, n_embd 3072, 32
+    heads on 32 of 96, a window of 2047 on every layer, vocab 32064) at full width,
     context 4096: load s and peak GiB, served through Engine on a bf16 and
     a q8 cache (prompts of 16, 2560 and 512 tokens, 64 greedy tokens each
     on the decode graph; flash at d96 32 a forward, device ms by family of
@@ -267,6 +272,19 @@ Phases, in order; any failure raises and exits nonzero:
     form (TPULLM_MLA=0: flash at (96, 64) and (192, 128)) on bf16, q8, f16
     and f32 caches, briefly, its bf16 logits held against the absorbed
     form's on the same ids;
+ 8g. fit (after 5e, on the 8B's file): tpullm-torch-fit-params at -c
+    262144 on the card's free memory, then an Engine at its fitted context:
+    predicted weights + cache against max_memory_allocated, within 10%;
+ 8h. llama options: Qwen3-VL-8B (qwen3vl, IMROPE) at full width and depth:
+    text on the decode graph, a decode token profiled, prefill_embeddings of
+    a 256-row image with its grid positions and three deepstack residuals
+    against dense bf16 weights; with 4 layers Qwen2-VL-7B (an image too),
+    Qwen3-VL-30B-A3B, Apertus-8B (xIELU), AFM-4.5B (ReLU²) and llama-embed
+    (Engine.embed unchanged by an earlier prefill, /v1/embeddings);
+ 8i. falcon: Falcon-7B with 4 layers on bf16, f16, f32 and q8 caches (its
+    decode token's flash in the decode regime's row groups, its K = 4544
+    linears through the counted dequantize route), Pythia-6.9B with 4
+    layers;
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dims (112, 112), which no kernel instantiates,
@@ -349,8 +367,12 @@ FLASH_MLA288_KEY = "flash_bf16_d288v256"
 # flash at key width ≠ value width (the decompressed MLA form), a line each
 DKDV_DIMS = ((192, 128), (96, 64))
 FLASH_DKDV_KEYS = tuple(f"flash_{fmt}_d{d}v{dv}" for d, dv in DKDV_DIMS for fmt in FLASH_FORMATS)
+# flash at head dim 64, the decode regime in row groups (Falcon-7B: 71 heads
+# on one KV head), a line each
+FLASH_ROWS_KEYS = tuple(f"flash_{fmt}_d64" for fmt in FLASH_FORMATS)
 KERNELS = (*QMM_KEYS.values(), "qmm_tc", "qmm_grouped", "qmm_stack", "qmm_gather", *FLASH_KEYS,
-           *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY, FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)
+           *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY, FLASH_MLA288_KEY, *FLASH_DKDV_KEYS,
+           *FLASH_ROWS_KEYS)
 # the main path's representative shape per kernel, for the kernels line
 REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   "qmm_q5k": "Q5_K wo M=1", "qmm_q8_0": "Q8_0 wkv M=1",
@@ -365,7 +387,9 @@ REPRESENTATIVE = {"qmm_q4k": "Q4_K gate_up M=1", "qmm_q6k": "Q6_K down M=1",
                   FLASH_MLA_KEY: "T=1 B=2 kv=38/3001 S=4096",
                   FLASH_MLA288_KEY: "d288v256 H=40 T=1 B=2 kv=38/3001 S=4096",
                   **{f"flash_{fmt}_d{d}v{dv}": f"{fmt} T=1 B=2 S=4096 D={d}/{dv}"
-                     for d, dv in DKDV_DIMS for fmt in FLASH_FORMATS}}
+                     for d, dv in DKDV_DIMS for fmt in FLASH_FORMATS},
+                  **{f"flash_{fmt}_d64": f"{fmt} H=71 T=1 B=2 kv=38/3001 S=4096 D=64"
+                     for fmt in FLASH_FORMATS}}
 REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_tc": "tpullm/ops/pallas/qmm.py:121",
             "qmm_grouped": "tpullm/ops/pallas/qmm.py:153",
@@ -373,7 +397,7 @@ REPLACES = {**{k: "tpullm/ops/pallas/qmm.py:121" for k in QMM_KEYS.values()},
             "qmm_gather": "tpullm/ops/pallas/qmm.py:381",
             **{key: "tpullm/ops/pallas/flash.py:69"
                for key in (*FLASH_KEYS, *FLASH256_KEYS, *FLASH_NARROW_KEYS, FLASH_MLA_KEY,
-                           FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)}}
+                           FLASH_MLA288_KEY, *FLASH_DKDV_KEYS, *FLASH_ROWS_KEYS)}}
 SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_tc": "tpullm_torch/csrc/qmm.cu",
            "qmm_grouped": "tpullm_torch/csrc/qmm.cu",
@@ -381,7 +405,8 @@ SOURCES = {**{k: "tpullm_torch/csrc/qmm.cu" for k in QMM_KEYS.values()},
            "qmm_gather": "tpullm_torch/csrc/qmm_moe.cu",
            **{key: "tpullm_torch/csrc/flash.cu" for key in (*FLASH_KEYS, *FLASH256_KEYS,
                                                             *FLASH_NARROW_KEYS, FLASH_MLA_KEY,
-                                                            FLASH_MLA288_KEY, *FLASH_DKDV_KEYS)}}
+                                                            FLASH_MLA288_KEY, *FLASH_DKDV_KEYS,
+                                                            *FLASH_ROWS_KEYS)}}
 
 
 def log(*a):
@@ -2001,8 +2026,8 @@ TOOLS_PROMPT = "The history of the quick brown fox, told in twelve short chapter
 # the cli completion's Sampler chain, as its flags build it
 TOOLS_SAMPLING = ["--temp", "0.8", "--seed", "1", "--repeat-penalty", "1.1"]
 TOOLS_TOKENS = 64  # tokens of the completion, and of the decode_step timings
-PPL_WINDOWS = 4
-BENCH_ARGS = ["-p", "512", "-n", "128", "-d", "0,4096", "-ctk", "bf16,f16,f32,q8_0", "-r", "3",
+PPL_WINDOWS = 2  # the smoke's time: the KLD base file, written compressed, grows with them
+BENCH_ARGS = ["-p", "512", "-n", "128", "-d", "4096", "-ctk", "bf16,f16,f32,q8_0", "-r", "1",
               "-o", "jsonl", "-c", "4864"]
 
 
@@ -2268,8 +2293,8 @@ def phase_tools(path: Path, tmp: Path, launches: dict) -> dict:
     # 6. the bench sweep
     rc, text, _, secs = run_tool(bench.main, m + BENCH_ARGS)
     rows = [json.loads(line) for line in text.splitlines() if line.strip()]
-    expect(rc == 0 and len(rows) == 8 and all(r["pp_ts"] > 0 and r["tg_ts"] > 0 for r in rows),
-           f"bench: 8 rows with pp and tg rates, got {rows}")
+    expect(rc == 0 and len(rows) == 4 and all(r["pp_ts"] > 0 and r["tg_ts"] > 0 for r in rows),
+           f"bench: 4 rows with pp and tg rates, got {rows}")
     out["bench"] = dict(seconds=secs, rows=rows)
     for r in rows:
         log(f"[tools] bench kv={r['type_kv']} d={r['n_depth']}: pp{r['n_prompt']} "
@@ -3465,9 +3490,9 @@ class _EngineScheduler:
 
 def phase_engine_options(path: Path, tmp: Path, launches: dict) -> dict:
     """The Engine's options on the 8B Q4_K_M (the slice's file):
-    1. tpullm-torch-cvector-generator as a subprocess, CVEC_PAIRS (4
-       prompt pairs), --method pca: its file and seconds (a dense bf16 load
-       of the 8B in that process);
+    1. tpullm-torch-cvector-generator's main() in this process (`run_tool`),
+       CVEC_PAIRS (4 prompt pairs), --method pca:
+       its file and seconds (a dense bf16 load of the 8B);
     2. one Model loaded unfused (load s, peak GiB) and shared by: an Engine
        with a synthetic LoRA adapter (write_lora: rank 16 on all 7
        projections of the 32 layers), an Engine with a synthetic control
@@ -3484,35 +3509,28 @@ def phase_engine_options(path: Path, tmp: Path, launches: dict) -> dict:
     3. GET /lora-adapters on the HTTP app over the adapter's Engine;
     4. the cli with --grp-attn-n 4: 16 greedy tokens, the self-extend
        Engine's."""
-    import os
-
     import torch
 
     from tpullm_torch.runtime.engine import Engine
     from tpullm_torch.runtime.model import Model
     from tpullm_torch.server.api import Server, serve
-    from tpullm_torch.tools import cli
+    from tpullm_torch.tools import cli, cvector
     from tpullm_torch.tools.cvector import save_control_vector
 
     out: dict = {}
     gc.collect()
     torch.cuda.empty_cache()
-    # 1. the generator, in its own process
+    # 1. the generator, its main() in this process (run_tool)
     pos, neg, gen_cv = tmp / "cv_pos.txt", tmp / "cv_neg.txt", tmp / "cv_generated.gguf"
     pos.write_text("\n".join(p for p, _ in CVEC_PAIRS) + "\n")
     neg.write_text("\n".join(n for _, n in CVEC_PAIRS) + "\n")
-    cmd = [sys.executable, "-m", "tpullm_torch.tools.cvector", "-m", str(path),
-           "--positive-file", str(pos), "--negative-file", str(neg), "-o", str(gen_cv),
-           "--method", "pca"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
-                         capture_output=True, text=True, timeout=900)
-    out["cvector_generator"] = dict(rc=res.returncode, seconds=time.perf_counter() - t0,
-                                    stdout=res.stdout.strip()[-300:])
-    log(f"[options] tpullm-torch-cvector-generator (a subprocess, {len(CVEC_PAIRS)} pairs, pca): "
-        f"rc {res.returncode} in {out['cvector_generator']['seconds']:.1f}s: "
-        f"{res.stdout.strip()[-200:]} {res.stderr.strip()[-300:] if res.returncode else ''}")
-    expect(res.returncode == 0 and gen_cv.exists() and "wrote" in res.stdout,
+    rc, text, err, secs = run_tool(cvector.main, [
+        "-m", str(path), "--positive-file", str(pos), "--negative-file", str(neg), "-o",
+        str(gen_cv), "--method", "pca"])
+    out["cvector_generator"] = dict(rc=rc, seconds=secs, stdout=text.strip()[-300:])
+    log(f"[options] tpullm-torch-cvector-generator ({len(CVEC_PAIRS)} pairs, pca): rc {rc} in "
+        f"{secs:.1f}s: {text.strip()[-200:]} {err.strip()[-300:] if rc else ''}")
+    expect(rc == 0 and gen_cv.exists() and "wrote" in text,
            "tpullm-torch-cvector-generator wrote its file")
     # the adapter and the synthetic vector
     ad = tmp / "lora-r16.gguf"
@@ -3630,6 +3648,9 @@ def phase_engine_options(path: Path, tmp: Path, launches: dict) -> dict:
 
 # Gemma-3-4B (google/gemma-3-4b-it text_config) at Q4_K_M on the iSWA ring
 GEMMA_CTX = 4096  # max_seq: the ring is R = round_up(1023 + 1024, 128) = 2048 slots
+# Gemma-3-4B's depth on the card (of 34: the smoke's time): two of its six-layer
+# patterns, the global layers 5 and 11
+GEMMA_LAYERS = 12
 GEMMA_LENS = (512, 2560)  # prompts; 2560 wraps the ring, its prefill three chunks of ≤ 1024
 GEMMA_GEN = 64  # greedy tokens a prompt
 GEMMA_RING = 2048
@@ -4032,8 +4053,8 @@ def gemma_spec_scheduler(be, word_ids) -> dict:
 
 
 def phase_gemma(tmp: Path, launches: dict) -> dict:
-    """Gemma-3-4B Q4_K_M at full width and depth (34 layers, head dim 256,
-    5 of 6 layers on a 1024-token window, vocab 262144, tied head),
+    """Gemma-3-4B Q4_K_M at full width with GEMMA_LAYERS = 12 of its 34 layers
+    (head dim 256, 5 of 6 layers on a 1024-token window, vocab 262144, tied head),
     synthesized from seed 0:
     1. the tied Q6_K embedding's load peak in row chunks;
     2. Engine with the bf16 ring (R = 2048), with swa_full=True and with a
@@ -4066,7 +4087,7 @@ def phase_gemma(tmp: Path, launches: dict) -> dict:
     from tpullm_torch.runtime.engine import Engine
     from tpullm_torch.runtime.kvcache import SWACache
 
-    path = synthesize(tmp, "gemma", "gemma-3-4b", "Q4_K_M")
+    path = synthesize(tmp, "gemma", "gemma-3-4b", "Q4_K_M", n_layer=GEMMA_LAYERS)
     emb = embedding_peak(path)
     result = dict(embedding=emb, runs={})
     tf = {}
@@ -4400,7 +4421,8 @@ def moe_launch_want(eng, rows: int) -> dict:
     1408 down) through no kernel; flash once a layer in the regime
     T·H/kv_heads picks (the engine's cache: the MLA latent one KV head and
     its own decode rows, else hp.n_head_kv); the head through qmm unless it
-    is tied (a plain product)."""
+    is tied (a plain product) or no kernel takes it (Falcon-7B's K = 4544:
+    the dequantize route)."""
     from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
     from tpullm_torch.ops import moe
     from tpullm_torch.ops.kernels import flash, qmm
@@ -4421,9 +4443,12 @@ def moe_launch_want(eng, rows: int) -> dict:
     decode = flash.regime(rows, eng.hp.n_head, kv_heads, latent) == "decode"
     L = len(eng.params["layers"])
     head = per_forward_launches(eng.params)["head"]
-    return {"qmm": (0 if tc else taken) + head, "qmm_tc": taken if tc else 0,
+    out = eng.params["output"]
+    head_taken = head and qmm.takes(out.n_in, out.n_out)
+    return {"qmm": (0 if tc else taken) + head_taken, "qmm_tc": taken if tc else 0,
             "qmm_stack": 0 if gather else stacks, "qmm_gather": stacks if gather else 0,
-            "qmm_grouped": 0, "dequant_routes": len(quant) - taken, "flash": L,
+            "qmm_grouped": 0, "dequant_routes": len(quant) - taken + head - head_taken,
+            "flash": L,
             "flash_decode": L if decode else 0, "attn_dense_routes": 0, "attn_ring_routes": 0}
 
 
@@ -5096,6 +5121,7 @@ PHI2_LENS = (16, 1536, 512)
 PHI_SLOT_LENS = (40, 200, 500)  # the BatchEngine round's prompts (its slot 3 idle)
 PHI_TEACHER = 8  # teacher-forced batched steps against Engine
 PHI2_LAYERS = 8  # Phi-2's depth on the card (of 32: the smoke's time limit)
+PHI3_LAYERS = 16  # Phi-3-mini's depth on the card (of 32: the smoke's time)
 # Phi-2's depth against dense weights: the synthetic Phi-2 amplifies any
 # rounding with depth, in the JAX package as in the port
 # (tests/torch_phi2_depth.py; on the card at 32 layers NMSE 8.6e-2), so
@@ -5111,7 +5137,7 @@ def phase_phi(tmp: Path, launches: dict) -> dict:
     """The Phi families and Qwen (v1), synthesized from seed 0 at Q4_K_M:
     1. tiny-phi3 (head dim 96, window 16), tiny-phi2 (head dim 80) and
        tiny-qwen on the card against the CPU (tiny_card_vs_cpu);
-    2. Phi-3-mini-4k at full width and depth (32 layers, n_embd 3072, 32
+    2. Phi-3-mini-4k at full width, PHI3_LAYERS of its 32 layers (n_embd 3072, 32
        heads on 32 of 96, a window of 2047 on every layer of a full cache,
        vocab 32064), context 4096: load s and peak GiB; `serve` on a bf16
        and a q8 cache (prompts PHI3_LENS: TTFT, 64 greedy tokens on the
@@ -5232,9 +5258,9 @@ def phase_phi(tmp: Path, launches: dict) -> dict:
         expect_no_routes(label)
         return out, path, eng
 
-    # Phi-3-mini at full width and depth, its BatchEngine round
-    result["phi-3-mini-4k"], path, eng = served("phi-3-mini-4k", "phi-3-mini-4k", PHI3_CTX,
-                                                PHI3_LENS)
+    # Phi-3-mini at full width, its BatchEngine round
+    result["phi-3-mini-4k"], path, eng = served(f"phi-3-mini-4k-{PHI3_LAYERS}l", "phi-3-mini-4k",
+                                                PHI3_CTX, PHI3_LENS, n_layer=PHI3_LAYERS)
     prompts = [_word_ids(eng.tokenizer, n) for n in PHI_SLOT_LENS]
     eng.new_cache(kv_dtype=torch.bfloat16)
     refs = engine_refs(eng, prompts, PHI_TEACHER)
@@ -5285,6 +5311,466 @@ def phase_phi(tmp: Path, launches: dict) -> dict:
     expect_no_routes(label)
     path.unlink()
     step("qwen-7b served and against dense weights")
+    return result
+
+
+# Falcon-7B's attention at a decode token: 71 query heads on one KV head of
+# 64 (R = 71: five row groups of flash's decode regime); B = 2 at kv 38 /
+# 3001 (the decode cases of every earlier head dim) and B = 1 at kv 1024
+FALCON_HEADS = dict(H=71, Hkv=1, D=64, S=4096)
+FALCON_FLASH_CASES = ((2, (37, 3000)), (1, (1023,)))
+# the FFN linears of Apertus-8B (gateless xIELU: up 4096 → 21504, down
+# 21504 → 4096) and AFM-4.5B (gateless ReLU²: 2560 → 18432, 18432 → 2560) at
+# their Q4_K_M types
+OPTION_QMM_SHAPES = (("Q4_K", "apertus-8b up", 4096, 21504),
+                     ("Q6_K", "apertus-8b down", 21504, 4096),
+                     ("Q4_K", "afm-4.5b up", 2560, 18432),
+                     ("Q6_K", "afm-4.5b down", 18432, 2560))
+OPTION_QMM_ROWS = (1, 512)
+
+
+def _dense_prefill_ms(q, k, v, off, scale) -> float:
+    """flash's prefill kernel timed at a call the wrapper sends to the
+    decode regime (the C entry's max_splits 0 takes it at any R: the route
+    a decode token of more than 16 rows took before the row groups); the
+    same inputs, a launch the counts do not see."""
+    import torch
+
+    from tpullm_torch.ops.kernels import _build, flash
+
+    B, T, H, D = q.shape
+    out = torch.empty((B, T, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    fmt = flash.DENSE_FORMATS[k.dtype]
+    fn = _build.bind(flash._library(D, v.shape[-1]), f"tpullm_flash_{fmt}", flash._DENSE_ARGS)
+
+    def call():
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), None, None,
+                        out.data_ptr(), None, None, B, T, H, k.shape[1], k.shape[2], D,
+                        v.shape[-1], float(scale), 0.0, 0, 0, stream),
+                     "flash prefill kernel at a decode shape")
+        return out
+    ref = flash.flash_reference(q, k, v, off, scale)
+    err = nmse(call().float(), ref.float())
+    expect(err <= FLASH_NMSE_BOUND, f"flash's prefill kernel at a decode shape: NMSE {err:.3e}")
+    return time_ms(call, 20)
+
+
+def phase_option_kernels(dev, results: dict, options: dict):
+    """The kernels at this slice's new shapes, each against its plain
+    version and timed as in phase 3: flash at Falcon-7B's decode token
+    (FALCON_HEADS: 71 heads on one KV head of 64, R = 71) on every cache
+    format, B = 2 at kv 38 / 3001 and B = 1 at kv 1024 (the decode regime
+    in five row groups, one launch a call, against flash_reference and the
+    split plan's plain version), beside flash's prefill kernel at the same
+    call (bf16, f16, f32: the route of such a token before the row groups;
+    q8 in the same way through dequantized bf16 K/V); qmm at
+    OPTION_QMM_SHAPES, M in OPTION_QMM_ROWS (`qmm_at_shapes`). Rows go to
+    `results` and `options` by kernel."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash
+    from tpullm_torch.runtime.kvcache import QuantKVCache
+
+    gen = torch.Generator(dev).manual_seed(29)
+    for fmt in FLASH_FORMATS:
+        key = f"flash_{fmt}_d64"
+        for B, offsets in FALCON_FLASH_CASES:
+            kv = "/".join(str(o + 1) for o in offsets)
+            row = _flash_case(dev, gen, fmt=fmt, B=B, T=1, offsets=offsets, timed=True,
+                              **FALCON_HEADS)
+            expect(row["regime"] == "decode", f"{key}: R = 71 takes the decode regime")
+            bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+            expect(row["finite"] and row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                   f"{key} B={B}: NMSE {row['nmse']:.3e} (own order "
+                   f"{row['nmse_own_order']:.3e}) <= {bound}")
+            # the prefill kernel at the same call (q8: on the codes dequantized to bf16)
+            H, D, S = FALCON_HEADS["H"], FALCON_HEADS["D"], FALCON_HEADS["S"]
+            q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
+            dt = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32,
+                  "q8": torch.bfloat16}[fmt]
+            k = torch.randn(B, 1, S, D, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, 1, S, D, generator=gen, device=dev).to(dt)
+            if fmt == "q8":
+                (k_q, k_s), (v_q, v_s) = QuantKVCache._quantize(k), QuantKVCache._quantize(v)
+                k = (k_q.float() * k_s[..., None]).to(torch.bfloat16)
+                v = (v_q.float() * v_s[..., None]).to(torch.bfloat16)
+            off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+            row["prefill_kernel_ms"] = _dense_prefill_ms(q, k, v, off, D ** -0.5)
+            row.update(case=f"{fmt} H=71 T=1 B={B} kv={kv} S={S} D=64", rows=71)
+            log(f"[option kernels] flash {row['case']} ({row['regime']}, 5 row groups): nmse "
+                f"{row['nmse']:.2e} (own order {row['nmse_own_order']:.2e}) max|d| "
+                f"{row['max_abs_err']:.3g}; {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) "
+                f"vs bound {row['bound_ms']:.4f} ({row['bound_by']}), the prefill kernel at "
+                f"this call {row['prefill_kernel_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                f"SDPA {row['library_ms']:.4f} ms")
+            results.setdefault(key, []).append(row)
+            del q, k, v
+    qmm_at_shapes("option kernels", dev, gen, OPTION_QMM_SHAPES, OPTION_QMM_ROWS, results,
+                  options)
+    torch.cuda.empty_cache()
+
+
+def phase_fit(path: Path, tmp: Path) -> dict:
+    """tpullm-torch-fit-params on the 8B Q4_K_M (the slice's file) at -c
+    FIT_CTX on the card's free memory: its fitted context, then an Engine
+    made at it, a 512-token prompt and 16 greedy tokens on the decode
+    graph: the predicted weights + cache bytes against
+    torch.cuda.max_memory_allocated over the Engine's load and run, within
+    FIT_TOLERANCE."""
+    import torch
+
+    from tpullm_torch.runtime import fit
+    from tpullm_torch.runtime.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    rc, text, err, secs = run_tool(fit.main, ["-m", str(path), "-c", str(FIT_CTX)])
+    log(f"[fit] tpullm-torch-fit-params -c {FIT_CTX} (free {free / 2**30:.2f} GiB): rc {rc} in "
+        f"{secs:.1f}s:\n{text.strip()}")
+    expect(rc == 0 and "fitted:" in text, f"fit: the tool fitted the 8B (rc {rc}) {err[-300:]}")
+    res = fit.fit_params(path, want_seq=FIT_CTX)
+    expect(f"-c {res.max_seq} -np {res.n_slots}" in text, "fit: the tool's line is fit_params'")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(path, max_seq=res.max_seq)
+    out_ids = eng.generate_tokens_device(_word_ids(eng.tokenizer, 512), 16, temp=0.0,
+                                         stop_on_eog=False, chunk=16)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ratio = res.predicted_bytes / peak
+    out = dict(ctx=res.max_seq, slots=res.n_slots, weight_bytes=res.weight_bytes,
+               kv_bytes_per_token=res.kv_bytes_per_token, predicted_bytes=res.predicted_bytes,
+               peak_bytes=peak, predicted_over_peak=ratio, free_bytes=free, tool_s=secs,
+               load_s=eng.perf.t_load_s)
+    log(f"[fit] an Engine at the fitted -c {res.max_seq}: loaded in {eng.perf.t_load_s:.1f}s, "
+        f"{len(out_ids)} greedy ids; predicted {res.predicted_bytes / 2**30:.3f} GiB (weights "
+        f"{res.weight_bytes / 2**30:.3f} + cache {res.kv_bytes_per_token} B × {res.max_seq}), "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB: predicted / peak {ratio:.4f}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect(abs(ratio - 1.0) <= FIT_TOLERANCE,
+           f"fit: predicted {res.predicted_bytes} B within {FIT_TOLERANCE:.0%} of the peak {peak} B")
+    return out
+
+
+FIT_CTX = 262144  # the context asked of tpullm-torch-fit-params on the 8B
+FIT_TOLERANCE = 0.10  # its weights + cache against the Engine's peak
+LLAMA_OPT_CTX = 4096  # the llama options phase's context
+OPT_MODEL_LAYERS = 4  # the depth of its models but Qwen3-VL-8B (full)
+FALCON_LAYERS = 4  # Falcon-7B's and Pythia-6.9B's depth on the card (of 32)
+FALCON_CTX = 2048  # their context (falcon-7b's and pythia's 2048 positions)
+
+
+def _model_brief(label: str, eng, launches: dict, n_prompt: int = 64, n_gen: int = 16,
+                 kv: str | None = None) -> dict:
+    """A model's main path on the engine's cache: an n_prompt-token prompt
+    and n_gen greedy tokens on the decode graph (a first run, untimed and
+    uncounted, captures the graph); the launches of a decode replay against
+    `moe_launch_want(eng, 1)` and of the timed run by kernel; that run's
+    decode tok/s; finite logits of a decode_step."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.kvcache import describe
+
+    if kv is not None:
+        eng.new_cache(kv_dtype=kv)
+    prompt = _word_ids(eng.tokenizer, n_prompt)
+    eng.generate_tokens_device(prompt, n_gen, temp=0.0, stop_on_eog=False, chunk=n_gen)
+    eng.reset()
+    n_decode, t_decode = eng.perf.n_decode, eng.perf.t_decode_s
+    reset_launches()  # just before the main path
+    t0 = time.perf_counter()
+    ids = eng.generate_tokens_device(prompt, n_gen, temp=0.0, stop_on_eog=False, chunk=n_gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()  # just after the main path
+    steps = eng.perf.n_decode - n_decode
+    tok_s = steps / max(eng.perf.t_decode_s - t_decode, 1e-9)
+    one = eng.decode_runner(SamplingParams(), n_gen).launches_per_replay()
+    want = moe_launch_want(eng, 1)
+    logits = eng.decode_step(ids[-1])
+    log(f"[{label}] cache {describe(eng.cache)}: {n_prompt}-token prompt, {len(ids)} greedy ids "
+        f"{ids[:6]}… in {wall:.2f}s, decode {tok_s:.2f} tok/s over {steps} graph steps; "
+        f"launches per decode replay {one}; of the run "
+        f"{ {k: v for k, v in got.items() if v and not k.startswith('flash_') } } flash "
+        f"{ {k: v for k, v in got.items() if v and k.startswith('flash_') and k.count('.') == 2} }")
+    expect(len(ids) == n_gen and np.isfinite(logits).all(), f"{label}: {n_gen} ids, finite logits")
+    expect(one == want, f"{label}: launches per decode replay {one} = {want}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    return dict(ids=ids, decode_tok_s=tok_s, steps=steps, wall_s=wall, launches=got,
+                launches_per_decode=one)
+
+
+def _embeddings_input(eng, n: int, gen) -> tuple:
+    """An image's input: n rows of the model's own embedding table (random
+    ids: the magnitudes of real inputs), its [3, n] grid positions (t fixed
+    at the text's end, h and w over a 16-column grid) and three deepstack
+    residuals of the same rows' scale."""
+    import torch
+
+    rows = torch.randint(0, eng.hp.n_vocab, (4, n), generator=gen)
+    table = eng.params["tok_embd"]
+    emb = table[rows[0].to(table.device)].float().cpu().numpy()
+    ds = table[rows[1:].to(table.device)].float().cpu().numpy()
+    start = eng.n_past
+    pos = np.stack([np.full(n, start), start + np.arange(n) // 16, start + np.arange(n) % 16])
+    return emb, pos.astype(np.int32), ds
+
+
+def vl_embeddings(label: str, eng, dense, deepstack: bool, n: int = 256) -> dict:
+    """prefill_embeddings of an n-row image after a 32-token text prompt, on
+    the packed Engine and on `dense` (the same file at dense bf16 weights,
+    torch.matmul: the plain route), then two decode steps on each: logits
+    NMSE within SERVE_NMSE_BOUND, finite, n_past advanced by n."""
+    import torch
+
+    rows = {}
+    for name, e in (("packed", eng), ("dense", dense)):
+        e.reset()
+        e.prefill(_word_ids(e.tokenizer, 32))
+        emb, pos, ds = _embeddings_input(e, n, torch.Generator().manual_seed(31))
+        t0 = time.perf_counter()
+        first = e.prefill_embeddings(emb, pos, ds if deepstack else None)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        expect(e.n_past == 32 + n, f"{label} {name}: n_past {e.n_past} after the image")
+        rows[name] = [first] + [e.decode_step(t) for t in (5, 6)]
+        rows[name + "_s"] = secs
+    errs = [_nmse_np(a, b) for a, b in zip(rows["packed"], rows["dense"])]
+    log(f"[{label}] prefill_embeddings of a {n}-row image ([3, {n}] grid positions"
+        f"{', 3 deepstack residuals' if deepstack else ''}) after 32 text tokens in "
+        f"{rows['packed_s'] * 1e3:.1f} ms (dense weights {rows['dense_s'] * 1e3:.1f} ms), then 2 "
+        f"decode steps: NMSE against dense bf16 weights {['%.2e' % x for x in errs]}")
+    expect(all(np.isfinite(r).all() for r in rows["packed"] + rows["dense"]),
+           f"{label}: finite logits after the image")
+    expect(max(errs) <= SERVE_NMSE_BOUND, f"{label}: prefill_embeddings against dense weights "
+           f"NMSE {max(errs):.3e} <= {SERVE_NMSE_BOUND}")
+    return dict(rows=n, deepstack=deepstack, nmse=errs, ms=rows["packed_s"] * 1e3,
+                dense_ms=rows["dense_s"] * 1e3)
+
+
+def phase_llama_options(tmp: Path, launches: dict) -> dict:
+    """The llama graph's options at published widths, synthesized from seed
+    0 at Q4_K_M:
+    1. Qwen3-VL-8B (arch qwen3vl, IMROPE [24, 20, 20]) at full width and
+       depth (36 layers), context LLAMA_OPT_CTX: load s and peak GiB; text
+       on the decode graph (`_model_brief`: 512-token prompt, 64 greedy
+       tokens, a decode replay's launches), a decode token profiled by
+       family; prefill_embeddings of a
+       256-row image with its grid positions and three deepstack
+       residuals, then two decode steps, against the same calls on the file
+       at dense bf16 weights (`vl_embeddings`);
+    2. Qwen2-VL-7B (qwen2vl, contiguous [16, 24, 24]) with 4 layers: text,
+       and an image with positions against dense weights;
+    3. Qwen3-VL-30B-A3B (qwen3vlmoe) with 4 layers: text (the gather and
+       stack regimes of the experts);
+    4. Apertus-8B (xIELU, qk norms) and AFM-4.5B (arcee, ReLU²) with 4
+       layers: text;
+    5. llama-embed on the llama-3-8b shape with 4 layers: Engine.embed
+       (its vector unchanged by a prefill before it) and /v1/embeddings of
+       tpullm-torch-server's app (a BatchEngine of 2 slots) equal to it;
+    every 2-D linear through qmm (no dequantize route: every K a whole
+    number of 256-blocks), flash at d128, no dense attention route."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.server.api import make_app, serve
+
+    result: dict = {}
+    t_phase = time.perf_counter()
+
+    def step(what):
+        log(f"[llama options] {what} at {time.perf_counter() - t_phase:.1f}s into the phase")
+
+    def no_routes(label, got):
+        expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0
+               and got["flash_bf16.d128.decode"] > 0 and got["flash_bf16.d128.prefill"] > 0
+               and got["qmm_tc"] > 0,
+               f"{label}: qmm on every linear (no dequantize route), flash at d128 in both "
+               "regimes, no dense attention")
+
+    def load(label, shape, n_layer=None):
+        path = synthesize(tmp, "llama options", shape, "Q4_K_M", n_layer=n_layer, vocab="bpe")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(path, max_seq=LLAMA_OPT_CTX)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        hp = eng.hp
+        log(f"[{label}] {hp.arch}: {hp.n_layer} layers, n_embd {hp.n_embd}, heads {hp.n_head} "
+            f"over {hp.n_head_kv} of {hp.head_dim}, n_ff {hp.n_ff}, vocab {hp.n_vocab}, rope "
+            f"{hp.rope.style} sections {hp.rope.sections} interleaved "
+            f"{hp.rope.mrope_interleaved}, xielu {hp.xielu is not None}, causal {hp.causal}; "
+            f"loaded in {eng.perf.t_load_s:.1f}s, peak {peak:.2f} GiB")
+        return path, eng, dict(load_s=eng.perf.t_load_s, load_peak_gib=peak)
+
+    # 1. Qwen3-VL-8B at full depth
+    path, eng, out = load("qwen3-vl-8b", "qwen3-vl-8b")
+    out["text"] = _model_brief("qwen3-vl-8b", eng, launches, 512, 64)
+    no_routes("qwen3-vl-8b", out["text"]["launches"])
+    out["decode_profile"] = profile_decode(eng, eng.decode_runner(SamplingParams(), 64),
+                                           _word_ids(eng.tokenizer, 512), 16)
+    log(f"[qwen3-vl-8b] a decode token by family (16 replays of the captured graph): "
+        f"{out['decode_profile']['device_ms_per_token']}, event span "
+        f"{out['decode_profile']['event_span_ms_per_token']:.3f} ms, top "
+        f"{out['decode_profile']['top'][:6]}")
+    step("qwen3-vl-8b text")
+    dense = Engine(path, max_seq=LLAMA_OPT_CTX, mode="dense")
+    out["image"] = vl_embeddings("qwen3-vl-8b", eng, dense, deepstack=True)
+    del dense, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    result["qwen3-vl-8b"] = out
+    step("qwen3-vl-8b image against dense weights")
+
+    # 2.-4. the 4-layer cuts
+    for label, shape in (("qwen2-vl-7b", "qwen2-vl-7b"), ("qwen3-vl-30b-a3b", "qwen3-vl-30b-a3b"),
+                         ("apertus-8b", "apertus-8b"), ("afm-4.5b", "afm-4.5b")):
+        label = f"{label}-{OPT_MODEL_LAYERS}l"
+        path, eng, out = load(label, shape, OPT_MODEL_LAYERS)
+        out["text"] = _model_brief(label, eng, launches)
+        got = out["text"]["launches"]
+        no_routes(label, got)
+        if shape == "qwen3-vl-30b-a3b":
+            expect(got["qmm_gather"] > 0 and got["qmm_stack"] > 0,
+                   f"{label}: the experts in the gather and the stack regimes")
+        if shape == "qwen2-vl-7b":
+            dense = Engine(path, max_seq=LLAMA_OPT_CTX, mode="dense")
+            out["image"] = vl_embeddings(label, eng, dense, deepstack=False)
+            del dense
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        path.unlink()
+        result[shape] = out
+        step(label)
+
+    # 5. llama-embed: Engine.embed and /v1/embeddings
+    label = f"llama-embed-{OPT_MODEL_LAYERS}l"
+    path, eng, out = load(label, "llama-embed-8b", OPT_MODEL_LAYERS)
+    expect(not eng.hp.causal and eng.hp.pooling == "mean", f"{label}: non-causal, mean pooling")
+    text = "the quick brown fox jumps over the lazy dog"
+    reset_launches()  # just before the main path
+    v1 = eng.embed(text)
+    eng.prefill(_word_ids(eng.tokenizer, 300))
+    v2 = eng.embed(text)
+    got = read_launches()  # just after the main path
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    model = eng.model
+    del eng
+    gc.collect()
+    app, sched = make_app(model, n_slots=2, max_seq=LLAMA_OPT_CTX, prefill_chunk=512)
+    httpd = serve(app, "127.0.0.1", 0)
+    try:
+        resp = _http_request(httpd.server_address[1], "/v1/embeddings",
+                             {"input": [text, "hello world"]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sched.stop()
+    del app, sched, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    vec = np.asarray(resp["json"]["data"][0]["embedding"], np.float32)
+    err = float(np.abs(vec - v1).max())
+    log(f"[{label}] Engine.embed: a {v1.shape[0]}-wide vector (norm {np.linalg.norm(v1):.4f}), "
+        f"after a 300-token prefill max|Δ| {np.abs(v2 - v1).max():.3g}; /v1/embeddings "
+        f"{resp['status']} in {resp['seconds'] * 1e3:.1f} ms, max|Δ| against Engine.embed "
+        f"{err:.3g}; launches {got}")
+    expect(np.isfinite(v1).all() and np.array_equal(v1, v2),
+           f"{label}: the vector finite and unchanged by an earlier prefill")
+    expect(resp["status"] == 200 and len(resp["json"]["data"]) == 2 and err <= 1e-2,
+           f"{label}: /v1/embeddings equal to Engine.embed (max|Δ| {err:.3g})")
+    expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0 and got["qmm_tc"] > 0,
+           f"{label}: qmm on every linear, no counted route")
+    out.update(embed_dim=int(v1.shape[0]), server_max_abs=err, server_ms=resp["seconds"] * 1e3)
+    path.unlink()
+    result["llama-embed"] = out
+    step(label)
+    return result
+
+
+def phase_falcon(tmp: Path, launches: dict) -> dict:
+    """The falcon family, synthesized from seed 0 at Q4_K_M:
+    1. Falcon-7B at full width with FALCON_LAYERS layers (71 heads on one
+       KV head of 64, n_embd 4544): `_model_brief` on bf16, f16, f32 and q8
+       caches: each decode token's flash launches in the decode regime (row
+       groups), none in the prefill regime at T = 1; q|k|v, wo, up and the
+       head through the counted dequantize route (K = 4544), ffn_down
+       through qmm (K = 18176); a decode token profiled by family;
+    2. Pythia-6.9B (gptneox: parallel residual, 32 rotary dims, biases)
+       with FALCON_LAYERS layers: the same on a bf16 cache, every linear
+       through qmm."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine
+
+    result: dict = {}
+    path = synthesize(tmp, "falcon", "falcon-7b", "Q4_K_M", n_layer=FALCON_LAYERS, vocab="bpe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = Engine(path, max_seq=FALCON_CTX)
+    hp = eng.hp
+    L = len(eng.params["layers"])
+    log(f"[falcon-7b] {hp.arch}: {L} layers, n_embd {hp.n_embd}, {hp.n_head} heads over "
+        f"{hp.n_head_kv} of {hp.head_dim} (R = {hp.n_head // hp.n_head_kv} a decode token), "
+        f"rope {hp.rope.style} {hp.rope.dims}, n_ff {hp.n_ff}, vocab {hp.n_vocab}; loaded in "
+        f"{eng.perf.t_load_s:.1f}s")
+    out = dict(load_s=eng.perf.t_load_s, runs=[])
+    for kv in ("bf16", "f16", "f32", "q8_0"):
+        fmt = "q8" if kv == "q8_0" else kv
+        run = _model_brief(f"falcon-7b-{L}l", eng, launches, kv=kv)
+        got, steps = run["launches"], run["steps"]
+        dec, pre = got[f"flash_{fmt}.d64.decode"], got[f"flash_{fmt}.d64.prefill"]
+        per = run["launches_per_decode"]
+        expect(pre == L and dec == L * steps and per.get("flash_decode") == L and per.get("flash") == L,
+               f"falcon-7b {fmt}: flash at d64 in the decode regime at every decode token "
+               f"({dec} over {steps} steps), the prefill regime only in the prompt's forward "
+               f"({pre})")
+        expect(per.get("dequant_routes") == 3 * L + 1 and per.get("qmm") == L
+               and got["attn_dense_routes"] == 0,
+               f"falcon-7b {fmt}: q|k|v, wo, up and the head through the dequantize route, "
+               f"ffn_down through qmm, a decode replay ({per})")
+        run["kv"] = fmt
+        out["runs"].append(run)
+    run = _model_brief(f"falcon-7b-{L}l", eng, launches, kv="bf16")  # its graph captured
+    out["decode_profile"] = profile_decode(eng, eng.decode_runner(SamplingParams(), 16),
+                                           _word_ids(eng.tokenizer, 64), 16)
+    log(f"[falcon-7b] a decode token by family (bf16, {L} layers): "
+        f"{out['decode_profile']['device_ms_per_token']}, top {out['decode_profile']['top'][:4]}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    result["falcon-7b"] = out
+
+    path = synthesize(tmp, "falcon", "pythia-6.9b", "Q4_K_M", n_layer=FALCON_LAYERS,
+                      vocab="bpe")
+    eng = Engine(path, max_seq=FALCON_CTX)
+    hp = eng.hp
+    log(f"[pythia-6.9b] {hp.arch}: n_embd {hp.n_embd}, {hp.n_head} heads of {hp.head_dim}, "
+        f"rope {hp.rope.style} {hp.rope.dims} dims, parallel residual {hp.par_residual}; loaded "
+        f"in {eng.perf.t_load_s:.1f}s")
+    run = _model_brief(f"pythia-6.9b-{FALCON_LAYERS}l", eng, launches)
+    got = run["launches"]
+    expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0 and got["qmm_tc"] > 0
+           and got["flash_bf16.d128.decode"] > 0,
+           "pythia-6.9b: every linear through qmm, flash at d128, no counted route")
+    result["pythia-6.9b"] = dict(load_s=eng.perf.t_load_s, **run)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
     return result
 
 
@@ -5499,6 +5985,8 @@ def main() -> int:
     timed("unfused kernels", phase_unfused_kernels, dev, results, unfused)
     gemma_k: dict = {}
     timed("gemma kernels", phase_gemma_kernels, dev, results, gemma_k)
+    opt_k: dict = {}
+    timed("option kernels", phase_option_kernels, dev, results, opt_k)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
@@ -5508,6 +5996,7 @@ def main() -> int:
         spec = timed("speculative", phase_speculative, slice_path, Path(tmp), launches)
         options = timed("engine options", phase_engine_options, slice_path, Path(tmp),
                         launches)
+        fit_run = timed("fit", phase_fit, slice_path, Path(tmp))
         slice_path.unlink()
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
@@ -5517,14 +6006,18 @@ def main() -> int:
         qwen_run = timed("qwen", phase_qwen, Path(tmp), launches)
         phi_run = timed("phi", phase_phi, Path(tmp), launches)
         mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
+        llama_opts = timed("llama options", phase_llama_options, Path(tmp), launches)
+        falcon_run = timed("falcon", phase_falcon, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
                                         "speculative": spec, "options": options,
                                         "gemma": gemma,
                                         "deepseek2": ds2, "qwen": qwen_run, "phi": phi_run,
-                                        "mla": mla_run}))
+                                        "mla": mla_run, "fit": fit_run,
+                                        "llama_options": llama_opts, "falcon": falcon_run},
+                                       default=str))
     for fmt in FLASH_FORMATS:
-        for d in (256, 96, 80):
+        for d in (256, 96, 80, 64):
             launches[f"flash_{fmt}_d{d}"] = (launches[f"flash_{fmt}.d{d}.decode"]
                                              + launches[f"flash_{fmt}.d{d}.prefill"])
     for d, dv in DKDV_DIMS:
@@ -5663,6 +6156,21 @@ def main() -> int:
                          prefill_registers=ptxas.get(f"flash_mla_kernel<{d},{dv},0>"))
             expect(entry["launches_decode"] > 0 and entry["launches_prefill"] > 0,
                    f"{key} launched in both regimes on the main path")
+        elif key in FLASH_ROWS_KEYS:
+            # Falcon-7B's decode token (R = 71: five row groups) at B = 2
+            # (representative) and B = 1 at kv 1024, each beside the prefill
+            # kernel at the same call; launches from the falcon phase
+            fmt = key.split("_")[1]
+            one = next(r for r in rows if " B=1 " in r["case"])
+            entry.update(row_groups=5, prefill_kernel_at_decode_ms=rep["prefill_kernel_ms"],
+                         kv1024_case=one["case"], kv1024_ms=one["ms"],
+                         kv1024_bound_ms=one["bound_ms"], kv1024_library_ms=one["library_ms"],
+                         kv1024_prefill_kernel_ms=one["prefill_kernel_ms"],
+                         launches_decode=launches[f"flash_{fmt}.d64.decode"],
+                         launches_prefill=launches[f"flash_{fmt}.d64.prefill"],
+                         registers=ptxas.get(
+                             f"flash_decode_kernel<64,64,{FLASH_FORMATS.index(fmt)}>"))
+            expect(entry["launches_decode"] > 0, f"{key}: the decode regime on the main path")
         elif key.startswith("flash"):
             # the representative is the decode regime (T = 1); the decode
             # regime at short contexts and the prefill regime beside it
@@ -5689,7 +6197,8 @@ def main() -> int:
             entry["launches"] = (launches.get("qmm_stack.MXFP4", 0)
                                  + launches.get("qmm_gather.MXFP4", 0))
         for name, rows_by_key in (("batched", batched), ("verify", verify), ("qwen", qwen),
-                                  ("phi", phi), ("unfused", unfused), ("gemma", gemma_k)):
+                                  ("phi", phi), ("unfused", unfused), ("gemma", gemma_k),
+                                  ("options", opt_k)):
             # the shapes of continuous batching, of speculative verification,
             # of the Qwen models, of the Phi models and Qwen (v1), of the
             # 8B's projections apart (a LoRA engine's), and of Gemma-3-4B

@@ -606,6 +606,27 @@ def test_flash_dkdv_regimes_match_plain(dev, T, dims, kv, extras):
           + ", ".join(f"{k}: {e:.2e}" for k, e in errs.items()))
 
 
+@pytest.mark.parametrize("extras", [False, True], ids=["plain", "cap-win-sink-alibi"])
+@pytest.mark.parametrize("kv", ["bf16", "f16", "f32", "q8"])
+@pytest.mark.parametrize("H", [17, 71, 80])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_row_groups_match_plain(dev, D, H, kv, extras):
+    """A decode token of H heads on one KV head at D = 64 and 128 (Falcon-7B's
+    71 at 64, and the row-grouped regime's edges 17 and 80): the decode
+    kernel in ⌈H/16⌉ row groups, one launch a call counted in the decode
+    regime, on every cache format against flash_reference at kv 38 and
+    3001 of S = 4096, bit-identical when repeated."""
+    before = flash.launch_total(kv, "decode")
+    kernel, plain, bound = _flash_inputs(dev, kv, 2, 1, H, 1, 4096, D, (37, 3000), seed=H + D,
+                                         extras=extras)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert flash.launch_total(kv, "decode") == before + 2
+    assert got.shape == (2, 1, H, D) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), plain().float()) <= bound
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("T,S,D,softcap,window,sinks,alibi", [
     (1, 100, 128, 0.0, 0, False, False),

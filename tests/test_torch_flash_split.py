@@ -248,13 +248,56 @@ def test_regime_threshold():
     assert flash.regime(4, 32, 8) == "decode"  # T·G = 16
     assert flash.regime(5, 32, 8) == "prefill"
     assert flash.regime(8, 32, 8) == "prefill"  # the prefill bucket of 8
-    assert flash.regime(1, 32, 1) == "prefill"  # G = 32 > 16 rows
+    # a decode token up to DECODE_MAX_ROWS in row groups (Falcon-7B: 71 on 1)
+    assert flash.regime(1, 32, 1) == flash.regime(1, 71, 1) == flash.regime(1, 80, 1) == \
+        "decode"
+    assert flash.regime(1, 81, 1) == "prefill"
+    assert flash.regime(2, 8, 1) == "decode"  # T·G = 16
+    assert flash.regime(3, 8, 1) == flash.regime(2, 71, 1) == "prefill"  # T ≥ 2 above 16
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "q8"])
+@pytest.mark.parametrize("H", [71, 80])
+def test_row_groups_split_reference_is_the_unsplit_one(H, fmt):
+    """The decode regime's plain version in row groups (each group of 16
+    heads on the one KV head alone, as a block of the kernel takes it) is
+    the dense flash_reference at R = 71 and 80: B = 2, kv 38 and 210 of S =
+    256 on a split plan of up to four, D = 64, with sinks and ALiBi."""
+    g = torch.Generator().manual_seed(H)
+    B, S, D = 2, 256, 64
+    q = torch.randn(B, 1, H, D, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, 1, S, D, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, 1, S, D, generator=g).to(torch.bfloat16)
+    off = torch.tensor([37, 209], dtype=torch.int32)
+    sinks = torch.randn(H, generator=g)
+    slopes = torch.linspace(0.3, 0.01, H)
+    kw = {}
+    if fmt == "q8":
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        k, k_s = QuantKVCache._quantize(k)
+        v, v_s = QuantKVCache._quantize(v)
+        kw = dict(k_scale=k_s, v_scale=v_s)
+    assert flash.regime(1, H, 1) == "decode"
+    dense = flash.flash_reference(q, k, v, off, D ** -0.5, sinks=sinks, alibi_slopes=slopes,
+                                  **kw)
+    groups = [flash.flash_split_reference(q[:, :, h0:h0 + flash.DECODE_ROWS], k, v, off,
+                                          D ** -0.5, sinks=sinks[h0:h0 + flash.DECODE_ROWS],
+                                          alibi_slopes=slopes[h0:h0 + flash.DECODE_ROWS],
+                                          n_sm=4, **kw)
+              for h0 in range(0, H, flash.DECODE_ROWS)]
+    assert len(groups) == -(-H // flash.DECODE_ROWS)
+    assert len(flash.kv_splits(209, 1, S, 0, flash.max_splits(B, 1, S, 4))) == 4
+    got = torch.cat(groups, dim=2)
+    assert got.shape == dense.shape
+    assert _nmse(got.float().numpy(), dense.float().numpy()) <= 1e-5
 
 
 def test_kernel_source_constants_match_the_wrapper():
     src = (Path(flash.__file__).resolve().parents[2] / "csrc" / "flash.cu").read_text()
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(const["kDecodeRows"]) == flash.DECODE_ROWS
+    assert int(const["kDecodeMaxRows"]) == flash.DECODE_MAX_ROWS
     assert int(const["kDecTK"]) == flash.DECODE_TILE
     assert int(const["kPreTK"]) == flash.PREFILL_TILE
     assert int(const["kPreBM"]) == flash.PREFILL_ROWS

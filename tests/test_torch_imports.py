@@ -57,6 +57,7 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.ops.moe, tpullm_torch.models.llama, tpullm_torch.models.weights\n"
         "import tpullm_torch.models.gemma, tpullm_torch.models.registry\n"
         "import tpullm_torch.models.deepseek2, tpullm_torch.models.qwen_moe\n"
+        "import tpullm_torch.models.falcon, tpullm_torch.runtime.fit\n"
         "import tpullm_torch.grammar, tpullm_torch.runtime.sampling, tpullm_torch.runtime.graph\n"
         "import tpullm_torch.runtime.state, tpullm_torch.chat, tpullm_torch.jinja\n"
         "import tpullm_torch.utils.logging, tpullm_torch.utils.console\n"

@@ -172,14 +172,21 @@ def test_baichuan_13b_takes_alibi(tmp_path):
 
 
 def test_registry_maps_the_aliases_and_refuses_the_rest():
-    """The 17 aliases run the llama forward; those that wait for options of
-    ROADMAP 1.4.4 are refused."""
+    """The 17 aliases and the five that ride the llama graph's options
+    (arcee, apertus, llama-embed, qwen2vl, qwen3vl) run the llama forward;
+    archs that wait (phimoe, stablelm) are refused; the registry maps 48
+    names."""
+    from tpullm_torch.models.hparams import LLAMA_OPTION_ALIASES
+    from tpullm_torch.models.registry import _REGISTRY
+
     assert len(LLAMA_ALIASES) == 17
-    for arch in ("llama", *LLAMA_ALIASES):
+    assert LLAMA_OPTION_ALIASES == ("arcee", "apertus", "llama-embed", "qwen2vl", "qwen3vl")
+    for arch in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES):
         assert get_arch(arch).forward is llama.forward
-    for arch in ("arcee", "apertus", "llama-embed", "qwen2vl", "qwen3vl", "phimoe", "stablelm"):
+    for arch in ("phimoe", "stablelm"):
         with pytest.raises(NotImplementedError, match="is not ported"):
             get_arch(arch)
+    assert len(_REGISTRY) == 48
 
 
 # ---------------------------------------------------------------------------

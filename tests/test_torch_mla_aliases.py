@@ -441,13 +441,14 @@ def test_flash_takes_the_new_shapes(d, dv, latent, dtype, want):
 def test_regimes_and_launch_keys():
     """The latent form's decode regime runs to LATENT_DECODE_ROWS = 64
     query rows (MiniCPM3's R = 40 at T = 1; V2-Lite's verify at T = 2–4),
-    the dense kernels' to 16; LAUNCHES has a key a format, pair and regime;
-    the kernel source's constant matches."""
+    the dense kernels' to 16, and a decode token's to DECODE_MAX_ROWS = 80
+    (in row groups, as the latent's); LAUNCHES has a key a format, pair and
+    regime; the kernel source's constant matches."""
     from pathlib import Path
     import re
 
     assert flash.regime(1, 40, 1, latent=True) == "decode"
-    assert flash.regime(1, 40, 1) == "prefill"
+    assert flash.regime(1, 40, 1) == "decode" and flash.regime(2, 40, 1) == "prefill"
     assert [flash.regime(t, 16, 1, latent=True) for t in (1, 2, 4, 5)] == \
         ["decode", "decode", "decode", "prefill"]
     assert flash.regime(2, 40, 1, latent=True) == "prefill"

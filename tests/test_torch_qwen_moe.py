@@ -135,14 +135,13 @@ def test_hparams_match_jax(files, case):
 
 
 def test_registry_maps_the_qwen_moe_archs():
-    """qwen3moe and its 11 aliases run qwen_moe.forward; qwen3vlmoe waits
-    for M-RoPE; the renormalising archs are the JAX package's."""
+    """qwen3moe and its 11 aliases run qwen_moe.forward, and so does
+    qwen3vlmoe (its M-RoPE sections read: tests/test_torch_llama_options.py);
+    the renormalising archs are the JAX package's."""
     assert len(QWEN_MOE_ALIASES) == 11 and set(QWEN_MOE_ALIASES) | {"qwen3moe"} == set(ARCHS)
-    for arch in ARCHS:
+    for arch in (*ARCHS, "qwen3vlmoe"):
         spec = get_arch(arch)
         assert spec.forward is qwen_moe.forward and spec.make_cache is None
-    with pytest.raises(NotImplementedError, match="is not ported"):
-        get_arch("qwen3vlmoe")
     from tpullm.models.qwen_moe import norm_weights_policy as jpolicy
 
     for arch in ARCHS:

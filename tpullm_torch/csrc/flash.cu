@@ -15,14 +15,22 @@
 // stretch of keys that a row cannot see leaves (m, l, acc) = (−1e30, 0, 0).
 //
 // Two regimes, picked before the launch from the query rows that share one
-// KV head, R = T · (H / Hkv) (ops/kernels/flash.py regime()):
+// KV head, R = T · (H / Hkv) (ops/kernels/flash.py regime(), which passes
+// max_splits 0 for the prefill kernel):
 //
-// R ≤ kDecodeRows = 16 (decode; the 8B's T = 1 is R = 4): split-KV on CUDA
-//   cores, flash_decode_kernel. What bounds it: the K/V bytes up to kv_len
+// R ≤ kDecodeRows = 16, and a decode token (T = 1) up to kDecodeMaxRows =
+//   80 (decode; the 8B's T = 1 is R = 4, Falcon-7B's 71 heads on one KV
+//   head R = 71): split-KV on CUDA cores, flash_decode_kernel. What bounds
+//   it: the K/V bytes up to kv_len
 //   (kv_len · (D + DV) · 2 bytes a KV head in bf16 and f16, twice that in
 //   f32, half that plus the scales in q8). One block per (batch, KV head,
-//   split): the R rows of the G heads of one KV head share every K/V tile,
-//   so each is read once (the old grid read it G times). Each batch's key
+//   split, row group of 16 rows): the rows of a row group, heads of one KV
+//   head, share every K/V tile,
+//   so each is read once a row group (the old grid read it G times; R = 71
+//   reads it five times, where the prefill kernel read it 71 times, once a
+//   head). A row group changes no row's arithmetic: R ≤ 16 is one row group,
+//   the kernel as it was, and each row group merges its own splits through
+//   its own counter. Each batch's key
 //   range [window start, kv_len) is cut into splits of whole 64-key tiles (kv_split, mirrored by
 //   ops/kernels/flash.py kv_splits): as many as max_splits, which the
 //   wrapper sizes so that B · Hkv · max_splits blocks cover the card about
@@ -57,7 +65,7 @@
 //   the host as much as the kernel costs the card. A batch with one split
 //   finishes without partials.
 //
-// R > 16 (prefill): flash_prefill_kernel, tensor cores, FlashAttention-2
+// Otherwise (prefill): flash_prefill_kernel, tensor cores, FlashAttention-2
 //   layout. What bounds it: the QK and PV products, 2 · (D + DV) · (visible
 //   pairs) · H FLOP against 989 TFLOP/s. A block of 4 warps holds 64 query rows of
 //   one head, each warp 16 rows (at DV = 256, 8 warps: each row group's two
@@ -107,7 +115,8 @@ using namespace tpullm;
 
 constexpr float kNegInf = -1e30f;  // the running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kDecodeRows = 16;    // R = T·G at most this: the decode regime
+constexpr int kDecodeRows = 16;    // rows of a decode block (a row group)
+constexpr int kDecodeMaxRows = 80;  // R = T·G at most this in the dense decode regime
 constexpr int kLatentDecodeRows = 64;  // the latent form's decode regime: R at most this
 constexpr int kDecThreads = 256;  // 64 keys × 4 row groups in the scores
 constexpr int kDecWarps = kDecThreads / 32;
@@ -257,7 +266,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
                     const float* __restrict__ slopes,      // [H] or null
                     __nv_bfloat16* __restrict__ out,       // [B, T, H, DV]
                     float* __restrict__ partial,           // [B·Hkv, max_splits, R, DV + 2]
-                    int* __restrict__ counters,            // [B·Hkv], zero between launches
+                    int* __restrict__ counters,            // [B·Hkv, ⌈R/16⌉], zero between launches
                     int T, int H, int Hkv, int S, float scale, float softcap, int window,
                     int max_splits) {
   using L = DecSmem<D, DV, KV>;
@@ -283,7 +292,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
   int* flag = reinterpret_cast<int*>(l_s + kDecodeRows);
 
   const int grp = blockIdx.x, b = grp / Hkv, hk = grp % Hkv, z = blockIdx.y;
-  const int G = H / Hkv, R = T * G;
+  // this block's row group: rows r0 .. r0 + NR − 1 of the R; local row r is
+  // global row r0 + r (query t = (r0 + r) / G of head hk·G + (r0 + r) % G)
+  const int G = H / Hkv, R = T * G, r0 = kDecodeRows * blockIdx.z;
+  const int NR = min(kDecodeRows, R - r0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int off = offsets[b];
   const KvSplit sp = kv_split(off, T, S, window, max_splits);
@@ -319,13 +331,14 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 
   if (ntiles > 0) load_tile(0);
   cp_async_commit();
-  // q rows r = t·G + g (head hk·G + g, query t) as f32, once (the scores
-  // read each of them for every key), rows past R zero
+  // q rows r0 + r = t·G + g (head hk·G + g, query t) as f32, once (the
+  // scores read each of them for every key), rows past NR zero
   for (int i = tid; i < kDecodeRows * (D / 8); i += kDecThreads) {
     const int r = i / (D / 8), seg = (i % (D / 8)) * 8;
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < R) {
-      const __nv_bfloat16* qr = q + (((size_t)b * T + r / G) * H + hk * G + r % G) * D + seg;
+    if (r < NR) {
+      const int rr = r0 + r;
+      const __nv_bfloat16* qr = q + (((size_t)b * T + rr / G) * H + hk * G + rr % G) * D + seg;
       load_bf16x4(qr, f);
       load_bf16x4(qr + 4, f + 4);
     }
@@ -374,7 +387,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
         for (int i = 0; i < kDecodeRows / kGroups; ++i) {
           const int r = grp_r + kGroups * i;
-          if (r < R) {
+          if (r < NR) {
 #pragma unroll
             for (int e0 = 0; e0 < 16 / L::kEs; e0 += 4) {
               const float4 qv = *reinterpret_cast<const float4*>(qs + r * D + d0 + e0);
@@ -391,11 +404,11 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
       for (int i = 0; i < kDecodeRows / kGroups; ++i) {
         const int r = grp_r + kGroups * i;
-        if (r < R) {
-          const int q_pos = off + r / G;
+        if (r < NR) {
+          const int q_pos = off + (r0 + r) / G;
           float x = s[i] * ksc;
           if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-          if (slopes != nullptr) x += slopes[hk * G + r % G] * (float)(k_pos - q_pos);
+          if (slopes != nullptr) x += slopes[hk * G + (r0 + r) % G] * (float)(k_pos - q_pos);
           bool ok = k_pos < k1 && k_pos <= q_pos;
           if (window > 0) ok = ok && k_pos > q_pos - window;
           ps[r * L::kPPitch + j] = ok ? x : -INFINITY;
@@ -407,7 +420,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
     for (int i = 0; i < kDecodeRows / kDecWarps; ++i) {  // online softmax, warp-uniform rows
       const int r = warp + kDecWarps * i;
-      if (r < R) {
+      if (r < NR) {
         float* pr = ps + r * L::kPPitch;
         const float s0 = pr[lane], s1 = pr[lane + 32];
         const float m_new = fmaxf(m_r[i], warp_max(fmaxf(s0, s1)));
@@ -432,7 +445,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = rg + RG * i;
-        if (r < R) {
+        if (r < NR) {
           const float c = corr_s[r];
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][e] *= c;
@@ -446,7 +459,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int r = rg + RG * i;
-          if (r < R) {
+          if (r < NR) {
             const float p = ps[r * L::kPPitch + jj];
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
@@ -465,7 +478,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
   for (int i = 0; i < kDecodeRows / kDecWarps; ++i) {
     const int r = warp + kDecWarps * i;
-    if (r < R && lane == 0) {
+    if (r < NR && lane == 0) {
       m_s[r] = m_r[i];
       l_s[r] = l_r[i];
     }
@@ -476,52 +489,58 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rg + RG * i;
-      if (pv && r < R)
-        decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], acc[i], sinks);
+      if (pv && r < NR)
+        decode_finish(out, b, T, H, hk * G + (r0 + r) % G, (r0 + r) / G, DV, dq, m_s[r], l_s[r],
+                      acc[i], sinks);
     }
     return;
   }
 
-  // partials of split z: acc [R][DV], then (m, l) [R][2] after all the acc
+  // partials of split z: acc [R][DV], then (m, l) [R][2] after all the acc;
+  // this block's rows r0 .. r0 + NR − 1 of them
   const size_t n_acc = (size_t)gridDim.x * max_splits * R * DV;
-  float* pacc = partial + ((size_t)grp * max_splits + z) * R * DV;
-  float* pml = partial + n_acc + ((size_t)grp * max_splits + z) * R * 2;
+  float* pacc = partial + (((size_t)grp * max_splits + z) * R + r0) * DV;
+  float* pml = partial + n_acc + (((size_t)grp * max_splits + z) * R + r0) * 2;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
-    if (pv && r < R)
+    if (pv && r < NR)
       *reinterpret_cast<float4*>(pacc + (size_t)r * DV + 4 * dq) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
-  if (tid < R) {
+  if (tid < NR) {
     pml[2 * tid] = m_s[tid];
     pml[2 * tid + 1] = l_s[tid];
   }
+  int* counter = counters + (size_t)grp * gridDim.z + blockIdx.z;  // this row group's
   __threadfence();  // this block's partials are visible before its count
   __syncthreads();
-  if (tid == 0) *flag = atomicAdd(counters + grp, 1) == sp.n - 1;
+  if (tid == 0) *flag = atomicAdd(counter, 1) == sp.n - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();  // the last block: every split's partials are visible
 
   // every split's (m, l) into the ring (free now), then each row's merged
-  // max, the weights exp(m_z − m) in place of m_z, and the merged l
-  const float* gacc = partial + (size_t)grp * max_splits * R * DV;
-  const float* gml = partial + n_acc + (size_t)grp * max_splits * R * 2;
-  float* cm = reinterpret_cast<float*>(ring);  // [n][R]
-  float* cl = cm + kMaxSplits * kDecodeRows;    // [n][R]
-  for (int i = tid; i < sp.n * R; i += kDecThreads) {
-    cm[i] = __ldcg(gml + 2 * i);
-    cl[i] = __ldcg(gml + 2 * i + 1);
+  // max, the weights exp(m_z − m) in place of m_z, and the merged l; split
+  // zz's acc of local row r at gacc + (zz·R + r)·DV, its (m, l) at
+  // gml + 2·(zz·R + r)
+  const float* gacc = partial + ((size_t)grp * max_splits * R + r0) * DV;
+  const float* gml = partial + n_acc + ((size_t)grp * max_splits * R + r0) * 2;
+  float* cm = reinterpret_cast<float*>(ring);  // [n][NR]
+  float* cl = cm + kMaxSplits * kDecodeRows;    // [n][NR]
+  for (int i = tid; i < sp.n * NR; i += kDecThreads) {
+    const size_t src = 2 * ((size_t)(i / NR) * R + i % NR);
+    cm[i] = __ldcg(gml + src);
+    cl[i] = __ldcg(gml + src + 1);
   }
   __syncthreads();
-  if (tid < R) {
+  if (tid < NR) {
     float m = kNegInf, l = 0.f;
-    for (int zz = 0; zz < sp.n; ++zz) m = fmaxf(m, cm[zz * R + tid]);
+    for (int zz = 0; zz < sp.n; ++zz) m = fmaxf(m, cm[zz * NR + tid]);
     for (int zz = 0; zz < sp.n; ++zz) {  // in split order
-      const float w = exp_e(cm[zz * R + tid] - m);
-      cm[zz * R + tid] = w;
-      l += cl[zz * R + tid] * w;
+      const float w = exp_e(cm[zz * NR + tid] - m);
+      cm[zz * NR + tid] = w;
+      l += cl[zz * NR + tid] * w;
     }
     m_s[tid] = m;
     l_s[tid] = l;
@@ -530,20 +549,21 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,  // [B, T, H, D]
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + RG * i;
-    if (!pv || r >= R) continue;
+    if (!pv || r >= NR) continue;
     float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int zz = 0; zz < sp.n; ++zz) {  // in split order
-      const float w = cm[zz * R + r];
+      const float w = cm[zz * NR + r];
       const float4 a = __ldcg(reinterpret_cast<const float4*>(gacc + ((size_t)zz * R + r) * DV + 4 * dq));
       o[0] += a.x * w;
       o[1] += a.y * w;
       o[2] += a.z * w;
       o[3] += a.w * w;
     }
-    decode_finish(out, b, T, H, hk * G + r % G, r / G, DV, dq, m_s[r], l_s[r], o, sinks);
+    decode_finish(out, b, T, H, hk * G + (r0 + r) % G, (r0 + r) / G, DV, dq, m_s[r], l_s[r], o,
+                  sinks);
   }
-  if (tid == 0) counters[grp] = 0;  // ready for the next launch
+  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
 // Shared memory of a prefill block: the K/V ring, rows (K and Q: D, V: DV)
@@ -1297,12 +1317,14 @@ int launch_d(const void* q, const void* k, const void* k_scale, const void* v,
   const auto* sk = static_cast<const float*>(sinks);
   const auto* sl = static_cast<const float*>(slopes);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (T * (H / Hkv) <= kDecodeRows) {
-    if (max_splits < 1 || max_splits > kMaxSplits) return (int)cudaErrorInvalidValue;
+  if (max_splits > 0) {  // the decode regime, a block a row group of kDecodeRows
+    const int R = T * (H / Hkv);
+    if (max_splits > kMaxSplits || R > kDecodeMaxRows) return (int)cudaErrorInvalidValue;
     constexpr int smem = DecSmem<D, DV, KV>::bytes;
     static const cudaError_t attr = smem_attributes(flash_decode_kernel<D, DV, KV>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    flash_decode_kernel<D, DV, KV><<<dim3(B * Hkv, max_splits), kDecThreads, smem, stream>>>(
+    const dim3 grid(B * Hkv, max_splits, (R + kDecodeRows - 1) / kDecodeRows);
+    flash_decode_kernel<D, DV, KV><<<grid, kDecThreads, smem, stream>>>(
         qb, kb, vb, ks, vs, ob, sk, sl, o, static_cast<float*>(partial),
         static_cast<int*>(counters), T, H, Hkv, S, scale, softcap, window, max_splits);
   } else {
@@ -1382,10 +1404,12 @@ int launch(const void* q, const void* k, const void* k_scale, const void* v,
 #ifndef TPULLM_FLASH_LATENT
 // The dense and q8 entries at key width D and value width DV (this library:
 // D = DV 64, 128 and 256; under -DTPULLM_FLASH_NARROW: D = DV 80 and 96;
-// under -DTPULLM_FLASH_DKDV: (192, 128) and (96, 64)). out bf16 [B, T, H, DV];
-// partial: f32 [B·Hkv·max_splits·R·(DV + 2)] and counters: int32 [B·Hkv]
-// (zero, left zero) for the decode regime, R = T·H/Hkv ≤ 16; unread (may be
-// null) in the prefill regime.
+// under -DTPULLM_FLASH_DKDV: (192, 128) and (96, 64)). max_splits > 0 takes
+// the decode regime (R = T·H/Hkv ≤ 80, in row groups of 16), 0 the prefill
+// kernel at any R; out bf16 [B, T, H, DV]; partial: f32
+// [B·Hkv·max_splits·R·(DV + 2)] and counters: int32 [B·Hkv·⌈R/16⌉] (zero,
+// left zero) for the decode regime; unread (may be null) in the prefill
+// regime.
 #define TPULLM_FLASH_DENSE(name, KV)                                                        \
   extern "C" int name(const void* q, const void* k, const void* v, const void* offsets,      \
                       const void* sinks, const void* slopes, void* out, void* partial,       \

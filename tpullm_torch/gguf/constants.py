@@ -161,6 +161,7 @@ class Keys:
         LEADING_DENSE_BLOCK_COUNT = "{arch}.leading_dense_block_count"
         ATTN_LOGIT_SOFTCAPPING = "{arch}.attn_logit_softcapping"
         FINAL_LOGIT_SOFTCAPPING = "{arch}.final_logit_softcapping"
+        USE_PARALLEL_RESIDUAL = "{arch}.use_parallel_residual"
 
     class Attention:
         HEAD_COUNT = "{arch}.attention.head_count"
@@ -177,6 +178,7 @@ class Keys:
         KV_LORA_RANK = "{arch}.attention.kv_lora_rank"
         KEY_LENGTH_MLA = "{arch}.attention.key_length_mla"
         VALUE_LENGTH_MLA = "{arch}.attention.value_length_mla"
+        CAUSAL = "{arch}.attention.causal"
 
     class Rope:
         DIMENSION_COUNT = "{arch}.rope.dimension_count"
@@ -190,6 +192,7 @@ class Keys:
         SCALING_YARN_BETA_FAST = "{arch}.rope.scaling.yarn_beta_fast"
         SCALING_YARN_BETA_SLOW = "{arch}.rope.scaling.yarn_beta_slow"
         SCALING_YARN_LOG_MUL = "{arch}.rope.scaling.yarn_log_multiplier"
+        DIMENSION_SECTIONS = "{arch}.rope.dimension_sections"
 
     class Tokenizer:
         MODEL = "tokenizer.ggml.model"

@@ -1,28 +1,39 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-qwen-moe, gemma, deepseek2 (minicpm3, plm) and phi2 forwards read, and the metadata → hparams
-mapping for the archs the port runs (`ARCHS`), as the JAX package's
-models/hparams.py maps them."""
+qwen-moe, gemma, deepseek2 (minicpm3, plm), phi2 and falcon forwards read,
+and the metadata → hparams mapping for the archs the port runs (`ARCHS`),
+as the JAX package's models/hparams.py maps them."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
+
 from ..gguf.constants import Keys
 from ..gguf.reader import GGUFReader
 
 # the archs whose metadata this module maps (models/registry.py runs them):
-# the llama graph and its aliases, the qwen-moe graph and its aliases, the
-# gemma family, deepseek2 and its MLA aliases minicpm3 and plm, and phi3,
-# phi2 and qwen (v1)
+# the llama graph and its aliases (those that ride its options apart), the
+# qwen-moe graph and its aliases, the gemma family, deepseek2 and its MLA
+# aliases minicpm3 and plm, phi3, phi2 and qwen (v1), and the falcon family
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
+# the llama graph's options: arcee's gateless ReLU² FFN, apertus' xIELU,
+# llama-embed's non-causal embeddings, the VL text stacks' M-RoPE (and
+# qwen3vl's input embeddings with deepstack residuals)
+LLAMA_OPTION_ALIASES = ("arcee", "apertus", "llama-embed", "qwen2vl", "qwen3vl")
 QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1",
                     "hunyuan-moe", "minimax-m2", "bailingmoe", "bailingmoe2", "glm4moe",
                     "exaone-moe")
-ARCHS = ("llama", *LLAMA_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES, "gemma", "gemma2", "gemma3",
-         "deepseek2", "minicpm3", "plm", "phi3", "phi2", "qwen")
+FALCON_ARCHS = ("falcon", "gptneox", "codeshell")
+ARCHS = ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES,
+         "qwen3vlmoe", "gemma", "gemma2", "gemma3", "deepseek2", "minicpm3", "plm", "phi3",
+         "phi2", "qwen", *FALCON_ARCHS)
+# the archs without a causal mask unless the file says otherwise (of those
+# the port runs)
+NON_CAUSAL_ARCHS = ("llama-embed",)
 # the default interleave of sliding-window layers: every Nth layer global
 _SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
 
@@ -64,6 +75,13 @@ class RopeParams:
     # "norm" = rotate adjacent pairs (GGML interleaved, llama GGUF layout);
     # "neox" = rotate halves (GPT-NeoX/HF layout)
     style: str = "norm"
+    # M-RoPE (qwen2vl, qwen3vl, qwen3vlmoe): the frequency sections of the
+    # position streams (t, h, w, extra) from {arch}.rope.dimension_sections;
+    # empty: one stream
+    sections: tuple = ()
+    # qwen3vl's IMROPE: the sections interleave [T H W T H W …] over the
+    # frequency dims instead of taking contiguous chunks
+    mrope_interleaved: bool = False
 
 
 @dataclass(frozen=True)
@@ -119,9 +137,38 @@ class HParams:
     expert_weights_scale: float = 1.0
     expert_weights_norm: bool = False
     expert_gating_func: str = "softmax"
+    causal: bool = True  # False: llama-embed's embeddings (Engine.embed_tokens)
+    # apertus' xIELU: per layer (alpha_n, alpha_p, beta, eps) with ggml_xielu's
+    # softplus folding applied (`_read_xielu`); None: no xIELU
+    xielu: tuple | None = None
+    # gptneox's use_parallel_residual: x + attn(ln1(x)) + ffn(ln2(x))
+    par_residual: bool = False
 
     def is_swa(self, il: int) -> bool:
         return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
+
+
+def _read_xielu(r: GGUFReader, n_layer: int):
+    """Apertus' per-layer xIELU values from the global xielu.* keys (a
+    number or one a layer), folded as ggml_xielu folds them: alpha_n ←
+    beta + softplus(alpha_n), alpha_p ← softplus(alpha_p); None without
+    xielu.alpha_n."""
+    if r.metadata.get("xielu.alpha_n") is None or n_layer == 0:
+        return None
+
+    def per_layer(key, default):
+        v = r.metadata.get(key, default)
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return [float(x) for x in v]
+        return [float(v)] * n_layer
+
+    def softplus(v):
+        return float(np.log1p(np.exp(v)))
+
+    a_n, a_p = per_layer("xielu.alpha_n", 0.0), per_layer("xielu.alpha_p", 0.0)
+    beta, eps = per_layer("xielu.beta", 0.5), per_layer("xielu.eps", -1e-6)
+    return tuple((beta[i] + softplus(a_n[i]), softplus(a_p[i]), beta[i], eps[i])
+                 for i in range(n_layer))
 
 
 def hparams_from_gguf(r: GGUFReader) -> HParams:
@@ -158,6 +205,8 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         beta_fast=float(k(Keys.Rope.SCALING_YARN_BETA_FAST, 32.0)),
         beta_slow=float(k(Keys.Rope.SCALING_YARN_BETA_SLOW, 1.0)),
         style="neox" if arch in NEOX_ROPE_ARCHS else "norm",
+        sections=tuple(int(v) for v in np.atleast_1d(k(Keys.Rope.DIMENSION_SECTIONS, ()))),
+        mrope_interleaved=arch in ("qwen3vl", "qwen3vlmoe"),
     )
     scale = k(Keys.Attention.SCALE)
     return HParams(
@@ -193,7 +242,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         n_expert=int(k(Keys.LLM.EXPERT_COUNT, 0)),
         n_expert_used=int(k(Keys.LLM.EXPERT_USED_COUNT, 0)),
         pooling={0: "none", 1: "mean", 2: "cls", 3: "last", 4: "rank"}.get(
-            int(k("{arch}.pooling_type", 0)), "none"),
+            int(k("{arch}.pooling_type", 1 if arch == "llama-embed" else 0)), "none"),
         swa_pattern=int(k(Keys.Attention.SLIDING_WINDOW_PATTERN, _SWA_PATTERN.get(arch, 1))),
         softcap_attn=float(k(Keys.LLM.ATTN_LOGIT_SOFTCAPPING, 0.0)),
         softcap_final=float(k(Keys.LLM.FINAL_LOGIT_SOFTCAPPING, 0.0)),
@@ -211,4 +260,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         # llama_expert_gating_func_type: 1 softmax, 2 sigmoid
         expert_gating_func={1: "softmax", 2: "sigmoid"}.get(
             int(k(Keys.LLM.EXPERT_GATING_FUNC, 1) or 1), "softmax"),
+        causal=bool(k(Keys.Attention.CAUSAL, arch not in NON_CAUSAL_ARCHS)),
+        xielu=_read_xielu(r, n_layer),
+        par_residual=bool(k(Keys.LLM.USE_PARALLEL_RESIDUAL, False)),
     )

@@ -3,7 +3,10 @@ append → SwiGLU FFN, residual chain, final norm and output head.
 
 The graph of the JAX package's models/llama.py, dense FFN and MoE FFN
 (mixtral: a router, softmax top-k with renormalised weights, stacked
-experts), run eagerly: `forward` updates the cache in place. The cache
+experts), run eagerly: `forward` updates the cache in place. Its options:
+the gateless FFNs (arcee's ReLU², apertus' xIELU), float input embeddings
+in place of token ids, M-RoPE position streams [S, B, T] (qwen2vl,
+qwen3vl) and qwen3vl's deepstack residuals. The cache
 offset is a host int, or, for one decode row, a 0-d device int32 tensor
 (the captured decode step: nothing in the forward then reads a value back
 to the host), or an int32 [B] device tensor of per-slot offsets with −1 for
@@ -160,15 +163,28 @@ def silu_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(up.dtype) * up
 
 
-def dense_ffn(layer: dict, h: torch.Tensor) -> torch.Tensor:
-    """A dense FFN: SwiGLU (gate and up fused where they share a type), or
-    the gateless ReLU² (plm) where the layer has no gate."""
+def xielu(up: torch.Tensor, alpha_n: float, alpha_p: float, beta: float,
+          eps: float) -> torch.Tensor:
+    """apertus' xIELU in f32, rounded to up's dtype (ggml_xielu, its
+    softplus folding in models/hparams.py `_read_xielu`): αp·x² + β·x for
+    x > 0, else (expm1(min(x, eps)) − x)·αn + β·x."""
+    u = up.float()
+    neg = (torch.expm1(torch.clamp(u, max=eps)) - u) * alpha_n + beta * u
+    return torch.where(u > 0.0, alpha_p * u * u + beta * u, neg).to(up.dtype)
+
+
+def dense_ffn(layer: dict, h: torch.Tensor, xielu_values: tuple | None = None) -> torch.Tensor:
+    """A dense FFN: SwiGLU (gate and up fused where they share a type), or,
+    where the layer has no gate, xIELU with the layer's `xielu_values`
+    (apertus) or ReLU² (arcee, plm): the JAX graph's order."""
     if layer.get("wgu") is not None:  # one plane stream for gate|up
         gate, up = layer["wgu"](h)
     elif layer["w_gate"] is not None:
         gate, up = layer["w_gate"](h), layer["w_up"](h)
     else:
         up = layer["w_up"](h)
+        if xielu_values is not None:
+            return layer["w_down"](xielu(up, *xielu_values))
         return layer["w_down"](torch.square(F.relu(up.float())).to(up.dtype))
     return layer["w_down"](silu_glu(gate, up))
 
@@ -238,7 +254,8 @@ def pick_rows(x: torch.Tensor, last_index) -> torch.Tensor:
 
 def forward(hp: HParams, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor, cache, cache_offset,
-            last_index=None, return_hidden: bool = False, layer_states: list | None = None):
+            last_index=None, return_hidden: bool = False, layer_states: list | None = None,
+            deepstack: torch.Tensor | None = None):
     """tokens/positions [B, T] → (logits [B, T, n_vocab] f32, cache). With
     last_index=i the head runs on row i only and logits are [B, 1, n_vocab]
     (the prefill path: the head of an 8B model is ~6% of its FLOPs); a [B]
@@ -256,11 +273,25 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
     params["cvec"] [n_layer, n_embd], where an engine has control vectors,
     is added to the residual stream after each layer, in x's dtype (the JAX
     llama graph's llama_adapter_cvec). `layer_states`, a list, receives x
-    [B, T, n_embd] after each layer (tools/cvector.py's capture)."""
-    B, T = tokens.shape
-    x = params["tok_embd"][tokens]
-    if hp.embd_scale != 1.0:
-        x = x * hp.embd_scale
+    [B, T, n_embd] after each layer (tools/cvector.py's capture).
+
+    `tokens` may be float [B, T, n_embd]: input embeddings in place of ids
+    (runtime/engine.py prefill_embeddings), taken in the table's dtype and
+    not scaled. `positions` may be [S, B, T], one RoPE stream per M-RoPE
+    section (ops/rope.py). `deepstack` [n_ds, B, T, n_embd] is added to x
+    after layers 0 .. n_ds − 1, in x's dtype (qwen3vl's visual residuals).
+    hp.causal changes nothing here: the JAX graph's bidirectional mask
+    reaches only its dense attention path, which its Engine takes for no
+    forward of T ≥ 8 rows; Engine.embed_tokens gives llama-embed what the
+    JAX package computes."""
+    if tokens.is_floating_point():
+        B, T = tokens.shape[:2]
+        x = tokens.to(params["tok_embd"].dtype)
+    else:
+        B, T = tokens.shape
+        x = params["tok_embd"][tokens]
+        if hp.embd_scale != 1.0:
+            x = x * hp.embd_scale
     offsets, cache_offset = forward_offsets(cache_offset, B, T, cache.max_len, x.device)
     rope_cs = rope_angles(hp.rope, positions)
     slopes = (alibi_slopes(hp.n_head, hp.max_alibi_bias, x.device)
@@ -277,12 +308,14 @@ def forward(hp: HParams, params: Params, tokens: torch.Tensor,
             ffn = moe_ffn(hs, weights, idx, layer["w_gate_exps"], layer["w_up_exps"],
                           layer["w_down_exps"]).reshape(B, T, -1)
         else:
-            ffn = dense_ffn(layer, h)
+            ffn = dense_ffn(layer, h, hp.xielu[li] if hp.xielu is not None else None)
         if hp.residual_scale != 1.0:
             ffn = ffn * hp.residual_scale
         x = x + ffn
         if cvec is not None:
             x = x + cvec[li].to(x.dtype)
+        if deepstack is not None and li < deepstack.shape[0]:
+            x = x + deepstack[li].to(x.dtype)
         if layer_states is not None:
             layer_states.append(x)
     return finish(hp, params, x, last_index, return_hidden), cache

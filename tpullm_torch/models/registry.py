@@ -1,13 +1,14 @@
 """Architecture registry: GGUF `general.architecture` → (build_params,
 forward), the rows of the JAX package's models/registry.py that the port
-runs: `llama` with 17 of its aliases (models/hparams.py LLAMA_ALIASES; the
-JAX package's arcee, apertus, llama-embed, qwen2vl and qwen3vl wait for
-their options), `qwen3moe` with 11 aliases (QWEN_MOE_ALIASES; qwen3vlmoe
-waits for M-RoPE), `gemma3` (alias `gemma2`), `gemma`, `deepseek2` with its
-aliases `minicpm3` (the MLA graph with minicpm's multipliers) and `plm`
-(all-dense MLA, a gateless ReLU² FFN), `phi3` and `qwen` (their fused
-tensors loaded by models/phi3.py and models/qwen.py, the llama forward) and
-`phi2` (phimoe waits)."""
+runs: `llama` with its 22 aliases (models/hparams.py LLAMA_ALIASES, and
+LLAMA_OPTION_ALIASES: arcee, apertus, llama-embed, qwen2vl, qwen3vl),
+`qwen3moe` with 12 aliases (QWEN_MOE_ALIASES and qwen3vlmoe, its M-RoPE
+sections read, text positions only: NEOX RoPE), `gemma3` (alias
+`gemma2`), `gemma`, `deepseek2` with its aliases `minicpm3` (the MLA graph
+with minicpm's multipliers) and `plm` (all-dense MLA, a gateless ReLU²
+FFN), `phi3` and `qwen` (their fused tensors loaded by models/phi3.py and
+models/qwen.py, the llama forward), `phi2` (phimoe waits), and `falcon`
+with its aliases `gptneox` and `codeshell` (models/falcon.py): 48 names."""
 
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import deepseek2, gemma, llama, phi2, phi3, qwen, qwen_moe
-from .hparams import LLAMA_ALIASES, QWEN_MOE_ALIASES, HParams, hparams_from_gguf
+from . import deepseek2, falcon, gemma, llama, phi2, phi3, qwen, qwen_moe
+from .hparams import (FALCON_ARCHS, LLAMA_ALIASES, LLAMA_OPTION_ALIASES, QWEN_MOE_ALIASES,
+                      HParams, hparams_from_gguf)
 
 
 @dataclass(frozen=True)
@@ -37,14 +39,16 @@ _QWEN_MOE = ArchSpec("qwen3moe", qwen_moe.build_params, qwen_moe.forward)
 _GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
 _DEEPSEEK2 = ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
                       make_cache=deepseek2.make_cache)
-_REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES)},
-             **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES)},
+_FALCON = ArchSpec("falcon", falcon.build_params, falcon.forward)
+_REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES)},
+             **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES, "qwen3vlmoe")},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
              "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
              **{name: _DEEPSEEK2 for name in ("deepseek2", "minicpm3", "plm")},
              "phi3": ArchSpec("phi3", phi3.build_params, llama.forward),
              "phi2": ArchSpec("phi2", phi2.build_params, phi2.forward),
-             "qwen": ArchSpec("qwen", qwen.build_params, llama.forward)}
+             "qwen": ArchSpec("qwen", qwen.build_params, llama.forward),
+             **{name: _FALCON for name in FALCON_ARCHS}}
 
 
 def get_arch(name: str) -> ArchSpec:

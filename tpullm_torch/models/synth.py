@@ -1,5 +1,7 @@
-"""Synthesis of random *packed* llama, qwen, gemma, deepseek2 (and its MLA
-aliases minicpm3 and plm) and phi models from a seed.
+"""Synthesis of random *packed* llama (and its aliases with options: the VL
+text stacks, apertus, arcee, llama-embed), qwen, gemma, deepseek2 (and its
+MLA aliases minicpm3 and plm), phi and falcon / gpt-neox models from a
+seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -193,7 +195,85 @@ SHAPES = {
                       pre="phi-2"),
     "tiny-qwen": dict(arch="qwen", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
                       n_vocab=384, rope_base=10000.0, rms_eps=1e-6, vocab="bpe", pre="qwen2"),
+    # Qwen/Qwen3-VL-8B-Instruct config.json text_config: 36 layers, hidden
+    # 4096, 32 heads over 8 KV heads of head_dim 128, per-head q/k norms,
+    # intermediate_size 12288, vocab 151936, rope_theta 5e6, mrope_section
+    # [24, 20, 20] interleaved (IMROPE), rms_norm_eps 1e-6,
+    # max_position_embeddings 262144, untied; deepstack after layers 0-2
+    # (the vision tower's three deepstack_visual_indexes: input, not weights)
+    "qwen3-vl-8b": dict(arch="qwen3vl", n_layer=36, n_embd=4096, n_head=32, n_head_kv=8,
+                        head_dim=128, n_ff=12288, n_vocab=151936, rope_base=5000000.0,
+                        rms_eps=1e-6, n_ctx=262144, qk_norm=True, sections=(24, 20, 20, 0),
+                        vocab="bpe", pre="qwen2"),
+    # Qwen/Qwen2-VL-7B-Instruct config.json: the Qwen2-7B stack (28 layers,
+    # hidden 3584, 28 heads over 4, intermediate_size 18944, vocab 152064,
+    # q/k/v biases), rope_theta 1e6, mrope_section [16, 24, 24] contiguous,
+    # rms_norm_eps 1e-6, max_position_embeddings 32768, untied
+    "qwen2-vl-7b": dict(arch="qwen2vl", n_layer=28, n_embd=3584, n_head=28, n_head_kv=4,
+                        n_ff=18944, n_vocab=152064, rope_base=1000000.0, rms_eps=1e-6,
+                        n_ctx=32768, qkv_bias=True, sections=(16, 24, 24, 0), vocab="bpe",
+                        pre="qwen2"),
+    # Qwen/Qwen3-VL-30B-A3B-Instruct config.json text_config: the Qwen3-30B-A3B
+    # stack (48 layers, hidden 2048, 32 heads over 4 of 128, q/k norms, 128
+    # experts of 768 top-8), rope_theta 5e6, mrope_section [24, 20, 20]
+    # interleaved, max_position_embeddings 262144, untied
+    "qwen3-vl-30b-a3b": dict(arch="qwen3vlmoe", n_layer=48, n_embd=2048, n_head=32,
+                             n_head_kv=4, head_dim=128, n_ff=6144, n_vocab=151936,
+                             rope_base=5000000.0, rms_eps=1e-6, n_ctx=262144, n_expert=128,
+                             n_expert_used=8, n_ff_exp=768, qk_norm=True,
+                             sections=(24, 20, 20, 0), vocab="bpe", pre="qwen2"),
+    # swiss-ai/Apertus-8B-2509 config.json: 32 layers, hidden 4096, 32 heads
+    # over 8 (head_dim 128), per-head q/k norms, intermediate_size 21504 with
+    # no gate and the xIELU activation (per layer alpha_p, alpha_n, beta 0.5,
+    # eps −1e-6: written raw, before softplus, near HF's initial 0.8 and
+    # 0.8), vocab 131072, rope_theta 12e6 (its llama3 scaling not written:
+    # neither package reads rope_factors), rms_norm_eps 1e-5,
+    # max_position_embeddings 65536, untied
+    "apertus-8b": dict(arch="apertus", n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
+                       n_ff=21504, n_vocab=131072, rope_base=12000000.0, rms_eps=1e-5,
+                       n_ctx=65536, qk_norm=True, gateless=True, xielu=True, vocab="bpe"),
+    # arcee-ai/AFM-4.5B config.json: 36 layers, hidden 2560, 20 heads over 4
+    # (head_dim 128), intermediate_size 18432 with no gate, ReLU²
+    # (hidden_act relu2), vocab 128004, rope_theta 10000, rms_norm_eps 1e-5,
+    # max_position_embeddings 65536, untied
+    "afm-4.5b": dict(arch="arcee", n_layer=36, n_embd=2560, n_head=20, n_head_kv=4,
+                     n_ff=18432, n_vocab=128004, rope_base=10000.0, rms_eps=1e-5, n_ctx=65536,
+                     gateless=True, vocab="bpe"),
+    # nvidia/llama-embed-nemotron-8b: a Llama-3.1-8B (the llama-3-8b widths,
+    # rope_theta 500000, rms 1e-5, Llama-3's BPE), arch llama-embed (no
+    # causal mask, mean pooling by default)
+    "llama-embed-8b": dict(arch="llama-embed", n_layer=32, n_embd=4096, n_head=32,
+                           n_head_kv=8, n_ff=14336, n_vocab=128256, rope_base=500000.0,
+                           n_ctx=131072, vocab="bpe"),
+    # tiiuae/falcon-7b config.json: 32 layers, hidden 4544, 71 heads over one
+    # KV head (multi-query, head_dim 64), parallel attention and MLP on one
+    # LayerNorm, 4·4544 = 18176 FFN, vocab 65024, rotary base 10000,
+    # layer_norm_epsilon 1e-5, 2048 positions, untied head; no biases.
+    # n_embd is no multiple of 256: q|k|v, wo, up, the embedding and the
+    # head take the recipe's fallback types (Q5_1, Q5_0, Q8_0)
+    "falcon-7b": dict(arch="falcon", n_layer=32, n_embd=4544, n_head=71, n_head_kv=1,
+                      n_ff=18176, n_vocab=65024, rope_base=10000.0, rms_eps=1e-5, n_ctx=2048,
+                      vocab="bpe", pre="falcon"),
+    # EleutherAI/pythia-6.9b config.json (arch gptneox): 32 layers, hidden
+    # 4096, 32 heads (MHA, head_dim 128), rotary_pct 0.25 (32 rotary dims),
+    # intermediate_size 16384, vocab 50432, use_parallel_residual true,
+    # layer_norm_eps 1e-5, 2048 positions, untied; biases on q|k|v, wo, up
+    # and down
+    "pythia-6.9b": dict(arch="gptneox", n_layer=32, n_embd=4096, n_head=32, n_head_kv=32,
+                        n_ff=16384, n_rot=32, n_vocab=50432, rope_base=10000.0, rms_eps=1e-5,
+                        n_ctx=2048, par_residual=True, vocab="bpe", pre="gpt-2"),
+    # the falcon family's test models: tiny-falcon with Falcon-7B's layout
+    # (5 heads of 64 on one KV head, n_embd 320: its fallback types) and
+    # tiny-gptneox with Pythia's (partial rotary, biases, parallel residual)
+    "tiny-falcon": dict(arch="falcon", n_layer=2, n_embd=320, n_head=5, n_head_kv=1,
+                        n_ff=1280, n_vocab=384, rope_base=10000.0, rms_eps=1e-5),
+    "tiny-gptneox": dict(arch="gptneox", n_layer=2, n_embd=256, n_head=4, n_head_kv=4,
+                         n_ff=512, n_rot=16, n_vocab=384, rope_base=10000.0, rms_eps=1e-5,
+                         par_residual=True),
 }
+
+# the archs whose norms are LayerNorms (layer_norm_epsilon)
+_LAYER_NORM_ARCHS = ("phi2", "falcon", "gptneox", "codeshell")
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
 # d (every other byte stays random); MXFP4 holds an e8m0 exponent byte at 0,
@@ -215,6 +295,9 @@ SCALE_FIELDS = {
 # (the sub-scales and codes are random bytes); MXFP4's is its table's RMS
 _RMS_PER_D = {GGMLType.Q8_0: 77.2, GGMLType.Q4_K: 311.0, GGMLType.Q5_K: 677.9,
               GGMLType.Q5_0: math.sqrt(2736 / 32),  # codes q − 16 uniform over −16 .. 15
+              GGMLType.Q4_0: math.sqrt(344 / 16),  # codes q − 8 uniform over −8 .. 7
+              # codes q + 1 (m = d): uniform over 1 .. 32 and 1 .. 16
+              GGMLType.Q5_1: math.sqrt(357.5), GGMLType.Q4_1: math.sqrt(93.5),
               GGMLType.Q6_K: 1410.7,
               GGMLType.MXFP4: math.sqrt(sum(v * v for v in MXFP4_VALUES) / 16),
               # over a [1024, 4096] draw of each (uint32 words, seed 0)
@@ -537,7 +620,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     gemma = arch.startswith("gemma")
     tied = gemma or cfg.get("tied", False)
     mla = arch in ("deepseek2", "minicpm3", "plm")
-    phi2 = arch == "phi2"
+    layer_norm = arch in _LAYER_NORM_ARCHS
     n_layer, n_embd = n_layer or cfg["n_layer"], cfg["n_embd"]
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = n_vocab or cfg["n_vocab"]
@@ -565,7 +648,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.feed_forward_length", n_ff)
     w.add_kv(f"{arch}.attention.head_count", n_head)
     w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
-    w.add_kv(f"{arch}.attention.layer_norm_{'' if phi2 else 'rms_'}epsilon",
+    w.add_kv(f"{arch}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon",
              cfg.get("rms_eps", 1e-5))
     w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
     w.add_kv(f"{arch}.rope.dimension_count", cfg.get("n_rot", cfg.get("qk_rope", head_dim)))
@@ -598,6 +681,16 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         w.add_kv(f"{arch}.expert_weights_scale", cfg["weights_scale"])
         w.add_kv(f"{arch}.expert_weights_norm", cfg["weights_norm"])
         w.add_kv(f"{arch}.expert_gating_func", cfg["gating"])
+    if "sections" in cfg:
+        w.add_kv(f"{arch}.rope.dimension_sections", np.asarray(cfg["sections"], np.int32))
+    if "par_residual" in cfg:
+        w.add_kv(f"{arch}.use_parallel_residual", cfg["par_residual"])
+    if cfg.get("xielu"):  # apertus' raw per-layer values, near softplus⁻¹ of 0.8 and 0.8 − β
+        for key, base in (("alpha_p", 0.1164), ("alpha_n", -0.4328)):
+            w.add_kv(f"xielu.{key}", (base + 0.1 * rng.standard_normal(n_layer)).astype(
+                np.float32))
+        w.add_kv("xielu.beta", np.full(n_layer, 0.5, np.float32))
+        w.add_kv("xielu.eps", np.full(n_layer, -1e-6, np.float32))
     if "sliding_window" in cfg:
         w.add_kv(f"{arch}.attention.sliding_window", cfg["sliding_window"])
     if "swa_pattern" in cfg:
@@ -656,6 +749,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
         _deepseek2_layers(cfg, n_layer, packed, norm, router)
     elif arch in ("phi3", "phi2", "qwen"):
         _fused_qkv_layers(cfg, n_layer, packed, norm, vector)
+    elif layer_norm:
+        _falcon_layers(cfg, n_layer, packed, norm, vector)
     else:
         n_ff_exp, n_sh = cfg.get("n_ff_exp", n_ff), cfg.get("n_ff_shexp", 0)
         for i in range(n_layer):
@@ -689,14 +784,16 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
                     packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
                     packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)
             else:
-                packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+                if not cfg.get("gateless"):
+                    packed(p + "ffn_gate.weight", n_ff, n_embd, i)
                 packed(p + "ffn_up.weight", n_ff, n_embd, i)
                 packed(p + "ffn_down.weight", n_embd, n_ff, i)
     norm("output_norm.weight", n_embd)
     if not tied:  # gemma and plm tie their head to token_embd
         packed("output.weight", n_vocab, n_embd)
-    if phi2:
+    if layer_norm:
         vector("output_norm.bias", n_embd, 0.1)
+    if arch == "phi2":
         vector("output.bias", n_vocab, 0.1)
     return w
 
@@ -732,6 +829,34 @@ def _fused_qkv_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
             packed(p + "ffn_gate.weight", n_ff, n_embd, i)
             packed(p + "ffn_up.weight", n_ff, n_embd, i)
         packed(p + "ffn_down.weight", n_embd, n_ff, i)
+
+
+def _falcon_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
+    """The layers of a falcon or gptneox shape, with the tensor names
+    llama.cpp's converter writes: the LayerNorm attn_norm with its bias,
+    q|k|v in one attn_qkv, attn_output, ffn_up and ffn_down; gptneox also
+    the ffn_norm LayerNorm and biases on attn_qkv, attn_output, ffn_up and
+    ffn_down (random, as phi2's)."""
+    n_embd, n_ff = cfg["n_embd"], cfg["n_ff"]
+    head_dim = n_embd // cfg["n_head"]
+    n_qkv = (cfg["n_head"] + 2 * cfg["n_head_kv"]) * head_dim
+    neox = cfg["arch"] != "falcon"
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        norm(p + "attn_norm.weight", n_embd)
+        vector(p + "attn_norm.bias", n_embd, 0.1)
+        packed(p + "attn_qkv.weight", n_qkv, n_embd, i)
+        packed(p + "attn_output.weight", n_embd, cfg["n_head"] * head_dim, i)
+        if neox:
+            vector(p + "attn_qkv.bias", n_qkv, 0.1)
+            vector(p + "attn_output.bias", n_embd, 0.1)
+            norm(p + "ffn_norm.weight", n_embd)
+            vector(p + "ffn_norm.bias", n_embd, 0.1)
+        packed(p + "ffn_up.weight", n_ff, n_embd, i)
+        packed(p + "ffn_down.weight", n_embd, n_ff, i)
+        if neox:
+            vector(p + "ffn_up.bias", n_ff, 0.1)
+            vector(p + "ffn_down.bias", n_embd, 0.1)
 
 
 def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:

@@ -6,8 +6,10 @@ the dense-KV instantiation (quant=False, entry flash_attention, on a bf16,
 f16 or f32 cache, which the JAX kernel upcasts to f32) and the
 int8+scale-KV instantiation (quant=True, entry flash_attention_q8). Source:
 tpullm_torch/csrc/flash.cu, in two regimes picked by `regime` from the query
-rows that share one KV head, R = T·H/Hkv: up to DECODE_ROWS the split-KV
-decode kernel (CUDA cores; bound: the K/V bytes up to kv_len), above it the
+rows that share one KV head, R = T·H/Hkv: up to DECODE_ROWS, and at T = 1
+up to DECODE_MAX_ROWS (Falcon-7B's 71 heads on one KV head), the split-KV
+decode kernel (CUDA cores; bound: the K/V bytes up to kv_len; a block a row
+group of DECODE_ROWS rows, a split counter each), otherwise the
 tensor-core prefill kernel (bound: the QK and PV products). Head dims Dk =
 Dv 64, 128 and 256 in the library `flash`, 80 and 96 (Phi-2, Phi-3) in
 `flash_narrow`, and key width Dk ≠ value width Dv at (192, 128) and
@@ -82,7 +84,12 @@ ATTN_DENSE_ROUTES = dict.fromkeys(FORMATS, 0)
 # the JAX package's own route for them), by KV format
 ATTN_RING_ROUTES = dict.fromkeys(FORMATS, 0)
 
-DECODE_ROWS = 16  # csrc/flash.cu kDecodeRows: R = T·H/Hkv up to this is decode
+DECODE_ROWS = 16  # csrc/flash.cu kDecodeRows: a decode block's rows (a row group)
+# kDecodeMaxRows: a decode token's R = H/Hkv up to this takes the decode
+# regime in row groups. A forward of T ≥ 2 above DECODE_ROWS stays on the
+# prefill kernel, as before the row groups (verify and prefill launches
+# unchanged; which kernel is faster there is not measured)
+DECODE_MAX_ROWS = 80
 LATENT_DECODE_ROWS = 64  # kLatentDecodeRows: the latent form's decode regime, rows of 16
 DECODE_TILE = 64  # keys a decode tile (kDecTK): splits are whole tiles
 MAX_SPLITS = 64  # splits of one (batch, KV head) at most (kMaxSplits)
@@ -98,10 +105,13 @@ _LATENT_ARGS = (_P,) * 6 + (_I,) * 7 + (_F, _I, _P)
 
 def regime(T: int, H: int, Hkv: int, latent: bool = False) -> str:
     """The kernel a call takes: "decode" (split-KV) when the query rows
-    sharing one KV head, T·H/Hkv, are at most DECODE_ROWS (the latent form:
-    LATENT_DECODE_ROWS), else "prefill"."""
-    return "decode" if T * (H // Hkv) <= (LATENT_DECODE_ROWS if latent else DECODE_ROWS) \
-        else "prefill"
+    sharing one KV head, R = T·H/Hkv, are at most DECODE_ROWS, or at most
+    DECODE_MAX_ROWS at T = 1 (the latent form: LATENT_DECODE_ROWS at any
+    T), else "prefill"."""
+    R = T * (H // Hkv)
+    if latent:
+        return "decode" if R <= LATENT_DECODE_ROWS else "prefill"
+    return "decode" if R <= DECODE_ROWS or (T == 1 and R <= DECODE_MAX_ROWS) else "prefill"
 
 
 def max_splits(B: int, Hkv: int, S: int, n_sm: int) -> int:
@@ -367,7 +377,8 @@ def _ptr(t) -> int | None:
 
 
 def _scratch(q, k, dv: int, latent: bool = False):
-    """(output [B, T, H, dv], the stream, the decode regime's split count,
+    """(output [B, T, H, dv], the stream, the decode regime's split count
+    (0 in the prefill regime: the C entries take the prefill kernel then),
     its partials and counters: None where one split takes the keys, or in
     the prefill regime). A counter a (batch, KV head, row group of 16)."""
     B, T, H, _ = q.shape
@@ -375,13 +386,13 @@ def _scratch(q, k, dv: int, latent: bool = False):
     R = T * (H // Hkv)
     out = torch.empty((B, T, H, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    n_split, partial, counters = 1, None, None
+    n_split, partial, counters = 0, None, None
     if regime(T, H, Hkv, latent) == "decode":
         n_split = max_splits(B, Hkv, S, _build.n_sm(q.device))
         if n_split > 1:
             partial = torch.empty(B * Hkv * n_split * R * (dv + 2), dtype=torch.float32,
                                   device=q.device)
-            counters = _build.counters(q.device, stream, B * Hkv * -(-R // 16))
+            counters = _build.counters(q.device, stream, B * Hkv * -(-R // DECODE_ROWS))
     return out, stream, n_split, partial, counters
 
 

@@ -3,11 +3,19 @@
 Math follows ggml_rope_ext: "norm" style rotates adjacent element pairs (the
 interleaved layout llama-family GGUF weights are permuted for), "neox"
 rotates the two halves; the YaRN ramp and mscale follow ggml's rope_yarn.
-Angles are computed in f32. M-RoPE is not ported.
+Angles are computed in f32.
+
+M-RoPE (qwen2vl, qwen3vl, qwen3vlmoe; the JAX package's ops/rope.py
+apply_rope): where rp.sections is set and positions are [S, B, T], one
+stream per section role (t, h, w, extra), each frequency dim takes its
+angle from the stream its section covers: contiguous sections (qwen2vl), or
+interleaved [T H W T H W … T] (IMROPE, rp.mrope_interleaved). With all
+streams equal it is NEOX RoPE exactly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -28,9 +36,39 @@ def inv_freq(dims: int, freq_base: float, device: torch.device) -> torch.Tensor:
     return torch.pow(torch.tensor(freq_base, dtype=torch.float32, device=device), expo)
 
 
+@functools.lru_cache(maxsize=None)
+def mrope_streams(sections: tuple, interleaved: bool, half: int, n_streams: int,
+                  device: torch.device) -> torch.Tensor:
+    """The stream index [half] int64 of each frequency dim under M-RoPE,
+    made once on the host per RopeParams and device (a captured graph reads
+    no host value): IMROPE gives dims 1, 4, 7, … below 3·sections[1] to
+    stream 1 and 2, 5, 8, … below 3·sections[2] to stream 2; contiguous
+    sections cover the dims in order, cycling over their total; an index
+    past the streams given takes the last."""
+    if interleaved:
+        stream = [0] * half
+        for d in (1, 2):
+            for i in range(d, min(sections[d] * 3, half), 3):
+                stream[i] = d
+    else:
+        total = max(1, sum(sections))
+        bounds = [sum(sections[:i + 1]) for i in range(len(sections))]
+        stream = [sum(j % total >= b for b in bounds) for j in range(half)]
+    return torch.tensor([min(s, n_streams - 1) for s in stream], dtype=torch.int64,
+                        device=device)
+
+
 def rope_angles(rp: RopeParams, positions: torch.Tensor,
                 mscale_on: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables: positions [...] → ([..., dims/2], [..., dims/2]) f32."""
+    """cos/sin tables: positions [...] → ([..., dims/2], [..., dims/2]) f32;
+    under M-RoPE (rp.sections, positions [S, B, T]) → [B, T, dims/2], each
+    dim's angle from its stream (`mrope_streams`)."""
+    if rp.sections and positions.ndim == 3:
+        cos, sin = rope_angles(dataclasses.replace(rp, sections=()), positions, mscale_on)
+        idx = mrope_streams(rp.sections, rp.mrope_interleaved, rp.dims // 2,
+                            positions.shape[0], positions.device)
+        pick = idx.reshape(1, 1, 1, -1).expand(1, *cos.shape[1:])
+        return cos.gather(0, pick)[0], sin.gather(0, pick)[0]
     dev = positions.device
     freq_scale = 1.0 / rp.scale_factor if rp.scaling_type in ("linear", "yarn") else 1.0
     theta_extrap = positions[..., None].float() * inv_freq(rp.dims, rp.freq_base, dev)

@@ -227,7 +227,9 @@ class BatchEngine:
     def embed_tokens(self, slot: int, tokens: list[int], pooling: str | None = None,
                      normalize: bool = True) -> np.ndarray:
         """Pooled embedding [n_embd] of the final-norm hidden states,
-        computed in slot `slot` (its state is consumed: n_past 0 after)."""
+        computed in slot `slot` (its state is consumed: n_past 0 after). A
+        non-causal model (llama-embed) runs at offset n over its slot's
+        first n cache slots zeroed, as Engine.embed_tokens (see there)."""
         pooling = pooling or (self.hp.pooling if self.hp.pooling != "none" else "mean")
         n = len(tokens)
         bucket = self._bucket(n)
@@ -236,6 +238,12 @@ class BatchEngine:
         pos = np.broadcast_to(np.arange(bucket, dtype=np.int32), (self.n_slots, bucket)).copy()
         offsets = np.full(self.n_slots, -1, dtype=np.int32)
         offsets[slot] = 0  # a causal model writes its rows (thrown away: slot freed after)
+        if not self.hp.causal:
+            if n + bucket > self.max_seq:
+                raise ValueError(f"a non-causal embedding of {n} tokens (bucket {bucket}) "
+                                 f"needs {n + bucket} cache slots; max_seq is {self.max_seq}")
+            self.cache.clear_slots(n, row=slot)
+            offsets[slot] = n
         hidden, self.cache = self.arch.forward(
             self.hp, self.params, self._dev(toks), self._dev(pos), self.cache,
             self._dev(offsets), return_hidden=True)

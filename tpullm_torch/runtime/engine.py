@@ -39,6 +39,12 @@ stream; other graphs ignore it, as the JAX package's do) and `grp_attn_n`
 causal mask unchanged). Under self-extend every path computes its
 positions the same way: the eager prefill on the host, the decode, logits
 and verify graphs on the device from their n_past buffers.
+
+`prefill_embeddings` feeds input embeddings in place of token ids (the
+llama graph's multimodal path: M-RoPE position streams, qwen3vl's
+deepstack residuals), eagerly, in chunks of the prefill cap. `embed_tokens`
+of a non-causal model (llama-embed) computes what the JAX package's
+computes on a new engine, whatever ran before (see there).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..models import llama
 from ..ops.sampling_ops import SamplingParams, sample_token
 from .graph import DecodeRunner, LogitsRunner, VerifyRunner
 from .kvcache import SWACache, describe, make_cache, takes_ring
@@ -248,6 +255,64 @@ class Engine:
             self._positions(self.n_past, 1), self.cache, self.n_past)
         self.n_past += 1
         return logits[0, 0]
+
+    @torch.inference_mode()
+    def _prefill_embeddings(self, embds: np.ndarray, positions, deepstack) -> torch.Tensor:
+        """prefill_embeddings' forwards; the logits of the last row [V]."""
+        n = embds.shape[0]
+        while n > self.prefill_cap:
+            c = self.prefill_cap
+            self._prefill_embeddings(embds[:c], None if positions is None else positions[:, :c],
+                                     None if deepstack is None else deepstack[:, :c])
+            embds = embds[c:]
+            positions = None if positions is None else positions[:, c:]
+            deepstack = None if deepstack is None else deepstack[:, c:]
+            n = embds.shape[0]
+        bucket = self._bucket(n)
+        buf = torch.zeros((self.batch, bucket, embds.shape[1]), dtype=torch.float32)
+        buf[0, :n] = torch.from_numpy(np.asarray(embds, np.float32))
+        if positions is None:
+            pos = self._positions(self.n_past, bucket)
+        else:
+            positions = np.asarray(positions, np.int32)
+            pbuf = np.zeros((positions.shape[0], bucket), np.int32)
+            pbuf[:, :n] = positions
+            # pad rows continue past the last position (the JAX package's rule)
+            pbuf[:, n:] = positions[:, -1:] + np.arange(1, bucket - n + 1, dtype=np.int32)
+            pos = torch.from_numpy(pbuf).to(self.device)[:, None].expand(-1, self.batch, -1)
+        ds = None
+        if deepstack is not None:
+            ds = torch.zeros((deepstack.shape[0], self.batch, bucket, embds.shape[1]),
+                             dtype=torch.float32)
+            ds[:, 0, :n] = torch.from_numpy(np.asarray(deepstack, np.float32))
+            ds = ds.to(self.device)
+        logits, self.cache = self.arch.forward(
+            self.hp, self.params, buf.to(self.device), pos, self.cache, self.n_past,
+            last_index=n - 1, deepstack=ds)
+        self.n_past += n
+        return logits[0, 0]
+
+    def prefill_embeddings(self, embds: np.ndarray, positions: np.ndarray | None = None,
+                           deepstack: np.ndarray | None = None) -> np.ndarray:
+        """Feed input embeddings [n, n_embd] in place of token ids (the
+        multimodal path, llama_batch.embd); returns the last position's
+        logits [n_vocab]. `positions` [S, n]: one RoPE stream a M-RoPE
+        section (qwen2vl, qwen3vl image grids); None: the positions of the
+        cache slots. `deepstack` [n_ds, n, n_embd]: qwen3vl's visual
+        residuals after layers 0 .. n_ds − 1, zero at text positions. The
+        llama graph's option (the JAX package's Engine.prefill_embeddings),
+        run eagerly in chunks of the prefill cap."""
+        if self.arch.forward is not llama.forward:
+            raise NotImplementedError(f"input embeddings run on the llama graph, not on "
+                                      f"{self.hp.arch!r}'s")
+        n = embds.shape[0]
+        if self.n_past + n > self.max_seq:
+            raise ValueError(f"context overflow: {self.n_past}+{n} > {self.max_seq}")
+        t0 = time.perf_counter()
+        out = self._prefill_embeddings(embds, positions, deepstack).cpu().numpy()
+        self.perf.t_prefill_s += time.perf_counter() - t0
+        self.perf.n_prefill += n
+        return out
 
     def prefill(self, tokens: list[int]) -> np.ndarray:
         """Feed prompt tokens; returns logits of the last token [n_vocab]."""
@@ -468,12 +533,32 @@ class Engine:
         """Pooled embedding vector [n_embd] of the final-norm hidden states
         (llama_get_embeddings_seq): pooling mean | cls | last (default the
         model's pooling_type, mean if unset), L2-normalised with
-        `normalize`. A throwaway prefill at slot 0; n_past is 0 after."""
+        `normalize`. A throwaway prefill at slot 0; n_past is 0 after.
+
+        A non-causal model (llama-embed): the JAX package runs its forward at
+        cache offset n (the token count) and positions 0 .., so that the
+        flash kernel's query row t sees slots [0, n + t]: the n slots before
+        the tokens, then the tokens up to t. On a new engine those n slots
+        are zero (keys of score 0 and values 0 in each row's softmax); the
+        JAX package reads whatever earlier calls left there. Here they are
+        zeroed first, so every call computes what the JAX package computes
+        on a new engine, whatever ran before (llama.cpp's
+        LLM_ARCH_LLAMA_EMBED attends without a mask over the batch's tokens;
+        neither package computes that)."""
         pooling = pooling or (self.hp.pooling if self.hp.pooling != "none" else "mean")
+        n = len(tokens)
         toks = self._padded(tokens)
+        offset = 0
+        if not self.hp.causal:
+            if n + toks.shape[1] > self.max_seq:
+                raise ValueError(f"a non-causal embedding of {n} tokens (bucket "
+                                 f"{toks.shape[1]}) needs {n + toks.shape[1]} cache slots; "
+                                 f"max_seq is {self.max_seq}")
+            self.cache.clear_slots(n)
+            offset = n
         pos = torch.arange(toks.shape[1], dtype=torch.int32, device=self.device)  # plain, as the JAX embed_tokens
         hidden, self.cache = self.arch.forward(
-            self.hp, self.params, toks, pos[None].expand(self.batch, -1), self.cache, 0,
+            self.hp, self.params, toks, pos[None].expand(self.batch, -1), self.cache, offset,
             return_hidden=True)
         self.n_past = 0  # the embedding pass does not advance generation state
         h = hidden[0, :len(tokens)].cpu().numpy()  # [n, E] f32

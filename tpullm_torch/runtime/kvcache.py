@@ -148,6 +148,13 @@ class KVCache:
         """Attention-ready (k, v) views for a layer: [B, Hkv, S, D]."""
         return self.k[layer], self.v[layer]
 
+    def clear_slots(self, n: int, row: int | None = None) -> None:
+        """Slots [0, n) of every layer zeroed, as a new cache holds them (in
+        place), in batch row `row` (None: every row)."""
+        rows = slice(None) if row is None else slice(row, row + 1)
+        for arr in (self.k, self.v):
+            arr[:, rows, :, :n].zero_()
+
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
                offset) -> "KVCache":
         """Write k/v [B, Hkv, T, D] at sequence position `offset` of `layer`
@@ -201,6 +208,13 @@ class QuantKVCache:
     def kv_packed(self, layer: int):
         """(k_q, k_s, v_q, v_s) views of a layer for the q8 flash kernel."""
         return self.k_q[layer], self.k_s[layer], self.v_q[layer], self.v_s[layer]
+
+    def clear_slots(self, n: int, row: int | None = None) -> None:
+        """Slots [0, n) of every layer zeroed (codes and scales), as a new
+        cache holds them (in place), in batch row `row` (None: every row)."""
+        rows = slice(None) if row is None else slice(row, row + 1)
+        for arr in (self.k_q, self.v_q, self.k_s, self.v_s):
+            arr[:, rows, :, :n].zero_()
 
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
                offset) -> "QuantKVCache":
