@@ -104,6 +104,22 @@ Phases, in order; any failure raises and exits nonzero:
     cache format, B = 2 at kv 38 / 3001 and B = 1 at kv 1024, beside the
     prefill kernel at the same call (the route before the row groups); qmm
     at Apertus-8B's and AFM-4.5B's FFN shapes, M = 1 and 512;
+ 3h. alibi kernels: flash with ALiBi at BLOOM-7B1's heads (32 on 32 of
+    128, the slopes of max bias 8), B = 1, S = 4096: the decode regime at
+    R = 1, kv 3001, on every cache format, and on bf16 at kv 20 and the
+    prefill regime at T = 512; each against its plain version and that of
+    its own order, timed beside its bound and SDPA with the bias as its
+    float mask;
+ 3i. bloom and gpt2 kernels: qmm at the Q4_K_M linears of BLOOM-7B1 and
+    MPT-7B (q|k|v, wo, up, the Q6_K and Q4_K down), StarCoder-15.5B (the
+    same and its Q6_K head) and GPT-2, M = 1, 2 (the 2-slot step) and 512,
+    each against its plain version and timed as in 3;
+ 3j. conformance: tpullm_torch/tools/conformance.py's sweep on the card's
+    kernels (every plane format through qmm at 1, 9, 16 and 128 rows, the
+    expert gather and stack, flash on every cache format and head-dim form
+    in both regimes, the row groups at R = 48, 71 and 80, the latent forms,
+    sinks and ALiBi at kv 3001): no failed case; its summary printed as a
+    JSON line before the kernels line;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -182,7 +198,8 @@ Phases, in order; any failure raises and exits nonzero:
     16 decode steps each, at Q2_K, IQ4_XS, Q4_0, Q4_1,
     Q5_0, Q5_1, IQ4_NL and Q3_K_M; then Mixtral-8x7B at
     MXFP4_MOE with 4 layers (a 64-token prompt through qmm_stack, decode
-    through qmm_gather);
+    through qmm_gather); each file synthesized in a child process while the
+    one before runs;
  7. i-quants: Llama-3-8B with 4 layers at IQ1_S, IQ3_XXS, IQ2_XXS,
     IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0; Mixtral-8x7B
     at IQ2_XXS with 4 layers; the 8B at Q4_K_M with 4 layers and Q4_K and
@@ -265,9 +282,9 @@ Phases, in order; any failure raises and exits nonzero:
     the decode graph, TTFT, decode tok/s, launches per forward (flash's
     latent form at (288, 256) once a layer in both regimes: the decode
     regime at R = 40), device ms by family, teacher-forced against dense
-    bf16 weights; PLM-1.8B (plm: 32 layers, n_embd 2048, 16 heads on the
-    latent 512 + 64, q direct, a gateless ReLU² FFN of 8192, vocab 151936,
-    tied) at full width and depth the same way and a BatchEngine of 4 slots
+    bf16 weights; PLM-1.8B (plm: n_embd 2048, 16 heads on the latent 512
+    + 64, q direct, a gateless ReLU² FFN of 8192, vocab 151936, tied) at
+    full width with PLM_LAYERS = 8 of its 32 layers the same way and a BatchEngine of 4 slots
     on its Model teacher-forced against Engine; each model's decompressed
     form (TPULLM_MLA=0: flash at (96, 64) and (192, 128)) on bf16, q8, f16
     and f32 caches, briefly, its bf16 logits held against the absorbed
@@ -275,7 +292,8 @@ Phases, in order; any failure raises and exits nonzero:
  8g. fit (after 5e, on the 8B's file): tpullm-torch-fit-params at -c
     262144 on the card's free memory, then an Engine at its fitted context:
     predicted weights + cache against max_memory_allocated, within 10%;
- 8h. llama options: Qwen3-VL-8B (qwen3vl, IMROPE) at full width and depth:
+ 8h. llama options: Qwen3-VL-8B (qwen3vl, IMROPE) at full width with
+    QWEN3VL_LAYERS = 8 of its 36 layers:
     text on the decode graph, a decode token profiled, prefill_embeddings of
     a 256-row image with its grid positions and three deepstack residuals
     against dense bf16 weights; with 4 layers Qwen2-VL-7B (an image too),
@@ -285,11 +303,27 @@ Phases, in order; any failure raises and exits nonzero:
     decode token's flash in the decode regime's row groups, its K = 4544
     linears through the counted dequantize route), Pythia-6.9B with 4
     layers;
+ 8j. gguf (after 8g): Llama-3-8B Q4_K_M with 4 layers split by
+    tpullm-torch-gguf-split into shards of 16 tensors; an Engine on shard 1
+    against one on the whole file (the same greedy ids and prompt logits);
+    tpullm-torch-gguf-hash of both (the same digest and UUID);
+    tpullm-torch-gguf-convert-endian to big and back (byte-equal);
+ 8k. bloom: BLOOM-7B1 at full width and depth (30 layers, ALiBi, the
+    250880-token head tied to the embedding) on bf16 and q8 caches: every
+    linear through qmm, flash at d128 with ALiBi in the decode regime at
+    every decode token, the head one torch.matmul (aten-level count), a
+    decode token profiled by family with the head's share, a 2-slot
+    BatchEngine teacher-forced against Engine; MPT-7B with 4 layers;
+ 8l. gpt2: GPT-2 at full width and depth, a 1100-token prompt at context
+    2048 (its bucket and last tokens past the 1024 positions: clamped);
+    StarCoder-15.5B with 4 layers (48 heads on one KV head: flash's row
+    groups at every decode token);
  9. routes: the tiny model with a 250-token head on the card against the
     CPU, its head through the counted dequantize-then-matmul route, and one
     attention call at head dims (112, 112), which no kernel instantiates,
     through the counted dense path;
-10. the card line, the `kernels` JSON line, and the result line.
+10. the card line, the `conformance` JSON line, the `kernels` JSON line,
+    and the result line.
 
 Every serving run checks its launches per regime: each forward's 2-D qmm
 on the tensor cores from 16 rows (the prefill buckets of 16 and up, the
@@ -303,6 +337,7 @@ or without the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import shutil
@@ -856,11 +891,13 @@ def counted_call(key: str, fn):
 
 
 def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, window=0,
-                sinks=False, alibi=False, timed=False, DV=None):
+                sinks=False, alibi=False, timed=False, DV=None, slopes=None):
     """One flash call on random inputs against its plain version; `fmt`
     the KV cache format (FLASH_FORMATS): q is bf16, K/V drawn in f32 and
     stored in the cache's dtype (q8: quantized as the cache quantizes); V
-    DV wide (None: D). The first call counts one launch under its key."""
+    DV wide (None: D); with `alibi` the heads' ALiBi slopes `slopes` (None:
+    a ramp from 0.5 to 0.01), and SDPA's mask, where timed, the float bias
+    they give. The first call counts one launch under its key."""
     import torch
     import torch.nn.functional as F
 
@@ -876,7 +913,8 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
     v = torch.randn(B, Hkv, S, DV, generator=gen, device=dev).to(kv_dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     sk = torch.randn(H, generator=gen, device=dev) if sinks else None
-    sl = torch.linspace(0.5, 0.01, H, device=dev) if alibi else None
+    sl = (torch.linspace(0.5, 0.01, H, device=dev) if slopes is None else slopes.to(dev)) \
+        if alibi else None
     scale = D ** -0.5
     if q8:
         k_q, k_s = QuantKVCache._quantize(k)
@@ -946,6 +984,9 @@ def _flash_case(dev, gen, *, fmt, B, T, H, Hkv, D, S, offsets, softcap=0.0, wind
         mask &= pos[None, None, :] > q_at - window
     mask = mask[:, None]  # [B, 1, T, S]
     qt = q.transpose(1, 2).to(k_lib.dtype)  # SDPA on the cache's dtype
+    if alibi:  # the bias as a float mask [B, H, T, S], −inf where masked
+        bias = sl.float()[None, :, None, None] * (pos[None, None, None, :] - q_at[:, None])
+        mask = torch.where(mask, bias, float("-inf")).to(qt.dtype)
     k_lib = k_lib.repeat_interleave(H // Hkv, dim=1)  # GQA heads expanded outside the timing
     v_lib = v_lib.repeat_interleave(H // Hkv, dim=1)
 
@@ -1962,10 +2003,9 @@ def graph_decode(label: str, kv_name: str, eng, word_ids, count, graph_prof: dic
     return out
 
 
-def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None,
-               vocab: str = "spm") -> Path:
-    """A synthetic GGUF of `shape` at preset `ftype` in `tmp`, after a check
-    that the disk holds it with 2 GB to spare."""
+def _synth_writer(tmp: Path, shape: str, ftype: str, n_layer: int | None, vocab: str):
+    """The path of `synthesize`'s GGUF and its writer (nothing drawn yet),
+    after a check that the disk holds it with 2 GB to spare."""
     from tpullm_torch.models.synth import synthetic_writer
 
     path = tmp / f"{shape}-{ftype.lower()}{f'-{n_layer}l' if n_layer else ''}-{vocab}.gguf"
@@ -1974,12 +2014,65 @@ def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | Non
     need, free = writer.payload_bytes(), shutil.disk_usage(tmp).free
     expect(free > need + 2e9, f"{free / 1e9:.1f} GB free in {tmp} holds the "
            f"{need / 1e9:.1f} GB {shape} {ftype} GGUF with 2 GB to spare")
+    return path, writer
+
+
+def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None,
+               vocab: str = "spm") -> Path:
+    """A synthetic GGUF of `shape` at preset `ftype` in `tmp` (with n_layer
+    layers where given)."""
+    path, writer = _synth_writer(tmp, shape, ftype, n_layer, vocab)
     t0 = time.perf_counter()
     writer.write()
     log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype}"
         f"{f' ({n_layer} layers)' if n_layer else ''} GGUF ({vocab} vocab) in "
         f"{time.perf_counter() - t0:.1f}s")
     return path
+
+
+# a child's synthesis: make_synthetic_llama_gguf on the JSON of its arguments
+SYNTH_CHILD = ("import json, sys; from tpullm_torch.models.synth import "
+               "make_synthetic_llama_gguf; make_synthetic_llama_gguf(**json.loads(sys.argv[1]))")
+# files synthesized at once ahead of the caller: a 4-layer 8B took 4–6 s
+# in a child and 3–4 s on the card, Mixtral at MXFP4_MOE 14 s
+SYNTH_AHEAD = 3
+
+
+def synthesized_ahead(tmp: Path, jobs: list[tuple]):
+    """The GGUF of each job (label, shape, ftype, n_layer) of `jobs` in
+    turn, as `synthesize` writes it (spm vocab), each written by a child
+    process while the caller runs the ones before: up to SYNTH_AHEAD
+    children at once, the next started when a file is handed over; the
+    caller unlinks each file before it takes the next. A child that fails
+    fails the run; on any exit the children still running are ended and
+    waited for (use with contextlib.closing)."""
+    def start(label, shape, ftype, n_layer):
+        path, _ = _synth_writer(tmp, shape, ftype, n_layer, "spm")
+        args = dict(path=str(path), shape=shape, seed=0, ftype=ftype, n_layer=n_layer,
+                    vocab="spm")
+        proc = subprocess.Popen([sys.executable, "-c", SYNTH_CHILD, json.dumps(args)],
+                                cwd=ROOT)
+        return path, proc, time.perf_counter()
+
+    waiting = [start(*job) for job in jobs[:SYNTH_AHEAD]]
+    try:
+        for i, (label, shape, ftype, n_layer) in enumerate(jobs):
+            path, proc, t0 = waiting.pop(0)
+            t_wait = time.perf_counter()
+            rc = proc.wait()
+            expect(rc == 0, f"[{label}] the synthesis child exited with {rc}")
+            log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype} "
+                f"({n_layer} layers) GGUF (spm vocab) in a child process: "
+                f"{time.perf_counter() - t0:.1f}s, of which "
+                f"{time.perf_counter() - t_wait:.1f}s waited for")
+            if i + SYNTH_AHEAD < len(jobs):
+                waiting.append(start(*jobs[i + SYNTH_AHEAD]))
+            yield path
+    finally:
+        for _, proc, _ in waiting:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
 # mixed scripts, digits, contractions and a special token, for the BPE vocab
@@ -2476,14 +2569,14 @@ def _profile_step(eng, prompt: list[int], steps: int = 8) -> dict:
 
 
 def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int,
-                   refs: tuple | None = None) -> dict:
+                   refs: tuple | None = None, bound: float = SERVE_NMSE_BOUND) -> dict:
     """Each slot s of the BatchEngine prefills prompts[s] (one joint round)
     and is fed, step by step in one batched step, the greedy ids of the
     single-stream Engine on the same prompt; each slot's logits held
-    against Engine's (prefill, then decode_step) within SERVE_NMSE_BOUND.
-    Reports the greedy ids that agree, and where they part, the step and
-    Engine's top-2 margin. `refs`: Engine's (logits, ids) from
-    engine_refs, taken before (`single` is then not used)."""
+    against Engine's (prefill, then decode_step) within `bound`. Reports
+    the greedy ids that agree, and where they part, the step and Engine's
+    top-2 margin. `refs`: Engine's (logits, ids) from engine_refs, taken
+    before (`single` is then not used)."""
     ref_logits, ref_ids = refs or engine_refs(single, prompts, steps)
     for s in range(eng.n_slots):
         eng.free_slot(s)
@@ -2505,9 +2598,9 @@ def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int
     n = (steps + 1) * len(prompts)
     log(f"[{label}] teacher-forced on Engine's greedy ids, {len(prompts)} slots × {steps + 1} "
         f"positions (prompts of {[len(p) for p in prompts]} tokens): worst NMSE {worst:.2e} "
-        f"(bound {SERVE_NMSE_BOUND}); greedy ids agree {agree}/{n}; parted at {parted}")
-    expect(worst <= SERVE_NMSE_BOUND, f"{label}: batched logits against Engine's, NMSE "
-           f"{worst:.3e} <= {SERVE_NMSE_BOUND}")
+        f"(bound {bound}); greedy ids agree {agree}/{n}; parted at {parted}")
+    expect(worst <= bound, f"{label}: batched logits against Engine's, NMSE {worst:.3e} "
+           f"<= {bound}")
     return dict(worst_nmse=worst, ids_agree=agree, positions=n, parted=parted)
 
 
@@ -4644,6 +4737,7 @@ def phase_deepseek2(tmp: Path, launches: dict) -> dict:
 
 # deepseek2's MLA aliases on the card (phase_mla_models)
 MLA_CTX = 4096  # max_seq
+PLM_LAYERS = 8  # PLM-1.8B's depth on the card (of 32)
 # MiniCPM3-4B's depth on the card (full width; of 62: all of them made the
 # phase 77 s, against its budget of about 60; 24 until the engine options
 # phase came)
@@ -4826,7 +4920,8 @@ def phase_mla_models(tmp: Path, launches: dict) -> dict:
        latent (mla_absorbed_run, with the check against dense weights),
        then its decompressed form on bf16, q8, f16 and f32 caches
        (mla_decompressed_runs);
-    3. PLM-1.8B at full width and depth on the bf16 latent (the ReLU² FFN),
+    3. PLM-1.8B at full width with PLM_LAYERS of its 32 layers on the bf16
+       latent (the ReLU² FFN),
        a BatchEngine of 4 slots on its Model (slot 3 idle) teacher-forced
        against Engine.decode_step, then its decompressed form;
     each step's seconds logged; no call through a counted route."""
@@ -4880,7 +4975,7 @@ def phase_mla_models(tmp: Path, launches: dict) -> dict:
     step(f"{label} decompressed")
 
     label = "plm-1.8b"
-    path = synthesize(tmp, "mla", "plm-1.8b", "Q4_K_M", vocab="bpe")
+    path = synthesize(tmp, "mla", "plm-1.8b", "Q4_K_M", n_layer=PLM_LAYERS, vocab="bpe")
     res, eng, key = mla_absorbed_run(label, path, launches, dense=False)
     ref = forms_ref(eng)
     prompts = [_word_ids(eng.tokenizer, n) for n in MLA_SLOT_LENS]
@@ -5459,7 +5554,8 @@ def phase_fit(path: Path, tmp: Path) -> dict:
 FIT_CTX = 262144  # the context asked of tpullm-torch-fit-params on the 8B
 FIT_TOLERANCE = 0.10  # its weights + cache against the Engine's peak
 LLAMA_OPT_CTX = 4096  # the llama options phase's context
-OPT_MODEL_LAYERS = 4  # the depth of its models but Qwen3-VL-8B (full)
+OPT_MODEL_LAYERS = 4  # the depth of its models but Qwen3-VL-8B
+QWEN3VL_LAYERS = 8  # Qwen3-VL-8B's depth on the card (of 36; deepstack after layers 0-2)
 FALCON_LAYERS = 4  # Falcon-7B's and Pythia-6.9B's depth on the card (of 32)
 FALCON_CTX = 2048  # their context (falcon-7b's and pythia's 2048 positions)
 
@@ -5557,8 +5653,8 @@ def vl_embeddings(label: str, eng, dense, deepstack: bool, n: int = 256) -> dict
 def phase_llama_options(tmp: Path, launches: dict) -> dict:
     """The llama graph's options at published widths, synthesized from seed
     0 at Q4_K_M:
-    1. Qwen3-VL-8B (arch qwen3vl, IMROPE [24, 20, 20]) at full width and
-       depth (36 layers), context LLAMA_OPT_CTX: load s and peak GiB; text
+    1. Qwen3-VL-8B (arch qwen3vl, IMROPE [24, 20, 20]) at full width with
+       QWEN3VL_LAYERS of its 36 layers, context LLAMA_OPT_CTX: load s and peak GiB; text
        on the decode graph (`_model_brief`: 512-token prompt, 64 greedy
        tokens, a decode replay's launches), a decode token profiled by
        family; prefill_embeddings of a
@@ -5611,8 +5707,8 @@ def phase_llama_options(tmp: Path, launches: dict) -> dict:
             f"loaded in {eng.perf.t_load_s:.1f}s, peak {peak:.2f} GiB")
         return path, eng, dict(load_s=eng.perf.t_load_s, load_peak_gib=peak)
 
-    # 1. Qwen3-VL-8B at full depth
-    path, eng, out = load("qwen3-vl-8b", "qwen3-vl-8b")
+    # 1. Qwen3-VL-8B with QWEN3VL_LAYERS layers
+    path, eng, out = load("qwen3-vl-8b", "qwen3-vl-8b", QWEN3VL_LAYERS)
     out["text"] = _model_brief("qwen3-vl-8b", eng, launches, 512, 64)
     no_routes("qwen3-vl-8b", out["text"]["launches"])
     out["decode_profile"] = profile_decode(eng, eng.decode_runner(SamplingParams(), 64),
@@ -5774,26 +5870,498 @@ def phase_falcon(tmp: Path, launches: dict) -> dict:
     return result
 
 
+# ALiBi at BLOOM-7B1's and MPT-7B's attention: 32 heads on 32 of head dim
+# 128, the slopes of max bias 8; a decode token at kv 20 and 3001 (R = 1:
+# the decode regime split over the keys), and a 512-token prefill
+ALIBI_HEADS = dict(B=1, H=32, Hkv=32, D=128, S=4096)
+ALIBI_CASES = (("T=1 kv=20", 1, (19,)), ("T=1 kv=3001", 1, (3000,)), ("T=512", 512, (2500,)))
+
+
+def phase_alibi_kernels(dev, results: dict, alibi_rows: dict):
+    """flash with ALiBi at ALIBI_HEADS, each case against the plain version
+    and its own order's plain version, timed as in phase 3 beside the
+    bound and SDPA with the float bias as its mask: on every cache format
+    at kv 3001, and on bf16 at kv 20 and T = 512. Rows go to `results` and
+    `alibi_rows` by kernel."""
+    import torch
+
+    from tpullm_torch.ops.attention import alibi_slopes
+
+    gen = torch.Generator(dev).manual_seed(31)
+    slopes = alibi_slopes(ALIBI_HEADS["H"], 8.0, dev)
+    for fmt, key in zip(FLASH_FORMATS, FLASH_KEYS):
+        bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
+        for label, T, offsets in ALIBI_CASES:
+            if fmt != "bf16" and label != "T=1 kv=3001":
+                continue
+            row = _flash_case(dev, gen, fmt=fmt, T=T, offsets=offsets, alibi=True,
+                              slopes=slopes, timed=True, **ALIBI_HEADS)
+            row["case"] = f"{fmt} alibi {label} B=1 H=32/32 S=4096 D=128"
+            want = "decode" if T == 1 else "prefill"
+            expect(row["regime"] == want, f"flash {row['case']}: the {want} regime")
+            expect(row["finite"] and row["nmse"] <= bound and row["nmse_own_order"] <= bound,
+                   f"flash {row['case']}: NMSE {row['nmse']:.3e} (own order "
+                   f"{row['nmse_own_order']:.3e}) <= {bound}")
+            log(f"[alibi kernels] flash {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} "
+                f"(own order {row['nmse_own_order']:.2e}) max|d| {row['max_abs_err']:.3g}; "
+                f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}) vs bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+                f"SDPA with the bias {row['library_ms']:.4f} ms")
+            results.setdefault(key, []).append(row)
+            alibi_rows.setdefault(key, []).append(row)
+    torch.cuda.empty_cache()
+
+
+# the 2-D linears of BLOOM-7B1 and MPT-7B (the same widths: n_embd 4096,
+# n_ff 16384), StarCoder-15.5B (6144, q|k|v 6144 + 2·128, n_ff 24576) and
+# GPT-2 (768, 3072) at Q4_K_M, (format, name, K, N): the fused attn_qkv at
+# Q5_K, wo and up at Q4_K, the down projections at the recipe's Q6_K
+# (use_more_bits layers) and Q4_K, StarCoder's own Q6_K head (BLOOM's,
+# MPT's and GPT-2's heads are tied: a plain product)
+BLOOM_GPT2_QMM_SHAPES = (("Q5_K", "bloom-7b1|mpt-7b qkv", 4096, 12288),
+                         ("Q4_K", "bloom-7b1|mpt-7b wo", 4096, 4096),
+                         ("Q4_K", "bloom-7b1|mpt-7b up", 4096, 16384),
+                         ("Q6_K", "bloom-7b1|mpt-7b down", 16384, 4096),
+                         ("Q4_K", "bloom-7b1|mpt-7b down", 16384, 4096),
+                         ("Q5_K", "starcoder-15b qkv", 6144, 6400),
+                         ("Q4_K", "starcoder-15b wo", 6144, 6144),
+                         ("Q4_K", "starcoder-15b up", 6144, 24576),
+                         ("Q6_K", "starcoder-15b down", 24576, 6144),
+                         ("Q4_K", "starcoder-15b down", 24576, 6144),
+                         ("Q6_K", "starcoder-15b head", 6144, 49152),
+                         ("Q5_K", "gpt2 qkv", 768, 2304),
+                         ("Q4_K", "gpt2 wo", 768, 768),
+                         ("Q4_K", "gpt2 up", 768, 3072),
+                         ("Q6_K", "gpt2 down", 3072, 768),
+                         ("Q4_K", "gpt2 down", 3072, 768))
+BLOOM_GPT2_QMM_ROWS = (1, 2, 512)  # a decode step, the 2-slot BatchEngine step, a prefill
+
+
+def phase_bloom_gpt2_kernels(dev, results: dict, rows: dict):
+    """qmm at BLOOM_GPT2_QMM_SHAPES, M in BLOOM_GPT2_QMM_ROWS
+    (`qmm_at_shapes`): the linears of the bloom and gpt2 phases' models."""
+    import torch
+
+    qmm_at_shapes("bloom gpt2", dev, torch.Generator(dev).manual_seed(37),
+                  BLOOM_GPT2_QMM_SHAPES, BLOOM_GPT2_QMM_ROWS, results, rows)
+
+
+def phase_conformance(dev) -> dict:
+    """tpullm_torch/tools/conformance.py's sweep on the card (the
+    hand-written kernels: every plane format through qmm at 1, 9, 16 and
+    128 rows, the expert gather and stack, flash on every cache format and
+    head-dim form in both regimes, the row groups, the latent forms, sinks
+    and ALiBi): no failed case, every NMSE under its bound."""
+    from tpullm_torch.tools import conformance
+
+    summary = conformance.run_sweep(device=dev)
+    log(f"[conformance] {summary['cases']} cases, {summary['passed']} passed in "
+        f"{summary['t_s']}s; max NMSE qmm {summary['max_nmse_qmm']}, flash "
+        f"{summary['max_nmse_flash']}; failed {summary['failed'][:8]}")
+    expect(not summary["failed"] and not summary["skipped"]
+           and summary["max_nmse_qmm"] <= conformance.QMM_NMSE_BOUND
+           and summary["max_nmse_flash"] <= conformance.FLASH_Q8_NMSE_BOUND,
+           f"conformance: {len(summary['failed'])} failed cases, {summary['skipped']} skipped")
+    return summary
+
+
+GGUF_SPLIT_TENSORS = 16  # tensors a shard of the split 4-layer 8B (4 shards)
+
+
+def _file_sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_gguf(tmp: Path) -> dict:
+    """The GGUF tools on Llama-3-8B Q4_K_M with 4 layers: tpullm-torch-gguf-
+    split into shards of GGUF_SPLIT_TENSORS tensors; an Engine on shard 1
+    (the reader takes in the other shards) against one on the whole file:
+    the same greedy ids on the decode graph and the same prompt logits;
+    tpullm-torch-gguf-hash of both: the same model digest and UUID;
+    tpullm-torch-gguf-convert-endian to big and back: the whole file byte
+    for byte."""
+    import torch
+
+    from tpullm_torch.runtime.engine import Engine
+    from tpullm_torch.tools import gguf_endian, gguf_hash, gguf_split
+
+    out: dict = {}
+    path = synthesize(tmp, "gguf", "llama-3-8b", "Q4_K_M", n_layer=4)
+    split_dir = tmp / "split"
+    split_dir.mkdir()
+    rc, text, err, secs = run_tool(gguf_split.main, ["--split-max-tensors",
+                                                     str(GGUF_SPLIT_TENSORS), str(path),
+                                                     str(split_dir / "llama")])
+    shards = sorted(split_dir.glob("llama-*-of-*.gguf"))
+    log(f"[gguf] tpullm-torch-gguf-split: rc {rc} in {secs:.1f}s, {text.strip()}; shards "
+        f"{[(p.name, round(p.stat().st_size / 2**20, 1)) for p in shards]} MiB")
+    expect(rc == 0 and len(shards) > 1 and shards[0].name.endswith(f"-of-{len(shards):05d}.gguf"),
+           "gguf: the split wrote its shards")
+    runs = {}
+    for name, p in (("whole", path), ("split", shards[0])):
+        eng = Engine(p, max_seq=1024)
+        prompt = _word_ids(eng.tokenizer, 200)
+        ids = eng.generate_tokens_device(prompt, 16, temp=0.0, stop_on_eog=False, chunk=16)
+        eng.reset()
+        runs[name] = (ids, eng.prefill(prompt), eng.perf.t_load_s)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    err_logits = nmse(torch.from_numpy(runs["split"][1]), torch.from_numpy(runs["whole"][1]))
+    log(f"[gguf] Engine on shard 1 (loaded in {runs['split'][2]:.1f}s; the whole file "
+        f"{runs['whole'][2]:.1f}s): greedy ids {runs['split'][0][:6]}… equal "
+        f"{runs['split'][0] == runs['whole'][0]}, prompt logits NMSE {err_logits:.3e}")
+    expect(runs["split"][0] == runs["whole"][0] and err_logits <= 1e-6,
+           "gguf: the split model's greedy ids and logits are the whole file's")
+    digests = {}
+    for name, p in (("whole", path), ("split", shards[0])):
+        rc, text, err, secs = run_tool(gguf_hash.main, ["--sha256", "--no-layer", str(p)])
+        digests[name] = [ln.split("\t")[:2] for ln in text.strip().splitlines()]
+        log(f"[gguf] tpullm-torch-gguf-hash --sha256 --no-layer {p.name}: rc {rc} in "
+            f"{secs:.1f}s: {digests[name]}")
+        expect(rc == 0, f"gguf: the hash tool on {p.name}")
+    expect(digests["split"] == digests["whole"], "gguf: the split model hashes as the whole")
+    be = tmp / "be.gguf"
+    rc1, t1, _, s1 = run_tool(gguf_endian.main, [str(path), "big", "-o", str(be), "-q"])
+    sha_be = _file_sha256(be)
+    rc2, t2, _, s2 = run_tool(gguf_endian.main, [str(be), "little", "-q"])
+    same = _file_sha256(be) == _file_sha256(path)
+    log(f"[gguf] tpullm-torch-gguf-convert-endian to big ({s1:.1f}s: {t1.strip()}) and back "
+        f"({s2:.1f}s: {t2.strip()}): the big file's sha256 {sha_be[:16]}…, back equal to the "
+        f"source {same}")
+    expect(rc1 == rc2 == 0 and same and sha_be != _file_sha256(path),
+           "gguf: the endian round trip is byte-equal")
+    out.update(shards=len(shards), logits_nmse=err_logits, ids=runs["split"][0],
+               digest=digests["whole"], endian_s=(s1, s2), split_load_s=runs["split"][2])
+    be.unlink()
+    shutil.rmtree(split_dir)
+    path.unlink()
+    return out
+
+
+BLOOM_CTX = 2048  # bloom-7b1's and mpt-7b's 2048 positions
+MPT_LAYERS = 4  # MPT-7B's depth on the card (of 32)
+BLOOM_SLOT_LENS = (40, 300)  # the 2-slot BatchEngine round's prompts
+BLOOM_TEACHER = 8  # teacher-forced batched steps against Engine
+BLOOM_DENSE_LAYERS = 1  # BLOOM-7B1's depth where the 2-slot step is held to SERVE_NMSE_BOUND
+BLOOM_TIE_MARGIN = 0.05  # Engine's top-2 gap under which a batched argmax may part
+# BLOOM-7B1 at full depth: the bound of the 2-slot step's logits against
+# Engine's, and of Engine's own logits in the other valid orders of
+# BLOOM_ORDERS; the random LayerNorm-with-bias model amplifies any change of
+# summation order with depth (tests/torch_alibi_depth.py), so the bound is
+# set from the readings of both at 30 layers on the H100: the step 0.182,
+# Engine in the 2-slot plans 0.1819 and on 66 SMs 0.1773 (PERF.md §6)
+BLOOM_DEPTH_NMSE_BOUND = 0.3
+# Engine's kernels planned for another order of their sums, each a valid
+# plan: as the 2-slot BatchEngine plans them (the joint prefill round's
+# tensor-core K split for twice the rows; qmm's CUDA-core plan and flash's
+# key splits for 2 rows and B = 2, the same as one's at these lengths), and
+# for a card of half the SMs (every split of qmm and flash)
+BLOOM_ORDERS = {"2-slot plans": dict(rows=2), "66 SMs": dict(n_sm=66)}
+HEAD_KERNEL = r"gemm|gemv|nvjet|xmma|cutlass"  # a library product's kernel names
+
+
+def aten_products(fn) -> dict:
+    """fn() under a dispatch mode that counts the aten products it calls
+    (mm, addmm, bmm, baddbmm, matmul, linear by name): the port's linears
+    run through qmm's ctypes calls, so what shows is a plain product."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("mm", "addmm", "bmm", "baddbmm", "matmul", "linear"):
+                counts[name] = counts.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def _head_share(prof: dict) -> float:
+    """Device ms a token of the library products among a decode profile's
+    top kernels (the tied head's torch.matmul)."""
+    import re
+
+    return sum(ms for name, ms, _ in prof["top"] if re.search(HEAD_KERNEL, name, re.I))
+
+
+def order_witness(eng, prompts: list[list[int]], refs: tuple, rows: int = 1,
+                  n_sm: int | None = None) -> float:
+    """Engine's own logits, teacher-forced on its greedy ids `refs` (from
+    engine_refs) as teacher_forced feeds the BatchEngine, with its kernels
+    planned for another order of their sums: qmm's tensor-core plan for
+    `rows` times the rows, its CUDA-core plan and flash's key splits for at
+    least `rows` rows / batches, and every plan for `n_sm` SMs; eager steps
+    (the captured graphs keep their own plans). Returns the worst NMSE
+    against `refs`' logits."""
+    import torch
+
+    from tpullm_torch.ops.kernels import _build, flash, qmm
+
+    ref_logits, ref_ids = refs
+    saved = (qmm.plan, qmm.gemv_plan, flash.max_splits, _build.n_sm)
+    plan, gemv_plan, max_splits, real_sm = saved
+    qmm.plan = lambda M, K, N, sm, batches=1: plan(M * rows, K, N, sm, batches)
+    qmm.gemv_plan = lambda M, K, N, sm: gemv_plan(max(M, rows), K, N, sm)
+    flash.max_splits = lambda B, Hkv, S, sm: max_splits(max(B, rows), Hkv, S, sm)
+    _build.n_sm = (lambda d: n_sm) if n_sm else real_sm
+    worst = 0.0
+    try:
+        with torch.inference_mode():
+            for s, p in enumerate(prompts):
+                eng.reset()
+                got = [eng.prefill(p)]
+                for step in range(len(ref_ids[s]) - 1):
+                    tok = torch.tensor(ref_ids[s][step], device=eng.device)
+                    got.append(eng._decode_logits(tok).float().cpu().numpy())
+                worst = max(worst, *(_nmse_np(g, r) for g, r in zip(got, ref_logits[s])))
+    finally:
+        qmm.plan, qmm.gemv_plan, flash.max_splits, _build.n_sm = saved
+    return worst
+
+
+def phase_bloom(tmp: Path, launches: dict) -> dict:
+    """The ALiBi family, synthesized from seed 0 at Q4_K_M:
+    1. BLOOM-7B1 at full width and depth (30 layers, 32 heads of 128, the
+       250880-token head tied to the embedding): `_model_brief` on bf16 and
+       q8 caches: every linear through qmm (no dequantize route), flash at
+       d128 with ALiBi in the decode regime at every decode token and in
+       the prefill regime in the prompt's forward, no dense attention; the
+       head one torch.matmul a step (counted at the aten level); a decode
+       token profiled by family, the head's share beside qmm's; a 2-slot
+       BatchEngine teacher-forced against Engine: its logits within
+       BLOOM_DEPTH_NMSE_BOUND at full depth, as Engine's own are in the
+       other orders of BLOOM_ORDERS (`order_witness`), its greedy ids where
+       Engine's top two are apart; within SERVE_NMSE_BOUND on
+       BLOOM_DENSE_LAYERS layers;
+    2. MPT-7B with MPT_LAYERS layers (no biases, ALiBi 8 from its key) on a
+       bf16 cache: the same launch checks."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+
+    result: dict = {}
+    path = synthesize(tmp, "bloom", "bloom-7b1", "Q4_K_M", vocab="bpe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(path, max_seq=BLOOM_CTX)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hp = eng.hp
+    L = len(eng.params["layers"])
+    log(f"[bloom-7b1] {hp.arch}: {L} layers, n_embd {hp.n_embd}, {hp.n_head} heads over "
+        f"{hp.n_head_kv} of {hp.head_dim}, ALiBi max bias {hp.max_alibi_bias}, n_ff {hp.n_ff}, "
+        f"vocab {hp.n_vocab} (head tied: {eng.params['output'] is None}); loaded in "
+        f"{eng.perf.t_load_s:.1f}s, peak {peak:.2f} GiB")
+    expect(eng.params["output"] is None and hp.max_alibi_bias == 8.0,
+           "bloom-7b1: the head tied to the embedding, ALiBi 8 without a key")
+    out = dict(load_s=eng.perf.t_load_s, load_peak_gib=peak, runs=[])
+
+    def flash_checks(label, fmt, run, n_layer):
+        got, steps, per = run["launches"], run["steps"], run["launches_per_decode"]
+        dec, pre = got[f"flash_{fmt}.d128.decode"], got[f"flash_{fmt}.d128.prefill"]
+        expect(dec == n_layer * steps and pre == n_layer and per.get("flash_decode") == n_layer,
+               f"{label} {fmt}: flash at d128 in the decode regime at every decode token "
+               f"({dec} over {steps} steps), the prefill regime in the prompt's forward ({pre})")
+        expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0
+               and per.get("qmm") == 4 * n_layer and got["qmm_tc"] > 0,
+               f"{label} {fmt}: q|k|v, wo, up and down through qmm (a decode replay {per}), no "
+               "counted route")
+
+    for kv in ("bf16", "q8_0"):
+        fmt = "q8" if kv == "q8_0" else kv
+        run = _model_brief(f"bloom-7b1-{fmt}", eng, launches, kv=kv)
+        flash_checks("bloom-7b1", fmt, run, L)
+        run["kv"] = fmt
+        out["runs"].append(run)
+    eng.new_cache(kv_dtype="bf16")
+    eng.prefill(_word_ids(eng.tokenizer, 64))
+    token = torch.tensor(5, device=eng.device)
+    products = aten_products(lambda: eng._decode_logits(token))
+    log(f"[bloom-7b1] aten products in an eager decode step: {products}")
+    expect(sum(products.values()) == 1, f"bloom-7b1: the tied head is the step's one plain "
+           f"product ({products})")
+    run = _model_brief("bloom-7b1-bf16", eng, launches, kv="bf16")  # its graph captured
+    prof = profile_decode(eng, eng.decode_runner(SamplingParams(), 16),
+                          _word_ids(eng.tokenizer, 64), 16, n_top=12)
+    head_ms = _head_share(prof)
+    table_gb = eng.params["tok_embd"].numel() * 2 / 1e9
+    out.update(decode_profile=prof, head_ms=head_ms, head_bound_ms=table_gb * 1e9 / PEAK_BYTES
+               * 1e3, head_bytes_gb=table_gb)
+    log(f"[bloom-7b1] a decode token by family (bf16, 16 replays): "
+        f"{prof['device_ms_per_token']}, event span {prof['event_span_ms_per_token']:.3f} ms; "
+        f"the tied head's product {head_ms:.4f} ms a token (its {table_gb:.3f} GB table at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s: {out['head_bound_ms']:.4f} ms) beside qmm "
+        f"{prof['device_ms_per_token']['qmm']:.4f} ms; top {prof['top'][:6]}")
+    expect(head_ms > 0, "bloom-7b1: the head's product shows in the decode profile")
+    prompts = [_word_ids(eng.tokenizer, n) for n in BLOOM_SLOT_LENS]
+    refs = engine_refs(eng, prompts, BLOOM_TEACHER)
+    be = BatchEngine(eng.model, n_slots=2, max_seq=BLOOM_CTX, prefill_chunk=512)
+    # the 2-slot step's rows differ from Engine's only in the kernels'
+    # summation orders (qmm's plan by M, flash's key splits by B), which the
+    # random LayerNorm-with-bias model amplifies with depth in both packages
+    # (tests/torch_alibi_depth.py): at full depth the step is held to
+    # BLOOM_DEPTH_NMSE_BOUND, and so is Engine itself in other valid orders
+    witness = {name: order_witness(eng, prompts, refs, **plan)
+               for name, plan in BLOOM_ORDERS.items()}
+    log(f"[bloom-7b1] Engine against itself in other orders of its sums, teacher-forced on its "
+        f"greedy ids: worst NMSE {witness} (bound {BLOOM_DEPTH_NMSE_BOUND})")
+    expect(max(witness.values()) <= BLOOM_DEPTH_NMSE_BOUND,
+           f"bloom-7b1: Engine in other orders within {BLOOM_DEPTH_NMSE_BOUND} ({witness})")
+    tf = teacher_forced("bloom-7b1 serving", be, None, prompts, BLOOM_TEACHER, refs=refs,
+                        bound=BLOOM_DEPTH_NMSE_BOUND)
+    expect(all(p["margin"] < BLOOM_TIE_MARGIN for p in tf["parted"]),
+           f"bloom-7b1 serving: the greedy ids agree but where Engine's top two lie within "
+           f"{BLOOM_TIE_MARGIN} ({tf['parted']})")
+    out.update(serving=tf, order_witness=witness)
+    del be, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    path = synthesize(tmp, "bloom", "bloom-7b1", "Q4_K_M", n_layer=BLOOM_DENSE_LAYERS,
+                      vocab="bpe")
+    eng = Engine(path, max_seq=BLOOM_CTX)
+    refs = engine_refs(eng, prompts, BLOOM_TEACHER)
+    be = BatchEngine(eng.model, n_slots=2, max_seq=BLOOM_CTX, prefill_chunk=512)
+    out["serving_1l"] = teacher_forced(f"bloom-7b1-{BLOOM_DENSE_LAYERS}l serving", be, None,
+                                       prompts, BLOOM_TEACHER, refs=refs)
+    del be, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    result["bloom-7b1"] = out
+
+    path = synthesize(tmp, "bloom", "mpt-7b", "Q4_K_M", n_layer=MPT_LAYERS, vocab="bpe")
+    eng = Engine(path, max_seq=BLOOM_CTX)
+    hp = eng.hp
+    log(f"[mpt-7b] {hp.arch}: n_embd {hp.n_embd}, {hp.n_head} heads of {hp.head_dim}, ALiBi "
+        f"max bias {hp.max_alibi_bias}, clamp_kqv {hp.clamp_kqv}; loaded in "
+        f"{eng.perf.t_load_s:.1f}s")
+    run = _model_brief(f"mpt-7b-{MPT_LAYERS}l", eng, launches)
+    flash_checks("mpt-7b", "bf16", run, MPT_LAYERS)
+    result["mpt-7b"] = dict(load_s=eng.perf.t_load_s, **run)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    return result
+
+
+GPT2_CTX = 2048  # past GPT-2's 1024 positions: the clamp's run
+GPT2_PROMPT = 1100  # its prompt: a bucket of 2048 rows, 76 of its tokens past the table
+STARCODER_LAYERS = 4  # StarCoder-15.5B's depth on the card (of 40)
+
+
+def phase_gpt2(tmp: Path, launches: dict) -> dict:
+    """Learned positions, synthesized from seed 0 at Q4_K_M:
+    1. GPT-2 at full width and depth (12 layers, heads of 64, 1024
+       positions) at context GPT2_CTX: a GPT2_PROMPT-token prompt (its
+       bucket, and its last tokens, past the position table: clamped to
+       its last row, no device assert) and 16 greedy tokens on the decode
+       graph; teacher-forced on those ids, the eager step's argmax and the
+       logits graph's are the same ids, the logits graph within
+       OPT_NMSE_BOUND of the eager step; every linear through qmm, flash
+       at d64;
+    2. StarCoder-15.5B with STARCODER_LAYERS layers (48 query heads on one
+       KV head): flash at d128 in the decode regime's row groups at every
+       decode token (R = 48), the prompt's forward in the prefill regime."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash
+    from tpullm_torch.runtime.engine import Engine
+
+    result: dict = {}
+    path = synthesize(tmp, "gpt2", "gpt2", "Q4_K_M", vocab="bpe")
+    eng = Engine(path, max_seq=GPT2_CTX)
+    hp = eng.hp
+    L = len(eng.params["layers"])
+    log(f"[gpt2] {hp.arch}: {L} layers, n_embd {hp.n_embd}, {hp.n_head} heads of "
+        f"{hp.head_dim}, {eng.params['pos_embd'].shape[0]} positions, vocab {hp.n_vocab}; "
+        f"loaded in {eng.perf.t_load_s:.1f}s")
+    run = _model_brief("gpt2", eng, launches, n_prompt=GPT2_PROMPT, n_gen=16)
+    got, steps = run["launches"], run["steps"]
+    expect(eng.n_past - 1 > hp.n_ctx_train and got["flash_bf16.d64.decode"] == L * steps
+           and got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0,
+           f"gpt2: a run past its {hp.n_ctx_train} positions (n_past {eng.n_past}), flash at d64 "
+           "in the decode regime at every decode token, every linear through qmm")
+    n_past = eng.n_past
+    prompt, ids = _word_ids(eng.tokenizer, GPT2_PROMPT), run["ids"]
+    graph, eager = _teacher_logits(eng, prompt, ids), _eager_logits(eng, prompt, ids)
+    worst = max(_nmse_np(a, b) for a, b in zip(graph, eager))
+    argmax = {name: [int(np.argmax(r)) for r in rows]
+              for name, rows in (("logits graph", graph), ("eager", eager))}
+    log(f"[gpt2] past the position table, teacher-forced on the decode graph's ids {ids}: the "
+        f"logits graph against the eager step NMSE worst {worst:.2e} (bound {OPT_NMSE_BOUND}); "
+        f"argmax {argmax}")
+    expect(worst <= OPT_NMSE_BOUND and all(a == ids for a in argmax.values()),
+           "gpt2: past the position table the decode graph's ids are the eager step's and the "
+           "logits graph's argmax, the logits graph within the bound of the eager step")
+    result["gpt2"] = dict(load_s=eng.perf.t_load_s, n_past=n_past, graph_vs_eager_nmse=worst,
+                          **run)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+
+    path = synthesize(tmp, "gpt2", "starcoder-15b", "Q4_K_M", n_layer=STARCODER_LAYERS,
+                      vocab="bpe")
+    eng = Engine(path, max_seq=GPT2_CTX)
+    hp = eng.hp
+    R = hp.n_head // hp.n_head_kv
+    log(f"[starcoder-15b] {hp.arch}: n_embd {hp.n_embd}, {hp.n_head} heads over "
+        f"{hp.n_head_kv} of {hp.head_dim} (R = {R} a decode token: "
+        f"{flash.regime(1, hp.n_head, hp.n_head_kv)} regime), vocab {hp.n_vocab}; loaded in "
+        f"{eng.perf.t_load_s:.1f}s")
+    run = _model_brief(f"starcoder-15b-{STARCODER_LAYERS}l", eng, launches)
+    got, steps, per = run["launches"], run["steps"], run["launches_per_decode"]
+    expect(R == 48 and got["flash_bf16.d128.decode"] == STARCODER_LAYERS * steps
+           and got["flash_bf16.d128.prefill"] == STARCODER_LAYERS
+           and per.get("flash_decode") == STARCODER_LAYERS and got["dequant_routes"] == 0
+           and got["attn_dense_routes"] == 0,
+           f"starcoder-15b: flash at d128 in the row groups at every decode token (R = {R}), "
+           "the prefill regime in the prompt's forward, every linear through qmm")
+    result["starcoder-15b"] = dict(load_s=eng.perf.t_load_s, **run)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    return result
+
+
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K,
     IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M (a bf16 KV cache;
     the q8 cache's flash runs in the slice, server and speculative
     phases); Mixtral-8x7B at MXFP4_MOE with 4 layers, a 64-token prompt (the
-    all-experts regime) and its decode (gather)."""
+    all-experts regime) and its decode (gather). Each file is synthesized
+    while the one before runs (`synthesized_ahead`)."""
     import torch
 
+    jobs = [(f"8b-{ftype}", "llama-3-8b", ftype, 4)
+            for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M")]
+    jobs.append(("mixtral-MXFP4_MOE", "mixtral-8x7b", "MXFP4_MOE", 4))
     runs = []
-    for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M"):
-        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
-        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
-        path.unlink()
-    path = synthesize(tmp, "mixtral-MXFP4_MOE", "mixtral-8x7b", "MXFP4_MOE", n_layer=4)
-    run = serve("mixtral-MXFP4_MOE", path, torch.bfloat16, launches, short=64)
-    expect(run["launches"].get("qmm_stack.MXFP4", 0) > 0
-           and run["launches"].get("qmm_gather.MXFP4", 0) > 0 and run["launches"]["qmm_q8_0"] > 0,
+    with contextlib.closing(synthesized_ahead(tmp, jobs)) as files:
+        for (label, *_), path in zip(jobs, files):
+            runs.append(serve(label, path, torch.bfloat16, launches, short=64))
+            path.unlink()
+    got = runs[-1]["launches"]
+    expect(got.get("qmm_stack.MXFP4", 0) > 0 and got.get("qmm_gather.MXFP4", 0) > 0
+           and got["qmm_q8_0"] > 0,
            "mixtral MXFP4_MOE ran MXFP4 through qmm_stack and qmm_gather, Q8_0 through qmm")
-    runs.append(run)
-    path.unlink()
     return runs
 
 
@@ -5802,30 +6370,42 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
     IQ3_XXS (between them IQ1_S, IQ2_XXS, IQ2_S, IQ3_XXS and an IQ3_S
     embedding), IQ2_XXS, IQ2_XS, IQ2_M, IQ1_M, IQ3_M, TQ1_0 and TQ2_0 (the
     IQ1_S and IQ3_XXS runs were at full depth before the tools phase
-    joined the smoke, and were cut to keep its time); Mixtral-8x7B at IQ2_XXS with 4 layers (a
-    64-token prompt through qmm_stack, decode through qmm_gather); the 8B at
-    Q4_K_M with 4 layers and qmm.GROUPED_TYPES = {Q4_K, Q6_K}: every 2-D
-    launch goes through qmm_grouped."""
+    joined the smoke, and were cut to keep its time); Mixtral-8x7B at
+    IQ2_XXS with 4 layers (a 64-token prompt through qmm_stack, decode
+    through qmm_gather); the 8B at Q4_K_M with 4 layers and
+    qmm.GROUPED_TYPES = {Q4_K, Q6_K} (`grouped_run`). Each file is
+    synthesized while the one before runs (`synthesized_ahead`)."""
+    import torch
+
+    jobs = [(f"8b-{ftype}", "llama-3-8b", ftype, 4)
+            for ftype in ("IQ1_S", "IQ3_XXS", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M",
+                          "TQ1_0", "TQ2_0")]
+    jobs += [("mixtral-IQ2_XXS", "mixtral-8x7b", "IQ2_XXS", 4),
+             ("8b-grouped", "llama-3-8b", "Q4_K_M", 4)]
+    runs = []
+    with contextlib.closing(synthesized_ahead(tmp, jobs)) as files:
+        for (label, *_), path in zip(jobs, files):
+            if label == "8b-grouped":
+                runs.append(grouped_run(path, launches))
+            else:
+                runs.append(serve(label, path, torch.bfloat16, launches, short=64))
+            path.unlink()
+    got = runs[-2]["launches"]
+    expect(got.get("qmm_stack.IQ2_XXS", 0) > 0 and got.get("qmm_gather.IQ2_XXS", 0) > 0
+           and got["qmm_iq2_xxs"] > 0,
+           "mixtral IQ2_XXS ran IQ2_XXS through qmm_stack, qmm_gather and qmm")
+    return runs
+
+
+def grouped_run(path: Path, launches: dict) -> dict:
+    """The 8B at Q4_K_M (`path`) served with qmm.GROUPED_TYPES = {Q4_K,
+    Q6_K}: every 2-D launch goes through qmm_grouped, its 512-token
+    prefill's kernels by name."""
     import torch
 
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.ops.kernels import qmm
 
-    runs = []
-    for ftype in ("IQ1_S", "IQ3_XXS", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M", "TQ1_0",
-                  "TQ2_0"):
-        path = synthesize(tmp, f"8b-{ftype}", "llama-3-8b", ftype, n_layer=4)
-        runs.append(serve(f"8b-{ftype}", path, torch.bfloat16, launches, short=64))
-        path.unlink()
-    path = synthesize(tmp, "mixtral-IQ2_XXS", "mixtral-8x7b", "IQ2_XXS", n_layer=4)
-    run = serve("mixtral-IQ2_XXS", path, torch.bfloat16, launches, short=64)
-    expect(run["launches"].get("qmm_stack.IQ2_XXS", 0) > 0
-           and run["launches"].get("qmm_gather.IQ2_XXS", 0) > 0
-           and run["launches"]["qmm_iq2_xxs"] > 0,
-           "mixtral IQ2_XXS ran IQ2_XXS through qmm_stack, qmm_gather and qmm")
-    runs.append(run)
-    path.unlink()
-    path = synthesize(tmp, "8b-grouped", "llama-3-8b", "Q4_K_M", n_layer=4)
     expect(not qmm.GROUPED_TYPES, "qmm.GROUPED_TYPES is empty (TPULLM_QMM_GROUPED unset)")
     qmm.GROUPED_TYPES.update({GGMLType.Q4_K, GGMLType.Q6_K})
     try:
@@ -5853,9 +6433,7 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
            and not any(counted.get(k) for k in QMM_KEYS.values()),
            f"the grouped run's 512-token prefill ran the 2-D kernels {two_d} (traced) and "
            f"{counted} (counted), not {want}")
-    runs.append(run)
-    path.unlink()
-    return runs
+    return run
 
 
 def phase_mixtral(tmp: Path, launches: dict) -> dict:
@@ -5987,6 +6565,11 @@ def main() -> int:
     timed("gemma kernels", phase_gemma_kernels, dev, results, gemma_k)
     opt_k: dict = {}
     timed("option kernels", phase_option_kernels, dev, results, opt_k)
+    alibi_k: dict = {}
+    timed("alibi kernels", phase_alibi_kernels, dev, results, alibi_k)
+    bloom_gpt2_k: dict = {}
+    timed("bloom gpt2 kernels", phase_bloom_gpt2_kernels, dev, results, bloom_gpt2_k)
+    conformance = timed("conformance", phase_conformance, dev)
     launches: dict = {}
     with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
         timed("tiny", phase_tiny, dev, Path(tmp))
@@ -5998,6 +6581,7 @@ def main() -> int:
                         launches)
         fit_run = timed("fit", phase_fit, slice_path, Path(tmp))
         slice_path.unlink()
+        gguf_run = timed("gguf", phase_gguf, Path(tmp))
         runs += timed("presets", phase_presets, Path(tmp), launches)
         runs += timed("i-quants", phase_iquants, Path(tmp), launches)
         runs.append(timed("mixtral", phase_mixtral, Path(tmp), launches))
@@ -6008,13 +6592,17 @@ def main() -> int:
         mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
         llama_opts = timed("llama options", phase_llama_options, Path(tmp), launches)
         falcon_run = timed("falcon", phase_falcon, Path(tmp), launches)
+        bloom_run = timed("bloom", phase_bloom, Path(tmp), launches)
+        gpt2_run = timed("gpt2", phase_gpt2, Path(tmp), launches)
         timed("routes", phase_routes, dev, Path(tmp))
     log("[runs] summary " + json.dumps({"runs": runs, "tools": tools, "server": server,
                                         "speculative": spec, "options": options,
                                         "gemma": gemma,
                                         "deepseek2": ds2, "qwen": qwen_run, "phi": phi_run,
                                         "mla": mla_run, "fit": fit_run,
-                                        "llama_options": llama_opts, "falcon": falcon_run},
+                                        "llama_options": llama_opts, "falcon": falcon_run,
+                                        "gguf": gguf_run, "bloom": bloom_run,
+                                        "gpt2": gpt2_run},
                                        default=str))
     for fmt in FLASH_FORMATS:
         for d in (256, 96, 80, 64):
@@ -6198,10 +6786,13 @@ def main() -> int:
                                  + launches.get("qmm_gather.MXFP4", 0))
         for name, rows_by_key in (("batched", batched), ("verify", verify), ("qwen", qwen),
                                   ("phi", phi), ("unfused", unfused), ("gemma", gemma_k),
-                                  ("options", opt_k)):
+                                  ("options", opt_k), ("alibi", alibi_k),
+                                  ("bloom_gpt2", bloom_gpt2_k)):
             # the shapes of continuous batching, of speculative verification,
             # of the Qwen models, of the Phi models and Qwen (v1), of the
-            # 8B's projections apart (a LoRA engine's), and of Gemma-3-4B
+            # 8B's projections apart (a LoRA engine's), of Gemma-3-4B, of
+            # the option models, of the ALiBi family's attention and of the
+            # bloom and gpt2 families' linears
             if key in rows_by_key:
                 entry[name] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")}
@@ -6210,6 +6801,7 @@ def main() -> int:
         kernels.append(entry)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
+    print(json.dumps({"conformance": conformance}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

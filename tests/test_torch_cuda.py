@@ -1946,3 +1946,89 @@ def test_phi2_batch_engine_on_the_card_matches_the_cpu(dev, tmp_path):
     a, b = gpu.prefill_slots({2: [1, 2, 3]}), cpu.prefill_slots({2: [1, 2, 3]})
     errs.append(_nmse(torch.from_numpy(a[2]), torch.from_numpy(b[2])))
     assert max(errs) <= 1e-3, errs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f16", "f32", "q8"])
+@pytest.mark.parametrize("offset", [19, 3000])
+def test_flash_alibi_decode_at_one_row_many_splits(dev, kv, offset):
+    """ALiBi at D = 128 in the decode regime at R = 1 (BLOOM-7B1's decode
+    token: 32 heads on 32, the slopes of max bias 8), kv 20 and 3001 of S =
+    4096 (the keys split over many blocks), every cache format: one launch
+    a call in the decode regime, against flash_reference."""
+    from tpullm_torch.ops.attention import alibi_slopes
+
+    H, D, S = 32, 128, 4096
+    assert flash.regime(1, H, H) == "decode"
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert flash.max_splits(1, H, S, n_sm) > 1
+    g = torch.Generator(dev).manual_seed(offset)
+    q = torch.randn(1, 1, H, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, H, S, D, generator=g, device=dev).to(KV_DTYPES.get(kv, torch.bfloat16))
+    v = torch.randn(1, H, S, D, generator=g, device=dev).to(KV_DTYPES.get(kv, torch.bfloat16))
+    off = torch.tensor([offset], dtype=torch.int32, device=dev)
+    sl = alibi_slopes(H, 8.0, dev)
+    before = flash.launch_total(kv, "decode")
+    if kv == "q8":
+        from tpullm_torch.runtime.kvcache import QuantKVCache
+
+        (k_q, k_s), (v_q, v_s) = QuantKVCache._quantize(k), QuantKVCache._quantize(v)
+        got = flash.flash_attention_q8(q, k_q, k_s, v_q, v_s, off, D ** -0.5, alibi_slopes=sl)
+        ref = flash.flash_reference(q, k_q, v_q, off, D ** -0.5, alibi_slopes=sl, k_scale=k_s,
+                                    v_scale=v_s)
+        bound = FLASH_Q8_NMSE_BOUND
+    else:
+        got = flash.flash_attention(q, k, v, off, D ** -0.5, alibi_slopes=sl)
+        ref = flash.flash_reference(q, k, v, off, D ** -0.5, alibi_slopes=sl)
+        bound = FLASH_NMSE_BOUND
+    torch.cuda.synchronize()
+    assert flash.launch_total(kv, "decode") == before + 1
+    assert torch.isfinite(got.float()).all() and _nmse(got.float(), ref.float()) <= bound
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f16", "f32", "q8"])
+def test_flash_row_groups_at_starcoder_r48(dev, kv):
+    """StarCoder-15.5B's decode token: 48 heads on one KV head of 128 (three
+    row groups of 16), B = 2 at kv 38 / 3001, every cache format: one
+    decode-regime launch a call against flash_reference."""
+    assert flash.regime(1, 48, 1) == "decode"
+    before = flash.launch_total(kv, "decode")
+    kernel, plain, bound = _flash_inputs(dev, kv, 2, 1, 48, 1, 4096, 128, (37, 3000), seed=48,
+                                         extras=False)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert flash.launch_total(kv, "decode") == before + 1
+    assert got.shape == (2, 1, 48, 128) and _nmse(got.float(), plain().float()) <= bound
+
+
+def test_bloom_and_gpt2_on_the_card_match_the_cpu(dev, tmp_path):
+    """tiny-bloom (ALiBi, tied head) and tiny-gpt2 (learned positions, 64 of
+    them) on the card against the CPU: a 70-token prompt (tiny-gpt2's past
+    its table) and decode steps within NMSE 1e-3; tiny-bloom's greedy ids
+    on the decode graph against the CPU's (after this prompt tiny-gpt2's
+    top two, ids 339 and 378, tie at 2.90625 on the CPU; the card's argmax
+    took 378), and both models' decode-graph ids (tiny-gpt2's positions
+    clamped in the graph) against the same engine's eager steps."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    for shape in ("tiny-bloom", "tiny-gpt2"):
+        path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+        gpu, cpu = Engine(path, max_seq=128), Engine(path, device="cpu", max_seq=128)
+        ids = [int(t) for t in np.random.default_rng(10).integers(5, 370, size=70)]
+        errs = [_nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+        for tok in (3, 17, 5):
+            errs.append(_nmse(torch.from_numpy(gpu.decode_step(tok)),
+                              torch.from_numpy(cpu.decode_step(tok))))
+        assert max(errs) <= 1e-3, (shape, errs)
+        gpu.reset()
+        graph = gpu.generate_tokens_device(ids, 8, chunk=4)
+        gpu.reset()
+        eager = [int(np.argmax(gpu.prefill(ids)))]
+        with torch.inference_mode():
+            for _ in range(7):
+                logits = gpu._decode_logits(torch.tensor(eager[-1], device=gpu.device))
+                eager.append(int(torch.argmax(logits)))
+        assert graph == eager, (shape, graph, eager)
+        if shape == "tiny-bloom":
+            cpu.reset()
+            assert graph == cpu.generate_tokens_device(ids, 8, chunk=4)

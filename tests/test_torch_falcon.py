@@ -12,7 +12,6 @@ partial rotary, biases, parallel residual) at Q4_K_M, bf16 activations and
 cache: NMSE 1e-3 (tests/test_torch_llama_aliases.py), the JAX side on its
 device repack (`TPULLM_DEVICE_REPACK=1`)."""
 
-import os
 
 import numpy as np
 import pytest
@@ -58,7 +57,6 @@ def _nmse(got, ref) -> float:
 def engines(tmp_path_factory):
     """One (port, JAX) Engine pair per case, made at first use."""
     d = tmp_path_factory.mktemp("falcon")
-    os.environ["TPULLM_DEVICE_REPACK"] = "1"  # the JAX load the port mirrors
     made = {}
 
     def get(case):
@@ -77,7 +75,9 @@ def engines(tmp_path_factory):
         te.reset()
         je.n_past = 0
         return te, je
-    return get
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPULLM_DEVICE_REPACK", "1")  # the JAX load the port mirrors, for this file
+        yield get
 
 
 def test_registry_maps_the_falcon_family():

@@ -6,7 +6,10 @@ card's machine is not known to have `regex` in every setup, and
 chip_smoke.py only reports whether it imports there) nor `aiohttp` (the
 server's HTTP layer is the standard library's http.server: the card's
 machine has no aiohttp). Every module of the package, the tools and the
-server among them, imports with the four blocked."""
+server among them, imports with the four blocked. The port's test files
+set no environment variable for good: one left set changes the JAX tests
+that a worker runs after them (TPULLM_DEVICE_REPACK=1 left by a module
+fixture failed two of tests/test_pipeline_infer.py's)."""
 
 import ast
 import os
@@ -69,6 +72,10 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.server.scheduler, tpullm_torch.server.__main__\n"
         "import tpullm_torch.runtime.speculative, tpullm_torch.runtime.ngram_cache\n"
         "import tpullm_torch.tools.lookup, tpullm_torch.tools.cvector, tpullm_torch.models.lora\n"
+        "import tpullm_torch.models.bloom, tpullm_torch.models.gpt2, tpullm_torch.tools.conformance\n"
+        "import tpullm_torch.tools.gguf_dump, tpullm_torch.tools.gguf_hash\n"
+        "import tpullm_torch.tools.gguf_metadata, tpullm_torch.tools.gguf_edit\n"
+        "import tpullm_torch.tools.gguf_split, tpullm_torch.tools.gguf_endian\n"
         "from tpullm_torch.tokenizer import bpe\n"
         "assert bpe.regex_split(\"it's 1234\", bpe.resolve_pre('llama-bpe')['regexes']) == \\\n"
         "    ['it', \"'s\", ' ', '123', '4']\n"
@@ -80,3 +87,30 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+def _sets_environ(node) -> bool:
+    """os.environ[...] = …, os.environ.setdefault / update (…), os.putenv (…)."""
+    def is_environ(n):
+        return (isinstance(n, ast.Attribute) and n.attr == "environ"
+                and isinstance(n.value, ast.Name) and n.value.id == "os")
+    if isinstance(node, (ast.Assign, ast.AugAssign)):
+        targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+        return any(isinstance(t, ast.Subscript) and is_environ(t.value) for t in targets)
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+        f = node.func
+        return ((f.attr in ("setdefault", "update") and is_environ(f.value))
+                or (f.attr == "putenv" and isinstance(f.value, ast.Name) and f.value.id == "os"))
+    return False
+
+
+@pytest.mark.parametrize("path", TEST_FILES, ids=lambda p: p.name)
+def test_torch_tests_leave_the_environment_as_they_found_it(path):
+    """A test file sets an environment variable through monkeypatch (or
+    pytest.MonkeyPatch.context, for a module fixture), never os.environ."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [node.lineno for node in ast.walk(tree) if _sets_environ(node)]
+    assert not bad, f"{path.name} sets os.environ at lines {bad}"

@@ -174,7 +174,7 @@ def test_baichuan_13b_takes_alibi(tmp_path):
 def test_registry_maps_the_aliases_and_refuses_the_rest():
     """The 17 aliases and the five that ride the llama graph's options
     (arcee, apertus, llama-embed, qwen2vl, qwen3vl) run the llama forward;
-    archs that wait (phimoe, stablelm) are refused; the registry maps 48
+    archs that wait (phimoe, stablelm) are refused; the registry maps 53
     names."""
     from tpullm_torch.models.hparams import LLAMA_OPTION_ALIASES
     from tpullm_torch.models.registry import _REGISTRY
@@ -186,7 +186,7 @@ def test_registry_maps_the_aliases_and_refuses_the_rest():
     for arch in ("phimoe", "stablelm"):
         with pytest.raises(NotImplementedError, match="is not ported"):
             get_arch(arch)
-    assert len(_REGISTRY) == 48
+    assert len(_REGISTRY) == 53
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,6 @@ graphs the same f32 arithmetic in another order: NMSE 1e-6. Packed weights,
 bf16 activations and cache: NMSE 1e-3 (tests/test_torch_llama_aliases.py).
 RoPE tables and rotated q: 1e-6 absolute (f32 angles)."""
 
-import os
 
 import numpy as np
 import pytest
@@ -112,7 +111,6 @@ def files(tmp_path_factory):
 def engines(files):
     """One (port, JAX) Engine pair per arch, made at first use."""
     made = {}
-    os.environ["TPULLM_DEVICE_REPACK"] = "1"  # the JAX load the port mirrors
 
     def get(arch):
         if arch not in made:
@@ -128,7 +126,9 @@ def engines(files):
         te.reset()
         je.n_past = 0
         return te, je
-    return get
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("TPULLM_DEVICE_REPACK", "1")  # the JAX load the port mirrors, for this file
+        yield get
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,19 @@ exposes tensor payloads as zero-copy numpy views over an mmap of the file.
 Quantized payloads stay packed: the port repacks them on the device
 (`tpullm_torch.ops.qmatmul.repack`), so `to_numpy` converts only the plain
 float types.
+
+A sharded model (llama.cpp's gguf-split naming, `<prefix>-00001-of-000NN.gguf`
+with the `split.*` keys; tools/gguf_split.py writes it) opens through its
+first shard, which absorbs its siblings' tensors: every loader then reads
+a split model as the whole file. A missing shard or a tensor named twice
+raises.
 """
 
 from __future__ import annotations
 
 import mmap
 import os
+import re
 import struct
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -183,15 +190,43 @@ class GGUFReader:
         for info in self.tensors.values():
             begin = data_start + info.offset
             info.data = raw[begin: begin + info.n_bytes]
+        self._shards = self._absorb_shards()
+
+    def _absorb_shards(self) -> list[GGUFReader]:
+        """Shard 1 of N (split.count > 1, split.no 0, the name
+        <prefix>-00001-of-0000N.gguf, llama_split_path) takes in the tensors
+        of shards 2 .. N; their readers are kept, as the tensors view their
+        maps."""
+        n_split = int(self.metadata.get("split.count", 0) or 0)
+        if n_split <= 1 or int(self.metadata.get("split.no", 0) or 0) != 0:
+            return []
+        m = re.match(r"^(.*)-(\d{5})-of-(\d{5})\.gguf$", str(self.path))
+        if not m or int(m.group(2)) != 1:
+            return []
+        prefix, _, total = m.groups()
+        shards = []
+        for i in range(2, int(total) + 1):
+            sib = Path(f"{prefix}-{i:05d}-of-{total}.gguf")
+            if not sib.exists():
+                raise GGUFFormatError(f"missing shard {sib}")
+            shard = GGUFReader(sib)
+            shards.append(shard)
+            for name, info in shard.tensors.items():
+                if name in self.tensors:
+                    raise GGUFFormatError(f"duplicate tensor {name} in {sib}")
+                self.tensors[name] = info
+        return shards
 
     @property
     def architecture(self) -> str:
         return self.metadata[Keys.General.ARCHITECTURE]
 
     def close(self):
-        """Best-effort close: numpy tensor views may still point into the map,
-        in which case the mapping is released when they are garbage-collected."""
-        try:
-            self._mmap.close()
-        except BufferError:
-            pass
+        """Best-effort close (the shards' maps too): numpy tensor views may
+        still point into a map, which is then released when they are
+        garbage-collected."""
+        for r in [self, *self._shards]:
+            try:
+                r._mmap.close()
+            except BufferError:
+                pass

@@ -1,5 +1,6 @@
 """GGUF v3 writer: KV metadata, F32/F16 tensors and pre-packed quantized
-payloads (what the model synthesis needs). A payload may be a callable that
+payloads (what the model synthesis and the gguf tools need: a tool copies a
+packed payload through unchanged). A payload may be a callable that
 produces the bytes when the file is written, so a writer of a large model
 never holds all of its payloads in host memory at once."""
 
@@ -83,6 +84,11 @@ class GGUFWriter:
                 vtype = _infer_scalar_type(value)
         self._kv.append((key, vtype, value))
 
+    def set_kv(self, key: str, value: Any, vtype: GGUFValueType | None = None):
+        """add_kv replacing any earlier write of the same key."""
+        self._kv = [(k, t, v) for (k, t, v) in self._kv if k != key]
+        self.add_kv(key, value, vtype)
+
     def add_tensor(self, name: str, array: np.ndarray,
                    ggml_type: GGMLType = GGMLType.F32):
         """Add an F32 or F16 tensor given in logical (row-major) order."""
@@ -142,6 +148,11 @@ class GGUFWriter:
             else:
                 elems = list(value)
                 etype = _infer_scalar_type(elems[0]) if elems else GGUFValueType.INT32
+                # a list of ints any of which a 32-bit type cannot hold: INT64
+                if etype in (GGUFValueType.UINT32, GGUFValueType.INT32) and any(
+                        isinstance(e, (int, np.integer)) and not -2**31 <= int(e) < 2**32
+                        for e in elems):
+                    etype = GGUFValueType.INT64
             out.write(struct.pack("<I", int(etype)))
             out.write(struct.pack("<Q", len(elems)))
             for e in elems:

@@ -1,5 +1,6 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-qwen-moe, gemma, deepseek2 (minicpm3, plm), phi2 and falcon forwards read,
+qwen-moe, gemma, deepseek2 (minicpm3, plm), phi2, falcon, bloom and gpt2
+forwards read,
 and the metadata → hparams mapping for the archs the port runs (`ARCHS`),
 as the JAX package's models/hparams.py maps them."""
 
@@ -16,7 +17,9 @@ from ..gguf.reader import GGUFReader
 # the archs whose metadata this module maps (models/registry.py runs them):
 # the llama graph and its aliases (those that ride its options apart), the
 # qwen-moe graph and its aliases, the gemma family, deepseek2 and its MLA
-# aliases minicpm3 and plm, phi3, phi2 and qwen (v1), and the falcon family
+# aliases minicpm3 and plm, phi3, phi2 and qwen (v1), the falcon family, the
+# ALiBi family (bloom, mpt, jais: no RoPE) and gpt2 / starcoder (learned
+# positions: no RoPE)
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
@@ -28,9 +31,11 @@ QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1
                     "hunyuan-moe", "minimax-m2", "bailingmoe", "bailingmoe2", "glm4moe",
                     "exaone-moe")
 FALCON_ARCHS = ("falcon", "gptneox", "codeshell")
+BLOOM_ARCHS = ("bloom", "mpt", "jais")
+GPT2_ARCHS = ("gpt2", "starcoder")
 ARCHS = ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES,
          "qwen3vlmoe", "gemma", "gemma2", "gemma3", "deepseek2", "minicpm3", "plm", "phi3",
-         "phi2", "qwen", *FALCON_ARCHS)
+         "phi2", "qwen", *FALCON_ARCHS, *BLOOM_ARCHS, *GPT2_ARCHS)
 # the archs without a causal mask unless the file says otherwise (of those
 # the port runs)
 NON_CAUSAL_ARCHS = ("llama-embed",)
@@ -143,6 +148,8 @@ class HParams:
     xielu: tuple | None = None
     # gptneox's use_parallel_residual: x + attn(ln1(x)) + ffn(ln2(x))
     par_residual: bool = False
+    # mpt's f_clamp_kqv: q, k and v clipped to ±clamp_kqv; 0: no clamp
+    clamp_kqv: float = 0.0
 
     def is_swa(self, il: int) -> bool:
         return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
@@ -223,9 +230,10 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         rms_eps=float(k(Keys.Attention.LAYERNORM_RMS_EPS,
                         k(Keys.Attention.LAYERNORM_EPS, 1e-5))),
         rope=rope,
-        # refact, and baichuan's 40-layer 13B, take ALiBi 8 without a key
-        max_alibi_bias=float(k(Keys.Attention.MAX_ALIBI_BIAS, 8.0 if arch == "refact" or (
-            arch == "baichuan" and n_layer == 40) else 0.0)),
+        # bloom, refact and baichuan's 40-layer 13B take ALiBi 8 without a
+        # key (mpt and jais read theirs)
+        max_alibi_bias=float(k(Keys.Attention.MAX_ALIBI_BIAS, 8.0 if arch in ("bloom", "refact")
+                               or (arch == "baichuan" and n_layer == 40) else 0.0)),
         sliding_window=int(k(Keys.Attention.SLIDING_WINDOW, 0)),
         attn_scale=float(scale) if scale is not None else None,
         # minicpm's and minicpm3's multipliers without keys: embedding 12,
@@ -263,4 +271,5 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         causal=bool(k(Keys.Attention.CAUSAL, arch not in NON_CAUSAL_ARCHS)),
         xielu=_read_xielu(r, n_layer),
         par_residual=bool(k(Keys.LLM.USE_PARALLEL_RESIDUAL, False)),
+        clamp_kqv=float(k("{arch}.attention.clamp_kqv", 0.0) or 0.0),
     )

@@ -7,8 +7,11 @@ sections read, text positions only: NEOX RoPE), `gemma3` (alias
 `gemma2`), `gemma`, `deepseek2` with its aliases `minicpm3` (the MLA graph
 with minicpm's multipliers) and `plm` (all-dense MLA, a gateless ReLU²
 FFN), `phi3` and `qwen` (their fused tensors loaded by models/phi3.py and
-models/qwen.py, the llama forward), `phi2` (phimoe waits), and `falcon`
-with its aliases `gptneox` and `codeshell` (models/falcon.py): 48 names."""
+models/qwen.py, the llama forward), `phi2` (phimoe waits), `falcon`
+with its aliases `gptneox` and `codeshell` (models/falcon.py), `bloom` with
+its aliases `mpt` and `jais` (models/bloom.py: the ALiBi family), and
+`gpt2` with its alias `starcoder` (models/gpt2.py: learned positions): 53
+names."""
 
 from __future__ import annotations
 
@@ -16,9 +19,9 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import deepseek2, falcon, gemma, llama, phi2, phi3, qwen, qwen_moe
-from .hparams import (FALCON_ARCHS, LLAMA_ALIASES, LLAMA_OPTION_ALIASES, QWEN_MOE_ALIASES,
-                      HParams, hparams_from_gguf)
+from . import bloom, deepseek2, falcon, gemma, gpt2, llama, phi2, phi3, qwen, qwen_moe
+from .hparams import (BLOOM_ARCHS, FALCON_ARCHS, GPT2_ARCHS, LLAMA_ALIASES,
+                      LLAMA_OPTION_ALIASES, QWEN_MOE_ALIASES, HParams, hparams_from_gguf)
 
 
 @dataclass(frozen=True)
@@ -40,6 +43,8 @@ _GEMMA3 = ArchSpec("gemma3", gemma.build_params, gemma.forward, iswa=True)
 _DEEPSEEK2 = ArchSpec("deepseek2", deepseek2.build_params, deepseek2.forward,
                       make_cache=deepseek2.make_cache)
 _FALCON = ArchSpec("falcon", falcon.build_params, falcon.forward)
+_BLOOM = ArchSpec("bloom", bloom.build_params, bloom.forward)
+_GPT2 = ArchSpec("gpt2", gpt2.build_params, gpt2.forward)
 _REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES)},
              **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES, "qwen3vlmoe")},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
@@ -48,7 +53,9 @@ _REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION
              "phi3": ArchSpec("phi3", phi3.build_params, llama.forward),
              "phi2": ArchSpec("phi2", phi2.build_params, phi2.forward),
              "qwen": ArchSpec("qwen", qwen.build_params, llama.forward),
-             **{name: _FALCON for name in FALCON_ARCHS}}
+             **{name: _FALCON for name in FALCON_ARCHS},
+             **{name: _BLOOM for name in BLOOM_ARCHS},
+             **{name: _GPT2 for name in GPT2_ARCHS}}
 
 
 def get_arch(name: str) -> ArchSpec:

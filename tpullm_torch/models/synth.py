@@ -1,7 +1,7 @@
 """Synthesis of random *packed* llama (and its aliases with options: the VL
 text stacks, apertus, arcee, llama-embed), qwen, gemma, deepseek2 (and its
-MLA aliases minicpm3 and plm), phi and falcon / gpt-neox models from a
-seed.
+MLA aliases minicpm3 and plm), phi, falcon / gpt-neox, bloom / mpt / jais
+and gpt2 / starcoder models from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -270,10 +270,62 @@ SHAPES = {
     "tiny-gptneox": dict(arch="gptneox", n_layer=2, n_embd=256, n_head=4, n_head_kv=4,
                          n_ff=512, n_rot=16, n_vocab=384, rope_base=10000.0, rms_eps=1e-5,
                          par_residual=True),
+    # bigscience/bloom-7b1 config.json: 30 layers, hidden 4096, 32 heads (MHA,
+    # head_dim 128), 4·4096 = 16384 FFN, vocab 250880, layer_norm_epsilon
+    # 1e-5, ALiBi (no positions, no rope; llama.cpp's bloom takes max bias 8
+    # without a key), seq_length 2048, the head tied to the embedding, the
+    # word_embeddings_layernorm (token_embd_norm); biases on every norm,
+    # q|k|v, wo, up and down; BLOOM's BPE (pre "bloom")
+    "bloom-7b1": dict(arch="bloom", n_layer=30, n_embd=4096, n_head=32, n_head_kv=32,
+                      n_ff=16384, n_vocab=250880, rms_eps=1e-5, n_ctx=2048, tied=True,
+                      vocab="bpe", pre="bloom"),
+    # mosaicml/mpt-7b config.json: 32 layers, d_model 4096, 32 heads (MHA),
+    # expansion_ratio 4 (16384), vocab 50432, ALiBi with alibi_bias_max 8,
+    # no_bias (no biases on norms or linears), no qk LayerNorm, clip_qkv
+    # null, max_seq_len 2048, tied head; GPT-NeoX's BPE (pre "mpt")
+    "mpt-7b": dict(arch="mpt", n_layer=32, n_embd=4096, n_head=32, n_head_kv=32, n_ff=16384,
+                   n_vocab=50432, rms_eps=1e-5, n_ctx=2048, alibi_bias=8.0, no_bias=True,
+                   tied=True, vocab="bpe", pre="mpt"),
+    # bigcode/starcoder config.json (gpt_bigcode): 40 layers, n_embd 6144, 48
+    # heads over one KV head (multi-query, head_dim 128), n_inner 24576, vocab
+    # 49152, n_positions 8192 (learned), layer_norm_epsilon 1e-5, biases on
+    # every norm and linear, its own lm_head; StarCoder's BPE (pre "starcoder")
+    "starcoder-15b": dict(arch="starcoder", n_layer=40, n_embd=6144, n_head=48, n_head_kv=1,
+                          n_ff=24576, n_vocab=49152, rms_eps=1e-5, n_ctx=8192, positions=True,
+                          vocab="bpe", pre="starcoder"),
+    # openai-community/gpt2 config.json: 12 layers, n_embd 768, 12 heads (head
+    # dim 64), n_inner 3072 (4·768), vocab 50257, n_positions 1024 (learned),
+    # layer_norm_epsilon 1e-5, biases on every norm and linear, the head tied
+    # to wte; GPT-2's BPE
+    "gpt2": dict(arch="gpt2", n_layer=12, n_embd=768, n_head=12, n_head_kv=12, n_ff=3072,
+                 n_vocab=50257, rms_eps=1e-5, n_ctx=1024, positions=True, tied=True,
+                 vocab="bpe", pre="gpt-2"),
+    # the ALiBi family's and gpt2's test models, K a multiple of 256 on every
+    # linear, heads of 64: tiny-bloom with BLOOM's layout (token_embd_norm,
+    # biases, tied head), tiny-mpt with every mpt option (no biases, learned
+    # positions, clamp_kqv 2, full-width q/k LayerNorms, tied), tiny-jais with
+    # its SiLU gate and biases, tiny-gpt2 with GPT-2's (a table of 64
+    # positions, tied) and tiny-starcoder with StarCoder's (4 heads on one KV
+    # head, its own head)
+    "tiny-bloom": dict(arch="bloom", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                       n_vocab=384, rms_eps=1e-5, n_ctx=256, tied=True),
+    "tiny-mpt": dict(arch="mpt", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                     n_vocab=384, rms_eps=1e-5, n_ctx=256, alibi_bias=8.0, no_bias=True,
+                     positions=True, clamp_kqv=2.0, qk_norm=True, tied=True),
+    "tiny-jais": dict(arch="jais", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                      n_vocab=384, rms_eps=1e-5, n_ctx=256, alibi_bias=8.0),
+    "tiny-gpt2": dict(arch="gpt2", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=512,
+                      n_vocab=384, rms_eps=1e-5, n_ctx=64, positions=True, tied=True),
+    "tiny-starcoder": dict(arch="starcoder", n_layer=2, n_embd=256, n_head=4, n_head_kv=1,
+                           n_ff=512, n_vocab=384, rms_eps=1e-5, n_ctx=256, positions=True),
 }
 
 # the archs whose norms are LayerNorms (layer_norm_epsilon)
-_LAYER_NORM_ARCHS = ("phi2", "falcon", "gptneox", "codeshell")
+_LAYER_NORM_ARCHS = ("phi2", "falcon", "gptneox", "codeshell", "bloom", "mpt", "jais", "gpt2",
+                     "starcoder")
+# the fused-qkv archs without RoPE: ALiBi (bloom, mpt, jais) or learned
+# positions (gpt2, starcoder)
+_NO_ROPE_ARCHS = ("bloom", "mpt", "jais", "gpt2", "starcoder")
 
 # byte offsets of the f16 scale fields per block that random_packed sets to
 # d (every other byte stays random); MXFP4 holds an e8m0 exponent byte at 0,
@@ -650,8 +702,13 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
     w.add_kv(f"{arch}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon",
              cfg.get("rms_eps", 1e-5))
-    w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
-    w.add_kv(f"{arch}.rope.dimension_count", cfg.get("n_rot", cfg.get("qk_rope", head_dim)))
+    if arch not in _NO_ROPE_ARCHS:
+        w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
+        w.add_kv(f"{arch}.rope.dimension_count", cfg.get("n_rot", cfg.get("qk_rope", head_dim)))
+    if "alibi_bias" in cfg:
+        w.add_kv(f"{arch}.attention.max_alibi_bias", cfg["alibi_bias"])
+    if "clamp_kqv" in cfg:
+        w.add_kv(f"{arch}.attention.clamp_kqv", cfg["clamp_kqv"])
     w.add_kv(f"{arch}.vocab_size", n_vocab)
     if gemma or head_dim != n_embd // n_head:
         w.add_kv(f"{arch}.attention.key_length", head_dim)
@@ -745,10 +802,20 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
                                      * n_embd ** -0.5).astype("<f4").reshape(-1).view(np.uint8))
 
     packed("token_embd.weight", n_vocab, n_embd)
+    if arch == "bloom":
+        norm("token_embd_norm.weight", n_embd)
+        vector("token_embd_norm.bias", n_embd, 0.1)
+    if cfg.get("positions"):  # learned positions: f32, never quantized (llama-quant.cpp)
+        n_pos = cfg.get("n_ctx", 8192)
+        w.add_packed_tensor("position_embd.weight", (n_embd, n_pos), GGMLType.F32,
+                            lambda: (rng.standard_normal((n_pos, n_embd)) * 0.02).astype(
+                                "<f4").reshape(-1).view(np.uint8))
     if mla:
         _deepseek2_layers(cfg, n_layer, packed, norm, router)
     elif arch in ("phi3", "phi2", "qwen"):
         _fused_qkv_layers(cfg, n_layer, packed, norm, vector)
+    elif arch in _NO_ROPE_ARCHS:
+        _bloom_layers(cfg, n_layer, packed, norm, vector)
     elif layer_norm:
         _falcon_layers(cfg, n_layer, packed, norm, vector)
     else:
@@ -791,7 +858,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     norm("output_norm.weight", n_embd)
     if not tied:  # gemma and plm tie their head to token_embd
         packed("output.weight", n_vocab, n_embd)
-    if layer_norm:
+    if layer_norm and not cfg.get("no_bias"):
         vector("output_norm.bias", n_embd, 0.1)
     if arch == "phi2":
         vector("output.bias", n_vocab, 0.1)
@@ -857,6 +924,44 @@ def _falcon_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
         if neox:
             vector(p + "ffn_up.bias", n_ff, 0.1)
             vector(p + "ffn_down.bias", n_embd, 0.1)
+
+
+def _bloom_layers(cfg: dict, n_layer: int, packed, norm, vector) -> None:
+    """The layers of a bloom, mpt, jais, gpt2 or starcoder shape, with the
+    tensor names llama.cpp's converter writes: the LayerNorms attn_norm and
+    ffn_norm, q|k|v in one attn_qkv (starcoder's one KV head), attn_output,
+    (jais' ffn_gate,) ffn_up and ffn_down; biases (random, as phi2's) on the
+    norms and those linears unless the shape has `no_bias` (mpt); mpt's
+    full-width q/k LayerNorms where the shape has `qk_norm`."""
+    n_embd, n_ff, n_head = cfg["n_embd"], cfg["n_ff"], cfg["n_head"]
+    head_dim = n_embd // n_head
+    n_qkv = (n_head + 2 * cfg["n_head_kv"]) * head_dim
+    biased = not cfg.get("no_bias")
+
+    def bias(name, n):
+        if biased:
+            vector(name, n, 0.1)
+
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        norm(p + "attn_norm.weight", n_embd)
+        bias(p + "attn_norm.bias", n_embd)
+        packed(p + "attn_qkv.weight", n_qkv, n_embd, i)
+        bias(p + "attn_qkv.bias", n_qkv)
+        if cfg.get("qk_norm"):
+            vector(p + "attn_q_norm.weight", n_embd, 0.1, base=1.0)
+            vector(p + "attn_k_norm.weight", cfg["n_head_kv"] * head_dim, 0.1, base=1.0)
+        packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
+        bias(p + "attn_output.bias", n_embd)
+        norm(p + "ffn_norm.weight", n_embd)
+        bias(p + "ffn_norm.bias", n_embd)
+        if cfg["arch"] == "jais":
+            packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+            bias(p + "ffn_gate.bias", n_ff)
+        packed(p + "ffn_up.weight", n_ff, n_embd, i)
+        bias(p + "ffn_up.bias", n_ff)
+        packed(p + "ffn_down.weight", n_embd, n_ff, i)
+        bias(p + "ffn_down.bias", n_embd)
 
 
 def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:
