@@ -120,6 +120,12 @@ Phases, in order; any failure raises and exits nonzero:
     in both regimes, the row groups at R = 48, 71 and 80, the latent forms,
     sinks and ALiBi at kv 3001): no failed case; its summary printed as a
     JSON line before the kernels line;
+ 3k. moe family kernels: qmm at the Q4_K_M linears of OLMoE-1B-7B,
+    Phi-3.5-MoE and Llama-4-Scout (q|k|v, wo, Scout's shared expert, the
+    heads), M = 1 and 512; qmm_gather over OLMoE's 64 experts (T = 8 and
+    128 rows of top-8) and Scout's 16 (T = 1 and 16 of top-1), qmm_stack
+    at M = 512 over both; flash at 16 heads on 16, 32 on 8 and 40 on 8
+    (D = 128), bf16 and q8; each timed as in 3;
  4. tiny: the tiny dense model at every dense preset and the tiny MoE at
     Q4_K_M, MXFP4_MOE and IQ2_XXS, served on the card against the CPU; and
     generate_tokens through a GBNF grammar and a penalised host Sampler on
@@ -127,7 +133,7 @@ Phases, in order; any failure raises and exits nonzero:
  5. slice: a Llama-3-8B Q4_K_M GGUF synthesized from a seed with Llama-3's
     byte-level BPE vocab (tokenizer.ggml.model "gpt2", pre "llama-bpe"),
     a fixed mixed-script sentence through its tokenizer and back, then the
-    model served by Engine with a bf16 and with a q8 KV cache: three
+    model served by Engine with a bf16 KV cache: three
     prompts (one of 512 tokens), 64 generated tokens each (the decode
     chunk as CUDA-graph replays), one prompt twice for determinism; load
     time and its peak memory, TTFT, pp512 and decode tok/s, peak memory,
@@ -260,6 +266,17 @@ Phases, in order; any failure raises and exits nonzero:
     dequantize-route or dense-attention call; then Qwen2.5-7B Q4_K_M at
     full width with 4 layers (28 heads over 4, K = 3584 and 18944): served,
     and teacher-forced against dense bf16 weights;
+ 8d'. moe families (their GGUFs written by child processes from 8b on):
+    tiny-olmoe, tiny-phimoe and tiny-llama4 on the card against the CPU,
+    each in both expert regimes (tiny-llama4's chunks of 16 in a 256-slot
+    cache through the counted dense chunk route); OLMoE-1B-7B Q4_K_M at full
+    width and depth (64 experts top-8, q/k norms over the projection) on a
+    bf16 and a q8 cache, launches against moe_launch_want, a 4-slot
+    BatchEngine teacher-forced; Phi-3.5-MoE with 8 of 32 layers
+    (sparsemixer, LayerNorms with biases, a biased head) served, and 1
+    layer teacher-forced against dense bf16 weights; Llama-4-Scout with 4
+    of 48 layers (a cache within one chunk: flash on every layer) served,
+    its shared expert's and routed expert's ms a decode token;
  8e. phi: tiny-phi3, tiny-phi2 and tiny-qwen on the card against the CPU;
     Phi-3-mini-4k Q4_K_M (PHI3_LAYERS = 16 of its 32 layers, n_embd 3072, 32
     heads on 32 of 96, a window of 2047 on every layer, vocab 32064) at full width,
@@ -2020,14 +2037,74 @@ def _synth_writer(tmp: Path, shape: str, ftype: str, n_layer: int | None, vocab:
 def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | None = None,
                vocab: str = "spm") -> Path:
     """A synthetic GGUF of `shape` at preset `ftype` in `tmp` (with n_layer
-    layers where given)."""
-    path, writer = _synth_writer(tmp, shape, ftype, n_layer, vocab)
-    t0 = time.perf_counter()
-    writer.write()
-    log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype}"
-        f"{f' ({n_layer} layers)' if n_layer else ''} GGUF ({vocab} vocab) in "
-        f"{time.perf_counter() - t0:.1f}s")
+    layers where given): the file an earlier phase kept for this one
+    (KEPT), or the one a child of AHEAD writes, where one was started for
+    it, else written here; then the next jobs of AHEAD_QUEUE start
+    (`ahead_top_up`)."""
+    job = (shape, ftype, n_layer, vocab)
+    child = AHEAD.pop(job, None)
+    kept = KEPT.pop(job, None)
+    if kept is not None and kept.exists():  # written for an earlier phase and kept
+        path = kept
+    elif child is not None:
+        path = _synth_wait(label, child)
+    else:
+        if job in AHEAD_QUEUE:  # needed before its turn came
+            AHEAD_QUEUE.remove(job)
+        path, writer = _synth_writer(tmp, shape, ftype, n_layer, vocab)
+        t0 = time.perf_counter()
+        writer.write()
+        log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype}"
+            f"{f' ({n_layer} layers)' if n_layer else ''} GGUF ({vocab} vocab) in "
+            f"{time.perf_counter() - t0:.1f}s")
+    ahead_top_up(tmp)
     return path
+
+
+# (label, shape, ftype, n_layer) of the presets' and the i-quants' runs
+PRESET_JOBS = (*((f"8b-{ftype}", "llama-3-8b", ftype, 4)
+                 for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL",
+                               "Q3_K_M")),
+               ("mixtral-MXFP4_MOE", "mixtral-8x7b", "MXFP4_MOE", 4))
+IQUANT_JOBS = (*((f"8b-{ftype}", "llama-3-8b", ftype, 4)
+                 for ftype in ("IQ1_S", "IQ3_XXS", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M",
+                               "IQ3_M", "TQ1_0", "TQ2_0")),
+               ("mixtral-IQ2_XXS", "mixtral-8x7b", "IQ2_XXS", 4),
+               ("8b-grouped", "llama-3-8b", "Q4_K_M", 4))
+# the main path's files in the order the run takes them (shape, ftype,
+# n_layer, vocab): `synthesize` takes each from a child process started up to
+# SYNTH_AHEAD files before its turn (AHEAD)
+AHEAD_JOBS = (("llama-3-8b", "Q4_K_M", None, "bpe"), ("mixtral-8x7b", "Q4_K_M", 4, "spm"),
+              ("llama-3-8b", "Q4_K_M", 4, "spm"),
+              *((shape, ftype, n_layer, "spm")
+                for _, shape, ftype, n_layer in (*PRESET_JOBS, *IQUANT_JOBS)),
+              ("gemma-3-4b", "Q4_K_M", 12, "spm"),
+              ("deepseek-v2-lite", "Q4_K_M", 9, "spm"), ("qwen3-30b-a3b", "Q4_K_M", 8, "bpe"),
+              ("qwen2.5-7b", "Q4_K_M", 4, "bpe"), ("olmoe-1b-7b", "Q4_K_M", None, "bpe"),
+              ("phi-3.5-moe", "Q4_K_M", 8, "spm"), ("phi-3.5-moe", "Q4_K_M", 1, "spm"),
+              ("llama-4-scout", "Q4_K_M", 4, "bpe"),
+              ("phi-3-mini-4k", "Q4_K_M", 16, "spm"), ("phi-2", "Q4_K_M", 8, "bpe"),
+              ("phi-2", "Q4_K_M", 1, "bpe"), ("qwen-7b", "Q4_K_M", 2, "bpe"),
+              ("minicpm3-4b", "Q4_K_M", 12, "spm"), ("plm-1.8b", "Q4_K_M", 8, "bpe"),
+              ("qwen3-vl-8b", "Q4_K_M", 8, "bpe"), ("qwen2-vl-7b", "Q4_K_M", 4, "bpe"),
+              ("qwen3-vl-30b-a3b", "Q4_K_M", 4, "bpe"), ("apertus-8b", "Q4_K_M", 4, "bpe"),
+              ("afm-4.5b", "Q4_K_M", 4, "bpe"), ("llama-embed-8b", "Q4_K_M", 4, "bpe"),
+              ("falcon-7b", "Q4_K_M", 4, "bpe"), ("pythia-6.9b", "Q4_K_M", 4, "bpe"),
+              ("bloom-7b1", "Q4_K_M", None, "bpe"), ("bloom-7b1", "Q4_K_M", 1, "bpe"),
+              ("mpt-7b", "Q4_K_M", 4, "bpe"), ("gpt2", "Q4_K_M", None, "bpe"),
+              ("starcoder-15b", "Q4_K_M", 4, "bpe"))
+AHEAD_QUEUE: list = []  # jobs not started yet
+AHEAD: dict = {}  # job → its child (`_synth_child`), started and not yet taken
+KEPT: dict = {}  # job → a file a phase keeps for a later one (the server's Mixtral)
+
+
+def ahead_top_up(tmp: Path) -> None:
+    """Starts the next jobs of AHEAD_QUEUE while fewer than SYNTH_AHEAD files
+    are started and not yet taken (a job whose file is started and not yet
+    taken waits: one path, one writer)."""
+    while AHEAD_QUEUE and len(AHEAD) < SYNTH_AHEAD and AHEAD_QUEUE[0] not in AHEAD:
+        job = AHEAD_QUEUE.pop(0)
+        AHEAD[job] = _synth_child(tmp, *job)
 
 
 # a child's synthesis: make_synthetic_llama_gguf on the JSON of its arguments
@@ -2038,41 +2115,33 @@ SYNTH_CHILD = ("import json, sys; from tpullm_torch.models.synth import "
 SYNTH_AHEAD = 3
 
 
-def synthesized_ahead(tmp: Path, jobs: list[tuple]):
-    """The GGUF of each job (label, shape, ftype, n_layer) of `jobs` in
-    turn, as `synthesize` writes it (spm vocab), each written by a child
-    process while the caller runs the ones before: up to SYNTH_AHEAD
-    children at once, the next started when a file is handed over; the
-    caller unlinks each file before it takes the next. A child that fails
-    fails the run; on any exit the children still running are ended and
-    waited for (use with contextlib.closing)."""
-    def start(label, shape, ftype, n_layer):
-        path, _ = _synth_writer(tmp, shape, ftype, n_layer, "spm")
-        args = dict(path=str(path), shape=shape, seed=0, ftype=ftype, n_layer=n_layer,
-                    vocab="spm")
-        proc = subprocess.Popen([sys.executable, "-c", SYNTH_CHILD, json.dumps(args)],
-                                cwd=ROOT)
-        return path, proc, time.perf_counter()
+def _synth_child(tmp: Path, shape: str, ftype: str, n_layer: int | None,
+                 vocab: str = "spm") -> tuple:
+    """Starts a child process writing the GGUF `synthesize` would write;
+    (its path, the process, the start time)."""
+    path, _ = _synth_writer(tmp, shape, ftype, n_layer, vocab)
+    args = dict(path=str(path), shape=shape, seed=0, ftype=ftype, n_layer=n_layer, vocab=vocab)
+    proc = subprocess.Popen([sys.executable, "-c", SYNTH_CHILD, json.dumps(args)], cwd=ROOT)
+    return path, proc, time.perf_counter()
 
-    waiting = [start(*job) for job in jobs[:SYNTH_AHEAD]]
-    try:
-        for i, (label, shape, ftype, n_layer) in enumerate(jobs):
-            path, proc, t0 = waiting.pop(0)
-            t_wait = time.perf_counter()
-            rc = proc.wait()
-            expect(rc == 0, f"[{label}] the synthesis child exited with {rc}")
-            log(f"[{label}] synthesized {path.stat().st_size / 2**30:.2f} GiB {shape} {ftype} "
-                f"({n_layer} layers) GGUF (spm vocab) in a child process: "
-                f"{time.perf_counter() - t0:.1f}s, of which "
-                f"{time.perf_counter() - t_wait:.1f}s waited for")
-            if i + SYNTH_AHEAD < len(jobs):
-                waiting.append(start(*jobs[i + SYNTH_AHEAD]))
-            yield path
-    finally:
-        for _, proc, _ in waiting:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
+
+def _synth_wait(label: str, child: tuple) -> Path:
+    """The file of a `_synth_child` once the child has written it."""
+    path, proc, t0 = child
+    t_wait = time.perf_counter()
+    rc = proc.wait()
+    expect(rc == 0, f"[{label}] the synthesis child exited with {rc}")
+    log(f"[{label}] synthesized {path.name} ({path.stat().st_size / 2**30:.2f} GiB) in a child "
+        f"process: {time.perf_counter() - t0:.1f}s, of which {time.perf_counter() - t_wait:.1f}s "
+        "waited for")
+    return path
+
+
+def _end_children(children) -> None:
+    for _, proc, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 # mixed scripts, digits, contractions and a special token, for the BPE vocab
@@ -2103,15 +2172,15 @@ def bpe_round_trip(path):
 
 
 def phase_slice(tmp: Path, launches: dict) -> tuple[list[dict], Path]:
-    """Llama-3-8B Q4_K_M on Llama-3's byte-level BPE vocab, with a bf16 and
-    a q8 KV cache, each with the graph phase; the file is kept for the
-    tools phase."""
+    """Llama-3-8B Q4_K_M on Llama-3's byte-level BPE vocab with a bf16 KV
+    cache and the graph phase (a q8 cache serves in the server,
+    speculative and moe families phases); the file is kept for the tools
+    phase."""
     import torch
 
     path = synthesize(tmp, "slice", "llama-3-8b", "Q4_K_M", vocab="bpe")
     bpe_round_trip(path)
-    runs = [serve("slice", path, kv, launches, graph=True) for kv in (torch.bfloat16, "q8_0")]
-    return runs, path
+    return [serve("slice", path, torch.bfloat16, launches, graph=True)], path
 
 
 TOOLS_CTX = 2048  # the cli's context
@@ -2569,19 +2638,21 @@ def _profile_step(eng, prompt: list[int], steps: int = 8) -> dict:
 
 
 def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int,
-                   refs: tuple | None = None, bound: float = SERVE_NMSE_BOUND) -> dict:
+                   refs: tuple | None = None, bound: float = SERVE_NMSE_BOUND,
+                   hold_prefill: bool = True) -> dict:
     """Each slot s of the BatchEngine prefills prompts[s] (one joint round)
     and is fed, step by step in one batched step, the greedy ids of the
     single-stream Engine on the same prompt; each slot's logits held
-    against Engine's (prefill, then decode_step) within `bound`. Reports
-    the greedy ids that agree, and where they part, the step and Engine's
-    top-2 margin. `refs`: Engine's (logits, ids) from engine_refs, taken
-    before (`single` is then not used)."""
+    against Engine's (prefill, then decode_step) within `bound`; without
+    `hold_prefill` the joint round's rows are reported and the batched
+    steps held. Reports the greedy ids that agree, and where they part,
+    the step and Engine's top-2 margin. `refs`: Engine's (logits, ids)
+    from engine_refs, taken before (`single` is then not used)."""
     ref_logits, ref_ids = refs or engine_refs(single, prompts, steps)
     for s in range(eng.n_slots):
         eng.free_slot(s)
     got = eng.prefill_slots(dict(enumerate(prompts)))
-    worst, agree, parted = 0.0, 0, []
+    worst, agree, parted, prefill_errs = 0.0, 0, [], []
     for step in range(steps + 1):
         if step:
             got = eng.decode_batch({s: ref_ids[s][step - 1] for s in range(len(prompts))})
@@ -2589,7 +2660,10 @@ def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int
             ref = ref_logits[s][step]
             err = float(np.mean((got[s].astype(np.float64) - ref) ** 2)
                         / np.mean(ref.astype(np.float64) ** 2))
-            worst = max(worst, err)
+            if step == 0:
+                prefill_errs.append(err)
+            if step or hold_prefill:
+                worst = max(worst, err)
             if int(np.argmax(got[s])) == ref_ids[s][step]:
                 agree += 1
             else:
@@ -2598,10 +2672,13 @@ def teacher_forced(label: str, eng, single, prompts: list[list[int]], steps: int
     n = (steps + 1) * len(prompts)
     log(f"[{label}] teacher-forced on Engine's greedy ids, {len(prompts)} slots × {steps + 1} "
         f"positions (prompts of {[len(p) for p in prompts]} tokens): worst NMSE {worst:.2e} "
-        f"(bound {bound}); greedy ids agree {agree}/{n}; parted at {parted}")
+        f"(bound {bound}{'' if hold_prefill else ', the batched steps'}); the joint round's "
+        f"rows {[f'{e:.2e}' for e in prefill_errs]}; greedy ids agree {agree}/{n}; parted at "
+        f"{parted}")
     expect(worst <= bound, f"{label}: batched logits against Engine's, NMSE {worst:.3e} "
            f"<= {bound}")
-    return dict(worst_nmse=worst, ids_agree=agree, positions=n, parted=parted)
+    return dict(worst_nmse=worst, prefill_nmse=prefill_errs, ids_agree=agree, positions=n,
+                parted=parted)
 
 
 def engine_refs(single, prompts: list[list[int]], steps: int) -> tuple[list, list]:
@@ -2758,7 +2835,7 @@ def phase_server(path: Path, tmp: Path, launches: dict) -> dict:
     del meng, msingle
     gc.collect()
     torch.cuda.empty_cache()
-    mpath.unlink()
+    KEPT[("mixtral-8x7b", "Q4_K_M", 4, "spm")] = mpath  # the mixtral phase serves it again
 
     reset_launches()
     rc, text, err, secs = run_tool(batched_bench.main, ["-m", str(path), "-npp", "128",
@@ -2929,14 +3006,33 @@ def phase_qwen_kernels(dev, results: dict, qwen: dict):
     kernels line's errors) and to `qwen` by kernel."""
     import torch
 
+    gen = torch.Generator(dev).manual_seed(16)
+    qmm_at_shapes("qwen", dev, gen, QWEN_QMM_SHAPES, QWEN_QMM_ROWS, results, qwen)
+    expert_rows("qwen", dev, gen, QWEN_EXPERTS, QWEN_TOP_K,
+                [(fmt, name, K, N, name == "gate") for fmt, name, K, N in QWEN_EXPERT_SHAPES],
+                QWEN_GATHER_TOKENS, results, qwen, invalid_ids=True)
+    flash_at_heads("qwen", dev, gen, QWEN_HEADS, results, qwen)
+
+
+def expert_rows(tag: str, dev, gen, E: int, top_k: int, shapes, gather_tokens, results: dict,
+                out: dict, invalid_ids: bool = False):
+    """The expert kernels over E experts at each (format, name, K, N,
+    shared) of `shapes`, against their plain versions and timed beside
+    their bounds and a library call: qmm_gather at each count of
+    `gather_tokens` tokens' top_k (distinct experts a token: T = tokens ·
+    top_k rows; past 32 experts the bit-set path of csrc/qmm_moe.cu), and
+    with `invalid_ids` ids outside 0..E-1 giving NaN rows; qmm_stack at M =
+    512 on a shared x (ops/moe.py feeds the gate and up one x) or on each
+    expert's own (the down, and every projection of weight_before_ffn).
+    Rows go to `results` and `out` by kernel."""
+    import torch
+
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.ops import qmatmul
     from tpullm_torch.ops.kernels import qmm
 
-    gen = torch.Generator(dev).manual_seed(16)
-    qmm_at_shapes("qwen", dev, gen, QWEN_QMM_SHAPES, QWEN_QMM_ROWS, results, qwen)
-    E, M = QWEN_EXPERTS, 512
-    for fmt, name, K, N in QWEN_EXPERT_SHAPES:
+    M = 512
+    for fmt, name, K, N, shared in shapes:
         gtype = GGMLType[fmt]
         planes = _random_stack(gtype, N, K, gen, dev, n_expert=E)
         expert_b = sum(t.numel() * t.element_size() for t in planes.values()) / E
@@ -2944,49 +3040,60 @@ def phase_qwen_kernels(dev, results: dict, qwen: dict):
                                                     gtype, N, K, dtype=torch.bfloat16)
                              for e in range(E)])  # [E, K, N]
         rows = []
-        for n_tok in QWEN_GATHER_TOKENS:
-            T = n_tok * QWEN_TOP_K  # each token's top-8: distinct experts
+        for n_tok in gather_tokens:
+            T = n_tok * top_k  # each token's top-k: distinct experts
             x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
-            ids = torch.stack([torch.randperm(E, generator=gen, device=dev)[:QWEN_TOP_K]
+            ids = torch.stack([torch.randperm(E, generator=gen, device=dev)[:top_k]
                                for _ in range(n_tok)]).reshape(T).int()
             n_unique = int(torch.unique(ids).numel())
             rows.append(("qmm_gather", _held_row(
-                "qwen", "qmm_gather", f"{fmt} {name} E={E} T={T} ({n_tok} tokens × top-8)",
+                tag, "qmm_gather",
+                f"{fmt} {name} E={E} T={T} ({n_tok} tokens × top-{top_k})",
                 lambda x=x, ids=ids: qmm.qmm_gather(x, ids, planes, gtype, N, K),
                 lambda x=x, ids=ids: qmm.qmm_gather_reference(x, ids, planes, gtype, N, K),
                 lambda x=x, ids=ids: torch.bmm(x[:, None, :], w_lib[ids.long()])[:, 0],
                 x.numel() * 2 + T * 4 + n_unique * expert_b + T * N * 2, 2.0 * T * K * N,
                 20 if T < 128 else 5)))
-        # ids outside 0..E-1 give NaN rows past 32 experts too
-        x = torch.randn(40, K, generator=gen, device=dev).to(torch.bfloat16)
-        ids = torch.randint(0, E, (40,), generator=gen, device=dev, dtype=torch.int32)
-        ids[3], ids[17] = E, -1
-        valid = (ids >= 0) & (ids < E)
-        got = qmm.qmm_gather(x, ids, planes, gtype, N, K)
-        ref = qmm.qmm_gather_reference(x[valid], ids[valid], planes, gtype, N, K)
-        torch.cuda.synchronize()
-        err = nmse(got[valid].float(), ref.float())
-        expect(bool(torch.isnan(got[~valid].float()).all()),
-               f"qmm_gather {fmt} {name} E={E}: NaN rows for ids outside the stack")
-        expect(err <= QMM_NMSE_BOUND, f"qmm_gather {fmt} {name} E={E} beside invalid ids: "
-               f"NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
-        log(f"[qwen] qmm_gather {fmt} {name} E={E} T=40, ids {E} and -1 at rows 3, 17: NaN "
-            f"rows; the others nmse {err:.2e}")
-        shared = name == "gate"  # ops/moe.py feeds the gate x, the down each expert's own
+        if invalid_ids:
+            x = torch.randn(40, K, generator=gen, device=dev).to(torch.bfloat16)
+            ids = torch.randint(0, E, (40,), generator=gen, device=dev, dtype=torch.int32)
+            ids[3], ids[17] = E, -1
+            valid = (ids >= 0) & (ids < E)
+            got = qmm.qmm_gather(x, ids, planes, gtype, N, K)
+            ref = qmm.qmm_gather_reference(x[valid], ids[valid], planes, gtype, N, K)
+            torch.cuda.synchronize()
+            err = nmse(got[valid].float(), ref.float())
+            expect(bool(torch.isnan(got[~valid].float()).all()),
+                   f"qmm_gather {fmt} {name} E={E}: NaN rows for ids outside the stack")
+            expect(err <= QMM_NMSE_BOUND, f"qmm_gather {fmt} {name} E={E} beside invalid ids: "
+                   f"NMSE {err:.3e} <= {QMM_NMSE_BOUND}")
+            log(f"[{tag}] qmm_gather {fmt} {name} E={E} T=40, ids {E} and -1 at rows 3, 17: "
+                f"NaN rows; the others nmse {err:.2e}")
         x = torch.randn(*((M, K) if shared else (E, M, K)), generator=gen,
                         device=dev).to(torch.bfloat16)
         rows.append(("qmm_stack", _held_row(
-            "qwen", "qmm_stack", f"{fmt} {name} E={E} M={M} {'shared' if shared else 'batched'}",
+            tag, "qmm_stack", f"{fmt} {name} E={E} M={M} {'shared' if shared else 'batched'}",
             lambda: qmm.qmm_stack(x, planes, gtype, N, K),
             lambda: qmm.qmm_stack_reference(x, planes, gtype, N, K),
             lambda: torch.matmul(x, w_lib),
             x.numel() * 2 + E * expert_b + E * M * N * 2, 2.0 * E * M * K * N, 3)))
         for key, row in rows:
             results[key].append(row)
-            qwen.setdefault(key, []).append(row)
+            out.setdefault(key, []).append(row)
         del planes, w_lib, x
         torch.cuda.empty_cache()
-    for H, Hkv in QWEN_HEADS:
+
+
+def flash_at_heads(tag: str, dev, gen, heads, results: dict, out: dict):
+    """Flash at D = 128 with each (H, Hkv) of `heads`, bf16 and q8 caches,
+    against its plain version and timed beside its bound and SDPA: the
+    decode regime at T = 1 (B = 2, kv 38 / 3001), the prefill regime at T
+    = 512 (offsets 0 / 2500), and for a group of 7 T = 2 (14 rows: decode)
+    and T = 3 (21 rows: prefill) at offset 2500. Rows go to `results` and
+    `out` by kernel."""
+    import torch
+
+    for H, Hkv in heads:
         for fmt, key in (("bf16", "flash_bf16"), ("q8", "flash_q8")):
             bound = FLASH_Q8_NMSE_BOUND if fmt == "q8" else FLASH_NMSE_BOUND
             cases = [(1, (37, 3000)), (512, (0, 2500))]
@@ -3003,12 +3110,55 @@ def phase_qwen_kernels(dev, results: dict, qwen: dict):
                        f"flash {row['case']} NMSE {row['nmse']:.3e}, own order "
                        f"{row['nmse_own_order']:.3e} <= {bound}")
                 results[key].append(row)
-                qwen.setdefault(key, []).append(row)
-                log(f"[qwen] {key} {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} (own "
-                    f"order {row['nmse_own_order']:.2e}) kernel {row['ms']:.4f} ms bound "
+                out.setdefault(key, []).append(row)
+                log(f"[{tag}] {key} {row['case']} ({row['regime']}): nmse {row['nmse']:.2e} "
+                    f"(own order {row['nmse_own_order']:.2e}) kernel {row['ms']:.4f} ms bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}) plain {row['plain_ms']:.3f} "
                     f"ms sdpa {row['library_ms']:.4f} ms")
     torch.cuda.empty_cache()
+
+
+# the MoE families' shapes (the moe families phase): the 2-D linears at their
+# Q4_K_M types (q|k|v fused where the types agree): OLMoE-1B-7B's (K = 2048),
+# Phi-3.5-MoE's (K = 4096), Llama-4-Scout's (K = 5120; its shared expert's
+# gate and up, K = 8192 its down) and each head
+MOE_FAMILY_QMM_SHAPES = (
+    ("Q4_K", "olmoe-1b-7b q|k|v", 2048, 6144), ("Q4_K", "olmoe-1b-7b wo", 2048, 2048),
+    ("Q6_K", "olmoe-1b-7b head", 2048, 50304),
+    ("Q4_K", "phi-3.5-moe q|k|v", 4096, 6144), ("Q4_K", "phi-3.5-moe wo", 4096, 4096),
+    ("Q6_K", "phi-3.5-moe head", 4096, 32064),
+    ("Q4_K", "llama-4-scout q|k|v", 5120, 7168), ("Q4_K", "llama-4-scout wo", 5120, 5120),
+    ("Q4_K", "llama-4-scout shexp gate", 5120, 8192),
+    ("Q4_K", "llama-4-scout shexp down", 8192, 5120),
+    ("Q6_K", "llama-4-scout head", 5120, 202048))
+MOE_FAMILY_QMM_ROWS = (1, 512)
+# (E, top-k, shapes (format, name, K, N, shared x), gather tokens): OLMoE's 64
+# experts of 1024 (T = 8 and 128 rows of the gather's bit-set path), Scout's 16
+# of 8192 at top-1 (T = 1 and 16; every projection on each expert's own
+# scaled x at prefill: weight_before_ffn)
+MOE_FAMILY_EXPERTS = (
+    (64, 8, (("Q4_K", "olmoe gate", 2048, 1024, True), ("Q4_K", "olmoe down", 1024, 2048, False)),
+     (1, 16)),
+    (16, 1, (("Q4_K", "scout gate", 5120, 8192, False),), (1, 16)))
+# the heads of the three at D = 128: OLMoE's 16 on 16 (R = 1), Phi-3.5-MoE's 32
+# on 8 (R = 4), Scout's 40 on 8 (R = 5)
+MOE_FAMILY_HEADS = ((16, 16), (32, 8), (40, 8))
+
+
+def phase_moe_family_kernels(dev, results: dict, fam: dict):
+    """The kernels at the MoE families' shapes, each against its plain
+    version and timed beside its bound and library call: qmm at
+    MOE_FAMILY_QMM_SHAPES (M = 1 on CUDA cores, 512 on the tensor cores),
+    the gather and the stack at MOE_FAMILY_EXPERTS, flash at
+    MOE_FAMILY_HEADS. Rows go to `results` and to `fam` by kernel."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(22)
+    qmm_at_shapes("moe families", dev, gen, MOE_FAMILY_QMM_SHAPES, MOE_FAMILY_QMM_ROWS,
+                  results, fam)
+    for E, top_k, shapes, tokens in MOE_FAMILY_EXPERTS:
+        expert_rows("moe families", dev, gen, E, top_k, shapes, tokens, results, fam)
+    flash_at_heads("moe families", dev, gen, MOE_FAMILY_HEADS, results, fam)
 
 
 def verify_launches(eng, rows: int, T: int) -> dict:
@@ -5056,7 +5206,6 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
     import torch
 
     from tpullm_torch.ops.kernels import flash, qmm
-    from tpullm_torch.ops.sampling_ops import SamplingParams
     from tpullm_torch.runtime.batch_engine import BatchEngine
     from tpullm_torch.runtime.engine import Engine
 
@@ -5101,25 +5250,13 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
                   decode_bound_ms=per_token / PEAK_BYTES * 1e3)
 
     runs = []
-    for kv in (torch.bfloat16,):  # its q8 cache: the slice's and phi's q8 runs hold D = 128
+    for kv in (torch.bfloat16,):  # its q8 cache: OLMoE's and phi's q8 runs hold D = 128
         run = serve("qwen3-30b-a3b", path, kv, launches, lens=QWEN_LENS, engine=eng,
                     repeat=kv is torch.bfloat16)
         expect(run["launches"]["qmm_stack"] > 0 and run["launches"]["qmm_gather"] > 0,
                f"qwen {run['kv']}: qmm_stack and qmm_gather launched")
         runs.append(run)
-        one = eng.decode_runner(SamplingParams(), 32).launches_per_replay()
-        want = moe_launch_want(eng, 1)
-        log(f"[qwen] kv={run['kv']} launches per decode replay {one}")
-        expect(one == want, f"qwen {run['kv']}: launches per decode replay {one} = {want}")
-        eng.reset()
-        snap = _snapshot()
-        eng.prefill(_word_ids(eng.tokenizer, QWEN_LENS[2]))
-        torch.cuda.synchronize()
-        got = _launch_delta(snap)
-        want = moe_launch_want(eng, QWEN_LENS[2])
-        log(f"[qwen] kv={run['kv']} launches of one {QWEN_LENS[2]}-token prefill forward {got}")
-        expect(got == want, f"qwen {run['kv']}: one prefill forward's launches {got} = {want}")
-        run.update(launches_per_decode=one, launches_per_prefill=got)
+        run.update(moe_launch_checks("qwen", f"kv={run['kv']}", eng))
     result["runs"] = runs
 
     prompts = [_word_ids(eng.tokenizer, n) for n in QWEN_SLOT_LENS]
@@ -5204,6 +5341,384 @@ def against_dense(label: str, path: Path, max_seq: int, positions: int) -> dict:
            f"({same}/{len(ids)})")
     return dict(worst=max(errs), mean=float(np.mean(errs)), same_top=same, positions=len(ids),
                 min_margin=min(margins), max_tied=max(ties), parted=parted)
+
+
+MOE_FAMILY_CTX = 4096  # max_seq of the three (Scout's cache within one chunk of 8192)
+PHIMOE_LAYERS = 8  # Phi-3.5-MoE's depth on the card (of 32)
+SCOUT_LAYERS = 4  # Llama-4-Scout's depth on the card (of 48)
+# OLMoE's serve: 16 tokens (a gather-regime prefill: 128 rows of qmm_gather),
+# 2560 and 512, then 2560 again on the bf16 cache
+OLMOE_LENS = (16, 2560, 512)
+OLMOE_SLOT_LENS = (40, 200, 500)  # the BatchEngine round's prompts (its slot 3 idle)
+# The random OLMoE's prefill rows are chaotic: its q/k norms of unit weight give
+# all but one-hot attention, and a router near-tie of the 8th expert moves a row
+# by NMSE 1e-4 in one layer. The 40-token prompt's last row ends in the opposite
+# sign (NMSE 3.996 against Engine's) when its joint round runs at another row
+# count, and so does Engine itself at another bucket in layer 2 (NMSE 0.31 there,
+# back to 5.9e-5 at the head); the slots of one joint forward are bit-equal
+# (PERF.md §6). The batched steps are held to SERVE_NMSE_BOUND, the joint round's
+# rows reported.
+OLMOE_TEACHER = 8  # teacher-forced batched steps against Engine
+PHIMOE_DENSE_POSITIONS = 16  # positions teacher-forced against dense weights
+# Phi-3.5-MoE's depth where it is held against dense weights: the random stack of
+# LayerNorms with biases amplifies the bf16 rounding with depth (NMSE 3.8e-4 at 1
+# layer, 3.3e-4 at 2, 9.58e-4 at 8 on the H100, PERF.md §6; at 2 layers a dense
+# top-2 near-tie parts one argmax), as Phi-2's does
+PHIMOE_DENSE_LAYERS = 1
+TINY_CHUNKED_LAYERS = 3  # tiny-llama4's chunked layers (of 4; layer 3 NoPE)
+
+
+SPARSEMIXER_EPS = 0.01  # route_sparsemixer's jitter_eps: the band is 2·eps relative
+
+
+def sparsemixer_choices(logits):
+    """route_sparsemixer's discrete choices on router logits [N, E] (the
+    same f32 steps): (the two experts [N, 2], each round's band [N, 2, E],
+    each row's margin [N]: the least relative distance of a logit to a
+    round's band edge or, for an expert not chosen, to the round's
+    maximum)."""
+    import torch
+    import torch.nn.functional as F
+
+    s = logits.float()
+    scores, sels, bands, margins = s, [], [], []
+    for _ in range(2):
+        m = scores.max(-1, keepdim=True).values
+        sel = torch.argmax(scores, -1)
+        rel = (m - s) / torch.maximum(s.abs(), m)
+        chosen = F.one_hot(sel, s.shape[-1]).bool()
+        bands.append(~(rel > 2.0 * SPARSEMIXER_EPS))
+        other = ~chosen & (scores > -1e29)  # the experts this round could still take
+        margins.append(torch.where(other, torch.minimum((rel - 2.0 * SPARSEMIXER_EPS).abs(),
+                                                        rel.clamp(min=0)),
+                                   float("inf")).min(-1).values)
+        sels.append(sel)
+        scores = torch.where(chosen, -1e30, s)
+    return torch.stack(sels, -1), torch.stack(bands, 1), torch.minimum(*margins)
+
+
+def sparsemixer_forced(logits, sel, band):
+    """route_sparsemixer's weights on `logits` under given choices (the
+    experts `sel` [N, 2] and each round's `band` [N, 2, E])."""
+    import torch
+    import torch.nn.functional as F
+
+    s = logits.float()
+    scores, ws = s, []
+    for r in range(2):
+        gates = torch.softmax(torch.where(band[:, r], scores, -1e30), -1)
+        ws.append(gates.gather(-1, sel[:, r:r + 1])[:, 0])
+        scores = torch.where(F.one_hot(sel[:, r], s.shape[-1]).bool(), -1e30, s)
+    return torch.stack(ws, -1), sel.to(torch.int32)
+
+
+def sparsemixer_against_dense(label: str, path: Path, max_seq: int, positions: int) -> dict:
+    """PhiMoE's kernels against dense bf16 weights under one set of routing
+    choices: sparsemixer's band is a step, and the packed and the dense
+    engines' bf16 activations put a router logit near its edge on either
+    side, so each engine routing on its own parts where the kernels are
+    right. The packed Engine's `positions` greedy ids after a 512-token
+    prompt (its decode graph); then both Engines teacher-forced
+    on them with eager steps, the packed engine's choices recorded
+    (`sparsemixer_choices`) and imposed on the dense engine's own router
+    logits (`sparsemixer_forced`): logits within SERVE_NMSE_BOUND and the
+    packed argmax a dense maximum at every position. Reported: the routed
+    rows where the dense engine's own choices part, and the largest margin
+    (`sparsemixer_choices`) among them."""
+    import torch
+
+    from tpullm_torch.models import phi3
+    from tpullm_torch.runtime.engine import Engine
+
+    eng = Engine(path, max_seq=max_seq)
+    prompt = _word_ids(eng.tokenizer, 512)
+    ids = eng.generate_tokens_device(prompt, positions, temp=0.0, stop_on_eog=False,
+                                     chunk=positions)
+    expect(len(ids) == positions, f"{label}: {len(ids)} greedy ids")
+    route = phi3.route_sparsemixer
+    record, flips = [], []
+
+    def recording(logits):
+        record.append(sparsemixer_choices(logits))
+        w, idx = route(logits)
+        expect(bool(torch.equal(idx.long(), record[-1][0])),
+               f"{label}: sparsemixer_choices gives route_sparsemixer's experts")
+        return w, idx
+
+    def forcing(logits):
+        sel, band, margin = record[len(flips)]
+        own_sel, own_band, _ = sparsemixer_choices(logits)
+        parted = (own_sel != sel).any(-1) | (own_band != band).any(-1).any(-1)
+        flips.append((int(parted.sum()), float(margin[parted].max()) if parted.any() else 0.0))
+        return sparsemixer_forced(logits, sel, band)
+
+    def teacher(e):
+        e.reset()
+        with torch.inference_mode():
+            rows = [e.prefill(prompt)]
+            for t in ids[:-1]:
+                rows.append(e._decode_logits(torch.tensor(t, device=e.device)).float().cpu()
+                            .numpy())
+        return rows
+
+    try:
+        phi3.route_sparsemixer = recording
+        packed_rows = teacher(eng)
+        del eng
+        gc.collect()
+        dense = Engine(path, max_seq=max_seq, mode="dense")
+        phi3.route_sparsemixer = forcing
+        dense_rows = teacher(dense)
+    finally:
+        phi3.route_sparsemixer = route
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [_nmse_np(a, b) for a, b in zip(packed_rows, dense_rows)]
+    same = sum(int(b[np.argmax(a)] == b.max()) for a, b in zip(packed_rows, dense_rows))
+    parted = [dict(position=i, margin=float(np.diff(np.sort(b)[-2:])[0]),
+                   deviation=float(np.abs(a - b).max()))
+              for i, (a, b) in enumerate(zip(packed_rows, dense_rows))
+              if b[np.argmax(a)] != b.max()]
+    n_rows = sum(rec[0].shape[0] for rec in record)
+    n_parted = sum(n for n, _ in flips)
+    worst_margin = max(m for _, m in flips)
+    log(f"[{label}] the kernels against dense bf16 weights under the packed engine's sparsemixer "
+        f"choices, teacher-forced on {len(ids)} positions after a 512-token prompt: NMSE worst "
+        f"{max(errs):.2e} mean {np.mean(errs):.2e}, the packed argmax a dense maximum at "
+        f"{same}/{len(ids)} (parted at {parted}); routing on its own the dense engine parts "
+        f"at {n_parted} of "
+        f"{n_rows} routed rows (calls × rows), the largest margin among them {worst_margin:.4f}")
+    expect(all(np.isfinite(r).all() for r in packed_rows + dense_rows),
+           f"{label}: finite logits, packed and dense")
+    expect(max(errs) <= SERVE_NMSE_BOUND,
+           f"{label}: NMSE against dense weights {max(errs):.3e} <= {SERVE_NMSE_BOUND}")
+    expect(same == len(ids), f"{label}: the packed argmax a dense maximum at every position "
+           f"({same}/{len(ids)})")
+    return dict(worst=max(errs), mean=float(np.mean(errs)), same_top=same, positions=len(ids),
+                parted=parted, routed_rows=n_rows, parted_rows=n_parted,
+                parted_margin=worst_margin)
+
+
+def moe_launch_checks(tag: str, label: str, eng, chunk: int = 32) -> dict:
+    """A decode replay's (of the runner `serve` ran: chunk 32, or 16 after a
+    `short` serve) and a 512-token prefill forward's launches against
+    moe_launch_want; `tag` names the phase in the lines."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+
+    one = eng.decode_runner(SamplingParams(), chunk).launches_per_replay()
+    want = moe_launch_want(eng, 1)
+    log(f"[{tag}] {label} launches per decode replay {one}")
+    expect(one == want, f"{tag} {label}: launches per decode replay {one} = {want}")
+    eng.reset()
+    snap = _snapshot()
+    eng.prefill(_word_ids(eng.tokenizer, 512))
+    torch.cuda.synchronize()
+    got = _launch_delta(snap)
+    want = moe_launch_want(eng, 512)
+    log(f"[{tag}] {label} launches of one 512-token prefill forward {got}")
+    expect(got == want, f"{tag} {label}: one prefill forward's launches {got} = {want}")
+    return dict(launches_per_decode=one, launches_per_prefill=got)
+
+
+def stack_share(run: dict) -> float:
+    """qmm_stack's share of a serve's profiled 512-token prefill device time."""
+    ms = run["prefill_profile"]["device_ms"]
+    return ms["qmm_stack"] / sum(ms.values())
+
+
+def phase_moe_families(tmp: Path, launches: dict) -> dict:
+    """Three MoE families, synthesized from seed 0 (written ahead by child
+    processes, AHEAD_JOBS):
+    1. tiny-olmoe, tiny-phimoe and tiny-llama4 on the card against the CPU
+       (tiny_card_vs_cpu) on a 52-token prompt (every expert: qmm_stack) and
+       a 10-token one (qmm_gather); tiny-llama4's chunk of 16 in a 256-slot
+       cache takes the dense chunk route: flash.ATTN_DENSE_ROUTES moves
+       by TINY_CHUNKED_LAYERS a forward, and by nothing else in the phase;
+    2. OLMoE-1B-7B Q4_K_M at full width and depth (64 experts top-8, q/k
+       norms over the projection): `serve` on a bf16 cache (prompts
+       OLMOE_LENS: TTFT, decode tok/s, device ms by family, the 512-token
+       prefill's qmm_stack share) and a q8 cache; a decode replay's and a
+       512-token prefill's launches against moe_launch_want; a 4-slot
+       BatchEngine, slot 3 idle, teacher-forced on Engine's greedy ids (the
+       batched steps held, the joint round's rows reported:
+       OLMOE_SLOT_LENS);
+    3. Phi-3.5-MoE Q4_K_M at full width, PHIMOE_LAYERS of 32 layers
+       (sparsemixer top-2 of 16, LayerNorms with biases, a biased head):
+       `serve` on bf16, launches; with PHIMOE_DENSE_LAYERS layers the
+       logits against dense bf16 weights teacher-forced under the packed
+       engine's routing choices (sparsemixer_against_dense);
+    4. Llama-4-Scout Q4_K_M at full width, SCOUT_LAYERS of 48 layers (a
+       cache of MOE_FAMILY_CTX ≤ its chunk: flash on every layer): `serve`
+       on bf16, launches, the shared expert's and the routed experts'
+       (qmm_gather, top-1) ms a decode token as graph replays;
+    5. no dequantize route anywhere in the phase."""
+    import torch
+
+    from tpullm_torch.models.llama import silu_glu
+    from tpullm_torch.ops import moe
+    from tpullm_torch.ops.kernels import flash, qmm
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+
+    result: dict = {}
+    t_phase = time.perf_counter()
+
+    def step(what):
+        result.setdefault("seconds", {})[what] = time.perf_counter() - t_phase
+        log(f"[moe families] {what} at {time.perf_counter() - t_phase:.1f}s into the phase")
+
+    reset_launches()  # just before the main path (each serve resets them again)
+    # 52 tokens of the tiny vocab (every expert: qmm_stack) and 10 (qmm_gather)
+    long = "the lazy dog jumps over the quick brown fox hello world"
+    for shape in ("tiny-olmoe", "tiny-phimoe", "tiny-llama4"):
+        for prompt in (long, "hello world"):
+            gpu, cpu = tiny_card_vs_cpu("moe families", tmp, shape, "Q4_K_M", torch.bfloat16,
+                                        prompt)
+            if shape == "tiny-llama4" and prompt is long:
+                ids = gpu.tokenizer.tokenize(prompt)
+                before = sum(flash.ATTN_DENSE_ROUTES.values())
+                gpu.reset()
+                gpu.prefill(ids)
+                gpu.decode_step(5)
+                torch.cuda.synchronize()
+                moved = sum(flash.ATTN_DENSE_ROUTES.values()) - before
+                log(f"[moe families] tiny-llama4 (chunk {gpu.hp.sliding_window}, cache "
+                    f"{gpu.cache.max_len}): a prefill and a decode step moved the dense chunk "
+                    f"route by {moved}")
+                expect(moved == 2 * TINY_CHUNKED_LAYERS,
+                       f"tiny-llama4: the dense chunk route {moved} = 2 forwards × "
+                       f"{TINY_CHUNKED_LAYERS} chunked layers")
+                result["tiny_llama4_chunk_routes"] = moved
+            del gpu, cpu
+    expect(not any(qmm.DEQUANT_ROUTES.values()), "moe families tiny: no dequantize route")
+    gc.collect()
+    step("the tiny models done")
+
+    def expect_no_routes(label):
+        expect(not any(qmm.DEQUANT_ROUTES.values()) and not any(flash.ATTN_DENSE_ROUTES.values()),
+               f"{label}: no dequantize-route or dense-attention call since the counts were set "
+               f"to 0 ({qmm.DEQUANT_ROUTES}, {flash.ATTN_DENSE_ROUTES})")
+
+    # 2. OLMoE-1B-7B at full depth
+    path = synthesize(tmp, "moe families", "olmoe-1b-7b", "Q4_K_M", vocab="bpe")
+    torch.cuda.empty_cache()
+    eng = Engine(path, max_seq=MOE_FAMILY_CTX)
+    hp = eng.hp
+    log(f"[moe families] olmoe: {hp.n_layer} layers, n_embd {hp.n_embd}, {hp.n_head} heads over "
+        f"{hp.n_head_kv}, experts {hp.n_expert} top-{hp.n_expert_used} of {hp.n_ff}, vocab "
+        f"{hp.n_vocab}, rope {hp.rope.style}; loaded in {eng.perf.t_load_s:.1f}s; {eng.report()}")
+    expect(hp.arch == "olmoe" and hp.rope.style == "neox" and hp.n_expert == 64
+           and eng.params["layers"][0]["q_norm"].shape[-1] == hp.n_embd,
+           "olmoe: OLMoE-1B-7B's hparams (NEOX RoPE, 64 experts, q norm over the projection)")
+    runs = []
+    for kv in (torch.bfloat16, "q8_0"):
+        run = serve("olmoe-1b-7b", path, kv, launches, lens=OLMOE_LENS, engine=eng,
+                    repeat=kv is torch.bfloat16)
+        run.update(moe_launch_checks("moe families", f"olmoe kv={run['kv']}", eng))
+        run["prefill_stack_share"] = stack_share(run)
+        log(f"[moe families] olmoe kv={run['kv']}: qmm_stack {run['prefill_stack_share']:.3f} of "
+            "the 512-token prefill's device time (all 64 experts on every token)")
+        runs.append(run)
+    result["olmoe"] = runs
+    prompts = [_word_ids(eng.tokenizer, n) for n in OLMOE_SLOT_LENS]
+    eng.new_cache(kv_dtype=torch.bfloat16)
+    refs = engine_refs(eng, prompts, OLMOE_TEACHER)
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the batched path
+    be = BatchEngine(model, n_slots=4, max_seq=MOE_FAMILY_CTX, prefill_chunk=512)
+    be.precompile()
+    result["olmoe_serving"] = teacher_forced("olmoe serving", be, None, prompts, OLMOE_TEACHER,
+                                             refs=refs, hold_prefill=False)
+    del be, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = read_launches()  # just after the batched path
+    log(f"[moe families] launches of the OLMoE BatchEngine round (3 slots fed, 1 idle) {got}")
+    expect(got["qmm_stack"] > 0 and got["qmm_gather"] > 0 and got["flash_bf16.decode"] > 0,
+           "olmoe serving: qmm_stack (the joint round), qmm_gather and flash's decode regime "
+           "(the batched steps) launched")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["olmoe_serving"]["launches"] = got
+    expect_no_routes("olmoe serving")
+    path.unlink()
+    step("OLMoE-1B-7B done")
+
+    # 3. Phi-3.5-MoE with PHIMOE_LAYERS layers
+    path = synthesize(tmp, "moe families", "phi-3.5-moe", "Q4_K_M", n_layer=PHIMOE_LAYERS)
+    eng = Engine(path, max_seq=MOE_FAMILY_CTX)
+    hp = eng.hp
+    expect(hp.arch == "phimoe" and hp.n_expert_used == 2
+           and eng.params["layers"][0]["attn_norm_b"] is not None
+           and eng.params["output_b"] is not None,
+           "phimoe: sparsemixer's top-2, LayerNorm biases, the head's bias")
+    run = serve(f"phi-3.5-moe-{PHIMOE_LAYERS}l", path, torch.bfloat16, launches, short=512,
+                prefill_len=512, engine=eng)
+    run.update(moe_launch_checks("moe families", "phi-3.5-moe", eng, chunk=16))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    path.unlink()
+    reset_launches()
+    path = synthesize(tmp, "moe families", "phi-3.5-moe", "Q4_K_M",
+                      n_layer=PHIMOE_DENSE_LAYERS)
+    run["dense"] = sparsemixer_against_dense(f"phi-3.5-moe-{PHIMOE_DENSE_LAYERS}l", path,
+                                             MOE_FAMILY_CTX, PHIMOE_DENSE_POSITIONS)
+    expect_no_routes("phi-3.5-moe")
+    result["phimoe"] = run
+    path.unlink()
+    step("Phi-3.5-MoE done")
+
+    # 4. Llama-4-Scout with SCOUT_LAYERS layers
+    path = synthesize(tmp, "moe families", "llama-4-scout", "Q4_K_M", n_layer=SCOUT_LAYERS,
+                      vocab="bpe")
+    eng = Engine(path, max_seq=MOE_FAMILY_CTX)
+    hp = eng.hp
+    expect(hp.arch == "llama4" and hp.sliding_window == 8192 and hp.n_expert_used == 1
+           and eng.cache.max_len <= hp.sliding_window,
+           "llama4: Scout's chunk of 8192 above the cache (flash on every layer), top-1")
+    run = serve(f"llama-4-scout-{SCOUT_LAYERS}l", path, torch.bfloat16, launches, short=512,
+                prefill_len=512, engine=eng)
+    run.update(moe_launch_checks("moe families", "llama-4-scout", eng, chunk=16))
+    run["prefill_stack_share"] = stack_share(run)
+    expect(run["launches"]["flash_bf16"] > 0 and run["launches"]["attn_dense_routes"] == 0,
+           "llama-4-scout: every layer on flash, no dense chunk route")
+    layer = eng.params["layers"][0]
+    gen = torch.Generator(eng.device).manual_seed(4)
+    x = (torch.randn(1, hp.n_embd, generator=gen, device=eng.device) * 0.5).to(torch.bfloat16)
+    with torch.inference_mode():
+        w, idx = moe.route(x.float() @ layer["router"].w.float(), 1, gating="sigmoid")
+        shexp_ms = time_ms(lambda: layer["w_down_shexp"](silu_glu(layer["w_gate_shexp"](x),
+                                                                  layer["w_up_shexp"](x))), 50)
+        gather_ms = time_ms(lambda: moe.moe_ffn(x, w, idx, layer["w_gate_exps"],
+                                                layer["w_up_exps"], layer["w_down_exps"],
+                                                weight_before_ffn=True), 50)
+    sh_bytes = sum(b.numel() * b.element_size() for key in ("w_gate_shexp", "w_up_shexp",
+                                                            "w_down_shexp")
+                   for b in layer[key].buffers())
+    ex_bytes = sum(b.numel() * b.element_size() / hp.n_expert
+                   for key in ("w_gate_exps", "w_up_exps", "w_down_exps")
+                   for b in layer[key].buffers())
+    run.update(shexp_ms=shexp_ms, shexp_bound_ms=sh_bytes / PEAK_BYTES * 1e3,
+               gather_ms=gather_ms, gather_bound_ms=ex_bytes / PEAK_BYTES * 1e3)
+    log(f"[moe families] llama-4-scout a decode token's layer: the shared expert {shexp_ms:.4f} "
+        f"ms (bound {run['shexp_bound_ms']:.4f} ms), the routed expert (qmm_gather, top-1, "
+        f"weight before the FFN) {gather_ms:.4f} ms (bound {run['gather_bound_ms']:.4f} ms); "
+        f"the 512-token prefill's qmm_stack share {run['prefill_stack_share']:.3f}")
+    del eng, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect_no_routes("llama-4-scout")
+    result["llama4"] = run
+    path.unlink()
+    step("Llama-4-Scout done")
+    return result
 
 
 PHI3_CTX = 4096  # Phi-3-mini-4k's context
@@ -6344,20 +6859,17 @@ def phase_gpt2(tmp: Path, launches: dict) -> dict:
 def phase_presets(tmp: Path, launches: dict) -> list[dict]:
     """Llama-3-8B with 4 layers (one prompt, 16 decode steps) at Q2_K,
     IQ4_XS, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL and Q3_K_M (a bf16 KV cache;
-    the q8 cache's flash runs in the slice, server and speculative
+    the q8 cache's flash runs in the server, speculative and moe families
     phases); Mixtral-8x7B at MXFP4_MOE with 4 layers, a 64-token prompt (the
-    all-experts regime) and its decode (gather). Each file is synthesized
-    while the one before runs (`synthesized_ahead`)."""
+    all-experts regime) and its decode (gather). Each file is written ahead
+    by a child process (AHEAD_JOBS)."""
     import torch
 
-    jobs = [(f"8b-{ftype}", "llama-3-8b", ftype, 4)
-            for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL", "Q3_K_M")]
-    jobs.append(("mixtral-MXFP4_MOE", "mixtral-8x7b", "MXFP4_MOE", 4))
     runs = []
-    with contextlib.closing(synthesized_ahead(tmp, jobs)) as files:
-        for (label, *_), path in zip(jobs, files):
-            runs.append(serve(label, path, torch.bfloat16, launches, short=64))
-            path.unlink()
+    for label, shape, ftype, n_layer in PRESET_JOBS:
+        path = synthesize(tmp, label, shape, ftype, n_layer=n_layer)
+        runs.append(serve(label, path, torch.bfloat16, launches, short=64))
+        path.unlink()
     got = runs[-1]["launches"]
     expect(got.get("qmm_stack.MXFP4", 0) > 0 and got.get("qmm_gather.MXFP4", 0) > 0
            and got["qmm_q8_0"] > 0,
@@ -6373,23 +6885,18 @@ def phase_iquants(tmp: Path, launches: dict) -> list[dict]:
     joined the smoke, and were cut to keep its time); Mixtral-8x7B at
     IQ2_XXS with 4 layers (a 64-token prompt through qmm_stack, decode
     through qmm_gather); the 8B at Q4_K_M with 4 layers and
-    qmm.GROUPED_TYPES = {Q4_K, Q6_K} (`grouped_run`). Each file is
-    synthesized while the one before runs (`synthesized_ahead`)."""
+    qmm.GROUPED_TYPES = {Q4_K, Q6_K} (`grouped_run`). Each file is written
+    ahead by a child process (AHEAD_JOBS)."""
     import torch
 
-    jobs = [(f"8b-{ftype}", "llama-3-8b", ftype, 4)
-            for ftype in ("IQ1_S", "IQ3_XXS", "IQ2_XXS", "IQ2_XS", "IQ2_M", "IQ1_M", "IQ3_M",
-                          "TQ1_0", "TQ2_0")]
-    jobs += [("mixtral-IQ2_XXS", "mixtral-8x7b", "IQ2_XXS", 4),
-             ("8b-grouped", "llama-3-8b", "Q4_K_M", 4)]
     runs = []
-    with contextlib.closing(synthesized_ahead(tmp, jobs)) as files:
-        for (label, *_), path in zip(jobs, files):
-            if label == "8b-grouped":
-                runs.append(grouped_run(path, launches))
-            else:
-                runs.append(serve(label, path, torch.bfloat16, launches, short=64))
-            path.unlink()
+    for label, shape, ftype, n_layer in IQUANT_JOBS:
+        path = synthesize(tmp, label, shape, ftype, n_layer=n_layer)
+        if label == "8b-grouped":
+            runs.append(grouped_run(path, launches))
+        else:
+            runs.append(serve(label, path, torch.bfloat16, launches, short=64))
+        path.unlink()
     got = runs[-2]["launches"]
     expect(got.get("qmm_stack.IQ2_XXS", 0) > 0 and got.get("qmm_gather.IQ2_XXS", 0) > 0
            and got["qmm_iq2_xxs"] > 0,
@@ -6543,35 +7050,43 @@ def main() -> int:
 
     smi = timed("card", phase_card)
     ptxas = timed("build", phase_build)
-    results: dict = {}
-    timed("qmm", phase_qmm, dev, results)
-    timed("grouped", phase_grouped, dev, results)
-    timed("moe kernels", phase_moe_kernels, dev, results)
-    timed("flash", phase_flash, dev, results)
-    timed("flash d256", phase_flash256, dev, results)
-    timed("flash mla", phase_flash_mla, dev, results)
-    timed("flash dkdv", phase_flash_dkdv, dev, results)
-    phi: dict = {}
-    timed("phi kernels", phase_phi_kernels, dev, results, phi)
-    batched: dict = {}
-    timed("batched kernels", phase_batched_kernels, dev, results, batched)
-    verify: dict = {}
-    timed("verify kernels", phase_verify_kernels, dev, results, verify)
-    qwen: dict = {}
-    timed("qwen kernels", phase_qwen_kernels, dev, results, qwen)
-    unfused: dict = {}
-    timed("unfused kernels", phase_unfused_kernels, dev, results, unfused)
-    gemma_k: dict = {}
-    timed("gemma kernels", phase_gemma_kernels, dev, results, gemma_k)
-    opt_k: dict = {}
-    timed("option kernels", phase_option_kernels, dev, results, opt_k)
-    alibi_k: dict = {}
-    timed("alibi kernels", phase_alibi_kernels, dev, results, alibi_k)
-    bloom_gpt2_k: dict = {}
-    timed("bloom gpt2 kernels", phase_bloom_gpt2_kernels, dev, results, bloom_gpt2_k)
-    conformance = timed("conformance", phase_conformance, dev)
     launches: dict = {}
-    with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="tpullm_torch_smoke_") as tmp, \
+            contextlib.ExitStack() as ahead:
+        # the main path's files, written by children ahead of their turn (the
+        # kernel phases leave the host's cores to them)
+        ahead.callback(lambda: _end_children(AHEAD.values()))
+        AHEAD_QUEUE.extend(AHEAD_JOBS)
+        ahead_top_up(Path(tmp))
+        results: dict = {}
+        timed("qmm", phase_qmm, dev, results)
+        timed("grouped", phase_grouped, dev, results)
+        timed("moe kernels", phase_moe_kernels, dev, results)
+        timed("flash", phase_flash, dev, results)
+        timed("flash d256", phase_flash256, dev, results)
+        timed("flash mla", phase_flash_mla, dev, results)
+        timed("flash dkdv", phase_flash_dkdv, dev, results)
+        phi: dict = {}
+        timed("phi kernels", phase_phi_kernels, dev, results, phi)
+        batched: dict = {}
+        timed("batched kernels", phase_batched_kernels, dev, results, batched)
+        verify: dict = {}
+        timed("verify kernels", phase_verify_kernels, dev, results, verify)
+        qwen: dict = {}
+        timed("qwen kernels", phase_qwen_kernels, dev, results, qwen)
+        unfused: dict = {}
+        timed("unfused kernels", phase_unfused_kernels, dev, results, unfused)
+        gemma_k: dict = {}
+        timed("gemma kernels", phase_gemma_kernels, dev, results, gemma_k)
+        opt_k: dict = {}
+        timed("option kernels", phase_option_kernels, dev, results, opt_k)
+        alibi_k: dict = {}
+        timed("alibi kernels", phase_alibi_kernels, dev, results, alibi_k)
+        bloom_gpt2_k: dict = {}
+        timed("bloom gpt2 kernels", phase_bloom_gpt2_kernels, dev, results, bloom_gpt2_k)
+        fam_k: dict = {}
+        timed("moe family kernels", phase_moe_family_kernels, dev, results, fam_k)
+        conformance = timed("conformance", phase_conformance, dev)
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs, slice_path = timed("slice", phase_slice, Path(tmp), launches)
         tools = timed("tools", phase_tools, slice_path, Path(tmp), launches)
@@ -6588,6 +7103,7 @@ def main() -> int:
         gemma = timed("gemma", phase_gemma, Path(tmp), launches)
         ds2 = timed("deepseek2", phase_deepseek2, Path(tmp), launches)
         qwen_run = timed("qwen", phase_qwen, Path(tmp), launches)
+        fam_run = timed("moe families", phase_moe_families, Path(tmp), launches)
         phi_run = timed("phi", phase_phi, Path(tmp), launches)
         mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
         llama_opts = timed("llama options", phase_llama_options, Path(tmp), launches)
@@ -6602,7 +7118,7 @@ def main() -> int:
                                         "mla": mla_run, "fit": fit_run,
                                         "llama_options": llama_opts, "falcon": falcon_run,
                                         "gguf": gguf_run, "bloom": bloom_run,
-                                        "gpt2": gpt2_run},
+                                        "gpt2": gpt2_run, "moe_families": fam_run},
                                        default=str))
     for fmt in FLASH_FORMATS:
         for d in (256, 96, 80, 64):
@@ -6787,12 +7303,12 @@ def main() -> int:
         for name, rows_by_key in (("batched", batched), ("verify", verify), ("qwen", qwen),
                                   ("phi", phi), ("unfused", unfused), ("gemma", gemma_k),
                                   ("options", opt_k), ("alibi", alibi_k),
-                                  ("bloom_gpt2", bloom_gpt2_k)):
+                                  ("bloom_gpt2", bloom_gpt2_k), ("moe_families", fam_k)):
             # the shapes of continuous batching, of speculative verification,
             # of the Qwen models, of the Phi models and Qwen (v1), of the
             # 8B's projections apart (a LoRA engine's), of Gemma-3-4B, of
-            # the option models, of the ALiBi family's attention and of the
-            # bloom and gpt2 families' linears
+            # the option models, of the ALiBi family's attention, of the
+            # bloom and gpt2 families' linears and of the three MoE families
             if key in rows_by_key:
                 entry[name] = [{k: r[k] for k in ("case", "nmse", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")}

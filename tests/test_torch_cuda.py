@@ -2032,3 +2032,69 @@ def test_bloom_and_gpt2_on_the_card_match_the_cpu(dev, tmp_path):
         if shape == "tiny-bloom":
             cpu.reset()
             assert graph == cpu.generate_tokens_device(ids, 8, chunk=4)
+
+
+@pytest.mark.parametrize("shape", ["tiny-olmoe", "tiny-phimoe", "tiny-llama4"])
+def test_moe_families_on_the_card_match_the_cpu(dev, tmp_path, shape):
+    """tiny-olmoe (64 experts top-8: the gather's bit-set path), tiny-phimoe
+    (sparsemixer, LayerNorms with biases, a biased head) and tiny-llama4
+    (chunks of 16 in a 128-slot cache: the dense chunk route, counted in
+    flash.ATTN_DENSE_ROUTES three times a forward; a NoPE layer on the
+    flash kernel) on the card against the CPU: a 30-token prompt (every
+    expert: qmm_stack) and a 9-token one (qmm_gather), three decode steps
+    each, within NMSE 1e-3; the decode graph's ids against the same
+    engine's eager steps."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    gpu, cpu = Engine(path, max_seq=128), Engine(path, device="cpu", max_seq=128)
+    chunked = 3 if shape == "tiny-llama4" else 0
+    for n in (30, 9):
+        ids = [int(t) for t in np.random.default_rng(n).integers(5, 370, size=n)]
+        gpu.reset()
+        cpu.reset()
+        before = sum(flash.ATTN_DENSE_ROUTES.values())
+        errs = [_nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+        for tok in (3, 17, 5):
+            errs.append(_nmse(torch.from_numpy(gpu.decode_step(tok)),
+                              torch.from_numpy(cpu.decode_step(tok))))
+        torch.cuda.synchronize()
+        assert sum(flash.ATTN_DENSE_ROUTES.values()) - before == 4 * chunked
+        assert max(errs) <= 1e-3, (shape, n, errs)
+        gpu.reset()
+        graph = gpu.generate_tokens_device(ids, 8, chunk=4)
+        gpu.reset()
+        eager = [int(np.argmax(gpu.prefill(ids)))]
+        with torch.inference_mode():
+            for _ in range(7):
+                logits = gpu._decode_logits(torch.tensor(eager[-1], device=gpu.device))
+                eager.append(int(torch.argmax(logits)))
+        assert graph == eager, (shape, graph, eager)
+
+
+def test_route_sparsemixer_captures_in_a_graph(dev):
+    """route_sparsemixer reads nothing back to the host: captured as a CUDA
+    graph, its replay on new logits gives the eager call's ids and weights
+    (seeded logits, and rows at the band's edge and with ties)."""
+    from tpullm_torch.ops.moe import route_sparsemixer
+
+    gen = torch.Generator(dev).manual_seed(3)
+    logits = torch.randn(64, 16, generator=gen, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        route_sparsemixer(logits)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            w, idx = route_sparsemixer(logits)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    edge = torch.full((64, 16), -3.0, device=dev)
+    edge[:, 3], edge[:, 9] = 2.0, 2.0 - 0.04 * torch.linspace(0.9, 1.1, 64, device=dev)
+    edge[::7, 5] = 2.0  # ties with expert 3
+    for new in (torch.randn(64, 16, generator=gen, device=dev), edge):
+        logits.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_w, want_idx = route_sparsemixer(new)
+        assert torch.equal(idx, want_idx) and torch.equal(w, want_w)

@@ -66,7 +66,7 @@ def test_hparams_match_jax(tiny):
     for f in ("dims", "freq_base", "scaling_type", "style"):
         assert getattr(hp.rope, f) == getattr(jhp.rope, f), f
     with pytest.raises(NotImplementedError):
-        get_arch("phimoe")
+        get_arch("gpt-oss")
 
 
 @pytest.mark.parametrize("text", ["hello world", "the quick brown fox", "héllo\nwörld  ok",

@@ -174,7 +174,7 @@ def test_baichuan_13b_takes_alibi(tmp_path):
 def test_registry_maps_the_aliases_and_refuses_the_rest():
     """The 17 aliases and the five that ride the llama graph's options
     (arcee, apertus, llama-embed, qwen2vl, qwen3vl) run the llama forward;
-    archs that wait (phimoe, stablelm) are refused; the registry maps 53
+    archs that wait (gpt-oss, stablelm) are refused; the registry maps 56
     names."""
     from tpullm_torch.models.hparams import LLAMA_OPTION_ALIASES
     from tpullm_torch.models.registry import _REGISTRY
@@ -183,10 +183,10 @@ def test_registry_maps_the_aliases_and_refuses_the_rest():
     assert LLAMA_OPTION_ALIASES == ("arcee", "apertus", "llama-embed", "qwen2vl", "qwen3vl")
     for arch in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES):
         assert get_arch(arch).forward is llama.forward
-    for arch in ("phimoe", "stablelm"):
+    for arch in ("gpt-oss", "stablelm"):
         with pytest.raises(NotImplementedError, match="is not ported"):
             get_arch(arch)
-    assert len(_REGISTRY) == 53
+    assert len(_REGISTRY) == 56
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,10 @@ layer lacks stays absent, as the forwards read layers with `get`), the
 phi3 and qwen trees (q|k|v and gate|up fused by the JAX Engine from the
 row slices of one tensor: a FusedLinear whose planes are the port's
 fused load's; qwen's f32 biases) and phi2's (`attn_norm_b`, `bo`, `b_up`,
-`b_down`). The top-level entries beside the embedding and the layers carry
-over the same way (phi2's `output_norm_b` and `output_b`), and so does a
+`b_down`), phimoe's (`attn_norm_b`, `ffn_norm_b`, the q/k/v and o biases)
+and llama4's (the shared expert's linears, a dense layer's SwiGLU). The
+top-level entries beside the embedding and the layers carry over the same
+way (phi2's and phimoe's `output_norm_b` and `output_b`), and so does a
 JAX Engine's `cvec` (its control vectors, [n_layer, n_embd]). A
 LoraLinear-like (`base`, `a_t`, `b_t`, `scale`) becomes models/lora.py's
 `LoraLinear` around its base. Split q/k/v and gate/up of one type are then

@@ -1,6 +1,6 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
-qwen-moe, gemma, deepseek2 (minicpm3, plm), phi2, falcon, bloom and gpt2
-forwards read,
+qwen-moe (olmoe), gemma, deepseek2 (minicpm3, plm), phi2, phimoe, falcon,
+bloom, gpt2 and llama4 forwards read,
 and the metadata → hparams mapping for the archs the port runs (`ARCHS`),
 as the JAX package's models/hparams.py maps them."""
 
@@ -17,9 +17,9 @@ from ..gguf.reader import GGUFReader
 # the archs whose metadata this module maps (models/registry.py runs them):
 # the llama graph and its aliases (those that ride its options apart), the
 # qwen-moe graph and its aliases, the gemma family, deepseek2 and its MLA
-# aliases minicpm3 and plm, phi3, phi2 and qwen (v1), the falcon family, the
-# ALiBi family (bloom, mpt, jais: no RoPE) and gpt2 / starcoder (learned
-# positions: no RoPE)
+# aliases minicpm3 and plm, phi3, phi2, phimoe and qwen (v1), the falcon
+# family, the ALiBi family (bloom, mpt, jais: no RoPE), gpt2 / starcoder
+# (learned positions: no RoPE), olmoe (the qwen-moe graph) and llama4
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
@@ -35,12 +35,14 @@ BLOOM_ARCHS = ("bloom", "mpt", "jais")
 GPT2_ARCHS = ("gpt2", "starcoder")
 ARCHS = ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES,
          "qwen3vlmoe", "gemma", "gemma2", "gemma3", "deepseek2", "minicpm3", "plm", "phi3",
-         "phi2", "qwen", *FALCON_ARCHS, *BLOOM_ARCHS, *GPT2_ARCHS)
+         "phi2", "phimoe", "qwen", *FALCON_ARCHS, *BLOOM_ARCHS, *GPT2_ARCHS, "olmoe",
+         "llama4")
 # the archs without a causal mask unless the file says otherwise (of those
 # the port runs)
 NON_CAUSAL_ARCHS = ("llama-embed",)
 # the default interleave of sliding-window layers: every Nth layer global
-_SWA_PATTERN = {"gemma2": 2, "gemma3": 6}
+# (llama4's chunked layers: every 4th layer a NoPE full-attention layer)
+_SWA_PATTERN = {"gemma2": 2, "gemma3": 6, "llama4": 4}
 
 # arch → RoPE style, the JAX package's NEOX_ROPE_ARCHS (llama.cpp's
 # llama_model_rope_type): these rotate halves (the HF layout), every other

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..gguf.reader import GGUFReader
 from ..ops.attention import alibi_slopes, attention_cached
 from ..ops.moe import moe_ffn, route
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import apply_rope_angles, rope_angles
 from ..runtime.kvcache import slot_rows
 from .hparams import HParams
@@ -98,14 +98,16 @@ def attn_params(p: str, linear, vector) -> dict:
 
 def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: int,
                cache_offset, offsets: torch.Tensor, slopes=None):
-    """One pre-norm GQA attention block with residual (the llama family's
-    and the qwen-moe graph's). The order of the optional steps: biases; a
-    full-projection qk norm (q_norm over n_head·head_dim, minimax-m2 and
-    bailingmoe2) before the head split; per-head qk norms before RoPE, or
-    after it where hp.qk_norm_post_rope (maincoder, hunyuan)."""
+    """One pre-norm GQA attention block with residual (the llama family's,
+    the qwen-moe graph's and phimoe's). The pre-norm is a LayerNorm where
+    the layer has its bias "attn_norm_b" (phimoe), else an RMSNorm. The
+    order of the optional steps: biases; a full-projection qk norm (q_norm
+    over n_head·head_dim, minimax-m2, bailingmoe2 and olmoe) before the
+    head split; per-head qk norms before RoPE, or after it where
+    hp.qk_norm_post_rope (maincoder, hunyuan)."""
     B, T = x.shape[:2]
     scale = hp.attn_scale if hp.attn_scale is not None else hp.head_dim ** -0.5
-    h = rms_norm(x, layer["attn_norm"], hp.rms_eps)
+    h = pre_norm(hp, x, layer["attn_norm"], layer.get("attn_norm_b"))
     fused = layer.get("wqkv")
     if fused is not None:  # one plane stream for q|k|v
         q, k, v = fused(h)
@@ -147,6 +149,14 @@ def attn_block(hp: HParams, layer: dict, x: torch.Tensor, rope_cs, cache, li: in
     if hp.residual_scale != 1.0:
         attn = attn * hp.residual_scale
     return x + attn, cache
+
+
+def pre_norm(hp: HParams, x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    """A LayerNorm where the norm has a bias (phimoe's norms are true
+    LayerNorms), else an RMSNorm, both with hp.rms_eps."""
+    if bias is not None:
+        return layer_norm(x, weight, bias, hp.rms_eps)
+    return rms_norm(x, weight, hp.rms_eps)
 
 
 def _head_norms(hp: HParams, q, k, q_norm, k_norm):
@@ -214,13 +224,18 @@ def forward_offsets(cache_offset, B: int, T: int, max_len: int, device):
 
 
 def output_head(hp: HParams, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The final norm and the head in f32 (divided by logit_scale, then the
-    final-logit softcap where the model has one: gemma2)."""
-    x = rms_norm(x, params["output_norm"], hp.rms_eps)
+    """The final norm (a LayerNorm where params has "output_norm_b":
+    phimoe) and the head in f32: phimoe's head bias "output_b" added in the
+    head's dtype before the cast, as the JAX package adds it; then divided
+    by logit_scale, and the final-logit softcap where the model has one
+    (gemma2)."""
+    x = pre_norm(hp, x, params["output_norm"], params.get("output_norm_b"))
     if params["output"] is not None:
         logits = params["output"](x)
     else:  # tied head: a plain product outside any kernel
         logits = x @ params["tok_embd"].T.to(x.dtype)
+    if params.get("output_b") is not None:
+        logits = logits + params["output_b"].to(logits.dtype)
     logits = logits.float()
     if hp.logit_scale != 1.0:
         logits = logits / hp.logit_scale
@@ -235,7 +250,7 @@ def finish(hp: HParams, params: Params, x: torch.Tensor, last_index, return_hidd
     every row, of row last_index (a host int), or of row last_index[b] of
     batch row b (a [B] device tensor)."""
     if return_hidden:
-        return rms_norm(x, params["output_norm"], hp.rms_eps).float()
+        return pre_norm(hp, x, params["output_norm"], params.get("output_norm_b")).float()
     return output_head(hp, params, pick_rows(x, last_index))
 
 

@@ -4,8 +4,10 @@ the other archs that ride it (the JAX package's models/qwen_moe.py, arch
 
 The llama family's GQA attention (models/llama.py attn_block: qwen2moe's
 biases, qwen3moe's per-head qk norms, the full-projection norms of
-minimax-m2 and bailingmoe2, hunyuan-moe's post-RoPE norms), then a routed
-expert FFN (ops/moe.py), with options that ride tensors and hparams:
+minimax-m2, bailingmoe2 and olmoe, hunyuan-moe's post-RoPE norms), then a
+routed expert FFN (ops/moe.py), with options that ride tensors and hparams
+(olmoe, the JAX package's models/olmoe.py, takes none of them: softmax
+top-k, not renormalised, no shared expert):
   * leading dense layers (deepseek, ernie4_5-moe, dots1, glm4moe, ...):
     a layer without expert stacks runs a SwiGLU FFN;
   * routing by softmax or sigmoid, renormalised per arch

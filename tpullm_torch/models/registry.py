@@ -2,16 +2,20 @@
 forward), the rows of the JAX package's models/registry.py that the port
 runs: `llama` with its 22 aliases (models/hparams.py LLAMA_ALIASES, and
 LLAMA_OPTION_ALIASES: arcee, apertus, llama-embed, qwen2vl, qwen3vl),
-`qwen3moe` with 12 aliases (QWEN_MOE_ALIASES and qwen3vlmoe, its M-RoPE
-sections read, text positions only: NEOX RoPE), `gemma3` (alias
+`qwen3moe` with 13 aliases (QWEN_MOE_ALIASES, qwen3vlmoe, its M-RoPE
+sections read, text positions only: NEOX RoPE, and olmoe, whose
+full-projection q/k norms and unrenormalised softmax top-k the graph
+computes as the JAX package's olmoe.forward does), `gemma3` (alias
 `gemma2`), `gemma`, `deepseek2` with its aliases `minicpm3` (the MLA graph
 with minicpm's multipliers) and `plm` (all-dense MLA, a gateless ReLU²
 FFN), `phi3` and `qwen` (their fused tensors loaded by models/phi3.py and
-models/qwen.py, the llama forward), `phi2` (phimoe waits), `falcon`
-with its aliases `gptneox` and `codeshell` (models/falcon.py), `bloom` with
-its aliases `mpt` and `jais` (models/bloom.py: the ALiBi family), and
-`gpt2` with its alias `starcoder` (models/gpt2.py: learned positions): 53
-names."""
+models/qwen.py, the llama forward), `phimoe` (models/phi3.py
+build_params_moe / forward_moe), `phi2`, `falcon` with its aliases
+`gptneox` and `codeshell` (models/falcon.py), `bloom` with its aliases
+`mpt` and `jais` (models/bloom.py: the ALiBi family), `gpt2` with its
+alias `starcoder` (models/gpt2.py: learned positions), and `llama4`
+(models/llama4.py: chunked attention, NoPE layers, sigmoid top-k experts
+and a shared expert): 56 names."""
 
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..gguf.reader import GGUFReader
-from . import bloom, deepseek2, falcon, gemma, gpt2, llama, phi2, phi3, qwen, qwen_moe
+from . import bloom, deepseek2, falcon, gemma, gpt2, llama, llama4, phi2, phi3, qwen, qwen_moe
 from .hparams import (BLOOM_ARCHS, FALCON_ARCHS, GPT2_ARCHS, LLAMA_ALIASES,
                       LLAMA_OPTION_ALIASES, QWEN_MOE_ALIASES, HParams, hparams_from_gguf)
 
@@ -46,16 +50,19 @@ _FALCON = ArchSpec("falcon", falcon.build_params, falcon.forward)
 _BLOOM = ArchSpec("bloom", bloom.build_params, bloom.forward)
 _GPT2 = ArchSpec("gpt2", gpt2.build_params, gpt2.forward)
 _REGISTRY = {**{name: _LLAMA for name in ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES)},
-             **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES, "qwen3vlmoe")},
+             **{name: _QWEN_MOE for name in ("qwen3moe", *QWEN_MOE_ALIASES, "qwen3vlmoe",
+                                             "olmoe")},
              "gemma3": _GEMMA3, "gemma2": _GEMMA3,
              "gemma": ArchSpec("gemma", gemma.build_params, gemma.forward),
              **{name: _DEEPSEEK2 for name in ("deepseek2", "minicpm3", "plm")},
              "phi3": ArchSpec("phi3", phi3.build_params, llama.forward),
+             "phimoe": ArchSpec("phimoe", phi3.build_params_moe, phi3.forward_moe),
              "phi2": ArchSpec("phi2", phi2.build_params, phi2.forward),
              "qwen": ArchSpec("qwen", qwen.build_params, llama.forward),
              **{name: _FALCON for name in FALCON_ARCHS},
              **{name: _BLOOM for name in BLOOM_ARCHS},
-             **{name: _GPT2 for name in GPT2_ARCHS}}
+             **{name: _GPT2 for name in GPT2_ARCHS},
+             "llama4": ArchSpec("llama4", llama4.build_params, llama4.forward)}
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -1,7 +1,7 @@
 """Synthesis of random *packed* llama (and its aliases with options: the VL
 text stacks, apertus, arcee, llama-embed), qwen, gemma, deepseek2 (and its
-MLA aliases minicpm3 and plm), phi, falcon / gpt-neox, bloom / mpt / jais
-and gpt2 / starcoder models from a seed.
+MLA aliases minicpm3 and plm), phi, falcon / gpt-neox, bloom / mpt / jais,
+gpt2 / starcoder, olmoe, phimoe and llama4 models from a seed.
 
 Writes GGUF files whose quantized payloads are random codes with sane
 scales: numerically meaningless, but byte-layout-identical to real models,
@@ -318,6 +318,62 @@ SHAPES = {
                       n_vocab=384, rms_eps=1e-5, n_ctx=64, positions=True, tied=True),
     "tiny-starcoder": dict(arch="starcoder", n_layer=2, n_embd=256, n_head=4, n_head_kv=1,
                            n_ff=512, n_vocab=384, rms_eps=1e-5, n_ctx=256, positions=True),
+    # allenai/OLMoE-1B-7B-0924 config.json: 16 layers, hidden 2048, 16 heads
+    # (MHA, head_dim 128), q/k RMSNorms over the whole projection (2048 wide),
+    # 64 experts (intermediate_size 1024) top-8 softmax, not renormalised
+    # (norm_topk_prob false), no shared expert, vocab 50304 (GPT-NeoX's BPE,
+    # pre "olmo"), rope_theta 10000, rms_norm_eps 1e-5,
+    # max_position_embeddings 4096, untied
+    "olmoe-1b-7b": dict(arch="olmoe", n_layer=16, n_embd=2048, n_head=16, n_head_kv=16,
+                        n_ff=1024, n_vocab=50304, rope_base=10000.0, rms_eps=1e-5, n_ctx=4096,
+                        n_expert=64, n_expert_used=8, qk_norm_full=True, vocab="bpe",
+                        pre="olmo"),
+    # microsoft/Phi-3.5-MoE-instruct config.json: 32 layers, hidden 4096, 32
+    # heads over 8 (head_dim 128), 16 experts (intermediate_size 6400) top-2
+    # routed by sparsemixer, vocab 32064 (SPM), rope_theta 10000 (its longrope
+    # factors not written: neither package reads them), rms_norm_eps 1e-5 (the
+    # LayerNorms' eps), sliding_window 131072 and max_position_embeddings
+    # 131072 (the card runs 4096), attention_bias (q/k/v and o biases),
+    # LayerNorms with biases, lm_head_bias, untied
+    "phi-3.5-moe": dict(arch="phimoe", n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
+                        n_ff=6400, n_vocab=32064, rope_base=10000.0, rms_eps=1e-5, n_ctx=4096,
+                        sliding_window=131072, n_expert=16, n_expert_used=2, qkv_bias=True,
+                        norm_bias=True, wo_bias=True, head_bias=True),
+    # meta-llama/Llama-4-Scout-17B-16E config.json text_config: 48 layers,
+    # hidden 5120, 40 heads over 8 (head_dim 128), 16 experts
+    # (intermediate_size 8192) top-1 sigmoid, the weight on the expert input,
+    # a shared expert of 8192, every layer MoE (interleave_moe_layer_step 1;
+    # intermediate_size_mlp 16384 is the width of dense layers Scout has
+    # none of), attention_chunk_size 8192 (llama4.attention.sliding_window
+    # as the converter writes it; every 4th layer NoPE with the temperature
+    # tuning), use_qk_norm (the L2 norm), vocab 202048 (BPE, pre "llama4"),
+    # rope_theta 500000 (its llama3 scaling not written: neither package
+    # reads it), rms_norm_eps 1e-5, untied; the card runs 4096 of its
+    # 10485760 positions
+    "llama-4-scout": dict(arch="llama4", n_layer=48, n_embd=5120, n_head=40, n_head_kv=8,
+                          n_ff=16384, n_vocab=202048, rope_base=500000.0, rms_eps=1e-5,
+                          n_ctx=4096, sliding_window=8192, n_expert=16, n_expert_used=1,
+                          n_ff_exp=8192, n_ff_shexp=8192, gated_shexp=False, vocab="bpe",
+                          pre="llama4"),
+    # the MoE families' test models, K a multiple of 256 on every linear:
+    # tiny-olmoe with OLMoE's layout (MHA, full-projection q/k norms, 64
+    # experts top-8 not renormalised: the gather's bit-set path past 32
+    # experts); tiny-phimoe with Phi-3.5-MoE's (16 experts top-2 by
+    # sparsemixer, LayerNorms with biases, q/k/v, o and head biases, a
+    # window of 16); tiny-llama4 with Llama 4's (a chunk of 16: layers 0-2
+    # chunked with the L2 norm, layer 3 NoPE; layer 1 dense, Maverick's
+    # interleave; 16 experts top-1 and a shared expert)
+    "tiny-olmoe": dict(arch="olmoe", n_layer=2, n_embd=256, n_head=4, n_head_kv=4, n_ff=256,
+                       n_vocab=384, rope_base=10000.0, rms_eps=1e-5, n_expert=64,
+                       n_expert_used=8, qk_norm_full=True),
+    "tiny-phimoe": dict(arch="phimoe", n_layer=2, n_embd=256, n_head=4, n_head_kv=2, n_ff=256,
+                        n_vocab=384, rope_base=10000.0, rms_eps=1e-5, sliding_window=16,
+                        n_expert=16, n_expert_used=2, qkv_bias=True, norm_bias=True,
+                        wo_bias=True, head_bias=True),
+    "tiny-llama4": dict(arch="llama4", n_layer=4, n_embd=256, n_head=4, n_head_kv=2,
+                        head_dim=128, n_ff=512, n_vocab=384, rope_base=500000.0, rms_eps=1e-5,
+                        sliding_window=16, n_expert=16, n_expert_used=1, n_ff_exp=256,
+                        n_ff_shexp=256, gated_shexp=False, dense_layers=(1,)),
 }
 
 # the archs whose norms are LayerNorms (layer_norm_epsilon)
@@ -836,17 +892,26 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
             if cfg.get("qk_norm"):
                 vector(p + "attn_q_norm.weight", head_dim, 0.1, base=1.0)
                 vector(p + "attn_k_norm.weight", head_dim, 0.1, base=1.0)
+            if cfg.get("qk_norm_full"):  # olmoe's q/k norms over the whole projection
+                vector(p + "attn_q_norm.weight", n_head * head_dim, 0.1, base=1.0)
+                vector(p + "attn_k_norm.weight", n_head_kv * head_dim, 0.1, base=1.0)
+            if cfg.get("wo_bias"):
+                vector(p + "attn_output.bias", n_embd, 0.1)
+            if cfg.get("norm_bias"):  # phimoe's LayerNorms
+                vector(p + "attn_norm.bias", n_embd, 0.1)
+                vector(p + "ffn_norm.bias", n_embd, 0.1)
             if arch in ("gemma2", "gemma3"):
                 norm(p + "post_attention_norm.weight", n_embd)
                 norm(p + "post_ffw_norm.weight", n_embd)
             norm(p + "ffn_norm.weight", n_embd)
-            if n_expert:
+            if n_expert and i not in cfg.get("dense_layers", ()):
                 router(p + "ffn_gate_inp.weight")
                 packed(p + "ffn_gate_exps.weight", n_ff_exp, n_embd, i, n_expert)
                 packed(p + "ffn_up_exps.weight", n_ff_exp, n_embd, i, n_expert)
                 packed(p + "ffn_down_exps.weight", n_embd, n_ff_exp, i, n_expert)
-                if n_sh:  # qwen2moe's shared expert and its sigmoid gate
-                    vector(p + "ffn_gate_inp_shexp.weight", n_embd, n_embd ** -0.5)
+                if n_sh:  # the shared expert and qwen2moe's sigmoid gate (not llama4's)
+                    if cfg.get("gated_shexp", True):
+                        vector(p + "ffn_gate_inp_shexp.weight", n_embd, n_embd ** -0.5)
                     packed(p + "ffn_gate_shexp.weight", n_sh, n_embd, i)
                     packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
                     packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)
@@ -858,9 +923,9 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     norm("output_norm.weight", n_embd)
     if not tied:  # gemma and plm tie their head to token_embd
         packed("output.weight", n_vocab, n_embd)
-    if layer_norm and not cfg.get("no_bias"):
+    if (layer_norm and not cfg.get("no_bias")) or cfg.get("norm_bias"):
         vector("output_norm.bias", n_embd, 0.1)
-    if arch == "phi2":
+    if arch == "phi2" or cfg.get("head_bias"):
         vector("output.bias", n_vocab, 0.1)
     return w
 

@@ -16,6 +16,13 @@ on a bf16 cache at (Dk, Dv) = (576, 512) (DeepSeek-V2/V3, PLM) and (288,
 256) (MiniCPM3); an f16 or f32 latent, and other latent widths, to the
 dense path.
 
+`attention_chunked` is Llama 4's chunked layers' attention over a cache
+that holds more than one chunk: dense attention under `chunk_mask`, the JAX
+package's route for those layers (its llama4 forward passes no offsets for
+them); counted on the card in flash.ATTN_DENSE_ROUTES. (Over a cache of at
+most one chunk the chunk mask is the causal one: models/llama4.py takes the
+flash kernel there.)
+
 `attention_ring` is the sliding-window layers' attention over an iSWA ring
 cache (runtime/kvcache.py SWACache): dense attention under the mask the
 ring's slot positions give, as the JAX package computes them (its gemma
@@ -125,3 +132,33 @@ def attention_ring(q, k, v, mask, scale: float, softcap: float = 0.0) -> torch.T
     if q.is_cuda:
         flash.ATTN_RING_ROUTES[flash.DENSE_FORMATS[k.dtype]] += 1
     return attention_reference(q, k, v, mask, scale, softcap)
+
+
+def chunk_mask(positions: torch.Tensor, offsets: torch.Tensor, n_keys: int,
+               chunk: int) -> torch.Tensor:
+    """[B, T, n_keys] mask of Llama 4's chunked layers: causal over the
+    cache slots written (offsets[b] + T of batch row b; per-slot offsets
+    with −1 idle included) and within the query's chunk of `chunk`
+    positions (LLAMA_SWA_TYPE_CHUNKED). No value is read back to the host."""
+    T = positions.shape[1]
+    mask = causal_mask(positions, n_keys, offsets.to(torch.int64) + T)
+    key_chunk = torch.arange(n_keys, device=positions.device) // chunk
+    return mask & (key_chunk[None, None, :] == (positions // chunk)[:, :, None])
+
+
+def attention_chunked(q, cache, li: int, mask, scale: float) -> torch.Tensor:
+    """Attention of q [B,T,H,D] against cache layer `li` under a chunk
+    mask [B,T,S] (`chunk_mask`): attention_reference over the layer's keys
+    and values, a q8 cache's widened to bf16 as the JAX package's
+    QuantKVCache.kv widens them; counted on the card by format."""
+    if hasattr(cache, "kv_packed"):
+        k_q, k_s, v_q, v_s = cache.kv_packed(li)
+        k = k_q.to(torch.bfloat16) * k_s[..., None].to(torch.bfloat16)
+        v = v_q.to(torch.bfloat16) * v_s[..., None].to(torch.bfloat16)
+        fmt = "q8"
+    else:
+        k, v = cache.kv(li)
+        fmt = flash.DENSE_FORMATS[k.dtype]
+    if q.is_cuda:
+        flash.ATTN_DENSE_ROUTES[fmt] += 1
+    return attention_reference(q, k, v, mask, scale)

@@ -76,8 +76,9 @@ LAUNCHES = {f"{fmt}.{dims_key(d, dv)}.{r}": 0 for fmt in FORMATS
 LAUNCHES.update({f"bf16.{dims_key(d, dv)}.{r}": 0 for d, dv in LATENT_DIMS
                  for r in ("decode", "prefill")})
 # calls ops.attention sent to its dense path on the card because the kernel
-# does not take their head dims (`takes`), by KV format; 0 on a model whose
-# heads the kernel takes
+# does not take their head dims (`takes`), and Llama 4's chunked layers over
+# a cache of more than one chunk (attention_chunked), by KV format; 0 on a
+# model whose heads the kernel takes and whose cache holds one chunk
 ATTN_DENSE_ROUTES = dict.fromkeys(FORMATS, 0)
 # calls of the sliding-window layers of an iSWA ring cache on the card
 # (ops/attention.py attention_ring: dense attention under the ring's mask,

@@ -41,6 +41,33 @@ def route(router_logits: torch.Tensor, n_expert_used: int, gating: str = "softma
     return weights, idx.to(torch.int32)
 
 
+def route_sparsemixer(router_logits: torch.Tensor,
+                      jitter_eps: float = 0.01) -> tuple[torch.Tensor, torch.Tensor]:
+    """PhiMoE's sparsemixer top-2 routing at inference (the JAX package's
+    route_sparsemixer, in its f32 order): expert i is the argmax of the
+    logits with the experts chosen before masked (the first index of a
+    tie); its weight the softmax over the masked logits that lie within a
+    2·jitter_eps relative band of their maximum, the band measured on the
+    unmasked logits in both rounds. The two weights are not renormalised.
+    router_logits [N, E] → (weights [N, 2] f32, idx [N, 2] int32), with no
+    read-back to the host (a captured step holds it)."""
+    s = router_logits.float()
+    neg_inf = -1e30  # a Python number: no host-to-device copy in a captured step
+
+    def one_round(scores):
+        m = scores.max(dim=-1, keepdim=True).values
+        sel = torch.argmax(scores, dim=-1)
+        factor = torch.maximum(s.abs(), m)
+        drop = ((m - s) / factor) > 2.0 * jitter_eps
+        gates = torch.softmax(torch.where(drop, neg_inf, scores), dim=-1)
+        return torch.gather(gates, -1, sel[:, None])[:, 0], sel
+
+    w1, sel1 = one_round(s)
+    s2 = torch.where(F.one_hot(sel1, s.shape[-1]).bool(), neg_inf, s)
+    w2, sel2 = one_round(s2)
+    return torch.stack([w1, w2], dim=-1), torch.stack([sel1, sel2], dim=-1).to(torch.int32)
+
+
 def moe_ffn(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor, w_gate, w_up,
             w_down, act: str = "silu", weight_before_ffn: bool = False) -> torch.Tensor:
     """Gated (or gateless, w_gate None) expert FFN over x [N, n_embd],
