@@ -2061,6 +2061,12 @@ def synthesize(tmp: Path, label: str, shape: str, ftype: str, n_layer: int | Non
     return path
 
 
+# the recurrent phase's card models and their depths (Falcon-Mamba-7B and
+# Mamba-Codestral-7B of 64, Jamba-Mini-1.5 of 32: one whole period, attention
+# at 4, experts on the odd layers; Granite-4.0-H-Tiny of 40: its first
+# attention layer at 5)
+RECURRENT_LAYERS = {"falcon-mamba-7b": 8, "mamba-codestral-7b": 8, "jamba-mini-1.5": 8,
+                    "granite-4.0-h-tiny": 8}
 # (label, shape, ftype, n_layer) of the presets' and the i-quants' runs
 PRESET_JOBS = (*((f"8b-{ftype}", "llama-3-8b", ftype, 4)
                  for ftype in ("Q2_K", "IQ4_XS", "Q4_0", "Q4_1", "Q5_0", "Q5_1", "IQ4_NL",
@@ -2083,6 +2089,7 @@ AHEAD_JOBS = (("llama-3-8b", "Q4_K_M", None, "bpe"), ("mixtral-8x7b", "Q4_K_M", 
               ("qwen2.5-7b", "Q4_K_M", 4, "bpe"), ("olmoe-1b-7b", "Q4_K_M", None, "bpe"),
               ("phi-3.5-moe", "Q4_K_M", 8, "spm"), ("phi-3.5-moe", "Q4_K_M", 1, "spm"),
               ("llama-4-scout", "Q4_K_M", 4, "bpe"),
+              *((shape, "Q4_K_M", n, "spm") for shape, n in RECURRENT_LAYERS.items()),
               ("phi-3-mini-4k", "Q4_K_M", 16, "spm"), ("phi-2", "Q4_K_M", 8, "bpe"),
               ("phi-2", "Q4_K_M", 1, "bpe"), ("qwen-7b", "Q4_K_M", 2, "bpe"),
               ("minicpm3-4b", "Q4_K_M", 12, "spm"), ("plm-1.8b", "Q4_K_M", 8, "bpe"),
@@ -5296,18 +5303,20 @@ def phase_qwen(tmp: Path, launches: dict) -> dict:
     return result
 
 
-def against_dense(label: str, path: Path, max_seq: int, positions: int) -> dict:
+def against_dense(label: str, path: Path, max_seq: int, positions: int,
+                  engine=None) -> dict:
     """The kernels against dense bf16 weights on one file: the packed
-    Engine's `positions` greedy ids after a 512-token prompt, then both
-    Engines' logits teacher-forced on them, within SERVE_NMSE_BOUND, and
-    at every position the packed argmax a maximum of the dense row (where
-    it parts: the dense top-2 margin and the packed logits' largest
-    deviation there, reported)."""
+    Engine's (`engine`, or one loaded here) `positions` greedy ids after a
+    512-token prompt, then both Engines' logits teacher-forced on them,
+    within SERVE_NMSE_BOUND, and at every position the packed argmax a
+    maximum of the dense row (where it parts: the dense top-2 margin and
+    the packed logits' largest deviation there, reported)."""
     import torch
 
     from tpullm_torch.runtime.engine import Engine
 
-    eng = Engine(path, max_seq=max_seq)
+    eng = engine or Engine(path, max_seq=max_seq)
+    eng.reset()
     prompt = _word_ids(eng.tokenizer, 512)
     ids = eng.generate_tokens_device(prompt, positions, temp=0.0, stop_on_eog=False,
                                      chunk=positions)
@@ -5718,6 +5727,336 @@ def phase_moe_families(tmp: Path, launches: dict) -> dict:
     result["llama4"] = run
     path.unlink()
     step("Llama-4-Scout done")
+    return result
+
+
+# the recurrent models' shapes (the recurrent phase): the 2-D linears at
+# their Q4_K_M types: Falcon-Mamba-7B's ssm_in, ssm_x (N = dt rank 256 + 2 ·
+# 16), ssm_dt (K = 256) and ssm_out and its head; Mamba-Codestral-7B's ssm_in
+# (N = 2 · 8192 + 2 · 8 · 128 + 128); Jamba-Mini-1.5's attention and dense FFN;
+# Granite-4.0-H-Tiny's ssm_in, ssm_out, attention and shared expert
+RECURRENT_QMM_SHAPES = (
+    ("Q4_K", "falcon-mamba ssm_in", 4096, 16384), ("Q4_K", "falcon-mamba ssm_x", 8192, 288),
+    ("Q4_K", "falcon-mamba ssm_dt", 256, 8192), ("Q4_K", "falcon-mamba ssm_out", 8192, 4096),
+    ("Q6_K", "falcon-mamba head", 4096, 65024),
+    ("Q4_K", "codestral ssm_in", 4096, 18560),
+    ("Q4_K", "jamba q", 4096, 4096), ("Q4_K", "jamba k", 4096, 1024),
+    ("Q4_K", "jamba gate|up", 4096, 28672), ("Q6_K", "jamba down", 14336, 4096),
+    ("Q4_K", "granite ssm_in", 1536, 6448), ("Q4_K", "granite ssm_out", 3072, 1536),
+    ("Q4_K", "granite q", 1536, 1536), ("Q4_K", "granite k", 1536, 512),
+    ("Q4_K", "granite shexp gate", 1536, 1024), ("Q4_K", "granite shexp down", 1024, 1536))
+RECURRENT_QMM_ROWS = (1, 512)
+# Jamba-Mini-1.5's 16 experts of 14336 at top-2, Granite-4.0-H-Tiny's 64 of 512
+# at top-6: the gather at a decode token and at 8 tokens, the stack at 512
+RECURRENT_EXPERTS = (
+    (16, 2, (("Q4_K", "jamba gate", 4096, 14336, True),
+             ("Q6_K", "jamba down", 14336, 4096, False)), (1, 8)),
+    (64, 6, (("Q4_K", "granite gate", 1536, 512, True),
+             ("Q4_K", "granite down", 512, 1536, False)), (1, 2)))
+# Jamba's 32 heads on 8 (R = 4), Granite's 12 on 4 (R = 3), both at D = 128
+RECURRENT_HEADS = ((32, 8), (12, 4))
+
+
+def phase_recurrent_kernels(dev, results: dict, rec: dict):
+    """The kernels at the recurrent models' shapes, each against its plain
+    version and timed beside its bound and library call: qmm at
+    RECURRENT_QMM_SHAPES (M = 1 on CUDA cores, 512 on the tensor cores),
+    the gather and the stack at RECURRENT_EXPERTS, flash at
+    RECURRENT_HEADS. Rows go to `results` and to `rec` by kernel."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(23)
+    qmm_at_shapes("recurrent", dev, gen, RECURRENT_QMM_SHAPES, RECURRENT_QMM_ROWS, results, rec)
+    for E, top_k, shapes, tokens in RECURRENT_EXPERTS:
+        expert_rows("recurrent", dev, gen, E, top_k, shapes, tokens, results, rec)
+    flash_at_heads("recurrent", dev, gen, RECURRENT_HEADS, results, rec)
+
+
+RECURRENT_CTX = 4096  # max_seq of the four
+RECURRENT_LENS = (512, 600)  # TTFT prompts: one ladder chunk; 512, 32, 32, 8, 8, 8
+RECURRENT_GEN = 64  # decode steps timed through the decode graph (two chunks of 32)
+RECURRENT_PROFILE_STEPS = 16  # decode replays profiled
+RECURRENT_DENSE_POSITIONS = 16  # positions teacher-forced against dense weights
+RECURRENT_SLOT_LENS = (40, 600, 200)  # Jamba's 4-slot BatchEngine: slots 0-2; 3 idle
+RECURRENT_TEACHER = 8  # teacher-forced batched steps against Engine
+# the tiny shapes of the names no card model runs (tests/test_torch_cuda.py
+# holds all eight card against CPU)
+RECURRENT_TINY = ("tiny-mamba", "tiny-nemotron-h", "tiny-nemotron-h-moe", "tiny-falcon-h1")
+
+
+def recurrent_launch_want(eng, rows: int) -> dict:
+    """One recurrent forward's launches by COUNT_NAMES at `rows` rows (1: a
+    decode step): every quantized 2-D linear of the layers through qmm
+    (qmm_tc from 16 rows), the expert stacks through qmm_gather (≤ 16 rows)
+    or qmm_stack, flash once an attention layer (the HybridCache's K/V
+    layers; none on a RecurrentCache) in the regime T·H/Hkv picks; the
+    head through qmm on the last row unless it is tied (a plain product).
+    The conv and the scan launch no kernel of the port's: plain torch."""
+    from tpullm_torch.models.weights import FusedLinear, QuantExpertStack, QuantLinear
+    from tpullm_torch.ops import moe
+    from tpullm_torch.ops.kernels import flash, qmm
+
+    def base(m):
+        return m.base if isinstance(m, FusedLinear) else m
+
+    quant = [base(m) for layer in eng.params["layers"] for m in layer.values()
+             if isinstance(base(m), QuantLinear)]
+    stacks = sum(isinstance(m, QuantExpertStack) for layer in eng.params["layers"]
+                 for m in layer.values())
+    tc, gather = rows >= qmm.TC_MIN_M, rows <= moe._GATHER_MAX_TOKENS
+    n_attn = eng.cache.k.shape[0] if hasattr(eng.cache, "k") else 0
+    decode = n_attn and flash.regime(rows, eng.hp.n_head, eng.hp.n_head_kv) == "decode"
+    head = int(isinstance(eng.params["output"], QuantLinear))
+    return {"qmm": (0 if tc else len(quant)) + head, "qmm_tc": len(quant) if tc else 0,
+            "qmm_stack": 0 if gather else stacks, "qmm_gather": stacks if gather else 0,
+            "qmm_grouped": 0, "dequant_routes": 0, "flash": n_attn,
+            "flash_decode": n_attn if decode else 0, "attn_dense_routes": 0,
+            "attn_ring_routes": 0}
+
+
+def _mixer_ms(eng, rows: int) -> float:
+    """Device ms of one mixer layer's conv and scan (plain torch) at `rows`
+    tokens, as graph replays on random inputs of the layer's widths: what
+    'other' holds of the SSM layers, per layer."""
+    import torch
+
+    from tpullm_torch.models import mamba
+
+    hp, dev = eng.hp, eng.device
+    layer = next(la for la in eng.params["layers"] if la.get("ssm_in") is not None)
+    gen = torch.Generator(dev).manual_seed(rows)
+    D, S, G, W = hp.ssm_d_inner, hp.ssm_d_state, hp.ssm_n_group, layer["conv_w"].shape[0]
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x, st = rand(1, rows, W), rand(1, W, hp.ssm_d_conv - 1)
+    if G:
+        H = hp.ssm_dt_rank
+        args = (rand(1, rows, H, D // H), rand(1, rows, H, scale=0.05).abs(), layer["A_log"],
+                rand(1, rows, G, S), rand(1, rows, G, S), rand(1, H, D // H, S))
+
+        def step():
+            mamba.causal_conv(x, st, layer["conv_w"], layer["conv_b"])
+            mamba.ssd_scan(*args, G)
+    else:
+        args = (rand(1, rows, D), rand(1, rows, D, scale=0.05).abs(), layer["A_log"],
+                rand(1, rows, S), rand(1, rows, S), rand(1, D, S))
+
+        def step():
+            mamba.causal_conv(x, st, layer["conv_w"], layer["conv_b"])
+            mamba.selective_scan(*args)
+    with torch.inference_mode():
+        return time_ms(step, 5 if rows > 1 else 50)
+
+
+def recurrent_run(label: str, path: Path, launches: dict, slots: bool = False) -> dict:
+    """One card model through Engine (bf16): its launches (a decode
+    replay's and a 512-token prefill's, each against recurrent_launch_want,
+    and the 600-token prompt's six ladder forwards against their sum); TTFT
+    of RECURRENT_LENS (each timed warm, after one run) and decode tok/s of
+    RECURRENT_GEN greedy steps through the decode graph; a decode token's
+    and a 512-token prefill's device time by kernel family, beside the
+    conv and scan's ms (`_mixer_ms`) times the mixer layers; the ladder's
+    tail (a profiled 600-token prefill less the 512's): its wall against
+    its device busy time, the rest the host's; with `slots` the 4-slot
+    BatchEngine (`recurrent_slots`); then the same file against dense bf16
+    weights (against_dense on the packed engine's ids)."""
+    import torch
+
+    from tpullm_torch.ops.sampling_ops import SamplingParams
+    from tpullm_torch.runtime.engine import Engine, recurrent_chunks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # just before the main path
+    eng = Engine(path, max_seq=RECURRENT_CTX)
+    hp = eng.hp
+    n_mix = eng.cache.ssm.shape[0]
+    log(f"[recurrent] {label}: {hp.arch}, {hp.n_layer} layers ({n_mix} mixers), n_embd "
+        f"{hp.n_embd}, d_inner {hp.ssm_d_inner}, state {hp.ssm_d_state}, dt rank/heads "
+        f"{hp.ssm_dt_rank}, groups {hp.ssm_n_group}, experts {hp.n_expert} top-"
+        f"{hp.n_expert_used}, vocab {hp.n_vocab}; loaded in {eng.perf.t_load_s:.1f}s; "
+        f"{eng.report()}")
+    out = dict(arch=hp.arch, layers=hp.n_layer, mixers=n_mix, load_s=eng.perf.t_load_s,
+               cache=eng.report().split("| cache ")[1])
+    words = _word_ids(eng.tokenizer, max(RECURRENT_LENS))
+    eng.generate_tokens_device(words[:512], 8, stop_on_eog=False)  # warm-up
+    runner = eng.decode_runner(SamplingParams(), 32)
+    one, want = runner.launches_per_replay(), recurrent_launch_want(eng, 1)
+    log(f"[recurrent] {label} launches per decode replay {one}")
+    expect(one == want, f"{label}: launches per decode replay {one} = {want}")
+    ttft = {}
+    for n in RECURRENT_LENS:
+        for _ in range(2):  # the second, warm, is kept
+            eng.reset()
+            torch.cuda.synchronize()
+            snap = _snapshot()
+            t0 = time.perf_counter()
+            logits = eng.prefill(words[:n])
+            ttft[n] = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in _launch_delta(snap).items() if v}
+        chunks = recurrent_chunks(n, eng.prefill_cap)
+        want = {}
+        for c in chunks:
+            for k, v in recurrent_launch_want(eng, c).items():
+                want[k] = want.get(k, 0) + v
+        want = {k: v for k, v in want.items() if v}
+        log(f"[recurrent] {label} {n}-token prompt in chunks {chunks}: TTFT {ttft[n]:.2f} ms, "
+            f"launches {got}")
+        expect(got == want, f"{label}: the {n}-token prefill's launches {got} = {want}")
+        expect(bool(np.isfinite(logits).all()) and logits.shape == (hp.n_vocab,),
+               f"{label}: finite logits of the vocab's width")
+    out.update(ttft_ms=ttft, launches_per_decode=one)
+    _start(eng, runner, words[:512])
+    t0 = time.perf_counter()
+    ids = run_steps(runner, 32) + run_steps(runner, 32)
+    dt = time.perf_counter() - t0
+    out["decode_tok_s"] = RECURRENT_GEN / dt
+    expect(len(ids) == RECURRENT_GEN, f"{label}: {len(ids)} greedy ids")
+    prof = profile_decode(eng, runner, words[:512], RECURRENT_PROFILE_STEPS)
+    pre = profile_prefill(eng, words[:512])
+    # the ladder's tail: the 88 tokens past 512 (five chunks), wall against device busy
+    pre600 = profile_prefill(eng, words[:600])
+    tail_wall = pre600["wall_ms"] - pre["wall_ms"]
+    tail_busy = sum(pre600["device_ms"].values()) - sum(pre["device_ms"].values())
+    mixer = {rows: _mixer_ms(eng, rows) * n_mix for rows in (1, 512)}
+    out.update(decode_profile=prof, prefill_profile=pre, prefill_600_profile=pre600,
+               conv_scan_ms=mixer, tail_wall_ms=tail_wall, tail_busy_ms=tail_busy)
+    log(f"[recurrent] {label}: the ladder's tail (600 − 512 tokens, chunks "
+        f"{recurrent_chunks(600, eng.prefill_cap)[1:]}): wall {tail_wall:.3f} ms, device busy "
+        f"{tail_busy:.3f} ms, host {tail_wall - tail_busy:.3f} ms (profiled: 512 wall "
+        f"{pre['wall_ms']:.3f}, 600 wall {pre600['wall_ms']:.3f}; 600 busy by family "
+        f"{pre600['device_ms']})")
+    log(f"[recurrent] {label}: decode {out['decode_tok_s']:.1f} tok/s (graph replays); a decode "
+        f"token's device ms by family {prof['device_ms_per_token']} (event span "
+        f"{prof['event_span_ms_per_token']:.3f} ms); a 512-token prefill's {pre['device_ms']} "
+        f"(wall {pre['wall_ms']:.1f} ms); the conv and scan of the {n_mix} mixers alone: "
+        f"{mixer[1]:.4f} ms a decode token, {mixer[512]:.3f} ms a 512-token chunk; top "
+        f"{prof['top'][:5]}")
+    expect(prof["reduce_launches"] == dict.fromkeys(REDUCTION_KERNELS, 0),
+           f"{label}: no reduction kernel in a decode step")
+    if slots:
+        out["slots"] = recurrent_slots(label, eng)
+    del runner
+    got = read_launches()  # just after the main path
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    expect(got["dequant_routes"] == 0 and got["attn_dense_routes"] == 0
+           and got["attn_ring_routes"] == 0, f"{label}: no counted route ({got})")
+    out["launches"] = got
+    out["dense"] = against_dense(label, path, RECURRENT_CTX, RECURRENT_DENSE_POSITIONS,
+                                 engine=eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_slots(label: str, eng) -> dict:
+    """Jamba's 4-slot BatchEngine on the Engine's Model: the slots'
+    prefill of RECURRENT_SLOT_LENS (one slot after another, each chunk a
+    forward of its own row at its exact length) timed beside Engine's
+    prefills of the same prompts; slots 0-2 teacher-forced on Engine's
+    greedy ids (the batched steps' logits held within SERVE_NMSE_BOUND),
+    slot 3 idle; then slot 2's
+    conv/ssm state and K/V rows kept bit for bit through slot 0's new
+    prefill and the decode steps of slots 0 and 1; a freed slot reads zero;
+    the batched decode step's launches against recurrent_launch_want."""
+    import torch
+
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+
+    prompts = [_word_ids(eng.tokenizer, n) for n in RECURRENT_SLOT_LENS]
+    refs = engine_refs(eng, prompts, RECURRENT_TEACHER)
+    be = BatchEngine(eng.model, n_slots=4, max_seq=RECURRENT_CTX, prefill_chunk=512)
+    be.precompile()
+    # the slots' prefill (one row a forward) timed beside Engine's of the same prompts
+    times = {}
+    for _ in range(2):  # the second, warm, is kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            eng.reset()
+            eng.prefill(p)
+        torch.cuda.synchronize()
+        times["engine"] = (time.perf_counter() - t0) * 1e3
+        for s in range(be.n_slots):
+            be.free_slot(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.prefill_slots(dict(enumerate(prompts)))
+        torch.cuda.synchronize()
+        times["slots"] = (time.perf_counter() - t0) * 1e3
+    log(f"[recurrent] {label} slots: prefill of {RECURRENT_SLOT_LENS} in 3 of 4 slots "
+        f"{times['slots']:.2f} ms, Engine's of the same prompts one after another "
+        f"{times['engine']:.2f} ms (ratio {times['slots'] / times['engine']:.3f})")
+    out = teacher_forced(f"{label} slots", be, None, prompts, RECURRENT_TEACHER, refs=refs)
+    out.update(prefill_ms=times["slots"], engine_prefill_ms=times["engine"])
+    c = be.cache
+    keep = [a[:, 2].clone() for a in (c.conv, c.ssm, c.k, c.v)]
+    be.free_slot(0)
+    be.prefill_slots({0: prompts[0]})
+    snap = _snapshot()
+    for t in (5, 6, 7):
+        be.decode_batch({0: t, 1: t})
+    torch.cuda.synchronize()
+    step = _launch_delta(snap)
+    same = all(torch.equal(a, b[:, 2]) for a, b in zip(keep, (c.conv, c.ssm, c.k, c.v)))
+    be.free_slot(1)
+    zero = not c.conv[:, 1].any() and not c.ssm[:, 1].any()
+    want = {k: 3 * v for k, v in recurrent_launch_want(be, 1).items() if v}
+    step = {k: v for k, v in step.items() if v}
+    log(f"[recurrent] {label} slots: slot 2 idle through a prefill and 3 decode steps: state "
+        f"and K/V {'bit-for-bit the same' if same else 'CHANGED'}; freed slot 1 reads "
+        f"{'zero' if zero else 'NONZERO'}; 3 batched steps (width 2) launched {step}")
+    expect(same, f"{label}: an idle slot's conv/ssm state and K/V kept bit for bit")
+    expect(zero, f"{label}: a freed slot's state reads zero")
+    expect(step == want, f"{label}: the batched decode steps' launches {step} = {want}")
+    out.update(idle_kept=same, freed_zero=zero, step_launches=step)
+    del be
+    return out
+
+
+def phase_recurrent(tmp: Path, launches: dict) -> dict:
+    """The recurrent-state archs, synthesized from seed 0 (written ahead by
+    child processes, AHEAD_JOBS):
+    1. the tiny shapes of the four names no card model below runs (mamba,
+       nemotron_h, nemotron_h_moe, falcon-h1) on the card against the CPU
+       (tiny_card_vs_cpu: a 13-token prompt, the ladder's 8 and 1);
+    2. Falcon-Mamba-7B, Mamba-Codestral-7B, Jamba-Mini-1.5 and
+       Granite-4.0-H-Tiny Q4_K_M at full width, RECURRENT_LAYERS deep
+       (recurrent_run: launches, TTFT, decode tok/s, the device time by
+       kernel family, against dense bf16 weights), Jamba also on a 4-slot
+       BatchEngine (recurrent_slots);
+    3. no dequantize route and no dense attention anywhere in the phase."""
+    import torch
+
+    from tpullm_torch.ops.kernels import flash, qmm
+
+    result: dict = {}
+    t_phase = time.perf_counter()
+    reset_launches()  # just before the main path (each run resets them again)
+    prompt = "the the the the"  # 13 tokens of the tiny vocab
+    for shape in RECURRENT_TINY:
+        gpu, cpu = tiny_card_vs_cpu("recurrent", tmp, shape, "Q4_K_M", torch.bfloat16, prompt)
+        expect(len(gpu.tokenizer.tokenize(prompt)) == 13, "the tiny prompt: 13 tokens")
+        del gpu, cpu
+    gc.collect()
+    got = read_launches()
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    result["seconds"] = {"tiny": time.perf_counter() - t_phase}
+    for shape, n_layer in RECURRENT_LAYERS.items():
+        path = synthesize(tmp, "recurrent", shape, "Q4_K_M", n_layer=n_layer)
+        result[shape] = recurrent_run(f"{shape}-{n_layer}l", path, launches,
+                                      slots=shape == "jamba-mini-1.5")
+        path.unlink()
+        result["seconds"][shape] = time.perf_counter() - t_phase
+        log(f"[recurrent] {shape} done at {time.perf_counter() - t_phase:.1f}s into the phase")
+    expect(not any(qmm.DEQUANT_ROUTES.values()) and not any(flash.ATTN_DENSE_ROUTES.values()),
+           f"recurrent: no dequantize-route or dense-attention call ({qmm.DEQUANT_ROUTES}, "
+           f"{flash.ATTN_DENSE_ROUTES})")
     return result
 
 
@@ -7086,6 +7425,8 @@ def main() -> int:
         timed("bloom gpt2 kernels", phase_bloom_gpt2_kernels, dev, results, bloom_gpt2_k)
         fam_k: dict = {}
         timed("moe family kernels", phase_moe_family_kernels, dev, results, fam_k)
+        rec_k: dict = {}
+        timed("recurrent kernels", phase_recurrent_kernels, dev, results, rec_k)
         conformance = timed("conformance", phase_conformance, dev)
         timed("tiny", phase_tiny, dev, Path(tmp))
         runs, slice_path = timed("slice", phase_slice, Path(tmp), launches)
@@ -7104,6 +7445,7 @@ def main() -> int:
         ds2 = timed("deepseek2", phase_deepseek2, Path(tmp), launches)
         qwen_run = timed("qwen", phase_qwen, Path(tmp), launches)
         fam_run = timed("moe families", phase_moe_families, Path(tmp), launches)
+        rec_run = timed("recurrent", phase_recurrent, Path(tmp), launches)
         phi_run = timed("phi", phase_phi, Path(tmp), launches)
         mla_run = timed("mla models", phase_mla_models, Path(tmp), launches)
         llama_opts = timed("llama options", phase_llama_options, Path(tmp), launches)
@@ -7118,7 +7460,8 @@ def main() -> int:
                                         "mla": mla_run, "fit": fit_run,
                                         "llama_options": llama_opts, "falcon": falcon_run,
                                         "gguf": gguf_run, "bloom": bloom_run,
-                                        "gpt2": gpt2_run, "moe_families": fam_run},
+                                        "gpt2": gpt2_run, "moe_families": fam_run,
+                                        "recurrent": rec_run},
                                        default=str))
     for fmt in FLASH_FORMATS:
         for d in (256, 96, 80, 64):

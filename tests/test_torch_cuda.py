@@ -2098,3 +2098,106 @@ def test_route_sparsemixer_captures_in_a_graph(dev):
         torch.cuda.synchronize()
         want_w, want_idx = route_sparsemixer(new)
         assert torch.equal(idx, want_idx) and torch.equal(w, want_w)
+
+
+# the 2-D linears of the recurrent card models at their Q4_K_M types:
+# Falcon-Mamba-7B's ssm_in, ssm_x (N = 256 + 2·16), ssm_dt (K = dt rank 256)
+# and ssm_out; Mamba-Codestral-7B's ssm_in (N = 2·8192 + 2·8·128 + 128); Jamba's
+# attention and dense FFN (Mini-1.5: 4096 → 1024 KV, 14336 down); Granite-4.0-H-
+# Tiny's ssm_in (N = 2·3072 + 2·128 + 48), ssm_out, attention and shared expert
+RECURRENT_QMM_SHAPES = [("Q4_K", 4096, 16384), ("Q4_K", 8192, 288), ("Q4_K", 256, 8192),
+                        ("Q4_K", 8192, 4096), ("Q4_K", 4096, 18560), ("Q4_K", 4096, 1024),
+                        ("Q6_K", 14336, 4096), ("Q4_K", 1536, 6448), ("Q4_K", 3072, 1536),
+                        ("Q4_K", 1536, 512), ("Q4_K", 1024, 1536)]
+
+
+@pytest.mark.parametrize("M", [1, 512])
+@pytest.mark.parametrize("name,K,N", RECURRENT_QMM_SHAPES,
+                         ids=["ssm_in", "ssm_x", "ssm_dt", "ssm_out", "codestral-ssm_in",
+                              "jamba-kv", "jamba-down", "granite-ssm_in", "granite-ssm_out",
+                              "granite-kv", "granite-shexp-down"])
+def test_qmm_at_recurrent_shapes(dev, name, K, N, M):
+    """qmm at the recurrent models' 2-D shapes: a decode row (CUDA cores) and
+    a 512-token ladder chunk (tensor cores), one launch of the regime's
+    kernel, within the bound of its plain version."""
+    planes = _planes(name, N, K, dev, seed=K + N + M)
+    x = torch.randn(M, K, generator=torch.Generator(dev).manual_seed(M), device=dev)
+    x = x.to(torch.bfloat16)
+    tc = M >= qmm.TC_MIN_M
+    before = qmm.LAUNCHES[name], qmm.TC_LAUNCHES[name]
+    got = qmm.qmm(x, planes, GGMLType[name], N, K)
+    torch.cuda.synchronize()
+    assert (qmm.LAUNCHES[name], qmm.TC_LAUNCHES[name]) == (before[0] + (not tc),
+                                                           before[1] + tc)
+    ref = qmm.qmm_reference(x, planes, GGMLType[name], N, K)
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("E,top,name,K,N", [(16, 2, "Q4_K", 4096, 14336),
+                                            (16, 2, "Q6_K", 14336, 4096),
+                                            (64, 6, "Q4_K", 1536, 512),
+                                            (64, 6, "Q4_K", 512, 1536)],
+                         ids=["jamba-gate", "jamba-down", "granite-gate", "granite-down"])
+def test_expert_kernels_at_recurrent_shapes(dev, E, top, name, K, N):
+    """Jamba-Mini-1.5's (16 experts top-2) and Granite-4.0-H-Tiny's (64
+    top-6) expert stacks: qmm_gather at one decode token's top-k and
+    qmm_stack at a 512-token chunk, one launch each, within the bound."""
+    stack = _stack(name, E, N, K, dev, seed=E + K)
+    g = torch.Generator(dev).manual_seed(E)
+    x = torch.randn(top, K, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randperm(E, generator=g, device=dev)[:top].int()
+    before = qmm.GATHER_LAUNCHES[name], qmm.STACK_LAUNCHES[name]
+    got = qmm.qmm_gather(x, ids, stack.planes, stack.gtype, N, K)
+    xs = torch.randn(512, K, generator=g, device=dev).to(torch.bfloat16)
+    got_s = qmm.qmm_stack(xs, stack.planes, stack.gtype, N, K)
+    torch.cuda.synchronize()
+    assert (qmm.GATHER_LAUNCHES[name], qmm.STACK_LAUNCHES[name]) == (before[0] + 1,
+                                                                     before[1] + 1)
+    ref = qmm.qmm_gather_reference(x, ids, stack.planes, stack.gtype, N, K)
+    assert _nmse(got.float(), ref.float()) <= QMM_NMSE_BOUND
+    ref = qmm.qmm_stack_reference(xs, stack.planes, stack.gtype, N, K)
+    assert torch.isfinite(got_s.float()).all()
+    assert _nmse(got_s.float(), ref.float()) <= QMM_NMSE_BOUND
+
+
+@pytest.mark.parametrize("shape", ["tiny-mamba", "tiny-falcon-mamba", "tiny-mamba2",
+                                   "tiny-jamba", "tiny-nemotron-h", "tiny-granite-h",
+                                   "tiny-nemotron-h-moe", "tiny-falcon-h1"])
+def test_recurrent_engines_on_the_card_match_the_cpu(dev, tmp_path, shape):
+    """The tiny recurrent models on the card against the CPU: a 13-token
+    prompt (ladder chunks 8 and 1) and three decode steps within NMSE 1e-3;
+    the decode graph's ids against the same engine's eager steps; on a
+    3-slot BatchEngine an idle slot's state (and K/V) bit-for-bit unchanged
+    by the others' prefill and decode steps, a freed slot's zero."""
+    from tpullm_torch.models.synth import make_synthetic_llama_gguf
+    from tpullm_torch.runtime.batch_engine import BatchEngine
+    from tpullm_torch.runtime.engine import Engine
+
+    path = make_synthetic_llama_gguf(tmp_path / f"{shape}.gguf", shape=shape, seed=0)
+    gpu, cpu = Engine(path, max_seq=64), Engine(path, device="cpu", max_seq=64)
+    ids = [int(t) for t in np.random.default_rng(13).integers(5, 370, size=13)]
+    errs = [_nmse(torch.from_numpy(gpu.prefill(ids)), torch.from_numpy(cpu.prefill(ids)))]
+    for tok in (3, 17, 5):
+        errs.append(_nmse(torch.from_numpy(gpu.decode_step(tok)),
+                          torch.from_numpy(cpu.decode_step(tok))))
+    assert max(errs) <= 1e-3, (shape, errs)
+    gpu.reset()
+    graph = gpu.generate_tokens_device(ids, 8, chunk=4)
+    gpu.reset()
+    eager = [int(np.argmax(gpu.prefill(ids)))]
+    with torch.inference_mode():
+        for _ in range(7):
+            logits = gpu._decode_logits(torch.tensor(eager[-1], device=gpu.device))
+            eager.append(int(torch.argmax(logits)))
+    assert graph == eager, (shape, graph, eager)
+    be = BatchEngine(gpu.model, n_slots=3, max_seq=64)
+    be.prefill_slots({1: ids[:11]})
+    keep = [a[:, 1].clone() for a in vars(be.cache).values() if isinstance(a, torch.Tensor)]
+    be.prefill_slots({0: ids, 2: ids[:5]})
+    be.decode_batch({0: 11, 2: 12})
+    be.decode_batch_greedy({0: 13})
+    now = [a[:, 1] for a in vars(be.cache).values() if isinstance(a, torch.Tensor)]
+    assert all(torch.equal(a, b) for a, b in zip(keep, now))
+    be.free_slot(0)
+    assert not be.cache.conv[:, 0].any() and not be.cache.ssm[:, 0].any()

@@ -74,6 +74,8 @@ def test_engine_imports_with_jax_and_tpullm_blocked():
         "import tpullm_torch.tools.lookup, tpullm_torch.tools.cvector, tpullm_torch.models.lora\n"
         "import tpullm_torch.models.bloom, tpullm_torch.models.gpt2, tpullm_torch.tools.conformance\n"
         "import tpullm_torch.models.llama4, tpullm_torch.models.phi3, tpullm_torch.ops.attention\n"
+        "import tpullm_torch.models.mamba, tpullm_torch.models.jamba\n"
+        "import tpullm_torch.runtime.recurrent\n"
         "import tpullm_torch.tools.gguf_dump, tpullm_torch.tools.gguf_hash\n"
         "import tpullm_torch.tools.gguf_metadata, tpullm_torch.tools.gguf_edit\n"
         "import tpullm_torch.tools.gguf_split, tpullm_torch.tools.gguf_endian\n"

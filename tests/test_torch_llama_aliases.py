@@ -132,7 +132,9 @@ def device_repack(monkeypatch):
 
 def assert_hparams_match(path):
     """Every field of the port's HParams equals the JAX package's, every
-    RopeParams field too (the style among them); returns the port's."""
+    RopeParams field too (the style among them), the per-layer arrays
+    (n_head_kv_arr, n_ff_arr) and the SSM fields (ssm_*, rope_finetuned)
+    among them; returns the port's."""
     hp, jhp = hparams_from_gguf(GGUFReader(path)), jhparams(JReader(str(path)))
     for field in hp.__dataclass_fields__:
         got, want = getattr(hp, field), getattr(jhp, field)
@@ -174,7 +176,7 @@ def test_baichuan_13b_takes_alibi(tmp_path):
 def test_registry_maps_the_aliases_and_refuses_the_rest():
     """The 17 aliases and the five that ride the llama graph's options
     (arcee, apertus, llama-embed, qwen2vl, qwen3vl) run the llama forward;
-    archs that wait (gpt-oss, stablelm) are refused; the registry maps 56
+    archs that wait (gpt-oss, stablelm) are refused; the registry maps 64
     names."""
     from tpullm_torch.models.hparams import LLAMA_OPTION_ALIASES
     from tpullm_torch.models.registry import _REGISTRY
@@ -186,7 +188,7 @@ def test_registry_maps_the_aliases_and_refuses_the_rest():
     for arch in ("gpt-oss", "stablelm"):
         with pytest.raises(NotImplementedError, match="is not ported"):
             get_arch(arch)
-    assert len(_REGISTRY) == 56
+    assert len(_REGISTRY) == 64
 
 
 # ---------------------------------------------------------------------------

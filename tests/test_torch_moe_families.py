@@ -117,7 +117,7 @@ def _counted(monkeypatch) -> dict:
 
 def test_registry_maps_the_three_families():
     """olmoe rides the qwen-moe graph, phimoe phi3's MoE loader and
-    forward, llama4 its own; none takes the ring or a cache of its own; 56
+    forward, llama4 its own; none takes the ring or a cache of its own; 64
     names."""
     for arch, build, fwd in (("olmoe", qwen_moe.build_params, qwen_moe.forward),
                              ("phimoe", phi3.build_params_moe, phi3.forward_moe),
@@ -127,7 +127,7 @@ def test_registry_maps_the_three_families():
             (build, fwd, False, None)
     assert not qwen_moe.norm_weights_policy(type("HP", (), dict(arch="olmoe",
                                                                 expert_weights_norm=False)))
-    assert len(_REGISTRY) == 56
+    assert len(_REGISTRY) == 64
 
 
 @pytest.mark.parametrize("shape", SHAPE_NAMES)

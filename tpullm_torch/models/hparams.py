@@ -1,6 +1,7 @@
 """Model hyperparameters read from GGUF metadata: the fields the llama,
 qwen-moe (olmoe), gemma, deepseek2 (minicpm3, plm), phi2, phimoe, falcon,
-bloom, gpt2 and llama4 forwards read,
+bloom, gpt2, llama4, mamba (falcon-mamba, mamba2) and jamba (nemotron_h,
+granitehybrid, nemotron_h_moe, falcon-h1) forwards read,
 and the metadata → hparams mapping for the archs the port runs (`ARCHS`),
 as the JAX package's models/hparams.py maps them."""
 
@@ -19,7 +20,8 @@ from ..gguf.reader import GGUFReader
 # qwen-moe graph and its aliases, the gemma family, deepseek2 and its MLA
 # aliases minicpm3 and plm, phi3, phi2, phimoe and qwen (v1), the falcon
 # family, the ALiBi family (bloom, mpt, jais: no RoPE), gpt2 / starcoder
-# (learned positions: no RoPE), olmoe (the qwen-moe graph) and llama4
+# (learned positions: no RoPE), olmoe (the qwen-moe graph), llama4 and the
+# recurrent archs (MAMBA_ARCHS, HYBRID_ARCHS)
 LLAMA_ALIASES = ("mistral", "qwen2", "qwen3", "granite", "internlm2", "exaone", "smollm3",
                  "minicpm", "xverse", "ernie4_5", "refact", "baichuan", "mistral3",
                  "pangu-embedded", "seed_oss", "maincoder", "hunyuan-dense")
@@ -33,10 +35,14 @@ QWEN_MOE_ALIASES = ("qwen2moe", "deepseek", "granitemoe", "ernie4_5-moe", "dots1
 FALCON_ARCHS = ("falcon", "gptneox", "codeshell")
 BLOOM_ARCHS = ("bloom", "mpt", "jais")
 GPT2_ARCHS = ("gpt2", "starcoder")
+# the recurrent-state archs: the pure SSMs (models/mamba.py) and the hybrids
+# of attention and SSM layers (models/jamba.py)
+MAMBA_ARCHS = ("mamba", "falcon-mamba", "mamba2")
+HYBRID_ARCHS = ("jamba", "nemotron_h", "granitehybrid", "nemotron_h_moe", "falcon-h1")
 ARCHS = ("llama", *LLAMA_ALIASES, *LLAMA_OPTION_ALIASES, "qwen3moe", *QWEN_MOE_ALIASES,
          "qwen3vlmoe", "gemma", "gemma2", "gemma3", "deepseek2", "minicpm3", "plm", "phi3",
          "phi2", "phimoe", "qwen", *FALCON_ARCHS, *BLOOM_ARCHS, *GPT2_ARCHS, "olmoe",
-         "llama4")
+         "llama4", *MAMBA_ARCHS, *HYBRID_ARCHS)
 # the archs without a causal mask unless the file says otherwise (of those
 # the port runs)
 NON_CAUSAL_ARCHS = ("llama-embed",)
@@ -152,9 +158,31 @@ class HParams:
     par_residual: bool = False
     # mpt's f_clamp_kqv: q, k and v clipped to ±clamp_kqv; 0: no clamp
     clamp_kqv: float = 0.0
+    # per-layer KV head counts and FFN widths where the file writes arrays
+    # (the hybrids: 0 KV heads on a mixer layer); the scalars n_head_kv and
+    # n_ff then hold the per-layer maxima, as the JAX package keeps them
+    n_head_kv_arr: tuple | None = None
+    n_ff_arr: tuple | None = None
+    # the SSM layers (llama_hparams ssm_*): conv taps, inner width, state
+    # size, dt rank (mamba2: its head count), B/C groups (mamba2), and
+    # falcon-mamba's weightless RMS on dt/B/C
+    ssm_d_conv: int = 0
+    ssm_d_inner: int = 0
+    ssm_d_state: int = 0
+    ssm_dt_rank: int = 0
+    ssm_n_group: int = 0
+    ssm_dt_b_c_rms: bool = False
+    # granitehybrid: RoPE on its attention layers only where this is set
+    rope_finetuned: bool = False
 
     def is_swa(self, il: int) -> bool:
         return self.sliding_window > 0 and (il + 1) % self.swa_pattern != 0
+
+    def n_head_kv_l(self, il: int) -> int:
+        return self.n_head_kv_arr[il] if self.n_head_kv_arr else self.n_head_kv
+
+    def n_ff_l(self, il: int) -> int:
+        return self.n_ff_arr[il] if self.n_ff_arr else self.n_ff
 
 
 def _read_xielu(r: GGUFReader, n_layer: int):
@@ -191,10 +219,22 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         v = r.metadata.get(template.format(arch=arch))
         return default if v is None else v
 
+    def scalar_or_arr(raw, default):
+        """A per-layer key that a file may write as an array (the hybrids'
+        KV head counts and FFN widths): (its maximum, the tuple), or (the
+        value, None)."""
+        if raw is None:
+            return default, None
+        if isinstance(raw, (list, tuple, np.ndarray)):
+            arr = tuple(int(v) for v in raw)
+            return max(arr), arr
+        return int(raw), None
+
     n_embd = int(k(Keys.LLM.EMBEDDING_LENGTH))
     n_layer = int(k(Keys.LLM.BLOCK_COUNT))
     n_head = int(k(Keys.Attention.HEAD_COUNT))
-    n_head_kv = int(k(Keys.Attention.HEAD_COUNT_KV, n_head))
+    n_head_kv, n_head_kv_arr = scalar_or_arr(k(Keys.Attention.HEAD_COUNT_KV), n_head)
+    n_ff, n_ff_arr = scalar_or_arr(k(Keys.LLM.FEED_FORWARD_LENGTH), 0)
     head_dim = int(k(Keys.Attention.KEY_LENGTH, n_embd // max(n_head, 1)))
     head_dim_v = int(k(Keys.Attention.VALUE_LENGTH, head_dim))
 
@@ -226,7 +266,7 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         n_layer=n_layer,
         n_head=n_head,
         n_head_kv=n_head_kv,
-        n_ff=int(k(Keys.LLM.FEED_FORWARD_LENGTH, 0)),
+        n_ff=n_ff,
         head_dim=head_dim,
         head_dim_v=head_dim_v,
         rms_eps=float(k(Keys.Attention.LAYERNORM_RMS_EPS,
@@ -274,4 +314,15 @@ def hparams_from_gguf(r: GGUFReader) -> HParams:
         xielu=_read_xielu(r, n_layer),
         par_residual=bool(k(Keys.LLM.USE_PARALLEL_RESIDUAL, False)),
         clamp_kqv=float(k("{arch}.attention.clamp_kqv", 0.0) or 0.0),
+        n_head_kv_arr=n_head_kv_arr,
+        n_ff_arr=n_ff_arr,
+        # the JAX package's reading (lfm2's shortconv keys are its fallbacks)
+        ssm_d_conv=int(k("{arch}.ssm.conv_kernel", k("{arch}.shortconv.l_cache", 0))),
+        ssm_d_inner=int(k("{arch}.ssm.inner_size",
+                          n_embd if k("{arch}.shortconv.l_cache") else 0)),
+        ssm_d_state=int(k("{arch}.ssm.state_size", k("{arch}.wkv.head_size", 0))),
+        ssm_dt_rank=int(k("{arch}.ssm.time_step_rank", 0)),
+        ssm_n_group=int(k("{arch}.ssm.group_count", 0)),
+        ssm_dt_b_c_rms=bool(k("{arch}.ssm.dt_b_c_rms", arch == "falcon-mamba")),
+        rope_finetuned=bool(k("{arch}.rope.scaling.finetuned", False)),
     )

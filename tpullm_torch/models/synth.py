@@ -22,6 +22,10 @@ import numpy as np
 from ..gguf.constants import GGMLType, MXFP4_VALUES, TokenType, TYPE_TRAITS
 from ..gguf.writer import GGUFWriter
 
+# nvidia/Nemotron-H-8B-Base-8K's hybrid_override_pattern (M mamba, * attention,
+# - MLP)
+_NEMOTRON_H_8B = "M-M-M-M*-M-M-M-M-M*-M-M-M-M-M*-M-M-M-M-M*-M-M-M-M-M-"
+
 # `legacy` shapes keep their first bytes: block scales d of 0.02·U(0.5, 1.5),
 # which give weights of RMS 1.5 to 28 and attention that is all but one-hot,
 # and at Q4_K_M uint8 draws. The other shapes draw uint32 words, as every
@@ -374,6 +378,108 @@ SHAPES = {
                         head_dim=128, n_ff=512, n_vocab=384, rope_base=500000.0, rms_eps=1e-5,
                         sliding_window=16, n_expert=16, n_expert_used=1, n_ff_exp=256,
                         n_ff_shexp=256, gated_shexp=False, dense_layers=(1,)),
+
+    # the recurrent archs. A shape's `pattern` holds a letter a layer: M an
+    # SSM mixer, A attention, F nemotron-h's FFN-only layer, H Falcon-H1's
+    # attention beside a Mamba-2 mixer; `ffn` a letter a layer: d SwiGLU, r
+    # the gateless ReLU² FFN, e routed experts (with the shared expert where
+    # the shape has n_ff_shexp), - none. `ssm`: (d_inner, d_state, dt rank
+    # or Mamba-2 heads, B/C groups: 0 for mamba1, d_conv). A depth cut keeps
+    # the first n_layer letters.
+    # tiiuae/falcon-mamba-7b config.json: 64 layers, hidden 4096, expand 2
+    # (d_inner 8192), state 16, time_step_rank 256, conv 4, vocab 65024,
+    # rms 1e-5, the weightless RMS on dt/B/C (mixer_rms_eps), untied
+    "falcon-mamba-7b": dict(arch="falcon-mamba", n_layer=64, n_embd=4096, n_head=0,
+                            n_head_kv=0, n_ff=0, n_vocab=65024, rms_eps=1e-5,
+                            ssm=(8192, 16, 256, 0, 4), pattern="M" * 64, ffn="-" * 64),
+    # mistralai/Mamba-Codestral-7B-v0.1 config.json: 64 layers, hidden 4096,
+    # expand 2 (d_inner 8192), 128 heads of 64, state 128, 8 groups, conv 4,
+    # the grouped RMS norm, vocab 32768, rms 1e-5, untied
+    "mamba-codestral-7b": dict(arch="mamba2", n_layer=64, n_embd=4096, n_head=0, n_head_kv=0,
+                               n_ff=0, n_vocab=32768, rms_eps=1e-5, ssm=(8192, 128, 128, 8, 4),
+                               ssm_norm=True, pattern="M" * 64, ffn="-" * 64),
+    # ai21labs/AI21-Jamba-Mini-1.5 config.json: 32 layers, hidden 4096, 32
+    # heads on 8 (head dim 128), intermediate 14336, mamba expand 2 (d_inner
+    # 8192), state 16, dt_rank 256, conv 4 with the dt/B/C layernorms,
+    # attention every 8th layer from layer 4 (attn_layer_period 8, offset
+    # 4), 16 experts top-2 every 2nd layer from layer 1 (expert_layer_period
+    # 2, offset 1), vocab 65536, rms 1e-6, untied; an 8-layer cut holds one
+    # whole period
+    "jamba-mini-1.5": dict(arch="jamba", n_layer=32, n_embd=4096, n_head=32, n_head_kv=8,
+                           n_ff=14336, n_vocab=65536, rms_eps=1e-6, rope_base=10000.0,
+                           n_expert=16, n_expert_used=2, ssm=(8192, 16, 256, 0, 4),
+                           dt_b_c_norms=True,
+                           pattern="".join("A" if i % 8 == 4 else "M" for i in range(32)),
+                           ffn="".join("e" if i % 2 else "d" for i in range(32))),
+    # ibm-granite/granite-4.0-h-tiny config.json: 40 layers, hidden 1536,
+    # mamba2 48 heads of 64 (d_inner 3072), state 128, 1 group, conv 4, the
+    # grouped norm; attention (12 heads on 4, head dim 128, no position
+    # embedding) at layers 5, 15, 25 and 35 (layer_types); 64 experts top-6 of
+    # width 512 on every layer with a gated shared expert of 1024; the
+    # granite multipliers (embedding 12, residual 0.22, attention 1/128,
+    # logits 6); vocab 100352, rms 1e-5, tied
+    "granite-4.0-h-tiny": dict(arch="granitehybrid", n_layer=40, n_embd=1536, n_head=12,
+                               n_head_kv=4, head_dim=128, n_ff=1024, n_vocab=100352,
+                               rms_eps=1e-5, rope_base=10000.0, n_expert=64, n_expert_used=6,
+                               n_ff_exp=512, n_ff_shexp=1024, ssm=(3072, 128, 48, 1, 4),
+                               ssm_norm=True, tied=True,
+                               multipliers=(12.0, 0.22, 6.0, 0.0078125),
+                               pattern="".join("A" if i % 10 == 5 else "M" for i in range(40)),
+                               ffn="e" * 40),
+    # nvidia/Nemotron-H-8B-Base-8K config.json: 52 layers, hidden 4096, 32
+    # heads on 8 (head dim 128), mamba2 128 heads of 64 (d_inner 8192),
+    # state 128, 8 groups, conv 4, the grouped norm, ReLU² MLP layers of
+    # 21504, vocab 131072, rms 1e-5, untied; hybrid_override_pattern
+    # M-M-M-M*-M-M-M-M-M*-M-M-M-M-M*-M-M-M-M-M*-M-M-M-M-M- (M mamba, * attention,
+    # - MLP)
+    "nemotron-h-8b": dict(arch="nemotron_h", n_layer=52, n_embd=4096, n_head=32, n_head_kv=8,
+                          n_ff=21504, n_vocab=131072, rms_eps=1e-5, rope_base=10000.0,
+                          ssm=(8192, 128, 128, 8, 4), ssm_norm=True,
+                          pattern=_NEMOTRON_H_8B.replace("-", "F").replace("*", "A"),
+                          ffn="".join("r" if c == "-" else "-" for c in _NEMOTRON_H_8B)),
+    # the recurrent test models, every K a multiple of 256: tiny-mamba and
+    # tiny-falcon-mamba (d_inner 512, state 16, dt rank 256: ssm_x 288
+    # wide), tiny-mamba2 (8 heads of 64, state 64, 2 groups: ssm_in 1288
+    # wide); the hybrids hold a mixer and an attention layer (4 heads of 64
+    # on 2): tiny-jamba (mamba1 with the dt/B/C norms, SwiGLU and 8 experts
+    # top-2), tiny-nemotron-h (Mamba-2, attention, an FFN-only ReLU² layer),
+    # tiny-granite-h (Mamba-2 and attention, 8 experts top-2 of 256 and a
+    # gated shared expert, the granite multipliers), tiny-nemotron-h-moe
+    # (an FFN-only layer of 8 gateless ReLU² experts, sigmoid top-2 with the
+    # selection bias, weights renormalised and scaled 2.5, an ungated ReLU²
+    # shared expert), tiny-falcon-h1 (attention with RoPE beside Mamba-2 on
+    # both layers, SwiGLU)
+    "tiny-mamba": dict(arch="mamba", n_layer=2, n_embd=256, n_head=0, n_head_kv=0, n_ff=0,
+                       n_vocab=384, rms_eps=1e-5, ssm=(512, 16, 256, 0, 4), pattern="MM",
+                       ffn="--"),
+    "tiny-falcon-mamba": dict(arch="falcon-mamba", n_layer=2, n_embd=256, n_head=0,
+                              n_head_kv=0, n_ff=0, n_vocab=384, rms_eps=1e-5,
+                              ssm=(512, 16, 256, 0, 4), pattern="MM", ffn="--"),
+    "tiny-mamba2": dict(arch="mamba2", n_layer=2, n_embd=256, n_head=0, n_head_kv=0, n_ff=0,
+                        n_vocab=384, rms_eps=1e-5, ssm=(512, 64, 8, 2, 4), ssm_norm=True,
+                        pattern="MM", ffn="--"),
+    "tiny-jamba": dict(arch="jamba", n_layer=4, n_embd=256, n_head=4, n_head_kv=2, n_ff=512,
+                       n_vocab=384, rms_eps=1e-6, rope_base=10000.0, n_expert=8,
+                       n_expert_used=2, ssm=(512, 16, 256, 0, 4), dt_b_c_norms=True,
+                       pattern="MMAM", ffn="dede"),
+    "tiny-nemotron-h": dict(arch="nemotron_h", n_layer=4, n_embd=256, n_head=4, n_head_kv=2,
+                            n_ff=512, n_vocab=384, rms_eps=1e-5, rope_base=10000.0,
+                            ssm=(512, 64, 8, 2, 4), ssm_norm=True, pattern="MAFM", ffn="--r-"),
+    "tiny-granite-h": dict(arch="granitehybrid", n_layer=4, n_embd=256, n_head=4, n_head_kv=2,
+                           n_ff=256, n_vocab=384, rms_eps=1e-5, rope_base=10000.0, n_expert=8,
+                           n_expert_used=2, n_ff_exp=256, n_ff_shexp=256,
+                           ssm=(512, 64, 8, 2, 4), ssm_norm=True,
+                           multipliers=(12.0, 0.22, 6.0, 0.015625), pattern="MAMM",
+                           ffn="eeee"),
+    "tiny-nemotron-h-moe": dict(arch="nemotron_h_moe", n_layer=4, n_embd=256, n_head=4,
+                                n_head_kv=2, n_ff=256, n_vocab=384, rms_eps=1e-5,
+                                rope_base=10000.0, n_expert=8, n_expert_used=2, n_ff_exp=256,
+                                n_ff_shexp=256, gating=2, weights_scale=2.5,
+                                weights_norm=True, ssm=(512, 64, 8, 2, 4), ssm_norm=True,
+                                pattern="MAFM", ffn="--e-"),
+    "tiny-falcon-h1": dict(arch="falcon-h1", n_layer=2, n_embd=256, n_head=4, n_head_kv=2,
+                           n_ff=512, n_vocab=384, rms_eps=1e-5, rope_base=10000.0,
+                           ssm=(512, 64, 8, 2, 4), ssm_norm=True, pattern="HH", ffn="dd"),
 }
 
 # the archs whose norms are LayerNorms (layer_norm_epsilon)
@@ -733,7 +839,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     n_head, n_head_kv, n_ff = cfg["n_head"], cfg["n_head_kv"], cfg["n_ff"]
     n_vocab = n_vocab or cfg["n_vocab"]
     n_expert = cfg.get("n_expert", 0)
-    head_dim = cfg.get("head_dim", n_embd // n_head)
+    head_dim = cfg.get("head_dim", n_embd // max(n_head, 1))
     legacy = cfg.get("legacy", False)
     words = not legacy or ftype != "Q4_K_M"
 
@@ -758,7 +864,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     w.add_kv(f"{arch}.attention.head_count_kv", n_head_kv)
     w.add_kv(f"{arch}.attention.layer_norm_{'' if layer_norm else 'rms_'}epsilon",
              cfg.get("rms_eps", 1e-5))
-    if arch not in _NO_ROPE_ARCHS:
+    if arch not in _NO_ROPE_ARCHS and "rope_base" in cfg:  # the SSMs have no RoPE
         w.add_kv(f"{arch}.rope.freq_base", cfg["rope_base"])
         w.add_kv(f"{arch}.rope.dimension_count", cfg.get("n_rot", cfg.get("qk_rope", head_dim)))
     if "alibi_bias" in cfg:
@@ -766,7 +872,7 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     if "clamp_kqv" in cfg:
         w.add_kv(f"{arch}.attention.clamp_kqv", cfg["clamp_kqv"])
     w.add_kv(f"{arch}.vocab_size", n_vocab)
-    if gemma or head_dim != n_embd // n_head:
+    if gemma or (n_head and head_dim != n_embd // n_head):
         w.add_kv(f"{arch}.attention.key_length", head_dim)
         w.add_kv(f"{arch}.attention.value_length", head_dim)
     if "n_ff_exp" in cfg and not mla:
@@ -814,6 +920,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
     if n_expert:
         w.add_kv(f"{arch}.expert_count", n_expert)
         w.add_kv(f"{arch}.expert_used_count", cfg["n_expert_used"])
+    if "ssm" in cfg:
+        _ssm_metadata(w, cfg, n_layer)
     if vocab == "spm":
         w.add_kv("tokenizer.ggml.model", "llama")
         w.add_kv("tokenizer.ggml.tokens", tokens[:n_vocab])
@@ -868,6 +976,8 @@ def synthetic_writer(path, shape: str = "llama-3-8b", seed: int = 0, ftype: str 
                                 "<f4").reshape(-1).view(np.uint8))
     if mla:
         _deepseek2_layers(cfg, n_layer, packed, norm, router)
+    elif "ssm" in cfg:
+        _ssm_layers(cfg, n_layer, packed, norm, vector, router, w, rng)
     elif arch in ("phi3", "phi2", "qwen"):
         _fused_qkv_layers(cfg, n_layer, packed, norm, vector)
     elif arch in _NO_ROPE_ARCHS:
@@ -1068,3 +1178,115 @@ def _deepseek2_layers(cfg: dict, n_layer: int, packed, norm, router) -> None:
         packed(p + "ffn_gate_shexp.weight", n_sh, n_embd, i)
         packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
         packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)
+
+
+def _ssm_metadata(w: GGUFWriter, cfg: dict, n_layer: int) -> None:
+    """The keys of a recurrent shape, as llama.cpp's converter writes them:
+    the ssm.* widths (group_count for Mamba-2), falcon-mamba's dt_b_c_rms;
+    a hybrid's KV heads a layer as an array (0 on a layer without
+    attention; Falcon-H1's a scalar), nemotron-h's FFN widths a layer (0
+    but on its FFN-only layers); granite's multipliers; nemotron_h_moe's
+    gating (sigmoid), weight scale and renormalisation."""
+    arch = cfg["arch"]
+    d_inner, d_state, rank, groups, d_conv = cfg["ssm"]
+    for key, val in (("conv_kernel", d_conv), ("inner_size", d_inner), ("state_size", d_state),
+                     ("time_step_rank", rank)):
+        w.add_kv(f"{arch}.ssm.{key}", val)
+    if groups:
+        w.add_kv(f"{arch}.ssm.group_count", groups)
+    if arch == "falcon-mamba":
+        w.add_kv(f"{arch}.ssm.dt_b_c_rms", True)
+    pattern = cfg["pattern"][:n_layer]
+    if cfg["n_head_kv"] and arch != "falcon-h1":
+        w.set_kv(f"{arch}.attention.head_count_kv", np.asarray(
+            [cfg["n_head_kv"] if c == "A" else 0 for c in pattern], np.int32))
+    if arch in ("nemotron_h", "nemotron_h_moe"):
+        w.set_kv(f"{arch}.feed_forward_length", np.asarray(
+            [cfg["n_ff"] if c == "F" else 0 for c in pattern], np.int32))
+    if "multipliers" in cfg:
+        embd, res, logit, attn = cfg["multipliers"]
+        w.add_kv(f"{arch}.embedding_scale", embd)
+        w.add_kv(f"{arch}.residual_scale", res)
+        w.add_kv(f"{arch}.logit_scale", logit)
+        w.add_kv(f"{arch}.attention.scale", attn)
+    if "gating" in cfg:
+        w.add_kv(f"{arch}.expert_gating_func", cfg["gating"])
+        w.add_kv(f"{arch}.expert_weights_scale", cfg["weights_scale"])
+        w.add_kv(f"{arch}.expert_weights_norm", cfg["weights_norm"])
+
+
+def _ssm_layers(cfg: dict, n_layer: int, packed, norm, vector, router, w: GGUFWriter,
+                rng: np.random.Generator) -> None:
+    """The layers of a recurrent shape (`pattern` and `ffn`, see SHAPES),
+    with the tensor names llama.cpp's converter writes. An SSM mixer: the
+    in-projection (mamba1 x|z; Mamba-2 z|xBC|dt), the f32 conv kernel
+    [width, d_conv] and bias, dt_bias (dt = softplus(dt_bias) log-uniform in
+    [1e-3, 0.1], as Mamba initialises it), A (the file holds −exp(A_log):
+    mamba1's −1 .. −d_state a row, Mamba-2's −U(1, 16) a head), D = 1, and
+    mamba1's ssm_x and ssm_dt (with jamba's dt/B/C norms) or Mamba-2's
+    grouped norm; the out-projection. Attention: q, k, v, output. The FFN
+    slot: SwiGLU, the gateless ReLU², or a router with expert stacks
+    (gateless for nemotron_h_moe, with its selection bias) and the shared
+    expert (gated but for nemotron_h_moe)."""
+    arch, n_embd, n_ff = cfg["arch"], cfg["n_embd"], cfg["n_ff"]
+    d_inner, d_state, rank, groups, d_conv = cfg["ssm"]
+    n_head, n_kv = cfg["n_head"], cfg["n_head_kv"]
+    head_dim = cfg.get("head_dim", n_embd // max(n_head, 1))
+    E, n_exp = cfg.get("n_expert", 0), cfg.get("n_ff_exp", n_ff)
+    n_sh, gateless = cfg.get("n_ff_shexp", 0), arch == "nemotron_h_moe"
+    width = d_inner + 2 * groups * d_state if groups else d_inner
+
+    def f32(name, a):
+        w.add_tensor(name, np.ascontiguousarray(a, dtype=np.float32))
+
+    for i in range(n_layer):
+        p, kind, ffn = f"blk.{i}.", cfg["pattern"][i], cfg["ffn"][i]
+        norm(p + "attn_norm.weight", n_embd)
+        if kind in "MH":
+            n_proj = 2 * d_inner + (2 * groups * d_state + rank if groups else 0)
+            packed(p + "ssm_in.weight", n_proj, n_embd, i)
+            f32(p + "ssm_conv1d.weight", rng.standard_normal((width, d_conv)) * d_conv ** -0.5)
+            vector(p + "ssm_conv1d.bias", width, 0.1)
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), rank if groups else d_inner))
+            f32(p + "ssm_dt.bias", dt + np.log(-np.expm1(-dt)))  # softplus⁻¹(dt)
+            if groups:
+                f32(p + "ssm_a", -rng.uniform(1.0, 16.0, rank))
+                norm(p + "ssm_d", rank)
+                if cfg.get("ssm_norm"):
+                    vector(p + "ssm_norm.weight", d_inner, 0.1, base=1.0)
+            else:
+                packed(p + "ssm_x.weight", rank + 2 * d_state, d_inner, i)
+                packed(p + "ssm_dt.weight", d_inner, rank, i)
+                f32(p + "ssm_a", -np.tile(np.arange(1.0, d_state + 1.0), (d_inner, 1)))
+                norm(p + "ssm_d", d_inner)
+                if cfg.get("dt_b_c_norms"):
+                    for name, n in (("dt", rank), ("b", d_state), ("c", d_state)):
+                        vector(p + f"ssm_{name}_norm.weight", n, 0.1, base=1.0)
+            packed(p + "ssm_out.weight", n_embd, d_inner, i)
+        if kind in "AH":
+            packed(p + "attn_q.weight", n_head * head_dim, n_embd, i)
+            packed(p + "attn_k.weight", n_kv * head_dim, n_embd, i)
+            packed(p + "attn_v.weight", n_kv * head_dim, n_embd, i)
+            packed(p + "attn_output.weight", n_embd, n_head * head_dim, i)
+        if ffn == "-":
+            continue
+        if kind != "F":  # an FFN-only layer runs on its attn_norm
+            norm(p + "ffn_norm.weight", n_embd)
+        if ffn == "e":
+            router(p + "ffn_gate_inp.weight")
+            if not gateless:
+                packed(p + "ffn_gate_exps.weight", n_exp, n_embd, i, E)
+            packed(p + "ffn_up_exps.weight", n_exp, n_embd, i, E)
+            packed(p + "ffn_down_exps.weight", n_embd, n_exp, i, E)
+            if gateless:
+                vector(p + "exp_probs_b.bias", E, 0.1)
+            if n_sh:
+                if not gateless:
+                    packed(p + "ffn_gate_shexp.weight", n_sh, n_embd, i)
+                packed(p + "ffn_up_shexp.weight", n_sh, n_embd, i)
+                packed(p + "ffn_down_shexp.weight", n_embd, n_sh, i)
+            continue
+        if ffn == "d":
+            packed(p + "ffn_gate.weight", n_ff, n_embd, i)
+        packed(p + "ffn_up.weight", n_ff, n_embd, i)
+        packed(p + "ffn_down.weight", n_embd, n_ff, i)

@@ -31,9 +31,20 @@ its offset on the device (an idle slot's −1 writes none), and a rejected
 draft's rows stay invisible until their positions are written again;
 a verify wider than the ring's `max_rows` is refused.
 
-Not ported yet (ROADMAP.md 1.3.7, 1.3.9, 1.6): mesh serving and the
-pipeline, recurrent archs and multimodal prefill
-(`prefill_slot_embeddings`).
+A recurrent arch (the SSMs and the hybrids: registry `recurrent`) gets its
+own cache with a state a slot. Its state absorbs every token fed, so its
+prompts never run in a joint padded round: `prefill_slots` runs the slots
+one after another, each prompt in exact-length chunks (runtime/engine.py
+`recurrent_chunks`: pieces of prefill_chunk, each cut by the JAX ladder),
+each chunk a forward of the slot's row alone, on a view of its cache rows
+(`slot_view`), so that no idle row runs a layer.
+An idle slot (offset −1) keeps its conv/ssm rows bit for bit through
+every step (the forward selects on the slot axis before each state
+write, on the device), `free_slot` zeroes the slot's state, and there is
+no verify step and no cache shift (ROADMAP.md §3).
+
+Not ported yet (ROADMAP.md 1.3.7, 1.3.9): mesh serving and the pipeline,
+and multimodal prefill (`prefill_slot_embeddings`).
 """
 
 from __future__ import annotations
@@ -44,7 +55,8 @@ import numpy as np
 import torch
 
 from ..ops.rope import rotate_cached_keys
-from .engine import PREFILL_BUCKETS, PerfCounters
+from .engine import (PREFILL_BUCKETS, SPEC_REFUSED, PerfCounters, pool_hidden,
+                     recurrent_chunks)
 from .graph import BatchRunner
 from .kvcache import KVCache, QuantKVCache, SWACache, make_cache, takes_ring
 from .model import Model
@@ -125,12 +137,13 @@ class BatchEngine:
     # -- slot lifecycle ----------------------------------------------------------
 
     def free_slot(self, slot: int):
-        """The slot's state dropped: n_past 0, and on the ring its slot
+        """The slot's state dropped: n_past 0, on the ring its slot
         positions marked empty (in place), so that the next request in it
-        attends nothing of the last one's window."""
+        attends nothing of the last one's window; a recurrent state zeroed
+        (in place)."""
         self.n_past[slot] = 0
         self.rope_delta[slot] = 0
-        if isinstance(self.cache, SWACache):
+        if isinstance(self.cache, SWACache) or self.arch.recurrent:
             self.cache.reset_slots(slot)
 
     def ring_holds(self, slot: int, n: int) -> bool:
@@ -155,21 +168,27 @@ class BatchEngine:
         return torch.from_numpy(a).to(self.device)
 
     def prefill_slot(self, slot: int, tokens: list[int]) -> np.ndarray:
-        """Feed `tokens` into one slot (chunked to prefill_chunk); returns
-        the last token's logits [n_vocab]."""
+        """Feed `tokens` into one slot (chunked to prefill_chunk; a
+        recurrent arch's chunks cut by the ladder, each at its exact
+        length); returns the last token's logits [n_vocab]."""
         logits_last = None
+        if self.arch.recurrent:
+            sizes = recurrent_chunks(len(tokens), self.prefill_chunk)
+        else:
+            sizes = [min(self.prefill_chunk, len(tokens) - i)
+                     for i in range(0, len(tokens), self.prefill_chunk)]
         idx = 0
-        while idx < len(tokens):
-            chunk = tokens[idx: idx + self.prefill_chunk]
-            logits_last = self.prefill_slots_round({slot: chunk})[slot]
-            idx += len(chunk)
+        for c in sizes:
+            logits_last = self.prefill_slots_round({slot: tokens[idx: idx + c]})[slot]
+            idx += c
         return logits_last
 
     def prefill_slots(self, tokens: dict[int, list[int]]) -> dict[int, np.ndarray]:
         """Feed several slots' prompts in joint rounds: each round one chunk
         per slot, per-row offsets, the head on each row's last token.
-        Returns {slot: last-token logits}."""
-        if len(tokens) == 1:
+        Returns {slot: last-token logits}. A recurrent arch's slots run one
+        after another (`prefill_slot`)."""
+        if len(tokens) == 1 or self.arch.recurrent:
             return {s: self.prefill_slot(s, toks) for s, toks in tokens.items()}
         remaining = {s: list(toks) for s, toks in tokens.items()}
         for s, toks in remaining.items():
@@ -192,8 +211,18 @@ class BatchEngine:
     def prefill_slots_round(self, chunk: dict[int, list[int]]) -> dict[int, np.ndarray]:
         """One joint prefill round: at most prefill_chunk tokens of each
         slot in `chunk` through one forward of n_slots × bucket rows (the
-        other slots idle at offset −1); each fed slot's last-row logits."""
+        other slots idle at offset −1); each fed slot's last-row logits. A
+        recurrent arch runs each slot's chunk as a forward of its own row
+        at its exact length (`_slot_forward`)."""
         t0 = time.perf_counter()
+        if self.arch.recurrent:  # each slot a forward of its own row, at its exact length
+            rows = {s: self._slot_forward(s, c, last_index=len(c) - 1)[0, 0].cpu().numpy()
+                    for s, c in chunk.items()}
+            for s, c in chunk.items():
+                self.n_past[s] += len(c)
+                self.perf.n_prefill += len(c)
+            self.perf.t_prefill_s += time.perf_counter() - t0
+            return rows
         bucket = self._bucket(max(len(c) for c in chunk.values()))
         toks = np.zeros((self.n_slots, bucket), dtype=np.int64)
         pos = np.zeros((self.n_slots, bucket), dtype=np.int32)
@@ -220,6 +249,21 @@ class BatchEngine:
         self.perf.t_prefill_s += time.perf_counter() - t0
         return rows
 
+    def _slot_forward(self, slot: int, tokens: list[int], **kw):
+        """A recurrent slot's forward: `tokens` as one row at the slot's
+        n_past, on a view of its cache rows (`slot_view`), so that no other
+        slot's row runs a layer. Returns the forward's output."""
+        start = int(self.n_past[slot])
+        n = len(tokens)
+        if start + n > self.max_seq:
+            raise ValueError(f"slot {slot} context overflow: {start}+{n}")
+        rs = start + int(self.rope_delta[slot])
+        out, _ = self.arch.forward(
+            self.hp, self.params, self._dev(np.asarray([tokens], dtype=np.int64)),
+            self._dev(np.arange(rs, rs + n, dtype=np.int32)[None]),
+            self.cache.slot_view(slot), start, **kw)
+        return out
+
     def prefill_slot_embeddings(self, slot: int, embds, positions=None, deepstack=None):
         raise _not_ported("multimodal prefill (mtmd)", "1.3.7")
 
@@ -231,6 +275,11 @@ class BatchEngine:
         non-causal model (llama-embed) runs at offset n over its slot's
         first n cache slots zeroed, as Engine.embed_tokens (see there)."""
         pooling = pooling or (self.hp.pooling if self.hp.pooling != "none" else "mean")
+        if self.arch.recurrent:  # from a zero state, one row; the slot is freed after
+            self.free_slot(slot)
+            hidden = self._slot_forward(slot, tokens, return_hidden=True)
+            self.free_slot(slot)
+            return pool_hidden(hidden[0].cpu().numpy(), pooling, normalize)
         n = len(tokens)
         bucket = self._bucket(n)
         toks = np.zeros((self.n_slots, bucket), dtype=np.int64)
@@ -248,18 +297,7 @@ class BatchEngine:
             self.hp, self.params, self._dev(toks), self._dev(pos), self.cache,
             self._dev(offsets), return_hidden=True)
         self.n_past[slot] = 0
-        h = hidden[slot, :n].cpu().numpy()
-        if pooling == "mean":
-            v = h.mean(axis=0)
-        elif pooling == "cls":
-            v = h[0]
-        elif pooling == "last":
-            v = h[-1]
-        else:
-            raise ValueError(f"unsupported pooling {pooling!r}")
-        if normalize:
-            v = v / max(np.linalg.norm(v), 1e-12)
-        return v
+        return pool_hidden(hidden[slot, :n].cpu().numpy(), pooling, normalize)
 
     def verify_step(self, tokens: dict[int, list[int]], width: int) -> BatchRunner:
         """Speculative verification (≡ the reference server's can_speculate
@@ -270,7 +308,10 @@ class BatchEngine:
         `tokens` idle. Does NOT advance n_past: the caller commits the
         accepted prefix. Returns the runner, whose `ids` [slots, width] and
         `logits` [slots, width, V] hold the rows until its next run. On the
-        ring, `width` is at most the cache's `max_rows`."""
+        ring, `width` is at most the cache's `max_rows`. Refused on a
+        recurrent arch (ROADMAP.md §3)."""
+        if self.arch.recurrent:
+            raise ValueError(SPEC_REFUSED)
         if isinstance(self.cache, SWACache) and width > self.cache.max_rows:
             raise ValueError(f"a verify of {width} rows a slot on a ring of "
                              f"{self.cache.ring_len} slots (window {self.cache.window}) "
@@ -315,8 +356,9 @@ class BatchEngine:
     @property
     def can_shift(self) -> bool:
         """Whether cached K rows can be moved by re-rotating them (the JAX
-        package's rule for the archs the port has)."""
-        return (isinstance(self.cache, (KVCache, QuantKVCache))
+        package's rule for the archs the port has: never on recurrent
+        state)."""
+        return (isinstance(self.cache, (KVCache, QuantKVCache)) and not self.arch.recurrent
                 and self.hp.no_rope_step == 0
                 and self.hp.rope.scaling_type != "longrope"
                 and self.hp.rope.dims > 0)

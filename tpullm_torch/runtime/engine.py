@@ -21,6 +21,16 @@ The cache is written in place and never replaced by the engine's own
 paths, so the runners' graphs stay valid across `reset`, prefills and
 runtime/state.py's `load_state`; `new_cache` makes a new one and drops them.
 
+A recurrent arch (registry `recurrent`: the SSMs and the hybrids) gets
+its own cache (runtime/recurrent.py RecurrentCache, models/jamba.py
+HybridCache), whose state absorbs every token fed: no path pads its
+prompts. A prompt runs in chunks of the prefill cap, each cut by the JAX
+package's ladder (512, 128, 32, 8, 1) (`recurrent_chunks`: 600 tokens run
+as 512, 32, 32, 8, 8, 8), every chunk at its exact length; `reset` and
+`new_cache` zero the state. Speculative verification is refused there (a
+rejected draft would stay in the state: ROADMAP.md §3), and `feed` of
+several tokens prefills them.
+
 An iSWA model (registry `iswa`: gemma2, gemma3) gets the ring cache
 (runtime/kvcache.py SWACache) as the JAX package gives it: a dense cache
 dtype, a window, max_seq above it and no `swa_full`; its prefill then runs
@@ -64,6 +74,42 @@ from .sampling import Sampler, SamplerParams
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 PREFILL_CHUNK = 4096  # longer prompts prefill in chunks of this many tokens
+# the JAX package's chunk ladder of a recurrent prefill (Engine._RECURRENT_CHUNKS)
+RECURRENT_CHUNKS = (512, 128, 32, 8, 1)
+SPEC_REFUSED = ("speculative decoding on a recurrent model is refused: its state absorbs a "
+                "rejected draft, which no rewind of n_past takes back (ROADMAP.md §3, "
+                "\"Speculation on recurrent state\")")
+
+
+def recurrent_chunks(n: int, cap: int) -> list[int]:
+    """The exact-length chunks of a recurrent prompt of n tokens: pieces
+    of at most `cap`, each cut greedily by RECURRENT_CHUNKS, as the JAX
+    Engine's prefill recursion cuts them."""
+    out = []
+    while n > 0:
+        piece = min(n, cap)
+        n -= piece
+        while piece:
+            c = next(c for c in RECURRENT_CHUNKS if c <= piece)
+            out.append(c)
+            piece -= c
+    return out
+
+
+def pool_hidden(h: np.ndarray, pooling: str, normalize: bool) -> np.ndarray:
+    """One sequence's final-norm hidden states [n, E] pooled to [E] (mean |
+    cls | last), L2-normalised with `normalize`."""
+    if pooling == "mean":
+        v = h.mean(axis=0)
+    elif pooling == "cls":
+        v = h[0]
+    elif pooling == "last":
+        v = h[-1]
+    else:
+        raise ValueError(f"unsupported pooling {pooling!r}")
+    if normalize:
+        v = v / max(np.linalg.norm(v), 1e-12)
+    return v
 
 
 @dataclass
@@ -185,9 +231,10 @@ class Engine:
 
     def reset(self):
         """n_past 0; on the ring every slot marked empty (in place), so that
-        a new sequence attends no entry of the last one."""
+        a new sequence attends no entry of the last one; a recurrent state
+        zeroed (in place)."""
         self.n_past = 0
-        if isinstance(self.cache, SWACache):
+        if isinstance(self.cache, SWACache) or self.arch.recurrent:
             self.cache.reset_slots()
 
     def new_cache(self, kv_dtype=None, swa_full: bool | None = None):
@@ -210,6 +257,8 @@ class Engine:
         self.n_past = 0
 
     def _bucket(self, n: int) -> int:
+        if self.arch.recurrent:  # pad tokens would enter the state
+            return n
         for b in PREFILL_BUCKETS:
             if n <= b:
                 return min(b, self.max_seq)
@@ -233,6 +282,11 @@ class Engine:
         n = len(tokens)
         if self.n_past + n > self.max_seq:
             raise ValueError(f"context overflow: {self.n_past}+{n} > {self.max_seq}")
+        if self.arch.recurrent:  # exact-length chunks, the last one's logits
+            for c in recurrent_chunks(n, self.prefill_cap)[:-1]:
+                self._prefill_logits(tokens[:c])
+                tokens = tokens[c:]
+            n = len(tokens)
         while n > self.prefill_cap:  # long prompts prefill in chunks
             self._prefill_logits(tokens[: self.prefill_cap])
             tokens = tokens[self.prefill_cap:]
@@ -351,6 +405,8 @@ class Engine:
         forward would overwrite slots its own queries see); the engine's
         verify takes at most prefill_cap rows a forward, which the ring is
         sized for."""
+        if self.arch.recurrent:
+            raise ValueError(SPEC_REFUSED)
         if isinstance(self.cache, SWACache) and rows > self.cache.max_rows:
             raise ValueError(f"a verify forward of {rows} rows on a ring of "
                              f"{self.cache.ring_len} slots (window {self.cache.window}) "
@@ -403,7 +459,7 @@ class Engine:
             with torch.inference_mode():
                 self.logits_runner().run(tokens[0], self.n_past)
             self.n_past += 1
-        elif 1 < len(tokens) <= PREFILL_BUCKETS[1]:
+        elif 1 < len(tokens) <= PREFILL_BUCKETS[1] and not self.arch.recurrent:
             self._verify(tokens)
         elif tokens:
             self._prefill_logits(tokens)
@@ -533,7 +589,8 @@ class Engine:
         """Pooled embedding vector [n_embd] of the final-norm hidden states
         (llama_get_embeddings_seq): pooling mean | cls | last (default the
         model's pooling_type, mean if unset), L2-normalised with
-        `normalize`. A throwaway prefill at slot 0; n_past is 0 after.
+        `normalize`. A throwaway prefill at slot 0; n_past is 0 after (a
+        recurrent state runs from zero and is zero after).
 
         A non-causal model (llama-embed): the JAX package runs its forward at
         cache offset n (the token count) and positions 0 .., so that the
@@ -549,6 +606,8 @@ class Engine:
         n = len(tokens)
         toks = self._padded(tokens)
         offset = 0
+        if self.arch.recurrent:  # from a zero state, and zero after (n_past is 0)
+            self.cache.reset_slots()
         if not self.hp.causal:
             if n + toks.shape[1] > self.max_seq:
                 raise ValueError(f"a non-causal embedding of {n} tokens (bucket "
@@ -561,18 +620,9 @@ class Engine:
             self.hp, self.params, toks, pos[None].expand(self.batch, -1), self.cache, offset,
             return_hidden=True)
         self.n_past = 0  # the embedding pass does not advance generation state
-        h = hidden[0, :len(tokens)].cpu().numpy()  # [n, E] f32
-        if pooling == "mean":
-            v = h.mean(axis=0)
-        elif pooling == "cls":
-            v = h[0]
-        elif pooling == "last":
-            v = h[-1]
-        else:
-            raise ValueError(f"unsupported pooling {pooling!r}")
-        if normalize:
-            v = v / max(np.linalg.norm(v), 1e-12)
-        return v
+        if self.arch.recurrent:
+            self.cache.reset_slots()
+        return pool_hidden(hidden[0, :len(tokens)].cpu().numpy(), pooling, normalize)
 
     def embed(self, text: str, pooling: str | None = None, normalize: bool = True) -> np.ndarray:
         ids = self.tokenizer.tokenize(text, add_special=True, parse_special=True)

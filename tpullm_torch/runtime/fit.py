@@ -23,7 +23,12 @@ inputs differ from the JAX tool's:
     runtime/kvcache.py, an MLA latent for deepseek2, the iSWA ring for
     gemma2/gemma3, sized at the wanted context), where the JAX tool counts
     2·Hkv·D bytes a layer for bf16 and half for q8 (the port's q8 cache
-    also keeps an f32 scale a vector: 2·D·Hkv + 8·Hkv).
+    also keeps an f32 scale a vector: 2·D·Hkv + 8·Hkv);
+  * a recurrent model's state is counted a slot (`state_bytes_per_slot`:
+    runtime/recurrent.py RecurrentCache's f32 conv tail and scan state of
+    every layer; a hybrid's (models/jamba.py HybridCache) of its mixer
+    layers only, beside K/V of its attention layers only), where the JAX
+    tool counts K/V at full depth and no state.
 The rule gives an Engine's weights and cache, not the load's transients
 (a tensor's repack) nor a forward's activations: the reserve holds those.
 """
@@ -52,12 +57,14 @@ class FitResult:
     max_seq: int
     n_slots: int
     fits: bool
+    state_bytes_per_slot: int = 0  # a recurrent model's state a sequence
 
     @property
     def predicted_bytes(self) -> int:
         """The weights and the cache (of n_slots rows) at the fitted context:
         what the rule sets beside the reserve."""
-        return self.weight_bytes + self.kv_bytes_per_token * self.max_seq * self.n_slots
+        return self.weight_bytes + (self.kv_bytes_per_token * self.max_seq
+                                    + self.state_bytes_per_slot) * self.n_slots
 
 
 def linear_bytes(gtype, n_in: int, n_out: int) -> int:
@@ -112,21 +119,27 @@ def cache_bytes(r: GGUFReader, kv_type, max_seq: int, n_slots: int = 1) -> int:
 
 
 def fit_rule(weights: int, kv_per_tok: int, hbm: int, want_seq: int, want_slots: int,
-             reserve_frac: float = RESERVE_FRAC) -> FitResult:
+             reserve_frac: float = RESERVE_FRAC, state_per_slot: int = 0) -> FitResult:
     """The JAX tool's rule: the cache takes what the reserve and the weights
     leave; slots are shed before context falls under ALIGN; the context is
-    rounded down to ALIGN (or left as it is below it)."""
+    rounded down to ALIGN (or left as it is below it). A recurrent state
+    (`state_per_slot`) is taken from the budget once a slot."""
     budget = int(hbm * (1.0 - reserve_frac)) - weights
     if budget <= 0:
-        return FitResult(weights, kv_per_tok, 0, 0, False)
-    max_total = budget // max(kv_per_tok, 1)
+        return FitResult(weights, kv_per_tok, 0, 0, False, state_per_slot)
+
+    def seq(n_slots: int) -> int:
+        left = budget - state_per_slot * n_slots
+        return min(want_seq, max(left, 0) // max(kv_per_tok, 1) // max(n_slots, 1))
+
     n_slots = want_slots
-    max_seq = min(want_seq, max_total // max(n_slots, 1))
+    max_seq = seq(n_slots)
     while max_seq < ALIGN and n_slots > 1:  # shed slots before context
         n_slots -= 1
-        max_seq = min(want_seq, max_total // max(n_slots, 1))
+        max_seq = seq(n_slots)
     max_seq = max(0, (max_seq // ALIGN) * ALIGN or min(max_seq, want_seq))
-    return FitResult(weights, kv_per_tok, int(max_seq), n_slots, max_seq >= ALIGN)
+    return FitResult(weights, kv_per_tok, int(max_seq), n_slots, max_seq >= ALIGN,
+                     state_per_slot)
 
 
 def fit_params(model_path, *, want_seq: int = 4096, want_slots: int = 1, kv_type="bf16",
@@ -145,10 +158,12 @@ def fit_params(model_path, *, want_seq: int = 4096, want_slots: int = 1, kv_type
     r = GGUFReader(model_path)
     try:
         weights = weight_bytes(r)
-        kv_per_tok = cache_bytes(r, kv_type, want_seq) // want_seq
+        state = cache_bytes(r, kv_type, 0)  # what a sequence holds at no position
+        kv_per_tok = (cache_bytes(r, kv_type, want_seq) - state) // want_seq
     finally:
         r.close()
-    return fit_rule(weights, kv_per_tok, hbm_bytes, want_seq, want_slots, reserve_frac)
+    return fit_rule(weights, kv_per_tok, hbm_bytes, want_seq, want_slots, reserve_frac,
+                    state)
 
 
 def main(argv=None):
@@ -167,6 +182,8 @@ def main(argv=None):
                      device=args.device)
     print(f"weights (planes):   {res.weight_bytes / 2**30:.2f} GiB")
     print(f"kv bytes/token:     {res.kv_bytes_per_token}")
+    if res.state_bytes_per_slot:
+        print(f"state bytes/slot:   {res.state_bytes_per_slot}")
     print(f"predicted:          {res.predicted_bytes / 2**30:.2f} GiB (weights + cache)")
     print(f"fitted:             -c {res.max_seq} -np {res.n_slots}"
           + ("" if res.fits else "  (DOES NOT FIT)"))

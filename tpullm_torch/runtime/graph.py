@@ -57,6 +57,14 @@ positions of the step it was captured at. On an iSWA ring the cache's
 `advance` computes the ring rows from the same device offset, so a verify
 replayed after a rollback writes the slots of the rewound positions.
 
+On a recurrent arch (runtime/recurrent.py, models/jamba.py) the step's
+state writes are in place too: the decode and logits runners write every
+row's state, a BatchRunner's idle slots (offset −1) keep theirs through a
+select on the device, and Engine.reset, a new prompt and
+BatchEngine.free_slot zero or overwrite the same buffers, so the graphs
+stay valid. A VerifyRunner is refused there (runtime/engine.py
+SPEC_REFUSED: a rejected draft would stay in the state).
+
 All follow one set of rules (`_CapturedStep`): the step reads and writes
 only device buffers, the engine's parameters and its cache, which is
 written in place (runtime/kvcache.py), so a captured graph stays valid
@@ -278,6 +286,10 @@ class VerifyRunner(_CapturedStep):
     and replayed."""
 
     def __init__(self, engine, rows: int):
+        if engine.arch.recurrent:
+            from .engine import SPEC_REFUSED
+
+            raise ValueError(SPEC_REFUSED)
         super().__init__(engine)
         dev = engine.device
         self.rows = rows

@@ -280,7 +280,15 @@ class MLACache:
 def describe(cache) -> str:
     """A cache's kind, dtype and bytes a cached position (every layer and
     store, one batch row; a ring's slots counted as positions), for
-    Engine.report."""
+    Engine.report; a recurrent state (runtime/recurrent.py RecurrentCache,
+    models/jamba.py HybridCache) its bytes a sequence beside its K/V's."""
+    if hasattr(cache, "state_bytes"):
+        kv = [a for a in (getattr(cache, "k", None), getattr(cache, "v", None)) if a is not None]
+        per = sum(a[:, :1, :, :1].nbytes for a in kv)
+        dtype = str((kv[0] if kv else cache.ssm).dtype).removeprefix("torch.")
+        pos = f"{per} B a position, " if kv else ""
+        return (f"{type(cache).__name__} {dtype} ({pos}{cache.state_bytes()} B of f32 state "
+                "a sequence)")
     arrs = [v for v in vars(cache).values() if isinstance(v, torch.Tensor) and v.dim() >= 4]
     per = sum(a.numel() // (a.shape[1] * a.shape[3]) * a.element_size() for a in arrs)
     dtype = str(arrs[0].dtype).removeprefix("torch.")

@@ -20,6 +20,11 @@ the logits and verify graphs) and drafts greedily through a decode runner
 (runtime/graph.py `DecodeRunner`: k steps with the argmax on the device,
 the ids read back once).
 
+A recurrent model (the SSMs and the hybrids) is refused as a target and as
+a draft: its state absorbs every token fed, and rewinding n_past leaves a
+rejected draft in it (the JAX package's generate_speculative rewinds
+n_past alone; ROADMAP.md §3).
+
 Speculator contract:
   resync(ctx)       — bring internal state to "has processed ctx[:-1]";
                       ctx is the authoritative token list ending in the next
@@ -34,7 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.sampling_ops import SamplingParams
-from .engine import Engine
+from .engine import SPEC_REFUSED, Engine
 from .sampling import Sampler, SamplerParams, argmax_exact
 
 GREEDY = SamplingParams(temp=0.0)
@@ -44,6 +49,8 @@ class DraftModelSpeculator:
     """Greedy draft continuation from a (smaller) second model."""
 
     def __init__(self, engine: Engine, n_draft: int = 5):
+        if engine.arch.recurrent:
+            raise ValueError(SPEC_REFUSED)
         self.engine = engine
         self.n_draft = n_draft
 
@@ -292,6 +299,8 @@ def generate_speculative(
     applied to the target logits at that position, yields the same id
     (exact-match acceptance, the reference's default). A sampler that picks
     the argmax (`argmax_exact`) reads back the verified rows' ids only."""
+    if target.arch.recurrent:
+        raise ValueError(SPEC_REFUSED)
     sampler = sampler or Sampler(SamplerParams(temp=0.0))
     stats = SpecStats()
     vocab = target.tokenizer.vocab

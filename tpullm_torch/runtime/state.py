@@ -29,6 +29,12 @@ MLACache engine of that width, and a file of another cache not into one.
 
 A q8 cache has no dense K/V to save (the JAX package's QuantKVCache has no
 `.k` either) and raises a ValueError.
+
+A recurrent model's cache (runtime/recurrent.py RecurrentCache,
+models/jamba.py HybridCache) is refused with a ValueError, both ways: the
+JAX package's format keeps no conv/ssm state (its RecurrentCache has no
+`k` and raises; its HybridCache saves the K/V alone), and restoring half a
+state would continue a sequence from the wrong one (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ import torch
 from .kvcache import MLACache, SWACache
 
 MAGIC = "tpullm-state-v1"
+STATE_REFUSED = ("state files hold no recurrent state: a recurrent model's cache is refused "
+                 "rather than saved or restored in half (ROADMAP.md §3, \"State files of "
+                 "recurrent models\")")
 
 
 def _meta(hp) -> dict:
@@ -55,6 +64,8 @@ def _dense_cache(engine):
     """The engine's cache as (k, v) [L, B, Hkv, S, D] of the layers the
     file's `k`/`v` hold (a ring cache: its full-attention layers)."""
     cache = engine.cache
+    if engine.arch.recurrent:
+        raise ValueError(f"{STATE_REFUSED} ({type(cache).__name__})")
     if isinstance(cache, SWACache):
         return cache.full_k, cache.full_v
     if isinstance(cache, MLACache):  # the latent is the state; no V plane
@@ -90,6 +101,7 @@ def _save_row(engine, row: int, n: int, path, tokens):
 def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
     """The file's rows written into batch row `row` of the engine's cache,
     in place; (n_past, tokens)."""
+    ck, cv = _dense_cache(engine)
     with np.load(path, allow_pickle=False) as z:
         _check(engine.hp, z)
         n = int(z["n_past"])
@@ -107,7 +119,6 @@ def _load_row(engine, row: int, path) -> tuple[int, list[int]]:
         if ring and (int(z["swa_window"]) != cache.window
                      or z["swa_k"].shape[2] != cache.ring_len):
             raise ValueError("iSWA state geometry mismatch (window/ring)")
-        ck, cv = _dense_cache(engine)
         with torch.inference_mode():
             if n:
                 ck[:, row, :, :n].copy_(torch.from_numpy(z["k"]))

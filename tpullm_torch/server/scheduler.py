@@ -18,6 +18,14 @@ one graph replay of n_draft + 1 rows a slot) checks them all; each slot
 keeps the longest prefix its sampler agrees with (exact match), so the
 output is the plain scheduler's. Greedy slots read back the verified ids
 only, sampled slots their own rows of logits.
+
+On a recurrent engine (the SSMs and the hybrids), the JAX package's rules:
+speculation is switched off (the state cannot take back a rejected draft)
+and a recurrent draft engine is refused; a slot's prompt is prefilled at
+once, at exact length (BatchEngine.prefill_slot), never in a joint padded
+round; and a cached prefix is reused only where the new prompt extends
+every token the slot's state absorbed (n_common == n_past), else the slot
+starts from zero.
 """
 
 from __future__ import annotations
@@ -98,6 +106,14 @@ class Scheduler:
             raise ValueError("spec_type=draft requires a draft_engine")
         if draft_engine is not None and spec_type is None:
             self.spec_type = "draft"
+        if engine.arch.recurrent and self.spec_type is not None:
+            # the state absorbs every verified token and cannot roll back a
+            # rejected draft: speculation is switched off (the JAX rule)
+            self.spec_type = None
+            self.draft_engine = None
+        if self.draft_engine is not None and self.draft_engine.arch.recurrent:
+            raise ValueError("a recurrent draft model cannot rewind; use a KV-cache draft "
+                             "model (ROADMAP.md §3, \"Speculation on recurrent state\")")
         self.n_draft = max(1, n_draft)
         # --cache-reuse: min chunk length for mid-prompt KV reuse via
         # position shifting (0 = common-prefix reuse only)
@@ -288,6 +304,11 @@ class Scheduler:
                 # overflow, a failed admission): give it back so later queue
                 # entries can admit this pass
                 free.append(slot)
+            elif self.engine.arch.recurrent:
+                # recurrent prefills run at once, at exact length
+                logits = self.engine.prefill_slot(slot.index, tail)
+                slot.state = SlotState.GENERATING
+                self._advance(slot, logits, first=True)
             else:
                 slot.prefill_tail = tail
                 slot.state = SlotState.PREFILLING
@@ -513,6 +534,10 @@ class Scheduler:
         # decoded back in).
         n_common = min(self._common_prefix(slot.tokens, req.prompt_ids), n - 1,
                        int(eng.n_past[slot.index]))
+        if eng.arch.recurrent and n_common != int(eng.n_past[slot.index]):
+            # the state holds every absorbed token: reused only where the new
+            # prompt extends all of them, never cut back to a shorter prefix
+            n_common = 0
         n_valid = n_common
         if n_common > 0 and self.cache_reuse > 0:
             n_valid = self._cache_reuse_shift(slot, req.prompt_ids, n_common)

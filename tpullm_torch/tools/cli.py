@@ -142,6 +142,10 @@ def make_sampler(args):
 
 def run_completion(args) -> int:
     eng = make_engine(args)
+    if args.prompt_cache and eng.arch.recurrent:  # refused before anything is generated
+        from ..runtime.state import STATE_REFUSED
+
+        raise SystemExit(f"--prompt-cache: {STATE_REFUSED}")
     sampler = make_sampler(args)
     prompt = args.prompt if args.prompt is not None else sys.stdin.read()
     if not args.no_display_prompt:
